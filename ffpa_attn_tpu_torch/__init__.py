@@ -1,0 +1,20 @@
+"""FFPA attention for large head dims, ported to PyTorch and CUDA on Hopper.
+
+The PyTorch/CUDA counterpart of ``ffpa_attn_tpu``: the same public surface,
+the same ``[B, H, N, D]`` layout, with the Pallas TPU kernels replaced by
+kernels hand-written in CUDA C++ for ``sm_90a`` (``csrc/``, built with nvcc at
+first use). CPU tensors run each kernel's plain PyTorch version.
+"""
+
+from .functional import Backend, CudaBackend, FFPAAttnMeta, SDPABackend
+from .interface import ffpa_attn_func
+from .version import __version__
+
+__all__ = [
+    "ffpa_attn_func",
+    "Backend",
+    "SDPABackend",
+    "CudaBackend",
+    "FFPAAttnMeta",
+    "__version__",
+]

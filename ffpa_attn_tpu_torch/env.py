@@ -1,0 +1,73 @@
+"""Runtime environment flags and device selection for the PyTorch/CUDA port.
+
+Only the readers this port uses are here, under the port's own
+``FFPA_TORCH_*`` names. All flags are read lazily so tests can monkeypatch
+``os.environ``.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Union
+
+import torch
+
+
+def _env_bool(name: str, default: bool = False) -> bool:
+    val = os.environ.get(name)
+    if val is None:
+        return default
+    return val.strip().lower() in ("1", "true", "yes", "on")
+
+
+def _env_int(name: str, default: int) -> int:
+    val = os.environ.get(name)
+    if val is None:
+        return default
+    try:
+        return int(val)
+    except ValueError:
+        return default
+
+
+class ENV:
+    """Namespace of runtime env flags."""
+
+    @staticmethod
+    def allow_small_d() -> bool:
+        """Allow the kernel path for D <= 256 (otherwise it falls back to the
+        fp32 reference)."""
+        return _env_bool("FFPA_TORCH_ALLOW_SMALL_D", False)
+
+    @staticmethod
+    def min_seqlen_q() -> int:
+        """Below this Nq (but above the decode threshold of 8) the call falls
+        back to the fp32 reference."""
+        return _env_int("FFPA_TORCH_MIN_SEQLEN_Q", 128)
+
+    @staticmethod
+    def min_seqlen_kv() -> int:
+        return _env_int("FFPA_TORCH_MIN_SEQLEN_KV", 128)
+
+    @staticmethod
+    def device_log_level() -> int:
+        """Kernel trace level: 0 off | 1 host-only (logger.py) | 2 one log
+        line per kernel launch (grid, tile, shared memory) | 3 the same,
+        plus the launch's split-KV layout for decode."""
+        return _env_int("FFPA_TORCH_DEVICE_LOG_LEVEL", 0)
+
+
+def resolve_device(device: Union[str, torch.device, None] = None) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller asks for
+    another. Asking for CUDA (explicitly or by default) on a machine with no
+    card raises; nothing falls back to the CPU quietly."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA device requested but torch.cuda.is_available() is False; "
+            "pass device='cpu' to run the plain PyTorch path"
+        )
+    return dev
+
+
+__all__ = ["ENV", "resolve_device"]

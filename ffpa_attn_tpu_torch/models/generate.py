@@ -1,0 +1,172 @@
+"""KV-cache autoregressive generation for the FFPA transformer.
+
+The prefill runs the causal forward kernel over the prompt while writing the
+per-layer KV cache; each decode step computes one token's q/k/v, writes it
+into the cache and attends over the whole cache through the split-KV decode
+kernel, with an additive validity bias masking the rows past the current
+position. The cache has a static shape [B, Hkv, max_len, Dh].
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..env import resolve_device
+from ..interface import ffpa_attn_func
+from ..ops.reference import DEFAULT_MASK_VALUE
+from .sampling import sample_logits
+from .transformer import Block, ModelConfig, Transformer, _mlp, _rmsnorm, _rope
+
+
+def _feature_kwargs(cfg: ModelConfig, layer: Block, *, window: bool = True) -> dict:
+    """ffpa_attn_func extras for the model's attention features.
+
+    ``window=False`` omits window_size where the window is realized through
+    the validity bias instead (decode over a cache longer than the current
+    position)."""
+    extra = {}
+    if window and cfg.sliding_window > 0:
+        extra["window_size"] = (cfg.sliding_window, -1)
+    if cfg.attn_softcap > 0.0:
+        extra["softcap"] = cfg.attn_softcap
+    if cfg.attn_sinks:
+        extra["sinks"] = layer.attn_sinks
+    return extra
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
+    dev = resolve_device(device)
+    shape = (batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+    return [
+        {
+            "k": torch.zeros(shape, dtype=cfg.torch_dtype, device=dev),
+            "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=dev),
+        }
+        for _ in range(cfg.n_layers)
+    ]
+
+
+def _project_qkv(layer: Block, x, cfg: ModelConfig, positions):
+    b, n, _ = x.shape
+    dh = cfg.head_dim
+    q = layer.wq(x).reshape(b, n, cfg.n_heads, dh).transpose(1, 2)
+    k = layer.wk(x).reshape(b, n, cfg.n_kv_heads, dh).transpose(1, 2)
+    v = layer.wv(x).reshape(b, n, cfg.n_kv_heads, dh).transpose(1, 2)
+    return _rope(q, positions), _rope(k, positions), v
+
+
+@torch.inference_mode()
+def prefill(model: Transformer, tokens, cache):
+    """Run the prompt through the model, filling ``cache[:, :, :n]``.
+
+    Returns (logits_last [B, vocab], cache)."""
+    cfg = model.cfg
+    b, n = tokens.shape
+    x = model.embed[tokens]
+    positions = torch.arange(n, device=tokens.device)
+    enable_gqa = cfg.n_heads != cfg.n_kv_heads
+    for li, layer in enumerate(model.layers):
+        h = _rmsnorm(x, layer.attn_norm)
+        q, k, v = _project_qkv(layer, h, cfg, positions)
+        # In place, where the JAX package returns a new cache from
+        # dynamic_update_slice: rows [0, n) of this layer's cache.
+        cache[li]["k"][:, :, :n] = k
+        cache[li]["v"][:, :, :n] = v
+        o = ffpa_attn_func(
+            q, k, v, is_causal=True, enable_gqa=enable_gqa,
+            **_feature_kwargs(cfg, layer),
+        )
+        o = o.transpose(1, 2).reshape(b, n, cfg.n_heads * cfg.head_dim)
+        x = x + layer.wo(o)
+        h = _rmsnorm(x, layer.mlp_norm)
+        x = x + _mlp(layer, h)
+    x = _rmsnorm(x[:, -1:], model.final_norm)
+    return (x @ model.embed.T)[:, 0], cache
+
+
+@torch.inference_mode()
+def decode_step(model: Transformer, cache, pos: int, token):
+    """One autoregressive step.
+
+    Args:
+      cache: per-layer KV cache, updated in place and returned.
+      pos: index the new token is written at.
+      token: [B] int.
+
+    Returns (logits [B, vocab], cache).
+    """
+    cfg = model.cfg
+    b = token.shape[0]
+    max_len = cache[0]["k"].shape[2]
+    dev = token.device
+    x = model.embed[token][:, None]  # [B, 1, D]
+    positions = torch.full((1,), pos, dtype=torch.int64, device=dev)
+    # Validity bias over the cache: rows <= pos participate; a model sliding
+    # window also drops rows before pos - W.
+    cache_rows = torch.arange(max_len, device=dev)
+    valid = cache_rows <= pos
+    if cfg.sliding_window > 0:
+        valid = valid & (cache_rows >= pos - cfg.sliding_window)
+    bias = torch.where(valid, 0.0, DEFAULT_MASK_VALUE).float()[None, None, None, :]
+    enable_gqa = cfg.n_heads != cfg.n_kv_heads
+
+    for li, layer in enumerate(model.layers):
+        h = _rmsnorm(x, layer.attn_norm)
+        q, k, v = _project_qkv(layer, h, cfg, positions)
+        # In place, where the JAX package uses dynamic_update_slice.
+        cache[li]["k"][:, :, pos : pos + 1] = k
+        cache[li]["v"][:, :, pos : pos + 1] = v
+        o = ffpa_attn_func(
+            q, cache[li]["k"], cache[li]["v"], attn_mask=bias,
+            enable_gqa=enable_gqa, **_feature_kwargs(cfg, layer, window=False),
+        )
+        x = x + layer.wo(o.transpose(1, 2).reshape(b, 1, -1))
+        h = _rmsnorm(x, layer.mlp_norm)
+        x = x + _mlp(layer, h)
+    x = _rmsnorm(x[:, -1], model.final_norm)
+    return x @ model.embed.T, cache
+
+
+@torch.inference_mode()
+def generate(
+    model: Transformer,
+    prompt: torch.Tensor,
+    steps: int,
+    max_len: Optional[int] = None,
+    greedy: bool = True,
+    temperature: float = 0.0,
+    top_k: int = 0,
+    top_p: float = 1.0,
+    generator: Optional[torch.Generator] = None,
+):
+    """Autoregressive generation: prompt [B, Np] -> tokens [B, steps].
+
+    One prefill, then one ``decode_step`` per output token (the JAX
+    package's scan becomes a Python loop). The default is greedy argmax; a
+    positive ``temperature`` samples with optional top-k / top-p from
+    ``generator``. Runs on the model's device.
+    """
+    cfg = model.cfg
+    dev = model.embed.device
+    prompt = prompt.to(dev)
+    b, np_ = prompt.shape
+    max_len = max_len or (np_ + steps)
+    cache = init_kv_cache(cfg, b, max_len, device=dev)
+    if not greedy and temperature <= 0.0:
+        temperature = 1.0
+    ctl = dict(temperature=temperature, top_k=top_k, top_p=top_p,
+               sampled=float(temperature) > 0.0)
+
+    logits, cache = prefill(model, prompt, cache)
+    tok = sample_logits(logits, generator, **ctl)
+    toks = []
+    for i in range(steps):
+        logits, cache = decode_step(model, cache, np_ + i, tok)
+        toks.append(tok)
+        tok = sample_logits(logits, generator, **ctl)
+    return torch.stack(toks, dim=1)
+
+
+__all__ = ["init_kv_cache", "prefill", "decode_step", "generate"]

@@ -1,0 +1,42 @@
+"""Block-config selection: heuristic defaults from the shared-memory cost
+model. (There is no tuned-config store in the port yet.)"""
+
+from __future__ import annotations
+
+import torch
+
+from .config import SMEM_LIMIT_BYTES, BlockConfig, decode_smem_bytes, default_config
+
+
+def pick_forward_config(
+    *,
+    d: int,
+    dv: int,
+    nq: int,
+    nkv: int,
+    dtype: torch.dtype,
+) -> BlockConfig:
+    """Heuristic forward config: the taller row tile where it fits."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return default_config(d, dv, nq, nkv, itemsize=itemsize)
+
+
+def pick_decode_config(
+    *, d: int, dv: int, nkv: int, dtype: torch.dtype, rows: int
+) -> BlockConfig:
+    """Decode config: the smallest row tile that holds all ``rows`` packed
+    GQA rows (group * Nq), shrunk until the block fits shared memory. A
+    decode block computes every row of its tile while K/V stream once, so
+    covering the packed rows in one tile is what keeps the K/V traffic at
+    one pass per KV head."""
+    del d, nkv
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    cfg = BlockConfig(block_q=128).clamp(rows, 0)
+    while decode_smem_bytes(cfg, dv, itemsize) > SMEM_LIMIT_BYTES:
+        if cfg.block_q == 16:
+            raise ValueError(f"no decode row tile fits shared memory at Dv={dv}")
+        cfg = BlockConfig(block_q=cfg.block_q // 2)
+    return cfg
+
+
+__all__ = ["pick_forward_config", "pick_decode_config"]

@@ -1,0 +1,207 @@
+"""Forward attention: the CUDA kernel ``csrc/flash_fwd.cu`` and its plain
+PyTorch version.
+
+Replaces the Pallas ``_fwd_kernel`` of ``ffpa_attn_tpu/ops/flash_fwd.py``
+(launched by its ``flash_attention_forward``).
+
+Bound on an H100: operations. The forward does 2*B*Hq*Nq*Nkv*(D+Dv) flop,
+halved for causal; at the serving prefill (B1 Hq8 N4096 D512 causal) that is
+1.37e11 flop per layer, 0.14 ms at 989 TFLOP/s, while its bytes (q, k, v, o
+once each, ~100 MB) take 0.03 ms at 3.35 TB/s.
+
+Design against that bound (``csrc/flash_fwd.cu``): mma.sync tensor-core
+products (bf16/f16 in, fp32 accumulate) fed by ldmatrix; the 64 x 512 fp32 O
+tile is split over the registers of 16 warps by rows and columns (Split-D
+of the accumulator: no warp holds a whole row); Q stays resident in shared
+memory while K/V stream through a cp.async ring; whole KV tiles outside the
+causal / window band are never loaded; heads and query tiles fill the grid,
+the longest causal tiles first.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..env import ENV
+from ..logger import init_logger
+from . import _build
+from .config import D_CHUNK, FWD_ROW_TILES, BlockConfig, cdiv, fwd_fits, fwd_smem_bytes
+from .reference import expand_kv_heads, reference_attention
+
+logger = init_logger(__name__)
+
+_TRAINING_SLICE = (
+    "it belongs to the training slice of the port (ROADMAP.md, queue 2: the "
+    "backward kernels), which has not landed yet"
+)
+
+
+def _pad_last(x: torch.Tensor, to: int) -> torch.Tensor:
+    pad = to - x.shape[-1]
+    return x if pad == 0 else F.pad(x, (0, pad))
+
+
+def _bias_strides(bias: torch.Tensor, shape) -> tuple:
+    """Element strides of ``bias`` broadcast to ``shape`` (0 on size-1 dims)."""
+    return tuple(int(s) for s in bias.expand(*shape).stride())
+
+
+def check_kernel_inputs(name: str, q, k, v) -> None:
+    """What every kernel wrapper refuses before launching."""
+    if q.device.type != "cuda":
+        raise ValueError(
+            f"{name}: the kernel takes CUDA tensors (got {q.device}); CPU "
+            "tensors take the plain PyTorch version"
+        )
+    if q.dtype not in (torch.bfloat16, torch.float16):
+        raise TypeError(f"{name}: kernel dtype must be bf16 or f16, got {q.dtype}")
+    for t in (k, v):
+        if t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name}: q, k, v must share dtype and device")
+
+
+_FWD_ARGTYPES = (
+    [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
+    + [ctypes.c_int] * 9 + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
+    + [ctypes.c_void_p]
+)
+
+
+def _fwd_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_fwd")
+    if lib.ffpa_flash_fwd.argtypes is None:
+        lib.ffpa_flash_fwd.argtypes = _FWD_ARGTYPES
+        lib.ffpa_flash_fwd.restype = ctypes.c_int
+    return lib
+
+
+def flash_attention_forward_plain(
+    q, k, v, bias, *, scale, is_causal, dropout_p=0.0, dropout_seed=0,
+    softcap=0.0, window=(-1, -1), alibi_slopes=None,
+):
+    """The kernel's function in plain PyTorch (fp32 math): (o, lse)."""
+    hq = q.shape[1]
+    return reference_attention(
+        q, expand_kv_heads(k, hq), expand_kv_heads(v, hq), bias,
+        is_causal=is_causal, scale=scale, dropout_p=dropout_p,
+        dropout_seed=dropout_seed, return_lse=True, softcap=softcap,
+        window=window, alibi_slopes=alibi_slopes,
+    )
+
+
+def flash_attention_forward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: Optional[torch.Tensor],
+    *,
+    scale: float,
+    is_causal: bool,
+    dropout_p: float = 0.0,
+    dropout_seed=0,
+    config: Optional[BlockConfig] = None,
+    return_scores: bool = False,
+    softcap: float = 0.0,
+    window: tuple = (-1, -1),
+    alibi_slopes: Optional[torch.Tensor] = None,
+):
+    """Forward attention.
+
+    Args:
+      q: [B, Hq, Nq, D]; k: [B, Hkv, Nkv, D]; v: [B, Hkv, Nkv, Dv].
+      bias: fp32 additive bias, 4-D broadcast-compact, or None.
+      softcap / window / alibi_slopes: see ``reference_attention``.
+      return_scores: the S residual of the training slice's from-S
+        backward; not available yet.
+
+    Returns:
+      (o [B, Hq, Nq, Dv] in q.dtype, lse [B, Hq, Nq] fp32). Queries are
+      tail-aligned: ``causal_offset = Nkv - Nq``.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel, or
+    raise for what it does not take.
+    """
+    window_left = int(window[0])
+    window_right = int(window[1])
+    if return_scores:
+        raise NotImplementedError(f"return_scores: {_TRAINING_SLICE}")
+    if q.device.type == "cpu":
+        return flash_attention_forward_plain(
+            q, k, v, bias, scale=scale, is_causal=is_causal,
+            dropout_p=dropout_p, dropout_seed=dropout_seed, softcap=softcap,
+            window=window, alibi_slopes=alibi_slopes,
+        )
+    if dropout_p > 0.0:
+        raise NotImplementedError(
+            f"dropout_p > 0 in the forward kernel: {_TRAINING_SLICE}"
+        )
+    check_kernel_inputs("flash_attention_forward", q, k, v)
+
+    b, hq, nq, d = q.shape
+    _, hkv, nkv, _ = k.shape
+    dv = v.shape[-1]
+    if config is None:
+        from .dispatch import pick_forward_config
+
+        config = pick_forward_config(d=d, dv=dv, nq=nq, nkv=nkv, dtype=q.dtype)
+    config = config.clamp(nq, nkv, FWD_ROW_TILES)
+    d_pad, dv_pad = cdiv(d, D_CHUNK) * D_CHUNK, cdiv(dv, D_CHUNK) * D_CHUNK
+    if not fwd_fits(config, d_pad, dv_pad, q.element_size()):
+        raise ValueError(
+            f"flash_attention_forward: block_q={config.block_q} does not fit "
+            f"D={d}, Dv={dv} (row tiles {FWD_ROW_TILES}, block_q * Dv <= 32768)"
+        )
+    q_ = _pad_last(q, d_pad).contiguous()
+    k_ = _pad_last(k, d_pad).contiguous()
+    v_ = _pad_last(v, dv_pad).contiguous()
+    o = torch.empty((b, hq, nq, dv_pad), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, hq, nq), dtype=torch.float32, device=q.device)
+
+    bias_ptr, strides = None, (0, 0, 0, 0)
+    if bias is not None:
+        bias = bias.to(device=q.device, dtype=torch.float32)
+        strides = _bias_strides(bias, (b, hq, nq, nkv))
+        bias_ptr = bias.data_ptr()
+    alibi_ptr = None
+    if alibi_slopes is not None:
+        alibi_slopes = torch.as_tensor(
+            alibi_slopes, dtype=torch.float32, device=q.device
+        ).expand(b, hq).contiguous()
+        alibi_ptr = alibi_slopes.data_ptr()
+
+    if ENV.device_log_level() >= 2:
+        logger.info(
+            "flash_fwd launch grid=(%d,%d,%d) block_q=%d smem=%d D=%d Dv=%d",
+            hq, b, cdiv(nq, config.block_q), config.block_q,
+            fwd_smem_bytes(config, d_pad, dv_pad, q.element_size()), d_pad, dv_pad,
+        )
+    lib = _fwd_lib()
+    with torch.cuda.device(q.device):
+        err = lib.ffpa_flash_fwd(
+            q_.data_ptr(), k_.data_ptr(), v_.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), bias_ptr, *strides, alibi_ptr,
+            int(q.dtype == torch.float16), config.block_q,
+            b, hq, hkv, nq, nkv, d_pad, dv_pad,
+            float(scale), float(softcap), nkv - nq, window_left,
+            0 if is_causal else window_right,  # causal is the band's right edge 0
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _build.check(lib, err, "flash_fwd kernel launch")
+    flash_attention_forward.launches += 1
+    if dv_pad != dv:
+        o = o[..., :dv]
+    return o, lse
+
+
+flash_attention_forward.launches = 0
+
+
+__all__ = [
+    "flash_attention_forward",
+    "flash_attention_forward_plain",
+    "check_kernel_inputs",
+]

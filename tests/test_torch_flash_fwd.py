@@ -1,0 +1,171 @@
+"""The port's ``flash_attention_forward`` against the JAX package's.
+
+On the CPU the port runs the kernel's plain version; JAX runs its Pallas
+kernel in interpret mode. Inputs are rounded to bf16 (or fp16) once, from
+the same numpy arrays, so both sides see identical values.
+
+Tolerances: bf16 outputs 2e-2 relative to max|o| (the JAX suite's forward
+tolerance, tests/test_features.py:127); fp16 1e-2 against the fp32 oracle
+(tests/test_ffpa_bwd.py:19) for each side (JAX computes fp16 in bf16, the
+port natively) and 2e-2 between them; LSE is fp32 math on identical inputs
+on both sides, 1e-4 relative to max|lse|. On the card, kernel vs plain holds
+the same output tolerances to each row's max|o| (``row_rel_err``): late
+causal rows are far smaller than row 0.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import (  # noqa: F401
+    cuda, jax_modules, randn, rel_err, row_rel_err, to_jax, to_torch,
+)
+from ffpa_attn_tpu_torch.ops import flash_fwd as tfwd
+
+BF16_TOL = 2e-2
+F16_TOL = 1e-2
+LSE_TOL = 1e-4
+
+CASES = {
+    "causal_gqa": dict(hq=4, hkv=2, nq=256, nkv=256, d=512, is_causal=True),
+    "bias": dict(nq=128, nkv=256, d=512, bias=True),
+    "softcap": dict(nq=128, nkv=128, d=512, softcap=4.0, is_causal=True),
+    "window": dict(nq=256, nkv=256, d=512, window=(40, 8)),
+    "alibi": dict(hq=2, hkv=1, nq=128, nkv=192, d=512, alibi=True, is_causal=True),
+    "ragged_nkv": dict(nq=128, nkv=200, d=512, is_causal=True),
+    "d320": dict(hq=2, hkv=1, nq=128, nkv=128, d=320, is_causal=True),
+    "d1024": dict(nq=128, nkv=128, d=1024, is_causal=True),
+    "batch2_bias_alibi": dict(b=2, hq=4, hkv=2, nq=128, nkv=160, d=512, bias=True,
+                              alibi=True, is_causal=True),
+}
+
+
+def _inputs(case, seed=0):
+    rng = np.random.default_rng(seed)
+    b, hq, hkv = case.get("b", 1), case.get("hq", 2), case.get("hkv", 2)
+    nq, nkv, d = case["nq"], case["nkv"], case["d"]
+    x = dict(
+        q=randn(rng, (b, hq, nq, d)), k=randn(rng, (b, hkv, nkv, d)),
+        v=randn(rng, (b, hkv, nkv, d)), bias=None, alibi=None,
+    )
+    if case.get("bias"):
+        x["bias"] = randn(rng, (b, 1, nq, nkv))
+    if case.get("alibi"):
+        x["alibi"] = rng.uniform(0.01, 0.3, (b, hq)).astype(np.float32)
+    return x
+
+
+def _kwargs(case):
+    return dict(
+        scale=1.0 / math.sqrt(case["d"]),
+        is_causal=case.get("is_causal", False),
+        softcap=case.get("softcap", 0.0),
+        window=case.get("window", (-1, -1)),
+    )
+
+
+@pytest.fixture(scope="module")
+def jax_ref():
+    return jax_modules("ffpa_attn_tpu.ops.flash_fwd", "ffpa_attn_tpu.ops.reference")
+
+
+def _jax_fwd(jfwd, x, case, dtype):
+    return jfwd.flash_attention_forward(
+        to_jax(x["q"], dtype), to_jax(x["k"], dtype), to_jax(x["v"], dtype),
+        to_jax(x["bias"]), alibi_slopes=to_jax(x["alibi"]), **_kwargs(case),
+    )
+
+
+def _torch_fwd(x, case, dtype, device="cpu"):
+    return tfwd.flash_attention_forward(
+        to_torch(x["q"], dtype, device), to_torch(x["k"], dtype, device),
+        to_torch(x["v"], dtype, device), to_torch(x["bias"], device=device),
+        alibi_slopes=to_torch(x["alibi"], device=device), **_kwargs(case),
+    )
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_forward_matches_jax_bf16(jax_ref, name):
+    case = CASES[name]
+    x = _inputs(case)
+    jo, jl = _jax_fwd(jax_ref[0], x, case, "bfloat16")
+    to, tl = _torch_fwd(x, case, "bfloat16")
+    assert to.dtype == torch.bfloat16 and tuple(to.shape) == tuple(jo.shape)
+    assert rel_err(to, jo) < BF16_TOL, name
+    assert rel_err(tl, jl) < LSE_TOL, name
+
+
+def test_forward_fp16_native_vs_jax_bf16_compute(jax_ref):
+    jfwd, jref = jax_ref
+    case = CASES["causal_gqa"]
+    x = _inputs(case, seed=3)
+    hq = x["q"].shape[1]
+    # fp32 oracle on the fp16-rounded inputs.
+    q16, k16, v16 = (to_jax(x[n], "float16").astype(np.float32) for n in ("q", "k", "v"))
+    want = jref.reference_attention(
+        q16, jref.expand_kv_heads(k16, hq), jref.expand_kv_heads(v16, hq), None, **_kwargs(case),
+    )
+    # The JAX core computes fp16 in bf16 (ops/attention.py:_to_compute_dtype).
+    jo, _ = jfwd.flash_attention_forward(
+        to_jax(x["q"], "float16").astype("bfloat16"),
+        to_jax(x["k"], "float16").astype("bfloat16"),
+        to_jax(x["v"], "float16").astype("bfloat16"), None, **_kwargs(case),
+    )
+    to, _ = _torch_fwd(x, case, "float16")
+    assert to.dtype == torch.float16
+    assert rel_err(to, want) < F16_TOL
+    assert rel_err(jo, want) < F16_TOL
+    assert rel_err(to, jo) < BF16_TOL
+
+
+def test_kernel_options_raise_not_implemented():
+    """dropout and return_scores belong to the training slice: a non-CPU
+    tensor raises before any launch (meta tensors stand in for CUDA here);
+    return_scores raises on every device."""
+    q = torch.empty((1, 2, 128, 512), device="meta", dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        tfwd.flash_attention_forward(q, q, q, None, scale=0.1, is_causal=True, dropout_p=0.1)
+    cpu = torch.zeros((1, 2, 128, 512), dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        tfwd.flash_attention_forward(cpu, cpu, cpu, None, scale=0.1, is_causal=True,
+                                     return_scores=True)
+
+
+def test_cpu_forward_never_counts_a_launch():
+    x = _inputs(CASES["d320"])
+    before = tfwd.flash_attention_forward.launches
+    _torch_fwd(x, CASES["d320"], "bfloat16")
+    assert tfwd.flash_attention_forward.launches == before
+
+
+def test_row_measure_catches_late_causal_row_errors():
+    """The card tests' measure must see a 10% error in the late causal rows,
+    which max|err| / max|o| over the whole tensor lets pass: row 0 is V's row
+    0, while a row that averages 500 keys or more is ~10x smaller."""
+    case = dict(hq=1, hkv=1, nq=1024, nkv=1024, d=320, is_causal=True)
+    o, _ = _torch_fwd(_inputs(case), case, "bfloat16")
+    bad = o.float()
+    bad[:, :, case["nq"] // 2:] *= 1.1
+    assert rel_err(bad, o) < BF16_TOL
+    assert row_rel_err(bad, o) > 4 * BF16_TOL
+    assert row_rel_err(o, o) == 0.0
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("dtype,tol", [("bfloat16", BF16_TOL), ("float16", F16_TOL)])
+def test_kernel_matches_plain_on_card(cuda, name, dtype, tol):
+    case = CASES[name]
+    x = _inputs(case, seed=5)
+    before = tfwd.flash_attention_forward.launches
+    ko, kl = _torch_fwd(x, case, dtype, cuda)
+    torch.cuda.synchronize()
+    assert tfwd.flash_attention_forward.launches == before + 1
+    po, pl = tfwd.flash_attention_forward_plain(
+        to_torch(x["q"], dtype, cuda), to_torch(x["k"], dtype, cuda),
+        to_torch(x["v"], dtype, cuda), to_torch(x["bias"], device=cuda),
+        alibi_slopes=to_torch(x["alibi"], device=cuda), **_kwargs(case),
+    )
+    assert row_rel_err(ko, po) < tol, name
+    assert rel_err(kl, pl) < LSE_TOL, name
