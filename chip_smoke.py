@@ -5,21 +5,28 @@ It imports only ``ffpa_attn_tpu_torch``, torch and numpy, and runs, in order:
 
 1. environment: torch / CUDA / nvcc versions and the card's name and power
    limit;
-2. build: every kernel of the serving path from ``ffpa_attn_tpu_torch/csrc``
-   (one nvcc per source, all started together);
+2. build: every kernel of the serving and training paths from
+   ``ffpa_attn_tpu_torch/csrc`` (one nvcc per source, all started together);
 3. kernel vs plain: each kernel against its plain PyTorch version on the
-   card, at the serving shapes and at feature cases, with stated tolerances;
-4. main path: greedy ``generate`` of the L4 dm1024 H8/4 Dh512 vocab-32000
+   card, at the serving and training shapes and at feature cases, with
+   stated tolerances;
+4. serving path: greedy ``generate`` of the L4 dm1024 H8/4 Dh512 vocab-32000
    bf16 model (random weights from numpy seed 0) on a 4096-token prompt, 32
    tokens, with the kernel launch counts read around that run; first-step
    logits against the same weights run with the fp32 oracle's attention; a
    tiny model's greedy tokens on the card against the CPU;
-5. times: device time by kernel and the device's busy share over one
-   prefill and over decode steps, then each kernel at its serving shape
-   beside its bound, its plain version and one PyTorch library call
-   computing the same function (device time per call from torch.profiler,
-   CUDA-event time beside it);
-6. the ``kernels`` line.
+5. training path: ``make_train_step`` (AdamW 1e-4) of the same model at
+   N8192 B1, one warm-up step and 3 timed steps with the launch counts of
+   each; the first step's loss and gradients against the same weights with
+   the fp32 oracle's attention under autograd; the windowed model
+   (``mistral_like``, depth cut to L2), which takes the recompute backward;
+   a tiny model's two steps on the card against the CPU;
+6. times: device time by kernel and the device's busy share over one
+   prefill, decode steps and one training step, then each kernel at its
+   main-path shape beside its bound, its plain version and one PyTorch
+   library call computing the same function (device time per call from
+   torch.profiler, CUDA-event time beside it);
+7. the ``kernels`` line.
 
 Every phase raises on failure; the script exits 0 only when all passed. The
 last three lines are the ``kernels`` JSON line, the nvidia-smi line and the
@@ -41,10 +48,24 @@ import torch
 # held per row: see row_rel.
 BF16_TOL, F16_TOL = 2e-2, 1e-2
 LSE_TOL = 1e-4  # relative to max|lse|: fp32 math on identical inputs
+# Gradient tolerances (tests/test_ffpa_bwd.py:19), per row for kernel vs
+# plain (grad_row_rel) and per leaf of the model's gradients.
+GRAD_TOL = {torch.bfloat16: 5e-2, torch.float16: 1e-2}
+# Losses, relative, set from readings on an H100: the first step's loss
+# against the oracle attention's read 2.34e-6 at N8192, the tiny model's
+# two losses on the card against the CPU 1.35e-5. With random weights the
+# loss is near ln(vocab) whatever attention computes, so the gradients
+# (GRAD_TOL, per leaf) are the check that tests the backward.
+LOSS_TOL = 1e-4
 
 SLICE = dict(vocab_size=32000, d_model=1024, n_layers=4, n_heads=8, n_kv_heads=4,
              head_dim=512, max_seq_len=4224, dtype="bfloat16")
 PROMPT, STEPS, MAX_LEN = 4096, 32, 4224
+# Training: the JAX package's bench_train (ffpa_attn_tpu/cli/_e2e.py:27-44)
+# at full width and depth, N8192 B1; the windowed model at depth L2.
+TRAIN = dict(SLICE, max_seq_len=8192)
+TRAIN_N, TRAIN_STEPS = 8192, 3
+WINDOW, WINDOW_LAYERS, WINDOW_STEPS = 4096, 2, 2
 
 
 def log(msg: str) -> None:
@@ -69,6 +90,18 @@ def row_rel(got, want) -> float:
     0 in the plain version must be 0 in the kernel's too."""
     g, w = got.float(), want.float()
     err, ref = (g - w).abs().amax(-1), w.abs().amax(-1)
+    return float(torch.where(err == 0, 0.0, err / ref.clamp_min(1e-30)).max())
+
+
+def grad_row_rel(got, want, floor: float = 1e-3) -> float:
+    """row_rel for gradients: each row's error over the larger of its own
+    max|want| and ``floor`` times the tensor's. A gradient row can be zero
+    by cancellation (causal row 0 sees one key, so dP equals delta and dS
+    is 0 up to fp32 rounding on both sides); without the floor its rounding
+    noise would be divided by ~0."""
+    g, w = got.float(), want.float()
+    err, ref = (g - w).abs().amax(-1), w.abs().amax(-1)
+    ref = torch.maximum(ref, floor * w.abs().max())
     return float(torch.where(err == 0, 0.0, err / ref.clamp_min(1e-30)).max())
 
 
@@ -111,14 +144,16 @@ def _randn(shape, dtype, gen, scale=1.0):
 
 
 def _fwd_case(name, *, b=1, hq=8, hkv=4, nq, nkv, d=512, dtype=torch.bfloat16,
-              causal=True, bias=False, softcap=0.0, window=(-1, -1), alibi=False, seed=0):
+              causal=True, bias=False, softcap=0.0, window=(-1, -1), alibi=False, dropout=0.0,
+              seed=0):
     from ffpa_attn_tpu_torch.ops import flash_fwd
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q = _randn((b, hq, nq, d), dtype, gen)
     k = _randn((b, hkv, nkv, d), dtype, gen)
     v = _randn((b, hkv, nkv, d), dtype, gen)
-    kw = dict(scale=1.0 / math.sqrt(d), is_causal=causal, softcap=softcap, window=window)
+    kw = dict(scale=1.0 / math.sqrt(d), is_causal=causal, softcap=softcap, window=window,
+              dropout_p=dropout, dropout_seed=seed)
     bias_t = _randn((b, 1, nq, nkv), torch.float32, gen) if bias else None
     if alibi:
         kw["alibi_slopes"] = torch.rand((b, hq), generator=gen, device="cuda") * 0.1
@@ -169,6 +204,76 @@ def _decode_case(name, *, b=1, hkv=4, group=2, nq=1, nkv=MAX_LEN, d=512, dtype=t
     return max_abs(o, po)
 
 
+def _bwd_case(name, *, b=1, hq=8, hkv=4, nq, nkv, d=512, dtype=torch.bfloat16, causal=True,
+              bias=None, softcap=0.0, window=(-1, -1), alibi=False, dropout=0.0, seed=0):
+    """The three backward kernels against their plain versions on the same
+    inputs: dkdv without and with the dS slab, dq (with dbias for a bias)
+    and, under causal, banded dQ from the kernel's slab. (o, lse) come from
+    the forward kernel."""
+    from ffpa_attn_tpu_torch.ops import flash_bwd, flash_fwd
+    from ffpa_attn_tpu_torch.ops.config import DKDV_KV_TILE, DKDV_Q_TILE, cdiv
+    from ffpa_attn_tpu_torch.ops.dispatch import pick_backward_config
+
+    gen = torch.Generator(device="cuda").manual_seed(100 + seed)
+    q = _randn((b, hq, nq, d), dtype, gen)
+    k = _randn((b, hkv, nkv, d), dtype, gen)
+    v = _randn((b, hkv, nkv, d), dtype, gen)
+    do = _randn((b, hq, nq, d), dtype, gen)
+    bias_t = None
+    if bias == "full":
+        bias_t = _randn((b, 1, nq, nkv), torch.float32, gen)
+    elif bias == "key":
+        bias_t = _randn((1, 1, 1, nkv), torch.float32, gen)
+    al = torch.rand((b, hq), generator=gen, device="cuda") * 0.1 if alibi else None
+    scale = 1.0 / math.sqrt(d)
+    o, lse = flash_fwd.flash_attention_forward(
+        q, k, v, bias_t, scale=scale, is_causal=causal, dropout_p=dropout, dropout_seed=seed,
+        softcap=softcap, window=window, alibi_slopes=al)
+    delta = (do.float() * o.float()).sum(-1)
+    cfg = pick_backward_config(d=d, dv=d, nq=nq, nkv=nkv, dtype=dtype)
+    plain_kw = dict(is_causal=causal, causal_offset=nkv - nq, dropout_p=dropout, seed=seed,
+                    softcap=softcap, window=window, alibi=al)
+    kern_kw = dict(scale=scale, is_causal=causal, causal_offset=nkv - nq, dropout_p=dropout,
+                   group=hq // hkv, softcap=softcap, window=window, alibi=al)
+    tol = GRAD_TOL[dtype]
+    errs = {}
+    for emit in (False, True):
+        kdk, kdv, kds = flash_bwd._dkdv_launch(q, k, v, bias_t, do, lse, delta, seed, cfg,
+                                               grad_kv_storage_dtype=None, emit_ds=emit,
+                                               **kern_kw)
+        torch.cuda.synchronize()
+        pdk, pdv, pds = flash_bwd._dkdv_plain(
+            q, k, v, bias_t, do, lse, delta, scale=scale, emit_ds=emit,
+            nq_pad=cdiv(nq, DKDV_Q_TILE) * DKDV_Q_TILE,
+            nkv_pad=cdiv(nkv, DKDV_KV_TILE) * DKDV_KV_TILE, **plain_kw)
+        errs[f"dk{int(emit)}"], errs[f"dv{int(emit)}"] = grad_row_rel(kdk, pdk), grad_row_rel(kdv, pdv)
+        del pdk, pdv
+        if emit:
+            errs["ds"] = grad_row_rel(kds, pds)
+            del pds
+    if causal:
+        kbq = flash_bwd._banded_dq_from_ds(kds, k, cfg, scale=scale, group=hq // hkv, nq=nq,
+                                           nkv=nkv, causal_offset=nkv - nq, dq_dtype=dtype)
+        torch.cuda.synchronize()
+        pbq = flash_bwd._banded_dq_plain(kds, k, scale=scale, nq=nq, nkv=nkv)
+        errs["banded_dq"] = grad_row_rel(kbq, pbq)
+        del pbq
+    del kds
+    kdq, kdb = flash_bwd._dq_launch(q, k, v, bias_t, do, lse, delta, seed, cfg,
+                                    grad_q_storage_dtype=None, **kern_kw)
+    torch.cuda.synchronize()
+    pdq, pdb = flash_bwd._dq_plain(q, k, v, bias_t, do, lse, delta, scale=scale,
+                                   emit_dbias=bias_t is not None, **plain_kw)
+    errs["dq"] = grad_row_rel(kdq, pdq)
+    if bias_t is not None:
+        errs["dbias"] = rel(kdb, flash_bwd._dbias_from_ds(pdb, bias_t))
+    ok = all(e < tol for e in errs.values()) and bool(torch.isfinite(kdq).all())
+    log(f"  bwd {name:<22} " + " ".join(f"{n} {e:.2e}" for n, e in errs.items())
+        + f" (tol {tol:g}, per row) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"backward kernels disagree with their plain versions: {name}")
+
+
 def phase_kernels_vs_plain() -> dict:
     log("kernel vs plain (the plain version in fp32 math on the card; TF32 off):")
     errs = {}
@@ -182,6 +287,7 @@ def phase_kernels_vs_plain() -> dict:
     _fwd_case("d1024", nq=1024, nkv=1024, d=1024, seed=7)
     _fwd_case("fp16", nq=2048, nkv=2048, dtype=torch.float16, seed=8)
     _fwd_case("batch2_bias_alibi", b=2, nq=1024, nkv=1100, bias=True, alibi=True, seed=9)
+    _fwd_case("dropout", nq=1024, nkv=1024, dropout=0.1, seed=10)
     errs["decode"] = _decode_case("slice_Nkv4224_g2")
     _decode_case("group1", group=1, seed=1)
     _decode_case("group4", group=4, seed=2)
@@ -190,6 +296,20 @@ def phase_kernels_vs_plain() -> dict:
     _decode_case("nq4_causal", nq=4, causal=True, valid=None, seed=5)
     _decode_case("fp16", dtype=torch.float16, seed=6)
     _decode_case("batch2", b=2, nkv=1024, valid=900, seed=7)
+    # The backward at N4096 and feature cases at N1024; the training
+    # shapes (N8192) are held in training_times, beside their times.
+    _bwd_case("slice_N4096_D512", nq=PROMPT, nkv=PROMPT)
+    _bwd_case("bias_full", nq=1024, nkv=1024, causal=False, bias="full", seed=1)
+    _bwd_case("bias_key", nq=1024, nkv=1024, bias="key", seed=2)
+    _bwd_case("softcap", nq=1024, nkv=1024, softcap=30.0, seed=3)
+    _bwd_case("window", nq=1024, nkv=1024, window=(256, -1), seed=4)
+    _bwd_case("alibi", nq=1024, nkv=1024, alibi=True, seed=5)
+    _bwd_case("dropout", nq=1024, nkv=1024, dropout=0.1, seed=6)
+    _bwd_case("nkv1100", nq=1024, nkv=1100, seed=7)
+    _bwd_case("d320", nq=1024, nkv=1024, d=320, seed=8)
+    _bwd_case("d1024", nq=1024, nkv=1024, d=1024, seed=9)
+    _bwd_case("fp16", nq=1024, nkv=1024, dtype=torch.float16, seed=10)
+    _bwd_case("batch2_bias_alibi", b=2, nq=1024, nkv=1100, bias="full", alibi=True, seed=11)
     return errs
 
 
@@ -199,8 +319,7 @@ def oracle_logits(model, prompt, first):
     every attention computed by the fp32 oracle (``reference_attention``)
     over the prompt's K/V, written out here so that no kernel and no kernel
     wrapper runs. The slice's model has no window, softcap or sinks."""
-    from ffpa_attn_tpu_torch.models.generate import _project_qkv
-    from ffpa_attn_tpu_torch.models.transformer import _mlp, _rmsnorm
+    from ffpa_attn_tpu_torch.models.transformer import _mlp, _project_qkv, _rmsnorm
     from ffpa_attn_tpu_torch.ops.reference import expand_kv_heads, reference_attention
 
     cfg = model.cfg
@@ -320,6 +439,190 @@ def phase_main_path() -> dict:
                 generate_ms=gen_s * 1e3, model=model, prompt=prompt)
 
 
+def _counts() -> dict:
+    from ffpa_attn_tpu_torch.ops import flash_bwd, flash_fwd
+
+    return {"flash_fwd": flash_fwd.flash_attention_forward.launches,
+            "dkdv": flash_bwd._dkdv_launch.launches, "dq": flash_bwd._dq_launch.launches,
+            "banded_dq": flash_bwd._banded_dq_from_ds.launches}
+
+
+def _zero_counts() -> None:
+    from ffpa_attn_tpu_torch.ops import flash_bwd, flash_fwd
+
+    flash_fwd.flash_attention_forward.launches = 0
+    for fn in (flash_bwd._dkdv_launch, flash_bwd._dq_launch, flash_bwd._banded_dq_from_ds):
+        fn.launches = 0
+
+
+def _train_steps(model, state, step, tokens, n, want, label) -> tuple:
+    """n steps, each driven with the counts set to 0 just before it and
+    read just after. Returns (state, losses, step ms, summed counts)."""
+    losses, times, total = [], [], dict.fromkeys(want, 0)
+    for i in range(n):
+        torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        state, loss = step(model, state, tokens)
+        loss = float(loss)  # synchronizes
+        times.append((time.perf_counter() - t0) * 1e3)
+        counts = _counts()
+        if counts != want:
+            fail(f"{label} step {i}: launch counts {counts} != expected {want}")
+        for name in total:
+            total[name] += counts[name]
+        losses.append(loss)
+    return state, losses, times, total
+
+
+def oracle_loss_and_grads(cfg, params, tokens) -> tuple:
+    """The first step's loss and gradients of the same weights with every
+    attention computed by the fp32 oracle (``reference_attention``) under
+    autograd, written out here so that no kernel and no kernel wrapper
+    runs; each layer's attention is recomputed in the backward
+    (``torch.utils.checkpoint``) so that one layer's N^2 fp32 scores are
+    live at a time."""
+    from torch.utils.checkpoint import checkpoint
+
+    from ffpa_attn_tpu_torch.models import params_from_jax
+    from ffpa_attn_tpu_torch.models.transformer import _mlp, _project_qkv, _rmsnorm
+    from ffpa_attn_tpu_torch.ops.reference import expand_kv_heads, reference_attention
+
+    model = params_from_jax(params, cfg)
+    x_tok, targets = tokens[:, :-1], tokens[:, 1:]
+    b, n = x_tok.shape
+    positions = torch.arange(n, device=tokens.device)
+
+    def attend(q, k, v):
+        return reference_attention(q, expand_kv_heads(k, cfg.n_heads),
+                                   expand_kv_heads(v, cfg.n_heads), is_causal=True)
+
+    x = model.embed[x_tok]
+    for layer in model.layers:
+        q, k, v = _project_qkv(layer, _rmsnorm(x, layer.attn_norm), cfg, positions)
+        o = checkpoint(attend, q, k, v, use_reentrant=False)
+        x = x + layer.wo(o.transpose(1, 2).reshape(b, n, -1))
+        x = x + _mlp(layer, _rmsnorm(x, layer.mlp_norm))
+    logits = _rmsnorm(x, model.final_norm) @ model.embed.T
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    loss = -logp.gather(-1, targets[..., None])[..., 0].mean()
+    loss.backward()
+    return float(loss.detach()), [(name, p.grad) for name, p in model.named_parameters()]
+
+
+def phase_training() -> dict:
+    from ffpa_attn_tpu_torch.models import (
+        ModelConfig, adamw, make_train_step, params_from_jax, random_params,
+    )
+
+    cfg = ModelConfig(**TRAIN)
+    params = random_params(cfg, seed=0)
+    model = params_from_jax(params, cfg)  # on cuda by default
+    tokens = torch.from_numpy(
+        np.random.default_rng(1).integers(0, cfg.vocab_size, (1, TRAIN_N + 1))).cuda()
+    opt = adamw(1e-4)
+    state = opt.init(list(model.parameters()))
+    step = make_train_step(cfg, opt)  # on cuda by default
+    log(f"training path: model L{cfg.n_layers} dm{cfg.d_model} H{cfg.n_heads}/{cfg.n_kv_heads} "
+        f"Dh{cfg.head_dim} vocab {cfg.vocab_size} {cfg.dtype}, N{TRAIN_N} B1, AdamW 1e-4")
+    per_step = {"flash_fwd": cfg.n_layers, "dkdv": cfg.n_layers, "dq": 0,
+                "banded_dq": cfg.n_layers}
+    # The warm-up is the first step: its gradients are those of the
+    # initial weights.
+    state, losses, warm_ms, _ = _train_steps(model, state, step, tokens, 1, per_step, "warm-up")
+    grads = [(name, p.grad.detach().clone()) for name, p in model.named_parameters()]
+    state, timed, times, launches = _train_steps(model, state, step, tokens, TRAIN_STEPS,
+                                                 per_step, "training")
+    losses += timed
+    step_ms = sorted(times)[len(times) // 2]
+    tok_s = TRAIN_N / (step_ms / 1e3)
+    log(f"  steps: warm-up {warm_ms[0]:.1f} ms, timed {[round(t, 2) for t in times]} ms; "
+        f"median {step_ms:.2f} ms = {tok_s:.1f} train tokens/s; losses "
+        f"{[round(x, 5) for x in losses]}; launches per step {per_step}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"training losses must be finite and fall: {losses}")
+
+    o_loss, o_grads = oracle_loss_and_grads(cfg, params, tokens)
+    worst, worst_name = 0.0, ""
+    for (name, g), (oname, og) in zip(grads, o_grads):
+        assert name == oname
+        e = rel(g, og)
+        if not math.isfinite(e) or e > worst:
+            worst, worst_name = e, name
+    loss_err = abs(losses[0] - o_loss) / abs(o_loss)
+    ok = worst < GRAD_TOL[torch.bfloat16] and loss_err < LOSS_TOL
+    log(f"  first step vs the oracle's attention (fp32, N{TRAIN_N}): loss {losses[0]:.5f} vs "
+        f"{o_loss:.5f} (rel {loss_err:.2e}, tol {LOSS_TOL:g}); gradients worst leaf {worst_name} "
+        f"rel_err {worst:.2e} of its max|g| (tol {GRAD_TOL[torch.bfloat16]:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    del o_grads, grads
+    torch.cuda.empty_cache()
+    if not ok:
+        fail("training gradients disagree with the oracle's attention")
+    return dict(model=model, state=state, step=step, tokens=tokens, launches=launches,
+                step_ms=step_ms, tok_s=tok_s, losses=losses, loss_err=loss_err, grad_err=worst)
+
+
+def phase_windowed() -> dict:
+    """The recompute tier: the windowed model, depth cut to L2 for time."""
+    from ffpa_attn_tpu_torch.models import (
+        ModelConfig, adamw, make_train_step, params_from_jax, random_params,
+    )
+
+    cfg = ModelConfig.mistral_like(sliding_window=WINDOW, **dict(TRAIN, n_layers=WINDOW_LAYERS))
+    model = params_from_jax(random_params(cfg, seed=0), cfg)
+    tokens = torch.from_numpy(
+        np.random.default_rng(1).integers(0, cfg.vocab_size, (1, TRAIN_N + 1))).cuda()
+    opt = adamw(1e-4)
+    step = make_train_step(cfg, opt)
+    per_step = {"flash_fwd": cfg.n_layers, "dkdv": cfg.n_layers, "dq": cfg.n_layers,
+                "banded_dq": 0}
+    _, losses, times, launches = _train_steps(model, opt.init(list(model.parameters())), step,
+                                              tokens, WINDOW_STEPS, per_step, "windowed")
+    log(f"windowed path (mistral_like window {WINDOW}, L{cfg.n_layers}, N{TRAIN_N}): step ms "
+        f"{[round(t, 2) for t in times]}, losses {[round(x, 5) for x in losses]}, launches per "
+        f"step {per_step}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"windowed losses must be finite: {losses}")
+    return dict(launches=launches)
+
+
+def phase_tiny_training() -> None:
+    """Two train steps of a tiny model on the card and on the CPU from the
+    same weights: the first step's gradients agree leaf by leaf within the
+    bf16 gradient tolerance and both losses within LOSS_TOL."""
+    from ffpa_attn_tpu_torch.models import (
+        ModelConfig, adamw, make_train_step, params_from_jax, random_params,
+    )
+
+    tiny = ModelConfig(vocab_size=64, d_model=64, n_layers=1, n_heads=2, n_kv_heads=1,
+                       head_dim=320, max_seq_len=256)
+    params = random_params(tiny, seed=2)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(0, 64, (1, 129)))
+    losses, grads = {}, {}
+    for dev in ("cuda", "cpu"):
+        model = params_from_jax(params, tiny, device=dev)
+        opt = adamw(1e-3)
+        state, step = opt.init(list(model.parameters())), make_train_step(tiny, opt, device=dev)
+        losses[dev] = []
+        for i in range(2):
+            state, loss = step(model, state, tokens)
+            losses[dev].append(float(loss))
+            if i == 0:
+                grads[dev] = [(name, p.grad.detach().cpu()) for name, p in
+                              model.named_parameters()]
+    err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    gerr, gname = max(((rel(g, og), name) for (name, g), (_, og) in
+                       zip(grads["cuda"], grads["cpu"])),
+                      key=lambda e: e[0] if math.isfinite(e[0]) else math.inf)
+    ok = err < LOSS_TOL and gerr < GRAD_TOL[torch.bfloat16]
+    log(f"  tiny model two steps: card {losses['cuda']} cpu {losses['cpu']} (rel {err:.2e}, "
+        f"tol {LOSS_TOL:g}); first-step gradients worst leaf {gname} rel_err {gerr:.2e} of its "
+        f"max|g| (tol {GRAD_TOL[torch.bfloat16]:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("tiny model: training on the card differs from the CPU")
+
+
 def where_the_time_goes(model, prompt) -> None:
     """Device time by kernel and the device's busy share over one prefill
     and over 8 decode steps of the main path (torch.profiler)."""
@@ -357,7 +660,173 @@ def _timed(fn, reps: int, warmup: int = 3) -> tuple:
     return device_ms(fn, reps=reps, warmup=1), cuda_ms(fn, reps=reps, warmup=warmup)
 
 
-def phase_times(errs: dict, main_path: dict) -> list:
+def _sdpa_backend(fn) -> str:
+    """Which SDPA backend PyTorch took for ``fn``, from the kernels it ran."""
+    from ffpa_attn_tpu_torch.utils.profiling import device_window
+
+    by_kernel = device_window(fn, reps=1, warmup=1)["by_kernel"]
+    names = " ".join(by_kernel).lower()
+    for key, label in (("flash", "flash"), ("cudnn", "cudnn"), ("fmha", "efficient"),
+                       ("mem_eff", "efficient"), ("attention_kernel", "efficient")):
+        if key in names:
+            return label
+    return "math"
+
+
+def _hold(label: str, pairs: dict, dtype=torch.bfloat16) -> float:
+    """Each kernel output against its plain version per row (grad_row_rel)
+    at GRAD_TOL; fails on a miss. Returns the largest max|err|."""
+    tol = GRAD_TOL[dtype]
+    errs = {n: grad_row_rel(g, w) for n, (g, w) in pairs.items()}
+    ok = all(e < tol for e in errs.values()) and all(
+        bool(torch.isfinite(g).all()) for g, _ in pairs.values())
+    log(f"  bwd {label:<22} " + " ".join(f"{n} {e:.2e}" for n, e in errs.items())
+        + f" (tol {tol:g}, per row) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"backward kernel disagrees with its plain version: {label}")
+    return max(max_abs(g, w) for g, w in pairs.values())
+
+
+def training_times(training: dict, windowed: dict) -> tuple:
+    """One training step under the profiler, then the backward kernels at
+    their main-path shapes, each held against its plain version on the same
+    inputs and timed beside it: dkdv (with the dS slab) and banded dQ at the
+    training step's shape, dq at the windowed model's."""
+    import torch.nn.functional as F
+
+    from ffpa_attn_tpu_torch.ops import flash_bwd, flash_fwd
+    from ffpa_attn_tpu_torch.ops.dispatch import pick_backward_config
+    from ffpa_attn_tpu_torch.ops.reference import expand_kv_heads
+    from ffpa_attn_tpu_torch.utils.profiling import backward_counts, bound_ms, device_window
+
+    hold = {"state": training["state"]}
+
+    def one_step():
+        hold["state"], _ = training["step"](training["model"], hold["state"], training["tokens"])
+
+    w = device_window(one_step, reps=1, warmup=1)
+    top = sorted(w["by_kernel"].items(), key=lambda kv: -kv[1])[:8]
+    log(f"  training step: wall {w['wall_ms']:.2f} ms, device {w['device_ms']:.2f} ms, "
+        f"busy {w['busy'] * 100:.1f}% (idle {(1 - w['busy']) * 100:.1f}%)")
+    for kname, ms in top:
+        log(f"    {ms:9.3f} ms  {kname[:100]}")
+    del training["model"], training["state"], hold
+    torch.cuda.empty_cache()
+
+    n, b, hq, hkv, d = TRAIN_N, 1, TRAIN["n_heads"], TRAIN["n_kv_heads"], TRAIN["head_dim"]
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    q, do = _randn((b, hq, n, d), bf, gen), _randn((b, hq, n, d), bf, gen)
+    k, v = _randn((b, hkv, n, d), bf, gen), _randn((b, hkv, n, d), bf, gen)
+    scale = 1.0 / math.sqrt(d)
+    cfg = pick_backward_config(d=d, dv=d, nq=n, nkv=n, dtype=bf)
+    ql = q.detach().requires_grad_()
+    ke = expand_kv_heads(k, hq).detach().requires_grad_()
+    ve = expand_kv_heads(v, hq).detach().requires_grad_()
+    rows, events = [], {}
+
+    def row(name, replaces, launches, err, kms, pms, lms, flops, nbytes):
+        bms, bby = bound_ms(flops, nbytes)
+        rows.append(dict(
+            name=name, route="cuda", source="ffpa_attn_tpu_torch/csrc/flash_bwd.cu",
+            replaces=replaces, launches=launches, max_abs_err=err, ms=kms[0],
+            plain_ms=pms[0], bound_ms=bms, bound_by=bby, library_ms=lms[0],
+        ))
+        events[name] = (kms[1], pms[1], lms[1])
+
+    log("backward kernels at the training shapes (N8192), kernel vs plain and times:")
+    # dkdv and banded dQ: the dS-handoff tier of the training step.
+    for window, names in (((-1, -1), ("dkdv", "banded_dq")), ((WINDOW, -1), ("dq",))):
+        o, lse = flash_fwd.flash_attention_forward(q, k, v, None, scale=scale, is_causal=True,
+                                                   window=window)
+        delta = (do.float() * o.float()).sum(-1)
+        kern_kw = dict(scale=scale, is_causal=True, causal_offset=0, dropout_p=0.0, group=hq // hkv,
+                       window=window)
+        plain_kw = dict(is_causal=True, causal_offset=0, dropout_p=0.0, seed=0, softcap=0.0,
+                        window=window, alibi=None)
+        if window[0] < 0:
+            out = F.scaled_dot_product_attention(ql, ke, ve, is_causal=True)
+        else:
+            r = torch.arange(n, device="cuda")
+            band = (r[None, :] <= r[:, None]) & (r[None, :] >= r[:, None] - window[0])
+            out = F.scaled_dot_product_attention(ql, ke, ve, attn_mask=band)
+
+        def library():
+            return torch.autograd.grad(out, (ql, ke, ve), do, retain_graph=True)
+
+        backend = _sdpa_backend(library)
+        lib = _timed(library, 5)
+        log(f"  library for {'/'.join(names)}: torch.autograd.grad through "
+            f"scaled_dot_product_attention ({backend} backend, K/V heads expanded, "
+            f"{'causal' if window[0] < 0 else f'band mask {window}'})")
+        if "dkdv" in names:
+            def run_dkdv():
+                return flash_bwd._dkdv_launch(q, k, v, None, do, lse, delta, 0, cfg,
+                                              grad_kv_storage_dtype=None, emit_ds=True, **kern_kw)
+
+            def run_dkdv_plain():
+                return flash_bwd._dkdv_plain(q, k, v, None, do, lse, delta, scale=scale,
+                                             emit_ds=True, nq_pad=n, nkv_pad=n, **plain_kw)
+
+            kdk, kdv, ds = run_dkdv()
+            torch.cuda.synchronize()
+            pdk, pdv, pds = run_dkdv_plain()
+            err = _hold("dkdv_N8192_causal", {"dk": (kdk, pdk), "dv": (kdv, pdv),
+                                              "ds": (ds, pds)})
+            del kdk, kdv, pdk, pdv, pds
+            kms = _timed(run_dkdv, 10)
+            pms = _timed(run_dkdv_plain, 3, warmup=1)
+            flops, nbytes = backward_counts("dkdv", b=b, hq=hq, hkv=hkv, nq=n, nkv=n, d=d, dv=d,
+                                            causal=True, slab_bytes=b * hq * n * n * 2)
+            row("dkdv", "ffpa_attn_tpu/ops/flash_bwd.py:194", training["launches"]["dkdv"],
+                err, kms, pms, lib, flops, nbytes)
+
+            def run_banded():
+                return flash_bwd._banded_dq_from_ds(ds, k, cfg, scale=scale, group=hq // hkv,
+                                                    nq=n, nkv=n, causal_offset=0, dq_dtype=bf)
+
+            def run_banded_plain():
+                return flash_bwd._banded_dq_plain(ds, k, scale=scale, nq=n, nkv=n)
+
+            kbq = run_banded()
+            torch.cuda.synchronize()
+            err = _hold("banded_dq_N8192_causal", {"dq": (kbq, run_banded_plain())})
+            del kbq
+            kd = ke.detach()
+            kms = _timed(run_banded, 10)
+            pms = _timed(run_banded_plain, 3, warmup=1)
+            lms = _timed(lambda: torch.matmul(ds, kd), 10)
+            log("  library for banded_dq: one dense torch.matmul of the dS slab and K")
+            flops, nbytes = backward_counts("banded_dq", b=b, hq=hq, hkv=hkv, nq=n, nkv=n, d=d,
+                                            dv=d, causal=True)
+            row("banded_dq", "ffpa_attn_tpu/ops/flash_bwd.py:1186",
+                training["launches"]["banded_dq"], err, kms, pms, lms, flops, nbytes)
+            del ds
+        else:
+            def run_dq():
+                return flash_bwd._dq_launch(q, k, v, None, do, lse, delta, 0, cfg,
+                                            grad_q_storage_dtype=None, **kern_kw)[0]
+
+            def run_dq_plain():
+                return flash_bwd._dq_plain(q, k, v, None, do, lse, delta, scale=scale,
+                                           emit_dbias=False, **plain_kw)[0]
+
+            kdq = run_dq()
+            torch.cuda.synchronize()
+            err = _hold(f"dq_N8192_window{window[0]}", {"dq": (kdq, run_dq_plain())})
+            del kdq
+            kms = _timed(run_dq, 10)
+            pms = _timed(run_dq_plain, 3, warmup=1)
+            flops, nbytes = backward_counts("dq", b=b, hq=hq, hkv=hkv, nq=n, nkv=n, d=d, dv=d,
+                                            causal=True, window=window)
+            row("dq", "ffpa_attn_tpu/ops/flash_bwd.py:647", windowed["launches"]["dq"], err, kms,
+                pms, lib, flops, nbytes)
+        del out
+        torch.cuda.empty_cache()
+    return rows, events
+
+
+def phase_times(errs: dict, main_path: dict, training: dict, windowed: dict) -> list:
     import torch.nn.functional as F
 
     from ffpa_attn_tpu_torch.ops import decode, flash_fwd
@@ -433,6 +902,9 @@ def phase_times(errs: dict, main_path: dict) -> list:
         bound_by=bby, library_ms=lms[0],
     ))
     events["decode"] = (kms[1], pms[1], lms[1])
+    train_rows, train_events = training_times(training, windowed)
+    rows += train_rows
+    events.update(train_events)
     log("times (device ms per call from torch.profiler; CUDA-event ms per call in brackets):")
     for r in rows:
         ev = events[r["name"]]
@@ -456,11 +928,17 @@ def main() -> int:
     phase_build()
     errs = phase_kernels_vs_plain()
     main_path = phase_main_path()
-    rows = phase_times(errs, main_path)
+    training = phase_training()
+    windowed = phase_windowed()
+    phase_tiny_training()
+    rows = phase_times(errs, main_path, training, windowed)
     log(f"summary: prefill_ms {main_path['prefill_ms']:.3f} decode_tokens_per_s "
         f"{main_path['decode_tok_s']:.2f} generate_ms {main_path['generate_ms']:.1f} "
+        f"train_step_ms {training['step_ms']:.2f} train_tokens_per_s {training['tok_s']:.1f} "
+        f"loss_rel_err {training['loss_err']:.2e} grad_rel_err {training['grad_err']:.2e} "
         f"total {time.perf_counter() - t_start:.1f} s on {smi}")
-    print(json.dumps({"kernels": rows}))
+    # "ms" is the kernel's time; "kernel_ms" repeats it under its longer name.
+    print(json.dumps({"kernels": [dict(r, kernel_ms=r["ms"]) for r in rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -22,8 +22,11 @@
 //     that the online softmax sees whole rows; P goes back the same way and
 //     every warp multiplies it into its own O columns.
 // Tail-aligned causal and sliding-window tiles outside the band are never
-// loaded; the bias is read with strides of 0 on its broadcast dims.
+// loaded; the bias is read with strides of 0 on its broadcast dims. Dropout
+// drops P after the row sum l (which keeps every element) from the hash of
+// rng.cuh, the bits the backward kernels replay.
 #include "common.cuh"
+#include "rng.cuh"
 
 namespace {
 
@@ -50,6 +53,8 @@ struct FwdParams {
   int Hq, Hkv, nq, nkv, D, Dv, group;
   float scale, softcap;
   int causal_offset, window_left, window_right;  // window_right: 0 when causal, -1 open
+  float dropout_p, dropout_inv;
+  uint32_t seed;
 };
 
 // Dynamic shared memory of one block; ops/config.py fwd_smem_bytes is the
@@ -246,9 +251,16 @@ __global__ void __launch_bounds__(NTHR, 1) fwd_kernel(const FwdParams p) {
           p0 = __expf(sv[i][0] - m_new[i]);
           p1 = __expf(sv[i][1] - m_new[i]);
         }
+        red[i] = p0 + p1;
+        if (p.dropout_p > 0.f) {
+          const int row = row0 + r, col = kv0 + lane;
+          if (dropout_uniform(p.seed, b, head, row, col) < p.dropout_p) p0 = 0.f;
+          if (dropout_uniform(p.seed, b, head, row, col + 32) < p.dropout_p) p1 = 0.f;
+          p0 *= p.dropout_inv;
+          p1 *= p.dropout_inv;
+        }
         P[r * LDC + lane] = from_float<T>(p0);
         P[r * LDC + lane + 32] = from_float<T>(p1);
-        red[i] = p0 + p1;
       }
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
@@ -345,7 +357,8 @@ extern "C" int ffpa_flash_fwd(const void* q, const void* k, const void* v, void*
                               long long sc, const float* alibi, int is_fp16, int block_q, int B,
                               int Hq, int Hkv, int nq, int nkv, int D, int Dv, float scale,
                               float softcap, int causal_offset, int window_left,
-                              int window_right, void* stream) {
+                              int window_right, float dropout_p, float dropout_inv,
+                              unsigned seed, void* stream) {
   FwdParams p = {};
   p.q = q;
   p.k = k;
@@ -370,6 +383,9 @@ extern "C" int ffpa_flash_fwd(const void* q, const void* k, const void* v, void*
   p.causal_offset = causal_offset;
   p.window_left = window_left;
   p.window_right = window_right;
+  p.dropout_p = dropout_p;
+  p.dropout_inv = dropout_inv;
+  p.seed = seed;
   // Registers hold block_q x Dv fp32 (64 per thread); D and Dv are 64-multiples.
   if (D % CH != 0 || Dv % CH != 0 || (long long)block_q * Dv > 32 * 1024 ||
       (block_q != 64 && block_q != 32))

@@ -12,6 +12,8 @@ from typing import Union
 
 import torch
 
+_GIB = 1024**3
+
 
 def _env_bool(name: str, default: bool = False) -> bool:
     val = os.environ.get(name)
@@ -48,6 +50,24 @@ class ENV:
     @staticmethod
     def min_seqlen_kv() -> int:
         return _env_int("FFPA_TORCH_MIN_SEQLEN_KV", 128)
+
+    @staticmethod
+    def ds_handoff_limit_bytes() -> int:
+        """Largest dS score-gradient slab the dS-handoff backward writes in
+        one stripe (default 5 GiB); 0 disables the handoff."""
+        return _env_int("FFPA_TORCH_DS_HANDOFF_LIMIT_BYTES", 5 * _GIB)
+
+    @staticmethod
+    def hbm_bytes() -> int:
+        """Device memory the backward's headroom gates assume: an H100's
+        80 GB (the port's own setting, not the TPU's 16 GiB)."""
+        return _env_int("FFPA_TORCH_HBM_BYTES", 80 * 10**9)
+
+    @staticmethod
+    def hbm_model_margin_bytes() -> int:
+        """Device memory left to co-resident model state (weights, optimizer,
+        activations) when gating the dS slab."""
+        return _env_int("FFPA_TORCH_HBM_MODEL_MARGIN_BYTES", 16 * _GIB)
 
     @staticmethod
     def device_log_level() -> int:

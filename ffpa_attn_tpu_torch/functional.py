@@ -53,11 +53,25 @@ class CudaBackend(Backend):
     ``block_q`` / ``block_kv``: manual forward block-shape overrides (None =
     the cost model's pick). ``block_q`` must be a row tile the forward
     kernel is compiled for, ``block_kv`` its KV tile.
+    ``block_q_dq``: the dQ kernels' row tile override (one the kernels are
+    compiled for).
+    ``grad_kv_storage_dtype`` / ``grad_q_storage_dtype``: the dtype the
+    backward returns dK/dV and dQ in ('f16', 'bf16', 'f32'; None = the
+    input's).
+    ``ds_handoff``: the dS-handoff backward (None = auto by the device
+    memory budget, True / False = force).
+    ``save_scores``: the S-resident backward (None = auto); it belongs to
+    a later slice of the port, so True raises on a CUDA tensor.
     """
 
     name: str = "cuda"
     block_q: Optional[int] = None
     block_kv: Optional[int] = None
+    block_q_dq: Optional[int] = None
+    grad_kv_storage_dtype: Optional[str] = None
+    grad_q_storage_dtype: Optional[str] = None
+    ds_handoff: Optional[bool] = None
+    save_scores: Optional[bool] = None
 
     def validate(self) -> None:
         from .ops.config import FWD_ROW_TILES, KV_TILE
@@ -66,6 +80,16 @@ class CudaBackend(Backend):
             raise ValueError(f"block_q must be one of {FWD_ROW_TILES}, got {self.block_q}")
         if self.block_kv is not None and self.block_kv != KV_TILE:
             raise ValueError(f"block_kv must be {KV_TILE}, got {self.block_kv}")
+        if self.block_q_dq is not None and self.block_q_dq not in FWD_ROW_TILES:
+            raise ValueError(
+                f"block_q_dq must be one of {FWD_ROW_TILES}, got {self.block_q_dq}"
+            )
+        for attr in ("grad_kv_storage_dtype", "grad_q_storage_dtype"):
+            val = getattr(self, attr)
+            if val is not None and val not in ("f16", "bf16", "f32"):
+                raise ValueError(
+                    f"{attr} must be one of 'f16', 'bf16', 'f32', got {val!r}"
+                )
 
 
 _BACKEND_ALIASES = {

@@ -73,8 +73,7 @@ def ffpa_attn_func(
       attn_mask: bool (True participates) or additive float mask
         broadcastable to ``[B, Nh_q, Nq, Nkv]``.
       dropout_p: attention dropout in [0, 1) with the deterministic hash
-        (``dropout_seed=<int>`` in kwargs); the kernels take it with the
-        training slice, CPU tensors today.
+        (``dropout_seed=<int>`` in kwargs), replayed by the backward.
       is_causal: tail-aligned causal (row m attends cols <= m + Nkv - Nq).
       scale: defaults to 1/sqrt(D).
       enable_gqa: opt into GQA/MQA semantics.
@@ -87,7 +86,8 @@ def ffpa_attn_func(
     Returns:
       ``[B, Nh_q, Nq, Dv]`` attention output in the input dtype, on the
       inputs' device (the kernels for CUDA tensors, their plain versions for
-      CPU tensors).
+      CPU tensors), differentiable under ``torch.autograd`` (Nq > 8; the
+      decode route's backward is a later slice).
     """
     dropout_seed = kwargs.pop("dropout_seed", 0)
     softcap = kwargs.pop("softcap", 0.0) or 0.0

@@ -1,15 +1,28 @@
-"""Model layer: the large-head-dim transformer LM and its serving path."""
+"""Model layer: the large-head-dim transformer LM, its serving path and its
+training step."""
 
-from .convert import params_from_jax, random_params
+from .convert import params_from_jax, params_to_jax, random_params
 from .generate import decode_step, generate, init_kv_cache, prefill
 from .sampling import filter_logits, sample_logits
-from .transformer import ModelConfig, Transformer
+from .transformer import (
+    ModelConfig,
+    Transformer,
+    adamw,
+    forward,
+    loss_fn,
+    make_train_step,
+)
 
 __all__ = [
     "ModelConfig",
     "Transformer",
     "params_from_jax",
+    "params_to_jax",
     "random_params",
+    "forward",
+    "loss_fn",
+    "adamw",
+    "make_train_step",
     "init_kv_cache",
     "prefill",
     "decode_step",

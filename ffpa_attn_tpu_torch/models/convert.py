@@ -8,6 +8,10 @@ and lists, as numpy arrays) into a ``Transformer``. The JAX model computes
 on the way in. ``embed`` [vocab, d_model], the norms and ``attn_sinks`` are
 copied as they are.
 
+``params_to_jax`` is the inverse, as float32 numpy arrays: of the weights,
+or of their gradients, so that both can be compared leaf by leaf with the
+JAX package's pytrees.
+
 ``random_params`` makes such a pytree from a numpy seed, with the shapes and
 scales of the JAX package's ``init_params``, for runs that need no JAX.
 """
@@ -52,6 +56,28 @@ def params_from_jax(params_np, cfg: ModelConfig, device=None) -> Transformer:
     return model
 
 
+def params_to_jax(model: Transformer, *, grads: bool = False):
+    """The JAX-layout pytree (float32 numpy) of ``model``'s weights, or of
+    their ``.grad`` with ``grads=True``; the seven projections are
+    transposed back to [in, out]."""
+
+    def leaf(p, transpose=False):
+        t = p.grad if grads else p
+        if t is None:
+            raise ValueError("a parameter has no gradient")
+        t = t.detach().float().cpu()
+        return (t.T if transpose else t).contiguous().numpy()
+
+    out = {"embed": leaf(model.embed), "final_norm": leaf(model.final_norm), "layers": []}
+    for layer in model.layers:
+        p = {name: leaf(getattr(layer, name).weight, True) for name in _TRANSPOSED}
+        p.update({name: leaf(getattr(layer, name)) for name in _AS_IS})
+        if model.cfg.attn_sinks:
+            p["attn_sinks"] = leaf(layer.attn_sinks)
+        out["layers"].append(p)
+    return out
+
+
 def random_params(cfg: ModelConfig, seed: int = 0):
     """JAX-layout float32 parameter pytree drawn from ``numpy`` with
     ``seed``: normal weights scaled by 1/sqrt(fan_in) (embedding 0.02),
@@ -87,4 +113,4 @@ def random_params(cfg: ModelConfig, seed: int = 0):
     return params
 
 
-__all__ = ["params_from_jax", "random_params"]
+__all__ = ["params_from_jax", "params_to_jax", "random_params"]

@@ -17,23 +17,9 @@ from ..env import resolve_device
 from ..interface import ffpa_attn_func
 from ..ops.reference import DEFAULT_MASK_VALUE
 from .sampling import sample_logits
-from .transformer import Block, ModelConfig, Transformer, _mlp, _rmsnorm, _rope
-
-
-def _feature_kwargs(cfg: ModelConfig, layer: Block, *, window: bool = True) -> dict:
-    """ffpa_attn_func extras for the model's attention features.
-
-    ``window=False`` omits window_size where the window is realized through
-    the validity bias instead (decode over a cache longer than the current
-    position)."""
-    extra = {}
-    if window and cfg.sliding_window > 0:
-        extra["window_size"] = (cfg.sliding_window, -1)
-    if cfg.attn_softcap > 0.0:
-        extra["softcap"] = cfg.attn_softcap
-    if cfg.attn_sinks:
-        extra["sinks"] = layer.attn_sinks
-    return extra
+from .transformer import (
+    ModelConfig, Transformer, _feature_kwargs, _mlp, _project_qkv, _rmsnorm,
+)
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
@@ -46,15 +32,6 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
         }
         for _ in range(cfg.n_layers)
     ]
-
-
-def _project_qkv(layer: Block, x, cfg: ModelConfig, positions):
-    b, n, _ = x.shape
-    dh = cfg.head_dim
-    q = layer.wq(x).reshape(b, n, cfg.n_heads, dh).transpose(1, 2)
-    k = layer.wk(x).reshape(b, n, cfg.n_kv_heads, dh).transpose(1, 2)
-    v = layer.wv(x).reshape(b, n, cfg.n_kv_heads, dh).transpose(1, 2)
-    return _rope(q, positions), _rope(k, positions), v
 
 
 @torch.inference_mode()

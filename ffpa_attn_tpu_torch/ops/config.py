@@ -14,6 +14,16 @@ never refused by the card.
   <= 64 * 512. Row tiles 64 (Dv <= 512) and 32 (Dv <= 1024).
 * Decode (``csrc/decode.cu``): the fp32 O tile of the PackGQA rows lives in
   shared memory; Q/K and V chunks stream through two slots.
+* Backward (``csrc/flash_bwd.cu``), 16 warps and the forward's chunk ring:
+  - dK/dV: a block owns a 32-row KV tile with K and V resident in shared
+    memory and streams 128-row Q tiles. Its two fp32 accumulators (dK and
+    dV, 32 x 512 each at D512) share the 64 registers a thread has for
+    them, so at most 512 columns of each fit one block: wider heads split
+    the columns over ``dkdv_col_passes`` blocks (the reference's SM90 D512
+    "2-pass D-split"), each recomputing S and dP for its half.
+  - dQ (recompute) and banded dQ: a block owns a 64-row (D <= 512) or
+    32-row (D <= 1024) Q tile whose fp32 dQ tile lives in registers like
+    the forward's O tile; the recompute kernel keeps Q and dO resident.
 """
 
 from __future__ import annotations
@@ -25,7 +35,8 @@ SMEM_LIMIT_BYTES = 232_448
 # The kernels' KV tile and head-dim chunk width (compile-time in the .cu).
 KV_TILE = 64
 D_CHUNK = 64
-# Stream slots of the cp.async rings (flash_fwd.cu NST, decode.cu NSTAGES).
+# Stream slots of the cp.async rings (flash_fwd.cu / flash_bwd.cu NST,
+# decode.cu NSTAGES).
 FWD_STREAM_STAGES = 4
 DECODE_STREAM_STAGES = 2
 # fp32 O-tile elements the forward's 512 threads hold in registers (64 each).
@@ -33,6 +44,13 @@ FWD_ACC_ELEMS = 64 * 512
 # Row tiles the kernels are instantiated for.
 FWD_ROW_TILES = (64, 32)
 ROW_TILES = (128, 64, 32, 16)  # decode (wmma fragments are 16 rows)
+# Backward tiles (flash_bwd.cu): the dK/dV kernel's owned KV rows and
+# streamed Q rows; the dQ kernels' row tiles are FWD_ROW_TILES.
+DKDV_KV_TILE = 32
+DKDV_Q_TILE = 128
+# Columns of dK (and of dV) one dK/dV block accumulates: 32 rows x 512
+# columns x 2 accumulators = 64 fp32 registers for each of 512 threads.
+DKDV_MAX_COLS = 512
 # Shared-memory row padding, in elements, against bank conflicts.
 _PAD_T = 8
 _PAD_F = 4
@@ -48,25 +66,37 @@ def _round_up(x: int, m: int) -> int:
 
 @dataclass(frozen=True)
 class BlockConfig:
-    """Block shapes for the forward and decode kernels.
+    """Block shapes for the forward, decode and backward kernels.
 
-    A block owns ``block_q`` rows of Q (query positions for the forward,
-    packed GQA rows for decode) and streams ``block_kv``-row K/V tiles.
+    A forward / decode block owns ``block_q`` rows of Q (query positions
+    for the forward, packed GQA rows for decode) and streams
+    ``block_kv``-row K/V tiles. A dK/dV block owns ``DKDV_KV_TILE`` KV rows
+    and ``1 / dkdv_col_passes`` of the dK and dV columns, and streams
+    ``DKDV_Q_TILE``-row Q tiles; a dQ block owns ``block_q_dq`` Q rows and
+    streams ``KV_TILE``-row K/V tiles.
     """
 
     block_q: int = 64
     block_kv: int = KV_TILE
+    block_q_dq: int = 64
+    dkdv_col_passes: int = 1
 
     def __post_init__(self):
         if self.block_q not in ROW_TILES:
             raise ValueError(
                 f"block_q must be one of {ROW_TILES}, got {self.block_q}"
             )
+        if self.block_q_dq not in FWD_ROW_TILES:
+            raise ValueError(
+                f"block_q_dq must be one of {FWD_ROW_TILES}, got {self.block_q_dq}"
+            )
         if self.block_kv != KV_TILE:
             raise ValueError(
-                f"block_kv must be {KV_TILE} (the kernels' compiled KV tile), "
-                f"got {self.block_kv}"
+                f"block_kv must be {KV_TILE} (the tile the kernels are compiled "
+                f"for), got {self.block_kv}"
             )
+        if self.dkdv_col_passes < 1:
+            raise ValueError(f"dkdv_col_passes must be >= 1, got {self.dkdv_col_passes}")
 
     def clamp(self, nq: int, nkv: int, tiles=ROW_TILES) -> "BlockConfig":
         """Shrink the row tile to the smallest of ``tiles`` that covers the
@@ -110,6 +140,49 @@ def decode_smem_bytes(cfg: BlockConfig, dv: int, itemsize: int = 2) -> int:
     return o_tile + s_tile + p_tile + slots + 3 * bq * 4
 
 
+def dkdv_col_passes(d: int, dv: int) -> int:
+    """Column passes of the dK/dV kernel: each block accumulates at most
+    DKDV_MAX_COLS columns of dK and of dV."""
+    return max(cdiv(_round_up(d, D_CHUNK), DKDV_MAX_COLS),
+               cdiv(_round_up(dv, D_CHUNK), DKDV_MAX_COLS))
+
+
+def dkdv_smem_bytes(d: int, dv: int, itemsize: int = 2) -> int:
+    """Shared memory of one dK/dV block: resident K [32, D] and V [32, Dv]
+    + the Q / dO chunk ring + P and dS [32, 128] in the input type + the
+    Q tile's lse and delta. The column passes cost no shared memory."""
+    kv = DKDV_KV_TILE * (_round_up(d, D_CHUNK) + _round_up(dv, D_CHUNK) + 2 * _PAD_T)
+    ring = FWD_STREAM_STAGES * DKDV_Q_TILE * (D_CHUNK + _PAD_T)
+    p_ds = 2 * DKDV_KV_TILE * (DKDV_Q_TILE + _PAD_T)
+    return (kv + ring + p_ds) * itemsize + 2 * DKDV_Q_TILE * 4
+
+
+def dq_smem_bytes(block_q: int, d: int, dv: int, itemsize: int = 2) -> int:
+    """Shared memory of one recompute dQ block: resident Q [bq, D] and dO
+    [bq, Dv] + the K / V chunk ring + dS [bq, 64] in the input type + the
+    tile's lse and delta. dQ costs registers, not shared memory."""
+    res = block_q * (_round_up(d, D_CHUNK) + _round_up(dv, D_CHUNK) + 2 * _PAD_T)
+    ring = FWD_STREAM_STAGES * KV_TILE * (D_CHUNK + _PAD_T)
+    ds = block_q * (KV_TILE + _PAD_T)
+    return (res + ring + ds) * itemsize + 2 * block_q * 4
+
+
+def banded_dq_smem_bytes(itemsize: int = 2) -> int:
+    """Shared memory of one banded-dQ block: the ring alone (the dS tile
+    passes through it and into registers)."""
+    return FWD_STREAM_STAGES * KV_TILE * (D_CHUNK + _PAD_T) * itemsize
+
+
+def dq_fits(block_q: int, d: int, dv: int, itemsize: int = 2) -> bool:
+    """Whether the dQ kernels take this row tile: the fp32 dQ tile
+    (block_q x D) in registers and the recompute block in shared memory."""
+    return (
+        block_q in FWD_ROW_TILES
+        and block_q * _round_up(d, D_CHUNK) <= FWD_ACC_ELEMS
+        and dq_smem_bytes(block_q, d, dv, itemsize) <= SMEM_LIMIT_BYTES
+    )
+
+
 def default_config(
     d: int,
     dv: int,
@@ -139,4 +212,12 @@ __all__ = [
     "fwd_fits",
     "decode_smem_bytes",
     "default_config",
+    "DKDV_KV_TILE",
+    "DKDV_Q_TILE",
+    "DKDV_MAX_COLS",
+    "dkdv_col_passes",
+    "dkdv_smem_bytes",
+    "dq_smem_bytes",
+    "banded_dq_smem_bytes",
+    "dq_fits",
 ]

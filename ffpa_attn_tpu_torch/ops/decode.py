@@ -30,7 +30,13 @@ from ..env import ENV
 from ..logger import init_logger
 from . import _build
 from .config import D_CHUNK, KV_TILE, cdiv
-from .flash_fwd import _TRAINING_SLICE, _bias_strides, _pad_last, check_kernel_inputs
+from .flash_fwd import _bias_strides, _pad_last, check_kernel_inputs
+
+_DECODE_GRAD_SLICE = (
+    "it belongs to a later part of the training slice of the port (ROADMAP.md, "
+    "queue 1: decode return_scores and the grouped composite backward "
+    "_decode_core_bwd), which has not landed yet"
+)
 from .reference import DEFAULT_MASK_VALUE
 
 logger = init_logger(__name__)
@@ -193,7 +199,7 @@ def _decode_forward(
     ``block_kv`` must be the kernel's KV tile if given.
     """
     if return_scores:
-        raise NotImplementedError(f"decode return_scores: {_TRAINING_SLICE}")
+        raise NotImplementedError(f"decode return_scores: {_DECODE_GRAD_SLICE}")
     b, hq, nq, d = q.shape
     _, hkv, nkv, _ = k.shape
     dv = v.shape[-1]
@@ -224,8 +230,9 @@ _decode_forward.launches = 0
 
 
 class _DecodeCore(torch.autograd.Function):
-    """Forward of the decode route; its gradient comes with the training
-    slice (the grouped composite backward ``_decode_core_bwd``)."""
+    """Forward of the decode route; its gradient (the grouped composite
+    backward ``_decode_core_bwd``) comes with a later part of the training
+    slice."""
 
     @staticmethod
     def forward(ctx, scale, is_causal, softcap, window, q, k, v, bias, sinks):
@@ -241,7 +248,7 @@ class _DecodeCore(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
-        raise NotImplementedError(f"the decode backward: {_TRAINING_SLICE}")
+        raise NotImplementedError(f"the decode backward: {_DECODE_GRAD_SLICE}")
 
 
 def decode_attention(

@@ -5,7 +5,15 @@ from __future__ import annotations
 
 import torch
 
-from .config import SMEM_LIMIT_BYTES, BlockConfig, decode_smem_bytes, default_config
+from .config import (
+    FWD_ROW_TILES,
+    SMEM_LIMIT_BYTES,
+    BlockConfig,
+    decode_smem_bytes,
+    default_config,
+    dkdv_col_passes,
+    dq_fits,
+)
 
 
 def pick_forward_config(
@@ -39,4 +47,20 @@ def pick_decode_config(
     return cfg
 
 
-__all__ = ["pick_forward_config", "pick_decode_config"]
+def pick_backward_config(
+    *, d: int, dv: int, nq: int, nkv: int, dtype: torch.dtype
+) -> BlockConfig:
+    """Heuristic backward config. The dK/dV tiles are fixed by the kernel;
+    the shape only sets its column passes (one per 512 columns of dK and of
+    dV). The dQ row tile is the tallest that fits (a taller tile divides
+    the K/V re-reads), shrunk to 32 for short queries."""
+    del nkv
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    for bq in FWD_ROW_TILES:
+        bq = BlockConfig(block_q=bq).clamp(nq, 0, FWD_ROW_TILES).block_q
+        if dq_fits(bq, d, dv, itemsize):
+            return BlockConfig(block_q_dq=bq, dkdv_col_passes=dkdv_col_passes(d, dv))
+    raise ValueError(f"no backward row tile fits D={d}, Dv={dv}")
+
+
+__all__ = ["pick_forward_config", "pick_decode_config", "pick_backward_config"]

@@ -1,0 +1,597 @@
+"""Backward attention: the CUDA kernels of ``csrc/flash_bwd.cu``, their plain
+PyTorch versions, and ``flash_attention_backward``, which chains them.
+
+Counterpart of ``ffpa_attn_tpu/ops/flash_bwd.py``. Three Pallas kernels are
+replaced, each by a wrapper of the same name and arguments that launches
+the CUDA kernel for CUDA tensors and runs the plain version for CPU
+tensors:
+
+* ``_dkdv_launch`` (Pallas ``_dkdv_kernel``): dK, dV and optionally the dS
+  slab of the dS-handoff tier;
+* ``_dq_launch`` (``_dq_kernel``): dQ and optionally dbias, the recompute
+  tier's second launch;
+* ``_banded_dq_from_ds`` (``_banded_dq_kernel``): dQ = scale * dS K from
+  the slab, causal tiles above the diagonal skipped.
+
+Bound on an H100: operations. At the training shape (B1 Hq8 N8192 D512
+causal) the dK/dV pass does 4 matmul units of 2 * Hq * N(N+1)/2 * D flop,
+1.1e12 in all (1.1 ms at 989 TFLOP/s), and writes a 1 GiB dS slab (0.32 ms
+at 3.35 TB/s); banded dQ does one unit (0.28 ms). Design against that bound
+(``csrc/flash_bwd.cu``): the forward's mma.sync tiles and chunk ring;
+whole tiles outside the causal / window band are never loaded; a dK/dV
+block loops over the GQA group and the Q tiles itself (one store of the
+group-reduced dK/dV, no atomics); dV shares its stream of dO with dP.
+
+The delta preprocess ``rowsum(dO * O)``, ``_dq_from_ds`` and
+``_dbias_from_ds`` are plain large reductions and products outside any
+Pallas kernel in JAX and stay PyTorch here. fp16 runs natively: there is no
+hi+lo split of P and dO for the dV product (the JAX package needs one
+because Mosaic computes fp16 in bf16).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..env import ENV
+from ..logger import init_logger
+from . import _build
+from .config import (
+    D_CHUNK,
+    DKDV_KV_TILE,
+    DKDV_Q_TILE,
+    FWD_ACC_ELEMS,
+    KV_TILE,
+    BlockConfig,
+    cdiv,
+    dkdv_col_passes,
+)
+from .flash_fwd import _bias_strides, _pad_last, check_kernel_inputs, dropout_args
+from .reference import DEFAULT_MASK_VALUE, expand_kv_heads, reduce_q_heads
+from .rng import dropout_keep_mask, make_row_col_ids
+
+logger = init_logger(__name__)
+
+_GRAD_DTYPES = {"f16": torch.float16, "bf16": torch.bfloat16, "f32": torch.float32}
+
+
+def _grad_dtype(storage: Optional[str], default_dtype: torch.dtype) -> torch.dtype:
+    return default_dtype if storage is None else _GRAD_DTYPES[storage]
+
+
+def _pad_rows(x: torch.Tensor, rows: int, dim: int = 2) -> torch.Tensor:
+    pad = rows - x.shape[dim]
+    if pad == 0:
+        return x
+    widths = [0, 0] * (x.ndim - 1 - dim) + [0, pad]
+    return F.pad(x, widths)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (fp32 math, the kernels' roundings)
+# ---------------------------------------------------------------------------
+
+
+def _score_grads_plain(
+    q, k, v, do, lse, delta, bias, *, scale, is_causal, causal_offset, dropout_p,
+    seed, softcap, window, alibi, row_offset=0, col_offset=0,
+):
+    """``_recompute_ds`` over the whole problem: fp32 [B, Hq, Nq, Nkv]
+    (p_dropped, ds, ds_qk). ``ds`` is the post-bias score gradient (the
+    bias gradient); ``ds_qk`` carries softcap's chain factor."""
+    b, hq, nq, _ = q.shape
+    nkv = k.shape[2]
+    dev = q.device
+    kx, vx = expand_kv_heads(k, hq).float(), expand_kv_heads(v, hq).float()
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kx) * scale
+    cap = None
+    if softcap > 0.0:
+        s = softcap * torch.tanh(s / softcap)
+        cap = 1.0 - torch.square(s / softcap)
+    rows, cols = make_row_col_ids(nq, nkv, device=dev)
+    if alibi is not None:
+        dist = (rows + causal_offset - cols).abs().float()
+        s = s - alibi.float().reshape(b, hq, 1, 1) * dist
+    if bias is not None:
+        s = s + bias.float()
+    wl = int(window[0])
+    wr = 0 if is_causal else int(window[1])
+    if wr >= 0:
+        s = torch.where(cols <= rows + causal_offset + wr, s, DEFAULT_MASK_VALUE)
+    if wl >= 0:
+        s = torch.where(cols >= rows + causal_offset - wl, s, DEFAULT_MASK_VALUE)
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), vx)
+    p_dropped = p
+    if dropout_p > 0.0:
+        bi = torch.arange(b, device=dev)[:, None, None, None]
+        hi = torch.arange(hq, device=dev)[None, :, None, None]
+        keep = dropout_keep_mask(seed, bi, hi, rows + row_offset, cols + col_offset, dropout_p)
+        inv = 1.0 / (1.0 - dropout_p)
+        p_dropped = torch.where(keep, p, 0.0) * inv
+        dp = torch.where(keep, dp, 0.0) * inv
+    ds = p * (dp - delta[..., None])
+    return p_dropped, ds, ds if cap is None else ds * cap
+
+
+def _dkdv_plain(q, k, v, bias, do, lse, delta, *, scale, emit_ds, nq_pad, nkv_pad, **kw):
+    """(dk, dv) in fp32, group-reduced, and the dS slab (padded, input type)."""
+    hkv, t = k.shape[1], q.dtype
+    p_dropped, _, ds_qk = _score_grads_plain(q, k, v, do, lse, delta, bias, scale=scale, **kw)
+    ds_t = ds_qk.to(t)
+    dv = reduce_q_heads(torch.einsum("bhqk,bhqd->bhkd", p_dropped.to(t).float(), do.float()), hkv)
+    dk = reduce_q_heads(torch.einsum("bhqk,bhqd->bhkd", ds_t.float(), q.float()), hkv) * scale
+    ds_full = None
+    if emit_ds:
+        ds_full = _pad_rows(_pad_rows(ds_t, nkv_pad, dim=3), nq_pad, dim=2)
+    return dk, dv, ds_full
+
+
+def _dq_plain(q, k, v, bias, do, lse, delta, *, scale, emit_dbias, **kw):
+    """dq in fp32 and, when asked, the fp32 bias gradient [B, Hq, Nq, Nkv]."""
+    _, ds, ds_qk = _score_grads_plain(q, k, v, do, lse, delta, bias, scale=scale, **kw)
+    kx = expand_kv_heads(k, q.shape[1]).float()
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds_qk.to(q.dtype).float(), kx) * scale
+    return dq, (ds if emit_dbias else None)
+
+
+def _banded_dq_plain(ds_full, k, *, scale, nq, nkv):
+    kx = expand_kv_heads(k, ds_full.shape[1]).float()
+    return torch.einsum("bhqk,bhkd->bhqd", ds_full[:, :, :nq, :nkv].float(), kx) * scale
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_F = ctypes.c_float
+_ARGTYPES = {
+    "ffpa_bwd_dkdv": (
+        [_P] * 10 + [_LL] * 4 + [_P] + [_I] * 12 + [_F] * 2 + [_I] * 3 + [_F] * 2
+        + [ctypes.c_uint32] + [_I] * 2 + [_P]
+    ),
+    "ffpa_bwd_dq": (
+        [_P] * 9 + [_LL] * 4 + [_P] + [_I] * 12 + [_F] * 2 + [_I] * 3 + [_F] * 2
+        + [ctypes.c_uint32] + [_P]
+    ),
+    "ffpa_bwd_banded_dq": [_P] * 3 + [_I] * 11 + [_F] + [_I] + [_P],
+}
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_bwd")
+    for name, argtypes in _ARGTYPES.items():
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
+class _Operands(NamedTuple):
+    """A backward kernel's inputs: head dims padded to 64-multiples,
+    contiguous, fp32 bias / ALiBi / lse / delta."""
+
+    q: torch.Tensor
+    k: torch.Tensor
+    v: torch.Tensor
+    do: torch.Tensor
+    lse: torch.Tensor
+    delta: torch.Tensor
+    bias: Optional[torch.Tensor]
+    strides: tuple  # the bias's element strides, 0 on broadcast dims
+    alibi: Optional[torch.Tensor]
+
+    def ptrs(self) -> list:
+        """q, k, v, dO, lse and delta pointers, in the C entry points' order."""
+        return [t.data_ptr() for t in (self.q, self.k, self.v, self.do, self.lse, self.delta)]
+
+    def extras(self) -> list:
+        """bias pointer, its four strides and the ALiBi pointer."""
+        return [None if self.bias is None else self.bias.data_ptr(), *self.strides,
+                None if self.alibi is None else self.alibi.data_ptr()]
+
+
+def _kernel_operands(q, k, v, do, bias, alibi, lse, delta) -> _Operands:
+    check_kernel_inputs("flash_attention_backward", q, k, v)
+    b, hq, nq, d = q.shape
+    d_pad = cdiv(d, D_CHUNK) * D_CHUNK
+    dv_pad = cdiv(v.shape[-1], D_CHUNK) * D_CHUNK
+    strides = (0, 0, 0, 0)
+    if bias is not None:
+        bias = bias.to(device=q.device, dtype=torch.float32)
+        strides = _bias_strides(bias, (b, hq, nq, k.shape[2]))
+    if alibi is not None:
+        alibi = torch.as_tensor(alibi, dtype=torch.float32, device=q.device).expand(
+            b, hq).contiguous()
+    return _Operands(
+        _pad_last(q, d_pad).contiguous(), _pad_last(k, d_pad).contiguous(),
+        _pad_last(v, dv_pad).contiguous(), _pad_last(do.to(q.dtype), dv_pad).contiguous(),
+        lse.float().contiguous(), delta.float().contiguous(), bias, strides, alibi,
+    )
+
+
+def _out_dtype(want: torch.dtype, t: torch.dtype):
+    """(kernel writes fp32?, dtype it writes): the input type when asked
+    for, else fp32 (cast by the wrapper)."""
+    return (0, t) if want == t else (1, torch.float32)
+
+
+def _dkdv_launch(
+    q, k, v, bias, do, lse, delta, seed, config, *, scale, is_causal, causal_offset,
+    dropout_p, group, grad_kv_storage_dtype, emit_ds=False, col_offset=0,
+    row_offset=0, softcap=0.0, window=(-1, -1), alibi=None,
+):
+    """dK, dV [B, Hkv, Nkv, D|Dv] (GQA group reduced) and, with
+    ``emit_ds``, the dS slab [B, Hq, nq_pad, nkv_pad] in q's dtype: the
+    score gradient with softcap's factor, zeros outside the band and on
+    padding. ``causal_offset`` is the launch's local offset;
+    ``row_offset`` / ``col_offset`` map its rows / columns to the global
+    ids the dropout hash takes. ``seed`` is the dropout seed."""
+    b, hq, nq, d = q.shape
+    _, hkv, nkv, _ = k.shape
+    dv_dim = v.shape[-1]
+    nq_pad = cdiv(nq, DKDV_Q_TILE) * DKDV_Q_TILE
+    nkv_pad = cdiv(nkv, DKDV_KV_TILE) * DKDV_KV_TILE
+    dk_dtype = _grad_dtype(grad_kv_storage_dtype, k.dtype)
+    dv_dtype = _grad_dtype(grad_kv_storage_dtype, v.dtype)
+    window_left = int(window[0])
+    window_right = -1 if is_causal else int(window[1])
+    if q.device.type == "cpu":
+        dk, dv, ds_full = _dkdv_plain(
+            q, k, v, bias, do, lse, delta, scale=scale, emit_ds=emit_ds, nq_pad=nq_pad,
+            nkv_pad=nkv_pad, is_causal=is_causal, causal_offset=causal_offset,
+            dropout_p=dropout_p, seed=seed, softcap=softcap,
+            window=(window_left, window_right), alibi=alibi, row_offset=row_offset,
+            col_offset=col_offset,
+        )
+        return dk.to(dk_dtype), dv.to(dv_dtype), ds_full
+
+    ops = _kernel_operands(q, k, v, do, bias, alibi, lse, delta)
+    d_pad, dv_pad = ops.q.shape[-1], ops.v.shape[-1]
+    passes = max(config.dkdv_col_passes, dkdv_col_passes(d_pad, dv_pad))
+    out_f32, wt = _out_dtype(dk_dtype, q.dtype)
+    dk = torch.empty((b, hkv, nkv, d_pad), dtype=wt, device=q.device)
+    dv = torch.empty((b, hkv, nkv, dv_pad), dtype=wt, device=q.device)
+    ds_full = (torch.empty((b, hq, nq_pad, nkv_pad), dtype=q.dtype, device=q.device)
+               if emit_ds else None)
+    if ENV.device_log_level() >= 2:
+        logger.info("dkdv launch grid=(%d,%d,%d) D=%d Dv=%d emit_ds=%s", hkv * passes, b,
+                    cdiv(nkv, DKDV_KV_TILE), d_pad, dv_pad, emit_ds)
+    lib = _bwd_lib()
+    with torch.cuda.device(q.device):
+        err = lib.ffpa_bwd_dkdv(
+            *ops.ptrs(), dk.data_ptr(), dv.data_ptr(),
+            None if ds_full is None else ds_full.data_ptr(), *ops.extras(),
+            int(q.dtype == torch.float16), out_f32, b, hq, hkv, nq, nkv, d_pad, dv_pad,
+            passes, nq_pad, nkv_pad, float(scale), float(softcap), int(causal_offset),
+            window_left, 0 if is_causal else window_right,
+            *dropout_args(dropout_p, seed), int(row_offset), int(col_offset),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _build.check(lib, err, "dkdv kernel launch")
+    _dkdv_launch.launches += 1
+    return dk[..., :d].to(dk_dtype), dv[..., :dv_dim].to(dv_dtype), ds_full
+
+
+_dkdv_launch.launches = 0
+
+
+def _dq_launch(
+    q, k, v, bias, do, lse, delta, seed, config, *, scale, is_causal, causal_offset,
+    dropout_p, group, grad_q_storage_dtype, softcap=0.0, window=(-1, -1), alibi=None,
+    emit_dbias=True,
+):
+    """dQ [B, Hq, Nq, D] and, for a bias when ``emit_dbias``, its gradient
+    reduced to the bias's compact shape: the post-bias score gradient,
+    without softcap's factor."""
+    b, hq, nq, d = q.shape
+    _, hkv, nkv, _ = k.shape
+    dq_dtype = _grad_dtype(grad_q_storage_dtype, q.dtype)
+    emit_dbias = emit_dbias and bias is not None
+    window_left = int(window[0])
+    window_right = -1 if is_causal else int(window[1])
+    if q.device.type == "cpu":
+        dq, dbias_full = _dq_plain(
+            q, k, v, bias, do, lse, delta, scale=scale, emit_dbias=emit_dbias,
+            is_causal=is_causal, causal_offset=causal_offset, dropout_p=dropout_p,
+            seed=seed, softcap=softcap, window=(window_left, window_right), alibi=alibi,
+        )
+        dq = dq.to(dq_dtype)
+    else:
+        ops = _kernel_operands(q, k, v, do, bias, alibi, lse, delta)
+        d_pad, dv_pad = ops.q.shape[-1], ops.v.shape[-1]
+        bq = config.block_q_dq
+        out_f32, wt = _out_dtype(dq_dtype, q.dtype)
+        dq = torch.empty((b, hq, nq, d_pad), dtype=wt, device=q.device)
+        dbias_full = None
+        if emit_dbias:
+            dbias_full = torch.empty((b, hq, cdiv(nq, bq) * bq, cdiv(nkv, KV_TILE) * KV_TILE),
+                                     dtype=torch.float32, device=q.device)
+        if ENV.device_log_level() >= 2:
+            logger.info("dq launch grid=(%d,%d,%d) block_q=%d D=%d Dv=%d dbias=%s", hq, b,
+                        cdiv(nq, bq), bq, d_pad, dv_pad, emit_dbias)
+        lib = _bwd_lib()
+        with torch.cuda.device(q.device):
+            err = lib.ffpa_bwd_dq(
+                *ops.ptrs(), dq.data_ptr(),
+                None if dbias_full is None else dbias_full.data_ptr(), *ops.extras(),
+                int(q.dtype == torch.float16), out_f32, bq, b, hq, hkv, nq, nkv, d_pad, dv_pad,
+                0 if dbias_full is None else dbias_full.shape[2],
+                0 if dbias_full is None else dbias_full.shape[3],
+                float(scale), float(softcap), int(causal_offset), window_left,
+                0 if is_causal else window_right, *dropout_args(dropout_p, seed),
+                torch.cuda.current_stream(q.device).cuda_stream,
+            )
+        _build.check(lib, err, "dq kernel launch")
+        _dq_launch.launches += 1
+        dq = dq[..., :d].to(dq_dtype)
+        if dbias_full is not None:
+            dbias_full = dbias_full[:, :, :nq, :nkv]
+    dbias = None
+    if dbias_full is not None:
+        dbias = _dbias_from_ds(dbias_full, bias).to(bias.dtype)
+    return dq, dbias
+
+
+_dq_launch.launches = 0
+
+
+def _banded_dq_from_ds(ds_full, k, config, *, scale, group, nq, nkv, causal_offset, dq_dtype):
+    """Causal dQ = scale * dS K from the dS slab ([B, Hq, nq_pad, nkv_pad],
+    zeros above the band), tiles above the diagonal skipped.
+    ``causal_offset`` is the launch's local offset."""
+    del group
+    b, hq, nq_pad, nkv_pad = ds_full.shape
+    d = k.shape[-1]
+    if ds_full.device.type == "cpu":
+        return _banded_dq_plain(ds_full, k, scale=scale, nq=nq, nkv=nkv).to(dq_dtype)
+    if ds_full.dtype not in (torch.bfloat16, torch.float16) or k.dtype != ds_full.dtype:
+        raise TypeError("banded dQ: dS and K must share a bf16 or f16 dtype")
+    hkv = k.shape[1]
+    d_pad = cdiv(d, D_CHUNK) * D_CHUNK
+    k_ = _pad_last(k, d_pad).contiguous()
+    ds_ = ds_full.contiguous()
+    # The panel: the tallest row tile whose fp32 dQ fits the registers.
+    bq = 64 if 64 * d_pad <= FWD_ACC_ELEMS else 32
+    out_f32, wt = _out_dtype(dq_dtype, k.dtype)
+    dq = torch.empty((b, hq, nq, d_pad), dtype=wt, device=k.device)
+    if ENV.device_log_level() >= 2:
+        logger.info("banded dq launch grid=(%d,%d,%d) block_q=%d D=%d", hq, b, cdiv(nq, bq),
+                    bq, d_pad)
+    lib = _bwd_lib()
+    with torch.cuda.device(k.device):
+        err = lib.ffpa_bwd_banded_dq(
+            ds_.data_ptr(), k_.data_ptr(), dq.data_ptr(), int(k.dtype == torch.float16),
+            out_f32, bq, b, hq, hkv, nq, nkv, d_pad, nq_pad, nkv_pad, float(scale),
+            int(causal_offset), torch.cuda.current_stream(k.device).cuda_stream,
+        )
+    _build.check(lib, err, "banded dq kernel launch")
+    _banded_dq_from_ds.launches += 1
+    return dq[..., :d].to(dq_dtype)
+
+
+_banded_dq_from_ds.launches = 0
+
+
+def _dbias_from_ds(ds_c, bias):
+    """Bias gradient: the cropped score gradient summed over the bias's
+    broadcast axes."""
+    axes = tuple(ax for ax, sz in enumerate(bias.shape) if sz == 1)
+    dbias = ds_c.float()
+    return dbias.sum(dim=axes, keepdim=True) if axes else dbias
+
+
+def _dq_from_ds(ds_full, k, bias, *, scale, group, nq, nkv, dq_dtype):
+    """dQ (and dbias) from the dS slab: one plain product, as JAX leaves
+    it to XLA."""
+    hq = ds_full.shape[1]
+    ds_c = ds_full[:, :, :nq, :nkv]
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds_c.float(), expand_kv_heads(k, hq).float())
+    dq = (dq * scale).to(dq_dtype)
+    dbias = None if bias is None else _dbias_from_ds(ds_c, bias).to(bias.dtype)
+    return dq, dbias
+
+
+# ---------------------------------------------------------------------------
+# The backward
+# ---------------------------------------------------------------------------
+
+
+def flash_attention_backward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: Optional[torch.Tensor],
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    *,
+    scale: float,
+    is_causal: bool,
+    dropout_p: float = 0.0,
+    dropout_seed=0,
+    config: Optional[BlockConfig] = None,
+    grad_kv_storage_dtype: Optional[str] = None,
+    grad_q_storage_dtype: Optional[str] = None,
+    ds_handoff: Optional[bool] = None,
+    softcap: float = 0.0,
+    window: tuple = (-1, -1),
+    alibi_slopes: Optional[torch.Tensor] = None,
+    bias_grad: bool = True,
+):
+    """Returns (dq, dk, dv, dbias or None).
+
+    Two tiers, as in the JAX package:
+
+    * dS handoff (``ds_handoff``; None = auto by the device-memory budget):
+      the dK/dV kernel also writes the score gradient dS, and dQ is
+      ``scale * dS K`` (the banded kernel under causal, a plain product
+      otherwise). A slab larger than ``ENV.ds_handoff_limit_bytes()`` is
+      cut into KV stripes; under causal each stripe drops the Q rows that
+      cannot see it. Sliding windows, and softcap with a bias or ALiBi,
+      always take the recompute tier.
+    * recompute: the dK/dV kernel, then the dQ kernel (which also gives
+      dbias).
+
+    ``bias_grad=False`` skips the bias gradient (dbias is then None).
+    """
+    b, hq, nq, d = q.shape
+    _, hkv, nkv, _ = k.shape
+    dv_dim = v.shape[-1]
+    group = hq // hkv
+    if config is None:
+        from .dispatch import pick_backward_config
+
+        config = pick_backward_config(d=d, dv=dv_dim, nq=nq, nkv=nkv, dtype=q.dtype)
+    grad_bias = bias if bias_grad else None
+
+    window_left = int(window[0])
+    window_right = -1 if is_causal else int(window[1])
+    window_active = window_left >= 0 or window_right >= 0
+    alibi = None
+    if alibi_slopes is not None:
+        alibi = torch.as_tensor(alibi_slopes, dtype=torch.float32, device=q.device)
+        if alibi.ndim == 1:
+            alibi = alibi[None].expand(b, hq)
+    if window_active or (softcap > 0.0 and (bias is not None or alibi is not None)):
+        # Windows want the band-skipping recompute kernels (an N^2 slab
+        # defeats O(N * W)); softcap with additive terms needs the
+        # kernel's split of dS (bias grad) and dS_qk (matmul grad).
+        ds_handoff = False
+
+    # Preprocess, before any cast: delta = rowsum(dO * O) in fp32.
+    delta = (do.float() * o.float()).sum(dim=-1)
+    causal_offset = nkv - nq
+    kw = dict(scale=scale, is_causal=is_causal, dropout_p=dropout_p, group=group,
+              softcap=softcap, alibi=alibi)
+
+    itemsize = q.element_size()
+    limit = ENV.ds_handoff_limit_bytes()
+    bq_h, bkv_h = DKDV_Q_TILE, DKDV_KV_TILE
+    ds_bytes = b * hq * cdiv(nq, bq_h) * bq_h * cdiv(nkv, bkv_h) * bkv_h * itemsize
+    if ds_handoff is None:
+        # The largest live slab (one stripe, <= limit) must fit the call's
+        # device-memory headroom: the card minus this call's tensors (q, k,
+        # v, do and their gradients) minus the model's margin.
+        residents = itemsize * 2 * (q.numel() + k.numel() + v.numel() + do.numel()) + (
+            0 if bias is None else bias.numel() * 4)
+        headroom = ENV.hbm_bytes() - residents - ENV.hbm_model_margin_bytes()
+        slab_limit = min(limit, max(headroom, 0))
+        ds_handoff = slab_limit > 0 and (
+            ds_bytes <= slab_limit or cdiv(ds_bytes, max(slab_limit, 1)) <= 8
+        )
+        limit = slab_limit if slab_limit > 0 else limit
+
+    if not ds_handoff:
+        dk, dv, _ = _dkdv_launch(
+            q, k, v, bias, do, lse, delta, dropout_seed, config,
+            causal_offset=causal_offset, grad_kv_storage_dtype=grad_kv_storage_dtype,
+            emit_ds=False, window=window, **kw,
+        )
+        dq, dbias = _dq_launch(
+            q, k, v, bias, do, lse, delta, dropout_seed, config,
+            causal_offset=causal_offset, grad_q_storage_dtype=grad_q_storage_dtype,
+            window=window, emit_dbias=grad_bias is not None, **kw,
+        )
+        return dq, dk, dv, dbias
+
+    n_stripes = max(1, cdiv(ds_bytes, max(limit, 1)))
+    stripe_cols = cdiv(cdiv(nkv, n_stripes), bkv_h) * bkv_h
+    dq_dtype = _grad_dtype(grad_q_storage_dtype, q.dtype)
+    single = stripe_cols >= nkv
+    dq_acc = None if single else torch.zeros((b, hq, nq, d), dtype=torch.float32,
+                                             device=q.device)
+    dk_parts, dv_parts, dbias_parts = [], [], []
+    for lo in range(0, nkv, stripe_cols):
+        hi = min(nkv, lo + stripe_cols)
+        # Causal: Q rows below lo - offset cannot see this stripe.
+        row_start = 0
+        if is_causal and lo > causal_offset:
+            row_start = ((lo - causal_offset) // bq_h) * bq_h
+        k_s, v_s = k[:, :, lo:hi], v[:, :, lo:hi]
+        q_s, do_s = q[:, :, row_start:], do[:, :, row_start:]
+        lse_s, delta_s = lse[:, :, row_start:], delta[:, :, row_start:]
+        bias_s = bias
+        if bias is not None:
+            if bias.shape[3] != 1:
+                bias_s = bias_s[:, :, :, lo:hi]
+            if row_start and bias.shape[2] != 1:
+                bias_s = bias_s[:, :, row_start:]
+        local_off = causal_offset - lo + row_start
+        dk_s, dv_s, ds_s = _dkdv_launch(
+            q_s, k_s, v_s, bias_s, do_s, lse_s, delta_s, dropout_seed, config,
+            causal_offset=local_off, grad_kv_storage_dtype=grad_kv_storage_dtype,
+            emit_ds=True, col_offset=lo, row_offset=row_start, **kw,
+        )
+        dk_parts.append(dk_s)
+        dv_parts.append(dv_s)
+        nq_loc = nq - row_start
+        dbias_s = None
+        if is_causal:
+            dq_s = _banded_dq_from_ds(
+                ds_s, k_s, config, scale=scale, group=group, nq=nq_loc, nkv=hi - lo,
+                causal_offset=local_off, dq_dtype=dq_dtype if single else torch.float32,
+            )
+            if grad_bias is not None:
+                dbias_s = _dbias_from_ds(ds_s[:, :, :nq_loc, : hi - lo], bias)
+        else:
+            dq_s, dbias_s = _dq_from_ds(
+                ds_s, k_s, bias_s if grad_bias is not None else None, scale=scale,
+                group=group, nq=nq_loc, nkv=hi - lo,
+                dq_dtype=dq_dtype if single else torch.float32,
+            )
+        del ds_s
+        if single:
+            dq_acc = dq_s
+        else:
+            dq_acc[:, :, row_start:] += dq_s
+        if dbias_s is not None:
+            dbias_parts.append((row_start, dbias_s))
+    dq = dq_acc if single else dq_acc.to(dq_dtype)
+    dk = dk_parts[0] if len(dk_parts) == 1 else torch.cat(dk_parts, dim=2)
+    dv = dv_parts[0] if len(dv_parts) == 1 else torch.cat(dv_parts, dim=2)
+    dbias = None
+    if grad_bias is not None:
+        dbias = _assemble_dbias(dbias_parts, bias)
+    return dq, dk, dv, dbias
+
+
+def _assemble_dbias(parts, bias):
+    """The bias gradient from per-stripe parts [(row_start, part)]: column
+    stripes side by side, each part's rows placed at its row_start."""
+    if bias.shape[3] != 1:
+        full_rows = bias.shape[2] != 1
+        if not full_rows or all(rs == 0 for rs, _ in parts):
+            return torch.cat([p for _, p in parts], dim=3).to(bias.dtype)
+        cols = sum(p.shape[3] for _, p in parts)
+        dbias = torch.zeros(bias.shape[:3] + (cols,), dtype=torch.float32, device=bias.device)
+        off = 0
+        for rs, p in parts:
+            dbias[:, :, rs:rs + p.shape[2], off:off + p.shape[3]] = p.float()
+            off += p.shape[3]
+        return dbias.to(bias.dtype)
+    dbias = None
+    for rs, p in parts:
+        if bias.shape[2] != 1 and rs:
+            p = F.pad(p, (0, 0, rs, 0))
+        dbias = p if dbias is None else dbias + p
+    return dbias.to(bias.dtype)
+
+
+__all__ = [
+    "flash_attention_backward",
+    "_dkdv_launch",
+    "_dq_launch",
+    "_banded_dq_from_ds",
+    "_dq_from_ds",
+    "_dbias_from_ds",
+    "_grad_dtype",
+]

@@ -15,7 +15,8 @@ tile is split over the registers of 16 warps by rows and columns (Split-D
 of the accumulator: no warp holds a whole row); Q stays resident in shared
 memory while K/V stream through a cp.async ring; whole KV tiles outside the
 causal / window band are never loaded; heads and query tiles fill the grid,
-the longest causal tiles first.
+the longest causal tiles first. Dropout is the hash of ``rng.py``, written
+into the kernel (``csrc/rng.cuh``) so the backward replays its bits.
 """
 
 from __future__ import annotations
@@ -34,9 +35,10 @@ from .reference import expand_kv_heads, reference_attention
 
 logger = init_logger(__name__)
 
-_TRAINING_SLICE = (
-    "it belongs to the training slice of the port (ROADMAP.md, queue 2: the "
-    "backward kernels), which has not landed yet"
+_S_RESIDENT_SLICE = (
+    "it belongs to the S-resident slice of the port (ROADMAP.md, queue 1: "
+    "the forward's S residual, _dkdv_from_s_kernel and _banded_dk_kernel), "
+    "which has not landed yet"
 )
 
 
@@ -64,10 +66,16 @@ def check_kernel_inputs(name: str, q, k, v) -> None:
             raise ValueError(f"{name}: q, k, v must share dtype and device")
 
 
+def dropout_args(dropout_p: float, dropout_seed) -> tuple:
+    """(p, 1 / (1 - p), seed as uint32) for a kernel's dropout arguments."""
+    p = float(dropout_p)
+    return p, (1.0 / (1.0 - p)) if p > 0.0 else 1.0, int(dropout_seed) & 0xFFFFFFFF
+
+
 _FWD_ARGTYPES = (
     [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
     + [ctypes.c_int] * 9 + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
-    + [ctypes.c_void_p]
+    + [ctypes.c_float] * 2 + [ctypes.c_uint32] + [ctypes.c_void_p]
 )
 
 
@@ -115,8 +123,10 @@ def flash_attention_forward(
       q: [B, Hq, Nq, D]; k: [B, Hkv, Nkv, D]; v: [B, Hkv, Nkv, Dv].
       bias: fp32 additive bias, 4-D broadcast-compact, or None.
       softcap / window / alibi_slopes: see ``reference_attention``.
-      return_scores: the S residual of the training slice's from-S
-        backward; not available yet.
+      dropout_p / dropout_seed: hash dropout (``rng.py``), replayed by the
+        backward kernels.
+      return_scores: the S residual of the S-resident backward; not
+        available yet.
 
     Returns:
       (o [B, Hq, Nq, Dv] in q.dtype, lse [B, Hq, Nq] fp32). Queries are
@@ -128,16 +138,12 @@ def flash_attention_forward(
     window_left = int(window[0])
     window_right = int(window[1])
     if return_scores:
-        raise NotImplementedError(f"return_scores: {_TRAINING_SLICE}")
+        raise NotImplementedError(f"return_scores: {_S_RESIDENT_SLICE}")
     if q.device.type == "cpu":
         return flash_attention_forward_plain(
             q, k, v, bias, scale=scale, is_causal=is_causal,
             dropout_p=dropout_p, dropout_seed=dropout_seed, softcap=softcap,
             window=window, alibi_slopes=alibi_slopes,
-        )
-    if dropout_p > 0.0:
-        raise NotImplementedError(
-            f"dropout_p > 0 in the forward kernel: {_TRAINING_SLICE}"
         )
     check_kernel_inputs("flash_attention_forward", q, k, v)
 
@@ -188,6 +194,7 @@ def flash_attention_forward(
             b, hq, hkv, nq, nkv, d_pad, dv_pad,
             float(scale), float(softcap), nkv - nq, window_left,
             0 if is_causal else window_right,  # causal is the band's right edge 0
+            *dropout_args(dropout_p, dropout_seed),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(lib, err, "flash_fwd kernel launch")
@@ -204,4 +211,5 @@ __all__ = [
     "flash_attention_forward",
     "flash_attention_forward_plain",
     "check_kernel_inputs",
+    "dropout_args",
 ]

@@ -30,6 +30,43 @@ def bound_ms(flops: float, nbytes: float) -> tuple:
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def band_pairs(nq: int, nkv: int, *, causal: bool, window=(-1, -1)) -> int:
+    """(row, col) score pairs inside the tail-aligned causal / window band
+    of one head: the work a kernel that skips masked tiles must still do."""
+    off, wl = nkv - nq, int(window[0])
+    wr = 0 if causal else int(window[1])
+    total = 0
+    for i in range(nq):
+        lo = 0 if wl < 0 else max(0, i + off - wl)
+        hi = nkv - 1 if wr < 0 else min(nkv - 1, i + off + wr)
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def backward_counts(kernel: str, *, b: int, hq: int, hkv: int, nq: int, nkv: int, d: int,
+                    dv: int, causal: bool, window=(-1, -1), itemsize: int = 2,
+                    slab_bytes: int = 0) -> tuple:
+    """(flop, bytes) one backward kernel needs, for ``bound_ms`` (the
+    counterpart of the JAX package's ``cli/_flops.py`` for the backward).
+
+    Products count 2 flop per multiply-add over the band's pairs only:
+    dkdv does S = QK^T, dP = dO V^T, dV = P^T dO and dK = dS^T Q (4 units);
+    dq does S, dP and dQ = dS K (3); banded_dq does dQ = dS K (1). Bytes
+    count each input read once and each output written once: q, k, v, dO,
+    lse and delta, the gradients, and ``slab_bytes`` of dS (written by
+    dkdv) or dbias; banded_dq reads the band's dS and K and writes dQ."""
+    pairs = b * hq * band_pairs(nq, nkv, causal=causal, window=window)
+    q_b, kv_b = b * hq * nq * d * itemsize, b * hkv * nkv * (d + dv) * itemsize
+    do_b, rows_b = b * hq * nq * dv * itemsize, 2 * b * hq * nq * 4
+    if kernel == "dkdv":
+        return 2 * pairs * (2 * d + 2 * dv), q_b + 2 * kv_b + do_b + rows_b + slab_bytes
+    if kernel == "dq":
+        return 2 * pairs * (2 * d + dv), 2 * q_b + kv_b + do_b + rows_b + slab_bytes
+    if kernel == "banded_dq":
+        return 2 * pairs * d, pairs * itemsize + b * hkv * nkv * d * itemsize + q_b
+    raise ValueError(f"unknown backward kernel {kernel!r}")
+
+
 def cuda_ms(fn: Callable, reps: int = 20, warmup: int = 3) -> float:
     """Mean time per call of ``fn`` between CUDA events over ``reps`` calls."""
     for _ in range(warmup):
@@ -77,4 +114,7 @@ def device_ms(fn: Callable, reps: int = 10, warmup: int = 3) -> float:
     return device_window(fn, reps=reps, warmup=warmup)["device_ms"] / reps
 
 
-__all__ = ["PEAK_BF16_FLOPS", "PEAK_HBM_BW", "bound_ms", "cuda_ms", "device_window", "device_ms"]
+__all__ = [
+    "PEAK_BF16_FLOPS", "PEAK_HBM_BW", "bound_ms", "band_pairs", "backward_counts", "cuda_ms",
+    "device_window", "device_ms",
+]

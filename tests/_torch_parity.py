@@ -63,6 +63,18 @@ def row_rel_err(got, want) -> float:
     return float(np.max(np.where(err == 0, 0.0, err / np.maximum(ref, 1e-30))))
 
 
+def grad_row_rel_err(got, want, floor: float = 1e-3) -> float:
+    """``row_rel_err`` for gradients: each row's error over the larger of
+    its own max |want| and ``floor`` times the tensor's. A gradient row can
+    be zero by cancellation (causal row 0 sees one key, so dP equals delta
+    and dS is 0 up to fp32 rounding on both sides); without the floor its
+    rounding noise would be divided by ~0."""
+    g, w = np32(got), np32(want)
+    err, ref = np.abs(g - w).max(-1), np.abs(w).max(-1)
+    ref = np.maximum(ref, floor * np.abs(w).max())
+    return float(np.max(np.where(err == 0, 0.0, err / np.maximum(ref, 1e-30))))
+
+
 @pytest.fixture
 def cuda():
     """The CUDA device for kernel-vs-plain tests; skips on a machine with

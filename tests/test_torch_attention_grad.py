@@ -1,0 +1,191 @@
+"""Gradients through the port's ``ffpa_attn_func`` against ``jax.grad``
+through the JAX package's, for each backward tier: the dS handoff, the
+recompute pair (``ds_handoff=False``) and the SDPA oracle, with sinks and
+the bias gradient. JAX runs its Pallas kernels in interpret mode, the port
+(on the CPU) their plain versions.
+
+Tolerances: the JAX suite's gradient contract (tests/test_ffpa_bwd.py:19),
+bf16 5e-2 and fp16 1e-2 relative to max|grad| of each gradient. JAX
+computes fp16 in bf16 (with its hi+lo split of dV), the port natively: the
+fp16 case holds both to the fp32 oracle at 1e-2.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import cuda, grad_row_rel_err, jax_modules, randn, rel_err, to_torch  # noqa: F401
+from ffpa_attn_tpu_torch import CudaBackend, SDPABackend, ffpa_attn_func as torch_attn
+from ffpa_attn_tpu_torch.ops import flash_bwd as tbwd
+from ffpa_attn_tpu_torch.ops.reference import expand_kv_heads, reference_attention
+
+TOL = {"bfloat16": 5e-2, "float16": 1e-2}
+TIERS = ("handoff", "recompute", "sdpa")
+
+CASES = {
+    "causal_gqa": dict(shape=(1, 4, 2, 128, 128, 320), is_causal=True),
+    "cross_bias": dict(shape=(1, 2, 2, 128, 192, 320), mask="full"),
+    "causal_sinks_keybias": dict(shape=(1, 2, 1, 128, 160, 512), is_causal=True, sinks=True,
+                                 mask="key"),
+    "window_softcap": dict(shape=(1, 2, 1, 160, 160, 320), is_causal=True, softcap=5.0,
+                           window_size=(48, -1)),
+}
+
+
+def _inputs(case, seed=0):
+    b, hq, hkv, nq, nkv, d = case["shape"]
+    rng = np.random.default_rng(seed)
+    x = dict(q=randn(rng, (b, hq, nq, d)), k=randn(rng, (b, hkv, nkv, d)),
+             v=randn(rng, (b, hkv, nkv, d)), do=randn(rng, (b, hq, nq, d)))
+    if case.get("mask") == "full":
+        x["mask"] = randn(rng, (b, 1, nq, nkv))
+    elif case.get("mask") == "key":
+        x["mask"] = randn(rng, (1, 1, 1, nkv))
+    if case.get("sinks"):
+        x["sinks"] = randn(rng, (hq,))
+    return x
+
+
+def _kwargs(case):
+    kw = {k: case[k] for k in ("is_causal", "softcap", "window_size") if k in case}
+    kw["enable_gqa"] = case["shape"][1] != case["shape"][2]
+    return kw
+
+
+def _backends(tier, jax_side):
+    if jax_side:
+        from ffpa_attn_tpu.functional import PallasBackend, SDPABackend as JSDPA
+
+        return {"handoff": PallasBackend(ds_handoff=True),
+                "recompute": PallasBackend(ds_handoff=False), "sdpa": JSDPA()}[tier]
+    return {"handoff": CudaBackend(ds_handoff=True), "recompute": CudaBackend(ds_handoff=False),
+            "sdpa": SDPABackend()}[tier]
+
+
+def _jax_grads(case, x, tier, dtype):
+    jax, jnp, jiface = jax_modules("jax", "jax.numpy", "ffpa_attn_tpu")
+    names = [n for n in ("q", "k", "v", "mask", "sinks") if n in x]
+
+    def f(*args):
+        a = dict(zip(names, args))
+        kw = _kwargs(case)
+        if "mask" in a:
+            kw["attn_mask"] = a["mask"]
+        if "sinks" in a:
+            kw["sinks"] = a["sinks"]
+        return jiface.ffpa_attn_func(a["q"], a["k"], a["v"],
+                                     backward_backend=_backends(tier, True), **kw)
+
+    args = [jnp.asarray(x[n], getattr(jnp, dtype) if n in "qkv" else jnp.float32)
+            for n in names]
+    out, vjp = jax.vjp(f, *args)
+    grads = vjp(jnp.asarray(x["do"], out.dtype))
+    return dict(zip(names, (np.asarray(g, np.float32) for g in grads)))
+
+
+def _torch_grads(case, x, tier, dtype, device="cpu"):
+    names = [n for n in ("q", "k", "v", "mask", "sinks") if n in x]
+    t = {n: to_torch(x[n], dtype if n in "qkv" else "float32", device).requires_grad_()
+         for n in names}
+    kw = _kwargs(case)
+    if "mask" in t:
+        kw["attn_mask"] = t["mask"]
+    if "sinks" in t:
+        kw["sinks"] = t["sinks"]
+    out = torch_attn(t["q"], t["k"], t["v"], backward_backend=_backends(tier, False), **kw)
+    grads = torch.autograd.grad(out, [t[n] for n in names], to_torch(x["do"], dtype, device))
+    return dict(zip(names, grads))
+
+
+@pytest.mark.parametrize("tier", TIERS)
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_grads_match_jax(name, tier):
+    case = CASES[name]
+    x = _inputs(case)
+    want = _jax_grads(case, x, tier, "bfloat16")
+    got = _torch_grads(case, x, tier, "bfloat16")
+    assert set(got) == set(want)
+    for n in got:
+        assert tuple(got[n].shape) == want[n].shape, n
+        if n in "qkv":
+            assert got[n].dtype == torch.bfloat16, n
+        assert rel_err(got[n], want[n]) < TOL["bfloat16"], n
+
+
+def test_fp16_grads_meet_the_oracle():
+    case = CASES["causal_gqa"]
+    x = _inputs(case, seed=1)
+    hq = case["shape"][1]
+    q, k, v = (to_torch(x[n], "float16").float().requires_grad_() for n in "qkv")
+    ref = reference_attention(q, expand_kv_heads(k, hq), expand_kv_heads(v, hq), is_causal=True)
+    want = torch.autograd.grad(ref, (q, k, v), to_torch(x["do"], "float16").float())
+    jwant = _jax_grads(case, x, "handoff", "float16")
+    for tier in ("handoff", "recompute"):
+        got = _torch_grads(case, x, tier, "float16")
+        for n, w in zip("qkv", want):
+            assert got[n].dtype == torch.float16
+            assert rel_err(got[n], w) < TOL["float16"], (tier, n)
+            assert rel_err(jwant[n], w) < TOL["float16"], n
+
+
+def test_save_scores_true_on_the_cpu_takes_the_handoff():
+    """The S-resident backward is a later slice: on CPU tensors an explicit
+    save_scores=True gives the dS-handoff gradients."""
+    case = CASES["causal_gqa"]
+    x = _inputs(case, seed=2)
+    a = _torch_grads(case, x, "handoff", "bfloat16")
+    names = ("q", "k", "v")
+    t = {n: to_torch(x[n], "bfloat16").requires_grad_() for n in names}
+    out = torch_attn(t["q"], t["k"], t["v"], backward_backend=CudaBackend(save_scores=True),
+                     **_kwargs(case))
+    b = torch.autograd.grad(out, [t[n] for n in names], to_torch(x["do"], "bfloat16"))
+    for n, g in zip(names, b):
+        assert torch.equal(g, a[n]), n
+
+
+def test_cpu_backward_never_counts_a_launch():
+    case = CASES["causal_sinks_keybias"]
+    before = (tbwd._dkdv_launch.launches, tbwd._dq_launch.launches,
+              tbwd._banded_dq_from_ds.launches)
+    for tier in ("handoff", "recompute"):
+        _torch_grads(case, _inputs(case), tier, "bfloat16")
+    assert (tbwd._dkdv_launch.launches, tbwd._dq_launch.launches,
+            tbwd._banded_dq_from_ds.launches) == before
+
+
+@pytest.mark.parametrize("tier", ("handoff", "recompute"))
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_grads_on_card_match_cpu(cuda, name, tier):
+    """The kernels under autograd against the plain versions on the CPU:
+    the handoff tier launches dkdv and, under causal, banded dQ; the
+    recompute tier dkdv and dq."""
+    case = CASES[name]
+    x = _inputs(case, seed=3)
+    before = (tbwd._dkdv_launch.launches, tbwd._dq_launch.launches,
+              tbwd._banded_dq_from_ds.launches)
+    got = _torch_grads(case, x, tier, "bfloat16", cuda)
+    torch.cuda.synchronize()
+    want = _torch_grads(case, x, tier, "bfloat16")
+    windowed = "window_size" in case
+    handoff = tier == "handoff" and not windowed
+    causal = case.get("is_causal", False)
+    launched = (tbwd._dkdv_launch.launches - before[0], tbwd._dq_launch.launches - before[1],
+                tbwd._banded_dq_from_ds.launches - before[2])
+    assert launched == (1, 0 if handoff else 1, 1 if handoff and causal else 0)
+    for n in got:
+        measure = grad_row_rel_err if n in "qkv" else rel_err
+        assert measure(got[n], want[n]) < TOL["bfloat16"], n
+
+
+def test_save_scores_policy_on_a_non_cpu_tensor():
+    """Meta tensors stand in for CUDA tensors: an explicit save_scores=True
+    under autograd raises (the S-resident slice), except for fp16 inputs,
+    which the policy sends to the dS handoff, as in the JAX package; the
+    forward then refuses the meta tensor as a non-CUDA one."""
+    kw = dict(is_causal=True, backward_backend=CudaBackend(save_scores=True))
+    q = torch.empty((1, 2, 128, 512), device="meta", dtype=torch.bfloat16, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="S-resident slice"):
+        torch_attn(q, q, q, **kw)
+    q16 = torch.empty((1, 2, 128, 512), device="meta", dtype=torch.float16, requires_grad=True)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        torch_attn(q16, q16, q16, **kw)

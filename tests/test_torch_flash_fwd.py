@@ -121,14 +121,14 @@ def test_forward_fp16_native_vs_jax_bf16_compute(jax_ref):
 
 
 def test_kernel_options_raise_not_implemented():
-    """dropout and return_scores belong to the training slice: a non-CPU
-    tensor raises before any launch (meta tensors stand in for CUDA here);
-    return_scores raises on every device."""
+    """return_scores belongs to the S-resident slice and raises on every
+    device. Dropout is ported: a tensor that is neither on the CPU nor on
+    a card (meta) is refused as such, not as a missing feature."""
     q = torch.empty((1, 2, 128, 512), device="meta", dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(ValueError, match="CUDA tensors"):
         tfwd.flash_attention_forward(q, q, q, None, scale=0.1, is_causal=True, dropout_p=0.1)
     cpu = torch.zeros((1, 2, 128, 512), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(NotImplementedError, match="S-resident slice"):
         tfwd.flash_attention_forward(cpu, cpu, cpu, None, scale=0.1, is_causal=True,
                                      return_scores=True)
 
@@ -151,6 +151,21 @@ def test_row_measure_catches_late_causal_row_errors():
     assert rel_err(bad, o) < BF16_TOL
     assert row_rel_err(bad, o) > 4 * BF16_TOL
     assert row_rel_err(o, o) == 0.0
+
+
+@pytest.mark.parametrize("dtype,tol", [("bfloat16", BF16_TOL), ("float16", F16_TOL)])
+def test_dropout_kernel_matches_plain_on_card(cuda, dtype, tol):
+    """The kernel drops P with the hash of ops/rng.py: a mask that differed
+    from the plain version's would move whole rows far past the tolerance."""
+    case = CASES["causal_gqa"]
+    x = _inputs(case, seed=7)
+    kw = dict(_kwargs(case), dropout_p=0.2, dropout_seed=5)
+    args = [to_torch(x[n], dtype, cuda) for n in ("q", "k", "v")]
+    ko, kl = tfwd.flash_attention_forward(*args, None, **kw)
+    po, pl = tfwd.flash_attention_forward_plain(*args, None, **kw)
+    torch.cuda.synchronize()
+    assert row_rel_err(ko, po) < tol
+    assert rel_err(kl, pl) < LSE_TOL
 
 
 @pytest.mark.parametrize("name", sorted(CASES))

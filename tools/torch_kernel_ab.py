@@ -2,17 +2,26 @@
 
 Run on a machine with a card, from the repository root:
 
-    python tools/torch_kernel_ab.py --base DIR
+    python tools/torch_kernel_ab.py --base DIR [--kernels flash_fwd,dkdv,...]
 
 DIR holds another version of the kernel sources (``flash_fwd.cu``,
-``decode.cu`` and their headers; e.g. ``ffpa_attn_tpu_torch/csrc`` of a parent
-checkout). Both versions are compiled with the package's nvcc flags and timed
-at the serving shapes of ``chip_smoke.py`` (forward B1 H8/4 N4096 D512 causal
-bf16; decode B1 H8/4 Nkv 4224 D512 with the validity bias, four caches in
-turn so K/V are not L2-resident), in the order base, head, head, base,
-through the same Python wrappers (the two share the C interface). Each time
-is the kernels' device time per call from torch.profiler. Prints one JSON
-line.
+``decode.cu``, ``flash_bwd.cu`` and their headers; e.g.
+``ffpa_attn_tpu_torch/csrc`` of a parent checkout). Both versions are
+compiled with the package's nvcc flags and timed at the main-path shapes of
+``chip_smoke.py`` in the order base, head, head, base, through the same
+Python wrappers (the two share the C interface):
+
+* flash_fwd: B1 H8/4 N4096 D512 causal bf16 (the serving prefill);
+* decode: B1 H8/4 Nkv 4224 D512 with the validity bias, four caches in turn
+  so K/V are not L2-resident;
+* dkdv (with the dS slab) and banded_dq: B1 H8/4 N8192 D512 causal bf16
+  (the training step's dS-handoff backward);
+* dq: the same shape with a 4096-token left window (the windowed model's
+  recompute backward).
+
+A kernel whose source the base tree lacks is timed on the head alone. Each
+time is the kernels' device time per call from torch.profiler. Prints one
+JSON line.
 """
 
 from __future__ import annotations
@@ -30,27 +39,33 @@ import torch
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
-from ffpa_attn_tpu_torch.ops import _build, decode, flash_fwd  # noqa: E402
+from ffpa_attn_tpu_torch.ops import _build, decode, flash_bwd, flash_fwd  # noqa: E402
+from ffpa_attn_tpu_torch.ops.dispatch import pick_backward_config  # noqa: E402
 from ffpa_attn_tpu_torch.ops.reference import DEFAULT_MASK_VALUE  # noqa: E402
 from ffpa_attn_tpu_torch.utils.profiling import device_ms  # noqa: E402
 
+# kernel -> the source it is built from
+SOURCE = {"flash_fwd": "flash_fwd", "decode": "decode", "dkdv": "flash_bwd",
+          "banded_dq": "flash_bwd", "dq": "flash_bwd"}
+
 
 def build_tree(src: Path, out: Path) -> dict:
-    """Compile every source of ``src`` into ``out`` (nvcc in parallel) and
-    load the libraries."""
+    """Compile every source of ``src`` the package has into ``out`` (nvcc in
+    parallel) and load the libraries."""
     out.mkdir(parents=True, exist_ok=True)
+    names = [n for n in _build.SOURCES if (src / f"{n}.cu").exists()]
     procs = {
         name: subprocess.Popen([
             _build._nvcc(), *_build.NVCC_FLAGS, "-I", str(src),
             "-o", str(out / f"lib{name}.so"), str(src / f"{name}.cu"),
         ])
-        for name in _build.SOURCES
+        for name in names
     }
     for name, proc in procs.items():
         if proc.wait() != 0:
             raise RuntimeError(f"nvcc failed on {src / name}.cu")
     libs = {}
-    for name in _build.SOURCES:
+    for name in names:
         lib = ctypes.CDLL(str(out / f"lib{name}.so"))
         lib.ffpa_error_string.argtypes = [ctypes.c_int]
         lib.ffpa_error_string.restype = ctypes.c_char_p
@@ -58,26 +73,15 @@ def build_tree(src: Path, out: Path) -> dict:
     return libs
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--base", required=True, help="directory of the other kernel sources")
-    ap.add_argument("--reps", type=int, default=20)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("needs a CUDA card", file=sys.stderr)
-        return 1
-
-    trees = {
-        "base": build_tree(Path(args.base).resolve(), REPO / "build" / "ab" / "base"),
-        "head": build_tree(_build.CSRC_DIR, REPO / "build" / "ab" / "head"),
-    }
-    gen = torch.Generator(device="cuda").manual_seed(0)
+def make_runs(gen) -> dict:
+    """{kernel: a function that launches it once at its main-path shape}."""
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
 
-    b, hq, hkv, d, n, max_len = 1, 8, 4, 512, 4096, 4224
+    b, hq, hkv, d = 1, 8, 4, 512
     scale = 1.0 / math.sqrt(d)
+    n, max_len, nt = 4096, 4224, 8192
     q, k, v = randn(b, hq, n, d), randn(b, hkv, n, d), randn(b, hkv, n, d)
     qd = randn(b, hq, 1, d)
     caches = [(randn(b, hkv, max_len, d), randn(b, hkv, max_len, d)) for _ in range(4)]
@@ -85,29 +89,94 @@ def main() -> int:
     bias = torch.where(cols <= n, 0.0, DEFAULT_MASK_VALUE).float()[None, None, None]
     turn = [0]
 
-    def run_fwd():
-        return flash_fwd.flash_attention_forward(q, k, v, None, scale=scale, is_causal=True)
-
     def run_decode():
         kc, vc = caches[turn[0] % len(caches)]
         turn[0] += 1
         return decode._decode_forward(qd, kc, vc, bias, scale=scale, is_causal=False)
 
+    # The backward's inputs: the plain forward's (o, lse), not a kernel's,
+    # so both trees see the same ones.
+    tq, tdo = randn(b, hq, nt, d), randn(b, hq, nt, d)
+    tk, tv = randn(b, hkv, nt, d), randn(b, hkv, nt, d)
+    cfg = pick_backward_config(d=d, dv=d, nq=nt, nkv=nt, dtype=torch.bfloat16)
+    state = {}
+    for window in ((-1, -1), (4096, -1)):
+        o, lse = flash_fwd.flash_attention_forward_plain(tq, tk, tv, None, scale=scale,
+                                                         is_causal=True, window=window)
+        state[window] = (lse, (tdo.float() * o.float()).sum(-1))
+        del o
+    kw = dict(scale=scale, is_causal=True, causal_offset=0, dropout_p=0.0, group=hq // hkv)
+
+    def run_dkdv():
+        lse, delta = state[(-1, -1)]
+        ds = flash_bwd._dkdv_launch(tq, tk, tv, None, tdo, lse, delta, 0, cfg,
+                                    grad_kv_storage_dtype=None, emit_ds=True, **kw)[2]
+        state["ds"] = ds
+        return ds
+
+    def run_banded():
+        if "ds" not in state:
+            run_dkdv()
+        return flash_bwd._banded_dq_from_ds(state["ds"], tk, cfg, scale=scale, group=hq // hkv,
+                                            nq=nt, nkv=nt, causal_offset=0,
+                                            dq_dtype=torch.bfloat16)
+
+    def run_dq():
+        lse, delta = state[(4096, -1)]
+        return flash_bwd._dq_launch(tq, tk, tv, None, tdo, lse, delta, 0, cfg,
+                                    grad_q_storage_dtype=None, window=(4096, -1), **kw)[0]
+
+    def reset():
+        turn[0] = 0
+        state.pop("ds", None)
+
+    runs = {
+        "flash_fwd": lambda: flash_fwd.flash_attention_forward(q, k, v, None, scale=scale,
+                                                               is_causal=True)[0],
+        "decode": lambda: run_decode()[0],
+        "dkdv": run_dkdv,
+        "banded_dq": run_banded,
+        "dq": run_dq,
+    }
+    return runs, reset
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--base", required=True, help="directory of the other kernel sources")
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--kernels", default=",".join(SOURCE), help="comma-separated subset")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 1
+    kernels = [k for k in args.kernels.split(",") if k]
+
+    trees = {
+        "base": build_tree(Path(args.base).resolve(), REPO / "build" / "ab" / "base"),
+        "head": build_tree(_build.CSRC_DIR, REPO / "build" / "ab" / "head"),
+    }
+    runs, reset = make_runs(torch.Generator(device="cuda").manual_seed(0))
+
     def use(tag):
         _build.load = lambda name: trees[tag][name]
 
-    outs, times = {}, {"base": {"flash_fwd": [], "decode": []},
-                       "head": {"flash_fwd": [], "decode": []}}
+    times = {tag: {k: [] for k in kernels} for tag in trees}
+    outs = {}
     for tag in ("base", "head", "head", "base"):
         use(tag)
-        times[tag]["flash_fwd"].append(device_ms(run_fwd, reps=args.reps))
-        times[tag]["decode"].append(device_ms(run_decode, reps=5 * args.reps))
-        turn[0] = 0
-        outs[tag] = (run_fwd()[0], run_decode()[0])
+        for k in kernels:
+            if SOURCE[k] not in trees[tag]:
+                continue
+            reps = 5 * args.reps if k == "decode" else args.reps
+            times[tag][k].append(device_ms(runs[k], reps=reps))
+            reset()
+            outs[(tag, k)] = runs[k]().float()
+            reset()
     torch.cuda.synchronize()
     diff = {
-        name: float((outs["head"][i].float() - outs["base"][i].float()).abs().max())
-        for i, name in enumerate(("flash_fwd", "decode"))
+        k: float((outs[("head", k)] - outs[("base", k)]).abs().max())
+        for k in kernels if ("base", k) in outs and ("head", k) in outs
     }
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
