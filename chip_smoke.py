@@ -9,7 +9,9 @@ It imports only ``ffpa_attn_tpu_torch``, torch and numpy, and runs, in order:
    ``ffpa_attn_tpu_torch/csrc`` (one nvcc per source, all started together);
 3. kernel vs plain: each kernel against its plain PyTorch version on the
    card, at the serving and training shapes and at feature cases, with
-   stated tolerances;
+   stated tolerances: the forward (and its S residual), decode (and its
+   score residual), dkdv, dq, banded dQ, the from-S dK/dV pass in both
+   variants and banded dK (a slab NaN outside the band among them);
 4. serving path: greedy ``generate`` of the L4 dm1024 H8/4 Dh512 vocab-32000
    bf16 model (random weights from numpy seed 0) on a 4096-token prompt, 32
    tokens, with the kernel launch counts read around that run; first-step
@@ -17,14 +19,20 @@ It imports only ``ffpa_attn_tpu_torch``, torch and numpy, and runs, in order:
    tiny model's greedy tokens on the card against the CPU;
 5. training path: ``make_train_step`` (AdamW 1e-4) of the same model at
    N8192 B1, one warm-up step and 3 timed steps with the launch counts of
-   each; the first step's loss and gradients against the same weights with
-   the fp32 oracle's attention under autograd; the windowed model
+   each, in the dS-handoff tier (the model's default), with
+   ``attn_save_scores=True`` (the S-resident tier) and under a 768 MiB S
+   budget (partial residency, 4 of 8 heads); each first step's loss and
+   gradients against the same weights with the fp32 oracle's attention
+   under autograd; the op-level headline backward (``ffpa_attn_func``
+   causal B1 H32 N8192 D512, auto residency) held in head slices and timed
+   against the handoff; a GQA decode call's gradients; the windowed model
    (``mistral_like``, depth cut to L2), which takes the recompute backward;
    a tiny model's two steps on the card against the CPU;
 6. times: device time by kernel and the device's busy share over one
-   prefill, decode steps and one training step, then each kernel at its
-   main-path shape beside its bound, its plain version and one PyTorch
-   library call computing the same function (device time per call from
+   prefill, decode steps and one training step of each tier, then each
+   kernel at its main-path shape beside its bound, its plain version and
+   one PyTorch library call computing the same function, or for the from-S
+   pass the yardstick of its two dense products (device time per call from
    torch.profiler, CUDA-event time beside it);
 7. the ``kernels`` line.
 
@@ -40,6 +48,7 @@ import math
 import subprocess
 import sys
 import time
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -65,6 +74,9 @@ PROMPT, STEPS, MAX_LEN = 4096, 32, 4224
 # at full width and depth, N8192 B1; the windowed model at depth L2.
 TRAIN = dict(SLICE, max_seq_len=8192)
 TRAIN_N, TRAIN_STEPS = 8192, 3
+# The op-level main path: the repo's headline backward (bench.py: causal
+# B1 H32 N8192 D512 bf16, MHA); the partial-residency budget (768 MiB).
+OP_HEADS, PARTIAL_LIMIT = 32, 805306368
 WINDOW, WINDOW_LAYERS, WINDOW_STEPS = 4096, 2, 2
 
 
@@ -274,6 +286,162 @@ def _bwd_case(name, *, b=1, hq=8, hkv=4, nq, nkv, d=512, dtype=torch.bfloat16, c
         fail(f"backward kernels disagree with their plain versions: {name}")
 
 
+def _band(nq, nkv, causal, device="cuda"):
+    """[nq, nkv] bool: the (row, col) pairs a tail-aligned causal (or full)
+    call attends."""
+    rows = torch.arange(nq, device=device)[:, None]
+    cols = torch.arange(nkv, device=device)[None, :]
+    return cols <= rows + nkv - nq if causal else torch.ones((nq, nkv), dtype=torch.bool,
+                                                              device=device)
+
+
+def _fwd_scores_case(name, *, b=1, hq=8, hkv=4, nq, nkv, d=512, causal=True, bias=False,
+                     softcap=0.0, alibi=False, seed=0):
+    """The forward's S residual against the plain S on the band (per row,
+    within 1e-2 of the row's max|S|), and (o, lse) bit-equal to the same
+    call without it."""
+    from ffpa_attn_tpu_torch.ops import flash_fwd
+
+    gen = torch.Generator(device="cuda").manual_seed(200 + seed)
+    bf = torch.bfloat16
+    q, k, v = _randn((b, hq, nq, d), bf, gen), _randn((b, hkv, nkv, d), bf, gen), _randn(
+        (b, hkv, nkv, d), bf, gen)
+    kw = dict(scale=1.0 / math.sqrt(d), is_causal=causal, softcap=softcap)
+    bias_t = _randn((b, 1, nq, nkv), torch.float32, gen) if bias else None
+    if alibi:
+        kw["alibi_slopes"] = torch.rand((b, hq), generator=gen, device="cuda") * 0.1
+    o, lse = flash_fwd.flash_attention_forward(q, k, v, bias_t, **kw)
+    o2, lse2, s = flash_fwd.flash_attention_forward(q, k, v, bias_t, return_scores=True, **kw)
+    torch.cuda.synchronize()
+    ps = flash_fwd.scores_plain(q, k, bias_t, nq_pad=s.shape[2], nkv_pad=s.shape[3], **kw)
+    band = _band(nq, nkv, causal)
+    got, want = s[:, :, :nq, :nkv].float(), ps[:, :, :nq, :nkv].float()
+    err = torch.where(band, (got - want).abs(), 0.0).amax(-1)
+    ref = torch.where(band, want.abs(), 0.0).amax(-1).clamp_min(1e-30)
+    serr = float((err / ref).max())
+    same = torch.equal(o, o2) and torch.equal(lse, lse2)
+    ok = serr < 1e-2 and same and bool(torch.isfinite(torch.where(band, got, 0.0)).all())
+    log(f"  fwd S {name:<20} S row_rel_err {serr:.2e} (tol 0.01, on the band) slab "
+        f"{tuple(s.shape)} (o, lse) unchanged {same} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"forward S residual disagrees with its plain version: {name}")
+    return max_abs(torch.where(band, got, 0.0), torch.where(band, want, 0.0))
+
+
+def _from_s_case(name, *, b=1, hq=8, hkv=4, nq, nkv, d=512, causal=True, bias=None,
+                 softcap=0.0, dropout=0.0, sinks=False, nan_fill=False, seed=0):
+    """The from-S dK/dV kernel in each variant it takes, banded dK (causal)
+    and banded dQ from its slab, against their plain versions on the same
+    inputs. The S residual comes from the forward kernel; with
+    ``nan_fill`` everything of the slab outside the band (the tiles the
+    forward never writes, padding) is NaN before the backward reads it."""
+    from ffpa_attn_tpu_torch.ops import flash_bwd, flash_fwd
+    from ffpa_attn_tpu_torch.ops.attention import apply_sinks
+    from ffpa_attn_tpu_torch.ops.config import from_s_fits
+    from ffpa_attn_tpu_torch.ops.dispatch import pick_backward_config
+
+    gen = torch.Generator(device="cuda").manual_seed(300 + seed)
+    bf = torch.bfloat16
+    q, k, v = _randn((b, hq, nq, d), bf, gen), _randn((b, hkv, nkv, d), bf, gen), _randn(
+        (b, hkv, nkv, d), bf, gen)
+    do = _randn((b, hq, nq, d), bf, gen)
+    bias_t = _randn((b, 1, nq, nkv), torch.float32, gen) if bias == "full" else None
+    scale, group = 1.0 / math.sqrt(d), hq // hkv
+    o, lse, s = flash_fwd.flash_attention_forward(
+        q, k, v, bias_t, scale=scale, is_causal=causal, softcap=softcap, dropout_p=dropout,
+        dropout_seed=seed, return_scores=True)
+    if sinks:
+        o, lse = apply_sinks(o, lse, torch.randn(hq, generator=gen, device="cuda"))
+    if nan_fill:
+        rows = torch.arange(s.shape[2], device="cuda")[:, None]
+        cols = torch.arange(s.shape[3], device="cuda")[None, :]
+        band = (rows < nq) & (cols < nkv)
+        if causal:
+            band &= cols <= rows + nkv - nq
+        s.masked_fill_(~band, float("nan"))
+    delta = (do.float() * o.float()).sum(-1)
+    cfg = pick_backward_config(d=d, dv=d, nq=nq, nkv=nkv, dtype=bf)
+    kw = dict(scale=scale, is_causal=causal, causal_offset=nkv - nq, dropout_p=dropout,
+              softcap=softcap)
+    tol = GRAD_TOL[bf]
+    errs, slab = {}, None
+    for dk_in in (True, False):
+        if dk_in and not from_s_fits(d, d, True):
+            continue
+        c = "in" if dk_in else "out"
+        ks = s.clone()
+        kdk, kdv, kds = flash_bwd._dkdv_from_s_launch(
+            q, v, ks, do, lse, delta, seed, replace(cfg, dkdv_dk_in_kernel=dk_in), group=group,
+            grad_kv_storage_dtype=None, **kw)
+        torch.cuda.synchronize()
+        pdk, pdv, pds = flash_bwd._dkdv_from_s_plain(q, v, s, do, lse, delta, seed=seed,
+                                                     dk_in_kernel=dk_in, **kw)
+        errs[f"dv_{c}"] = grad_row_rel(kdv, pdv)
+        errs[f"ds_{c}"] = grad_row_rel(kds, pds)
+        if dk_in:
+            errs["dk_in"] = grad_row_rel(kdk, pdk)
+        if not bool(torch.isfinite(kds).all()):
+            fail(f"from-S dS slab not finite: {name} ({c})")
+        slab = kds
+        if bias_t is not None:
+            pdb = flash_bwd._dbias_from_ds(pds[:, :, :nq, :nkv], bias_t)
+        del pdk, pdv, pds
+    kwd = dict(scale=scale, group=group, nq=nq, nkv=nkv)
+    if causal:
+        kdk = flash_bwd._banded_dk_from_ds(slab, q, cfg, causal_offset=nkv - nq, dk_dtype=bf,
+                                           **kwd)
+        torch.cuda.synchronize()
+        errs["banded_dk"] = grad_row_rel(kdk, flash_bwd._banded_dk_plain(
+            slab, q, scale=scale, nq=nq, nkv=nkv, hkv=hkv))
+        kdq = flash_bwd._banded_dq_from_ds(slab, k, cfg, causal_offset=nkv - nq, dq_dtype=bf,
+                                           **kwd)
+        torch.cuda.synchronize()
+        errs["banded_dq"] = grad_row_rel(kdq, flash_bwd._banded_dq_plain(slab, k, scale=scale,
+                                                                           nq=nq, nkv=nkv))
+    if bias_t is not None:
+        errs["dbias"] = rel(flash_bwd._dbias_from_ds(slab[:, :, :nq, :nkv], bias_t), pdb)
+    ok = all(e < tol for e in errs.values())
+    log(f"  from-S {name:<19} slab {tuple(s.shape)} " + " ".join(
+        f"{n} {e:.2e}" for n, e in errs.items()) + f" (tol {tol:g}, per row) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"S-resident kernels disagree with their plain versions: {name}")
+
+
+def _decode_scores_case(name, *, hkv=4, group=2, nq=1, nkv=MAX_LEN, d=512, valid=PROMPT + 1,
+                        causal=False, softcap=0.0, seed=0):
+    """The decode kernel's fp32 score residual against the plain one on the
+    band, per row within 1e-2 of its max|S|, and (o, lse) unchanged."""
+    from ffpa_attn_tpu_torch.ops import decode
+    from ffpa_attn_tpu_torch.ops.reference import DEFAULT_MASK_VALUE
+
+    gen = torch.Generator(device="cuda").manual_seed(400 + seed)
+    bf = torch.bfloat16
+    q = _randn((1, hkv * group, nq, d), bf, gen)
+    k, v = _randn((1, hkv, nkv, d), bf, gen), _randn((1, hkv, nkv, d), bf, gen)
+    cols = torch.arange(nkv, device="cuda")
+    bias = None if valid is None else torch.where(cols < valid, 0.0, DEFAULT_MASK_VALUE).float()[
+        None, None, None]
+    kw = dict(scale=1.0 / math.sqrt(d), is_causal=causal, softcap=softcap)
+    o, lse = decode._decode_forward(q, k, v, bias, **kw)
+    o2, lse2, s = decode._decode_forward(q, k, v, bias, return_scores=True, **kw)
+    torch.cuda.synchronize()
+    _, _, ps = decode._decode_plain(q.reshape(1, hkv, group * nq, d), k, v, bias, nq=nq,
+                                    window_left=-1, window_right=-1, return_scores=True, **kw)
+    keep = ps[..., :nkv] > DEFAULT_MASK_VALUE / 2  # the attended columns
+    got, want = s[..., :nkv], ps[..., :nkv]
+    err = torch.where(keep, (got - want).abs(), 0.0).amax(-1)
+    ref = torch.where(keep, want.abs(), 0.0).amax(-1).clamp_min(1e-30)
+    serr = float((err / ref).max())
+    same = torch.equal(o, o2) and torch.equal(lse, lse2)
+    ok = serr < 1e-2 and same and bool((got[~keep] <= DEFAULT_MASK_VALUE / 2).all())
+    log(f"  decode S {name:<17} S row_rel_err {serr:.2e} (tol 0.01, attended columns) "
+        f"residual {tuple(s.shape)} {s.numel() * 4} B (o, lse) unchanged {same} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"decode score residual disagrees with its plain version: {name}")
+
+
 def phase_kernels_vs_plain() -> dict:
     log("kernel vs plain (the plain version in fp32 math on the card; TF32 off):")
     errs = {}
@@ -310,6 +478,32 @@ def phase_kernels_vs_plain() -> dict:
     _bwd_case("d1024", nq=1024, nkv=1024, d=1024, seed=9)
     _bwd_case("fp16", nq=1024, nkv=1024, dtype=torch.float16, seed=10)
     _bwd_case("batch2_bias_alibi", b=2, nq=1024, nkv=1100, bias="full", alibi=True, seed=11)
+    # The S-resident tier: the forward's S residual, the from-S dK/dV kernel
+    # in both variants, banded dK and banded dQ from its slab; the training
+    # shape (N8192) is held in s_resident_times, beside its times.
+    _fwd_scores_case("slice_N4096", nq=PROMPT, nkv=PROMPT)
+    _fwd_scores_case("bias", nq=1024, nkv=1024, causal=False, bias=True, seed=1)
+    _fwd_scores_case("softcap", nq=1024, nkv=1024, softcap=30.0, seed=2)
+    _fwd_scores_case("alibi", nq=1024, nkv=1024, alibi=True, seed=3)
+    _fwd_scores_case("nq1000_nkv1100", nq=1000, nkv=1100, seed=4)
+    _fwd_scores_case("nq20_rows_pad32", nq=20, nkv=300, seed=5)
+    _fwd_scores_case("d320", nq=1024, nkv=1024, d=320, seed=6)
+    _fwd_scores_case("d1024", nq=1024, nkv=1024, d=1024, seed=7)
+    _from_s_case("gqa_N1024", nq=1024, nkv=1024)
+    _from_s_case("bias_full_noncausal", nq=1024, nkv=1024, causal=False, bias="full", seed=1)
+    _from_s_case("dropout", nq=1024, nkv=1024, dropout=0.1, seed=2)
+    _from_s_case("softcap", nq=1024, nkv=1024, softcap=30.0, seed=3)
+    _from_s_case("sinks", nq=1024, nkv=1024, sinks=True, seed=4)
+    _from_s_case("nq1000_nkv1100", nq=1000, nkv=1100, seed=5)
+    _from_s_case("nq20_rows_pad32", nq=20, nkv=300, seed=6)
+    _from_s_case("d320", nq=1024, nkv=1024, d=320, seed=7)
+    _from_s_case("d1024", nq=1024, nkv=1024, d=1024, seed=8)
+    _from_s_case("nan_filled_slab", nq=1000, nkv=1100, nan_fill=True, seed=9)
+    _from_s_case("mha_batch2", b=2, hq=4, hkv=4, nq=512, nkv=640, seed=10)
+    _from_s_case("gqa_group4_dropout", hq=8, hkv=2, nq=1024, nkv=1024, dropout=0.1, seed=11)
+    _decode_scores_case("slice_Nkv4224_g2")
+    _decode_scores_case("nq4_causal", nq=4, causal=True, valid=None, seed=1)
+    _decode_scores_case("softcap", softcap=30.0, valid=None, seed=2)
     return errs
 
 
@@ -444,15 +638,33 @@ def _counts() -> dict:
 
     return {"flash_fwd": flash_fwd.flash_attention_forward.launches,
             "dkdv": flash_bwd._dkdv_launch.launches, "dq": flash_bwd._dq_launch.launches,
-            "banded_dq": flash_bwd._banded_dq_from_ds.launches}
+            "banded_dq": flash_bwd._banded_dq_from_ds.launches,
+            "from_s": flash_bwd._dkdv_from_s_launch.launches,
+            "banded_dk": flash_bwd._banded_dk_from_ds.launches}
 
 
 def _zero_counts() -> None:
     from ffpa_attn_tpu_torch.ops import flash_bwd, flash_fwd
 
     flash_fwd.flash_attention_forward.launches = 0
-    for fn in (flash_bwd._dkdv_launch, flash_bwd._dq_launch, flash_bwd._banded_dq_from_ds):
+    for fn in (flash_bwd._dkdv_launch, flash_bwd._dq_launch, flash_bwd._banded_dq_from_ds,
+               flash_bwd._dkdv_from_s_launch, flash_bwd._banded_dk_from_ds):
         fn.launches = 0
+
+
+def _s_resident_launches(layers: int, heads_split: bool = False) -> dict:
+    """Launches of one S-resident backward step per layer: the forward, the
+    from-S pass, banded dK where dK is out of the kernel (the dispatch
+    rule at the training shape), banded dQ; with a partial residency split
+    also the other heads' forward, dkdv (with the slab) and banded dQ."""
+    from ffpa_attn_tpu_torch.ops.dispatch import pick_backward_config
+
+    cfg = pick_backward_config(d=TRAIN["head_dim"], dv=TRAIN["head_dim"], nq=TRAIN_N,
+                               nkv=TRAIN_N, dtype=torch.bfloat16)
+    extra = 1 if heads_split else 0
+    return {"flash_fwd": layers * (1 + extra), "dkdv": layers * extra, "dq": 0,
+            "banded_dq": layers * (1 + extra), "from_s": layers,
+            "banded_dk": 0 if cfg.dkdv_dk_in_kernel else layers}
 
 
 def _train_steps(model, state, step, tokens, n, want, label) -> tuple:
@@ -510,12 +722,16 @@ def oracle_loss_and_grads(cfg, params, tokens) -> tuple:
     return float(loss.detach()), [(name, p.grad) for name, p in model.named_parameters()]
 
 
-def phase_training() -> dict:
-    from ffpa_attn_tpu_torch.models import (
-        ModelConfig, adamw, make_train_step, params_from_jax, random_params,
-    )
+def _train_and_hold(cfg, label: str, per_step: dict, timed_steps: int, oracle=None) -> dict:
+    """``make_train_step`` (AdamW 1e-4) of ``cfg`` with random weights from
+    numpy seed 0 on tokens from seed 1: one warm-up step and ``timed_steps``
+    timed steps, each with its launch counts held to ``per_step``; losses
+    finite and falling; the first step's loss and every gradient leaf
+    against the same weights with the fp32 oracle's attention (``oracle``,
+    computed here when not given; attention's residency does not change the
+    weights)."""
+    from ffpa_attn_tpu_torch.models import adamw, make_train_step, params_from_jax, random_params
 
-    cfg = ModelConfig(**TRAIN)
     params = random_params(cfg, seed=0)
     model = params_from_jax(params, cfg)  # on cuda by default
     tokens = torch.from_numpy(
@@ -523,16 +739,16 @@ def phase_training() -> dict:
     opt = adamw(1e-4)
     state = opt.init(list(model.parameters()))
     step = make_train_step(cfg, opt)  # on cuda by default
-    log(f"training path: model L{cfg.n_layers} dm{cfg.d_model} H{cfg.n_heads}/{cfg.n_kv_heads} "
-        f"Dh{cfg.head_dim} vocab {cfg.vocab_size} {cfg.dtype}, N{TRAIN_N} B1, AdamW 1e-4")
-    per_step = {"flash_fwd": cfg.n_layers, "dkdv": cfg.n_layers, "dq": 0,
-                "banded_dq": cfg.n_layers}
+    log(f"{label}: model L{cfg.n_layers} dm{cfg.d_model} H{cfg.n_heads}/{cfg.n_kv_heads} "
+        f"Dh{cfg.head_dim} vocab {cfg.vocab_size} {cfg.dtype}, N{TRAIN_N} B1, AdamW 1e-4, "
+        f"attn_save_scores={cfg.attn_save_scores}")
     # The warm-up is the first step: its gradients are those of the
     # initial weights.
-    state, losses, warm_ms, _ = _train_steps(model, state, step, tokens, 1, per_step, "warm-up")
+    state, losses, warm_ms, _ = _train_steps(model, state, step, tokens, 1, per_step,
+                                             f"{label} warm-up")
     grads = [(name, p.grad.detach().clone()) for name, p in model.named_parameters()]
-    state, timed, times, launches = _train_steps(model, state, step, tokens, TRAIN_STEPS,
-                                                 per_step, "training")
+    state, timed, times, launches = _train_steps(model, state, step, tokens, timed_steps,
+                                                 per_step, label)
     losses += timed
     step_ms = sorted(times)[len(times) // 2]
     tok_s = TRAIN_N / (step_ms / 1e3)
@@ -540,9 +756,11 @@ def phase_training() -> dict:
         f"median {step_ms:.2f} ms = {tok_s:.1f} train tokens/s; losses "
         f"{[round(x, 5) for x in losses]}; launches per step {per_step}")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
-        fail(f"training losses must be finite and fall: {losses}")
+        fail(f"{label}: training losses must be finite and fall: {losses}")
 
-    o_loss, o_grads = oracle_loss_and_grads(cfg, params, tokens)
+    if oracle is None:
+        oracle = oracle_loss_and_grads(cfg, params, tokens)
+    o_loss, o_grads = oracle
     worst, worst_name = 0.0, ""
     for (name, g), (oname, og) in zip(grads, o_grads):
         assert name == oname
@@ -555,12 +773,203 @@ def phase_training() -> dict:
         f"{o_loss:.5f} (rel {loss_err:.2e}, tol {LOSS_TOL:g}); gradients worst leaf {worst_name} "
         f"rel_err {worst:.2e} of its max|g| (tol {GRAD_TOL[torch.bfloat16]:g}) "
         f"{'ok' if ok else 'FAIL'}")
-    del o_grads, grads
+    del grads
     torch.cuda.empty_cache()
     if not ok:
-        fail("training gradients disagree with the oracle's attention")
+        fail(f"{label}: training gradients disagree with the oracle's attention")
     return dict(model=model, state=state, step=step, tokens=tokens, launches=launches,
-                step_ms=step_ms, tok_s=tok_s, losses=losses, loss_err=loss_err, grad_err=worst)
+                step_ms=step_ms, tok_s=tok_s, losses=losses, loss_err=loss_err, grad_err=worst,
+                oracle=oracle)
+
+
+def phase_training() -> dict:
+    """The dS-handoff tier (the model's default, as in the JAX model)."""
+    from ffpa_attn_tpu_torch.models import ModelConfig
+
+    cfg = ModelConfig(**TRAIN)
+    per_step = {"flash_fwd": cfg.n_layers, "dkdv": cfg.n_layers, "dq": 0,
+                "banded_dq": cfg.n_layers, "from_s": 0, "banded_dk": 0}
+    return _train_and_hold(cfg, "training path", per_step, TRAIN_STEPS)
+
+
+def phase_resident_training(oracle) -> dict:
+    """The S-resident tier: the same model with ``attn_save_scores=True``
+    (every head keeps its 1 GiB-per-layer S residual)."""
+    from ffpa_attn_tpu_torch.models import ModelConfig
+
+    cfg = ModelConfig(**TRAIN, attn_save_scores=True)
+    return _train_and_hold(cfg, "S-resident training path", _s_resident_launches(cfg.n_layers),
+                           TRAIN_STEPS, oracle)
+
+
+def phase_partial_residency(oracle) -> dict:
+    """Auto residency under a 768 MiB S budget: by the JAX package's formula
+    (128 MiB per head, 192 MiB kept for the other heads' handoff slabs,
+    whole GQA groups) 4 of the 8 heads keep their S residual."""
+    import os
+
+    from ffpa_attn_tpu_torch.models import ModelConfig
+    from ffpa_attn_tpu_torch.ops.attention import StaticArgs, _resident_head_count
+
+    cfg = ModelConfig(**TRAIN, attn_save_scores=None)
+    os.environ["FFPA_TORCH_SCORES_RESIDUAL_LIMIT_BYTES"] = str(PARTIAL_LIMIT)
+    try:
+        b, hq, hkv, d = 1, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        q = torch.empty((b, hq, TRAIN_N, d), dtype=torch.bfloat16, device="meta")
+        kv = torch.empty((b, hkv, TRAIN_N, d), dtype=torch.bfloat16, device="meta")
+        m = _resident_head_count(StaticArgs(scale=d ** -0.5, is_causal=True, dropout_p=0.0,
+                                            fwd_config=None), q, kv, kv, None)
+        log(f"partial residency: FFPA_TORCH_SCORES_RESIDUAL_LIMIT_BYTES={PARTIAL_LIMIT}: "
+            f"{m} of {hq} heads resident")
+        if m != 4:
+            fail(f"partial residency picked m = {m}, expected 4")
+        return _train_and_hold(cfg, "partial-residency training path",
+                               _s_resident_launches(cfg.n_layers, heads_split=True), 1, oracle)
+    finally:
+        del os.environ["FFPA_TORCH_SCORES_RESIDUAL_LIMIT_BYTES"]
+
+
+def phase_op_level() -> dict:
+    """The repo's headline backward through the entry point a user calls:
+    ``ffpa_attn_func(q, k, v, is_causal=True)`` with the default backend,
+    bf16 B1 H32 N8192 D512, then ``.backward()``. The auto policy keeps
+    every head's S residual (4 GiB); the launches are the S-resident
+    tier's. Gradients are held in head slices of 8 (fp32 [8, N, N]
+    intermediates are 2.1 GB each) against the plain versions and the fp32
+    oracle's autograd; the
+    backward is timed beside the same call with ``save_scores=False`` (the
+    dS handoff) on the same inputs."""
+    from ffpa_attn_tpu_torch import CudaBackend, ffpa_attn_func
+    from ffpa_attn_tpu_torch.ops import flash_bwd, flash_fwd
+    from ffpa_attn_tpu_torch.ops.attention import StaticArgs, _resident_head_count
+    from ffpa_attn_tpu_torch.ops.dispatch import pick_backward_config
+    from ffpa_attn_tpu_torch.ops.reference import reference_attention
+    from ffpa_attn_tpu_torch.utils.profiling import band_pairs
+
+    b, h, n, d = 1, OP_HEADS, TRAIN_N, TRAIN["head_dim"]
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    q, k, v, do = (_randn((b, h, n, d), bf, gen) for _ in range(4))
+    m = _resident_head_count(StaticArgs(scale=d ** -0.5, is_causal=True, dropout_p=0.0,
+                                        fwd_config=None), q, k, v, None)
+    log(f"op-level main path: ffpa_attn_func causal B{b} H{h} N{n} D{d} bf16 + backward; "
+        f"auto residency m = {m} of {h}")
+    if m != h:
+        fail(f"auto residency picked m = {m}, expected {h}")
+
+    def fwd_bwd(save_scores=None):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        o = ffpa_attn_func(*leaves, is_causal=True,
+                           backward_backend=CudaBackend(save_scores=save_scores))
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        o.backward(do)
+        end.record()
+        end.synchronize()
+        return [t.grad for t in leaves], start.elapsed_time(end)
+
+    fwd_bwd()  # warm-up
+    torch.cuda.synchronize()
+    _zero_counts()
+    grads, _ = fwd_bwd()
+    torch.cuda.synchronize()
+    counts = _counts()
+    want = dict(_s_resident_launches(1), dkdv=0, dq=0)
+    log(f"  launches {counts}")
+    if counts != want:
+        fail(f"op-level launch counts {counts} != expected {want}")
+    # Per row against the plain versions of the backward chain, fed the
+    # forward kernel's (o, lse, S) of the same heads (a head's forward does
+    # not depend on the others, so these are the op's own): an S rounded
+    # to bf16 apart from the op's would flip single ulps, and at |S| ~ 8 an
+    # ulp moves P by ~3 %. As a whole tensor against the fp32 oracle.
+    cfg = pick_backward_config(d=d, dv=d, nq=n, nkv=n, dtype=bf)
+    errs = {f"{nm}_{ref}": 0.0 for ref in ("plain", "oracle") for nm in ("dq", "dk", "dv")}
+    for lo in range(0, h, 8):
+        qs, ks, vs, dos = (t[:, lo:lo + 8] for t in (q, k, v, do))
+        po, plse, ps = flash_fwd.flash_attention_forward(qs, ks, vs, None, scale=d ** -0.5,
+                                                         is_causal=True, return_scores=True)
+        pdk, pdv, pds = flash_bwd._dkdv_from_s_plain(
+            qs, vs, ps, dos, plse, (dos.float() * po.float()).sum(-1), scale=d ** -0.5,
+            is_causal=True, causal_offset=0, dropout_p=0.0, seed=0, softcap=0.0,
+            dk_in_kernel=cfg.dkdv_dk_in_kernel)
+        if pdk is None:
+            pdk = flash_bwd._banded_dk_plain(pds, qs, scale=d ** -0.5, nq=n, nkv=n, hkv=8)
+        pdq = flash_bwd._banded_dq_plain(pds, ks, scale=d ** -0.5, nq=n, nkv=n)
+        del po, plse, ps, pds
+        for nm, g, w in zip(("dq", "dk", "dv"), grads, (pdq, pdk, pdv)):
+            errs[f"{nm}_plain"] = max(errs[f"{nm}_plain"], grad_row_rel(g[:, lo:lo + 8], w))
+        del pdq, pdk, pdv
+        sl = [t.float().requires_grad_() for t in (qs, ks, vs)]
+        out = reference_attention(*sl, is_causal=True)
+        want_g = torch.autograd.grad(out, sl, dos.float())
+        for nm, g, w in zip(("dq", "dk", "dv"), grads, want_g):
+            errs[f"{nm}_oracle"] = max(errs[f"{nm}_oracle"], rel(g[:, lo:lo + 8], w))
+        del sl, out, want_g
+        torch.cuda.empty_cache()
+    ok = all(e < GRAD_TOL[bf] for e in errs.values()) and all(
+        bool(torch.isfinite(g).all()) for g in grads)
+    log("  gradients in head slices of 8, per row vs the plain versions and whole-tensor vs "
+        "the fp32 oracle: " + " ".join(f"{nm} {e:.2e}" for nm, e in errs.items())
+        + f" (tol {GRAD_TOL[bf]:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("op-level S-resident gradients disagree with the plain versions or the oracle")
+    del grads
+    flops = 2.5 * 2 * b * h * band_pairs(n, n, causal=True) * (d + d)
+    times = {"resident": [], "handoff": []}
+    for mode in ("resident", "handoff", "handoff", "resident", "resident", "handoff"):
+        _, ms = fwd_bwd(None if mode == "resident" else False)
+        times[mode].append(ms)
+    med = {k_: sorted(v_)[1] for k_, v_ in times.items()}
+    log(f"  backward ms (CUDA events, median of 3, interleaved): S-resident {med['resident']:.3f} "
+        f"({flops / med['resident'] / 1e9:.1f} TFLOP/s) vs dS handoff (save_scores=False) "
+        f"{med['handoff']:.3f} ({flops / med['handoff'] / 1e9:.1f} TFLOP/s); bwd flop = 2.5 x "
+        f"the forward's over the causal band ({flops:.4g}); all "
+        f"{ {k_: [round(x, 3) for x in v_] for k_, v_ in times.items()} }")
+    torch.cuda.empty_cache()
+    return dict(ms=med, tflops={k_: flops / v_ / 1e9 for k_, v_ in med.items()})
+
+
+def phase_decode_grad() -> None:
+    """One GQA decode call under autograd at the serving shape (Hq8/Hkv4,
+    Nq1, Nkv 4224, D512, the validity bias): the forward keeps its fp32
+    score residual, and dq / dk / dv hold against the fp32 oracle's
+    autograd."""
+    from ffpa_attn_tpu_torch import ffpa_attn_func
+    from ffpa_attn_tpu_torch.ops import decode
+    from ffpa_attn_tpu_torch.ops.reference import (
+        DEFAULT_MASK_VALUE, expand_kv_heads, reference_attention,
+    )
+
+    b, hq, hkv, d = 1, SLICE["n_heads"], SLICE["n_kv_heads"], SLICE["head_dim"]
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    q, do = _randn((b, hq, 1, d), bf, gen), _randn((b, hq, 1, d), bf, gen)
+    k, v = _randn((b, hkv, MAX_LEN, d), bf, gen), _randn((b, hkv, MAX_LEN, d), bf, gen)
+    cols = torch.arange(MAX_LEN, device="cuda")
+    bias = torch.where(cols <= PROMPT, 0.0, DEFAULT_MASK_VALUE).float()[None, None, None]
+    emits = decode._decode_emits_scores(q, k, bias, 0.0, (-1, -1))
+    if not emits:
+        fail("the decode call under autograd does not keep its score residual")
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    decode._decode_forward.launches = 0
+    o = ffpa_attn_func(*leaves, attn_mask=bias, enable_gqa=True)
+    o.backward(do)
+    torch.cuda.synchronize()
+    launches = decode._decode_forward.launches
+    sl = [t.float().requires_grad_() for t in (q, k, v)]
+    out = reference_attention(sl[0], expand_kv_heads(sl[1], hq), expand_kv_heads(sl[2], hq), bias)
+    want = torch.autograd.grad(out, sl, do.float())
+    errs = {nm: grad_row_rel(t.grad, w) for nm, t, w in zip(("dq", "dk", "dv"), leaves, want)}
+    nbytes = b * hkv * hq // hkv * MAX_LEN * 4
+    ok = launches == 1 and all(e < GRAD_TOL[bf] for e in errs.values())
+    log(f"decode gradients (GQA Hq{hq}/Hkv{hkv} Nq1 Nkv{MAX_LEN} D{d}, validity bias): score "
+        f"residual kept ({nbytes} B), decode launches {launches}; vs the fp32 oracle "
+        + " ".join(f"{nm} {e:.2e}" for nm, e in errs.items())
+        + f" (tol {GRAD_TOL[bf]:g}, per row) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("decode gradients disagree with the oracle")
 
 
 def phase_windowed() -> dict:
@@ -576,7 +985,7 @@ def phase_windowed() -> dict:
     opt = adamw(1e-4)
     step = make_train_step(cfg, opt)
     per_step = {"flash_fwd": cfg.n_layers, "dkdv": cfg.n_layers, "dq": cfg.n_layers,
-                "banded_dq": 0}
+                "banded_dq": 0, "from_s": 0, "banded_dk": 0}
     _, losses, times, launches = _train_steps(model, opt.init(list(model.parameters())), step,
                                               tokens, WINDOW_STEPS, per_step, "windowed")
     log(f"windowed path (mistral_like window {WINDOW}, L{cfg.n_layers}, N{TRAIN_N}): step ms "
@@ -687,31 +1096,55 @@ def _hold(label: str, pairs: dict, dtype=torch.bfloat16) -> float:
     return max(max_abs(g, w) for g, w in pairs.values())
 
 
-def training_times(training: dict, windowed: dict) -> tuple:
-    """One training step under the profiler, then the backward kernels at
-    their main-path shapes, each held against its plain version on the same
-    inputs and timed beside it: dkdv (with the dS slab) and banded dQ at the
-    training step's shape, dq at the windowed model's."""
+def _kernel_timed(fn, kernel: str, reps: int, setup=None) -> tuple:
+    """(device ms per call of the kernels whose name holds ``kernel``,
+    from the profiler; CUDA-event ms per call of ``fn`` less that of
+    ``setup``, the part of ``fn`` that only prepares the kernel's inputs)."""
+    from ffpa_attn_tpu_torch.utils.profiling import cuda_ms, device_window
+
+    w = device_window(fn, reps=reps, warmup=1)
+    dev = sum(ms for name, ms in w["by_kernel"].items() if kernel in name) / reps
+    if dev <= 0.0:
+        fail(f"the profiler saw no {kernel} kernel")
+    ev = cuda_ms(fn, reps=reps) - (cuda_ms(setup, reps=reps) if setup is not None else 0.0)
+    return dev, ev
+
+
+def _profile_step(label: str, run: dict) -> None:
+    """One training step of ``run`` under the profiler; frees the model."""
+    from ffpa_attn_tpu_torch.utils.profiling import device_window
+
+    hold = {"state": run["state"]}
+
+    def one_step():
+        hold["state"], _ = run["step"](run["model"], hold["state"], run["tokens"])
+
+    w = device_window(one_step, reps=1, warmup=1)
+    top = sorted(w["by_kernel"].items(), key=lambda kv: -kv[1])[:8]
+    log(f"  {label}: wall {w['wall_ms']:.2f} ms, device {w['device_ms']:.2f} ms, "
+        f"busy {w['busy'] * 100:.1f}% (idle {(1 - w['busy']) * 100:.1f}%)")
+    for kname, ms in top:
+        log(f"    {ms:9.3f} ms  {kname[:100]}")
+    del run["model"], run["state"], hold
+    torch.cuda.empty_cache()
+
+
+def training_times(training: dict, windowed: dict, resident: dict) -> tuple:
+    """One step of the handoff and of the S-resident model under the
+    profiler, then the backward kernels at their main-path shapes, each held
+    against its plain version on the same inputs and timed beside it: dkdv
+    (with the dS slab) and banded dQ at the training step's shape, dq at
+    the windowed model's, and the S-resident tier's from-S pass (both
+    variants) and banded dK."""
     import torch.nn.functional as F
 
     from ffpa_attn_tpu_torch.ops import flash_bwd, flash_fwd
     from ffpa_attn_tpu_torch.ops.dispatch import pick_backward_config
     from ffpa_attn_tpu_torch.ops.reference import expand_kv_heads
-    from ffpa_attn_tpu_torch.utils.profiling import backward_counts, bound_ms, device_window
+    from ffpa_attn_tpu_torch.utils.profiling import backward_counts, bound_ms
 
-    hold = {"state": training["state"]}
-
-    def one_step():
-        hold["state"], _ = training["step"](training["model"], hold["state"], training["tokens"])
-
-    w = device_window(one_step, reps=1, warmup=1)
-    top = sorted(w["by_kernel"].items(), key=lambda kv: -kv[1])[:8]
-    log(f"  training step: wall {w['wall_ms']:.2f} ms, device {w['device_ms']:.2f} ms, "
-        f"busy {w['busy'] * 100:.1f}% (idle {(1 - w['busy']) * 100:.1f}%)")
-    for kname, ms in top:
-        log(f"    {ms:9.3f} ms  {kname[:100]}")
-    del training["model"], training["state"], hold
-    torch.cuda.empty_cache()
+    _profile_step("training step (dS handoff)", training)
+    _profile_step("training step (S-resident)", resident)
 
     n, b, hq, hkv, d = TRAIN_N, 1, TRAIN["n_heads"], TRAIN["n_kv_heads"], TRAIN["head_dim"]
     bf = torch.bfloat16
@@ -823,10 +1256,90 @@ def training_times(training: dict, windowed: dict) -> tuple:
                 pms, lib, flops, nbytes)
         del out
         torch.cuda.empty_cache()
+
+    # The S-resident tier of the training step.
+    fkw = dict(scale=scale, is_causal=True)
+    fwd_ms = _timed(lambda: flash_fwd.flash_attention_forward(q, k, v, None, **fkw), 5)
+    fwd_s_ms = _timed(lambda: flash_fwd.flash_attention_forward(q, k, v, None, return_scores=True,
+                                                                **fkw), 5)
+    log(f"  flash_fwd at N{n} (one training layer): {fwd_ms[0]:.4f} ms [{fwd_ms[1]:.4f}] without "
+        f"the S residual, {fwd_s_ms[0]:.4f} ms [{fwd_s_ms[1]:.4f}] with it")
+    o, lse, s = flash_fwd.flash_attention_forward(q, k, v, None, return_scores=True, **fkw)
+    delta = (do.float() * o.float()).sum(-1)
+    skw = dict(scale=scale, is_causal=True, causal_offset=0, dropout_p=0.0)
+    variants, slab = {}, None
+    for dk_in in (cfg.dkdv_dk_in_kernel, not cfg.dkdv_dk_in_kernel):  # the rule's pick first
+        c = replace(cfg, dkdv_dk_in_kernel=dk_in)
+        tag = "dk_in" if dk_in else "dk_out"
+
+        def run_from_s(c=c):
+            return flash_bwd._dkdv_from_s_launch(q, v, s.clone(), do, lse, delta, 0, c,
+                                                 group=hq // hkv, grad_kv_storage_dtype=None,
+                                                 **skw)
+
+        kdk, kdv, kds = run_from_s()
+        torch.cuda.synchronize()
+        pdk, pdv, pds = flash_bwd._dkdv_from_s_plain(q, v, s, do, lse, delta, seed=0, softcap=0.0,
+                                                     dk_in_kernel=dk_in, **skw)
+        pairs = {"dv": (kdv, pdv), "ds": (kds, pds)}
+        if dk_in:
+            pairs["dk"] = (kdk, pdk)
+        err = _hold(f"from_s_{tag}_N{n}_causal", pairs)
+        del pairs, pdk, pdv, pds, kdk, kdv
+        if slab is None:
+            slab = kds
+        del kds
+        kms = _kernel_timed(run_from_s, "dkdv_from_s_kernel", 10, setup=lambda: s.clone())
+        variants[dk_in] = (kms, err)
+    log(f"  from-S variants at N{n}: dK out of kernel {variants[False][0][0]:.4f} ms "
+        f"[{variants[False][0][1]:.4f}], dK in kernel {variants[True][0][0]:.4f} ms "
+        f"[{variants[True][0][1]:.4f}]; the dispatch rule picks dK "
+        f"{'in' if cfg.dkdv_dk_in_kernel else 'out of'} the kernel")
+    kms, err = variants[cfg.dkdv_dk_in_kernel]
+    pms = _timed(lambda: flash_bwd._dkdv_from_s_plain(
+        q, v, s, do, lse, delta, seed=0, softcap=0.0, dk_in_kernel=cfg.dkdv_dk_in_kernel, **skw),
+        3, warmup=1)
+    # No single PyTorch call computes the from-S pass; its yardstick is the
+    # two dense products it contains, dO V^T and P^T dO, on the same shapes.
+    p_bf = torch.exp(s.float() - lse[..., None]).to(bf)
+    vd = ve.detach()
+    lms = _timed(lambda: (torch.matmul(do, vd.transpose(-1, -2)),
+                          torch.matmul(p_bf.transpose(-1, -2), do)), 10)
+    del p_bf
+    log("  yardstick for dkdv_from_s (not one library call): two dense torch.matmul, "
+        "dO V^T and P^T dO")
+    flops, nbytes = backward_counts("dkdv_from_s", b=b, hq=hq, hkv=hkv, nq=n, nkv=n, d=d, dv=d,
+                                    causal=True, slab_bytes=s.numel() * 2,
+                                    dk_in_kernel=cfg.dkdv_dk_in_kernel)
+    row("dkdv_from_s", "ffpa_attn_tpu/ops/flash_bwd.py:344", resident["launches"]["from_s"],
+        err, kms, pms, lms, flops, nbytes)
+
+    def run_banded_dk():
+        return flash_bwd._banded_dk_from_ds(slab, q, cfg, scale=scale, group=hq // hkv, nq=n,
+                                            nkv=n, causal_offset=0, dk_dtype=bf)
+
+    def run_banded_dk_plain():
+        return flash_bwd._banded_dk_plain(slab, q, scale=scale, nq=n, nkv=n, hkv=hkv)
+
+    kbk = run_banded_dk()
+    torch.cuda.synchronize()
+    err = _hold(f"banded_dk_N{n}_causal", {"dk": (kbk, run_banded_dk_plain())})
+    del kbk
+    kms = _timed(run_banded_dk, 10)
+    pms = _timed(run_banded_dk_plain, 3, warmup=1)
+    lms = _timed(lambda: torch.matmul(slab.transpose(-1, -2), q), 10)
+    log("  library for banded_dk: one dense torch.matmul of the dS slab (transposed) and Q")
+    flops, nbytes = backward_counts("banded_dk", b=b, hq=hq, hkv=hkv, nq=n, nkv=n, d=d, dv=d,
+                                    causal=True)
+    row("banded_dk", "ffpa_attn_tpu/ops/flash_bwd.py:1323", resident["launches"]["banded_dk"],
+        err, kms, pms, lms, flops, nbytes)
+    del slab, s, o, lse, delta
+    torch.cuda.empty_cache()
     return rows, events
 
 
-def phase_times(errs: dict, main_path: dict, training: dict, windowed: dict) -> list:
+def phase_times(errs: dict, main_path: dict, training: dict, windowed: dict,
+                resident: dict) -> list:
     import torch.nn.functional as F
 
     from ffpa_attn_tpu_torch.ops import decode, flash_fwd
@@ -853,6 +1366,10 @@ def phase_times(errs: dict, main_path: dict, training: dict, windowed: dict) -> 
     pms = _timed(lambda: flash_fwd.flash_attention_forward_plain(q, k, v, None, **kw), 5)
     lms = _timed(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                         enable_gqa=True), 10)
+    sms = _timed(lambda: flash_fwd.flash_attention_forward(q, k, v, None, return_scores=True,
+                                                           **kw), 20)
+    log(f"  flash_fwd at the prefill shape: {kms[0]:.4f} ms [{kms[1]:.4f}] without the S "
+        f"residual, {sms[0]:.4f} ms [{sms[1]:.4f}] with it")
     bms, bby = bound_ms(flops, nbytes)
     rows.append(dict(
         name="flash_fwd", route="cuda", source="ffpa_attn_tpu_torch/csrc/flash_fwd.cu",
@@ -892,6 +1409,15 @@ def phase_times(errs: dict, main_path: dict, training: dict, windowed: dict) -> 
     nbytes = 2 * (2 * qd.numel() + 2 * b * hkv * MAX_LEN * d) + 4 * MAX_LEN + 4 * b * hq
     flops = 2 * b * hq * MAX_LEN * (d + d)
     kms = _timed(run_kernel, 100, warmup=8)
+
+    def run_kernel_scores():
+        kc, vc = pick()
+        return decode._decode_forward(qd, kc, vc, bias, scale=scale, is_causal=False,
+                                      return_scores=True)
+
+    sms = _timed(run_kernel_scores, 100, warmup=8)
+    log(f"  decode at the serving step: {kms[0]:.4f} ms [{kms[1]:.4f}] without the score "
+        f"residual, {sms[0]:.4f} ms [{sms[1]:.4f}] with it")
     pms = _timed(run_plain, 40)
     lms = _timed(run_library, 100, warmup=8)
     bms, bby = bound_ms(flops, nbytes)
@@ -902,7 +1428,7 @@ def phase_times(errs: dict, main_path: dict, training: dict, windowed: dict) -> 
         bound_by=bby, library_ms=lms[0],
     ))
     events["decode"] = (kms[1], pms[1], lms[1])
-    train_rows, train_events = training_times(training, windowed)
+    train_rows, train_events = training_times(training, windowed, resident)
     rows += train_rows
     events.update(train_events)
     log("times (device ms per call from torch.profiler; CUDA-event ms per call in brackets):")
@@ -929,14 +1455,24 @@ def main() -> int:
     errs = phase_kernels_vs_plain()
     main_path = phase_main_path()
     training = phase_training()
+    resident = phase_resident_training(training["oracle"])
+    partial = phase_partial_residency(training.pop("oracle"))
+    del partial["model"], partial["state"], partial["oracle"], resident["oracle"]
+    torch.cuda.empty_cache()
+    op_level = phase_op_level()
+    phase_decode_grad()
     windowed = phase_windowed()
     phase_tiny_training()
-    rows = phase_times(errs, main_path, training, windowed)
+    rows = phase_times(errs, main_path, training, windowed, resident)
     log(f"summary: prefill_ms {main_path['prefill_ms']:.3f} decode_tokens_per_s "
         f"{main_path['decode_tok_s']:.2f} generate_ms {main_path['generate_ms']:.1f} "
         f"train_step_ms {training['step_ms']:.2f} train_tokens_per_s {training['tok_s']:.1f} "
-        f"loss_rel_err {training['loss_err']:.2e} grad_rel_err {training['grad_err']:.2e} "
-        f"total {time.perf_counter() - t_start:.1f} s on {smi}")
+        f"s_resident_step_ms {resident['step_ms']:.2f} s_resident_tokens_per_s "
+        f"{resident['tok_s']:.1f} partial_step_ms {partial['step_ms']:.2f} "
+        f"op_bwd_ms_resident {op_level['ms']['resident']:.3f} op_bwd_ms_handoff "
+        f"{op_level['ms']['handoff']:.3f} loss_rel_err {training['loss_err']:.2e} "
+        f"grad_rel_err {training['grad_err']:.2e} s_resident_grad_rel_err "
+        f"{resident['grad_err']:.2e} total {time.perf_counter() - t_start:.1f} s on {smi}")
     # "ms" is the kernel's time; "kernel_ms" repeats it under its longer name.
     print(json.dumps({"kernels": [dict(r, kernel_ms=r["ms"]) for r in rows]}))
     print(smi)

@@ -20,6 +20,11 @@
 // before it accumulates into them. Q/K chunk pairs and V chunks stream through
 // two shared-memory slots with cp.async, one chunk ahead of the math
 // (zero-filled past the ragged edge).
+//
+// Score residual (return_scores, the decode backward's input): launch 1
+// also writes each valid row's masked post-softcap / bias scores in fp32
+// to [B, Hkv, R, s_ld], each split its own columns, masked and padding
+// entries as MASK_VALUE.
 #include <mma.h>
 
 #include "common.cuh"
@@ -52,6 +57,8 @@ struct DecodeParams {
   float scale, softcap;
   int causal_offset, window_left, window_right;  // window_right: 0 when causal, -1 open
   int kv_start, kv_end, kv_per_split, num_splits, row_blocks;
+  float* s_out;  // fp32 score residual [B, Hkv, R, s_ld], or null
+  int s_ld;
 };
 
 // Dynamic shared memory of one block; ops/config.py decode_smem_bytes is the
@@ -205,6 +212,10 @@ __global__ void __launch_bounds__(NTHREADS) decode_kernel(const DecodeParams p) 
                   s = MASK_VALUE;
               }
               sv[i][j] = s;
+              // Score residual: each split writes its own tiles' columns.
+              if (valid && p.s_out != nullptr)
+                p.s_out[((long long)(b * p.Hkv + kvh) * p.nrows + row) * p.s_ld + col] =
+                    s == -INFINITY ? MASK_VALUE : s;
             }
             red[i] = fmaxf(sv[i][0], sv[i][1]);
           }
@@ -385,9 +396,14 @@ extern "C" int ffpa_decode_fwd(const void* q, const void* k, const void* v, void
                                int block_rows, int B, int Hkv, int R, int nq, int nkv, int D,
                                int Dv, float scale, float softcap, int causal_offset,
                                int window_left, int window_right, int kv_start, int kv_end,
-                               int kv_per_split, int num_splits, void* stream) {
-  if (D % D_CHUNK != 0 || Dv % D_CHUNK != 0) return (int)cudaErrorInvalidValue;
+                               int kv_per_split, int num_splits, float* s_out, int s_ld,
+                               void* stream) {
+  if (D % D_CHUNK != 0 || Dv % D_CHUNK != 0 ||
+      (s_out != nullptr && s_ld < ((nkv + KV_TILE - 1) / KV_TILE) * KV_TILE))
+    return (int)cudaErrorInvalidValue;
   DecodeParams p = {};
+  p.s_out = s_out;
+  p.s_ld = s_ld;
   p.q = q;
   p.k = k;
   p.v = v;

@@ -1,10 +1,13 @@
-// Backward attention kernels for Hopper (sm_90a): the counterparts of three
+// Backward attention kernels for Hopper (sm_90a): the counterparts of five
 // Pallas kernels of ffpa_attn_tpu/ops/flash_bwd.py. ops/flash_bwd.py calls
 // the C entry points through ctypes.
 //
-//   ffpa_bwd_dkdv      <- _dkdv_kernel: dK, dV, and optionally the dS slab
-//   ffpa_bwd_dq        <- _dq_kernel: dQ, and optionally the fp32 dbias slab
-//   ffpa_bwd_banded_dq <- _banded_dq_kernel: dQ = scale * dS K from the slab
+//   ffpa_bwd_dkdv        <- _dkdv_kernel: dK, dV, and optionally the dS slab
+//   ffpa_bwd_dq          <- _dq_kernel: dQ, and optionally the fp32 dbias slab
+//   ffpa_bwd_banded_dq   <- _banded_dq_kernel: dQ = scale * dS K from the slab
+//   ffpa_bwd_dkdv_from_s <- _dkdv_from_s_kernel: dV (and dK) from the
+//                           forward's S residual, dS written over S in place
+//   ffpa_bwd_banded_dk   <- _banded_dk_kernel: dK = scale * dS^T Q from the slab
 //
 // All three are built from the forward's pieces (flash_fwd.cu): 16 warps,
 // mma.sync m16n8k16 (bf16 or f16 in, fp32 accumulate) fed by ldmatrix, a
@@ -44,8 +47,12 @@
 // tiles up to the diagonal; each dS tile passes through the ring into
 // registers (A fragments), then the K chunks stream past it.
 //
+// From-S dK/dV and banded dK (S-resident tier, bf16 only): below, beside
+// their kernels.
+//
 // Bound on an H100: operations (4 matmul units of 2 * pairs * D flop for
-// dK/dV, 3 for dQ, 1 for banded dQ; see utils/profiling.py).
+// dK/dV, 3 for dQ, 1 for banded dQ and banded dK, 2 or 3 for from-S dK/dV;
+// see utils/profiling.py).
 #include "common.cuh"
 #include "rng.cuh"
 
@@ -150,7 +157,8 @@ struct Lanes {
 };
 
 // acc[N8] += A (16 rows of a row-major tile, 64 k) * B^T where B is an
-// [n][k] tile (rows n0.. of a chunk): the S = Q K^T pattern.
+// [n][k] tile (rows n0.. of a chunk): the S = Q K^T pattern. N8 is 1 or
+// even (pairs of n8 tiles per ldmatrix.x4).
 template <typename T, int N8>
 __device__ __forceinline__ void mma_abt(float (&acc)[N8][4], const T* a, int lda, const T* bt,
                                         const Lanes& L, int lane) {
@@ -158,11 +166,14 @@ __device__ __forceinline__ void mma_abt(float (&acc)[N8][4], const T* a, int lda
   for (int kk = 0; kk < CH / 16; ++kk) {
     uint32_t af[4];
     ldsm_x4(af, a + L.a_row * lda + kk * 16 + L.a_col);
-    if (N8 == 2) {
-      uint32_t bf[4];
-      ldsm_x4(bf, bt + L.bn_row * LDC + kk * 16 + L.bn_col);
-      mma16816<T>(acc[0], af, bf[0], bf[1]);
-      mma16816<T>(acc[N8 - 1], af, bf[2], bf[3]);
+    if (N8 >= 2) {
+#pragma unroll
+      for (int n2 = 0; n2 < N8 / 2; ++n2) {
+        uint32_t bf[4];
+        ldsm_x4(bf, bt + (n2 * 16 + L.bn_row) * LDC + kk * 16 + L.bn_col);
+        mma16816<T>(acc[2 * n2], af, bf[0], bf[1]);
+        mma16816<T>(acc[2 * n2 + 1], af, bf[2], bf[3]);
+      }
     } else {
       uint32_t bf[2];
       ldsm_x2(bf, bt + (lane & 7) * LDC + kk * 16 + L.bn_col);
@@ -782,6 +793,432 @@ __global__ void __launch_bounds__(NTHR, 1) banded_dq_kernel(const BwdParams p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// dK / dV from the forward's S residual (S-resident backward, bf16)
+// ---------------------------------------------------------------------------
+
+// Dynamic shared memory of one from-S block; ops/config.py
+// dkdv_from_s_smem_bytes is the same formula. No K tile: S comes from the
+// slab through the ring.
+template <int KV>
+size_t from_s_smem_bytes(int dv) {
+  return ((size_t)KV * (dv + 8) + (size_t)NST * QT * LDC + 2 * (size_t)KV * LDP) *
+             sizeof(__nv_bfloat16) +
+         2 * QT * sizeof(float);
+}
+
+// A block owns KV rows [kv0, kv0 + KV) of one KV head with V resident and
+// walks the GQA group's 128-row Q tiles of the causal band. Per tile the
+// ring brings the S tile (128 x KV of the slab), then the dO chunks, then
+// (DK) the Q chunks. P = exp(S - lse) is re-masked here (rows past Nq,
+// columns past Nkv or above the causal diagonal give 0 whatever the slab
+// holds there), dP^T = V dO^T and dV += P^T dO share the dO stream, dS =
+// P (dP - delta) (times the softcap factor 1 - (s/cap)^2 read from S)
+// overwrites the S tile in place, and with DK dK += dS^T Q. Exactly one
+// block owns each slab tile and reads it before it writes it, so the
+// in-place update has no race. Q tiles the band skips get zeros, so every
+// tile of the slab is defined for banded dQ / dK and dbias.
+//
+// KV = 64 (dK out of kernel, Dv <= 512): 16 warps as 4 row tiles x 4, the
+// fp32 dV tile (64 x 512) in 64 registers a thread. KV = 32: 2 x 8 warps,
+// dV alone up to 1024 columns, or dK and dV up to 512 each (DK).
+template <int KV, bool DK>
+__global__ void __launch_bounds__(NTHR, 1) dkdv_from_s_kernel(const BwdParams p) {
+  using T = __nv_bfloat16;
+  constexpr int RT = KV / 16;    // 16-row tiles of the KV tile
+  constexpr int WC = NW / RT;    // warps per row tile
+  constexpr int CQ = QT / WC;    // Q columns of S^T / dP^T per warp (16 or 32)
+  constexpr int NQ8 = CQ / 8;    // n8 tiles of them (2 or 4)
+  constexpr int CW = CH / WC;    // dK / dV columns per chunk per warp (8 or 16)
+  constexpr int NC8 = CW / 8;    // n8 tiles of them (1 or 2)
+  constexpr int MAXV = ACC_PER_THREAD / ((DK ? 2 : 1) * 4 * NC8);  // dV chunks held
+  static_assert(!DK || KV == 32, "dK in kernel takes 32-row KV tiles");
+  static_assert(KV * QT / 8 % NTHR == 0, "slab tile vectors per thread");
+
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int LDV = p.Dv + 8;
+  T* Vs = reinterpret_cast<T*>(smem_raw);
+  T* ring = Vs + KV * LDV;
+  T* Pt = ring + NST * QT * LDC;  // P (dropped) transposed: [kv][q]
+  T* dSt = Pt + KV * LDP;         // dS (with the softcap factor) transposed
+  float* lse_s = reinterpret_cast<float*>(dSt + KV * LDP);
+  float* delta_s = lse_s + QT;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int rt = warp / WC, wc = warp % WC;
+  const Lanes L(lane);
+  const int kvh = blockIdx.x, b = blockIdx.y, kv0 = blockIdx.z * KV;
+  const int nD = p.D / CH, nV = p.Dv / CH;
+
+  // Q tiles of the band: [i_lo, nqt) of every group member.
+  const int nqt = (p.ds_rows + QT - 1) / QT;
+  const int i_lo =
+      p.window_right >= 0 ? max(0, floordiv(kv0 - p.causal_offset - p.window_right, QT)) : 0;
+  const int ni = max(0, nqt - i_lo);
+  const int ntiles = p.group * ni;
+
+  const T* vb = static_cast<const T*>(p.v) + ((long long)(b * p.Hkv + kvh) * p.nkv) * p.Dv;
+  T* slab = static_cast<T*>(p.ds);
+
+  // Resident V: rows past Nkv are zero-filled.
+  for (int i = tid; i < KV * (p.Dv / 8); i += NTHR) {
+    const int r = i / (p.Dv / 8), c = (i % (p.Dv / 8)) * 8;
+    const bool ok = kv0 + r < p.nkv;
+    cp_async16(Vs + r * LDV + c, ok ? vb + (long long)(kv0 + r) * p.Dv + c : vb, ok);
+  }
+  cp_async_commit();
+
+  // Chunk gi of the stream: per Q tile, the S tile (128 rows x KV columns
+  // of the slab; rows past the slab zero-filled), the nV dO chunks, and
+  // with DK the nD Q chunks (128 x 64, rows past Nq zero-filled).
+  const int per_tile = 1 + nV + (DK ? nD : 0);
+  const int total = ntiles * per_tile;
+  auto issue = [&](int gi) {
+    if (gi < total) {
+      const int t = gi / per_tile, c = gi - t * per_tile;
+      const int h = kvh * p.group + t / ni, q0 = (i_lo + t % ni) * QT;
+      T* dst = ring + (gi % NST) * (QT * LDC);
+      if (c == 0) {
+        const T* src = slab + ((long long)(b * p.Hq + h) * p.ds_rows) * p.ds_ld + kv0;
+#pragma unroll
+        for (int k = 0; k < KV * QT / 8 / NTHR; ++k) {
+          const int i = tid + k * NTHR;
+          const int r = i / (KV / 8), cv = (i % (KV / 8)) * 8;
+          const bool ok = q0 + r < p.ds_rows;
+          cp_async16(dst + r * LDC + cv, ok ? src + (long long)(q0 + r) * p.ds_ld + cv : src, ok);
+        }
+      } else {
+        const bool is_do = c <= nV;
+        const T* src = static_cast<const T*>(is_do ? p.dout : p.q);
+        const int ld = is_do ? p.Dv : p.D;
+        const int c0 = is_do ? c - 1 : c - 1 - nV;
+        src += ((long long)(b * p.Hq + h) * p.nq) * ld;
+#pragma unroll
+        for (int half = 0; half < QT / 64; ++half) {
+          const int r = (tid >> 3) + 64 * half, cv = (tid & 7) * 8;
+          const bool ok = q0 + r < p.nq;
+          cp_async16(dst + r * LDC + cv,
+                     ok ? src + (long long)(q0 + r) * ld + c0 * CH + cv : src, ok);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  auto begin = [&](int gi) -> const T* {
+    issue(gi + NST - 1);
+    cp_async_wait<NST - 1>();
+    __syncthreads();
+    return ring + (gi % NST) * (QT * LDC);
+  };
+
+  float dv_acc[MAXV][NC8][4];
+  float dk_acc[DK ? MAXV : 1][1][4];
+#pragma unroll
+  for (int c = 0; c < MAXV; ++c)
+#pragma unroll
+    for (int n = 0; n < NC8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dv_acc[c][n][e] = 0.f;
+#pragma unroll
+  for (int c = 0; c < (DK ? MAXV : 1); ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[c][0][e] = 0.f;
+
+  const T* Vrow = Vs + (rt * 16) * LDV;
+  const int kv_loc = rt * 16 + g;  // + 8 for fragment elements 2, 3
+
+#pragma unroll
+  for (int gi = 0; gi < NST - 1; ++gi) issue(gi);
+  for (int t = 0; t < ntiles; ++t) {
+    const int h = kvh * p.group + t / ni, q0 = (i_lo + t % ni) * QT;
+    const int gt = t * per_tile;
+    __syncthreads();  // the previous tile's readers of lse_s / delta_s are done
+    if (tid < QT) {
+      const long long idx = (long long)(b * p.Hq + h) * p.nq + q0 + tid;
+      const bool ok = q0 + tid < p.nq;
+      lse_s[tid] = ok ? p.lse[idx] : 0.f;
+      delta_s[tid] = ok ? p.delta[idx] : 0.f;
+    }
+
+    // P from the S tile: this warp's 16 KV rows x CQ Q columns. p times
+    // the softcap factor and the keep bits stay in registers for dS.
+    float pc[NQ8][4];
+    uint32_t kept = 0;
+    {
+      const T* st = begin(gt);
+#pragma unroll
+      for (int n = 0; n < NQ8; ++n) {
+        float pd[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kvl = kv_loc + ((e >> 1) << 3), ql = wc * CQ + n * 8 + 2 * t4 + (e & 1);
+          const int row = q0 + ql, col = kv0 + kvl;
+          float pv = 0.f, cap = 1.f;
+          bool keep = true;
+          if (row < p.nq && col < p.nkv &&
+              (p.window_right < 0 || col <= row + p.causal_offset + p.window_right)) {
+            const float s = __bfloat162float(st[ql * LDC + kvl]);
+            pv = __expf(s - lse_s[ql]);
+            if (p.softcap > 0.f) {
+              const float u = s / p.softcap;
+              cap = fmaxf(1.f - u * u, 0.f);
+            }
+            if (p.dropout_p > 0.f)
+              keep = dropout_uniform(p.seed, b, h, row, col) >= p.dropout_p;
+          }
+          pc[n][e] = pv * cap;
+          kept |= (uint32_t)keep << (4 * n + e);
+          pd[e] = dropped(p, keep, pv);
+        }
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          *reinterpret_cast<uint32_t*>(Pt + (kv_loc + 8 * hh) * LDP + wc * CQ + n * 8 + 2 * t4) =
+              pack2<T>(pd[2 * hh], pd[2 * hh + 1]);
+      }
+      __syncthreads();  // the S slot is refilled by a later issue; P^T is complete
+    }
+
+    // dP^T = V dO^T and dV += P^T dO over the dO chunks.
+    float dpt[NQ8][4];
+#pragma unroll
+    for (int n = 0; n < NQ8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dpt[n][e] = 0.f;
+#pragma unroll
+    for (int vc = 0; vc < MAXV; ++vc) {
+      if (vc < nV) {
+        const T* ch = begin(gt + 1 + vc);
+        mma_abt<T, NQ8>(dpt, Vrow + vc * CH, LDV, ch + (wc * CQ) * LDC, L, lane);
+        mma_ab<T, NC8, QT / 16>(dv_acc[vc], Pt + (rt * 16) * LDP, LDP, ch + wc * CW, L);
+        __syncthreads();
+      }
+    }
+
+    // dS = P * (dP - delta), transposed into shared memory.
+#pragma unroll
+    for (int n = 0; n < NQ8; ++n) {
+      float dsv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ql = wc * CQ + n * 8 + 2 * t4 + (e & 1);
+        dsv[e] = pc[n][e] * (dropped(p, (kept >> (4 * n + e)) & 1u, dpt[n][e]) - delta_s[ql]);
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<uint32_t*>(dSt + (kv_loc + 8 * hh) * LDP + wc * CQ + n * 8 + 2 * t4) =
+            pack2<T>(dsv[2 * hh], dsv[2 * hh + 1]);
+    }
+    __syncthreads();
+    // dS over the S tile in place: 8 columns per 16-byte vector.
+#pragma unroll
+    for (int k = 0; k < KV * QT / 8 / NTHR; ++k) {
+      const int i = tid + k * NTHR;
+      const int ql = i / (KV / 8), kv8 = (i % (KV / 8)) * 8;
+      if (q0 + ql < p.ds_rows) {
+        T vals[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) vals[j] = dSt[(kv8 + j) * LDP + ql];
+        *reinterpret_cast<uint4*>(slab + ((long long)(b * p.Hq + h) * p.ds_rows + q0 + ql) *
+                                             p.ds_ld + kv0 + kv8) =
+            *reinterpret_cast<const uint4*>(vals);
+      }
+    }
+
+    if constexpr (DK) {
+      // dK += dS^T Q over the Q chunks, this warp's dS^T rows held as A
+      // fragments across the chunks.
+      uint32_t dsf[QT / 16][4];
+#pragma unroll
+      for (int dc = 0; dc < MAXV; ++dc) {
+        if (dc < nD) {
+          const T* ch = begin(gt + 1 + nV + dc);
+          if (dc == 0) {
+#pragma unroll
+            for (int kk = 0; kk < QT / 16; ++kk)
+              ldsm_x4(dsf[kk], dSt + (rt * 16 + L.a_row) * LDP + kk * 16 + L.a_col);
+          }
+#pragma unroll
+          for (int kk = 0; kk < QT / 16; ++kk) {
+            uint32_t bf[2];
+            ldsm_x2_trans(bf, ch + (kk * 16 + L.bt_row) * LDC + wc * CW);
+            mma16816<T>(dk_acc[dc][0], dsf[kk], bf[0], bf[1]);
+          }
+          __syncthreads();
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // Q tiles above the band: zeros over this block's columns of the slab.
+  for (int gg = 0; gg < p.group; ++gg) {
+    const int h = kvh * p.group + gg;
+    for (int i = tid; i < i_lo * QT * (KV / 8); i += NTHR) {
+      const int r = i / (KV / 8), kv8 = (i % (KV / 8)) * 8;
+      if (r >= p.ds_rows) continue;
+      *reinterpret_cast<uint4*>(slab + ((long long)(b * p.Hq + h) * p.ds_rows + r) * p.ds_ld +
+                                kv0 + kv8) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+
+  // Epilogue: dV (and dK = scale * sum); rows past Nkv are not stored.
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int kv = kv0 + kv_loc + 8 * hh;
+    if (kv >= p.nkv) continue;
+    const long long rv = ((long long)(b * p.Hkv + kvh) * p.nkv + kv) * p.Dv;
+    const long long rk = ((long long)(b * p.Hkv + kvh) * p.nkv + kv) * p.D;
+#pragma unroll
+    for (int c = 0; c < MAXV; ++c) {
+#pragma unroll
+      for (int n = 0; n < NC8; ++n) {
+        const int col = c * CH + wc * CW + n * 8 + 2 * t4;
+        if (c < nV)
+          store2<T>(p.dv, rv + col, dv_acc[c][n][2 * hh], dv_acc[c][n][2 * hh + 1], p.out_f32);
+        if constexpr (DK) {
+          if (c < nD)
+            store2<T>(p.dk, rk + col, dk_acc[c][0][2 * hh] * p.scale,
+                      dk_acc[c][0][2 * hh + 1] * p.scale, p.out_f32);
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Banded dK from the dS slab (causal)
+// ---------------------------------------------------------------------------
+
+// The mirror of banded dQ: a block owns BKV KV rows of one KV head, the
+// fp32 dK tile (BKV x D) in registers like the forward's O tile, and walks
+// the GQA group's 64-row Q tiles at or below the diagonal. Each dS tile
+// (64 q x BKV kv) passes through the ring and is read transposed
+// (ldmatrix.trans) into A fragments of dS^T held while the Q chunks stream
+// past. dK is stored group-reduced once, no atomics.
+template <int BKV>
+__global__ void __launch_bounds__(NTHR, 1) banded_dk_kernel(const BwdParams p) {
+  using T = __nv_bfloat16;
+  constexpr int RT = BKV / 16;
+  constexpr int WC = NW / RT;
+  constexpr int CW = CH / WC;
+  constexpr int N8 = CW / 8;
+  constexpr int NVMAX = ACC_PER_THREAD / (4 * N8);
+  constexpr int QB = CH;  // Q rows per tile
+  static_assert(N8 == 1 || N8 == 2, "BKV must be 32 or 64");
+
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int rt = warp / WC, wc = warp % WC;
+  const Lanes L(lane);
+  const int kvh = blockIdx.x, b = blockIdx.y, kv0 = blockIdx.z * BKV;
+  const int nD = p.D / CH;
+  const int nqt = (p.nq + QB - 1) / QB;
+  const int i_lo = max(0, floordiv(kv0 - p.causal_offset, QB));
+  const int ni = max(0, nqt - i_lo);
+  const int ntiles = p.group * ni;
+
+  // Chunk gi of the stream: per Q tile, the dS tile (rows past the slab
+  // zero-filled) then the nD Q chunks (rows past Nq zero-filled).
+  const int per_tile = 1 + nD;
+  const int total = ntiles * per_tile;
+  auto issue = [&](int gi) {
+    if (gi < total) {
+      const int t = gi / per_tile, c = gi - t * per_tile;
+      const int h = kvh * p.group + t / ni, q0 = (i_lo + t % ni) * QB;
+      T* dst = ring + (gi % NST) * (CH * LDC);
+      if (c == 0) {
+        if (tid < QB * BKV / 8) {
+          const int r = tid / (BKV / 8), cv = (tid % (BKV / 8)) * 8;
+          const T* src = static_cast<const T*>(p.ds) +
+                         ((long long)(b * p.Hq + h) * p.ds_rows) * p.ds_ld + kv0;
+          const bool ok = q0 + r < p.ds_rows;
+          cp_async16(dst + r * LDC + cv, ok ? src + (long long)(q0 + r) * p.ds_ld + cv : src, ok);
+        }
+      } else {
+        const T* src = static_cast<const T*>(p.q) + ((long long)(b * p.Hq + h) * p.nq) * p.D;
+        const int r = tid >> 3, cv = (tid & 7) * 8;
+        const bool ok = q0 + r < p.nq;
+        cp_async16(dst + r * LDC + cv, ok ? src + (long long)(q0 + r) * p.D + (c - 1) * CH + cv : src,
+                   ok);
+      }
+    }
+    cp_async_commit();
+  };
+  auto begin = [&](int gi) -> const T* {
+    issue(gi + NST - 1);
+    cp_async_wait<NST - 1>();
+    __syncthreads();
+    return ring + (gi % NST) * (CH * LDC);
+  };
+
+  float o[NVMAX][N8][4];
+#pragma unroll
+  for (int vc = 0; vc < NVMAX; ++vc)
+#pragma unroll
+    for (int n = 0; n < N8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[vc][n][e] = 0.f;
+
+#pragma unroll
+  for (int gi = 0; gi < NST - 1; ++gi) issue(gi);
+  for (int t = 0; t < ntiles; ++t) {
+    const int gt = t * per_tile;
+    // This warp's 16 dS^T rows (KV) x 64 k (Q) as A fragments: the slab
+    // tile is [q][kv], so ldmatrix.trans of its [k][m] 8 x 8 blocks.
+    uint32_t af[QB / 16][4];
+    {
+      const T* ch = begin(gt);
+#pragma unroll
+      for (int kk = 0; kk < QB / 16; ++kk)
+        ldsm_x4_trans(af[kk], ch + (kk * 16 + L.bn_row) * LDC + rt * 16 + L.bn_col);
+      __syncthreads();
+    }
+#pragma unroll
+    for (int vc = 0; vc < NVMAX; ++vc) {
+      if (vc < nD) {
+        const T* ch = begin(gt + 1 + vc);
+#pragma unroll
+        for (int kk = 0; kk < QB / 16; ++kk) {
+          if (N8 == 2) {
+            uint32_t bf[4];
+            ldsm_x4_trans(bf, ch + (kk * 16 + L.bt_row) * LDC + wc * CW + L.bt_col);
+            mma16816<T>(o[vc][0], af[kk], bf[0], bf[1]);
+            mma16816<T>(o[vc][N8 - 1], af[kk], bf[2], bf[3]);
+          } else {
+            uint32_t bf[2];
+            ldsm_x2_trans(bf, ch + (kk * 16 + L.bt_row) * LDC + wc * CW);
+            mma16816<T>(o[vc][0], af[kk], bf[0], bf[1]);
+          }
+        }
+        __syncthreads();
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int kv = kv0 + rt * 16 + g + 8 * hh;
+    if (kv >= p.nkv) continue;
+    const long long base = ((long long)(b * p.Hkv + kvh) * p.nkv + kv) * p.D;
+#pragma unroll
+    for (int vc = 0; vc < NVMAX; ++vc) {
+      if (vc < nD) {
+#pragma unroll
+        for (int n = 0; n < N8; ++n) {
+          const int col = vc * CH + wc * CW + n * 8 + 2 * t4;
+          store2<T>(p.dk, base + col, o[vc][n][2 * hh] * p.scale, o[vc][n][2 * hh + 1] * p.scale,
+                    p.out_f32);
+        }
+      }
+    }
+  }
+}
+
 template <typename K>
 cudaError_t launch(K kern, dim3 grid, size_t smem, const BwdParams& p, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -897,6 +1334,69 @@ extern "C" int ffpa_bwd_dq(const void* q, const void* k, const void* v, const vo
                                       dq_smem_bytes<__nv_bfloat16>(64, D, Dv), p, st)
                              : launch(dq_kernel<__nv_bfloat16, 32>, grid,
                                       dq_smem_bytes<__nv_bfloat16>(32, D, Dv), p, st));
+}
+
+// S-resident dK/dV (bf16): the slab holds S on entry and dS on return.
+// kv_tile 64 takes dK out of kernel (Dv <= 512); kv_tile 32 takes dV up to
+// 1024 columns, or dK and dV up to 512 each with dk_in_kernel.
+extern "C" int ffpa_bwd_dkdv_from_s(const void* q, const void* v, const void* dout,
+                                    const float* lse, const float* delta, void* slab, void* dk,
+                                    void* dv, int dk_in_kernel, int kv_tile, int out_f32, int B,
+                                    int Hq, int Hkv, int nq, int nkv, int D, int Dv,
+                                    int ds_rows, int ds_ld, float scale, float softcap,
+                                    int causal_offset, int window_right, float dropout_p,
+                                    float dropout_inv, unsigned seed, void* stream) {
+  BwdParams p = make_params(q, nullptr, v, dout, lse, delta, nullptr, 0, 0, 0, 0, nullptr, Hq,
+                            Hkv, nq, nkv, D, Dv, scale, softcap, causal_offset, -1, window_right,
+                            dropout_p, dropout_inv, seed, 0, 0);
+  p.ds = slab;
+  p.dk = dk;
+  p.dv = dv;
+  p.ds_rows = ds_rows;
+  p.ds_ld = ds_ld;
+  p.out_f32 = out_f32;
+  const bool dk_in = dk_in_kernel != 0;
+  if (D % CH != 0 || Dv % CH != 0 || ds_ld % kv_tile != 0 || ds_rows < nq || ds_ld < nkv ||
+      (kv_tile != 32 && kv_tile != 64) || (dk_in && (kv_tile != 32 || D > 512 || Dv > 512)) ||
+      (kv_tile == 64 && Dv > 512) || Dv > 1024)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(Hkv, B, ds_ld / kv_tile);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dk_in) return (int)launch(dkdv_from_s_kernel<32, true>, grid, from_s_smem_bytes<32>(Dv), p, st);
+  if (kv_tile == 64)
+    return (int)launch(dkdv_from_s_kernel<64, false>, grid, from_s_smem_bytes<64>(Dv), p, st);
+  return (int)launch(dkdv_from_s_kernel<32, false>, grid, from_s_smem_bytes<32>(Dv), p, st);
+}
+
+// Causal dK = scale * dS^T Q from the slab (bf16); kv_tile 64 up to D 512,
+// 32 up to 1024.
+extern "C" int ffpa_bwd_banded_dk(const void* ds, const void* q, void* dk, int out_f32,
+                                  int kv_tile, int B, int Hq, int Hkv, int nq, int nkv, int D,
+                                  int ds_rows, int ds_ld, float scale, int causal_offset,
+                                  void* stream) {
+  BwdParams p = {};
+  p.ds = const_cast<void*>(ds);
+  p.q = q;
+  p.dk = dk;
+  p.Hq = Hq;
+  p.Hkv = Hkv;
+  p.group = Hq / Hkv;
+  p.nq = nq;
+  p.nkv = nkv;
+  p.D = D;
+  p.ds_rows = ds_rows;
+  p.ds_ld = ds_ld;
+  p.out_f32 = out_f32;
+  p.scale = scale;
+  p.causal_offset = causal_offset;
+  if (D % CH != 0 || (long long)kv_tile * D > 32 * 1024 || (kv_tile != 64 && kv_tile != 32) ||
+      ds_rows < nq || ds_ld < nkv || ds_ld % kv_tile != 0)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(Hkv, B, (nkv + kv_tile - 1) / kv_tile);
+  const size_t smem = (size_t)NST * CH * LDC * sizeof(__nv_bfloat16);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(kv_tile == 64 ? launch(banded_dk_kernel<64>, grid, smem, p, st)
+                             : launch(banded_dk_kernel<32>, grid, smem, p, st));
 }
 
 extern "C" int ffpa_bwd_banded_dq(const void* ds, const void* k, void* dq, int is_fp16,

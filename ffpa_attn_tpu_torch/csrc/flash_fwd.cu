@@ -25,6 +25,13 @@
 // loaded; the bias is read with strides of 0 on its broadcast dims. Dropout
 // drops P after the row sum l (which keeps every element) from the hash of
 // rng.cuh, the bits the backward kernels replay.
+//
+// S residual (return_scores, the S-resident backward's input): each visited
+// tile's post-scale / softcap / ALiBi / bias / mask scores go straight from
+// the softmax's registers to the bf16 slab [B, Hq, s_rows, s_ld], masked and
+// padding entries as MASK_VALUE (never +-inf: the backward's softcap factor
+// 1 - (s/cap)^2 reads them). Tiles the band skips are never written; the
+// from-S kernel re-masks the band and never reads them.
 #include "common.cuh"
 #include "rng.cuh"
 
@@ -55,10 +62,12 @@ struct FwdParams {
   int causal_offset, window_left, window_right;  // window_right: 0 when causal, -1 open
   float dropout_p, dropout_inv;
   uint32_t seed;
+  __nv_bfloat16* s_out;  // S residual [B, Hq, s_rows, s_ld], or null
+  int s_rows, s_ld;
 };
 
 // Dynamic shared memory of one block; ops/config.py fwd_smem_bytes is the
-// same formula.
+// same formula (the S residual adds none).
 template <typename T>
 size_t fwd_smem_bytes(int bq, int d) {
   return (size_t)bq * (d + 8) * sizeof(T)             // resident Q
@@ -230,6 +239,9 @@ __global__ void __launch_bounds__(NTHR, 1) fwd_kernel(const FwdParams p) {
               s = MASK_VALUE;
           }
           sv[i][j] = s;
+          if (p.s_out != nullptr)
+            p.s_out[((long long)(b * p.Hq + head) * p.s_rows + row) * p.s_ld + col] =
+                __float2bfloat16((!valid || s == -INFINITY) ? MASK_VALUE : s);
         }
         red[i] = fmaxf(sv[i][0], sv[i][1]);
       }
@@ -358,8 +370,12 @@ extern "C" int ffpa_flash_fwd(const void* q, const void* k, const void* v, void*
                               int Hq, int Hkv, int nq, int nkv, int D, int Dv, float scale,
                               float softcap, int causal_offset, int window_left,
                               int window_right, float dropout_p, float dropout_inv,
-                              unsigned seed, void* stream) {
+                              unsigned seed, void* s_out, int s_rows, int s_ld,
+                              void* stream) {
   FwdParams p = {};
+  p.s_out = static_cast<__nv_bfloat16*>(s_out);
+  p.s_rows = s_rows;
+  p.s_ld = s_ld;
   p.q = q;
   p.k = k;
   p.v = v;
@@ -387,8 +403,11 @@ extern "C" int ffpa_flash_fwd(const void* q, const void* k, const void* v, void*
   p.dropout_inv = dropout_inv;
   p.seed = seed;
   // Registers hold block_q x Dv fp32 (64 per thread); D and Dv are 64-multiples.
+  // The S residual's rows cover every block's rows, its columns every tile.
   if (D % CH != 0 || Dv % CH != 0 || (long long)block_q * Dv > 32 * 1024 ||
-      (block_q != 64 && block_q != 32))
+      (block_q != 64 && block_q != 32) ||
+      (s_out != nullptr && (s_rows < ((nq + block_q - 1) / block_q) * block_q ||
+                            s_ld < ((nkv + KV_TILE - 1) / KV_TILE) * KV_TILE)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_fp16) {

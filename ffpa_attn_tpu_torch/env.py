@@ -70,6 +70,23 @@ class ENV:
         return _env_int("FFPA_TORCH_HBM_MODEL_MARGIN_BYTES", 16 * _GIB)
 
     @staticmethod
+    def scores_residual_limit_bytes() -> int:
+        """Largest bf16 S residual (the padded [B, Hq, Nq, Nkv] score
+        matrix of one attention call) the auto S-residency policy keeps for
+        the S-resident backward (default 8 GiB); 0 disables auto
+        residency. A budget below the whole residual buys partial head
+        residency (``ops/attention.py`` ``_resident_head_count``)."""
+        return _env_int("FFPA_TORCH_SCORES_RESIDUAL_LIMIT_BYTES", 8 * _GIB)
+
+    @staticmethod
+    def scores_auto_assumed_layers() -> int:
+        """Copies of one call's S residual the auto policy assumes live at
+        once (default 2): a stacked model keeps every layer's residual from
+        its forward to its backward. Also divides the decode score
+        residual's budget."""
+        return _env_int("FFPA_TORCH_SCORES_AUTO_ASSUMED_LAYERS", 2)
+
+    @staticmethod
     def device_log_level() -> int:
         """Kernel trace level: 0 off | 1 host-only (logger.py) | 2 one log
         line per kernel launch (grid, tile, shared memory) | 3 the same,

@@ -60,8 +60,14 @@ class CudaBackend(Backend):
     input's).
     ``ds_handoff``: the dS-handoff backward (None = auto by the device
     memory budget, True / False = force).
-    ``save_scores``: the S-resident backward (None = auto); it belongs to
-    a later slice of the port, so True raises on a CUDA tensor.
+    ``save_scores``: the S-resident backward, in which the forward keeps
+    its bf16 score matrix and the backward reads it instead of recomputing
+    it. None = auto, as in the JAX package: bf16 inputs keep as many whole
+    GQA groups of heads' residuals as fit min(``FFPA_TORCH_SCORES_
+    RESIDUAL_LIMIT_BYTES``, the card's headroom / ``FFPA_TORCH_SCORES_AUTO_
+    ASSUMED_LAYERS``); True = every head (fp16 inputs warn and take the dS
+    handoff); False = never. Never with a sliding window, softcap with a
+    bias or ALiBi, or the SDPA backward.
     """
 
     name: str = "cuda"

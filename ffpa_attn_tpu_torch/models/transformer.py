@@ -11,7 +11,7 @@ mesh / sequence- and tensor-parallel branches wait for ``parallel/``.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Union
+from typing import Callable, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -33,9 +33,13 @@ class ModelConfig:
     mlp_ratio: int = 4
     max_seq_len: int = 8192
     dtype: str = "bfloat16"
-    # The S-resident attention backward (a later slice of the port); the
-    # default takes the dS-handoff backward, as in the JAX model.
-    attn_save_scores: bool = False
+    # The attention backward's S residency (``CudaBackend.save_scores``):
+    # False, the default as in the JAX model, takes the dS-handoff backward
+    # (every layer's N^2 residual would stay live from forward to backward);
+    # True keeps every head's S residual and takes the S-resident backward;
+    # None lets the auto policy pick per call (a port extension; the JAX
+    # model's flag is a bool).
+    attn_save_scores: Optional[bool] = False
     # sliding_window = causal left-window width in tokens (0 = full
     # attention); attn_softcap = logit cap (0 = off); attn_sinks = learnable
     # per-head sink logits.

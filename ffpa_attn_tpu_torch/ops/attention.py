@@ -2,11 +2,14 @@
 
 ``ffpa_attention_core`` is a ``torch.autograd.Function`` (the JAX package's
 ``jax.custom_vjp``): its forward runs the forward kernel
-(``flash_fwd.py``) and saves (q, k, v, bias, alibi, sinks, o, lse); its
-backward routes by backend, ``_core_bwd`` of the JAX package:
+(``flash_fwd.py``), with the S residual for the first m query heads that the
+residency policy ``_resident_head_count`` picks, and saves (q, k, v, bias,
+alibi, sinks, o, lse, scores); its backward routes by backend, ``_core_bwd``
+of the JAX package:
 
 * ``CudaBackend``: ``flash_attention_backward`` (``flash_bwd.py``), the
-  dS-handoff or recompute tier, sinks by their closed form;
+  S-resident tier for the resident heads and the dS-handoff or recompute
+  tier for the rest, sinks by their closed form;
 * ``SDPABackend``: autograd through the fp32 oracle ``reference_attention``.
 
 ``apply_attention`` routes decode shapes (Nq <= 8) to the split-KV decode
@@ -19,16 +22,18 @@ gradients come back in the inputs' dtype.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Optional
 
 import torch
 
+from ..env import ENV
 from ..functional import AttentionMeta, CudaBackend, SDPABackend
 from ..logger import init_logger
 from .config import BlockConfig
 from .flash_bwd import flash_attention_backward
-from .flash_fwd import _S_RESIDENT_SLICE, flash_attention_forward
+from .flash_fwd import flash_attention_forward, scores_padding
 from .reference import expand_kv_heads, reference_attention
 
 logger = init_logger(__name__)
@@ -87,34 +92,82 @@ def _window_active(static: StaticArgs) -> bool:
     return wl >= 0 or (not static.is_causal and wr >= 0)
 
 
-def _wants_scores(static: StaticArgs, q, bias) -> bool:
-    """Whether an explicit ``save_scores=True`` asks for the S-resident
-    backward, as the JAX package's residency policy reads it: not for the
-    SDPA tier, a window, softcap with an additive term, or fp16 inputs
-    (whose 1e-2 gradient contract the bf16 S residual would erode; those
-    take the dS handoff)."""
-    if not static.save_scores or static.backward_is_sdpa or _window_active(static):
-        return False
+def _resident_head_count(static: StaticArgs, q, k, v, bias) -> int:
+    """S-residency policy, head-granular, as the JAX package's: m in {0,
+    group, .., Hq}. The forward emits the bf16 S residual for the first m
+    query heads (whole GQA groups), whose backward takes the S-resident
+    tier; the other heads take the dS-handoff / recompute backward.
+
+    Never with the SDPA tier, a sliding window (out-of-band S tiles are
+    never written) or softcap with a bias or ALiBi (the tanh factor is read
+    back from S). An explicit ``save_scores`` decides (fp16 refuses it with
+    a warning: the bf16 S would erode the 1e-2 gradient contract); auto
+    (None) takes bf16 inputs only and fits the exact padded residual into
+    min(``scores_residual_limit_bytes``, headroom / assumed layers), where
+    the headroom is the card's memory less this call's tensors and the
+    model margin. A partial pick keeps room for the other heads' handoff
+    slabs and needs ``dropout_p == 0`` (the second launch would see
+    shifted head ids in the dropout hash)."""
+    hq = q.shape[1]
+    group = hq // k.shape[1]
+    if static.backward_is_sdpa or _window_active(static):
+        return 0
     if static.softcap > 0.0 and (bias is not None or static.has_alibi):
-        return False
-    if q.dtype == torch.float16:
-        logger.warning_once(
-            "save_scores=True ignored for float16 inputs: the bf16 S residual "
-            "would erode the fp16 1e-2 gradient contract; using the dS-handoff "
-            "backward instead."
-        )
-        return False
-    return True
+        return 0
+    if static.save_scores is not None:
+        if static.save_scores and q.dtype == torch.float16:
+            logger.warning_once(
+                "save_scores=True ignored for float16 inputs: the bf16 S residual "
+                "would erode the fp16 1e-2 gradient contract; using the dS-handoff "
+                "backward instead."
+            )
+            return 0
+        return hq if static.save_scores else 0
+    if q.dtype != torch.bfloat16:
+        return 0
+    limit = ENV.scores_residual_limit_bytes()
+    if limit <= 0:
+        return 0
+    b, _, nq, d = q.shape
+    nq_pad, nkv_pad = scores_padding(nq, k.shape[2], d, v.shape[-1], q.dtype, static.fwd_config)
+    per_head_bytes = b * nq_pad * nkv_pad * 2
+    layers = max(1, ENV.scores_auto_assumed_layers())
+    residents = 2 * (5 * q.numel() + 4 * k.numel())
+    headroom = ENV.hbm_bytes() - residents - ENV.hbm_model_margin_bytes()
+    budget = min(limit, max(headroom, 0) // layers)
+    m = min(hq, budget // per_head_bytes)
+    if m < hq:
+        reserve = min(ENV.ds_handoff_limit_bytes(), 3 * 1024**3 // 2, budget // 4)
+        m = min(hq, max(0, budget - reserve) // per_head_bytes)
+    m = (m // group) * group
+    if m < hq and static.dropout_p > 0.0:
+        return 0
+    return int(m)
+
+
+def _should_save_scores(static: StaticArgs, q, k, v, bias) -> bool:
+    """True iff full S-residency applies."""
+    return _resident_head_count(static, q, k, v, bias) == q.shape[1]
+
+
+def _slice_bias_heads(bias, lo, hi):
+    if bias is None or bias.shape[1] == 1:
+        return bias
+    return bias[:, lo:hi]
+
+
+def _slice_alibi_heads(alibi, lo, hi):
+    return None if alibi is None else alibi[..., lo:hi]
 
 
 class _FFPAAttentionCore(torch.autograd.Function):
     @staticmethod
     def forward(ctx, static: StaticArgs, q, k, v, bias, alibi, sinks, seed):
-        if (any(ctx.needs_input_grad[1:4]) and q.device.type != "cpu"
-                and _wants_scores(static, q, bias)):
-            raise NotImplementedError(f"save_scores=True: {_S_RESIDENT_SLICE}")
-        o, lse = flash_attention_forward(
-            q, k, v, bias,
+        hq = q.shape[1]
+        group = hq // k.shape[1]
+        m = _resident_head_count(static, q, k, v, bias) if any(ctx.needs_input_grad) else 0
+        fwd = functools.partial(
+            flash_attention_forward,
             scale=static.scale,
             is_causal=static.is_causal,
             dropout_p=static.dropout_p,
@@ -122,46 +175,92 @@ class _FFPAAttentionCore(torch.autograd.Function):
             config=static.fwd_config,
             softcap=static.softcap,
             window=static.window,
-            alibi_slopes=alibi,
         )
+        scores = None
+        if 0 < m < hq:
+            # Partial residency: heads [0, m) emit S, the rest do not; two
+            # launches over disjoint head ranges.
+            mk = m // group
+            o1, lse1, scores = fwd(q[:, :m], k[:, :mk], v[:, :mk], _slice_bias_heads(bias, 0, m),
+                                   return_scores=True, alibi_slopes=_slice_alibi_heads(alibi, 0, m))
+            o2, lse2 = fwd(q[:, m:], k[:, mk:], v[:, mk:], _slice_bias_heads(bias, m, hq),
+                           alibi_slopes=_slice_alibi_heads(alibi, m, hq))
+            o, lse = torch.cat([o1, o2], dim=1), torch.cat([lse1, lse2], dim=1)
+        elif m == hq:
+            o, lse, scores = fwd(q, k, v, bias, return_scores=True, alibi_slopes=alibi)
+        else:
+            o, lse = fwd(q, k, v, bias, alibi_slopes=alibi)
         if sinks is not None:
             # The residuals are sink-inclusive: every backward tier is exact
             # under them (apply_sinks).
             o, lse = apply_sinks(o, lse, sinks)
         ctx.static, ctx.seed = static, seed
-        ctx.save_for_backward(q, k, v, bias, alibi, sinks, o, lse)
+        ctx.save_for_backward(q, k, v, bias, alibi, sinks, o, lse, scores)
         return o
 
     @staticmethod
     def backward(ctx, do):
         static = ctx.static
-        q, k, v, bias, alibi, sinks, o, lse = ctx.saved_tensors
+        q, k, v, bias, alibi, sinks, o, lse, scores = ctx.saved_tensors
         need_bias = bias is not None and ctx.needs_input_grad[4]
         dsinks = None
         if static.backward_is_sdpa:
             dq, dk, dv, dbias, dsinks = _sdpa_backward(static, ctx.seed, q, k, v, bias, alibi,
                                                        sinks, do, need_bias)
         else:
-            dq, dk, dv, dbias = flash_attention_backward(
-                q, k, v, bias, o, lse, do.to(o.dtype),
-                scale=static.scale,
-                is_causal=static.is_causal,
-                dropout_p=static.dropout_p,
-                dropout_seed=ctx.seed,
-                config=static.bwd_config,
-                grad_kv_storage_dtype=static.grad_kv_storage_dtype,
-                grad_q_storage_dtype=static.grad_q_storage_dtype,
-                ds_handoff=static.ds_handoff,
-                softcap=static.softcap,
-                window=static.window,
-                alibi_slopes=alibi,
-                bias_grad=need_bias,
-            )
+            if scores is not None:
+                if getattr(ctx, "scores_consumed", False):
+                    raise RuntimeError(
+                        "the S-resident backward overwrites its S residual with dS, so it "
+                        "runs once; pass save_scores=False to backward through this call "
+                        "again")
+                ctx.scores_consumed = True
+            dq, dk, dv, dbias = _flash_backward(static, ctx.seed, q, k, v, bias, alibi, o, lse,
+                                                do.to(o.dtype), need_bias, scores)
             if sinks is not None:
                 dsinks = sink_grad(do, o, lse, sinks)
         # ALiBi slopes are positional hyperparameters, not weights: zero grad.
         dalibi = None if alibi is None or not ctx.needs_input_grad[5] else torch.zeros_like(alibi)
         return None, dq, dk, dv, dbias, dalibi, dsinks, None
+
+
+def _flash_backward(static: StaticArgs, seed, q, k, v, bias, alibi, o, lse, do, need_bias,
+                    scores):
+    """The kernel tiers: S-resident for heads [0, m) when the forward kept
+    their S residual (m = its head count), dS handoff / recompute for the
+    rest, whose handoff gate sees the live residual as extra residency."""
+    bwd = functools.partial(
+        flash_attention_backward,
+        scale=static.scale,
+        is_causal=static.is_causal,
+        dropout_p=static.dropout_p,
+        dropout_seed=seed,
+        config=static.bwd_config,
+        grad_kv_storage_dtype=static.grad_kv_storage_dtype,
+        grad_q_storage_dtype=static.grad_q_storage_dtype,
+        ds_handoff=static.ds_handoff,
+        softcap=static.softcap,
+        window=static.window,
+        bias_grad=need_bias,
+    )
+    hq = q.shape[1]
+    if scores is None or scores.shape[1] == hq:
+        return bwd(q, k, v, bias, o, lse, do, scores=scores, alibi_slopes=alibi)
+    m = scores.shape[1]
+    mk = m * k.shape[1] // hq
+    dq1, dk1, dv1, db1 = bwd(q[:, :m], k[:, :mk], v[:, :mk], _slice_bias_heads(bias, 0, m),
+                             o[:, :m], lse[:, :m], do[:, :m], scores=scores,
+                             alibi_slopes=_slice_alibi_heads(alibi, 0, m))
+    dq2, dk2, dv2, db2 = bwd(q[:, m:], k[:, mk:], v[:, mk:], _slice_bias_heads(bias, m, hq),
+                             o[:, m:], lse[:, m:], do[:, m:],
+                             alibi_slopes=_slice_alibi_heads(alibi, m, hq),
+                             extra_resident_bytes=scores.numel() * scores.element_size())
+    dbias = None
+    if need_bias:
+        dbias = ((db1.float() + db2.float()).to(bias.dtype) if bias.shape[1] == 1
+                 else torch.cat([db1, db2], dim=1))
+    return (torch.cat([dq1, dq2], dim=1), torch.cat([dk1, dk2], dim=1),
+            torch.cat([dv1, dv2], dim=1), dbias)
 
 
 def _sdpa_backward(static: StaticArgs, seed, q, k, v, bias, alibi, sinks, do, need_bias):

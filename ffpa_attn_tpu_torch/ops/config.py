@@ -24,6 +24,15 @@ never refused by the card.
   - dQ (recompute) and banded dQ: a block owns a 64-row (D <= 512) or
     32-row (D <= 1024) Q tile whose fp32 dQ tile lives in registers like
     the forward's O tile; the recompute kernel keeps Q and dO resident.
+  - S-resident tier (bf16): the forward's S residual costs no shared
+    memory (it is stored from the softmax's registers). The from-S dK/dV
+    block keeps V resident and streams the S tile, dO and (dK in kernel)
+    Q through the ring: with dK out of kernel it owns 64 KV rows at
+    Dv <= 512 (the fp32 dV tile alone takes the 64 registers) and 32 up
+    to 1024; with dK in kernel 32 rows and at most 512 columns of each,
+    because a second column pass would read S after the first had
+    overwritten it with dS. Banded dK mirrors banded dQ (64 KV rows at
+    D <= 512, 32 up to 1024, the ring alone in shared memory).
 """
 
 from __future__ import annotations
@@ -73,13 +82,16 @@ class BlockConfig:
     ``block_kv``-row K/V tiles. A dK/dV block owns ``DKDV_KV_TILE`` KV rows
     and ``1 / dkdv_col_passes`` of the dK and dV columns, and streams
     ``DKDV_Q_TILE``-row Q tiles; a dQ block owns ``block_q_dq`` Q rows and
-    streams ``KV_TILE``-row K/V tiles.
+    streams ``KV_TILE``-row K/V tiles. ``dkdv_dk_in_kernel`` picks the
+    from-S dK/dV variant: dK accumulated beside dV, or dK left to the
+    banded dK kernel (causal) or one product (otherwise) over the dS slab.
     """
 
     block_q: int = 64
     block_kv: int = KV_TILE
     block_q_dq: int = 64
     dkdv_col_passes: int = 1
+    dkdv_dk_in_kernel: bool = True
 
     def __post_init__(self):
         if self.block_q not in ROW_TILES:
@@ -108,7 +120,8 @@ class BlockConfig:
 def fwd_smem_bytes(cfg: BlockConfig, d: int, dv: int, itemsize: int = 2) -> int:
     """Shared memory of one forward block: resident Q [bq, D] + the K/V
     chunk ring + fp32 S [bq, bkv] + P [bq, bkv] + per-row m, l, alpha.
-    Dv costs registers, not shared memory."""
+    Dv costs registers, not shared memory; so does the S residual of
+    ``return_scores``, stored from the softmax's registers."""
     del dv
     bq, bkv = cfg.block_q, cfg.block_kv
     q_res = bq * (_round_up(d, D_CHUNK) + _PAD_T) * itemsize
@@ -168,9 +181,41 @@ def dq_smem_bytes(block_q: int, d: int, dv: int, itemsize: int = 2) -> int:
 
 
 def banded_dq_smem_bytes(itemsize: int = 2) -> int:
-    """Shared memory of one banded-dQ block: the ring alone (the dS tile
-    passes through it and into registers)."""
+    """Shared memory of one banded-dQ or banded-dK block: the ring alone
+    (the dS tile passes through it and into registers)."""
     return FWD_STREAM_STAGES * KV_TILE * (D_CHUNK + _PAD_T) * itemsize
+
+
+def from_s_kv_tile(dv: int, dk_in_kernel: bool) -> int:
+    """KV rows of one from-S dK/dV block: 64 when its fp32 dV tile alone
+    fits the registers (dK out of kernel, Dv <= 512), else 32."""
+    return 64 if not dk_in_kernel and _round_up(dv, D_CHUNK) <= DKDV_MAX_COLS else 32
+
+
+def dkdv_from_s_smem_bytes(dv: int, kv_tile: int, itemsize: int = 2) -> int:
+    """Shared memory of one from-S dK/dV block: resident V [kv_tile, Dv] +
+    the ring of 128-row slots (S tile, dO and Q chunks) + P and dS
+    [kv_tile, 128] + the Q tile's lse and delta. No K tile (S is read, not
+    recomputed); D costs registers only."""
+    v_res = kv_tile * (_round_up(dv, D_CHUNK) + _PAD_T)
+    ring = FWD_STREAM_STAGES * DKDV_Q_TILE * (D_CHUNK + _PAD_T)
+    p_ds = 2 * kv_tile * (DKDV_Q_TILE + _PAD_T)
+    return (v_res + ring + p_ds) * itemsize + 2 * DKDV_Q_TILE * 4
+
+
+def from_s_fits(d: int, dv: int, dk_in_kernel: bool, itemsize: int = 2) -> bool:
+    """Whether the from-S kernel takes (D, Dv): dK in kernel only in one
+    column pass (at most 512 columns of each); dV alone up to 1024."""
+    dp, dvp = _round_up(d, D_CHUNK), _round_up(dv, D_CHUNK)
+    cols_ok = (dp <= DKDV_MAX_COLS and dvp <= DKDV_MAX_COLS) if dk_in_kernel else dvp <= 1024
+    kv = from_s_kv_tile(dv, dk_in_kernel)
+    return cols_ok and dkdv_from_s_smem_bytes(dv, kv, itemsize) <= SMEM_LIMIT_BYTES
+
+
+def banded_dk_kv_tile(d: int) -> int:
+    """KV rows of one banded-dK block: the tallest whose fp32 dK tile
+    (rows x D) fits the registers."""
+    return 64 if 64 * _round_up(d, D_CHUNK) <= FWD_ACC_ELEMS else 32
 
 
 def dq_fits(block_q: int, d: int, dv: int, itemsize: int = 2) -> bool:
@@ -220,4 +265,8 @@ __all__ = [
     "dq_smem_bytes",
     "banded_dq_smem_bytes",
     "dq_fits",
+    "from_s_kv_tile",
+    "dkdv_from_s_smem_bytes",
+    "from_s_fits",
+    "banded_dk_kv_tile",
 ]

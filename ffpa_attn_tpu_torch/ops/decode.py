@@ -17,6 +17,11 @@ fill 4 of 132 SMs, so the KV range is split across blocks (launch 1 writes
 fp32 partials with their LSE, launch 2 merges them by LSE); K/V chunks
 stream through shared memory with cp.async one chunk ahead of the math;
 with a sliding window only the tiles of the band are read.
+
+Under autograd the forward also writes the fp32 masked scores of the packed
+rows (``return_scores``; 135 KB at the serving step), and the backward is
+the grouped fp32 composite ``_decode_core_bwd`` in plain PyTorch, as the
+JAX package leaves it to XLA: at Nq <= 8 its scores are O(group * Nq * Nkv).
 """
 
 from __future__ import annotations
@@ -31,20 +36,20 @@ from ..logger import init_logger
 from . import _build
 from .config import D_CHUNK, KV_TILE, cdiv
 from .flash_fwd import _bias_strides, _pad_last, check_kernel_inputs
-
-_DECODE_GRAD_SLICE = (
-    "it belongs to a later part of the training slice of the port (ROADMAP.md, "
-    "queue 1: decode return_scores and the grouped composite backward "
-    "_decode_core_bwd), which has not landed yet"
-)
 from .reference import DEFAULT_MASK_VALUE
+from .rng import make_row_col_ids
 
 logger = init_logger(__name__)
 
 _DECODE_MAX_NQ = 8
-# Above this many score elements (B*Hq*Nq*Nkv) the MHA decode composite's
-# fp32 score buffers stop being small; the kernel takes those calls.
+# Above this many score elements (B*Hq*Nq*Nkv) the decode composite's fp32
+# score buffers stop being small: the MHA forward takes the kernel, and the
+# backward the tiled flash backward.
 _DECODE_BWD_COMPOSITE_MAX_ELEMS = 1 << 28
+# Score-residual budget of a differentiated decode call (divided by the
+# assumed live layers): below it the forward emits the fp32 masked scores
+# and the backward skips its K re-read for the score recompute.
+_DECODE_SCORES_MAX_BYTES = 256 * 1024 * 1024
 
 
 def decode_attention_supported(q, k) -> bool:
@@ -78,10 +83,13 @@ def _kv_band(nq: int, nkv: int, is_causal: bool, window_left: int, window_right:
     return (start // KV_TILE) * KV_TILE, end
 
 
-def _decode_plain(qp, k, v, bias, *, nq, scale, is_causal, softcap, window_left, window_right):
+def _decode_plain(qp, k, v, bias, *, nq, scale, is_causal, softcap, window_left, window_right,
+                  return_scores=False):
     """The kernel's function in plain PyTorch on PACKED rows: qp
     [B, Hkv, R, D] with row r at query position r % nq; bias packed like
-    qp. Returns (o [B, Hkv, R, Dv] in qp.dtype, lse [B, Hkv, R] fp32)."""
+    qp. Returns (o [B, Hkv, R, Dv] in qp.dtype, lse [B, Hkv, R] fp32) and,
+    with ``return_scores``, the fp32 masked scores [B, Hkv, R, Nkv_pad]
+    (MASK_VALUE on padding)."""
     rows, nkv = qp.shape[2], k.shape[2]
     offset = nkv - nq
     s = torch.einsum("bhrd,bhkd->bhrk", qp.float(), k.float()) * scale
@@ -102,12 +110,16 @@ def _decode_plain(qp, k, v, bias, *, nq, scale, is_causal, softcap, window_left,
     lse = (m + torch.log(l.clamp_min(1e-38)))[..., 0]
     p = p / torch.where(l == 0.0, torch.ones_like(l), l)
     o = torch.einsum("bhrk,bhkd->bhrd", p, v.float()).to(qp.dtype)
-    return o, lse
+    if not return_scores:
+        return o, lse
+    nkv_pad = cdiv(nkv, KV_TILE) * KV_TILE
+    return o, lse, torch.nn.functional.pad(s, (0, nkv_pad - nkv), value=DEFAULT_MASK_VALUE)
 
 
 _DECODE_ARGTYPES = (
     [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 9
-    + [ctypes.c_float] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    + [ctypes.c_float] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_int]
+    + [ctypes.c_void_p]
 )
 
 
@@ -119,7 +131,8 @@ def _decode_lib() -> ctypes.CDLL:
     return lib
 
 
-def _decode_kernel(qp, k, v, bias, *, nq, scale, is_causal, softcap, window_left, window_right):
+def _decode_kernel(qp, k, v, bias, *, nq, scale, is_causal, softcap, window_left, window_right,
+                   return_scores=False):
     """Launch the split-KV kernel and its merge on packed rows (same
     contract as ``_decode_plain``)."""
     from .dispatch import pick_decode_config
@@ -149,6 +162,10 @@ def _decode_kernel(qp, k, v, bias, *, nq, scale, is_causal, softcap, window_left
         bias = bias.to(device=dev, dtype=torch.float32)
         strides = _bias_strides(bias, (b, hkv, rows, nkv))
         bias_ptr = bias.data_ptr()
+    scores = None
+    if return_scores:
+        scores = torch.empty((b, hkv, rows, cdiv(nkv, KV_TILE) * KV_TILE), dtype=torch.float32,
+                             device=dev)
 
     level = ENV.device_log_level()
     if level >= 2:
@@ -170,13 +187,15 @@ def _decode_kernel(qp, k, v, bias, *, nq, scale, is_causal, softcap, window_left
             b, hkv, rows, nq, nkv, d_pad, dv_pad, float(scale), float(softcap),
             nkv - nq, window_left, 0 if is_causal else window_right,
             kv_start, kv_end, kv_per_split, splits,
+            None if scores is None else scores.data_ptr(),
+            0 if scores is None else scores.shape[3],
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(lib, err, "decode kernel launch")
     _decode_forward.launches += 1
     if dv_pad != dv:
         o = o[..., :dv]
-    return o, lse
+    return (o, lse) if scores is None else (o, lse, scores)
 
 
 def _decode_forward(
@@ -192,14 +211,15 @@ def _decode_forward(
     window: tuple = (-1, -1),
     return_scores: bool = False,
 ):
-    """Decode attention for Nq <= 8: (o [B, Hq, Nq, Dv], lse [B, Hq, Nq]).
+    """Decode attention for Nq <= 8: (o [B, Hq, Nq, Dv], lse [B, Hq, Nq]),
+    and with ``return_scores`` the fp32 masked post-softcap / bias scores
+    of the packed rows [B, Hkv, group * Nq, Nkv_pad] (the decode backward's
+    residual; each split of the kernel writes its own columns).
 
     Q rows and a head- or row-varying bias are packed per KV head
     (PackGQA); CPU tensors run the plain version, CUDA tensors the kernel.
     ``block_kv`` must be the kernel's KV tile if given.
     """
-    if return_scores:
-        raise NotImplementedError(f"decode return_scores: {_DECODE_GRAD_SLICE}")
     b, hq, nq, d = q.shape
     _, hkv, nkv, _ = k.shape
     dv = v.shape[-1]
@@ -217,38 +237,135 @@ def _decode_forward(
         )
     kw = dict(
         nq=nq, scale=scale, is_causal=is_causal, softcap=float(softcap),
-        window_left=int(window[0]), window_right=int(window[1]),
+        window_left=int(window[0]), window_right=int(window[1]), return_scores=return_scores,
     )
-    if q.device.type == "cpu":
-        o, lse = _decode_plain(q_packed, k, v, bias, **kw)
-    else:
-        o, lse = _decode_kernel(q_packed, k, v, bias, **kw)
-    return o.reshape(b, hq, nq, dv), lse.reshape(b, hq, nq)
+    run = _decode_plain if q.device.type == "cpu" else _decode_kernel
+    out = run(q_packed, k, v, bias, **kw)
+    o, lse = out[0].reshape(b, hq, nq, dv), out[1].reshape(b, hq, nq)
+    return (o, lse, out[2]) if return_scores else (o, lse)
 
 
 _decode_forward.launches = 0
 
 
+def _decode_emits_scores(q, k, bias, softcap, window) -> bool:
+    """Whether a differentiated decode call keeps its score residual: it
+    fits the budget (per assumed live layer), the S carries no additive
+    term under softcap (the tanh factor is read back from S), and there is
+    no sliding window (the band's skipped columns would cost a full-width
+    residual)."""
+    b, hq, nq, _ = q.shape
+    hkv, nkv = k.shape[1], k.shape[2]
+    budget = _DECODE_SCORES_MAX_BYTES // max(1, ENV.scores_auto_assumed_layers())
+    nbytes = b * hkv * (hq // hkv) * nq * cdiv(nkv, KV_TILE) * KV_TILE * 4
+    return (nbytes <= budget and not (softcap > 0.0 and bias is not None)
+            and int(window[0]) < 0 and int(window[1]) < 0)
+
+
+def _decode_core_bwd(scale, is_causal, softcap, window, q, k, v, bias, sinks, o, lse, scores,
+                     do, need_bias):
+    """Grouped fp32 composite backward of a decode call (Nq <= 8), as the
+    JAX package leaves it to XLA: everything stays in the [B, Hkv, G, Nq, *]
+    layout (K/V are never expanded to Hq), P comes from the score residual
+    (band re-masked) or from recomputed scores, and dK / dV contract the
+    whole (group, Nq) row axis per KV head. Above
+    ``_DECODE_BWD_COMPOSITE_MAX_ELEMS`` score elements the tiled flash
+    backward takes the call. Returns (dq, dk, dv, dbias, dsinks)."""
+    from .attention import sink_grad
+    from .flash_bwd import flash_attention_backward
+
+    b, hq, nq, d = q.shape
+    hkv, nkv, dv_dim = k.shape[1], k.shape[2], v.shape[-1]
+    g = hq // hkv
+    dsinks = None if sinks is None else sink_grad(do, o, lse, sinks)
+    if b * hq * nq * nkv > _DECODE_BWD_COMPOSITE_MAX_ELEMS:
+        dq, dk, dv, dbias = flash_attention_backward(
+            q, k, v, bias, o, lse, do.to(o.dtype), scale=scale, is_causal=is_causal,
+            softcap=softcap, window=window, bias_grad=need_bias,
+        )
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias, dsinks
+
+    rows, cols = make_row_col_ids(nq, nkv, device=q.device)
+    wl, wr = int(window[0]), 0 if is_causal else int(window[1])
+    band = None
+    if wr >= 0 or wl >= 0:
+        band = torch.ones((nq, nkv), dtype=torch.bool, device=q.device)
+        if wr >= 0:
+            band = band & (cols <= rows + nkv - nq + wr)
+        if wl >= 0:
+            band = band & (cols >= rows + nkv - nq - wl)
+    qg = q.reshape(b, hkv, g, nq, d).float()
+    dog = do.to(o.dtype).reshape(b, hkv, g, nq, dv_dim).float()
+    t = None
+    if scores is not None:
+        s = scores[:, :, : g * nq, :nkv].reshape(b, hkv, g, nq, nkv)
+        if band is not None:
+            s = torch.where(band, s, DEFAULT_MASK_VALUE)
+        if softcap > 0.0:
+            # s = cap * tanh(s_pre / cap) (no additive term by the emit
+            # gate); clamped so masked entries give a factor of 0, not NaN.
+            t = (s / softcap).clamp(-1.0, 1.0)
+    else:
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * scale
+        if softcap > 0.0:
+            t = torch.tanh(s / softcap)
+            s = softcap * t
+        if bias is not None:
+            s = s + bias.float().expand(b, hq, nq, nkv).reshape(b, hkv, g, nq, nkv)
+        if band is not None:
+            s = torch.where(band, s, DEFAULT_MASK_VALUE)
+    p = torch.exp(s - lse.reshape(b, hkv, g, nq)[..., None])
+    delta = (do.float() * o.float()).sum(-1).reshape(b, hkv, g, nq)
+    dp = torch.einsum("bhgqe,bhke->bhgqk", dog, v.float())
+    ds = p * (dp - delta[..., None])
+    dbias = None
+    if need_bias:
+        ds_full = ds.reshape(b, hq, nq, nkv)
+        axes = tuple(ax for ax in range(4) if bias.shape[ax] == 1 and ds_full.shape[ax] != 1)
+        dbias = (ds_full.sum(dim=axes, keepdim=True) if axes else ds_full).to(bias.dtype)
+    if t is not None:
+        ds = ds * (1.0 - t * t)
+    ds = ds * scale
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, k.float()).reshape(b, hq, nq, d)
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qg)
+    dv = torch.einsum("bhgqk,bhgqe->bhke", p, dog)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias, dsinks
+
+
 class _DecodeCore(torch.autograd.Function):
-    """Forward of the decode route; its gradient (the grouped composite
-    backward ``_decode_core_bwd``) comes with a later part of the training
-    slice."""
+    """The decode route under autograd: the forward keeps the score
+    residual where ``_decode_emits_scores`` allows, the backward is the
+    grouped composite ``_decode_core_bwd``."""
 
     @staticmethod
     def forward(ctx, scale, is_causal, softcap, window, q, k, v, bias, sinks):
-        o, lse = _decode_forward(
-            q, k, v, bias, scale=scale, is_causal=is_causal,
-            softcap=softcap, window=window,
-        )
+        scores = None
+        if any(ctx.needs_input_grad) and _decode_emits_scores(q, k, bias, softcap, window):
+            o, lse, scores = _decode_forward(
+                q, k, v, bias, scale=scale, is_causal=is_causal,
+                softcap=softcap, window=window, return_scores=True,
+            )
+        else:
+            o, lse = _decode_forward(
+                q, k, v, bias, scale=scale, is_causal=is_causal,
+                softcap=softcap, window=window,
+            )
         if sinks is not None:
             from .attention import apply_sinks
 
-            o, _ = apply_sinks(o, lse, sinks)
+            # Sink-inclusive residuals: the backward is exact under them.
+            o, lse = apply_sinks(o, lse, sinks)
+        ctx.static = (scale, is_causal, softcap, window)
+        ctx.save_for_backward(q, k, v, bias, sinks, o, lse, scores)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        raise NotImplementedError(f"the decode backward: {_DECODE_GRAD_SLICE}")
+        q, k, v, bias, sinks, o, lse, scores = ctx.saved_tensors
+        need_bias = bias is not None and ctx.needs_input_grad[7]
+        dq, dk, dv, dbias, dsinks = _decode_core_bwd(
+            *ctx.static, q, k, v, bias, sinks, o, lse, scores, do, need_bias)
+        return None, None, None, None, dq, dk, dv, dbias, dsinks
 
 
 def decode_attention(
@@ -263,4 +380,5 @@ __all__ = [
     "decode_attention",
     "decode_attention_supported",
     "_decode_forward",
+    "_decode_core_bwd",
 ]

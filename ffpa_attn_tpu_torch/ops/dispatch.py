@@ -13,6 +13,7 @@ from .config import (
     default_config,
     dkdv_col_passes,
     dq_fits,
+    from_s_fits,
 )
 
 
@@ -47,20 +48,33 @@ def pick_decode_config(
     return cfg
 
 
+# The from-S dK/dV pass keeps dK in the kernel up to this many keys and
+# leaves it to banded dK (causal) or one product (otherwise) beyond. Set by
+# tools/torch_from_s_probe.py on an H100 (B1 H8/4 causal bf16, D320 and
+# D512): dK in the kernel was faster at Nkv 1024 and 2048, dK out of it
+# (its 64-row KV tile, dV alone in the registers) plus banded dK at 4096 and
+# 8192 (7.37 against 9.65 ms at N8192 D512).
+FROM_S_DK_IN_MAX_NKV = 2048
+
+
 def pick_backward_config(
     *, d: int, dv: int, nq: int, nkv: int, dtype: torch.dtype
 ) -> BlockConfig:
     """Heuristic backward config. The dK/dV tiles are fixed by the kernel;
     the shape only sets its column passes (one per 512 columns of dK and of
     dV). The dQ row tile is the tallest that fits (a taller tile divides
-    the K/V re-reads), shrunk to 32 for short queries."""
-    del nkv
+    the K/V re-reads), shrunk to 32 for short queries. The from-S pass
+    keeps dK in the kernel for short key ranges where one column pass holds
+    it (``FROM_S_DK_IN_MAX_NKV``)."""
     itemsize = torch.empty((), dtype=dtype).element_size()
+    dk_in = nkv <= FROM_S_DK_IN_MAX_NKV and from_s_fits(d, dv, True, itemsize)
     for bq in FWD_ROW_TILES:
         bq = BlockConfig(block_q=bq).clamp(nq, 0, FWD_ROW_TILES).block_q
         if dq_fits(bq, d, dv, itemsize):
-            return BlockConfig(block_q_dq=bq, dkdv_col_passes=dkdv_col_passes(d, dv))
+            return BlockConfig(block_q_dq=bq, dkdv_col_passes=dkdv_col_passes(d, dv),
+                               dkdv_dk_in_kernel=dk_in)
     raise ValueError(f"no backward row tile fits D={d}, Dv={dv}")
 
 
-__all__ = ["pick_forward_config", "pick_decode_config", "pick_backward_config"]
+__all__ = ["pick_forward_config", "pick_decode_config", "pick_backward_config",
+           "FROM_S_DK_IN_MAX_NKV"]

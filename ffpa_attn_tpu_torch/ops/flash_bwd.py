@@ -1,7 +1,7 @@
 """Backward attention: the CUDA kernels of ``csrc/flash_bwd.cu``, their plain
 PyTorch versions, and ``flash_attention_backward``, which chains them.
 
-Counterpart of ``ffpa_attn_tpu/ops/flash_bwd.py``. Three Pallas kernels are
+Counterpart of ``ffpa_attn_tpu/ops/flash_bwd.py``. Five Pallas kernels are
 replaced, each by a wrapper of the same name and arguments that launches
 the CUDA kernel for CUDA tensors and runs the plain version for CPU
 tensors:
@@ -11,7 +11,17 @@ tensors:
 * ``_dq_launch`` (``_dq_kernel``): dQ and optionally dbias, the recompute
   tier's second launch;
 * ``_banded_dq_from_ds`` (``_banded_dq_kernel``): dQ = scale * dS K from
-  the slab, causal tiles above the diagonal skipped.
+  the slab, causal tiles above the diagonal skipped;
+* ``_dkdv_from_s_launch`` (``_dkdv_from_s_kernel``): the S-resident tier's
+  dV (and dK) from the forward's S residual, dS written over S in place;
+* ``_banded_dk_from_ds`` (``_banded_dk_kernel``): dK = scale * dS^T Q from
+  the slab, causal tiles skipped, the GQA group reduced in fp32.
+
+The S-resident tier does 2 matmul units in the from-S pass with dK out of
+kernel (dP, dV; 3 with dK) and reads S where the recompute reads K: at the
+training shape 5.5e11 flop (0.56 ms at 989 TFLOP/s) and 1 GiB of S read
+and dS written (0.64 ms at 3.35 TB/s). Banded dK is banded dQ's mirror (one
+unit, 0.28 ms).
 
 Bound on an H100: operations. At the training shape (B1 Hq8 N8192 D512
 causal) the dK/dV pass does 4 matmul units of 2 * Hq * N(N+1)/2 * D flop,
@@ -32,6 +42,7 @@ because Mosaic computes fp16 in bf16).
 from __future__ import annotations
 
 import ctypes
+from dataclasses import replace
 from typing import NamedTuple, Optional
 
 import torch
@@ -47,8 +58,11 @@ from .config import (
     FWD_ACC_ELEMS,
     KV_TILE,
     BlockConfig,
+    banded_dk_kv_tile,
     cdiv,
     dkdv_col_passes,
+    from_s_fits,
+    from_s_kv_tile,
 )
 from .flash_fwd import _bias_strides, _pad_last, check_kernel_inputs, dropout_args
 from .reference import DEFAULT_MASK_VALUE, expand_kv_heads, reduce_q_heads
@@ -144,6 +158,47 @@ def _banded_dq_plain(ds_full, k, *, scale, nq, nkv):
     return torch.einsum("bhqk,bhkd->bhqd", ds_full[:, :, :nq, :nkv].float(), kx) * scale
 
 
+def _dkdv_from_s_plain(q, v, s_pad, do, lse, delta, *, scale, is_causal, causal_offset,
+                       dropout_p, seed, softcap, dk_in_kernel):
+    """(dk or None, dv) in fp32, group-reduced, and dS [B, Hq, nq_pad,
+    nkv_pad] in bf16 (zeros outside the band and on padding) from the S
+    residual. The band is re-masked here, so what the slab holds outside it
+    never matters."""
+    b, hq, nq, _ = q.shape
+    hkv, nkv = v.shape[1], v.shape[2]
+    nq_pad, nkv_pad = s_pad.shape[2], s_pad.shape[3]
+    s = s_pad[:, :, :nq, :nkv].float()
+    rows, cols = make_row_col_ids(nq, nkv, device=q.device)
+    band = torch.ones((nq, nkv), dtype=torch.bool, device=q.device)
+    if is_causal:
+        band = cols <= rows + causal_offset
+    p = torch.where(band, torch.exp(s - lse[..., None]), 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), expand_kv_heads(v, hq).float())
+    p_dropped = p
+    if dropout_p > 0.0:
+        bi = torch.arange(b, device=q.device)[:, None, None, None]
+        hi = torch.arange(hq, device=q.device)[None, :, None, None]
+        keep = dropout_keep_mask(seed, bi, hi, rows, cols, dropout_p)
+        inv = 1.0 / (1.0 - dropout_p)
+        p_dropped = torch.where(keep, p, 0.0) * inv
+        dp = torch.where(keep, dp, 0.0) * inv
+    ds = p * (dp - delta[..., None])
+    if softcap > 0.0:
+        ds = ds * torch.where(band, (1.0 - torch.square(s / softcap)).clamp_min(0.0), 0.0)
+    ds_t = ds.to(torch.bfloat16)
+    dv = reduce_q_heads(
+        torch.einsum("bhqk,bhqd->bhkd", p_dropped.to(torch.bfloat16).float(), do.float()), hkv)
+    dk = None
+    if dk_in_kernel:
+        dk = reduce_q_heads(torch.einsum("bhqk,bhqd->bhkd", ds_t.float(), q.float()), hkv) * scale
+    return dk, dv, _pad_rows(_pad_rows(ds_t, nkv_pad, dim=3), nq_pad, dim=2)
+
+
+def _banded_dk_plain(ds_full, q, *, scale, nq, nkv, hkv):
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds_full[:, :, :nq, :nkv].float(), q.float())
+    return reduce_q_heads(dk, hkv) * scale
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -162,14 +217,18 @@ _ARGTYPES = {
         + [ctypes.c_uint32] + [_P]
     ),
     "ffpa_bwd_banded_dq": [_P] * 3 + [_I] * 11 + [_F] + [_I] + [_P],
+    "ffpa_bwd_dkdv_from_s": (
+        [_P] * 8 + [_I] * 12 + [_F] * 2 + [_I] * 2 + [_F] * 2 + [ctypes.c_uint32] + [_P]
+    ),
+    "ffpa_bwd_banded_dk": [_P] * 3 + [_I] * 10 + [_F] + [_I] + [_P],
 }
 
 
 def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("flash_bwd")
     for name, argtypes in _ARGTYPES.items():
-        fn = getattr(lib, name)
-        if fn.argtypes is None:
+        fn = getattr(lib, name, None)  # None: a library built from older sources
+        if fn is not None and fn.argtypes is None:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
     return lib
@@ -359,8 +418,10 @@ def _banded_dq_from_ds(ds_full, k, config, *, scale, group, nq, nkv, causal_offs
     d_pad = cdiv(d, D_CHUNK) * D_CHUNK
     k_ = _pad_last(k, d_pad).contiguous()
     ds_ = ds_full.contiguous()
-    # The panel: the tallest row tile whose fp32 dQ fits the registers.
-    bq = 64 if 64 * d_pad <= FWD_ACC_ELEMS else 32
+    # The panel: the tallest row tile whose fp32 dQ fits the registers and
+    # that divides the slab's rows (an S residual's rows are padded to 32
+    # for short queries).
+    bq = 64 if 64 * d_pad <= FWD_ACC_ELEMS and nq_pad % 64 == 0 else 32
     out_f32, wt = _out_dtype(dq_dtype, k.dtype)
     dq = torch.empty((b, hq, nq, d_pad), dtype=wt, device=k.device)
     if ENV.device_log_level() >= 2:
@@ -379,6 +440,135 @@ def _banded_dq_from_ds(ds_full, k, config, *, scale, group, nq, nkv, causal_offs
 
 
 _banded_dq_from_ds.launches = 0
+
+
+def _check_slab(name, s_pad, q):
+    if s_pad.dtype != torch.bfloat16 or q.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: the S-resident kernels take bf16 inputs and a bf16 slab")
+    if not s_pad.is_contiguous():
+        raise ValueError(f"{name}: the slab must be contiguous (it is updated in place)")
+
+
+def _dkdv_from_s_launch(
+    q, v, s_pad, do, lse, delta, seed, config, *, scale, is_causal, causal_offset,
+    dropout_p, group, grad_kv_storage_dtype, softcap=0.0,
+):
+    """The S-resident dK/dV pass. ``s_pad`` is the forward's padded S
+    residual [B, Hq, nq_pad, nkv_pad] (``flash_attention_forward(...,
+    return_scores=True)``); the score gradient dS (softcap's factor
+    included) overwrites it in place, zeros outside the band and on
+    padding. Returns (dk, dv, ds_full): dk is None unless
+    ``config.dkdv_dk_in_kernel``; ds_full is ``s_pad`` itself. K is not
+    read (S is not recomputed). ``seed`` is the dropout seed."""
+    b, hq, nq, d = q.shape
+    hkv, nkv, dv_dim = v.shape[1], v.shape[2], v.shape[-1]
+    nq_pad, nkv_pad = s_pad.shape[2], s_pad.shape[3]
+    dk_in = config.dkdv_dk_in_kernel
+    kv_dtype = _grad_dtype(grad_kv_storage_dtype, v.dtype)
+    if q.device.type == "cpu":
+        dk, dv, ds = _dkdv_from_s_plain(
+            q, v, s_pad, do, lse, delta, scale=scale, is_causal=is_causal,
+            causal_offset=causal_offset, dropout_p=dropout_p, seed=seed, softcap=softcap,
+            dk_in_kernel=dk_in,
+        )
+        s_pad.copy_(ds)  # in place, as the kernel
+        return None if dk is None else dk.to(kv_dtype), dv.to(kv_dtype), s_pad
+
+    _check_slab("_dkdv_from_s_launch", s_pad, q)
+    check_kernel_inputs("_dkdv_from_s_launch", q, v, do.to(q.dtype))
+    d_pad, dv_pad = cdiv(d, D_CHUNK) * D_CHUNK, cdiv(dv_dim, D_CHUNK) * D_CHUNK
+    kv_tile = from_s_kv_tile(dv_pad, dk_in)
+    q_ = _pad_last(q, d_pad).contiguous()
+    v_ = _pad_last(v, dv_pad).contiguous()
+    do_ = _pad_last(do.to(q.dtype), dv_pad).contiguous()
+    lse_, delta_ = lse.float().contiguous(), delta.float().contiguous()
+    out_f32, wt = _out_dtype(kv_dtype, q.dtype)
+    dk = torch.empty((b, hkv, nkv, d_pad), dtype=wt, device=q.device) if dk_in else None
+    dv = torch.empty((b, hkv, nkv, dv_pad), dtype=wt, device=q.device)
+    if ENV.device_log_level() >= 2:
+        logger.info("dkdv_from_s launch grid=(%d,%d,%d) kv_tile=%d dk_in_kernel=%s D=%d Dv=%d",
+                    hkv, b, nkv_pad // kv_tile, kv_tile, dk_in, d_pad, dv_pad)
+    lib = _bwd_lib()
+    with torch.cuda.device(q.device):
+        err = lib.ffpa_bwd_dkdv_from_s(
+            q_.data_ptr(), v_.data_ptr(), do_.data_ptr(), lse_.data_ptr(), delta_.data_ptr(),
+            s_pad.data_ptr(),
+            None if dk is None else dk.data_ptr(), dv.data_ptr(), int(dk_in), kv_tile, out_f32,
+            b, hq, hkv, nq, nkv, d_pad, dv_pad, nq_pad, nkv_pad, float(scale), float(softcap),
+            int(causal_offset), 0 if is_causal else -1, *dropout_args(dropout_p, seed),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _build.check(lib, err, "dkdv_from_s kernel launch")
+    _dkdv_from_s_launch.launches += 1
+    if dk is not None:
+        dk = dk[..., :d].to(kv_dtype)
+    return dk, dv[..., :dv_dim].to(kv_dtype), s_pad
+
+
+_dkdv_from_s_launch.launches = 0
+
+
+def _banded_dk_from_ds(ds_full, q, config, *, scale, group, nq, nkv, causal_offset, dk_dtype):
+    """Causal dK = scale * dS^T Q [B, Hkv, Nkv, D] from the dS slab
+    ([B, Hq, nq_pad, nkv_pad], zeros above the band), tiles above the
+    diagonal skipped and the GQA group reduced in fp32."""
+    del config
+    b, hq, nq_pad, nkv_pad = ds_full.shape
+    hkv, d = hq // group, q.shape[-1]
+    if ds_full.device.type == "cpu":
+        return _banded_dk_plain(ds_full, q, scale=scale, nq=nq, nkv=nkv, hkv=hkv).to(dk_dtype)
+    _check_slab("_banded_dk_from_ds", ds_full, q)
+    d_pad = cdiv(d, D_CHUNK) * D_CHUNK
+    kv_tile = banded_dk_kv_tile(d_pad)
+    q_ = _pad_last(q, d_pad).contiguous()
+    out_f32, wt = _out_dtype(dk_dtype, q.dtype)
+    dk = torch.empty((b, hkv, nkv, d_pad), dtype=wt, device=q.device)
+    if ENV.device_log_level() >= 2:
+        logger.info("banded dk launch grid=(%d,%d,%d) kv_tile=%d D=%d", hkv, b,
+                    cdiv(nkv, kv_tile), kv_tile, d_pad)
+    lib = _bwd_lib()
+    with torch.cuda.device(q.device):
+        err = lib.ffpa_bwd_banded_dk(
+            ds_full.data_ptr(), q_.data_ptr(), dk.data_ptr(), out_f32, kv_tile, b, hq, hkv, nq,
+            nkv, d_pad, nq_pad, nkv_pad, float(scale), int(causal_offset),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _build.check(lib, err, "banded dk kernel launch")
+    _banded_dk_from_ds.launches += 1
+    return dk[..., :d].to(dk_dtype)
+
+
+_banded_dk_from_ds.launches = 0
+
+
+def _dk_from_ds(ds_full, q, *, scale, group, nq, nkv, dk_dtype):
+    """dK = scale * dS^T Q from the dS slab, the GQA group reduced in fp32:
+    one plain product, as JAX leaves it to XLA (the non-causal half of
+    the dK-out-of-kernel dispatch)."""
+    b, hq = ds_full.shape[:2]
+    hkv = hq // group
+    ds_c = ds_full[:, :, :nq, :nkv].float().reshape(b, hkv, group, nq, nkv)
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds_c, q.float().reshape(b, hkv, group, nq, -1))
+    return (dk * scale).to(dk_dtype)
+
+
+def _fit_blocks_to_scores(config: BlockConfig, nq_pad: int, nkv_pad: int, d: int, dv: int,
+                          dtype) -> BlockConfig:
+    """The from-S variant that takes this S residual: dK stays in the
+    kernel only where one column pass holds it (a second pass would read S
+    after the first overwrote it with dS) and the block fits shared
+    memory. The kernels' KV tiles (64 or 32) divide the slab's 64-column
+    padding; their Q tiles (128 rows from-S, 64 banded dK) are bounded by
+    the slab's rows, so any row padding of the forward's is taken."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    if nkv_pad % KV_TILE != 0:
+        raise ValueError(f"S residual columns {nkv_pad} are not a multiple of {KV_TILE}")
+    del nq_pad
+    if config.dkdv_dk_in_kernel and not from_s_fits(d, dv, True, itemsize):
+        config = replace(config, dkdv_dk_in_kernel=False)
+    if not from_s_fits(d, dv, config.dkdv_dk_in_kernel, itemsize):
+        raise ValueError(f"the from-S dK/dV kernel does not take D={d}, Dv={dv}")
+    return config
 
 
 def _dbias_from_ds(ds_c, bias):
@@ -426,10 +616,26 @@ def flash_attention_backward(
     window: tuple = (-1, -1),
     alibi_slopes: Optional[torch.Tensor] = None,
     bias_grad: bool = True,
+    scores: Optional[torch.Tensor] = None,
+    extra_resident_bytes: int = 0,
 ):
     """Returns (dq, dk, dv, dbias or None).
 
-    Two tiers, as in the JAX package:
+    ``scores``: the forward's padded bf16 S residual
+    (``flash_attention_forward(..., return_scores=True)``). With it the
+    backward takes the S-resident tier: the from-S dK/dV kernel (no S
+    recompute, no K read; dS overwrites ``scores`` in place), then dK from
+    the slab when it is not in the kernel (banded dK under causal, one
+    product otherwise), then dQ from the slab (banded dQ under causal, one
+    product otherwise) and the bias gradient from the slab. Not defined
+    with a sliding window, or softcap with a bias or ALiBi.
+
+    ``extra_resident_bytes``: device memory this call cannot see from its
+    own operands that is live while it runs (the S residual of the other
+    heads under partial residency); it comes out of the dS-handoff gate's
+    headroom.
+
+    Otherwise two tiers, as in the JAX package:
 
     * dS handoff (``ds_handoff``; None = auto by the device-memory budget):
       the dK/dV kernel also writes the score gradient dS, and dQ is
@@ -461,6 +667,16 @@ def flash_attention_backward(
         alibi = torch.as_tensor(alibi_slopes, dtype=torch.float32, device=q.device)
         if alibi.ndim == 1:
             alibi = alibi[None].expand(b, hq)
+    if scores is not None and window_active:
+        raise ValueError(
+            "S-resident backward is not defined for sliding windows (out-of-band S "
+            "tiles are never written); callers gate save_scores off"
+        )
+    if scores is not None and softcap > 0.0 and (bias is not None or alibi is not None):
+        raise ValueError(
+            "S-resident backward with softcap requires a bias/alibi-free call (the "
+            "tanh chain factor is recovered from the saved S)"
+        )
     if window_active or (softcap > 0.0 and (bias is not None or alibi is not None)):
         # Windows want the band-skipping recompute kernels (an N^2 slab
         # defeats O(N * W)); softcap with additive terms needs the
@@ -473,6 +689,34 @@ def flash_attention_backward(
     kw = dict(scale=scale, is_causal=is_causal, dropout_p=dropout_p, group=group,
               softcap=softcap, alibi=alibi)
 
+    if scores is not None:
+        config = _fit_blocks_to_scores(config, scores.shape[2], scores.shape[3], d, dv_dim,
+                                       q.dtype)
+        dk, dv, ds_full = _dkdv_from_s_launch(
+            q, v, scores, do, lse, delta, dropout_seed, config, scale=scale,
+            is_causal=is_causal, causal_offset=causal_offset, dropout_p=dropout_p,
+            group=group, grad_kv_storage_dtype=grad_kv_storage_dtype, softcap=softcap,
+        )
+        dq_dtype = _grad_dtype(grad_q_storage_dtype, q.dtype)
+        if dk is None:
+            dk_dtype = _grad_dtype(grad_kv_storage_dtype, k.dtype)
+            ds_kw = dict(scale=scale, group=group, nq=nq, nkv=nkv)
+            if is_causal:
+                dk = _banded_dk_from_ds(ds_full, q, config, causal_offset=causal_offset,
+                                        dk_dtype=dk_dtype, **ds_kw)
+            else:
+                dk = _dk_from_ds(ds_full, q, dk_dtype=dk_dtype, **ds_kw)
+        if not is_causal:
+            dq, dbias = _dq_from_ds(ds_full, k, grad_bias, scale=scale, group=group, nq=nq,
+                                    nkv=nkv, dq_dtype=dq_dtype)
+            return dq, dk, dv, dbias
+        dq = _banded_dq_from_ds(ds_full, k, config, scale=scale, group=group, nq=nq, nkv=nkv,
+                                causal_offset=causal_offset, dq_dtype=dq_dtype)
+        dbias = None
+        if grad_bias is not None:
+            dbias = _dbias_from_ds(ds_full[:, :, :nq, :nkv], bias).to(bias.dtype)
+        return dq, dk, dv, dbias
+
     itemsize = q.element_size()
     limit = ENV.ds_handoff_limit_bytes()
     bq_h, bkv_h = DKDV_Q_TILE, DKDV_KV_TILE
@@ -482,7 +726,7 @@ def flash_attention_backward(
         # device-memory headroom: the card minus this call's tensors (q, k,
         # v, do and their gradients) minus the model's margin.
         residents = itemsize * 2 * (q.numel() + k.numel() + v.numel() + do.numel()) + (
-            0 if bias is None else bias.numel() * 4)
+            0 if bias is None else bias.numel() * 4) + extra_resident_bytes
         headroom = ENV.hbm_bytes() - residents - ENV.hbm_model_margin_bytes()
         slab_limit = min(limit, max(headroom, 0))
         ds_handoff = slab_limit > 0 and (
@@ -591,6 +835,10 @@ __all__ = [
     "_dkdv_launch",
     "_dq_launch",
     "_banded_dq_from_ds",
+    "_dkdv_from_s_launch",
+    "_banded_dk_from_ds",
+    "_dk_from_ds",
+    "_fit_blocks_to_scores",
     "_dq_from_ds",
     "_dbias_from_ds",
     "_grad_dtype",

@@ -16,7 +16,10 @@ of the accumulator: no warp holds a whole row); Q stays resident in shared
 memory while K/V stream through a cp.async ring; whole KV tiles outside the
 causal / window band are never loaded; heads and query tiles fill the grid,
 the longest causal tiles first. Dropout is the hash of ``rng.py``, written
-into the kernel (``csrc/rng.cuh``) so the backward replays its bits.
+into the kernel (``csrc/rng.cuh``) so the backward replays its bits. With
+``return_scores`` the softmax also stores each visited tile's scores as the
+bf16 S residual of the S-resident backward (1 GiB at B1 Hq8 N8192, 0.32 ms
+of writes at 3.35 TB/s).
 """
 
 from __future__ import annotations
@@ -30,16 +33,18 @@ import torch.nn.functional as F
 from ..env import ENV
 from ..logger import init_logger
 from . import _build
-from .config import D_CHUNK, FWD_ROW_TILES, BlockConfig, cdiv, fwd_fits, fwd_smem_bytes
-from .reference import expand_kv_heads, reference_attention
+from .config import (
+    D_CHUNK,
+    FWD_ROW_TILES,
+    KV_TILE,
+    BlockConfig,
+    cdiv,
+    fwd_fits,
+    fwd_smem_bytes,
+)
+from .reference import DEFAULT_MASK_VALUE, expand_kv_heads, reference_attention
 
 logger = init_logger(__name__)
-
-_S_RESIDENT_SLICE = (
-    "it belongs to the S-resident slice of the port (ROADMAP.md, queue 1: "
-    "the forward's S residual, _dkdv_from_s_kernel and _banded_dk_kernel), "
-    "which has not landed yet"
-)
 
 
 def _pad_last(x: torch.Tensor, to: int) -> torch.Tensor:
@@ -76,6 +81,7 @@ _FWD_ARGTYPES = (
     [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
     + [ctypes.c_int] * 9 + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
     + [ctypes.c_float] * 2 + [ctypes.c_uint32] + [ctypes.c_void_p]
+    + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 )
 
 
@@ -99,6 +105,54 @@ def flash_attention_forward_plain(
         dropout_seed=dropout_seed, return_lse=True, softcap=softcap,
         window=window, alibi_slopes=alibi_slopes,
     )
+
+
+def scores_plain(q, k, bias, *, scale, is_causal, softcap=0.0, alibi_slopes=None,
+                 nq_pad, nkv_pad):
+    """The forward's S residual in plain PyTorch: the post-scale / softcap /
+    ALiBi / bias / causal-mask scores in fp32 math, rounded to bf16 and
+    padded to [B, Hq, nq_pad, nkv_pad]. Masked and padding entries hold
+    DEFAULT_MASK_VALUE (the kernel leaves the tiles above the causal band
+    unwritten; every consumer re-masks them)."""
+    b, hq, nq, _ = q.shape
+    nkv = k.shape[2]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), expand_kv_heads(k, hq).float()) * scale
+    if softcap > 0.0:
+        s = softcap * torch.tanh(s / softcap)
+    rows = torch.arange(nq, device=q.device)[:, None]
+    cols = torch.arange(nkv, device=q.device)[None, :]
+    if alibi_slopes is not None:
+        slopes = torch.as_tensor(alibi_slopes, dtype=torch.float32, device=q.device)
+        s = s - slopes.expand(b, hq).reshape(b, hq, 1, 1) * (rows + nkv - nq - cols).abs().float()
+    if bias is not None:
+        s = s + bias.float()
+    if is_causal:
+        s = torch.where(cols <= rows + nkv - nq, s, DEFAULT_MASK_VALUE)
+    return F.pad(s, (0, nkv_pad - nkv, 0, nq_pad - nq), value=DEFAULT_MASK_VALUE).to(
+        torch.bfloat16)
+
+
+def _fit_fwd_for_scores(config: BlockConfig, d: int, dv: int, dtype) -> BlockConfig:
+    """The forward config that emits the S residual: the residual is stored
+    from the softmax's registers and adds no shared memory, so the block
+    that fits without it fits with it; raise where none does."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    d_pad, dv_pad = cdiv(d, D_CHUNK) * D_CHUNK, cdiv(dv, D_CHUNK) * D_CHUNK
+    if not fwd_fits(config, d_pad, dv_pad, itemsize):
+        raise ValueError(f"return_scores: block_q={config.block_q} does not fit D={d}, Dv={dv}")
+    return config
+
+
+def scores_padding(nq: int, nkv: int, d: int, dv: int, dtype,
+                   config: Optional[BlockConfig] = None) -> tuple:
+    """(nq_pad, nkv_pad) of the S residual: the forward's row tile and its
+    64-column KV tile."""
+    if config is None:
+        from .dispatch import pick_forward_config
+
+        config = pick_forward_config(d=d, dv=dv, nq=nq, nkv=nkv, dtype=dtype)
+    config = _fit_fwd_for_scores(config.clamp(nq, nkv, FWD_ROW_TILES), d, dv, dtype)
+    return cdiv(nq, config.block_q) * config.block_q, cdiv(nkv, KV_TILE) * KV_TILE
 
 
 def flash_attention_forward(
@@ -125,28 +179,26 @@ def flash_attention_forward(
       softcap / window / alibi_slopes: see ``reference_attention``.
       dropout_p / dropout_seed: hash dropout (``rng.py``), replayed by the
         backward kernels.
-      return_scores: the S residual of the S-resident backward; not
-        available yet.
+      return_scores: also return the S residual of the S-resident backward
+        (``scores_plain`` says what it holds): bf16 [B, Hq, nq_pad,
+        nkv_pad], padded to the forward's row tile and its 64-column KV
+        tile. Not defined with a sliding window.
 
     Returns:
-      (o [B, Hq, Nq, Dv] in q.dtype, lse [B, Hq, Nq] fp32). Queries are
-      tail-aligned: ``causal_offset = Nkv - Nq``.
+      (o [B, Hq, Nq, Dv] in q.dtype, lse [B, Hq, Nq] fp32), plus the S
+      residual with ``return_scores``. Queries are tail-aligned:
+      ``causal_offset = Nkv - Nq``.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel, or
     raise for what it does not take.
     """
     window_left = int(window[0])
     window_right = int(window[1])
-    if return_scores:
-        raise NotImplementedError(f"return_scores: {_S_RESIDENT_SLICE}")
-    if q.device.type == "cpu":
-        return flash_attention_forward_plain(
-            q, k, v, bias, scale=scale, is_causal=is_causal,
-            dropout_p=dropout_p, dropout_seed=dropout_seed, softcap=softcap,
-            window=window, alibi_slopes=alibi_slopes,
+    if return_scores and (window_left >= 0 or (not is_causal and window_right >= 0)):
+        raise ValueError(
+            "return_scores is not supported with sliding windows (out-of-band "
+            "S tiles are never written); the caller must gate save_scores off"
         )
-    check_kernel_inputs("flash_attention_forward", q, k, v)
-
     b, hq, nq, d = q.shape
     _, hkv, nkv, _ = k.shape
     dv = v.shape[-1]
@@ -155,6 +207,23 @@ def flash_attention_forward(
 
         config = pick_forward_config(d=d, dv=dv, nq=nq, nkv=nkv, dtype=q.dtype)
     config = config.clamp(nq, nkv, FWD_ROW_TILES)
+    s_pad = None
+    if return_scores:
+        nq_pad, nkv_pad = scores_padding(nq, nkv, d, dv, q.dtype, config)
+    if q.device.type == "cpu":
+        o, lse = flash_attention_forward_plain(
+            q, k, v, bias, scale=scale, is_causal=is_causal,
+            dropout_p=dropout_p, dropout_seed=dropout_seed, softcap=softcap,
+            window=window, alibi_slopes=alibi_slopes,
+        )
+        if not return_scores:
+            return o, lse
+        return o, lse, scores_plain(q, k, bias, scale=scale, is_causal=is_causal,
+                                    softcap=softcap, alibi_slopes=alibi_slopes,
+                                    nq_pad=nq_pad, nkv_pad=nkv_pad)
+    check_kernel_inputs("flash_attention_forward", q, k, v)
+    if return_scores:
+        s_pad = torch.empty((b, hq, nq_pad, nkv_pad), dtype=torch.bfloat16, device=q.device)
     d_pad, dv_pad = cdiv(d, D_CHUNK) * D_CHUNK, cdiv(dv, D_CHUNK) * D_CHUNK
     if not fwd_fits(config, d_pad, dv_pad, q.element_size()):
         raise ValueError(
@@ -195,13 +264,15 @@ def flash_attention_forward(
             float(scale), float(softcap), nkv - nq, window_left,
             0 if is_causal else window_right,  # causal is the band's right edge 0
             *dropout_args(dropout_p, dropout_seed),
+            None if s_pad is None else s_pad.data_ptr(),
+            0 if s_pad is None else s_pad.shape[2], 0 if s_pad is None else s_pad.shape[3],
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(lib, err, "flash_fwd kernel launch")
     flash_attention_forward.launches += 1
     if dv_pad != dv:
         o = o[..., :dv]
-    return o, lse
+    return (o, lse) if s_pad is None else (o, lse, s_pad)
 
 
 flash_attention_forward.launches = 0
@@ -210,6 +281,8 @@ flash_attention_forward.launches = 0
 __all__ = [
     "flash_attention_forward",
     "flash_attention_forward_plain",
+    "scores_plain",
+    "scores_padding",
     "check_kernel_inputs",
     "dropout_args",
 ]

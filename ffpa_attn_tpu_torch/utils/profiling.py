@@ -45,25 +45,36 @@ def band_pairs(nq: int, nkv: int, *, causal: bool, window=(-1, -1)) -> int:
 
 def backward_counts(kernel: str, *, b: int, hq: int, hkv: int, nq: int, nkv: int, d: int,
                     dv: int, causal: bool, window=(-1, -1), itemsize: int = 2,
-                    slab_bytes: int = 0) -> tuple:
+                    slab_bytes: int = 0, dk_in_kernel: bool = False) -> tuple:
     """(flop, bytes) one backward kernel needs, for ``bound_ms`` (the
     counterpart of the JAX package's ``cli/_flops.py`` for the backward).
 
     Products count 2 flop per multiply-add over the band's pairs only:
     dkdv does S = QK^T, dP = dO V^T, dV = P^T dO and dK = dS^T Q (4 units);
-    dq does S, dP and dQ = dS K (3); banded_dq does dQ = dS K (1). Bytes
-    count each input read once and each output written once: q, k, v, dO,
-    lse and delta, the gradients, and ``slab_bytes`` of dS (written by
-    dkdv) or dbias; banded_dq reads the band's dS and K and writes dQ."""
+    dq does S, dP and dQ = dS K (3); banded_dq does dQ = dS K (1);
+    dkdv_from_s does dP and dV (2 units; 3 with ``dk_in_kernel``: dK);
+    banded_dk does dK = dS^T Q (1). Bytes count each input read once and
+    each output written once: q, k, v, dO, lse and delta, the gradients, and
+    ``slab_bytes`` of dS (written by dkdv and, over S in place, by
+    dkdv_from_s) or dbias; dkdv_from_s reads the band's S, V, dO (and Q with
+    dK) and no K; banded_dq reads the band's dS and K and writes dQ,
+    banded_dk the band's dS and Q and writes dK."""
     pairs = b * hq * band_pairs(nq, nkv, causal=causal, window=window)
     q_b, kv_b = b * hq * nq * d * itemsize, b * hkv * nkv * (d + dv) * itemsize
     do_b, rows_b = b * hq * nq * dv * itemsize, 2 * b * hq * nq * 4
+    k_b, v_b = b * hkv * nkv * d * itemsize, b * hkv * nkv * dv * itemsize
     if kernel == "dkdv":
         return 2 * pairs * (2 * d + 2 * dv), q_b + 2 * kv_b + do_b + rows_b + slab_bytes
     if kernel == "dq":
         return 2 * pairs * (2 * d + dv), 2 * q_b + kv_b + do_b + rows_b + slab_bytes
     if kernel == "banded_dq":
-        return 2 * pairs * d, pairs * itemsize + b * hkv * nkv * d * itemsize + q_b
+        return 2 * pairs * d, pairs * itemsize + k_b + q_b
+    if kernel == "dkdv_from_s":
+        flops = 2 * pairs * (2 * dv + (d if dk_in_kernel else 0))
+        nbytes = pairs * itemsize + 2 * v_b + do_b + rows_b + slab_bytes
+        return flops, nbytes + (q_b + k_b if dk_in_kernel else 0)
+    if kernel == "banded_dk":
+        return 2 * pairs * d, pairs * itemsize + q_b + k_b
     raise ValueError(f"unknown backward kernel {kernel!r}")
 
 

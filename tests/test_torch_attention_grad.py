@@ -1,8 +1,9 @@
 """Gradients through the port's ``ffpa_attn_func`` against ``jax.grad``
-through the JAX package's, for each backward tier: the dS handoff, the
-recompute pair (``ds_handoff=False``) and the SDPA oracle, with sinks and
-the bias gradient. JAX runs its Pallas kernels in interpret mode, the port
-(on the CPU) their plain versions.
+through the JAX package's, for each backward tier: the S-resident tier
+(``save_scores=True``), the dS handoff, the recompute pair
+(``ds_handoff=False``) and the SDPA oracle, with sinks and the bias
+gradient, and partial S residency under a budget. JAX runs its Pallas
+kernels in interpret mode, the port (on the CPU) their plain versions.
 
 Tolerances: the JAX suite's gradient contract (tests/test_ffpa_bwd.py:19),
 bf16 5e-2 and fp16 1e-2 relative to max|grad| of each gradient. JAX
@@ -10,17 +11,20 @@ computes fp16 in bf16 (with its hi+lo split of dV), the port natively: the
 fp16 case holds both to the fp32 oracle at 1e-2.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from _torch_parity import cuda, grad_row_rel_err, jax_modules, randn, rel_err, to_torch  # noqa: F401
 from ffpa_attn_tpu_torch import CudaBackend, SDPABackend, ffpa_attn_func as torch_attn
+from ffpa_attn_tpu_torch.ops import attention as tattn
 from ffpa_attn_tpu_torch.ops import flash_bwd as tbwd
 from ffpa_attn_tpu_torch.ops.reference import expand_kv_heads, reference_attention
 
 TOL = {"bfloat16": 5e-2, "float16": 1e-2}
-TIERS = ("handoff", "recompute", "sdpa")
+TIERS = ("resident", "handoff", "recompute", "sdpa")
 
 CASES = {
     "causal_gqa": dict(shape=(1, 4, 2, 128, 128, 320), is_causal=True),
@@ -56,9 +60,13 @@ def _backends(tier, jax_side):
     if jax_side:
         from ffpa_attn_tpu.functional import PallasBackend, SDPABackend as JSDPA
 
-        return {"handoff": PallasBackend(ds_handoff=True),
-                "recompute": PallasBackend(ds_handoff=False), "sdpa": JSDPA()}[tier]
-    return {"handoff": CudaBackend(ds_handoff=True), "recompute": CudaBackend(ds_handoff=False),
+        return {"resident": PallasBackend(save_scores=True),
+                "handoff": PallasBackend(ds_handoff=True, save_scores=False),
+                "recompute": PallasBackend(ds_handoff=False, save_scores=False),
+                "sdpa": JSDPA()}[tier]
+    return {"resident": CudaBackend(save_scores=True),
+            "handoff": CudaBackend(ds_handoff=True, save_scores=False),
+            "recompute": CudaBackend(ds_handoff=False, save_scores=False),
             "sdpa": SDPABackend()}[tier]
 
 
@@ -128,19 +136,27 @@ def test_fp16_grads_meet_the_oracle():
             assert rel_err(jwant[n], w) < TOL["float16"], n
 
 
-def test_save_scores_true_on_the_cpu_takes_the_handoff():
-    """The S-resident backward is a later slice: on CPU tensors an explicit
-    save_scores=True gives the dS-handoff gradients."""
+def test_save_scores_true_on_the_cpu_takes_the_handoff(monkeypatch):
+    """An explicit save_scores=True on CPU tensors takes the S-resident
+    tier, not the dS handoff: the forward keeps every head's S residual and
+    the backward reads it (the from-S pass, dK and dQ from the slab, none of
+    the recompute); the gradients match ``jax.grad`` with
+    ``PallasBackend(save_scores=True)``."""
     case = CASES["causal_gqa"]
     x = _inputs(case, seed=2)
-    a = _torch_grads(case, x, "handoff", "bfloat16")
-    names = ("q", "k", "v")
-    t = {n: to_torch(x[n], "bfloat16").requires_grad_() for n in names}
-    out = torch_attn(t["q"], t["k"], t["v"], backward_backend=CudaBackend(save_scores=True),
-                     **_kwargs(case))
-    b = torch.autograd.grad(out, [t[n] for n in names], to_torch(x["do"], "bfloat16"))
-    for n, g in zip(names, b):
-        assert torch.equal(g, a[n]), n
+    calls = []
+    real = tbwd.flash_attention_backward
+
+    def spy(*args, **kw):
+        calls.append(kw.get("scores"))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tattn, "flash_attention_backward", spy)
+    got = _torch_grads(case, x, "resident", "bfloat16")
+    assert len(calls) == 1 and calls[0] is not None and calls[0].shape[1] == case["shape"][1]
+    want = _jax_grads(case, x, "resident", "bfloat16")
+    for n in ("q", "k", "v"):
+        assert rel_err(got[n], want[n]) < TOL["bfloat16"], n
 
 
 def test_cpu_backward_never_counts_a_launch():
@@ -153,39 +169,124 @@ def test_cpu_backward_never_counts_a_launch():
             tbwd._banded_dq_from_ds.launches) == before
 
 
-@pytest.mark.parametrize("tier", ("handoff", "recompute"))
+def _launches():
+    return (tbwd._dkdv_launch.launches, tbwd._dq_launch.launches,
+            tbwd._banded_dq_from_ds.launches, tbwd._dkdv_from_s_launch.launches,
+            tbwd._banded_dk_from_ds.launches)
+
+
+@pytest.mark.parametrize("tier", ("resident", "handoff", "recompute"))
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_grads_on_card_match_cpu(cuda, name, tier):
     """The kernels under autograd against the plain versions on the CPU:
-    the handoff tier launches dkdv and, under causal, banded dQ; the
-    recompute tier dkdv and dq."""
+    the S-resident tier launches the from-S pass (dK in the kernel at these
+    lengths) and, under causal, banded dQ; the handoff tier dkdv and, under
+    causal, banded dQ; the recompute tier (and any windowed call) dkdv and
+    dq. Launch counts: (dkdv, dq, banded dQ, from-S, banded dK)."""
     case = CASES[name]
     x = _inputs(case, seed=3)
-    before = (tbwd._dkdv_launch.launches, tbwd._dq_launch.launches,
-              tbwd._banded_dq_from_ds.launches)
+    before = _launches()
     got = _torch_grads(case, x, tier, "bfloat16", cuda)
     torch.cuda.synchronize()
     want = _torch_grads(case, x, tier, "bfloat16")
     windowed = "window_size" in case
-    handoff = tier == "handoff" and not windowed
-    causal = case.get("is_causal", False)
-    launched = (tbwd._dkdv_launch.launches - before[0], tbwd._dq_launch.launches - before[1],
-                tbwd._banded_dq_from_ds.launches - before[2])
-    assert launched == (1, 0 if handoff else 1, 1 if handoff and causal else 0)
+    causal = int(case.get("is_causal", False))
+    launched = tuple(a - b for a, b in zip(_launches(), before))
+    if windowed or tier == "recompute":
+        assert launched == (1, 1, 0, 0, 0)
+    elif tier == "handoff":
+        assert launched == (1, 0, causal, 0, 0)
+    else:
+        assert launched == (0, 0, causal, 1, 0)
     for n in got:
         measure = grad_row_rel_err if n in "qkv" else rel_err
         assert measure(got[n], want[n]) < TOL["bfloat16"], n
 
 
-def test_save_scores_policy_on_a_non_cpu_tensor():
+def test_partial_residency_grads_match_jax(monkeypatch):
+    """Auto residency under a budget of 3 heads' S residuals (a quarter
+    kept for the other heads' handoff slabs leaves 2.25) keeps the first
+    GQA group (2 of 4 heads); the rest take the dS handoff. Both
+    packages pick m = 2 and their gradients (with a key bias, whose
+    gradient sums the two halves) agree; with dropout the split is refused
+    (m = 0), as in the JAX package."""
+    from ffpa_attn_tpu.ops.attention import StaticArgs as JStatic
+    from ffpa_attn_tpu.ops.attention import _resident_head_count as jcount
+
+    jnp, = jax_modules("jax.numpy")
+    case = dict(shape=(1, 4, 2, 128, 128, 320), is_causal=True, mask="key")
+    b, hq, hkv, nq, nkv, d = case["shape"]
+    limit = 3 * b * nq * nkv * 2  # 3 heads' bf16 S residuals (no padding at N128)
+    for pre in ("FFPA_TPU_", "FFPA_TORCH_"):
+        monkeypatch.setenv(pre + "SCORES_RESIDUAL_LIMIT_BYTES", str(limit))
+    seen = []
+    real = tattn.flash_attention_backward
+
+    def spy(*args, **kw):
+        seen.append(None if kw.get("scores") is None else kw["scores"].shape[1])
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tattn, "flash_attention_backward", spy)
+    x = _inputs(case, seed=4)
+    names = ("q", "k", "v", "mask")
+    t = {n: to_torch(x[n], "bfloat16" if n in "qkv" else "float32").requires_grad_()
+         for n in names}
+    out = torch_attn(t["q"], t["k"], t["v"], attn_mask=t["mask"], is_causal=True,
+                     enable_gqa=True, backward_backend=CudaBackend())
+    got = dict(zip(names, torch.autograd.grad(out, [t[n] for n in names],
+                                              to_torch(x["do"], "bfloat16"))))
+    assert seen == [2, None]
+    from ffpa_attn_tpu.functional import PallasBackend
+
+    jax, jiface = jax_modules("jax", "ffpa_attn_tpu")
+
+    def f(q, k, v, mask):
+        return jiface.ffpa_attn_func(q, k, v, attn_mask=mask, is_causal=True, enable_gqa=True,
+                                     backward_backend=PallasBackend())
+
+    args = [jnp.asarray(x[n], jnp.bfloat16 if n in "qkv" else jnp.float32) for n in names]
+    out_j, vjp = jax.vjp(f, *args)
+    want = dict(zip(names, vjp(jnp.asarray(x["do"], out_j.dtype))))
+    for n in names:
+        assert rel_err(got[n], np.asarray(want[n], np.float32)) < TOL["bfloat16"], n
+    jq = jnp.zeros((b, hq, nq, d), jnp.bfloat16)
+    jkv = jnp.zeros((b, hkv, nkv, d), jnp.bfloat16)
+    jst = JStatic(scale=d ** -0.5, is_causal=True, dropout_p=0.0, fwd_config=None,
+                  bwd_config=None, backward_is_sdpa=False, grad_kv_storage_dtype=None,
+                  grad_q_storage_dtype=None)
+    tst = tattn.StaticArgs(scale=d ** -0.5, is_causal=True, dropout_p=0.0, fwd_config=None)
+    tq, tkv = torch.zeros(b, hq, nq, d, dtype=torch.bfloat16), torch.zeros(
+        b, hkv, nkv, d, dtype=torch.bfloat16)
+    assert jcount(jst, jq, jkv, jkv, None) == tattn._resident_head_count(tst, tq, tkv, tkv,
+                                                                         None) == 2
+    jst_d = dataclasses.replace(jst, dropout_p=0.1)
+    tst_d = dataclasses.replace(tst, dropout_p=0.1)
+    assert jcount(jst_d, jq, jkv, jkv, None) == tattn._resident_head_count(
+        tst_d, tq, tkv, tkv, None) == 0
+
+
+def test_save_scores_policy_on_a_non_cpu_tensor(monkeypatch):
     """Meta tensors stand in for CUDA tensors: an explicit save_scores=True
-    under autograd raises (the S-resident slice), except for fp16 inputs,
-    which the policy sends to the dS handoff, as in the JAX package; the
-    forward then refuses the meta tensor as a non-CUDA one."""
+    under autograd reaches the forward with ``return_scores``, except for
+    fp16 inputs, which the policy sends to the dS handoff with a warning,
+    as in the JAX package; the forward then refuses the meta tensor as a
+    non-CUDA one."""
+    seen = []
+    real = tattn.flash_attention_forward
+
+    def spy(*args, **kw):
+        seen.append(kw.get("return_scores", False))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tattn, "flash_attention_forward", spy)
+    warned = []
+    monkeypatch.setattr(tattn.logger, "warning_once", lambda msg, *a: warned.append(msg))
     kw = dict(is_causal=True, backward_backend=CudaBackend(save_scores=True))
     q = torch.empty((1, 2, 128, 512), device="meta", dtype=torch.bfloat16, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="S-resident slice"):
+    with pytest.raises(ValueError, match="CUDA tensors"):
         torch_attn(q, q, q, **kw)
     q16 = torch.empty((1, 2, 128, 512), device="meta", dtype=torch.float16, requires_grad=True)
     with pytest.raises(ValueError, match="CUDA tensors"):
         torch_attn(q16, q16, q16, **kw)
+    assert seen == [True, False]
+    assert len(warned) == 1 and "float16" in warned[0]

@@ -147,12 +147,173 @@ def test_split_kv_merge_identity():
     assert rel_err(o, whole_o.float()) < BF16_TOL  # partials are rounded to the dtype
 
 
-def test_decode_return_scores_raises():
-    case = CASES["nq1_g2"]
+SCORES = sorted(n for n in CASES if "window" not in CASES[n])
+
+
+@pytest.mark.parametrize("name", SCORES)
+def test_decode_return_scores_matches_jax(name):
+    """The fp32 score residual of the packed rows against the JAX kernel's
+    on the attended columns (both hold the mask value elsewhere), and
+    (o, lse) unchanged by it."""
+    (jdec,) = jax_modules("ffpa_attn_tpu.ops.decode")
+    case = CASES[name]
     x = _inputs(case)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tdec._decode_forward(to_torch(x["q"]), to_torch(x["k"]), to_torch(x["v"]), None,
-                             scale=0.1, is_causal=False, return_scores=True)
+    _, _, js = jdec._decode_forward(
+        to_jax(x["q"], "bfloat16"), to_jax(x["k"], "bfloat16"),
+        to_jax(x["v"], "bfloat16"), to_jax(x["bias"]), return_scores=True, **_kwargs(case),
+    )
+    to, tl, ts = tdec._decode_forward(
+        to_torch(x["q"], "bfloat16"), to_torch(x["k"], "bfloat16"), to_torch(x["v"], "bfloat16"),
+        to_torch(x["bias"]), return_scores=True, **_kwargs(case))
+    o0, l0 = _torch_dec(x, case)
+    assert torch.equal(to, o0) and torch.equal(tl, l0)
+    rows = x["q"].shape[1] // HKV * case["nq"]
+    assert ts.dtype == torch.float32 and tuple(ts.shape) == (x["q"].shape[0], HKV, rows, 256)
+    want = np.asarray(js, np.float32)[:, :, :rows, :NKV]
+    got = ts[..., :NKV].numpy()
+    live = want > DEFAULT_MASK_VALUE / 2
+    assert np.array_equal(live, got > DEFAULT_MASK_VALUE / 2)
+    assert rel_err(np.where(live, got, 0.0), np.where(live, want, 0.0)) < BF16_TOL
+    assert (ts[..., NKV:] == DEFAULT_MASK_VALUE).all()
+
+
+GRAD_CASES = {
+    "nq1_g2_valid": dict(nq=1, group=2, valid_len=150),
+    "nq4_g4_causal": dict(nq=4, group=4, is_causal=True),
+    "softcap": dict(nq=1, group=2, softcap=3.0),
+    "softcap_bias_recompute": dict(nq=1, group=2, valid_len=170, softcap=3.0),
+    "window_recompute": dict(nq=2, group=2, window=(60, -1), is_causal=True),
+    "head_bias_sinks": dict(nq=2, group=2, head_bias=True, sinks=True),
+}
+
+
+def _decode_grads(case, x, side, device="cpu"):
+    """Gradients of q, k, v (and sinks) through ``ffpa_attn_func`` on a
+    GQA decode shape, for the port (``side="torch"``) or the JAX package."""
+    kw = dict(is_causal=case.get("is_causal", False), softcap=case.get("softcap", 0.0),
+              window_size=case.get("window", (-1, -1)), enable_gqa=True)
+    names = ["q", "k", "v"] + (["sinks"] if "sinks" in x else [])
+    if side == "jax":
+        jax, jnp, jiface = jax_modules("jax", "jax.numpy", "ffpa_attn_tpu")
+
+        def f(*args):
+            a = dict(zip(names, args))
+            return jiface.ffpa_attn_func(a["q"], a["k"], a["v"], attn_mask=to_jax(x["bias"]),
+                                         sinks=a.get("sinks"), **kw)
+
+        args = [jnp.asarray(x[n], jnp.bfloat16 if n in "qkv" else jnp.float32) for n in names]
+        out, vjp = jax.vjp(f, *args)
+        return dict(zip(names, (np.asarray(g, np.float32) for g in
+                                vjp(jnp.asarray(x["do"], out.dtype)))))
+    from ffpa_attn_tpu_torch import ffpa_attn_func
+
+    t = {n: to_torch(x[n], "bfloat16" if n in "qkv" else "float32", device).requires_grad_()
+         for n in names}
+    out = ffpa_attn_func(t["q"], t["k"], t["v"], attn_mask=to_torch(x["bias"], device=device),
+                         sinks=t.get("sinks"), **kw)
+    return dict(zip(names, torch.autograd.grad(out, [t[n] for n in names],
+                                               to_torch(x["do"], "bfloat16", device))))
+
+
+def _grad_inputs(case, seed=5):
+    x = _inputs(case, seed)
+    rng = np.random.default_rng(seed + 100)
+    x["do"] = randn(rng, x["q"].shape)
+    if case.get("sinks"):
+        x["sinks"] = randn(rng, (x["q"].shape[1],))
+    return x
+
+
+@pytest.mark.parametrize("name", sorted(GRAD_CASES))
+def test_decode_grads_match_jax(name, monkeypatch):
+    """``torch.autograd.grad`` through the decode route (the grouped fp32
+    composite backward, from the score residual where the forward keeps it,
+    from recomputed scores under a window or softcap with a bias) against
+    ``jax.grad``: bf16 5e-2 of each gradient's max (tests/test_ffpa_bwd.py:19)."""
+    case = GRAD_CASES[name]
+    x = _grad_inputs(case)
+    kept = []
+    real = tdec._decode_emits_scores
+
+    def spy(*args):
+        kept.append(real(*args))
+        return kept[-1]
+
+    monkeypatch.setattr(tdec, "_decode_emits_scores", spy)
+    got = _decode_grads(case, x, "torch")
+    assert kept == ["recompute" not in name]
+    want = _decode_grads(case, x, "jax")
+    for n in want:
+        assert rel_err(got[n], want[n]) < 5e-2, n
+
+
+def test_decode_backward_tiled_fallback_matches_jax(monkeypatch):
+    """Above ``_DECODE_BWD_COMPOSITE_MAX_ELEMS`` score elements the decode
+    backward takes the tiled flash backward (here forced with a limit of
+    0); its gradients still match the JAX package's composite."""
+    case = GRAD_CASES["nq1_g2_valid"]
+    x = _grad_inputs(case)
+    monkeypatch.setattr(tdec, "_DECODE_BWD_COMPOSITE_MAX_ELEMS", 0)
+    got = _decode_grads(case, x, "torch")
+    want = _decode_grads(case, x, "jax")
+    for n in want:
+        assert rel_err(got[n], want[n]) < 5e-2, n
+
+
+def test_decode_backward_from_scores_equals_recompute():
+    """The composite backward reads P from the score residual or recomputes
+    it from (q, k, lse): the two agree to fp32 rounding."""
+    case = dict(nq=2, group=2, valid_len=150, is_causal=True)
+    x = _grad_inputs(case, seed=9)
+    q, k, v = (to_torch(x[n], "bfloat16") for n in ("q", "k", "v"))
+    bias, do = to_torch(x["bias"]), to_torch(x["do"], "bfloat16")
+    kw = dict(scale=1.0 / math.sqrt(D), is_causal=True)
+    o, lse, s = tdec._decode_forward(q, k, v, bias, return_scores=True, **kw)
+    args = (kw["scale"], True, 0.0, (-1, -1), q, k, v, bias, None, o, lse)
+    from_s = tdec._decode_core_bwd(*args, s, do, False)
+    recompute = tdec._decode_core_bwd(*args, None, do, False)
+    for a, b in zip(from_s[:3], recompute[:3]):
+        assert rel_err(a, b) < 1e-2
+
+
+def test_decode_scores_budget_gate(monkeypatch):
+    """The residual is kept under the budget divided by the assumed live
+    layers, never with softcap plus a bias or with a window."""
+    x = _inputs(CASES["nq1_g2"])
+    q, k = to_torch(x["q"], "bfloat16"), to_torch(x["k"], "bfloat16")
+    assert tdec._decode_emits_scores(q, k, None, 0.0, (-1, -1))
+    assert not tdec._decode_emits_scores(q, k, torch.zeros(1, 1, 1, NKV), 3.0, (-1, -1))
+    assert not tdec._decode_emits_scores(q, k, None, 0.0, (60, -1))
+    nbytes = 1 * HKV * 2 * 1 * 256 * 4
+    monkeypatch.setenv("FFPA_TORCH_SCORES_AUTO_ASSUMED_LAYERS",
+                       str(tdec._DECODE_SCORES_MAX_BYTES // nbytes + 1))
+    assert not tdec._decode_emits_scores(q, k, None, 0.0, (-1, -1))
+
+
+@pytest.mark.parametrize("name", SCORES)
+def test_decode_scores_on_card_match_plain(cuda, name):
+    case = CASES[name]
+    x = _inputs(case, seed=7)
+    args = [to_torch(x[n], "bfloat16", cuda) for n in ("q", "k", "v")]
+    ko, kl, ks = tdec._decode_forward(*args, to_torch(x["bias"], device=cuda),
+                                      return_scores=True, **_kwargs(case))
+    torch.cuda.synchronize()
+    po, pl, ps = tdec._decode_forward(*(a.cpu() for a in args), to_torch(x["bias"]),
+                                      return_scores=True, **_kwargs(case))
+    live = ps > DEFAULT_MASK_VALUE / 2
+    assert torch.equal(live, ks.cpu() > DEFAULT_MASK_VALUE / 2)
+    assert rel_err(torch.where(live, ks.cpu(), 0.0), torch.where(live, ps, 0.0)) < 1e-3
+    assert row_rel_err(ko, po) < BF16_TOL
+
+
+@pytest.mark.parametrize("name", sorted(GRAD_CASES))
+def test_decode_grads_on_card_match_cpu(cuda, name):
+    case = GRAD_CASES[name]
+    x = _grad_inputs(case)
+    got = _decode_grads(case, x, "torch", cuda)
+    want = _decode_grads(case, x, "torch")
+    for n in want:
+        assert rel_err(got[n], want[n]) < 5e-2, n
 
 
 @pytest.mark.parametrize("name", sorted(CASES))

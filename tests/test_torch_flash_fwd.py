@@ -121,16 +121,21 @@ def test_forward_fp16_native_vs_jax_bf16_compute(jax_ref):
 
 
 def test_kernel_options_raise_not_implemented():
-    """return_scores belongs to the S-resident slice and raises on every
-    device. Dropout is ported: a tensor that is neither on the CPU nor on
-    a card (meta) is refused as such, not as a missing feature."""
+    """What the forward still refuses: a tensor that is neither on the CPU
+    nor on a card (meta), as such, with dropout or the S residual; and the
+    S residual under a sliding window (its out-of-band tiles are never
+    written). On the CPU ``return_scores`` gives the plain S residual."""
     q = torch.empty((1, 2, 128, 512), device="meta", dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        tfwd.flash_attention_forward(q, q, q, None, scale=0.1, is_causal=True, dropout_p=0.1)
+    for kw in (dict(dropout_p=0.1), dict(return_scores=True)):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            tfwd.flash_attention_forward(q, q, q, None, scale=0.1, is_causal=True, **kw)
     cpu = torch.zeros((1, 2, 128, 512), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="S-resident slice"):
+    with pytest.raises(ValueError, match="sliding windows"):
         tfwd.flash_attention_forward(cpu, cpu, cpu, None, scale=0.1, is_causal=True,
-                                     return_scores=True)
+                                     window=(32, -1), return_scores=True)
+    o, lse, s = tfwd.flash_attention_forward(cpu, cpu, cpu, None, scale=0.1, is_causal=True,
+                                             return_scores=True)
+    assert s.shape == (1, 2, 128, 128) and s.dtype == torch.bfloat16
 
 
 def test_cpu_forward_never_counts_a_launch():

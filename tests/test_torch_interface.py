@@ -137,23 +137,24 @@ def test_backend_names_keep_their_meaning():
 
 
 def test_kernel_route_options_raise_not_implemented():
-    """What the kernel route still refuses: an explicit save_scores=True
-    under autograd (the S-resident slice) and the decode backward (a later
-    part of the training slice). Meta tensors stand in for CUDA tensors:
-    the core op refuses before any launch. Dropout and the dense backward
-    are ported: CPU tensors run their plain versions."""
+    """Every option of the kernel route is ported: meta tensors, which
+    stand in for CUDA tensors, reach the forward (with save_scores=True its
+    S residual) and are refused there as non-CUDA tensors; CPU tensors run
+    the plain versions under autograd, with dropout and S residency, and
+    through the decode route's backward."""
     q = torch.empty((1, 2, 128, 512), device="meta", dtype=torch.bfloat16, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="S-resident slice"):
+    with pytest.raises(ValueError, match="CUDA tensors"):
         torch_attn(q, q, q, is_causal=True, backward_backend=CudaBackend(save_scores=True))
-    qc = torch.randn((1, 2, 128, 512), dtype=torch.bfloat16, requires_grad=True)
-    out = torch_attn(qc, qc, qc, is_causal=True, dropout_p=0.1)
-    out.float().sum().backward()
-    assert bool(torch.isfinite(qc.grad.float()).all())
-    qd = torch.randn((1, 4, 1, 512), dtype=torch.bfloat16, requires_grad=True)
-    kd = torch.randn((1, 2, 128, 512), dtype=torch.bfloat16)
-    out = torch_attn(qd, kd, kd, enable_gqa=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    for kw in (dict(dropout_p=0.1), dict(backward_backend=CudaBackend(save_scores=True))):
+        qc = torch.randn((1, 2, 128, 512), dtype=torch.bfloat16, requires_grad=True)
+        out = torch_attn(qc, qc, qc, is_causal=True, **kw)
         out.float().sum().backward()
+        assert bool(torch.isfinite(qc.grad.float()).all())
+    qd = torch.randn((1, 4, 1, 512), dtype=torch.bfloat16, requires_grad=True)
+    kd = torch.randn((1, 2, 128, 512), dtype=torch.bfloat16, requires_grad=True)
+    out = torch_attn(qd, kd, kd, enable_gqa=True)
+    out.float().sum().backward()
+    assert bool(torch.isfinite(qd.grad.float()).all()) and bool(torch.isfinite(kd.grad.float()).all())
 
 
 def test_dropout_on_cpu_matches_jax():

@@ -71,6 +71,12 @@ def test_loss_and_grads_match_jax():
     _compare_with_jax(SIZE)
 
 
+def test_save_scores_model_grads_match_jax():
+    """``attn_save_scores=True``: the S-resident tier (the forward keeps S,
+    the from-S pass, dK and dQ from the slab) on both sides."""
+    _compare_with_jax(dict(SIZE, attn_save_scores=True))
+
+
 def test_mistral_like_grads_match_jax():
     """A sliding window takes the recompute tier (dkdv, then dq)."""
     _compare_with_jax(dict(SIZE, sliding_window=48))
@@ -145,13 +151,15 @@ def test_make_train_step_defaults_to_cuda():
         make_train_step(cfg, adamw(1e-4))
 
 
-def test_train_steps_on_card_match_cpu(cuda):
+@pytest.mark.parametrize("save_scores", [False, True])
+def test_train_steps_on_card_match_cpu(cuda, save_scores):
     """Two steps on the card and on the CPU from the same weights: the
     losses agree within the bf16 forward tolerance, and every step launches
-    the forward, dkdv and banded-dQ kernels once per layer."""
+    the forward, dkdv and banded-dQ kernels once per layer (with
+    ``attn_save_scores`` the from-S pass instead of dkdv)."""
     from ffpa_attn_tpu_torch.ops import flash_fwd as tfwd
 
-    cfg = ModelConfig(**SIZE)
+    cfg = ModelConfig(**SIZE, attn_save_scores=save_scores)
     params = random_params(cfg, seed=8)
     tokens = torch.from_numpy(_tokens(9))
     losses = {}
@@ -161,7 +169,8 @@ def test_train_steps_on_card_match_cpu(cuda):
         state = opt.init(list(model.parameters()))
         step = make_train_step(cfg, opt, device=dev)
         counts = (tfwd.flash_attention_forward.launches, tbwd._dkdv_launch.launches,
-                  tbwd._banded_dq_from_ds.launches, tbwd._dq_launch.launches)
+                  tbwd._banded_dq_from_ds.launches, tbwd._dq_launch.launches,
+                  tbwd._dkdv_from_s_launch.launches)
         losses[dev] = []
         for _ in range(2):
             state, loss = step(model, state, tokens)
@@ -169,8 +178,10 @@ def test_train_steps_on_card_match_cpu(cuda):
         launched = (tfwd.flash_attention_forward.launches - counts[0],
                     tbwd._dkdv_launch.launches - counts[1],
                     tbwd._banded_dq_from_ds.launches - counts[2],
-                    tbwd._dq_launch.launches - counts[3])
-        want = (0, 0, 0, 0) if dev == "cpu" else (2, 2, 2, 0)
+                    tbwd._dq_launch.launches - counts[3],
+                    tbwd._dkdv_from_s_launch.launches - counts[4])
+        want = ((0, 0, 0, 0, 0) if dev == "cpu" else
+                (2, 0, 2, 0, 2) if save_scores else (2, 2, 2, 0, 0))
         assert launched == want, (dev, launched)
     for a, b in zip(losses["cuda"], losses["cpu"]):
         assert abs(a - b) < LOSS_TOL * abs(b), losses

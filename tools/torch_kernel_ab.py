@@ -17,17 +17,21 @@ Python wrappers (the two share the C interface):
 * dkdv (with the dS slab) and banded_dq: B1 H8/4 N8192 D512 causal bf16
   (the training step's dS-handoff backward);
 * dq: the same shape with a 4096-token left window (the windowed model's
-  recompute backward).
+  recompute backward);
+* from_s (the from-S dK/dV pass with dK out of the kernel, on a fresh copy
+  of the S residual each call: it overwrites S with dS) and banded_dk: the
+  same shape as dkdv (the S-resident backward of the training step).
 
 A kernel whose source the base tree lacks is timed on the head alone. Each
-time is the kernels' device time per call from torch.profiler. Prints one
-JSON line.
+time is the kernels' device time per call from torch.profiler (for from_s
+the from-S kernel's alone, without the copy of S). Prints one JSON line.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import json
 import math
 import subprocess
@@ -42,11 +46,17 @@ sys.path.insert(0, str(REPO))
 from ffpa_attn_tpu_torch.ops import _build, decode, flash_bwd, flash_fwd  # noqa: E402
 from ffpa_attn_tpu_torch.ops.dispatch import pick_backward_config  # noqa: E402
 from ffpa_attn_tpu_torch.ops.reference import DEFAULT_MASK_VALUE  # noqa: E402
-from ffpa_attn_tpu_torch.utils.profiling import device_ms  # noqa: E402
+from ffpa_attn_tpu_torch.utils.profiling import device_ms, device_window  # noqa: E402
 
 # kernel -> the source it is built from
 SOURCE = {"flash_fwd": "flash_fwd", "decode": "decode", "dkdv": "flash_bwd",
-          "banded_dq": "flash_bwd", "dq": "flash_bwd"}
+          "banded_dq": "flash_bwd", "dq": "flash_bwd", "from_s": "flash_bwd",
+          "banded_dk": "flash_bwd"}
+# kernel -> the substring of its CUDA kernel's name, where a run also
+# launches other kernels that are not timed
+ONLY = {"from_s": "dkdv_from_s_kernel"}
+# kernels whose C entry point an older tree may lack
+ENTRY = {"from_s": "ffpa_bwd_dkdv_from_s", "banded_dk": "ffpa_bwd_banded_dk"}
 
 
 def build_tree(src: Path, out: Path) -> dict:
@@ -126,9 +136,30 @@ def make_runs(gen) -> dict:
         return flash_bwd._dq_launch(tq, tk, tv, None, tdo, lse, delta, 0, cfg,
                                     grad_q_storage_dtype=None, window=(4096, -1), **kw)[0]
 
+    # The S-resident tier: the plain version's S residual, so both trees
+    # read the same one; from_s works on a copy (it writes dS over S).
+    s_pad = flash_fwd.scores_plain(tq, tk, None, scale=scale, is_causal=True, nq_pad=nt,
+                                   nkv_pad=nt)
+    s_cfg = dataclasses.replace(cfg, dkdv_dk_in_kernel=False)
+    lse, delta = state[(-1, -1)]
+
+    def run_from_s():
+        slab = flash_bwd._dkdv_from_s_launch(tq, tv, s_pad.clone(), tdo, lse, delta, 0, s_cfg,
+                                             grad_kv_storage_dtype=None, **kw)[2]
+        state["s_ds"] = slab
+        return slab
+
+    def run_banded_dk():
+        if "s_ds" not in state:
+            run_from_s()
+        return flash_bwd._banded_dk_from_ds(state["s_ds"], tq, s_cfg, scale=scale,
+                                            group=hq // hkv, nq=nt, nkv=nt, causal_offset=0,
+                                            dk_dtype=torch.bfloat16)
+
     def reset():
         turn[0] = 0
         state.pop("ds", None)
+        state.pop("s_ds", None)
 
     runs = {
         "flash_fwd": lambda: flash_fwd.flash_attention_forward(q, k, v, None, scale=scale,
@@ -137,6 +168,8 @@ def make_runs(gen) -> dict:
         "dkdv": run_dkdv,
         "banded_dq": run_banded,
         "dq": run_dq,
+        "from_s": run_from_s,
+        "banded_dk": run_banded_dk,
     }
     return runs, reset
 
@@ -166,10 +199,15 @@ def main() -> int:
     for tag in ("base", "head", "head", "base"):
         use(tag)
         for k in kernels:
-            if SOURCE[k] not in trees[tag]:
+            if SOURCE[k] not in trees[tag] or not hasattr(trees[tag][SOURCE[k]],
+                                                          ENTRY.get(k, "ffpa_error_string")):
                 continue
             reps = 5 * args.reps if k == "decode" else args.reps
-            times[tag][k].append(device_ms(runs[k], reps=reps))
+            if k in ONLY:
+                w = device_window(runs[k], reps=reps, warmup=3)["by_kernel"]
+                times[tag][k].append(sum(ms for n, ms in w.items() if ONLY[k] in n) / reps)
+            else:
+                times[tag][k].append(device_ms(runs[k], reps=reps))
             reset()
             outs[(tag, k)] = runs[k]().float()
             reset()
