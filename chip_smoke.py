@@ -11,12 +11,17 @@ It imports only ``ffpa_attn_tpu_torch``, torch and numpy, and runs, in order:
    card, at the serving and training shapes and at feature cases, with
    stated tolerances: the forward (and its S residual), decode (and its
    score residual), dkdv, dq, banded dQ, the from-S dK/dV pass in both
-   variants and banded dK (a slab NaN outside the band among them);
+   variants and banded dK (a slab NaN outside the band among them), the
+   packed varlen forward and paged decode (bf16 and int8 pools);
 4. serving path: greedy ``generate`` of the L4 dm1024 H8/4 Dh512 vocab-32000
    bf16 model (random weights from numpy seed 0) on a 4096-token prompt, 32
    tokens, with the kernel launch counts read around that run; first-step
    logits against the same weights run with the fp32 oracle's attention; a
-   tiny model's greedy tokens on the card against the CPU;
+   tiny model's greedy tokens on the card against the CPU; then continuous
+   batching, the JAX package's serving bench (B4, prompts of 589..886
+   tokens, 128 generated, page 256): ``serve_batch``, ``serve_batch_paged``
+   over bf16 and int8 pools and a ``ServingEngine`` serving 8 requests over
+   4 slots, each with its launch counts, tokens/s and logit gates;
 5. training path: ``make_train_step`` (AdamW 1e-4) of the same model at
    N8192 B1, one warm-up step and 3 timed steps with the launch counts of
    each, in the dS-handoff tier (the model's default), with
@@ -29,7 +34,8 @@ It imports only ``ffpa_attn_tpu_torch``, torch and numpy, and runs, in order:
    (``mistral_like``, depth cut to L2), which takes the recompute backward;
    a tiny model's two steps on the card against the CPU;
 6. times: device time by kernel and the device's busy share over one
-   prefill, decode steps and one training step of each tier, then each
+   prefill, decode steps, one packed prefill, paged decode steps and one
+   training step of each tier, then each
    kernel at its main-path shape beside its bound, its plain version and
    one PyTorch library call computing the same function, or for the from-S
    pass the yardstick of its two dense products (device time per call from
@@ -78,6 +84,15 @@ TRAIN_N, TRAIN_STEPS = 8192, 3
 # B1 H32 N8192 D512 bf16, MHA); the partial-residency budget (768 MiB).
 OP_HEADS, PARTIAL_LIMIT = 32, 805306368
 WINDOW, WINDOW_LAYERS, WINDOW_STEPS = 4096, 2, 2
+# Continuous batching: the JAX package's serving bench (cli/_e2e.py:96-213)
+# at its defaults, B4, prompt lengths 1024 - rng.integers(0, 512) from
+# numpy seed 0, 128 generated tokens, max_len 1152, page 256; the engine
+# serves 8 more requests from the same rng over 4 slots.
+SERVE_B, SERVE_PROMPT, SERVE_GEN, SERVE_PAGE = 4, 1024, 128, 256
+SERVE_MAX_LEN = SERVE_PROMPT + SERVE_GEN
+SERVE_LENS = [589, 698, 763, 886]
+ENGINE_REQUESTS, ENGINE_SLOTS = 8, 4
+PAGED_TOL, INT8_TOL = 5e-2, 6e-2  # tests/test_models.py:262, tests/test_paged.py:361
 
 
 def log(msg: str) -> None:
@@ -442,6 +457,103 @@ def _decode_scores_case(name, *, hkv=4, group=2, nq=1, nkv=MAX_LEN, d=512, valid
         fail(f"decode score residual disagrees with its plain version: {name}")
 
 
+def _varlen_inputs(seqs, *, seqs_k=None, hq=8, hkv=4, d=512, dtype=torch.bfloat16, pad=0,
+                   gen=None):
+    """Packed q [Tq, Hq, D], k/v [Tk, Hkv, D] and int32 cu_seqlens on the
+    card; ``pad`` tokens of tail padding on both sides (the pseudo-segment)."""
+    seqs_k = seqs_k or seqs
+    tq, tk = sum(seqs) + pad, sum(seqs_k) + pad
+    q = _randn((tq, hq, d), dtype, gen)
+    k, v = _randn((tk, hkv, d), dtype, gen), _randn((tk, hkv, d), dtype, gen)
+    cu_q = torch.tensor(np.cumsum([0] + list(seqs)), dtype=torch.int32, device="cuda")
+    cu_k = torch.tensor(np.cumsum([0] + list(seqs_k)), dtype=torch.int32, device="cuda")
+    return q, k, v, cu_q, cu_k
+
+
+def _varlen_case(name, *, seqs, seqs_k=None, hq=8, hkv=4, d=512, dtype=torch.bfloat16,
+                 causal=True, window=(-1, -1), softcap=0.0, alibi=False, pad=0, seed=0):
+    """The varlen forward kernel against its plain version on the same
+    inputs and metadata: o per row, lse relative on the rows that attend
+    something (an empty row's lse is MASK_VALUE on both sides)."""
+    from ffpa_attn_tpu_torch.ops import varlen
+    from ffpa_attn_tpu_torch.ops.reference import DEFAULT_MASK_VALUE
+
+    gen = torch.Generator(device="cuda").manual_seed(500 + seed)
+    q, k, v, cu_q, cu_k = _varlen_inputs(seqs, seqs_k=seqs_k, hq=hq, hkv=hkv, d=d, dtype=dtype,
+                                         pad=pad, gen=gen)
+    al = torch.rand((hq,), generator=gen, device="cuda") * 0.1 if alibi else None
+    kw = dict(scale=1.0 / math.sqrt(d), causal=causal, softcap=softcap, window=window, alibi=al)
+    o, lse = varlen._varlen_forward(q, k, v, cu_q, cu_k, **kw)
+    torch.cuda.synchronize()
+    meta = varlen._segment_metadata(cu_q, cu_k, q.shape[0], k.shape[0], q.shape[0], k.shape[0])
+    po, plse = varlen._varlen_forward_plain(
+        q, k, v, meta, **dict(kw, window=(window[0], -1 if causal else window[1])))
+    tol = F16_TOL if dtype == torch.float16 else BF16_TOL
+    live = plse > DEFAULT_MASK_VALUE / 2
+    err = row_rel(o, po)
+    lerr = rel(lse[live], plse[live])
+    same_empty = bool((lse[~live] <= DEFAULT_MASK_VALUE / 2).all())
+    ok = err < tol and lerr < LSE_TOL and same_empty and bool(torch.isfinite(o).all())
+    log(f"  varlen {name:<19} T{q.shape[0]} row_rel_err {err:.2e} (tol {tol:g}) lse_rel_err "
+        f"{lerr:.2e} (tol {LSE_TOL:g}, {int((~live).sum())} empty rows) max_abs_err "
+        f"{max_abs(o, po):.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"varlen forward kernel disagrees with its plain version: {name}")
+    return max_abs(o, po)
+
+
+def _paged_pools(lens, *, page, max_len, hkv=4, d=512, dtype=torch.bfloat16, quantized=False,
+                 shuffle=False, gen=None):
+    """A PagedKVCache on the card holding random K/V for sequences of
+    ``lens`` tokens; with ``shuffle`` every table row is a random run of
+    pool pages (not contiguous, not in order)."""
+    from ffpa_attn_tpu_torch.ops import paged
+
+    b = len(lens)
+    cache = paged.PagedKVCache.alloc(b, max_len, hkv, d, page_size=page, dtype=dtype,
+                                     quantized=quantized)
+    if shuffle:
+        mp = cache.page_table.shape[1]
+        perm = 1 + torch.randperm(b * mp, generator=torch.Generator().manual_seed(len(lens)))
+        for slot in range(b):
+            paged.assign_sequence(cache, slot, perm[slot * mp:(slot + 1) * mp].tolist())
+    n = max(max(lens), 1)
+    kd, vd = _randn((b, hkv, n, d), dtype, gen), _randn((b, hkv, n, d), dtype, gen)
+    return paged.fill_from_prefill(cache, kd, vd, list(lens))
+
+
+def _paged_case(name, *, lens, page=256, max_len=1152, group=2, nq=1, hkv=4, d=512,
+                dtype=torch.bfloat16, quantized=False, window=-1, softcap=0.0, idle=False,
+                shuffle=False, seed=0):
+    """The paged decode kernel against its plain version on the same pools
+    (an int8 pool against the plain version of the same int8 pool); with
+    ``idle`` slot 0 is an idle engine slot (null table row, lens at
+    max_len), whose output must be finite."""
+    from ffpa_attn_tpu_torch.ops import paged
+
+    gen = torch.Generator(device="cuda").manual_seed(600 + seed)
+    cache = _paged_pools(lens, page=page, max_len=max_len, hkv=hkv, d=d, dtype=dtype,
+                         quantized=quantized, shuffle=shuffle, gen=gen)
+    if idle:
+        paged.assign_sequence(cache, 0, [])
+        cache.lens[0] = max_len
+    q = _randn((len(lens), hkv * group, nq, d), dtype, gen)
+    kw = dict(nq=nq, scale=1.0 / math.sqrt(d), softcap=softcap, window_left=window)
+    o = paged.paged_decode_attention(q, cache, scale=kw["scale"], softcap=softcap,
+                                     window_left=window)
+    torch.cuda.synchronize()
+    po, _ = paged._paged_decode_plain(q.reshape(len(lens), hkv, group * nq, d), cache, **kw)
+    po = po.reshape(o.shape)
+    tol = F16_TOL if dtype == torch.float16 else BF16_TOL
+    err = row_rel(o, po)
+    ok = err < tol and bool(torch.isfinite(o).all())
+    log(f"  paged {name:<20} lens {list(lens)} page {page} row_rel_err {err:.2e} (tol {tol:g}) "
+        f"max_abs_err {max_abs(o, po):.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"paged decode kernel disagrees with its plain version: {name}")
+    return max_abs(o, po)
+
+
 def phase_kernels_vs_plain() -> dict:
     log("kernel vs plain (the plain version in fp32 math on the card; TF32 off):")
     errs = {}
@@ -504,6 +616,35 @@ def phase_kernels_vs_plain() -> dict:
     _decode_scores_case("slice_Nkv4224_g2")
     _decode_scores_case("nq4_causal", nq=4, causal=True, valid=None, seed=1)
     _decode_scores_case("softcap", softcap=30.0, valid=None, seed=2)
+    # Continuous batching: the varlen forward at the serving packing and
+    # feature cases; paged decode at the serving step (page 256) and cases.
+    errs["varlen_fwd"] = _varlen_case("serving_packing", seqs=SERVE_LENS)
+    _varlen_case("cross_varlen", seqs=[300, 200], seqs_k=[900, 700], seed=1)
+    _varlen_case("noncausal", seqs=[300, 17, 500], causal=False, seed=2)
+    _varlen_case("window", seqs=SERVE_LENS, window=(256, -1), seed=3)
+    _varlen_case("softcap", seqs=[300, 17, 500], softcap=30.0, seed=4)
+    _varlen_case("alibi", seqs=[300, 17, 500], alibi=True, seed=5)
+    _varlen_case("fp16", seqs=SERVE_LENS, dtype=torch.float16, seed=6)
+    _varlen_case("d320", seqs=[300, 17, 500], d=320, seed=7)
+    _varlen_case("d1024", seqs=[300, 17, 500], d=1024, seed=8)
+    _varlen_case("mha", seqs=[300, 17, 500], hq=8, hkv=8, seed=9)
+    _varlen_case("padded_tail", seqs=[300, 17, 500], pad=45, seed=10)
+    _varlen_case("empty_segment", seqs=[300, 0, 500], seed=11)
+    serve_lens = [n + 1 for n in SERVE_LENS]  # the first decode step's cache
+    errs["paged_decode"] = _paged_case("serving_page256", lens=serve_lens)
+    _paged_case("int8_page256", lens=serve_lens, quantized=True, seed=1)
+    _paged_case("page128", lens=serve_lens, page=128, seed=2)
+    _paged_case("int8_page128", lens=serve_lens, page=128, quantized=True, seed=3)
+    _paged_case("nq4", lens=[n + 4 for n in SERVE_LENS], nq=4, seed=4)
+    _paged_case("int8_nq4_group4", lens=[n + 4 for n in SERVE_LENS], nq=4, group=4, hkv=2,
+                quantized=True, seed=5)
+    _paged_case("window_softcap", lens=serve_lens, window=256, softcap=30.0, seed=6)
+    _paged_case("ragged_with_zero", lens=[0, 1, 257, 1000], seed=7)
+    _paged_case("idle_slot", lens=serve_lens, idle=True, seed=8)
+    _paged_case("shuffled_table", lens=serve_lens, shuffle=True, seed=9)
+    _paged_case("int8_shuffled_page128", lens=serve_lens, page=128, shuffle=True,
+                quantized=True, seed=10)
+    _paged_case("fp16", lens=serve_lens, dtype=torch.float16, seed=11)
     return errs
 
 
@@ -631,6 +772,190 @@ def phase_main_path() -> dict:
         fail("tiny model: greedy tokens on the card differ from the CPU")
     return dict(launches=launches, prefill_ms=prefill_med, decode_tok_s=tok_s,
                 generate_ms=gen_s * 1e3, model=model, prompt=prompt)
+
+
+def _serve_counts(zero: bool = False) -> dict:
+    """The serving kernels' launch counts (set to 0 with ``zero``)."""
+    from ffpa_attn_tpu_torch.ops import decode, flash_fwd, paged, varlen
+
+    fns = {"flash_fwd": flash_fwd.flash_attention_forward, "decode": decode._decode_forward,
+           "varlen_fwd": varlen._varlen_forward, "paged_decode": paged.paged_decode_attention}
+    if zero:
+        for fn in fns.values():
+            fn.launches = 0
+    return {name: fn.launches for name, fn in fns.items()}
+
+
+def serve_prompts():
+    """The JAX serving bench's workload (cli/_e2e.py:_bench_serve_impl): B
+    prompt lengths 1024 - rng.integers(0, 512), then the prompts, from
+    numpy seed 0; the engine's requests continue from the same rng."""
+    rng = np.random.default_rng(0)
+    lens = [SERVE_PROMPT - int(rng.integers(0, SERVE_PROMPT // 2)) for _ in range(SERVE_B)]
+    if lens != SERVE_LENS:
+        fail(f"serving prompt lengths {lens} != {SERVE_LENS}")
+    prompts = [torch.from_numpy(rng.integers(0, SLICE["vocab_size"], (n,))).cuda() for n in lens]
+    return prompts, rng
+
+
+def _timed_serve(label, fn, want) -> float:
+    """One warm-up call, then one timed call with the launch counts set to 0
+    just before it and read just after; tokens/s = B * gen over the timed
+    call (cli/_e2e.py:124-132)."""
+    fn()
+    torch.cuda.synchronize()
+    _serve_counts(zero=True)
+    t0 = time.perf_counter()
+    toks = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = _serve_counts()
+    tok_s = SERVE_B * SERVE_GEN / dt
+    log(f"  {label}: {SERVE_B * SERVE_GEN} tokens in {dt * 1e3:.1f} ms = {tok_s:.1f} tokens/s, "
+        f"launches {counts}")
+    if counts != want:
+        fail(f"{label}: launch counts {counts} != expected {want}")
+    if tuple(toks.shape) != (SERVE_B, SERVE_GEN) or not bool(
+            ((toks >= 0) & (toks < SLICE["vocab_size"])).all()):
+        fail(f"{label}: bad tokens of shape {tuple(toks.shape)}")
+    return tok_s
+
+
+@torch.inference_mode()
+def _step_logits(model, prompts):
+    """The packed prefill's last logits, then the first decode step's logits
+    of the same greedy token over the dense shared-row cache, over bf16
+    pools and over int8 pools (teacher-forced: all three get that token)."""
+    from ffpa_attn_tpu_torch.models import init_kv_cache, pack_prompts, prefill_packed
+    from ffpa_attn_tpu_torch.models.serving import _batched_decode_step, _paged_decode_step
+    from ffpa_attn_tpu_torch.ops.paged import PagedKVCache, fill_from_prefill
+
+    cfg = model.cfg
+    lens = [int(p.shape[0]) for p in prompts]
+    base, dev = max(lens), prompts[0].device
+    packed, cu = pack_prompts(prompts, sum(lens))
+    cache = init_kv_cache(cfg, len(prompts), SERVE_MAX_LEN, device=dev)
+    logits, cache = prefill_packed(model, packed, cu, base, cache)
+    tok = logits.argmax(-1)
+    out = {"prefill": logits}
+    for quantized in (False, True):
+        pools = [fill_from_prefill(
+            PagedKVCache.alloc(len(lens), SERVE_MAX_LEN, cfg.n_kv_heads, cfg.head_dim,
+                               SERVE_PAGE, dtype=cfg.torch_dtype, quantized=quantized,
+                               device=dev),
+            c["k"][:, :, :base], c["v"][:, :, :base], lens) for c in cache]
+        out["int8" if quantized else "paged"], _ = _paged_decode_step(model, pools, tok)
+    out["dense"], _ = _batched_decode_step(
+        model, cache, torch.tensor(lens, dtype=torch.int32, device=dev), 0, tok, base)
+    return out
+
+
+def phase_serving(model) -> dict:
+    """Continuous batching at full width: ``serve_batch`` (packed varlen
+    prefill + shared-row decode), ``serve_batch_paged`` over bf16 and int8
+    pools, and a ``ServingEngine`` serving 8 requests over 4 slots, each
+    with its launch counts; the prefill's logits against the fp32 oracle's
+    per-segment attention, the paged step against the dense step, int8
+    against bf16, the engine's first tokens against ``prefill`` alone, and a
+    tiny model's serving logits on the card against the CPU's."""
+    from ffpa_attn_tpu_torch.models import (
+        ModelConfig, ServingEngine, init_kv_cache, params_from_jax, prefill, random_params,
+        serve_batch, serve_batch_paged,
+    )
+    from ffpa_attn_tpu_torch.ops.config import cdiv
+
+    cfg = model.cfg
+    prompts, rng = serve_prompts()
+    log(f"serving path: B{SERVE_B} prompts {SERVE_LENS} ({sum(SERVE_LENS)} packed tokens), gen "
+        f"{SERVE_GEN}, max_len {SERVE_MAX_LEN}, page {SERVE_PAGE}; model L{cfg.n_layers} "
+        f"dm{cfg.d_model} H{cfg.n_heads}/{cfg.n_kv_heads} Dh{cfg.head_dim} vocab "
+        f"{cfg.vocab_size}")
+    n_dec = cfg.n_layers * (SERVE_GEN - 1)
+    want = {"flash_fwd": 0, "decode": n_dec, "varlen_fwd": cfg.n_layers, "paged_decode": 0}
+    rates = {"serve_tokens_per_s": _timed_serve(
+        "serve_batch", lambda: serve_batch(model, prompts, SERVE_GEN, SERVE_MAX_LEN), want)}
+    want = dict(want, decode=0, paged_decode=n_dec)
+    for quantized, key in ((False, "serve_paged_tokens_per_s"),
+                           (True, "serve_paged_int8_tokens_per_s")):
+        rates[key] = _timed_serve(
+            f"serve_batch_paged{' int8' if quantized else ''}",
+            lambda q=quantized: serve_batch_paged(model, prompts, SERVE_GEN, SERVE_MAX_LEN,
+                                                  page_size=SERVE_PAGE, quantized=q), want)
+
+    # Logit gates: the prefill against the oracle's attention per segment,
+    # paged against dense, int8 against bf16 (first step, teacher-forced).
+    logits = _step_logits(model, prompts)
+    oracle = torch.cat([oracle_logits(model, p[None], logits["prefill"][i:i + 1].argmax(-1))[0]
+                        for i, p in enumerate(prompts)])
+    errs = {"prefill_vs_oracle": row_rel(logits["prefill"], oracle),
+            "paged_vs_dense": row_rel(logits["paged"], logits["dense"]),
+            "int8_vs_bf16": row_rel(logits["int8"], logits["paged"])}
+    tols = {"prefill_vs_oracle": BF16_TOL, "paged_vs_dense": PAGED_TOL, "int8_vs_bf16": INT8_TOL}
+    ok = all(errs[k] < tols[k] for k in errs) and all(
+        bool(torch.isfinite(t).all()) for t in logits.values())
+    log("  logits per sequence (of its max|logit|): " + " ".join(
+        f"{k} {v:.2e} (tol {tols[k]:g})" for k, v in errs.items()) + f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("serving logits disagree (oracle, paged vs dense, or int8 vs bf16)")
+
+    # The engine: 8 requests from the same rng over 4 slots.
+    requests = []
+    for _ in range(ENGINE_REQUESTS):
+        n = SERVE_PROMPT - int(rng.integers(0, SERVE_PROMPT // 2))
+        requests.append((torch.from_numpy(rng.integers(0, cfg.vocab_size, (n,))).cuda(),
+                         int(rng.integers(16, 65))))
+    eng = ServingEngine(model, batch_slots=ENGINE_SLOTS, max_len=SERVE_MAX_LEN,
+                        page_size=SERVE_PAGE)
+    full = eng.alloc.free_pages
+    t0 = time.perf_counter()
+    rids = {eng.submit(p, max_new_tokens=mx): (p, mx) for p, mx in requests}
+    done, steps = {}, 0
+    while not eng.done():
+        _serve_counts(zero=True)
+        ran = eng.steps_run
+        done.update(eng.step())
+        counts = _serve_counts()
+        if eng.steps_run > ran and counts["paged_decode"] != cfg.n_layers:
+            fail(f"engine step {steps}: {counts['paged_decode']} paged launches, expected "
+                 f"{cfg.n_layers}")
+        steps += 1
+        if steps > 10 * SERVE_GEN:
+            fail("the engine did not finish")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    tokens = sum(len(t) for t in done.values())
+    firsts_ok = True
+    for rid, (p, mx) in rids.items():
+        pad = cdiv(p.shape[0], SERVE_PAGE) * SERVE_PAGE
+        lg, _ = prefill(model, p[None], init_kv_cache(cfg, 1, pad))
+        firsts_ok &= len(done.get(rid, [])) == mx and done[rid][0] == int(lg.argmax(-1)[0])
+    ok = firsts_ok and set(done) == set(rids) and eng.alloc.free_pages == full
+    log(f"  ServingEngine: {ENGINE_REQUESTS} requests (prompts "
+        f"{[int(p.shape[0]) for p, _ in requests]}, max_new {[mx for _, mx in requests]}) over "
+        f"{ENGINE_SLOTS} slots in {steps} steps ({eng.steps_run} decode steps), {tokens} tokens in "
+        f"{dt * 1e3:.1f} ms = {tokens / dt:.1f} tokens/s, {cfg.n_layers} paged launches per "
+        f"step; every request complete with its first token = prefill alone "
+        f"{firsts_ok}; free pages {eng.alloc.free_pages} of {full} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the serving engine lost a request, a page, or its first tokens")
+    del eng
+
+    # Tiny model: serving logits on the card against the CPU's.
+    tiny = ModelConfig(vocab_size=128, d_model=64, n_layers=2, n_heads=2, n_kv_heads=1,
+                       head_dim=320, max_seq_len=512)
+    params = random_params(tiny, seed=2)
+    trng = np.random.default_rng(3)
+    tprompts = [torch.from_numpy(trng.integers(0, 128, (n,))) for n in (60, 40, 25)]
+    card = _step_logits(params_from_jax(params, tiny), [p.cuda() for p in tprompts])
+    cpu = _step_logits(params_from_jax(params, tiny, device="cpu"), tprompts)
+    terrs = {k: row_rel(card[k].cpu(), cpu[k]) for k in cpu}
+    ok = all(e < BF16_TOL for e in terrs.values())
+    log("  tiny model serving logits card vs cpu: " + " ".join(
+        f"{k} {e:.2e}" for k, e in terrs.items()) + f" (tol {BF16_TOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("tiny model: serving logits on the card differ from the CPU")
+    return dict(rates=rates, errs=errs, prompts=prompts,
+                launches={"varlen_fwd": cfg.n_layers, "paged_decode": n_dec})
 
 
 def _counts() -> dict:
@@ -1338,8 +1663,156 @@ def training_times(training: dict, windowed: dict, resident: dict) -> tuple:
     return rows, events
 
 
+def serving_times(errs: dict, serving: dict, model) -> tuple:
+    """The serving path under the profiler (one packed prefill, 8 paged
+    decode steps), then the varlen forward at the serving packing and paged
+    decode at the serving step (page 256, each sequence 64 tokens into its
+    generation), each beside its bound, its plain version and one PyTorch
+    call: SDPA over the packed T with a block-diagonal causal bool mask, and
+    for paged decode SDPA over the cache gathered dense with a length mask
+    (a yardstick: the gather is not timed)."""
+    import torch.nn.functional as F
+
+    from ffpa_attn_tpu_torch.models import init_kv_cache, pack_prompts, prefill_packed
+    from ffpa_attn_tpu_torch.models.serving import _paged_decode_step
+    from ffpa_attn_tpu_torch.ops import paged, varlen
+    from ffpa_attn_tpu_torch.ops.paged import PagedKVCache, fill_from_prefill
+    from ffpa_attn_tpu_torch.utils.profiling import (
+        bound_ms, device_window, paged_decode_counts, varlen_counts,
+    )
+
+    cfg = model.cfg
+    prompts = serving["prompts"]
+    lens = [int(p.shape[0]) for p in prompts]
+    packed, cu = pack_prompts(prompts, sum(lens))
+    state = {}
+
+    def run_prefill():
+        cache = init_kv_cache(cfg, len(lens), max(lens))
+        state["logits"], state["cache"] = prefill_packed(model, packed, cu, max(lens), cache)
+
+    def run_steps():
+        pools = [fill_from_prefill(
+            PagedKVCache.alloc(len(lens), SERVE_MAX_LEN, cfg.n_kv_heads, cfg.head_dim,
+                               SERVE_PAGE, dtype=cfg.torch_dtype), c["k"], c["v"], lens)
+            for c in state["cache"]]
+        tok = state["logits"].argmax(-1)
+        for _ in range(8):
+            logits, pools = _paged_decode_step(model, pools, tok)
+            tok = logits.argmax(-1)
+
+    log("where the time goes, continuous batching (torch.profiler, device time by kernel):")
+    run_prefill()
+    for name, fn in (("packed prefill", run_prefill), ("fill pools + paged decode x8", run_steps)):
+        w = device_window(fn, reps=1, warmup=1)
+        top = sorted(w["by_kernel"].items(), key=lambda kv: -kv[1])[:6]
+        log(f"  {name}: wall {w['wall_ms']:.2f} ms, device {w['device_ms']:.2f} ms, "
+            f"busy {w['busy'] * 100:.1f}% (idle {(1 - w['busy']) * 100:.1f}%)")
+        for kname, ms in top:
+            log(f"    {ms:9.3f} ms  {kname[:100]}")
+    del state
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    bf, hq, hkv, d = torch.bfloat16, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    scale = 1.0 / math.sqrt(d)
+    rows, events = [], {}
+
+    # Varlen forward at the serving packing (one prefill layer).
+    q, k, v, cu_q, _ = _varlen_inputs(SERVE_LENS, hq=hq, hkv=hkv, d=d, gen=gen)
+    t = q.shape[0]
+    kw = dict(scale=scale, causal=True)
+
+    def run_varlen():
+        return varlen._varlen_forward(q, k, v, cu_q, cu_q, **kw)
+
+    # The kernel alone; the wrapper also computes the metadata and the tile
+    # intervals on the device (a dozen small kernels) before it.
+    kms = _kernel_timed(run_varlen, "varlen_fwd_kernel", 20)
+    wms = _timed(run_varlen, 20)
+    log(f"  varlen_fwd at the serving packing: kernel {kms[0]:.4f} ms; the wrapper's device "
+        f"time with its metadata {wms[0]:.4f} ms, CUDA events {wms[1]:.4f} ms")
+    meta = varlen._segment_metadata(cu_q, cu_q, t, t, t, t)
+    pms = _timed(lambda: varlen._varlen_forward_plain(q, k, v, meta, **kw), 5)
+    seg = torch.repeat_interleave(torch.arange(len(SERVE_LENS), device="cuda"),
+                                  torch.tensor(SERVE_LENS, device="cuda"))
+    r = torch.arange(t, device="cuda")
+    block_causal = (seg[:, None] == seg[None, :]) & (r[None, :] <= r[:, None])
+    qh, kh, vh = (x.transpose(0, 1)[None] for x in (q, k, v))
+
+    def library():
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=block_causal,
+                                              enable_gqa=True)
+
+    lms = _timed(library, 10)
+    log(f"  library for varlen_fwd: scaled_dot_product_attention over the packed T{t} with a "
+        f"block-diagonal causal bool mask ({_sdpa_backend(library)} backend)")
+    flops, nbytes = varlen_counts(SERVE_LENS, SERVE_LENS, hq=hq, hkv=hkv, d=d, dv=d,
+                                  causal=True)
+    bms, bby = bound_ms(flops, nbytes)
+    rows.append(dict(
+        name="varlen_fwd", route="cuda", source="ffpa_attn_tpu_torch/csrc/varlen_fwd.cu",
+        replaces="ffpa_attn_tpu/ops/varlen.py:214", launches=serving["launches"]["varlen_fwd"],
+        max_abs_err=errs["varlen_fwd"], ms=kms[0], plain_ms=pms[0], bound_ms=bms,
+        bound_by=bby, library_ms=lms[0],
+    ))
+    events["varlen_fwd"] = (kms[1], pms[1], lms[1])
+    del q, k, v, qh, kh, vh, block_causal
+    torch.cuda.empty_cache()
+
+    # Paged decode at the serving step: four layers' pools in turn, so the
+    # K/V pages (44 MB a layer) do not sit in L2.
+    step_lens = [n + 64 for n in SERVE_LENS]
+    times = {}
+    for quantized in (False, True):
+        pools = [_paged_pools(step_lens, page=SERVE_PAGE, max_len=SERVE_MAX_LEN, hkv=hkv, d=d,
+                              quantized=quantized, gen=gen) for _ in range(cfg.n_layers)]
+        qd = _randn((SERVE_B, hq, 1, d), bf, gen)
+        it = iter(range(1 << 30))
+
+        def pick():
+            return pools[next(it) % len(pools)]
+
+        times[quantized] = _timed(lambda: paged.paged_decode_attention(qd, pick(), scale=scale),
+                                  100, warmup=8)
+        if quantized:
+            continue
+        qp = qd.reshape(SERVE_B, hkv, hq // hkv, d)
+        pms = _timed(lambda: paged._paged_decode_plain(qp, pick(), nq=1, scale=scale, softcap=0.0,
+                                                       window_left=-1), 20)
+        dense = [(paged._dense_rows(c.k_pages, c.page_table), paged._dense_rows(c.v_pages,
+                                                                                c.page_table))
+                 for c in pools]
+        cols = torch.arange(dense[0][0].shape[2], device="cuda")
+        valid = (cols[None, :] < torch.tensor(step_lens, device="cuda")[:, None])[:, None, None]
+
+        def gathered_sdpa():
+            kc, vc = dense[next(it) % len(dense)]
+            return F.scaled_dot_product_attention(qd, kc, vc, attn_mask=valid, enable_gqa=True)
+
+        lms = _timed(gathered_sdpa, 100, warmup=8)
+        del dense
+    log(f"  paged_decode at the serving step (lens {step_lens}, page {SERVE_PAGE}): bf16 pools "
+        f"{times[False][0]:.4f} ms [{times[False][1]:.4f}], int8 pools {times[True][0]:.4f} ms "
+        f"[{times[True][1]:.4f}]")
+    log("  yardstick for paged_decode (not one library call on the pools): "
+        "scaled_dot_product_attention over the cache gathered dense, with a length mask")
+    flops, nbytes = paged_decode_counts(step_lens, hq=hq, hkv=hkv, d=d, dv=d, nq=1)
+    bms, bby = bound_ms(flops, nbytes)
+    rows.append(dict(
+        name="paged_decode", route="cuda", source="ffpa_attn_tpu_torch/csrc/paged_decode.cu",
+        replaces="ffpa_attn_tpu/ops/paged.py:297",
+        launches=serving["launches"]["paged_decode"], max_abs_err=errs["paged_decode"],
+        ms=times[False][0], plain_ms=pms[0], bound_ms=bms, bound_by=bby, library_ms=lms[0],
+    ))
+    events["paged_decode"] = (times[False][1], pms[1], lms[1])
+    fl8, nb8 = paged_decode_counts(step_lens, hq=hq, hkv=hkv, d=d, dv=d, nq=1, quantized=True)
+    log(f"  paged_decode int8 bound_ms {bound_ms(fl8, nb8)[0]:.4f} ({bound_ms(fl8, nb8)[1]})")
+    torch.cuda.empty_cache()
+    return rows, events
+
+
 def phase_times(errs: dict, main_path: dict, training: dict, windowed: dict,
-                resident: dict) -> list:
+                resident: dict, serving: dict) -> list:
     import torch.nn.functional as F
 
     from ffpa_attn_tpu_torch.ops import decode, flash_fwd
@@ -1428,9 +1901,11 @@ def phase_times(errs: dict, main_path: dict, training: dict, windowed: dict,
         bound_by=bby, library_ms=lms[0],
     ))
     events["decode"] = (kms[1], pms[1], lms[1])
+    serve_rows, serve_events = serving_times(errs, serving, main_path["model"])
     train_rows, train_events = training_times(training, windowed, resident)
-    rows += train_rows
+    rows += train_rows + serve_rows
     events.update(train_events)
+    events.update(serve_events)
     log("times (device ms per call from torch.profiler; CUDA-event ms per call in brackets):")
     for r in rows:
         ev = events[r["name"]]
@@ -1454,6 +1929,9 @@ def main() -> int:
     phase_build()
     errs = phase_kernels_vs_plain()
     main_path = phase_main_path()
+    serving = phase_serving(main_path["model"])
+    log(f"serving tokens/s on {smi}: " + " ".join(
+        f"{k} {v:.1f}" for k, v in serving["rates"].items()))
     training = phase_training()
     resident = phase_resident_training(training["oracle"])
     partial = phase_partial_residency(training.pop("oracle"))
@@ -1463,14 +1941,16 @@ def main() -> int:
     phase_decode_grad()
     windowed = phase_windowed()
     phase_tiny_training()
-    rows = phase_times(errs, main_path, training, windowed, resident)
+    rows = phase_times(errs, main_path, training, windowed, resident, serving)
     log(f"summary: prefill_ms {main_path['prefill_ms']:.3f} decode_tokens_per_s "
         f"{main_path['decode_tok_s']:.2f} generate_ms {main_path['generate_ms']:.1f} "
         f"train_step_ms {training['step_ms']:.2f} train_tokens_per_s {training['tok_s']:.1f} "
         f"s_resident_step_ms {resident['step_ms']:.2f} s_resident_tokens_per_s "
         f"{resident['tok_s']:.1f} partial_step_ms {partial['step_ms']:.2f} "
         f"op_bwd_ms_resident {op_level['ms']['resident']:.3f} op_bwd_ms_handoff "
-        f"{op_level['ms']['handoff']:.3f} loss_rel_err {training['loss_err']:.2e} "
+        f"{op_level['ms']['handoff']:.3f} "
+        + "".join(f"{k} {v:.1f} " for k, v in serving["rates"].items())
+        + f"loss_rel_err {training['loss_err']:.2e} "
         f"grad_rel_err {training['grad_err']:.2e} s_resident_grad_rel_err "
         f"{resident['grad_err']:.2e} total {time.perf_counter() - t_start:.1f} s on {smi}")
     # "ms" is the kernel's time; "kernel_ms" repeats it under its longer name.

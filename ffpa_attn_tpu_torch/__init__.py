@@ -7,14 +7,29 @@ first use). CPU tensors run each kernel's plain PyTorch version.
 """
 
 from .functional import Backend, CudaBackend, FFPAAttnMeta, SDPABackend
-from .interface import ffpa_attn_func
+from .interface import ffpa_attn_func, ffpa_attn_varlen_func
+from .ops.paged import (
+    PageAllocator,
+    PagedKVCache,
+    append_token,
+    assign_sequence,
+    fill_from_prefill,
+    paged_decode_attention,
+)
 from .version import __version__
 
 __all__ = [
     "ffpa_attn_func",
+    "ffpa_attn_varlen_func",
     "Backend",
     "SDPABackend",
     "CudaBackend",
     "FFPAAttnMeta",
+    "PageAllocator",
+    "PagedKVCache",
+    "append_token",
+    "assign_sequence",
+    "fill_from_prefill",
+    "paged_decode_attention",
     "__version__",
 ]

@@ -11,7 +11,8 @@
 //     walks its KV slice with an fp32 online softmax, writing fp32 partials
 //     (o_s normalised by its own l, lse_s = m + log l);
 //   launch 2, grid (ceil(Dv / 128), R, B * Hkv): merges the splits by LSE,
-//     lse = log sum exp(lse_s), o = sum exp(lse_s - lse) * o_s.
+//     lse = log sum exp(lse_s), o = sum exp(lse_s - lse) * o_s (split_merge.cuh,
+//     shared with the paged decode kernel).
 //
 // The tile of launch 1 is split-D, with nvcuda::wmma bf16/f16 fragments and
 // fp32 accumulation: S = Q K^T accumulates over 64-wide head-dim chunks, the
@@ -28,6 +29,7 @@
 #include <mma.h>
 
 #include "common.cuh"
+#include "split_merge.cuh"
 
 namespace {
 
@@ -43,7 +45,6 @@ constexpr int LDS = KV_TILE + PAD_F;  // S row stride
 constexpr int NSTAGES = 2;    // stream slots (ops/config.py DECODE_STREAM_STAGES)
 constexpr int NWARPS = 8;
 constexpr int NTHREADS = NWARPS * 32;
-constexpr int MERGE_THREADS = 128;
 
 struct DecodeParams {
   const void* q;    // packed [B, Hkv, R, D]
@@ -323,40 +324,6 @@ __global__ void __launch_bounds__(NTHREADS) decode_kernel(const DecodeParams p) 
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(MERGE_THREADS)
-    decode_merge_kernel(const float* __restrict__ o_part, const float* __restrict__ lse_part,
-                        T* __restrict__ o, float* __restrict__ lse, int R, int splits, int Dv) {
-  extern __shared__ float w[];  // [splits] merge weights
-  __shared__ float lse_tot;
-  const int r = blockIdx.y;
-  const long long bh = blockIdx.z;
-  const float* lp = lse_part + bh * splits * R + r;  // lse_s at lp[s * R]
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    float mx = -INFINITY;
-    for (int s = lane; s < splits; s += 32) mx = fmaxf(mx, lp[(long long)s * R]);
-    mx = warp_max(mx);
-    float sum = 0.f;
-    if (mx != -INFINITY)
-      for (int s = lane; s < splits; s += 32) sum += __expf(lp[(long long)s * R] - mx);
-    sum = warp_sum(sum);
-    const float tot = (mx == -INFINITY) ? -INFINITY : mx + logf(sum);
-    for (int s = lane; s < splits; s += 32)
-      w[s] = (mx == -INFINITY) ? 0.f : __expf(lp[(long long)s * R] - tot);
-    if (lane == 0) lse_tot = tot;
-  }
-  __syncthreads();
-  const int col = blockIdx.x * MERGE_THREADS + threadIdx.x;
-  if (col < Dv) {
-    float acc = 0.f;
-    for (int s = 0; s < splits; ++s)
-      acc += w[s] * o_part[((bh * splits + s) * R + r) * Dv + col];
-    o[(bh * R + r) * Dv + col] = from_float<T>(acc);
-  }
-  if (blockIdx.x == 0 && threadIdx.x == 0) lse[bh * R + r] = lse_tot;
-}
-
 template <typename T, int BQ>
 cudaError_t launch_partials(const DecodeParams& p, dim3 grid, cudaStream_t stream) {
   auto kern = decode_kernel<T, BQ>;
@@ -381,11 +348,8 @@ cudaError_t launch_decode(const DecodeParams& p, void* o, float* lse, int block_
     default: return cudaErrorInvalidValue;
   }
   if (e != cudaSuccess) return e;
-  const dim3 mgrid((p.Dv + MERGE_THREADS - 1) / MERGE_THREADS, p.nrows, B * p.Hkv);
-  const size_t msmem = (size_t)p.num_splits * sizeof(float);
-  decode_merge_kernel<T><<<mgrid, MERGE_THREADS, msmem, st>>>(
-      p.o_part, p.lse_part, static_cast<T*>(o), lse, p.nrows, p.num_splits, p.Dv);
-  return cudaGetLastError();
+  return launch_split_merge<T>(p.o_part, p.lse_part, o, lse, p.nrows, p.num_splits, p.Dv,
+                               B * p.Hkv, st);
 }
 
 }  // namespace

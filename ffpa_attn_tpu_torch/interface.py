@@ -119,4 +119,49 @@ def ffpa_attn_func(
     )
 
 
-__all__ = ["ffpa_attn_func"]
+def ffpa_attn_varlen_func(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    cu_seqlens_q: torch.Tensor,
+    cu_seqlens_k: Optional[torch.Tensor],
+    max_seqlen_q: int,
+    max_seqlen_k: int,
+    *,
+    dropout_p: float = 0.0,
+    softmax_scale: Optional[float] = None,
+    causal: bool = False,
+    enable_gqa: bool = False,
+    return_lse: bool = False,
+    **kwargs,
+):
+    """Variable-length packed-THD attention (the FlashAttention-style
+    surface of the JAX package's ``ffpa_attn_varlen_func``).
+
+    Args:
+      q: ``[Tq, Hq, D]`` fp16/bf16 packed queries; k: ``[Tk, Hkv, D]``;
+        v: ``[Tk, Hkv, Dv]``.
+      cu_seqlens_q / cu_seqlens_k: int32 ``[B + 1]`` segment offsets
+        (``cu_seqlens_k=None`` reuses the queries'); a segment whose keys
+        outnumber its queries is tail-aligned under ``causal``.
+      **kwargs: ``softcap``, ``window_size``, ``alibi_slopes`` ([Hq]),
+        ``sinks`` ([Hq]), ``block_q`` / ``block_kv`` (the kernel's tiles);
+        the FlashAttention options the JAX package rejects raise one
+        NotImplementedError naming them all, anything else TypeError.
+
+    Returns:
+      ``[Tq, Hq, Dv]`` in the input dtype (and the fp32 lse ``[Hq, Tq]``
+      with ``return_lse``), on the inputs' device: the kernel for CUDA
+      tensors, its plain version for CPU tensors. The backward is a later
+      slice of the port.
+    """
+    from .ops.varlen import ffpa_varlen_attention
+
+    return ffpa_varlen_attention(
+        q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q, max_seqlen_k,
+        dropout_p=dropout_p, softmax_scale=softmax_scale, causal=causal,
+        enable_gqa=enable_gqa, return_lse=return_lse, **kwargs,
+    )
+
+
+__all__ = ["ffpa_attn_func", "ffpa_attn_varlen_func"]

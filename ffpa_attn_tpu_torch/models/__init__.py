@@ -1,9 +1,12 @@
-"""Model layer: the large-head-dim transformer LM, its serving path and its
-training step."""
+"""Model layer: the large-head-dim transformer LM, its serving paths
+(``generate``, continuous batching over a dense or paged cache, the serving
+engine) and its training step."""
 
 from .convert import params_from_jax, params_to_jax, random_params
+from .engine import ServingEngine
 from .generate import decode_step, generate, init_kv_cache, prefill
 from .sampling import filter_logits, sample_logits
+from .serving import pack_prompts, prefill_packed, serve_batch, serve_batch_paged
 from .transformer import (
     ModelConfig,
     Transformer,
@@ -27,6 +30,11 @@ __all__ = [
     "prefill",
     "decode_step",
     "generate",
+    "pack_prompts",
+    "prefill_packed",
+    "serve_batch",
+    "serve_batch_paged",
+    "ServingEngine",
     "filter_logits",
     "sample_logits",
 ]

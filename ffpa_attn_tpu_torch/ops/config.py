@@ -14,6 +14,10 @@ never refused by the card.
   <= 64 * 512. Row tiles 64 (Dv <= 512) and 32 (Dv <= 1024).
 * Decode (``csrc/decode.cu``): the fp32 O tile of the PackGQA rows lives in
   shared memory; Q/K and V chunks stream through two slots.
+* Packed varlen forward (``csrc/varlen_fwd.cu``): the forward's block, with
+  the row tile's segment ids and ranks in shared memory.
+* Paged decode (``csrc/paged_decode.cu``): the decode block (row tiles 16,
+  32, 64), with a staging tile for int8 pools.
 * Backward (``csrc/flash_bwd.cu``), 16 warps and the forward's chunk ring:
   - dK/dV: a block owns a 32-row KV tile with K and V resident in shared
     memory and streams 128-row Q tiles. Its two fp32 accumulators (dK and
@@ -53,6 +57,7 @@ FWD_ACC_ELEMS = 64 * 512
 # Row tiles the kernels are instantiated for.
 FWD_ROW_TILES = (64, 32)
 ROW_TILES = (128, 64, 32, 16)  # decode (wmma fragments are 16 rows)
+PAGED_ROW_TILES = (64, 32, 16)  # paged decode (csrc/paged_decode.cu)
 # Backward tiles (flash_bwd.cu): the dK/dV kernel's owned KV rows and
 # streamed Q rows; the dQ kernels' row tiles are FWD_ROW_TILES.
 DKDV_KV_TILE = 32
@@ -151,6 +156,34 @@ def decode_smem_bytes(cfg: BlockConfig, dv: int, itemsize: int = 2) -> int:
     p_tile = bq * (bkv + _PAD_T) * itemsize
     slots = DECODE_STREAM_STAGES * (bq + bkv) * (D_CHUNK + _PAD_T) * itemsize
     return o_tile + s_tile + p_tile + slots + 3 * bq * 4
+
+
+def varlen_smem_bytes(cfg: BlockConfig, d: int, dv: int, itemsize: int = 2) -> int:
+    """Shared memory of one packed varlen forward block
+    (``csrc/varlen_fwd.cu``): the forward's block plus the row tile's
+    segment ids and ranks (int32). Key metadata is read from device memory
+    into registers, one tile at a time."""
+    return fwd_smem_bytes(cfg, d, dv, itemsize) + 2 * cfg.block_q * 4
+
+
+def varlen_fits(cfg: BlockConfig, d: int, dv: int, itemsize: int = 2) -> bool:
+    """Whether the varlen forward takes this row tile at (D, Dv): the
+    forward's register bound on the fp32 O tile and its shared memory."""
+    return (
+        cfg.block_q in FWD_ROW_TILES
+        and cfg.block_q * _round_up(dv, D_CHUNK) <= FWD_ACC_ELEMS
+        and varlen_smem_bytes(cfg, d, dv, itemsize) <= SMEM_LIMIT_BYTES
+    )
+
+
+def paged_smem_bytes(cfg: BlockConfig, dv: int, itemsize: int = 2,
+                     quantized: bool = False) -> int:
+    """Shared memory of one paged decode block (``csrc/paged_decode.cu``):
+    the decode block's, plus for int8 pools a [KV_TILE, 64] staging tile
+    in the query type that each int8 chunk is widened into (the values
+    only; the scales multiply S and P, never the tile)."""
+    stage = cfg.block_kv * (D_CHUNK + _PAD_T) * itemsize if quantized else 0
+    return decode_smem_bytes(cfg, dv, itemsize) + stage
 
 
 def dkdv_col_passes(d: int, dv: int) -> int:
@@ -256,6 +289,10 @@ __all__ = [
     "fwd_smem_bytes",
     "fwd_fits",
     "decode_smem_bytes",
+    "varlen_smem_bytes",
+    "varlen_fits",
+    "PAGED_ROW_TILES",
+    "paged_smem_bytes",
     "default_config",
     "DKDV_KV_TILE",
     "DKDV_Q_TILE",

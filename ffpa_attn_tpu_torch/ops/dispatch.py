@@ -7,6 +7,7 @@ import torch
 
 from .config import (
     FWD_ROW_TILES,
+    PAGED_ROW_TILES,
     SMEM_LIMIT_BYTES,
     BlockConfig,
     decode_smem_bytes,
@@ -14,6 +15,8 @@ from .config import (
     dkdv_col_passes,
     dq_fits,
     from_s_fits,
+    paged_smem_bytes,
+    varlen_fits,
 )
 
 
@@ -48,6 +51,31 @@ def pick_decode_config(
     return cfg
 
 
+def pick_varlen_config(*, d: int, dv: int, tq: int, dtype: torch.dtype) -> BlockConfig:
+    """Packed varlen forward row tile: the taller of FWD_ROW_TILES that
+    fits (D, Dv), shrunk to 32 for a packing of at most 32 query rows."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    for bq in FWD_ROW_TILES:
+        cfg = BlockConfig(block_q=bq).clamp(tq, 0, FWD_ROW_TILES)
+        if varlen_fits(cfg, d, dv, itemsize):
+            return cfg
+    raise ValueError(f"no varlen row tile fits D={d}, Dv={dv}")
+
+
+def pick_paged_config(*, dv: int, dtype: torch.dtype, rows: int,
+                      quantized: bool) -> BlockConfig:
+    """Paged decode row tile: the smallest of PAGED_ROW_TILES that holds the
+    ``rows`` packed GQA rows (group * nq), shrunk until the block fits
+    shared memory (a taller packing takes several row blocks)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    cfg = BlockConfig(block_q=64).clamp(rows, 0, PAGED_ROW_TILES)
+    while paged_smem_bytes(cfg, dv, itemsize, quantized) > SMEM_LIMIT_BYTES:
+        if cfg.block_q == 16:
+            raise ValueError(f"no paged decode row tile fits shared memory at Dv={dv}")
+        cfg = BlockConfig(block_q=cfg.block_q // 2)
+    return cfg
+
+
 # The from-S dK/dV pass keeps dK in the kernel up to this many keys and
 # leaves it to banded dK (causal) or one product (otherwise) beyond. Set by
 # tools/torch_from_s_probe.py on an H100 (B1 H8/4 causal bf16, D320 and
@@ -76,5 +104,5 @@ def pick_backward_config(
     raise ValueError(f"no backward row tile fits D={d}, Dv={dv}")
 
 
-__all__ = ["pick_forward_config", "pick_decode_config", "pick_backward_config",
-           "FROM_S_DK_IN_MAX_NKV"]
+__all__ = ["pick_forward_config", "pick_decode_config", "pick_varlen_config",
+           "pick_paged_config", "pick_backward_config", "FROM_S_DK_IN_MAX_NKV"]

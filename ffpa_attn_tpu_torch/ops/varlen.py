@@ -1,0 +1,451 @@
+"""Variable-length (packed THD) attention: the CUDA kernel
+``csrc/varlen_fwd.cu`` and its plain PyTorch version.
+
+Replaces the Pallas ``_varlen_fwd_kernel`` of ``ffpa_attn_tpu/ops/varlen.py``
+(launched by its ``_varlen_forward``).
+
+``cu_seqlens`` expand, with torch ops on the tensor's device and no host
+sync, into per-token int32 metadata (``_segment_metadata``): segment id and
+the tail-aligned causal rank, so the keep-mask is the JAX package's three
+compares ``(q_seg == k_seg) & (k_pos <= q_rank [+ wr]) [& k_pos >= q_rank -
+wl]`` (``_varlen_mask``). ``_tile_needed`` and ``_interval_schedule`` turn
+the metadata into each Q tile's [jmin, jmax] interval of KV tiles, computed
+at the kernel's own tile sizes; the kernel reads the intervals from device
+memory and walks only those tiles.
+
+Bound on an H100: bytes, barely. The forward does 4 * Hq * D flop per
+attended (row, col) pair, summed over the segments' bands; at the serving
+packing (4 prompts of 589..886 tokens, Hq8 D512 causal) 1.8e10 flop per
+layer, 0.018 ms at 989 TFLOP/s, against 0.022 ms for its 72 MB (q, k, v,
+o once each) at 3.35 TB/s. A kernel that re-reads K/V per Q tile is bound
+by its products long before either.
+
+Design against that bound: the dense forward's block (split-D, the fp32 O
+tile in the registers of 16 warps, mma.sync fed by ldmatrix, K/V through a
+cp.async ring), reading the packed [T, H, D] layout through strides (no
+head-major copy, no padding of T) and walking only its interval's KV tiles,
+so nearly every cross-segment tile is skipped.
+
+The varlen backward (kernels ``_varlen_dkdv_kernel`` and
+``_varlen_dq_kernel``) is the next slice: ``_VarlenCore``'s backward raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from ..env import ENV
+from ..logger import init_logger
+from . import _build
+from .config import (
+    D_CHUNK, FWD_ROW_TILES, KV_TILE, BlockConfig, cdiv, varlen_fits, varlen_smem_bytes,
+)
+from .flash_fwd import _pad_last, check_kernel_inputs
+from .reference import DEFAULT_MASK_VALUE
+
+logger = init_logger(__name__)
+
+# Kwargs the reference rejects and the varlen path does not implement
+# (softcap, window_size, alibi_slopes and sinks are supported natively).
+_REJECTED_KWARGS = (
+    "attention_mask",
+    "attn_mask",
+    "block_mask",
+    "score_mod",
+    "aux_tensors",
+    "seqused_k",
+    "block_table",
+    "num_splits",
+)
+
+_REJECT_DEFAULTS = {
+    "num_splits": 1,
+}
+
+_BIG = 2**30
+
+
+def _check_supported_options(kwargs: dict) -> None:
+    """Consolidated rejection: every offending option named in one
+    NotImplementedError, an unknown keyword a TypeError."""
+    offending = []
+    for name in _REJECTED_KWARGS:
+        if name in kwargs:
+            val = kwargs.pop(name)
+            default = _REJECT_DEFAULTS.get(name)
+            if val is not None and val != default:
+                offending.append(name)
+    if kwargs:
+        raise TypeError(
+            f"ffpa_attn_varlen_func() got unexpected keyword argument(s): "
+            f"{', '.join(sorted(kwargs))}"
+        )
+    if offending:
+        raise NotImplementedError(
+            "ffpa_attn_varlen_func does not support non-default values for: "
+            + ", ".join(sorted(offending))
+        )
+
+
+def _segment_metadata(cu_q, cu_k, tq: int, tk: int, tq_pad: int, tk_pad: int):
+    """Expand cu_seqlens into per-token (q_seg, q_rank, k_seg, k_pos) int32
+    arrays of lengths tq_pad and tk_pad, on the device of ``cu_q``.
+
+    ``q_rank[t]`` is the intra-segment q position + (len_k - len_q), so the
+    causal mask is ``k_pos <= q_rank`` (tail-aligned per segment). Tokens
+    past ``tq`` / ``tk`` get segment id -1 (q) / -2 (k) and never match; the
+    tail in ``[cu[-1], T)`` that ``pack_prompts`` pads with forms the
+    pseudo-segment B (only ``t >= T`` is set to -1), as in the JAX package.
+    """
+    dev = cu_q.device
+    cu_q = cu_q.to(torch.int32)
+    cu_k = cu_k.to(device=dev, dtype=torch.int32)
+    nb = cu_q.shape[0]
+    tq_ids = torch.arange(tq_pad, dtype=torch.int32, device=dev)
+    tk_ids = torch.arange(tk_pad, dtype=torch.int32, device=dev)
+    q_seg = torch.searchsorted(cu_q[1:].contiguous(), tq_ids, right=True).to(torch.int32)
+    k_seg = torch.searchsorted(cu_k[1:].contiguous(), tk_ids, right=True).to(torch.int32)
+    q_start = cu_q[q_seg.long().clamp(0, nb - 2)]
+    k_start = cu_k[k_seg.long().clamp(0, nb - 2)]
+    len_q = cu_q[(q_seg.long() + 1).clamp(0, nb - 1)] - q_start
+    len_k_of_q = cu_k[(q_seg.long() + 1).clamp(0, nb - 1)] - cu_k[q_seg.long().clamp(0, nb - 2)]
+    q_pos = tq_ids - q_start
+    q_rank = q_pos + (len_k_of_q - len_q)
+    k_pos = tk_ids - k_start
+    q_seg = torch.where(tq_ids < tq, q_seg, -1)
+    k_seg = torch.where(tk_ids < tk, k_seg, -2)
+    return q_seg, q_rank.to(torch.int32), k_seg, k_pos.to(torch.int32)
+
+
+def _varlen_mask(q_seg, q_rank, k_seg, k_pos, causal: bool,
+                 window_left: int = -1, window_right: int = -1):
+    """Keep-mask from column-shaped q metadata and row-shaped k metadata:
+    the sliding window is the dense path's band around the tail-aligned
+    rank, ``k_pos in [q_rank - left, q_rank + right]``, per segment."""
+    keep = q_seg == k_seg
+    wr_eff = 0 if causal else window_right
+    if causal or window_right >= 0:
+        keep = keep & (k_pos <= q_rank + wr_eff)
+    if window_left >= 0:
+        keep = keep & (k_pos >= q_rank - window_left)
+    return keep
+
+
+def _tile_needed(q_seg, q_rank, k_seg, k_pos, bq, bkv, causal,
+                 window_left: int = -1, window_right: int = -1):
+    """``needed [nqb, nkb]``: False only where the (Q tile, KV tile) pair is
+    provably fully masked (disjoint segment ranges, or every k position
+    past every q rank under causal, or every k position below every row's
+    window) — conservative for any packing."""
+    nqb = q_seg.shape[0] // bq
+    nkb = k_seg.shape[0] // bkv
+    qs = q_seg.reshape(nqb, bq)
+    qr = torch.where(qs >= 0, q_rank.reshape(nqb, bq), -_BIG)
+    ks = k_seg.reshape(nkb, bkv)
+    kp = torch.where(ks >= 0, k_pos.reshape(nkb, bkv), _BIG)
+
+    q_seg_min = torch.where(qs >= 0, qs, _BIG).amin(dim=1)
+    q_seg_max = torch.where(qs >= 0, qs, -_BIG).amax(dim=1)
+    q_rank_max = qr.amax(dim=1)
+    q_rank_min = torch.where(qs >= 0, q_rank.reshape(nqb, bq), _BIG).amin(dim=1)
+    k_seg_min = torch.where(ks >= 0, ks, _BIG).amin(dim=1)
+    k_seg_max = torch.where(ks >= 0, ks, -_BIG).amax(dim=1)
+    k_pos_min = kp.amin(dim=1)
+    k_pos_max = torch.where(ks >= 0, k_pos.reshape(nkb, bkv), -_BIG).amax(dim=1)
+
+    needed = (k_seg_min[None, :] <= q_seg_max[:, None]) & (
+        k_seg_max[None, :] >= q_seg_min[:, None]
+    )
+    wr_eff = 0 if causal else window_right
+    if causal or window_right >= 0:
+        needed = needed & (k_pos_min[None, :] <= q_rank_max[:, None] + wr_eff)
+    if window_left >= 0:
+        needed = needed & (k_pos_max[None, :] >= q_rank_min[:, None] - window_left)
+    return needed
+
+
+def _interval_schedule(needed):
+    """Per-row [lo, hi] bounds of the needed columns (int32); an empty row
+    collapses to [0, 0], which the kernel still computes, fully masked."""
+    cols = needed.shape[1]
+    ids = torch.arange(cols, dtype=torch.int32, device=needed.device)
+    lo = torch.where(needed, ids[None, :], cols).amin(dim=1).to(torch.int32)
+    hi = torch.where(needed, ids[None, :], -1).amax(dim=1).to(torch.int32)
+    hi = hi.clamp_min(0)
+    lo = torch.minimum(lo, hi)
+    return lo, hi
+
+
+def _varlen_forward_plain(q, k, v, meta, *, scale, causal, softcap=0.0,
+                          window=(-1, -1), alibi=None):
+    """The kernel's function in plain PyTorch (fp32 math) on packed q [Tq,
+    Hq, D], k [Tk, Hkv, D], v [Tk, Hkv, Dv] and the metadata of
+    ``_segment_metadata``: (o [Tq, Hq, Dv] in q.dtype, lse [Hq, Tq] fp32).
+    A row with no attended key gives o = 0 and lse = MASK + log(1e-38)."""
+    tq, hq, _ = q.shape
+    tk, hkv, _ = k.shape
+    q_seg, q_rank, k_seg, k_pos = (m.to(q.device) for m in meta)
+    q_seg, q_rank, k_seg, k_pos = q_seg[:tq], q_rank[:tq], k_seg[:tk], k_pos[:tk]
+    group = hq // hkv
+    qh = q.transpose(0, 1).float()
+    kh = k.transpose(0, 1).float().repeat_interleave(group, dim=0)
+    vh = v.transpose(0, 1).float().repeat_interleave(group, dim=0)
+    s = torch.einsum("htd,hsd->hts", qh, kh) * scale
+    if softcap > 0.0:
+        s = softcap * torch.tanh(s / softcap)
+    if alibi is not None:
+        dist = (q_rank[:, None] - k_pos[None, :]).abs().float()
+        s = s - alibi.float().reshape(hq, 1, 1) * dist
+    keep = _varlen_mask(q_seg[:, None], q_rank[:, None], k_seg[None, :], k_pos[None, :],
+                        causal, int(window[0]), -1 if causal else int(window[1]))
+    s = torch.where(keep, s, DEFAULT_MASK_VALUE)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(keep, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("hts,hsd->htd", p, vh) / torch.where(l == 0.0, torch.ones_like(l), l)
+    lse = (m + torch.log(l.clamp_min(1e-38)))[..., 0]
+    return o.transpose(0, 1).to(q.dtype), lse
+
+
+_VARLEN_ARGTYPES = (
+    [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 6 + [ctypes.c_void_p] * 9
+    + [ctypes.c_int] * 9 + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+)
+
+
+def _varlen_lib() -> ctypes.CDLL:
+    lib = _build.load("varlen_fwd")
+    if lib.ffpa_varlen_fwd.argtypes is None:
+        lib.ffpa_varlen_fwd.argtypes = _VARLEN_ARGTYPES
+        lib.ffpa_varlen_fwd.restype = ctypes.c_int
+    return lib
+
+
+def _strided_rows(x: torch.Tensor, width: int) -> torch.Tensor:
+    """``x`` [T, H, width'] padded to ``width`` columns, with a unit last
+    stride and 16-byte aligned row and head strides (what cp.async needs);
+    a copy only where ``x`` is not already so."""
+    x = _pad_last(x, width)
+    ok = (x.stride(2) == 1 and x.stride(0) % 8 == 0 and x.stride(1) % 8 == 0
+          and x.data_ptr() % 16 == 0)
+    return x if ok else x.contiguous()
+
+
+def _varlen_kernel(q, k, v, meta, intervals, config: BlockConfig, *, scale, causal,
+                   softcap, window, alibi):
+    """Launch ``csrc/varlen_fwd.cu`` (same contract as
+    ``_varlen_forward_plain``)."""
+    check_kernel_inputs("_varlen_forward", q, k, v)
+    tq, hq, d = q.shape
+    tk, hkv, _ = k.shape
+    dv = v.shape[-1]
+    d_pad, dv_pad = cdiv(d, D_CHUNK) * D_CHUNK, cdiv(dv, D_CHUNK) * D_CHUNK
+    q_, k_, v_ = _strided_rows(q, d_pad), _strided_rows(k, d_pad), _strided_rows(v, dv_pad)
+    o = torch.empty((tq, hq, dv_pad), dtype=q.dtype, device=q.device)
+    lse = torch.empty((hq, tq), dtype=torch.float32, device=q.device)
+    jmin, jmax = intervals
+    alibi_ptr = None
+    if alibi is not None:
+        alibi = alibi.to(device=q.device, dtype=torch.float32).contiguous()
+        alibi_ptr = alibi.data_ptr()
+    q_seg, q_rank, k_seg, k_pos = meta
+    if ENV.device_log_level() >= 2:
+        logger.info(
+            "varlen_fwd launch grid=(%d,%d) block_q=%d smem=%d D=%d Dv=%d Tq=%d Tk=%d",
+            hq, jmin.shape[0], config.block_q,
+            varlen_smem_bytes(config, d_pad, dv_pad, q.element_size()), d_pad, dv_pad, tq, tk,
+        )
+    lib = _varlen_lib()
+    with torch.cuda.device(q.device):
+        err = lib.ffpa_varlen_fwd(
+            q_.data_ptr(), k_.data_ptr(), v_.data_ptr(),
+            q_.stride(0), q_.stride(1), k_.stride(0), k_.stride(1), v_.stride(0), v_.stride(1),
+            o.data_ptr(), lse.data_ptr(), q_seg.data_ptr(), q_rank.data_ptr(),
+            k_seg.data_ptr(), k_pos.data_ptr(), jmin.data_ptr(), jmax.data_ptr(), alibi_ptr,
+            int(q.dtype == torch.float16), config.block_q, hq, hkv, tq, tk, jmin.shape[0],
+            d_pad, dv_pad, float(scale), float(softcap), int(window[0]),
+            0 if causal else int(window[1]),  # causal is the band's right edge 0
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _build.check(lib, err, "varlen_fwd kernel launch")
+    _varlen_forward.launches += 1
+    return (o if dv_pad == dv else o[..., :dv]), lse
+
+
+def _varlen_forward(q, k, v, cu_q, cu_k, *, scale, causal, config: Optional[BlockConfig] = None,
+                    softcap: float = 0.0, window: tuple = (-1, -1), alibi=None):
+    """Packed varlen forward: (o [Tq, Hq, Dv], lse [Hq, Tq] fp32).
+
+    The metadata and the tile intervals are computed at the kernel's tiles
+    (``config.block_q`` query rows, KV_TILE keys) on the inputs' device. CPU
+    tensors run the plain version; CUDA tensors launch the kernel, or raise
+    for what it does not take."""
+    from .dispatch import pick_varlen_config
+
+    tq, _, d = q.shape
+    tk = k.shape[0]
+    if config is None:
+        config = pick_varlen_config(d=cdiv(d, D_CHUNK) * D_CHUNK,
+                                    dv=cdiv(v.shape[-1], D_CHUNK) * D_CHUNK, tq=tq,
+                                    dtype=q.dtype)
+    bq = config.block_q
+    tq_pad, tk_pad = cdiv(max(tq, 1), bq) * bq, cdiv(max(tk, 1), KV_TILE) * KV_TILE
+    meta = _segment_metadata(cu_q.to(q.device), cu_k.to(q.device), tq, tk, tq_pad, tk_pad)
+    window = (int(window[0]), -1 if causal else int(window[1]))
+    if q.device.type == "cpu":
+        return _varlen_forward_plain(q, k, v, meta, scale=scale, causal=causal, softcap=softcap,
+                                     window=window, alibi=alibi)
+    needed = _tile_needed(*meta, bq, KV_TILE, causal, window[0], window[1])
+    intervals = _interval_schedule(needed)
+    return _varlen_kernel(q, k, v, meta, intervals, config, scale=scale, causal=causal,
+                          softcap=softcap, window=window, alibi=alibi)
+
+
+_varlen_forward.launches = 0
+
+
+def _varlen_apply_sinks(o, lse, sinks):
+    """Sink-inclusive rescale of o [T, H, Dv] with lse [H, T]."""
+    from .attention import apply_sinks
+
+    o_h, lse_s = apply_sinks(o.transpose(0, 1), lse, sinks, head_axis=0)
+    return o_h.transpose(0, 1), lse_s
+
+
+class _VarlenCore(torch.autograd.Function):
+    """The varlen core op (the JAX package's ``_varlen_core`` custom_vjp):
+    the forward runs ``_varlen_forward`` and applies sinks. Its backward,
+    the varlen dK/dV and dQ kernels, is the next slice of the port (packed
+    training) and raises until then."""
+
+    @staticmethod
+    def forward(ctx, scale, causal, config, softcap, window, q, k, v, cu_q, cu_k, alibi, sinks):
+        o, lse = _varlen_forward(q, k, v, cu_q, cu_k, scale=scale, causal=causal, config=config,
+                                 softcap=softcap, window=window, alibi=alibi)
+        if sinks is not None:
+            o, lse = _varlen_apply_sinks(o, lse, sinks)
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        raise NotImplementedError(
+            "the varlen backward (_varlen_dkdv_kernel, _varlen_dq_kernel) is not ported yet: "
+            "it is the next slice of the port (packed training)"
+        )
+
+
+def _varlen_block_config(block_q, block_kv, d, dv, tq, dtype) -> Optional[BlockConfig]:
+    """The kernel's tiles for explicit ``block_q`` / ``block_kv`` (None:
+    ``pick_varlen_config``). The port has no tuned store: the KV tile is the
+    compiled KV_TILE, the row tile one of FWD_ROW_TILES that fits."""
+    if block_kv is not None and block_kv != KV_TILE:
+        raise ValueError(f"varlen block_kv must be {KV_TILE} (the compiled KV tile), "
+                         f"got {block_kv}")
+    if block_q is None:
+        return None
+    if block_q not in FWD_ROW_TILES:
+        raise ValueError(f"varlen block_q must be one of {FWD_ROW_TILES}, got {block_q}")
+    cfg = BlockConfig(block_q=block_q)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    if not varlen_fits(cfg, cdiv(d, D_CHUNK) * D_CHUNK, cdiv(dv, D_CHUNK) * D_CHUNK, itemsize):
+        raise ValueError(f"varlen block_q={block_q} does not fit D={d}, Dv={dv}")
+    return cfg
+
+
+def ffpa_varlen_attention(
+    q,
+    k,
+    v,
+    cu_seqlens_q,
+    cu_seqlens_k,
+    max_seqlen_q: int,
+    max_seqlen_k: int,
+    *,
+    dropout_p: float = 0.0,
+    softmax_scale: Optional[float] = None,
+    causal: bool = False,
+    enable_gqa: bool = False,
+    return_lse: bool = False,
+    block_q: Optional[int] = None,
+    block_kv: Optional[int] = None,
+    softcap: float = 0.0,
+    window_size=(-1, -1),
+    alibi_slopes=None,
+    sinks=None,
+    **kwargs,
+):
+    """Packed-THD varlen attention. See ``interface.ffpa_attn_varlen_func``.
+
+    The JAX package's checks and error taxonomy. fp16 runs natively (no
+    round trip through bf16)."""
+    del max_seqlen_q, max_seqlen_k  # the metadata carries the segment lengths
+    _check_supported_options(dict(kwargs))
+    softcap = float(softcap or 0.0)
+    if softcap < 0.0:
+        raise ValueError(f"softcap must be >= 0, got {softcap}")
+    if isinstance(window_size, int):
+        window_size = (window_size, window_size)
+    window_size = (int(window_size[0]), int(window_size[1]))
+    if window_size[0] < -1 or window_size[1] < -1:
+        raise ValueError(f"window_size entries must be >= -1, got {window_size}")
+    if alibi_slopes is not None:
+        alibi_slopes = torch.as_tensor(alibi_slopes, dtype=torch.float32, device=q.device)
+        if tuple(alibi_slopes.shape) != (q.shape[1],):
+            raise ValueError(
+                f"varlen alibi_slopes must have shape ({q.shape[1]},), got "
+                f"{tuple(alibi_slopes.shape)}"
+            )
+    if sinks is not None:
+        sinks = torch.as_tensor(sinks, dtype=torch.float32, device=q.device)
+        if tuple(sinks.shape) != (q.shape[1],):
+            raise ValueError(f"sinks must have shape ({q.shape[1]},), got {tuple(sinks.shape)}")
+    if dropout_p != 0.0:
+        raise NotImplementedError("ffpa_attn_varlen_func does not support dropout_p > 0")
+    if q.ndim != 3 or k.ndim != 3 or v.ndim != 3:
+        raise ValueError(
+            f"varlen inputs must be packed [T, H, D]; got q={tuple(q.shape)}, "
+            f"k={tuple(k.shape)}, v={tuple(v.shape)}"
+        )
+    if q.dtype not in (torch.float16, torch.bfloat16):
+        raise TypeError(f"dtype must be fp16/bf16, got {q.dtype}")
+    if cu_seqlens_q.dtype != torch.int32:
+        raise TypeError(f"cu_seqlens_q must be int32, got {cu_seqlens_q.dtype}")
+    if cu_seqlens_k is None:
+        cu_seqlens_k = cu_seqlens_q
+    if cu_seqlens_k.dtype != torch.int32:
+        raise TypeError(f"cu_seqlens_k must be int32, got {cu_seqlens_k.dtype}")
+    tq, hq, d = q.shape
+    tk, hkv, dk_ = k.shape
+    if dk_ != d:
+        raise ValueError(f"q/k head_dim mismatch: {d} vs {dk_}")
+    if v.shape[0] != tk or v.shape[1] != hkv:
+        raise ValueError(f"k/v shape mismatch: k={tuple(k.shape)}, v={tuple(v.shape)}")
+    if hq != hkv and not enable_gqa:
+        raise ValueError(f"H_q ({hq}) != H_kv ({hkv}) requires enable_gqa=True")
+    if hq % hkv != 0:
+        raise ValueError(f"GQA requires H_q % H_kv == 0, got {hq} % {hkv}")
+    if softmax_scale is None:
+        softmax_scale = 1.0 / (d ** 0.5)
+    config = _varlen_block_config(block_q, block_kv, d, v.shape[-1], tq, q.dtype)
+    out, lse = _VarlenCore.apply(
+        float(softmax_scale), bool(causal), config, softcap, window_size, q, k, v,
+        cu_seqlens_q, cu_seqlens_k, alibi_slopes, sinks,
+    )
+    if return_lse:
+        return out, lse
+    return out
+
+
+__all__ = [
+    "ffpa_varlen_attention",
+    "_segment_metadata",
+    "_varlen_mask",
+    "_tile_needed",
+    "_interval_schedule",
+    "_varlen_forward",
+    "_varlen_forward_plain",
+]

@@ -8,7 +8,9 @@
   when the profiler recorded no device time, rather than report another
   clock under the same name.
 * ``bound_ms``: the least time the card could take for given operations
-  and bytes, at the published H100 SXM peaks.
+  and bytes, at the published H100 SXM peaks; ``backward_counts``,
+  ``varlen_counts`` and ``paged_decode_counts`` give a kernel's operations
+  and bytes for this run's shapes.
 """
 
 from __future__ import annotations
@@ -78,6 +80,33 @@ def backward_counts(kernel: str, *, b: int, hq: int, hkv: int, nq: int, nkv: int
     raise ValueError(f"unknown backward kernel {kernel!r}")
 
 
+def varlen_counts(seqs_q, seqs_k, *, hq: int, hkv: int, d: int, dv: int, causal: bool,
+                  window=(-1, -1), itemsize: int = 2) -> tuple:
+    """(flop, bytes) of one packed varlen forward: 2 * Hq * (D + Dv) flop
+    per attended (row, col) pair, summed over the segments' tail-aligned
+    bands (4 * Hq * D * sum band_pairs at D == Dv); q, k, v and o read or
+    written once, and the fp32 lse."""
+    pairs = sum(band_pairs(lq, lk, causal=causal, window=window)
+                for lq, lk in zip(seqs_q, seqs_k))
+    tq, tk = sum(seqs_q), sum(seqs_k)
+    nbytes = (tq * hq * (d + dv) + tk * hkv * (d + dv)) * itemsize + 4 * hq * tq
+    return 2 * hq * pairs * (d + dv), nbytes
+
+
+def paged_decode_counts(lens, *, hq: int, hkv: int, d: int, dv: int, nq: int = 1,
+                        itemsize: int = 2, quantized: bool = False) -> tuple:
+    """(flop, bytes) of one paged decode call: sequence b's ``lens[b]``
+    cached rows of K and V read once per KV head (one byte an element in an
+    int8 pool, plus its fp32 row scales), q read and o written once; 2 *
+    nq * Hq * (D + Dv) flop per cached row."""
+    rows = sum(int(n) for n in lens)
+    kv_bytes = rows * hkv * (d + dv) * (1 if quantized else itemsize)
+    if quantized:
+        kv_bytes += rows * hkv * 2 * 4
+    qo_bytes = len(lens) * hq * nq * (d + dv) * itemsize
+    return 2 * nq * hq * rows * (d + dv), kv_bytes + qo_bytes
+
+
 def cuda_ms(fn: Callable, reps: int = 20, warmup: int = 3) -> float:
     """Mean time per call of ``fn`` between CUDA events over ``reps`` calls."""
     for _ in range(warmup):
@@ -126,6 +155,6 @@ def device_ms(fn: Callable, reps: int = 10, warmup: int = 3) -> float:
 
 
 __all__ = [
-    "PEAK_BF16_FLOPS", "PEAK_HBM_BW", "bound_ms", "band_pairs", "backward_counts", "cuda_ms",
-    "device_window", "device_ms",
+    "PEAK_BF16_FLOPS", "PEAK_HBM_BW", "bound_ms", "band_pairs", "backward_counts",
+    "varlen_counts", "paged_decode_counts", "cuda_ms", "device_window", "device_ms",
 ]

@@ -1,0 +1,280 @@
+"""The port's packed varlen attention against the JAX package's.
+
+The metadata (segment ids, tail-aligned ranks, the tile schedule) must equal
+the JAX package's exactly, the pseudo-segment of a padded tail and a
+length-0 segment included. Outputs: the same numpy inputs, rounded to bf16
+(or fp16) once, go through ``ffpa_attn_varlen_func`` of both packages; on
+the CPU the port runs the kernel's plain version, JAX its Pallas kernel in
+interpret mode (T <= 256: one grid tile of its 256-row blocks).
+
+Tolerances: bf16 outputs 2e-2 relative to max|o| (tests/test_features.py:127);
+lse 1e-2 absolute and relative (tests/test_ffpa_varlen.py:91); fp16 1e-2
+against the fp32 per-segment oracle for the port (native fp16) and for JAX
+(which computes fp16 in bf16), 2e-2 between them. On the card, kernel vs
+plain per row (``row_rel_err``) at bf16 2e-2 / fp16 1e-2, lse 1e-4 relative.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import (  # noqa: F401
+    cuda, jax_modules, randn, rel_err, row_rel_err, to_jax, to_torch,
+)
+from ffpa_attn_tpu_torch import ffpa_attn_varlen_func
+from ffpa_attn_tpu_torch.ops import varlen as tvar
+
+BF16_TOL = 2e-2
+F16_TOL = 1e-2
+LSE_TOL = 1e-2
+CARD_LSE_TOL = 1e-4
+
+CASES = {
+    "self": dict(seqs=[40, 72, 16]),
+    "self_causal": dict(seqs=[40, 72, 16], causal=True),
+    "cross": dict(seqs=[30, 20], seqs_k=[90, 70]),
+    "cross_causal": dict(seqs=[30, 20], seqs_k=[90, 70], causal=True),
+    "gqa_causal": dict(seqs=[40, 72, 16], hq=4, hkv=2, causal=True),
+    "window_causal": dict(seqs=[40, 72, 16], causal=True, window=(16, -1)),
+    "window_two_sided": dict(seqs=[40, 72, 16], window=(8, 8)),
+    "softcap": dict(seqs=[40, 72, 16], causal=True, softcap=5.0),
+    "alibi": dict(seqs=[40, 72, 16], causal=True, alibi=True),
+    "sinks": dict(seqs=[40, 72, 16], causal=True, sinks=True),
+    "d512": dict(seqs=[40, 72, 16], causal=True, d=512),
+    "padded_tail_empty_segment": dict(seqs=[40, 0, 56], pad_q=20, causal=True),
+}
+
+
+def _inputs(case, seed=0):
+    rng = np.random.default_rng(seed)
+    seqs = case["seqs"]
+    seqs_k = case.get("seqs_k", seqs)
+    hq, hkv, d = case.get("hq", 2), case.get("hkv", 2), case.get("d", 320)
+    tq = sum(seqs) + case.get("pad_q", 0)
+    tk = sum(seqs_k) + case.get("pad_q", 0)
+    x = dict(
+        q=randn(rng, (tq, hq, d)), k=randn(rng, (tk, hkv, d)), v=randn(rng, (tk, hkv, d)),
+        cu_q=np.cumsum([0] + list(seqs)).astype(np.int32),
+        cu_k=np.cumsum([0] + list(seqs_k)).astype(np.int32),
+        alibi=rng.uniform(0.01, 0.3, (hq,)).astype(np.float32) if case.get("alibi") else None,
+        sinks=randn(rng, (hq,)) if case.get("sinks") else None,
+    )
+    return x
+
+
+def _kwargs(case):
+    kw = dict(causal=case.get("causal", False), return_lse=True,
+              enable_gqa=case.get("hq", 2) != case.get("hkv", 2))
+    if "window" in case:
+        kw["window_size"] = case["window"]
+    if "softcap" in case:
+        kw["softcap"] = case["softcap"]
+    return kw
+
+
+def _max_seqlens(x):
+    return int(np.diff(x["cu_q"]).max()), int(np.diff(x["cu_k"]).max())
+
+
+def _jax_varlen(jv, x, case, dtype):
+    jnp = jv[0]
+    kw = _kwargs(case)
+    if x["alibi"] is not None:
+        kw["alibi_slopes"] = to_jax(x["alibi"])
+    if x["sinks"] is not None:
+        kw["sinks"] = to_jax(x["sinks"])
+    return jv[1].ffpa_attn_varlen_func(
+        *(to_jax(x[n], dtype) for n in ("q", "k", "v")),
+        jnp.asarray(x["cu_q"], jnp.int32), jnp.asarray(x["cu_k"], jnp.int32),
+        *_max_seqlens(x), **kw)
+
+
+def _torch_varlen(x, case, dtype, device="cpu"):
+    kw = _kwargs(case)
+    if x["alibi"] is not None:
+        kw["alibi_slopes"] = to_torch(x["alibi"], device=device)
+    if x["sinks"] is not None:
+        kw["sinks"] = to_torch(x["sinks"], device=device)
+    cu = [torch.from_numpy(x[n]).to(device) for n in ("cu_q", "cu_k")]
+    return ffpa_attn_varlen_func(
+        *(to_torch(x[n], dtype, device) for n in ("q", "k", "v")), *cu, *_max_seqlens(x), **kw)
+
+
+@pytest.fixture(scope="module")
+def jv():
+    """jax.numpy and the JAX package."""
+    return jax_modules("jax.numpy", "ffpa_attn_tpu")
+
+
+@pytest.fixture(scope="module")
+def jvar():
+    return jax_modules("jax.numpy", "ffpa_attn_tpu.ops.varlen")
+
+
+@pytest.mark.parametrize("cu,tq,tk", [
+    ([0, 70, 300, 301, 512], 512, 512),
+    ([0, 40, 40, 112], 130, 130),  # a length-0 segment and a padded tail (pseudo-segment B)
+    ([0, 30, 50], 50, 50),
+])
+@pytest.mark.parametrize("cu_k_shift", [0, 40])
+def test_segment_metadata_equals_jax(jvar, cu, tq, tk, cu_k_shift):
+    """q_seg, q_rank, k_seg, k_pos bit for bit, padded to the kernel's
+    tiles; with cu_k_shift the keys outnumber the queries in the last
+    segment (tail-aligned cross varlen)."""
+    jnp, jvl = jvar
+    cu_q = np.asarray(cu, np.int32)
+    cu_k = cu_q.copy()
+    cu_k[-1] += cu_k_shift
+    tk += cu_k_shift
+    tq_pad, tk_pad = -(-tq // 64) * 64, -(-tk // 64) * 64
+    want = jvl._segment_metadata(jnp.asarray(cu_q), jnp.asarray(cu_k), tq, tk, tq_pad, tk_pad)
+    got = tvar._segment_metadata(torch.from_numpy(cu_q), torch.from_numpy(cu_k), tq, tk,
+                                 tq_pad, tk_pad)
+    for g, w, name in zip(got, want, ("q_seg", "q_rank", "k_seg", "k_pos")):
+        assert g.dtype == torch.int32, name
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+    if cu == [0, 40, 40, 112]:
+        # The padded tail [112, 130) is segment B = 3, not -1; rows past T are -1.
+        assert set(got[0][112:130].tolist()) == {3} and set(got[0][130:].tolist()) == {-1}
+
+
+@pytest.mark.parametrize("causal,window", [
+    (False, (-1, -1)), (True, (-1, -1)), (True, (24, -1)), (False, (16, 8)),
+])
+@pytest.mark.parametrize("bq", [64, 32])
+def test_tile_schedule_equals_jax(jvar, causal, window, bq):
+    """_tile_needed and _interval_schedule at the kernel's tiles, the [0, 0]
+    interval of an empty tile row included."""
+    jnp, jvl = jvar
+    cu = np.asarray([0, 70, 70, 200, 201, 300], np.int32)
+    tq = tk = 330  # tail [300, 330) is the pseudo-segment
+    tq_pad, tk_pad = -(-tq // bq) * bq + bq, -(-tk // 64) * 64  # one all-padding Q tile
+    wl, wr = window[0], -1 if causal else window[1]
+    jmeta = jvl._segment_metadata(jnp.asarray(cu), jnp.asarray(cu), tq, tk, tq_pad, tk_pad)
+    tmeta = tvar._segment_metadata(torch.from_numpy(cu), torch.from_numpy(cu), tq, tk, tq_pad,
+                                   tk_pad)
+    jneed = jvl._tile_needed(*jmeta, bq, 64, causal, wl, wr)
+    tneed = tvar._tile_needed(*tmeta, bq, 64, causal, wl, wr)
+    np.testing.assert_array_equal(tneed.numpy(), np.asarray(jneed))
+    for g, w in zip(tvar._interval_schedule(tneed), jvl._interval_schedule(jneed)):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    lo, hi = tvar._interval_schedule(tneed)
+    assert int(lo[-1]) == 0 and int(hi[-1]) == 0  # the all-padding tile
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_varlen_matches_jax(jv, name):
+    case = CASES[name]
+    x = _inputs(case)
+    jo, jl = _jax_varlen(jv, x, case, "bfloat16")
+    f0 = tvar._varlen_forward.launches
+    to, tl = _torch_varlen(x, case, "bfloat16")
+    assert tvar._varlen_forward.launches == f0  # CPU tensors run the plain version
+    assert to.dtype == torch.bfloat16 and tuple(to.shape) == tuple(jo.shape)
+    assert tuple(tl.shape) == tuple(jl.shape) and tl.dtype == torch.float32
+    assert rel_err(to, jo) < BF16_TOL, name
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=LSE_TOL, rtol=LSE_TOL)
+
+
+def _oracle(x, case, dtype):
+    """fp32 per-segment dense attention on the inputs rounded to ``dtype``."""
+    from ffpa_attn_tpu_torch.ops.reference import expand_kv_heads, reference_attention
+
+    q, k, v = (to_torch(x[n], dtype).float() for n in ("q", "k", "v"))
+    outs = []
+    for (q0, q1), (k0, k1) in zip(zip(x["cu_q"][:-1], x["cu_q"][1:]),
+                                  zip(x["cu_k"][:-1], x["cu_k"][1:])):
+        qs, ks, vs = (t.transpose(0, 1)[None] for t in (q[q0:q1], k[k0:k1], v[k0:k1]))
+        o = reference_attention(qs, expand_kv_heads(ks, q.shape[1]),
+                                expand_kv_heads(vs, q.shape[1]), is_causal=case.get("causal"))
+        outs.append(o[0].transpose(0, 1))
+    return torch.cat(outs)
+
+
+def test_varlen_fp16_native_vs_jax_bf16_compute(jv):
+    case = CASES["gqa_causal"]
+    x = _inputs(case, seed=3)
+    want = _oracle(x, case, "float16")
+    jo, _ = _jax_varlen(jv, x, case, "float16")
+    to, _ = _torch_varlen(x, case, "float16")
+    assert to.dtype == torch.float16
+    assert rel_err(to, want) < F16_TOL
+    assert rel_err(jo, want) < F16_TOL
+    assert rel_err(to, jo) < BF16_TOL
+
+
+def test_varlen_rejected_kwargs():
+    """The JAX package's taxonomy (tests/test_ffpa_varlen.py:142)."""
+    case = dict(seqs=[128])
+    x = _inputs(case)
+    q, k, v = (to_torch(x[n], "bfloat16") for n in ("q", "k", "v"))
+    cu = torch.from_numpy(x["cu_q"])
+    with pytest.raises(NotImplementedError) as exc:
+        ffpa_attn_varlen_func(q, k, v, cu, cu, 128, 128, score_mod=object(),
+                              seqused_k=torch.zeros((1,), dtype=torch.int32))
+    assert "score_mod" in str(exc.value) and "seqused_k" in str(exc.value)
+    with pytest.raises(NotImplementedError):
+        ffpa_attn_varlen_func(q, k, v, cu, cu, 128, 128, dropout_p=0.1)
+    with pytest.raises(TypeError):
+        ffpa_attn_varlen_func(q, k, v, cu.float(), cu, 128, 128)
+    with pytest.raises(TypeError, match="bogus"):
+        ffpa_attn_varlen_func(q, k, v, cu, cu, 128, 128, bogus=1)
+    with pytest.raises(ValueError, match="enable_gqa"):
+        ffpa_attn_varlen_func(q, k[:, :1], v[:, :1], cu, cu, 128, 128)
+    with pytest.raises(ValueError, match="block_kv"):
+        ffpa_attn_varlen_func(q, k, v, cu, cu, 128, 128, block_kv=128)
+    # num_splits at its default is not an offence.
+    out = ffpa_attn_varlen_func(q, k, v, cu, None, 128, 128, num_splits=1)
+    assert tuple(out.shape) == tuple(q.shape)
+
+
+def test_varlen_backward_is_a_later_slice():
+    case = dict(seqs=[64, 32], causal=True)
+    x = _inputs(case)
+    q, k, v = (to_torch(x[n], "bfloat16").requires_grad_() for n in ("q", "k", "v"))
+    cu = torch.from_numpy(x["cu_q"])
+    o = ffpa_attn_varlen_func(q, k, v, cu, cu, 64, 64, causal=True)
+    with pytest.raises(NotImplementedError, match="next slice"):
+        o.float().sum().backward()
+
+
+# -- on the card: the kernel against its plain version ----------------------
+
+CARD_CASES = {
+    **CASES,
+    "d1024": dict(seqs=[40, 72, 16], causal=True, d=1024),
+    "mha_long": dict(seqs=[300, 17, 500], hq=4, hkv=4, causal=True),
+    "tile_straddles_three_segments": dict(seqs=[20, 9, 50, 3], causal=True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CARD_CASES))
+@pytest.mark.parametrize("dtype,tol", [("bfloat16", BF16_TOL), ("float16", F16_TOL)])
+def test_varlen_kernel_matches_plain_on_card(cuda, name, dtype, tol):
+    case = CARD_CASES[name]
+    x = _inputs(case, seed=5)
+    f0 = tvar._varlen_forward.launches
+    ko, kl = _torch_varlen(x, case, dtype, cuda)
+    torch.cuda.synchronize()
+    assert tvar._varlen_forward.launches == f0 + 1
+    po, pl = _torch_varlen(x, case, dtype)  # the plain version on the CPU
+    assert row_rel_err(ko, po) < tol, name
+    assert rel_err(kl, pl) < CARD_LSE_TOL, name
+
+
+def test_varlen_strided_inputs_on_card(cuda):
+    """q/k/v read through their strides: a view of a wider buffer gives the
+    same output as its contiguous copy."""
+    case = dict(seqs=[100, 60], hq=2, hkv=2, causal=True, d=512)
+    x = _inputs(case, seed=6)
+    wide = to_torch(np.concatenate([x["q"], x["q"]], axis=1), "bfloat16", cuda)
+    cu = torch.from_numpy(x["cu_q"]).to(cuda)
+    k, v = (to_torch(x[n], "bfloat16", cuda) for n in ("k", "v"))
+    got = ffpa_attn_varlen_func(wide[:, :2], k, v, cu, cu, 100, 100, causal=True)
+    want = ffpa_attn_varlen_func(wide[:, :2].contiguous(), k, v, cu, cu, 100, 100, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert math.isfinite(float(got.float().abs().max()))

@@ -20,7 +20,11 @@ Python wrappers (the two share the C interface):
   recompute backward);
 * from_s (the from-S dK/dV pass with dK out of the kernel, on a fresh copy
   of the S residual each call: it overwrites S with dS) and banded_dk: the
-  same shape as dkdv (the S-resident backward of the training step).
+  same shape as dkdv (the S-resident backward of the training step);
+* varlen_fwd: the serving packing of continuous batching (prompts of 589,
+  698, 763 and 886 tokens, H8/4 D512 causal bf16);
+* paged_decode: the serving step over bf16 pools (B4, lens 64 tokens into
+  generation, page 256), four layers' pools in turn.
 
 A kernel whose source the base tree lacks is timed on the head alone. Each
 time is the kernels' device time per call from torch.profiler (for from_s
@@ -43,7 +47,9 @@ import torch
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
-from ffpa_attn_tpu_torch.ops import _build, decode, flash_bwd, flash_fwd  # noqa: E402
+from ffpa_attn_tpu_torch.ops import (  # noqa: E402
+    _build, decode, flash_bwd, flash_fwd, paged, varlen,
+)
 from ffpa_attn_tpu_torch.ops.dispatch import pick_backward_config  # noqa: E402
 from ffpa_attn_tpu_torch.ops.reference import DEFAULT_MASK_VALUE  # noqa: E402
 from ffpa_attn_tpu_torch.utils.profiling import device_ms, device_window  # noqa: E402
@@ -51,12 +57,13 @@ from ffpa_attn_tpu_torch.utils.profiling import device_ms, device_window  # noqa
 # kernel -> the source it is built from
 SOURCE = {"flash_fwd": "flash_fwd", "decode": "decode", "dkdv": "flash_bwd",
           "banded_dq": "flash_bwd", "dq": "flash_bwd", "from_s": "flash_bwd",
-          "banded_dk": "flash_bwd"}
+          "banded_dk": "flash_bwd", "varlen_fwd": "varlen_fwd", "paged_decode": "paged_decode"}
 # kernel -> the substring of its CUDA kernel's name, where a run also
 # launches other kernels that are not timed
 ONLY = {"from_s": "dkdv_from_s_kernel"}
 # kernels whose C entry point an older tree may lack
-ENTRY = {"from_s": "ffpa_bwd_dkdv_from_s", "banded_dk": "ffpa_bwd_banded_dk"}
+ENTRY = {"from_s": "ffpa_bwd_dkdv_from_s", "banded_dk": "ffpa_bwd_banded_dk",
+         "varlen_fwd": "ffpa_varlen_fwd", "paged_decode": "ffpa_paged_decode"}
 
 
 def build_tree(src: Path, out: Path) -> dict:
@@ -156,6 +163,27 @@ def make_runs(gen) -> dict:
                                             group=hq // hkv, nq=nt, nkv=nt, causal_offset=0,
                                             dk_dtype=torch.bfloat16)
 
+    # Continuous batching: the packed prefill's varlen call and a paged
+    # decode step at the serving shape.
+    lens = [589, 698, 763, 886]
+    tv = sum(lens)
+    vq, vk, vv = randn(tv, hq, d), randn(tv, hkv, d), randn(tv, hkv, d)
+    cu = torch.tensor([0] + torch.tensor(lens).cumsum(0).tolist(), dtype=torch.int32,
+                      device="cuda")
+    pools = []
+    for _ in range(4):
+        pool = paged.PagedKVCache.alloc(len(lens), 1152, hkv, d, page_size=256)
+        n = max(lens) + 64
+        pools.append(paged.fill_from_prefill(pool, randn(len(lens), hkv, n, d),
+                                             randn(len(lens), hkv, n, d),
+                                             [m + 64 for m in lens]))
+    qpd = randn(len(lens), hq, 1, d)
+
+    def run_paged():
+        pool = pools[turn[0] % len(pools)]
+        turn[0] += 1
+        return paged.paged_decode_attention(qpd, pool, scale=scale)
+
     def reset():
         turn[0] = 0
         state.pop("ds", None)
@@ -170,6 +198,9 @@ def make_runs(gen) -> dict:
         "dq": run_dq,
         "from_s": run_from_s,
         "banded_dk": run_banded_dk,
+        "varlen_fwd": lambda: varlen._varlen_forward(vq, vk, vv, cu, cu, scale=scale,
+                                                     causal=True)[0],
+        "paged_decode": run_paged,
     }
     return runs, reset
 
@@ -202,7 +233,7 @@ def main() -> int:
             if SOURCE[k] not in trees[tag] or not hasattr(trees[tag][SOURCE[k]],
                                                           ENTRY.get(k, "ffpa_error_string")):
                 continue
-            reps = 5 * args.reps if k == "decode" else args.reps
+            reps = 5 * args.reps if k in ("decode", "paged_decode") else args.reps
             if k in ONLY:
                 w = device_window(runs[k], reps=reps, warmup=3)["by_kernel"]
                 times[tag][k].append(sum(ms for n, ms in w.items() if ONLY[k] in n) / reps)
