@@ -12,7 +12,8 @@ It imports only ``ffpa_attn_tpu_torch``, torch and numpy, and runs, in order:
    stated tolerances: the forward (and its S residual), decode (and its
    score residual), dkdv, dq, banded dQ, the from-S dK/dV pass in both
    variants and banded dK (a slab NaN outside the band among them), the
-   packed varlen forward and paged decode (bf16 and int8 pools);
+   packed varlen forward, the varlen dK/dV and dQ kernels (bf16 and fp16
+   feature cases) and paged decode (bf16 and int8 pools);
 4. serving path: greedy ``generate`` of the L4 dm1024 H8/4 Dh512 vocab-32000
    bf16 model (random weights from numpy seed 0) on a 4096-token prompt, 32
    tokens, with the kernel launch counts read around that run; first-step
@@ -32,10 +33,15 @@ It imports only ``ffpa_attn_tpu_torch``, torch and numpy, and runs, in order:
    causal B1 H32 N8192 D512, auto residency) held in head slices and timed
    against the handoff; a GQA decode call's gradients; the windowed model
    (``mistral_like``, depth cut to L2), which takes the recompute backward;
-   a tiny model's two steps on the card against the CPU;
+   a tiny model's two steps on the card against the CPU; packed training at
+   op level: ``ffpa_attn_varlen_func`` under autograd over 8 documents
+   packed into 8192 tokens (H8/4 D512 causal, bf16 and fp16; then the
+   gpt_oss_like window and sinks), 1 varlen-forward, 1 varlen-dK/dV and 1
+   varlen-dQ launch per call, its gradients against the plain chain and
+   the per-segment dense path, and its forward + backward times;
 6. times: device time by kernel and the device's busy share over one
-   prefill, decode steps, one packed prefill, paged decode steps and one
-   training step of each tier, then each
+   prefill, decode steps, one packed prefill, paged decode steps, one
+   training step of each tier and one packed forward + backward, then each
    kernel at its main-path shape beside its bound, its plain version and
    one PyTorch library call computing the same function, or for the from-S
    pass the yardstick of its two dense products (device time per call from
@@ -91,6 +97,10 @@ WINDOW, WINDOW_LAYERS, WINDOW_STEPS = 4096, 2, 2
 SERVE_B, SERVE_PROMPT, SERVE_GEN, SERVE_PAGE = 4, 1024, 128, 256
 SERVE_MAX_LEN = SERVE_PROMPT + SERVE_GEN
 SERVE_LENS = [589, 698, 763, 886]
+# Packed training: the bench_train token budget (N8192) packed as 8
+# documents; the forward's 64 x 64 schedule walks 1.49x its band's pairs
+# (tools/torch_varlen_schedule.py), so segment edges straddle tiles.
+PACK_LENS = [2048, 1536, 1200, 1024, 900, 700, 500, 284]
 ENGINE_REQUESTS, ENGINE_SLOTS = 8, 4
 PAGED_TOL, INT8_TOL = 5e-2, 6e-2  # tests/test_models.py:262, tests/test_paged.py:361
 
@@ -502,6 +512,38 @@ def _varlen_case(name, *, seqs, seqs_k=None, hq=8, hkv=4, d=512, dtype=torch.bfl
     return max_abs(o, po)
 
 
+def _varlen_bwd_case(name, *, seqs, seqs_k=None, hq=8, hkv=4, d=512, dtype=torch.bfloat16,
+                     causal=True, window=(-1, -1), softcap=0.0, alibi=False, sinks=False, pad=0,
+                     seed=0):
+    """The varlen dK/dV and dQ kernels (one ``_varlen_backward`` call)
+    against their plain versions on the same inputs: (o, lse) from the
+    forward kernel, sink-inclusive with ``sinks``; dq, dk, dv per row."""
+    from ffpa_attn_tpu_torch.ops import varlen
+
+    gen = torch.Generator(device="cuda").manual_seed(700 + seed)
+    q, k, v, cu_q, cu_k = _varlen_inputs(seqs, seqs_k=seqs_k, hq=hq, hkv=hkv, d=d, dtype=dtype,
+                                         pad=pad, gen=gen)
+    do = _randn(q.shape, dtype, gen)
+    al = torch.rand((hq,), generator=gen, device="cuda") * 0.1 if alibi else None
+    kw = dict(scale=1.0 / math.sqrt(d), causal=causal, softcap=softcap, window=window)
+    meta = varlen._call_metadata(cu_q, cu_k, q.shape[0], k.shape[0], "cuda")
+    o, lse = varlen._varlen_forward(q, k, v, cu_q, cu_k, alibi=al, meta=meta, **kw)
+    if sinks:
+        o, lse = varlen._varlen_apply_sinks(o, lse, torch.randn(hq, generator=gen, device="cuda"))
+    got = varlen._varlen_backward(q, k, v, o, lse, do, meta, alibi=al, **kw)
+    torch.cuda.synchronize()
+    want = varlen._varlen_backward_plain(q, k, v, o, lse, do, meta, alibi=al, **kw)
+    tol = GRAD_TOL[dtype]
+    errs = {n: grad_row_rel(g, w) for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+    ok = all(e < tol for e in errs.values()) and all(bool(torch.isfinite(g).all()) for g in got)
+    log(f"  varlen bwd {name:<26} T{q.shape[0]}/{k.shape[0]} "
+        + " ".join(f"{n} {e:.2e}" for n, e in errs.items())
+        + f" (tol {tol:g}, per row) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"varlen backward kernels disagree with their plain versions: {name}")
+    return max(max_abs(g, w) for g, w in zip(got, want))
+
+
 def _paged_pools(lens, *, page, max_len, hkv=4, d=512, dtype=torch.bfloat16, quantized=False,
                  shuffle=False, gen=None):
     """A PagedKVCache on the card holding random K/V for sequences of
@@ -630,6 +672,34 @@ def phase_kernels_vs_plain() -> dict:
     _varlen_case("mha", seqs=[300, 17, 500], hq=8, hkv=8, seed=9)
     _varlen_case("padded_tail", seqs=[300, 17, 500], pad=45, seed=10)
     _varlen_case("empty_segment", seqs=[300, 0, 500], seed=11)
+    # Packed training: the varlen backward kernels over feature cases, each
+    # in bf16 and fp16; the 8192-token packing is held in
+    # packed_training_times, beside its times.
+    for i, dt in enumerate((torch.bfloat16, torch.float16)):
+        tag, s = ("bf16", "fp16")[i], 20 * i
+        _varlen_bwd_case(f"{tag}_self", seqs=[300, 17, 500], causal=False, dtype=dt, seed=s)
+        _varlen_bwd_case(f"{tag}_cross_causal", seqs=[300, 200], seqs_k=[900, 700], dtype=dt,
+                         seed=s + 1)
+        _varlen_bwd_case(f"{tag}_cross", seqs=[300, 200], seqs_k=[900, 700], causal=False,
+                         dtype=dt, seed=s + 2)
+        _varlen_bwd_case(f"{tag}_gqa_causal", seqs=SERVE_LENS, dtype=dt, seed=s + 3)
+        _varlen_bwd_case(f"{tag}_mha", seqs=[300, 17, 500], hq=8, hkv=8, dtype=dt, seed=s + 4)
+        _varlen_bwd_case(f"{tag}_window_causal", seqs=[300, 17, 500], window=(64, -1), dtype=dt,
+                         seed=s + 5)
+        _varlen_bwd_case(f"{tag}_window_two_sided", seqs=[300, 17, 500], causal=False,
+                         window=(64, 32), dtype=dt, seed=s + 6)
+        _varlen_bwd_case(f"{tag}_softcap", seqs=[300, 17, 500], softcap=30.0, dtype=dt,
+                         seed=s + 7)
+        _varlen_bwd_case(f"{tag}_alibi", seqs=[300, 17, 500], alibi=True, dtype=dt, seed=s + 8)
+        _varlen_bwd_case(f"{tag}_sinks_window", seqs=[300, 17, 500], window=(128, -1),
+                         sinks=True, dtype=dt, seed=s + 9)
+        _varlen_bwd_case(f"{tag}_d320", seqs=[300, 17, 500], d=320, dtype=dt, seed=s + 10)
+        _varlen_bwd_case(f"{tag}_d1024_col_passes", seqs=[300, 17, 500], d=1024, dtype=dt,
+                         seed=s + 11)
+        _varlen_bwd_case(f"{tag}_padded_tail_empty_seg", seqs=[300, 0, 500], pad=45, dtype=dt,
+                         seed=s + 12)
+        _varlen_bwd_case(f"{tag}_tile_straddles_3_segs", seqs=[20, 9, 50, 3, 300], dtype=dt,
+                         seed=s + 13)
     serve_lens = [n + 1 for n in SERVE_LENS]  # the first decode step's cache
     errs["paged_decode"] = _paged_case("serving_page256", lens=serve_lens)
     _paged_case("int8_page256", lens=serve_lens, quantized=True, seed=1)
@@ -1357,6 +1427,165 @@ def phase_tiny_training() -> None:
         fail("tiny model: training on the card differs from the CPU")
 
 
+def _all_counts(zero: bool = False) -> dict:
+    """Every kernel wrapper's launch count (set to 0 with ``zero``)."""
+    from ffpa_attn_tpu_torch.ops import varlen
+
+    bwd = varlen._varlen_backward
+    if zero:
+        _zero_counts()
+        bwd.dkdv_launches = bwd.dq_launches = 0
+    return dict(_counts(), **_serve_counts(zero), varlen_dkdv=bwd.dkdv_launches,
+                varlen_dq=bwd.dq_launches)
+
+
+def packed_inputs(dtype) -> dict:
+    """The packed-training inputs: the bench_train token budget packed as
+    PACK_LENS documents, q, k, v and dO from numpy seed 0, on the card."""
+    rng = np.random.default_rng(0)
+    t = sum(PACK_LENS)
+    hq, hkv, d = TRAIN["n_heads"], TRAIN["n_kv_heads"], TRAIN["head_dim"]
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((t, h, d), dtype=np.float32)).to(
+        "cuda", dtype) for h in (hq, hkv, hkv, hq))
+    cu = torch.tensor(np.cumsum([0] + PACK_LENS), dtype=torch.int32, device="cuda")
+    return dict(q=q, k=k, v=v, do=do, cu=cu)
+
+
+def _packed_call(x, sinks=None, **kw) -> dict:
+    """``ffpa_attn_varlen_func`` over the packing under autograd, then
+    ``.backward(dO)``: o, lse and the gradients of q, k, v (and sinks)."""
+    from ffpa_attn_tpu_torch import ffpa_attn_varlen_func
+
+    leaves = [x[n].detach().requires_grad_() for n in ("q", "k", "v")]
+    if sinks is not None:
+        sinks = sinks.detach().requires_grad_()
+    n = max(PACK_LENS)
+    o, lse = ffpa_attn_varlen_func(*leaves, x["cu"], x["cu"], n, n, causal=True,
+                                   enable_gqa=True, return_lse=True, sinks=sinks, **kw)
+    o.backward(x["do"])
+    return dict(o=o.detach(), lse=lse, grads=[t.grad for t in leaves],
+                dsinks=None if sinks is None else sinks.grad)
+
+
+def _dense_path_grads(x) -> list:
+    """The per-segment dense path: ``ffpa_attn_func`` over each document
+    ([1, H, L, D], causal, GQA) followed by ``.backward()`` (the ported
+    dense kernels), the gradients packed back to [T, H, D]."""
+    from ffpa_attn_tpu_torch import ffpa_attn_func
+
+    cu = [0] + np.cumsum(PACK_LENS).tolist()
+    parts = [[], [], []]
+    for s0, s1 in zip(cu[:-1], cu[1:]):
+        leaves = [x[n][s0:s1].transpose(0, 1)[None].contiguous().requires_grad_()
+                  for n in ("q", "k", "v")]
+        o = ffpa_attn_func(*leaves, is_causal=True, enable_gqa=True)
+        o.backward(x["do"][s0:s1].transpose(0, 1)[None])
+        for part, t in zip(parts, leaves):
+            part.append(t.grad[0].transpose(0, 1))
+    return [torch.cat(p) for p in parts]
+
+
+def phase_packed_training() -> dict:
+    """Packed training at op level, the main path of the varlen backward:
+    ``ffpa_attn_varlen_func`` under autograd then ``.backward(dO)`` over 8
+    documents packed into 8192 tokens (H8/4 D512 causal), in bf16 and fp16:
+    1 varlen-forward, 1 varlen-dK/dV and 1 varlen-dQ launch and no other per
+    call; dq, dk, dv per row against the plain chain on the same (o, lse)
+    and against the per-segment dense path. Then the gpt_oss_like features
+    (window (128, -1), sinks) with dsinks against the plain chain, and the
+    bf16 call's forward + backward times."""
+    from ffpa_attn_tpu_torch.ops import varlen
+    from ffpa_attn_tpu_torch.ops.attention import sink_grad
+    from ffpa_attn_tpu_torch.utils.profiling import varlen_counts
+
+    t, n = sum(PACK_LENS), max(PACK_LENS)
+    hq, hkv, d = TRAIN["n_heads"], TRAIN["n_kv_heads"], TRAIN["head_dim"]
+    want = dict.fromkeys(_all_counts(), 0)
+    want.update(varlen_fwd=1, varlen_dkdv=1, varlen_dq=1)
+    log(f"packed training (op level): ffpa_attn_varlen_func + backward over {len(PACK_LENS)} "
+        f"documents {PACK_LENS} = T{t}, H{hq}/{hkv} D{d} causal")
+    out = {}
+    for dtype in (torch.bfloat16, torch.float16):
+        x = packed_inputs(dtype)
+        meta = varlen._call_metadata(x["cu"], x["cu"], t, t, "cuda")
+        for sinks, kw in ((None, {}), (torch.from_numpy(
+                np.random.default_rng(1).standard_normal(hq).astype(np.float32)).cuda(),
+                dict(window_size=(128, -1)))):
+            label = f"{str(dtype)[6:]}{' gpt_oss_like' if sinks is not None else ''}"
+            torch.cuda.synchronize()
+            _all_counts(zero=True)
+            r = _packed_call(x, sinks=sinks, **kw)
+            torch.cuda.synchronize()
+            counts = _all_counts()
+            if counts != want:
+                fail(f"packed training {label}: launch counts {counts} != expected {want}")
+            window = kw.get("window_size", (-1, -1))
+            plain = varlen._varlen_backward_plain(x["q"], x["k"], x["v"], r["o"], r["lse"],
+                                                  x["do"], meta, scale=d ** -0.5, causal=True,
+                                                  window=window)
+            errs = {f"{nm}_plain": grad_row_rel(g, w)
+                    for nm, g, w in zip(("dq", "dk", "dv"), r["grads"], plain)}
+            del plain
+            if sinks is None:
+                dense = _dense_path_grads(x)
+                errs.update({f"{nm}_dense": grad_row_rel(g, w)
+                             for nm, g, w in zip(("dq", "dk", "dv"), r["grads"], dense)})
+                del dense
+            else:
+                po, plse = varlen._varlen_forward_plain(x["q"], x["k"], x["v"], meta,
+                                                        scale=d ** -0.5, causal=True,
+                                                        window=window)
+                po, plse = varlen._varlen_apply_sinks(po, plse, sinks)
+                want_ds = sink_grad(x["do"].transpose(0, 1), po.transpose(0, 1), plse, sinks,
+                                    head_axis=0)
+                errs["dsinks"] = rel(r["dsinks"], want_ds)
+                del po, plse
+            tol = GRAD_TOL[dtype]
+            ok = all(e < tol for e in errs.values()) and all(
+                bool(torch.isfinite(g).all()) for g in r["grads"])
+            log(f"  {label}: launches {counts}; " + " ".join(f"{k_} {e:.2e}"
+                                                             for k_, e in errs.items())
+                + f" (tol {tol:g}, per row; dsinks of its max) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"packed training {label}: gradients disagree")
+            out.setdefault("errs", {})[label] = errs
+            del r
+            torch.cuda.empty_cache()
+        if dtype == torch.bfloat16:
+            out["x"] = x
+        del x, meta
+
+    # Forward + backward times of the bf16 call (CUDA events, median of 3).
+    x = out["x"]
+    fwd_flops = varlen_counts(PACK_LENS, PACK_LENS, hq=hq, hkv=hkv, d=d, dv=d, causal=True)[0]
+
+    def fwd_bwd():
+        from ffpa_attn_tpu_torch import ffpa_attn_varlen_func
+
+        leaves = [x[nm].detach().requires_grad_() for nm in ("q", "k", "v")]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        o = ffpa_attn_varlen_func(*leaves, x["cu"], x["cu"], n, n, causal=True, enable_gqa=True)
+        ev[1].record()
+        o.backward(x["do"])
+        ev[2].record()
+        ev[2].synchronize()
+        return ev[0].elapsed_time(ev[2]), ev[1].elapsed_time(ev[2])
+
+    fwd_bwd()  # warm-up
+    runs = [fwd_bwd() for _ in range(3)]
+    total = sorted(r_[0] for r_ in runs)[1]
+    bwd = sorted(r_[1] for r_ in runs)[1]
+    out.update(fwd_bwd_ms=total, bwd_ms=bwd, bwd_tflops=2.5 * fwd_flops / bwd / 1e9,
+               fwd_bwd_tflops=3.5 * fwd_flops / total / 1e9,
+               launches={"varlen_dkdv": 1, "varlen_dq": 1})
+    log(f"  times (CUDA events, median of 3): forward + backward {total:.3f} ms "
+        f"({out['fwd_bwd_tflops']:.1f} TFLOP/s at 3.5 x the forward's flop), backward "
+        f"{bwd:.3f} ms ({out['bwd_tflops']:.1f} TFLOP/s at 2.5 x; forward flop over the band "
+        f"{fwd_flops:.4g}); all {[[round(a, 3), round(b, 3)] for a, b in runs]}")
+    return out
+
+
 def where_the_time_goes(model, prompt) -> None:
     """Device time by kernel and the device's busy share over one prefill
     and over 8 decode steps of the main path (torch.profiler)."""
@@ -1811,8 +2040,110 @@ def serving_times(errs: dict, serving: dict, model) -> tuple:
     return rows, events
 
 
+def packed_training_times(packed: dict) -> tuple:
+    """One bf16 packed forward + backward under the profiler, then the
+    varlen dK/dV and dQ kernels at the 8192-token packing, each held
+    against its plain version on the same inputs and timed beside it, its
+    bound and, for the pair, autograd of scaled_dot_product_attention with
+    the block-diagonal causal bool mask (K/V heads expanded)."""
+    import torch.nn.functional as F
+
+    from ffpa_attn_tpu_torch import ffpa_attn_varlen_func
+    from ffpa_attn_tpu_torch.ops import varlen
+    from ffpa_attn_tpu_torch.ops.dispatch import pick_varlen_backward_config
+    from ffpa_attn_tpu_torch.ops.reference import expand_kv_heads
+    from ffpa_attn_tpu_torch.utils.profiling import bound_ms, device_window, varlen_backward_counts
+
+    x = packed.pop("x")
+    q, k, v, do, cu = x["q"], x["k"], x["v"], x["do"], x["cu"]
+    t, hq, d = q.shape
+    hkv, bf = k.shape[1], torch.bfloat16
+
+    def fwd_bwd():
+        leaves = [x_.detach().requires_grad_() for x_ in (q, k, v)]
+        o = ffpa_attn_varlen_func(*leaves, cu, cu, max(PACK_LENS), max(PACK_LENS), causal=True,
+                                  enable_gqa=True)
+        o.backward(do)
+
+    w = device_window(fwd_bwd, reps=1, warmup=1)
+    log("where the time goes, packed training (torch.profiler, device time by kernel):")
+    log(f"  forward + backward: wall {w['wall_ms']:.2f} ms, device {w['device_ms']:.2f} ms, "
+        f"busy {w['busy'] * 100:.1f}% (idle {(1 - w['busy']) * 100:.1f}%)")
+    for kname, ms in sorted(w["by_kernel"].items(), key=lambda kv: -kv[1])[:6]:
+        log(f"    {ms:9.3f} ms  {kname[:100]}")
+
+    kw = dict(scale=d ** -0.5, causal=True, softcap=0.0, window=(-1, -1))
+    meta = varlen._call_metadata(cu, cu, t, t, "cuda")
+    o, lse = varlen._varlen_forward(q, k, v, cu, cu, meta=meta, **kw)
+    delta = varlen._varlen_delta(do, o)
+    cfg = pick_varlen_backward_config(d=d, dv=d, tq=t, dtype=bf)
+    ops = varlen._BwdOperands(q, k, v, do, lse, delta, None)
+    dkdv_sched, dq_sched = varlen._varlen_bwd_schedules(meta, t, cfg.block_q_dq, True, (-1, -1))
+    rows, events = [], {}
+
+    # The library call for the pair: autograd of SDPA over the packed T.
+    seg = torch.repeat_interleave(torch.arange(len(PACK_LENS), device="cuda"),
+                                  torch.tensor(PACK_LENS, device="cuda"))
+    r = torch.arange(t, device="cuda")
+    block_causal = (seg[:, None] == seg[None, :]) & (r[None, :] <= r[:, None])
+    qh = q.transpose(0, 1)[None].detach().requires_grad_()
+    kh = expand_kv_heads(k.transpose(0, 1)[None], hq).detach().requires_grad_()
+    vh = expand_kv_heads(v.transpose(0, 1)[None], hq).detach().requires_grad_()
+    out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=block_causal)
+    doh = do.transpose(0, 1)[None]
+
+    def library():
+        return torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True)
+
+    backend = _sdpa_backend(library)
+    lms = _timed(library, 3, warmup=1)
+    log(f"  library for varlen_dkdv/varlen_dq: torch.autograd.grad through "
+        f"scaled_dot_product_attention over the packed T{t} with a block-diagonal causal bool "
+        f"mask ({backend} backend, K/V heads expanded)")
+    del out, qh, kh, vh, block_causal
+    torch.cuda.empty_cache()
+
+    log("varlen backward kernels at the packed-training shape (T8192), kernel vs plain and "
+        "times:")
+    for name, replaces in (("varlen_dkdv", "ffpa_attn_tpu/ops/varlen.py:433"),
+                           ("varlen_dq", "ffpa_attn_tpu/ops/varlen.py:489")):
+        if name == "varlen_dkdv":
+            def run():
+                return varlen._varlen_dkdv_kernel(ops, meta, dkdv_sched, cfg, **kw)
+
+            def run_plain():
+                return varlen._varlen_dkdv_plain(q, k, v, do, lse, delta, meta, **kw)
+
+            outs = ("dk", "dv")
+        else:
+            def run():
+                return (varlen._varlen_dq_kernel(ops, meta, dq_sched, cfg, **kw),)
+
+            def run_plain():
+                return (varlen._varlen_dq_plain(q, k, v, do, lse, delta, meta, **kw),)
+
+            outs = ("dq",)
+        got = run()
+        torch.cuda.synchronize()
+        err = _hold(f"{name}_T{t}_causal", dict(zip(outs, zip(got, run_plain()))))
+        del got
+        kms = _kernel_timed(run, f"{name}_kernel", 10)
+        pms = _timed(run_plain, 3, warmup=1)
+        flops, nbytes = varlen_backward_counts(name, PACK_LENS, PACK_LENS, hq=hq, hkv=hkv, d=d,
+                                               dv=d, causal=True)
+        bms, bby = bound_ms(flops, nbytes)
+        rows.append(dict(
+            name=name, route="cuda", source="ffpa_attn_tpu_torch/csrc/varlen_bwd.cu",
+            replaces=replaces, launches=packed["launches"][name], max_abs_err=err, ms=kms[0],
+            plain_ms=pms[0], bound_ms=bms, bound_by=bby, library_ms=lms[0],
+        ))
+        events[name] = (kms[1], pms[1], lms[1])
+        torch.cuda.empty_cache()
+    return rows, events
+
+
 def phase_times(errs: dict, main_path: dict, training: dict, windowed: dict,
-                resident: dict, serving: dict) -> list:
+                resident: dict, serving: dict, packed: dict) -> list:
     import torch.nn.functional as F
 
     from ffpa_attn_tpu_torch.ops import decode, flash_fwd
@@ -1903,9 +2234,10 @@ def phase_times(errs: dict, main_path: dict, training: dict, windowed: dict,
     events["decode"] = (kms[1], pms[1], lms[1])
     serve_rows, serve_events = serving_times(errs, serving, main_path["model"])
     train_rows, train_events = training_times(training, windowed, resident)
-    rows += train_rows + serve_rows
-    events.update(train_events)
-    events.update(serve_events)
+    packed_rows, packed_events = packed_training_times(packed)
+    rows += train_rows + serve_rows + packed_rows
+    for ev in (train_events, serve_events, packed_events):
+        events.update(ev)
     log("times (device ms per call from torch.profiler; CUDA-event ms per call in brackets):")
     for r in rows:
         ev = events[r["name"]]
@@ -1941,14 +2273,16 @@ def main() -> int:
     phase_decode_grad()
     windowed = phase_windowed()
     phase_tiny_training()
-    rows = phase_times(errs, main_path, training, windowed, resident, serving)
+    packed = phase_packed_training()
+    rows = phase_times(errs, main_path, training, windowed, resident, serving, packed)
     log(f"summary: prefill_ms {main_path['prefill_ms']:.3f} decode_tokens_per_s "
         f"{main_path['decode_tok_s']:.2f} generate_ms {main_path['generate_ms']:.1f} "
         f"train_step_ms {training['step_ms']:.2f} train_tokens_per_s {training['tok_s']:.1f} "
         f"s_resident_step_ms {resident['step_ms']:.2f} s_resident_tokens_per_s "
         f"{resident['tok_s']:.1f} partial_step_ms {partial['step_ms']:.2f} "
         f"op_bwd_ms_resident {op_level['ms']['resident']:.3f} op_bwd_ms_handoff "
-        f"{op_level['ms']['handoff']:.3f} "
+        f"{op_level['ms']['handoff']:.3f} packed_fwd_bwd_ms {packed['fwd_bwd_ms']:.3f} "
+        f"packed_bwd_ms {packed['bwd_ms']:.3f} packed_bwd_tflops {packed['bwd_tflops']:.1f} "
         + "".join(f"{k} {v:.1f} " for k, v in serving["rates"].items())
         + f"loss_rel_err {training['loss_err']:.2e} "
         f"grad_rel_err {training['grad_err']:.2e} s_resident_grad_rel_err "

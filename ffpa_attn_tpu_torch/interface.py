@@ -152,8 +152,11 @@ def ffpa_attn_varlen_func(
     Returns:
       ``[Tq, Hq, Dv]`` in the input dtype (and the fp32 lse ``[Hq, Tq]``
       with ``return_lse``), on the inputs' device: the kernel for CUDA
-      tensors, its plain version for CPU tensors. The backward is a later
-      slice of the port.
+      tensors, its plain version for CPU tensors. Under ``torch.autograd``
+      the backward (packed training) gives dq, dk, dv in the inputs' dtypes
+      from the varlen dK/dV and dQ kernels (their plain versions on the
+      CPU), the sinks' gradient, and zeros for ALiBi slopes; the lse is not
+      differentiable.
     """
     from .ops.varlen import ffpa_varlen_attention
 

@@ -25,7 +25,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
-SOURCES = ("flash_fwd", "decode", "flash_bwd", "varlen_fwd", "paged_decode")
+SOURCES = ("flash_fwd", "decode", "flash_bwd", "varlen_fwd", "varlen_bwd", "paged_decode")
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()

@@ -18,6 +18,9 @@ never refused by the card.
   the row tile's segment ids and ranks in shared memory.
 * Paged decode (``csrc/paged_decode.cu``): the decode block (row tiles 16,
   32, 64), with a staging tile for int8 pools.
+* Packed varlen backward (``csrc/varlen_bwd.cu``): the dense dK/dV and
+  recompute dQ blocks below (the same tiles and column passes), with the
+  tiles' segment ids and ranks in shared memory.
 * Backward (``csrc/flash_bwd.cu``), 16 warps and the forward's chunk ring:
   - dK/dV: a block owns a 32-row KV tile with K and V resident in shared
     memory and streams 128-row Q tiles. Its two fp32 accumulators (dK and
@@ -213,6 +216,33 @@ def dq_smem_bytes(block_q: int, d: int, dv: int, itemsize: int = 2) -> int:
     return (res + ring + ds) * itemsize + 2 * block_q * 4
 
 
+def varlen_dkdv_smem_bytes(d: int, dv: int, itemsize: int = 2) -> int:
+    """Shared memory of one packed varlen dK/dV block
+    (``csrc/varlen_bwd.cu``): the dense dK/dV block's, plus the Q tile's
+    segment ids and ranks and the KV tile's segment ids and positions
+    (int32)."""
+    return dkdv_smem_bytes(d, dv, itemsize) + 2 * (DKDV_Q_TILE + DKDV_KV_TILE) * 4
+
+
+def varlen_dq_smem_bytes(block_q: int, d: int, dv: int, itemsize: int = 2) -> int:
+    """Shared memory of one packed varlen dQ block: the dense recompute dQ
+    block's, plus the row tile's segment ids and ranks (int32)."""
+    return dq_smem_bytes(block_q, d, dv, itemsize) + 2 * block_q * 4
+
+
+def varlen_bwd_fits(block_q: int, d: int, dv: int, itemsize: int = 2) -> bool:
+    """Whether the varlen backward takes (D, Dv) with this dQ row tile: the
+    dK/dV block in shared memory (its ``dkdv_col_passes`` split the
+    columns), the fp32 dQ tile (block_q x D) in registers and the dQ block
+    in shared memory."""
+    return (
+        block_q in FWD_ROW_TILES
+        and block_q * _round_up(d, D_CHUNK) <= FWD_ACC_ELEMS
+        and varlen_dkdv_smem_bytes(d, dv, itemsize) <= SMEM_LIMIT_BYTES
+        and varlen_dq_smem_bytes(block_q, d, dv, itemsize) <= SMEM_LIMIT_BYTES
+    )
+
+
 def banded_dq_smem_bytes(itemsize: int = 2) -> int:
     """Shared memory of one banded-dQ or banded-dK block: the ring alone
     (the dS tile passes through it and into registers)."""
@@ -300,6 +330,9 @@ __all__ = [
     "dkdv_col_passes",
     "dkdv_smem_bytes",
     "dq_smem_bytes",
+    "varlen_dkdv_smem_bytes",
+    "varlen_dq_smem_bytes",
+    "varlen_bwd_fits",
     "banded_dq_smem_bytes",
     "dq_fits",
     "from_s_kv_tile",

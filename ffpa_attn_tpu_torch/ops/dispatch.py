@@ -16,6 +16,7 @@ from .config import (
     dq_fits,
     from_s_fits,
     paged_smem_bytes,
+    varlen_bwd_fits,
     varlen_fits,
 )
 
@@ -62,6 +63,19 @@ def pick_varlen_config(*, d: int, dv: int, tq: int, dtype: torch.dtype) -> Block
     raise ValueError(f"no varlen row tile fits D={d}, Dv={dv}")
 
 
+def pick_varlen_backward_config(*, d: int, dv: int, tq: int, dtype: torch.dtype) -> BlockConfig:
+    """Packed varlen backward tiles: the dense backward's dK/dV tiles with
+    one column pass per 512 columns of dK and of dV, and the dQ row tile
+    the taller of FWD_ROW_TILES that fits (D, Dv), shrunk to 32 for a
+    packing of at most 32 query rows."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    for bq in FWD_ROW_TILES:
+        bq = BlockConfig(block_q=bq).clamp(tq, 0, FWD_ROW_TILES).block_q
+        if varlen_bwd_fits(bq, d, dv, itemsize):
+            return BlockConfig(block_q_dq=bq, dkdv_col_passes=dkdv_col_passes(d, dv))
+    raise ValueError(f"no varlen backward tiles fit D={d}, Dv={dv}")
+
+
 def pick_paged_config(*, dv: int, dtype: torch.dtype, rows: int,
                       quantized: bool) -> BlockConfig:
     """Paged decode row tile: the smallest of PAGED_ROW_TILES that holds the
@@ -105,4 +119,5 @@ def pick_backward_config(
 
 
 __all__ = ["pick_forward_config", "pick_decode_config", "pick_varlen_config",
-           "pick_paged_config", "pick_backward_config", "FROM_S_DK_IN_MAX_NKV"]
+           "pick_varlen_backward_config", "pick_paged_config", "pick_backward_config",
+           "FROM_S_DK_IN_MAX_NKV"]

@@ -1,17 +1,25 @@
-"""Variable-length (packed THD) attention: the CUDA kernel
-``csrc/varlen_fwd.cu`` and its plain PyTorch version.
+"""Variable-length (packed THD) attention: the CUDA kernels
+``csrc/varlen_fwd.cu`` and ``csrc/varlen_bwd.cu`` and their plain PyTorch
+versions.
 
-Replaces the Pallas ``_varlen_fwd_kernel`` of ``ffpa_attn_tpu/ops/varlen.py``
-(launched by its ``_varlen_forward``).
+Replaces three Pallas kernels of ``ffpa_attn_tpu/ops/varlen.py``: the
+forward ``_varlen_fwd_kernel`` (launched by ``_varlen_forward``) and the
+backward pair ``_varlen_dkdv_kernel`` and ``_varlen_dq_kernel`` (launched by
+``_varlen_backward``), so packed training runs through
+``ffpa_attn_varlen_func`` under ``torch.autograd``.
 
 ``cu_seqlens`` expand, with torch ops on the tensor's device and no host
 sync, into per-token int32 metadata (``_segment_metadata``): segment id and
 the tail-aligned causal rank, so the keep-mask is the JAX package's three
 compares ``(q_seg == k_seg) & (k_pos <= q_rank [+ wr]) [& k_pos >= q_rank -
 wl]`` (``_varlen_mask``). ``_tile_needed`` and ``_interval_schedule`` turn
-the metadata into each Q tile's [jmin, jmax] interval of KV tiles, computed
-at the kernel's own tile sizes; the kernel reads the intervals from device
-memory and walks only those tiles.
+the metadata into intervals of tiles, computed at each kernel's own tile
+sizes: each forward Q tile's [jmin, jmax] of KV tiles, each dK/dV KV tile's
+[imin, imax] of Q tiles (128 x 32 tiles, the needed matrix transposed) and
+each dQ Q tile's [jmin, jmax] (``_varlen_bwd_schedules``). The kernels read
+the intervals from device memory and walk only those tiles. The metadata
+is computed once per call, padded so that every kernel's tiles divide it,
+and saved for the backward.
 
 Bound on an H100: bytes, barely. The forward does 4 * Hq * D flop per
 attended (row, col) pair, summed over the segments' bands; at the serving
@@ -26,8 +34,12 @@ cp.async ring), reading the packed [T, H, D] layout through strides (no
 head-major copy, no padding of T) and walking only its interval's KV tiles,
 so nearly every cross-segment tile is skipped.
 
-The varlen backward (kernels ``_varlen_dkdv_kernel`` and
-``_varlen_dq_kernel``) is the next slice: ``_VarlenCore``'s backward raises.
+The backward is bound by operations: 4 matmul units of 2 * Hq * D flop per
+band pair for dK/dV and 3 for dQ (``utils/profiling.py``
+``varlen_backward_counts``). Its kernels are the dense backward's blocks
+(``csrc/flash_bwd.cu``) with the segment mask and the intervals; the dK/dV
+block reduces the GQA group in fp32 in its registers. delta = rowsum(dO *
+O) is a plain reduction, outside any kernel as in JAX.
 """
 
 from __future__ import annotations
@@ -41,7 +53,8 @@ from ..env import ENV
 from ..logger import init_logger
 from . import _build
 from .config import (
-    D_CHUNK, FWD_ROW_TILES, KV_TILE, BlockConfig, cdiv, varlen_fits, varlen_smem_bytes,
+    D_CHUNK, DKDV_KV_TILE, DKDV_Q_TILE, FWD_ROW_TILES, KV_TILE, BlockConfig, cdiv,
+    varlen_dkdv_smem_bytes, varlen_dq_smem_bytes, varlen_fits, varlen_smem_bytes,
 )
 from .flash_fwd import _pad_last, check_kernel_inputs
 from .reference import DEFAULT_MASK_VALUE
@@ -179,6 +192,24 @@ def _interval_schedule(needed):
     return lo, hi
 
 
+def _call_metadata(cu_q, cu_k, tq: int, tk: int, device):
+    """A call's ``_segment_metadata`` on ``device``, padded so that every
+    varlen kernel's tiles divide it: query tokens to a multiple of
+    DKDV_Q_TILE (128, a multiple of every row tile), keys to a multiple of
+    KV_TILE (64, a multiple of DKDV_KV_TILE)."""
+    return _segment_metadata(cu_q.to(device), cu_k.to(device), tq, tk,
+                             cdiv(max(tq, 1), DKDV_Q_TILE) * DKDV_Q_TILE,
+                             cdiv(max(tk, 1), KV_TILE) * KV_TILE)
+
+
+def _q_tiles(meta, tq: int, bq: int):
+    """The metadata with its query side cut to the ``bq``-row tiles that
+    cover ``tq`` rows (views, no copy)."""
+    n = cdiv(max(tq, 1), bq) * bq
+    q_seg, q_rank, k_seg, k_pos = meta
+    return q_seg[:n], q_rank[:n], k_seg, k_pos
+
+
 def _varlen_forward_plain(q, k, v, meta, *, scale, causal, softcap=0.0,
                           window=(-1, -1), alibi=None):
     """The kernel's function in plain PyTorch (fp32 math) on packed q [Tq,
@@ -276,35 +307,266 @@ def _varlen_kernel(q, k, v, meta, intervals, config: BlockConfig, *, scale, caus
 
 
 def _varlen_forward(q, k, v, cu_q, cu_k, *, scale, causal, config: Optional[BlockConfig] = None,
-                    softcap: float = 0.0, window: tuple = (-1, -1), alibi=None):
+                    softcap: float = 0.0, window: tuple = (-1, -1), alibi=None, meta=None):
     """Packed varlen forward: (o [Tq, Hq, Dv], lse [Hq, Tq] fp32).
 
-    The metadata and the tile intervals are computed at the kernel's tiles
+    ``meta`` is the call's ``_call_metadata`` (computed here when not
+    given). The tile intervals are computed at the kernel's tiles
     (``config.block_q`` query rows, KV_TILE keys) on the inputs' device. CPU
     tensors run the plain version; CUDA tensors launch the kernel, or raise
     for what it does not take."""
     from .dispatch import pick_varlen_config
 
     tq, _, d = q.shape
-    tk = k.shape[0]
     if config is None:
         config = pick_varlen_config(d=cdiv(d, D_CHUNK) * D_CHUNK,
                                     dv=cdiv(v.shape[-1], D_CHUNK) * D_CHUNK, tq=tq,
                                     dtype=q.dtype)
-    bq = config.block_q
-    tq_pad, tk_pad = cdiv(max(tq, 1), bq) * bq, cdiv(max(tk, 1), KV_TILE) * KV_TILE
-    meta = _segment_metadata(cu_q.to(q.device), cu_k.to(q.device), tq, tk, tq_pad, tk_pad)
+    if meta is None:
+        meta = _call_metadata(cu_q, cu_k, tq, k.shape[0], q.device)
     window = (int(window[0]), -1 if causal else int(window[1]))
     if q.device.type == "cpu":
         return _varlen_forward_plain(q, k, v, meta, scale=scale, causal=causal, softcap=softcap,
                                      window=window, alibi=alibi)
-    needed = _tile_needed(*meta, bq, KV_TILE, causal, window[0], window[1])
+    meta = _q_tiles(meta, tq, config.block_q)
+    needed = _tile_needed(*meta, config.block_q, KV_TILE, causal, window[0], window[1])
     intervals = _interval_schedule(needed)
     return _varlen_kernel(q, k, v, meta, intervals, config, scale=scale, causal=causal,
                           softcap=softcap, window=window, alibi=alibi)
 
 
 _varlen_forward.launches = 0
+
+
+# -- backward ----------------------------------------------------------------
+
+
+def _varlen_delta(do, o):
+    """delta = rowsum(dO * O) [Hq, Tq] in fp32 (a plain reduction)."""
+    return (do.float() * o.float()).sum(-1).transpose(0, 1).contiguous()
+
+
+def _varlen_score_grads_plain(q, k, v, do, lse, delta, meta, *, scale, causal, softcap=0.0,
+                              window=(-1, -1), alibi=None):
+    """The JAX package's ``_varlen_recompute_ds`` over the whole packing:
+    fp32 (p, ds) [Hq, Tq, Tk], ds with softcap's chain factor. ``window`` is
+    normalized (its right edge -1 under causal); masked pairs, rows with no
+    key among them, give p = 0."""
+    tq, hq, _ = q.shape
+    tk, hkv, _ = k.shape
+    q_seg, q_rank, k_seg, k_pos = (m.to(q.device) for m in meta)
+    q_seg, q_rank, k_seg, k_pos = q_seg[:tq], q_rank[:tq], k_seg[:tk], k_pos[:tk]
+    group = hq // hkv
+    kh = k.transpose(0, 1).float().repeat_interleave(group, dim=0)
+    vh = v.transpose(0, 1).float().repeat_interleave(group, dim=0)
+    s = torch.einsum("htd,hsd->hts", q.transpose(0, 1).float(), kh) * scale
+    cap = None
+    if softcap > 0.0:
+        s = softcap * torch.tanh(s / softcap)
+        cap = 1.0 - torch.square(s / softcap)
+    if alibi is not None:
+        dist = (q_rank[:, None] - k_pos[None, :]).abs().float()
+        s = s - alibi.to(s.device).float().reshape(hq, 1, 1) * dist
+    keep = _varlen_mask(q_seg[:, None], q_rank[:, None], k_seg[None, :], k_pos[None, :],
+                        causal, int(window[0]), int(window[1]))
+    p = torch.where(keep, torch.exp(s - lse[..., None]), 0.0)
+    del s, keep
+    ds = torch.einsum("htd,hsd->hts", do.transpose(0, 1).float(), vh)
+    ds = p * (ds - delta[..., None])
+    if cap is not None:
+        ds = ds * cap
+    return p, ds
+
+
+def _varlen_dkdv_plain(q, k, v, do, lse, delta, meta, *, scale, **kw):
+    """The dK/dV kernel's function in plain PyTorch: (dk [Tk, Hkv, D], dv
+    [Tk, Hkv, Dv]) in k's and v's dtypes, the GQA group summed in fp32, with
+    the kernel's roundings (P and dS in the input type)."""
+    tk, hkv, _ = k.shape
+    hq = q.shape[1]
+    p, ds = _varlen_score_grads_plain(q, k, v, do, lse, delta, meta, scale=scale, **kw)
+    t = q.dtype
+    dv = torch.einsum("hts,htd->hsd", p.to(t).float(), do.transpose(0, 1).float())
+    del p
+    dk = torch.einsum("hts,htd->hsd", ds.to(t).float(), q.transpose(0, 1).float()) * scale
+    dk = dk.reshape(hkv, hq // hkv, tk, -1).sum(1)
+    dv = dv.reshape(hkv, hq // hkv, tk, -1).sum(1)
+    return dk.transpose(0, 1).to(k.dtype), dv.transpose(0, 1).to(v.dtype)
+
+
+def _varlen_dq_plain(q, k, v, do, lse, delta, meta, *, scale, **kw):
+    """The dQ kernel's function in plain PyTorch: dq [Tq, Hq, D] in q's
+    dtype, with the kernel's rounding of dS to the input type."""
+    group = q.shape[1] // k.shape[1]
+    _, ds = _varlen_score_grads_plain(q, k, v, do, lse, delta, meta, scale=scale, **kw)
+    kh = k.transpose(0, 1).float().repeat_interleave(group, dim=0)
+    dq = torch.einsum("hts,hsd->htd", ds.to(q.dtype).float(), kh) * scale
+    return dq.transpose(0, 1).to(q.dtype)
+
+
+def _varlen_backward_plain(q, k, v, o, lse, do, meta, *, scale, causal, softcap=0.0,
+                           window=(-1, -1), alibi=None):
+    """The backward's function in plain PyTorch (fp32 math over the packed
+    layout): (dq, dk, dv) in the inputs' dtypes from q, k, v, the forward's
+    o and lse (sink-inclusive where there are sinks), the cotangent do and
+    the metadata of ``_segment_metadata``."""
+    window = (int(window[0]), -1 if causal else int(window[1]))
+    kw = dict(scale=scale, causal=causal, softcap=softcap, window=window, alibi=alibi)
+    delta = _varlen_delta(do, o)
+    dk, dv = _varlen_dkdv_plain(q, k, v, do, lse, delta, meta, **kw)
+    return _varlen_dq_plain(q, k, v, do, lse, delta, meta, **kw), dk, dv
+
+
+def _varlen_bwd_schedules(meta, tq: int, block_q_dq: int, causal: bool, window):
+    """((imin, imax), (jmin, jmax)) on the metadata's device: each
+    DKDV_KV_TILE-row KV tile's interval of DKDV_Q_TILE-row Q tiles for the
+    dK/dV kernel (``_tile_needed`` at those tiles, transposed), and each
+    ``block_q_dq``-row Q tile's interval of KV_TILE-row KV tiles for the dQ
+    kernel. Each schedule is computed at its own kernel's tiles: an
+    interval of one geometry read at the other's would drop pairs.
+    ``window`` is normalized."""
+    wl, wr = int(window[0]), int(window[1])
+    needed = _tile_needed(*meta, DKDV_Q_TILE, DKDV_KV_TILE, causal, wl, wr)
+    dkdv = _interval_schedule(needed.T)
+    needed = _tile_needed(*_q_tiles(meta, tq, block_q_dq), block_q_dq, KV_TILE, causal, wl, wr)
+    return dkdv, _interval_schedule(needed)
+
+
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_VARLEN_BWD_ARGTYPES = {
+    "ffpa_varlen_bwd_dkdv": [_P] * 4 + [_LL] * 8 + [_P] * 11 + [_I] * 9 + [_F] * 2 + [_I] * 2
+    + [_P],
+    "ffpa_varlen_bwd_dq": [_P] * 4 + [_LL] * 8 + [_P] * 10 + [_I] * 9 + [_F] * 2 + [_I] * 2
+    + [_P],
+}
+
+
+def _varlen_bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("varlen_bwd")
+    for name, argtypes in _VARLEN_BWD_ARGTYPES.items():
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
+class _BwdOperands:
+    """The backward kernels' inputs: q, k, v, dO padded to 64-column heads
+    and read through their row and head strides, their strides in the C
+    entry points' order, fp32 lse and delta [Hq, Tq], fp32 ALiBi slopes."""
+
+    def __init__(self, q, k, v, do, lse, delta, alibi):
+        check_kernel_inputs("_varlen_backward", q, k, v)
+        self.d, self.dv = q.shape[-1], v.shape[-1]
+        self.d_pad = cdiv(self.d, D_CHUNK) * D_CHUNK
+        self.dv_pad = cdiv(self.dv, D_CHUNK) * D_CHUNK
+        self.q, self.k = _strided_rows(q, self.d_pad), _strided_rows(k, self.d_pad)
+        self.v = _strided_rows(v, self.dv_pad)
+        self.do = _strided_rows(do.to(q.dtype), self.dv_pad)  # an expanded dO is copied
+        self.lse, self.delta = lse.float().contiguous(), delta.float().contiguous()
+        self.alibi = (None if alibi is None
+                      else alibi.to(device=q.device, dtype=torch.float32).contiguous())
+
+    def head(self) -> list:
+        """q, k, v, dO pointers, their eight strides, lse and delta."""
+        ts = (self.q, self.k, self.v, self.do)
+        return ([t.data_ptr() for t in ts] + [s for t in ts for s in (t.stride(0), t.stride(1))]
+                + [self.lse.data_ptr(), self.delta.data_ptr()])
+
+
+def _varlen_dkdv_kernel(ops: _BwdOperands, meta, schedule, config: BlockConfig, *, scale,
+                        causal, softcap, window):
+    """Launch the dK/dV kernel of ``csrc/varlen_bwd.cu``: (dk, dv) packed
+    in the input type (same contract as ``_varlen_dkdv_plain``)."""
+    tq, hq = ops.q.shape[0], ops.q.shape[1]
+    tk, hkv = ops.k.shape[0], ops.k.shape[1]
+    dk = torch.empty((tk, hkv, ops.d_pad), dtype=ops.q.dtype, device=ops.q.device)
+    dv = torch.empty((tk, hkv, ops.dv_pad), dtype=ops.q.dtype, device=ops.q.device)
+    imin, imax = schedule
+    q_seg, q_rank, k_seg, k_pos = meta
+    passes = config.dkdv_col_passes
+    if ENV.device_log_level() >= 2:
+        logger.info("varlen_dkdv launch grid=(%d,%d) smem=%d D=%d Dv=%d Tq=%d Tk=%d",
+                    hkv * passes, imin.shape[0],
+                    varlen_dkdv_smem_bytes(ops.d_pad, ops.dv_pad, ops.q.element_size()),
+                    ops.d_pad, ops.dv_pad, tq, tk)
+    lib = _varlen_bwd_lib()
+    with torch.cuda.device(ops.q.device):
+        err = lib.ffpa_varlen_bwd_dkdv(
+            *ops.head(), dk.data_ptr(), dv.data_ptr(), q_seg.data_ptr(), q_rank.data_ptr(),
+            k_seg.data_ptr(), k_pos.data_ptr(), imin.data_ptr(), imax.data_ptr(),
+            None if ops.alibi is None else ops.alibi.data_ptr(),
+            int(ops.q.dtype == torch.float16), hq, hkv, tq, tk, imin.shape[0], ops.d_pad,
+            ops.dv_pad, passes, float(scale), float(softcap), int(window[0]),
+            0 if causal else int(window[1]),  # causal is the band's right edge 0
+            torch.cuda.current_stream(ops.q.device).cuda_stream,
+        )
+    _build.check(lib, err, "varlen_dkdv kernel launch")
+    _varlen_backward.dkdv_launches += 1
+    return dk[..., :ops.d], dv[..., :ops.dv]
+
+
+def _varlen_dq_kernel(ops: _BwdOperands, meta, schedule, config: BlockConfig, *, scale, causal,
+                      softcap, window):
+    """Launch the dQ kernel of ``csrc/varlen_bwd.cu``: dq packed in the
+    input type (same contract as ``_varlen_dq_plain``)."""
+    tq, hq = ops.q.shape[0], ops.q.shape[1]
+    tk, hkv = ops.k.shape[0], ops.k.shape[1]
+    bq = config.block_q_dq
+    dq = torch.empty((tq, hq, ops.d_pad), dtype=ops.q.dtype, device=ops.q.device)
+    jmin, jmax = schedule
+    q_seg, q_rank, k_seg, k_pos = meta
+    if ENV.device_log_level() >= 2:
+        logger.info("varlen_dq launch grid=(%d,%d) block_q=%d smem=%d D=%d Dv=%d Tq=%d Tk=%d",
+                    hq, jmin.shape[0], bq,
+                    varlen_dq_smem_bytes(bq, ops.d_pad, ops.dv_pad, ops.q.element_size()),
+                    ops.d_pad, ops.dv_pad, tq, tk)
+    lib = _varlen_bwd_lib()
+    with torch.cuda.device(ops.q.device):
+        err = lib.ffpa_varlen_bwd_dq(
+            *ops.head(), dq.data_ptr(), q_seg.data_ptr(), q_rank.data_ptr(), k_seg.data_ptr(),
+            k_pos.data_ptr(), jmin.data_ptr(), jmax.data_ptr(),
+            None if ops.alibi is None else ops.alibi.data_ptr(),
+            int(ops.q.dtype == torch.float16), bq, hq, hkv, tq, tk, jmin.shape[0], ops.d_pad,
+            ops.dv_pad, float(scale), float(softcap), int(window[0]),
+            0 if causal else int(window[1]),
+            torch.cuda.current_stream(ops.q.device).cuda_stream,
+        )
+    _build.check(lib, err, "varlen_dq kernel launch")
+    _varlen_backward.dq_launches += 1
+    return dq[..., :ops.d]
+
+
+def _varlen_backward(q, k, v, o, lse, do, meta, *, scale, causal, softcap: float = 0.0,
+                     window: tuple = (-1, -1), alibi=None):
+    """Packed varlen backward: (dq [Tq, Hq, D], dk [Tk, Hkv, D], dv [Tk,
+    Hkv, Dv]) in the inputs' dtypes, from the forward's o and lse
+    (sink-inclusive where there are sinks) and the cotangent ``do``;
+    ``meta`` is the call's ``_call_metadata``.
+
+    CPU tensors run the plain version. CUDA tensors compute delta and both
+    tile schedules on the device (no host sync) and launch the dK/dV kernel
+    then the dQ kernel, counted in ``dkdv_launches`` and ``dq_launches``,
+    or raise for what they do not take."""
+    from .dispatch import pick_varlen_backward_config
+
+    window = (int(window[0]), -1 if causal else int(window[1]))
+    kw = dict(scale=scale, causal=causal, softcap=softcap, window=window)
+    if q.device.type == "cpu":
+        return _varlen_backward_plain(q, k, v, o, lse, do, meta, alibi=alibi, **kw)
+    ops = _BwdOperands(q, k, v, do, lse, _varlen_delta(do, o), alibi)
+    config = pick_varlen_backward_config(d=ops.d_pad, dv=ops.dv_pad, tq=q.shape[0],
+                                         dtype=q.dtype)
+    dkdv_sched, dq_sched = _varlen_bwd_schedules(meta, q.shape[0], config.block_q_dq, causal,
+                                                 window)
+    dk, dv = _varlen_dkdv_kernel(ops, meta, dkdv_sched, config, **kw)
+    dq = _varlen_dq_kernel(ops, meta, dq_sched, config, **kw)
+    return dq, dk, dv
+
+
+_varlen_backward.dkdv_launches = 0
+_varlen_backward.dq_launches = 0
 
 
 def _varlen_apply_sinks(o, lse, sinks):
@@ -316,26 +578,39 @@ def _varlen_apply_sinks(o, lse, sinks):
 
 
 class _VarlenCore(torch.autograd.Function):
-    """The varlen core op (the JAX package's ``_varlen_core`` custom_vjp):
-    the forward runs ``_varlen_forward`` and applies sinks. Its backward,
-    the varlen dK/dV and dQ kernels, is the next slice of the port (packed
-    training) and raises until then."""
+    """The varlen core op (the JAX package's ``_varlen_core`` custom_vjp).
+
+    The forward computes the call's metadata once, runs ``_varlen_forward``
+    and applies sinks; it saves q, k, v, the sink-inclusive o and lse and
+    the metadata. The backward runs ``_varlen_backward`` (the kernels are
+    exact under sink-inclusive residuals), the sinks' closed-form gradient
+    and a zero gradient for ALiBi slopes; the lse cotangent is ignored."""
 
     @staticmethod
     def forward(ctx, scale, causal, config, softcap, window, q, k, v, cu_q, cu_k, alibi, sinks):
+        meta = _call_metadata(cu_q, cu_k, q.shape[0], k.shape[0], q.device)
         o, lse = _varlen_forward(q, k, v, cu_q, cu_k, scale=scale, causal=causal, config=config,
-                                 softcap=softcap, window=window, alibi=alibi)
+                                 softcap=softcap, window=window, alibi=alibi, meta=meta)
         if sinks is not None:
             o, lse = _varlen_apply_sinks(o, lse, sinks)
+        ctx.save_for_backward(q, k, v, o, lse, *meta, alibi, sinks)
+        ctx.static = dict(scale=scale, causal=causal, softcap=softcap, window=window)
         ctx.mark_non_differentiable(lse)
         return o, lse
 
     @staticmethod
     def backward(ctx, do, dlse):
-        raise NotImplementedError(
-            "the varlen backward (_varlen_dkdv_kernel, _varlen_dq_kernel) is not ported yet: "
-            "it is the next slice of the port (packed training)"
-        )
+        del dlse  # lse is a non-differentiable output
+        q, k, v, o, lse, *meta, alibi, sinks = ctx.saved_tensors
+        dq, dk, dv = _varlen_backward(q, k, v, o, lse, do, tuple(meta), alibi=alibi,
+                                      **ctx.static)
+        dsinks = None
+        if sinks is not None:
+            from .attention import sink_grad
+
+            dsinks = sink_grad(do.transpose(0, 1), o.transpose(0, 1), lse, sinks, head_axis=0)
+        dalibi = None if alibi is None else torch.zeros_like(alibi)
+        return None, None, None, None, None, dq, dk, dv, None, None, dalibi, dsinks
 
 
 def _varlen_block_config(block_q, block_kv, d, dv, tq, dtype) -> Optional[BlockConfig]:
@@ -448,4 +723,6 @@ __all__ = [
     "_interval_schedule",
     "_varlen_forward",
     "_varlen_forward_plain",
+    "_varlen_backward",
+    "_varlen_backward_plain",
 ]

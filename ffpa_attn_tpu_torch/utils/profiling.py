@@ -9,8 +9,8 @@
   clock under the same name.
 * ``bound_ms``: the least time the card could take for given operations
   and bytes, at the published H100 SXM peaks; ``backward_counts``,
-  ``varlen_counts`` and ``paged_decode_counts`` give a kernel's operations
-  and bytes for this run's shapes.
+  ``varlen_counts``, ``varlen_backward_counts`` and ``paged_decode_counts``
+  give a kernel's operations and bytes for this run's shapes.
 """
 
 from __future__ import annotations
@@ -93,6 +93,25 @@ def varlen_counts(seqs_q, seqs_k, *, hq: int, hkv: int, d: int, dv: int, causal:
     return 2 * hq * pairs * (d + dv), nbytes
 
 
+def varlen_backward_counts(kernel: str, seqs_q, seqs_k, *, hq: int, hkv: int, d: int, dv: int,
+                           causal: bool, window=(-1, -1), itemsize: int = 2) -> tuple:
+    """(flop, bytes) of one packed varlen backward kernel, as
+    ``backward_counts`` defines them, over the segments' tail-aligned bands:
+    varlen_dkdv does 4 matmul units (S, dP, dV, dK) per band pair and
+    varlen_dq 3 (S, dP, dQ), 2 flop per multiply-add; bytes count q, k, v,
+    dO, lse and delta read once and the gradients written once."""
+    pairs = hq * sum(band_pairs(lq, lk, causal=causal, window=window)
+                     for lq, lk in zip(seqs_q, seqs_k))
+    tq, tk = sum(seqs_q), sum(seqs_k)
+    q_b, kv_b = tq * hq * d * itemsize, tk * hkv * (d + dv) * itemsize
+    do_b, rows_b = tq * hq * dv * itemsize, 2 * hq * tq * 4
+    if kernel == "varlen_dkdv":
+        return 2 * pairs * (2 * d + 2 * dv), q_b + 2 * kv_b + do_b + rows_b
+    if kernel == "varlen_dq":
+        return 2 * pairs * (2 * d + dv), 2 * q_b + kv_b + do_b + rows_b
+    raise ValueError(f"unknown varlen backward kernel {kernel!r}")
+
+
 def paged_decode_counts(lens, *, hq: int, hkv: int, d: int, dv: int, nq: int = 1,
                         itemsize: int = 2, quantized: bool = False) -> tuple:
     """(flop, bytes) of one paged decode call: sequence b's ``lens[b]``
@@ -156,5 +175,6 @@ def device_ms(fn: Callable, reps: int = 10, warmup: int = 3) -> float:
 
 __all__ = [
     "PEAK_BF16_FLOPS", "PEAK_HBM_BW", "bound_ms", "band_pairs", "backward_counts",
-    "varlen_counts", "paged_decode_counts", "cuda_ms", "device_window", "device_ms",
+    "varlen_counts", "varlen_backward_counts", "paged_decode_counts", "cuda_ms",
+    "device_window", "device_ms",
 ]

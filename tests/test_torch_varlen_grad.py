@@ -1,0 +1,223 @@
+"""Packed (varlen) training: the port's backward against the JAX package's.
+
+``torch.autograd.grad`` through the port's ``ffpa_attn_varlen_func`` against
+``jax.vjp`` of the JAX one, the same numpy inputs and cotangent rounded to
+bf16 (or fp16) once. On the CPU the port runs the kernels' plain versions,
+JAX its Pallas kernels in interpret mode (T <= 256: one grid tile of its
+256-row blocks). The cases are the forward's (``tests/test_torch_varlen.py``).
+
+Tolerances: bf16 gradients 5e-2 relative to max|g| (tests/test_ffpa_varlen.py:19,
+tests/test_ffpa_bwd.py:19), the sink gradient 5e-2, the ALiBi gradient
+exactly 0; fp16 1e-2 against the fp32 per-segment oracle for the port
+(native fp16), 5e-2 against JAX (which computes fp16 in bf16). On the card,
+each kernel against its plain version per row (``grad_row_rel_err``) at
+bf16 5e-2 / fp16 1e-2.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import (  # noqa: F401
+    cuda, grad_row_rel_err, jax_modules, randn, rel_err, to_jax, to_torch,
+)
+from ffpa_attn_tpu_torch import ffpa_attn_varlen_func
+from ffpa_attn_tpu_torch.ops import varlen as tvar
+from test_torch_varlen import CARD_CASES, CASES, _inputs, _kwargs, _max_seqlens
+
+GRAD_TOL = {"bfloat16": 5e-2, "float16": 1e-2}
+SINK_TOL = 5e-2
+
+
+def _cotangent(x, seed=1):
+    return randn(np.random.default_rng(seed), x["q"].shape[:2] + x["v"].shape[2:])
+
+
+def _call_kwargs(case):
+    return dict(_kwargs(case), return_lse=False)
+
+
+@pytest.fixture(scope="module")
+def jv():
+    """jax and the JAX package."""
+    return jax_modules("jax", "ffpa_attn_tpu")
+
+
+def _jax_grads(jv, x, case, do, dtype):
+    """(dq, dk, dv, dsinks or None) of the JAX package by ``jax.vjp``."""
+    jax, jpkg = jv
+    import jax.numpy as jnp
+
+    kw = _call_kwargs(case)
+    if x["alibi"] is not None:
+        kw["alibi_slopes"] = to_jax(x["alibi"])
+    cu = [jnp.asarray(x[n], jnp.int32) for n in ("cu_q", "cu_k")]
+    primals = [to_jax(x[n], dtype) for n in ("q", "k", "v")]
+    has_sinks = x["sinks"] is not None
+    if has_sinks:
+        primals.append(to_jax(x["sinks"]))
+
+    def f(q, k, v, *sinks):
+        return jpkg.ffpa_attn_varlen_func(q, k, v, *cu, *_max_seqlens(x),
+                                          sinks=sinks[0] if sinks else None, **kw)
+
+    _, vjp = jax.vjp(f, *primals)
+    grads = vjp(to_jax(do, dtype))
+    return tuple(grads) + (() if has_sinks else (None,))
+
+
+def _torch_grads(x, case, do, dtype, device="cpu"):
+    """(dq, dk, dv, dsinks or None, dalibi or None) of the port by
+    ``torch.autograd.grad``; sinks and ALiBi slopes are leaves too."""
+    leaves = [to_torch(x[n], dtype, device).requires_grad_() for n in ("q", "k", "v")]
+    extras = {}
+    for name, kwarg in (("sinks", "sinks"), ("alibi", "alibi_slopes")):
+        if x[name] is not None:
+            extras[kwarg] = to_torch(x[name], device=device).requires_grad_()
+    cu = [torch.from_numpy(x[n]).to(device) for n in ("cu_q", "cu_k")]
+    out = ffpa_attn_varlen_func(*leaves, *cu, *_max_seqlens(x), **extras, **_call_kwargs(case))
+    grads = torch.autograd.grad(out, leaves + list(extras.values()),
+                                to_torch(do, dtype, device))
+    named = dict(zip(extras, grads[3:]))
+    return grads[:3] + (named.get("sinks"), named.get("alibi_slopes"))
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_varlen_grads_match_jax(jv, name):
+    case = CASES[name]
+    x = _inputs(case)
+    do = _cotangent(x)
+    want = _jax_grads(jv, x, case, do, "bfloat16")
+    counts = (tvar._varlen_backward.dkdv_launches, tvar._varlen_backward.dq_launches)
+    got = _torch_grads(x, case, do, "bfloat16")
+    # CPU tensors run the plain version
+    assert (tvar._varlen_backward.dkdv_launches, tvar._varlen_backward.dq_launches) == counts
+    for g, w, src, n in zip(got, want, ("q", "k", "v"), ("dq", "dk", "dv")):
+        assert g.dtype == torch.bfloat16 and tuple(g.shape) == x[src].shape, n
+        assert rel_err(g, w) < GRAD_TOL["bfloat16"], (name, n)
+    if x["sinks"] is not None:
+        assert got[3].dtype == torch.float32
+        assert rel_err(got[3], want[3]) < SINK_TOL, name
+    if x["alibi"] is not None:
+        assert torch.equal(got[4], torch.zeros_like(got[4]))
+
+
+def _oracle_grads(x, case, do, dtype):
+    """fp32 per-segment dense attention's gradients on the inputs rounded to
+    ``dtype``, by autograd."""
+    from ffpa_attn_tpu_torch.ops.reference import expand_kv_heads, reference_attention
+
+    leaves = [to_torch(x[n], dtype).float().requires_grad_() for n in ("q", "k", "v")]
+    q, k, v = leaves
+    outs = []
+    for (q0, q1), (k0, k1) in zip(zip(x["cu_q"][:-1], x["cu_q"][1:]),
+                                  zip(x["cu_k"][:-1], x["cu_k"][1:])):
+        qs, ks, vs = (t.transpose(0, 1)[None] for t in (q[q0:q1], k[k0:k1], v[k0:k1]))
+        o = reference_attention(qs, expand_kv_heads(ks, q.shape[1]),
+                                expand_kv_heads(vs, q.shape[1]), is_causal=case.get("causal"))
+        outs.append(o[0].transpose(0, 1))
+    return torch.autograd.grad(torch.cat(outs), leaves, to_torch(do, dtype).float())
+
+
+def test_varlen_fp16_grads_vs_oracle_and_jax(jv):
+    case = CASES["gqa_causal"]
+    x = _inputs(case, seed=3)
+    do = _cotangent(x, seed=4)
+    want = _oracle_grads(x, case, do, "float16")
+    jg = _jax_grads(jv, x, case, do, "float16")
+    got = _torch_grads(x, case, do, "float16")
+    for g, w, j, n in zip(got, want, jg, ("dq", "dk", "dv")):
+        assert g.dtype == torch.float16, n
+        assert rel_err(g, w) < GRAD_TOL["float16"], n
+        assert rel_err(g, j) < GRAD_TOL["bfloat16"], n
+
+
+@pytest.mark.parametrize("causal,window", [
+    (False, (-1, -1)), (True, (-1, -1)), (True, (24, -1)), (False, (16, 8)),
+])
+@pytest.mark.parametrize("cu_k_shift", [0, 40])
+@pytest.mark.parametrize("bq", [64, 32])
+def test_backward_schedules_cover_every_visible_pair(causal, window, cu_k_shift, bq):
+    """Every (query, key) pair the keep-mask attends lies inside its KV
+    tile's [imin, imax] at the dK/dV kernel's 128 x 32 tiles and inside its
+    Q tile's [jmin, jmax] at the dQ kernel's bq x 64 tiles; a padded tail
+    (the pseudo-segment), a length-0 segment and tail-aligned cross keys."""
+    cu_q = np.asarray([0, 70, 70, 200, 201, 300], np.int32)
+    cu_k = cu_q.copy()
+    cu_k[-1] += cu_k_shift
+    tq, tk = 330, 330 + cu_k_shift
+    wnorm = (window[0], -1 if causal else window[1])
+    meta = tvar._call_metadata(torch.from_numpy(cu_q), torch.from_numpy(cu_k), tq, tk, "cpu")
+    (imin, imax), (jmin, jmax) = tvar._varlen_bwd_schedules(meta, tq, bq, causal, wnorm)
+    q_seg, q_rank, k_seg, k_pos = meta
+    assert imin.shape[0] == k_seg.shape[0] // 32 and jmin.shape[0] == -(-tq // bq)
+    keep = tvar._varlen_mask(q_seg[:, None], q_rank[:, None], k_seg[None, :], k_pos[None, :],
+                             causal, *wnorm)
+    rows, cols = (t.numpy() for t in torch.nonzero(keep, as_tuple=True))
+    assert rows.size > 0 and rows.max() < tq and cols.max() < tk
+    imin, imax, jmin, jmax = (t.numpy() for t in (imin, imax, jmin, jmax))
+    i, j = rows // 128, cols // 32
+    assert ((imin[j] <= i) & (i <= imax[j])).all()
+    i, j = rows // bq, cols // 64
+    assert ((jmin[i] <= j) & (j <= jmax[i])).all()
+
+
+# -- on the card: each kernel against its plain version ----------------------
+
+
+def _card_backward(x, case, dtype, device, do=None):
+    """The forward kernel's (o, lse), sink-inclusive where the case has
+    sinks, then ``_varlen_backward`` on the card and its plain version on
+    the same tensors."""
+    kw = dict(scale=x["q"].shape[-1] ** -0.5, causal=bool(case.get("causal", False)),
+              softcap=float(case.get("softcap", 0.0)), window=case.get("window", (-1, -1)))
+    q, k, v = (to_torch(x[n], dtype, device) for n in ("q", "k", "v"))
+    do = to_torch(_cotangent(x) if do is None else do, dtype, device)
+    alibi = to_torch(x["alibi"], device=device)
+    cu_q, cu_k = (torch.from_numpy(x[n]).to(device) for n in ("cu_q", "cu_k"))
+    meta = tvar._call_metadata(cu_q, cu_k, q.shape[0], k.shape[0], device)
+    o, lse = tvar._varlen_forward(q, k, v, cu_q, cu_k, alibi=alibi, meta=meta, **kw)
+    if x["sinks"] is not None:
+        o, lse = tvar._varlen_apply_sinks(o, lse, to_torch(x["sinks"], device=device))
+    counts = (tvar._varlen_backward.dkdv_launches, tvar._varlen_backward.dq_launches)
+    got = tvar._varlen_backward(q, k, v, o, lse, do, meta, alibi=alibi, **kw)
+    torch.cuda.synchronize()
+    assert (tvar._varlen_backward.dkdv_launches, tvar._varlen_backward.dq_launches) == (
+        counts[0] + 1, counts[1] + 1)
+    want = tvar._varlen_backward_plain(q, k, v, o, lse, do, meta, alibi=alibi, **kw)
+    return got, want
+
+
+@pytest.mark.parametrize("name", sorted(CARD_CASES))
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_varlen_backward_kernels_match_plain_on_card(cuda, name, dtype):
+    case = CARD_CASES[name]
+    x = _inputs(case, seed=5)
+    got, want = _card_backward(x, case, dtype, cuda)
+    for g, w, n in zip(got, want, ("dq", "dk", "dv")):
+        assert g.dtype == w.dtype and g.shape == w.shape, n
+        assert bool(torch.isfinite(g).all()), (name, n)
+        assert grad_row_rel_err(g, w) < GRAD_TOL[dtype], (name, n)
+
+
+def test_varlen_backward_strided_and_expanded_on_card(cuda):
+    """q read through its strides and an expanded (stride-0) cotangent, as
+    ``o.float().sum().backward()`` hands it: the same gradients as the
+    contiguous inputs with an explicit ones cotangent."""
+    case = dict(seqs=[100, 60], hq=2, hkv=2, causal=True, d=512)
+    x = _inputs(case, seed=6)
+    cu = torch.from_numpy(x["cu_q"]).to(cuda)
+    wide = to_torch(np.concatenate([x["q"], x["q"]], axis=1), "bfloat16", cuda)
+    grads = []
+    for q in (wide[:, :2], wide[:, :2].contiguous()):
+        leaves = [q.detach().requires_grad_()] + [
+            to_torch(x[n], "bfloat16", cuda).requires_grad_() for n in ("k", "v")]
+        out = ffpa_attn_varlen_func(*leaves, cu, cu, 100, 100, causal=True)
+        if len(grads) == 0:
+            out.float().sum().backward()
+        else:
+            out.backward(torch.ones_like(out))
+        grads.append([t.grad for t in leaves])
+    torch.cuda.synchronize()
+    for g, w in zip(*grads):
+        assert torch.equal(g, w)

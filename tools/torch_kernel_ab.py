@@ -24,7 +24,11 @@ Python wrappers (the two share the C interface):
 * varlen_fwd: the serving packing of continuous batching (prompts of 589,
   698, 763 and 886 tokens, H8/4 D512 causal bf16);
 * paged_decode: the serving step over bf16 pools (B4, lens 64 tokens into
-  generation, page 256), four layers' pools in turn.
+  generation, page 256), four layers' pools in turn;
+* varlen_dkdv and varlen_dq: the packed-training backward of
+  ``chip_smoke.py`` (8 documents of 2048..284 tokens, 8192 in all, H8/4
+  D512 causal bf16), each kernel alone on the plain forward's (o, lse) with
+  its tile schedule computed beforehand.
 
 A kernel whose source the base tree lacks is timed on the head alone. Each
 time is the kernels' device time per call from torch.profiler (for from_s
@@ -50,20 +54,24 @@ sys.path.insert(0, str(REPO))
 from ffpa_attn_tpu_torch.ops import (  # noqa: E402
     _build, decode, flash_bwd, flash_fwd, paged, varlen,
 )
-from ffpa_attn_tpu_torch.ops.dispatch import pick_backward_config  # noqa: E402
+from ffpa_attn_tpu_torch.ops.dispatch import (  # noqa: E402
+    pick_backward_config, pick_varlen_backward_config,
+)
 from ffpa_attn_tpu_torch.ops.reference import DEFAULT_MASK_VALUE  # noqa: E402
 from ffpa_attn_tpu_torch.utils.profiling import device_ms, device_window  # noqa: E402
 
 # kernel -> the source it is built from
 SOURCE = {"flash_fwd": "flash_fwd", "decode": "decode", "dkdv": "flash_bwd",
           "banded_dq": "flash_bwd", "dq": "flash_bwd", "from_s": "flash_bwd",
-          "banded_dk": "flash_bwd", "varlen_fwd": "varlen_fwd", "paged_decode": "paged_decode"}
+          "banded_dk": "flash_bwd", "varlen_fwd": "varlen_fwd", "paged_decode": "paged_decode",
+          "varlen_dkdv": "varlen_bwd", "varlen_dq": "varlen_bwd"}
 # kernel -> the substring of its CUDA kernel's name, where a run also
 # launches other kernels that are not timed
 ONLY = {"from_s": "dkdv_from_s_kernel"}
 # kernels whose C entry point an older tree may lack
 ENTRY = {"from_s": "ffpa_bwd_dkdv_from_s", "banded_dk": "ffpa_bwd_banded_dk",
-         "varlen_fwd": "ffpa_varlen_fwd", "paged_decode": "ffpa_paged_decode"}
+         "varlen_fwd": "ffpa_varlen_fwd", "paged_decode": "ffpa_paged_decode",
+         "varlen_dkdv": "ffpa_varlen_bwd_dkdv", "varlen_dq": "ffpa_varlen_bwd_dq"}
 
 
 def build_tree(src: Path, out: Path) -> dict:
@@ -184,6 +192,20 @@ def make_runs(gen) -> dict:
         turn[0] += 1
         return paged.paged_decode_attention(qpd, pool, scale=scale)
 
+    # Packed training: the backward of the 8192-token packing.
+    blens = [2048, 1536, 1200, 1024, 900, 700, 500, 284]
+    bt = sum(blens)
+    bcu = torch.tensor([0] + torch.tensor(blens).cumsum(0).tolist(), dtype=torch.int32,
+                       device="cuda")
+    bq, bk, bv, bdo = randn(bt, hq, d), randn(bt, hkv, d), randn(bt, hkv, d), randn(bt, hq, d)
+    meta = varlen._call_metadata(bcu, bcu, bt, bt, "cuda")
+    bo, blse = varlen._varlen_forward_plain(bq, bk, bv, meta, scale=scale, causal=True)
+    bcfg = pick_varlen_backward_config(d=d, dv=d, tq=bt, dtype=torch.bfloat16)
+    ops = varlen._BwdOperands(bq, bk, bv, bdo, blse, varlen._varlen_delta(bdo, bo), None)
+    sched = varlen._varlen_bwd_schedules(meta, bt, bcfg.block_q_dq, True, (-1, -1))
+    bkw = dict(scale=scale, causal=True, softcap=0.0, window=(-1, -1))
+    del bo
+
     def reset():
         turn[0] = 0
         state.pop("ds", None)
@@ -201,6 +223,8 @@ def make_runs(gen) -> dict:
         "varlen_fwd": lambda: varlen._varlen_forward(vq, vk, vv, cu, cu, scale=scale,
                                                      causal=True)[0],
         "paged_decode": run_paged,
+        "varlen_dkdv": lambda: varlen._varlen_dkdv_kernel(ops, meta, sched[0], bcfg, **bkw)[0],
+        "varlen_dq": lambda: varlen._varlen_dq_kernel(ops, meta, sched[1], bcfg, **bkw),
     }
     return runs, reset
 

@@ -1,16 +1,20 @@
-"""The varlen forward's tile schedule for a packing, and the work it implies.
+"""The varlen kernels' tile schedules for a packing, and the work they imply.
 
 Run from the repository root (no card needed):
 
     python tools/torch_varlen_schedule.py [--lens 589,698,763,886] [--block-q 64]
 
-For causal self-attention over prompts of the given lengths, prints each Q
-tile's [jmin, jmax] interval of 64-key tiles (``ops/varlen.py``
-``_tile_needed`` and ``_interval_schedule``, the JAX package's schedule, at
-the kernel's tiles), the KV tiles the kernel walks, the tiles that
-``_tile_needed`` marks needed inside those intervals, and the (row, col)
-pairs each covers against the causal band's pairs. Prints one JSON line.
-The default lengths are the serving bench's (``chip_smoke.py``).
+For causal self-attention over prompts of the given lengths, prints the
+forward's schedule: each Q tile's [jmin, jmax] interval of 64-key tiles
+(``ops/varlen.py`` ``_tile_needed`` and ``_interval_schedule``, the JAX
+package's schedule, at the kernel's tiles), the KV tiles the kernel walks,
+the tiles that ``_tile_needed`` marks needed inside those intervals, and the
+(row, col) pairs each covers against the causal band's pairs. Then the
+backward's (``_varlen_bwd_schedules``): the pairs the dK/dV kernel walks at
+its 128 x 32 tiles (each 32-key tile's [imin, imax] of 128-row Q tiles) and
+the dQ kernel at block_q x 64, against the band. Prints one JSON line. The
+default lengths are the serving bench's; the packed-training packing of
+``chip_smoke.py`` is ``--lens 2048,1536,1200,1024,900,700,500,284``.
 """
 
 from __future__ import annotations
@@ -25,8 +29,18 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from ffpa_attn_tpu_torch.ops import varlen  # noqa: E402
-from ffpa_attn_tpu_torch.ops.config import KV_TILE, cdiv  # noqa: E402
+from ffpa_attn_tpu_torch.ops.config import DKDV_KV_TILE, DKDV_Q_TILE, KV_TILE  # noqa: E402
 from ffpa_attn_tpu_torch.utils.profiling import band_pairs  # noqa: E402
+
+
+def _walked(lo, hi) -> int:
+    return int((hi - lo + 1).sum())
+
+
+def _spread(lo, hi) -> dict:
+    """min, max and mean of the tiles each block's interval walks."""
+    n = (hi - lo + 1).float()
+    return {"min": int(n.min()), "max": int(n.max()), "mean": float(n.mean())}
 
 
 def main() -> int:
@@ -37,12 +51,15 @@ def main() -> int:
     lens = [int(x) for x in args.lens.split(",") if x]
     bq, t = args.block_q, sum(lens)
     cu = torch.tensor([0] + torch.tensor(lens).cumsum(0).tolist(), dtype=torch.int32)
-    meta = varlen._segment_metadata(cu, cu, t, t, cdiv(t, bq) * bq, cdiv(t, KV_TILE) * KV_TILE)
-    needed = varlen._tile_needed(*meta, bq, KV_TILE, True)
+    meta = varlen._call_metadata(cu, cu, t, t, "cpu")
+    needed = varlen._tile_needed(*varlen._q_tiles(meta, t, bq), bq, KV_TILE, True)
     lo, hi = varlen._interval_schedule(needed)
-    walked = int((hi - lo + 1).sum())
+    walked = _walked(lo, hi)
     inside = int(sum(needed[i, lo[i]:hi[i] + 1].sum() for i in range(len(lo))))
     band = sum(band_pairs(n, n, causal=True) for n in lens)
+    (imin, imax), (jmin, jmax) = varlen._varlen_bwd_schedules(meta, t, bq, True, (-1, -1))
+    dkdv_pairs = _walked(imin, imax) * DKDV_Q_TILE * DKDV_KV_TILE
+    dq_pairs = _walked(jmin, jmax) * bq * KV_TILE
     print(json.dumps({
         "lens": lens, "block_q": bq, "kv_tile": KV_TILE, "q_tiles": len(lo),
         "intervals": list(zip(lo.tolist(), hi.tolist())),
@@ -52,6 +69,14 @@ def main() -> int:
         "band_pairs_per_head": band,
         "walked_over_band": walked * bq * KV_TILE / band,
         "needed_over_band": inside * bq * KV_TILE / band,
+        "dkdv_tiles": f"{DKDV_Q_TILE}x{DKDV_KV_TILE}",
+        "dkdv_pairs_walked_per_head": dkdv_pairs,
+        "dkdv_walked_over_band": dkdv_pairs / band,
+        "dkdv_q_tiles_per_block": _spread(imin, imax),
+        "dq_tiles": f"{bq}x{KV_TILE}",
+        "dq_pairs_walked_per_head": dq_pairs,
+        "dq_walked_over_band": dq_pairs / band,
+        "dq_kv_tiles_per_block": _spread(jmin, jmax),
     }))
     return 0
 
