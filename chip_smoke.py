@@ -45,7 +45,9 @@ It imports only ``ffpa_attn_tpu_torch``, torch and numpy, and runs, in order:
    kernel at its main-path shape beside its bound, its plain version and
    one PyTorch library call computing the same function, or for the from-S
    pass the yardstick of its two dense products (device time per call from
-   torch.profiler, CUDA-event time beside it);
+   torch.profiler, CUDA-event time beside it); banded dQ and banded dK also
+   at the op-level shape (H32 MHA) with their TFLOP/s, registers and spill
+   bytes;
 7. the ``kernels`` line.
 
 Every phase raises on failure; the script exits 0 only when all passed. The
@@ -354,12 +356,15 @@ def _fwd_scores_case(name, *, b=1, hq=8, hkv=4, nq, nkv, d=512, causal=True, bia
 
 
 def _from_s_case(name, *, b=1, hq=8, hkv=4, nq, nkv, d=512, causal=True, bias=None,
-                 softcap=0.0, dropout=0.0, sinks=False, nan_fill=False, seed=0):
+                 softcap=0.0, dropout=0.0, sinks=False, nan_fill=False, banded_out=None,
+                 seed=0):
     """The from-S dK/dV kernel in each variant it takes, banded dK (causal)
     and banded dQ from its slab, against their plain versions on the same
     inputs. The S residual comes from the forward kernel; with
     ``nan_fill`` everything of the slab outside the band (the tiles the
-    forward never writes, padding) is NaN before the backward reads it."""
+    forward never writes, padding) is NaN before the backward reads it;
+    ``banded_out`` is the dtype banded dK and banded dQ write (fp32: the
+    kernels' out_f32 stores)."""
     from ffpa_attn_tpu_torch.ops import flash_bwd, flash_fwd
     from ffpa_attn_tpu_torch.ops.attention import apply_sinks
     from ffpa_attn_tpu_torch.ops.config import from_s_fits
@@ -413,14 +418,17 @@ def _from_s_case(name, *, b=1, hq=8, hkv=4, nq, nkv, d=512, causal=True, bias=No
         del pdk, pdv, pds
     kwd = dict(scale=scale, group=group, nq=nq, nkv=nkv)
     if causal:
-        kdk = flash_bwd._banded_dk_from_ds(slab, q, cfg, causal_offset=nkv - nq, dk_dtype=bf,
+        out = banded_out or bf
+        kdk = flash_bwd._banded_dk_from_ds(slab, q, cfg, causal_offset=nkv - nq, dk_dtype=out,
                                            **kwd)
         torch.cuda.synchronize()
         errs["banded_dk"] = grad_row_rel(kdk, flash_bwd._banded_dk_plain(
             slab, q, scale=scale, nq=nq, nkv=nkv, hkv=hkv))
-        kdq = flash_bwd._banded_dq_from_ds(slab, k, cfg, causal_offset=nkv - nq, dq_dtype=bf,
+        kdq = flash_bwd._banded_dq_from_ds(slab, k, cfg, causal_offset=nkv - nq, dq_dtype=out,
                                            **kwd)
         torch.cuda.synchronize()
+        if kdk.dtype != out or kdq.dtype != out:
+            fail(f"banded kernels wrote {kdk.dtype} / {kdq.dtype}, asked for {out}: {name}")
         errs["banded_dq"] = grad_row_rel(kdq, flash_bwd._banded_dq_plain(slab, k, scale=scale,
                                                                            nq=nq, nkv=nkv))
     if bias_t is not None:
@@ -655,6 +663,7 @@ def phase_kernels_vs_plain() -> dict:
     _from_s_case("nan_filled_slab", nq=1000, nkv=1100, nan_fill=True, seed=9)
     _from_s_case("mha_batch2", b=2, hq=4, hkv=4, nq=512, nkv=640, seed=10)
     _from_s_case("gqa_group4_dropout", hq=8, hkv=2, nq=1024, nkv=1024, dropout=0.1, seed=11)
+    _from_s_case("banded_out_f32", nq=1000, nkv=1100, banded_out=torch.float32, seed=12)
     _decode_scores_case("slice_Nkv4224_g2")
     _decode_scores_case("nq4_causal", nq=4, causal=True, valid=None, seed=1)
     _decode_scores_case("softcap", softcap=30.0, valid=None, seed=2)
@@ -1322,6 +1331,21 @@ def phase_op_level() -> dict:
         f"{med['handoff']:.3f} ({flops / med['handoff'] / 1e9:.1f} TFLOP/s); bwd flop = 2.5 x "
         f"the forward's over the causal band ({flops:.4g}); all "
         f"{ {k_: [round(x, 3) for x in v_] for k_, v_ in times.items()} }")
+    # The S-resident backward's kernels' device time beside its wall time,
+    # one profiled backward at a time: where the event times spread and
+    # these do not, the spread is off the device.
+    from ffpa_attn_tpu_torch.utils.profiling import device_window
+
+    windows = []
+    for _ in range(3):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        o = ffpa_attn_func(*leaves, is_causal=True, backward_backend=CudaBackend())
+        torch.cuda.synchronize()
+        w = device_window(lambda o=o: o.backward(do), reps=1, warmup=0)
+        windows.append((w["device_ms"], w["wall_ms"]))
+        del leaves, o
+    log("  S-resident backward under the profiler (device ms of its kernels, wall ms of the "
+        "window), 3 backwards: " + ", ".join(f"{dv:.3f} / {wl:.3f}" for dv, wl in windows))
     torch.cuda.empty_cache()
     return dict(ms=med, tflops={k_: flops / v_ / 1e9 for k_, v_ in med.items()})
 
@@ -1786,6 +1810,8 @@ def training_times(training: dict, windowed: dict, resident: dict) -> tuple:
             log("  library for banded_dq: one dense torch.matmul of the dS slab and K")
             flops, nbytes = backward_counts("banded_dq", b=b, hq=hq, hkv=hkv, nq=n, nkv=n, d=d,
                                             dv=d, causal=True)
+            log(f"  banded_dq at N{n} H{hq}/{hkv}: {kms[0]:.4f} ms, {flops / kms[0] / 1e9:.1f} "
+                f"TFLOP/s (library {lms[0]:.4f} ms)")
             row("banded_dq", "ffpa_attn_tpu/ops/flash_bwd.py:1186",
                 training["launches"]["banded_dq"], err, kms, pms, lms, flops, nbytes)
             del ds
@@ -1885,11 +1911,76 @@ def training_times(training: dict, windowed: dict, resident: dict) -> tuple:
     log("  library for banded_dk: one dense torch.matmul of the dS slab (transposed) and Q")
     flops, nbytes = backward_counts("banded_dk", b=b, hq=hq, hkv=hkv, nq=n, nkv=n, d=d, dv=d,
                                     causal=True)
+    log(f"  banded_dk at N{n} H{hq}/{hkv}: {kms[0]:.4f} ms, {flops / kms[0] / 1e9:.1f} TFLOP/s "
+        f"(library {lms[0]:.4f} ms)")
     row("banded_dk", "ffpa_attn_tpu/ops/flash_bwd.py:1323", resident["launches"]["banded_dk"],
         err, kms, pms, lms, flops, nbytes)
     del slab, s, o, lse, delta
     torch.cuda.empty_cache()
+    banded_op_level_times()
     return rows, events
+
+
+def banded_op_level_times() -> None:
+    """Banded dQ and banded dK at the op-level headline's shape (B1 H32 MHA
+    N8192 D512 causal bf16; one launch of each per backward), and each
+    kernel's registers and local (spill) bytes. The slab holds random
+    values on the band and zeros above it (the times do not depend on the
+    values); each kernel is held against its plain version on the first 8
+    heads (heads are independent) and timed beside one dense torch.matmul
+    of the same operands. The launcher's tiling is held equal to its
+    mirror, ``ops/config.py`` ``banded_plan``, at D 320..1024."""
+    from ffpa_attn_tpu_torch.ops import flash_bwd
+    from ffpa_attn_tpu_torch.utils.profiling import backward_counts
+
+    for label, dk, dt in (("banded_dq bf16", False, torch.bfloat16),
+                          ("banded_dq fp16", False, torch.float16),
+                          ("banded_dk bf16", True, torch.bfloat16)):
+        a = flash_bwd.banded_kernel_attrs(dk, dt)
+        log(f"  {label}: {a['registers']} registers a thread at launch (cudaFuncGetAttributes; "
+            f"setmaxnreg moves them to the consumer warpgroups), {a['local_bytes']} local "
+            f"(spill) bytes")
+    from ffpa_attn_tpu_torch.ops.config import banded_plan
+
+    for hd in list(range(320, 1025, 64)) + [400]:
+        if flash_bwd.banded_kernel_plan(hd) != banded_plan(hd):
+            fail(f"banded launcher's plan at D{hd} {flash_bwd.banded_kernel_plan(hd)} differs "
+                 f"from ops/config.py banded_plan {banded_plan(hd)}")
+    log(f"  banded plan at D512: {flash_bwd.banded_kernel_plan(512)} (the launcher's, equal to "
+        f"ops/config.py banded_plan at D 320..1024)")
+    b, h, n, d = 1, OP_HEADS, TRAIN_N, TRAIN["head_dim"]
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    q, k = _randn((b, h, n, d), bf, gen), _randn((b, h, n, d), bf, gen)
+    band = _band(n, n, True)
+    slab = torch.empty((b, h, n, n), dtype=bf, device="cuda")
+    for i in range(h):
+        slab[:, i] = _randn((b, n, n), bf, gen).masked_fill_(~band, 0.0)
+    del band
+    kw = dict(scale=d ** -0.5, group=1, nq=n, nkv=n, causal_offset=0)
+
+    def run_dq():
+        return flash_bwd._banded_dq_from_ds(slab, k, None, dq_dtype=bf, **kw)
+
+    def run_dk():
+        return flash_bwd._banded_dk_from_ds(slab, q, None, dk_dtype=bf, **kw)
+
+    s8 = slab[:, :8]
+    _hold(f"banded_dq_N{n}_H{h}", {"dq_h0-7": (run_dq()[:, :8], flash_bwd._banded_dq_plain(
+        s8, k[:, :8], scale=kw["scale"], nq=n, nkv=n))})
+    _hold(f"banded_dk_N{n}_H{h}", {"dk_h0-7": (run_dk()[:, :8], flash_bwd._banded_dk_plain(
+        s8, q[:, :8], scale=kw["scale"], nq=n, nkv=n, hkv=8))})
+    del s8
+    flops = backward_counts("banded_dq", b=b, hq=h, hkv=h, nq=n, nkv=n, d=d, dv=d,
+                            causal=True)[0]
+    for name, fn, lib in (("banded_dq", run_dq, lambda: torch.matmul(slab, k)),
+                          ("banded_dk", run_dk, lambda: torch.matmul(slab.transpose(-1, -2), q))):
+        kms, lms = _timed(fn, 10), _timed(lib, 10)
+        log(f"  {name} at the op-level shape (B{b} H{h} N{n} D{d} MHA): {kms[0]:.4f} ms "
+            f"[{kms[1]:.4f}], {flops / kms[0] / 1e9:.1f} TFLOP/s; library (dense "
+            f"torch.matmul, twice the flop) {lms[0]:.4f} ms [{lms[1]:.4f}]")
+    del slab, q, k
+    torch.cuda.empty_cache()
 
 
 def serving_times(errs: dict, serving: dict, model) -> tuple:

@@ -9,10 +9,10 @@
 //                           forward's S residual, dS written over S in place
 //   ffpa_bwd_banded_dk   <- _banded_dk_kernel: dK = scale * dS^T Q from the slab
 //
-// All three are built from the forward's pieces (flash_fwd.cu): 16 warps,
-// mma.sync m16n8k16 (bf16 or f16 in, fp32 accumulate) fed by ldmatrix, a
-// block's owned tile resident in shared memory and the other operand
-// streamed in 64 x 64 chunks through a 4-slot cp.async ring, fp32
+// dK/dV, dQ and from-S are built from the forward's pieces (flash_fwd.cu):
+// 16 warps, mma.sync m16n8k16 (bf16 or f16 in, fp32 accumulate) fed by
+// ldmatrix, a block's owned tile resident in shared memory and the other
+// operand streamed in 64 x 64 chunks through a 4-slot cp.async ring, fp32
 // accumulators split over the warps' registers by rows and columns.
 //
 // The score gradient of one element is _recompute_ds: s = scale * q.k,
@@ -43,18 +43,29 @@
 // dQ += dS K over the K chunks again; the BQ x D fp32 dQ tile lives in
 // registers exactly like the forward's O tile.
 //
-// Banded dQ (dS-handoff tier): a block owns a BQ-row panel and walks the KV
-// tiles up to the diagonal; each dS tile passes through the ring into
-// registers (A fragments), then the K chunks stream past it.
+// From-S dK/dV (S-resident tier, bf16 only): below, beside its kernel.
 //
-// From-S dK/dV and banded dK (S-resident tier, bf16 only): below, beside
-// their kernels.
+// Banded dQ (dS-handoff and S-resident tiers) and banded dK (S-resident,
+// bf16): plain GEMMs over a causal k-range, redesigned for Hopper's TMA and
+// wgmma (sm90.cuh) in place of the mma.sync kernels they replaced. Those
+// walked 64 x 512 panels through the 4-slot cp.async ring, two
+// __syncthreads and 8 mma.sync a warp per 64 x 64 chunk, ~58 flop per byte
+// from L2 (training shape: 2.15 ms and 2.86 ms against a 0.278 ms bound).
+// Now a block owns 128 rows x at most 256 columns, a producer warpgroup
+// keeps a 4-stage ring of 48 KB TMA stages full and two consumer
+// warpgroups run wgmma.m64n256k16 on it: ~87 flop per byte from L2, no
+// block barrier in the loop. Details beside the kernels.
 //
 // Bound on an H100: operations (4 matmul units of 2 * pairs * D flop for
 // dK/dV, 3 for dQ, 1 for banded dQ and banded dK, 2 or 3 for from-S dK/dV;
 // see utils/profiling.py).
+#include <string.h>
+
+#include <type_traits>
+
 #include "bwd_tiles.cuh"
 #include "rng.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -587,131 +598,6 @@ __global__ void __launch_bounds__(NTHR, 1) dq_kernel(const BwdParams p) {
 }
 
 // ---------------------------------------------------------------------------
-// Banded dQ from the dS slab (causal)
-// ---------------------------------------------------------------------------
-
-template <typename T, int BQ>
-__global__ void __launch_bounds__(NTHR, 1) banded_dq_kernel(const BwdParams p) {
-  constexpr int RT = BQ / 16;
-  constexpr int WC = NW / RT;
-  constexpr int CW = CH / WC;
-  constexpr int N8 = CW / 8;
-  constexpr int NVMAX = ACC_PER_THREAD / (4 * N8);
-  static_assert(N8 == 1 || N8 == 2, "BQ must be 32 or 64");
-
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  T* ring = reinterpret_cast<T*>(smem_raw);
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int rt = warp / WC, wc = warp % WC;
-  const Lanes L(lane);
-  const int head = blockIdx.x, b = blockIdx.y, kvh = head / p.group;
-  const int row0 = (gridDim.z - 1 - blockIdx.z) * BQ;
-  const int row_last = min(row0 + BQ, p.nq) - 1;
-  const int kv_hi = min(p.nkv, row_last + p.causal_offset + 1);
-  const int ntiles = kv_hi > 0 ? (kv_hi + CH - 1) / CH : 0;
-  const int nD = p.D / CH;
-
-  const T* dsb = static_cast<const T*>(p.ds) + ((long long)(b * p.Hq + head) * p.ds_rows) * p.ds_ld;
-  const T* kb = static_cast<const T*>(p.k) + ((long long)(b * p.Hkv + kvh) * p.nkv) * p.D;
-
-  // Chunk gi of the stream: per KV tile, the dS tile (BQ rows x 64
-  // columns; columns past the slab zero-filled) then the nD K chunks (rows
-  // past Nkv zero-filled).
-  const int per_tile = 1 + nD;
-  const int total = ntiles * per_tile;
-  auto issue = [&](int gi) {
-    if (gi < total) {
-      const int t = gi / per_tile, c = gi - t * per_tile;
-      const int kv0 = t * CH;
-      T* dst = ring + (gi % NST) * (CH * LDC);
-      const int r = tid >> 3, cv = (tid & 7) * 8;
-      if (c == 0) {
-        if (r < BQ) {
-          const bool ok = kv0 + cv < p.ds_ld;
-          cp_async16(dst + r * LDC + cv, ok ? dsb + (long long)(row0 + r) * p.ds_ld + kv0 + cv : dsb,
-                     ok);
-        }
-      } else {
-        const bool ok = kv0 + r < p.nkv;
-        cp_async16(dst + r * LDC + cv, ok ? kb + (long long)(kv0 + r) * p.D + (c - 1) * CH + cv : kb,
-                   ok);
-      }
-    }
-    cp_async_commit();
-  };
-  auto begin = [&](int gi) -> const T* {
-    issue(gi + NST - 1);
-    cp_async_wait<NST - 1>();
-    __syncthreads();
-    return ring + (gi % NST) * (CH * LDC);
-  };
-
-  float o[NVMAX][N8][4];
-#pragma unroll
-  for (int vc = 0; vc < NVMAX; ++vc)
-#pragma unroll
-    for (int n = 0; n < N8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[vc][n][e] = 0.f;
-
-#pragma unroll
-  for (int gi = 0; gi < NST - 1; ++gi) issue(gi);
-  for (int t = 0; t < ntiles; ++t) {
-    const int gt = t * per_tile;
-    // This warp's 16 dS rows as A fragments, held while the K chunks pass.
-    uint32_t af[CH / 16][4];
-    {
-      const T* ch = begin(gt);
-#pragma unroll
-      for (int kk = 0; kk < CH / 16; ++kk)
-        ldsm_x4(af[kk], ch + (rt * 16 + L.a_row) * LDC + kk * 16 + L.a_col);
-      __syncthreads();
-    }
-#pragma unroll
-    for (int vc = 0; vc < NVMAX; ++vc) {
-      if (vc < nD) {
-        const T* ch = begin(gt + 1 + vc);
-#pragma unroll
-        for (int kk = 0; kk < CH / 16; ++kk) {
-          if (N8 == 2) {
-            uint32_t bf[4];
-            ldsm_x4_trans(bf, ch + (kk * 16 + L.bt_row) * LDC + wc * CW + L.bt_col);
-            mma16816<T>(o[vc][0], af[kk], bf[0], bf[1]);
-            mma16816<T>(o[vc][N8 - 1], af[kk], bf[2], bf[3]);
-          } else {
-            uint32_t bf[2];
-            ldsm_x2_trans(bf, ch + (kk * 16 + L.bt_row) * LDC + wc * CW);
-            mma16816<T>(o[vc][0], af[kk], bf[0], bf[1]);
-          }
-        }
-        __syncthreads();
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-  const long long qh = (long long)(b * p.Hq + head) * p.nq;
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int row = row0 + rt * 16 + g + 8 * hh;
-    if (row >= p.nq) continue;
-#pragma unroll
-    for (int vc = 0; vc < NVMAX; ++vc) {
-      if (vc < nD) {
-#pragma unroll
-        for (int n = 0; n < N8; ++n) {
-          const int col = vc * CH + wc * CW + n * 8 + 2 * t4;
-          store2<T>(p.dq, (qh + row) * p.D + col, o[vc][n][2 * hh] * p.scale,
-                    o[vc][n][2 * hh + 1] * p.scale, p.out_f32);
-        }
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // dK / dV from the forward's S residual (S-resident backward, bf16)
 // ---------------------------------------------------------------------------
 
@@ -1005,137 +891,267 @@ __global__ void __launch_bounds__(NTHR, 1) dkdv_from_s_kernel(const BwdParams p)
 }
 
 // ---------------------------------------------------------------------------
-// Banded dK from the dS slab (causal)
+// Banded dQ and banded dK from the dS slab (causal): TMA + mbarrier + wgmma
 // ---------------------------------------------------------------------------
 
-// The mirror of banded dQ: a block owns BKV KV rows of one KV head, the
-// fp32 dK tile (BKV x D) in registers like the forward's O tile, and walks
-// the GQA group's 64-row Q tiles at or below the diagonal. Each dS tile
-// (64 q x BKV kv) passes through the ring and is read transposed
-// (ldmatrix.trans) into A fragments of dS^T held while the Q chunks stream
-// past. dK is stored group-reduced once, no atomics.
-template <int BKV>
-__global__ void __launch_bounds__(NTHR, 1) banded_dk_kernel(const BwdParams p) {
-  using T = __nv_bfloat16;
-  constexpr int RT = BKV / 16;
-  constexpr int WC = NW / RT;
-  constexpr int CW = CH / WC;
-  constexpr int N8 = CW / 8;
-  constexpr int NVMAX = ACC_PER_THREAD / (4 * N8);
-  constexpr int QB = CH;  // Q rows per tile
-  static_assert(N8 == 1 || N8 == 2, "BKV must be 32 or 64");
+// Both are one GEMM over a per-block k-range; the slab is zero above the
+// band and on its padding, so nothing is masked. A block owns 128 output
+// rows (Q rows for dQ, KV rows for dK) x one column block of D (at most
+// 256 columns: 4 TMA boxes of 64) and runs 384 threads: warpgroup 0 is the
+// producer (one thread issues TMA loads into a STAGES-deep ring of full /
+// empty mbarriers), warpgroups 1 and 2 each own 64 of the rows and issue
+// wgmma.m64nNk16 on the stage with an fp32 accumulator of N / 2 registers a
+// thread (N = 64 x chunks of the column block).
+//  - dQ = scale * dS K: A is the dS tile [128 q][64 kv] (K-major), B the K
+//    tile [64 kv][N d] (N-major, the transpose-B bit). The k-range runs to
+//    the panel's last row + causal_offset.
+//  - dK = scale * dS^T Q: A is dS^T read from the [64 q][128 kv] slab tile
+//    as two M-major boxes (the transpose-A bit, no register transpose), B
+//    the Q tile [64 q][N d] (N-major). A block walks the GQA group's Q
+//    tiles from the diagonal down and sums the group in the accumulator:
+//    one store, no atomics.
+// The tensor maps declare dS with extents (nkv, nq), Q with nq rows and K
+// with nkv rows, so TMA zero-fills past them: padding of the slab is never
+// read, a ragged last tile needs no mask.
+namespace band {
 
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  T* ring = reinterpret_cast<T*>(smem_raw);
+using namespace ffpa::sm90;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int rt = warp / WC, wc = warp % WC;
-  const Lanes L(lane);
-  const int kvh = blockIdx.x, b = blockIdx.y, kv0 = blockIdx.z * BKV;
-  const int nD = p.D / CH;
-  const int nqt = (p.nq + QB - 1) / QB;
-  const int i_lo = max(0, floordiv(kv0 - p.causal_offset, QB));
-  const int ni = max(0, nqt - i_lo);
-  const int ntiles = p.group * ni;
+constexpr int ROWS = 128;          // output rows of a block
+constexpr int KT = 64;             // k-step: KV columns (dQ) or Q rows (dK)
+constexpr int COLS = 64;           // D columns of one B box (128 B of 16-bit)
+constexpr int MAX_CHUNKS = 4;      // boxes of a column block: N <= 256
+constexpr int STAGES = 4;          // ring depth
+constexpr int THREADS = 384;       // producer warpgroup + 2 consumer warpgroups
+constexpr int CONSUMER_WARPS = 8;  // arrivals that free a stage
+constexpr int A_BYTES = ROWS * KT * 2;      // the dS tile of a stage (16 KB)
+constexpr int BOX_BYTES = KT * COLS * 2;    // one 64 x 64 box (8 KB)
 
-  // Chunk gi of the stream: per Q tile, the dS tile (rows past the slab
-  // zero-filled) then the nD Q chunks (rows past Nq zero-filled).
-  const int per_tile = 1 + nD;
-  const int total = ntiles * per_tile;
-  auto issue = [&](int gi) {
-    if (gi < total) {
-      const int t = gi / per_tile, c = gi - t * per_tile;
-      const int h = kvh * p.group + t / ni, q0 = (i_lo + t % ni) * QB;
-      T* dst = ring + (gi % NST) * (CH * LDC);
-      if (c == 0) {
-        if (tid < QB * BKV / 8) {
-          const int r = tid / (BKV / 8), cv = (tid % (BKV / 8)) * 8;
-          const T* src = static_cast<const T*>(p.ds) +
-                         ((long long)(b * p.Hq + h) * p.ds_rows) * p.ds_ld + kv0;
-          const bool ok = q0 + r < p.ds_rows;
-          cp_async16(dst + r * LDC + cv, ok ? src + (long long)(q0 + r) * p.ds_ld + cv : src, ok);
-        }
-      } else {
-        const T* src = static_cast<const T*>(p.q) + ((long long)(b * p.Hq + h) * p.nq) * p.D;
-        const int r = tid >> 3, cv = (tid & 7) * 8;
-        const bool ok = q0 + r < p.nq;
-        cp_async16(dst + r * LDC + cv, ok ? src + (long long)(q0 + r) * p.D + (c - 1) * CH + cv : src,
-                   ok);
-      }
-    }
-    cp_async_commit();
-  };
-  auto begin = [&](int gi) -> const T* {
-    issue(gi + NST - 1);
-    cp_async_wait<NST - 1>();
-    __syncthreads();
-    return ring + (gi % NST) * (CH * LDC);
-  };
+struct Params {
+  CUtensorMap ds_map;  // dS: (nkv, nq, B * Hq); box 64 x 128 (dQ) or 64 x 64 (dK)
+  CUtensorMap b_map;   // K: (D, nkv, B * Hkv) for dQ; Q: (D, nq, B * Hq) for dK
+  void* out;           // dQ [B, Hq, nq, D] or dK [B, Hkv, nkv, D]
+  int Hq, Hkv, group, nq, nkv, D;
+  int chunks, col_blocks, stage_bytes, out_f32, causal_offset;
+  float scale;
+};
 
-  float o[NVMAX][N8][4];
+// Column block cb of nb over `chunks` 64-column chunks: as even as
+// possible, the first chunks % nb blocks one chunk wider (ops/config.py
+// banded_plan).
+struct Cols {
+  int c0, nc;
+};
+__host__ __device__ inline Cols col_block(int chunks, int nb, int cb) {
+  const int base = chunks / nb, extra = chunks % nb;
+  return {(cb * base + (cb < extra ? cb : extra)) * COLS, base + (cb < extra ? 1 : 0)};
+}
+
+// The tiling of a launch at head dim D (a multiple of COLS): the column
+// blocks, the bytes of a stage (the dS tile and the widest block's boxes)
+// and the block's dynamic shared memory (the stages, their mbarriers and
+// the 1024 B alignment of the swizzled stages). ffpa_bwd_banded_plan hands
+// it out; ops/config.py banded_plan mirrors it and the card test holds the
+// two equal.
+struct Plan {
+  int chunks, col_blocks, stage_bytes;
+  size_t smem;
+};
+inline Plan make_plan(int D) {
+  Plan pl;
+  pl.chunks = D / COLS;
+  pl.col_blocks = (pl.chunks + MAX_CHUNKS - 1) / MAX_CHUNKS;
+  pl.stage_bytes = A_BYTES + col_block(pl.chunks, pl.col_blocks, 0).nc * BOX_BYTES;
+  pl.smem = (size_t)STAGES * pl.stage_bytes + 2 * STAGES * sizeof(uint64_t) + 1024;
+  return pl;
+}
+
+// A consumer warpgroup's part: wait for each stage, 4 wgmma k16 steps on
+// it, free the previous stage once its products completed (one group stays
+// in flight), then scale and store its 64 rows x N columns.
+template <typename T, int NC, bool DK>
+__device__ __forceinline__ void consume(const Params& p, unsigned char* smem, uint64_t* full,
+                                        uint64_t* empty, int ntiles, int cw, int row0, int c0,
+                                        long long out_rows, int row_limit) {
+  constexpr int N = NC * COLS;
+  float acc[N / 2];
 #pragma unroll
-  for (int vc = 0; vc < NVMAX; ++vc)
-#pragma unroll
-    for (int n = 0; n < N8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[vc][n][e] = 0.f;
-
-#pragma unroll
-  for (int gi = 0; gi < NST - 1; ++gi) issue(gi);
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  const int lane = threadIdx.x & 31;
   for (int t = 0; t < ntiles; ++t) {
-    const int gt = t * per_tile;
-    // This warp's 16 dS^T rows (KV) x 64 k (Q) as A fragments: the slab
-    // tile is [q][kv], so ldmatrix.trans of its [k][m] 8 x 8 blocks.
-    uint32_t af[QB / 16][4];
-    {
-      const T* ch = begin(gt);
+    const int s = t % STAGES;
+    mbar_wait(&full[s], (t / STAGES) & 1);
+    unsigned char* st = smem + s * p.stage_bytes;
+    wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < QB / 16; ++kk)
-        ldsm_x4_trans(af[kk], ch + (kk * 16 + L.bn_row) * LDC + rt * 16 + L.bn_col);
-      __syncthreads();
+    for (int kk = 0; kk < KT / 16; ++kk) {
+      // dQ: this warpgroup's 64 dS rows, K-major, 16 k = 32 B along the row.
+      // dK: its 64-column dS box read M-major, 16 k = 16 rows of 128 B.
+      const uint64_t a = DK ? desc_b128(st + cw * BOX_BYTES + kk * 2048, BOX_BYTES, 1024)
+                            : desc_b128(st + cw * (A_BYTES / 2) + kk * 32, 16, 1024);
+      const uint64_t b = desc_b128(st + A_BYTES + kk * 2048, BOX_BYTES, 1024);
+      wgmma_ss<T, N, DK ? 1 : 0, 1>(acc, a, b);
     }
-#pragma unroll
-    for (int vc = 0; vc < NVMAX; ++vc) {
-      if (vc < nD) {
-        const T* ch = begin(gt + 1 + vc);
-#pragma unroll
-        for (int kk = 0; kk < QB / 16; ++kk) {
-          if (N8 == 2) {
-            uint32_t bf[4];
-            ldsm_x4_trans(bf, ch + (kk * 16 + L.bt_row) * LDC + wc * CW + L.bt_col);
-            mma16816<T>(o[vc][0], af[kk], bf[0], bf[1]);
-            mma16816<T>(o[vc][N8 - 1], af[kk], bf[2], bf[3]);
-          } else {
-            uint32_t bf[2];
-            ldsm_x2_trans(bf, ch + (kk * 16 + L.bt_row) * LDC + wc * CW);
-            mma16816<T>(o[vc][0], af[kk], bf[0], bf[1]);
-          }
-        }
-        __syncthreads();
-      }
-    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (t > 0 && lane == 0) mbar_arrive(&empty[(t - 1) % STAGES]);
   }
-  cp_async_wait<0>();
-
+  wgmma_wait<0>();
+  fence_operands(acc);
+  const int w = (threadIdx.x >> 5) & 3, g = lane >> 2, t4 = lane & 3;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    const int kv = kv0 + rt * 16 + g + 8 * hh;
-    if (kv >= p.nkv) continue;
-    const long long base = ((long long)(b * p.Hkv + kvh) * p.nkv + kv) * p.D;
+    const int row = row0 + cw * 64 + w * 16 + g + 8 * hh;
+    if (row >= row_limit) continue;
+    const long long base = (out_rows + row) * p.D + c0 + 2 * t4;
 #pragma unroll
-    for (int vc = 0; vc < NVMAX; ++vc) {
-      if (vc < nD) {
+    for (int j = 0; j < N / 8; ++j)
+      store2<T>(p.out, base + 8 * j, acc[4 * j + 2 * hh] * p.scale,
+                acc[4 * j + 2 * hh + 1] * p.scale, p.out_f32);
+  }
+}
+
+template <typename T, bool DK>
+__global__ void __launch_bounds__(THREADS, 1) banded_kernel(const __grid_constant__ Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  // Stage buffers on 1024 B boundaries: the 128 B swizzle's atom.
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * p.stage_bytes);
+  uint64_t* empty = full + STAGES;
+
+  // Block order: the column blocks of a row panel side by side (they read
+  // the same dS tiles), then the panels of one head, longest first (they
+  // share its K or Q), then the heads: the blocks on the card at once touch
+  // one or two heads' operands, which stay in L2.
+  const int head = blockIdx.y;  // the Q head (dQ) or the KV head (dK)
+  const int b = blockIdx.z;
+  const Cols cols = col_block(p.chunks, p.col_blocks, blockIdx.x % p.col_blocks);
+  const int panel = blockIdx.x / p.col_blocks, npanels = gridDim.x / p.col_blocks;
+  int row0, ntiles, i_lo = 0, ni = 0;
+  if constexpr (DK) {
+    // KV rows row0.. see Q rows from row0 - causal_offset on: the first
+    // panels walk the most Q tiles.
+    row0 = panel * ROWS;
+    i_lo = max(0, floordiv(row0 - p.causal_offset, KT));
+    ni = max(0, (p.nq + KT - 1) / KT - i_lo);
+    ntiles = p.group * ni;
+  } else {
+    // The last rows see the most KV columns.
+    row0 = (npanels - 1 - panel) * ROWS;
+    const int row_last = min(row0 + ROWS, p.nq) - 1;
+    const int kv_hi = min(p.nkv, row_last + p.causal_offset + 1);
+    ntiles = kv_hi > 0 ? (kv_hi + KT - 1) / KT : 0;
+  }
+
+  if (threadIdx.x == 0) {
 #pragma unroll
-        for (int n = 0; n < N8; ++n) {
-          const int col = vc * CH + wc * CW + n * 8 + 2 * t4;
-          store2<T>(p.dk, base + col, o[vc][n][2 * hh] * p.scale, o[vc][n][2 * hh + 1] * p.scale,
-                    p.out_f32);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      prefetch_map(&p.ds_map);
+      prefetch_map(&p.b_map);
+      const uint32_t bytes = A_BYTES + cols.nc * BOX_BYTES;
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % STAGES;
+        if (t >= STAGES) mbar_wait(&empty[s], ((t / STAGES) - 1) & 1);
+        unsigned char* st = smem + s * p.stage_bytes;
+        mbar_arrive_expect_tx(&full[s], bytes);
+        int k0, bh;
+        if constexpr (DK) {
+          const int h = head * p.group + t / ni;
+          k0 = (i_lo + t % ni) * KT;  // Q rows
+          bh = b * p.Hq + h;
+          tma_load_3d(st, &p.ds_map, &full[s], row0, k0, bh);
+          tma_load_3d(st + BOX_BYTES, &p.ds_map, &full[s], row0 + COLS, k0, bh);
+        } else {
+          k0 = t * KT;  // KV columns
+          bh = b * p.Hkv + head / p.group;
+          tma_load_3d(st, &p.ds_map, &full[s], k0, row0, b * p.Hq + head);
         }
+        for (int j = 0; j < cols.nc; ++j)
+          tma_load_3d(st + A_BYTES + j * BOX_BYTES, &p.b_map, &full[s], cols.c0 + j * COLS, k0,
+                      bh);
       }
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    const int cw = wg - 1;
+    const long long out_rows =
+        DK ? (long long)(b * p.Hkv + head) * p.nkv : (long long)(b * p.Hq + head) * p.nq;
+    const int limit = DK ? p.nkv : p.nq;
+    switch (cols.nc) {
+      case 4:
+        consume<T, 4, DK>(p, smem, full, empty, ntiles, cw, row0, cols.c0, out_rows, limit);
+        break;
+      case 3:
+        consume<T, 3, DK>(p, smem, full, empty, ntiles, cw, row0, cols.c0, out_rows, limit);
+        break;
+      case 2:
+        consume<T, 2, DK>(p, smem, full, empty, ntiles, cw, row0, cols.c0, out_rows, limit);
+        break;
+      default:
+        consume<T, 1, DK>(p, smem, full, empty, ntiles, cw, row0, cols.c0, out_rows, limit);
+        break;
     }
   }
 }
+
+// The host side of one launch: the plan, tensor maps, shared memory.
+template <typename T, bool DK>
+cudaError_t launch(const void* ds, const void* bsrc, void* out, int out_f32, int B, int Hq,
+                   int Hkv, int nq, int nkv, int D, int ds_rows, int ds_ld, float scale,
+                   int causal_offset, cudaStream_t stream) {
+  if (D <= 0 || D % COLS != 0 || Hkv <= 0 || Hq % Hkv != 0 || ds_rows < nq || ds_ld < nkv ||
+      ds_ld % 8 != 0)
+    return cudaErrorInvalidValue;
+  const bool f16 = std::is_same<T, __half>::value;
+  Params p;
+  memset(&p, 0, sizeof(p));
+  p.out = out;
+  p.Hq = Hq;
+  p.Hkv = Hkv;
+  p.group = Hq / Hkv;
+  p.nq = nq;
+  p.nkv = nkv;
+  p.D = D;
+  const Plan pl = make_plan(D);
+  p.chunks = pl.chunks;
+  p.col_blocks = pl.col_blocks;
+  p.stage_bytes = pl.stage_bytes;
+  p.out_f32 = out_f32;
+  p.causal_offset = causal_offset;
+  p.scale = scale;
+  const dim3 grid(p.col_blocks * (((DK ? nkv : nq) + ROWS - 1) / ROWS), DK ? Hkv : Hq, B);
+  if (grid.x * grid.y * grid.z == 0) return cudaSuccess;
+  // Extents of at least 1 keep an empty operand encodable; its tiles are
+  // never loaded (the k-range is empty).
+  const uint64_t mq = nq > 0 ? nq : 1, mkv = nkv > 0 ? nkv : 1;
+  cudaError_t e = encode_3d(&p.ds_map, f16, ds, mkv, mq, (uint64_t)B * Hq, (uint64_t)ds_ld * 2,
+                            (uint64_t)ds_rows * ds_ld * 2, COLS, DK ? KT : ROWS);
+  if (e != cudaSuccess) return e;
+  e = DK ? encode_3d(&p.b_map, f16, bsrc, D, mq, (uint64_t)B * Hq, (uint64_t)D * 2,
+                     (uint64_t)nq * D * 2, COLS, KT)
+         : encode_3d(&p.b_map, f16, bsrc, D, mkv, (uint64_t)B * Hkv, (uint64_t)D * 2,
+                     (uint64_t)nkv * D * 2, COLS, KT);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(banded_kernel<T, DK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)pl.smem);
+  if (e != cudaSuccess) return e;
+  banded_kernel<T, DK><<<grid, THREADS, pl.smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace band
 
 template <typename K>
 cudaError_t launch(K kern, dim3 grid, size_t smem, const BwdParams& p, cudaStream_t stream) {
@@ -1286,66 +1302,69 @@ extern "C" int ffpa_bwd_dkdv_from_s(const void* q, const void* v, const void* do
   return (int)launch(dkdv_from_s_kernel<32, false>, grid, from_s_smem_bytes<32>(Dv), p, st);
 }
 
-// Causal dK = scale * dS^T Q from the slab (bf16); kv_tile 64 up to D 512,
-// 32 up to 1024.
+// Causal dK = scale * dS^T Q from the slab (bf16). The kernel picks its own
+// tiles (128 KV rows x column blocks of at most 256): kv_tile is not read;
+// it stays in the argument list, which libraries built from older sources
+// share.
 extern "C" int ffpa_bwd_banded_dk(const void* ds, const void* q, void* dk, int out_f32,
                                   int kv_tile, int B, int Hq, int Hkv, int nq, int nkv, int D,
                                   int ds_rows, int ds_ld, float scale, int causal_offset,
                                   void* stream) {
-  BwdParams p = {};
-  p.ds = const_cast<void*>(ds);
-  p.q = q;
-  p.dk = dk;
-  p.Hq = Hq;
-  p.Hkv = Hkv;
-  p.group = Hq / Hkv;
-  p.nq = nq;
-  p.nkv = nkv;
-  p.D = D;
-  p.ds_rows = ds_rows;
-  p.ds_ld = ds_ld;
-  p.out_f32 = out_f32;
-  p.scale = scale;
-  p.causal_offset = causal_offset;
-  if (D % CH != 0 || (long long)kv_tile * D > 32 * 1024 || (kv_tile != 64 && kv_tile != 32) ||
-      ds_rows < nq || ds_ld < nkv || ds_ld % kv_tile != 0)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid(Hkv, B, (nkv + kv_tile - 1) / kv_tile);
-  const size_t smem = (size_t)NST * CH * LDC * sizeof(__nv_bfloat16);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(kv_tile == 64 ? launch(banded_dk_kernel<64>, grid, smem, p, st)
-                             : launch(banded_dk_kernel<32>, grid, smem, p, st));
+  (void)kv_tile;
+  return (int)band::launch<__nv_bfloat16, true>(ds, q, dk, out_f32, B, Hq, Hkv, nq, nkv, D,
+                                                ds_rows, ds_ld, scale, causal_offset,
+                                                static_cast<cudaStream_t>(stream));
 }
 
+// Causal dQ = scale * dS K from the slab (bf16 or f16). The kernel picks its
+// own tiles (128-row panels x column blocks of at most 256): block_q is not
+// read; it stays in the argument list, which libraries built from older
+// sources share.
 extern "C" int ffpa_bwd_banded_dq(const void* ds, const void* k, void* dq, int is_fp16,
                                   int out_f32, int block_q, int B, int Hq, int Hkv, int nq,
                                   int nkv, int D, int ds_rows, int ds_ld, float scale,
                                   int causal_offset, void* stream) {
-  BwdParams p = {};
-  p.ds = const_cast<void*>(ds);
-  p.k = k;
-  p.dq = dq;
-  p.Hq = Hq;
-  p.Hkv = Hkv;
-  p.group = Hq / Hkv;
-  p.nq = nq;
-  p.nkv = nkv;
-  p.D = D;
-  p.ds_rows = ds_rows;
-  p.ds_ld = ds_ld;
-  p.out_f32 = out_f32;
-  p.scale = scale;
-  p.causal_offset = causal_offset;
-  if (D % CH != 0 || (long long)block_q * D > 32 * 1024 || (block_q != 64 && block_q != 32) ||
-      ds_rows % block_q != 0 || ds_rows < nq || ds_ld % 8 != 0)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid(Hq, B, (nq + block_q - 1) / block_q);
-  const size_t smem = (size_t)NST * CH * LDC * (is_fp16 ? sizeof(__half) : sizeof(__nv_bfloat16));
+  (void)block_q;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_fp16) {
-    return (int)(block_q == 64 ? launch(banded_dq_kernel<__half, 64>, grid, smem, p, st)
-                               : launch(banded_dq_kernel<__half, 32>, grid, smem, p, st));
+  if (is_fp16)
+    return (int)band::launch<__half, false>(ds, k, dq, out_f32, B, Hq, Hkv, nq, nkv, D, ds_rows,
+                                            ds_ld, scale, causal_offset, st);
+  return (int)band::launch<__nv_bfloat16, false>(ds, k, dq, out_f32, B, Hq, Hkv, nq, nkv, D,
+                                                 ds_rows, ds_ld, scale, causal_offset, st);
+}
+
+// The tiling band::launch takes at head dim D (a multiple of 64): out[0..4]
+// are the column blocks, rows of a block, k-step, stages and dynamic
+// shared-memory bytes, then (first column, width) of each column block;
+// cap is out's length.
+extern "C" int ffpa_bwd_banded_plan(int D, int* out, int cap) {
+  if (D <= 0 || D % band::COLS != 0) return (int)cudaErrorInvalidValue;
+  const band::Plan pl = band::make_plan(D);
+  if (cap < 5 + 2 * pl.col_blocks) return (int)cudaErrorInvalidValue;
+  out[0] = pl.col_blocks;
+  out[1] = band::ROWS;
+  out[2] = band::KT;
+  out[3] = band::STAGES;
+  out[4] = (int)pl.smem;
+  for (int cb = 0; cb < pl.col_blocks; ++cb) {
+    const band::Cols c = band::col_block(pl.chunks, pl.col_blocks, cb);
+    out[5 + 2 * cb] = c.c0;
+    out[6 + 2 * cb] = c.nc * band::COLS;
   }
-  return (int)(block_q == 64 ? launch(banded_dq_kernel<__nv_bfloat16, 64>, grid, smem, p, st)
-                             : launch(banded_dq_kernel<__nv_bfloat16, 32>, grid, smem, p, st));
+  return 0;
+}
+
+// Registers a thread (at launch, before setmaxnreg moves them between the
+// warpgroups) and local (spill) bytes a thread of a banded kernel: dk 1 is
+// banded dK, else banded dQ in f16 or bf16.
+extern "C" int ffpa_bwd_banded_attrs(int dk, int is_fp16, int* regs, int* local_bytes) {
+  cudaFuncAttributes a;
+  const cudaError_t e =
+      dk ? cudaFuncGetAttributes(&a, band::banded_kernel<__nv_bfloat16, true>)
+         : (is_fp16 ? cudaFuncGetAttributes(&a, band::banded_kernel<__half, false>)
+                    : cudaFuncGetAttributes(&a, band::banded_kernel<__nv_bfloat16, false>));
+  if (e != cudaSuccess) return (int)e;
+  *regs = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
+  return 0;
 }

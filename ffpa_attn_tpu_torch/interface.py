@@ -86,8 +86,8 @@ def ffpa_attn_func(
     Returns:
       ``[B, Nh_q, Nq, Dv]`` attention output in the input dtype, on the
       inputs' device (the kernels for CUDA tensors, their plain versions for
-      CPU tensors), differentiable under ``torch.autograd`` (Nq > 8; the
-      decode route's backward is a later slice).
+      CPU tensors), differentiable under ``torch.autograd`` on every route,
+      the decode route (Nq <= 8) included.
     """
     dropout_seed = kwargs.pop("dropout_seed", 0)
     softcap = kwargs.pop("softcap", 0.0) or 0.0

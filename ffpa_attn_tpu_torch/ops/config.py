@@ -28,9 +28,9 @@ never refused by the card.
     them, so at most 512 columns of each fit one block: wider heads split
     the columns over ``dkdv_col_passes`` blocks (the reference's SM90 D512
     "2-pass D-split"), each recomputing S and dP for its half.
-  - dQ (recompute) and banded dQ: a block owns a 64-row (D <= 512) or
-    32-row (D <= 1024) Q tile whose fp32 dQ tile lives in registers like
-    the forward's O tile; the recompute kernel keeps Q and dO resident.
+  - dQ (recompute): a block owns a 64-row (D <= 512) or 32-row
+    (D <= 1024) Q tile whose fp32 dQ tile lives in registers like the
+    forward's O tile, with Q and dO resident.
   - S-resident tier (bf16): the forward's S residual costs no shared
     memory (it is stored from the softmax's registers). The from-S dK/dV
     block keeps V resident and streams the S tile, dO and (dK in kernel)
@@ -38,8 +38,15 @@ never refused by the card.
     Dv <= 512 (the fp32 dV tile alone takes the 64 registers) and 32 up
     to 1024; with dK in kernel 32 rows and at most 512 columns of each,
     because a second column pass would read S after the first had
-    overwritten it with dS. Banded dK mirrors banded dQ (64 KV rows at
-    D <= 512, 32 up to 1024, the ring alone in shared memory).
+    overwritten it with dS.
+* Banded dQ and banded dK (``csrc/flash_bwd.cu`` namespace ``band``, TMA +
+  wgmma, ``csrc/sm90.cuh``): a block of 384 threads (a producer warpgroup,
+  two consumer warpgroups) owns 128 output rows (Q rows for dQ, KV rows
+  for dK) and one column block of at most 256 columns of D, the 64-column
+  chunks split as evenly as possible over ceil(D / 256) blocks. Each stage
+  of its 4-deep ring holds a dS tile (128 x 64 or 64 x 128, 16 KB) and the
+  K or Q tile (64 rows x the block's columns). The launcher picks this
+  tiling itself; ``banded_plan`` mirrors it for the tests and the logs.
 """
 
 from __future__ import annotations
@@ -68,6 +75,13 @@ DKDV_Q_TILE = 128
 # Columns of dK (and of dV) one dK/dV block accumulates: 32 rows x 512
 # columns x 2 accumulators = 64 fp32 registers for each of 512 threads.
 DKDV_MAX_COLS = 512
+# Compile-time constants of the banded dQ / dK blocks (flash_bwd.cu
+# namespace band: ROWS, KT, MAX_CHUNKS * COLS, STAGES), not settings:
+# banded_plan mirrors the launcher with them.
+_BANDED_ROWS = 128
+_BANDED_K_TILE = 64
+_BANDED_MAX_COLS = 256
+_BANDED_STAGES = 4
 # Shared-memory row padding, in elements, against bank conflicts.
 _PAD_T = 8
 _PAD_F = 4
@@ -243,12 +257,6 @@ def varlen_bwd_fits(block_q: int, d: int, dv: int, itemsize: int = 2) -> bool:
     )
 
 
-def banded_dq_smem_bytes(itemsize: int = 2) -> int:
-    """Shared memory of one banded-dQ or banded-dK block: the ring alone
-    (the dS tile passes through it and into registers)."""
-    return FWD_STREAM_STAGES * KV_TILE * (D_CHUNK + _PAD_T) * itemsize
-
-
 def from_s_kv_tile(dv: int, dk_in_kernel: bool) -> int:
     """KV rows of one from-S dK/dV block: 64 when its fp32 dV tile alone
     fits the registers (dK out of kernel, Dv <= 512), else 32."""
@@ -275,10 +283,44 @@ def from_s_fits(d: int, dv: int, dk_in_kernel: bool, itemsize: int = 2) -> bool:
     return cols_ok and dkdv_from_s_smem_bytes(dv, kv, itemsize) <= SMEM_LIMIT_BYTES
 
 
-def banded_dk_kv_tile(d: int) -> int:
-    """KV rows of one banded-dK block: the tallest whose fp32 dK tile
-    (rows x D) fits the registers."""
-    return 64 if 64 * _round_up(d, D_CHUNK) <= FWD_ACC_ELEMS else 32
+@dataclass(frozen=True)
+class BandedPlan:
+    """The tiling of one banded-dQ or banded-dK launch, as
+    ``csrc/flash_bwd.cu`` ``band::make_plan`` computes it (the library
+    hands its own out through ``flash_bwd.banded_kernel_plan``; the card
+    test holds the two equal).
+
+    ``col_blocks`` are the (first column, width) pairs that tile the padded
+    D, one per grid column; ``rows`` the output rows of a block, ``k_tile``
+    the k-step of a stage, ``stages`` the ring's depth and ``smem_bytes``
+    the dynamic shared memory a block asks for (stages, their mbarriers and
+    the 1024 B alignment of the swizzled stages).
+    """
+
+    col_blocks: tuple
+    rows: int
+    k_tile: int
+    stages: int
+    smem_bytes: int
+
+
+def banded_plan(d: int, itemsize: int = 2) -> BandedPlan:
+    """Column blocks of D (padded to 64-column chunks): ceil(D / 256) of
+    them, the chunks split as evenly as possible, the first blocks one
+    chunk wider; a stage holds the dS tile and the widest block's K / Q
+    tile."""
+    chunks = cdiv(d, D_CHUNK)
+    nb = cdiv(chunks, _BANDED_MAX_COLS // D_CHUNK)
+    base, extra = divmod(chunks, nb)
+    blocks, c0 = [], 0
+    for i in range(nb):
+        width = (base + (1 if i < extra else 0)) * D_CHUNK
+        blocks.append((c0, width))
+        c0 += width
+    widest = blocks[0][1]
+    stage = (_BANDED_ROWS + widest) * _BANDED_K_TILE * itemsize
+    smem = _BANDED_STAGES * stage + 2 * _BANDED_STAGES * 8 + 1024
+    return BandedPlan(tuple(blocks), _BANDED_ROWS, _BANDED_K_TILE, _BANDED_STAGES, smem)
 
 
 def dq_fits(block_q: int, d: int, dv: int, itemsize: int = 2) -> bool:
@@ -333,10 +375,10 @@ __all__ = [
     "varlen_dkdv_smem_bytes",
     "varlen_dq_smem_bytes",
     "varlen_bwd_fits",
-    "banded_dq_smem_bytes",
     "dq_fits",
     "from_s_kv_tile",
     "dkdv_from_s_smem_bytes",
     "from_s_fits",
-    "banded_dk_kv_tile",
+    "BandedPlan",
+    "banded_plan",
 ]

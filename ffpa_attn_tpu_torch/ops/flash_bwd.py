@@ -27,10 +27,17 @@ Bound on an H100: operations. At the training shape (B1 Hq8 N8192 D512
 causal) the dK/dV pass does 4 matmul units of 2 * Hq * N(N+1)/2 * D flop,
 1.1e12 in all (1.1 ms at 989 TFLOP/s), and writes a 1 GiB dS slab (0.32 ms
 at 3.35 TB/s); banded dQ does one unit (0.28 ms). Design against that bound
-(``csrc/flash_bwd.cu``): the forward's mma.sync tiles and chunk ring;
-whole tiles outside the causal / window band are never loaded; a dK/dV
-block loops over the GQA group and the Q tiles itself (one store of the
-group-reduced dK/dV, no atomics); dV shares its stream of dO with dP.
+(``csrc/flash_bwd.cu``): dK/dV, dQ and from-S take the forward's mma.sync
+tiles and chunk ring; whole tiles outside the causal / window band are
+never loaded; a dK/dV block loops over the GQA group and the Q tiles itself
+(one store of the group-reduced dK/dV, no atomics); dV shares its stream of
+dO with dP. Banded dQ and banded dK are plain GEMMs over a causal k-range
+and run on Hopper's TMA and wgmma (``csrc/sm90.cuh``): a producer
+warpgroup keeps a 4-stage ring of TMA tiles full, two consumer warpgroups
+run wgmma.m64n256k16 on 128 rows x at most 256 columns a block
+(``config.banded_plan``), the transposes (K and Q read N-major, dS^T read
+M-major from the [q][kv] slab) done by wgmma's operand bits. Their tensor
+maps declare the slab's extents (nq, nkv), so its padding is never read.
 
 The delta preprocess ``rowsum(dO * O)``, ``_dq_from_ds`` and
 ``_dbias_from_ds`` are plain large reductions and products outside any
@@ -55,10 +62,10 @@ from .config import (
     D_CHUNK,
     DKDV_KV_TILE,
     DKDV_Q_TILE,
-    FWD_ACC_ELEMS,
     KV_TILE,
+    BandedPlan,
     BlockConfig,
-    banded_dk_kv_tile,
+    banded_plan,
     cdiv,
     dkdv_col_passes,
     from_s_fits,
@@ -221,6 +228,8 @@ _ARGTYPES = {
         [_P] * 8 + [_I] * 12 + [_F] * 2 + [_I] * 2 + [_F] * 2 + [ctypes.c_uint32] + [_P]
     ),
     "ffpa_bwd_banded_dk": [_P] * 3 + [_I] * 10 + [_F] + [_I] + [_P],
+    "ffpa_bwd_banded_attrs": [_I] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2,
+    "ffpa_bwd_banded_plan": [_I, ctypes.POINTER(ctypes.c_int), _I],
 }
 
 
@@ -403,6 +412,38 @@ def _dq_launch(
 _dq_launch.launches = 0
 
 
+def banded_kernel_attrs(dk: bool, dtype=torch.bfloat16) -> dict:
+    """Registers a thread (at launch, before setmaxnreg) and local (spill)
+    bytes of the banded dK (``dk``) or banded dQ kernel, from
+    cudaFuncGetAttributes. Needs a card."""
+    lib = _bwd_lib()
+    regs, local = ctypes.c_int(0), ctypes.c_int(0)
+    err = lib.ffpa_bwd_banded_attrs(int(dk), int(dtype == torch.float16), ctypes.byref(regs),
+                                    ctypes.byref(local))
+    _build.check(lib, err, "banded kernel attributes")
+    return {"registers": regs.value, "local_bytes": local.value}
+
+
+def banded_kernel_plan(d: int) -> BandedPlan:
+    """The tiling the banded kernels' launcher takes at head dim ``d``
+    (padded to 64-column chunks), read from the library: what
+    ``config.banded_plan`` mirrors. Needs a card."""
+    lib = _bwd_lib()
+    out = (ctypes.c_int * 32)()
+    err = lib.ffpa_bwd_banded_plan(cdiv(d, D_CHUNK) * D_CHUNK, out, len(out))
+    _build.check(lib, err, "banded kernel plan")
+    blocks = tuple((out[5 + 2 * i], out[6 + 2 * i]) for i in range(out[0]))
+    return BandedPlan(blocks, out[1], out[2], out[3], out[4])
+
+
+def _check_banded_slab(name, ds_full):
+    """The banded kernels read the slab through a TMA tensor map: its row
+    stride must be a multiple of 16 B and its start 16 B-aligned."""
+    if ds_full.shape[3] % 8 != 0 or ds_full.data_ptr() % 16 != 0:
+        raise ValueError(f"{name}: the dS slab needs rows of a multiple of 8 elements and a "
+                         f"16-byte-aligned start (TMA), got {tuple(ds_full.shape)}")
+
+
 def _banded_dq_from_ds(ds_full, k, config, *, scale, group, nq, nkv, causal_offset, dq_dtype):
     """Causal dQ = scale * dS K from the dS slab ([B, Hq, nq_pad, nkv_pad],
     zeros above the band), tiles above the diagonal skipped.
@@ -418,21 +459,20 @@ def _banded_dq_from_ds(ds_full, k, config, *, scale, group, nq, nkv, causal_offs
     d_pad = cdiv(d, D_CHUNK) * D_CHUNK
     k_ = _pad_last(k, d_pad).contiguous()
     ds_ = ds_full.contiguous()
-    # The panel: the tallest row tile whose fp32 dQ fits the registers and
-    # that divides the slab's rows (an S residual's rows are padded to 32
-    # for short queries).
-    bq = 64 if 64 * d_pad <= FWD_ACC_ELEMS and nq_pad % 64 == 0 else 32
+    _check_banded_slab("banded dQ", ds_)
     out_f32, wt = _out_dtype(dq_dtype, k.dtype)
     dq = torch.empty((b, hq, nq, d_pad), dtype=wt, device=k.device)
     if ENV.device_log_level() >= 2:
-        logger.info("banded dq launch grid=(%d,%d,%d) block_q=%d D=%d", hq, b, cdiv(nq, bq),
-                    bq, d_pad)
+        plan = banded_plan(d_pad)
+        logger.info("banded dq launch grid=(%d,%d,%d) col_blocks=%s D=%d",
+                    len(plan.col_blocks) * cdiv(nq, plan.rows), hq, b, plan.col_blocks, d_pad)
     lib = _bwd_lib()
     with torch.cuda.device(k.device):
         err = lib.ffpa_bwd_banded_dq(
             ds_.data_ptr(), k_.data_ptr(), dq.data_ptr(), int(k.dtype == torch.float16),
-            out_f32, bq, b, hq, hkv, nq, nkv, d_pad, nq_pad, nkv_pad, float(scale),
-            int(causal_offset), torch.cuda.current_stream(k.device).cuda_stream,
+            out_f32, 0,  # the row tile: not read, the launcher picks its own
+            b, hq, hkv, nq, nkv, d_pad, nq_pad, nkv_pad,
+            float(scale), int(causal_offset), torch.cuda.current_stream(k.device).cuda_stream,
         )
     _build.check(lib, err, "banded dq kernel launch")
     _banded_dq_from_ds.launches += 1
@@ -518,20 +558,22 @@ def _banded_dk_from_ds(ds_full, q, config, *, scale, group, nq, nkv, causal_offs
     if ds_full.device.type == "cpu":
         return _banded_dk_plain(ds_full, q, scale=scale, nq=nq, nkv=nkv, hkv=hkv).to(dk_dtype)
     _check_slab("_banded_dk_from_ds", ds_full, q)
+    _check_banded_slab("banded dK", ds_full)
     d_pad = cdiv(d, D_CHUNK) * D_CHUNK
-    kv_tile = banded_dk_kv_tile(d_pad)
     q_ = _pad_last(q, d_pad).contiguous()
     out_f32, wt = _out_dtype(dk_dtype, q.dtype)
     dk = torch.empty((b, hkv, nkv, d_pad), dtype=wt, device=q.device)
     if ENV.device_log_level() >= 2:
-        logger.info("banded dk launch grid=(%d,%d,%d) kv_tile=%d D=%d", hkv, b,
-                    cdiv(nkv, kv_tile), kv_tile, d_pad)
+        plan = banded_plan(d_pad)
+        logger.info("banded dk launch grid=(%d,%d,%d) col_blocks=%s D=%d",
+                    len(plan.col_blocks) * cdiv(nkv, plan.rows), hkv, b, plan.col_blocks, d_pad)
     lib = _bwd_lib()
     with torch.cuda.device(q.device):
         err = lib.ffpa_bwd_banded_dk(
-            ds_full.data_ptr(), q_.data_ptr(), dk.data_ptr(), out_f32, kv_tile, b, hq, hkv, nq,
-            nkv, d_pad, nq_pad, nkv_pad, float(scale), int(causal_offset),
-            torch.cuda.current_stream(q.device).cuda_stream,
+            ds_full.data_ptr(), q_.data_ptr(), dk.data_ptr(), out_f32,
+            0,  # the row tile: not read, the launcher picks its own
+            b, hq, hkv, nq, nkv, d_pad, nq_pad, nkv_pad,
+            float(scale), int(causal_offset), torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(lib, err, "banded dk kernel launch")
     _banded_dk_from_ds.launches += 1

@@ -231,7 +231,7 @@ def test_varlen_rejected_kwargs():
     assert tuple(out.shape) == tuple(q.shape)
 
 
-def test_varlen_backward_is_a_later_slice(jv):
+def test_varlen_backward_matches_jax_vjp(jv):
     """The packed-training slice: ``o.float().sum().backward()`` (an
     expanded, stride-0 cotangent) runs the varlen backward and matches
     ``jax.vjp`` of the JAX package with a ones cotangent, at the bf16

@@ -32,9 +32,20 @@ from ffpa_attn_tpu_torch.ops.dispatch import pick_backward_config  # noqa: E402
 from ffpa_attn_tpu_torch.utils.profiling import device_window  # noqa: E402
 
 
-def kernel_ms(fn, name: str, reps: int) -> float:
+# The banded dK kernel's name in the profiler: ``banded_dk_kernel`` in trees
+# before the wgmma redesign, the dK instantiation of ``band::banded_kernel``
+# after it.
+BANDED_DK = ("banded_dk_kernel", "banded_kernel<__nv_bfloat16, true>")
+
+
+def kernel_ms(fn, names: tuple, reps: int) -> float:
+    """Device ms per call of the kernels whose name holds one of ``names``;
+    raises where none ran, so a renamed kernel is not read as 0 ms."""
     w = device_window(fn, reps=reps, warmup=2)["by_kernel"]
-    return sum(ms for k, ms in w.items() if name in k) / reps
+    hits = {k: ms for k, ms in w.items() if any(n in k for n in names)}
+    if not hits:
+        raise RuntimeError(f"no kernel named like {names} ran; the profiler saw {sorted(w)}")
+    return sum(hits.values()) / reps
 
 
 def main() -> int:
@@ -69,10 +80,10 @@ def main() -> int:
                 t["dk_in" if dk_in else "dk_out"] = kernel_ms(
                     lambda c=c: flash_bwd._dkdv_from_s_launch(q, v, s.clone(), do, lse, delta,
                                                               0, c, **kw),
-                    "dkdv_from_s_kernel", args.reps)
+                    ("dkdv_from_s_kernel",), args.reps)
             t["banded_dk"] = kernel_ms(lambda: flash_bwd._banded_dk_from_ds(
                 s, q, cfg, scale=scale, group=hq // hkv, nq=n, nkv=n, causal_offset=0,
-                dk_dtype=torch.bfloat16), "banded_dk_kernel", args.reps)
+                dk_dtype=torch.bfloat16), BANDED_DK, args.reps)
             t["dk_out_total"] = t["dk_out"] + t["banded_dk"]
             t["in_minus_out"] = t["dk_in"] - t["dk_out_total"]
             out[f"D{d}_N{n}"] = {key: round(val, 4) for key, val in t.items()}

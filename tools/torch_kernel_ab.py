@@ -9,7 +9,9 @@ DIR holds another version of the kernel sources (``flash_fwd.cu``,
 ``ffpa_attn_tpu_torch/csrc`` of a parent checkout). Both versions are
 compiled with the package's nvcc flags and timed at the main-path shapes of
 ``chip_smoke.py`` in the order base, head, head, base, through the same
-Python wrappers (the two share the C interface):
+Python wrappers (the two share the C interface; a base library whose
+banded entry points still read a row tile is given the one its own
+wrappers passed, ``LegacyBanded``):
 
 * flash_fwd: B1 H8/4 N4096 D512 causal bf16 (the serving prefill);
 * decode: B1 H8/4 Nkv 4224 D512 with the validity bias, four caches in turn
@@ -32,7 +34,11 @@ Python wrappers (the two share the C interface):
 
 A kernel whose source the base tree lacks is timed on the head alone. Each
 time is the kernels' device time per call from torch.profiler (for from_s
-the from-S kernel's alone, without the copy of S). Prints one JSON line.
+the from-S kernel's alone, without the copy of S). banded_dq and banded_dk
+are also held against their plain versions on the slab each tree's own
+dK/dV (or from-S) kernel wrote, per row at the bf16 gradient tolerance
+5e-2 (a row's floor at 1e-3 of the tensor's max); a miss exits 1. Prints
+one JSON line.
 """
 
 from __future__ import annotations
@@ -54,6 +60,7 @@ sys.path.insert(0, str(REPO))
 from ffpa_attn_tpu_torch.ops import (  # noqa: E402
     _build, decode, flash_bwd, flash_fwd, paged, varlen,
 )
+from ffpa_attn_tpu_torch.ops.config import FWD_ACC_ELEMS  # noqa: E402
 from ffpa_attn_tpu_torch.ops.dispatch import (  # noqa: E402
     pick_backward_config, pick_varlen_backward_config,
 )
@@ -98,8 +105,50 @@ def build_tree(src: Path, out: Path) -> dict:
     return libs
 
 
-def make_runs(gen) -> dict:
-    """{kernel: a function that launches it once at its main-path shape}."""
+class LegacyBanded:
+    """A flash_bwd library built from sources whose banded entry points
+    still read their row-tile argument, which the package's wrappers pass
+    as 0 (the current launcher picks its own tiles): the tile those sources
+    took is put in, 64 where a 64 x D fp32 tile fits the registers and
+    divides the slab's rows (dQ) or columns (dK), else 32. Every other
+    symbol is the library's own."""
+
+    # entry point -> (index of the tile, of D, of the slab dimension it divides)
+    TILE_ARG = {"ffpa_bwd_banded_dq": (5, 11, 12), "ffpa_bwd_banded_dk": (4, 10, 12)}
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if name not in self.TILE_ARG:
+            return fn
+        fn.argtypes = flash_bwd._ARGTYPES[name]
+        tile, d, dim = self.TILE_ARG[name]
+
+        def call(*args):
+            args = list(args)
+            args[tile] = 64 if 64 * args[d] <= FWD_ACC_ELEMS and args[dim] % 64 == 0 else 32
+            return fn(*args)
+
+        call.argtypes = fn.argtypes
+        return call
+
+
+TOL = 5e-2  # bf16 gradients (tests/test_ffpa_bwd.py:19)
+
+
+def row_rel(got, want, floor: float = 1e-3) -> float:
+    """Largest per-row max|got - want| over the row's max|want|, floored at
+    ``floor`` of the tensor's max (causal row 0 of dQ is 0 by cancellation)."""
+    got, want = got.float(), want.float()
+    ref = want.abs().amax(-1).clamp_min(floor * float(want.abs().max()) + 1e-30)
+    return float(((got - want).abs().amax(-1) / ref).max())
+
+
+def make_runs(gen) -> tuple:
+    """({kernel: a function that launches it once at its main-path shape},
+    reset, {kernel: its plain version on the inputs of the last run})."""
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
@@ -174,8 +223,8 @@ def make_runs(gen) -> dict:
     # Continuous batching: the packed prefill's varlen call and a paged
     # decode step at the serving shape.
     lens = [589, 698, 763, 886]
-    tv = sum(lens)
-    vq, vk, vv = randn(tv, hq, d), randn(tv, hkv, d), randn(tv, hkv, d)
+    tot = sum(lens)
+    vq, vk, vv = randn(tot, hq, d), randn(tot, hkv, d), randn(tot, hkv, d)
     cu = torch.tensor([0] + torch.tensor(lens).cumsum(0).tolist(), dtype=torch.int32,
                       device="cuda")
     pools = []
@@ -226,7 +275,13 @@ def make_runs(gen) -> dict:
         "varlen_dkdv": lambda: varlen._varlen_dkdv_kernel(ops, meta, sched[0], bcfg, **bkw)[0],
         "varlen_dq": lambda: varlen._varlen_dq_kernel(ops, meta, sched[1], bcfg, **bkw),
     }
-    return runs, reset
+    plains = {
+        "banded_dq": lambda: flash_bwd._banded_dq_plain(state["ds"], tk, scale=scale, nq=nt,
+                                                        nkv=nt),
+        "banded_dk": lambda: flash_bwd._banded_dk_plain(state["s_ds"], tq, scale=scale, nq=nt,
+                                                        nkv=nt, hkv=hkv),
+    }
+    return runs, reset, plains
 
 
 def main() -> int:
@@ -244,12 +299,16 @@ def main() -> int:
         "base": build_tree(Path(args.base).resolve(), REPO / "build" / "ab" / "base"),
         "head": build_tree(_build.CSRC_DIR, REPO / "build" / "ab" / "head"),
     }
-    runs, reset = make_runs(torch.Generator(device="cuda").manual_seed(0))
+    base_bwd = trees["base"].get("flash_bwd")
+    if base_bwd is not None and not hasattr(base_bwd, "ffpa_bwd_banded_plan"):
+        trees["base"]["flash_bwd"] = LegacyBanded(base_bwd)
+    runs, reset, plains = make_runs(torch.Generator(device="cuda").manual_seed(0))
 
     def use(tag):
         _build.load = lambda name: trees[tag][name]
 
     times = {tag: {k: [] for k in kernels} for tag in trees}
+    vs_plain = {tag: {k: [] for k in kernels if k in plains} for tag in trees}
     outs = {}
     for tag in ("base", "head", "head", "base"):
         use(tag)
@@ -265,6 +324,8 @@ def main() -> int:
                 times[tag][k].append(device_ms(runs[k], reps=reps))
             reset()
             outs[(tag, k)] = runs[k]().float()
+            if k in plains:
+                vs_plain[tag][k].append(row_rel(outs[(tag, k)], plains[k]()))
             reset()
     torch.cuda.synchronize()
     diff = {
@@ -276,8 +337,9 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(json.dumps({"card": smi, "order": "base head head base", "device_ms": times,
-                      "max_abs_diff_head_vs_base": diff}))
-    return 0
+                      "max_abs_diff_head_vs_base": diff, "row_rel_err_vs_plain": vs_plain,
+                      "tol": TOL}))
+    return 0 if all(e < TOL for per in vs_plain.values() for es in per.values() for e in es) else 1
 
 
 if __name__ == "__main__":
