@@ -45,9 +45,11 @@ It imports only ``ffpa_attn_tpu_torch``, torch and numpy, and runs, in order:
    kernel at its main-path shape beside its bound, its plain version and
    one PyTorch library call computing the same function, or for the from-S
    pass the yardstick of its two dense products (device time per call from
-   torch.profiler, CUDA-event time beside it); banded dQ and banded dK also
-   at the op-level shape (H32 MHA) with their TFLOP/s, registers and spill
-   bytes;
+   torch.profiler, CUDA-event time beside it); the forward's time a launch
+   at the training shape from the handoff step's profile; the dK/dV
+   route's plan held equal to its mirror, its registers and spill bytes;
+   banded dQ, banded dK and dK/dV also at the op-level shape (H32 MHA)
+   with their TFLOP/s;
 7. the ``kernels`` line.
 
 Every phase raises on failure; the script exits 0 only when all passed. The
@@ -250,7 +252,7 @@ def _bwd_case(name, *, b=1, hq=8, hkv=4, nq, nkv, d=512, dtype=torch.bfloat16, c
     and, under causal, banded dQ from the kernel's slab. (o, lse) come from
     the forward kernel."""
     from ffpa_attn_tpu_torch.ops import flash_bwd, flash_fwd
-    from ffpa_attn_tpu_torch.ops.config import DKDV_KV_TILE, DKDV_Q_TILE, cdiv
+    from ffpa_attn_tpu_torch.ops.config import DKDV_Q_TILE, DKDV_SLAB_COLS, cdiv, dkdv_plan
     from ffpa_attn_tpu_torch.ops.dispatch import pick_backward_config
 
     gen = torch.Generator(device="cuda").manual_seed(100 + seed)
@@ -284,7 +286,7 @@ def _bwd_case(name, *, b=1, hq=8, hkv=4, nq, nkv, d=512, dtype=torch.bfloat16, c
         pdk, pdv, pds = flash_bwd._dkdv_plain(
             q, k, v, bias_t, do, lse, delta, scale=scale, emit_ds=emit,
             nq_pad=cdiv(nq, DKDV_Q_TILE) * DKDV_Q_TILE,
-            nkv_pad=cdiv(nkv, DKDV_KV_TILE) * DKDV_KV_TILE, **plain_kw)
+            nkv_pad=cdiv(nkv, DKDV_SLAB_COLS) * DKDV_SLAB_COLS, **plain_kw)
         errs[f"dk{int(emit)}"], errs[f"dv{int(emit)}"] = grad_row_rel(kdk, pdk), grad_row_rel(kdv, pdv)
         del pdk, pdv
         if emit:
@@ -307,7 +309,8 @@ def _bwd_case(name, *, b=1, hq=8, hkv=4, nq, nkv, d=512, dtype=torch.bfloat16, c
     if bias_t is not None:
         errs["dbias"] = rel(kdb, flash_bwd._dbias_from_ds(pdb, bias_t))
     ok = all(e < tol for e in errs.values()) and bool(torch.isfinite(kdq).all())
-    log(f"  bwd {name:<22} " + " ".join(f"{n} {e:.2e}" for n, e in errs.items())
+    log(f"  bwd {name:<22} dkdv route {dkdv_plan(d, d).route} "
+        + " ".join(f"{n} {e:.2e}" for n, e in errs.items())
         + f" (tol {tol:g}, per row) {'ok' if ok else 'FAIL'}")
     if not ok:
         fail(f"backward kernels disagree with their plain versions: {name}")
@@ -637,7 +640,9 @@ def phase_kernels_vs_plain() -> dict:
     _bwd_case("dropout", nq=1024, nkv=1024, dropout=0.1, seed=6)
     _bwd_case("nkv1100", nq=1024, nkv=1100, seed=7)
     _bwd_case("d320", nq=1024, nkv=1024, d=320, seed=8)
-    _bwd_case("d1024", nq=1024, nkv=1024, d=1024, seed=9)
+    _bwd_case("d448", nq=1024, nkv=1024, d=448, seed=12)  # dK/dV passes of 256 + 192
+    _bwd_case("gqa_group1", hq=8, hkv=8, nq=1024, nkv=1024, seed=13)
+    _bwd_case("d1024", nq=1024, nkv=1024, d=1024, seed=9)  # the mma.sync dK/dV route
     _bwd_case("fp16", nq=1024, nkv=1024, dtype=torch.float16, seed=10)
     _bwd_case("batch2_bias_alibi", b=2, nq=1024, nkv=1100, bias="full", alibi=True, seed=11)
     # The S-resident tier: the forward's S residual, the from-S dK/dV kernel
@@ -1688,8 +1693,9 @@ def _kernel_timed(fn, kernel: str, reps: int, setup=None) -> tuple:
     return dev, ev
 
 
-def _profile_step(label: str, run: dict) -> None:
-    """One training step of ``run`` under the profiler; frees the model."""
+def _profile_step(label: str, run: dict) -> dict:
+    """One training step of ``run`` under the profiler; frees the model.
+    Returns the step's device ms by kernel name."""
     from ffpa_attn_tpu_torch.utils.profiling import device_window
 
     hold = {"state": run["state"]}
@@ -1705,6 +1711,7 @@ def _profile_step(label: str, run: dict) -> None:
         log(f"    {ms:9.3f} ms  {kname[:100]}")
     del run["model"], run["state"], hold
     torch.cuda.empty_cache()
+    return w["by_kernel"]
 
 
 def training_times(training: dict, windowed: dict, resident: dict) -> tuple:
@@ -1721,10 +1728,18 @@ def training_times(training: dict, windowed: dict, resident: dict) -> tuple:
     from ffpa_attn_tpu_torch.ops.reference import expand_kv_heads
     from ffpa_attn_tpu_torch.utils.profiling import backward_counts, bound_ms
 
-    _profile_step("training step (dS handoff)", training)
+    by_kernel = _profile_step("training step (dS handoff)", training)
     _profile_step("training step (S-resident)", resident)
 
     n, b, hq, hkv, d = TRAIN_N, 1, TRAIN["n_heads"], TRAIN["n_kv_heads"], TRAIN["head_dim"]
+    # The forward at the training shape: its launches in the profiled step.
+    fwd_ms = sum(ms for kname, ms in by_kernel.items() if "fwd_kernel" in kname)
+    fwd_flops = 2 * b * hq * (n * (n + 1) // 2) * (d + d)
+    fwd_bytes = 2 * (2 * b * hq * n * d + 2 * b * hkv * n * d) + 4 * b * hq * n
+    fb_ms, fb_by = bound_ms(fwd_flops, fwd_bytes)
+    log(f"  flash_fwd at the training shape (B{b} H{hq}/{hkv} N{n} D{d} causal bf16): "
+        f"{fwd_ms / TRAIN['n_layers']:.4f} ms a launch (the profiled handoff step's "
+        f"{TRAIN['n_layers']} launches), bound {fb_ms:.4f} ms ({fb_by})")
     bf = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(12)
     q, do = _randn((b, hq, n, d), bf, gen), _randn((b, hq, n, d), bf, gen)
@@ -1791,6 +1806,7 @@ def training_times(training: dict, windowed: dict, resident: dict) -> tuple:
                                             causal=True, slab_bytes=b * hq * n * n * 2)
             row("dkdv", "ffpa_attn_tpu/ops/flash_bwd.py:194", training["launches"]["dkdv"],
                 err, kms, pms, lib, flops, nbytes)
+            rows[-1].update(dkdv_kernel_row_extras(d))
 
             def run_banded():
                 return flash_bwd._banded_dq_from_ds(ds, k, cfg, scale=scale, group=hq // hkv,
@@ -1918,7 +1934,91 @@ def training_times(training: dict, windowed: dict, resident: dict) -> tuple:
     del slab, s, o, lse, delta
     torch.cuda.empty_cache()
     banded_op_level_times()
+    dkdv_op_level_times()
     return rows, events
+
+
+def dkdv_kernel_row_extras(d: int) -> dict:
+    """The dK/dV route at head dim ``d`` and its kernel's registers and
+    spill bytes, for the ``kernels`` line; fails unless the launcher's plan
+    equals its mirror (``ops/config.py`` ``dkdv_plan``) at D, Dv 64..1024
+    and the wgmma kernel spills nothing."""
+    from ffpa_attn_tpu_torch.ops import flash_bwd
+    from ffpa_attn_tpu_torch.ops.config import dkdv_plan
+
+    pairs = [(x, x) for x in range(64, 1025, 64)] + [(512, 128), (128, 512), (448, 64),
+                                                     (512, 1024), (1024, 320), (400, 400)]
+    for hd, hdv in pairs:
+        if flash_bwd.dkdv_kernel_plan(hd, hdv) != dkdv_plan(hd, hdv):
+            fail(f"dK/dV launcher's plan at D{hd}/Dv{hdv} {flash_bwd.dkdv_kernel_plan(hd, hdv)} "
+                 f"differs from ops/config.py dkdv_plan {dkdv_plan(hd, hdv)}")
+    log(f"  dkdv plan at D{d}: {flash_bwd.dkdv_kernel_plan(d, d)} (the launcher's, equal to "
+        f"ops/config.py dkdv_plan at {len(pairs)} head-dim pairs)")
+    for route in ("wgmma", "mma_sync"):
+        for dt in (torch.bfloat16, torch.float16):
+            a = flash_bwd.dkdv_kernel_attrs(route, dt)
+            log(f"  dkdv {route} {str(dt)[6:]}: {a['registers']} registers a thread at launch, "
+                f"{a['local_bytes']} local (spill) bytes")
+            if route == "wgmma" and a["local_bytes"] != 0:
+                fail(f"the wgmma dK/dV kernel ({dt}) spills {a['local_bytes']} bytes")
+    route = dkdv_plan(d, d).route
+    a = flash_bwd.dkdv_kernel_attrs(route)
+    return {"dkdv_route": route, "registers": a["registers"], "spill_bytes": a["local_bytes"]}
+
+
+def dkdv_op_level_times() -> None:
+    """dK/dV (with the dS slab, the handoff tier's launch) at the op-level
+    headline's shape, B1 H32 MHA N8192 D512 causal bf16: held against its
+    plain version on the first 8 heads (heads are independent), timed
+    beside its bound and autograd of scaled_dot_product_attention (the
+    dK/dV + dQ pair, as in the training row)."""
+    import torch.nn.functional as F
+
+    from ffpa_attn_tpu_torch.ops import flash_bwd, flash_fwd
+    from ffpa_attn_tpu_torch.ops.config import dkdv_plan
+    from ffpa_attn_tpu_torch.ops.dispatch import pick_backward_config
+    from ffpa_attn_tpu_torch.utils.profiling import backward_counts, bound_ms
+
+    b, h, n, d = 1, OP_HEADS, TRAIN_N, TRAIN["head_dim"]
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    q, k, v, do = (_randn((b, h, n, d), bf, gen) for _ in range(4))
+    scale = d ** -0.5
+    o, lse = flash_fwd.flash_attention_forward(q, k, v, None, scale=scale, is_causal=True)
+    delta = (do.float() * o.float()).sum(-1)
+    del o
+    cfg = pick_backward_config(d=d, dv=d, nq=n, nkv=n, dtype=bf)
+    kw = dict(scale=scale, is_causal=True, causal_offset=0, dropout_p=0.0, group=1)
+
+    def run(heads=slice(None)):
+        return flash_bwd._dkdv_launch(q[:, heads], k[:, heads], v[:, heads], None, do[:, heads],
+                                      lse[:, heads], delta[:, heads], 0, cfg,
+                                      grad_kv_storage_dtype=None, emit_ds=True, **kw)
+
+    kdk, kdv, kds = run()
+    torch.cuda.synchronize()
+    h8 = slice(0, 8)
+    pdk, pdv, pds = flash_bwd._dkdv_plain(
+        q[:, h8], k[:, h8], v[:, h8], None, do[:, h8], lse[:, h8], delta[:, h8], scale=scale,
+        emit_ds=True, nq_pad=n, nkv_pad=n, is_causal=True, causal_offset=0, dropout_p=0.0,
+        seed=0, softcap=0.0, window=(-1, -1), alibi=None)
+    _hold(f"dkdv_N{n}_H{h}", {"dk_h0-7": (kdk[:, h8], pdk), "dv_h0-7": (kdv[:, h8], pdv),
+                              "ds_h0-7": (kds[:, h8], pds)})
+    del kdk, kdv, kds, pdk, pdv, pds
+    torch.cuda.empty_cache()
+    kms = _timed(run, 5)
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+    lms = _timed(lambda: torch.autograd.grad(out, (ql, kl, vl), do, retain_graph=True), 3)
+    flops, nbytes = backward_counts("dkdv", b=b, hq=h, hkv=h, nq=n, nkv=n, d=d, dv=d,
+                                    causal=True, slab_bytes=b * h * n * n * 2)
+    bms, bby = bound_ms(flops, nbytes)
+    log(f"  dkdv at the op-level shape (B{b} H{h} N{n} D{d} MHA, with the slab, route "
+        f"{dkdv_plan(d, d).route}): {kms[0]:.4f} ms [{kms[1]:.4f}], {flops / kms[0] / 1e9:.1f} "
+        f"TFLOP/s; bound {bms:.4f} ms ({bby}); library (autograd of "
+        f"scaled_dot_product_attention, the pair) {lms[0]:.4f} ms [{lms[1]:.4f}]")
+    del out, ql, kl, vl, q, k, v, do, lse, delta
+    torch.cuda.empty_cache()
 
 
 def banded_op_level_times() -> None:

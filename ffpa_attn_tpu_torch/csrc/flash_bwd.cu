@@ -9,7 +9,9 @@
 //                           forward's S residual, dS written over S in place
 //   ffpa_bwd_banded_dk   <- _banded_dk_kernel: dK = scale * dS^T Q from the slab
 //
-// dK/dV, dQ and from-S are built from the forward's pieces (flash_fwd.cu):
+// dK/dV for D, Dv <= 512 runs on TMA and wgmma (namespace dkdv, details
+// beside it); the route is dkdv::make_plan's, by head dims alone. dK/dV for
+// wider heads, dQ and from-S are built from the forward's pieces (flash_fwd.cu):
 // 16 warps, mma.sync m16n8k16 (bf16 or f16 in, fp32 accumulate) fed by
 // ldmatrix, a block's owned tile resident in shared memory and the other
 // operand streamed in 64 x 64 chunks through a 4-slot cp.async ring, fp32
@@ -25,11 +27,11 @@
 // are never loaded.
 //
 // dK/dV (TPU: one grid cell per KV tile, the GQA group x Q tiles on a
-// sequential grid axis; here: a loop inside the block). A block owns 32 KV
-// rows of one KV head, with K and V resident, and walks the group's 128-row
-// Q tiles (128 rows give each warp 8 mma between block barriers; 64 rows
-// gave 4 and took 1.5x the time). S^T = K Q^T streams the Q chunks; P^T
-// goes to shared memory;
+// sequential grid axis; here: a loop inside the block). The mma.sync block
+// (D or Dv > 512) owns 32 KV rows of one KV head, with K and V resident,
+// and walks the group's 128-row Q tiles (128 rows give each warp 8 mma
+// between block barriers; 64 rows gave 4 and took 1.5x the time). S^T =
+// K Q^T streams the Q chunks; P^T goes to shared memory;
 // dP^T = V dO^T and dV += P^T dO share one stream of the dO chunks; dS^T goes
 // to shared memory (and to the slab); dK += dS^T Q streams the Q chunks
 // again. dK and dV come out group-reduced with one store each and no
@@ -61,6 +63,7 @@
 // see utils/profiling.py).
 #include <string.h>
 
+#include <algorithm>
 #include <type_traits>
 
 #include "bwd_tiles.cuh"
@@ -1153,6 +1156,492 @@ cudaError_t launch(const void* ds, const void* bsrc, void* out, int out_f32, int
 
 }  // namespace band
 
+// ---------------------------------------------------------------------------
+// dK / dV for D, Dv <= 512: TMA + mbarrier + wgmma
+// ---------------------------------------------------------------------------
+
+// The Hopper route of ffpa_bwd_dkdv (the reference's SM90 split-D dK/dV
+// block). A block owns 64 KV rows of one KV head and one column pass: at
+// most 256 columns of dK and of dV, whose fp32 tiles (64 x 256 each) take
+// 128 registers of each thread of a consumer warpgroup. K and V (64 x D,
+// 64 x Dv) are loaded by TMA once and stay resident in 128 B-swizzled
+// boxes; warpgroup 0 is the producer (one thread streams the group's Q and
+// dO tiles, 64 rows x 64 columns a box, through a ring of two-box stages:
+// one barrier handshake and one wgmma group per two boxes); warpgroups 1
+// and 2 are the consumers. Per Q tile (group member
+// outer, Q tiles of the band inner):
+//  - S^T = K Q^T and dP^T = V dO^T over all of D and Dv: consumer c takes
+//    Q rows 32c..32c+31 of both (wgmma.m64n32k16, K and the Q / dO box
+//    both K-major), so the elementwise step is split evenly and each
+//    thread holds its own S, dP, lse and delta: no fp32 exchange;
+//  - P (dropped) and dS = P (dP - delta) (softcap's factor included) from
+//    score_prob on the accumulator's (kv, q) coordinates; each consumer
+//    writes its 32 columns of P^T and dS^T into two swizzled [kv][q] boxes;
+//  - consumer 0 runs dK += dS^T Q over the pass's Q boxes, consumer 1
+//    dV += P^T dO over its dO boxes (wgmma.m64n64k16 per box, A K-major
+//    from the exchange box, B N-major with the transpose bit); the pass's
+//    boxes come again after the S^T / dP^T boxes, its dO boxes then its Q
+//    boxes, and the ring holds them all, so both consumers work at once;
+//  - pass 0 writes the dS tile to the slab ([q][kv], 16 B a thread) from
+//    the exchange box.
+// Two named barriers a tile order the exchange. S and dP are recomputed in
+// every pass: at D512 (two passes) 6 matmul units are executed against the
+// bound's 4 (operations: 1.11 ms at the training shape on an H100). Q tiles
+// the band skips get zeros in the slab. On the card the barrier handshakes
+// of the stream cost more than its bytes: two boxes a stage beat one,
+// while a 2-CTA cluster multicasting the S^T / dP^T boxes to both passes,
+// or holding the pass's boxes in the ring instead of loading them again,
+// did not help (times in PERF.md).
+namespace dkdv {
+
+using namespace ffpa::sm90;
+
+constexpr int ROWS = 64;                     // KV rows of a block
+constexpr int QROWS = 64;                    // Q rows of a streamed tile
+constexpr int COLS = 64;                     // columns of a box (128 B of 16-bit)
+constexpr int BOX_BYTES = QROWS * COLS * 2;  // 8 KB
+constexpr int MAX_BOXES = 8;                 // D, Dv <= 512 on this route
+constexpr int PASS_BOXES = 4;                // dK / dV columns of a pass: 256
+constexpr int STAGE_BOXES = 2;               // boxes a stage (one barrier handshake)
+static_assert(STAGE_BOXES == 2, "the consumers' stage loops take pairs of boxes");
+constexpr int STAGE_BYTES = STAGE_BOXES * BOX_BYTES;
+constexpr int MAX_STAGES = 6;
+constexpr int THREADS = 384;                 // producer warpgroup + 2 consumer warpgroups
+constexpr int CONSUMER_WARPS = 8;            // arrivals that free a stage
+constexpr int SMEM_LIMIT = 232448;
+constexpr int WGMMA = 1, MMA_SYNC = 0;       // routes
+
+// The route and tiling of a launch at head dims (D, Dv), multiples of 64:
+// D, Dv <= 512 take this kernel, with ceil(max(D, Dv) / 256) passes whose
+// column blocks split the 64-column boxes of D and of Dv as evenly as
+// possible (band::col_block), and as many ring stages as shared memory
+// holds after K, V and the two exchange boxes. Wider heads take the
+// mma.sync dkdv_kernel. ffpa_bwd_dkdv_plan hands it out; ops/config.py
+// dkdv_plan mirrors it and the card test holds the two equal.
+struct Plan {
+  int route, passes, nd, nv, stages;
+  size_t smem;
+};
+inline Plan make_plan(int D, int Dv) {
+  Plan pl;
+  pl.nd = D / COLS;
+  pl.nv = Dv / COLS;
+  if (pl.nd <= MAX_BOXES && pl.nv <= MAX_BOXES) {
+    pl.route = WGMMA;
+    pl.passes = std::max((pl.nd + PASS_BOXES - 1) / PASS_BOXES, (pl.nv + PASS_BOXES - 1) / PASS_BOXES);
+    // K, V, the P and dS boxes, the 1024 B alignment and the K/V barrier;
+    // a stage is STAGE_BOXES boxes and its two barriers.
+    const size_t fixed = (size_t)(pl.nd + pl.nv + 2) * BOX_BYTES + 1024 + sizeof(uint64_t);
+    const size_t stage = STAGE_BYTES + 2 * sizeof(uint64_t);
+    pl.stages = (int)std::min((size_t)MAX_STAGES, (SMEM_LIMIT - fixed) / stage);
+    pl.smem = fixed + pl.stages * stage;
+  } else {
+    pl.route = MMA_SYNC;
+    pl.passes = std::max((D + MAXC * CH - 1) / (MAXC * CH), (Dv + MAXC * CH - 1) / (MAXC * CH));
+    pl.stages = NST;
+    pl.smem = dkdv_smem_bytes<__nv_bfloat16>(D, Dv);
+  }
+  return pl;
+}
+
+// The kernel's tensor maps, a __grid_constant__ parameter of their own (TMA
+// reads them by address); the scalars stay an ordinary parameter, read
+// from the constant bank (p.col_passes is the plan's passes).
+struct Maps {
+  CUtensorMap q_map, do_map;  // (D | Dv, nq, B * Hq); box 64 x 64
+  CUtensorMap k_map, v_map;   // (D | Dv, nkv, B * Hkv); box 64 x 64
+};
+
+// Byte offset of element (r, c) of a 64 x 64 16-bit box in the 128 B
+// swizzle (the box on a 1024 B boundary): TMA's layout and wgmma's B128.
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return r * 128 + ((((c >> 3) ^ (r & 7)) << 4) | ((c & 7) << 1));
+}
+
+// One box's product of a consumer warpgroup: 4 wgmma k16 steps, 64 rows.
+// A (64 rows, K-major) from a, B from b: K-major (TB 0: a k16 step is 32
+// B along the row) or N-major (TB 1: 16 rows of 128 B, lbo between boxes).
+// With fresh set, the first step overwrites acc (scale-d 0).
+template <typename T, int N, int TB, int R>
+__device__ __forceinline__ void box_mma(float (&acc)[R], const unsigned char* a,
+                                        const unsigned char* b, bool fresh = false) {
+  constexpr uint32_t b_step = TB ? 2048 : 32, lbo = TB ? BOX_BYTES : 16;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss<T, N, 0, TB>(acc, desc_b128(a + kk * 32, 16, 1024),
+                          desc_b128(b + kk * b_step, lbo, 1024), kk > 0 || !fresh);
+}
+
+// Consumer CW (0: dK, 1: dV) of a block; CW is a template argument so
+// that no branch around a wgmma depends on the thread (ptxas serializes
+// wgmma on a path it cannot prove uniform).
+template <typename T, int CW>
+__device__ __forceinline__ void consume(const BwdParams& p, int stages, unsigned char* smem,
+                                        int ntiles, int ni, int i_lo, int kvh, int b, int kv0,
+                                        band::Cols dc, band::Cols vc, bool emit) {
+  const int nd = p.D / COLS, nv = p.Dv / COLS;
+  const unsigned char* Ks = smem;
+  const unsigned char* Vs = Ks + nd * BOX_BYTES;
+  unsigned char* sP = smem + (nd + nv) * BOX_BYTES;
+  unsigned char* sdS = sP + BOX_BYTES;
+  unsigned char* ring = sdS + BOX_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * STAGE_BYTES);
+  uint64_t* empty = full + stages;
+  uint64_t* kv_full = empty + stages;
+
+  constexpr int cw = CW;  // 0: dK, Q columns 0..31; 1: dV, 32..63
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int own = CW == 0 ? dc.nc : vc.nc;  // boxes of this consumer's product
+  constexpr float LOG2E = 1.4426950408889634f;
+  const float scale_log2 = p.scale * LOG2E;
+  const bool plain =
+      p.bias == nullptr && p.alibi == nullptr && p.softcap <= 0.f && p.dropout_p <= 0.f;
+
+  float acc[PASS_BOXES * 32];
+#pragma unroll
+  for (int i = 0; i < PASS_BOXES * 32; ++i) acc[i] = 0.f;
+
+  // it: the stream's box index; held: a stage whose products may still
+  // run. done_with frees the stage before once this one's products are
+  // issued and the older ones completed (one group stays in flight).
+  int it = 0, held = -1;
+  auto release = [&](int st, bool pred) { mbar_arrive_if(&empty[st], pred && lane == 0); };
+  auto done_with = [&](int st) {
+    wgmma_commit();
+    wgmma_wait<1>();
+    release(held >= 0 ? held : 0, held >= 0);
+    held = st;
+  };
+  auto drain = [&]() {
+    wgmma_wait<0>();
+    release(held >= 0 ? held : 0, held >= 0);
+    held = -1;
+  };
+
+  mbar_wait(kv_full, 0);
+  for (int t = 0; t < ntiles; ++t) {
+    const int h = kvh * p.group + t / ni, q0 = (i_lo + t % ni) * QROWS;
+    const long long bh = (long long)b * p.Hq + h;
+    // lse and delta of this thread's 8 Q columns: 32 cw + 8 jj + 2 t4 + e.
+    float lse_r[8], dl_r[8];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int q = q0 + 32 * cw + 8 * jj + 2 * t4 + e;
+        const bool ok = q < p.nq;
+        lse_r[2 * jj + e] = ok ? p.lse[bh * p.nq + q] : 0.f;
+        dl_r[2 * jj + e] = ok ? p.delta[bh * p.nq + q] : 0.f;
+      }
+
+    // S^T and dP^T: this warpgroup's 32 Q rows of each box, a stage's
+    // boxes in one wgmma group. The stages of two boxes, then an odd last
+    // box alone: a conditional wgmma inside a stage makes ptxas serialize.
+    float s[16], dp[16];
+    auto stream = [&](float(&a)[16], const unsigned char* res, int n) {
+      int c = 0;
+      for (; c + 2 <= n; c += 2, ++it) {
+        const int st = it % stages;
+        const unsigned char* sb = ring + st * STAGE_BYTES + cw * 4096;
+        mbar_wait(&full[st], (it / stages) & 1);
+        wgmma_fence();
+        box_mma<T, 32, 0>(a, res + c * BOX_BYTES, sb, c == 0);
+        box_mma<T, 32, 0>(a, res + (c + 1) * BOX_BYTES, sb + BOX_BYTES);
+        done_with(st);
+      }
+      if (c < n) {
+        const int st = it % stages;
+        mbar_wait(&full[st], (it / stages) & 1);
+        wgmma_fence();
+        box_mma<T, 32, 0>(a, res + c * BOX_BYTES, ring + st * STAGE_BYTES + cw * 4096, c == 0);
+        done_with(st);
+        ++it;
+      }
+    };
+    stream(s, Ks, nd);
+    stream(dp, Vs, nv);
+    drain();
+    fence_operands(s);
+    fence_operands(dp);
+
+    // P (dropped) and dS at the accumulator's (kv, q) coordinates: element
+    // 4 jj + 2 hh + e is KV row 16 warp + g + 8 hh, Q column 32 cw + 8 jj +
+    // 2 t4 + e.
+    // A tile with no feature, inside the band and the ragged edges on
+    // every element, takes p = 2^(s * scale * log2 e - lse * log2 e) alone;
+    // the others score_prob, element by element.
+    const int qc = q0 + 32 * cw;  // this consumer's first Q column
+    const bool interior =
+        plain && qc + 31 < p.nq && kv0 + ROWS - 1 < p.nkv &&
+        (p.window_right < 0 || kv0 + ROWS - 1 <= qc + p.causal_offset + p.window_right) &&
+        (p.window_left < 0 || kv0 >= qc + 31 + p.causal_offset - p.window_left);
+    uint32_t pw[8], dw[8];
+    if (interior) {
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          float pv[2], dsv[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int idx = 4 * jj + 2 * hh + e;
+            pv[e] = exp2f(fmaf(s[idx], scale_log2, -lse_r[2 * jj + e] * LOG2E));
+            dsv[e] = pv[e] * (dp[idx] - dl_r[2 * jj + e]);
+          }
+          pw[2 * jj + hh] = pack2<T>(pv[0], pv[1]);
+          dw[2 * jj + hh] = pack2<T>(dsv[0], dsv[1]);
+        }
+    } else {
+      const float slope = p.alibi != nullptr ? p.alibi[bh] : 0.f;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          float pv[2], dsv[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int idx = 4 * jj + 2 * hh + e;
+            const Prob pr = score_prob(p, b, h, qc + 8 * jj + 2 * t4 + e,
+                                       kv0 + 16 * warp + g + 8 * hh, s[idx], lse_r[2 * jj + e],
+                                       slope);
+            pv[e] = dropped(p, pr.keep, pr.p);
+            dsv[e] = pr.p * pr.cap * (dropped(p, pr.keep, dp[idx]) - dl_r[2 * jj + e]);
+          }
+          pw[2 * jj + hh] = pack2<T>(pv[0], pv[1]);
+          dw[2 * jj + hh] = pack2<T>(dsv[0], dsv[1]);
+        }
+    }
+    // The other consumer is done with the previous tile's P and dS boxes
+    // (its products completed, its slab reads returned).
+    named_barrier_sync(1, 2 * 128);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const uint32_t off = swz(16 * warp + g + 8 * hh, 32 * cw + 8 * jj + 2 * t4);
+        *reinterpret_cast<uint32_t*>(sP + off) = pw[2 * jj + hh];
+        *reinterpret_cast<uint32_t*>(sdS + off) = dw[2 * jj + hh];
+      }
+    fence_proxy_async();
+    named_barrier_sync(1, 2 * 128);
+
+    if (emit) {
+      // Slab rows q0..q0+63, columns kv0..kv0+63: 16 columns a thread.
+      const int u = threadIdx.x - 128, ql = u >> 2, kb = (u & 3) * 16;
+      T* dst = static_cast<T*>(p.ds) + (bh * p.ds_rows + q0 + ql) * p.ds_ld + kv0 + kb;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        T vals[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          vals[e] = *reinterpret_cast<const T*>(sdS + swz(kb + 8 * half + e, ql));
+        *reinterpret_cast<uint4*>(dst + 8 * half) = *reinterpret_cast<const uint4*>(vals);
+      }
+    }
+
+    // dV += P^T dO (consumer 1) over the pass's dO boxes, which come
+    // first, and dK += dS^T Q (consumer 0) over its Q boxes; each frees
+    // the other's boxes as they arrive. The accumulator box of each
+    // product is fixed at compile time.
+    auto skip = [&](int n) {  // the stages of n boxes
+      for (int c = 0; c < n; c += STAGE_BOXES, ++it) {
+        const int st = it % stages;
+        mbar_wait(&full[st], (it / stages) & 1);
+        release(st, true);
+      }
+    };
+    if constexpr (CW == 0) skip(vc.nc);
+    const unsigned char* a_box = CW == 0 ? sdS : sP;
+#pragma unroll
+    for (int jj = 0; jj < PASS_BOXES; jj += 2) {
+      if (jj + 2 <= own) {
+        const int st = it % stages;
+        mbar_wait(&full[st], (it / stages) & 1);
+        wgmma_fence();
+        box_mma<T, 64, 1>(*reinterpret_cast<float(*)[32]>(acc + 32 * jj), a_box,
+                          ring + st * STAGE_BYTES);
+        box_mma<T, 64, 1>(*reinterpret_cast<float(*)[32]>(acc + 32 * (jj + 1)), a_box,
+                          ring + st * STAGE_BYTES + BOX_BYTES);
+        done_with(st);
+        ++it;
+      } else if (jj < own) {
+        const int st = it % stages;
+        mbar_wait(&full[st], (it / stages) & 1);
+        wgmma_fence();
+        box_mma<T, 64, 1>(*reinterpret_cast<float(*)[32]>(acc + 32 * jj), a_box,
+                          ring + st * STAGE_BYTES);
+        done_with(st);
+        ++it;
+      }
+    }
+    if constexpr (CW == 1) skip(dc.nc);
+    drain();
+  }
+  fence_operands(acc);
+
+  // Q tiles the band skips: zeros over this block's columns of the slab
+  // (every 64-row tile of ds_rows outside [i_lo, i_lo + ni)).
+  if (emit) {
+    const int u = threadIdx.x - 128;
+    for (int gg = 0; gg < p.group; ++gg) {
+      const long long bh = (long long)b * p.Hq + kvh * p.group + gg;
+      for (int i = 0; i < p.ds_rows / QROWS; ++i) {
+        if (i >= i_lo && i < i_lo + ni) continue;
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const int v = u + 256 * k, ql = v >> 3, kb = (v & 7) * 8;
+          *reinterpret_cast<uint4*>(static_cast<T*>(p.ds) +
+                                    (bh * p.ds_rows + i * QROWS + ql) * p.ds_ld + kv0 + kb) =
+              make_uint4(0u, 0u, 0u, 0u);
+        }
+      }
+    }
+  }
+
+  // Epilogue: dK = scale * sum (consumer 0) or dV (consumer 1); rows past
+  // Nkv are not stored.
+  const int nc = cw == 0 ? dc.nc : vc.nc, col0 = cw == 0 ? dc.c0 : vc.c0;
+  const int ld = cw == 0 ? p.D : p.Dv;
+  const float mul = cw == 0 ? p.scale : 1.f;
+  void* out = cw == 0 ? p.dk : p.dv;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int kv = kv0 + 16 * warp + g + 8 * hh;
+    if (kv >= p.nkv) continue;
+    const long long base = ((long long)(b * p.Hkv + kvh) * p.nkv + kv) * ld + col0 + 2 * t4;
+#pragma unroll
+    for (int jj = 0; jj < PASS_BOXES; ++jj) {
+      if (jj >= nc) break;
+#pragma unroll
+      for (int j8 = 0; j8 < 8; ++j8)
+        store2<T>(out, base + 64 * jj + 8 * j8, acc[32 * jj + 4 * j8 + 2 * hh] * mul,
+                  acc[32 * jj + 4 * j8 + 2 * hh + 1] * mul, p.out_f32);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1) kernel(const __grid_constant__ Maps maps,
+                                                     const BwdParams p, const int stages) {
+  extern __shared__ unsigned char smem_raw[];
+  // Boxes on 1024 B boundaries: the 128 B swizzle's atom.
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const int nd = p.D / COLS, nv = p.Dv / COLS, passes = p.col_passes;
+  unsigned char* ring = smem + (nd + nv + 2) * BOX_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * STAGE_BYTES);
+  uint64_t* empty = full + stages;
+  uint64_t* kv_full = empty + stages;
+
+  // Block order: the passes of a KV tile side by side (they read the same
+  // Q and dO tiles), the KV tiles of a head longest first (under causal the
+  // first tiles walk the most Q tiles), then the heads.
+  const int pass = blockIdx.x % passes, kv0 = (blockIdx.x / passes) * ROWS;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const band::Cols dc = band::col_block(nd, passes, pass);
+  const band::Cols vc = band::col_block(nv, passes, pass);
+
+  // Q tiles of the band: [i_lo, i_lo + ni) of every group member.
+  const int nqt = (p.nq + QROWS - 1) / QROWS;
+  int i_lo = 0, i_hi = nqt;
+  if (p.window_right >= 0)
+    i_lo = max(0, floordiv(kv0 - p.causal_offset - p.window_right, QROWS));
+  if (p.window_left >= 0)
+    i_hi = min(nqt, floordiv(kv0 + ROWS - 1 - p.causal_offset + p.window_left, QROWS) + 1);
+  const int ni = max(0, i_hi - i_lo);
+  const int ntiles = p.group * ni;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    mbar_init(kv_full, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      prefetch_map(&maps.q_map);
+      prefetch_map(&maps.do_map);
+      prefetch_map(&maps.k_map);
+      prefetch_map(&maps.v_map);
+      const int bkv = b * p.Hkv + kvh;
+      mbar_arrive_expect_tx(kv_full, (nd + nv) * BOX_BYTES);
+      for (int j = 0; j < nd; ++j)
+        tma_load_3d(smem + j * BOX_BYTES, &maps.k_map, kv_full, j * COLS, kv0, bkv);
+      for (int j = 0; j < nv; ++j)
+        tma_load_3d(smem + (nd + j) * BOX_BYTES, &maps.v_map, kv_full, j * COLS, kv0, bkv);
+      // Per Q tile four runs of boxes: the nd Q boxes, the nv dO boxes,
+      // the pass's dO boxes, its Q boxes; a stage takes up to STAGE_BOXES
+      // boxes of one run.
+      int it = 0;
+      auto run = [&](const CUtensorMap* map, int first, int n, int q0, int bh) {
+        for (int c = 0; c < n; c += STAGE_BOXES, ++it) {
+          const int st = it % stages, nb = min(STAGE_BOXES, n - c);
+          if (it >= stages) mbar_wait(&empty[st], ((it / stages) - 1) & 1);
+          mbar_arrive_expect_tx(&full[st], nb * BOX_BYTES);
+          for (int g = 0; g < nb; ++g)
+            tma_load_3d(ring + st * STAGE_BYTES + g * BOX_BYTES, map, &full[st],
+                        (first + c + g) * COLS, q0, bh);
+        }
+      };
+      for (int t = 0; t < ntiles; ++t) {
+        const int h = kvh * p.group + t / ni, q0 = (i_lo + t % ni) * QROWS;
+        const int bh = b * p.Hq + h;
+        run(&maps.q_map, 0, nd, q0, bh);
+        run(&maps.do_map, 0, nv, q0, bh);
+        run(&maps.do_map, vc.c0 / COLS, vc.nc, q0, bh);
+        run(&maps.q_map, dc.c0 / COLS, dc.nc, q0, bh);
+      }
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    const bool emit = p.ds != nullptr && pass == 0;
+    if (threadIdx.x < 256)
+      consume<T, 0>(p, stages, smem, ntiles, ni, i_lo, kvh, b, kv0, dc, vc, emit);
+    else
+      consume<T, 1>(p, stages, smem, ntiles, ni, i_lo, kvh, b, kv0, dc, vc, emit);
+  }
+}
+
+// The host side of one launch: tensor maps, shared memory, the grid (KV
+// tiles over the slab's columns when it is written, so each of its
+// columns is).
+template <typename T>
+cudaError_t launch(const BwdParams& bp, const Plan& pl, int B, cudaStream_t stream) {
+  const bool f16 = std::is_same<T, __half>::value;
+  Maps maps;
+  memset(&maps, 0, sizeof(maps));
+  BwdParams p = bp;
+  p.col_passes = pl.passes;
+  const uint64_t mq = bp.nq > 0 ? bp.nq : 1, mkv = bp.nkv > 0 ? bp.nkv : 1;
+  cudaError_t e = encode_3d(&maps.q_map, f16, bp.q, bp.D, mq, (uint64_t)B * bp.Hq,
+                            (uint64_t)bp.D * 2, mq * bp.D * 2, COLS, QROWS);
+  if (e == cudaSuccess)
+    e = encode_3d(&maps.do_map, f16, bp.dout, bp.Dv, mq, (uint64_t)B * bp.Hq,
+                  (uint64_t)bp.Dv * 2, mq * bp.Dv * 2, COLS, QROWS);
+  if (e == cudaSuccess)
+    e = encode_3d(&maps.k_map, f16, bp.k, bp.D, mkv, (uint64_t)B * bp.Hkv, (uint64_t)bp.D * 2,
+                  mkv * bp.D * 2, COLS, ROWS);
+  if (e == cudaSuccess)
+    e = encode_3d(&maps.v_map, f16, bp.v, bp.Dv, mkv, (uint64_t)B * bp.Hkv,
+                  (uint64_t)bp.Dv * 2, mkv * bp.Dv * 2, COLS, ROWS);
+  if (e != cudaSuccess) return e;
+  const int kv_tiles = bp.ds != nullptr ? bp.ds_ld / ROWS : (bp.nkv + ROWS - 1) / ROWS;
+  const dim3 grid(kv_tiles * pl.passes, bp.Hkv, B);
+  e = cudaFuncSetAttribute(kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
+  if (e != cudaSuccess) return e;
+  if (grid.x * grid.y * grid.z == 0) return cudaSuccess;
+  kernel<T><<<grid, THREADS, pl.smem, stream>>>(maps, p, pl.stages);
+  return cudaGetLastError();
+}
+
+}  // namespace dkdv
+
 template <typename K>
 cudaError_t launch(K kern, dim3 grid, size_t smem, const BwdParams& p, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1204,6 +1693,10 @@ BwdParams make_params(const void* q, const void* k, const void* v, const void* d
 
 }  // namespace
 
+// dK / dV (and the dS slab): the route is dkdv::make_plan's, by head dims
+// alone. The wgmma route picks its own passes (col_passes is not read) and
+// takes a slab of 64-row, 64-column tiles; the mma.sync route takes
+// col_passes and a slab of 128 x 32 tiles.
 extern "C" int ffpa_bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
                              const float* lse, const float* delta, void* dk, void* dv, void* ds,
                              const float* bias, long long sb, long long sh, long long sr,
@@ -1223,17 +1716,84 @@ extern "C" int ffpa_bwd_dkdv(const void* q, const void* k, const void* v, const 
   p.ds_ld = ds_ld;
   p.col_passes = col_passes;
   p.out_f32 = out_f32;
+  if (D <= 0 || Dv <= 0 || D % CH != 0 || Dv % CH != 0 || Hkv <= 0 || Hq % Hkv != 0 ||
+      (ds != nullptr && ds_ld < nkv))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dkdv::Plan pl = dkdv::make_plan(D, Dv);
+  if (pl.route == dkdv::WGMMA) {
+    if (ds != nullptr && (ds_ld % dkdv::ROWS != 0 || ds_rows % dkdv::QROWS != 0 ||
+                          ds_rows < (nq + dkdv::QROWS - 1) / dkdv::QROWS * dkdv::QROWS))
+      return (int)cudaErrorInvalidValue;
+    return (int)(is_fp16 ? dkdv::launch<__half>(p, pl, B, st)
+                         : dkdv::launch<__nv_bfloat16>(p, pl, B, st));
+  }
   // Every pass owns at most MAXC chunks of dK and of dV; the slab's tiles
   // are QT x KVT.
-  if (D % CH != 0 || Dv % CH != 0 || col_passes < 1 ||
-      (D / CH + col_passes - 1) / col_passes > MAXC || (Dv / CH + col_passes - 1) / col_passes > MAXC ||
+  if (col_passes < 1 || (D / CH + col_passes - 1) / col_passes > MAXC ||
+      (Dv / CH + col_passes - 1) / col_passes > MAXC ||
       (ds != nullptr && (ds_ld % KVT != 0 || ds_rows % QT != 0)))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(Hkv * col_passes, B, (nkv + KVT - 1) / KVT);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int kv_tiles = ds != nullptr ? ds_ld / KVT : (nkv + KVT - 1) / KVT;
+  const dim3 grid(Hkv * col_passes, B, kv_tiles);
   if (is_fp16)
     return (int)launch(dkdv_kernel<__half>, grid, dkdv_smem_bytes<__half>(D, Dv), p, st);
   return (int)launch(dkdv_kernel<__nv_bfloat16>, grid, dkdv_smem_bytes<__nv_bfloat16>(D, Dv), p, st);
+}
+
+// The route and tiling ffpa_bwd_dkdv takes at head dims (D, Dv), multiples
+// of 64: out[0..5] are the route (1 wgmma, 0 mma.sync), the passes, a
+// block's KV rows, the streamed Q rows, the ring's stages and the dynamic
+// shared-memory bytes, then per pass (first column, width) of dK and of
+// dV; cap is out's length.
+extern "C" int ffpa_bwd_dkdv_plan(int D, int Dv, int* out, int cap) {
+  if (D <= 0 || Dv <= 0 || D % CH != 0 || Dv % CH != 0) return (int)cudaErrorInvalidValue;
+  const dkdv::Plan pl = dkdv::make_plan(D, Dv);
+  if (cap < 6 + 4 * pl.passes) return (int)cudaErrorInvalidValue;
+  const bool wg = pl.route == dkdv::WGMMA;
+  out[0] = pl.route;
+  out[1] = pl.passes;
+  out[2] = wg ? dkdv::ROWS : KVT;
+  out[3] = wg ? dkdv::QROWS : QT;
+  out[4] = pl.stages;
+  out[5] = (int)pl.smem;
+  const int nD = D / CH, nV = Dv / CH;
+  for (int ps = 0; ps < pl.passes; ++ps) {
+    int* o = out + 6 + 4 * ps;
+    if (wg) {
+      const band::Cols dc = band::col_block(nD, pl.passes, ps);
+      const band::Cols vc = band::col_block(nV, pl.passes, ps);
+      o[0] = dc.c0;
+      o[1] = dc.nc * CH;
+      o[2] = vc.c0;
+      o[3] = vc.nc * CH;
+    } else {  // dkdv_kernel's d_lo / ndo and v_lo / nvo
+      const int d_lo = ps * nD / pl.passes, v_lo = ps * nV / pl.passes;
+      o[0] = d_lo * CH;
+      o[1] = ((ps + 1) * nD / pl.passes - d_lo) * CH;
+      o[2] = v_lo * CH;
+      o[3] = ((ps + 1) * nV / pl.passes - v_lo) * CH;
+    }
+  }
+  return 0;
+}
+
+// Registers a thread (at launch, before setmaxnreg moves them between the
+// warpgroups) and local (spill) bytes a thread of a dK/dV kernel: route 1
+// the wgmma kernel, 0 dkdv_kernel, in f16 or bf16.
+extern "C" int ffpa_bwd_dkdv_attrs(int route, int is_fp16, int* regs, int* local_bytes) {
+  cudaFuncAttributes a;
+  cudaError_t e;
+  if (route == dkdv::WGMMA)
+    e = is_fp16 ? cudaFuncGetAttributes(&a, dkdv::kernel<__half>)
+                : cudaFuncGetAttributes(&a, dkdv::kernel<__nv_bfloat16>);
+  else
+    e = is_fp16 ? cudaFuncGetAttributes(&a, dkdv_kernel<__half>)
+                : cudaFuncGetAttributes(&a, dkdv_kernel<__nv_bfloat16>);
+  if (e != cudaSuccess) return (int)e;
+  *regs = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
+  return 0;
 }
 
 extern "C" int ffpa_bwd_dq(const void* q, const void* k, const void* v, const void* dout,

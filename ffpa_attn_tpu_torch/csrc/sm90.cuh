@@ -88,6 +88,15 @@ __device__ __forceinline__ void fence_barrier_init() {
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(cvta_smem(bar)) : "memory");
 }
+// One arrival where pred is set, without a branch (a predicated
+// instruction), so the warpgroup's path around wgmma stays uniform.
+__device__ __forceinline__ void mbar_arrive_if(uint64_t* bar, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(
+          cvta_smem(bar)),
+      "r"((int)pred)
+      : "memory");
+}
 // One arrival that also expects `bytes` of TMA traffic before the phase ends.
 __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(cvta_smem(bar)),
@@ -106,6 +115,17 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(addr), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// A barrier among `count` threads (whole warps) on hardware barrier `id`
+// (1..15; 0 is __syncthreads).
+__device__ __forceinline__ void named_barrier_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+// Orders this thread's earlier generic-proxy writes to shared memory before
+// later async-proxy reads of it (wgmma operands, TMA stores).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
@@ -180,6 +200,8 @@ __device__ __forceinline__ uint64_t desc_b128(const void* smem, uint32_t lbo, ui
   "+f"(d[(i) + 0]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3]), "+f"(d[(i) + 4]), \
       "+f"(d[(i) + 5]), "+f"(d[(i) + 6]), "+f"(d[(i) + 7])
 #define FFPA_ACC32(i) FFPA_ACC8(i), FFPA_ACC8((i) + 8), FFPA_ACC8((i) + 16), FFPA_ACC8((i) + 24)
+#define FFPA_REG16_0 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
 #define FFPA_REG32_0                                                                       \
   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
   "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
@@ -200,7 +222,7 @@ __device__ __forceinline__ uint64_t desc_b128(const void* smem, uint32_t lbo, ui
                "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY " {" REGS \
                "}, " TAIL ";\n}\n"                                                   \
                : __VA_ARGS__                                                         \
-               : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB))
+               : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB))
 #define FFPA_WGMMA_BOTH(N, REGS, SCALE, TAIL, ...)        \
   if constexpr (F16)                                      \
     FFPA_WGMMA(N, "f16", REGS, SCALE, TAIL, __VA_ARGS__); \
@@ -210,12 +232,19 @@ __device__ __forceinline__ uint64_t desc_b128(const void* smem, uint32_t lbo, ui
 // d (64 x N, fp32) += A (64 x 16) * B (16 x N), both from shared memory
 // through descriptors a and b; TA / TB set when A is M-major / B is
 // N-major (the transposes wgmma allows for 16-bit types). T is
-// __nv_bfloat16 or __half.
+// __nv_bfloat16 or __half. scale_d 0 gives d = A * B: an accumulation
+// starts that way rather than from zeros written by ordinary instructions,
+// which ptxas would order against the wgmma pipeline (serializing it).
 template <typename T, int N, int TA, int TB>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b) {
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b,
+                                         int scale_d = 1) {
   constexpr bool F16 = std::is_same<T, __half>::value;
-  static_assert(N == 64 || N == 128 || N == 192 || N == 256, "N is 64, 128, 192 or 256");
-  if constexpr (N == 64) {
+  static_assert(N == 32 || N == 64 || N == 128 || N == 192 || N == 256,
+                "N is 32, 64, 128, 192 or 256");
+  if constexpr (N == 32) {
+    FFPA_WGMMA_BOTH(32, FFPA_REG16_0, "18", "%16, %17, p, 1, 1, %19, %20", FFPA_ACC8(0),
+                    FFPA_ACC8(8))
+  } else if constexpr (N == 64) {
     FFPA_WGMMA_BOTH(64, FFPA_REG32_0, "34", "%32, %33, p, 1, 1, %35, %36", FFPA_ACC32(0))
   } else if constexpr (N == 128) {
     FFPA_WGMMA_BOTH(128, FFPA_REG32_0 ", " FFPA_REG32_1, "66", "%64, %65, p, 1, 1, %67, %68",
@@ -237,6 +266,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t
 #undef FFPA_REG32_2
 #undef FFPA_REG32_1
 #undef FFPA_REG32_0
+#undef FFPA_REG16_0
 #undef FFPA_ACC32
 #undef FFPA_ACC8
 

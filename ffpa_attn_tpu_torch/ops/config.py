@@ -21,8 +21,16 @@ never refused by the card.
 * Packed varlen backward (``csrc/varlen_bwd.cu``): the dense dK/dV and
   recompute dQ blocks below (the same tiles and column passes), with the
   tiles' segment ids and ranks in shared memory.
+* Dense dK/dV, D and Dv <= 512 (``csrc/flash_bwd.cu`` namespace ``dkdv``,
+  TMA + wgmma): a block of 384 threads owns 64 KV rows with K and V
+  resident in shared memory (128 KB at D512) and one column pass of at
+  most 256 columns of dK and of dV (128 fp32 registers of each consumer
+  thread), and streams 64-row Q and dO tiles in 64-column boxes through a
+  ring of two-box stages, as deep as shared memory allows. The launcher
+  picks the route and this tiling itself; ``dkdv_plan`` mirrors it. Wider
+  heads take the mma.sync block below.
 * Backward (``csrc/flash_bwd.cu``), 16 warps and the forward's chunk ring:
-  - dK/dV: a block owns a 32-row KV tile with K and V resident in shared
+  - dK/dV, D or Dv > 512: a block owns a 32-row KV tile with K and V resident in shared
     memory and streams 128-row Q tiles. Its two fp32 accumulators (dK and
     dV, 32 x 512 each at D512) share the 64 registers a thread has for
     them, so at most 512 columns of each fit one block: wider heads split
@@ -75,6 +83,18 @@ DKDV_Q_TILE = 128
 # Columns of dK (and of dV) one dK/dV block accumulates: 32 rows x 512
 # columns x 2 accumulators = 64 fp32 registers for each of 512 threads.
 DKDV_MAX_COLS = 512
+# Column padding of the dense dK/dV's dS slab: the KV rows of a wgmma
+# dK/dV block, a multiple of the mma.sync block's DKDV_KV_TILE.
+DKDV_SLAB_COLS = 64
+# Compile-time constants of the wgmma dK/dV block (flash_bwd.cu namespace
+# dkdv: ROWS, QROWS, MAX_BOXES * 64, PASS_BOXES * 64, STAGE_BOXES,
+# MAX_STAGES), not settings: dkdv_plan mirrors the launcher with them.
+_DKDV_WG_ROWS = 64
+_DKDV_WG_Q_ROWS = 64
+_DKDV_WG_MAX_D = 512
+_DKDV_WG_PASS_COLS = 256
+_DKDV_WG_STAGE_BOXES = 2
+_DKDV_WG_MAX_STAGES = 6
 # Compile-time constants of the banded dQ / dK blocks (flash_bwd.cu
 # namespace band: ROWS, KT, MAX_CHUNKS * COLS, STAGES), not settings:
 # banded_plan mirrors the launcher with them.
@@ -311,16 +331,75 @@ def banded_plan(d: int, itemsize: int = 2) -> BandedPlan:
     tile."""
     chunks = cdiv(d, D_CHUNK)
     nb = cdiv(chunks, _BANDED_MAX_COLS // D_CHUNK)
+    blocks = _even_blocks(chunks, nb)
+    widest = blocks[0][1]
+    stage = (_BANDED_ROWS + widest) * _BANDED_K_TILE * itemsize
+    smem = _BANDED_STAGES * stage + 2 * _BANDED_STAGES * 8 + 1024
+    return BandedPlan(blocks, _BANDED_ROWS, _BANDED_K_TILE, _BANDED_STAGES, smem)
+
+
+@dataclass(frozen=True)
+class DkdvPlan:
+    """The route and tiling of one dense dK/dV launch, as
+    ``csrc/flash_bwd.cu`` ``dkdv::make_plan`` computes it (the library
+    hands its own out through ``flash_bwd.dkdv_kernel_plan``; the card test
+    holds the two equal).
+
+    ``route`` is "wgmma" (D and Dv <= 512) or "mma_sync"; ``passes`` the
+    column passes, ``d_blocks`` / ``dv_blocks`` the (first column, width)
+    of dK / dV each pass owns (a width may be 0); ``kv_rows`` a block's KV
+    rows, ``q_rows`` the streamed Q rows, ``stages`` the ring's depth and
+    ``smem_bytes`` the dynamic shared memory a block asks for.
+    """
+
+    route: str
+    passes: int
+    kv_rows: int
+    q_rows: int
+    stages: int
+    smem_bytes: int
+    d_blocks: tuple
+    dv_blocks: tuple
+
+
+def _even_blocks(chunks: int, nb: int) -> tuple:
+    """``chunks`` 64-column chunks over ``nb`` blocks as evenly as
+    possible, the first blocks one chunk wider (``band::col_block``)."""
     base, extra = divmod(chunks, nb)
     blocks, c0 = [], 0
     for i in range(nb):
         width = (base + (1 if i < extra else 0)) * D_CHUNK
         blocks.append((c0, width))
         c0 += width
-    widest = blocks[0][1]
-    stage = (_BANDED_ROWS + widest) * _BANDED_K_TILE * itemsize
-    smem = _BANDED_STAGES * stage + 2 * _BANDED_STAGES * 8 + 1024
-    return BandedPlan(tuple(blocks), _BANDED_ROWS, _BANDED_K_TILE, _BANDED_STAGES, smem)
+    return tuple(blocks)
+
+
+def dkdv_plan(d: int, dv: int, itemsize: int = 2) -> DkdvPlan:
+    """The dense dK/dV route by head dims alone (padded to 64-column
+    chunks): D and Dv <= 512 take the wgmma block, with ceil(max(D, Dv) /
+    256) passes, each dK and dV split evenly over them, and as many ring
+    stages (two 64 x 64 boxes each, at most 6) as fit beside K, V and the P
+    / dS boxes; wider heads the mma.sync block (``dkdv_col_passes``, its
+    floor split, ``dkdv_smem_bytes``)."""
+    nd, nv = cdiv(d, D_CHUNK), cdiv(dv, D_CHUNK)
+    if max(nd, nv) * D_CHUNK <= _DKDV_WG_MAX_D:
+        per = _DKDV_WG_PASS_COLS // D_CHUNK
+        passes = max(cdiv(nd, per), cdiv(nv, per))
+        box = _DKDV_WG_Q_ROWS * D_CHUNK * itemsize
+        fixed = (nd + nv + 2) * box + 1024 + 8
+        stage = _DKDV_WG_STAGE_BOXES * box + 16
+        stages = min(_DKDV_WG_MAX_STAGES, (SMEM_LIMIT_BYTES - fixed) // stage)
+        return DkdvPlan("wgmma", passes, _DKDV_WG_ROWS, _DKDV_WG_Q_ROWS, stages,
+                        fixed + stages * stage, _even_blocks(nd, passes),
+                        _even_blocks(nv, passes))
+    passes = dkdv_col_passes(d, dv)
+
+    def floor_split(n):
+        return tuple((p * n // passes * D_CHUNK, ((p + 1) * n // passes - p * n // passes)
+                      * D_CHUNK) for p in range(passes))
+
+    return DkdvPlan("mma_sync", passes, DKDV_KV_TILE, DKDV_Q_TILE, FWD_STREAM_STAGES,
+                    dkdv_smem_bytes(d, dv, itemsize), floor_split(nd), floor_split(nv))
 
 
 def dq_fits(block_q: int, d: int, dv: int, itemsize: int = 2) -> bool:
@@ -369,6 +448,9 @@ __all__ = [
     "DKDV_KV_TILE",
     "DKDV_Q_TILE",
     "DKDV_MAX_COLS",
+    "DKDV_SLAB_COLS",
+    "DkdvPlan",
+    "dkdv_plan",
     "dkdv_col_passes",
     "dkdv_smem_bytes",
     "dq_smem_bytes",

@@ -27,11 +27,15 @@ Bound on an H100: operations. At the training shape (B1 Hq8 N8192 D512
 causal) the dK/dV pass does 4 matmul units of 2 * Hq * N(N+1)/2 * D flop,
 1.1e12 in all (1.1 ms at 989 TFLOP/s), and writes a 1 GiB dS slab (0.32 ms
 at 3.35 TB/s); banded dQ does one unit (0.28 ms). Design against that bound
-(``csrc/flash_bwd.cu``): dK/dV, dQ and from-S take the forward's mma.sync
-tiles and chunk ring; whole tiles outside the causal / window band are
+(``csrc/flash_bwd.cu``): whole tiles outside the causal / window band are
 never loaded; a dK/dV block loops over the GQA group and the Q tiles itself
-(one store of the group-reduced dK/dV, no atomics); dV shares its stream of
-dO with dP. Banded dQ and banded dK are plain GEMMs over a causal k-range
+(one store of the group-reduced dK/dV, no atomics). For D and Dv <= 512
+the dK/dV block runs on TMA and wgmma (``config.dkdv_plan``): 64 KV rows
+with K and V resident, a producer warpgroup streaming 64-row Q and dO
+boxes, two consumer warpgroups each computing half of S^T and dP^T and
+then one of dK and dV, at most 256 columns a pass. Wider heads take the
+mma.sync dK/dV block; dQ and from-S take the forward's mma.sync tiles and
+chunk ring. Banded dQ and banded dK are plain GEMMs over a causal k-range
 and run on Hopper's TMA and wgmma (``csrc/sm90.cuh``): a producer
 warpgroup keeps a 4-stage ring of TMA tiles full, two consumer warpgroups
 run wgmma.m64n256k16 on 128 rows x at most 256 columns a block
@@ -60,14 +64,16 @@ from ..logger import init_logger
 from . import _build
 from .config import (
     D_CHUNK,
-    DKDV_KV_TILE,
     DKDV_Q_TILE,
+    DKDV_SLAB_COLS,
     KV_TILE,
     BandedPlan,
     BlockConfig,
+    DkdvPlan,
     banded_plan,
     cdiv,
     dkdv_col_passes,
+    dkdv_plan,
     from_s_fits,
     from_s_kv_tile,
 )
@@ -230,6 +236,8 @@ _ARGTYPES = {
     "ffpa_bwd_banded_dk": [_P] * 3 + [_I] * 10 + [_F] + [_I] + [_P],
     "ffpa_bwd_banded_attrs": [_I] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2,
     "ffpa_bwd_banded_plan": [_I, ctypes.POINTER(ctypes.c_int), _I],
+    "ffpa_bwd_dkdv_attrs": [_I] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2,
+    "ffpa_bwd_dkdv_plan": [_I, _I, ctypes.POINTER(ctypes.c_int), _I],
 }
 
 
@@ -302,12 +310,15 @@ def _dkdv_launch(
     score gradient with softcap's factor, zeros outside the band and on
     padding. ``causal_offset`` is the launch's local offset;
     ``row_offset`` / ``col_offset`` map its rows / columns to the global
-    ids the dropout hash takes. ``seed`` is the dropout seed."""
+    ids the dropout hash takes. ``seed`` is the dropout seed. The kernel's
+    route (wgmma for D, Dv <= 512, else mma.sync) is the launcher's own,
+    by head dims alone (``config.dkdv_plan``); the slab's padding
+    (DKDV_Q_TILE rows, DKDV_SLAB_COLS columns) suits both."""
     b, hq, nq, d = q.shape
     _, hkv, nkv, _ = k.shape
     dv_dim = v.shape[-1]
     nq_pad = cdiv(nq, DKDV_Q_TILE) * DKDV_Q_TILE
-    nkv_pad = cdiv(nkv, DKDV_KV_TILE) * DKDV_KV_TILE
+    nkv_pad = cdiv(nkv, DKDV_SLAB_COLS) * DKDV_SLAB_COLS
     dk_dtype = _grad_dtype(grad_kv_storage_dtype, k.dtype)
     dv_dtype = _grad_dtype(grad_kv_storage_dtype, v.dtype)
     window_left = int(window[0])
@@ -324,6 +335,7 @@ def _dkdv_launch(
 
     ops = _kernel_operands(q, k, v, do, bias, alibi, lse, delta)
     d_pad, dv_pad = ops.q.shape[-1], ops.v.shape[-1]
+    # The mma.sync route's column passes; the wgmma route picks its own.
     passes = max(config.dkdv_col_passes, dkdv_col_passes(d_pad, dv_pad))
     out_f32, wt = _out_dtype(dk_dtype, q.dtype)
     dk = torch.empty((b, hkv, nkv, d_pad), dtype=wt, device=q.device)
@@ -331,8 +343,9 @@ def _dkdv_launch(
     ds_full = (torch.empty((b, hq, nq_pad, nkv_pad), dtype=q.dtype, device=q.device)
                if emit_ds else None)
     if ENV.device_log_level() >= 2:
-        logger.info("dkdv launch grid=(%d,%d,%d) D=%d Dv=%d emit_ds=%s", hkv * passes, b,
-                    cdiv(nkv, DKDV_KV_TILE), d_pad, dv_pad, emit_ds)
+        plan = dkdv_plan(d_pad, dv_pad)
+        logger.info("dkdv launch route=%s passes=%d kv_rows=%d D=%d Dv=%d emit_ds=%s",
+                    plan.route, plan.passes, plan.kv_rows, d_pad, dv_pad, emit_ds)
     lib = _bwd_lib()
     with torch.cuda.device(q.device):
         err = lib.ffpa_bwd_dkdv(
@@ -410,6 +423,33 @@ def _dq_launch(
 
 
 _dq_launch.launches = 0
+
+
+def dkdv_kernel_attrs(route: str, dtype=torch.bfloat16) -> dict:
+    """Registers a thread (at launch, before setmaxnreg) and local (spill)
+    bytes of the dK/dV kernel of ``route`` ("wgmma" or "mma_sync"), from
+    cudaFuncGetAttributes. Needs a card."""
+    lib = _bwd_lib()
+    regs, local = ctypes.c_int(0), ctypes.c_int(0)
+    err = lib.ffpa_bwd_dkdv_attrs(int(route == "wgmma"), int(dtype == torch.float16),
+                                  ctypes.byref(regs), ctypes.byref(local))
+    _build.check(lib, err, "dkdv kernel attributes")
+    return {"registers": regs.value, "local_bytes": local.value}
+
+
+def dkdv_kernel_plan(d: int, dv: int) -> DkdvPlan:
+    """The route and tiling the dK/dV launcher takes at head dims (d, dv)
+    (padded to 64-column chunks), read from the library: what
+    ``config.dkdv_plan`` mirrors. Needs a card."""
+    lib = _bwd_lib()
+    out = (ctypes.c_int * 64)()
+    err = lib.ffpa_bwd_dkdv_plan(cdiv(d, D_CHUNK) * D_CHUNK, cdiv(dv, D_CHUNK) * D_CHUNK, out,
+                                 len(out))
+    _build.check(lib, err, "dkdv kernel plan")
+    passes = out[1]
+    blocks = [tuple(out[6 + 4 * i:10 + 4 * i]) for i in range(passes)]
+    return DkdvPlan("wgmma" if out[0] == 1 else "mma_sync", passes, out[2], out[3], out[4],
+                    out[5], tuple(bl[:2] for bl in blocks), tuple(bl[2:] for bl in blocks))
 
 
 def banded_kernel_attrs(dk: bool, dtype=torch.bfloat16) -> dict:
@@ -761,7 +801,7 @@ def flash_attention_backward(
 
     itemsize = q.element_size()
     limit = ENV.ds_handoff_limit_bytes()
-    bq_h, bkv_h = DKDV_Q_TILE, DKDV_KV_TILE
+    bq_h, bkv_h = DKDV_Q_TILE, DKDV_SLAB_COLS
     ds_bytes = b * hq * cdiv(nq, bq_h) * bq_h * cdiv(nkv, bkv_h) * bkv_h * itemsize
     if ds_handoff is None:
         # The largest live slab (one stripe, <= limit) must fit the call's

@@ -17,7 +17,9 @@ wrappers passed, ``LegacyBanded``):
 * decode: B1 H8/4 Nkv 4224 D512 with the validity bias, four caches in turn
   so K/V are not L2-resident;
 * dkdv (with the dS slab) and banded_dq: B1 H8/4 N8192 D512 causal bf16
-  (the training step's dS-handoff backward);
+  (the training step's dS-handoff backward); head and base take the same
+  slab padding (the head wrapper's), and at D512 the head library runs
+  its wgmma route, a base built from older sources the mma.sync kernel;
 * dq: the same shape with a 4096-token left window (the windowed model's
   recompute backward);
 * from_s (the from-S dK/dV pass with dK out of the kernel, on a fresh copy
@@ -34,11 +36,12 @@ wrappers passed, ``LegacyBanded``):
 
 A kernel whose source the base tree lacks is timed on the head alone. Each
 time is the kernels' device time per call from torch.profiler (for from_s
-the from-S kernel's alone, without the copy of S). banded_dq and banded_dk
-are also held against their plain versions on the slab each tree's own
-dK/dV (or from-S) kernel wrote, per row at the bf16 gradient tolerance
-5e-2 (a row's floor at 1e-3 of the tensor's max); a miss exits 1. Prints
-one JSON line.
+the from-S kernel's alone, without the copy of S). dkdv (dK, dV and the
+slab) is held against its plain version, banded_dq and banded_dk against
+theirs on the slab each tree's own dK/dV (or from-S) kernel wrote, per row
+at the bf16 gradient tolerance 5e-2 (a row's floor at 1e-3 of the
+tensor's max); a miss exits 1. max|diff| head vs base is given per output
+(dkdv: dK, dV, slab). Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -183,10 +186,10 @@ def make_runs(gen) -> tuple:
 
     def run_dkdv():
         lse, delta = state[(-1, -1)]
-        ds = flash_bwd._dkdv_launch(tq, tk, tv, None, tdo, lse, delta, 0, cfg,
-                                    grad_kv_storage_dtype=None, emit_ds=True, **kw)[2]
-        state["ds"] = ds
-        return ds
+        out = flash_bwd._dkdv_launch(tq, tk, tv, None, tdo, lse, delta, 0, cfg,
+                                     grad_kv_storage_dtype=None, emit_ds=True, **kw)
+        state["ds"] = out[2]
+        return out
 
     def run_banded():
         if "ds" not in state:
@@ -275,7 +278,15 @@ def make_runs(gen) -> tuple:
         "varlen_dkdv": lambda: varlen._varlen_dkdv_kernel(ops, meta, sched[0], bcfg, **bkw)[0],
         "varlen_dq": lambda: varlen._varlen_dq_kernel(ops, meta, sched[1], bcfg, **bkw),
     }
+    def dkdv_plain():
+        lse, delta = state[(-1, -1)]
+        return flash_bwd._dkdv_plain(tq, tk, tv, None, tdo, lse, delta, scale=scale, emit_ds=True,
+                                     nq_pad=nt, nkv_pad=nt, is_causal=True, causal_offset=0,
+                                     dropout_p=0.0, seed=0, softcap=0.0, window=(-1, -1),
+                                     alibi=None)
+
     plains = {
+        "dkdv": dkdv_plain,
         "banded_dq": lambda: flash_bwd._banded_dq_plain(state["ds"], tk, scale=scale, nq=nt,
                                                         nkv=nt),
         "banded_dk": lambda: flash_bwd._banded_dk_plain(state["s_ds"], tq, scale=scale, nq=nt,
@@ -323,13 +334,17 @@ def main() -> int:
             else:
                 times[tag][k].append(device_ms(runs[k], reps=reps))
             reset()
-            outs[(tag, k)] = runs[k]().float()
+            res = runs[k]()
+            outs[(tag, k)] = tuple(t.float() for t in (res if isinstance(res, tuple) else (res,)))
             if k in plains:
-                vs_plain[tag][k].append(row_rel(outs[(tag, k)], plains[k]()))
+                want = plains[k]()
+                want = want if isinstance(want, tuple) else (want,)
+                vs_plain[tag][k].append(max(row_rel(g, w) for g, w in zip(outs[(tag, k)], want)))
+                del want
             reset()
     torch.cuda.synchronize()
     diff = {
-        k: float((outs[("head", k)] - outs[("base", k)]).abs().max())
+        k: [float((h - b_).abs().max()) for h, b_ in zip(outs[("head", k)], outs[("base", k)])]
         for k in kernels if ("base", k) in outs and ("head", k) in outs
     }
     smi = subprocess.run(
