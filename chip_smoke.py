@@ -9,7 +9,8 @@ It imports only ``ffpa_attn_tpu_torch``, torch and numpy, and runs, in order:
    ``ffpa_attn_tpu_torch/csrc`` (one nvcc per source, all started together);
 3. kernel vs plain: each kernel against its plain PyTorch version on the
    card, at the serving and training shapes and at feature cases, with
-   stated tolerances: the forward (and its S residual), decode (and its
+   stated tolerances: the forward on both of its routes (wgmma at D, Dv
+   <= 512, mma.sync above) and its S residual, decode (and its
    score residual), dkdv, dq, banded dQ, the from-S dK/dV pass in both
    variants and banded dK (a slab NaN outside the band among them), the
    packed varlen forward, the varlen dK/dV and dQ kernels (bf16 and fp16
@@ -46,8 +47,11 @@ It imports only ``ffpa_attn_tpu_torch``, torch and numpy, and runs, in order:
    one PyTorch library call computing the same function, or for the from-S
    pass the yardstick of its two dense products (device time per call from
    torch.profiler, CUDA-event time beside it); the forward's time a launch
-   at the training shape from the handoff step's profile; the dK/dV
-   route's plan held equal to its mirror, its registers and spill bytes;
+   at the training shape from the handoff step's profile, and timed alone
+   there without and with the S residual beside its bound and SDPA; the
+   forward's and the dK/dV route's plans held equal to their mirrors,
+   their registers and spill bytes, and ptxas's log free of wgmma
+   serialization notes for the forward;
    banded dQ, banded dK and dK/dV also at the op-level shape (H32 MHA)
    with their TFLOP/s;
 7. the ``kernels`` line.
@@ -184,15 +188,16 @@ def _randn(shape, dtype, gen, scale=1.0):
     return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
 
 
-def _fwd_case(name, *, b=1, hq=8, hkv=4, nq, nkv, d=512, dtype=torch.bfloat16,
+def _fwd_case(name, *, b=1, hq=8, hkv=4, nq, nkv, d=512, dv=None, dtype=torch.bfloat16,
               causal=True, bias=False, softcap=0.0, window=(-1, -1), alibi=False, dropout=0.0,
               seed=0):
     from ffpa_attn_tpu_torch.ops import flash_fwd
 
+    dv = d if dv is None else dv
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q = _randn((b, hq, nq, d), dtype, gen)
     k = _randn((b, hkv, nkv, d), dtype, gen)
-    v = _randn((b, hkv, nkv, d), dtype, gen)
+    v = _randn((b, hkv, nkv, dv), dtype, gen)
     kw = dict(scale=1.0 / math.sqrt(d), is_causal=causal, softcap=softcap, window=window,
               dropout_p=dropout, dropout_seed=seed)
     bias_t = _randn((b, 1, nq, nkv), torch.float32, gen) if bias else None
@@ -204,7 +209,8 @@ def _fwd_case(name, *, b=1, hq=8, hkv=4, nq, nkv, d=512, dtype=torch.bfloat16,
     tol = F16_TOL if dtype == torch.float16 else BF16_TOL
     err, lerr = row_rel(o, po), rel(lse, plse)
     ok = err < tol and lerr < LSE_TOL and bool(torch.isfinite(o).all())
-    log(f"  fwd {name:<22} row_rel_err {err:.2e} (tol {tol:g}) rel_err {rel(o, po):.2e} "
+    log(f"  fwd {name:<22} {flash_fwd.fwd_kernel_plan(d, dv).route:<8} row_rel_err {err:.2e} (tol {tol:g}) "
+        f"rel_err {rel(o, po):.2e} "
         f"lse_rel_err {lerr:.2e} (tol {LSE_TOL:g}) max_abs_err {max_abs(o, po):.3e} "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
@@ -621,6 +627,17 @@ def phase_kernels_vs_plain() -> dict:
     _fwd_case("fp16", nq=2048, nkv=2048, dtype=torch.float16, seed=8)
     _fwd_case("batch2_bias_alibi", b=2, nq=1024, nkv=1100, bias=True, alibi=True, seed=9)
     _fwd_case("dropout", nq=1024, nkv=1024, dropout=0.1, seed=10)
+    _fwd_case("d448", nq=1024, nkv=1024, d=448, seed=14)  # O split 256 + 192, odd K stage
+    _fwd_case("d384", nq=1024, nkv=1024, d=384, seed=15)
+    _fwd_case("gqa_group1", hq=8, hkv=8, nq=1024, nkv=1024, seed=16)
+    _fwd_case("nq40_nkv1100", nq=40, nkv=1100, seed=17)  # a part-filled tile, ragged KV edge
+    # D != Dv: K and V stream different box counts; at Dv 64 consumer 1 owns no O columns.
+    _fwd_case("d512_dv128", nq=1024, nkv=1100, d=512, dv=128, seed=18)
+    _fwd_case("d128_dv512", nq=1024, nkv=1100, d=128, dv=512, seed=19)
+    _fwd_case("d512_dv64", nq=1024, nkv=1100, d=512, dv=64, seed=20)
+    _fwd_case("d512_dv64_fp16_bias", nq=1000, nkv=1100, d=512, dv=64, dtype=torch.float16,
+              bias=True, seed=21)
+    _fwd_case(f"train_N{TRAIN_N}", nq=TRAIN_N, nkv=TRAIN_N, seed=22)  # the training shape
     errs["decode"] = _decode_case("slice_Nkv4224_g2")
     _decode_case("group1", group=1, seed=1)
     _decode_case("group4", group=4, seed=2)
@@ -656,6 +673,9 @@ def phase_kernels_vs_plain() -> dict:
     _fwd_scores_case("nq20_rows_pad32", nq=20, nkv=300, seed=5)
     _fwd_scores_case("d320", nq=1024, nkv=1024, d=320, seed=6)
     _fwd_scores_case("d1024", nq=1024, nkv=1024, d=1024, seed=7)
+    _fwd_scores_case("nq24_rows_pad32", nq=24, nkv=1100, seed=8)  # a 32-row slab, 64-row tile
+    _fwd_scores_case("alibi_bias_nkv1100", nq=1000, nkv=1100, alibi=True, bias=True, seed=9)
+    _fwd_scores_case(f"train_N{TRAIN_N}", nq=TRAIN_N, nkv=TRAIN_N, seed=10)
     _from_s_case("gqa_N1024", nq=1024, nkv=1024)
     _from_s_case("bias_full_noncausal", nq=1024, nkv=1024, causal=False, bias="full", seed=1)
     _from_s_case("dropout", nq=1024, nkv=1024, dropout=0.1, seed=2)
@@ -1860,6 +1880,16 @@ def training_times(training: dict, windowed: dict, resident: dict) -> tuple:
                                                                 **fkw), 5)
     log(f"  flash_fwd at N{n} (one training layer): {fwd_ms[0]:.4f} ms [{fwd_ms[1]:.4f}] without "
         f"the S residual, {fwd_s_ms[0]:.4f} ms [{fwd_s_ms[1]:.4f}] with it")
+
+    def fwd_library():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+
+    fwd_lib = _timed(fwd_library, 3, warmup=1)
+    log(f"  library for flash_fwd at N{n}: scaled_dot_product_attention "
+        f"({_sdpa_backend(fwd_library)} backend, causal, GQA) {fwd_lib[0]:.4f} ms "
+        f"[{fwd_lib[1]:.4f}]; bound {fb_ms:.4f} ms")
+    fwd_train = dict(training_ms=fwd_ms[0], training_ms_with_scores=fwd_s_ms[0],
+                     training_bound_ms=fb_ms, training_library_ms=fwd_lib[0])
     o, lse, s = flash_fwd.flash_attention_forward(q, k, v, None, return_scores=True, **fkw)
     delta = (do.float() * o.float()).sum(-1)
     skw = dict(scale=scale, is_causal=True, causal_offset=0, dropout_p=0.0)
@@ -1935,7 +1965,52 @@ def training_times(training: dict, windowed: dict, resident: dict) -> tuple:
     torch.cuda.empty_cache()
     banded_op_level_times()
     dkdv_op_level_times()
-    return rows, events
+    return rows, events, fwd_train
+
+
+def fwd_kernel_row_extras(d: int) -> dict:
+    """The forward's route at head dim ``d`` and its kernel's registers and
+    spill bytes, for the ``kernels`` line; fails unless the launcher's plan
+    equals its mirror (``ops/config.py`` ``fwd_plan``) at D, Dv 64..1024,
+    the wgmma kernel spills nothing and ptxas kept its wgmma pipeline (no
+    C7515 / C7520 note in the build's log)."""
+    from ffpa_attn_tpu_torch.ops import _build, flash_fwd
+    from ffpa_attn_tpu_torch.ops.config import fwd_plan
+
+    pairs = [(x, x) for x in range(64, 1025, 64)] + [(512, 128), (128, 512), (448, 64),
+                                                     (512, 1024), (1024, 320), (400, 400)]
+    for hd, hdv in pairs:
+        if flash_fwd.fwd_kernel_plan(hd, hdv) != fwd_plan(hd, hdv):
+            fail(f"forward launcher's plan at D{hd}/Dv{hdv} {flash_fwd.fwd_kernel_plan(hd, hdv)} "
+                 f"differs from ops/config.py fwd_plan {fwd_plan(hd, hdv)}")
+    log(f"  flash_fwd plan at D{d}: {flash_fwd.fwd_kernel_plan(d, d)} (the launcher's, equal to "
+        f"ops/config.py fwd_plan at {len(pairs)} head-dim pairs)")
+    for route, bq in (("wgmma", 64), ("mma_sync", 64), ("mma_sync", 32)):
+        for dt in (torch.bfloat16, torch.float16):
+            a = flash_fwd.fwd_kernel_attrs(route, dt, bq)
+            log(f"  flash_fwd {route} rows {bq} {str(dt)[6:]}: {a['registers']} registers a "
+                f"thread at launch, {a['local_bytes']} local (spill) bytes")
+            if route == "wgmma" and a["local_bytes"] != 0:
+                fail(f"the wgmma forward kernel ({dt}) spills {a['local_bytes']} bytes")
+    for name in ("flash_fwd", "flash_bwd"):
+        build_log = _build.build_log(name)
+        if "ptxas info" not in build_log:
+            # Without ptxas's report the count below would read nothing.
+            log(f"  no ptxas report beside the {name} library ({len(build_log)} bytes of log)")
+            if name == "flash_fwd":
+                fail("the forward's ptxas report is missing: the wgmma serialization gate "
+                     "cannot read it")
+            continue
+        notes = [ln for ln in build_log.splitlines() if "C7515" in ln or "C7520" in ln]
+        log(f"  ptxas wgmma serialization notes (C7515 / C7520) in {name}.cu: {len(notes)} "
+            f"(of {build_log.count('ptxas info')} ptxas info lines)")
+        for ln in notes[:4]:
+            log(f"    {ln[:200]}")
+        if name == "flash_fwd" and notes:
+            fail("ptxas serialized the wgmma forward kernel")
+    route = flash_fwd.fwd_kernel_plan(d, d).route
+    a = flash_fwd.fwd_kernel_attrs(route)
+    return {"fwd_route": route, "registers": a["registers"], "spill_bytes": a["local_bytes"]}
 
 
 def dkdv_kernel_row_extras(d: int) -> dict:
@@ -2370,8 +2445,9 @@ def phase_times(errs: dict, main_path: dict, training: dict, windowed: dict,
         name="flash_fwd", route="cuda", source="ffpa_attn_tpu_torch/csrc/flash_fwd.cu",
         replaces="ffpa_attn_tpu/ops/flash_fwd.py:77", launches=launches["flash_fwd"],
         max_abs_err=errs["flash_fwd"], ms=kms[0], plain_ms=pms[0], bound_ms=bms,
-        bound_by=bby, library_ms=lms[0],
+        bound_by=bby, library_ms=lms[0], ms_with_scores=sms[0],
     ))
+    rows[-1].update(fwd_kernel_row_extras(d))
     events = {"flash_fwd": (kms[1], pms[1], lms[1])}
 
     # Decode at the serving step: Nkv = max_len, GQA group 2, validity bias.
@@ -2424,7 +2500,8 @@ def phase_times(errs: dict, main_path: dict, training: dict, windowed: dict,
     ))
     events["decode"] = (kms[1], pms[1], lms[1])
     serve_rows, serve_events = serving_times(errs, serving, main_path["model"])
-    train_rows, train_events = training_times(training, windowed, resident)
+    train_rows, train_events, fwd_train = training_times(training, windowed, resident)
+    rows[0].update(fwd_train)  # the flash_fwd row: the training shape beside the prefill
     packed_rows, packed_events = packed_training_times(packed)
     rows += train_rows + serve_rows + packed_rows
     for ev in (train_events, serve_events, packed_events):

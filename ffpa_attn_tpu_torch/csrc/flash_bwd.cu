@@ -1199,7 +1199,6 @@ using namespace ffpa::sm90;
 constexpr int ROWS = 64;                     // KV rows of a block
 constexpr int QROWS = 64;                    // Q rows of a streamed tile
 constexpr int COLS = 64;                     // columns of a box (128 B of 16-bit)
-constexpr int BOX_BYTES = QROWS * COLS * 2;  // 8 KB
 constexpr int MAX_BOXES = 8;                 // D, Dv <= 512 on this route
 constexpr int PASS_BOXES = 4;                // dK / dV columns of a pass: 256
 constexpr int STAGE_BOXES = 2;               // boxes a stage (one barrier handshake)
@@ -1251,26 +1250,6 @@ struct Maps {
   CUtensorMap q_map, do_map;  // (D | Dv, nq, B * Hq); box 64 x 64
   CUtensorMap k_map, v_map;   // (D | Dv, nkv, B * Hkv); box 64 x 64
 };
-
-// Byte offset of element (r, c) of a 64 x 64 16-bit box in the 128 B
-// swizzle (the box on a 1024 B boundary): TMA's layout and wgmma's B128.
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  return r * 128 + ((((c >> 3) ^ (r & 7)) << 4) | ((c & 7) << 1));
-}
-
-// One box's product of a consumer warpgroup: 4 wgmma k16 steps, 64 rows.
-// A (64 rows, K-major) from a, B from b: K-major (TB 0: a k16 step is 32
-// B along the row) or N-major (TB 1: 16 rows of 128 B, lbo between boxes).
-// With fresh set, the first step overwrites acc (scale-d 0).
-template <typename T, int N, int TB, int R>
-__device__ __forceinline__ void box_mma(float (&acc)[R], const unsigned char* a,
-                                        const unsigned char* b, bool fresh = false) {
-  constexpr uint32_t b_step = TB ? 2048 : 32, lbo = TB ? BOX_BYTES : 16;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    wgmma_ss<T, N, 0, TB>(acc, desc_b128(a + kk * 32, 16, 1024),
-                          desc_b128(b + kk * b_step, lbo, 1024), kk > 0 || !fresh);
-}
 
 // Consumer CW (0: dK, 1: dV) of a block; CW is a template argument so
 // that no branch around a wgmma depends on the thread (ptxas serializes

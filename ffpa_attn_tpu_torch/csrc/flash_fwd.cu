@@ -1,19 +1,41 @@
-// Forward attention kernel for Hopper (sm_90a): the counterpart of the
+// Forward attention kernels for Hopper (sm_90a): the counterpart of the
 // Pallas _fwd_kernel (ffpa_attn_tpu/ops/flash_fwd.py). ops/flash_fwd.py calls
 // the C entry point ffpa_flash_fwd through ctypes.
 //
-// Grid (Hq, B, ceil(Nq / BQ)): one block of 16 warps per BQ query rows of one
-// query head; K/V are read from head h / group (GQA). BQ is 64 for head dims
-// up to 512 and 32 up to 1024. Blocks are dispatched x-fastest, so every
-// head's longest causal tiles (the last query rows) go out first and the
-// short ones fill the tail.
+// Two routes, chosen by head dims alone (fwd::make_plan, handed out by
+// ffpa_flash_fwd_plan and mirrored by ops/config.py fwd_plan): D and Dv up
+// to 512 take the TMA + mbarrier + wgmma block of namespace fwd (details
+// beside it); wider heads take the mma.sync block fwd_kernel below. Both
+// compute the same function:
 //
-// The TPU kernel keeps a BQ x Dv fp32 accumulator in VMEM. At Dv 512..1024
-// no single warp can hold its rows' accumulator, so the O tile is split
-// over the block's 16 warps by rows and columns: warp w owns 16 rows
-// (rt = w / WC) and, in every 64-wide column chunk of Dv, CW = 64 / WC
-// columns (wc = w % WC), 64 fp32 registers per thread in all. Products are
-// mma.sync m16n8k16 (bf16 or f16 in, fp32 accumulate) fed by ldmatrix:
+// Queries are tail-aligned (causal_offset = Nkv - Nq); tail-aligned causal
+// and sliding-window tiles outside the band are never loaded; the bias is
+// read with strides of 0 on its broadcast dims. A window masks to
+// MASK_VALUE, columns past the block's KV range are -inf; a row whose max
+// is -inf keeps alpha = 1 and p = 0, and a row with l = 0 gives O = 0.
+// lse = m + log(max(l, 1e-38)) in fp32. Dropout drops P after the row sum
+// l (which keeps every element) from the hash of rng.cuh on global (row,
+// col) ids, the bits the backward kernels replay.
+//
+// S residual (return_scores, the S-resident backward's input): each visited
+// tile's post-scale / softcap / ALiBi / bias / mask scores go straight from
+// the softmax's registers to the bf16 slab [B, Hq, s_rows, s_ld], masked and
+// padding entries as MASK_VALUE (never +-inf: the backward's softcap factor
+// 1 - (s/cap)^2 reads them). Tiles the band skips are never written; the
+// from-S kernel re-masks the band and never reads them. Storing it changes
+// no arithmetic of (o, lse).
+//
+// The mma.sync block (D or Dv > 512): grid (Hq, B, ceil(Nq / BQ)), one block
+// of 16 warps per BQ query rows of one query head; K/V are read from head
+// h / group (GQA). BQ is 64 for Dv up to 512 and 32 up to 1024. Blocks are
+// dispatched x-fastest, so every head's longest causal tiles (the last
+// query rows) go out first and the short ones fill the tail. The TPU kernel
+// keeps a BQ x Dv fp32 accumulator in VMEM. At Dv 512..1024 no single warp
+// can hold its rows' accumulator, so the O tile is split over the block's
+// 16 warps by rows and columns: warp w owns 16 rows (rt = w / WC) and, in
+// every 64-wide column chunk of Dv, CW = 64 / WC columns (wc = w % WC), 64
+// fp32 registers per thread in all. Products are mma.sync m16n8k16 (bf16 or
+// f16 in, fp32 accumulate) fed by ldmatrix:
 //   * Q stays resident in shared memory for the whole KV walk;
 //   * K and V stream through a ring of shared-memory slots in 64 x 64
 //     chunks with cp.async, NST - 1 chunks ahead of the math: per KV tile
@@ -21,19 +43,16 @@
 //   * S = Q K^T (each warp a 16 x CW piece) goes through shared memory so
 //     that the online softmax sees whole rows; P goes back the same way and
 //     every warp multiplies it into its own O columns.
-// Tail-aligned causal and sliding-window tiles outside the band are never
-// loaded; the bias is read with strides of 0 on its broadcast dims. Dropout
-// drops P after the row sum l (which keeps every element) from the hash of
-// rng.cuh, the bits the backward kernels replay.
 //
-// S residual (return_scores, the S-resident backward's input): each visited
-// tile's post-scale / softcap / ALiBi / bias / mask scores go straight from
-// the softmax's registers to the bf16 slab [B, Hq, s_rows, s_ld], masked and
-// padding entries as MASK_VALUE (never +-inf: the backward's softcap factor
-// 1 - (s/cap)^2 reads them). Tiles the band skips are never written; the
-// from-S kernel re-masks the band and never reads them.
+// Bound on an H100: operations (2 units of 2 * pairs * D flop, 989 TFLOP/s
+// dense bf16 / f16; utils/profiling.py).
+#include <string.h>
+
+#include <type_traits>
+
 #include "common.cuh"
 #include "rng.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -65,6 +84,26 @@ struct FwdParams {
   __nv_bfloat16* s_out;  // S residual [B, Hq, s_rows, s_ld], or null
   int s_rows, s_ld;
 };
+
+// The score of element (row, col) from its product acc = q.k, on both
+// routes: scale, softcap, ALiBi, bias, then the window's masks; padding rows
+// (row >= Nq) give 0 (computed, never stored) and columns at or past kv_hi
+// (the block's KV range) -inf. The softcap's division is the fast one: the
+// IEEE division's slow-path call costs a wgmma consumer its registers.
+__device__ __forceinline__ float score(const FwdParams& p, float acc, int b, int head, int row,
+                                       int col, int kv_hi, float slope) {
+  if (row >= p.nq) return 0.f;
+  if (col >= kv_hi) return -INFINITY;
+  float s = acc * p.scale;
+  if (p.softcap > 0.f) s = p.softcap * tanhf(__fdividef(s, p.softcap));
+  if (p.alibi != nullptr) s -= slope * fabsf((float)(row + p.causal_offset - col));
+  if (p.bias != nullptr)
+    s += p.bias[(long long)b * p.sb + (long long)head * p.sh + (long long)row * p.sr +
+                (long long)col * p.sc];
+  if (p.window_right >= 0 && col > row + p.causal_offset + p.window_right) s = MASK_VALUE;
+  if (p.window_left >= 0 && col < row + p.causal_offset - p.window_left) s = MASK_VALUE;
+  return s;
+}
 
 // Dynamic shared memory of one block; ops/config.py fwd_smem_bytes is the
 // same formula (the S residual adds none).
@@ -221,23 +260,7 @@ __global__ void __launch_bounds__(NTHR, 1) fwd_kernel(const FwdParams p) {
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           const int cc = lane + 32 * j, col = kv0 + cc;
-          float s;
-          if (!valid) {
-            s = 0.f;  // padding row: computed, never stored
-          } else if (col >= kv_hi) {
-            s = -INFINITY;  // past this block's KV range
-          } else {
-            s = S[r * LDS + cc] * p.scale;
-            if (p.softcap > 0.f) s = p.softcap * tanhf(s / p.softcap);
-            if (p.alibi != nullptr) s -= slope * fabsf((float)(row + p.causal_offset - col));
-            if (p.bias != nullptr)
-              s += p.bias[(long long)b * p.sb + (long long)head * p.sh + (long long)row * p.sr +
-                          (long long)col * p.sc];
-            if (p.window_right >= 0 && col > row + p.causal_offset + p.window_right)
-              s = MASK_VALUE;
-            if (p.window_left >= 0 && col < row + p.causal_offset - p.window_left)
-              s = MASK_VALUE;
-          }
+          const float s = score(p, S[r * LDS + cc], b, head, row, col, kv_hi, slope);
           sv[i][j] = s;
           if (p.s_out != nullptr)
             p.s_out[((long long)(b * p.Hq + head) * p.s_rows + row) * p.s_ld + col] =
@@ -362,6 +385,476 @@ cudaError_t launch(const FwdParams& p, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// D, Dv <= 512: TMA + mbarrier + wgmma
+// ---------------------------------------------------------------------------
+
+// The Hopper route of ffpa_flash_fwd (the reference's SM90 split-D forward
+// block, FFPAAttnFwdSm90SplitD). The mma.sync block above is bound by its
+// block barriers and shared-memory round trips: every 64 x 64 chunk waits at
+// two __syncthreads, S goes out to shared memory for a softmax on 512
+// threads and P comes back the same way. Here a block of 384 threads owns
+// 64 Q rows of one query head, with the same grid and block order:
+//  - warpgroup 0 is the producer (setmaxnreg 24): one thread loads Q once
+//    by TMA into D / 64 resident 64 x 64 boxes (128 B swizzle), then per KV
+//    tile of the band streams the D / 64 K boxes and the Dv / 64 V boxes
+//    through a ring of two-box stages (one mbarrier handshake per two
+//    boxes); tensor maps at the true extents zero-fill rows past Nq and Nkv;
+//  - warpgroups 1 and 2 are the consumers (setmaxnreg 240). The fp32 O
+//    tile (64 x 512 at Dv 512) does not fit one warpgroup, so O is split by
+//    columns: consumer c owns the Dv boxes of its half (128 registers a
+//    thread at Dv 512) for the whole walk, and a V stage holds one box of
+//    each half;
+//  - per KV tile, consumer c computes S for KV columns 32c..32c+31 (wgmma
+//    m64n32k16 over D, Q and the K box both K-major), so both do the same
+//    tensor work. The scores stay in the accumulator's layout: a row lives
+//    in the 4 threads of a quad (two shuffles a reduction); the two halves
+//    of a row meet through a shared buffer of row maxima (a named barrier).
+//    Each consumer writes its half of P into the shared P box (swizzled,
+//    K-major); after a second named barrier, O[:, own columns] += P V
+//    (m64n64k16 a box, V N-major with the transpose bit). The row sum l
+//    stays per thread and is combined in the epilogue;
+//  - a tile with no bias, ALiBi, softcap or dropout, inside the band and
+//    the Nkv edge on every element, skips the per-element feature code.
+// The two named barriers a tile also order the reuse of the P box and the
+// exchange buffer. ptxas keeps the wgmma pipeline (no C7515 / C7520 note)
+// because products start with scale-d 0, roles are template arguments,
+// stage releases are predicated arrivals and every ordinary write of O (the
+// zeros, the rescale) is fenced off from the products around it. A block
+// reads its band's K and V from L2 once per 64 Q rows: 64 flop a byte.
+namespace fwd {
+
+using namespace ffpa::sm90;
+
+// 2^x by the special-function unit's approximation, without the range
+// handling of exp2f: the softmax's exponents are <= 0, and results below
+// 2^-126 flush to 0, where the row sum cannot see them.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr int ROWS = 64;                     // Q rows of a block
+constexpr int COLS = 64;                     // columns of a box (128 B of 16-bit)
+static_assert(ROWS * COLS * 2 == BOX_BYTES && KV_TILE == 64, "Q, K and V boxes are 64 x 64");
+constexpr int MAX_BOXES = 8;                 // D, Dv <= 512 on this route
+constexpr int O_BOXES = MAX_BOXES / 2;       // Dv boxes of one consumer: 64 x 256 fp32
+constexpr int STAGE_BOXES = 2;               // boxes a stage (one barrier handshake)
+constexpr int STAGE_BYTES = STAGE_BOXES * BOX_BYTES;
+constexpr int STAGES = 8;                    // ring depth: a D512 tile's K and V
+constexpr int THREADS = 384;                 // producer warpgroup + 2 consumer warpgroups
+constexpr int CONSUMER_WARPS = 8;            // arrivals that free a stage
+constexpr int XCH_BYTES = 2 * ROWS * 4;      // row maxima, then row sums, of both consumers
+constexpr int SMEM_LIMIT = 232448;
+constexpr int WGMMA = 1, MMA_SYNC = 0;       // routes
+
+// Shared memory of this block: Q, the P box, the 1024 B alignment, Q's
+// barrier and the exchange, then the stages and their two barriers each.
+constexpr size_t smem_bytes(int nd) {
+  return (size_t)(nd + 1) * BOX_BYTES + 1024 + sizeof(uint64_t) + XCH_BYTES +
+         (size_t)STAGES * (STAGE_BYTES + 2 * sizeof(uint64_t));
+}
+static_assert(smem_bytes(MAX_BOXES) <= SMEM_LIMIT, "D512's block fits the card");
+
+// The route and tiling of a launch at head dims (D, Dv), multiples of 64:
+// D, Dv <= 512 take this block, consumer 0 owning the first ceil(nv / 2)
+// Dv boxes and consumer 1 the rest; wider heads take fwd_kernel, whose
+// row tile is the largest the registers hold (block_q * Dv <= 64 * 512).
+// ffpa_flash_fwd_plan hands it out; ops/config.py fwd_plan mirrors it and
+// the card test holds the two equal.
+struct Plan {
+  int route, rows, stages, nd, nv, nv0;
+  size_t smem;
+};
+inline Plan make_plan(int D, int Dv) {
+  Plan pl;
+  pl.nd = D / COLS;
+  pl.nv = Dv / COLS;
+  pl.nv0 = (pl.nv + 1) / 2;
+  if (pl.nd <= MAX_BOXES && pl.nv <= MAX_BOXES) {
+    pl.route = WGMMA;
+    pl.rows = ROWS;
+    pl.stages = STAGES;
+    pl.smem = smem_bytes(pl.nd);
+  } else {
+    pl.route = MMA_SYNC;
+    pl.rows = 64 * Dv <= 32 * 1024 ? 64 : 32;
+    pl.stages = NST;
+    pl.smem = fwd_smem_bytes<__nv_bfloat16>(pl.rows, D);
+  }
+  return pl;
+}
+
+// The kernel's tensor maps, a __grid_constant__ parameter of their own (TMA
+// reads them by address); the scalars stay an ordinary parameter, read
+// from the constant bank.
+struct Maps {
+  CUtensorMap q_map;  // (D, nq, B * Hq); box 64 x 64
+  CUtensorMap k_map;  // (D, nkv, B * Hkv); box 64 x 64
+  CUtensorMap v_map;  // (Dv, nkv, B * Hkv); box 64 x 64
+};
+
+// Shared memory of a block, from a 1024 B boundary: the Q boxes, the P box,
+// the ring's stages, their full / empty barriers, Q's barrier and the
+// exchange buffer.
+struct Smem {
+  unsigned char* q;
+  unsigned char* p;
+  unsigned char* ring;
+  uint64_t* full;
+  uint64_t* empty;
+  uint64_t* q_full;
+  float* xch;  // [2][ROWS]: row maxima of consumers 0 and 1, then their row sums
+};
+__device__ __forceinline__ Smem carve(unsigned char* base, int nd) {
+  Smem sm;
+  sm.q = base;
+  sm.p = base + nd * BOX_BYTES;
+  sm.ring = sm.p + BOX_BYTES;
+  sm.full = reinterpret_cast<uint64_t*>(sm.ring + STAGES * STAGE_BYTES);
+  sm.empty = sm.full + STAGES;
+  sm.q_full = sm.empty + STAGES;
+  sm.xch = reinterpret_cast<float*>(sm.q_full + 1);
+  return sm;
+}
+
+// A block's rows and the KV tiles of its band, [kv_lo, kv_hi) in ntiles
+// tiles: the same in every thread.
+struct Block {
+  int b, head, kvh, row0, kv_lo, kv_hi, ntiles;
+};
+__device__ __forceinline__ Block block_of(const FwdParams& p) {
+  Block k;
+  k.head = blockIdx.x;
+  k.b = blockIdx.y;
+  k.kvh = k.head / p.group;
+  k.row0 = (gridDim.z - 1 - blockIdx.z) * ROWS;  // the longest causal rows start first
+  const int row_last = min(k.row0 + ROWS, p.nq) - 1;
+  k.kv_lo = 0;
+  k.kv_hi = p.nkv;
+  if (p.window_right >= 0)
+    k.kv_hi = min(p.nkv, row_last + p.causal_offset + p.window_right + 1);
+  if (p.window_left >= 0) k.kv_lo = max(0, k.row0 + p.causal_offset - p.window_left);
+  k.kv_lo = (k.kv_lo / KV_TILE) * KV_TILE;
+  k.ntiles = k.kv_hi > k.kv_lo ? (k.kv_hi - k.kv_lo + KV_TILE - 1) / KV_TILE : 0;
+  return k;
+}
+
+// The producer's thread: Q once, then per KV tile the K stages (two boxes
+// each, an odd last box alone) and the V stages (box j of consumer 0's
+// half beside box j of consumer 1's, alone where that half is shorter).
+__device__ __forceinline__ void produce(const Maps& maps, const FwdParams& p, const Smem& sm,
+                                        const Block& k, int nd, int nv, int nv0) {
+  prefetch_map(&maps.q_map);
+  prefetch_map(&maps.k_map);
+  prefetch_map(&maps.v_map);
+  const int bq = k.b * p.Hq + k.head, bkv = k.b * p.Hkv + k.kvh;
+  mbar_arrive_expect_tx(sm.q_full, nd * BOX_BYTES);
+  for (int j = 0; j < nd; ++j)
+    tma_load_3d(sm.q + j * BOX_BYTES, &maps.q_map, sm.q_full, j * COLS, k.row0, bq);
+  int it = 0;
+  // Stage it % STAGES, free again, expecting nb boxes.
+  auto claim = [&](int nb) -> unsigned char* {
+    const int st = it % STAGES;
+    if (it >= STAGES) mbar_wait(&sm.empty[st], ((it / STAGES) - 1) & 1);
+    mbar_arrive_expect_tx(&sm.full[st], nb * BOX_BYTES);
+    return sm.ring + st * STAGE_BYTES;
+  };
+  for (int t = 0; t < k.ntiles; ++t) {
+    const int kv0 = k.kv_lo + t * KV_TILE;
+    for (int c = 0; c < nd; c += STAGE_BOXES, ++it) {
+      const int nb = min(STAGE_BOXES, nd - c);
+      unsigned char* dst = claim(nb);
+      for (int g = 0; g < nb; ++g)
+        tma_load_3d(dst + g * BOX_BYTES, &maps.k_map, &sm.full[it % STAGES], (c + g) * COLS,
+                    kv0, bkv);
+    }
+    for (int j = 0; j < nv0; ++j, ++it) {
+      const bool both = nv0 + j < nv;
+      unsigned char* dst = claim(both ? 2 : 1);
+      tma_load_3d(dst, &maps.v_map, &sm.full[it % STAGES], j * COLS, kv0, bkv);
+      if (both)
+        tma_load_3d(dst + BOX_BYTES, &maps.v_map, &sm.full[it % STAGES], (nv0 + j) * COLS, kv0,
+                    bkv);
+    }
+  }
+}
+
+// Consumer C of a block; C is a template argument so that no branch around
+// a wgmma depends on the thread (ptxas serializes wgmma on a path it cannot
+// prove uniform). Accumulator element 4 j + 2 hh + e of thread (warp, g =
+// lane / 4, t4 = lane % 4) is row 16 warp + g + 8 hh and, in its 8-column
+// block j, column 8 j + 2 t4 + e.
+template <typename T, int C>
+__device__ __forceinline__ void consume(const FwdParams& p, const Smem& sm, const Block& k,
+                                        int nd, int nv, int nv0) {
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int own = C == 0 ? nv0 : nv - nv0;  // Dv boxes of this consumer
+  const int r0 = 16 * warp + g;             // this thread's rows: r0, r0 + 8
+  constexpr float LOG2E = 1.4426950408889634f;
+  const long long bh = (long long)k.b * p.Hq + k.head;
+  const bool plain =
+      p.bias == nullptr && p.alibi == nullptr && p.softcap <= 0.f && p.dropout_p <= 0.f;
+  const float slope = p.alibi != nullptr ? p.alibi[bh] : 0.f;
+
+  // Every ordinary write of an accumulator is fenced off from the wgmma
+  // that follows, or ptxas serializes the pipeline.
+  float o[O_BOXES * 32];
+#pragma unroll
+  for (int i = 0; i < O_BOXES * 32; ++i) o[i] = 0.f;
+  fence_operands(o);
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  // it: the stream's stage index; held: a stage whose products may still
+  // run. done_with frees the stage before once this one's products are
+  // issued and the older ones completed (one group stays in flight).
+  int it = 0, held = -1;
+  auto release = [&](int st, bool pred) { mbar_arrive_if(&sm.empty[st], pred && lane == 0); };
+  auto done_with = [&](int st) {
+    wgmma_commit();
+    wgmma_wait<1>();
+    release(held >= 0 ? held : 0, held >= 0);
+    held = st;
+  };
+  auto drain = [&]() {
+    wgmma_wait<0>();
+    release(held >= 0 ? held : 0, held >= 0);
+    held = -1;
+  };
+  auto wait_full = [&](int st) { mbar_wait(&sm.full[st], (it / STAGES) & 1); };
+
+  mbar_wait(sm.q_full, 0);
+  for (int t = 0; t < k.ntiles; ++t) {
+    const int kc = k.kv_lo + t * KV_TILE + 32 * C;  // this consumer's first KV column
+
+    // S for this consumer's 32 KV columns: rows 32 C.. of each K box.
+    float s[16];
+    int c = 0;
+    for (; c + 2 <= nd; c += 2, ++it) {
+      const int st = it % STAGES;
+      const unsigned char* kb = sm.ring + st * STAGE_BYTES + C * 4096;
+      wait_full(st);
+      wgmma_fence();
+      box_mma<T, 32, 0>(s, sm.q + c * BOX_BYTES, kb, c == 0);
+      box_mma<T, 32, 0>(s, sm.q + (c + 1) * BOX_BYTES, kb + BOX_BYTES);
+      done_with(st);
+    }
+    if (c < nd) {
+      const int st = it % STAGES;
+      wait_full(st);
+      wgmma_fence();
+      box_mma<T, 32, 0>(s, sm.q + c * BOX_BYTES, sm.ring + st * STAGE_BYTES + C * 4096, c == 0);
+      done_with(st);
+      ++it;
+    }
+    drain();  // also completes this consumer's P V products of the tile before
+    fence_operands(s);
+    fence_operands(o);  // no rescale of O moves above the wait
+
+    // Scores: the interior fast path, or score() element by element.
+    const bool interior =
+        plain && kc + 31 < k.kv_hi &&
+        (p.window_right < 0 || kc + 31 <= k.row0 + p.causal_offset + p.window_right) &&
+        (p.window_left < 0 || kc >= k.row0 + ROWS - 1 + p.causal_offset - p.window_left);
+    float sv[16];
+    if (interior) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) sv[i] = s[i] * p.scale;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        // One element at a time (the empty asm orders each score after the
+        // one before): the feature code's registers are needed once, not
+        // 16 times beside the 128 of O.
+        asm volatile("" : "+f"(s[i]));
+        sv[i] = score(p, s[i], k.b, k.head, k.row0 + r0 + 8 * ((i >> 1) & 1),
+                      kc + 8 * (i >> 2) + 2 * t4 + (i & 1), k.kv_hi, slope);
+        asm volatile("" : "+f"(sv[i]));
+      }
+    }
+    if (p.s_out != nullptr) {
+      // The block's first slab row, then offsets within a head's slab.
+      __nv_bfloat16* s_blk = p.s_out + (bh * p.s_rows + k.row0) * p.s_ld;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = k.row0 + r0 + 8 * hh;
+        if (row >= p.s_rows) continue;
+        __nv_bfloat16* dst = s_blk + ((r0 + 8 * hh) * p.s_ld + kc + 2 * t4);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float a = sv[4 * j + 2 * hh], z = sv[4 * j + 2 * hh + 1];
+          if (row >= p.nq || a == -INFINITY) a = MASK_VALUE;
+          if (row >= p.nq || z == -INFINITY) z = MASK_VALUE;
+          *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) = __floats2bfloat162_rn(a, z);
+        }
+      }
+    }
+
+    // Row maxima: over this thread's 8 columns, its quad, then the other
+    // consumer's half through the exchange buffer.
+    float mx[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        mx[hh] = fmaxf(mx[hh], fmaxf(sv[4 * j + 2 * hh], sv[4 * j + 2 * hh + 1]));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+      if (t4 == 0) sm.xch[C * ROWS + r0 + 8 * hh] = mx[hh];
+    }
+    // Both consumers' maxima are in, and both have completed the tile
+    // before's products: the P box is free.
+    named_barrier_sync(1, 2 * 128);
+    float alpha[2], mn[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mn[hh] = fmaxf(m[hh], fmaxf(mx[hh], sm.xch[(1 - C) * ROWS + r0 + 8 * hh]));
+      alpha[hh] = mn[hh] == -INFINITY ? 1.f : ex2((m[hh] - mn[hh]) * LOG2E);
+      m[hh] = mn[hh];
+    }
+
+    // P = exp(s - m), the row sums before dropout, P dropped into the box.
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float pv[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          pv[e] = mn[hh] == -INFINITY ? 0.f : ex2((sv[4 * j + 2 * hh + e] - mn[hh]) * LOG2E);
+          rs[hh] += pv[e];
+          if (!interior && p.dropout_p > 0.f) {
+            const int row = k.row0 + r0 + 8 * hh, col = kc + 8 * j + 2 * t4 + e;
+            if (dropout_uniform(p.seed, k.b, k.head, row, col) < p.dropout_p) pv[e] = 0.f;
+            pv[e] *= p.dropout_inv;
+          }
+        }
+        *reinterpret_cast<uint32_t*>(sm.p + swz(r0 + 8 * hh, 32 * C + 8 * j + 2 * t4)) =
+            pack2<T>(pv[0], pv[1]);
+      }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) l[hh] = alpha[hh] * l[hh] + rs[hh];
+#pragma unroll
+    for (int i = 0; i < O_BOXES * 32; ++i) o[i] *= alpha[(i >> 1) & 1];
+    fence_operands(o);
+    fence_proxy_async();
+    named_barrier_sync(1, 2 * 128);  // both halves of P are in the box
+
+    // O[:, own boxes] += P V: V stage j holds this consumer's box j at
+    // C * BOX_BYTES; a consumer with fewer boxes frees the stage unread.
+#pragma unroll
+    for (int j = 0; j < O_BOXES; ++j) {
+      if (j < nv0) {
+        const int st = it % STAGES;
+        wait_full(st);
+        if (j < own) {
+          wgmma_fence();
+          box_mma<T, 64, 1>(*reinterpret_cast<float(*)[32]>(o + 32 * j), sm.p,
+                            sm.ring + st * STAGE_BYTES + C * BOX_BYTES);
+          done_with(st);
+        } else {
+          release(st, true);
+        }
+        ++it;
+      }
+    }
+  }
+  drain();
+  fence_operands(o);
+
+  // Epilogue: l over the quad and both consumers (in the maxima's slots,
+  // read by the other consumer before the last tile's second barrier); O /
+  // l on rows below Nq; lse = m + log(max(l, 1e-38)); rows with l == 0
+  // give O = 0.
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+    if (t4 == 0) sm.xch[C * ROWS + r0 + 8 * hh] = l[hh];
+  }
+  named_barrier_sync(1, 2 * 128);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = r0 + 8 * hh, row = k.row0 + r;
+    if (row >= p.nq) continue;
+    const float lt = l[hh] + sm.xch[(1 - C) * ROWS + r];  // the same sum in both
+    const float inv = lt == 0.f ? 1.f : __fdividef(1.f, lt);
+    T* dst = static_cast<T*>(p.o) + (bh * p.nq + row) * p.Dv + (C == 0 ? 0 : nv0 * COLS) + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < O_BOXES; ++j) {
+      if (j >= own) break;
+#pragma unroll
+      for (int j8 = 0; j8 < 8; ++j8)
+        *reinterpret_cast<uint32_t*>(dst + COLS * j + 8 * j8) =
+            pack2<T>(o[32 * j + 4 * j8 + 2 * hh] * inv, o[32 * j + 4 * j8 + 2 * hh + 1] * inv);
+    }
+    if (C == 0 && t4 == 0) p.lse[bh * p.nq + row] = m[hh] + logf(fmaxf(lt, 1e-38f));
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1) wgmma_fwd_kernel(const __grid_constant__ Maps maps,
+                                                               const FwdParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  // Boxes on 1024 B boundaries: the 128 B swizzle's atom.
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const int nd = p.D / COLS, nv = p.Dv / COLS, nv0 = (nv + 1) / 2;
+  const Smem sm = carve(base, nd);
+  const Block k = block_of(p);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], CONSUMER_WARPS);
+    }
+    mbar_init(sm.q_full, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) produce(maps, p, sm, k, nd, nv, nv0);
+  } else {
+    setmaxnreg_inc<240>();
+    if (threadIdx.x < 256)
+      consume<T, 0>(p, sm, k, nd, nv, nv0);
+    else
+      consume<T, 1>(p, sm, k, nd, nv, nv0);
+  }
+}
+
+// The host side of one launch: tensor maps, shared memory, the grid.
+template <typename T>
+cudaError_t launch(const FwdParams& p, const Plan& pl, int B, cudaStream_t stream) {
+  const dim3 grid(p.Hq, B, (p.nq + ROWS - 1) / ROWS);
+  if (grid.x * grid.y * grid.z == 0) return cudaSuccess;
+  const bool f16 = std::is_same<T, __half>::value;
+  Maps maps;
+  memset(&maps, 0, sizeof(maps));
+  const uint64_t mkv = p.nkv > 0 ? p.nkv : 1;
+  cudaError_t e = encode_3d(&maps.q_map, f16, p.q, p.D, p.nq, (uint64_t)B * p.Hq,
+                            (uint64_t)p.D * 2, (uint64_t)p.nq * p.D * 2, COLS, ROWS);
+  if (e == cudaSuccess)
+    e = encode_3d(&maps.k_map, f16, p.k, p.D, mkv, (uint64_t)B * p.Hkv, (uint64_t)p.D * 2,
+                  mkv * p.D * 2, COLS, KV_TILE);
+  if (e == cudaSuccess)
+    e = encode_3d(&maps.v_map, f16, p.v, p.Dv, mkv, (uint64_t)B * p.Hkv, (uint64_t)p.Dv * 2,
+                  mkv * p.Dv * 2, COLS, KV_TILE);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(wgmma_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)pl.smem);
+  if (e != cudaSuccess) return e;
+  wgmma_fwd_kernel<T><<<grid, THREADS, pl.smem, stream>>>(maps, p);
+  return cudaGetLastError();
+}
+
+}  // namespace fwd
+
 }  // namespace
 
 extern "C" int ffpa_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
@@ -410,9 +903,65 @@ extern "C" int ffpa_flash_fwd(const void* q, const void* k, const void* v, void*
                             s_ld < ((nkv + KV_TILE - 1) / KV_TILE) * KV_TILE)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const fwd::Plan pl = fwd::make_plan(D, Dv);
+  if (pl.route == fwd::WGMMA)  // picks its own 64-row tile; block_q is only checked
+    return (int)(is_fp16 ? fwd::launch<__half>(p, pl, B, st)
+                         : fwd::launch<__nv_bfloat16>(p, pl, B, st));
   if (is_fp16) {
     return (int)(block_q == 64 ? launch<__half, 64>(p, B, st) : launch<__half, 32>(p, B, st));
   }
   return (int)(block_q == 64 ? launch<__nv_bfloat16, 64>(p, B, st)
                              : launch<__nv_bfloat16, 32>(p, B, st));
+}
+
+// The route and tiling ffpa_flash_fwd takes at head dims (D, Dv), multiples
+// of 64: out[0..4] are the route (1 wgmma, 0 mma.sync), the Q rows of a
+// block (for mma.sync the largest row tile the registers hold), the KV
+// rows of a tile, the ring's stages and the dynamic shared-memory bytes;
+// out[5] the number of O column blocks (the consumers' halves, or the
+// whole block's), then (first column, width) of each; cap is out's length.
+extern "C" int ffpa_flash_fwd_plan(int D, int Dv, int* out, int cap) {
+  if (D <= 0 || Dv <= 0 || D % CH != 0 || Dv % CH != 0 || cap < 10)
+    return (int)cudaErrorInvalidValue;
+  const fwd::Plan pl = fwd::make_plan(D, Dv);
+  out[0] = pl.route;
+  out[1] = pl.rows;
+  out[2] = KV_TILE;
+  out[3] = pl.stages;
+  out[4] = (int)pl.smem;
+  if (pl.route == fwd::WGMMA) {
+    out[5] = 2;
+    out[6] = 0;
+    out[7] = pl.nv0 * CH;
+    out[8] = pl.nv0 * CH;
+    out[9] = (pl.nv - pl.nv0) * CH;
+  } else {
+    out[5] = 1;
+    out[6] = 0;
+    out[7] = Dv;
+  }
+  return 0;
+}
+
+// Registers a thread (at launch, before setmaxnreg moves them between the
+// warpgroups) and local (spill) bytes a thread of a forward kernel: route 1
+// the wgmma kernel, 0 fwd_kernel at row tile block_q (64 or 32), in f16 or
+// bf16.
+extern "C" int ffpa_flash_fwd_attrs(int route, int is_fp16, int block_q, int* regs,
+                                    int* local_bytes) {
+  cudaFuncAttributes a;
+  cudaError_t e;
+  if (route == fwd::WGMMA)
+    e = is_fp16 ? cudaFuncGetAttributes(&a, fwd::wgmma_fwd_kernel<__half>)
+                : cudaFuncGetAttributes(&a, fwd::wgmma_fwd_kernel<__nv_bfloat16>);
+  else if (block_q == 64)
+    e = is_fp16 ? cudaFuncGetAttributes(&a, fwd_kernel<__half, 64>)
+                : cudaFuncGetAttributes(&a, fwd_kernel<__nv_bfloat16, 64>);
+  else
+    e = is_fp16 ? cudaFuncGetAttributes(&a, fwd_kernel<__half, 32>)
+                : cudaFuncGetAttributes(&a, fwd_kernel<__nv_bfloat16, 32>);
+  if (e != cudaSuccess) return (int)e;
+  *regs = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
+  return 0;
 }

@@ -270,5 +270,32 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t
 #undef FFPA_ACC32
 #undef FFPA_ACC8
 
+// A 64 x 64 box of 16-bit elements (128 B rows): the unit TMA loads and a
+// wgmma k16 step reads, 8 KB on a 1024 B boundary.
+constexpr int BOX_BYTES = 64 * 64 * 2;
+
+// Byte offset of element (r, c) of a box in the 128 B swizzle: TMA's
+// layout and wgmma's B128.
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return r * 128 + ((((c >> 3) ^ (r & 7)) << 4) | ((c & 7) << 1));
+}
+
+// One box's product of a warpgroup: 4 wgmma k16 steps, 64 rows. A (64
+// rows, K-major) from a, B from b: K-major (TB 0: a k16 step is 32 B along
+// the row) or N-major (TB 1: 16 rows of 128 B, lbo between boxes). A step
+// adds its offset to the start-address field (16 B units) of the box's
+// descriptor, which shared memory's 18-bit addresses never carry out of.
+// With fresh set, the first step overwrites acc (scale-d 0).
+template <typename T, int N, int TB, int R>
+__device__ __forceinline__ void box_mma(float (&acc)[R], const unsigned char* a,
+                                        const unsigned char* b, bool fresh = false) {
+  constexpr uint32_t b_step = TB ? 2048 : 32, lbo = TB ? BOX_BYTES : 16;
+  const uint64_t da = desc_b128(a, 16, 1024), db = desc_b128(b, lbo, 1024);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss<T, N, 0, TB>(acc, da + kk * (32 >> 4), db + kk * (b_step >> 4),
+                          kk > 0 || !fresh);
+}
+
 }  // namespace sm90
 }  // namespace ffpa

@@ -25,6 +25,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
+# ptxas's report (registers, spills, and the C7515 / C7520 notes when it
+# serializes wgmma) is kept beside each library as <library>.log.
+PTXAS_FLAGS = ("-Xptxas", "-v")
 SOURCES = ("flash_fwd", "decode", "flash_bwd", "varlen_fwd", "varlen_bwd", "paged_decode")
 
 _LIBS: dict = {}
@@ -46,12 +49,12 @@ def _lib_path(name: str) -> Path:
     for path in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
         h.update(path.name.encode())
         h.update(path.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + PTXAS_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def _compile_cmd(name: str, out: Path) -> list:
-    return [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(out),
+    return [_nvcc(), *NVCC_FLAGS, *PTXAS_FLAGS, "-I", str(CSRC_DIR), "-o", str(out),
             str(CSRC_DIR / f"{name}.cu")]
 
 
@@ -82,9 +85,17 @@ def build(names=SOURCES) -> dict:
             errors.append(f"nvcc failed on {name}.cu (rc {proc.returncode}):\n{log}")
             continue
         os.replace(tmp, out)
+        out.with_suffix(".log").write_text(log)
     if errors:
         raise RuntimeError("\n".join(errors))
     return times
+
+
+def build_log(name: str) -> str:
+    """nvcc's and ptxas's output from building ``csrc/<name>.cu`` (empty
+    when the library was not built by ``build``)."""
+    log = _lib_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -107,4 +118,4 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
-__all__ = ["build", "load", "check", "BUILD_DIR", "CSRC_DIR", "SOURCES"]
+__all__ = ["build", "build_log", "load", "check", "BUILD_DIR", "CSRC_DIR", "SOURCES"]

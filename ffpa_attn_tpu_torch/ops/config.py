@@ -8,10 +8,20 @@ what the kernels' launchers ask for (the same formulas as in
 ``csrc/flash_fwd.cu`` and ``csrc/decode.cu``), so a config picked here is
 never refused by the card.
 
-* Forward (``csrc/flash_fwd.cu``): Q stays resident in shared memory, K and V
-  stream through a ring of 64 x 64 chunks, and the fp32 O tile lives in
-  the registers of the block's 16 warps, 64 per thread: block_q * Dv
-  <= 64 * 512. Row tiles 64 (Dv <= 512) and 32 (Dv <= 1024).
+* Forward (``csrc/flash_fwd.cu``), two routes by head dims alone
+  (``fwd_plan`` mirrors the launcher's ``fwd::make_plan``):
+  - D and Dv <= 512 (namespace ``fwd``, TMA + wgmma): a block of 384
+    threads owns 64 Q rows with Q resident in 64 x 64 boxes (64 KB at
+    D512); a producer warpgroup streams each KV tile's K and V boxes
+    through a ring of 8 two-box stages; two consumer warpgroups each
+    compute S for half of the tile's 64 KV columns and own half of the
+    fp32 O tile's columns (128 registers a thread at Dv 512). The
+    launcher picks this tiling itself; the config's row tile is only
+    checked, and still sets the S residual's row padding.
+  - Wider heads (mma.sync): Q stays resident in shared memory, K and V
+    stream through a ring of 64 x 64 chunks, and the fp32 O tile lives
+    in the registers of the block's 16 warps, 64 per thread: block_q * Dv
+    <= 64 * 512. Row tiles 64 (Dv <= 512) and 32 (Dv <= 1024).
 * Decode (``csrc/decode.cu``): the fp32 O tile of the PackGQA rows lives in
   shared memory; Q/K and V chunks stream through two slots.
 * Packed varlen forward (``csrc/varlen_fwd.cu``): the forward's block, with
@@ -95,6 +105,14 @@ _DKDV_WG_MAX_D = 512
 _DKDV_WG_PASS_COLS = 256
 _DKDV_WG_STAGE_BOXES = 2
 _DKDV_WG_MAX_STAGES = 6
+# Compile-time constants of the wgmma forward block (flash_fwd.cu namespace
+# fwd: ROWS, MAX_BOXES * 64, STAGE_BOXES, STAGES, XCH_BYTES), not
+# settings: fwd_plan mirrors the launcher with them.
+_FWD_WG_ROWS = 64
+_FWD_WG_MAX_D = 512
+_FWD_WG_STAGE_BOXES = 2
+_FWD_WG_STAGES = 8
+_FWD_WG_XCH_BYTES = 2 * 64 * 4
 # Compile-time constants of the banded dQ / dK blocks (flash_bwd.cu
 # namespace band: ROWS, KT, MAX_CHUNKS * COLS, STAGES), not settings:
 # banded_plan mirrors the launcher with them.
@@ -127,6 +145,10 @@ class BlockConfig:
     streams ``KV_TILE``-row K/V tiles. ``dkdv_dk_in_kernel`` picks the
     from-S dK/dV variant: dK accumulated beside dV, or dK left to the
     banded dK kernel (causal) or one product (otherwise) over the dS slab.
+
+    For a forward with D and Dv <= 512 the wgmma launcher picks its own
+    64-row tile (``fwd_plan``); there ``block_q`` sets only the row padding
+    of the S residual's slab (``flash_fwd.scores_padding``).
     """
 
     block_q: int = 64
@@ -180,6 +202,51 @@ def fwd_fits(cfg: BlockConfig, d: int, dv: int, itemsize: int = 2) -> bool:
         and cfg.block_q * _round_up(dv, D_CHUNK) <= FWD_ACC_ELEMS
         and fwd_smem_bytes(cfg, d, dv, itemsize) <= SMEM_LIMIT_BYTES
     )
+
+
+@dataclass(frozen=True)
+class FwdPlan:
+    """The route and tiling of one forward launch, as ``csrc/flash_fwd.cu``
+    ``fwd::make_plan`` computes it (the library hands its own out through
+    ``flash_fwd.fwd_kernel_plan``; the card test holds the two equal).
+
+    ``route`` is "wgmma" (D and Dv <= 512) or "mma_sync"; ``q_rows`` a
+    block's Q rows (for mma.sync the largest row tile its registers hold),
+    ``kv_rows`` a KV tile's rows, ``stages`` the ring's depth,
+    ``smem_bytes`` the dynamic shared memory a block asks for (at
+    ``q_rows`` for mma.sync) and ``o_blocks`` the (first column, width) of
+    O that each owner accumulates: the two consumer warpgroups (wgmma) or
+    the whole block (mma.sync).
+    """
+
+    route: str
+    q_rows: int
+    kv_rows: int
+    stages: int
+    smem_bytes: int
+    o_blocks: tuple
+
+
+def fwd_plan(d: int, dv: int) -> FwdPlan:
+    """The forward route by head dims alone (padded to 64-column chunks;
+    16-bit inputs): D and Dv <= 512 take the wgmma block, consumer 0 owning
+    the first ceil(nv / 2) of Dv's nv boxes and consumer 1 the rest, with a
+    ring of 8 stages (two 64 x 64 boxes each) beside Q, the P box and the
+    row exchange; wider heads the mma.sync block (``fwd_smem_bytes`` at its
+    largest row tile)."""
+    nd, nv = cdiv(d, D_CHUNK), cdiv(dv, D_CHUNK)
+    if max(nd, nv) * D_CHUNK <= _FWD_WG_MAX_D:
+        box = _FWD_WG_ROWS * D_CHUNK * 2
+        smem = ((nd + 1) * box + 1024 + 8 + _FWD_WG_XCH_BYTES
+                + _FWD_WG_STAGES * (_FWD_WG_STAGE_BOXES * box + 16))
+        nv0 = cdiv(nv, 2)
+        return FwdPlan("wgmma", _FWD_WG_ROWS, KV_TILE, _FWD_WG_STAGES, smem,
+                       ((0, nv0 * D_CHUNK), (nv0 * D_CHUNK, (nv - nv0) * D_CHUNK)))
+    rows = FWD_ROW_TILES[0] if FWD_ROW_TILES[0] * nv * D_CHUNK <= FWD_ACC_ELEMS else \
+        FWD_ROW_TILES[1]
+    return FwdPlan("mma_sync", rows, KV_TILE, FWD_STREAM_STAGES,
+                   fwd_smem_bytes(BlockConfig(block_q=rows), nd * D_CHUNK, nv * D_CHUNK),
+                   ((0, nv * D_CHUNK),))
 
 
 def decode_smem_bytes(cfg: BlockConfig, dv: int, itemsize: int = 2) -> int:
@@ -439,6 +506,8 @@ __all__ = [
     "cdiv",
     "fwd_smem_bytes",
     "fwd_fits",
+    "FwdPlan",
+    "fwd_plan",
     "decode_smem_bytes",
     "varlen_smem_bytes",
     "varlen_fits",

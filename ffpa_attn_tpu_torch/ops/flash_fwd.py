@@ -9,14 +9,29 @@ halved for causal; at the serving prefill (B1 Hq8 N4096 D512 causal) that is
 1.37e11 flop per layer, 0.14 ms at 989 TFLOP/s, while its bytes (q, k, v, o
 once each, ~100 MB) take 0.03 ms at 3.35 TB/s.
 
-Design against that bound (``csrc/flash_fwd.cu``): mma.sync tensor-core
-products (bf16/f16 in, fp32 accumulate) fed by ldmatrix; the 64 x 512 fp32 O
-tile is split over the registers of 16 warps by rows and columns (Split-D
-of the accumulator: no warp holds a whole row); Q stays resident in shared
-memory while K/V stream through a cp.async ring; whole KV tiles outside the
-causal / window band are never loaded; heads and query tiles fill the grid,
-the longest causal tiles first. Dropout is the hash of ``rng.py``, written
-into the kernel (``csrc/rng.cuh``) so the backward replays its bits. With
+Design against that bound (``csrc/flash_fwd.cu``), two routes chosen by
+head dims alone (``config.fwd_plan`` mirrors the launcher's plan; a build or
+launch error on either raises, nothing retries on the other):
+
+* D and Dv <= 512: a TMA + wgmma block (the reference's SM90 split-D
+  forward). A producer warpgroup loads Q once into resident 128 B-swizzled
+  boxes and streams each KV tile's K and V boxes through an mbarrier ring;
+  two consumer warpgroups each compute S for half of the tile's KV columns
+  (``wgmma``), meet on the row maxima through a small shared buffer, write
+  their halves of P into one shared box and accumulate P V into their own
+  half of the fp32 O tile's columns. The softmax runs in the accumulator's
+  layout (a row in one quad of threads); tiles with no feature inside the
+  band skip the per-element feature code.
+* Wider heads: mma.sync tensor-core products (bf16/f16 in, fp32
+  accumulate) fed by ldmatrix; the 64 x 512 fp32 O tile is split over the
+  registers of 16 warps by rows and columns (Split-D of the accumulator:
+  no warp holds a whole row); Q stays resident in shared memory while K/V
+  stream through a cp.async ring.
+
+On both, whole KV tiles outside the causal / window band are never
+loaded and heads and query tiles fill the grid, the longest causal tiles
+first. Dropout is the hash of ``rng.py``, written into the kernel
+(``csrc/rng.cuh``) so the backward replays its bits. With
 ``return_scores`` the softmax also stores each visited tile's scores as the
 bf16 S residual of the S-resident backward (1 GiB at B1 Hq8 N8192, 0.32 ms
 of writes at 3.35 TB/s).
@@ -38,6 +53,7 @@ from .config import (
     FWD_ROW_TILES,
     KV_TILE,
     BlockConfig,
+    FwdPlan,
     cdiv,
     fwd_fits,
     fwd_smem_bytes,
@@ -77,20 +93,52 @@ def dropout_args(dropout_p: float, dropout_seed) -> tuple:
     return p, (1.0 / (1.0 - p)) if p > 0.0 else 1.0, int(dropout_seed) & 0xFFFFFFFF
 
 
-_FWD_ARGTYPES = (
-    [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
-    + [ctypes.c_int] * 9 + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
-    + [ctypes.c_float] * 2 + [ctypes.c_uint32] + [ctypes.c_void_p]
-    + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-)
+_ARGTYPES = {
+    "ffpa_flash_fwd": (
+        [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 9 + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
+        + [ctypes.c_float] * 2 + [ctypes.c_uint32] + [ctypes.c_void_p]
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    ),
+    "ffpa_flash_fwd_plan": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int],
+    "ffpa_flash_fwd_attrs": [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2,
+}
 
 
 def _fwd_lib() -> ctypes.CDLL:
     lib = _build.load("flash_fwd")
-    if lib.ffpa_flash_fwd.argtypes is None:
-        lib.ffpa_flash_fwd.argtypes = _FWD_ARGTYPES
-        lib.ffpa_flash_fwd.restype = ctypes.c_int
+    for name, argtypes in _ARGTYPES.items():
+        fn = getattr(lib, name, None)  # None: a library built from older sources
+        if fn is not None and fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib
+
+
+def fwd_kernel_plan(d: int, dv: int) -> FwdPlan:
+    """The route and tiling the forward launcher takes at head dims (d, dv)
+    (padded to 64-column chunks), read from the library: what
+    ``config.fwd_plan`` mirrors. Needs a card."""
+    lib = _fwd_lib()
+    out = (ctypes.c_int * 16)()
+    err = lib.ffpa_flash_fwd_plan(cdiv(d, D_CHUNK) * D_CHUNK, cdiv(dv, D_CHUNK) * D_CHUNK, out,
+                                  len(out))
+    _build.check(lib, err, "flash_fwd kernel plan")
+    blocks = tuple((out[6 + 2 * i], out[7 + 2 * i]) for i in range(out[5]))
+    return FwdPlan("wgmma" if out[0] == 1 else "mma_sync", out[1], out[2], out[3], out[4],
+                   blocks)
+
+
+def fwd_kernel_attrs(route: str, dtype=torch.bfloat16, block_q: int = 64) -> dict:
+    """Registers a thread (at launch, before setmaxnreg) and local (spill)
+    bytes of the forward kernel of ``route`` ("wgmma", or "mma_sync" at row
+    tile ``block_q``), from cudaFuncGetAttributes. Needs a card."""
+    lib = _fwd_lib()
+    regs, local = ctypes.c_int(0), ctypes.c_int(0)
+    err = lib.ffpa_flash_fwd_attrs(int(route == "wgmma"), int(dtype == torch.float16),
+                                   int(block_q), ctypes.byref(regs), ctypes.byref(local))
+    _build.check(lib, err, "flash_fwd kernel attributes")
+    return {"registers": regs.value, "local_bytes": local.value}
 
 
 def flash_attention_forward_plain(
@@ -249,10 +297,13 @@ def flash_attention_forward(
         alibi_ptr = alibi_slopes.data_ptr()
 
     if ENV.device_log_level() >= 2:
+        plan = fwd_kernel_plan(d_pad, dv_pad)
+        rows = plan.q_rows if plan.route == "wgmma" else config.block_q
+        smem = (plan.smem_bytes if plan.route == "wgmma"
+                else fwd_smem_bytes(config, d_pad, dv_pad, q.element_size()))
         logger.info(
-            "flash_fwd launch grid=(%d,%d,%d) block_q=%d smem=%d D=%d Dv=%d",
-            hq, b, cdiv(nq, config.block_q), config.block_q,
-            fwd_smem_bytes(config, d_pad, dv_pad, q.element_size()), d_pad, dv_pad,
+            "flash_fwd launch route=%s grid=(%d,%d,%d) rows=%d smem=%d D=%d Dv=%d",
+            plan.route, hq, b, cdiv(nq, rows), rows, smem, d_pad, dv_pad,
         )
     lib = _fwd_lib()
     with torch.cuda.device(q.device):
@@ -281,6 +332,8 @@ flash_attention_forward.launches = 0
 __all__ = [
     "flash_attention_forward",
     "flash_attention_forward_plain",
+    "fwd_kernel_plan",
+    "fwd_kernel_attrs",
     "scores_plain",
     "scores_padding",
     "check_kernel_inputs",

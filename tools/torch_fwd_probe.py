@@ -4,8 +4,10 @@ Run from the repository root: ``python tools/torch_fwd_probe.py``.
 ``--schedule`` prints only the block-order model below and needs no card.
 
 Times ``flash_attention_forward`` (device time per call from torch.profiler)
-at B1 H8/4 N4096 bf16 over head dims 64…1024, causal and not, and its row
-tiles, and prints one JSON line per case with the block-tile iterations
+at B1 H8/4 N4096 bf16 over head dims 64…1024, causal and not, and the
+mma.sync route's row tiles (the wgmma route, D <= 512, always takes 64
+rows: one case), and prints one JSON line per case with its route and the
+block-tile iterations
 the launch runs (64-row KV tiles summed over blocks), so the cost per
 iteration, per head-dim chunk and per block can be read apart.
 
@@ -30,7 +32,9 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from ffpa_attn_tpu_torch.ops import flash_fwd  # noqa: E402
-from ffpa_attn_tpu_torch.ops.config import FWD_ROW_TILES, BlockConfig, cdiv, fwd_fits  # noqa: E402
+from ffpa_attn_tpu_torch.ops.config import (  # noqa: E402
+    FWD_ROW_TILES, BlockConfig, cdiv, fwd_fits,
+)
 from ffpa_attn_tpu_torch.utils.profiling import device_ms  # noqa: E402
 
 
@@ -79,7 +83,9 @@ def main() -> int:
         k = torch.randn((1, hkv, n, d), generator=gen, device="cuda").bfloat16()
         v = torch.randn((1, hkv, n, d), generator=gen, device="cuda").bfloat16()
         for causal in (True, False):
-            for bq in FWD_ROW_TILES:
+            plan = flash_fwd.fwd_kernel_plan(d, d)
+            tiles = (plan.q_rows,) if plan.route == "wgmma" else FWD_ROW_TILES
+            for bq in tiles:
                 cfg = BlockConfig(block_q=bq)
                 if not fwd_fits(cfg, d, d):
                     continue
@@ -87,7 +93,8 @@ def main() -> int:
                     q, k, v, None, scale=1 / math.sqrt(d), is_causal=causal, config=cfg), reps=5)
                 its = tile_iterations(n, bq, causal, hq)
                 print(json.dumps(dict(
-                    d=d, causal=causal, block_q=bq, ms=ms, tile_iterations=its,
+                    d=d, causal=causal, route=plan.route, block_q=bq, ms=ms,
+                    tile_iterations=its,
                     us_per_iteration_per_sm=ms * 1e3 * sms / its,
                     tflops=its * bq * 64 * 2 * (d + d) / (ms * 1e-3) / 1e12,
                 )), flush=True)

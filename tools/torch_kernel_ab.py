@@ -13,7 +13,11 @@ Python wrappers (the two share the C interface; a base library whose
 banded entry points still read a row tile is given the one its own
 wrappers passed, ``LegacyBanded``):
 
-* flash_fwd: B1 H8/4 N4096 D512 causal bf16 (the serving prefill);
+* flash_fwd: B1 H8/4 N4096 D512 causal bf16 (the serving prefill), and
+  flash_fwd_scores the same with the S residual; flash_fwd_train and
+  flash_fwd_train_scores: N8192 (a training layer), without and with it.
+  At D512 the head library runs its wgmma route, a base built from older
+  sources the mma.sync kernel;
 * decode: B1 H8/4 Nkv 4224 D512 with the validity bias, four caches in turn
   so K/V are not L2-resident;
 * dkdv (with the dS slab) and banded_dq: B1 H8/4 N8192 D512 causal bf16
@@ -36,12 +40,15 @@ wrappers passed, ``LegacyBanded``):
 
 A kernel whose source the base tree lacks is timed on the head alone. Each
 time is the kernels' device time per call from torch.profiler (for from_s
-the from-S kernel's alone, without the copy of S). dkdv (dK, dV and the
-slab) is held against its plain version, banded_dq and banded_dk against
-theirs on the slab each tree's own dK/dV (or from-S) kernel wrote, per row
-at the bf16 gradient tolerance 5e-2 (a row's floor at 1e-3 of the
-tensor's max); a miss exits 1. max|diff| head vs base is given per output
-(dkdv: dK, dV, slab). Prints one JSON line.
+the from-S kernel's alone, without the copy of S). The forward's runs are
+held against the plain version per output: O per row at the bf16 forward
+tolerance 2e-2, lse at 1e-4 of max|lse|, the S residual per row on the
+causal band at 1e-2. dkdv (dK, dV and the slab) is held against its plain
+version, banded_dq and banded_dk against theirs on the slab each tree's
+own dK/dV (or from-S) kernel wrote, per row at the bf16 gradient tolerance
+5e-2 (a row's floor at 1e-3 of the tensor's max). A miss exits 1.
+max|diff| head vs base is given per output (the forward: O, lse, S; dkdv:
+dK, dV, slab). Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -71,7 +78,9 @@ from ffpa_attn_tpu_torch.ops.reference import DEFAULT_MASK_VALUE  # noqa: E402
 from ffpa_attn_tpu_torch.utils.profiling import device_ms, device_window  # noqa: E402
 
 # kernel -> the source it is built from
-SOURCE = {"flash_fwd": "flash_fwd", "decode": "decode", "dkdv": "flash_bwd",
+SOURCE = {"flash_fwd": "flash_fwd", "flash_fwd_scores": "flash_fwd",
+          "flash_fwd_train": "flash_fwd", "flash_fwd_train_scores": "flash_fwd",
+          "decode": "decode", "dkdv": "flash_bwd",
           "banded_dq": "flash_bwd", "dq": "flash_bwd", "from_s": "flash_bwd",
           "banded_dk": "flash_bwd", "varlen_fwd": "varlen_fwd", "paged_decode": "paged_decode",
           "varlen_dkdv": "varlen_bwd", "varlen_dq": "varlen_bwd"}
@@ -139,6 +148,9 @@ class LegacyBanded:
 
 
 TOL = 5e-2  # bf16 gradients (tests/test_ffpa_bwd.py:19)
+# The forward's outputs: O per row (bf16, tests/test_features.py:127), lse
+# relative to max|lse| (fp32 math on both sides), S per row on the band.
+FWD_TOL = {"o": 2e-2, "lse": 1e-4, "s": 1e-2}
 
 
 def row_rel(got, want, floor: float = 1e-3) -> float:
@@ -147,6 +159,22 @@ def row_rel(got, want, floor: float = 1e-3) -> float:
     got, want = got.float(), want.float()
     ref = want.abs().amax(-1).clamp_min(floor * float(want.abs().max()) + 1e-30)
     return float(((got - want).abs().amax(-1) / ref).max())
+
+
+def fwd_errs(got, want) -> dict:
+    """{output: error} of a causal self-attention forward run (Nq = Nkv)
+    against its plain version."""
+    o, lse = got[0].float(), got[1].float()
+    errs = {"o": row_rel(o, want[0], floor=0.0),
+            "lse": float((lse - want[1]).abs().max() / want[1].abs().max())}
+    if len(got) == 3:
+        n = o.shape[2]
+        band = torch.ones((n, n), dtype=torch.bool, device=o.device).tril()
+        g, w = got[2][:, :, :n, :n].float(), want[2][:, :, :n, :n].float()
+        err = torch.where(band, (g - w).abs(), 0.0).amax(-1)
+        ref = torch.where(band, w.abs(), 0.0).amax(-1).clamp_min(1e-30)
+        errs["s"] = float((err / ref).max())
+    return errs
 
 
 def make_runs(gen) -> tuple:
@@ -263,9 +291,24 @@ def make_runs(gen) -> tuple:
         state.pop("ds", None)
         state.pop("s_ds", None)
 
-    runs = {
-        "flash_fwd": lambda: flash_fwd.flash_attention_forward(q, k, v, None, scale=scale,
-                                                               is_causal=True)[0],
+    def fwd(q_, k_, v_, scores):
+        return flash_fwd.flash_attention_forward(q_, k_, v_, None, scale=scale, is_causal=True,
+                                                 return_scores=scores)
+
+    def fwd_plain(q_, k_, v_, scores):
+        o, lse = flash_fwd.flash_attention_forward_plain(q_, k_, v_, None, scale=scale,
+                                                         is_causal=True)
+        if not scores:
+            return o, lse
+        nq_pad, nkv_pad = flash_fwd.scores_padding(q_.shape[2], k_.shape[2], d, d, q_.dtype)
+        return o, lse, flash_fwd.scores_plain(q_, k_, None, scale=scale, is_causal=True,
+                                              nq_pad=nq_pad, nkv_pad=nkv_pad)
+
+    fwd_inputs = {"flash_fwd": (q, k, v, False), "flash_fwd_scores": (q, k, v, True),
+                  "flash_fwd_train": (tq, tk, tv, False),
+                  "flash_fwd_train_scores": (tq, tk, tv, True)}
+    runs = {name: (lambda a=a: fwd(*a)) for name, a in fwd_inputs.items()}
+    runs.update({
         "decode": lambda: run_decode()[0],
         "dkdv": run_dkdv,
         "banded_dq": run_banded,
@@ -277,7 +320,7 @@ def make_runs(gen) -> tuple:
         "paged_decode": run_paged,
         "varlen_dkdv": lambda: varlen._varlen_dkdv_kernel(ops, meta, sched[0], bcfg, **bkw)[0],
         "varlen_dq": lambda: varlen._varlen_dq_kernel(ops, meta, sched[1], bcfg, **bkw),
-    }
+    })
     def dkdv_plain():
         lse, delta = state[(-1, -1)]
         return flash_bwd._dkdv_plain(tq, tk, tv, None, tdo, lse, delta, scale=scale, emit_ds=True,
@@ -285,13 +328,14 @@ def make_runs(gen) -> tuple:
                                      dropout_p=0.0, seed=0, softcap=0.0, window=(-1, -1),
                                      alibi=None)
 
-    plains = {
+    plains = {name: (lambda a=a: fwd_plain(*a)) for name, a in fwd_inputs.items()}
+    plains.update({
         "dkdv": dkdv_plain,
         "banded_dq": lambda: flash_bwd._banded_dq_plain(state["ds"], tk, scale=scale, nq=nt,
                                                         nkv=nt),
         "banded_dk": lambda: flash_bwd._banded_dk_plain(state["s_ds"], tq, scale=scale, nq=nt,
                                                         nkv=nt, hkv=hkv),
-    }
+    })
     return runs, reset, plains
 
 
@@ -336,10 +380,17 @@ def main() -> int:
             reset()
             res = runs[k]()
             outs[(tag, k)] = tuple(t.float() for t in (res if isinstance(res, tuple) else (res,)))
+            if SOURCE[k] == "flash_fwd" and len(outs[(tag, k)]) == 3:
+                o, lse, s_pad = outs[(tag, k)]  # S above the band is never written
+                outs[(tag, k)] = (o, lse, s_pad.tril_())
             if k in plains:
                 want = plains[k]()
                 want = want if isinstance(want, tuple) else (want,)
-                vs_plain[tag][k].append(max(row_rel(g, w) for g, w in zip(outs[(tag, k)], want)))
+                if SOURCE[k] == "flash_fwd":
+                    vs_plain[tag][k].append(fwd_errs(outs[(tag, k)], want))
+                else:
+                    vs_plain[tag][k].append(
+                        max(row_rel(g, w) for g, w in zip(outs[(tag, k)], want)))
                 del want
             reset()
     torch.cuda.synchronize()
@@ -353,8 +404,13 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(json.dumps({"card": smi, "order": "base head head base", "device_ms": times,
                       "max_abs_diff_head_vs_base": diff, "row_rel_err_vs_plain": vs_plain,
-                      "tol": TOL}))
-    return 0 if all(e < TOL for per in vs_plain.values() for es in per.values() for e in es) else 1
+                      "tol": TOL, "fwd_tol": FWD_TOL}))
+    def held(e) -> bool:
+        if isinstance(e, dict):
+            return all(v < FWD_TOL[n] for n, v in e.items())
+        return e < TOL
+
+    return 0 if all(held(e) for per in vs_plain.values() for es in per.values() for e in es) else 1
 
 
 if __name__ == "__main__":
