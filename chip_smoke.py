@@ -1699,16 +1699,19 @@ def _hold(label: str, pairs: dict, dtype=torch.bfloat16) -> float:
     return max(max_abs(g, w) for g, w in pairs.values())
 
 
-def _kernel_timed(fn, kernel: str, reps: int, setup=None) -> tuple:
-    """(device ms per call of the kernels whose name holds ``kernel``,
-    from the profiler; CUDA-event ms per call of ``fn`` less that of
-    ``setup``, the part of ``fn`` that only prepares the kernel's inputs)."""
+def _kernel_timed(fn, names: tuple, reps: int, setup=None) -> tuple:
+    """(device ms per call of the kernels whose name holds one of
+    ``names``, from the profiler; CUDA-event ms per call of ``fn`` less that
+    of ``setup``, the part of ``fn`` that only prepares the kernel's
+    inputs). Fails where no kernel of ``names`` ran."""
     from ffpa_attn_tpu_torch.utils.profiling import cuda_ms, device_window
 
     w = device_window(fn, reps=reps, warmup=1)
-    dev = sum(ms for name, ms in w["by_kernel"].items() if kernel in name) / reps
+    if isinstance(names, str):
+        raise TypeError("names is a tuple of kernel-name substrings")
+    dev = sum(ms for name, ms in w["by_kernel"].items() if any(n in name for n in names)) / reps
     if dev <= 0.0:
-        fail(f"the profiler saw no {kernel} kernel")
+        fail(f"the profiler saw no kernel named like {names}; it saw {sorted(w['by_kernel'])}")
     ev = cuda_ms(fn, reps=reps) - (cuda_ms(setup, reps=reps) if setup is not None else 0.0)
     return dev, ev
 
@@ -1915,7 +1918,7 @@ def training_times(training: dict, windowed: dict, resident: dict) -> tuple:
         if slab is None:
             slab = kds
         del kds
-        kms = _kernel_timed(run_from_s, "dkdv_from_s_kernel", 10, setup=lambda: s.clone())
+        kms = _kernel_timed(run_from_s, flash_bwd.FROM_S_KERNELS, 10, setup=lambda: s.clone())
         variants[dk_in] = (kms, err)
     log(f"  from-S variants at N{n}: dK out of kernel {variants[False][0][0]:.4f} ms "
         f"[{variants[False][0][1]:.4f}], dK in kernel {variants[True][0][0]:.4f} ms "
@@ -1939,6 +1942,7 @@ def training_times(training: dict, windowed: dict, resident: dict) -> tuple:
                                     dk_in_kernel=cfg.dkdv_dk_in_kernel)
     row("dkdv_from_s", "ffpa_attn_tpu/ops/flash_bwd.py:344", resident["launches"]["from_s"],
         err, kms, pms, lms, flops, nbytes)
+    rows[-1].update(from_s_kernel_row_extras(d, cfg.dkdv_dk_in_kernel))
 
     def run_banded_dk():
         return flash_bwd._banded_dk_from_ds(slab, q, cfg, scale=scale, group=hq // hkv, nq=n,
@@ -1972,8 +1976,9 @@ def fwd_kernel_row_extras(d: int) -> dict:
     """The forward's route at head dim ``d`` and its kernel's registers and
     spill bytes, for the ``kernels`` line; fails unless the launcher's plan
     equals its mirror (``ops/config.py`` ``fwd_plan``) at D, Dv 64..1024,
-    the wgmma kernel spills nothing and ptxas kept its wgmma pipeline (no
-    C7515 / C7520 note in the build's log)."""
+    the wgmma kernel spills nothing and ptxas kept the wgmma pipeline of
+    every kernel of flash_fwd.cu and flash_bwd.cu (no C7515 / C7520 note in
+    either build's log)."""
     from ffpa_attn_tpu_torch.ops import _build, flash_fwd
     from ffpa_attn_tpu_torch.ops.config import fwd_plan
 
@@ -1997,17 +2002,15 @@ def fwd_kernel_row_extras(d: int) -> dict:
         if "ptxas info" not in build_log:
             # Without ptxas's report the count below would read nothing.
             log(f"  no ptxas report beside the {name} library ({len(build_log)} bytes of log)")
-            if name == "flash_fwd":
-                fail("the forward's ptxas report is missing: the wgmma serialization gate "
-                     "cannot read it")
-            continue
+            fail(f"the ptxas report of {name}.cu is missing: the wgmma serialization gate "
+                 "cannot read it")
         notes = [ln for ln in build_log.splitlines() if "C7515" in ln or "C7520" in ln]
         log(f"  ptxas wgmma serialization notes (C7515 / C7520) in {name}.cu: {len(notes)} "
             f"(of {build_log.count('ptxas info')} ptxas info lines)")
         for ln in notes[:4]:
             log(f"    {ln[:200]}")
-        if name == "flash_fwd" and notes:
-            fail("ptxas serialized the wgmma forward kernel")
+        if notes:
+            fail(f"ptxas serialized a wgmma kernel of {name}.cu")
     route = flash_fwd.fwd_kernel_plan(d, d).route
     a = flash_fwd.fwd_kernel_attrs(route)
     return {"fwd_route": route, "registers": a["registers"], "spill_bytes": a["local_bytes"]}
@@ -2039,6 +2042,35 @@ def dkdv_kernel_row_extras(d: int) -> dict:
     route = dkdv_plan(d, d).route
     a = flash_bwd.dkdv_kernel_attrs(route)
     return {"dkdv_route": route, "registers": a["registers"], "spill_bytes": a["local_bytes"]}
+
+
+def from_s_kernel_row_extras(d: int, dk_in: bool) -> dict:
+    """The from-S route the training shape's launch takes (head dim ``d``,
+    the dispatch rule's ``dk_in``) and its kernel's registers and spill
+    bytes, for the ``kernels`` line; fails unless the launcher's plan
+    equals its mirror (``ops/config.py`` ``from_s_plan``) at Dv 64..1024
+    with dK in and out of the kernel, and the wgmma kernel spills nothing."""
+    from ffpa_attn_tpu_torch.ops import flash_bwd
+    from ffpa_attn_tpu_torch.ops.config import from_s_plan
+
+    cases = [(dv, dk) for dv in range(64, 1025, 64) for dk in (False, True)]
+    for dv, dk in cases:
+        if flash_bwd.from_s_kernel_plan(dv, dk) != from_s_plan(dv, dk):
+            fail(f"from-S launcher's plan at Dv{dv} dk_in={dk} "
+                 f"{flash_bwd.from_s_kernel_plan(dv, dk)} differs from ops/config.py "
+                 f"from_s_plan {from_s_plan(dv, dk)}")
+    log(f"  from-S plan at Dv{d}: dK out {flash_bwd.from_s_kernel_plan(d, False)}, dK in "
+        f"{flash_bwd.from_s_kernel_plan(d, True)} (the launcher's, equal to ops/config.py "
+        f"from_s_plan at {len(cases)} (Dv, dK in / out) pairs)")
+    for route, dk in (("wgmma", False), ("mma_sync", False), ("mma_sync", True)):
+        a = flash_bwd.from_s_kernel_attrs(route, dk)
+        log(f"  from-S {route} dK {'in' if dk else 'out of'} the kernel: {a['registers']} "
+            f"registers a thread at launch, {a['local_bytes']} local (spill) bytes")
+        if route == "wgmma" and a["local_bytes"] != 0:
+            fail(f"the wgmma from-S kernel spills {a['local_bytes']} bytes")
+    route = from_s_plan(d, dk_in).route
+    a = flash_bwd.from_s_kernel_attrs(route, dk_in)
+    return {"from_s_route": route, "registers": a["registers"], "spill_bytes": a["local_bytes"]}
 
 
 def dkdv_op_level_times() -> None:
@@ -2222,7 +2254,7 @@ def serving_times(errs: dict, serving: dict, model) -> tuple:
 
     # The kernel alone; the wrapper also computes the metadata and the tile
     # intervals on the device (a dozen small kernels) before it.
-    kms = _kernel_timed(run_varlen, "varlen_fwd_kernel", 20)
+    kms = _kernel_timed(run_varlen, ("varlen_fwd_kernel",), 20)
     wms = _timed(run_varlen, 20)
     log(f"  varlen_fwd at the serving packing: kernel {kms[0]:.4f} ms; the wrapper's device "
         f"time with its metadata {wms[0]:.4f} ms, CUDA events {wms[1]:.4f} ms")
@@ -2393,7 +2425,7 @@ def packed_training_times(packed: dict) -> tuple:
         torch.cuda.synchronize()
         err = _hold(f"{name}_T{t}_causal", dict(zip(outs, zip(got, run_plain()))))
         del got
-        kms = _kernel_timed(run, f"{name}_kernel", 10)
+        kms = _kernel_timed(run, (f"{name}_kernel",), 10)
         pms = _timed(run_plain, 3, warmup=1)
         flops, nbytes = varlen_backward_counts(name, PACK_LENS, PACK_LENS, hq=hq, hkv=hkv, d=d,
                                                dv=d, causal=True)

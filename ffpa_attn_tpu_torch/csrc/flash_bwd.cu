@@ -10,8 +10,10 @@
 //   ffpa_bwd_banded_dk   <- _banded_dk_kernel: dK = scale * dS^T Q from the slab
 //
 // dK/dV for D, Dv <= 512 runs on TMA and wgmma (namespace dkdv, details
-// beside it); the route is dkdv::make_plan's, by head dims alone. dK/dV for
-// wider heads, dQ and from-S are built from the forward's pieces (flash_fwd.cu):
+// beside it); the route is dkdv::make_plan's, by head dims alone. From-S
+// with dK out of the kernel at Dv <= 512 does too (namespace from_s; the
+// route is from_s::make_plan's). dK/dV for wider heads, dQ and the other
+// from-S variants are built from the forward's pieces (flash_fwd.cu):
 // 16 warps, mma.sync m16n8k16 (bf16 or f16 in, fp32 accumulate) fed by
 // ldmatrix, a block's owned tile resident in shared memory and the other
 // operand streamed in 64 x 64 chunks through a 4-slot cp.async ring, fp32
@@ -45,7 +47,7 @@
 // dQ += dS K over the K chunks again; the BQ x D fp32 dQ tile lives in
 // registers exactly like the forward's O tile.
 //
-// From-S dK/dV (S-resident tier, bf16 only): below, beside its kernel.
+// From-S dK/dV (S-resident tier, bf16 only): below, beside its two kernels.
 //
 // Banded dQ (dS-handoff and S-resident tiers) and banded dK (S-resident,
 // bf16): plain GEMMs over a causal k-range, redesigned for Hopper's TMA and
@@ -604,42 +606,41 @@ __global__ void __launch_bounds__(NTHR, 1) dq_kernel(const BwdParams p) {
 // dK / dV from the forward's S residual (S-resident backward, bf16)
 // ---------------------------------------------------------------------------
 
-// Dynamic shared memory of one from-S block; ops/config.py
-// dkdv_from_s_smem_bytes is the same formula. No K tile: S comes from the
-// slab through the ring.
-template <int KV>
+// Dynamic shared memory of one mma.sync from-S block; ops/config.py
+// from_s_plan is the same formula. No K tile: S comes from the slab through
+// the ring.
 size_t from_s_smem_bytes(int dv) {
-  return ((size_t)KV * (dv + 8) + (size_t)NST * QT * LDC + 2 * (size_t)KV * LDP) *
+  return ((size_t)KVT * (dv + 8) + (size_t)NST * QT * LDC + 2 * (size_t)KVT * LDP) *
              sizeof(__nv_bfloat16) +
          2 * QT * sizeof(float);
 }
 
-// A block owns KV rows [kv0, kv0 + KV) of one KV head with V resident and
-// walks the GQA group's 128-row Q tiles of the causal band. Per tile the
-// ring brings the S tile (128 x KV of the slab), then the dO chunks, then
-// (DK) the Q chunks. P = exp(S - lse) is re-masked here (rows past Nq,
-// columns past Nkv or above the causal diagonal give 0 whatever the slab
-// holds there), dP^T = V dO^T and dV += P^T dO share the dO stream, dS =
-// P (dP - delta) (times the softcap factor 1 - (s/cap)^2 read from S)
-// overwrites the S tile in place, and with DK dK += dS^T Q. Exactly one
-// block owns each slab tile and reads it before it writes it, so the
-// in-place update has no race. Q tiles the band skips get zeros, so every
-// tile of the slab is defined for banded dQ / dK and dbias.
-//
-// KV = 64 (dK out of kernel, Dv <= 512): 16 warps as 4 row tiles x 4, the
-// fp32 dV tile (64 x 512) in 64 registers a thread. KV = 32: 2 x 8 warps,
-// dV alone up to 1024 columns, or dK and dV up to 512 each (DK).
-template <int KV, bool DK>
+// The mma.sync route of ffpa_bwd_dkdv_from_s: dK in the kernel (DK), or dK
+// out of it at Dv > 512 (dK out at Dv <= 512 takes the wgmma block of
+// namespace from_s below). A block owns KV rows [kv0, kv0 + 32) of one KV
+// head with V resident and walks the GQA group's 128-row Q tiles of the
+// causal band. Per tile the ring brings the S tile (128 x 32 of the slab),
+// then the dO chunks, then (DK) the Q chunks. P = exp(S - lse) is re-masked
+// here (rows past Nq, columns past Nkv or above the causal diagonal give 0
+// whatever the slab holds there), dP^T = V dO^T and dV += P^T dO share the
+// dO stream, dS = P (dP - delta) (times the softcap factor 1 - (s/cap)^2
+// read from S) overwrites the S tile in place, and with DK dK += dS^T Q.
+// Exactly one block owns each slab tile and reads it before it writes it,
+// so the in-place update has no race. Q tiles the band skips get zeros, so
+// every tile of the slab is defined for banded dQ / dK and dbias. 16 warps
+// as 2 row tiles x 8: dV alone up to 1024 columns, or dK and dV up to 512
+// each (DK), in 64 fp32 registers a thread.
+template <bool DK>
 __global__ void __launch_bounds__(NTHR, 1) dkdv_from_s_kernel(const BwdParams p) {
   using T = __nv_bfloat16;
-  constexpr int RT = KV / 16;    // 16-row tiles of the KV tile
-  constexpr int WC = NW / RT;    // warps per row tile
-  constexpr int CQ = QT / WC;    // Q columns of S^T / dP^T per warp (16 or 32)
-  constexpr int NQ8 = CQ / 8;    // n8 tiles of them (2 or 4)
-  constexpr int CW = CH / WC;    // dK / dV columns per chunk per warp (8 or 16)
-  constexpr int NC8 = CW / 8;    // n8 tiles of them (1 or 2)
+  constexpr int KV = KVT;
+  constexpr int RT = KV / 16;    // 16-row tiles of the KV tile (2)
+  constexpr int WC = NW / RT;    // warps per row tile (8)
+  constexpr int CQ = QT / WC;    // Q columns of S^T / dP^T per warp (16)
+  constexpr int NQ8 = CQ / 8;    // n8 tiles of them (2)
+  constexpr int CW = CH / WC;    // dK / dV columns per chunk per warp (8)
+  constexpr int NC8 = CW / 8;    // n8 tiles of them (1)
   constexpr int MAXV = ACC_PER_THREAD / ((DK ? 2 : 1) * 4 * NC8);  // dV chunks held
-  static_assert(!DK || KV == 32, "dK in kernel takes 32-row KV tiles");
   static_assert(KV * QT / 8 % NTHR == 0, "slab tile vectors per thread");
 
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -1621,6 +1622,495 @@ cudaError_t launch(const BwdParams& bp, const Plan& pl, int B, cudaStream_t stre
 
 }  // namespace dkdv
 
+// ---------------------------------------------------------------------------
+// dK / dV from the S residual, dK out of the kernel, Dv <= 512: TMA +
+// mbarrier + wgmma
+// ---------------------------------------------------------------------------
+
+// The Hopper route of ffpa_bwd_dkdv_from_s with dK out of the kernel (the
+// pass the S-resident training step launches; ffpa_attn_tpu/ops/flash_bwd.py
+// _dkdv_from_s_kernel with dk_in_kernel=False). Bound on an H100:
+// operations, 2 matmul units (dP^T, dV) of 2 * pairs * Dv flop, with the
+// bytes close behind (S read and dS written on the band, zeros above it).
+// The design keeps dO to one load a tile and the zeros off the consumers'
+// path; what holds it at ~3.2x its bound is the consumers' lockstep: no
+// product is in flight during the elementwise step (PERF.md).
+//
+// It is the forward's wgmma block (flash_fwd.cu namespace fwd) with the
+// roles renamed: V is resident where Q was, dP^T = V dO^T takes the place
+// of S = Q K^T, P = exp(S - lse) from the slab that of the softmax (lse is
+// known: no running maximum, no rescale, no exchange of maxima), dV +=
+// P^T dO that of O += P V. A block of 384 threads owns 64 KV rows of one
+// KV head and walks the GQA group's 64-row Q tiles of the band (group
+// member outer); the grid goes KV tiles first, so under causal the longest
+// blocks start first:
+//  - warpgroup 0 is the producer (setmaxnreg 40). One thread loads V once
+//    by TMA into Dv / 64 resident 64 x 64 boxes (128 B swizzle), then per Q
+//    tile streams the slab's S box (64 q x 64 kv, through a tensor map at
+//    the slab's extents, so rows past ds_rows read as 0) in a stage of its
+//    own, then the Dv / 64 dO boxes in two-box stages, box j of consumer
+//    0's half of Dv beside box j of consumer 1's. Each dO box feeds both
+//    products (K-major for dP^T, N-major for dV): one load a tile. Warps
+//    1..3 meanwhile write the zeros of the Q tiles above the band over the
+//    block's 64 slab columns, half the bytes the pass writes at the
+//    training shape, while the consumers' products run;
+//  - warpgroups 1 and 2 are the consumers (setmaxnreg 232). Consumer c
+//    computes dP^T for Q columns 32c..32c+31 (wgmma m64n32k16 over Dv: the
+//    V box K-major, rows 32c.. of each dO box K-major) and reads S at the
+//    accumulator's (kv, q) coordinates from the [q][kv] S box with
+//    ldmatrix.trans (conflict-free on the swizzle). It forms p, the dropped
+//    p and dS = p (dP - delta) (softcap's factor included), re-masking the
+//    band by selection: outside it the slab may hold anything, NaN
+//    included. Its half of P^T goes into the swizzled [kv][q] P box, its
+//    half of dS into the [q][kv] dS box (stmatrix.trans). After a named
+//    barrier each runs dV[:, own half of Dv] += P^T dO (m64n64k16 a box,
+//    the dO box N-major with the transpose bit; 128 fp32 registers a thread
+//    at Dv 512) and, while the products run, copies the dS box over the S
+//    tile of the slab (16 B a thread, rows below ds_rows). A dO stage is
+//    freed once both consumers' dV products completed.
+// In place across proxies: the S tile is read by TMA, and the stores of dS
+// over it come after the consumers waited on that load's barrier. Exactly
+// one block owns each slab tile; the tiles above the band are never read,
+// so their zeros race nothing. ptxas keeps the wgmma pipeline for the
+// forward's reasons: products start with scale-d 0, roles (and dropout)
+// are template arguments, each stage's products are committed in their
+// own block, stage releases and the slab stores under wgmma are predicated
+// instructions, and the zeros of dV are fenced off from its products.
+namespace from_s {
+
+using namespace ffpa::sm90;
+
+constexpr int ROWS = 64;                 // KV rows of a block
+constexpr int QROWS = 64;                // Q rows of a streamed tile
+constexpr int COLS = 64;                 // columns of a box (128 B of 16-bit)
+constexpr int MAX_BOXES = 8;             // Dv <= 512 on this route
+constexpr int V_BOXES = MAX_BOXES / 2;   // Dv boxes of one consumer's dV: 64 x 256 fp32
+constexpr int STAGE_BYTES = 2 * BOX_BYTES;
+constexpr int MAX_STAGES = 12;
+constexpr int THREADS = 384;             // producer warpgroup + 2 consumer warpgroups
+constexpr int CONSUMER_WARPS = 8;        // arrivals that free a stage
+constexpr int SMEM_LIMIT = 232448;
+constexpr int WGMMA = 1, MMA_SYNC = 0;   // routes
+
+// The route and tiling of a from-S launch at value head dim Dv (a multiple
+// of 64): dK out of the kernel at Dv <= 512 takes this block, consumer 0
+// owning the first ceil(nv / 2) of Dv's nv boxes and consumer 1 the rest,
+// with as many ring stages as shared memory holds after V and the P and dS
+// boxes (a tile takes 1 + ceil(nv / 2) stages: 9 at Dv 512 hold 1.8
+// tiles); dK in the kernel, and Dv > 512, take the mma.sync
+// dkdv_from_s_kernel. ffpa_bwd_from_s_plan hands it out; ops/config.py
+// from_s_plan mirrors it and the card test holds the two equal.
+struct Plan {
+  int route, kv_rows, q_rows, stages, nv0;
+  size_t smem;
+};
+inline Plan make_plan(int Dv, bool dk_in) {
+  Plan pl;
+  const int nv = Dv / COLS;
+  if (!dk_in && nv <= MAX_BOXES) {
+    pl.route = WGMMA;
+    pl.kv_rows = ROWS;
+    pl.q_rows = QROWS;
+    pl.nv0 = (nv + 1) / 2;
+    // V, the P and dS boxes, the 1024 B alignment and V's barrier; a stage
+    // is two boxes and its two barriers.
+    const size_t fixed = (size_t)(nv + 2) * BOX_BYTES + 1024 + sizeof(uint64_t);
+    const size_t stage = STAGE_BYTES + 2 * sizeof(uint64_t);
+    pl.stages = (int)std::min((size_t)MAX_STAGES, (SMEM_LIMIT - fixed) / stage);
+    pl.smem = fixed + pl.stages * stage;
+  } else {
+    pl.route = MMA_SYNC;
+    pl.kv_rows = KVT;
+    pl.q_rows = QT;
+    pl.stages = NST;
+    pl.nv0 = nv;
+    pl.smem = from_s_smem_bytes(Dv);
+  }
+  return pl;
+}
+
+// The kernel's tensor maps, a __grid_constant__ parameter of their own (TMA
+// reads them by address); the scalars stay an ordinary parameter.
+struct Maps {
+  CUtensorMap s_map;   // the slab: (ds_ld, ds_rows, B * Hq); box 64 x 64
+  CUtensorMap do_map;  // dO: (Dv, nq, B * Hq); box 64 x 64
+  CUtensorMap v_map;   // V: (Dv, nkv, B * Hkv); box 64 x 64
+};
+
+// Shared memory of a block, from a 1024 B boundary: the V boxes, the P and
+// dS boxes, the ring's stages, their full / empty barriers and V's barrier.
+struct Smem {
+  unsigned char* v;
+  unsigned char* p;   // P^T (dropped): [kv][q]
+  unsigned char* ds;  // dS: [q][kv], the slab's layout
+  unsigned char* ring;
+  uint64_t* full;
+  uint64_t* empty;
+  uint64_t* v_full;
+};
+__device__ __forceinline__ Smem carve(unsigned char* base, int nv, int stages) {
+  Smem sm;
+  sm.v = base;
+  sm.p = base + nv * BOX_BYTES;
+  sm.ds = sm.p + BOX_BYTES;
+  sm.ring = sm.ds + BOX_BYTES;
+  sm.full = reinterpret_cast<uint64_t*>(sm.ring + stages * STAGE_BYTES);
+  sm.empty = sm.full + stages;
+  sm.v_full = sm.empty + stages;
+  return sm;
+}
+
+// A block's KV rows and the Q tiles of its band, [i_lo, i_lo + ni) of
+// every group member (64-row tiles of ds_rows): the same in every thread.
+struct Block {
+  int b, kvh, kv0, i_lo, ni, ntiles;
+};
+__device__ __forceinline__ Block block_of(const BwdParams& p) {
+  Block k;
+  k.kv0 = blockIdx.x * ROWS;
+  k.kvh = blockIdx.y;
+  k.b = blockIdx.z;
+  const int nqt = (p.ds_rows + QROWS - 1) / QROWS;
+  k.i_lo = p.window_right >= 0
+               ? max(0, floordiv(k.kv0 - p.causal_offset - p.window_right, QROWS))
+               : 0;
+  k.ni = max(0, nqt - k.i_lo);
+  k.ntiles = p.group * k.ni;
+  return k;
+}
+
+// The producer's thread: V once, then per Q tile the S stage and the dO
+// stages (box j and box nv0 + j, alone where consumer 1's half is shorter).
+__device__ __forceinline__ void produce(const Maps& maps, const BwdParams& p, const Smem& sm,
+                                        const Block& k, int stages, int nv, int nv0) {
+  prefetch_map(&maps.s_map);
+  prefetch_map(&maps.do_map);
+  prefetch_map(&maps.v_map);
+  const int bkv = k.b * p.Hkv + k.kvh;
+  mbar_arrive_expect_tx(sm.v_full, nv * BOX_BYTES);
+  for (int j = 0; j < nv; ++j)
+    tma_load_3d(sm.v + j * BOX_BYTES, &maps.v_map, sm.v_full, j * COLS, k.kv0, bkv);
+  int it = 0;
+  // Stage it % stages, free again, expecting nb boxes.
+  auto claim = [&](int nb) -> unsigned char* {
+    const int st = it % stages;
+    if (it >= stages) mbar_wait(&sm.empty[st], ((it / stages) - 1) & 1);
+    mbar_arrive_expect_tx(&sm.full[st], nb * BOX_BYTES);
+    return sm.ring + st * STAGE_BYTES;
+  };
+  for (int t = 0; t < k.ntiles; ++t) {
+    const int bh = k.b * p.Hq + k.kvh * p.group + t / k.ni, q0 = (k.i_lo + t % k.ni) * QROWS;
+    unsigned char* dst = claim(1);
+    tma_load_3d(dst, &maps.s_map, &sm.full[it % stages], k.kv0, q0, bh);
+    ++it;
+    for (int j = 0; j < nv0; ++j, ++it) {
+      const bool both = nv0 + j < nv;
+      dst = claim(both ? 2 : 1);
+      tma_load_3d(dst, &maps.do_map, &sm.full[it % stages], j * COLS, q0, bh);
+      if (both)
+        tma_load_3d(dst + BOX_BYTES, &maps.do_map, &sm.full[it % stages], (nv0 + j) * COLS, q0,
+                    bh);
+    }
+  }
+}
+
+// Warps 1..3 of the producer warpgroup: zeros over the block's 64 slab
+// columns in the Q tiles above the band (rows below ds_rows), 16 B a
+// thread, 8 threads a row.
+__device__ __forceinline__ void zero_above_band(const BwdParams& p, const Block& k) {
+  const int u = threadIdx.x - 32, n = 96;
+  const int rows = min(k.i_lo * QROWS, p.ds_rows);
+  for (int gg = 0; gg < p.group; ++gg) {
+    __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(p.ds) +
+                         (long long)(k.b * p.Hq + k.kvh * p.group + gg) * p.ds_rows * p.ds_ld +
+                         k.kv0;
+    for (int i = u; i < rows * 8; i += n)
+      *reinterpret_cast<uint4*>(dst + (long long)(i >> 3) * p.ds_ld + (i & 7) * 8) =
+          make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// A 16 B store where pred is set, without a branch (a predicated
+// instruction): the consumers issue it while their wgmma products run.
+__device__ __forceinline__ void st_global_16_if(void* dst, uint4 v, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %5, 0;\n@p st.global.v4.b32 [%0], {%1, %2, %3, %4};\n}\n" ::"l"(
+          dst),
+      "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"((int)pred)
+      : "memory");
+}
+
+// Consumer C of a block; C is a template argument so that no branch around
+// a wgmma depends on the thread. Accumulator element 4 jj + 2 hh + e of
+// thread (warp, g = lane / 4, t4 = lane % 4) of dP^T is KV row 16 warp + g
+// + 8 hh, Q column 32 C + 8 jj + 2 t4 + e.
+template <int C, bool DROP>
+__device__ __forceinline__ void consume(const BwdParams& p, const Smem& sm, const Block& k,
+                                        int stages, int nv, int nv0) {
+  using T = __nv_bfloat16;
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int own = C == 0 ? nv0 : nv - nv0;  // Dv boxes of this consumer's dV
+  const int pairs = nv - nv0;               // dO stages holding two boxes
+  const int kr = k.kv0 + 16 * warp + g;     // this thread's KV rows: kr, kr + 8
+  // The lanes' row addresses of ldmatrix / stmatrix: matrix m = lane / 8 of
+  // a call is (jj = 2 x + m / 2, hh = m % 2), its row lane % 8 the Q column.
+  const int xq = 32 * C + 8 * (lane >> 4) + (lane & 7), xk = 16 * warp + 8 * ((lane >> 3) & 1);
+  constexpr float LOG2E = 1.4426950408889634f;
+  const float inv_cap = p.softcap > 0.f ? __fdividef(1.f, p.softcap) : 0.f;
+
+  // Every ordinary write of an accumulator is fenced off from the wgmma
+  // that follows, or ptxas serializes the pipeline.
+  float acc[V_BOXES * 32];
+#pragma unroll
+  for (int i = 0; i < V_BOXES * 32; ++i) acc[i] = 0.f;
+  fence_operands(acc);
+
+  int it = 0;
+  mbar_wait(sm.v_full, 0);
+  for (int t = 0; t < k.ntiles; ++t) {
+    const int h = k.kvh * p.group + t / k.ni, q0 = (k.i_lo + t % k.ni) * QROWS;
+    const long long bh = (long long)k.b * p.Hq + h;
+    const int qc = q0 + 32 * C;  // this consumer's first Q column
+    const int st_s = it % stages, it_do = it + 1;
+    const uint32_t ph_s = (it / stages) & 1;
+    it += 1 + nv0;
+
+    // lse (times log2 e) and delta of this thread's 8 Q columns: 32 C + 8 jj
+    // + 2 t4 + e (loads of a row below Nq, not predicated ones: columns past
+    // Nq are selected to 0 later).
+    float lse_r[8], dl_r[8];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const long long q = bh * p.nq + min(qc + 8 * jj + 2 * t4 + e, p.nq - 1);
+        lse_r[2 * jj + e] = p.lse[q] * LOG2E;
+        dl_r[2 * jj + e] = p.delta[q];
+      }
+
+    // dP^T for this consumer's 32 Q columns over Dv: the pairs' stages, then
+    // an odd last box alone (a conditional wgmma inside a stage would make
+    // ptxas serialize), each committed beside its products: a commit after
+    // the loop, with no wgmma in its block, became an empty wgmma that ptxas
+    // scheduled into the next mbarrier wait's retry loop (C7520).
+    float dp[16];
+    for (int j = 0; j < pairs; ++j) {
+      const int st = (it_do + j) % stages;
+      const unsigned char* sb = sm.ring + st * STAGE_BYTES + C * 4096;
+      mbar_wait(&sm.full[st], ((it_do + j) / stages) & 1);
+      wgmma_fence();
+      box_mma<T, 32, 0>(dp, sm.v + j * BOX_BYTES, sb, j == 0);
+      box_mma<T, 32, 0>(dp, sm.v + (nv0 + j) * BOX_BYTES, sb + BOX_BYTES);
+      wgmma_commit();
+    }
+    if (pairs < nv0) {
+      const int j = nv0 - 1, st = (it_do + j) % stages;
+      mbar_wait(&sm.full[st], ((it_do + j) / stages) & 1);
+      wgmma_fence();
+      box_mma<T, 32, 0>(dp, sm.v + j * BOX_BYTES, sm.ring + st * STAGE_BYTES + C * 4096, j == 0);
+      wgmma_commit();
+    }
+
+    // S at the accumulator's coordinates while the products run: sr[2 jj +
+    // hh] holds Q columns 2 t4 and 2 t4 + 1 of row group jj at KV row g +
+    // 8 hh, from the [q][kv] box (ldmatrix.trans).
+    uint32_t sr[8];
+    mbar_wait(&sm.full[st_s], ph_s);
+    {
+      const unsigned char* sbox = sm.ring + st_s * STAGE_BYTES;
+      ldsm_x4_trans(*reinterpret_cast<uint32_t(*)[4]>(sr), sbox + swz(xq, xk));
+      ldsm_x4_trans(*reinterpret_cast<uint32_t(*)[4]>(sr + 4), sbox + swz(xq + 16, xk));
+    }
+    wgmma_wait<0>();
+    fence_operands(dp);
+
+    // P (dropped) and dS. A tile with no softcap or dropout, inside the band
+    // and the ragged edges on every element, takes p = 2^(s log2 e - lse
+    // log2 e) alone; the others take the feature path, every output selected
+    // to 0 outside the band. Neither branches inside: dropout is the DROP
+    // template argument, and softcap's factor is 1 where inv_cap is 0.
+    const bool interior =
+        !DROP && p.softcap <= 0.f && qc + 31 < p.nq && k.kv0 + ROWS - 1 < p.nkv &&
+        (p.window_right < 0 || k.kv0 + ROWS - 1 <= qc + p.causal_offset + p.window_right);
+    uint32_t pw[8], dw[8];
+    if (interior) {
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const __nv_bfloat162 s2 = *reinterpret_cast<const __nv_bfloat162*>(&sr[2 * jj + hh]);
+          float pv[2], dsv[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int idx = 4 * jj + 2 * hh + e;
+            pv[e] = ex2(fmaf(__bfloat162float(e ? s2.y : s2.x), LOG2E, -lse_r[2 * jj + e]));
+            dsv[e] = pv[e] * (dp[idx] - dl_r[2 * jj + e]);
+          }
+          pw[2 * jj + hh] = pack2<T>(pv[0], pv[1]);
+          dw[2 * jj + hh] = pack2<T>(dsv[0], dsv[1]);
+        }
+    } else {
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const __nv_bfloat162 s2 = *reinterpret_cast<const __nv_bfloat162*>(&sr[2 * jj + hh]);
+          float pv[2], dsv[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int idx = 4 * jj + 2 * hh + e;
+            const float s = __bfloat162float(e ? s2.y : s2.x);
+            const int row = qc + 8 * jj + 2 * t4 + e, col = kr + 8 * hh;
+            const bool in = row < p.nq && col < p.nkv &&
+                            (p.window_right < 0 || col <= row + p.causal_offset + p.window_right);
+            const float pe = ex2(fmaf(s, LOG2E, -lse_r[2 * jj + e]));
+            const float u = s * inv_cap;
+            const float cap = fmaxf(1.f - u * u, 0.f);
+            float pd = pe, dpe = dp[idx];
+            if constexpr (DROP) {
+              const bool keep = dropout_uniform(p.seed, k.b, h, row, col) >= p.dropout_p;
+              pd = keep ? pe * p.dropout_inv : 0.f;
+              dpe = keep ? dpe * p.dropout_inv : 0.f;
+            }
+            pv[e] = in ? pd : 0.f;
+            dsv[e] = in ? pe * cap * (dpe - dl_r[2 * jj + e]) : 0.f;
+          }
+          pw[2 * jj + hh] = pack2<T>(pv[0], pv[1]);
+          dw[2 * jj + hh] = pack2<T>(dsv[0], dsv[1]);
+        }
+    }
+    // The S box is read (its values are consumed above): free its stage.
+    __syncwarp();
+    mbar_arrive_if(&sm.empty[st_s], lane == 0);
+
+    // The other consumer is done with the previous tile's P and dS boxes
+    // (its products completed, its copy of dS to the slab read them).
+    named_barrier_sync(1, 2 * 128);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<uint32_t*>(sm.p + swz(16 * warp + g + 8 * hh, 32 * C + 8 * jj + 2 * t4)) =
+            pw[2 * jj + hh];
+    stsm_x4_trans(sm.ds + swz(xq, xk), *reinterpret_cast<const uint32_t(*)[4]>(dw));
+    stsm_x4_trans(sm.ds + swz(xq + 16, xk), *reinterpret_cast<const uint32_t(*)[4]>(dw + 4));
+    fence_proxy_async();
+    named_barrier_sync(1, 2 * 128);  // both halves of P and dS are in their boxes
+
+    // dV[:, own boxes] += P^T dO: dO stage j holds this consumer's box j at
+    // C * BOX_BYTES.
+#pragma unroll
+    for (int j = 0; j < V_BOXES; ++j) {
+      if (j < own) {
+        wgmma_fence();
+        box_mma<T, 64, 1>(*reinterpret_cast<float(*)[32]>(acc + 32 * j), sm.p,
+                          sm.ring + ((it_do + j) % stages) * STAGE_BYTES + C * BOX_BYTES);
+        wgmma_commit();
+      }
+    }
+
+    // dS over the S tile of the slab while they run: rows q0..q0+63 (those
+    // below ds_rows), 8 columns a 16 B store, 8 threads a row.
+    {
+      const int u = threadIdx.x - 128;
+      T* dst = static_cast<T*>(p.ds) + (bh * p.ds_rows + q0) * p.ds_ld + k.kv0;
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const int v = u + 256 * x, r = v >> 3, c = v & 7;
+        st_global_16_if(dst + (long long)r * p.ds_ld + 8 * c,
+                        *reinterpret_cast<const uint4*>(sm.ds + r * 128 + ((c ^ (r & 7)) << 4)),
+                        q0 + r < p.ds_rows);
+      }
+    }
+    wgmma_wait<0>();
+    // This consumer's dV products of the tile completed: its arrivals on
+    // the tile's dO stages (both consumers' free a stage).
+    for (int j = 0; j < nv0; ++j) mbar_arrive_if(&sm.empty[(it_do + j) % stages], lane == 0);
+  }
+  fence_operands(acc);
+
+  // Epilogue: dV (group-reduced in the walk); rows past Nkv are not stored.
+  const int col0 = C == 0 ? 0 : nv0 * COLS;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int kv = kr + 8 * hh;
+    if (kv >= p.nkv) continue;
+    const long long base = ((long long)(k.b * p.Hkv + k.kvh) * p.nkv + kv) * p.Dv + col0 + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < V_BOXES; ++j) {
+      if (j >= own) break;
+#pragma unroll
+      for (int j8 = 0; j8 < 8; ++j8)
+        store2<T>(p.dv, base + COLS * j + 8 * j8, acc[32 * j + 4 * j8 + 2 * hh],
+                  acc[32 * j + 4 * j8 + 2 * hh + 1], p.out_f32);
+    }
+  }
+}
+
+template <bool DROP>
+__global__ void __launch_bounds__(THREADS, 1)
+    wgmma_dkdv_from_s_kernel(const __grid_constant__ Maps maps, const BwdParams p,
+                             const int stages) {
+  extern __shared__ unsigned char smem_raw[];
+  // Boxes on 1024 B boundaries: the 128 B swizzle's atom.
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const int nv = p.Dv / COLS, nv0 = (nv + 1) / 2;
+  const Smem sm = carve(base, nv, stages);
+  const Block k = block_of(p);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], CONSUMER_WARPS);
+    }
+    mbar_init(sm.v_full, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0)
+      produce(maps, p, sm, k, stages, nv, nv0);
+    else if (threadIdx.x >= 32)
+      zero_above_band(p, k);
+  } else {
+    setmaxnreg_inc<232>();
+    if (threadIdx.x < 256)
+      consume<0, DROP>(p, sm, k, stages, nv, nv0);
+    else
+      consume<1, DROP>(p, sm, k, stages, nv, nv0);
+  }
+}
+
+// The host side of one launch: tensor maps, shared memory, the grid (every
+// 64-column KV tile of the slab, so each of its columns is written).
+cudaError_t launch(const BwdParams& p, const Plan& pl, int B, cudaStream_t stream) {
+  Maps maps;
+  memset(&maps, 0, sizeof(maps));
+  const uint64_t mq = p.nq > 0 ? p.nq : 1, mkv = p.nkv > 0 ? p.nkv : 1;
+  cudaError_t e = encode_3d(&maps.s_map, false, p.ds, p.ds_ld, p.ds_rows, (uint64_t)B * p.Hq,
+                            (uint64_t)p.ds_ld * 2, (uint64_t)p.ds_rows * p.ds_ld * 2, COLS, QROWS);
+  if (e == cudaSuccess)
+    e = encode_3d(&maps.do_map, false, p.dout, p.Dv, mq, (uint64_t)B * p.Hq, (uint64_t)p.Dv * 2,
+                  mq * p.Dv * 2, COLS, QROWS);
+  if (e == cudaSuccess)
+    e = encode_3d(&maps.v_map, false, p.v, p.Dv, mkv, (uint64_t)B * p.Hkv, (uint64_t)p.Dv * 2,
+                  mkv * p.Dv * 2, COLS, ROWS);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(p.ds_ld / ROWS, p.Hkv, B);
+  auto kern = p.dropout_p > 0.f ? wgmma_dkdv_from_s_kernel<true>
+                                : wgmma_dkdv_from_s_kernel<false>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
+  if (e != cudaSuccess) return e;
+  if (grid.x * grid.y * grid.z == 0) return cudaSuccess;
+  kern<<<grid, THREADS, pl.smem, stream>>>(maps, p, pl.stages);
+  return cudaGetLastError();
+}
+
+}  // namespace from_s
+
 template <typename K>
 cudaError_t launch(K kern, dim3 grid, size_t smem, const BwdParams& p, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1809,9 +2299,13 @@ extern "C" int ffpa_bwd_dq(const void* q, const void* k, const void* v, const vo
                                       dq_smem_bytes<__nv_bfloat16>(32, D, Dv), p, st));
 }
 
-// S-resident dK/dV (bf16): the slab holds S on entry and dS on return.
-// kv_tile 64 takes dK out of kernel (Dv <= 512); kv_tile 32 takes dV up to
-// 1024 columns, or dK and dV up to 512 each with dk_in_kernel.
+// S-resident dK/dV (bf16): the slab holds S on entry and dS on return. The
+// route is from_s::make_plan's, by Dv and dk_in_kernel alone: dK out of the
+// kernel at Dv <= 512 takes the wgmma block (a slab of 64-column tiles);
+// dK in the kernel (D, Dv <= 512) and dK out at Dv up to 1024 the mma.sync
+// kernel (32-column tiles). kv_tile is not read: it stays in the argument
+// list, which libraries built from older sources share (they take 64 for
+// dK out at Dv <= 512, else 32).
 extern "C" int ffpa_bwd_dkdv_from_s(const void* q, const void* v, const void* dout,
                                     const float* lse, const float* delta, void* slab, void* dk,
                                     void* dv, int dk_in_kernel, int kv_tile, int out_f32, int B,
@@ -1819,6 +2313,7 @@ extern "C" int ffpa_bwd_dkdv_from_s(const void* q, const void* v, const void* do
                                     int ds_rows, int ds_ld, float scale, float softcap,
                                     int causal_offset, int window_right, float dropout_p,
                                     float dropout_inv, unsigned seed, void* stream) {
+  (void)kv_tile;
   BwdParams p = make_params(q, nullptr, v, dout, lse, delta, nullptr, 0, 0, 0, 0, nullptr, Hq,
                             Hkv, nq, nkv, D, Dv, scale, softcap, causal_offset, -1, window_right,
                             dropout_p, dropout_inv, seed, 0, 0);
@@ -1829,16 +2324,66 @@ extern "C" int ffpa_bwd_dkdv_from_s(const void* q, const void* v, const void* do
   p.ds_ld = ds_ld;
   p.out_f32 = out_f32;
   const bool dk_in = dk_in_kernel != 0;
-  if (D % CH != 0 || Dv % CH != 0 || ds_ld % kv_tile != 0 || ds_rows < nq || ds_ld < nkv ||
-      (kv_tile != 32 && kv_tile != 64) || (dk_in && (kv_tile != 32 || D > 512 || Dv > 512)) ||
-      (kv_tile == 64 && Dv > 512) || Dv > 1024)
+  if (D % CH != 0 || Dv <= 0 || Dv % CH != 0 || Hkv <= 0 || Hq % Hkv != 0 || nq <= 0 ||
+      ds_rows < nq || ds_ld < nkv || (dk_in && (D > 512 || Dv > 512)) || Dv > 1024)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(Hkv, B, ds_ld / kv_tile);
+  const from_s::Plan pl = from_s::make_plan(Dv, dk_in);
+  if (ds_ld % pl.kv_rows != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dk_in) return (int)launch(dkdv_from_s_kernel<32, true>, grid, from_s_smem_bytes<32>(Dv), p, st);
-  if (kv_tile == 64)
-    return (int)launch(dkdv_from_s_kernel<64, false>, grid, from_s_smem_bytes<64>(Dv), p, st);
-  return (int)launch(dkdv_from_s_kernel<32, false>, grid, from_s_smem_bytes<32>(Dv), p, st);
+  if (pl.route == from_s::WGMMA) return (int)from_s::launch(p, pl, B, st);
+  const dim3 grid(Hkv, B, ds_ld / KVT);
+  return (int)launch(dk_in ? dkdv_from_s_kernel<true> : dkdv_from_s_kernel<false>, grid, pl.smem,
+                     p, st);
+}
+
+// The route and tiling ffpa_bwd_dkdv_from_s takes at value head dim Dv (a
+// multiple of 64) and dk_in_kernel: out[0..4] are the route (1 wgmma, 0
+// mma.sync), a block's KV rows, the streamed Q rows, the ring's stages and
+// the dynamic shared-memory bytes; out[5] the number of dV column blocks
+// (the consumers' halves, or the whole block's), then (first column,
+// width) of each; cap is out's length.
+extern "C" int ffpa_bwd_from_s_plan(int Dv, int dk_in_kernel, int* out, int cap) {
+  if (Dv <= 0 || Dv % CH != 0 || cap < 10) return (int)cudaErrorInvalidValue;
+  const from_s::Plan pl = from_s::make_plan(Dv, dk_in_kernel != 0);
+  out[0] = pl.route;
+  out[1] = pl.kv_rows;
+  out[2] = pl.q_rows;
+  out[3] = pl.stages;
+  out[4] = (int)pl.smem;
+  if (pl.route == from_s::WGMMA) {
+    out[5] = 2;
+    out[6] = 0;
+    out[7] = pl.nv0 * CH;
+    out[8] = pl.nv0 * CH;
+    out[9] = Dv - pl.nv0 * CH;
+  } else {
+    out[5] = 1;
+    out[6] = 0;
+    out[7] = Dv;
+  }
+  return 0;
+}
+
+// Registers a thread (at launch, before setmaxnreg moves them between the
+// warpgroups) and local (spill) bytes a thread of a from-S kernel: route 1
+// the wgmma kernel (the registers of its instantiation without dropout,
+// the larger spill of the two), 0 dkdv_from_s_kernel with dK in the kernel
+// or not.
+extern "C" int ffpa_bwd_from_s_attrs(int route, int dk_in_kernel, int* regs, int* local_bytes) {
+  cudaFuncAttributes a, d;
+  cudaError_t e;
+  if (route == from_s::WGMMA) {
+    e = cudaFuncGetAttributes(&a, from_s::wgmma_dkdv_from_s_kernel<false>);
+    if (e == cudaSuccess) e = cudaFuncGetAttributes(&d, from_s::wgmma_dkdv_from_s_kernel<true>);
+    if (e == cudaSuccess) a.localSizeBytes = std::max(a.localSizeBytes, d.localSizeBytes);
+  } else {
+    e = dk_in_kernel ? cudaFuncGetAttributes(&a, dkdv_from_s_kernel<true>)
+                     : cudaFuncGetAttributes(&a, dkdv_from_s_kernel<false>);
+  }
+  if (e != cudaSuccess) return (int)e;
+  *regs = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
+  return 0;
 }
 
 // Causal dK = scale * dS^T Q from the slab (bf16). The kernel picks its own

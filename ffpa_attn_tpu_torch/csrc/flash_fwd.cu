@@ -426,15 +426,6 @@ namespace fwd {
 
 using namespace ffpa::sm90;
 
-// 2^x by the special-function unit's approximation, without the range
-// handling of exp2f: the softmax's exponents are <= 0, and results below
-// 2^-126 flush to 0, where the row sum cannot see them.
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 constexpr int ROWS = 64;                     // Q rows of a block
 constexpr int COLS = 64;                     // columns of a box (128 B of 16-bit)
 static_assert(ROWS * COLS * 2 == BOX_BYTES && KV_TILE == 64, "Q, K and V boxes are 64 x 64");

@@ -270,6 +270,27 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t
 #undef FFPA_ACC32
 #undef FFPA_ACC8
 
+// Four 8 x 8 matrices of 16-bit elements to shared memory, transposed:
+// lane l gives the address of row l % 8 of matrix l / 8; thread t's r[m]
+// holds elements (t / 4, 2 (t % 4)) and (t / 4, 2 (t % 4) + 1) of matrix m
+// before the transpose (an accumulator fragment), which land in rows
+// 2 (t % 4) and 2 (t % 4) + 1 at column t / 4. ldmatrix.trans's inverse.
+__device__ __forceinline__ void stsm_x4_trans(void* p, const uint32_t (&r)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   cvta_smem(p)),
+               "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+               : "memory");
+}
+
+// 2^x by the special-function unit's approximation, without the range
+// handling of exp2f: the softmax's exponents are <= 0, and results below
+// 2^-126 flush to 0, where a row sum cannot see them.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // A 64 x 64 box of 16-bit elements (128 B rows): the unit TMA loads and a
 // wgmma k16 step reads, 8 KB on a 1024 B boundary.
 constexpr int BOX_BYTES = 64 * 64 * 2;

@@ -51,12 +51,18 @@ never refused by the card.
     forward's O tile, with Q and dO resident.
   - S-resident tier (bf16): the forward's S residual costs no shared
     memory (it is stored from the softmax's registers). The from-S dK/dV
-    block keeps V resident and streams the S tile, dO and (dK in kernel)
-    Q through the ring: with dK out of kernel it owns 64 KV rows at
-    Dv <= 512 (the fp32 dV tile alone takes the 64 registers) and 32 up
-    to 1024; with dK in kernel 32 rows and at most 512 columns of each,
-    because a second column pass would read S after the first had
-    overwritten it with dS.
+    pass has two routes, by Dv and ``dkdv_dk_in_kernel`` alone
+    (``from_s_plan`` mirrors the launcher's ``from_s::make_plan``). dK
+    out of the kernel at Dv <= 512 takes a TMA + wgmma block (namespace
+    ``from_s``): 384 threads own 64 KV rows with V resident in 64 x 64
+    boxes, a producer warpgroup streams each 64-row Q tile's S box and dO
+    boxes through a ring of two-box stages, and two consumer warpgroups
+    each compute dP^T for half of the tile's Q columns and own half of
+    the fp32 dV tile's columns. dK in the kernel, and Dv up to 1024, take
+    the mma.sync block: 32 KV rows with V resident, the S tile, dO and
+    (dK in kernel) Q through the chunk ring; with dK in the kernel at
+    most 512 columns of each, because a second column pass would read S
+    after the first had overwritten it with dS.
 * Banded dQ and banded dK (``csrc/flash_bwd.cu`` namespace ``band``, TMA +
   wgmma, ``csrc/sm90.cuh``): a block of 384 threads (a producer warpgroup,
   two consumer warpgroups) owns 128 output rows (Q rows for dQ, KV rows
@@ -113,6 +119,16 @@ _FWD_WG_MAX_D = 512
 _FWD_WG_STAGE_BOXES = 2
 _FWD_WG_STAGES = 8
 _FWD_WG_XCH_BYTES = 2 * 64 * 4
+# Compile-time constants of the wgmma from-S block (flash_bwd.cu namespace
+# from_s: ROWS, QROWS, MAX_BOXES * 64, MAX_STAGES), not settings:
+# from_s_plan mirrors the launcher with them.
+_FROM_S_WG_ROWS = 64
+_FROM_S_WG_Q_ROWS = 64
+_FROM_S_WG_MAX_DV = 512
+_FROM_S_WG_MAX_STAGES = 12
+# The from-S pass's widest dV: 1024 columns in the mma.sync block's
+# registers.
+FROM_S_MAX_DV = 1024
 # Compile-time constants of the banded dQ / dK blocks (flash_bwd.cu
 # namespace band: ROWS, KT, MAX_CHUNKS * COLS, STAGES), not settings:
 # banded_plan mirrors the launcher with them.
@@ -344,30 +360,64 @@ def varlen_bwd_fits(block_q: int, d: int, dv: int, itemsize: int = 2) -> bool:
     )
 
 
-def from_s_kv_tile(dv: int, dk_in_kernel: bool) -> int:
-    """KV rows of one from-S dK/dV block: 64 when its fp32 dV tile alone
-    fits the registers (dK out of kernel, Dv <= 512), else 32."""
-    return 64 if not dk_in_kernel and _round_up(dv, D_CHUNK) <= DKDV_MAX_COLS else 32
+@dataclass(frozen=True)
+class FromSPlan:
+    """The route and tiling of one from-S dK/dV launch, as
+    ``csrc/flash_bwd.cu`` ``from_s::make_plan`` computes it (the library
+    hands its own out through ``flash_bwd.from_s_kernel_plan``; the card
+    test holds the two equal).
+
+    ``route`` is "wgmma" (dK out of the kernel, Dv <= 512) or "mma_sync";
+    ``kv_rows`` a block's KV rows (the slab's column tile), ``q_rows`` the
+    streamed Q rows, ``stages`` the ring's depth, ``smem_bytes`` the
+    dynamic shared memory a block asks for and ``dv_blocks`` the (first
+    column, width) of dV each consumer owns (one block on mma.sync; a
+    width may be 0).
+    """
+
+    route: str
+    kv_rows: int
+    q_rows: int
+    stages: int
+    smem_bytes: int
+    dv_blocks: tuple
 
 
-def dkdv_from_s_smem_bytes(dv: int, kv_tile: int, itemsize: int = 2) -> int:
-    """Shared memory of one from-S dK/dV block: resident V [kv_tile, Dv] +
-    the ring of 128-row slots (S tile, dO and Q chunks) + P and dS
-    [kv_tile, 128] + the Q tile's lse and delta. No K tile (S is read, not
-    recomputed); D costs registers only."""
-    v_res = kv_tile * (_round_up(dv, D_CHUNK) + _PAD_T)
+def from_s_plan(dv: int, dk_in_kernel: bool, itemsize: int = 2) -> FromSPlan:
+    """The from-S route by Dv (padded to 64-column chunks) and
+    ``dk_in_kernel`` alone: dK out of the kernel at Dv <= 512 takes the
+    wgmma block, consumer 0 owning the first ceil(nv / 2) of Dv's nv boxes,
+    with as many ring stages (two 64 x 64 boxes each, at most 12) as fit
+    beside V and the P and dS boxes; otherwise the mma.sync block: 32 KV
+    rows, resident V [32, Dv], the ring of 128-row slots (S tile, dO and Q
+    chunks), P and dS [32, 128] and the Q tile's lse and delta (no K tile:
+    S is read, not recomputed; D costs registers only)."""
+    nv = cdiv(dv, D_CHUNK)
+    if not dk_in_kernel and nv * D_CHUNK <= _FROM_S_WG_MAX_DV:
+        box = _FROM_S_WG_Q_ROWS * D_CHUNK * itemsize
+        fixed = (nv + 2) * box + 1024 + 8
+        stage = 2 * box + 16
+        stages = min(_FROM_S_WG_MAX_STAGES, (SMEM_LIMIT_BYTES - fixed) // stage)
+        nv0 = cdiv(nv, 2)
+        return FromSPlan("wgmma", _FROM_S_WG_ROWS, _FROM_S_WG_Q_ROWS, stages,
+                         fixed + stages * stage,
+                         ((0, nv0 * D_CHUNK), (nv0 * D_CHUNK, (nv - nv0) * D_CHUNK)))
+    v_res = DKDV_KV_TILE * (nv * D_CHUNK + _PAD_T)
     ring = FWD_STREAM_STAGES * DKDV_Q_TILE * (D_CHUNK + _PAD_T)
-    p_ds = 2 * kv_tile * (DKDV_Q_TILE + _PAD_T)
-    return (v_res + ring + p_ds) * itemsize + 2 * DKDV_Q_TILE * 4
+    p_ds = 2 * DKDV_KV_TILE * (DKDV_Q_TILE + _PAD_T)
+    smem = (v_res + ring + p_ds) * itemsize + 2 * DKDV_Q_TILE * 4
+    return FromSPlan("mma_sync", DKDV_KV_TILE, DKDV_Q_TILE, FWD_STREAM_STAGES, smem,
+                     ((0, nv * D_CHUNK),))
 
 
 def from_s_fits(d: int, dv: int, dk_in_kernel: bool, itemsize: int = 2) -> bool:
     """Whether the from-S kernel takes (D, Dv): dK in kernel only in one
-    column pass (at most 512 columns of each); dV alone up to 1024."""
+    column pass (at most 512 columns of each); dV alone up to 1024; and
+    the planned block in shared memory."""
     dp, dvp = _round_up(d, D_CHUNK), _round_up(dv, D_CHUNK)
-    cols_ok = (dp <= DKDV_MAX_COLS and dvp <= DKDV_MAX_COLS) if dk_in_kernel else dvp <= 1024
-    kv = from_s_kv_tile(dv, dk_in_kernel)
-    return cols_ok and dkdv_from_s_smem_bytes(dv, kv, itemsize) <= SMEM_LIMIT_BYTES
+    cols_ok = (dp <= DKDV_MAX_COLS and dvp <= DKDV_MAX_COLS) if dk_in_kernel else \
+        dvp <= FROM_S_MAX_DV
+    return cols_ok and from_s_plan(dv, dk_in_kernel, itemsize).smem_bytes <= SMEM_LIMIT_BYTES
 
 
 @dataclass(frozen=True)
@@ -527,8 +577,9 @@ __all__ = [
     "varlen_dq_smem_bytes",
     "varlen_bwd_fits",
     "dq_fits",
-    "from_s_kv_tile",
-    "dkdv_from_s_smem_bytes",
+    "FROM_S_MAX_DV",
+    "FromSPlan",
+    "from_s_plan",
     "from_s_fits",
     "BandedPlan",
     "banded_plan",

@@ -92,11 +92,13 @@ def pick_paged_config(*, dv: int, dtype: torch.dtype, rows: int,
 
 # The from-S dK/dV pass keeps dK in the kernel up to this many keys and
 # leaves it to banded dK (causal) or one product (otherwise) beyond. Set by
-# tools/torch_from_s_probe.py on an H100 (B1 H8/4 causal bf16, D320 and
-# D512): dK in the kernel was faster at Nkv 1024 and 2048, dK out of it
-# (its 64-row KV tile, dV alone in the registers) plus banded dK at 4096 and
-# 8192 (7.37 against 9.65 ms at N8192 D512).
-FROM_S_DK_IN_MAX_NKV = 2048
+# tools/torch_from_s_probe.py on an H100 80GB HBM3 at 700 W (B1 H8/4 causal
+# bf16, device ms): dK out of the kernel (the wgmma route) plus banded dK
+# beat dK in the kernel (mma.sync) at every Nkv from 256 to 8192, at D320
+# (0.0365 against 0.0581 at N256, 1.7015 against 6.7622 at N8192) and at
+# D512 (0.0444 against 0.0797, 2.1640 against 9.6914). So dK stays in the
+# kernel only when a config asks for it.
+FROM_S_DK_IN_MAX_NKV = 0
 
 
 def pick_backward_config(
@@ -106,8 +108,8 @@ def pick_backward_config(
     the shape only sets its column passes (one per 512 columns of dK and of
     dV). The dQ row tile is the tallest that fits (a taller tile divides
     the K/V re-reads), shrunk to 32 for short queries. The from-S pass
-    keeps dK in the kernel for short key ranges where one column pass holds
-    it (``FROM_S_DK_IN_MAX_NKV``)."""
+    keeps dK in the kernel for key ranges up to ``FROM_S_DK_IN_MAX_NKV``
+    (none since the wgmma route) where one column pass holds it."""
     itemsize = torch.empty((), dtype=dtype).element_size()
     dk_in = nkv <= FROM_S_DK_IN_MAX_NKV and from_s_fits(d, dv, True, itemsize)
     for bq in FWD_ROW_TILES:

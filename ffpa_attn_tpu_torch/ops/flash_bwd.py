@@ -70,12 +70,13 @@ from .config import (
     BandedPlan,
     BlockConfig,
     DkdvPlan,
+    FromSPlan,
     banded_plan,
     cdiv,
     dkdv_col_passes,
     dkdv_plan,
     from_s_fits,
-    from_s_kv_tile,
+    from_s_plan,
 )
 from .flash_fwd import _bias_strides, _pad_last, check_kernel_inputs, dropout_args
 from .reference import DEFAULT_MASK_VALUE, expand_kv_heads, reduce_q_heads
@@ -238,6 +239,8 @@ _ARGTYPES = {
     "ffpa_bwd_banded_plan": [_I, ctypes.POINTER(ctypes.c_int), _I],
     "ffpa_bwd_dkdv_attrs": [_I] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2,
     "ffpa_bwd_dkdv_plan": [_I, _I, ctypes.POINTER(ctypes.c_int), _I],
+    "ffpa_bwd_from_s_attrs": [_I] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2,
+    "ffpa_bwd_from_s_plan": [_I, _I, ctypes.POINTER(ctypes.c_int), _I],
 }
 
 
@@ -452,6 +455,32 @@ def dkdv_kernel_plan(d: int, dv: int) -> DkdvPlan:
                     out[5], tuple(bl[:2] for bl in blocks), tuple(bl[2:] for bl in blocks))
 
 
+def from_s_kernel_attrs(route: str, dk_in_kernel: bool = False) -> dict:
+    """Registers a thread (at launch, before setmaxnreg) and local (spill)
+    bytes of the from-S kernel of ``route`` ("wgmma" or "mma_sync", the
+    latter with dK in the kernel or not), from cudaFuncGetAttributes.
+    Needs a card."""
+    lib = _bwd_lib()
+    regs, local = ctypes.c_int(0), ctypes.c_int(0)
+    err = lib.ffpa_bwd_from_s_attrs(int(route == "wgmma"), int(dk_in_kernel), ctypes.byref(regs),
+                                    ctypes.byref(local))
+    _build.check(lib, err, "from-S kernel attributes")
+    return {"registers": regs.value, "local_bytes": local.value}
+
+
+def from_s_kernel_plan(dv: int, dk_in_kernel: bool) -> FromSPlan:
+    """The route and tiling the from-S launcher takes at value head dim
+    ``dv`` (padded to 64-column chunks), read from the library: what
+    ``config.from_s_plan`` mirrors. Needs a card."""
+    lib = _bwd_lib()
+    out = (ctypes.c_int * 16)()
+    err = lib.ffpa_bwd_from_s_plan(cdiv(dv, D_CHUNK) * D_CHUNK, int(dk_in_kernel), out, len(out))
+    _build.check(lib, err, "from-S kernel plan")
+    blocks = tuple((out[6 + 2 * i], out[7 + 2 * i]) for i in range(out[5]))
+    return FromSPlan("wgmma" if out[0] == 1 else "mma_sync", out[1], out[2], out[3], out[4],
+                     blocks)
+
+
 def banded_kernel_attrs(dk: bool, dtype=torch.bfloat16) -> dict:
     """Registers a thread (at launch, before setmaxnreg) and local (spill)
     bytes of the banded dK (``dk``) or banded dQ kernel, from
@@ -557,7 +586,7 @@ def _dkdv_from_s_launch(
     _check_slab("_dkdv_from_s_launch", s_pad, q)
     check_kernel_inputs("_dkdv_from_s_launch", q, v, do.to(q.dtype))
     d_pad, dv_pad = cdiv(d, D_CHUNK) * D_CHUNK, cdiv(dv_dim, D_CHUNK) * D_CHUNK
-    kv_tile = from_s_kv_tile(dv_pad, dk_in)
+    plan = from_s_plan(dv_pad, dk_in)
     q_ = _pad_last(q, d_pad).contiguous()
     v_ = _pad_last(v, dv_pad).contiguous()
     do_ = _pad_last(do.to(q.dtype), dv_pad).contiguous()
@@ -566,14 +595,17 @@ def _dkdv_from_s_launch(
     dk = torch.empty((b, hkv, nkv, d_pad), dtype=wt, device=q.device) if dk_in else None
     dv = torch.empty((b, hkv, nkv, dv_pad), dtype=wt, device=q.device)
     if ENV.device_log_level() >= 2:
-        logger.info("dkdv_from_s launch grid=(%d,%d,%d) kv_tile=%d dk_in_kernel=%s D=%d Dv=%d",
-                    hkv, b, nkv_pad // kv_tile, kv_tile, dk_in, d_pad, dv_pad)
+        logger.info("dkdv_from_s launch route=%s kv_tiles=%d hkv=%d b=%d stages=%d "
+                    "dk_in_kernel=%s D=%d Dv=%d", plan.route, nkv_pad // plan.kv_rows, hkv, b,
+                    plan.stages, dk_in, d_pad, dv_pad)
     lib = _bwd_lib()
     with torch.cuda.device(q.device):
         err = lib.ffpa_bwd_dkdv_from_s(
             q_.data_ptr(), v_.data_ptr(), do_.data_ptr(), lse_.data_ptr(), delta_.data_ptr(),
             s_pad.data_ptr(),
-            None if dk is None else dk.data_ptr(), dv.data_ptr(), int(dk_in), kv_tile, out_f32,
+            None if dk is None else dk.data_ptr(), dv.data_ptr(), int(dk_in),
+            plan.kv_rows,  # the launcher plans its own; a library of older sources reads it
+            out_f32,
             b, hq, hkv, nq, nkv, d_pad, dv_pad, nq_pad, nkv_pad, float(scale), float(softcap),
             int(causal_offset), 0 if is_causal else -1, *dropout_args(dropout_p, seed),
             torch.cuda.current_stream(q.device).cuda_stream,
@@ -586,6 +618,12 @@ def _dkdv_from_s_launch(
 
 
 _dkdv_from_s_launch.launches = 0
+
+# The from-S kernels' names as the profiler reports them: the mma.sync
+# ``dkdv_from_s_kernel<...>`` (dK in the kernel, Dv > 512, and every dK-out
+# launch of libraries built from sources before the wgmma route) and
+# ``from_s::wgmma_dkdv_from_s_kernel``. Timing tools match a kernel on any.
+FROM_S_KERNELS = ("dkdv_from_s_kernel<", "wgmma_dkdv_from_s_kernel")
 
 
 def _banded_dk_from_ds(ds_full, q, config, *, scale, group, nq, nkv, causal_offset, dk_dtype):
@@ -918,6 +956,7 @@ __all__ = [
     "_dq_launch",
     "_banded_dq_from_ds",
     "_dkdv_from_s_launch",
+    "FROM_S_KERNELS",
     "_banded_dk_from_ds",
     "_dk_from_ds",
     "_fit_blocks_to_scores",

@@ -179,10 +179,11 @@ def _launches():
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_grads_on_card_match_cpu(cuda, name, tier):
     """The kernels under autograd against the plain versions on the CPU:
-    the S-resident tier launches the from-S pass (dK in the kernel at these
-    lengths) and, under causal, banded dQ; the handoff tier dkdv and, under
-    causal, banded dQ; the recompute tier (and any windowed call) dkdv and
-    dq. Launch counts: (dkdv, dq, banded dQ, from-S, banded dK)."""
+    the S-resident tier launches the from-S pass (dK out of the kernel,
+    ``FROM_S_DK_IN_MAX_NKV``) and, under causal, banded dQ and banded dK;
+    the handoff tier dkdv and, under causal, banded dQ; the recompute tier
+    (and any windowed call) dkdv and dq. Launch counts: (dkdv, dq, banded
+    dQ, from-S, banded dK)."""
     case = CASES[name]
     x = _inputs(case, seed=3)
     before = _launches()
@@ -197,7 +198,7 @@ def test_grads_on_card_match_cpu(cuda, name, tier):
     elif tier == "handoff":
         assert launched == (1, 0, causal, 0, 0)
     else:
-        assert launched == (0, 0, causal, 1, 0)
+        assert launched == (0, 0, causal, 1, causal)
     for n in got:
         measure = grad_row_rel_err if n in "qkv" else rel_err
         assert measure(got[n], want[n]) < TOL["bfloat16"], n

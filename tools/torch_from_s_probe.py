@@ -7,7 +7,9 @@ Run on a machine with a card, from the repository root:
     python tools/torch_from_s_probe.py [--n 1024,2048,4096,8192] [--d 320,512]
 
 At each (N, D), causal B1 H8/4 bf16: the from-S kernel with dK in the kernel,
-the from-S kernel with dK out of it plus banded dK, and their difference.
+the from-S kernel with dK out of it plus banded dK, and their difference;
+each variant's route (``config.from_s_plan``: dK out of the kernel at
+D <= 512 runs the wgmma kernel, dK in it the mma.sync one).
 Times are device ms per call from torch.profiler (the from-S kernel alone,
 not the copy of S each call needs, since the pass writes dS over S). The S
 residual and (o, lse) come from the forward kernel. Prints one JSON line.
@@ -28,6 +30,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from ffpa_attn_tpu_torch.ops import flash_bwd, flash_fwd  # noqa: E402
+from ffpa_attn_tpu_torch.ops.config import from_s_plan  # noqa: E402
 from ffpa_attn_tpu_torch.ops.dispatch import pick_backward_config  # noqa: E402
 from ffpa_attn_tpu_torch.utils.profiling import device_window  # noqa: E402
 
@@ -80,7 +83,7 @@ def main() -> int:
                 t["dk_in" if dk_in else "dk_out"] = kernel_ms(
                     lambda c=c: flash_bwd._dkdv_from_s_launch(q, v, s.clone(), do, lse, delta,
                                                               0, c, **kw),
-                    ("dkdv_from_s_kernel",), args.reps)
+                    flash_bwd.FROM_S_KERNELS, args.reps)
             t["banded_dk"] = kernel_ms(lambda: flash_bwd._banded_dk_from_ds(
                 s, q, cfg, scale=scale, group=hq // hkv, nq=n, nkv=n, causal_offset=0,
                 dk_dtype=torch.bfloat16), BANDED_DK, args.reps)
@@ -92,7 +95,9 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60,
                          check=True).stdout.strip().splitlines()[0]
-    print(json.dumps({"card": smi, "device_ms": out}))
+    routes = {f"D{d}": {tag: from_s_plan(d, tag == "dk_in").route for tag in ("dk_in", "dk_out")}
+              for d in (int(x) for x in args.d.split(","))}
+    print(json.dumps({"card": smi, "routes": routes, "device_ms": out}))
     return 0
 
 

@@ -28,7 +28,9 @@ wrappers passed, ``LegacyBanded``):
   recompute backward);
 * from_s (the from-S dK/dV pass with dK out of the kernel, on a fresh copy
   of the S residual each call: it overwrites S with dS) and banded_dk: the
-  same shape as dkdv (the S-resident backward of the training step);
+  same shape as dkdv (the S-resident backward of the training step). At
+  D512 the head library runs its wgmma route, a base built from older
+  sources the mma.sync kernel;
 * varlen_fwd: the serving packing of continuous batching (prompts of 589,
   698, 763 and 886 tokens, H8/4 D512 causal bf16);
 * paged_decode: the serving step over bf16 pools (B4, lens 64 tokens into
@@ -44,11 +46,11 @@ the from-S kernel's alone, without the copy of S). The forward's runs are
 held against the plain version per output: O per row at the bf16 forward
 tolerance 2e-2, lse at 1e-4 of max|lse|, the S residual per row on the
 causal band at 1e-2. dkdv (dK, dV and the slab) is held against its plain
-version, banded_dq and banded_dk against theirs on the slab each tree's
-own dK/dV (or from-S) kernel wrote, per row at the bf16 gradient tolerance
+version, from_s (dV and the slab) against its own, banded_dq and banded_dk
+against theirs on the slab each tree's own dK/dV (or from-S) kernel wrote, per row at the bf16 gradient tolerance
 5e-2 (a row's floor at 1e-3 of the tensor's max). A miss exits 1.
 max|diff| head vs base is given per output (the forward: O, lse, S; dkdv:
-dK, dV, slab). Prints one JSON line.
+dK, dV, slab; from_s: dV, slab). Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -84,9 +86,9 @@ SOURCE = {"flash_fwd": "flash_fwd", "flash_fwd_scores": "flash_fwd",
           "banded_dq": "flash_bwd", "dq": "flash_bwd", "from_s": "flash_bwd",
           "banded_dk": "flash_bwd", "varlen_fwd": "varlen_fwd", "paged_decode": "paged_decode",
           "varlen_dkdv": "varlen_bwd", "varlen_dq": "varlen_bwd"}
-# kernel -> the substring of its CUDA kernel's name, where a run also
-# launches other kernels that are not timed
-ONLY = {"from_s": "dkdv_from_s_kernel"}
+# kernel -> the substrings of its CUDA kernels' names (either route), where a
+# run also launches other kernels that are not timed
+ONLY = {"from_s": flash_bwd.FROM_S_KERNELS}
 # kernels whose C entry point an older tree may lack
 ENTRY = {"from_s": "ffpa_bwd_dkdv_from_s", "banded_dk": "ffpa_bwd_banded_dk",
          "varlen_fwd": "ffpa_varlen_fwd", "paged_decode": "ffpa_paged_decode",
@@ -239,10 +241,10 @@ def make_runs(gen) -> tuple:
     lse, delta = state[(-1, -1)]
 
     def run_from_s():
-        slab = flash_bwd._dkdv_from_s_launch(tq, tv, s_pad.clone(), tdo, lse, delta, 0, s_cfg,
-                                             grad_kv_storage_dtype=None, **kw)[2]
+        _, dv, slab = flash_bwd._dkdv_from_s_launch(tq, tv, s_pad.clone(), tdo, lse, delta, 0,
+                                                    s_cfg, grad_kv_storage_dtype=None, **kw)
         state["s_ds"] = slab
-        return slab
+        return dv, slab
 
     def run_banded_dk():
         if "s_ds" not in state:
@@ -333,6 +335,9 @@ def make_runs(gen) -> tuple:
         "dkdv": dkdv_plain,
         "banded_dq": lambda: flash_bwd._banded_dq_plain(state["ds"], tk, scale=scale, nq=nt,
                                                         nkv=nt),
+        "from_s": lambda: flash_bwd._dkdv_from_s_plain(
+            tq, tv, s_pad, tdo, lse, delta, scale=scale, is_causal=True, causal_offset=0,
+            dropout_p=0.0, seed=0, softcap=0.0, dk_in_kernel=False)[1:],
         "banded_dk": lambda: flash_bwd._banded_dk_plain(state["s_ds"], tq, scale=scale, nq=nt,
                                                         nkv=nt, hkv=hkv),
     })
@@ -374,7 +379,11 @@ def main() -> int:
             reps = 5 * args.reps if k in ("decode", "paged_decode") else args.reps
             if k in ONLY:
                 w = device_window(runs[k], reps=reps, warmup=3)["by_kernel"]
-                times[tag][k].append(sum(ms for n, ms in w.items() if ONLY[k] in n) / reps)
+                hits = [ms for n, ms in w.items() if any(o in n for o in ONLY[k])]
+                if not hits:
+                    raise RuntimeError(f"no kernel named like {ONLY[k]} ran for {k}; the "
+                                       f"profiler saw {sorted(w)}")
+                times[tag][k].append(sum(hits) / reps)
             else:
                 times[tag][k].append(device_ms(runs[k], reps=reps))
             reset()
