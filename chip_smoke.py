@@ -11,7 +11,8 @@ It imports only ``ffpa_attn_tpu_torch``, torch and numpy, and runs, in order:
    card, at the serving and training shapes and at feature cases, with
    stated tolerances: the forward on both of its routes (wgmma at D, Dv
    <= 512, mma.sync above) and its S residual, decode (and its
-   score residual), dkdv, dq, banded dQ, the from-S dK/dV pass in both
+   score residual), dkdv, dq (both routes, D != Dv, fp16, fp32 dQ
+   storage), banded dQ, the from-S dK/dV pass in both
    variants and banded dK (a slab NaN outside the band among them), the
    packed varlen forward, the varlen dK/dV and dQ kernels (bf16 and fp16
    feature cases) and paged decode (bf16 and int8 pools);
@@ -49,9 +50,11 @@ It imports only ``ffpa_attn_tpu_torch``, torch and numpy, and runs, in order:
    torch.profiler, CUDA-event time beside it); the forward's time a launch
    at the training shape from the handoff step's profile, and timed alone
    there without and with the S residual beside its bound and SDPA; the
-   forward's and the dK/dV route's plans held equal to their mirrors,
-   their registers and spill bytes, and ptxas's log free of wgmma
-   serialization notes for the forward;
+   forward's, the dK/dV route's and the dQ route's plans held equal to
+   their mirrors, their registers and spill bytes, and ptxas's log free of
+   wgmma serialization notes; each backward kernel's device ms logged
+   beside its CUDA-event ms and its bound, and timed again once where it
+   reads below the bound (the phase fails if it stays below);
    banded dQ, banded dK and dK/dV also at the op-level shape (H32 MHA)
    with their TFLOP/s;
 7. the ``kernels`` line.
@@ -251,21 +254,26 @@ def _decode_case(name, *, b=1, hkv=4, group=2, nq=1, nkv=MAX_LEN, d=512, dtype=t
     return max_abs(o, po)
 
 
-def _bwd_case(name, *, b=1, hq=8, hkv=4, nq, nkv, d=512, dtype=torch.bfloat16, causal=True,
-              bias=None, softcap=0.0, window=(-1, -1), alibi=False, dropout=0.0, seed=0):
+def _bwd_case(name, *, b=1, hq=8, hkv=4, nq, nkv, d=512, dv=None, dtype=torch.bfloat16,
+              causal=True, bias=None, softcap=0.0, window=(-1, -1), alibi=False, dropout=0.0,
+              grad_q=None, seed=0):
     """The three backward kernels against their plain versions on the same
-    inputs: dkdv without and with the dS slab, dq (with dbias for a bias)
-    and, under causal, banded dQ from the kernel's slab. (o, lse) come from
-    the forward kernel."""
+    inputs: dkdv without and with the dS slab, dq (with dbias for a bias;
+    stored in ``grad_q``'s type, "f32" or the input type) and, under
+    causal, banded dQ from the kernel's slab. (o, lse) come from the
+    forward kernel."""
     from ffpa_attn_tpu_torch.ops import flash_bwd, flash_fwd
-    from ffpa_attn_tpu_torch.ops.config import DKDV_Q_TILE, DKDV_SLAB_COLS, cdiv, dkdv_plan
+    from ffpa_attn_tpu_torch.ops.config import (
+        DKDV_Q_TILE, DKDV_SLAB_COLS, cdiv, dkdv_plan, dq_plan,
+    )
     from ffpa_attn_tpu_torch.ops.dispatch import pick_backward_config
 
+    dv = d if dv is None else dv
     gen = torch.Generator(device="cuda").manual_seed(100 + seed)
     q = _randn((b, hq, nq, d), dtype, gen)
     k = _randn((b, hkv, nkv, d), dtype, gen)
-    v = _randn((b, hkv, nkv, d), dtype, gen)
-    do = _randn((b, hq, nq, d), dtype, gen)
+    v = _randn((b, hkv, nkv, dv), dtype, gen)
+    do = _randn((b, hq, nq, dv), dtype, gen)
     bias_t = None
     if bias == "full":
         bias_t = _randn((b, 1, nq, nkv), torch.float32, gen)
@@ -277,7 +285,7 @@ def _bwd_case(name, *, b=1, hq=8, hkv=4, nq, nkv, d=512, dtype=torch.bfloat16, c
         q, k, v, bias_t, scale=scale, is_causal=causal, dropout_p=dropout, dropout_seed=seed,
         softcap=softcap, window=window, alibi_slopes=al)
     delta = (do.float() * o.float()).sum(-1)
-    cfg = pick_backward_config(d=d, dv=d, nq=nq, nkv=nkv, dtype=dtype)
+    cfg = pick_backward_config(d=d, dv=dv, nq=nq, nkv=nkv, dtype=dtype)
     plain_kw = dict(is_causal=causal, causal_offset=nkv - nq, dropout_p=dropout, seed=seed,
                     softcap=softcap, window=window, alibi=al)
     kern_kw = dict(scale=scale, is_causal=causal, causal_offset=nkv - nq, dropout_p=dropout,
@@ -307,15 +315,18 @@ def _bwd_case(name, *, b=1, hq=8, hkv=4, nq, nkv, d=512, dtype=torch.bfloat16, c
         del pbq
     del kds
     kdq, kdb = flash_bwd._dq_launch(q, k, v, bias_t, do, lse, delta, seed, cfg,
-                                    grad_q_storage_dtype=None, **kern_kw)
+                                    grad_q_storage_dtype=grad_q, **kern_kw)
     torch.cuda.synchronize()
     pdq, pdb = flash_bwd._dq_plain(q, k, v, bias_t, do, lse, delta, scale=scale,
                                    emit_dbias=bias_t is not None, **plain_kw)
     errs["dq"] = grad_row_rel(kdq, pdq)
     if bias_t is not None:
         errs["dbias"] = rel(kdb, flash_bwd._dbias_from_ds(pdb, bias_t))
-    ok = all(e < tol for e in errs.values()) and bool(torch.isfinite(kdq).all())
-    log(f"  bwd {name:<22} dkdv route {dkdv_plan(d, d).route} "
+    want_dt = torch.float32 if grad_q == "f32" else dtype
+    ok = (all(e < tol for e in errs.values()) and bool(torch.isfinite(kdq).all())
+          and kdq.dtype == want_dt)
+    log(f"  bwd {name:<22} dkdv route {dkdv_plan(d, dv).route}, dq route "
+        f"{dq_plan(d, dv).route} ({kdq.dtype}) "
         + " ".join(f"{n} {e:.2e}" for n, e in errs.items())
         + f" (tol {tol:g}, per row) {'ok' if ok else 'FAIL'}")
     if not ok:
@@ -662,6 +673,17 @@ def phase_kernels_vs_plain() -> dict:
     _bwd_case("d1024", nq=1024, nkv=1024, d=1024, seed=9)  # the mma.sync dK/dV route
     _bwd_case("fp16", nq=1024, nkv=1024, dtype=torch.float16, seed=10)
     _bwd_case("batch2_bias_alibi", b=2, nq=1024, nkv=1100, bias="full", alibi=True, seed=11)
+    # D != Dv on the wgmma routes: K, V and Q, dO stream different box
+    # counts; at D 64 dq's consumer 1 owns no dQ columns. fp16 with a bias,
+    # and dQ stored in fp32.
+    _bwd_case("d512_dv128", nq=1024, nkv=1100, d=512, dv=128, seed=14)
+    _bwd_case("d128_dv512", nq=1024, nkv=1100, d=128, dv=512, seed=15)
+    _bwd_case("d512_dv64", nq=1000, nkv=1100, d=512, dv=64, seed=16)
+    _bwd_case("d64_dv512", nq=1000, nkv=1100, d=64, dv=512, seed=17)
+    _bwd_case("d512_dv64_fp16_bias", nq=1000, nkv=1100, d=512, dv=64, dtype=torch.float16,
+              bias="full", seed=18)
+    _bwd_case("dq_f32_window_dropout", nq=1024, nkv=1024, window=(256, -1), dropout=0.1,
+              grad_q="f32", seed=19)
     # The S-resident tier: the forward's S residual, the from-S dK/dV kernel
     # in both variants, banded dK and banded dQ from its slab; the training
     # shape (N8192) is held in s_resident_times, beside its times.
@@ -1437,7 +1459,7 @@ def phase_windowed() -> dict:
         f"step {per_step}")
     if not all(math.isfinite(x) for x in losses):
         fail(f"windowed losses must be finite: {losses}")
-    return dict(launches=launches)
+    return dict(launches=launches, step_ms=times[-1])
 
 
 def phase_tiny_training() -> None:
@@ -1774,8 +1796,20 @@ def training_times(training: dict, windowed: dict, resident: dict) -> tuple:
     ve = expand_kv_heads(v, hq).detach().requires_grad_()
     rows, events = [], {}
 
-    def row(name, replaces, launches, err, kms, pms, lms, flops, nbytes):
+    def row(name, replaces, launches, err, kms, pms, lms, flops, nbytes, retime):
+        # kms: (device ms from the profiler, CUDA-event ms). A device reading
+        # below the bound means the profiler lost events: time again once
+        # with ``retime``, and fail with both readings if it stays below.
         bms, bby = bound_ms(flops, nbytes)
+        log(f"  {name}: device {kms[0]:.4f} ms, CUDA events {kms[1]:.4f} ms, bound {bms:.4f} ms "
+            f"({bby})")
+        if kms[0] < bms:
+            first, kms = kms, retime()
+            log(f"  {name}: device reading below the bound, timed again: device {kms[0]:.4f} "
+                f"ms, CUDA events {kms[1]:.4f} ms")
+            if kms[0] < bms:
+                fail(f"{name} reads below its bound {bms:.4f} ms twice: device {first[0]:.4f} "
+                     f"and {kms[0]:.4f} ms, CUDA events {first[1]:.4f} and {kms[1]:.4f} ms")
         rows.append(dict(
             name=name, route="cuda", source="ffpa_attn_tpu_torch/csrc/flash_bwd.cu",
             replaces=replaces, launches=launches, max_abs_err=err, ms=kms[0],
@@ -1828,7 +1862,7 @@ def training_times(training: dict, windowed: dict, resident: dict) -> tuple:
             flops, nbytes = backward_counts("dkdv", b=b, hq=hq, hkv=hkv, nq=n, nkv=n, d=d, dv=d,
                                             causal=True, slab_bytes=b * hq * n * n * 2)
             row("dkdv", "ffpa_attn_tpu/ops/flash_bwd.py:194", training["launches"]["dkdv"],
-                err, kms, pms, lib, flops, nbytes)
+                err, kms, pms, lib, flops, nbytes, lambda: _timed(run_dkdv, 10))
             rows[-1].update(dkdv_kernel_row_extras(d))
 
             def run_banded():
@@ -1852,7 +1886,8 @@ def training_times(training: dict, windowed: dict, resident: dict) -> tuple:
             log(f"  banded_dq at N{n} H{hq}/{hkv}: {kms[0]:.4f} ms, {flops / kms[0] / 1e9:.1f} "
                 f"TFLOP/s (library {lms[0]:.4f} ms)")
             row("banded_dq", "ffpa_attn_tpu/ops/flash_bwd.py:1186",
-                training["launches"]["banded_dq"], err, kms, pms, lms, flops, nbytes)
+                training["launches"]["banded_dq"], err, kms, pms, lms, flops, nbytes,
+                lambda: _timed(run_banded, 10))
             del ds
         else:
             def run_dq():
@@ -1872,7 +1907,8 @@ def training_times(training: dict, windowed: dict, resident: dict) -> tuple:
             flops, nbytes = backward_counts("dq", b=b, hq=hq, hkv=hkv, nq=n, nkv=n, d=d, dv=d,
                                             causal=True, window=window)
             row("dq", "ffpa_attn_tpu/ops/flash_bwd.py:647", windowed["launches"]["dq"], err, kms,
-                pms, lib, flops, nbytes)
+                pms, lib, flops, nbytes, lambda: _timed(run_dq, 10))
+            rows[-1].update(dq_kernel_row_extras(d))
         del out
         torch.cuda.empty_cache()
 
@@ -1919,12 +1955,12 @@ def training_times(training: dict, windowed: dict, resident: dict) -> tuple:
             slab = kds
         del kds
         kms = _kernel_timed(run_from_s, flash_bwd.FROM_S_KERNELS, 10, setup=lambda: s.clone())
-        variants[dk_in] = (kms, err)
+        variants[dk_in] = (kms, err, run_from_s)
     log(f"  from-S variants at N{n}: dK out of kernel {variants[False][0][0]:.4f} ms "
         f"[{variants[False][0][1]:.4f}], dK in kernel {variants[True][0][0]:.4f} ms "
         f"[{variants[True][0][1]:.4f}]; the dispatch rule picks dK "
         f"{'in' if cfg.dkdv_dk_in_kernel else 'out of'} the kernel")
-    kms, err = variants[cfg.dkdv_dk_in_kernel]
+    kms, err, run_picked = variants[cfg.dkdv_dk_in_kernel]
     pms = _timed(lambda: flash_bwd._dkdv_from_s_plain(
         q, v, s, do, lse, delta, seed=0, softcap=0.0, dk_in_kernel=cfg.dkdv_dk_in_kernel, **skw),
         3, warmup=1)
@@ -1941,7 +1977,8 @@ def training_times(training: dict, windowed: dict, resident: dict) -> tuple:
                                     causal=True, slab_bytes=s.numel() * 2,
                                     dk_in_kernel=cfg.dkdv_dk_in_kernel)
     row("dkdv_from_s", "ffpa_attn_tpu/ops/flash_bwd.py:344", resident["launches"]["from_s"],
-        err, kms, pms, lms, flops, nbytes)
+        err, kms, pms, lms, flops, nbytes,
+        lambda: _kernel_timed(run_picked, flash_bwd.FROM_S_KERNELS, 10, setup=lambda: s.clone()))
     rows[-1].update(from_s_kernel_row_extras(d, cfg.dkdv_dk_in_kernel))
 
     def run_banded_dk():
@@ -1964,7 +2001,7 @@ def training_times(training: dict, windowed: dict, resident: dict) -> tuple:
     log(f"  banded_dk at N{n} H{hq}/{hkv}: {kms[0]:.4f} ms, {flops / kms[0] / 1e9:.1f} TFLOP/s "
         f"(library {lms[0]:.4f} ms)")
     row("banded_dk", "ffpa_attn_tpu/ops/flash_bwd.py:1323", resident["launches"]["banded_dk"],
-        err, kms, pms, lms, flops, nbytes)
+        err, kms, pms, lms, flops, nbytes, lambda: _timed(run_banded_dk, 10))
     del slab, s, o, lse, delta
     torch.cuda.empty_cache()
     banded_op_level_times()
@@ -2042,6 +2079,35 @@ def dkdv_kernel_row_extras(d: int) -> dict:
     route = dkdv_plan(d, d).route
     a = flash_bwd.dkdv_kernel_attrs(route)
     return {"dkdv_route": route, "registers": a["registers"], "spill_bytes": a["local_bytes"]}
+
+
+def dq_kernel_row_extras(d: int) -> dict:
+    """The recompute dQ route at head dim ``d`` and its kernel's registers
+    and spill bytes, for the ``kernels`` line; fails unless the launcher's
+    plan equals its mirror (``ops/config.py`` ``dq_plan``) at D, Dv
+    64..1024 and the wgmma kernel spills nothing."""
+    from ffpa_attn_tpu_torch.ops import flash_bwd
+    from ffpa_attn_tpu_torch.ops.config import dq_plan
+
+    pairs = [(x, x) for x in range(64, 1025, 64)] + [(512, 128), (128, 512), (512, 64),
+                                                     (64, 512), (448, 64), (512, 1024),
+                                                     (1024, 320), (400, 400)]
+    for hd, hdv in pairs:
+        if flash_bwd.dq_kernel_plan(hd, hdv) != dq_plan(hd, hdv):
+            fail(f"dQ launcher's plan at D{hd}/Dv{hdv} {flash_bwd.dq_kernel_plan(hd, hdv)} "
+                 f"differs from ops/config.py dq_plan {dq_plan(hd, hdv)}")
+    log(f"  dq plan at D{d}: {flash_bwd.dq_kernel_plan(d, d)} (the launcher's, equal to "
+        f"ops/config.py dq_plan at {len(pairs)} head-dim pairs)")
+    for route, bq in (("wgmma", 64), ("mma_sync", 64), ("mma_sync", 32)):
+        for dt in (torch.bfloat16, torch.float16):
+            a = flash_bwd.dq_kernel_attrs(route, dt, bq)
+            log(f"  dq {route} rows {bq} {str(dt)[6:]}: {a['registers']} registers a thread at "
+                f"launch, {a['local_bytes']} local (spill) bytes")
+            if route == "wgmma" and a["local_bytes"] != 0:
+                fail(f"the wgmma dQ kernel ({dt}) spills {a['local_bytes']} bytes")
+    route = dq_plan(d, d).route
+    a = flash_bwd.dq_kernel_attrs(route)
+    return {"dq_route": route, "registers": a["registers"], "spill_bytes": a["local_bytes"]}
 
 
 def from_s_kernel_row_extras(d: int, dk_in: bool) -> dict:
@@ -2580,6 +2646,7 @@ def main() -> int:
         f"train_step_ms {training['step_ms']:.2f} train_tokens_per_s {training['tok_s']:.1f} "
         f"s_resident_step_ms {resident['step_ms']:.2f} s_resident_tokens_per_s "
         f"{resident['tok_s']:.1f} partial_step_ms {partial['step_ms']:.2f} "
+        f"windowed_step_ms {windowed['step_ms']:.2f} "
         f"op_bwd_ms_resident {op_level['ms']['resident']:.3f} op_bwd_ms_handoff "
         f"{op_level['ms']['handoff']:.3f} packed_fwd_bwd_ms {packed['fwd_bwd_ms']:.3f} "
         f"packed_bwd_ms {packed['bwd_ms']:.3f} packed_bwd_tflops {packed['bwd_tflops']:.1f} "

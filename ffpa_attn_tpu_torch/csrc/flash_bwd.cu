@@ -10,9 +10,10 @@
 //   ffpa_bwd_banded_dk   <- _banded_dk_kernel: dK = scale * dS^T Q from the slab
 //
 // dK/dV for D, Dv <= 512 runs on TMA and wgmma (namespace dkdv, details
-// beside it); the route is dkdv::make_plan's, by head dims alone. From-S
-// with dK out of the kernel at Dv <= 512 does too (namespace from_s; the
-// route is from_s::make_plan's). dK/dV for wider heads, dQ and the other
+// beside it); the route is dkdv::make_plan's, by head dims alone. So does
+// dQ for D, Dv <= 512 (namespace dq, dq::make_plan's route). From-S with
+// dK out of the kernel at Dv <= 512 does too (namespace from_s; the route
+// is from_s::make_plan's). dK/dV and dQ for wider heads and the other
 // from-S variants are built from the forward's pieces (flash_fwd.cu):
 // 16 warps, mma.sync m16n8k16 (bf16 or f16 in, fp32 accumulate) fed by
 // ldmatrix, a block's owned tile resident in shared memory and the other
@@ -41,7 +42,8 @@
 // has for them, so wider heads split the dK / dV columns over col_passes
 // blocks, each recomputing S and dP (the reference's SM90 D512 D-split).
 //
-// dQ (recompute tier): a block owns BQ query rows with Q and dO resident
+// dQ (recompute tier), the mma.sync block (D or Dv > 512): a block owns BQ
+// query rows with Q and dO resident
 // and walks the KV tiles of its band: S over the K chunks, dP over the V
 // chunks, dS to shared memory (and fp32 dS to the dbias slab), then
 // dQ += dS K over the K chunks again; the BQ x D fp32 dQ tile lives in
@@ -1623,6 +1625,519 @@ cudaError_t launch(const BwdParams& bp, const Plan& pl, int B, cudaStream_t stre
 }  // namespace dkdv
 
 // ---------------------------------------------------------------------------
+// dQ (recompute) for D, Dv <= 512: TMA + mbarrier + wgmma
+// ---------------------------------------------------------------------------
+
+// The Hopper route of ffpa_bwd_dq (ffpa_attn_tpu/ops/flash_bwd.py _dq_kernel,
+// the recompute tier's second launch). Bound on an H100: operations, 3
+// matmul units (S, dP, dQ) of 2 * pairs * (D, Dv, D) flop. The mma.sync
+// dq_kernel above walked 2 D / 64 + Dv / 64 chunks a KV tile through the
+// cp.async ring, each behind two __syncthreads (48 block barriers a tile at
+// D512), with no product in flight during a barrier: 10x its bound at the
+// windowed training shape on an H100, this block 3x (PERF.md). This block
+// is the forward's (flash_fwd.cu namespace fwd) with dP beside S and no
+// softmax, and the mirror of dkdv::kernel with (K, V) and (Q, dO) swapped
+// and one output. 384 threads own 64 Q rows of one query head (grid and
+// longest-first order of dq_kernel), and walk the KV tiles of the rows'
+// causal / window band:
+//  - warpgroup 0 is the producer (setmaxnreg 24). One thread loads Q and
+//    dO once by TMA into D / 64 and Dv / 64 resident 64 x 64 boxes (128 B
+//    swizzle; tensor maps at the true extents, so rows past Nq and Nkv read
+//    as zero), then per KV tile streams the K boxes (for S) and the V boxes
+//    (for dP) in two-box stages, then the K boxes again (for dQ), box j of
+//    consumer 0's half of D beside box j of consumer 1's: one stage feeds
+//    both consumers' dQ products. Warps 1..3 meanwhile write the zeros of
+//    the dbias slab outside the band;
+//  - warpgroups 1 and 2 are the consumers (setmaxnreg 240, as the
+//    forward's: at 232 the feature path spilled). Consumer c computes
+//    S = Q K^T and dP = dO V^T for KV columns 32c..32c+31
+//    (wgmma m64n32k16, the Q / dO box and rows 32c.. of the K / V box
+//    both K-major), so each thread holds its own S, dP, lse and delta. It
+//    forms dS = p (dP - delta) (dropout replayed, softcap's factor for the
+//    product, not for dbias), stores fp32 dS to the dbias slab when asked,
+//    and writes its 32 columns of dS into one swizzled [q][kv] exchange
+//    box. After a named barrier each runs dQ[:, own half of D] += dS K
+//    (m64n64k16 a box, A the exchange box K-major, B the K box N-major
+//    with the transpose bit; 128 fp32 registers a thread at D512);
+//  - a tile with no bias, ALiBi, softcap or dropout, inside the band and
+//    the ragged edges on every element, takes p = 2^(s scale log2 e - lse
+//    log2 e) alone; the others take the feature path, branch-free, one
+//    pair of elements at a time behind an empty asm that also ties the
+//    tile's bias and dbias addresses (without it the compiler hoisted a
+//    64-bit address per element out of the walk and spilled them).
+// Two named barriers a tile order the exchange box: the first finds both
+// consumers' earlier dQ products complete, the second both halves of dS
+// written. ptxas keeps the wgmma pipeline for the forward's reasons:
+// products start with scale-d 0, roles and dropout are template arguments,
+// each stage's products are committed in their own block, stage releases
+// and the dbias stores are predicated instructions, and the zeros of dQ
+// are fenced off from its products.
+namespace dq {
+
+using namespace ffpa::sm90;
+
+constexpr int ROWS = 64;                   // Q rows of a block
+constexpr int KV_ROWS = 64;                // KV rows of a streamed tile
+constexpr int COLS = 64;                   // columns of a box (128 B of 16-bit)
+static_assert(KV_ROWS == CH, "kv_band aligns the band to the chunk width");
+constexpr int MAX_BOXES = 8;               // D, Dv <= 512 on this route
+constexpr int Q_BOXES = MAX_BOXES / 2;     // D boxes of one consumer's dQ: 64 x 256 fp32
+constexpr int STAGE_BYTES = 2 * BOX_BYTES;
+constexpr int MAX_STAGES = 8;
+constexpr int THREADS = 384;               // producer warpgroup + 2 consumer warpgroups
+constexpr int CONSUMER_WARPS = 8;          // arrivals that free a stage
+constexpr int SMEM_LIMIT = 232448;
+constexpr int WGMMA = 1, MMA_SYNC = 0;     // routes
+
+// The route and tiling of a launch at head dims (D, Dv), multiples of 64:
+// D, Dv <= 512 take this block, consumer 0 owning the first ceil(nd / 2)
+// of D's nd boxes of dQ and consumer 1 the rest (band::col_block), with as
+// many ring stages as shared memory holds after Q, dO and the dS box (5 at
+// D = Dv = 512); wider heads take the mma.sync dq_kernel, whose row tile is
+// the largest its registers (rows x D <= 64 x 512) and shared memory hold.
+// ffpa_bwd_dq_plan hands it out; ops/config.py dq_plan mirrors it and the
+// card test holds the two equal.
+struct Plan {
+  int route, rows, stages, nd0;
+  size_t smem;
+};
+inline Plan make_plan(int D, int Dv) {
+  Plan pl;
+  const int nd = D / COLS, nv = Dv / COLS;
+  pl.nd0 = band::col_block(nd, 2, 0).nc;
+  if (nd <= MAX_BOXES && nv <= MAX_BOXES) {
+    pl.route = WGMMA;
+    pl.rows = ROWS;
+    // Q, dO, the dS box, the 1024 B alignment and their barrier; a stage
+    // is two boxes and its two barriers.
+    const size_t fixed = (size_t)(nd + nv + 1) * BOX_BYTES + 1024 + sizeof(uint64_t);
+    const size_t stage = STAGE_BYTES + 2 * sizeof(uint64_t);
+    pl.stages = (int)std::min((size_t)MAX_STAGES, (SMEM_LIMIT - fixed) / stage);
+    pl.smem = fixed + pl.stages * stage;
+  } else {
+    pl.route = MMA_SYNC;
+    const bool tall = 64 * D <= 32 * 1024 && dq_smem_bytes<__nv_bfloat16>(64, D, Dv) <= SMEM_LIMIT;
+    pl.rows = tall ? 64 : 32;
+    pl.stages = NST;
+    pl.smem = dq_smem_bytes<__nv_bfloat16>(pl.rows, D, Dv);
+  }
+  return pl;
+}
+
+// The kernel's tensor maps, a __grid_constant__ parameter of their own (TMA
+// reads them by address); the scalars stay an ordinary parameter.
+struct Maps {
+  CUtensorMap q_map, do_map;  // (D | Dv, nq, B * Hq); box 64 x 64
+  CUtensorMap k_map, v_map;   // (D | Dv, nkv, B * Hkv); box 64 x 64
+};
+
+// Shared memory of a block, from a 1024 B boundary: the Q boxes, the dO
+// boxes, the dS box, the ring's stages, their full / empty barriers and the
+// barrier of Q and dO.
+struct Smem {
+  unsigned char* q;
+  unsigned char* dout;
+  unsigned char* ds;  // dS (softcap's factor included): [q][kv]
+  unsigned char* ring;
+  uint64_t* full;
+  uint64_t* empty;
+  uint64_t* q_full;
+};
+__device__ __forceinline__ Smem carve(unsigned char* base, int nd, int nv, int stages) {
+  Smem sm;
+  sm.q = base;
+  sm.dout = base + nd * BOX_BYTES;
+  sm.ds = sm.dout + nv * BOX_BYTES;
+  sm.ring = sm.ds + BOX_BYTES;
+  sm.full = reinterpret_cast<uint64_t*>(sm.ring + stages * STAGE_BYTES);
+  sm.empty = sm.full + stages;
+  sm.q_full = sm.empty + stages;
+  return sm;
+}
+
+// A block's Q rows and the KV tiles of its band, [kv_lo, kv_lo + 64
+// ntiles): the same in every thread.
+struct Block {
+  int b, head, kvh, row0, kv_lo, ntiles;
+};
+__device__ __forceinline__ Block block_of(const BwdParams& p) {
+  Block k;
+  k.head = blockIdx.x;
+  k.b = blockIdx.y;
+  k.kvh = k.head / p.group;
+  k.row0 = (gridDim.z - 1 - blockIdx.z) * ROWS;  // the longest causal rows start first
+  int kv_hi;
+  kv_band(p, k.row0, min(k.row0 + ROWS, p.nq) - 1, k.kv_lo, kv_hi);
+  k.ntiles = kv_hi > k.kv_lo ? (kv_hi - k.kv_lo + KV_ROWS - 1) / KV_ROWS : 0;
+  return k;
+}
+
+// The producer's thread: Q and dO once, then per KV tile the K stages and
+// the V stages (two boxes each, an odd last box alone), then the dQ stages
+// (K box j of consumer 0's half beside box nd0 + j of consumer 1's, alone
+// where that half is shorter).
+__device__ __forceinline__ void produce(const Maps& maps, const BwdParams& p, const Smem& sm,
+                                        const Block& k, int stages, int nd, int nv, int nd0) {
+  prefetch_map(&maps.q_map);
+  prefetch_map(&maps.do_map);
+  prefetch_map(&maps.k_map);
+  prefetch_map(&maps.v_map);
+  const int bq = k.b * p.Hq + k.head, bkv = k.b * p.Hkv + k.kvh;
+  mbar_arrive_expect_tx(sm.q_full, (nd + nv) * BOX_BYTES);
+  for (int j = 0; j < nd; ++j)
+    tma_load_3d(sm.q + j * BOX_BYTES, &maps.q_map, sm.q_full, j * COLS, k.row0, bq);
+  for (int j = 0; j < nv; ++j)
+    tma_load_3d(sm.dout + j * BOX_BYTES, &maps.do_map, sm.q_full, j * COLS, k.row0, bq);
+  int it = 0;
+  // Stage it % stages, free again, expecting nb boxes.
+  auto claim = [&](int nb) -> unsigned char* {
+    const int st = it % stages;
+    if (it >= stages) mbar_wait(&sm.empty[st], ((it / stages) - 1) & 1);
+    mbar_arrive_expect_tx(&sm.full[st], nb * BOX_BYTES);
+    return sm.ring + st * STAGE_BYTES;
+  };
+  auto run = [&](const CUtensorMap* map, int n, int kv0) {
+    for (int c = 0; c < n; c += 2, ++it) {
+      const int nb = min(2, n - c);
+      unsigned char* dst = claim(nb);
+      for (int g = 0; g < nb; ++g)
+        tma_load_3d(dst + g * BOX_BYTES, map, &sm.full[it % stages], (c + g) * COLS, kv0, bkv);
+    }
+  };
+  for (int t = 0; t < k.ntiles; ++t) {
+    const int kv0 = k.kv_lo + t * KV_ROWS;
+    run(&maps.k_map, nd, kv0);
+    run(&maps.v_map, nv, kv0);
+    for (int j = 0; j < nd0; ++j, ++it) {
+      const bool both = nd0 + j < nd;
+      unsigned char* dst = claim(both ? 2 : 1);
+      tma_load_3d(dst, &maps.k_map, &sm.full[it % stages], j * COLS, kv0, bkv);
+      if (both)
+        tma_load_3d(dst + BOX_BYTES, &maps.k_map, &sm.full[it % stages], (nd0 + j) * COLS, kv0,
+                    bkv);
+    }
+  }
+}
+
+// Warps 1..3 of the producer warpgroup: zeros over the block's 64 rows of
+// the dbias slab in the columns outside the band's tiles, [0, kv_lo) and
+// [kv_lo + 64 ntiles, ds_ld), 16 B a store.
+__device__ __forceinline__ void zero_dbias_outside(const BwdParams& p, const Block& k) {
+  const int u = threadIdx.x - 32, n = 96;
+  const int lo4 = k.kv_lo / 4, hi = k.kv_lo + k.ntiles * KV_ROWS;
+  const int per_row = lo4 + (p.ds_ld - hi) / 4;
+  float* dst = p.dbias + ((long long)(k.b * p.Hq + k.head) * p.ds_rows + k.row0) * p.ds_ld;
+  for (int i = u; i < ROWS * per_row; i += n) {
+    const int r = i / per_row, c4 = i - r * per_row;
+    const int col = c4 < lo4 ? 4 * c4 : hi + 4 * (c4 - lo4);
+    *reinterpret_cast<float4*>(dst + (long long)r * p.ds_ld + col) =
+        make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// Two fp32 values to global memory where pred is set, without a branch (a
+// predicated instruction).
+__device__ __forceinline__ void st_global_f2_if(float* dst, float a, float b, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %3, 0;\n@p st.global.v2.f32 [%0], {%1, %2};\n}\n" ::"l"(
+          dst),
+      "f"(a), "f"(b), "r"((int)pred)
+      : "memory");
+}
+
+// dS of one score element on the feature path from its raw q.k and dp:
+// (dS times softcap's chain factor, dS). Branch-free: softcap's tanh and
+// factor are selected away where softcap is 0, ALiBi's slope is 0 without
+// ALiBi, the bias (at bias_at) is read only inside the ragged edges, masks
+// select MASK_VALUE, and rows past Nq or columns past Nkv give 0.
+template <bool DROP>
+__device__ __forceinline__ float2 ds_feature(const BwdParams& p, int b, int h, int row, int col,
+                                             float qk, float dpv, float lse2, float dl,
+                                             float slope, float inv_cap, const float* bias_at) {
+  constexpr float LOG2E = 1.4426950408889634f;
+  float x = qk * p.scale;
+  const float th = tanhf(x * inv_cap);
+  const bool capped = p.softcap > 0.f;
+  const float cap = capped ? 1.f - th * th : 1.f;
+  x = capped ? p.softcap * th : x;
+  const int rel = row + p.causal_offset - col;
+  x -= slope * fabsf((float)rel);
+  const bool in = row < p.nq && col < p.nkv;
+  if (p.bias != nullptr && in) x += *bias_at;
+  const bool masked = (p.window_right >= 0 && -rel > p.window_right) ||
+                      (p.window_left >= 0 && rel > p.window_left);
+  x = masked ? MASK_VALUE : x;
+  const float pe = in ? ex2(fmaf(x, LOG2E, -lse2)) : 0.f;
+  float dpe = dpv;
+  if constexpr (DROP) {
+    const bool keep =
+        dropout_uniform(p.seed, b, h, row + p.row_offset, col + p.col_offset) >= p.dropout_p;
+    dpe = keep ? dpv * p.dropout_inv : 0.f;
+  }
+  const float ds = pe * (dpe - dl);
+  return make_float2(ds * cap, ds);
+}
+
+// Consumer C of a block; C and DROP are template arguments so that no
+// branch around a wgmma depends on the thread. Accumulator element 4 j + 2
+// hh + e of thread (warp, g = lane / 4, t4 = lane % 4) of S and dP is Q
+// row 16 warp + g + 8 hh, KV column 32 C + 8 j + 2 t4 + e of the tile; of
+// dQ's box jj, Q row 16 warp + g + 8 hh, column 8 j + 2 t4 + e of the box.
+template <typename T, int C, bool DROP>
+__device__ __forceinline__ void consume(const BwdParams& p, const Smem& sm, const Block& k,
+                                        int stages, int nd, int nv, int nd0) {
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int own = C == 0 ? nd0 : nd - nd0;  // D boxes of this consumer's dQ
+  const int r0 = 16 * warp + g;             // this thread's rows: r0, r0 + 8
+  constexpr float LOG2E = 1.4426950408889634f;
+  const long long bh = (long long)k.b * p.Hq + k.head;
+  const float scale_log2 = p.scale * LOG2E;
+  const bool plain = !DROP && p.bias == nullptr && p.alibi == nullptr && p.softcap <= 0.f;
+  const float slope = p.alibi != nullptr ? p.alibi[bh] : 0.f;
+  const float inv_cap = p.softcap > 0.f ? __fdividef(1.f, p.softcap) : 0.f;
+
+  // lse (times log2 e) and delta of this thread's two rows, for the walk.
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = k.row0 + r0 + 8 * hh;
+    const bool ok = row < p.nq;
+    lse2[hh] = ok ? p.lse[bh * p.nq + row] * LOG2E : 0.f;
+    dl[hh] = ok ? p.delta[bh * p.nq + row] : 0.f;
+  }
+  const bool emit = p.dbias != nullptr;
+
+  // Every ordinary write of an accumulator is fenced off from the wgmma
+  // that follows, or ptxas serializes the pipeline.
+  float acc[Q_BOXES * 32];
+#pragma unroll
+  for (int i = 0; i < Q_BOXES * 32; ++i) acc[i] = 0.f;
+  fence_operands(acc);
+
+  // it: the stream's stage index; held: a stage whose products may still
+  // run. done_with frees the stage before once this one's products are
+  // issued and the older ones completed (one group stays in flight).
+  int it = 0, held = -1;
+  auto release = [&](int st, bool pred) { mbar_arrive_if(&sm.empty[st], pred && lane == 0); };
+  auto done_with = [&](int st) {
+    wgmma_commit();
+    wgmma_wait<1>();
+    release(held >= 0 ? held : 0, held >= 0);
+    held = st;
+  };
+  auto drain = [&]() {
+    wgmma_wait<0>();
+    release(held >= 0 ? held : 0, held >= 0);
+    held = -1;
+  };
+  auto wait_full = [&](int st) { mbar_wait(&sm.full[st], (it / stages) & 1); };
+  // S or dP for this consumer's 32 KV columns over n resident boxes: the
+  // stages of two boxes, then an odd last box alone (a conditional wgmma
+  // inside a stage would make ptxas serialize), each committed beside its
+  // products.
+  auto stream = [&](float(&a)[16], const unsigned char* res, int n) {
+    int c = 0;
+    for (; c + 2 <= n; c += 2, ++it) {
+      const int st = it % stages;
+      const unsigned char* sb = sm.ring + st * STAGE_BYTES + C * 4096;
+      wait_full(st);
+      wgmma_fence();
+      box_mma<T, 32, 0>(a, res + c * BOX_BYTES, sb, c == 0);
+      box_mma<T, 32, 0>(a, res + (c + 1) * BOX_BYTES, sb + BOX_BYTES);
+      done_with(st);
+    }
+    if (c < n) {
+      const int st = it % stages;
+      wait_full(st);
+      wgmma_fence();
+      box_mma<T, 32, 0>(a, res + c * BOX_BYTES, sm.ring + st * STAGE_BYTES + C * 4096, c == 0);
+      done_with(st);
+      ++it;
+    }
+  };
+
+  mbar_wait(sm.q_full, 0);
+  for (int t = 0; t < k.ntiles; ++t) {
+    const int kc = k.kv_lo + t * KV_ROWS + 32 * C;  // this consumer's first KV column
+    float s[16], dp[16];
+    stream(s, sm.q, nd);
+    stream(dp, sm.dout, nv);
+    drain();  // also completes this consumer's dQ products of the tile before
+    fence_operands(s);
+    fence_operands(dp);
+
+    const bool interior =
+        plain && k.row0 + ROWS - 1 < p.nq && kc + 31 < p.nkv &&
+        (p.window_right < 0 || kc + 31 <= k.row0 + p.causal_offset + p.window_right) &&
+        (p.window_left < 0 || kc >= k.row0 + ROWS - 1 + p.causal_offset - p.window_left);
+    // This tile's dbias address at (row r0, column kc + 2 t4), formed here
+    // and hidden from the compiler by the empty asm: otherwise it hoists a
+    // 64-bit address for each element out of the walk and spills them. The
+    // slab's rows cover the block's.
+    float* dtile = p.dbias + (bh * p.ds_rows + k.row0 + r0) * p.ds_ld + kc + 2 * t4;
+    asm volatile("" : "+l"(dtile));
+    uint32_t dw[8];
+    if (interior) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          float dsv[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int idx = 4 * j + 2 * hh + e;
+            dsv[e] = ex2(fmaf(s[idx], scale_log2, -lse2[hh])) * (dp[idx] - dl[hh]);
+          }
+          dw[2 * j + hh] = pack2<T>(dsv[0], dsv[1]);
+          st_global_f2_if(dtile + 8 * hh * p.ds_ld + 8 * j, dsv[0], dsv[1], emit);
+        }
+    } else {
+      // The bias at (row r0, column kc + 2 t4), formed per tile like dtile.
+      const float* btile = p.bias + (long long)k.b * p.sb + (long long)k.head * p.sh +
+                           (long long)(k.row0 + r0) * p.sr + (long long)(kc + 2 * t4) * p.sc;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          // One pair at a time: the empty asm ties the pair's scores, its
+          // first column and the tile's addresses, so nothing of the pair
+          // (addresses, bias loads, the dropout hash) is computed before the
+          // pair before is stored, and the feature code's registers are
+          // needed once, not 16 times beside the 128 of dQ.
+          const int i0 = 4 * j + 2 * hh;
+          int col = kc + 8 * j + 2 * t4;
+          asm volatile("" : "+f"(s[i0]), "+f"(s[i0 + 1]), "+f"(dp[i0]), "+f"(dp[i0 + 1]),
+                       "+r"(col), "+l"(btile), "+l"(dtile));
+          float2 d2[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            d2[e] = ds_feature<DROP>(p, k.b, k.head, k.row0 + r0 + 8 * hh, col + e, s[i0 + e],
+                                     dp[i0 + e], lse2[hh], dl[hh], slope, inv_cap,
+                                     btile + 8 * hh * p.sr + (long long)(8 * j + e) * p.sc);
+          dw[2 * j + hh] = pack2<T>(d2[0].x, d2[1].x);
+          st_global_f2_if(dtile + 8 * hh * p.ds_ld + 8 * j, d2[0].y, d2[1].y, emit);
+        }
+    }
+    // Both consumers have completed the tile before's dQ products: the dS
+    // box is free.
+    named_barrier_sync(1, 2 * 128);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<uint32_t*>(sm.ds + swz(r0 + 8 * hh, 32 * C + 8 * j + 2 * t4)) =
+            dw[2 * j + hh];
+    fence_proxy_async();
+    named_barrier_sync(1, 2 * 128);  // both halves of dS are in the box
+
+    // dQ[:, own boxes] += dS K: dQ stage j holds this consumer's K box j at
+    // C * BOX_BYTES; a consumer with fewer boxes frees the stage unread.
+#pragma unroll
+    for (int j = 0; j < Q_BOXES; ++j) {
+      if (j < nd0) {
+        const int st = it % stages;
+        wait_full(st);
+        if (j < own) {
+          wgmma_fence();
+          box_mma<T, 64, 1>(*reinterpret_cast<float(*)[32]>(acc + 32 * j), sm.ds,
+                            sm.ring + st * STAGE_BYTES + C * BOX_BYTES);
+          done_with(st);
+        } else {
+          release(st, true);
+        }
+        ++it;
+      }
+    }
+  }
+  drain();
+  fence_operands(acc);
+
+  // Epilogue: dQ = scale * sum, in the output type or fp32; rows past Nq
+  // are not stored.
+  const int col0 = C == 0 ? 0 : nd0 * COLS;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = k.row0 + r0 + 8 * hh;
+    if (row >= p.nq) continue;
+    const long long base = (bh * p.nq + row) * p.D + col0 + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < Q_BOXES; ++j) {
+      if (j >= own) break;
+#pragma unroll
+      for (int j8 = 0; j8 < 8; ++j8)
+        store2<T>(p.dq, base + COLS * j + 8 * j8, acc[32 * j + 4 * j8 + 2 * hh] * p.scale,
+                  acc[32 * j + 4 * j8 + 2 * hh + 1] * p.scale, p.out_f32);
+    }
+  }
+}
+
+template <typename T, bool DROP>
+__global__ void __launch_bounds__(THREADS, 1)
+    wgmma_dq_kernel(const __grid_constant__ Maps maps, const BwdParams p, const int stages) {
+  extern __shared__ unsigned char smem_raw[];
+  // Boxes on 1024 B boundaries: the 128 B swizzle's atom.
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const int nd = p.D / COLS, nv = p.Dv / COLS, nd0 = band::col_block(nd, 2, 0).nc;
+  const Smem sm = carve(base, nd, nv, stages);
+  const Block k = block_of(p);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], CONSUMER_WARPS);
+    }
+    mbar_init(sm.q_full, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0)
+      produce(maps, p, sm, k, stages, nd, nv, nd0);
+    else if (threadIdx.x >= 32 && p.dbias != nullptr)
+      zero_dbias_outside(p, k);
+  } else {
+    setmaxnreg_inc<240>();
+    if (threadIdx.x < 256)
+      consume<T, 0, DROP>(p, sm, k, stages, nd, nv, nd0);
+    else
+      consume<T, 1, DROP>(p, sm, k, stages, nd, nv, nd0);
+  }
+}
+
+// The host side of one launch: tensor maps, shared memory, the grid.
+template <typename T>
+cudaError_t launch(const BwdParams& p, const Plan& pl, int B, cudaStream_t stream) {
+  const dim3 grid(p.Hq, B, (p.nq + ROWS - 1) / ROWS);
+  if (grid.x * grid.y * grid.z == 0) return cudaSuccess;
+  const bool f16 = std::is_same<T, __half>::value;
+  Maps maps;
+  memset(&maps, 0, sizeof(maps));
+  const uint64_t mkv = p.nkv > 0 ? p.nkv : 1;
+  cudaError_t e = encode_3d(&maps.q_map, f16, p.q, p.D, p.nq, (uint64_t)B * p.Hq,
+                            (uint64_t)p.D * 2, (uint64_t)p.nq * p.D * 2, COLS, ROWS);
+  if (e == cudaSuccess)
+    e = encode_3d(&maps.do_map, f16, p.dout, p.Dv, p.nq, (uint64_t)B * p.Hq,
+                  (uint64_t)p.Dv * 2, (uint64_t)p.nq * p.Dv * 2, COLS, ROWS);
+  if (e == cudaSuccess)
+    e = encode_3d(&maps.k_map, f16, p.k, p.D, mkv, (uint64_t)B * p.Hkv, (uint64_t)p.D * 2,
+                  mkv * p.D * 2, COLS, KV_ROWS);
+  if (e == cudaSuccess)
+    e = encode_3d(&maps.v_map, f16, p.v, p.Dv, mkv, (uint64_t)B * p.Hkv, (uint64_t)p.Dv * 2,
+                  mkv * p.Dv * 2, COLS, KV_ROWS);
+  if (e != cudaSuccess) return e;
+  auto kern = p.dropout_p > 0.f ? wgmma_dq_kernel<T, true> : wgmma_dq_kernel<T, false>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
+  if (e != cudaSuccess) return e;
+  kern<<<grid, THREADS, pl.smem, stream>>>(maps, p, pl.stages);
+  return cudaGetLastError();
+}
+
+}  // namespace dq
+
+// ---------------------------------------------------------------------------
 // dK / dV from the S residual, dK out of the kernel, Dv <= 512: TMA +
 // mbarrier + wgmma
 // ---------------------------------------------------------------------------
@@ -2281,13 +2796,22 @@ extern "C" int ffpa_bwd_dq(const void* q, const void* k, const void* v, const vo
   p.ds_rows = ds_rows;
   p.ds_ld = ds_ld;
   p.out_f32 = out_f32;
-  // Registers hold block_q x D fp32 (64 per thread); D and Dv are 64-multiples.
-  if (D % CH != 0 || Dv % CH != 0 || (long long)block_q * D > 32 * 1024 ||
-      (block_q != 64 && block_q != 32) ||
+  if (D <= 0 || Dv <= 0 || D % CH != 0 || Dv % CH != 0 || Hkv <= 0 || Hq % Hkv != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dq::Plan pl = dq::make_plan(D, Dv);
+  if (pl.route == dq::WGMMA) {  // picks its own 64-row tile; block_q is not read
+    if (dbias != nullptr && (ds_ld % dq::KV_ROWS != 0 || ds_ld < nkv || ds_rows % dq::ROWS != 0 ||
+                             ds_rows < nq))
+      return (int)cudaErrorInvalidValue;
+    return (int)(is_fp16 ? dq::launch<__half>(p, pl, B, st)
+                         : dq::launch<__nv_bfloat16>(p, pl, B, st));
+  }
+  // Registers hold block_q x D fp32 (64 per thread).
+  if ((long long)block_q * D > 32 * 1024 || (block_q != 64 && block_q != 32) ||
       (dbias != nullptr && (ds_ld % CH != 0 || ds_rows % block_q != 0)))
     return (int)cudaErrorInvalidValue;
   const dim3 grid(Hq, B, (nq + block_q - 1) / block_q);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_fp16) {
     return (int)(block_q == 64
                      ? launch(dq_kernel<__half, 64>, grid, dq_smem_bytes<__half>(64, D, Dv), p, st)
@@ -2297,6 +2821,65 @@ extern "C" int ffpa_bwd_dq(const void* q, const void* k, const void* v, const vo
                                       dq_smem_bytes<__nv_bfloat16>(64, D, Dv), p, st)
                              : launch(dq_kernel<__nv_bfloat16, 32>, grid,
                                       dq_smem_bytes<__nv_bfloat16>(32, D, Dv), p, st));
+}
+
+// The route and tiling ffpa_bwd_dq takes at head dims (D, Dv), multiples of
+// 64: out[0..4] are the route (1 wgmma, 0 mma.sync), the Q rows of a block
+// (for mma.sync the largest row tile its registers and shared memory hold),
+// the KV rows of a tile, the ring's stages and the dynamic shared-memory
+// bytes; out[5] the number of dQ column blocks (the consumers' halves, or
+// the whole block's), then (first column, width) of each; cap is out's
+// length.
+extern "C" int ffpa_bwd_dq_plan(int D, int Dv, int* out, int cap) {
+  if (D <= 0 || Dv <= 0 || D % CH != 0 || Dv % CH != 0 || cap < 10)
+    return (int)cudaErrorInvalidValue;
+  const dq::Plan pl = dq::make_plan(D, Dv);
+  out[0] = pl.route;
+  out[1] = pl.rows;
+  out[2] = dq::KV_ROWS;
+  out[3] = pl.stages;
+  out[4] = (int)pl.smem;
+  if (pl.route == dq::WGMMA) {
+    out[5] = 2;
+    out[6] = 0;
+    out[7] = pl.nd0 * CH;
+    out[8] = pl.nd0 * CH;
+    out[9] = D - pl.nd0 * CH;
+  } else {
+    out[5] = 1;
+    out[6] = 0;
+    out[7] = D;
+  }
+  return 0;
+}
+
+// Registers a thread (at launch, before setmaxnreg moves them between the
+// warpgroups) and local (spill) bytes a thread of a dQ kernel: route 1 the
+// wgmma kernel (the registers of its instantiation without dropout, the
+// larger spill of the two), 0 dq_kernel at row tile block_q (64 or 32), in
+// f16 or bf16.
+extern "C" int ffpa_bwd_dq_attrs(int route, int is_fp16, int block_q, int* regs,
+                                 int* local_bytes) {
+  cudaFuncAttributes a, d;
+  cudaError_t e;
+  if (route == dq::WGMMA) {
+    e = is_fp16 ? cudaFuncGetAttributes(&a, dq::wgmma_dq_kernel<__half, false>)
+                : cudaFuncGetAttributes(&a, dq::wgmma_dq_kernel<__nv_bfloat16, false>);
+    if (e == cudaSuccess)
+      e = is_fp16 ? cudaFuncGetAttributes(&d, dq::wgmma_dq_kernel<__half, true>)
+                  : cudaFuncGetAttributes(&d, dq::wgmma_dq_kernel<__nv_bfloat16, true>);
+    if (e == cudaSuccess) a.localSizeBytes = std::max(a.localSizeBytes, d.localSizeBytes);
+  } else if (block_q == 64) {
+    e = is_fp16 ? cudaFuncGetAttributes(&a, dq_kernel<__half, 64>)
+                : cudaFuncGetAttributes(&a, dq_kernel<__nv_bfloat16, 64>);
+  } else {
+    e = is_fp16 ? cudaFuncGetAttributes(&a, dq_kernel<__half, 32>)
+                : cudaFuncGetAttributes(&a, dq_kernel<__nv_bfloat16, 32>);
+  }
+  if (e != cudaSuccess) return (int)e;
+  *regs = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
+  return 0;
 }
 
 // S-resident dK/dV (bf16): the slab holds S on entry and dS on return. The

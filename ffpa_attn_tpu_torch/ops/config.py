@@ -46,9 +46,17 @@ never refused by the card.
     them, so at most 512 columns of each fit one block: wider heads split
     the columns over ``dkdv_col_passes`` blocks (the reference's SM90 D512
     "2-pass D-split"), each recomputing S and dP for its half.
-  - dQ (recompute): a block owns a 64-row (D <= 512) or 32-row
-    (D <= 1024) Q tile whose fp32 dQ tile lives in registers like the
-    forward's O tile, with Q and dO resident.
+  - dQ (recompute), two routes by head dims alone (``dq_plan`` mirrors
+    the launcher's ``dq::make_plan``). D and Dv <= 512 take a TMA + wgmma
+    block (namespace ``dq``): 384 threads own 64 Q rows with Q and dO
+    resident in 64 x 64 boxes (128 KB at D = Dv = 512), a producer
+    warpgroup streams each KV tile's K, V and again K boxes through a ring
+    of two-box stages (5 at D = Dv = 512), and two consumer warpgroups
+    each compute S and dP for half of the tile's 64 KV columns and own
+    half of the fp32 dQ tile's columns (128 registers a thread at D512).
+    Wider heads take the mma.sync block: a 64-row or 32-row Q tile
+    (``block_q_dq``) whose fp32 dQ tile lives in the registers of 16
+    warps like the forward's O tile, with Q and dO resident.
   - S-resident tier (bf16): the forward's S residual costs no shared
     memory (it is stored from the softmax's registers). The from-S dK/dV
     pass has two routes, by Dv and ``dkdv_dk_in_kernel`` alone
@@ -129,6 +137,13 @@ _FROM_S_WG_MAX_STAGES = 12
 # The from-S pass's widest dV: 1024 columns in the mma.sync block's
 # registers.
 FROM_S_MAX_DV = 1024
+# Compile-time constants of the wgmma recompute dQ block (flash_bwd.cu
+# namespace dq: ROWS, KV_ROWS, MAX_BOXES * 64, MAX_STAGES), not settings:
+# dq_plan mirrors the launcher with them.
+_DQ_WG_ROWS = 64
+_DQ_WG_KV_ROWS = 64
+_DQ_WG_MAX_D = 512
+_DQ_WG_MAX_STAGES = 8
 # Compile-time constants of the banded dQ / dK blocks (flash_bwd.cu
 # namespace band: ROWS, KT, MAX_CHUNKS * COLS, STAGES), not settings:
 # banded_plan mirrors the launcher with them.
@@ -164,7 +179,10 @@ class BlockConfig:
 
     For a forward with D and Dv <= 512 the wgmma launcher picks its own
     64-row tile (``fwd_plan``); there ``block_q`` sets only the row padding
-    of the S residual's slab (``flash_fwd.scores_padding``).
+    of the S residual's slab (``flash_fwd.scores_padding``). Likewise the
+    recompute dQ launcher at D and Dv <= 512 picks its own 64-row tile
+    (``dq_plan``): there ``block_q_dq`` sets nothing, and the dbias slab's
+    rows pad to 64.
     """
 
     block_q: int = 64
@@ -519,6 +537,54 @@ def dkdv_plan(d: int, dv: int, itemsize: int = 2) -> DkdvPlan:
                     dkdv_smem_bytes(d, dv, itemsize), floor_split(nd), floor_split(nv))
 
 
+@dataclass(frozen=True)
+class DqPlan:
+    """The route and tiling of one recompute dQ launch, as
+    ``csrc/flash_bwd.cu`` ``dq::make_plan`` computes it (the library hands
+    its own out through ``flash_bwd.dq_kernel_plan``; the card test holds
+    the two equal).
+
+    ``route`` is "wgmma" (D and Dv <= 512) or "mma_sync"; ``q_rows`` a
+    block's Q rows (for mma.sync the largest row tile its registers and
+    shared memory hold; the launch takes ``block_q_dq``), ``kv_rows`` a KV
+    tile's rows, ``stages`` the ring's depth, ``smem_bytes`` the dynamic
+    shared memory a block asks for (at ``q_rows`` for mma.sync) and
+    ``dq_blocks`` the (first column, width) of dQ each owner accumulates:
+    the two consumer warpgroups (wgmma; a width may be 0) or the whole
+    block (mma.sync).
+    """
+
+    route: str
+    q_rows: int
+    kv_rows: int
+    stages: int
+    smem_bytes: int
+    dq_blocks: tuple
+
+
+def dq_plan(d: int, dv: int, itemsize: int = 2) -> DqPlan:
+    """The recompute dQ route by head dims alone (padded to 64-column
+    chunks): D and Dv <= 512 take the wgmma block, consumer 0 owning the
+    first ceil(nd / 2) of D's nd boxes of dQ and consumer 1 the rest, with
+    as many ring stages (two 64 x 64 boxes each, at most 8) as fit beside
+    Q, dO and the dS box; wider heads the mma.sync block
+    (``dq_smem_bytes`` at its tallest row tile)."""
+    nd, nv = cdiv(d, D_CHUNK), cdiv(dv, D_CHUNK)
+    if max(nd, nv) * D_CHUNK <= _DQ_WG_MAX_D:
+        box = _DQ_WG_ROWS * D_CHUNK * itemsize
+        fixed = (nd + nv + 1) * box + 1024 + 8
+        stage = 2 * box + 16
+        stages = min(_DQ_WG_MAX_STAGES, (SMEM_LIMIT_BYTES - fixed) // stage)
+        return DqPlan("wgmma", _DQ_WG_ROWS, _DQ_WG_KV_ROWS, stages, fixed + stages * stage,
+                      _even_blocks(nd, 2))
+    d_pad, dv_pad = nd * D_CHUNK, nv * D_CHUNK
+    tall = FWD_ROW_TILES[0] * d_pad <= FWD_ACC_ELEMS and \
+        dq_smem_bytes(FWD_ROW_TILES[0], d_pad, dv_pad, itemsize) <= SMEM_LIMIT_BYTES
+    rows = FWD_ROW_TILES[0] if tall else FWD_ROW_TILES[1]
+    return DqPlan("mma_sync", rows, KV_TILE, FWD_STREAM_STAGES,
+                  dq_smem_bytes(rows, d_pad, dv_pad, itemsize), ((0, d_pad),))
+
+
 def dq_fits(block_q: int, d: int, dv: int, itemsize: int = 2) -> bool:
     """Whether the dQ kernels take this row tile: the fp32 dQ tile
     (block_q x D) in registers and the recompute block in shared memory."""
@@ -573,6 +639,8 @@ __all__ = [
     "dkdv_col_passes",
     "dkdv_smem_bytes",
     "dq_smem_bytes",
+    "DqPlan",
+    "dq_plan",
     "varlen_dkdv_smem_bytes",
     "varlen_dq_smem_bytes",
     "varlen_bwd_fits",

@@ -33,9 +33,12 @@ never loaded; a dK/dV block loops over the GQA group and the Q tiles itself
 the dK/dV block runs on TMA and wgmma (``config.dkdv_plan``): 64 KV rows
 with K and V resident, a producer warpgroup streaming 64-row Q and dO
 boxes, two consumer warpgroups each computing half of S^T and dP^T and
-then one of dK and dV, at most 256 columns a pass. Wider heads take the
-mma.sync dK/dV block; dQ and from-S take the forward's mma.sync tiles and
-chunk ring. Banded dQ and banded dK are plain GEMMs over a causal k-range
+then one of dK and dV, at most 256 columns a pass. The recompute dQ block
+at D and Dv <= 512 is its mirror (``config.dq_plan``): 64 Q rows with Q
+and dO resident, K, V and again K boxes streamed, two consumers each
+computing half of S and dP and then owning half of dQ's columns. Wider
+heads take the mma.sync dK/dV and dQ blocks, the forward's mma.sync tiles
+and chunk ring. Banded dQ and banded dK are plain GEMMs over a causal k-range
 and run on Hopper's TMA and wgmma (``csrc/sm90.cuh``): a producer
 warpgroup keeps a 4-stage ring of TMA tiles full, two consumer warpgroups
 run wgmma.m64n256k16 on 128 rows x at most 256 columns a block
@@ -70,11 +73,13 @@ from .config import (
     BandedPlan,
     BlockConfig,
     DkdvPlan,
+    DqPlan,
     FromSPlan,
     banded_plan,
     cdiv,
     dkdv_col_passes,
     dkdv_plan,
+    dq_plan,
     from_s_fits,
     from_s_plan,
 )
@@ -241,6 +246,8 @@ _ARGTYPES = {
     "ffpa_bwd_dkdv_plan": [_I, _I, ctypes.POINTER(ctypes.c_int), _I],
     "ffpa_bwd_from_s_attrs": [_I] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2,
     "ffpa_bwd_from_s_plan": [_I, _I, ctypes.POINTER(ctypes.c_int), _I],
+    "ffpa_bwd_dq_attrs": [_I] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2,
+    "ffpa_bwd_dq_plan": [_I, _I, ctypes.POINTER(ctypes.c_int), _I],
 }
 
 
@@ -368,6 +375,16 @@ def _dkdv_launch(
 _dkdv_launch.launches = 0
 
 
+def dbias_slab_shape(nq: int, nkv: int, d: int, dv: int, config: BlockConfig) -> tuple:
+    """(rows, columns) of the fp32 dbias slab the dQ kernel writes at head
+    dims (d, dv) (padded to 64-column chunks): rows padded to the block's Q
+    rows (64 on the wgmma route, ``block_q_dq`` on mma.sync), columns to
+    KV_TILE."""
+    plan = dq_plan(d, dv)
+    rows = plan.q_rows if plan.route == "wgmma" else config.block_q_dq
+    return cdiv(nq, rows) * rows, cdiv(nkv, KV_TILE) * KV_TILE
+
+
 def _dq_launch(
     q, k, v, bias, do, lse, delta, seed, config, *, scale, is_causal, causal_offset,
     dropout_p, group, grad_q_storage_dtype, softcap=0.0, window=(-1, -1), alibi=None,
@@ -375,7 +392,10 @@ def _dq_launch(
 ):
     """dQ [B, Hq, Nq, D] and, for a bias when ``emit_dbias``, its gradient
     reduced to the bias's compact shape: the post-bias score gradient,
-    without softcap's factor."""
+    without softcap's factor. The kernel's route (wgmma for D, Dv <= 512,
+    else mma.sync at ``config.block_q_dq`` rows) is the launcher's own, by
+    head dims alone (``config.dq_plan``); the dbias slab pads to its rows
+    (``dbias_slab_shape``)."""
     b, hq, nq, d = q.shape
     _, hkv, nkv, _ = k.shape
     dq_dtype = _grad_dtype(grad_q_storage_dtype, q.dtype)
@@ -397,11 +417,11 @@ def _dq_launch(
         dq = torch.empty((b, hq, nq, d_pad), dtype=wt, device=q.device)
         dbias_full = None
         if emit_dbias:
-            dbias_full = torch.empty((b, hq, cdiv(nq, bq) * bq, cdiv(nkv, KV_TILE) * KV_TILE),
+            dbias_full = torch.empty((b, hq, *dbias_slab_shape(nq, nkv, d_pad, dv_pad, config)),
                                      dtype=torch.float32, device=q.device)
         if ENV.device_log_level() >= 2:
-            logger.info("dq launch grid=(%d,%d,%d) block_q=%d D=%d Dv=%d dbias=%s", hq, b,
-                        cdiv(nq, bq), bq, d_pad, dv_pad, emit_dbias)
+            logger.info("dq launch route=%s block_q_dq=%d D=%d Dv=%d dbias=%s",
+                        dq_plan(d_pad, dv_pad).route, bq, d_pad, dv_pad, emit_dbias)
         lib = _bwd_lib()
         with torch.cuda.device(q.device):
             err = lib.ffpa_bwd_dq(
@@ -453,6 +473,32 @@ def dkdv_kernel_plan(d: int, dv: int) -> DkdvPlan:
     blocks = [tuple(out[6 + 4 * i:10 + 4 * i]) for i in range(passes)]
     return DkdvPlan("wgmma" if out[0] == 1 else "mma_sync", passes, out[2], out[3], out[4],
                     out[5], tuple(bl[:2] for bl in blocks), tuple(bl[2:] for bl in blocks))
+
+
+def dq_kernel_attrs(route: str, dtype=torch.bfloat16, block_q: int = 64) -> dict:
+    """Registers a thread (at launch, before setmaxnreg) and local (spill)
+    bytes of the recompute dQ kernel of ``route`` ("wgmma": the larger
+    spill of its two dropout instantiations; "mma_sync" at row tile
+    ``block_q``), from cudaFuncGetAttributes. Needs a card."""
+    lib = _bwd_lib()
+    regs, local = ctypes.c_int(0), ctypes.c_int(0)
+    err = lib.ffpa_bwd_dq_attrs(int(route == "wgmma"), int(dtype == torch.float16), block_q,
+                                ctypes.byref(regs), ctypes.byref(local))
+    _build.check(lib, err, "dq kernel attributes")
+    return {"registers": regs.value, "local_bytes": local.value}
+
+
+def dq_kernel_plan(d: int, dv: int) -> DqPlan:
+    """The route and tiling the recompute dQ launcher takes at head dims
+    (d, dv) (padded to 64-column chunks), read from the library: what
+    ``config.dq_plan`` mirrors. Needs a card."""
+    lib = _bwd_lib()
+    out = (ctypes.c_int * 16)()
+    err = lib.ffpa_bwd_dq_plan(cdiv(d, D_CHUNK) * D_CHUNK, cdiv(dv, D_CHUNK) * D_CHUNK, out,
+                               len(out))
+    _build.check(lib, err, "dq kernel plan")
+    blocks = tuple((out[6 + 2 * i], out[7 + 2 * i]) for i in range(out[5]))
+    return DqPlan("wgmma" if out[0] == 1 else "mma_sync", out[1], out[2], out[3], out[4], blocks)
 
 
 def from_s_kernel_attrs(route: str, dk_in_kernel: bool = False) -> dict:

@@ -39,6 +39,9 @@ CASES = {
     "dropout": dict(nq=130, nkv=150, causal=True, dropout=0.2),
     "batch2_gqa_bias": dict(b=2, hq=4, hkv=2, nq=110, nkv=140, causal=True, bias="full"),
     "fp16": dict(nq=130, nkv=150, causal=True, dtype="float16"),
+    # D != Dv: the wgmma dK/dV and dQ routes stream different box counts.
+    "d320_dv512_causal_bias": dict(nq=130, nkv=150, causal=True, bias="full", d=320, dv=512),
+    "d512_dv320_window": dict(nq=160, nkv=160, window=(40, 8), d=512, dv=320),
 }
 CAUSAL = sorted(n for n, c in CASES.items() if c.get("causal"))
 
@@ -47,8 +50,9 @@ def _inputs(case, seed=0):
     rng = np.random.default_rng(seed)
     b, hq, hkv = case.get("b", 1), case.get("hq", 2), case.get("hkv", 1)
     nq, nkv, d = case["nq"], case["nkv"], case.get("d", 320)
+    dv = case.get("dv", d)
     x = dict(q=randn(rng, (b, hq, nq, d)), k=randn(rng, (b, hkv, nkv, d)),
-             v=randn(rng, (b, hkv, nkv, d)), do=randn(rng, (b, hq, nq, d)),
+             v=randn(rng, (b, hkv, nkv, dv)), do=randn(rng, (b, hq, nq, dv)),
              bias=None, alibi=None)
     if case.get("bias") == "full":
         x["bias"] = randn(rng, (b, 1, nq, nkv))
@@ -119,8 +123,8 @@ def _port_args(case, x, j, dtype, device="cpu"):
 
 
 def _config(x, dtype):
-    d, nq, nkv = x["q"].shape[-1], x["q"].shape[2], x["k"].shape[2]
-    return pick_backward_config(d=d, dv=d, nq=nq, nkv=nkv, dtype=getattr(torch, dtype))
+    d, dv, nq, nkv = x["q"].shape[-1], x["v"].shape[-1], x["q"].shape[2], x["k"].shape[2]
+    return pick_backward_config(d=d, dv=dv, nq=nq, nkv=nkv, dtype=getattr(torch, dtype))
 
 
 def _dkdv(case, x, j, emit, device="cpu"):
