@@ -15,7 +15,9 @@ It imports only ``ffpa_attn_tpu_torch``, torch and numpy, and runs, in order:
    storage), banded dQ, the from-S dK/dV pass in both
    variants and banded dK (a slab NaN outside the band among them), the
    packed varlen forward, the varlen dK/dV and dQ kernels (bf16 and fp16
-   feature cases) and paged decode (bf16 and int8 pools);
+   feature cases) and paged decode (bf16 and int8 pools, both routes: TMA
+   over pages of 16..256 rows, 64 packed rows, windows, lengths on tile
+   edges; cp.async over a page of 24 rows);
 4. serving path: greedy ``generate`` of the L4 dm1024 H8/4 Dh512 vocab-32000
    bf16 model (random weights from numpy seed 0) on a 4096-token prompt, 32
    tokens, with the kernel launch counts read around that run; first-step
@@ -50,11 +52,14 @@ It imports only ``ffpa_attn_tpu_torch``, torch and numpy, and runs, in order:
    torch.profiler, CUDA-event time beside it); the forward's time a launch
    at the training shape from the handoff step's profile, and timed alone
    there without and with the S residual beside its bound and SDPA; the
-   forward's, the dK/dV route's and the dQ route's plans held equal to
-   their mirrors, their registers and spill bytes, and ptxas's log free of
-   wgmma serialization notes; each backward kernel's device ms logged
-   beside its CUDA-event ms and its bound, and timed again once where it
-   reads below the bound (the phase fails if it stays below);
+   forward's, the dK/dV route's, the dQ route's and paged decode's plans
+   held equal to their mirrors, their registers and spill bytes, and
+   ptxas's log of flash_fwd.cu, flash_bwd.cu and paged_decode.cu free of
+   wgmma serialization notes; paged decode's walk and merge timed apart
+   beside the wrapper's total, over bf16 and int8 pools; each backward
+   kernel's, decode's and paged decode's device ms logged beside its
+   CUDA-event ms and its bound, and timed again once where it reads below
+   the bound (the phase fails if it stays below);
    banded dQ, banded dK and dK/dV also at the op-level shape (H32 MHA)
    with their TFLOP/s;
 7. the ``kernels`` line.
@@ -771,6 +776,20 @@ def phase_kernels_vs_plain() -> dict:
     _paged_case("int8_shuffled_page128", lens=serve_lens, page=128, shuffle=True,
                 quantized=True, seed=10)
     _paged_case("fp16", lens=serve_lens, dtype=torch.float16, seed=11)
+    # The TMA route's edges: smaller pages (boxes of 32 / 16 rows), 64 packed
+    # rows (four row blocks), a window starting mid-box, lengths on tile
+    # edges, an f16 int8 pool, D 320 int8 (a half-empty last slab); and the
+    # cp.async route (a page of 24 rows).
+    _paged_case("page64", lens=serve_lens, page=64, seed=12)
+    _paged_case("page32_int8", lens=serve_lens, page=32, quantized=True, seed=13)
+    _paged_case("page16_nq8_group8", lens=[n + 8 for n in SERVE_LENS], page=16, nq=8, group=8,
+                hkv=1, seed=14)
+    _paged_case("window_mid_box_page32", lens=serve_lens, page=32, window=100, seed=15)
+    _paged_case("tile_edges", lens=[64, 128, 640, 1152], seed=16)
+    _paged_case("fp16_int8", lens=serve_lens, dtype=torch.float16, quantized=True, seed=17)
+    _paged_case("d320_int8_page32", lens=[150, 71, 300, 5], page=32, d=320, quantized=True,
+                max_len=320, seed=18)
+    _paged_case("cp_async_page24", lens=[150, 71, 300, 5], page=24, max_len=336, seed=19)
     return errs
 
 
@@ -1738,6 +1757,22 @@ def _kernel_timed(fn, names: tuple, reps: int, setup=None) -> tuple:
     return dev, ev
 
 
+def _above_bound(name: str, kms: tuple, bms: float, retime) -> tuple:
+    """``kms`` (device ms from the profiler, CUDA-event ms) of ``name``. A
+    device reading below the bound ``bms`` means the profiler lost events:
+    time again once with ``retime`` and fail, with both readings, if it
+    stays below. Returns the reading kept."""
+    if kms[0] >= bms:
+        return kms
+    first, kms = kms, retime()
+    log(f"  {name}: device reading below the bound, timed again: device {kms[0]:.4f} ms, "
+        f"CUDA events {kms[1]:.4f} ms")
+    if kms[0] < bms:
+        fail(f"{name} reads below its bound {bms:.4f} ms twice: device {first[0]:.4f} and "
+             f"{kms[0]:.4f} ms, CUDA events {first[1]:.4f} and {kms[1]:.4f} ms")
+    return kms
+
+
 def _profile_step(label: str, run: dict) -> dict:
     """One training step of ``run`` under the profiler; frees the model.
     Returns the step's device ms by kernel name."""
@@ -1797,19 +1832,12 @@ def training_times(training: dict, windowed: dict, resident: dict) -> tuple:
     rows, events = [], {}
 
     def row(name, replaces, launches, err, kms, pms, lms, flops, nbytes, retime):
-        # kms: (device ms from the profiler, CUDA-event ms). A device reading
-        # below the bound means the profiler lost events: time again once
-        # with ``retime``, and fail with both readings if it stays below.
+        # kms: (device ms from the profiler, CUDA-event ms), held above the
+        # bound by _above_bound.
         bms, bby = bound_ms(flops, nbytes)
         log(f"  {name}: device {kms[0]:.4f} ms, CUDA events {kms[1]:.4f} ms, bound {bms:.4f} ms "
             f"({bby})")
-        if kms[0] < bms:
-            first, kms = kms, retime()
-            log(f"  {name}: device reading below the bound, timed again: device {kms[0]:.4f} "
-                f"ms, CUDA events {kms[1]:.4f} ms")
-            if kms[0] < bms:
-                fail(f"{name} reads below its bound {bms:.4f} ms twice: device {first[0]:.4f} "
-                     f"and {kms[0]:.4f} ms, CUDA events {first[1]:.4f} and {kms[1]:.4f} ms")
+        kms = _above_bound(name, kms, bms, retime)
         rows.append(dict(
             name=name, route="cuda", source="ffpa_attn_tpu_torch/csrc/flash_bwd.cu",
             replaces=replaces, launches=launches, max_abs_err=err, ms=kms[0],
@@ -2014,8 +2042,8 @@ def fwd_kernel_row_extras(d: int) -> dict:
     spill bytes, for the ``kernels`` line; fails unless the launcher's plan
     equals its mirror (``ops/config.py`` ``fwd_plan``) at D, Dv 64..1024,
     the wgmma kernel spills nothing and ptxas kept the wgmma pipeline of
-    every kernel of flash_fwd.cu and flash_bwd.cu (no C7515 / C7520 note in
-    either build's log)."""
+    every kernel of flash_fwd.cu, flash_bwd.cu and paged_decode.cu (no
+    C7515 / C7520 note in any of their builds' logs)."""
     from ffpa_attn_tpu_torch.ops import _build, flash_fwd
     from ffpa_attn_tpu_torch.ops.config import fwd_plan
 
@@ -2034,7 +2062,7 @@ def fwd_kernel_row_extras(d: int) -> dict:
                 f"thread at launch, {a['local_bytes']} local (spill) bytes")
             if route == "wgmma" and a["local_bytes"] != 0:
                 fail(f"the wgmma forward kernel ({dt}) spills {a['local_bytes']} bytes")
-    for name in ("flash_fwd", "flash_bwd"):
+    for name in ("flash_fwd", "flash_bwd", "paged_decode"):
         build_log = _build.build_log(name)
         if "ptxas info" not in build_log:
             # Without ptxas's report the count below would read nothing.
@@ -2051,6 +2079,44 @@ def fwd_kernel_row_extras(d: int) -> dict:
     route = flash_fwd.fwd_kernel_plan(d, d).route
     a = flash_fwd.fwd_kernel_attrs(route)
     return {"fwd_route": route, "registers": a["registers"], "spill_bytes": a["local_bytes"]}
+
+
+def paged_kernel_row_extras(d: int) -> dict:
+    """Paged decode's route at the serving step and its TMA kernel's
+    registers and spill bytes, for the ``kernels`` line; fails unless the
+    launcher's plan equals its mirror (``ops/config.py`` ``paged_plan``)
+    over the serving path's shapes and the cp.async route's, and the TMA
+    kernel spills nothing."""
+    from ffpa_attn_tpu_torch.ops import paged
+    from ffpa_attn_tpu_torch.ops.config import paged_plan
+
+    shapes = [(d, d, rows, page, q8) for rows in (2, 8, 64) for page in (16, 32, 64, 128, 256)
+              for q8 in (False, True)]
+    shapes += [(320, 320, 4, 32, True), (64, 512, 2, 48, False), (576, 576, 2, 256, False),
+               (d, d, 2, 24, True), (d, d, 64, 8, False)]
+    for hd, hdv, rows, page, q8 in shapes:
+        got, want = paged.paged_kernel_plan(hd, hdv, rows, page, q8), paged_plan(
+            hd, hdv, rows, page, 2, q8)
+        if got != want:
+            fail(f"paged launcher's plan at D{hd}/Dv{hdv} R{rows} page {page} int8 {q8} {got} "
+                 f"differs from ops/config.py paged_plan {want}")
+    plan = paged.paged_kernel_plan(d, d, 2, SERVE_PAGE)
+    log(f"  paged_decode plan at the serving step: {plan} (the launcher's, equal to "
+        f"ops/config.py paged_plan at {len(shapes)} shapes)")
+    attrs = {}
+    for route in ("tma", "cp_async"):
+        for dt in (torch.bfloat16, torch.float16):
+            for q8 in (False, True):
+                a = paged.paged_kernel_attrs(route, dt, q8)
+                attrs[(route, dt, q8)] = a
+                log(f"  paged_decode {route} {str(dt)[6:]}{' int8' if q8 else ''}: "
+                    f"{a['registers']} registers a thread, {a['local_bytes']} local (spill) bytes")
+                if route == "tma" and a["local_bytes"] != 0:
+                    fail(f"the TMA paged decode kernel ({dt}, int8 {q8}) spills "
+                         f"{a['local_bytes']} bytes")
+    a = attrs[(plan.route, torch.bfloat16, False)]
+    return {"paged_route": plan.route, "registers": a["registers"],
+            "spill_bytes": a["local_bytes"]}
 
 
 def dkdv_kernel_row_extras(d: int) -> dict:
@@ -2353,9 +2419,11 @@ def serving_times(errs: dict, serving: dict, model) -> tuple:
     torch.cuda.empty_cache()
 
     # Paged decode at the serving step: four layers' pools in turn, so the
-    # K/V pages (44 MB a layer) do not sit in L2.
+    # K/V pages (44 MB a layer) do not sit in L2. The wrapper's device time
+    # (the walk and the merge), then each launch alone by kernel name.
     step_lens = [n + 64 for n in SERVE_LENS]
-    times = {}
+    times, parts, bounds = {}, {}, {}
+    walk_names = ("paged_tma_kernel", "paged_decode_kernel")
     for quantized in (False, True):
         pools = [_paged_pools(step_lens, page=SERVE_PAGE, max_len=SERVE_MAX_LEN, hkv=hkv, d=d,
                               quantized=quantized, gen=gen) for _ in range(cfg.n_layers)]
@@ -2365,8 +2433,26 @@ def serving_times(errs: dict, serving: dict, model) -> tuple:
         def pick():
             return pools[next(it) % len(pools)]
 
-        times[quantized] = _timed(lambda: paged.paged_decode_attention(qd, pick(), scale=scale),
-                                  100, warmup=8)
+        def run_paged():
+            return paged.paged_decode_attention(qd, pick(), scale=scale)
+
+        tag = "paged_decode int8" if quantized else "paged_decode"
+        bounds[quantized] = bound_ms(*paged_decode_counts(step_lens, hq=hq, hkv=hkv, d=d, dv=d,
+                                                          nq=1, quantized=quantized))
+        times[quantized] = _above_bound(tag, _timed(run_paged, 100, warmup=8),
+                                        bounds[quantized][0],
+                                        lambda: _timed(run_paged, 100, warmup=8))
+        parts[quantized] = (_kernel_timed(run_paged, walk_names, 100)[0],
+                            _kernel_timed(run_paged, ("split_merge_kernel",), 100)[0])
+        if times[quantized][0] < 0.95 * sum(parts[quantized]):
+            # The total reads below its own launches (lost profiler events):
+            # time it again once, and fail if it stays below.
+            first, times[quantized] = times[quantized], _timed(run_paged, 100, warmup=8)
+            log(f"  {tag}: total {first[0]:.4f} ms below walk + merge "
+                f"{sum(parts[quantized]):.4f} ms, timed again: {times[quantized][0]:.4f} ms")
+            if times[quantized][0] < 0.95 * sum(parts[quantized]):
+                fail(f"{tag} reads below its own launches twice: {first[0]:.4f} and "
+                     f"{times[quantized][0]:.4f} ms against {sum(parts[quantized]):.4f} ms")
         if quantized:
             continue
         qp = qd.reshape(SERVE_B, hkv, hq // hkv, d)
@@ -2384,22 +2470,24 @@ def serving_times(errs: dict, serving: dict, model) -> tuple:
 
         lms = _timed(gathered_sdpa, 100, warmup=8)
         del dense
-    log(f"  paged_decode at the serving step (lens {step_lens}, page {SERVE_PAGE}): bf16 pools "
-        f"{times[False][0]:.4f} ms [{times[False][1]:.4f}], int8 pools {times[True][0]:.4f} ms "
-        f"[{times[True][1]:.4f}]")
+    for quantized, tag in ((False, "bf16"), (True, "int8")):
+        log(f"  paged_decode at the serving step (lens {step_lens}, page {SERVE_PAGE}), {tag} "
+            f"pools: {times[quantized][0]:.4f} ms [{times[quantized][1]:.4f}] = walk "
+            f"{parts[quantized][0]:.4f} + merge {parts[quantized][1]:.4f} ms, bound "
+            f"{bounds[quantized][0]:.4f} ms ({bounds[quantized][1]})")
     log("  yardstick for paged_decode (not one library call on the pools): "
         "scaled_dot_product_attention over the cache gathered dense, with a length mask")
-    flops, nbytes = paged_decode_counts(step_lens, hq=hq, hkv=hkv, d=d, dv=d, nq=1)
-    bms, bby = bound_ms(flops, nbytes)
     rows.append(dict(
         name="paged_decode", route="cuda", source="ffpa_attn_tpu_torch/csrc/paged_decode.cu",
         replaces="ffpa_attn_tpu/ops/paged.py:297",
         launches=serving["launches"]["paged_decode"], max_abs_err=errs["paged_decode"],
-        ms=times[False][0], plain_ms=pms[0], bound_ms=bms, bound_by=bby, library_ms=lms[0],
+        ms=times[False][0], plain_ms=pms[0], bound_ms=bounds[False][0],
+        bound_by=bounds[False][1], library_ms=lms[0], walk_ms=parts[False][0],
+        merge_ms=parts[False][1], int8_ms=times[True][0], int8_walk_ms=parts[True][0],
+        int8_merge_ms=parts[True][1], int8_bound_ms=bounds[True][0],
     ))
+    rows[-1].update(paged_kernel_row_extras(d))
     events["paged_decode"] = (times[False][1], pms[1], lms[1])
-    fl8, nb8 = paged_decode_counts(step_lens, hq=hq, hkv=hkv, d=d, dv=d, nq=1, quantized=True)
-    log(f"  paged_decode int8 bound_ms {bound_ms(fl8, nb8)[0]:.4f} ({bound_ms(fl8, nb8)[1]})")
     torch.cuda.empty_cache()
     return rows, events
 
@@ -2590,6 +2678,7 @@ def phase_times(errs: dict, main_path: dict, training: dict, windowed: dict,
     pms = _timed(run_plain, 40)
     lms = _timed(run_library, 100, warmup=8)
     bms, bby = bound_ms(flops, nbytes)
+    kms = _above_bound("decode", kms, bms, lambda: _timed(run_kernel, 100, warmup=8))
     rows.append(dict(
         name="decode", route="cuda", source="ffpa_attn_tpu_torch/csrc/decode.cu",
         replaces="ffpa_attn_tpu/ops/decode.py:52", launches=launches["decode"],

@@ -200,6 +200,7 @@ __device__ __forceinline__ uint64_t desc_b128(const void* smem, uint32_t lbo, ui
   "+f"(d[(i) + 0]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3]), "+f"(d[(i) + 4]), \
       "+f"(d[(i) + 5]), "+f"(d[(i) + 6]), "+f"(d[(i) + 7])
 #define FFPA_ACC32(i) FFPA_ACC8(i), FFPA_ACC8((i) + 8), FFPA_ACC8((i) + 16), FFPA_ACC8((i) + 24)
+#define FFPA_REG8_0 "%0, %1, %2, %3, %4, %5, %6, %7"
 #define FFPA_REG16_0 \
   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
 #define FFPA_REG32_0                                                                       \
@@ -239,9 +240,11 @@ template <typename T, int N, int TA, int TB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b,
                                          int scale_d = 1) {
   constexpr bool F16 = std::is_same<T, __half>::value;
-  static_assert(N == 32 || N == 64 || N == 128 || N == 192 || N == 256,
-                "N is 32, 64, 128, 192 or 256");
-  if constexpr (N == 32) {
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128 || N == 192 || N == 256,
+                "N is 16, 32, 64, 128, 192 or 256");
+  if constexpr (N == 16) {
+    FFPA_WGMMA_BOTH(16, FFPA_REG8_0, "10", "%8, %9, p, 1, 1, %11, %12", FFPA_ACC8(0))
+  } else if constexpr (N == 32) {
     FFPA_WGMMA_BOTH(32, FFPA_REG16_0, "18", "%16, %17, p, 1, 1, %19, %20", FFPA_ACC8(0),
                     FFPA_ACC8(8))
   } else if constexpr (N == 64) {
@@ -267,6 +270,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t
 #undef FFPA_REG32_1
 #undef FFPA_REG32_0
 #undef FFPA_REG16_0
+#undef FFPA_REG8_0
 #undef FFPA_ACC32
 #undef FFPA_ACC8
 

@@ -26,8 +26,12 @@ never refused by the card.
   shared memory; Q/K and V chunks stream through two slots.
 * Packed varlen forward (``csrc/varlen_fwd.cu``): the forward's block, with
   the row tile's segment ids and ranks in shared memory.
-* Paged decode (``csrc/paged_decode.cu``): the decode block (row tiles 16,
-  32, 64), with a staging tile for int8 pools.
+* Paged decode (``csrc/paged_decode.cu``), two routes (``paged_plan``
+  mirrors the launcher's ``make_plan``): D and Dv <= 512 with a page of a
+  multiple of 16 rows take the TMA block (16 packed rows, a ring of 8 KiB
+  stages as deep as leaves two blocks an SM, two staging buffers for int8
+  pools); anything else the cp.async block (the decode block, row tiles 16,
+  32, 64, with a staging tile for int8 pools).
 * Packed varlen backward (``csrc/varlen_bwd.cu``): the dense dK/dV and
   recompute dQ blocks below (the same tiles and column passes), with the
   tiles' segment ids and ranks in shared memory.
@@ -144,6 +148,19 @@ _DQ_WG_ROWS = 64
 _DQ_WG_KV_ROWS = 64
 _DQ_WG_MAX_D = 512
 _DQ_WG_MAX_STAGES = 8
+# Compile-time constants of the TMA paged decode block (paged_decode.cu
+# namespace tma: ROWS, the dims it takes, STAGE_BYTES, MAX_STAGES,
+# BLOCK_SMEM, Q_BOX_BYTES, STAGING_BYTES, XCH_FLOATS * 4), not settings:
+# paged_plan mirrors the launcher with them.
+_PAGED_TMA_ROWS = 16
+_PAGED_TMA_MAX_D = 512
+_PAGED_TMA_PAGE_MULTIPLE = 16
+_PAGED_TMA_STAGE_BYTES = 64 * 128
+_PAGED_TMA_MAX_STAGES = 12
+_PAGED_TMA_BLOCK_SMEM = 115_712
+_PAGED_TMA_Q_BOX_BYTES = 16 * 128
+_PAGED_TMA_STAGING_BYTES = 2 * 64 * 64 * 2
+_PAGED_TMA_XCH_BYTES = 2 * 4 * 16 * 4
 # Compile-time constants of the banded dQ / dK blocks (flash_bwd.cu
 # namespace band: ROWS, KT, MAX_CHUNKS * COLS, STAGES), not settings:
 # banded_plan mirrors the launcher with them.
@@ -322,6 +339,52 @@ def paged_smem_bytes(cfg: BlockConfig, dv: int, itemsize: int = 2,
     only; the scales multiply S and P, never the tile)."""
     stage = cfg.block_kv * (D_CHUNK + _PAD_T) * itemsize if quantized else 0
     return decode_smem_bytes(cfg, dv, itemsize) + stage
+
+
+@dataclass(frozen=True)
+class PagedPlan:
+    """The route and tiling of one paged decode launch, as
+    ``csrc/paged_decode.cu`` ``make_plan`` computes it (the library hands
+    its own out through ``paged.paged_kernel_plan``; the card test holds
+    the two equal).
+
+    ``route`` is "tma" or "cp_async"; ``rows`` the packed rows of a block
+    (a taller packing takes ``cdiv(R, rows)`` row blocks), ``box_rows`` the
+    rows of a TMA box (0 on cp.async), ``stages`` the ring's depth and
+    ``smem_bytes`` the dynamic shared memory a block asks for.
+    """
+
+    route: str
+    rows: int
+    box_rows: int
+    stages: int
+    smem_bytes: int
+
+
+def paged_plan(d: int, dv: int, rows: int, page: int, itemsize: int = 2,
+               quantized: bool = False) -> PagedPlan:
+    """The paged decode route at head dims (d, dv) (padded to 64-column
+    chunks), ``rows`` packed rows (group * nq) and pages of ``page`` rows:
+    D, Dv <= 512 and a page of a multiple of 16 rows take the TMA block,
+    its box the largest of 64, 32, 16 rows dividing the page, as many 8 KiB
+    stages (at most 12) as fit beside Q, the P box, the exchange and (int8)
+    the staging boxes in a block's share of two an SM; anything else the
+    cp.async block at the smallest of ``PAGED_ROW_TILES`` holding ``rows``,
+    halved while it does not fit shared memory."""
+    d_pad, dv_pad = _round_up(d, D_CHUNK), _round_up(dv, D_CHUNK)
+    if max(d_pad, dv_pad) <= _PAGED_TMA_MAX_D and page % _PAGED_TMA_PAGE_MULTIPLE == 0:
+        box_rows = next(r for r in (64, 32, 16) if page % r == 0)
+        fixed = (1024 + (2 * _PAGED_TMA_STAGING_BYTES if quantized else 0)
+                 + (d_pad // D_CHUNK + 1) * _PAGED_TMA_Q_BOX_BYTES + _PAGED_TMA_XCH_BYTES)
+        stage = _PAGED_TMA_STAGE_BYTES + 16
+        stages = min(_PAGED_TMA_MAX_STAGES, (_PAGED_TMA_BLOCK_SMEM - fixed) // stage)
+        return PagedPlan("tma", _PAGED_TMA_ROWS, box_rows, stages, fixed + stages * stage)
+    cfg = BlockConfig(block_q=64).clamp(rows, 0, PAGED_ROW_TILES)
+    while cfg.block_q > min(PAGED_ROW_TILES) and \
+            paged_smem_bytes(cfg, dv_pad, itemsize, quantized) > SMEM_LIMIT_BYTES:
+        cfg = BlockConfig(block_q=cfg.block_q // 2)
+    return PagedPlan("cp_async", cfg.block_q, 0, DECODE_STREAM_STAGES,
+                     paged_smem_bytes(cfg, dv_pad, itemsize, quantized))
 
 
 def dkdv_col_passes(d: int, dv: int) -> int:
@@ -629,6 +692,8 @@ __all__ = [
     "varlen_fits",
     "PAGED_ROW_TILES",
     "paged_smem_bytes",
+    "PagedPlan",
+    "paged_plan",
     "default_config",
     "DKDV_KV_TILE",
     "DKDV_Q_TILE",

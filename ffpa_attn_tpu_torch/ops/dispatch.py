@@ -7,7 +7,6 @@ import torch
 
 from .config import (
     FWD_ROW_TILES,
-    PAGED_ROW_TILES,
     SMEM_LIMIT_BYTES,
     BlockConfig,
     decode_smem_bytes,
@@ -15,7 +14,6 @@ from .config import (
     dkdv_col_passes,
     dq_fits,
     from_s_fits,
-    paged_smem_bytes,
     varlen_bwd_fits,
     varlen_fits,
 )
@@ -76,20 +74,6 @@ def pick_varlen_backward_config(*, d: int, dv: int, tq: int, dtype: torch.dtype)
     raise ValueError(f"no varlen backward tiles fit D={d}, Dv={dv}")
 
 
-def pick_paged_config(*, dv: int, dtype: torch.dtype, rows: int,
-                      quantized: bool) -> BlockConfig:
-    """Paged decode row tile: the smallest of PAGED_ROW_TILES that holds the
-    ``rows`` packed GQA rows (group * nq), shrunk until the block fits
-    shared memory (a taller packing takes several row blocks)."""
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    cfg = BlockConfig(block_q=64).clamp(rows, 0, PAGED_ROW_TILES)
-    while paged_smem_bytes(cfg, dv, itemsize, quantized) > SMEM_LIMIT_BYTES:
-        if cfg.block_q == 16:
-            raise ValueError(f"no paged decode row tile fits shared memory at Dv={dv}")
-        cfg = BlockConfig(block_q=cfg.block_q // 2)
-    return cfg
-
-
 # The from-S dK/dV pass keeps dK in the kernel up to this many keys and
 # leaves it to banded dK (causal) or one product (otherwise) beyond. Set by
 # tools/torch_from_s_probe.py on an H100 80GB HBM3 at 700 W (B1 H8/4 causal
@@ -121,5 +105,5 @@ def pick_backward_config(
 
 
 __all__ = ["pick_forward_config", "pick_decode_config", "pick_varlen_config",
-           "pick_varlen_backward_config", "pick_paged_config", "pick_backward_config",
+           "pick_varlen_backward_config", "pick_backward_config",
            "FROM_S_DK_IN_MAX_NKV"]
