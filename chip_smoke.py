@@ -500,14 +500,15 @@ def _decode_scores_case(name, *, hkv=4, group=2, nq=1, nkv=MAX_LEN, d=512, valid
         fail(f"decode score residual disagrees with its plain version: {name}")
 
 
-def _varlen_inputs(seqs, *, seqs_k=None, hq=8, hkv=4, d=512, dtype=torch.bfloat16, pad=0,
-                   gen=None):
-    """Packed q [Tq, Hq, D], k/v [Tk, Hkv, D] and int32 cu_seqlens on the
-    card; ``pad`` tokens of tail padding on both sides (the pseudo-segment)."""
+def _varlen_inputs(seqs, *, seqs_k=None, hq=8, hkv=4, d=512, dv=None, dtype=torch.bfloat16,
+                   pad=0, gen=None):
+    """Packed q [Tq, Hq, D], k [Tk, Hkv, D], v [Tk, Hkv, Dv] (Dv = D unless
+    given) and int32 cu_seqlens on the card; ``pad`` tokens of tail padding
+    on both sides (the pseudo-segment)."""
     seqs_k = seqs_k or seqs
     tq, tk = sum(seqs) + pad, sum(seqs_k) + pad
     q = _randn((tq, hq, d), dtype, gen)
-    k, v = _randn((tk, hkv, d), dtype, gen), _randn((tk, hkv, d), dtype, gen)
+    k, v = _randn((tk, hkv, d), dtype, gen), _randn((tk, hkv, dv or d), dtype, gen)
     cu_q = torch.tensor(np.cumsum([0] + list(seqs)), dtype=torch.int32, device="cuda")
     cu_k = torch.tensor(np.cumsum([0] + list(seqs_k)), dtype=torch.int32, device="cuda")
     return q, k, v, cu_q, cu_k
@@ -545,18 +546,18 @@ def _varlen_case(name, *, seqs, seqs_k=None, hq=8, hkv=4, d=512, dtype=torch.bfl
     return max_abs(o, po)
 
 
-def _varlen_bwd_case(name, *, seqs, seqs_k=None, hq=8, hkv=4, d=512, dtype=torch.bfloat16,
-                     causal=True, window=(-1, -1), softcap=0.0, alibi=False, sinks=False, pad=0,
-                     seed=0):
+def _varlen_bwd_case(name, *, seqs, seqs_k=None, hq=8, hkv=4, d=512, dv=None,
+                     dtype=torch.bfloat16, causal=True, window=(-1, -1), softcap=0.0, alibi=False,
+                     sinks=False, pad=0, seed=0):
     """The varlen dK/dV and dQ kernels (one ``_varlen_backward`` call)
     against their plain versions on the same inputs: (o, lse) from the
     forward kernel, sink-inclusive with ``sinks``; dq, dk, dv per row."""
     from ffpa_attn_tpu_torch.ops import varlen
 
     gen = torch.Generator(device="cuda").manual_seed(700 + seed)
-    q, k, v, cu_q, cu_k = _varlen_inputs(seqs, seqs_k=seqs_k, hq=hq, hkv=hkv, d=d, dtype=dtype,
-                                         pad=pad, gen=gen)
-    do = _randn(q.shape, dtype, gen)
+    q, k, v, cu_q, cu_k = _varlen_inputs(seqs, seqs_k=seqs_k, hq=hq, hkv=hkv, d=d, dv=dv,
+                                         dtype=dtype, pad=pad, gen=gen)
+    do = _randn(q.shape[:2] + v.shape[2:], dtype, gen)
     al = torch.rand((hq,), generator=gen, device="cuda") * 0.1 if alibi else None
     kw = dict(scale=1.0 / math.sqrt(d), causal=causal, softcap=softcap, window=window)
     meta = varlen._call_metadata(cu_q, cu_k, q.shape[0], k.shape[0], "cuda")
@@ -761,6 +762,12 @@ def phase_kernels_vs_plain() -> dict:
                          seed=s + 12)
         _varlen_bwd_case(f"{tag}_tile_straddles_3_segs", seqs=[20, 9, 50, 3, 300], dtype=dt,
                          seed=s + 13)
+        # D != Dv on the wgmma dK/dV route: passes split D and Dv's boxes
+        # differently (256 + 256 of D, 192 + 128 of Dv).
+        _varlen_bwd_case(f"{tag}_d512_dv320", seqs=[300, 17, 500], d=512, dv=320, dtype=dt,
+                         seed=s + 14)
+        _varlen_bwd_case(f"{tag}_d320_dv512", seqs=[300, 17, 500], d=320, dv=512, dtype=dt,
+                         seed=s + 15)
     serve_lens = [n + 1 for n in SERVE_LENS]  # the first decode step's cache
     errs["paged_decode"] = _paged_case("serving_page256", lens=serve_lens)
     _paged_case("int8_page256", lens=serve_lens, quantized=True, seed=1)
@@ -2042,8 +2049,8 @@ def fwd_kernel_row_extras(d: int) -> dict:
     spill bytes, for the ``kernels`` line; fails unless the launcher's plan
     equals its mirror (``ops/config.py`` ``fwd_plan``) at D, Dv 64..1024,
     the wgmma kernel spills nothing and ptxas kept the wgmma pipeline of
-    every kernel of flash_fwd.cu, flash_bwd.cu and paged_decode.cu (no
-    C7515 / C7520 note in any of their builds' logs)."""
+    every kernel of flash_fwd.cu, flash_bwd.cu, paged_decode.cu and
+    varlen_bwd.cu (no C7515 / C7520 note in any of their builds' logs)."""
     from ffpa_attn_tpu_torch.ops import _build, flash_fwd
     from ffpa_attn_tpu_torch.ops.config import fwd_plan
 
@@ -2062,7 +2069,7 @@ def fwd_kernel_row_extras(d: int) -> dict:
                 f"thread at launch, {a['local_bytes']} local (spill) bytes")
             if route == "wgmma" and a["local_bytes"] != 0:
                 fail(f"the wgmma forward kernel ({dt}) spills {a['local_bytes']} bytes")
-    for name in ("flash_fwd", "flash_bwd", "paged_decode"):
+    for name in ("flash_fwd", "flash_bwd", "paged_decode", "varlen_bwd"):
         build_log = _build.build_log(name)
         if "ptxas info" not in build_log:
             # Without ptxas's report the count below would read nothing.
@@ -2145,6 +2152,37 @@ def dkdv_kernel_row_extras(d: int) -> dict:
     route = dkdv_plan(d, d).route
     a = flash_bwd.dkdv_kernel_attrs(route)
     return {"dkdv_route": route, "registers": a["registers"], "spill_bytes": a["local_bytes"]}
+
+
+def varlen_dkdv_kernel_row_extras(d: int) -> dict:
+    """The varlen dK/dV route at head dim ``d`` and its kernel's registers
+    and spill bytes, for the ``kernels`` line; fails unless the launcher's
+    plan equals its mirror (``ops/config.py`` ``varlen_dkdv_plan``) at D, Dv
+    64..1024 and D != Dv, and the wgmma kernel spills nothing."""
+    from ffpa_attn_tpu_torch.ops import varlen
+    from ffpa_attn_tpu_torch.ops.config import varlen_dkdv_plan
+
+    pairs = [(x, x) for x in range(64, 1025, 64)] + [(512, 320), (320, 512), (512, 64),
+                                                     (64, 512), (448, 64), (512, 1024),
+                                                     (1024, 320), (400, 400)]
+    for hd, hdv in pairs:
+        if varlen.varlen_dkdv_kernel_plan(hd, hdv) != varlen_dkdv_plan(hd, hdv):
+            fail(f"varlen dK/dV launcher's plan at D{hd}/Dv{hdv} "
+                 f"{varlen.varlen_dkdv_kernel_plan(hd, hdv)} differs from ops/config.py "
+                 f"varlen_dkdv_plan {varlen_dkdv_plan(hd, hdv)}")
+    log(f"  varlen_dkdv plan at D{d}: {varlen.varlen_dkdv_kernel_plan(d, d)} (the launcher's, "
+        f"equal to ops/config.py varlen_dkdv_plan at {len(pairs)} head-dim pairs)")
+    for route in ("wgmma", "mma_sync"):
+        for dt in (torch.bfloat16, torch.float16):
+            a = varlen.varlen_dkdv_kernel_attrs(route, dt)
+            log(f"  varlen_dkdv {route} {str(dt)[6:]}: {a['registers']} registers a thread at "
+                f"launch, {a['local_bytes']} local (spill) bytes")
+            if route == "wgmma" and a["local_bytes"] != 0:
+                fail(f"the wgmma varlen dK/dV kernel ({dt}) spills {a['local_bytes']} bytes")
+    route = varlen_dkdv_plan(d, d).route
+    a = varlen.varlen_dkdv_kernel_attrs(route)
+    return {"varlen_dkdv_route": route, "registers": a["registers"],
+            "spill_bytes": a["local_bytes"]}
 
 
 def dq_kernel_row_extras(d: int) -> dict:
@@ -2502,6 +2540,7 @@ def packed_training_times(packed: dict) -> tuple:
 
     from ffpa_attn_tpu_torch import ffpa_attn_varlen_func
     from ffpa_attn_tpu_torch.ops import varlen
+    from ffpa_attn_tpu_torch.ops.config import varlen_dkdv_plan
     from ffpa_attn_tpu_torch.ops.dispatch import pick_varlen_backward_config
     from ffpa_attn_tpu_torch.ops.reference import expand_kv_heads
     from ffpa_attn_tpu_torch.utils.profiling import bound_ms, device_window, varlen_backward_counts
@@ -2529,8 +2568,10 @@ def packed_training_times(packed: dict) -> tuple:
     o, lse = varlen._varlen_forward(q, k, v, cu, cu, meta=meta, **kw)
     delta = varlen._varlen_delta(do, o)
     cfg = pick_varlen_backward_config(d=d, dv=d, tq=t, dtype=bf)
+    plan = varlen_dkdv_plan(d, d)
     ops = varlen._BwdOperands(q, k, v, do, lse, delta, None)
-    dkdv_sched, dq_sched = varlen._varlen_bwd_schedules(meta, t, cfg.block_q_dq, True, (-1, -1))
+    dkdv_sched, dq_sched = varlen._varlen_bwd_schedules(meta, t, cfg.block_q_dq, True, (-1, -1),
+                                                        (plan.q_rows, plan.kv_rows))
     rows, events = [], {}
 
     # The library call for the pair: autograd of SDPA over the packed T.
@@ -2566,7 +2607,7 @@ def packed_training_times(packed: dict) -> tuple:
             def run_plain():
                 return varlen._varlen_dkdv_plain(q, k, v, do, lse, delta, meta, **kw)
 
-            outs = ("dk", "dv")
+            outs, kernels = ("dk", "dv"), varlen.DKDV_KERNELS
         else:
             def run():
                 return (varlen._varlen_dq_kernel(ops, meta, dq_sched, cfg, **kw),)
@@ -2574,21 +2615,26 @@ def packed_training_times(packed: dict) -> tuple:
             def run_plain():
                 return (varlen._varlen_dq_plain(q, k, v, do, lse, delta, meta, **kw),)
 
-            outs = ("dq",)
+            outs, kernels = ("dq",), ("varlen_dq_kernel",)
         got = run()
         torch.cuda.synchronize()
         err = _hold(f"{name}_T{t}_causal", dict(zip(outs, zip(got, run_plain()))))
         del got
-        kms = _kernel_timed(run, (f"{name}_kernel",), 10)
-        pms = _timed(run_plain, 3, warmup=1)
         flops, nbytes = varlen_backward_counts(name, PACK_LENS, PACK_LENS, hq=hq, hkv=hkv, d=d,
                                                dv=d, causal=True)
         bms, bby = bound_ms(flops, nbytes)
+        kms = _kernel_timed(run, kernels, 10)
+        log(f"  {name}: device {kms[0]:.4f} ms, CUDA events {kms[1]:.4f} ms, bound {bms:.4f} ms "
+            f"({bby})")
+        kms = _above_bound(name, kms, bms, lambda: _kernel_timed(run, kernels, 10))
+        pms = _timed(run_plain, 3, warmup=1)
         rows.append(dict(
             name=name, route="cuda", source="ffpa_attn_tpu_torch/csrc/varlen_bwd.cu",
             replaces=replaces, launches=packed["launches"][name], max_abs_err=err, ms=kms[0],
             plain_ms=pms[0], bound_ms=bms, bound_by=bby, library_ms=lms[0],
         ))
+        if name == "varlen_dkdv":
+            rows[-1].update(varlen_dkdv_kernel_row_extras(d))
         events[name] = (kms[1], pms[1], lms[1])
         torch.cuda.empty_cache()
     return rows, events

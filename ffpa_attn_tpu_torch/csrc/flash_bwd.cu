@@ -942,17 +942,6 @@ struct Params {
   float scale;
 };
 
-// Column block cb of nb over `chunks` 64-column chunks: as even as
-// possible, the first chunks % nb blocks one chunk wider (ops/config.py
-// banded_plan).
-struct Cols {
-  int c0, nc;
-};
-__host__ __device__ inline Cols col_block(int chunks, int nb, int cb) {
-  const int base = chunks / nb, extra = chunks % nb;
-  return {(cb * base + (cb < extra ? cb : extra)) * COLS, base + (cb < extra ? 1 : 0)};
-}
-
 // The tiling of a launch at head dim D (a multiple of COLS): the column
 // blocks, the bytes of a stage (the dS tile and the widest block's boxes)
 // and the block's dynamic shared memory (the stages, their mbarriers and
@@ -1216,7 +1205,7 @@ constexpr int WGMMA = 1, MMA_SYNC = 0;       // routes
 // The route and tiling of a launch at head dims (D, Dv), multiples of 64:
 // D, Dv <= 512 take this kernel, with ceil(max(D, Dv) / 256) passes whose
 // column blocks split the 64-column boxes of D and of Dv as evenly as
-// possible (band::col_block), and as many ring stages as shared memory
+// possible (sm90.cuh col_block), and as many ring stages as shared memory
 // holds after K, V and the two exchange boxes. Wider heads take the
 // mma.sync dkdv_kernel. ffpa_bwd_dkdv_plan hands it out; ops/config.py
 // dkdv_plan mirrors it and the card test holds the two equal.
@@ -1260,7 +1249,7 @@ struct Maps {
 template <typename T, int CW>
 __device__ __forceinline__ void consume(const BwdParams& p, int stages, unsigned char* smem,
                                         int ntiles, int ni, int i_lo, int kvh, int b, int kv0,
-                                        band::Cols dc, band::Cols vc, bool emit) {
+                                        sm90::Cols dc, sm90::Cols vc, bool emit) {
   const int nd = p.D / COLS, nv = p.Dv / COLS;
   const unsigned char* Ks = smem;
   const unsigned char* Vs = Ks + nd * BOX_BYTES;
@@ -1521,8 +1510,8 @@ __global__ void __launch_bounds__(THREADS, 1) kernel(const __grid_constant__ Map
   // first tiles walk the most Q tiles), then the heads.
   const int pass = blockIdx.x % passes, kv0 = (blockIdx.x / passes) * ROWS;
   const int kvh = blockIdx.y, b = blockIdx.z;
-  const band::Cols dc = band::col_block(nd, passes, pass);
-  const band::Cols vc = band::col_block(nv, passes, pass);
+  const sm90::Cols dc = sm90::col_block(nd, passes, pass);
+  const sm90::Cols vc = sm90::col_block(nv, passes, pass);
 
   // Q tiles of the band: [i_lo, i_lo + ni) of every group member.
   const int nqt = (p.nq + QROWS - 1) / QROWS;
@@ -1691,7 +1680,7 @@ constexpr int WGMMA = 1, MMA_SYNC = 0;     // routes
 
 // The route and tiling of a launch at head dims (D, Dv), multiples of 64:
 // D, Dv <= 512 take this block, consumer 0 owning the first ceil(nd / 2)
-// of D's nd boxes of dQ and consumer 1 the rest (band::col_block), with as
+// of D's nd boxes of dQ and consumer 1 the rest (sm90.cuh col_block), with as
 // many ring stages as shared memory holds after Q, dO and the dS box (5 at
 // D = Dv = 512); wider heads take the mma.sync dq_kernel, whose row tile is
 // the largest its registers (rows x D <= 64 x 512) and shared memory hold.
@@ -1704,7 +1693,7 @@ struct Plan {
 inline Plan make_plan(int D, int Dv) {
   Plan pl;
   const int nd = D / COLS, nv = Dv / COLS;
-  pl.nd0 = band::col_block(nd, 2, 0).nc;
+  pl.nd0 = sm90::col_block(nd, 2, 0).nc;
   if (nd <= MAX_BOXES && nv <= MAX_BOXES) {
     pl.route = WGMMA;
     pl.rows = ROWS;
@@ -2079,7 +2068,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   // Boxes on 1024 B boundaries: the 128 B swizzle's atom.
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  const int nd = p.D / COLS, nv = p.Dv / COLS, nd0 = band::col_block(nd, 2, 0).nc;
+  const int nd = p.D / COLS, nv = p.Dv / COLS, nd0 = sm90::col_block(nd, 2, 0).nc;
   const Smem sm = carve(base, nd, nv, stages);
   const Block k = block_of(p);
   if (threadIdx.x == 0) {
@@ -2745,8 +2734,8 @@ extern "C" int ffpa_bwd_dkdv_plan(int D, int Dv, int* out, int cap) {
   for (int ps = 0; ps < pl.passes; ++ps) {
     int* o = out + 6 + 4 * ps;
     if (wg) {
-      const band::Cols dc = band::col_block(nD, pl.passes, ps);
-      const band::Cols vc = band::col_block(nV, pl.passes, ps);
+      const sm90::Cols dc = sm90::col_block(nD, pl.passes, ps);
+      const sm90::Cols vc = sm90::col_block(nV, pl.passes, ps);
       o[0] = dc.c0;
       o[1] = dc.nc * CH;
       o[2] = vc.c0;
@@ -3014,7 +3003,7 @@ extern "C" int ffpa_bwd_banded_plan(int D, int* out, int cap) {
   out[3] = band::STAGES;
   out[4] = (int)pl.smem;
   for (int cb = 0; cb < pl.col_blocks; ++cb) {
-    const band::Cols c = band::col_block(pl.chunks, pl.col_blocks, cb);
+    const sm90::Cols c = sm90::col_block(pl.chunks, pl.col_blocks, cb);
     out[5 + 2 * cb] = c.c0;
     out[6 + 2 * cb] = c.nc * band::COLS;
   }

@@ -299,6 +299,18 @@ __device__ __forceinline__ float ex2(float x) {
 // wgmma k16 step reads, 8 KB on a 1024 B boundary.
 constexpr int BOX_BYTES = 64 * 64 * 2;
 
+// Column block cb of nb over `chunks` 64-column boxes, in columns: as even
+// as possible, the first chunks % nb blocks one box wider. The split of
+// every wgmma kernel's column blocks and passes (ops/config.py
+// _even_blocks mirrors it).
+struct Cols {
+  int c0, nc;
+};
+__host__ __device__ inline Cols col_block(int chunks, int nb, int cb) {
+  const int base = chunks / nb, extra = chunks % nb;
+  return {(cb * base + (cb < extra ? cb : extra)) * 64, base + (cb < extra ? 1 : 0)};
+}
+
 // Byte offset of element (r, c) of a box in the 128 B swizzle: TMA's
 // layout and wgmma's B128.
 __device__ __forceinline__ uint32_t swz(int r, int c) {

@@ -3,8 +3,8 @@
 // (ffpa_attn_tpu/ops/varlen.py). ops/varlen.py calls the C entry points
 // ffpa_varlen_bwd_dkdv and ffpa_varlen_bwd_dq through ctypes.
 //
-// Both are the dense backward's blocks (flash_bwd.cu, tiles and products in
-// bwd_tiles.cuh) with two changes:
+// All three blocks below are the dense backward's (flash_bwd.cu) with two
+// changes:
 //   * the causal / window band test becomes the segment / rank keep-mask of
 //     the forward (varlen_fwd.cu),
 //       (q_seg == k_seg) & (k_pos <= q_rank [+ wr]) [& k_pos >= q_rank - wl],
@@ -12,23 +12,29 @@
 //     get P = 0 and dS = 0 exactly, so rows with no key (padding, rows past
 //     Tq, an empty interval's [0, 0] tile) add nothing;
 //   * the tile range of each block is an interval read from device memory,
-//     computed on the device at this kernel's own tiles (ops/varlen.py
-//     _varlen_bwd_schedules): for dK/dV a KV tile's [imin, imax] of 128-row
-//     Q tiles, for dQ a Q tile's [jmin, jmax] of 64-row KV tiles.
+//     computed on the device at the kernel's own tiles (ops/varlen.py
+//     _varlen_bwd_schedules): for dK/dV a KV tile's [imin, imax] of Q tiles
+//     (64 x 64 on the wgmma route, 128 x 32 on mma.sync), for dQ a Q tile's
+//     [jmin, jmax] of 64-row KV tiles.
 // q, dO [T, Hq, D|Dv] and k, v [T, Hkv, D|Dv] are read through their row
 // and head strides (no head-major copy, no padding of T); dq, dk and dv are
 // written packed, the ragged tails bounds-checked. lse and delta are [Hq, Tq]
 // fp32 (delta = rowsum(dO * O), the sink-inclusive O where there are sinks).
 //
-// dK/dV: a block owns 32 KV rows of one KV head with K and V resident and
-// walks, for every q-head of its GQA group, the 128-row Q tiles of its
-// interval: S^T = K Q^T over the Q chunks, P^T to shared memory, dP^T = V dO^T
-// and dV += P^T dO over one stream of dO chunks, dS^T to shared memory, dK +=
-// dS^T Q over the Q chunks again. The group is reduced in fp32 in the
-// block's registers and dK, dV are stored once each (the TPU kernel writes a
-// per-q-head dK/dV in the input type and sums the group afterwards). Above
-// 512 columns of dK or dV, col_passes blocks split the columns, each
-// recomputing S and dP.
+// dK/dV has two routes, by head dims alone (tma::make_plan). D, Dv <= 512
+// take the TMA + wgmma block of namespace tma (the dense dkdv::kernel's
+// design, details beside it): 64 KV rows of one KV head with K and V
+// resident, the GQA group's 64-row Q and dO tiles streamed as TMA boxes,
+// column passes of at most 256 columns. Wider heads take the mma.sync
+// varlen_dkdv_kernel: a block owns 32 KV rows of one KV head with K and V
+// resident and walks, for every q-head of its GQA group, the 128-row Q
+// tiles of its interval: S^T = K Q^T over the Q chunks, P^T to shared
+// memory, dP^T = V dO^T and dV += P^T dO over one stream of dO chunks, dS^T
+// to shared memory, dK += dS^T Q over the Q chunks again; above 512
+// columns of dK or dV, col_passes blocks split the columns, each
+// recomputing S and dP. On both routes the group is reduced in fp32 in the
+// block's registers and dK, dV are stored once each (the TPU kernel writes
+// a per-q-head dK/dV in the input type and sums the group afterwards).
 //
 // dQ: a block owns BQ packed query rows of one head with Q and dO resident
 // and walks the KV tiles of its interval: S over the K chunks, dP over the V
@@ -39,7 +45,13 @@
 // dK/dV, 3 for dQ, over the segments' bands; utils/profiling.py
 // varlen_backward_counts). The design against it is the dense backward's,
 // walking only the intervals' tiles.
+#include <string.h>
+
+#include <algorithm>
+#include <type_traits>
+
 #include "bwd_tiles.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -62,6 +74,7 @@ struct VarlenBwdParams {
   const int* k_pos;
   const int* lo;       // [tiles] first tile of each block's interval
   const int* hi;       // last tile
+  const int* order;    // [tiles] dK/dV's KV tiles, longest interval first (wgmma route)
   const float* alibi;  // [Hq] slopes, or null
   int Hq, Hkv, group, tq, tk, D, Dv, col_passes;
   float scale, softcap;
@@ -577,40 +590,559 @@ VarlenBwdParams make_params(const void* q, const void* k, const void* v, const v
   return p;
 }
 
+// ---------------------------------------------------------------------------
+// dK / dV for D, Dv <= 512: TMA + mbarrier + wgmma
+// ---------------------------------------------------------------------------
+
+// The Hopper route of ffpa_varlen_bwd_dkdv, built on the dense dK/dV block
+// (flash_bwd.cu namespace dkdv; sm90.cuh). The mma.sync block above owned
+// 32 KV rows, ran m16n8k16 products from ldmatrix fragments and put a block
+// barrier after every 64-column chunk of its cp.async ring, so nothing
+// overlapped (3.19 ms at the packed-training shape on an H100, 18x its
+// bound). Here a block of 384 threads owns 64 KV rows of one KV head and
+// one column pass (at most 256 columns of dK and of dV, 128 fp32 registers
+// of each consumer thread). K and V are loaded by TMA once and stay
+// resident in 64 x 64 boxes with 128 B swizzle; warpgroup 0 is the
+// producer: one thread streams, for every q-head of the GQA group and every
+// 64-row Q tile of the KV tile's interval, the Q and dO boxes through a
+// ring of two-box stages (tensor maps over the packed layout: dims (D, T,
+// H) with the row and head strides, extents at the true Tq and Tk, so TMA
+// zero-fills the ragged tail). Warpgroups 1 and 2 are the consumers; per Q
+// tile:
+//  - S^T = K Q^T and dP^T = V dO^T over all of D and Dv: consumer c takes Q
+//    columns 32c..32c+31 (wgmma.m64n32k16), so each thread holds its own
+//    S, dP, lse and delta;
+//  - P and dS = P (dP - delta) (softcap's factor included): a block of 64
+//    KV rows x 32 Q columns that lies in one segment and inside the band,
+//    with no feature on (no softcap, no ALiBi, no left window), is full:
+//    p = 2^(s * scale * log2 e - lse * log2 e) alone. Packing keeps a
+//    segment's tokens contiguous with rising positions, so that is the
+//    first and last rows' and columns' segments equal and k_pos(last row)
+//    <= q_rank(first column) + wr: six loads, the same for every thread.
+//    Any other block takes keeps + score_prob element by element, with the
+//    metadata of the thread's 8 columns and 2 rows read from device memory
+//    (L1) for the tile;
+//  - each consumer writes its 32 columns of P^T and dS^T into two swizzled
+//    [kv][q] boxes; consumer 0 runs dK += dS^T Q over the pass's Q boxes,
+//    consumer 1 dV += P^T dO over its dO boxes (wgmma.m64n64k16), which the
+//    ring holds after the S^T / dP^T boxes, so both work at once.
+// The blocks of the longest intervals start first (the schedule's order:
+// under causal packing a segment's first KV tiles walk the most Q tiles),
+// with a KV tile's passes and KV heads side by side. S and dP are
+// recomputed in every pass: at D512 (two passes) 6 matmul units execute
+// against the bound's 4. dK and dV are stored packed, rows past Tk not.
+namespace tma {
+
+using namespace ffpa::sm90;
+
+constexpr int ROWS = 64;                // KV rows of a block
+constexpr int QROWS = 64;               // Q rows of a streamed tile
+constexpr int COLS = 64;                // columns of a box (128 B of 16-bit)
+constexpr int MAX_BOXES = 8;            // D, Dv <= 512 on this route
+constexpr int PASS_BOXES = 4;           // dK / dV columns of a pass: 256
+constexpr int STAGE_BOXES = 2;          // boxes a stage (one barrier handshake)
+static_assert(STAGE_BOXES == 2, "the consumers' stage loops take pairs of boxes");
+constexpr int STAGE_BYTES = STAGE_BOXES * BOX_BYTES;
+constexpr int MAX_STAGES = 6;
+constexpr int THREADS = 384;            // producer warpgroup + 2 consumer warpgroups
+constexpr int CONSUMER_WARPS = 8;       // arrivals that free a stage
+constexpr int SMEM_LIMIT = 232448;
+constexpr int WGMMA = 1, MMA_SYNC = 0;  // routes
+
+// The route and tiling of a launch at head dims (D, Dv), multiples of 64:
+// D, Dv <= 512 take this block, with ceil(max(D, Dv) / 256) passes whose
+// column blocks split the boxes of D and of Dv by sm90.cuh col_block, and
+// as many ring stages as shared memory holds after K, V and the two
+// exchange boxes (the dense block's tiling, flash_bwd.cu dkdv::make_plan);
+// wider heads the mma.sync varlen_dkdv_kernel with its 512-column passes.
+// ffpa_varlen_bwd_dkdv_plan hands it out; ops/config.py varlen_dkdv_plan
+// mirrors it (through dkdv_plan) and the card test holds the two equal.
+struct Plan {
+  int route, passes, nd, nv, stages;
+  size_t smem;
+};
+inline Plan make_plan(int D, int Dv) {
+  Plan pl;
+  pl.nd = D / COLS;
+  pl.nv = Dv / COLS;
+  if (pl.nd <= MAX_BOXES && pl.nv <= MAX_BOXES) {
+    pl.route = WGMMA;
+    pl.passes = std::max((pl.nd + PASS_BOXES - 1) / PASS_BOXES, (pl.nv + PASS_BOXES - 1) / PASS_BOXES);
+    // K, V, the P and dS boxes, the 1024 B alignment and the K/V barrier;
+    // a stage is STAGE_BOXES boxes and its two barriers.
+    const size_t fixed = (size_t)(pl.nd + pl.nv + 2) * BOX_BYTES + 1024 + sizeof(uint64_t);
+    const size_t stage = STAGE_BYTES + 2 * sizeof(uint64_t);
+    pl.stages = (int)std::min((size_t)MAX_STAGES, (SMEM_LIMIT - fixed) / stage);
+    pl.smem = fixed + pl.stages * stage;
+  } else {
+    pl.route = MMA_SYNC;
+    pl.passes = std::max((D + MAXC * CH - 1) / (MAXC * CH), (Dv + MAXC * CH - 1) / (MAXC * CH));
+    pl.stages = NST;
+    pl.smem = dkdv_smem_bytes<__nv_bfloat16>(D, Dv);
+  }
+  return pl;
+}
+
+// The kernel's tensor maps, a __grid_constant__ parameter of their own (TMA
+// reads them by address); the scalars stay an ordinary parameter, read from
+// the constant bank (p.col_passes is the plan's passes).
+struct Maps {
+  CUtensorMap q_map, do_map;  // (D | Dv, Tq, Hq): row and head strides; box 64 x 64
+  CUtensorMap k_map, v_map;   // (D | Dv, Tk, Hkv)
+};
+
+// Consumer CW (0: dK, 1: dV) of a block; CW is a template argument so that
+// no branch around a wgmma depends on the thread (ptxas serializes wgmma on
+// a path it cannot prove uniform).
+template <typename T, int CW>
+__device__ __forceinline__ void consume(const VarlenBwdParams& p, int stages, unsigned char* smem,
+                                        int ni, int i_lo, int kvh, int kv0, Cols dc, Cols vc) {
+  const int nd = p.D / COLS, nv = p.Dv / COLS;
+  const unsigned char* Ks = smem;
+  const unsigned char* Vs = Ks + nd * BOX_BYTES;
+  unsigned char* sP = smem + (nd + nv) * BOX_BYTES;
+  unsigned char* sdS = sP + BOX_BYTES;
+  unsigned char* ring = sdS + BOX_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * STAGE_BYTES);
+  uint64_t* empty = full + stages;
+  uint64_t* kv_full = empty + stages;
+
+  constexpr int cw = CW;  // 0: dK, Q columns 0..31; 1: dV, 32..63
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int own = CW == 0 ? dc.nc : vc.nc;  // boxes of this consumer's product
+  constexpr float LOG2E = 1.4426950408889634f;
+  const float scale_log2 = p.scale * LOG2E;
+  // No feature that changes a kept element's p: a full block skips the mask.
+  const bool plain = p.alibi == nullptr && p.softcap <= 0.f && p.window_left < 0;
+
+  float acc[PASS_BOXES * 32];
+#pragma unroll
+  for (int i = 0; i < PASS_BOXES * 32; ++i) acc[i] = 0.f;
+
+  // it: the stream's stage index; held: a stage whose products may still
+  // run. done_with frees the stage before once this one's products are
+  // issued and the older ones completed (one group stays in flight).
+  int it = 0, held = -1;
+  auto release = [&](int st, bool pred) { mbar_arrive_if(&empty[st], pred && lane == 0); };
+  auto done_with = [&](int st) {
+    wgmma_commit();
+    wgmma_wait<1>();
+    release(held >= 0 ? held : 0, held >= 0);
+    held = st;
+  };
+  auto drain = [&]() {
+    wgmma_wait<0>();
+    release(held >= 0 ? held : 0, held >= 0);
+    held = -1;
+  };
+
+  mbar_wait(kv_full, 0);
+  // The walk, group member outer, Q tiles inner: q-head h, Q rows q0; the
+  // interval's rows are [q_end - span, q_end). (A tile count divided by ni
+  // kept i_lo live across the products, and it spilled.)
+  const int span = ni * QROWS;
+  const int h_end = (kvh + 1) * p.group;
+  int h = kvh * p.group, q0 = i_lo * QROWS;
+  const int q_end = q0 + span;
+  for (; h < h_end;) {
+    const int qc = q0 + 32 * cw;  // this consumer's first Q column
+    // lse and delta of this thread's 8 Q columns: qc + 8 jj + 2 t4 + e.
+    float lse_r[8], dl_r[8];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int q = qc + 8 * jj + 2 * t4 + e;
+        const bool ok = q < p.tq;
+        lse_r[2 * jj + e] = ok ? p.lse[(long long)h * p.tq + q] : 0.f;
+        dl_r[2 * jj + e] = ok ? p.delta[(long long)h * p.tq + q] : 0.f;
+      }
+
+    // S^T and dP^T: this warpgroup's 32 Q columns of each box, a stage's
+    // boxes in one wgmma group. The stages of two boxes, then an odd last
+    // box alone: a conditional wgmma inside a stage makes ptxas serialize.
+    float s[16], dp[16];
+    auto stream = [&](float(&a)[16], const unsigned char* res, int n) {
+      int c = 0;
+      for (; c + 2 <= n; c += 2, ++it) {
+        const int st = it % stages;
+        const unsigned char* sb = ring + st * STAGE_BYTES + cw * 4096;
+        mbar_wait(&full[st], (it / stages) & 1);
+        wgmma_fence();
+        box_mma<T, 32, 0>(a, res + c * BOX_BYTES, sb, c == 0);
+        box_mma<T, 32, 0>(a, res + (c + 1) * BOX_BYTES, sb + BOX_BYTES);
+        done_with(st);
+      }
+      if (c < n) {
+        const int st = it % stages;
+        mbar_wait(&full[st], (it / stages) & 1);
+        wgmma_fence();
+        box_mma<T, 32, 0>(a, res + c * BOX_BYTES, ring + st * STAGE_BYTES + cw * 4096, c == 0);
+        done_with(st);
+        ++it;
+      }
+    };
+    stream(s, Ks, nd);
+    stream(dp, Vs, nv);
+    drain();
+    fence_operands(s);
+    fence_operands(dp);
+
+    // The other consumer is done with the previous tile's P and dS boxes
+    // (its products completed), so each pair of P and dS goes there as it
+    // is computed: no register holds them.
+    named_barrier_sync(1, 2 * 128);
+    // P and dS at the accumulator's (kv, q) coordinates: element 4 jj + 2 hh
+    // + e is KV row 16 warp + g + 8 hh, Q column qc + 8 jj + 2 t4 + e. The
+    // full-block test reads the same words in every thread of the
+    // warpgroup. The metadata is read per tile (from L1), its addresses
+    // formed from a KV row the empty asm hides, so that none is hoisted out
+    // of the walk and held (or spilled) beside the accumulator.
+    int kv_first = kv0;
+    asm volatile("" : "+r"(kv_first));
+    const int ks = __ldg(p.k_seg + kv_first);
+    const bool full_block =
+        plain && ks >= 0 && __ldg(p.k_seg + kv_first + ROWS - 1) == ks &&
+        __ldg(p.q_seg + qc) == ks && __ldg(p.q_seg + qc + 31) == ks &&
+        (p.window_right < 0 ||
+         __ldg(p.k_pos + kv_first + ROWS - 1) <= __ldg(p.q_rank + qc) + p.window_right);
+    if (full_block) {
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          float pv[2], dsv[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int idx = 4 * jj + 2 * hh + e;
+            pv[e] = exp2f(fmaf(s[idx], scale_log2, -lse_r[2 * jj + e] * LOG2E));
+            dsv[e] = pv[e] * (dp[idx] - dl_r[2 * jj + e]);
+          }
+          const uint32_t off = swz(16 * warp + g + 8 * hh, 32 * cw + 8 * jj + 2 * t4);
+          *reinterpret_cast<uint32_t*>(sP + off) = pack2<T>(pv[0], pv[1]);
+          *reinterpret_cast<uint32_t*>(sdS + off) = pack2<T>(dsv[0], dsv[1]);
+        }
+    } else {
+      const float slope = p.alibi != nullptr ? p.alibi[h] : 0.f;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          // One pair at a time: the empty asm ties the pair's scores and
+          // its first column and KV row, so nothing of a pair (the
+          // metadata loads and their addresses) is computed ahead of the
+          // pairs before, and the mask's registers are needed once, not 16
+          // times beside the 128 of the accumulator.
+          const int i0 = 4 * jj + 2 * hh;
+          int col = qc + 8 * jj + 2 * t4, row = kv0 + 16 * warp + g + 8 * hh;
+          asm volatile("" : "+f"(s[i0]), "+f"(s[i0 + 1]), "+f"(dp[i0]), "+f"(dp[i0 + 1]),
+                       "+r"(col), "+r"(row));
+          const int ks = __ldg(p.k_seg + row), kp = __ldg(p.k_pos + row);
+          float pv[2], dsv[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int qr = __ldg(p.q_rank + col + e);
+            const Prob pr = score_prob(p, keeps(p, __ldg(p.q_seg + col + e), qr, ks, kp),
+                                       s[i0 + e], lse_r[2 * jj + e], slope, qr - kp);
+            pv[e] = pr.p;
+            dsv[e] = pr.p * pr.cap * (dp[i0 + e] - dl_r[2 * jj + e]);
+          }
+          const uint32_t off = swz(16 * warp + g + 8 * hh, 32 * cw + 8 * jj + 2 * t4);
+          *reinterpret_cast<uint32_t*>(sP + off) = pack2<T>(pv[0], pv[1]);
+          *reinterpret_cast<uint32_t*>(sdS + off) = pack2<T>(dsv[0], dsv[1]);
+        }
+    }
+    fence_proxy_async();
+    named_barrier_sync(1, 2 * 128);
+
+    // dV += P^T dO (consumer 1) over the pass's dO boxes, which come first,
+    // and dK += dS^T Q (consumer 0) over its Q boxes; each frees the other's
+    // boxes as they arrive. The accumulator box of each product is fixed at
+    // compile time.
+    auto skip = [&](int n) {  // the stages of n boxes
+      for (int c = 0; c < n; c += STAGE_BOXES, ++it) {
+        const int st = it % stages;
+        mbar_wait(&full[st], (it / stages) & 1);
+        release(st, true);
+      }
+    };
+    if constexpr (CW == 0) skip(vc.nc);
+    const unsigned char* a_box = CW == 0 ? sdS : sP;
+#pragma unroll
+    for (int jj = 0; jj < PASS_BOXES; jj += 2) {
+      if (jj + 2 <= own) {
+        const int st = it % stages;
+        mbar_wait(&full[st], (it / stages) & 1);
+        wgmma_fence();
+        box_mma<T, 64, 1>(*reinterpret_cast<float(*)[32]>(acc + 32 * jj), a_box,
+                          ring + st * STAGE_BYTES);
+        box_mma<T, 64, 1>(*reinterpret_cast<float(*)[32]>(acc + 32 * (jj + 1)), a_box,
+                          ring + st * STAGE_BYTES + BOX_BYTES);
+        done_with(st);
+        ++it;
+      } else if (jj < own) {
+        const int st = it % stages;
+        mbar_wait(&full[st], (it / stages) & 1);
+        wgmma_fence();
+        box_mma<T, 64, 1>(*reinterpret_cast<float(*)[32]>(acc + 32 * jj), a_box,
+                          ring + st * STAGE_BYTES);
+        done_with(st);
+        ++it;
+      }
+    }
+    if constexpr (CW == 1) skip(dc.nc);
+    drain();
+    q0 += QROWS;
+    if (q0 == q_end) {
+      q0 -= span;
+      ++h;
+    }
+  }
+  fence_operands(acc);
+
+  // Epilogue: dK = scale * sum (consumer 0) or dV (consumer 1), packed
+  // [Tk, Hkv, D|Dv]; rows past Tk are not stored.
+  const int col0 = cw == 0 ? dc.c0 : vc.c0;
+  const int ld = cw == 0 ? p.D : p.Dv;
+  const float mul = cw == 0 ? p.scale : 1.f;
+  void* out = cw == 0 ? p.dk : p.dv;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int kv = kv0 + 16 * warp + g + 8 * hh;
+    if (kv >= p.tk) continue;
+    const long long base = ((long long)kv * p.Hkv + kvh) * ld + col0 + 2 * t4;
+#pragma unroll
+    for (int jj = 0; jj < PASS_BOXES; ++jj) {
+      if (jj >= own) break;
+#pragma unroll
+      for (int j8 = 0; j8 < 8; ++j8)
+        store2<T>(out, base + 64 * jj + 8 * j8, acc[32 * jj + 4 * j8 + 2 * hh] * mul,
+                  acc[32 * jj + 4 * j8 + 2 * hh + 1] * mul, 0);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+    varlen_dkdv_wgmma_kernel(const __grid_constant__ Maps maps, const VarlenBwdParams p,
+                             const int stages) {
+  extern __shared__ unsigned char smem_raw[];
+  // Boxes on 1024 B boundaries: the 128 B swizzle's atom. The offset is
+  // added to smem_raw itself, so the compiler keeps every pointer below in
+  // the shared space (32-bit) rather than generic (64-bit, two registers).
+  unsigned char* smem = smem_raw + ((1024u - (cvta_smem(smem_raw) & 1023u)) & 1023u);
+  const int nd = p.D / COLS, nv = p.Dv / COLS, passes = p.col_passes;
+  unsigned char* ring = smem + (nd + nv + 2) * BOX_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * STAGE_BYTES);
+  uint64_t* empty = full + stages;
+  uint64_t* kv_full = empty + stages;
+
+  // Block order: the passes of a (KV tile, KV head) side by side (they read
+  // the same Q and dO tiles), the KV heads of a tile next, the KV tiles in
+  // the schedule's order (longest interval first).
+  const int pass = blockIdx.x % passes, kvh = blockIdx.x / passes;
+  const int tile = p.order[blockIdx.y], kv0 = tile * ROWS;
+  const Cols dc = col_block(nd, passes, pass);
+  const Cols vc = col_block(nv, passes, pass);
+
+  // Q tiles of the interval, [i_lo, i_lo + ni) of every group member; an
+  // empty interval is [0, 0]: one fully masked tile.
+  const int i_lo = p.lo[tile];
+  const int ni = p.hi[tile] - i_lo + 1;
+  const int ntiles = p.group * ni;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    mbar_init(kv_full, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      prefetch_map(&maps.q_map);
+      prefetch_map(&maps.do_map);
+      prefetch_map(&maps.k_map);
+      prefetch_map(&maps.v_map);
+      mbar_arrive_expect_tx(kv_full, (nd + nv) * BOX_BYTES);
+      for (int j = 0; j < nd; ++j)
+        tma_load_3d(smem + j * BOX_BYTES, &maps.k_map, kv_full, j * COLS, kv0, kvh);
+      for (int j = 0; j < nv; ++j)
+        tma_load_3d(smem + (nd + j) * BOX_BYTES, &maps.v_map, kv_full, j * COLS, kv0, kvh);
+      // Per Q tile four runs of boxes: the nd Q boxes, the nv dO boxes, the
+      // pass's dO boxes, its Q boxes; a stage takes up to STAGE_BOXES boxes
+      // of one run.
+      int it = 0;
+      auto run = [&](const CUtensorMap* map, int first, int n, int q0, int h) {
+        for (int c = 0; c < n; c += STAGE_BOXES, ++it) {
+          const int st = it % stages, nb = min(STAGE_BOXES, n - c);
+          if (it >= stages) mbar_wait(&empty[st], ((it / stages) - 1) & 1);
+          mbar_arrive_expect_tx(&full[st], nb * BOX_BYTES);
+          for (int b = 0; b < nb; ++b)
+            tma_load_3d(ring + st * STAGE_BYTES + b * BOX_BYTES, map, &full[st],
+                        (first + c + b) * COLS, q0, h);
+        }
+      };
+      for (int t = 0; t < ntiles; ++t) {
+        const int h = kvh * p.group + t / ni, q0 = (i_lo + t % ni) * QROWS;
+        run(&maps.q_map, 0, nd, q0, h);
+        run(&maps.do_map, 0, nv, q0, h);
+        run(&maps.do_map, vc.c0 / COLS, vc.nc, q0, h);
+        run(&maps.q_map, dc.c0 / COLS, dc.nc, q0, h);
+      }
+    }
+  } else {
+    setmaxnreg_inc<240>();
+    if (threadIdx.x < 256)
+      consume<T, 0>(p, stages, smem, ni, i_lo, kvh, kv0, dc, vc);
+    else
+      consume<T, 1>(p, stages, smem, ni, i_lo, kvh, kv0, dc, vc);
+  }
+}
+
+// The host side of one launch: tensor maps over the packed layout (dims (D,
+// T, H), strides in bytes), shared memory, the grid (passes x KV heads, KV
+// tiles).
+template <typename T>
+cudaError_t launch(const VarlenBwdParams& bp, const Plan& pl, int num_kv_tiles,
+                   cudaStream_t stream) {
+  const bool f16 = std::is_same<T, __half>::value;
+  Maps maps;
+  memset(&maps, 0, sizeof(maps));
+  VarlenBwdParams p = bp;
+  p.col_passes = pl.passes;
+  const uint64_t mq = bp.tq > 0 ? bp.tq : 1, mkv = bp.tk > 0 ? bp.tk : 1;
+  cudaError_t e = encode_3d(&maps.q_map, f16, bp.q, bp.D, mq, bp.Hq, (uint64_t)bp.q_rs * 2,
+                            (uint64_t)bp.q_hs * 2, COLS, QROWS);
+  if (e == cudaSuccess)
+    e = encode_3d(&maps.do_map, f16, bp.dout, bp.Dv, mq, bp.Hq, (uint64_t)bp.do_rs * 2,
+                  (uint64_t)bp.do_hs * 2, COLS, QROWS);
+  if (e == cudaSuccess)
+    e = encode_3d(&maps.k_map, f16, bp.k, bp.D, mkv, bp.Hkv, (uint64_t)bp.k_rs * 2,
+                  (uint64_t)bp.k_hs * 2, COLS, ROWS);
+  if (e == cudaSuccess)
+    e = encode_3d(&maps.v_map, f16, bp.v, bp.Dv, mkv, bp.Hkv, (uint64_t)bp.v_rs * 2,
+                  (uint64_t)bp.v_hs * 2, COLS, ROWS);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(pl.passes * bp.Hkv, num_kv_tiles);
+  e = cudaFuncSetAttribute(varlen_dkdv_wgmma_kernel<T>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
+  if (e != cudaSuccess) return e;
+  if (grid.x * grid.y == 0) return cudaSuccess;
+  varlen_dkdv_wgmma_kernel<T><<<grid, THREADS, pl.smem, stream>>>(maps, p, pl.stages);
+  return cudaGetLastError();
+}
+
+}  // namespace tma
+
 }  // namespace
 
-// dK, dV [Tk, Hkv, D|Dv] in the input type, the GQA group reduced. One block
-// per (KV head, column pass) and 32-row KV tile: num_kv_tiles = ceil(Tk / 32);
-// lo / hi hold each KV tile's interval of 128-row Q tiles.
+// dK, dV [Tk, Hkv, D|Dv] in the input type, the GQA group reduced; the
+// route is tma::make_plan's, by head dims alone. imin / imax hold each KV
+// tile's interval of Q tiles at the route's tiles: 64 x 64 on the wgmma
+// route (num_kv_tiles = ceil(Tk / 64); col_passes must be the plan's;
+// order lists the KV tiles, longest interval first), 128 x 32 on mma.sync
+// (num_kv_tiles = ceil(Tk / 32); col_passes splits the columns; order is
+// not read).
 extern "C" int ffpa_varlen_bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
                                     long long q_rs, long long q_hs, long long k_rs,
                                     long long k_hs, long long v_rs, long long v_hs,
                                     long long do_rs, long long do_hs, const float* lse,
                                     const float* delta, void* dk, void* dv, const int* q_seg,
                                     const int* q_rank, const int* k_seg, const int* k_pos,
-                                    const int* imin, const int* imax, const float* alibi,
-                                    int is_fp16, int Hq, int Hkv, int tq, int tk,
-                                    int num_kv_tiles, int D, int Dv, int col_passes, float scale,
-                                    float softcap, int window_left, int window_right,
-                                    void* stream) {
+                                    const int* imin, const int* imax, const int* order,
+                                    const float* alibi, int is_fp16, int Hq, int Hkv, int tq,
+                                    int tk, int num_kv_tiles, int D, int Dv, int col_passes,
+                                    float scale, float softcap, int window_left,
+                                    int window_right, void* stream) {
   VarlenBwdParams p = make_params(q, k, v, dout, q_rs, q_hs, k_rs, k_hs, v_rs, v_hs, do_rs,
                                   do_hs, lse, delta, q_seg, q_rank, k_seg, k_pos, imin, imax,
                                   alibi, Hq, Hkv, tq, tk, D, Dv, scale, softcap, window_left,
                                   window_right);
   p.dk = dk;
   p.dv = dv;
+  p.order = order;
   p.col_passes = col_passes;
+  if (D <= 0 || Dv <= 0 || D % CH != 0 || Dv % CH != 0 || Hkv < 1 || Hq % Hkv != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const tma::Plan pl = tma::make_plan(D, Dv);
+  if (pl.route == tma::WGMMA) {
+    if (col_passes != pl.passes || order == nullptr ||
+        (long long)num_kv_tiles * tma::ROWS < tk)
+      return (int)cudaErrorInvalidValue;
+    return (int)(is_fp16 ? tma::launch<__half>(p, pl, num_kv_tiles, st)
+                         : tma::launch<__nv_bfloat16>(p, pl, num_kv_tiles, st));
+  }
   // Every pass owns at most MAXC chunks of dK and of dV.
-  if (D % CH != 0 || Dv % CH != 0 || col_passes < 1 || Hkv < 1 || Hq % Hkv != 0 ||
-      (D / CH + col_passes - 1) / col_passes > MAXC ||
+  if (col_passes < 1 || (D / CH + col_passes - 1) / col_passes > MAXC ||
       (Dv / CH + col_passes - 1) / col_passes > MAXC || num_kv_tiles * KVT < tk)
     return (int)cudaErrorInvalidValue;
   const dim3 grid(Hkv * col_passes, num_kv_tiles);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_fp16)
     return (int)launch(varlen_dkdv_kernel<__half>, grid, dkdv_smem_bytes<__half>(D, Dv), p, st);
   return (int)launch(varlen_dkdv_kernel<__nv_bfloat16>, grid,
                      dkdv_smem_bytes<__nv_bfloat16>(D, Dv), p, st);
+}
+
+// The route and tiling ffpa_varlen_bwd_dkdv takes at head dims (D, Dv),
+// multiples of 64: out[0..5] are the route (1 wgmma, 0 mma.sync), the
+// passes, a block's KV rows, the streamed Q rows, the ring's stages and the
+// dynamic shared-memory bytes (bf16), then per pass (first column, width)
+// of dK and of dV; cap is out's length. The layout of ffpa_bwd_dkdv_plan.
+extern "C" int ffpa_varlen_bwd_dkdv_plan(int D, int Dv, int* out, int cap) {
+  if (D <= 0 || Dv <= 0 || D % CH != 0 || Dv % CH != 0) return (int)cudaErrorInvalidValue;
+  const tma::Plan pl = tma::make_plan(D, Dv);
+  if (cap < 6 + 4 * pl.passes) return (int)cudaErrorInvalidValue;
+  const bool wg = pl.route == tma::WGMMA;
+  out[0] = pl.route;
+  out[1] = pl.passes;
+  out[2] = wg ? tma::ROWS : KVT;
+  out[3] = wg ? tma::QROWS : QT;
+  out[4] = pl.stages;
+  out[5] = (int)pl.smem;
+  const int nD = D / CH, nV = Dv / CH;
+  for (int ps = 0; ps < pl.passes; ++ps) {
+    int* o = out + 6 + 4 * ps;
+    if (wg) {
+      const sm90::Cols dc = sm90::col_block(nD, pl.passes, ps);
+      const sm90::Cols vc = sm90::col_block(nV, pl.passes, ps);
+      o[0] = dc.c0;
+      o[1] = dc.nc * CH;
+      o[2] = vc.c0;
+      o[3] = vc.nc * CH;
+    } else {  // varlen_dkdv_kernel's d_lo / ndo and v_lo / nvo
+      const int d_lo = ps * nD / pl.passes, v_lo = ps * nV / pl.passes;
+      o[0] = d_lo * CH;
+      o[1] = ((ps + 1) * nD / pl.passes - d_lo) * CH;
+      o[2] = v_lo * CH;
+      o[3] = ((ps + 1) * nV / pl.passes - v_lo) * CH;
+    }
+  }
+  return 0;
+}
+
+// Registers a thread (at launch, before setmaxnreg moves them between the
+// warpgroups) and local (spill) bytes a thread of a varlen dK/dV kernel:
+// route 1 the wgmma kernel, 0 varlen_dkdv_kernel, in f16 or bf16.
+extern "C" int ffpa_varlen_bwd_dkdv_attrs(int route, int is_fp16, int* regs, int* local_bytes) {
+  cudaFuncAttributes a;
+  cudaError_t e;
+  if (route == tma::WGMMA)
+    e = is_fp16 ? cudaFuncGetAttributes(&a, tma::varlen_dkdv_wgmma_kernel<__half>)
+                : cudaFuncGetAttributes(&a, tma::varlen_dkdv_wgmma_kernel<__nv_bfloat16>);
+  else
+    e = is_fp16 ? cudaFuncGetAttributes(&a, varlen_dkdv_kernel<__half>)
+                : cudaFuncGetAttributes(&a, varlen_dkdv_kernel<__nv_bfloat16>);
+  if (e != cudaSuccess) return (int)e;
+  *regs = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
+  return 0;
 }
 
 // dQ [Tq, Hq, D] in the input type. One block per (head, block_q-row Q tile):

@@ -32,9 +32,15 @@ never refused by the card.
   stages as deep as leaves two blocks an SM, two staging buffers for int8
   pools); anything else the cp.async block (the decode block, row tiles 16,
   32, 64, with a staging tile for int8 pools).
-* Packed varlen backward (``csrc/varlen_bwd.cu``): the dense dK/dV and
-  recompute dQ blocks below (the same tiles and column passes), with the
-  tiles' segment ids and ranks in shared memory.
+* Packed varlen backward (``csrc/varlen_bwd.cu``). dK/dV has two routes by
+  head dims alone (``varlen_dkdv_plan`` mirrors the launcher's
+  ``tma::make_plan``): D and Dv <= 512 take the dense wgmma dK/dV block's
+  tiling below (64 KV rows, 64-row Q tiles, passes of at most 256
+  columns), its segment metadata read from device memory; wider heads the
+  mma.sync dK/dV block (32 KV rows, 128-row Q tiles, 512-column passes)
+  with the tiles' segment ids and ranks in shared memory. dQ is the
+  mma.sync recompute dQ block with the row tile's segment ids and ranks in
+  shared memory.
 * Dense dK/dV, D and Dv <= 512 (``csrc/flash_bwd.cu`` namespace ``dkdv``,
   TMA + wgmma): a block of 384 threads owns 64 KV rows with K and V
   resident in shared memory (128 KB at D512) and one column pass of at
@@ -104,8 +110,9 @@ FWD_ACC_ELEMS = 64 * 512
 FWD_ROW_TILES = (64, 32)
 ROW_TILES = (128, 64, 32, 16)  # decode (wmma fragments are 16 rows)
 PAGED_ROW_TILES = (64, 32, 16)  # paged decode (csrc/paged_decode.cu)
-# Backward tiles (flash_bwd.cu): the dK/dV kernel's owned KV rows and
-# streamed Q rows; the dQ kernels' row tiles are FWD_ROW_TILES.
+# Backward tiles of the mma.sync dK/dV kernels (flash_bwd.cu, varlen_bwd.cu;
+# D or Dv > 512): owned KV rows and streamed Q rows (the wgmma routes take
+# 64 and 64); the dQ kernels' row tiles are FWD_ROW_TILES.
 DKDV_KV_TILE = 32
 DKDV_Q_TILE = 128
 # Columns of dK (and of dV) one dK/dV block accumulates: 32 rows x 512
@@ -188,11 +195,13 @@ class BlockConfig:
     A forward / decode block owns ``block_q`` rows of Q (query positions
     for the forward, packed GQA rows for decode) and streams
     ``block_kv``-row K/V tiles. A dK/dV block owns ``DKDV_KV_TILE`` KV rows
-    and ``1 / dkdv_col_passes`` of the dK and dV columns, and streams
-    ``DKDV_Q_TILE``-row Q tiles; a dQ block owns ``block_q_dq`` Q rows and
-    streams ``KV_TILE``-row K/V tiles. ``dkdv_dk_in_kernel`` picks the
-    from-S dK/dV variant: dK accumulated beside dV, or dK left to the
-    banded dK kernel (causal) or one product (otherwise) over the dS slab.
+    (64 on the wgmma routes) and ``1 / dkdv_col_passes`` of the dK and dV
+    columns, and streams ``DKDV_Q_TILE``-row Q tiles (64 on wgmma); the
+    packed varlen dK/dV takes its passes from ``varlen_dkdv_plan``. A dQ
+    block owns ``block_q_dq`` Q rows and streams ``KV_TILE``-row K/V tiles.
+    ``dkdv_dk_in_kernel`` picks the from-S dK/dV variant: dK accumulated
+    beside dV, or dK left to the banded dK kernel (causal) or one product
+    (otherwise) over the dS slab.
 
     For a forward with D and Dv <= 512 the wgmma launcher picks its own
     64-row tile (``fwd_plan``); there ``block_q`` sets only the row padding
@@ -415,10 +424,10 @@ def dq_smem_bytes(block_q: int, d: int, dv: int, itemsize: int = 2) -> int:
 
 
 def varlen_dkdv_smem_bytes(d: int, dv: int, itemsize: int = 2) -> int:
-    """Shared memory of one packed varlen dK/dV block
-    (``csrc/varlen_bwd.cu``): the dense dK/dV block's, plus the Q tile's
-    segment ids and ranks and the KV tile's segment ids and positions
-    (int32)."""
+    """Shared memory of one packed varlen dK/dV block of the mma.sync route
+    (``csrc/varlen_bwd.cu`` ``varlen_dkdv_kernel``, D or Dv > 512): the
+    dense mma.sync dK/dV block's, plus the Q tile's segment ids and ranks
+    and the KV tile's segment ids and positions (int32)."""
     return dkdv_smem_bytes(d, dv, itemsize) + 2 * (DKDV_Q_TILE + DKDV_KV_TILE) * 4
 
 
@@ -430,13 +439,13 @@ def varlen_dq_smem_bytes(block_q: int, d: int, dv: int, itemsize: int = 2) -> in
 
 def varlen_bwd_fits(block_q: int, d: int, dv: int, itemsize: int = 2) -> bool:
     """Whether the varlen backward takes (D, Dv) with this dQ row tile: the
-    dK/dV block in shared memory (its ``dkdv_col_passes`` split the
-    columns), the fp32 dQ tile (block_q x D) in registers and the dQ block
-    in shared memory."""
+    planned dK/dV block in shared memory (``varlen_dkdv_plan``; its passes
+    split the columns), the fp32 dQ tile (block_q x D) in registers and the
+    dQ block in shared memory."""
     return (
         block_q in FWD_ROW_TILES
         and block_q * _round_up(d, D_CHUNK) <= FWD_ACC_ELEMS
-        and varlen_dkdv_smem_bytes(d, dv, itemsize) <= SMEM_LIMIT_BYTES
+        and varlen_dkdv_plan(d, dv, itemsize).smem_bytes <= SMEM_LIMIT_BYTES
         and varlen_dq_smem_bytes(block_q, d, dv, itemsize) <= SMEM_LIMIT_BYTES
     )
 
@@ -562,7 +571,7 @@ class DkdvPlan:
 
 def _even_blocks(chunks: int, nb: int) -> tuple:
     """``chunks`` 64-column chunks over ``nb`` blocks as evenly as
-    possible, the first blocks one chunk wider (``band::col_block``)."""
+    possible, the first blocks one chunk wider (``sm90.cuh`` ``col_block``)."""
     base, extra = divmod(chunks, nb)
     blocks, c0 = [], 0
     for i in range(nb):
@@ -598,6 +607,22 @@ def dkdv_plan(d: int, dv: int, itemsize: int = 2) -> DkdvPlan:
 
     return DkdvPlan("mma_sync", passes, DKDV_KV_TILE, DKDV_Q_TILE, FWD_STREAM_STAGES,
                     dkdv_smem_bytes(d, dv, itemsize), floor_split(nd), floor_split(nv))
+
+
+def varlen_dkdv_plan(d: int, dv: int, itemsize: int = 2) -> DkdvPlan:
+    """The packed varlen dK/dV route by head dims alone (padded to
+    64-column chunks), as ``csrc/varlen_bwd.cu`` ``tma::make_plan`` computes
+    it (the library hands its own out through
+    ``varlen.varlen_dkdv_kernel_plan``; the card test holds the two equal):
+    D and Dv <= 512 take the wgmma block, whose tiling is the dense
+    ``dkdv_plan``'s (the block reads its segment metadata from device
+    memory, so it costs no shared memory); wider heads the mma.sync block,
+    with the dense split and ``varlen_dkdv_smem_bytes``."""
+    plan = dkdv_plan(d, dv, itemsize)
+    if plan.route == "wgmma":
+        return plan
+    return replace(plan, smem_bytes=varlen_dkdv_smem_bytes(
+        _round_up(d, D_CHUNK), _round_up(dv, D_CHUNK), itemsize))
 
 
 @dataclass(frozen=True)
@@ -706,6 +731,7 @@ __all__ = [
     "dq_smem_bytes",
     "DqPlan",
     "dq_plan",
+    "varlen_dkdv_plan",
     "varlen_dkdv_smem_bytes",
     "varlen_dq_smem_bytes",
     "varlen_bwd_fits",

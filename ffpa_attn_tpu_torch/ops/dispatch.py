@@ -15,6 +15,7 @@ from .config import (
     dq_fits,
     from_s_fits,
     varlen_bwd_fits,
+    varlen_dkdv_plan,
     varlen_fits,
 )
 
@@ -62,15 +63,16 @@ def pick_varlen_config(*, d: int, dv: int, tq: int, dtype: torch.dtype) -> Block
 
 
 def pick_varlen_backward_config(*, d: int, dv: int, tq: int, dtype: torch.dtype) -> BlockConfig:
-    """Packed varlen backward tiles: the dense backward's dK/dV tiles with
-    one column pass per 512 columns of dK and of dV, and the dQ row tile
-    the taller of FWD_ROW_TILES that fits (D, Dv), shrunk to 32 for a
-    packing of at most 32 query rows."""
+    """Packed varlen backward tiles: the dK/dV column passes of the route
+    ``varlen_dkdv_plan`` picks by head dims (256 columns a pass on wgmma,
+    512 on mma.sync), and the dQ row tile the taller of FWD_ROW_TILES that
+    fits (D, Dv), shrunk to 32 for a packing of at most 32 query rows."""
     itemsize = torch.empty((), dtype=dtype).element_size()
+    passes = varlen_dkdv_plan(d, dv, itemsize).passes
     for bq in FWD_ROW_TILES:
         bq = BlockConfig(block_q=bq).clamp(tq, 0, FWD_ROW_TILES).block_q
         if varlen_bwd_fits(bq, d, dv, itemsize):
-            return BlockConfig(block_q_dq=bq, dkdv_col_passes=dkdv_col_passes(d, dv))
+            return BlockConfig(block_q_dq=bq, dkdv_col_passes=passes)
     raise ValueError(f"no varlen backward tiles fit D={d}, Dv={dv}")
 
 

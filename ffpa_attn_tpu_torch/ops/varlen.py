@@ -15,11 +15,12 @@ compares ``(q_seg == k_seg) & (k_pos <= q_rank [+ wr]) [& k_pos >= q_rank -
 wl]`` (``_varlen_mask``). ``_tile_needed`` and ``_interval_schedule`` turn
 the metadata into intervals of tiles, computed at each kernel's own tile
 sizes: each forward Q tile's [jmin, jmax] of KV tiles, each dK/dV KV tile's
-[imin, imax] of Q tiles (128 x 32 tiles, the needed matrix transposed) and
-each dQ Q tile's [jmin, jmax] (``_varlen_bwd_schedules``). The kernels read
-the intervals from device memory and walk only those tiles. The metadata
-is computed once per call, padded so that every kernel's tiles divide it,
-and saved for the backward.
+[imin, imax] of Q tiles (the needed matrix transposed, at the dK/dV route's
+tiles: 64 x 64 on wgmma, 128 x 32 on mma.sync) and each dQ Q tile's [jmin,
+jmax] (``_varlen_bwd_schedules``). The kernels read the intervals from
+device memory and walk only those tiles. The metadata is computed once per
+call, padded so that every kernel's tiles divide it, and saved for the
+backward.
 
 Bound on an H100: bytes, barely. The forward does 4 * Hq * D flop per
 attended (row, col) pair, summed over the segments' bands; at the serving
@@ -37,9 +38,12 @@ so nearly every cross-segment tile is skipped.
 The backward is bound by operations: 4 matmul units of 2 * Hq * D flop per
 band pair for dK/dV and 3 for dQ (``utils/profiling.py``
 ``varlen_backward_counts``). Its kernels are the dense backward's blocks
-(``csrc/flash_bwd.cu``) with the segment mask and the intervals; the dK/dV
-block reduces the GQA group in fp32 in its registers. delta = rowsum(dO *
-O) is a plain reduction, outside any kernel as in JAX.
+(``csrc/flash_bwd.cu``) with the segment mask and the intervals: dK/dV at
+D, Dv <= 512 the TMA + wgmma block (64 KV rows, 64-row Q tiles, a fast
+path for blocks inside one segment's band, the longest intervals first),
+wider heads and dQ the mma.sync blocks. The dK/dV block reduces the GQA
+group in fp32 in its registers. delta = rowsum(dO * O) is a plain
+reduction, outside any kernel as in JAX.
 """
 
 from __future__ import annotations
@@ -53,8 +57,8 @@ from ..env import ENV
 from ..logger import init_logger
 from . import _build
 from .config import (
-    D_CHUNK, DKDV_KV_TILE, DKDV_Q_TILE, FWD_ROW_TILES, KV_TILE, BlockConfig, cdiv,
-    varlen_dkdv_smem_bytes, varlen_dq_smem_bytes, varlen_fits, varlen_smem_bytes,
+    D_CHUNK, DKDV_Q_TILE, FWD_ROW_TILES, KV_TILE, BlockConfig, DkdvPlan, cdiv, varlen_dkdv_plan,
+    varlen_dq_smem_bytes, varlen_fits, varlen_smem_bytes,
 )
 from .flash_fwd import _pad_last, check_kernel_inputs
 from .reference import DEFAULT_MASK_VALUE
@@ -180,6 +184,30 @@ def _tile_needed(q_seg, q_rank, k_seg, k_pos, bq, bkv, causal,
     return needed
 
 
+def _dkdv_full_blocks(meta, causal: bool, window=(-1, -1), *, softcap: float = 0.0,
+                      alibi: bool = False):
+    """``full [nkb, nqc]``: the wgmma dK/dV consumer's test, in Python, of
+    whether its block of 64 KV rows (KV tile b) x 32 Q columns (32 c ..)
+    keeps every pair, so it may skip the mask: no softcap, no ALiBi, no left
+    window, the block's first and last rows and columns in one segment (id
+    >= 0), and, under a right edge, the last row's k_pos at most the first
+    column's q_rank plus it. Exact for packings whose segments are
+    contiguous with rising positions, as ``_segment_metadata`` makes them.
+    ``window`` is normalized."""
+    q_seg, q_rank, k_seg, k_pos = meta
+    nkb, nqc = k_seg.shape[0] // 64, q_seg.shape[0] // 32
+    if softcap > 0.0 or alibi or window[0] >= 0:
+        return torch.zeros((nkb, nqc), dtype=torch.bool, device=q_seg.device)
+    qs, qr = q_seg.reshape(nqc, 32), q_rank.reshape(nqc, 32)
+    ks, kp = k_seg.reshape(nkb, 64), k_pos.reshape(nkb, 64)
+    full = ((ks[:, :1] >= 0) & (ks[:, :1] == ks[:, -1:]) & (qs[None, :, 0] == ks[:, :1])
+            & (qs[None, :, -1] == ks[:, :1]))
+    wr = 0 if causal else int(window[1])
+    if wr >= 0:
+        full = full & (kp[:, -1:] <= qr[None, :, 0] + wr)
+    return full
+
+
 def _interval_schedule(needed):
     """Per-row [lo, hi] bounds of the needed columns (int32); an empty row
     collapses to [0, 0], which the kernel still computes, fully masked."""
@@ -195,8 +223,10 @@ def _interval_schedule(needed):
 def _call_metadata(cu_q, cu_k, tq: int, tk: int, device):
     """A call's ``_segment_metadata`` on ``device``, padded so that every
     varlen kernel's tiles divide it: query tokens to a multiple of
-    DKDV_Q_TILE (128, a multiple of every row tile), keys to a multiple of
-    KV_TILE (64, a multiple of DKDV_KV_TILE)."""
+    DKDV_Q_TILE (128: the mma.sync dK/dV route's Q tile, a multiple of
+    every other row tile), keys to a multiple of KV_TILE (64: the KV tile
+    of the forward, of dQ and of the wgmma dK/dV route, a multiple of the
+    mma.sync route's 32)."""
     return _segment_metadata(cu_q.to(device), cu_k.to(device), tq, tk,
                              cdiv(max(tq, 1), DKDV_Q_TILE) * DKDV_Q_TILE,
                              cdiv(max(tk, 1), KV_TILE) * KV_TILE)
@@ -417,38 +447,77 @@ def _varlen_backward_plain(q, k, v, o, lse, do, meta, *, scale, causal, softcap=
     return _varlen_dq_plain(q, k, v, do, lse, delta, meta, **kw), dk, dv
 
 
-def _varlen_bwd_schedules(meta, tq: int, block_q_dq: int, causal: bool, window):
-    """((imin, imax), (jmin, jmax)) on the metadata's device: each
-    DKDV_KV_TILE-row KV tile's interval of DKDV_Q_TILE-row Q tiles for the
-    dK/dV kernel (``_tile_needed`` at those tiles, transposed), and each
-    ``block_q_dq``-row Q tile's interval of KV_TILE-row KV tiles for the dQ
-    kernel. Each schedule is computed at its own kernel's tiles: an
-    interval of one geometry read at the other's would drop pairs.
-    ``window`` is normalized."""
+def _varlen_bwd_schedules(meta, tq: int, block_q_dq: int, causal: bool, window,
+                          dkdv_tiles: tuple):
+    """((imin, imax, order), (jmin, jmax)) on the metadata's device: each
+    KV tile's interval of Q tiles for the dK/dV kernel at its route's
+    ``dkdv_tiles`` = (Q rows, KV rows) of the plan (``_tile_needed`` at
+    those tiles, transposed) with the KV tiles ordered longest interval
+    first (a stable sort on the device), and each ``block_q_dq``-row Q
+    tile's interval of KV_TILE-row KV tiles for the dQ kernel. Each
+    schedule is computed at its own kernel's tiles: an interval of one
+    geometry read at the other's would drop pairs. ``window`` is
+    normalized."""
     wl, wr = int(window[0]), int(window[1])
-    needed = _tile_needed(*meta, DKDV_Q_TILE, DKDV_KV_TILE, causal, wl, wr)
-    dkdv = _interval_schedule(needed.T)
+    q_rows, kv_rows = dkdv_tiles
+    needed = _tile_needed(*meta, q_rows, kv_rows, causal, wl, wr)
+    imin, imax = _interval_schedule(needed.T)
+    order = torch.argsort(imax - imin, descending=True, stable=True).to(torch.int32)
     needed = _tile_needed(*_q_tiles(meta, tq, block_q_dq), block_q_dq, KV_TILE, causal, wl, wr)
-    return dkdv, _interval_schedule(needed)
+    return (imin, imax, order), _interval_schedule(needed)
 
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _VARLEN_BWD_ARGTYPES = {
-    "ffpa_varlen_bwd_dkdv": [_P] * 4 + [_LL] * 8 + [_P] * 11 + [_I] * 9 + [_F] * 2 + [_I] * 2
+    "ffpa_varlen_bwd_dkdv": [_P] * 4 + [_LL] * 8 + [_P] * 12 + [_I] * 9 + [_F] * 2 + [_I] * 2
     + [_P],
+    "ffpa_varlen_bwd_dkdv_plan": [_I, _I, ctypes.POINTER(ctypes.c_int), _I],
+    "ffpa_varlen_bwd_dkdv_attrs": [_I] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2,
     "ffpa_varlen_bwd_dq": [_P] * 4 + [_LL] * 8 + [_P] * 10 + [_I] * 9 + [_F] * 2 + [_I] * 2
     + [_P],
 }
 
 
+# The dK/dV kernels of both routes, by the substrings of their names (what
+# a profiler filter matches).
+DKDV_KERNELS = ("varlen_dkdv_kernel", "varlen_dkdv_wgmma_kernel")
+
+
 def _varlen_bwd_lib() -> ctypes.CDLL:
     lib = _build.load("varlen_bwd")
     for name, argtypes in _VARLEN_BWD_ARGTYPES.items():
-        fn = getattr(lib, name)
-        if fn.argtypes is None:
+        fn = getattr(lib, name, None)  # None: a library built from older sources
+        if fn is not None and fn.argtypes is None:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
     return lib
+
+
+def varlen_dkdv_kernel_plan(d: int, dv: int) -> DkdvPlan:
+    """The route and tiling the varlen dK/dV launcher takes at head dims
+    (d, dv) (padded to 64-column chunks), read from the library: what
+    ``config.varlen_dkdv_plan`` mirrors. Needs a card."""
+    lib = _varlen_bwd_lib()
+    out = (ctypes.c_int * 64)()
+    err = lib.ffpa_varlen_bwd_dkdv_plan(cdiv(d, D_CHUNK) * D_CHUNK, cdiv(dv, D_CHUNK) * D_CHUNK,
+                                        out, len(out))
+    _build.check(lib, err, "varlen dkdv kernel plan")
+    passes = out[1]
+    blocks = [tuple(out[6 + 4 * i:10 + 4 * i]) for i in range(passes)]
+    return DkdvPlan("wgmma" if out[0] == 1 else "mma_sync", passes, out[2], out[3], out[4],
+                    out[5], tuple(bl[:2] for bl in blocks), tuple(bl[2:] for bl in blocks))
+
+
+def varlen_dkdv_kernel_attrs(route: str, dtype=torch.bfloat16) -> dict:
+    """Registers a thread (at launch, before setmaxnreg) and local (spill)
+    bytes of the varlen dK/dV kernel of ``route`` ("wgmma" or
+    "mma_sync"), from cudaFuncGetAttributes. Needs a card."""
+    lib = _varlen_bwd_lib()
+    regs, local = ctypes.c_int(0), ctypes.c_int(0)
+    err = lib.ffpa_varlen_bwd_dkdv_attrs(int(route == "wgmma"), int(dtype == torch.float16),
+                                         ctypes.byref(regs), ctypes.byref(local))
+    _build.check(lib, err, "varlen dkdv kernel attributes")
+    return {"registers": regs.value, "local_bytes": local.value}
 
 
 class _BwdOperands:
@@ -478,25 +547,28 @@ class _BwdOperands:
 def _varlen_dkdv_kernel(ops: _BwdOperands, meta, schedule, config: BlockConfig, *, scale,
                         causal, softcap, window):
     """Launch the dK/dV kernel of ``csrc/varlen_bwd.cu``: (dk, dv) packed
-    in the input type (same contract as ``_varlen_dkdv_plain``)."""
+    in the input type (same contract as ``_varlen_dkdv_plain``). The
+    route is the library's by head dims (``config.varlen_dkdv_plan``);
+    ``schedule`` is ``_varlen_bwd_schedules``' dK/dV part at its tiles and
+    ``config.dkdv_col_passes`` its passes."""
     tq, hq = ops.q.shape[0], ops.q.shape[1]
     tk, hkv = ops.k.shape[0], ops.k.shape[1]
     dk = torch.empty((tk, hkv, ops.d_pad), dtype=ops.q.dtype, device=ops.q.device)
     dv = torch.empty((tk, hkv, ops.dv_pad), dtype=ops.q.dtype, device=ops.q.device)
-    imin, imax = schedule
+    imin, imax, order = schedule
     q_seg, q_rank, k_seg, k_pos = meta
     passes = config.dkdv_col_passes
     if ENV.device_log_level() >= 2:
-        logger.info("varlen_dkdv launch grid=(%d,%d) smem=%d D=%d Dv=%d Tq=%d Tk=%d",
-                    hkv * passes, imin.shape[0],
-                    varlen_dkdv_smem_bytes(ops.d_pad, ops.dv_pad, ops.q.element_size()),
-                    ops.d_pad, ops.dv_pad, tq, tk)
+        plan = varlen_dkdv_plan(ops.d_pad, ops.dv_pad, ops.q.element_size())
+        logger.info("varlen_dkdv launch route=%s grid=(%d,%d) smem=%d D=%d Dv=%d Tq=%d Tk=%d",
+                    plan.route, hkv * passes, imin.shape[0], plan.smem_bytes, ops.d_pad,
+                    ops.dv_pad, tq, tk)
     lib = _varlen_bwd_lib()
     with torch.cuda.device(ops.q.device):
         err = lib.ffpa_varlen_bwd_dkdv(
             *ops.head(), dk.data_ptr(), dv.data_ptr(), q_seg.data_ptr(), q_rank.data_ptr(),
             k_seg.data_ptr(), k_pos.data_ptr(), imin.data_ptr(), imax.data_ptr(),
-            None if ops.alibi is None else ops.alibi.data_ptr(),
+            order.data_ptr(), None if ops.alibi is None else ops.alibi.data_ptr(),
             int(ops.q.dtype == torch.float16), hq, hkv, tq, tk, imin.shape[0], ops.d_pad,
             ops.dv_pad, passes, float(scale), float(softcap), int(window[0]),
             0 if causal else int(window[1]),  # causal is the band's right edge 0
@@ -546,9 +618,10 @@ def _varlen_backward(q, k, v, o, lse, do, meta, *, scale, causal, softcap: float
     ``meta`` is the call's ``_call_metadata``.
 
     CPU tensors run the plain version. CUDA tensors compute delta and both
-    tile schedules on the device (no host sync) and launch the dK/dV kernel
-    then the dQ kernel, counted in ``dkdv_launches`` and ``dq_launches``,
-    or raise for what they do not take."""
+    tile schedules on the device (no host sync; the dK/dV schedule at its
+    route's tiles) and launch the dK/dV kernel then the dQ kernel, counted
+    in ``dkdv_launches`` and ``dq_launches``, or raise for what they do not
+    take."""
     from .dispatch import pick_varlen_backward_config
 
     window = (int(window[0]), -1 if causal else int(window[1]))
@@ -558,8 +631,9 @@ def _varlen_backward(q, k, v, o, lse, do, meta, *, scale, causal, softcap: float
     ops = _BwdOperands(q, k, v, do, lse, _varlen_delta(do, o), alibi)
     config = pick_varlen_backward_config(d=ops.d_pad, dv=ops.dv_pad, tq=q.shape[0],
                                          dtype=q.dtype)
+    plan = varlen_dkdv_plan(ops.d_pad, ops.dv_pad, q.element_size())
     dkdv_sched, dq_sched = _varlen_bwd_schedules(meta, q.shape[0], config.block_q_dq, causal,
-                                                 window)
+                                                 window, (plan.q_rows, plan.kv_rows))
     dk, dv = _varlen_dkdv_kernel(ops, meta, dkdv_sched, config, **kw)
     dq = _varlen_dq_kernel(ops, meta, dq_sched, config, **kw)
     return dq, dk, dv

@@ -137,26 +137,34 @@ def test_varlen_fp16_grads_vs_oracle_and_jax(jv):
 ])
 @pytest.mark.parametrize("cu_k_shift", [0, 40])
 @pytest.mark.parametrize("bq", [64, 32])
-def test_backward_schedules_cover_every_visible_pair(causal, window, cu_k_shift, bq):
+@pytest.mark.parametrize("dkdv_tiles", [(64, 64), (128, 32)], ids=["wgmma", "mma_sync"])
+def test_backward_schedules_cover_every_visible_pair(causal, window, cu_k_shift, bq, dkdv_tiles):
     """Every (query, key) pair the keep-mask attends lies inside its KV
-    tile's [imin, imax] at the dK/dV kernel's 128 x 32 tiles and inside its
-    Q tile's [jmin, jmax] at the dQ kernel's bq x 64 tiles; a padded tail
-    (the pseudo-segment), a length-0 segment and tail-aligned cross keys."""
+    tile's [imin, imax] at the dK/dV route's tiles (64 x 64 on wgmma, 128 x
+    32 on mma.sync) and inside its Q tile's [jmin, jmax] at the dQ kernel's
+    bq x 64 tiles; the dK/dV order lists every KV tile once, longest
+    interval first; a padded tail (the pseudo-segment), a length-0 segment
+    and tail-aligned cross keys."""
     cu_q = np.asarray([0, 70, 70, 200, 201, 300], np.int32)
     cu_k = cu_q.copy()
     cu_k[-1] += cu_k_shift
     tq, tk = 330, 330 + cu_k_shift
     wnorm = (window[0], -1 if causal else window[1])
+    q_rows, kv_rows = dkdv_tiles
     meta = tvar._call_metadata(torch.from_numpy(cu_q), torch.from_numpy(cu_k), tq, tk, "cpu")
-    (imin, imax), (jmin, jmax) = tvar._varlen_bwd_schedules(meta, tq, bq, causal, wnorm)
+    (imin, imax, order), (jmin, jmax) = tvar._varlen_bwd_schedules(meta, tq, bq, causal, wnorm,
+                                                                   dkdv_tiles)
     q_seg, q_rank, k_seg, k_pos = meta
-    assert imin.shape[0] == k_seg.shape[0] // 32 and jmin.shape[0] == -(-tq // bq)
+    assert imin.shape[0] == k_seg.shape[0] // kv_rows and jmin.shape[0] == -(-tq // bq)
+    assert sorted(order.tolist()) == list(range(imin.shape[0]))
+    lengths = (imax - imin)[order.long()]
+    assert bool((lengths[:-1] >= lengths[1:]).all())
     keep = tvar._varlen_mask(q_seg[:, None], q_rank[:, None], k_seg[None, :], k_pos[None, :],
                              causal, *wnorm)
     rows, cols = (t.numpy() for t in torch.nonzero(keep, as_tuple=True))
     assert rows.size > 0 and rows.max() < tq and cols.max() < tk
     imin, imax, jmin, jmax = (t.numpy() for t in (imin, imax, jmin, jmax))
-    i, j = rows // 128, cols // 32
+    i, j = rows // q_rows, cols // kv_rows
     assert ((imin[j] <= i) & (i <= imax[j])).all()
     i, j = rows // bq, cols // 64
     assert ((jmin[i] <= j) & (j <= jmax[i])).all()

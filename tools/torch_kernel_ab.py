@@ -42,7 +42,11 @@ wrappers passed, ``LegacyBanded``):
 * varlen_dkdv and varlen_dq: the packed-training backward of
   ``chip_smoke.py`` (8 documents of 2048..284 tokens, 8192 in all, H8/4
   D512 causal bf16), each kernel alone on the plain forward's (o, lse) with
-  its tile schedule computed beforehand.
+  its tile schedule computed beforehand. At D512 the head library runs the
+  wgmma dK/dV route on its 64 x 64 schedule; a base library without
+  ``ffpa_varlen_bwd_dkdv_plan`` (built from sources before that route) is
+  called with its own argument list and its mma.sync route's 128 x 32
+  schedule and 512-column passes (``LegacyVarlenBwd``).
 
 A kernel whose source the base tree lacks is timed on the head alone. Each
 time is the kernels' device time per call from torch.profiler (for from_s
@@ -54,7 +58,9 @@ version, from_s (dV and the slab) against its own, banded_dq and banded_dk
 against theirs on the slab each tree's own dK/dV (or from-S) kernel wrote, per row at the bf16 gradient tolerance
 5e-2 (a row's floor at 1e-3 of the tensor's max). A miss exits 1.
 max|diff| head vs base is given per output (the forward: O, lse, S; dkdv:
-dK, dV, slab; from_s: dV, slab). Prints one JSON line.
+dK, dV, slab; from_s: dV, slab; varlen_dkdv: dK, dV). varlen_dkdv and
+varlen_dq are held against their plain versions per row at the same 5e-2.
+Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -76,7 +82,9 @@ sys.path.insert(0, str(REPO))
 from ffpa_attn_tpu_torch.ops import (  # noqa: E402
     _build, decode, flash_bwd, flash_fwd, paged, varlen,
 )
-from ffpa_attn_tpu_torch.ops.config import FWD_ACC_ELEMS  # noqa: E402
+from ffpa_attn_tpu_torch.ops.config import (  # noqa: E402
+    FWD_ACC_ELEMS, dkdv_col_passes, varlen_dkdv_plan,
+)
 from ffpa_attn_tpu_torch.ops.dispatch import (  # noqa: E402
     pick_backward_config, pick_varlen_backward_config,
 )
@@ -180,6 +188,42 @@ class LegacyPaged:
 
         def call(*args):
             return fn(*args[:22], *args[23:])
+
+        call.argtypes = argtypes
+        return call
+
+
+class LegacyVarlenBwd:
+    """A varlen_bwd library built from sources before the wgmma dK/dV
+    route: its dK/dV entry point takes no order (the argument after imax),
+    reads the intervals at its own 128 x 32 tiles and splits the columns
+    into passes of 512. Those intervals (``SCHEDULE``, set by
+    ``make_runs``) and passes are put in; every other symbol is the
+    library's own."""
+
+    SCHEDULE = None  # (imin, imax) at 128 x 32
+    IMIN, IMAX, ORDER, TILES, D, DV, PASSES = 20, 21, 22, 29, 30, 31, 32
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if name != "ffpa_varlen_bwd_dkdv":
+            return fn
+        argtypes = list(varlen._VARLEN_BWD_ARGTYPES[name])
+        del argtypes[self.ORDER]
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+
+        def call(*args):
+            args = list(args)
+            imin, imax = self.SCHEDULE
+            args[self.IMIN], args[self.IMAX] = imin.data_ptr(), imax.data_ptr()
+            args[self.TILES] = imin.shape[0]
+            args[self.PASSES] = dkdv_col_passes(args[self.D], args[self.DV])
+            del args[self.ORDER]
+            return fn(*args)
 
         call.argtypes = argtypes
         return call
@@ -331,8 +375,13 @@ def make_runs(gen) -> tuple:
     meta = varlen._call_metadata(bcu, bcu, bt, bt, "cuda")
     bo, blse = varlen._varlen_forward_plain(bq, bk, bv, meta, scale=scale, causal=True)
     bcfg = pick_varlen_backward_config(d=d, dv=d, tq=bt, dtype=torch.bfloat16)
-    ops = varlen._BwdOperands(bq, bk, bv, bdo, blse, varlen._varlen_delta(bdo, bo), None)
-    sched = varlen._varlen_bwd_schedules(meta, bt, bcfg.block_q_dq, True, (-1, -1))
+    bdelta = varlen._varlen_delta(bdo, bo)
+    ops = varlen._BwdOperands(bq, bk, bv, bdo, blse, bdelta, None)
+    plan = varlen_dkdv_plan(d, d)
+    sched = varlen._varlen_bwd_schedules(meta, bt, bcfg.block_q_dq, True, (-1, -1),
+                                         (plan.q_rows, plan.kv_rows))
+    LegacyVarlenBwd.SCHEDULE = varlen._varlen_bwd_schedules(
+        meta, bt, bcfg.block_q_dq, True, (-1, -1), (128, 32))[0][:2]
     bkw = dict(scale=scale, causal=True, softcap=0.0, window=(-1, -1))
     del bo
 
@@ -369,7 +418,7 @@ def make_runs(gen) -> tuple:
                                                      causal=True)[0],
         "paged_decode": lambda: run_paged(False),
         "paged_decode_int8": lambda: run_paged(True),
-        "varlen_dkdv": lambda: varlen._varlen_dkdv_kernel(ops, meta, sched[0], bcfg, **bkw)[0],
+        "varlen_dkdv": lambda: varlen._varlen_dkdv_kernel(ops, meta, sched[0], bcfg, **bkw),
         "varlen_dq": lambda: varlen._varlen_dq_kernel(ops, meta, sched[1], bcfg, **bkw),
     })
     def dkdv_plain():
@@ -391,6 +440,9 @@ def make_runs(gen) -> tuple:
                                                         nkv=nt, hkv=hkv),
         "paged_decode": lambda: paged_plain(False),
         "paged_decode_int8": lambda: paged_plain(True),
+        "varlen_dkdv": lambda: varlen._varlen_dkdv_plain(bq, bk, bv, bdo, blse, bdelta, meta,
+                                                         **bkw),
+        "varlen_dq": lambda: varlen._varlen_dq_plain(bq, bk, bv, bdo, blse, bdelta, meta, **bkw),
     })
     return runs, reset, plains
 
@@ -418,6 +470,9 @@ def main() -> int:
     base_paged = trees["base"].get("paged_decode")
     if base_paged is not None and not hasattr(base_paged, "ffpa_paged_plan"):
         trees["base"]["paged_decode"] = LegacyPaged(base_paged)
+    base_varlen = trees["base"].get("varlen_bwd")
+    if base_varlen is not None and not hasattr(base_varlen, "ffpa_varlen_bwd_dkdv_plan"):
+        trees["base"]["varlen_bwd"] = LegacyVarlenBwd(base_varlen)
     runs, reset, plains = make_runs(torch.Generator(device="cuda").manual_seed(0))
 
     tma_splits = paged._tma_splits

@@ -1,0 +1,146 @@
+"""What two design choices of the wgmma varlen dK/dV kernel buy, on a card.
+
+Run from the repository root on a machine with a card:
+
+    python tools/torch_varlen_dkdv_probe.py
+
+The shape is ``chip_smoke.py``'s packed-training backward: 8 documents of
+2048..284 tokens (8192 in all), H8/4, D = Dv = 512, causal, bf16, the dK/dV
+kernel alone on the plain forward's (o, lse) with its 64 x 64 schedule
+computed beforehand. Each reading is device ms per call from
+torch.profiler, taken in turns (v1 .. vn, vn .. v1), and each run's dK and
+dV are held against ``_varlen_dkdv_plain`` per row (bf16 5e-2, a row's
+floor at 1e-3 of the tensor's max):
+
+* ``longest_first``: the kernel as built, its KV tiles in the schedule's
+  order (longest interval first);
+* ``kv_tile_order``: the same library with the KV tiles in index order;
+* ``no_fast_path``: ``csrc/varlen_bwd.cu`` rebuilt with its full-block test
+  off, so every consumer block takes the per-element mask.
+
+Prints the card's name and power limit, each variant's ptxas registers and
+spill bytes, then one JSON line; exits 1 if a run misses the tolerance.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+
+from ffpa_attn_tpu_torch.ops import _build, varlen  # noqa: E402
+from ffpa_attn_tpu_torch.ops.config import varlen_dkdv_plan  # noqa: E402
+from ffpa_attn_tpu_torch.ops.dispatch import pick_varlen_backward_config  # noqa: E402
+from ffpa_attn_tpu_torch.utils.profiling import device_ms  # noqa: E402
+
+LENS = [2048, 1536, 1200, 1024, 900, 700, 500, 284]
+REPS = 20
+TOL = 5e-2
+_PLAIN = "  const bool plain = p.alibi == nullptr && p.softcap <= 0.f && p.window_left < 0;\n"
+# library -> (text, replacement) pairs applied to csrc/varlen_bwd.cu
+SOURCES = {"as_built": [], "no_fast_path": [(_PLAIN, "  const bool plain = false;\n")]}
+
+
+def build(out: Path) -> dict:
+    """Compile each library's source with the package's flags and ptxas's
+    report, all at once; print each wgmma kernel's registers and spills."""
+    src = (_build.CSRC_DIR / "varlen_bwd.cu").read_text()
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, edits in SOURCES.items():
+        text = src
+        for a, b in edits:
+            if a not in text:
+                raise SystemExit(f"{name}: text not found in varlen_bwd.cu: {a[:70]!r}")
+            text = text.replace(a, b)
+        path = out / f"varlen_bwd_{name}.cu"
+        path.write_text(text)
+        procs[name] = subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, *_build.PTXAS_FLAGS, "-I", str(_build.CSRC_DIR),
+             "-o", str(out / f"lib{name}.so"), str(path)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"nvcc failed on {name}:\n{log}")
+        lines = log.splitlines()
+        for i, ln in enumerate(lines):
+            if "Compiling entry" in ln and "varlen_dkdv_wgmma_kernel" in ln:
+                spill = re.search(r"(\d+) bytes spill stores", lines[i + 2])
+                regs = re.search(r"Used (\d+) registers", lines[i + 3])
+                print(f"{name} {'f16' if '__half' in ln else 'bf16'}: {regs.group(1)} registers, "
+                      f"{spill.group(1)} bytes spill stores")
+        lib = ctypes.CDLL(str(out / f"lib{name}.so"))
+        lib.ffpa_error_string.argtypes = [ctypes.c_int]
+        lib.ffpa_error_string.restype = ctypes.c_char_p
+        libs[name] = lib
+    return libs
+
+
+def row_rel(got, want, floor: float = 1e-3) -> float:
+    got, want = got.float(), want.float()
+    ref = want.abs().amax(-1).clamp_min(floor * float(want.abs().max()) + 1e-30)
+    return float(((got - want).abs().amax(-1) / ref).max())
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    print(smi.stdout.strip().splitlines()[0])
+    libs = build(REPO / "build" / "varlen_dkdv_probe")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    t, hq, hkv, d = sum(LENS), 8, 4, 512
+    cu = torch.tensor([0] + torch.tensor(LENS).cumsum(0).tolist(), dtype=torch.int32,
+                      device="cuda")
+    q, k, v, do = randn(t, hq, d), randn(t, hkv, d), randn(t, hkv, d), randn(t, hq, d)
+    kw = dict(scale=d ** -0.5, causal=True, softcap=0.0, window=(-1, -1))
+    meta = varlen._call_metadata(cu, cu, t, t, "cuda")
+    o, lse = varlen._varlen_forward_plain(q, k, v, meta, scale=kw["scale"], causal=True)
+    delta = varlen._varlen_delta(do, o)
+    cfg = pick_varlen_backward_config(d=d, dv=d, tq=t, dtype=torch.bfloat16)
+    plan = varlen_dkdv_plan(d, d)
+    sched, _ = varlen._varlen_bwd_schedules(meta, t, cfg.block_q_dq, True, (-1, -1),
+                                            (plan.q_rows, plan.kv_rows))
+    in_order = (sched[0], sched[1], torch.arange(sched[0].shape[0], dtype=torch.int32,
+                                                 device="cuda"))
+    ops = varlen._BwdOperands(q, k, v, do, lse, delta, None)
+    want = varlen._varlen_dkdv_plain(q, k, v, do, lse, delta, meta, **kw)
+    # variant -> (library, schedule)
+    variants = {"longest_first": ("as_built", sched), "kv_tile_order": ("as_built", in_order),
+                "no_fast_path": ("no_fast_path", sched)}
+    load = _build.load
+    res, errs = {}, {}
+    for name in list(variants) + list(variants)[::-1]:
+        lib, sc = variants[name]
+        _build.load = lambda n, lib=lib: libs[lib] if n == "varlen_bwd" else load(n)
+
+        def run(sc=sc):
+            return varlen._varlen_dkdv_kernel(ops, meta, sc, cfg, **kw)
+
+        res.setdefault(name, []).append(round(device_ms(run, reps=REPS, warmup=3), 5))
+        got = run()
+        torch.cuda.synchronize()
+        errs[name] = max(errs.get(name, 0.0), *(row_rel(g, w) for g, w in zip(got, want)))
+    _build.load = load
+    print(json.dumps({"lens": LENS, "device_ms": res, "row_rel_err_vs_plain": errs, "tol": TOL}))
+    return 0 if all(e < TOL for e in errs.values()) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -11,10 +11,14 @@ package's schedule, at the kernel's tiles), the KV tiles the kernel walks,
 the tiles that ``_tile_needed`` marks needed inside those intervals, and the
 (row, col) pairs each covers against the causal band's pairs. Then the
 backward's (``_varlen_bwd_schedules``): the pairs the dK/dV kernel walks at
-its 128 x 32 tiles (each 32-key tile's [imin, imax] of 128-row Q tiles) and
-the dQ kernel at block_q x 64, against the band. Prints one JSON line. The
-default lengths are the serving bench's; the packed-training packing of
-``chip_smoke.py`` is ``--lens 2048,1536,1200,1024,900,700,500,284``.
+each route's tiles (each KV tile's [imin, imax] of Q tiles: 64 x 64 on the
+wgmma route, D and Dv <= 512; 128 x 32 on mma.sync), with, at 64 x 64, the
+needed tiles inside the intervals and those the wgmma consumers' full-block
+test (``_dkdv_full_blocks``: one segment, inside the band) lets skip the
+mask, and the dQ kernel at block_q x 64, against the band. Prints one JSON
+line. The default lengths are the serving bench's; the packed-training
+packing of ``chip_smoke.py`` is ``--lens
+2048,1536,1200,1024,900,700,500,284``.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from ffpa_attn_tpu_torch.ops import varlen  # noqa: E402
-from ffpa_attn_tpu_torch.ops.config import DKDV_KV_TILE, DKDV_Q_TILE, KV_TILE  # noqa: E402
+from ffpa_attn_tpu_torch.ops.config import KV_TILE  # noqa: E402
 from ffpa_attn_tpu_torch.utils.profiling import band_pairs  # noqa: E402
 
 
@@ -57,8 +61,26 @@ def main() -> int:
     walked = _walked(lo, hi)
     inside = int(sum(needed[i, lo[i]:hi[i] + 1].sum() for i in range(len(lo))))
     band = sum(band_pairs(n, n, causal=True) for n in lens)
-    (imin, imax), (jmin, jmax) = varlen._varlen_bwd_schedules(meta, t, bq, True, (-1, -1))
-    dkdv_pairs = _walked(imin, imax) * DKDV_Q_TILE * DKDV_KV_TILE
+    dkdv = {}
+    for q_rows, kv_rows in ((64, 64), (128, 32)):
+        (imin, imax, _), (jmin, jmax) = varlen._varlen_bwd_schedules(
+            meta, t, bq, True, (-1, -1), (q_rows, kv_rows))
+        pairs = _walked(imin, imax) * q_rows * kv_rows
+        tiles = f"{q_rows}x{kv_rows}"
+        dkdv[tiles] = {"pairs_walked_per_head": pairs, "walked_over_band": pairs / band,
+                       "q_tiles_per_block": _spread(imin, imax)}
+        if (q_rows, kv_rows) == (64, 64):
+            need = varlen._tile_needed(*meta, q_rows, kv_rows, True).T  # [kv tile, q tile]
+            walk = torch.zeros_like(need)  # the tiles the intervals walk
+            for j in range(need.shape[0]):
+                walk[j, imin[j]:imax[j] + 1] = True
+            halves = varlen._dkdv_full_blocks(meta, True)  # [kv tile, 32-column block]
+            full = halves.reshape(halves.shape[0], -1, 2).all(dim=2)
+            dkdv[tiles].update(tiles_walked=int(walk.sum()),
+                               tiles_needed=int((need & walk).sum()),
+                               tiles_full=int((full & walk).sum()),
+                               consumer_blocks_full=int(
+                                   (halves & walk.repeat_interleave(2, dim=1)).sum()))
     dq_pairs = _walked(jmin, jmax) * bq * KV_TILE
     print(json.dumps({
         "lens": lens, "block_q": bq, "kv_tile": KV_TILE, "q_tiles": len(lo),
@@ -69,10 +91,7 @@ def main() -> int:
         "band_pairs_per_head": band,
         "walked_over_band": walked * bq * KV_TILE / band,
         "needed_over_band": inside * bq * KV_TILE / band,
-        "dkdv_tiles": f"{DKDV_Q_TILE}x{DKDV_KV_TILE}",
-        "dkdv_pairs_walked_per_head": dkdv_pairs,
-        "dkdv_walked_over_band": dkdv_pairs / band,
-        "dkdv_q_tiles_per_block": _spread(imin, imax),
+        "dkdv": dkdv,
         "dq_tiles": f"{bq}x{KV_TILE}",
         "dq_pairs_walked_per_head": dq_pairs,
         "dq_walked_over_band": dq_pairs / band,
