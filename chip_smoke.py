@@ -10,8 +10,10 @@ It imports only ``ffpa_attn_tpu_torch``, torch and numpy, and runs, in order:
 3. kernel vs plain: each kernel against its plain PyTorch version on the
    card, at the serving and training shapes and at feature cases, with
    stated tolerances: the forward on both of its routes (wgmma at D, Dv
-   <= 512, mma.sync above) and its S residual, decode (and its
-   score residual), dkdv, dq (both routes, D != Dv, fp16, fp32 dQ
+   <= 512, mma.sync above) and its S residual, decode on both of its
+   routes (TMA at D, Dv <= 512, cp.async above; one valid column, the
+   serving step's gap, 32 packed rows, D != Dv; and its score residual),
+   dkdv, dq (both routes, D != Dv, fp16, fp32 dQ
    storage), banded dQ, the from-S dK/dV pass in both
    variants and banded dK (a slab NaN outside the band among them), the
    packed varlen forward, the varlen dK/dV and dQ kernels (bf16 and fp16
@@ -52,11 +54,13 @@ It imports only ``ffpa_attn_tpu_torch``, torch and numpy, and runs, in order:
    torch.profiler, CUDA-event time beside it); the forward's time a launch
    at the training shape from the handoff step's profile, and timed alone
    there without and with the S residual beside its bound and SDPA; the
-   forward's, the dK/dV route's, the dQ route's and paged decode's plans
-   held equal to their mirrors, their registers and spill bytes, and
-   ptxas's log of flash_fwd.cu, flash_bwd.cu and paged_decode.cu free of
-   wgmma serialization notes; paged decode's walk and merge timed apart
-   beside the wrapper's total, over bf16 and int8 pools; each backward
+   forward's, the dK/dV route's, the dQ route's, decode's and paged
+   decode's plans held equal to their mirrors, their registers and spill
+   bytes, and ptxas's log of flash_fwd.cu, flash_bwd.cu, decode.cu,
+   paged_decode.cu and varlen_bwd.cu free of wgmma serialization notes;
+   decode's walk and merge timed apart beside the wrapper's total, at the
+   generate step and at the serving step; paged decode's likewise, over
+   bf16 and int8 pools; each backward
    kernel's, decode's and paged decode's device ms logged beside its
    CUDA-event ms and its bound, and timed again once where it reads below
    the bound (the phase fails if it stays below);
@@ -226,18 +230,29 @@ def _fwd_case(name, *, b=1, hq=8, hkv=4, nq, nkv, d=512, dv=None, dtype=torch.bf
     return max_abs(o, po)
 
 
-def _decode_case(name, *, b=1, hkv=4, group=2, nq=1, nkv=MAX_LEN, d=512, dtype=torch.bfloat16,
-                 valid=PROMPT + 1, causal=False, softcap=0.0, window=(-1, -1), seed=0):
+def _serve_gap_bias(nkv: int, lens, t: int):
+    """The serving step's shared-row validity bias [B, 1, 1, Nkv] at step
+    ``t`` (``models/serving.py`` ``shared_row_bias``, base the longest
+    prompt), on the card."""
+    from ffpa_attn_tpu_torch.models.serving import shared_row_bias
+
+    return shared_row_bias(torch.tensor(lens, device="cuda"), t, max(lens), nkv)
+
+
+def _decode_case(name, *, b=1, hkv=4, group=2, nq=1, nkv=MAX_LEN, d=512, dv=None,
+                 dtype=torch.bfloat16, valid=PROMPT + 1, bias=None, causal=False, softcap=0.0,
+                 window=(-1, -1), seed=0):
     from ffpa_attn_tpu_torch.ops import decode
+    from ffpa_attn_tpu_torch.ops.config import decode_plan
     from ffpa_attn_tpu_torch.ops.reference import DEFAULT_MASK_VALUE
 
+    dv = d if dv is None else dv
     gen = torch.Generator(device="cuda").manual_seed(seed)
     hq = hkv * group
     q = _randn((b, hq, nq, d), dtype, gen)
     k = _randn((b, hkv, nkv, d), dtype, gen)
-    v = _randn((b, hkv, nkv, d), dtype, gen)
-    bias = None
-    if valid is not None:
+    v = _randn((b, hkv, nkv, dv), dtype, gen)
+    if bias is None and valid is not None:
         cols = torch.arange(nkv, device="cuda")
         bias = torch.where(cols < valid, 0.0, DEFAULT_MASK_VALUE).float()[None, None, None]
     kw = dict(scale=1.0 / math.sqrt(d), is_causal=causal, softcap=softcap, window=window)
@@ -251,7 +266,9 @@ def _decode_case(name, *, b=1, hkv=4, group=2, nq=1, nkv=MAX_LEN, d=512, dtype=t
     tol = F16_TOL if dtype == torch.float16 else BF16_TOL
     err, lerr = row_rel(o, po), rel(lse, plse)
     ok = err < tol and lerr < LSE_TOL and bool(torch.isfinite(o).all())
-    log(f"  decode {name:<19} row_rel_err {err:.2e} (tol {tol:g}) rel_err {rel(o, po):.2e} "
+    route = decode_plan(d, dv, group * nq).route
+    log(f"  decode {name:<19} {route:<8} row_rel_err {err:.2e} (tol {tol:g}) rel_err "
+        f"{rel(o, po):.2e} "
         f"lse_rel_err {lerr:.2e} (tol {LSE_TOL:g}) max_abs_err {max_abs(o, po):.3e} "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
@@ -663,6 +680,12 @@ def phase_kernels_vs_plain() -> dict:
     _decode_case("nq4_causal", nq=4, causal=True, valid=None, seed=5)
     _decode_case("fp16", dtype=torch.float16, seed=6)
     _decode_case("batch2", b=2, nkv=1024, valid=900, seed=7)
+    _decode_case("valid1", valid=1, seed=8)  # every split but the first masked throughout
+    _decode_case("serve_b4_gap", b=SERVE_B, nkv=SERVE_MAX_LEN,
+                 bias=_serve_gap_bias(SERVE_MAX_LEN, SERVE_LENS, 64), seed=9)
+    _decode_case("rows32", group=4, nq=8, causal=True, valid=None, seed=10)  # two row blocks
+    _decode_case("d512_dv320", dv=320, seed=11)
+    _decode_case("d640_cp_async", d=640, nkv=1000, valid=900, seed=12)
     # The backward at N4096 and feature cases at N1024; the training
     # shapes (N8192) are held in training_times, beside their times.
     _bwd_case("slice_N4096_D512", nq=PROMPT, nkv=PROMPT)
@@ -2049,8 +2072,8 @@ def fwd_kernel_row_extras(d: int) -> dict:
     spill bytes, for the ``kernels`` line; fails unless the launcher's plan
     equals its mirror (``ops/config.py`` ``fwd_plan``) at D, Dv 64..1024,
     the wgmma kernel spills nothing and ptxas kept the wgmma pipeline of
-    every kernel of flash_fwd.cu, flash_bwd.cu, paged_decode.cu and
-    varlen_bwd.cu (no C7515 / C7520 note in any of their builds' logs)."""
+    every kernel of flash_fwd.cu, flash_bwd.cu, decode.cu, paged_decode.cu
+    and varlen_bwd.cu (no C7515 / C7520 note in any of their builds' logs)."""
     from ffpa_attn_tpu_torch.ops import _build, flash_fwd
     from ffpa_attn_tpu_torch.ops.config import fwd_plan
 
@@ -2069,7 +2092,7 @@ def fwd_kernel_row_extras(d: int) -> dict:
                 f"thread at launch, {a['local_bytes']} local (spill) bytes")
             if route == "wgmma" and a["local_bytes"] != 0:
                 fail(f"the wgmma forward kernel ({dt}) spills {a['local_bytes']} bytes")
-    for name in ("flash_fwd", "flash_bwd", "paged_decode", "varlen_bwd"):
+    for name in ("flash_fwd", "flash_bwd", "decode", "paged_decode", "varlen_bwd"):
         build_log = _build.build_log(name)
         if "ptxas info" not in build_log:
             # Without ptxas's report the count below would read nothing.
@@ -2086,6 +2109,39 @@ def fwd_kernel_row_extras(d: int) -> dict:
     route = flash_fwd.fwd_kernel_plan(d, d).route
     a = flash_fwd.fwd_kernel_attrs(route)
     return {"fwd_route": route, "registers": a["registers"], "spill_bytes": a["local_bytes"]}
+
+
+def decode_kernel_row_extras(d: int) -> dict:
+    """Decode's route at the generate step and its kernels' registers and
+    spill bytes, for the ``kernels`` line; fails unless the launcher's plan
+    equals its mirror (``ops/config.py`` ``decode_plan``) over the main
+    path's packings and both routes' edges, and the TMA kernel spills
+    nothing."""
+    from ffpa_attn_tpu_torch.ops import decode
+    from ffpa_attn_tpu_torch.ops.config import decode_plan
+
+    shapes = [(d, d, rows) for rows in (1, 2, 8, 16, 32, 64)]
+    shapes += [(320, 512, 4), (512, 320, 4), (64, 64, 2), (640, 640, 2), (512, 640, 16),
+               (1024, 1024, 64), (768, 1024, 128)]
+    for hd, hdv, rows in shapes:
+        got, want = decode.decode_kernel_plan(hd, hdv, rows), decode_plan(hd, hdv, rows)
+        if got != want:
+            fail(f"decode launcher's plan at D{hd}/Dv{hdv} R{rows} {got} differs from "
+                 f"ops/config.py decode_plan {want}")
+    plan = decode.decode_kernel_plan(d, d, 2)
+    log(f"  decode plan at the generate step: {plan} (the launcher's, equal to ops/config.py "
+        f"decode_plan at {len(shapes)} shapes)")
+    attrs = {}
+    for route in ("tma", "cp_async"):
+        for dt in (torch.bfloat16, torch.float16):
+            a = attrs[(route, dt)] = decode.decode_kernel_attrs(route, dt)
+            log(f"  decode {route} {str(dt)[6:]}: {a['registers']} registers a thread, "
+                f"{a['local_bytes']} local (spill) bytes")
+            if route == "tma" and a["local_bytes"] != 0:
+                fail(f"the TMA decode kernel ({dt}) spills {a['local_bytes']} bytes")
+    a = attrs[(plan.route, torch.bfloat16)]
+    return {"decode_route": plan.route, "registers": a["registers"],
+            "spill_bytes": a["local_bytes"]}
 
 
 def paged_kernel_row_extras(d: int) -> dict:
@@ -2646,7 +2702,7 @@ def phase_times(errs: dict, main_path: dict, training: dict, windowed: dict,
 
     from ffpa_attn_tpu_torch.ops import decode, flash_fwd
     from ffpa_attn_tpu_torch.ops.reference import DEFAULT_MASK_VALUE
-    from ffpa_attn_tpu_torch.utils.profiling import bound_ms
+    from ffpa_attn_tpu_torch.utils.profiling import bound_ms, paged_decode_counts
 
     where_the_time_goes(main_path["model"], main_path["prompt"])
     launches = main_path["launches"]
@@ -2682,56 +2738,92 @@ def phase_times(errs: dict, main_path: dict, training: dict, windowed: dict,
     rows[-1].update(fwd_kernel_row_extras(d))
     events = {"flash_fwd": (kms[1], pms[1], lms[1])}
 
-    # Decode at the serving step: Nkv = max_len, GQA group 2, validity bias.
-    # Four caches, one per layer, so K/V (34.6 MB each) do not sit in L2.
-    caches = [(_randn((b, hkv, MAX_LEN, d), bf, gen), _randn((b, hkv, MAX_LEN, d), bf, gen))
-              for _ in range(SLICE["n_layers"])]
-    qd = _randn((b, hq, 1, d), bf, gen)
-    cols = torch.arange(MAX_LEN, device="cuda")
-    bias = torch.where(cols <= PROMPT, 0.0, DEFAULT_MASK_VALUE).float()[None, None, None]
-    bias_bf = bias.to(bf)
-    it = iter(range(1 << 30))
+    # Decode at the generate step (Nkv = max_len, GQA group 2, validity
+    # bias), then at the serving step (B4, max_len 1152, the shared-row bias
+    # with its gap, 64 tokens into generation). Four caches, one per layer,
+    # so K/V (34.6 MB, 37.7 MB) do not sit in L2. The wrapper's device time
+    # (the walk and the merge), then each launch alone by kernel name; the
+    # host's share of a call is its CUDA-event ms less its device ms. The
+    # bound counts the cache rows the output depends on, those the bias
+    # leaves live (the kernel also reads the masked tail of the generate
+    # step and the serving step's gap), plus the bias read and lse written.
+    walk_names = ("decode_tma_kernel", "decode_kernel")
+    decode_ms = {}
+    for label, db, nkv in (("generate", b, MAX_LEN), ("serving", SERVE_B, SERVE_MAX_LEN)):
+        caches = [(_randn((db, hkv, nkv, d), bf, gen), _randn((db, hkv, nkv, d), bf, gen))
+                  for _ in range(SLICE["n_layers"])]
+        qd = _randn((db, hq, 1, d), bf, gen)
+        if label == "generate":
+            cols = torch.arange(nkv, device="cuda")
+            bias = torch.where(cols <= PROMPT, 0.0, DEFAULT_MASK_VALUE).float()[None, None, None]
+        else:
+            bias = _serve_gap_bias(nkv, SERVE_LENS, 64)
+        it = iter(range(1 << 30))
 
-    def pick():
-        return caches[next(it) % len(caches)]
+        def pick(caches=caches, it=it):
+            return caches[next(it) % len(caches)]
 
-    def run_kernel():
-        kc, vc = pick()
-        return decode._decode_forward(qd, kc, vc, bias, scale=scale, is_causal=False)
+        def run_kernel(qd=qd, bias=bias, pick=pick):
+            kc, vc = pick()
+            return decode._decode_forward(qd, kc, vc, bias, scale=scale, is_causal=False)
 
-    def run_plain():
-        kc, vc = pick()
-        return decode._decode_plain(qd.reshape(b, hkv, 2, d), kc, vc, bias, nq=1, scale=scale,
-                                    is_causal=False, softcap=0.0, window_left=-1,
-                                    window_right=-1)
+        live = (bias > DEFAULT_MASK_VALUE / 2).sum(dim=-1).flatten().tolist()
+        flop, nbytes = paged_decode_counts(live, hq=hq, hkv=hkv, d=d, dv=d)
+        bms, bby = bound_ms(flop, nbytes + 4 * bias.numel() + 4 * db * hq)
+        kms = _above_bound(f"decode ({label})", _timed(run_kernel, 100, warmup=8), bms,
+                           lambda run_kernel=run_kernel: _timed(run_kernel, 100, warmup=8))
+        parts = (_kernel_timed(run_kernel, walk_names, 100)[0],
+                 _kernel_timed(run_kernel, ("split_merge_kernel",), 100)[0])
+        if kms[0] < 0.95 * sum(parts):
+            # The total reads below its own launches (lost profiler events):
+            # time it again once, and fail if it stays below.
+            first, kms = kms, _timed(run_kernel, 100, warmup=8)
+            log(f"  decode ({label}): total {first[0]:.4f} ms below walk + merge "
+                f"{sum(parts):.4f} ms, timed again: {kms[0]:.4f} ms")
+            if kms[0] < 0.95 * sum(parts):
+                fail(f"decode ({label}) reads below its own launches twice: {first[0]:.4f} and "
+                     f"{kms[0]:.4f} ms against {sum(parts):.4f} ms")
+        log(f"  decode at the {label} step (B{db} Nkv {nkv}): {kms[0]:.4f} ms [{kms[1]:.4f}] = "
+            f"walk {parts[0]:.4f} + merge {parts[1]:.4f} ms, bound {bms:.4f} ms ({bby}), host "
+            f"{kms[1] - kms[0]:.4f} ms a call (CUDA events less device)")
+        decode_ms[label] = (kms, parts, bms, bby)
+        if label == "serving":
+            break
+        bias_bf = bias.to(bf)
 
-    def run_library():
-        kc, vc = pick()
-        return F.scaled_dot_product_attention(qd, kc, vc, attn_mask=bias_bf, enable_gqa=True)
+        def run_kernel_scores(qd=qd, bias=bias, pick=pick):
+            kc, vc = pick()
+            return decode._decode_forward(qd, kc, vc, bias, scale=scale, is_causal=False,
+                                          return_scores=True)
 
-    nbytes = 2 * (2 * qd.numel() + 2 * b * hkv * MAX_LEN * d) + 4 * MAX_LEN + 4 * b * hq
-    flops = 2 * b * hq * MAX_LEN * (d + d)
-    kms = _timed(run_kernel, 100, warmup=8)
+        def run_plain(qd=qd, bias=bias, pick=pick):
+            kc, vc = pick()
+            return decode._decode_plain(qd.reshape(b, hkv, 2, d), kc, vc, bias, nq=1,
+                                        scale=scale, is_causal=False, softcap=0.0,
+                                        window_left=-1, window_right=-1)
 
-    def run_kernel_scores():
-        kc, vc = pick()
-        return decode._decode_forward(qd, kc, vc, bias, scale=scale, is_causal=False,
-                                      return_scores=True)
+        def run_library(qd=qd, bias_bf=bias_bf, pick=pick):
+            kc, vc = pick()
+            return F.scaled_dot_product_attention(qd, kc, vc, attn_mask=bias_bf,
+                                                  enable_gqa=True)
 
-    sms = _timed(run_kernel_scores, 100, warmup=8)
-    log(f"  decode at the serving step: {kms[0]:.4f} ms [{kms[1]:.4f}] without the score "
-        f"residual, {sms[0]:.4f} ms [{sms[1]:.4f}] with it")
-    pms = _timed(run_plain, 40)
-    lms = _timed(run_library, 100, warmup=8)
-    bms, bby = bound_ms(flops, nbytes)
-    kms = _above_bound("decode", kms, bms, lambda: _timed(run_kernel, 100, warmup=8))
+        sms = _timed(run_kernel_scores, 100, warmup=8)
+        log(f"  decode at the generate step with the score residual: {sms[0]:.4f} ms "
+            f"[{sms[1]:.4f}]")
+        pms = _timed(run_plain, 40)
+        lms = _timed(run_library, 100, warmup=8)
+    (kms, parts, bms, bby), serve = decode_ms["generate"], decode_ms["serving"]
     rows.append(dict(
         name="decode", route="cuda", source="ffpa_attn_tpu_torch/csrc/decode.cu",
         replaces="ffpa_attn_tpu/ops/decode.py:52", launches=launches["decode"],
         max_abs_err=errs["decode"], ms=kms[0], plain_ms=pms[0], bound_ms=bms,
-        bound_by=bby, library_ms=lms[0],
+        bound_by=bby, library_ms=lms[0], walk_ms=parts[0], merge_ms=parts[1],
+        ms_with_scores=sms[0], serving_ms=serve[0][0], serving_walk_ms=serve[1][0],
+        serving_merge_ms=serve[1][1], serving_bound_ms=serve[2],
     ))
+    rows[-1].update(decode_kernel_row_extras(d))
     events["decode"] = (kms[1], pms[1], lms[1])
+    torch.cuda.empty_cache()
     serve_rows, serve_events = serving_times(errs, serving, main_path["model"])
     train_rows, train_events, fwd_train = training_times(training, windowed, resident)
     rows[0].update(fwd_train)  # the flash_fwd row: the training shape beside the prefill

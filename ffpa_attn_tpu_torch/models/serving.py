@@ -160,6 +160,24 @@ def _token_block(model: Transformer, token, positions, attend):
     return x @ model.embed.T
 
 
+def shared_row_bias(lens: torch.Tensor, t: int, base: int, max_len: int,
+                    sliding_window: int = 0) -> torch.Tensor:
+    """The validity bias [B, 1, 1, max_len] (fp32: 0 or MASK_VALUE) of the
+    shared-row decode step ``t``: sequence b attends its prompt rows
+    ``[0, lens[b])`` and the generated rows ``[base, base + t]``; the gap
+    ``[lens[b], base)`` is masked out. A sliding window counts true
+    positions: prompt row c sits at position c, generated row c at
+    ``lens[b] + (c - base)``. ``lens`` is on the cache's device."""
+    cols = torch.arange(max_len, device=lens.device)[None, :]
+    prompt_ok = cols < lens[:, None]
+    gen_ok = (cols >= base) & (cols <= base + t)
+    if sliding_window > 0:
+        w = sliding_window
+        prompt_ok = prompt_ok & (cols >= (lens + t)[:, None] - w)
+        gen_ok = gen_ok & (cols >= base + t - w)
+    return torch.where(prompt_ok | gen_ok, 0.0, DEFAULT_MASK_VALUE).float()[:, None, None, :]
+
+
 @torch.inference_mode()
 def _batched_decode_step(model: Transformer, cache, lens, t: int, token, base: int):
     """One decode step for a ragged batch at shared step index ``t``.
@@ -169,19 +187,9 @@ def _batched_decode_step(model: Transformer, cache, lens, t: int, token, base: i
     prompt rows ``[0, lens[b])`` plus the generated rows ``[base, base + t]``;
     the gap ``[lens[b], base)`` is masked out."""
     cfg = model.cfg
-    max_len = cache[0]["k"].shape[2]
     positions = lens + t
     write_row = base + t
-    cols = torch.arange(max_len, device=token.device)[None, :]
-    prompt_ok = cols < lens[:, None]
-    gen_ok = (cols >= base) & (cols <= write_row)
-    if cfg.sliding_window > 0:
-        # Window over true positions: prompt row c sits at position c,
-        # generated row c at lens[b] + (c - base).
-        w = cfg.sliding_window
-        prompt_ok = prompt_ok & (cols >= positions[:, None] - w)
-        gen_ok = gen_ok & (cols >= base + t - w)
-    bias = torch.where(prompt_ok | gen_ok, 0.0, DEFAULT_MASK_VALUE).float()[:, None, None, :]
+    bias = shared_row_bias(lens, t, base, cache[0]["k"].shape[2], cfg.sliding_window)
     enable_gqa = cfg.n_heads != cfg.n_kv_heads
 
     def attend(li, q, k, v):
@@ -270,4 +278,5 @@ __all__ = [
     "prefill_packed",
     "serve_batch",
     "serve_batch_paged",
+    "shared_row_bias",
 ]

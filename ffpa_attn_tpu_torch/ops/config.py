@@ -22,8 +22,12 @@ never refused by the card.
     stream through a ring of 64 x 64 chunks, and the fp32 O tile lives
     in the registers of the block's 16 warps, 64 per thread: block_q * Dv
     <= 64 * 512. Row tiles 64 (Dv <= 512) and 32 (Dv <= 1024).
-* Decode (``csrc/decode.cu``): the fp32 O tile of the PackGQA rows lives in
-  shared memory; Q/K and V chunks stream through two slots.
+* Decode (``csrc/decode.cu``), two routes by head dims alone
+  (``decode_plan`` mirrors the launcher's ``make_plan``): D and Dv <= 512
+  take the TMA block (16 packed rows, a ring of 8 KiB stages as deep as
+  leaves two blocks an SM); wider heads the cp.async block, whose fp32 O
+  tile of the PackGQA rows lives in shared memory while Q/K and V chunks
+  stream through two slots (row tiles 16 .. 128).
 * Packed varlen forward (``csrc/varlen_fwd.cu``): the forward's block, with
   the row tile's segment ids and ranks in shared memory.
 * Paged decode (``csrc/paged_decode.cu``), two routes (``paged_plan``
@@ -94,6 +98,7 @@ never refused by the card.
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+from functools import lru_cache
 
 # Largest dynamic shared memory a block may opt into on an H100.
 SMEM_LIMIT_BYTES = 232_448
@@ -168,6 +173,16 @@ _PAGED_TMA_BLOCK_SMEM = 115_712
 _PAGED_TMA_Q_BOX_BYTES = 16 * 128
 _PAGED_TMA_STAGING_BYTES = 2 * 64 * 64 * 2
 _PAGED_TMA_XCH_BYTES = 2 * 4 * 16 * 4
+# Compile-time constants of the TMA decode block (decode.cu namespace tma:
+# ROWS, the dims it takes, STAGE_BYTES, MAX_STAGES, BLOCK_SMEM, Q_BOX_BYTES,
+# XCH_FLOATS * 4), not settings: decode_plan mirrors the launcher with them.
+_DECODE_TMA_ROWS = 16
+_DECODE_TMA_MAX_D = 512
+_DECODE_TMA_STAGE_BYTES = 64 * 128
+_DECODE_TMA_MAX_STAGES = 12
+_DECODE_TMA_BLOCK_SMEM = 115_712
+_DECODE_TMA_Q_BOX_BYTES = 16 * 128
+_DECODE_TMA_XCH_BYTES = 2 * 4 * 16 * 4
 # Compile-time constants of the banded dQ / dK blocks (flash_bwd.cu
 # namespace band: ROWS, KT, MAX_CHUNKS * COLS, STAGES), not settings:
 # banded_plan mirrors the launcher with them.
@@ -320,6 +335,58 @@ def decode_smem_bytes(cfg: BlockConfig, dv: int, itemsize: int = 2) -> int:
     p_tile = bq * (bkv + _PAD_T) * itemsize
     slots = DECODE_STREAM_STAGES * (bq + bkv) * (D_CHUNK + _PAD_T) * itemsize
     return o_tile + s_tile + p_tile + slots + 3 * bq * 4
+
+
+@dataclass(frozen=True)
+class DecodePlan:
+    """The route and tiling of one decode launch, as ``csrc/decode.cu``
+    ``make_plan`` computes it (the library hands its own out through
+    ``decode.decode_kernel_plan``; the card test holds the two equal).
+
+    ``route`` is "tma" or "cp_async"; ``rows`` the packed rows of a block (a
+    taller packing takes ``cdiv(R, rows)`` row blocks), ``stages`` the
+    ring's depth and ``smem_bytes`` the dynamic shared memory a block asks
+    for.
+    """
+
+    route: str
+    rows: int
+    stages: int
+    smem_bytes: int
+
+
+@lru_cache(maxsize=None)
+def decode_plan(d: int, dv: int, rows: int, itemsize: int = 2) -> DecodePlan:
+    """The decode route at head dims (d, dv) (padded to 64-column chunks)
+    and ``rows`` packed rows (group * nq): D, Dv <= 512 take the TMA block,
+    with as many 8 KiB stages (at most 12) as fit beside Q's boxes, the P
+    box and the exchange in a block's share of two an SM; wider heads the
+    cp.async block at the smallest of ``ROW_TILES`` holding ``rows``,
+    halved while it does not fit shared memory."""
+    d_pad, dv_pad = _round_up(d, D_CHUNK), _round_up(dv, D_CHUNK)
+    if max(d_pad, dv_pad) <= _DECODE_TMA_MAX_D:
+        fixed = (1024 + (d_pad // D_CHUNK + 1) * _DECODE_TMA_Q_BOX_BYTES
+                 + _DECODE_TMA_XCH_BYTES)
+        stage = _DECODE_TMA_STAGE_BYTES + 16
+        stages = min(_DECODE_TMA_MAX_STAGES, (_DECODE_TMA_BLOCK_SMEM - fixed) // stage)
+        return DecodePlan("tma", _DECODE_TMA_ROWS, stages, fixed + stages * stage)
+    cfg = decode_row_tile(dv_pad, rows, itemsize)
+    return DecodePlan("cp_async", cfg.block_q, DECODE_STREAM_STAGES,
+                      decode_smem_bytes(cfg, dv_pad, itemsize))
+
+
+def decode_row_tile(dv: int, rows: int, itemsize: int = 2) -> BlockConfig:
+    """The cp.async decode block's row tile: the smallest of ``ROW_TILES``
+    that holds all ``rows`` packed GQA rows (group * Nq), halved until the
+    block fits shared memory. A decode block computes every row of its tile
+    while K/V stream once, so covering the packed rows in one tile is what
+    keeps the K/V traffic at one pass per KV head."""
+    cfg = BlockConfig(block_q=128).clamp(rows, 0)
+    while decode_smem_bytes(cfg, dv, itemsize) > SMEM_LIMIT_BYTES:
+        if cfg.block_q == min(ROW_TILES):
+            raise ValueError(f"no decode row tile fits shared memory at Dv={dv}")
+        cfg = BlockConfig(block_q=cfg.block_q // 2)
+    return cfg
 
 
 def varlen_smem_bytes(cfg: BlockConfig, d: int, dv: int, itemsize: int = 2) -> int:
@@ -713,6 +780,9 @@ __all__ = [
     "FwdPlan",
     "fwd_plan",
     "decode_smem_bytes",
+    "DecodePlan",
+    "decode_plan",
+    "decode_row_tile",
     "varlen_smem_bytes",
     "varlen_fits",
     "PAGED_ROW_TILES",

@@ -14,9 +14,14 @@ Bound on an H100: bytes. Every step reads the whole K and V cache once,
 
 Design against that bound: at B=1 the (B, Hkv) grid of the TPU kernel would
 fill 4 of 132 SMs, so the KV range is split across blocks (launch 1 writes
-fp32 partials with their LSE, launch 2 merges them by LSE); K/V chunks
-stream through shared memory with cp.async one chunk ahead of the math;
-with a sliding window only the tiles of the band are read.
+fp32 partials with their LSE, launch 2 merges them by LSE); with a sliding
+window only the tiles of the band are read. Two routes for launch 1
+(``config.decode_plan``): at D, Dv <= 512 a TMA block (a producer thread
+keeps up to 11 boxes of 8 KiB in flight, one wgmma warpgroup does the math,
+up to two blocks an SM, one block for every SM where the band has the
+tiles: splits by ``_tma_splits``, cut by ``decode_split_ranges``); wider
+heads a cp.async block that streams K/V chunks one ahead of the math
+(splits by ``_num_splits``).
 
 Under autograd the forward also writes the fp32 masked scores of the packed
 rows (``return_scores``; 135 KB at the serving step), and the backward is
@@ -27,6 +32,7 @@ JAX package leaves it to XLA: at Nq <= 8 its scores are O(group * Nq * Nkv).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -34,7 +40,7 @@ import torch
 from ..env import ENV
 from ..logger import init_logger
 from . import _build
-from .config import D_CHUNK, KV_TILE, cdiv
+from .config import D_CHUNK, KV_TILE, DecodePlan, cdiv, decode_plan
 from .flash_fwd import _bias_strides, _pad_last, check_kernel_inputs
 from .reference import DEFAULT_MASK_VALUE
 from .rng import make_row_col_ids
@@ -64,13 +70,54 @@ def _decode_block_kv(d: int, dv: int, nkv: int, dtype, group: int = 1) -> int:
 
 
 def _num_splits(blocks_per_split: int, kv_tiles: int, num_sms: int) -> int:
-    """KV splits so that about two blocks land on every SM, with at least
-    one KV tile per split."""
+    """KV splits of the cp.async routes (dense and paged decode) so that
+    about two blocks land on every SM, with at least one KV tile per
+    split."""
     if kv_tiles <= 0:
         return 1
     want = cdiv(2 * num_sms, max(blocks_per_split, 1))
     splits = max(1, min(kv_tiles, want))
     return cdiv(kv_tiles, cdiv(kv_tiles, splits))  # no empty trailing split
+
+
+# The TMA route's split count. A second block on an SM walks no faster,
+# and every split adds a partial that the merge launch reads after the
+# others. On an H100 80GB HBM3 at 700 W (tools/torch_decode_probe.py,
+# device ms of walk + merge, two readings each): the generate step (B1
+# H8/4 Nkv 4224 D512, 66 tiles, 4 blocks a split) read 0.0209-0.0213 at
+# this rule's 33 splits, 0.0234-0.0244 at 66 and 0.0215 at 22; B1 Nkv 4096
+# (64 tiles) 0.0202-0.0204 at its 32 and 0.0233-0.0237 at 64; the serving
+# step (B4, 18 tiles) 0.0198 at its 9, 0.0244 at 18 and 0.0207-0.0208 at
+# 6; the tiny model's step (B1 H2/1 Nkv 136 D320, 3 tiles, one block a
+# split) 0.0085 at its 3, 0.0108 at 2 and 0.0133 at 1.
+def _tma_splits(blocks_per_split: int, kv_tiles: int, num_sms: int) -> int:
+    """KV splits of the TMA route: as many as give every SM one block, at
+    most one a tile; of those, the fewest that give the same longest run of
+    tiles. The launch has fewer than num_sms + blocks_per_split blocks, so
+    (blocks_per_split <= num_sms) at two an SM every block is resident at
+    once."""
+    if kv_tiles <= 0:
+        return 1
+    cap = max(1, min(kv_tiles, cdiv(num_sms, max(blocks_per_split, 1))))
+    return cdiv(kv_tiles, cdiv(kv_tiles, cap))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    """SMs of a card: the properties query costs the host ~5 us a call."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def decode_split_ranges(kv_start: int, kv_end: int, num_splits: int):
+    """The cache rows each split of the TMA route walks: ``num_splits``
+    [lo, hi) pairs that cut the band [kv_start, kv_end) (kv_start on a tile
+    edge, ``_kv_band``) into near-equal runs of whole 64-row tiles, the last
+    cut at kv_end; a split with no tile is (x, x). The kernel computes the
+    same on the device (``csrc/decode.cu`` ``tma::range_of``); this copy is
+    for the tests and runs on no path."""
+    tiles = cdiv(kv_end - kv_start, KV_TILE) if kv_end > kv_start else 0
+    cuts = [kv_start + (s * tiles // num_splits) * KV_TILE for s in range(num_splits + 1)]
+    return [(min(lo, kv_end), min(hi, kv_end)) for lo, hi in zip(cuts, cuts[1:])]
 
 
 def _kv_band(nq: int, nkv: int, is_causal: bool, window_left: int, window_right: int):
@@ -116,37 +163,69 @@ def _decode_plain(qp, k, v, bias, *, nq, scale, is_causal, softcap, window_left,
     return o, lse, torch.nn.functional.pad(s, (0, nkv_pad - nkv), value=DEFAULT_MASK_VALUE)
 
 
-_DECODE_ARGTYPES = (
-    [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 9
-    + [ctypes.c_float] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_int]
-    + [ctypes.c_void_p]
-)
+_I, _P = ctypes.c_int, ctypes.c_void_p
+_ARGTYPES = {
+    "ffpa_decode_fwd": [_P] * 8 + [ctypes.c_longlong] * 4 + [_I] * 9 + [ctypes.c_float] * 2
+    + [_I] * 7 + [_P, _I, _P],
+    "ffpa_decode_plan": [_I] * 3 + [ctypes.POINTER(_I), _I],
+    "ffpa_decode_attrs": [_I] * 2 + [ctypes.POINTER(_I)] * 2,
+}
 
 
-def _decode_lib() -> ctypes.CDLL:
+def _decode_fn(name: str):
+    """Entry point ``name`` of the decode library, its argument types set
+    at first use."""
     lib = _build.load("decode")
-    if lib.ffpa_decode_fwd.argtypes is None:
-        lib.ffpa_decode_fwd.argtypes = _DECODE_ARGTYPES
-        lib.ffpa_decode_fwd.restype = ctypes.c_int
-    return lib
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(err: int, what: str) -> None:
+    if err:
+        _build.check(_build.load("decode"), err, what)
+
+
+def decode_kernel_plan(d: int, dv: int, rows: int) -> DecodePlan:
+    """The route and tiling the launcher takes at head dims (d, dv) (padded
+    to 64-column chunks) and ``rows`` packed rows, read from the library:
+    what ``config.decode_plan`` mirrors. Needs a card."""
+    out = (ctypes.c_int * 8)()
+    err = _decode_fn("ffpa_decode_plan")(cdiv(d, D_CHUNK) * D_CHUNK, cdiv(dv, D_CHUNK) * D_CHUNK,
+                                         rows, out, len(out))
+    _check(err, "decode plan")
+    return DecodePlan("tma" if out[0] == 1 else "cp_async", out[1], out[2], out[3])
+
+
+def decode_kernel_attrs(route: str, dtype=torch.bfloat16) -> dict:
+    """Registers a thread and local (spill) bytes of the decode kernel of
+    ``route`` ("tma", or "cp_async" at 16 rows), from
+    cudaFuncGetAttributes. Needs a card."""
+    regs, local = ctypes.c_int(0), ctypes.c_int(0)
+    err = _decode_fn("ffpa_decode_attrs")(int(route == "tma"), int(dtype == torch.float16),
+                                          ctypes.byref(regs), ctypes.byref(local))
+    _check(err, "decode kernel attributes")
+    return {"registers": regs.value, "local_bytes": local.value}
 
 
 def _decode_kernel(qp, k, v, bias, *, nq, scale, is_causal, softcap, window_left, window_right,
                    return_scores=False):
     """Launch the split-KV kernel and its merge on packed rows (same
-    contract as ``_decode_plain``)."""
-    from .dispatch import pick_decode_config
-
+    contract as ``_decode_plain``), on the route ``config.decode_plan``
+    names."""
     check_kernel_inputs("_decode_forward", qp, k, v)
     b, hkv, rows, d = qp.shape
     nkv, dv = k.shape[2], v.shape[-1]
     d_pad, dv_pad = cdiv(d, D_CHUNK) * D_CHUNK, cdiv(dv, D_CHUNK) * D_CHUNK
-    cfg = pick_decode_config(d=d_pad, dv=dv_pad, nkv=nkv, dtype=qp.dtype, rows=rows)
-    row_blocks = cdiv(rows, cfg.block_q)
+    plan = decode_plan(d_pad, dv_pad, rows, qp.element_size())
+    row_blocks = cdiv(rows, plan.rows)
     kv_start, kv_end = _kv_band(nq, nkv, is_causal, window_left, window_right)
     kv_tiles = cdiv(kv_end - kv_start, KV_TILE) if kv_end > kv_start else 0
-    num_sms = torch.cuda.get_device_properties(qp.device).multi_processor_count
-    splits = _num_splits(b * hkv * row_blocks, kv_tiles, num_sms)
+    num_sms = _sm_count(qp.device.index)
+    split_rule = _tma_splits if plan.route == "tma" else _num_splits
+    splits = split_rule(b * hkv * row_blocks, kv_tiles, num_sms)
     kv_per_split = max(cdiv(kv_tiles, splits), 1) * KV_TILE
 
     q_ = _pad_last(qp, d_pad).contiguous()
@@ -170,20 +249,20 @@ def _decode_kernel(qp, k, v, bias, *, nq, scale, is_causal, softcap, window_left
     level = ENV.device_log_level()
     if level >= 2:
         logger.info(
-            "decode launch grid=(%d,%d,%d) block_rows=%d rows=%d", splits,
-            hkv * row_blocks, b, cfg.block_q, rows,
+            "decode launch route=%s grid=(%d,%d,%d) block_rows=%d rows=%d stages=%d",
+            plan.route, splits, hkv * row_blocks, b, plan.rows, rows, plan.stages,
         )
     if level >= 3:
         logger.info(
             "decode split-KV band=[%d,%d) tiles=%d kv_per_split=%d",
             kv_start, kv_end, kv_tiles, kv_per_split,
         )
-    lib = _decode_lib()
+    launch = _decode_fn("ffpa_decode_fwd")
     with torch.cuda.device(dev):
-        err = lib.ffpa_decode_fwd(
+        err = launch(
             q_.data_ptr(), k_.data_ptr(), v_.data_ptr(), o.data_ptr(),
             lse.data_ptr(), o_part.data_ptr(), lse_part.data_ptr(), bias_ptr,
-            *strides, int(qp.dtype == torch.float16), cfg.block_q,
+            *strides, int(qp.dtype == torch.float16), plan.rows,
             b, hkv, rows, nq, nkv, d_pad, dv_pad, float(scale), float(softcap),
             nkv - nq, window_left, 0 if is_causal else window_right,
             kv_start, kv_end, kv_per_split, splits,
@@ -191,7 +270,7 @@ def _decode_kernel(qp, k, v, bias, *, nq, scale, is_causal, softcap, window_left
             0 if scores is None else scores.shape[3],
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    _build.check(lib, err, "decode kernel launch")
+    _check(err, "decode kernel launch")
     _decode_forward.launches += 1
     if dv_pad != dv:
         o = o[..., :dv]
@@ -379,6 +458,9 @@ def decode_attention(
 __all__ = [
     "decode_attention",
     "decode_attention_supported",
+    "decode_kernel_attrs",
+    "decode_kernel_plan",
+    "decode_split_ranges",
     "_decode_forward",
     "_decode_core_bwd",
 ]

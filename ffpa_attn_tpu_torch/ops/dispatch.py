@@ -7,9 +7,7 @@ import torch
 
 from .config import (
     FWD_ROW_TILES,
-    SMEM_LIMIT_BYTES,
     BlockConfig,
-    decode_smem_bytes,
     default_config,
     dkdv_col_passes,
     dq_fits,
@@ -31,24 +29,6 @@ def pick_forward_config(
     """Heuristic forward config: the taller row tile where it fits."""
     itemsize = torch.empty((), dtype=dtype).element_size()
     return default_config(d, dv, nq, nkv, itemsize=itemsize)
-
-
-def pick_decode_config(
-    *, d: int, dv: int, nkv: int, dtype: torch.dtype, rows: int
-) -> BlockConfig:
-    """Decode config: the smallest row tile that holds all ``rows`` packed
-    GQA rows (group * Nq), shrunk until the block fits shared memory. A
-    decode block computes every row of its tile while K/V stream once, so
-    covering the packed rows in one tile is what keeps the K/V traffic at
-    one pass per KV head."""
-    del d, nkv
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    cfg = BlockConfig(block_q=128).clamp(rows, 0)
-    while decode_smem_bytes(cfg, dv, itemsize) > SMEM_LIMIT_BYTES:
-        if cfg.block_q == 16:
-            raise ValueError(f"no decode row tile fits shared memory at Dv={dv}")
-        cfg = BlockConfig(block_q=cfg.block_q // 2)
-    return cfg
 
 
 def pick_varlen_config(*, d: int, dv: int, tq: int, dtype: torch.dtype) -> BlockConfig:
@@ -106,6 +86,6 @@ def pick_backward_config(
     raise ValueError(f"no backward row tile fits D={d}, Dv={dv}")
 
 
-__all__ = ["pick_forward_config", "pick_decode_config", "pick_varlen_config",
+__all__ = ["pick_forward_config", "pick_varlen_config",
            "pick_varlen_backward_config", "pick_backward_config",
            "FROM_S_DK_IN_MAX_NKV"]

@@ -18,8 +18,13 @@ wrappers passed, ``LegacyBanded``):
   flash_fwd_train_scores: N8192 (a training layer), without and with it.
   At D512 the head library runs its wgmma route, a base built from older
   sources the mma.sync kernel;
-* decode: B1 H8/4 Nkv 4224 D512 with the validity bias, four caches in turn
-  so K/V are not L2-resident;
+* decode: B1 H8/4 Nkv 4224 D512 with the validity bias (the generate step),
+  and decode_serving (``--kernels decode`` runs both): B4 H8/4 max_len 1152
+  with the serving step's shared-row bias and its gap; four caches in turn
+  so K/V are not L2-resident, each run held against ``_decode_plain`` per
+  row at the bf16 forward tolerance 2e-2. A base library without
+  ``ffpa_decode_plan`` (built from sources before the TMA route) is split
+  by its own rule (``_num_splits``);
 * dkdv (with the dS slab) and banded_dq: B1 H8/4 N8192 D512 causal bf16
   (the training step's dS-handoff backward); head and base take the same
   slab padding (the head wrapper's), and at D512 the head library runs
@@ -50,7 +55,12 @@ wrappers passed, ``LegacyBanded``):
 
 A kernel whose source the base tree lacks is timed on the head alone. Each
 time is the kernels' device time per call from torch.profiler (for from_s
-the from-S kernel's alone, without the copy of S). The forward's runs are
+the from-S kernel's alone, without the copy of S), with the call's
+CUDA-event time beside it (``event_ms``: device plus whatever the host adds
+between launches); for the decode kernels also the host's wall-clock µs a
+call spends enqueueing (``host_us``: the wrapper and its launches without a
+synchronize, the least of 20 runs of 20 calls, which the host's noise only
+raises). The forward's runs are
 held against the plain version per output: O per row at the bf16 forward
 tolerance 2e-2, lse at 1e-4 of max|lse|, the S residual per row on the
 causal band at 1e-2. dkdv (dK, dV and the slab) is held against its plain
@@ -72,6 +82,7 @@ import json
 import math
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -79,6 +90,7 @@ import torch
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
+from ffpa_attn_tpu_torch.models.serving import shared_row_bias  # noqa: E402
 from ffpa_attn_tpu_torch.ops import (  # noqa: E402
     _build, decode, flash_bwd, flash_fwd, paged, varlen,
 )
@@ -89,12 +101,14 @@ from ffpa_attn_tpu_torch.ops.dispatch import (  # noqa: E402
     pick_backward_config, pick_varlen_backward_config,
 )
 from ffpa_attn_tpu_torch.ops.reference import DEFAULT_MASK_VALUE  # noqa: E402
-from ffpa_attn_tpu_torch.utils.profiling import device_ms, device_window  # noqa: E402
+from ffpa_attn_tpu_torch.utils.profiling import (  # noqa: E402
+    cuda_ms, device_ms, device_window,
+)
 
 # kernel -> the source it is built from
 SOURCE = {"flash_fwd": "flash_fwd", "flash_fwd_scores": "flash_fwd",
           "flash_fwd_train": "flash_fwd", "flash_fwd_train_scores": "flash_fwd",
-          "decode": "decode", "dkdv": "flash_bwd",
+          "decode": "decode", "decode_serving": "decode", "dkdv": "flash_bwd",
           "banded_dq": "flash_bwd", "dq": "flash_bwd", "from_s": "flash_bwd",
           "banded_dk": "flash_bwd", "varlen_fwd": "varlen_fwd", "paged_decode": "paged_decode",
           "paged_decode_int8": "paged_decode", "varlen_dkdv": "varlen_bwd",
@@ -109,11 +123,11 @@ ENTRY = {"from_s": "ffpa_bwd_dkdv_from_s", "banded_dk": "ffpa_bwd_banded_dk",
          "varlen_dq": "ffpa_varlen_bwd_dq"}
 
 
-def build_tree(src: Path, out: Path) -> dict:
-    """Compile every source of ``src`` the package has into ``out`` (nvcc in
+def build_tree(src: Path, out: Path, wanted) -> dict:
+    """Compile the sources ``wanted`` that ``src`` has into ``out`` (nvcc in
     parallel) and load the libraries."""
     out.mkdir(parents=True, exist_ok=True)
-    names = [n for n in _build.SOURCES if (src / f"{n}.cu").exists()]
+    names = [n for n in _build.SOURCES if n in wanted and (src / f"{n}.cu").exists()]
     procs = {
         name: subprocess.Popen([
             _build._nvcc(), *_build.NVCC_FLAGS, "-I", str(src),
@@ -231,10 +245,25 @@ class LegacyVarlenBwd:
 
 TOL = 5e-2  # bf16 gradients (tests/test_ffpa_bwd.py:19)
 # Per-kernel tolerances where a kernel is held to the forward's (per row).
-KERNEL_TOL = {"paged_decode": 2e-2, "paged_decode_int8": 2e-2}
+KERNEL_TOL = {"paged_decode": 2e-2, "paged_decode_int8": 2e-2, "decode": 2e-2,
+              "decode_serving": 2e-2}
 # The forward's outputs: O per row (bf16, tests/test_features.py:127), lse
 # relative to max|lse| (fp32 math on both sides), S per row on the band.
 FWD_TOL = {"o": 2e-2, "lse": 1e-4, "s": 1e-2}
+
+
+def host_us(fn, calls: int = 20, repeats: int = 20) -> float:
+    """Wall-clock µs a call of ``fn`` spends on the host, enqueueing only:
+    the least of ``repeats`` runs of ``calls`` calls."""
+    best = float("inf")
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return best
 
 
 def row_rel(got, want, floor: float = 1e-3) -> float:
@@ -277,11 +306,28 @@ def make_runs(gen) -> tuple:
     cols = torch.arange(max_len, device="cuda")
     bias = torch.where(cols <= n, 0.0, DEFAULT_MASK_VALUE).float()[None, None, None]
     turn = [0]
+    # The serving step: B4, max_len 1152, 64 tokens into generation; prompt
+    # rows below lens[b], the gap, the generated rows from the longest prompt.
+    slens, smax, st = [589, 698, 763, 886], 1152, 64
+    scaches = [(randn(4, hkv, smax, d), randn(4, hkv, smax, d)) for _ in range(4)]
+    sbias = shared_row_bias(torch.tensor(slens, device="cuda"), st, max(slens), smax)
+    sqd = randn(4, hq, 1, d)
+    last_cache = {}
 
-    def run_decode():
-        kc, vc = caches[turn[0] % len(caches)]
+    def run_decode(serving=False):
+        pool = scaches if serving else caches
+        kc, vc = last_cache[serving] = pool[turn[0] % len(pool)]
         turn[0] += 1
-        return decode._decode_forward(qd, kc, vc, bias, scale=scale, is_causal=False)
+        q_, b_ = (sqd, sbias) if serving else (qd, bias)
+        return decode._decode_forward(q_, kc, vc, b_, scale=scale, is_causal=False)
+
+    def decode_plain(serving=False):
+        kc, vc = last_cache[serving]
+        q_, b_ = (sqd, sbias) if serving else (qd, bias)
+        o, _ = decode._decode_plain(q_.reshape(q_.shape[0], hkv, hq // hkv, d), kc, vc, b_,
+                                    nq=1, scale=scale, is_causal=False, softcap=0.0,
+                                    window_left=-1, window_right=-1)
+        return o.reshape(q_.shape)
 
     # The backward's inputs: the plain forward's (o, lse), not a kernel's,
     # so both trees see the same ones.
@@ -409,6 +455,7 @@ def make_runs(gen) -> tuple:
     runs = {name: (lambda a=a: fwd(*a)) for name, a in fwd_inputs.items()}
     runs.update({
         "decode": lambda: run_decode()[0],
+        "decode_serving": lambda: run_decode(True)[0],
         "dkdv": run_dkdv,
         "banded_dq": run_banded,
         "dq": run_dq,
@@ -440,6 +487,8 @@ def make_runs(gen) -> tuple:
                                                         nkv=nt, hkv=hkv),
         "paged_decode": lambda: paged_plain(False),
         "paged_decode_int8": lambda: paged_plain(True),
+        "decode": decode_plain,
+        "decode_serving": lambda: decode_plain(True),
         "varlen_dkdv": lambda: varlen._varlen_dkdv_plain(bq, bk, bv, bdo, blse, bdelta, meta,
                                                          **bkw),
         "varlen_dq": lambda: varlen._varlen_dq_plain(bq, bk, bv, bdo, blse, bdelta, meta, **bkw),
@@ -459,10 +508,13 @@ def main() -> int:
     kernels = [k for k in args.kernels.split(",") if k]
     if "paged_decode" in kernels and "paged_decode_int8" not in kernels:
         kernels.append("paged_decode_int8")  # paged decode is timed over both pool types
+    if "decode" in kernels and "decode_serving" not in kernels:
+        kernels.append("decode_serving")  # decode is timed at both steps
 
+    wanted = {SOURCE[k] for k in kernels}
     trees = {
-        "base": build_tree(Path(args.base).resolve(), REPO / "build" / "ab" / "base"),
-        "head": build_tree(_build.CSRC_DIR, REPO / "build" / "ab" / "head"),
+        "base": build_tree(Path(args.base).resolve(), REPO / "build" / "ab" / "base", wanted),
+        "head": build_tree(_build.CSRC_DIR, REPO / "build" / "ab" / "head", wanted),
     }
     base_bwd = trees["base"].get("flash_bwd")
     if base_bwd is not None and not hasattr(base_bwd, "ffpa_bwd_banded_plan"):
@@ -475,14 +527,18 @@ def main() -> int:
         trees["base"]["varlen_bwd"] = LegacyVarlenBwd(base_varlen)
     runs, reset, plains = make_runs(torch.Generator(device="cuda").manual_seed(0))
 
-    tma_splits = paged._tma_splits
+    tma_splits, decode_splits = paged._tma_splits, decode._tma_splits
 
     def use(tag):
         _build.load = lambda name: trees[tag][name]
         legacy = isinstance(trees[tag].get("paged_decode"), LegacyPaged)
         paged._tma_splits = LegacyPaged.SPLITS if legacy else tma_splits
+        legacy_decode = not hasattr(trees[tag].get("decode"), "ffpa_decode_plan")
+        decode._tma_splits = decode._num_splits if legacy_decode else decode_splits
 
     times = {tag: {k: [] for k in kernels} for tag in trees}
+    events = {tag: {k: [] for k in kernels} for tag in trees}
+    enqueue = {tag: {k: [] for k in kernels if k.startswith("decode")} for tag in trees}
     vs_plain = {tag: {k: [] for k in kernels if k in plains} for tag in trees}
     outs = {}
     for tag in ("base", "head", "head", "base"):
@@ -492,6 +548,9 @@ def main() -> int:
                                                           ENTRY.get(k, "ffpa_error_string")):
                 continue
             reps = 5 * args.reps if k.startswith(("decode", "paged_decode")) else args.reps
+            events[tag][k].append(cuda_ms(runs[k], reps=reps))
+            if k in enqueue[tag]:
+                enqueue[tag][k].append(round(host_us(runs[k]), 2))
             if k in ONLY:
                 w = device_window(runs[k], reps=reps, warmup=3)["by_kernel"]
                 hits = [ms for n, ms in w.items() if any(o in n for o in ONLY[k])]
@@ -528,6 +587,7 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(json.dumps({"card": smi, "order": "base head head base", "device_ms": times,
+                      "event_ms": events, "host_us": enqueue,
                       "max_abs_diff_head_vs_base": diff, "row_rel_err_vs_plain": vs_plain,
                       "tol": TOL, "fwd_tol": FWD_TOL, "kernel_tol": KERNEL_TOL}))
 
