@@ -24,7 +24,10 @@ It imports only ``ffpa_attn_tpu_torch``, torch and numpy, and runs, in order:
    bf16 model (random weights from numpy seed 0) on a 4096-token prompt, 32
    tokens, with the kernel launch counts read around that run; first-step
    logits against the same weights run with the fp32 oracle's attention; a
-   tiny model's greedy tokens on the card against the CPU; then continuous
+   tiny model's logits on the card at each of the CPU's 8 greedy steps,
+   teacher-forced with the CPU's tokens, within 2e-2 of max|logit|, with
+   the same argmax wherever the CPU's top two are more than twice that
+   apart; then continuous
    batching, the JAX package's serving bench (B4, prompts of 589..886
    tokens, 128 generated, page 256): ``serve_batch``, ``serve_batch_paged``
    over bf16 and int8 pools and a ``ServingEngine`` serving 8 requests over
@@ -531,17 +534,18 @@ def _varlen_inputs(seqs, *, seqs_k=None, hq=8, hkv=4, d=512, dv=None, dtype=torc
     return q, k, v, cu_q, cu_k
 
 
-def _varlen_case(name, *, seqs, seqs_k=None, hq=8, hkv=4, d=512, dtype=torch.bfloat16,
+def _varlen_case(name, *, seqs, seqs_k=None, hq=8, hkv=4, d=512, dv=None, dtype=torch.bfloat16,
                  causal=True, window=(-1, -1), softcap=0.0, alibi=False, pad=0, seed=0):
     """The varlen forward kernel against its plain version on the same
     inputs and metadata: o per row, lse relative on the rows that attend
-    something (an empty row's lse is MASK_VALUE on both sides)."""
+    something, and a row that attends nothing at exactly the plain
+    version's MASK_VALUE + log(1e-38)."""
     from ffpa_attn_tpu_torch.ops import varlen
     from ffpa_attn_tpu_torch.ops.reference import DEFAULT_MASK_VALUE
 
     gen = torch.Generator(device="cuda").manual_seed(500 + seed)
-    q, k, v, cu_q, cu_k = _varlen_inputs(seqs, seqs_k=seqs_k, hq=hq, hkv=hkv, d=d, dtype=dtype,
-                                         pad=pad, gen=gen)
+    q, k, v, cu_q, cu_k = _varlen_inputs(seqs, seqs_k=seqs_k, hq=hq, hkv=hkv, d=d, dv=dv,
+                                         dtype=dtype, pad=pad, gen=gen)
     al = torch.rand((hq,), generator=gen, device="cuda") * 0.1 if alibi else None
     kw = dict(scale=1.0 / math.sqrt(d), causal=causal, softcap=softcap, window=window, alibi=al)
     o, lse = varlen._varlen_forward(q, k, v, cu_q, cu_k, **kw)
@@ -553,7 +557,7 @@ def _varlen_case(name, *, seqs, seqs_k=None, hq=8, hkv=4, d=512, dtype=torch.bfl
     live = plse > DEFAULT_MASK_VALUE / 2
     err = row_rel(o, po)
     lerr = rel(lse[live], plse[live])
-    same_empty = bool((lse[~live] <= DEFAULT_MASK_VALUE / 2).all())
+    same_empty = bool((lse[~live] == plse[~live]).all())
     ok = err < tol and lerr < LSE_TOL and same_empty and bool(torch.isfinite(o).all())
     log(f"  varlen {name:<19} T{q.shape[0]} row_rel_err {err:.2e} (tol {tol:g}) lse_rel_err "
         f"{lerr:.2e} (tol {LSE_TOL:g}, {int((~live).sum())} empty rows) max_abs_err "
@@ -757,6 +761,11 @@ def phase_kernels_vs_plain() -> dict:
     _varlen_case("mha", seqs=[300, 17, 500], hq=8, hkv=8, seed=9)
     _varlen_case("padded_tail", seqs=[300, 17, 500], pad=45, seed=10)
     _varlen_case("empty_segment", seqs=[300, 0, 500], seed=11)
+    _varlen_case("d512_dv320", seqs=[300, 17, 500], dv=320, seed=12)
+    _varlen_case("d320_dv512_fp16", seqs=[300, 17, 500], d=320, dv=512, dtype=torch.float16,
+                 seed=13)
+    _varlen_case("rows_without_keys", seqs=[150, 40, 90], seqs_k=[30, 40, 200], seed=14)
+    _varlen_case("straddle_three", seqs=[20, 9, 50, 3, 300], seed=15)
     # Packed training: the varlen backward kernels over feature cases, each
     # in bf16 and fp16; the 8192-token packing is held in
     # packed_training_times, beside its times.
@@ -859,6 +868,53 @@ def oracle_logits(model, prompt, first):
     return logits0, head(x)
 
 
+@torch.inference_mode()
+def _teacher_forced_logits(model, prompt, tokens):
+    """fp32 logits [steps, vocab] on the CPU of ``prefill`` on ``prompt``
+    and of a ``decode_step`` on each of ``tokens`` [1, steps] but the last,
+    on the model's device and with ``generate``'s cache length: the logits
+    whose argmax is each greedy token of ``generate``, with the tokens
+    forced from another run."""
+    from ffpa_attn_tpu_torch.models import decode_step, init_kv_cache, prefill
+
+    dev = model.embed.device
+    prompt, tokens = prompt.to(dev), tokens.to(dev)
+    n, steps = prompt.shape[1], tokens.shape[1]
+    logits, cache = prefill(model, prompt, init_kv_cache(model.cfg, 1, n + steps, device=dev))
+    out = [logits]
+    for i in range(steps - 1):
+        logits, cache = decode_step(model, cache, n + i, tokens[:, i])
+        out.append(logits)
+    return torch.cat(out).float().cpu()
+
+
+def hold_greedy_steps(card, cpu, tokens) -> None:
+    """The tiny model's gate: at every step the card's logits lie within
+    BF16_TOL of max|logit| of the CPU's, element by element, and the card's
+    argmax equals the CPU's greedy token wherever the CPU's top two logits
+    are more than 2 BF16_TOL max|logit| apart (within that bound no argmax
+    can flip at a wider gap; a nearer tie is logged, not held). Fails on a
+    miss."""
+    if not torch.equal(cpu.argmax(-1), tokens[0].cpu()):
+        fail("tiny model: the CPU's teacher-forced logits do not give its greedy tokens")
+    ok = True
+    for i, (c, w) in enumerate(zip(card, cpu)):
+        scale = float(w.abs().max())
+        err = float((c - w).abs().max()) / scale
+        top = w.topk(2).values
+        gap, margin = float(top[0] - top[1]), 2 * BF16_TOL * scale
+        same = int(c.argmax()) == int(w.argmax())
+        held = err < BF16_TOL and (same or gap <= margin)
+        ok = ok and held
+        log(f"  tiny model step {i}: token {int(tokens[0, i])}, logits rel_err {err:.2e} (tol "
+            f"{BF16_TOL:g} of max|logit| {scale:.3f}), top-two gap {gap:.4f} "
+            f"{'>' if gap > margin else '<='} {margin:.4f}: argmax "
+            f"{'held' if gap > margin else 'not held (near tie)'}, same {same} "
+            f"{'ok' if held else 'FAIL'}")
+    if not ok:
+        fail("tiny model: the card's teacher-forced logits disagree with the CPU's")
+
+
 def phase_main_path() -> dict:
     from ffpa_attn_tpu_torch.models import (
         ModelConfig, decode_step, generate, init_kv_cache, params_from_jax, prefill,
@@ -935,16 +991,16 @@ def phase_main_path() -> dict:
     if not ok:
         fail("main-path logits disagree with the oracle's attention")
 
-    # Tiny model: greedy tokens on the card equal the CPU's plain path.
+    # Tiny model: the card's logits at every greedy step of the CPU's plain
+    # path, teacher-forced with the CPU's tokens.
     tiny = ModelConfig(vocab_size=64, d_model=64, n_layers=1, n_heads=2, n_kv_heads=1,
                        head_dim=320, max_seq_len=256)
     params = random_params(tiny, seed=2)
     tprompt = torch.from_numpy(np.random.default_rng(3).integers(0, 64, (1, 128)))
-    on_card = generate(params_from_jax(params, tiny), tprompt, 8).cpu()
-    on_cpu = generate(params_from_jax(params, tiny, device="cpu"), tprompt, 8)
-    log(f"  tiny model greedy tokens card {on_card[0].tolist()} cpu {on_cpu[0].tolist()}")
-    if not torch.equal(on_card, on_cpu):
-        fail("tiny model: greedy tokens on the card differ from the CPU")
+    cpu_model = params_from_jax(params, tiny, device="cpu")
+    on_cpu = generate(cpu_model, tprompt, 8)
+    hold_greedy_steps(_teacher_forced_logits(params_from_jax(params, tiny), tprompt, on_cpu),
+                      _teacher_forced_logits(cpu_model, tprompt, on_cpu), on_cpu)
     return dict(launches=launches, prefill_ms=prefill_med, decode_tok_s=tok_s,
                 generate_ms=gen_s * 1e3, model=model, prompt=prompt)
 
@@ -1972,7 +2028,10 @@ def training_times(training: dict, windowed: dict, resident: dict) -> tuple:
 
     # The S-resident tier of the training step.
     fkw = dict(scale=scale, is_causal=True)
-    fwd_ms = _timed(lambda: flash_fwd.flash_attention_forward(q, k, v, None, **fkw), 5)
+    fwd_ms = _above_bound(
+        "flash_fwd (training shape)",
+        _timed(lambda: flash_fwd.flash_attention_forward(q, k, v, None, **fkw), 5), fb_ms,
+        lambda: _timed(lambda: flash_fwd.flash_attention_forward(q, k, v, None, **fkw), 5))
     fwd_s_ms = _timed(lambda: flash_fwd.flash_attention_forward(q, k, v, None, return_scores=True,
                                                                 **fkw), 5)
     log(f"  flash_fwd at N{n} (one training layer): {fwd_ms[0]:.4f} ms [{fwd_ms[1]:.4f}] without "
@@ -2072,8 +2131,9 @@ def fwd_kernel_row_extras(d: int) -> dict:
     spill bytes, for the ``kernels`` line; fails unless the launcher's plan
     equals its mirror (``ops/config.py`` ``fwd_plan``) at D, Dv 64..1024,
     the wgmma kernel spills nothing and ptxas kept the wgmma pipeline of
-    every kernel of flash_fwd.cu, flash_bwd.cu, decode.cu, paged_decode.cu
-    and varlen_bwd.cu (no C7515 / C7520 note in any of their builds' logs)."""
+    every kernel of flash_fwd.cu, flash_bwd.cu, decode.cu, paged_decode.cu,
+    varlen_fwd.cu and varlen_bwd.cu (no C7515 / C7520 note in any of their
+    builds' logs)."""
     from ffpa_attn_tpu_torch.ops import _build, flash_fwd
     from ffpa_attn_tpu_torch.ops.config import fwd_plan
 
@@ -2092,7 +2152,7 @@ def fwd_kernel_row_extras(d: int) -> dict:
                 f"thread at launch, {a['local_bytes']} local (spill) bytes")
             if route == "wgmma" and a["local_bytes"] != 0:
                 fail(f"the wgmma forward kernel ({dt}) spills {a['local_bytes']} bytes")
-    for name in ("flash_fwd", "flash_bwd", "decode", "paged_decode", "varlen_bwd"):
+    for name in ("flash_fwd", "flash_bwd", "decode", "paged_decode", "varlen_fwd", "varlen_bwd"):
         build_log = _build.build_log(name)
         if "ptxas info" not in build_log:
             # Without ptxas's report the count below would read nothing.
@@ -2208,6 +2268,37 @@ def dkdv_kernel_row_extras(d: int) -> dict:
     route = dkdv_plan(d, d).route
     a = flash_bwd.dkdv_kernel_attrs(route)
     return {"dkdv_route": route, "registers": a["registers"], "spill_bytes": a["local_bytes"]}
+
+
+def varlen_fwd_kernel_row_extras(d: int) -> dict:
+    """The varlen forward's route at head dim ``d`` and its kernel's
+    registers and spill bytes, for the ``kernels`` line; fails unless the
+    launcher's plan equals its mirror (``ops/config.py`` ``varlen_fwd_plan``)
+    at D, Dv 64..1024 and D != Dv, and the wgmma kernel spills nothing."""
+    from ffpa_attn_tpu_torch.ops import varlen
+    from ffpa_attn_tpu_torch.ops.config import varlen_fwd_plan
+
+    pairs = [(x, x) for x in range(64, 1025, 64)] + [(512, 320), (320, 512), (512, 64),
+                                                     (64, 512), (448, 64), (512, 1024),
+                                                     (1024, 320), (400, 400)]
+    for hd, hdv in pairs:
+        if varlen.varlen_fwd_kernel_plan(hd, hdv) != varlen_fwd_plan(hd, hdv):
+            fail(f"varlen forward launcher's plan at D{hd}/Dv{hdv} "
+                 f"{varlen.varlen_fwd_kernel_plan(hd, hdv)} differs from ops/config.py "
+                 f"varlen_fwd_plan {varlen_fwd_plan(hd, hdv)}")
+    log(f"  varlen_fwd plan at D{d}: {varlen.varlen_fwd_kernel_plan(d, d)} (the launcher's, "
+        f"equal to ops/config.py varlen_fwd_plan at {len(pairs)} head-dim pairs)")
+    for route, bq in (("wgmma", 64), ("mma_sync", 64), ("mma_sync", 32)):
+        for dt in (torch.bfloat16, torch.float16):
+            a = varlen.varlen_fwd_kernel_attrs(route, dt, bq)
+            log(f"  varlen_fwd {route} rows {bq} {str(dt)[6:]}: {a['registers']} registers a "
+                f"thread at launch, {a['local_bytes']} local (spill) bytes")
+            if route == "wgmma" and a["local_bytes"] != 0:
+                fail(f"the wgmma varlen forward kernel ({dt}) spills {a['local_bytes']} bytes")
+    route = varlen_fwd_plan(d, d).route
+    a = varlen.varlen_fwd_kernel_attrs(route)
+    return {"varlen_fwd_route": route, "registers": a["registers"],
+            "spill_bytes": a["local_bytes"]}
 
 
 def varlen_dkdv_kernel_row_extras(d: int) -> dict:
@@ -2429,9 +2520,10 @@ def serving_times(errs: dict, serving: dict, model) -> tuple:
     from ffpa_attn_tpu_torch.models import init_kv_cache, pack_prompts, prefill_packed
     from ffpa_attn_tpu_torch.models.serving import _paged_decode_step
     from ffpa_attn_tpu_torch.ops import paged, varlen
+    from ffpa_attn_tpu_torch.ops.config import KV_TILE, BlockConfig
     from ffpa_attn_tpu_torch.ops.paged import PagedKVCache, fill_from_prefill
     from ffpa_attn_tpu_torch.utils.profiling import (
-        bound_ms, device_window, paged_decode_counts, varlen_counts,
+        band_pairs, bound_ms, device_window, paged_decode_counts, varlen_counts,
     )
 
     cfg = model.cfg
@@ -2479,11 +2571,26 @@ def serving_times(errs: dict, serving: dict, model) -> tuple:
         return varlen._varlen_forward(q, k, v, cu_q, cu_q, **kw)
 
     # The kernel alone; the wrapper also computes the metadata and the tile
-    # intervals on the device (a dozen small kernels) before it.
-    kms = _kernel_timed(run_varlen, ("varlen_fwd_kernel",), 20)
+    # schedule on the device (a few dozen small kernels) before it.
+    flops, nbytes = varlen_counts(SERVE_LENS, SERVE_LENS, hq=hq, hkv=hkv, d=d, dv=d,
+                                  causal=True)
+    bms, bby = bound_ms(flops, nbytes)
+    kms = _kernel_timed(run_varlen, varlen.FWD_KERNELS, 20)
+    log(f"  varlen_fwd at the serving packing: device {kms[0]:.4f} ms, bound {bms:.4f} ms "
+        f"({bby})")
+    kms = _above_bound("varlen_fwd", kms, bms,
+                       lambda: _kernel_timed(run_varlen, varlen.FWD_KERNELS, 20))
     wms = _timed(run_varlen, 20)
     log(f"  varlen_fwd at the serving packing: kernel {kms[0]:.4f} ms; the wrapper's device "
-        f"time with its metadata {wms[0]:.4f} ms, CUDA events {wms[1]:.4f} ms")
+        f"time with its metadata and schedule {wms[0]:.4f} ms, CUDA events {wms[1]:.4f} ms")
+    meta = varlen._call_metadata(cu_q, cu_q, t, t, "cuda")
+    plan, rows_q, _, sched = varlen._varlen_fwd_tiles(meta, t, d, d, BlockConfig(), True,
+                                                      (-1, -1))
+    wg = plan.route == "wgmma"
+    tiles_walked = int(sched[1].sum()) if wg else int((sched[1] - sched[0] + 1).sum())
+    band = sum(band_pairs(n, n, causal=True) for n in SERVE_LENS)
+    log(f"  varlen_fwd walks {tiles_walked} tiles of {rows_q} x {KV_TILE} a head on its "
+        f"{plan.route} route: {tiles_walked * rows_q * KV_TILE / band:.3f} x the band's pairs")
     meta = varlen._segment_metadata(cu_q, cu_q, t, t, t, t)
     pms = _timed(lambda: varlen._varlen_forward_plain(q, k, v, meta, **kw), 5)
     seg = torch.repeat_interleave(torch.arange(len(SERVE_LENS), device="cuda"),
@@ -2499,15 +2606,14 @@ def serving_times(errs: dict, serving: dict, model) -> tuple:
     lms = _timed(library, 10)
     log(f"  library for varlen_fwd: scaled_dot_product_attention over the packed T{t} with a "
         f"block-diagonal causal bool mask ({_sdpa_backend(library)} backend)")
-    flops, nbytes = varlen_counts(SERVE_LENS, SERVE_LENS, hq=hq, hkv=hkv, d=d, dv=d,
-                                  causal=True)
-    bms, bby = bound_ms(flops, nbytes)
     rows.append(dict(
         name="varlen_fwd", route="cuda", source="ffpa_attn_tpu_torch/csrc/varlen_fwd.cu",
         replaces="ffpa_attn_tpu/ops/varlen.py:214", launches=serving["launches"]["varlen_fwd"],
         max_abs_err=errs["varlen_fwd"], ms=kms[0], plain_ms=pms[0], bound_ms=bms,
-        bound_by=bby, library_ms=lms[0],
+        bound_by=bby, library_ms=lms[0], wrapper_ms=wms[0], wrapper_event_ms=wms[1],
+        kv_tiles_walked=tiles_walked,
     ))
+    rows[-1].update(varlen_fwd_kernel_row_extras(d))
     events["varlen_fwd"] = (kms[1], pms[1], lms[1])
     del q, k, v, qh, kh, vh, block_causal
     torch.cuda.empty_cache()
@@ -2599,7 +2705,9 @@ def packed_training_times(packed: dict) -> tuple:
     from ffpa_attn_tpu_torch.ops.config import varlen_dkdv_plan
     from ffpa_attn_tpu_torch.ops.dispatch import pick_varlen_backward_config
     from ffpa_attn_tpu_torch.ops.reference import expand_kv_heads
-    from ffpa_attn_tpu_torch.utils.profiling import bound_ms, device_window, varlen_backward_counts
+    from ffpa_attn_tpu_torch.utils.profiling import (
+        bound_ms, device_window, varlen_backward_counts, varlen_counts,
+    )
 
     x = packed.pop("x")
     q, k, v, do, cu = x["q"], x["k"], x["v"], x["do"], x["cu"]
@@ -2618,6 +2726,23 @@ def packed_training_times(packed: dict) -> tuple:
         f"busy {w['busy'] * 100:.1f}% (idle {(1 - w['busy']) * 100:.1f}%)")
     for kname, ms in sorted(w["by_kernel"].items(), key=lambda kv: -kv[1])[:6]:
         log(f"    {ms:9.3f} ms  {kname[:100]}")
+
+    # The varlen forward at this packing, beside the serving packing's row.
+    def run_fwd():
+        return varlen._varlen_forward(q, k, v, cu, cu, scale=d ** -0.5, causal=True)
+
+    fbms, fbby = bound_ms(*varlen_counts(PACK_LENS, PACK_LENS, hq=hq, hkv=hkv, d=d, dv=d,
+                                         causal=True))
+    fkms = _above_bound("varlen_fwd (packed training)",
+                        _kernel_timed(run_fwd, varlen.FWD_KERNELS, 10), fbms,
+                        lambda: _kernel_timed(run_fwd, varlen.FWD_KERNELS, 10))
+    fwms = _timed(run_fwd, 10)
+    log(f"  varlen_fwd at the packed-training packing (T{t}): kernel {fkms[0]:.4f} ms "
+        f"[{fkms[1]:.4f}], bound {fbms:.4f} ms ({fbby}); the wrapper's device time "
+        f"{fwms[0]:.4f} ms, CUDA events {fwms[1]:.4f} ms")
+    fwd_packed = dict(packed_training_ms=fkms[0], packed_training_bound_ms=fbms,
+                      packed_training_wrapper_ms=fwms[0],
+                      packed_training_wrapper_event_ms=fwms[1])
 
     kw = dict(scale=d ** -0.5, causal=True, softcap=0.0, window=(-1, -1))
     meta = varlen._call_metadata(cu, cu, t, t, "cuda")
@@ -2693,7 +2818,7 @@ def packed_training_times(packed: dict) -> tuple:
             rows[-1].update(varlen_dkdv_kernel_row_extras(d))
         events[name] = (kms[1], pms[1], lms[1])
         torch.cuda.empty_cache()
-    return rows, events
+    return rows, events, fwd_packed
 
 
 def phase_times(errs: dict, main_path: dict, training: dict, windowed: dict,
@@ -2720,7 +2845,12 @@ def phase_times(errs: dict, main_path: dict, training: dict, windowed: dict,
     flops = 2 * b * hq * pairs * (d + d)
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel()) + 4 * b * hq * PROMPT
     kw = dict(scale=scale, is_causal=True)
-    kms = _timed(lambda: flash_fwd.flash_attention_forward(q, k, v, None, **kw), 20)
+    bms, bby = bound_ms(flops, nbytes)
+    kms = _above_bound("flash_fwd (prefill)",
+                       _timed(lambda: flash_fwd.flash_attention_forward(q, k, v, None, **kw), 20),
+                       bms,
+                       lambda: _timed(lambda: flash_fwd.flash_attention_forward(q, k, v, None,
+                                                                                 **kw), 20))
     pms = _timed(lambda: flash_fwd.flash_attention_forward_plain(q, k, v, None, **kw), 5)
     lms = _timed(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                         enable_gqa=True), 10)
@@ -2728,7 +2858,6 @@ def phase_times(errs: dict, main_path: dict, training: dict, windowed: dict,
                                                            **kw), 20)
     log(f"  flash_fwd at the prefill shape: {kms[0]:.4f} ms [{kms[1]:.4f}] without the S "
         f"residual, {sms[0]:.4f} ms [{sms[1]:.4f}] with it")
-    bms, bby = bound_ms(flops, nbytes)
     rows.append(dict(
         name="flash_fwd", route="cuda", source="ffpa_attn_tpu_torch/csrc/flash_fwd.cu",
         replaces="ffpa_attn_tpu/ops/flash_fwd.py:77", launches=launches["flash_fwd"],
@@ -2827,7 +2956,8 @@ def phase_times(errs: dict, main_path: dict, training: dict, windowed: dict,
     serve_rows, serve_events = serving_times(errs, serving, main_path["model"])
     train_rows, train_events, fwd_train = training_times(training, windowed, resident)
     rows[0].update(fwd_train)  # the flash_fwd row: the training shape beside the prefill
-    packed_rows, packed_events = packed_training_times(packed)
+    packed_rows, packed_events, fwd_packed = packed_training_times(packed)
+    serve_rows[0].update(fwd_packed)  # the varlen_fwd row: the 8192 packing beside serving
     rows += train_rows + serve_rows + packed_rows
     for ev in (train_events, serve_events, packed_events):
         events.update(ev)

@@ -28,8 +28,12 @@ never refused by the card.
   leaves two blocks an SM); wider heads the cp.async block, whose fp32 O
   tile of the PackGQA rows lives in shared memory while Q/K and V chunks
   stream through two slots (row tiles 16 .. 128).
-* Packed varlen forward (``csrc/varlen_fwd.cu``): the forward's block, with
-  the row tile's segment ids and ranks in shared memory.
+* Packed varlen forward (``csrc/varlen_fwd.cu``), two routes by head dims
+  alone (``varlen_fwd_plan`` mirrors the launcher's ``tma::make_plan``):
+  D and Dv <= 512 take the dense wgmma forward block's tiling (64 Q rows,
+  whatever ``block_q`` says), its segment metadata read from device
+  memory; wider heads the mma.sync forward block with the row tile's
+  segment ids and ranks in shared memory.
 * Paged decode (``csrc/paged_decode.cu``), two routes (``paged_plan``
   mirrors the launcher's ``make_plan``): D and Dv <= 512 with a page of a
   multiple of 16 rows take the TMA block (16 packed rows, a ring of 8 KiB
@@ -390,19 +394,41 @@ def decode_row_tile(dv: int, rows: int, itemsize: int = 2) -> BlockConfig:
 
 
 def varlen_smem_bytes(cfg: BlockConfig, d: int, dv: int, itemsize: int = 2) -> int:
-    """Shared memory of one packed varlen forward block
-    (``csrc/varlen_fwd.cu``): the forward's block plus the row tile's
-    segment ids and ranks (int32). Key metadata is read from device memory
-    into registers, one tile at a time."""
+    """Shared memory of one packed varlen forward block of the mma.sync
+    route (``csrc/varlen_fwd.cu`` ``varlen_fwd_kernel``): the forward's
+    block plus the row tile's segment ids and ranks (int32). Key metadata
+    is read from device memory into registers, one tile at a time."""
     return fwd_smem_bytes(cfg, d, dv, itemsize) + 2 * cfg.block_q * 4
 
 
+def varlen_fwd_plan(d: int, dv: int) -> FwdPlan:
+    """The packed varlen forward's route by head dims alone (padded to
+    64-column chunks), as ``csrc/varlen_fwd.cu`` ``tma::make_plan``
+    computes it (the library hands its own out through
+    ``varlen.varlen_fwd_kernel_plan``; the card test holds the two equal):
+    the dense ``fwd_plan``, whose wgmma block reads its segment metadata
+    from device memory and so costs no more shared memory, with the
+    mma.sync block's ``varlen_smem_bytes`` for wider heads."""
+    plan = fwd_plan(d, dv)
+    if plan.route == "wgmma":
+        return plan
+    return replace(plan, smem_bytes=varlen_smem_bytes(
+        BlockConfig(block_q=plan.q_rows), _round_up(d, D_CHUNK), _round_up(dv, D_CHUNK)))
+
+
 def varlen_fits(cfg: BlockConfig, d: int, dv: int, itemsize: int = 2) -> bool:
-    """Whether the varlen forward takes this row tile at (D, Dv): the
-    forward's register bound on the fp32 O tile and its shared memory."""
+    """Whether the varlen forward takes this row tile at (D, Dv). The
+    wgmma route (D, Dv <= 512) takes its own 64-row tile whatever
+    ``block_q`` says, so any of FWD_ROW_TILES is accepted there when the
+    route's block fits shared memory; the mma.sync route holds the fp32 O
+    tile of ``block_q`` rows in registers and its block in shared memory."""
+    if cfg.block_q not in FWD_ROW_TILES:
+        return False
+    plan = varlen_fwd_plan(d, dv)
+    if plan.route == "wgmma":
+        return plan.smem_bytes <= SMEM_LIMIT_BYTES
     return (
-        cfg.block_q in FWD_ROW_TILES
-        and cfg.block_q * _round_up(dv, D_CHUNK) <= FWD_ACC_ELEMS
+        cfg.block_q * _round_up(dv, D_CHUNK) <= FWD_ACC_ELEMS
         and varlen_smem_bytes(cfg, d, dv, itemsize) <= SMEM_LIMIT_BYTES
     )
 
@@ -784,6 +810,7 @@ __all__ = [
     "decode_plan",
     "decode_row_tile",
     "varlen_smem_bytes",
+    "varlen_fwd_plan",
     "varlen_fits",
     "PAGED_ROW_TILES",
     "paged_smem_bytes",

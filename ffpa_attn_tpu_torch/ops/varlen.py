@@ -12,15 +12,18 @@ backward pair ``_varlen_dkdv_kernel`` and ``_varlen_dq_kernel`` (launched by
 sync, into per-token int32 metadata (``_segment_metadata``): segment id and
 the tail-aligned causal rank, so the keep-mask is the JAX package's three
 compares ``(q_seg == k_seg) & (k_pos <= q_rank [+ wr]) [& k_pos >= q_rank -
-wl]`` (``_varlen_mask``). ``_tile_needed`` and ``_interval_schedule`` turn
-the metadata into intervals of tiles, computed at each kernel's own tile
-sizes: each forward Q tile's [jmin, jmax] of KV tiles, each dK/dV KV tile's
-[imin, imax] of Q tiles (the needed matrix transposed, at the dK/dV route's
-tiles: 64 x 64 on wgmma, 128 x 32 on mma.sync) and each dQ Q tile's [jmin,
-jmax] (``_varlen_bwd_schedules``). The kernels read the intervals from
-device memory and walk only those tiles. The metadata is computed once per
-call, padded so that every kernel's tiles divide it, and saved for the
-backward.
+wl]`` (``_varlen_mask``). ``_tile_needed`` marks the (Q tile, KV tile)
+pairs that are not provably fully masked, at each kernel's own tile sizes;
+``_interval_schedule`` turns it into intervals of tiles and
+``_needed_tiles`` into per-tile lists. The forward's wgmma route walks each
+64-row Q tile's needed KV tiles only, the Q tiles most needed first; its
+mma.sync route each ``block_q``-row Q tile's [jmin, jmax]
+(``_varlen_fwd_tiles``). dK/dV walks each KV tile's [imin, imax] of Q
+tiles (the needed matrix transposed, at the dK/dV route's tiles: 64 x 64
+on wgmma, 128 x 32 on mma.sync) and dQ each Q tile's [jmin, jmax]
+(``_varlen_bwd_schedules``). The kernels read their schedules from device
+memory. The metadata is computed once per call, padded so that every
+kernel's tiles divide it, and saved for the backward.
 
 Bound on an H100: bytes, barely. The forward does 4 * Hq * D flop per
 attended (row, col) pair, summed over the segments' bands; at the serving
@@ -29,11 +32,13 @@ layer, 0.018 ms at 989 TFLOP/s, against 0.022 ms for its 72 MB (q, k, v,
 o once each) at 3.35 TB/s. A kernel that re-reads K/V per Q tile is bound
 by its products long before either.
 
-Design against that bound: the dense forward's block (split-D, the fp32 O
-tile in the registers of 16 warps, mma.sync fed by ldmatrix, K/V through a
-cp.async ring), reading the packed [T, H, D] layout through strides (no
-head-major copy, no padding of T) and walking only its interval's KV tiles,
-so nearly every cross-segment tile is skipped.
+Design against that bound: at D, Dv <= 512 the dense forward's TMA +
+wgmma block (64 Q rows with Q resident, K and V boxes through a ring of
+stages, two consumer warpgroups, a fast path for blocks inside one
+segment's band) over the packed [T, H, D] layout through 3-D tensor maps
+at the true extents (no head-major copy, no padding of T), visiting only
+the needed KV tiles; wider heads the dense mma.sync block over its
+interval's tiles.
 
 The backward is bound by operations: 4 matmul units of 2 * Hq * D flop per
 band pair for dK/dV and 3 for dQ (``utils/profiling.py``
@@ -57,8 +62,8 @@ from ..env import ENV
 from ..logger import init_logger
 from . import _build
 from .config import (
-    D_CHUNK, DKDV_Q_TILE, FWD_ROW_TILES, KV_TILE, BlockConfig, DkdvPlan, cdiv, varlen_dkdv_plan,
-    varlen_dq_smem_bytes, varlen_fits, varlen_smem_bytes,
+    D_CHUNK, DKDV_Q_TILE, FWD_ROW_TILES, KV_TILE, BlockConfig, DkdvPlan, FwdPlan, cdiv,
+    varlen_dkdv_plan, varlen_dq_smem_bytes, varlen_fits, varlen_fwd_plan,
 )
 from .flash_fwd import _pad_last, check_kernel_inputs
 from .reference import DEFAULT_MASK_VALUE
@@ -184,28 +189,38 @@ def _tile_needed(q_seg, q_rank, k_seg, k_pos, bq, bkv, causal,
     return needed
 
 
-def _dkdv_full_blocks(meta, causal: bool, window=(-1, -1), *, softcap: float = 0.0,
-                      alibi: bool = False):
-    """``full [nkb, nqc]``: the wgmma dK/dV consumer's test, in Python, of
-    whether its block of 64 KV rows (KV tile b) x 32 Q columns (32 c ..)
-    keeps every pair, so it may skip the mask: no softcap, no ALiBi, no left
-    window, the block's first and last rows and columns in one segment (id
-    >= 0), and, under a right edge, the last row's k_pos at most the first
-    column's q_rank plus it. Exact for packings whose segments are
+def _full_blocks(meta, q_rows: int, kv_rows: int, causal: bool, window=(-1, -1), *,
+                 softcap: float = 0.0, alibi: bool = False):
+    """``full [nq, nk]``: the wgmma consumers' test, in Python, of whether
+    the block of ``q_rows`` query rows (block i) x ``kv_rows`` keys (block
+    j) keeps every pair, so it may skip the mask: no softcap, no ALiBi, no
+    left window, the block's first and last rows and keys in one segment
+    (id >= 0), and, under a right edge, the last key's k_pos at most the
+    first row's q_rank plus it. Exact for packings whose segments are
     contiguous with rising positions, as ``_segment_metadata`` makes them.
+    The forward's consumer blocks are 64 x 32 (``_varlen_fwd_tiles``' Q
+    tiles, half a KV tile each); dK/dV's are ``_dkdv_full_blocks``.
     ``window`` is normalized."""
     q_seg, q_rank, k_seg, k_pos = meta
-    nkb, nqc = k_seg.shape[0] // 64, q_seg.shape[0] // 32
+    nq, nk = q_seg.shape[0] // q_rows, k_seg.shape[0] // kv_rows
     if softcap > 0.0 or alibi or window[0] >= 0:
-        return torch.zeros((nkb, nqc), dtype=torch.bool, device=q_seg.device)
-    qs, qr = q_seg.reshape(nqc, 32), q_rank.reshape(nqc, 32)
-    ks, kp = k_seg.reshape(nkb, 64), k_pos.reshape(nkb, 64)
-    full = ((ks[:, :1] >= 0) & (ks[:, :1] == ks[:, -1:]) & (qs[None, :, 0] == ks[:, :1])
-            & (qs[None, :, -1] == ks[:, :1]))
+        return torch.zeros((nq, nk), dtype=torch.bool, device=q_seg.device)
+    qs = q_seg[:nq * q_rows].reshape(nq, q_rows)
+    qr = q_rank[:nq * q_rows].reshape(nq, q_rows)
+    ks, kp = k_seg[:nk * kv_rows].reshape(nk, kv_rows), k_pos[:nk * kv_rows].reshape(nk, kv_rows)
+    full = ((ks[None, :, 0] >= 0) & (ks[None, :, 0] == ks[None, :, -1])
+            & (qs[:, :1] == ks[None, :, 0]) & (qs[:, -1:] == ks[None, :, 0]))
     wr = 0 if causal else int(window[1])
     if wr >= 0:
-        full = full & (kp[:, -1:] <= qr[None, :, 0] + wr)
+        full = full & (kp[None, :, -1] <= qr[:, :1] + wr)
     return full
+
+
+def _dkdv_full_blocks(meta, causal: bool, window=(-1, -1), *, softcap: float = 0.0,
+                      alibi: bool = False):
+    """``full [nkb, nqc]``: ``_full_blocks`` for the wgmma dK/dV consumer's
+    blocks of 64 KV rows (KV tile b) x 32 Q columns (32 c ..)."""
+    return _full_blocks(meta, 32, 64, causal, window, softcap=softcap, alibi=alibi).T
 
 
 def _interval_schedule(needed):
@@ -218,6 +233,20 @@ def _interval_schedule(needed):
     hi = hi.clamp_min(0)
     lo = torch.minimum(lo, hi)
     return lo, hi
+
+
+def _needed_tiles(needed):
+    """(tiles [nqb, nkb], count [nqb], order [nqb]), int32 on ``needed``'s
+    device, no host sync: row i of ``tiles`` lists the columns
+    ``needed[i]`` marks, rising, then ``nkb`` past them; ``count[i]`` is how
+    many it marks; ``order`` lists the rows by count, largest first (a
+    stable sort). A row that marks none walks nothing."""
+    nkb = needed.shape[1]
+    ids = torch.arange(nkb, dtype=torch.int32, device=needed.device)
+    tiles = torch.sort(torch.where(needed, ids[None, :], nkb), dim=1).values
+    count = needed.sum(dim=1, dtype=torch.int32)
+    order = torch.argsort(count, descending=True, stable=True).to(torch.int32)
+    return tiles.to(torch.int32).contiguous(), count, order
 
 
 def _call_metadata(cu_q, cu_k, tq: int, tk: int, device):
@@ -271,34 +300,88 @@ def _varlen_forward_plain(q, k, v, meta, *, scale, causal, softcap=0.0,
     return o.transpose(0, 1).to(q.dtype), lse
 
 
-_VARLEN_ARGTYPES = (
-    [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 6 + [ctypes.c_void_p] * 9
-    + [ctypes.c_int] * 9 + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-)
+_VARLEN_ARGTYPES = {
+    "ffpa_varlen_fwd": [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 6 + [ctypes.c_void_p] * 12
+    + [ctypes.c_int] * 10 + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+    "ffpa_varlen_fwd_plan": [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                             ctypes.c_int],
+    "ffpa_varlen_fwd_attrs": [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2,
+}
+
+# The forward kernels of both routes, by the substrings of their names (what
+# a profiler filter matches).
+FWD_KERNELS = ("varlen_fwd_kernel", "varlen_fwd_wgmma_kernel")
 
 
 def _varlen_lib() -> ctypes.CDLL:
     lib = _build.load("varlen_fwd")
-    if lib.ffpa_varlen_fwd.argtypes is None:
-        lib.ffpa_varlen_fwd.argtypes = _VARLEN_ARGTYPES
-        lib.ffpa_varlen_fwd.restype = ctypes.c_int
+    for name, argtypes in _VARLEN_ARGTYPES.items():
+        fn = getattr(lib, name, None)  # None: a library built from older sources
+        if fn is not None and fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib
+
+
+def varlen_fwd_kernel_plan(d: int, dv: int) -> FwdPlan:
+    """The route and tiling the varlen forward launcher takes at head dims
+    (d, dv) (padded to 64-column chunks), read from the library: what
+    ``config.varlen_fwd_plan`` mirrors. Needs a card."""
+    lib = _varlen_lib()
+    out = (ctypes.c_int * 16)()
+    err = lib.ffpa_varlen_fwd_plan(cdiv(d, D_CHUNK) * D_CHUNK, cdiv(dv, D_CHUNK) * D_CHUNK, out,
+                                   len(out))
+    _build.check(lib, err, "varlen forward kernel plan")
+    blocks = tuple((out[6 + 2 * i], out[7 + 2 * i]) for i in range(out[5]))
+    return FwdPlan("wgmma" if out[0] == 1 else "mma_sync", out[1], out[2], out[3], out[4], blocks)
+
+
+def varlen_fwd_kernel_attrs(route: str, dtype=torch.bfloat16, block_q: int = 64) -> dict:
+    """Registers a thread (at launch, before setmaxnreg) and local (spill)
+    bytes of the varlen forward kernel of ``route`` ("wgmma", or
+    "mma_sync" at row tile ``block_q``), from cudaFuncGetAttributes. Needs a
+    card."""
+    lib = _varlen_lib()
+    regs, local = ctypes.c_int(0), ctypes.c_int(0)
+    err = lib.ffpa_varlen_fwd_attrs(int(route == "wgmma"), int(dtype == torch.float16), block_q,
+                                    ctypes.byref(regs), ctypes.byref(local))
+    _build.check(lib, err, "varlen forward kernel attributes")
+    return {"registers": regs.value, "local_bytes": local.value}
 
 
 def _strided_rows(x: torch.Tensor, width: int) -> torch.Tensor:
     """``x`` [T, H, width'] padded to ``width`` columns, with a unit last
-    stride and 16-byte aligned row and head strides (what cp.async needs);
-    a copy only where ``x`` is not already so."""
+    stride and 16-byte aligned base, row and head strides (what cp.async
+    and TMA need); a copy only where ``x`` is not already so."""
     x = _pad_last(x, width)
     ok = (x.stride(2) == 1 and x.stride(0) % 8 == 0 and x.stride(1) % 8 == 0
           and x.data_ptr() % 16 == 0)
     return x if ok else x.contiguous()
 
 
-def _varlen_kernel(q, k, v, meta, intervals, config: BlockConfig, *, scale, causal,
-                   softcap, window, alibi):
+def _varlen_fwd_tiles(meta, tq: int, d_pad: int, dv_pad: int, config: BlockConfig, causal: bool,
+                      window):
+    """(plan, rows, meta, schedule) of a forward launch, on the metadata's
+    device with no host sync: the route by head dims (``varlen_fwd_plan``),
+    its Q rows (the plan's 64 on wgmma whatever ``config.block_q`` asks,
+    ``config.block_q`` on mma.sync), the metadata cut to those rows' tiles,
+    and the schedule at those tiles and KV_TILE keys: on wgmma
+    ``_needed_tiles`` of ``_tile_needed`` (each Q tile's needed KV tiles,
+    their count, the Q tiles most needed first), on mma.sync
+    ``_interval_schedule``'s (jmin, jmax). ``window`` is normalized."""
+    plan = varlen_fwd_plan(d_pad, dv_pad)
+    rows = plan.q_rows if plan.route == "wgmma" else config.block_q
+    meta = _q_tiles(meta, tq, rows)
+    needed = _tile_needed(*meta, rows, KV_TILE, causal, int(window[0]), int(window[1]))
+    schedule = _needed_tiles(needed) if plan.route == "wgmma" else _interval_schedule(needed)
+    return plan, rows, meta, schedule
+
+
+def _varlen_kernel(q, k, v, meta, schedule, config: BlockConfig, plan: FwdPlan, *, scale,
+                   causal, softcap, window, alibi):
     """Launch ``csrc/varlen_fwd.cu`` (same contract as
-    ``_varlen_forward_plain``)."""
+    ``_varlen_forward_plain``) on the route ``plan`` names, with the
+    metadata and schedule of ``_varlen_fwd_tiles``."""
     check_kernel_inputs("_varlen_forward", q, k, v)
     tq, hq, d = q.shape
     tk, hkv, _ = k.shape
@@ -307,28 +390,37 @@ def _varlen_kernel(q, k, v, meta, intervals, config: BlockConfig, *, scale, caus
     q_, k_, v_ = _strided_rows(q, d_pad), _strided_rows(k, d_pad), _strided_rows(v, dv_pad)
     o = torch.empty((tq, hq, dv_pad), dtype=q.dtype, device=q.device)
     lse = torch.empty((hq, tq), dtype=torch.float32, device=q.device)
-    jmin, jmax = intervals
+    if plan.route == "wgmma":
+        (tiles, ntile, order), jmin, jmax = schedule, None, None
+        num_q_tiles = tiles.shape[0]
+    else:
+        (jmin, jmax), tiles, ntile, order = schedule, None, None, None
+        num_q_tiles = jmin.shape[0]
     alibi_ptr = None
     if alibi is not None:
         alibi = alibi.to(device=q.device, dtype=torch.float32).contiguous()
         alibi_ptr = alibi.data_ptr()
     q_seg, q_rank, k_seg, k_pos = meta
+    rows = plan.q_rows if plan.route == "wgmma" else config.block_q
     if ENV.device_log_level() >= 2:
         logger.info(
-            "varlen_fwd launch grid=(%d,%d) block_q=%d smem=%d D=%d Dv=%d Tq=%d Tk=%d",
-            hq, jmin.shape[0], config.block_q,
-            varlen_smem_bytes(config, d_pad, dv_pad, q.element_size()), d_pad, dv_pad, tq, tk,
+            "varlen_fwd launch route=%s grid=(%d,%d) rows=%d smem=%d D=%d Dv=%d Tq=%d Tk=%d",
+            plan.route, hq, num_q_tiles, rows, plan.smem_bytes, d_pad, dv_pad, tq, tk,
         )
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     lib = _varlen_lib()
     with torch.cuda.device(q.device):
         err = lib.ffpa_varlen_fwd(
             q_.data_ptr(), k_.data_ptr(), v_.data_ptr(),
             q_.stride(0), q_.stride(1), k_.stride(0), k_.stride(1), v_.stride(0), v_.stride(1),
             o.data_ptr(), lse.data_ptr(), q_seg.data_ptr(), q_rank.data_ptr(),
-            k_seg.data_ptr(), k_pos.data_ptr(), jmin.data_ptr(), jmax.data_ptr(), alibi_ptr,
-            int(q.dtype == torch.float16), config.block_q, hq, hkv, tq, tk, jmin.shape[0],
-            d_pad, dv_pad, float(scale), float(softcap), int(window[0]),
-            0 if causal else int(window[1]),  # causal is the band's right edge 0
+            k_seg.data_ptr(), k_pos.data_ptr(), ptr(jmin), ptr(jmax), ptr(tiles), ptr(ntile),
+            ptr(order), alibi_ptr, int(q.dtype == torch.float16), config.block_q, hq, hkv, tq, tk,
+            num_q_tiles, k_seg.shape[0] // KV_TILE, d_pad, dv_pad, float(scale), float(softcap),
+            int(window[0]), 0 if causal else int(window[1]),  # causal is the band's right edge 0
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(lib, err, "varlen_fwd kernel launch")
@@ -341,27 +433,23 @@ def _varlen_forward(q, k, v, cu_q, cu_k, *, scale, causal, config: Optional[Bloc
     """Packed varlen forward: (o [Tq, Hq, Dv], lse [Hq, Tq] fp32).
 
     ``meta`` is the call's ``_call_metadata`` (computed here when not
-    given). The tile intervals are computed at the kernel's tiles
-    (``config.block_q`` query rows, KV_TILE keys) on the inputs' device. CPU
-    tensors run the plain version; CUDA tensors launch the kernel, or raise
-    for what it does not take."""
+    given). The schedule is computed at the route's tiles on the inputs'
+    device (``_varlen_fwd_tiles``). CPU tensors run the plain version;
+    CUDA tensors launch the kernel, or raise for what it does not take."""
     from .dispatch import pick_varlen_config
 
     tq, _, d = q.shape
+    d_pad, dv_pad = cdiv(d, D_CHUNK) * D_CHUNK, cdiv(v.shape[-1], D_CHUNK) * D_CHUNK
     if config is None:
-        config = pick_varlen_config(d=cdiv(d, D_CHUNK) * D_CHUNK,
-                                    dv=cdiv(v.shape[-1], D_CHUNK) * D_CHUNK, tq=tq,
-                                    dtype=q.dtype)
+        config = pick_varlen_config(d=d_pad, dv=dv_pad, tq=tq, dtype=q.dtype)
     if meta is None:
         meta = _call_metadata(cu_q, cu_k, tq, k.shape[0], q.device)
     window = (int(window[0]), -1 if causal else int(window[1]))
     if q.device.type == "cpu":
         return _varlen_forward_plain(q, k, v, meta, scale=scale, causal=causal, softcap=softcap,
                                      window=window, alibi=alibi)
-    meta = _q_tiles(meta, tq, config.block_q)
-    needed = _tile_needed(*meta, config.block_q, KV_TILE, causal, window[0], window[1])
-    intervals = _interval_schedule(needed)
-    return _varlen_kernel(q, k, v, meta, intervals, config, scale=scale, causal=causal,
+    plan, _, meta, schedule = _varlen_fwd_tiles(meta, tq, d_pad, dv_pad, config, causal, window)
+    return _varlen_kernel(q, k, v, meta, schedule, config, plan, scale=scale, causal=causal,
                           softcap=softcap, window=window, alibi=alibi)
 
 

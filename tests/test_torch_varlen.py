@@ -25,6 +25,8 @@ from _torch_parity import (  # noqa: F401
 )
 from ffpa_attn_tpu_torch import ffpa_attn_varlen_func
 from ffpa_attn_tpu_torch.ops import varlen as tvar
+from ffpa_attn_tpu_torch.ops.config import BlockConfig
+from ffpa_attn_tpu_torch.ops.reference import DEFAULT_MASK_VALUE
 
 BF16_TOL = 2e-2
 F16_TOL = 1e-2
@@ -260,7 +262,95 @@ CARD_CASES = {
     "d1024": dict(seqs=[40, 72, 16], causal=True, d=1024),
     "mha_long": dict(seqs=[300, 17, 500], hq=4, hkv=4, causal=True),
     "tile_straddles_three_segments": dict(seqs=[20, 9, 50, 3], causal=True),
+    # Keys fewer than queries, tail-aligned: the first 120 rows keep no key,
+    # so the first 64-row Q tile needs no KV tile at all.
+    "cross_causal_empty_rows": dict(seqs=[150, 40], seqs_k=[30, 40], causal=True),
 }
+
+
+def _kernel_walk(q, k, v, meta, schedule, *, scale, causal, softcap=0.0, window=(-1, -1),
+                 alibi=None):
+    """The wgmma forward kernel's walk in plain fp32 PyTorch: the 64-row Q
+    tiles in the schedule's order, each an online softmax over only its
+    listed KV tiles with m started at MASK_VALUE, P rounded to the input
+    type for P V; a 64 x 32 block that ``_full_blocks`` marks full skips
+    the keep-mask. ``window`` is normalized. (o, lse) as
+    ``_varlen_forward_plain`` returns them."""
+    tiles, count, order = schedule
+    tq, hq, d = q.shape
+    hkv, dv = k.shape[1], v.shape[-1]
+    q_seg, q_rank, k_seg, k_pos = meta
+    nqb, tk_pad = tiles.shape[0], k_seg.shape[0]
+    mask = torch.tensor(DEFAULT_MASK_VALUE, dtype=torch.float32)
+    qf = torch.zeros((hq, nqb * 64, d))
+    qf[:, :tq] = q.transpose(0, 1).float()
+    kf, vf = torch.zeros((hkv, tk_pad, d)), torch.zeros((hkv, tk_pad, dv))
+    kf[:, :k.shape[0]], vf[:, :k.shape[0]] = k.transpose(0, 1).float(), v.transpose(0, 1).float()
+    kf, vf = kf.repeat_interleave(hq // hkv, 0), vf.repeat_interleave(hq // hkv, 0)
+    full = tvar._full_blocks(meta, 64, 32, causal, window, softcap=softcap,
+                             alibi=alibi is not None)
+    o, lse = torch.zeros((hq, nqb * 64, dv)), torch.zeros((hq, nqb * 64))
+    for i in order.tolist():
+        r = slice(64 * i, 64 * i + 64)
+        m, l, acc = mask.expand(hq, 64, 1).clone(), torch.zeros((hq, 64, 1)), torch.zeros(
+            (hq, 64, dv))
+        for j in tiles[i, :int(count[i])].tolist():
+            c = slice(64 * j, 64 * j + 64)
+            s = torch.einsum("hqd,hkd->hqk", qf[:, r], kf[:, c]) * scale
+            if softcap > 0.0:
+                s = softcap * torch.tanh(s / softcap)
+            if alibi is not None:
+                s = s - alibi.float()[:, None, None] * (
+                    q_rank[r, None] - k_pos[None, c]).abs().float()
+            keep = tvar._varlen_mask(q_seg[r, None], q_rank[r, None], k_seg[None, c],
+                                     k_pos[None, c], causal, window[0], window[1])
+            keep = keep | full[i, 2 * j:2 * j + 2].repeat_interleave(32)[None, :]
+            s = torch.where(keep, s, mask)
+            mn = torch.maximum(m, s.amax(-1, keepdim=True))
+            p = torch.where(keep, torch.exp(s - mn), 0.0)
+            alpha = torch.exp(m - mn)
+            l = alpha * l + p.sum(-1, keepdim=True)
+            acc = alpha * acc + torch.einsum("hqk,hkd->hqd", p.to(q.dtype).float(), vf[:, c])
+            m = mn
+        o[:, r] = acc / torch.where(l == 0.0, 1.0, l)
+        lse[:, r] = (m + torch.log(l.clamp_min(1e-38)))[..., 0]
+    assert sorted(order.tolist()) == list(range(nqb))
+    return o[:, :tq].transpose(0, 1).to(q.dtype), lse[:, :tq]
+
+
+@pytest.mark.parametrize("name", sorted(CARD_CASES))
+def test_kernel_walk_matches_plain(name):
+    """The wgmma route's schedule (only the needed KV tiles, the Q tiles
+    most needed first) and its full-block fast path compute the plain
+    version's function: o per row at the bf16 tolerance (the walk rounds P
+    to bf16 as the kernel does), lse of the rows that keep a key at 1e-4,
+    and every row that keeps none (a Q tile with no KV tile among them)
+    exactly MASK_VALUE + log(1e-38), as the plain version gives."""
+    case = CARD_CASES[name]
+    x = _inputs(case, seed=7)
+    q, k, v = (to_torch(x[n], "bfloat16") for n in ("q", "k", "v"))
+    tq, tk = q.shape[0], k.shape[0]
+    causal = case.get("causal", False)
+    window = case.get("window", (-1, -1))
+    window = (window[0], -1 if causal else window[1])
+    kw = dict(scale=q.shape[-1] ** -0.5, causal=causal, softcap=case.get("softcap", 0.0),
+              window=window, alibi=to_torch(x["alibi"]))
+    meta = tvar._call_metadata(*(torch.from_numpy(x[n]) for n in ("cu_q", "cu_k")), tq, tk, "cpu")
+    d_pad, dv_pad = -(-q.shape[-1] // 64) * 64, -(-v.shape[-1] // 64) * 64
+    cfg = BlockConfig(block_q=64)
+    plan, rows, cut, sched = tvar._varlen_fwd_tiles(meta, tq, min(d_pad, 512), min(dv_pad, 512),
+                                                   cfg, causal, window)
+    assert plan.route == "wgmma" and rows == 64
+    wo, wl = _kernel_walk(q, k, v, cut, sched, **kw)
+    po, pl = tvar._varlen_forward_plain(q, k, v, meta, **kw)
+    assert row_rel_err(wo, po) < BF16_TOL, name
+    empty = torch.tensor(DEFAULT_MASK_VALUE, dtype=torch.float32) + torch.log(
+        torch.tensor(1e-38, dtype=torch.float32))
+    live = pl > DEFAULT_MASK_VALUE / 2
+    np.testing.assert_allclose(wl[live].numpy(), pl[live].numpy(), atol=1e-4, rtol=1e-4)
+    assert bool((pl[~live] == empty).all()) and bool((wl[~live] == empty).all()), name
+    if name == "cross_causal_empty_rows":
+        assert int((~live).sum()) == 120 * q.shape[1] and int(sched[1].min()) == 0
 
 
 @pytest.mark.parametrize("name", sorted(CARD_CASES))

@@ -37,7 +37,16 @@ wrappers passed, ``LegacyBanded``):
   D512 the head library runs its wgmma route, a base built from older
   sources the mma.sync kernel;
 * varlen_fwd: the serving packing of continuous batching (prompts of 589,
-  698, 763 and 886 tokens, H8/4 D512 causal bf16);
+  698, 763 and 886 tokens, H8/4 D512 causal bf16), and varlen_fwd_train
+  (``--kernels varlen_fwd`` runs both) the packed-training packing (8
+  documents of 2048..284 tokens, 8192 in all); the kernel's device time
+  alone (either route's, ``varlen.FWD_KERNELS``: the wrapper's metadata
+  and schedule kernels are not counted), each held against
+  ``_varlen_forward_plain`` per row at the bf16 forward tolerance 2e-2,
+  and the names of the kernels each tree ran (``kernel_names``). A base
+  library without ``ffpa_varlen_fwd_plan`` (built from sources before the
+  wgmma route) is called with its own argument list and its intervals at
+  64-row Q tiles (``LegacyVarlenFwd``);
 * paged_decode and paged_decode_int8 (``--kernels paged_decode`` runs
   both): the serving step over bf16 and over int8 pools (B4, lens 64 tokens into generation, page 256), four layers'
   pools in turn, each held against ``_paged_decode_plain`` per row at the
@@ -110,15 +119,18 @@ SOURCE = {"flash_fwd": "flash_fwd", "flash_fwd_scores": "flash_fwd",
           "flash_fwd_train": "flash_fwd", "flash_fwd_train_scores": "flash_fwd",
           "decode": "decode", "decode_serving": "decode", "dkdv": "flash_bwd",
           "banded_dq": "flash_bwd", "dq": "flash_bwd", "from_s": "flash_bwd",
-          "banded_dk": "flash_bwd", "varlen_fwd": "varlen_fwd", "paged_decode": "paged_decode",
+          "banded_dk": "flash_bwd", "varlen_fwd": "varlen_fwd", "varlen_fwd_train": "varlen_fwd",
+          "paged_decode": "paged_decode",
           "paged_decode_int8": "paged_decode", "varlen_dkdv": "varlen_bwd",
           "varlen_dq": "varlen_bwd"}
 # kernel -> the substrings of its CUDA kernels' names (either route), where a
 # run also launches other kernels that are not timed
-ONLY = {"from_s": flash_bwd.FROM_S_KERNELS}
+ONLY = {"from_s": flash_bwd.FROM_S_KERNELS, "varlen_fwd": varlen.FWD_KERNELS,
+        "varlen_fwd_train": varlen.FWD_KERNELS}
 # kernels whose C entry point an older tree may lack
 ENTRY = {"from_s": "ffpa_bwd_dkdv_from_s", "banded_dk": "ffpa_bwd_banded_dk",
-         "varlen_fwd": "ffpa_varlen_fwd", "paged_decode": "ffpa_paged_decode",
+         "varlen_fwd": "ffpa_varlen_fwd", "varlen_fwd_train": "ffpa_varlen_fwd",
+         "paged_decode": "ffpa_paged_decode",
          "paged_decode_int8": "ffpa_paged_decode", "varlen_dkdv": "ffpa_varlen_bwd_dkdv",
          "varlen_dq": "ffpa_varlen_bwd_dq"}
 
@@ -243,10 +255,49 @@ class LegacyVarlenBwd:
         return call
 
 
+class LegacyVarlenFwd:
+    """A varlen_fwd library built from sources before the wgmma route: its
+    entry point takes no needed-tile list, counts or order (the three
+    arguments after jmax) and no KV tile count (the argument after the Q
+    tile count), and walks each ``block_q``-row Q tile's [jmin, jmax]. The
+    intervals at 64-row Q tiles of the packing of ``tq`` rows
+    (``SCHEDULE[tq]``, set by ``make_runs``) and that row tile are put in;
+    every other symbol is the library's own."""
+
+    SCHEDULE = {}  # tq -> (jmin, jmax) at 64 x 64
+    JMIN, JMAX, TILES, NTILE, ORDER, BLOCK_Q, TQ, NQT, NKVT = 15, 16, 17, 18, 19, 22, 25, 27, 28
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if name != "ffpa_varlen_fwd":
+            return fn
+        drop = (self.NKVT, self.ORDER, self.NTILE, self.TILES)  # descending
+        argtypes = list(varlen._VARLEN_ARGTYPES[name])
+        for i in drop:
+            del argtypes[i]
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+
+        def call(*args):
+            args = list(args)
+            jmin, jmax = self.SCHEDULE[args[self.TQ]]
+            args[self.JMIN], args[self.JMAX] = jmin.data_ptr(), jmax.data_ptr()
+            args[self.BLOCK_Q], args[self.NQT] = 64, jmin.shape[0]
+            for i in drop:
+                del args[i]
+            return fn(*args)
+
+        call.argtypes = argtypes
+        return call
+
+
 TOL = 5e-2  # bf16 gradients (tests/test_ffpa_bwd.py:19)
 # Per-kernel tolerances where a kernel is held to the forward's (per row).
 KERNEL_TOL = {"paged_decode": 2e-2, "paged_decode_int8": 2e-2, "decode": 2e-2,
-              "decode_serving": 2e-2}
+              "decode_serving": 2e-2, "varlen_fwd": 2e-2, "varlen_fwd_train": 2e-2}
 # The forward's outputs: O per row (bf16, tests/test_features.py:127), lse
 # relative to max|lse| (fp32 math on both sides), S per row on the band.
 FWD_TOL = {"o": 2e-2, "lse": 1e-4, "s": 1e-2}
@@ -430,6 +481,10 @@ def make_runs(gen) -> tuple:
         meta, bt, bcfg.block_q_dq, True, (-1, -1), (128, 32))[0][:2]
     bkw = dict(scale=scale, causal=True, softcap=0.0, window=(-1, -1))
     del bo
+    vmeta = varlen._call_metadata(cu, cu, tot, tot, "cuda")
+    for t_, m_ in ((tot, vmeta), (bt, meta)):  # a base library's intervals at 64 rows
+        needed = varlen._tile_needed(*varlen._q_tiles(m_, t_, 64), 64, 64, True)
+        LegacyVarlenFwd.SCHEDULE[t_] = varlen._interval_schedule(needed)
 
     def reset():
         turn[0] = 0
@@ -463,6 +518,8 @@ def make_runs(gen) -> tuple:
         "banded_dk": run_banded_dk,
         "varlen_fwd": lambda: varlen._varlen_forward(vq, vk, vv, cu, cu, scale=scale,
                                                      causal=True)[0],
+        "varlen_fwd_train": lambda: varlen._varlen_forward(bq, bk, bv, bcu, bcu, scale=scale,
+                                                           causal=True)[0],
         "paged_decode": lambda: run_paged(False),
         "paged_decode_int8": lambda: run_paged(True),
         "varlen_dkdv": lambda: varlen._varlen_dkdv_kernel(ops, meta, sched[0], bcfg, **bkw),
@@ -492,6 +549,10 @@ def make_runs(gen) -> tuple:
         "varlen_dkdv": lambda: varlen._varlen_dkdv_plain(bq, bk, bv, bdo, blse, bdelta, meta,
                                                          **bkw),
         "varlen_dq": lambda: varlen._varlen_dq_plain(bq, bk, bv, bdo, blse, bdelta, meta, **bkw),
+        "varlen_fwd": lambda: varlen._varlen_forward_plain(vq, vk, vv, vmeta, scale=scale,
+                                                           causal=True)[0],
+        "varlen_fwd_train": lambda: varlen._varlen_forward_plain(bq, bk, bv, meta, scale=scale,
+                                                                 causal=True)[0],
     })
     return runs, reset, plains
 
@@ -510,6 +571,8 @@ def main() -> int:
         kernels.append("paged_decode_int8")  # paged decode is timed over both pool types
     if "decode" in kernels and "decode_serving" not in kernels:
         kernels.append("decode_serving")  # decode is timed at both steps
+    if "varlen_fwd" in kernels and "varlen_fwd_train" not in kernels:
+        kernels.append("varlen_fwd_train")  # the varlen forward at both packings
 
     wanted = {SOURCE[k] for k in kernels}
     trees = {
@@ -525,6 +588,9 @@ def main() -> int:
     base_varlen = trees["base"].get("varlen_bwd")
     if base_varlen is not None and not hasattr(base_varlen, "ffpa_varlen_bwd_dkdv_plan"):
         trees["base"]["varlen_bwd"] = LegacyVarlenBwd(base_varlen)
+    base_fwd = trees["base"].get("varlen_fwd")
+    if base_fwd is not None and not hasattr(base_fwd, "ffpa_varlen_fwd_plan"):
+        trees["base"]["varlen_fwd"] = LegacyVarlenFwd(base_fwd)
     runs, reset, plains = make_runs(torch.Generator(device="cuda").manual_seed(0))
 
     tma_splits, decode_splits = paged._tma_splits, decode._tma_splits
@@ -540,6 +606,7 @@ def main() -> int:
     events = {tag: {k: [] for k in kernels} for tag in trees}
     enqueue = {tag: {k: [] for k in kernels if k.startswith("decode")} for tag in trees}
     vs_plain = {tag: {k: [] for k in kernels if k in plains} for tag in trees}
+    names = {tag: {} for tag in trees}  # the kernels of ONLY's filters each tree ran
     outs = {}
     for tag in ("base", "head", "head", "base"):
         use(tag)
@@ -558,6 +625,7 @@ def main() -> int:
                     raise RuntimeError(f"no kernel named like {ONLY[k]} ran for {k}; the "
                                        f"profiler saw {sorted(w)}")
                 times[tag][k].append(sum(hits) / reps)
+                names[tag][k] = sorted(n[:80] for n in w if any(o in n for o in ONLY[k]))
             else:
                 times[tag][k].append(device_ms(runs[k], reps=reps))
             reset()
@@ -587,7 +655,7 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(json.dumps({"card": smi, "order": "base head head base", "device_ms": times,
-                      "event_ms": events, "host_us": enqueue,
+                      "event_ms": events, "host_us": enqueue, "kernel_names": names,
                       "max_abs_diff_head_vs_base": diff, "row_rel_err_vs_plain": vs_plain,
                       "tol": TOL, "fwd_tol": FWD_TOL, "kernel_tol": KERNEL_TOL}))
 

@@ -7,9 +7,13 @@ Run from the repository root (no card needed):
 For causal self-attention over prompts of the given lengths, prints the
 forward's schedule: each Q tile's [jmin, jmax] interval of 64-key tiles
 (``ops/varlen.py`` ``_tile_needed`` and ``_interval_schedule``, the JAX
-package's schedule, at the kernel's tiles), the KV tiles the kernel walks,
-the tiles that ``_tile_needed`` marks needed inside those intervals, and the
-(row, col) pairs each covers against the causal band's pairs. Then the
+package's schedule, at ``--block-q`` rows), the KV tiles the mma.sync
+kernel (D or Dv > 512) walks there, the tiles that ``_tile_needed`` marks
+needed inside those intervals, and the (row, col) pairs each covers against
+the causal band's pairs; then the wgmma kernel's walk (D, Dv <= 512: only
+the needed tiles at 64 x 64, ``_needed_tiles``), its tiles per Q tile and
+the 64 x 32 consumer blocks its full-block test (``_full_blocks`` at 64 x 32) lets
+skip the mask. Then the
 backward's (``_varlen_bwd_schedules``): the pairs the dK/dV kernel walks at
 each route's tiles (each KV tile's [imin, imax] of Q tiles: 64 x 64 on the
 wgmma route, D and Dv <= 512; 128 x 32 on mma.sync), with, at 64 x 64, the
@@ -81,6 +85,26 @@ def main() -> int:
                                tiles_full=int((full & walk).sum()),
                                consumer_blocks_full=int(
                                    (halves & walk.repeat_interleave(2, dim=1)).sum()))
+    # The wgmma forward's walk: only the needed tiles at 64 x 64.
+    wmeta = varlen._q_tiles(meta, t, 64)
+    wneed = varlen._tile_needed(*wmeta, 64, KV_TILE, True)
+    wlo, whi = varlen._interval_schedule(wneed)
+    tiles, count, _ = varlen._needed_tiles(wneed)
+    halves = varlen._full_blocks(wmeta, 64, 32, True)  # [Q tile, 32-column block]
+    walked_halves = torch.zeros_like(halves)
+    for i in range(tiles.shape[0]):
+        for j in tiles[i, :int(count[i])].tolist():
+            walked_halves[i, 2 * j:2 * j + 2] = True
+    fwd_wgmma = {
+        "tiles": f"64x{KV_TILE}", "q_tiles": int(count.shape[0]),
+        "interval_tiles": _walked(wlo, whi), "kv_tiles_walked": int(count.sum()),
+        "walked_over_band": int(count.sum()) * 64 * KV_TILE / band,
+        "interval_over_band": _walked(wlo, whi) * 64 * KV_TILE / band,
+        "kv_tiles_per_q_tile": {"min": int(count.min()), "max": int(count.max()),
+                                "mean": float(count.float().mean())},
+        "consumer_blocks_walked": int(walked_halves.sum()),
+        "consumer_blocks_full": int((halves & walked_halves).sum()),
+    }
     dq_pairs = _walked(jmin, jmax) * bq * KV_TILE
     print(json.dumps({
         "lens": lens, "block_q": bq, "kv_tile": KV_TILE, "q_tiles": len(lo),
@@ -91,6 +115,7 @@ def main() -> int:
         "band_pairs_per_head": band,
         "walked_over_band": walked * bq * KV_TILE / band,
         "needed_over_band": inside * bq * KV_TILE / band,
+        "fwd_wgmma": fwd_wgmma,
         "dkdv": dkdv,
         "dq_tiles": f"{bq}x{KV_TILE}",
         "dq_pairs_walked_per_head": dq_pairs,
