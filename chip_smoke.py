@@ -17,9 +17,13 @@ It imports only ``ffpa_attn_tpu_torch``, torch and numpy, and runs, in order:
    storage), banded dQ, the from-S dK/dV pass in both
    variants and banded dK (a slab NaN outside the band among them), the
    packed varlen forward, the varlen dK/dV and dQ kernels (bf16 and fp16
-   feature cases) and paged decode (bf16 and int8 pools, both routes: TMA
-   over pages of 16..256 rows, 64 packed rows, windows, lengths on tile
-   edges; cp.async over a page of 24 rows);
+   feature cases, both routes of each) and paged decode (bf16 and int8
+   pools, both routes: TMA over pages of 16..256 rows, 64 packed rows,
+   windows, lengths on tile edges; cp.async over a page of 24 rows); a row
+   that a bias masks everywhere under a window, for the forward and for
+   decode, is logged against the mean of V over the columns each side
+   visits (the plain version every column, the kernels the window's
+   tiles), not held;
 4. serving path: greedy ``generate`` of the L4 dm1024 H8/4 Dh512 vocab-32000
    bf16 model (random weights from numpy seed 0) on a 4096-token prompt, 32
    tokens, with the kernel launch counts read around that run; first-step
@@ -46,8 +50,9 @@ It imports only ``ffpa_attn_tpu_torch``, torch and numpy, and runs, in order:
    op level: ``ffpa_attn_varlen_func`` under autograd over 8 documents
    packed into 8192 tokens (H8/4 D512 causal, bf16 and fp16; then the
    gpt_oss_like window and sinks), 1 varlen-forward, 1 varlen-dK/dV and 1
-   varlen-dQ launch per call, its gradients against the plain chain and
-   the per-segment dense path, and its forward + backward times;
+   varlen-dQ launch per call (the backward on the forward's saved tile
+   schedule), its gradients against the plain chain and the per-segment
+   dense path, and its forward + backward times;
 6. times: device time by kernel and the device's busy share over one
    prefill, decode steps, one packed prefill, paged decode steps, one
    training step of each tier and one packed forward + backward, then each
@@ -57,10 +62,12 @@ It imports only ``ffpa_attn_tpu_torch``, torch and numpy, and runs, in order:
    torch.profiler, CUDA-event time beside it); the forward's time a launch
    at the training shape from the handoff step's profile, and timed alone
    there without and with the S residual beside its bound and SDPA; the
-   forward's, the dK/dV route's, the dQ route's, decode's and paged
-   decode's plans held equal to their mirrors, their registers and spill
-   bytes, and ptxas's log of flash_fwd.cu, flash_bwd.cu, decode.cu,
-   paged_decode.cu and varlen_bwd.cu free of wgmma serialization notes;
+   forward's, the dK/dV route's, the dQ route's, decode's, paged decode's
+   and the varlen kernels' plans held equal to their mirrors, their
+   registers and spill bytes, and ptxas's log of flash_fwd.cu,
+   flash_bwd.cu, decode.cu, paged_decode.cu, varlen_fwd.cu and
+   varlen_bwd.cu free of wgmma serialization notes; the packed call's
+   device and CUDA-event ms;
    decode's walk and merge timed apart beside the wrapper's total, at the
    generate step and at the serving step; paged decode's likewise, over
    bf16 and int8 pools; each backward
@@ -203,10 +210,36 @@ def _randn(shape, dtype, gen, scale=1.0):
     return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
 
 
+def _masked_row(label: str, o, po, v, spans: dict) -> dict:
+    """A row masked everywhere (o, po [B, Hq, Dv] of the kernel and the
+    plain version; v [B, Hkv, Nkv, Dv]): every score of it is MASK_VALUE,
+    so its softmax is uniform over the columns a pass visits. The plain
+    version visits all (the mean of V over every column); a kernel that
+    walks only the window's tiles gives the mean over those. Logs the
+    kernel's per-row error against the plain version and against the mean
+    over each column span of ``spans`` (name -> [lo, hi)) and returns them;
+    the outcome is recorded, not held (ROADMAP.md, deliberate numerics
+    differences)."""
+    group = o.shape[1] // v.shape[1]
+    errs = {"plain": row_rel(o, po)}
+    for span, (lo, hi) in spans.items():
+        mean = v[:, :, lo:hi].float().mean(dim=2).repeat_interleave(group, dim=1)
+        errs[span] = row_rel(o, mean)
+    closest = min(errs, key=errs.get)
+    log(f"    {label}: masked everywhere, finite {bool(torch.isfinite(o).all())}; kernel's row "
+        f"against the mean of V over " + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+        + f" (closest: {closest})")
+    return errs
+
+
 def _fwd_case(name, *, b=1, hq=8, hkv=4, nq, nkv, d=512, dv=None, dtype=torch.bfloat16,
               causal=True, bias=False, softcap=0.0, window=(-1, -1), alibi=False, dropout=0.0,
-              seed=0):
+              masked_row=None, seed=0):
+    """The forward kernel against its plain version per row. ``masked_row``:
+    a bias of MASK_VALUE over every column of that row (0 elsewhere), whose
+    outcome is logged (``_masked_row``) and every other row held."""
     from ffpa_attn_tpu_torch.ops import flash_fwd
+    from ffpa_attn_tpu_torch.ops.reference import DEFAULT_MASK_VALUE
 
     dv = d if dv is None else dv
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -216,20 +249,39 @@ def _fwd_case(name, *, b=1, hq=8, hkv=4, nq, nkv, d=512, dv=None, dtype=torch.bf
     kw = dict(scale=1.0 / math.sqrt(d), is_causal=causal, softcap=softcap, window=window,
               dropout_p=dropout, dropout_seed=seed)
     bias_t = _randn((b, 1, nq, nkv), torch.float32, gen) if bias else None
+    if masked_row is not None:
+        bias_t = torch.zeros((b, 1, nq, nkv), device="cuda")
+        bias_t[..., masked_row, :] = DEFAULT_MASK_VALUE
     if alibi:
         kw["alibi_slopes"] = torch.rand((b, hq), generator=gen, device="cuda") * 0.1
     o, lse = flash_fwd.flash_attention_forward(q, k, v, bias_t, **kw)
     torch.cuda.synchronize()
     po, plse = flash_fwd.flash_attention_forward_plain(q, k, v, bias_t, **kw)
+    rows = torch.ones(nq, dtype=torch.bool, device="cuda")
+    if masked_row is not None:
+        rows[masked_row] = False
     tol = F16_TOL if dtype == torch.float16 else BF16_TOL
-    err, lerr = row_rel(o, po), rel(lse, plse)
+    err, lerr = row_rel(o[:, :, rows], po[:, :, rows]), rel(lse[:, :, rows], plse[:, :, rows])
     ok = err < tol and lerr < LSE_TOL and bool(torch.isfinite(o).all())
     log(f"  fwd {name:<22} {flash_fwd.fwd_kernel_plan(d, dv).route:<8} row_rel_err {err:.2e} (tol {tol:g}) "
-        f"rel_err {rel(o, po):.2e} "
+        f"rel_err {rel(o[:, :, rows], po[:, :, rows]):.2e} "
         f"lse_rel_err {lerr:.2e} (tol {LSE_TOL:g}) max_abs_err {max_abs(o, po):.3e} "
-        f"{'ok' if ok else 'FAIL'}")
+        f"{'ok' if ok else 'FAIL'}"
+        + (f" (rows but {masked_row})" if masked_row is not None else ""))
     if not ok:
         fail(f"forward kernel disagrees with its plain version: {name}")
+    if masked_row is not None:
+        # The row's own window, and the 64-column tiles the band of its
+        # 64-row block touches (the wgmma route's walk).
+        off, wl = nkv - nq, window[0]
+        wr = 0 if causal else window[1]
+        r0 = masked_row // 64 * 64
+        lo = max(0, masked_row + off - wl) if wl >= 0 else 0
+        hi = min(nkv, masked_row + off + wr + 1) if wr >= 0 else nkv
+        t_lo = max(0, r0 + off - wl) // 64 * 64 if wl >= 0 else 0
+        t_hi = min(nkv, (r0 + 63 + off + wr) // 64 * 64 + 64) if wr >= 0 else nkv
+        _masked_row(f"fwd {name} row {masked_row}", o[:, :, masked_row], po[:, :, masked_row],
+                    v, {"the row's window": (lo, hi), "its block's band tiles": (t_lo, t_hi)})
     return max_abs(o, po)
 
 
@@ -244,7 +296,11 @@ def _serve_gap_bias(nkv: int, lens, t: int):
 
 def _decode_case(name, *, b=1, hkv=4, group=2, nq=1, nkv=MAX_LEN, d=512, dv=None,
                  dtype=torch.bfloat16, valid=PROMPT + 1, bias=None, causal=False, softcap=0.0,
-                 window=(-1, -1), seed=0):
+                 window=(-1, -1), masked_batch=None, seed=0):
+    """The decode kernel against its plain version per row.
+    ``masked_batch``: a bias of MASK_VALUE over every column of that batch
+    element's rows (0 elsewhere), whose outcome is logged (``_masked_row``)
+    and every other row held."""
     from ffpa_attn_tpu_torch.ops import decode
     from ffpa_attn_tpu_torch.ops.config import decode_plan
     from ffpa_attn_tpu_torch.ops.reference import DEFAULT_MASK_VALUE
@@ -255,7 +311,10 @@ def _decode_case(name, *, b=1, hkv=4, group=2, nq=1, nkv=MAX_LEN, d=512, dv=None
     q = _randn((b, hq, nq, d), dtype, gen)
     k = _randn((b, hkv, nkv, d), dtype, gen)
     v = _randn((b, hkv, nkv, dv), dtype, gen)
-    if bias is None and valid is not None:
+    if masked_batch is not None:
+        bias = torch.zeros((b, 1, 1, nkv), device="cuda")
+        bias[masked_batch] = DEFAULT_MASK_VALUE
+    elif bias is None and valid is not None:
         cols = torch.arange(nkv, device="cuda")
         bias = torch.where(cols < valid, 0.0, DEFAULT_MASK_VALUE).float()[None, None, None]
     kw = dict(scale=1.0 / math.sqrt(d), is_causal=causal, softcap=softcap, window=window)
@@ -266,16 +325,28 @@ def _decode_case(name, *, b=1, hkv=4, group=2, nq=1, nkv=MAX_LEN, d=512, dv=None
                                     softcap=softcap, window_left=window[0],
                                     window_right=window[1])
     po, plse = po.reshape(o.shape), plse.reshape(lse.shape)
+    held = torch.ones(b, dtype=torch.bool, device="cuda")
+    if masked_batch is not None:
+        held[masked_batch] = False
     tol = F16_TOL if dtype == torch.float16 else BF16_TOL
-    err, lerr = row_rel(o, po), rel(lse, plse)
+    err, lerr = row_rel(o[held], po[held]), rel(lse[held], plse[held])
     ok = err < tol and lerr < LSE_TOL and bool(torch.isfinite(o).all())
     route = decode_plan(d, dv, group * nq).route
     log(f"  decode {name:<19} {route:<8} row_rel_err {err:.2e} (tol {tol:g}) rel_err "
-        f"{rel(o, po):.2e} "
+        f"{rel(o[held], po[held]):.2e} "
         f"lse_rel_err {lerr:.2e} (tol {LSE_TOL:g}) max_abs_err {max_abs(o, po):.3e} "
-        f"{'ok' if ok else 'FAIL'}")
+        f"{'ok' if ok else 'FAIL'}"
+        + (f" (batch elements but {masked_batch})" if masked_batch is not None else ""))
     if not ok:
         fail(f"decode kernel disagrees with its plain version: {name}")
+    if masked_batch is not None:
+        # The last query row's window (causal, tail-aligned), and the
+        # 64-row tiles that window touches (the TMA route's band).
+        wl = window[0]
+        lo = max(0, nkv - 1 - wl) if wl >= 0 else 0
+        _masked_row(f"decode {name} batch {masked_batch}", o[masked_batch, :, -1][None],
+                    po[masked_batch, :, -1][None], v[masked_batch][None],
+                    {"the window": (lo, nkv), "its 64-row tiles": (lo // 64 * 64, nkv)})
     return max_abs(o, po)
 
 
@@ -676,6 +747,7 @@ def phase_kernels_vs_plain() -> dict:
     _fwd_case("d512_dv64_fp16_bias", nq=1000, nkv=1100, d=512, dv=64, dtype=torch.float16,
               bias=True, seed=21)
     _fwd_case(f"train_N{TRAIN_N}", nq=TRAIN_N, nkv=TRAIN_N, seed=22)  # the training shape
+    _fwd_case("window_masked_row", nq=1024, nkv=1024, window=(256, -1), masked_row=700, seed=23)
     errs["decode"] = _decode_case("slice_Nkv4224_g2")
     _decode_case("group1", group=1, seed=1)
     _decode_case("group4", group=4, seed=2)
@@ -690,6 +762,11 @@ def phase_kernels_vs_plain() -> dict:
     _decode_case("rows32", group=4, nq=8, causal=True, valid=None, seed=10)  # two row blocks
     _decode_case("d512_dv320", dv=320, seed=11)
     _decode_case("d640_cp_async", d=640, nkv=1000, valid=900, seed=12)
+    # A row masked everywhere under a window (the bias masks every column
+    # of batch element 1): the plain version gives the mean of V over every
+    # column, the kernels walk only the window's tiles; logged, not held.
+    _decode_case("window_masked_row", b=2, nkv=1024, window=(256, -1), causal=True, valid=None,
+                 masked_batch=1, seed=13)
     # The backward at N4096 and feature cases at N1024; the training
     # shapes (N8192) are held in training_times, beside their times.
     _bwd_case("slice_N4096_D512", nq=PROMPT, nkv=PROMPT)
@@ -800,6 +877,10 @@ def phase_kernels_vs_plain() -> dict:
                          seed=s + 14)
         _varlen_bwd_case(f"{tag}_d320_dv512", seqs=[300, 17, 500], d=320, dv=512, dtype=dt,
                          seed=s + 15)
+        # Keys fewer than queries, tail-aligned: the first 120 rows keep no
+        # key, so dQ's first 64-row Q tile walks no KV tile.
+        _varlen_bwd_case(f"{tag}_rows_without_keys", seqs=[150, 40, 90], seqs_k=[30, 40, 200],
+                         dtype=dt, seed=s + 16)
     serve_lens = [n + 1 for n in SERVE_LENS]  # the first decode step's cache
     errs["paged_decode"] = _paged_case("serving_page256", lens=serve_lens)
     _paged_case("int8_page256", lens=serve_lens, quantized=True, seed=1)
@@ -2332,6 +2413,39 @@ def varlen_dkdv_kernel_row_extras(d: int) -> dict:
             "spill_bytes": a["local_bytes"]}
 
 
+def varlen_dq_kernel_row_extras(d: int) -> dict:
+    """The varlen dQ route at head dim ``d`` and its kernel's registers and
+    spill bytes, for the ``kernels`` line; fails unless the launcher's plan
+    equals its mirror (``ops/config.py`` ``varlen_dq_plan``) at D, Dv
+    64..1024 and D != Dv, and the wgmma kernel spills nothing."""
+    from ffpa_attn_tpu_torch.ops import varlen
+    from ffpa_attn_tpu_torch.ops.config import varlen_dq_plan
+
+    pairs = [(x, x) for x in range(64, 1025, 64)] + [(512, 320), (320, 512), (512, 64),
+                                                     (64, 512), (448, 64), (512, 1024),
+                                                     (1024, 320), (400, 400)]
+    for hd, hdv in pairs:
+        if varlen.varlen_dq_kernel_plan(hd, hdv) != varlen_dq_plan(hd, hdv):
+            fail(f"varlen dQ launcher's plan at D{hd}/Dv{hdv} "
+                 f"{varlen.varlen_dq_kernel_plan(hd, hdv)} differs from ops/config.py "
+                 f"varlen_dq_plan {varlen_dq_plan(hd, hdv)}")
+    log(f"  varlen_dq plan at D{d}: {varlen.varlen_dq_kernel_plan(d, d)} (the launcher's, "
+        f"equal to ops/config.py varlen_dq_plan at {len(pairs)} head-dim pairs)")
+    for route, bq in (("wgmma", 64), ("mma_sync", 64), ("mma_sync", 32)):
+        for dt in (torch.bfloat16, torch.float16):
+            a = varlen.varlen_dq_kernel_attrs(route, dt, bq)
+            log(f"  varlen_dq {route} rows {bq} {str(dt)[6:]}: {a['registers']} registers a "
+                f"thread at launch, {a['local_bytes']} local (spill) bytes")
+            if route == "wgmma" and a["local_bytes"] != 0:
+                fail(f"the wgmma varlen dQ kernel ({dt}) spills {a['local_bytes']} bytes")
+    plan = varlen_dq_plan(d, d)
+    a = varlen.varlen_dq_kernel_attrs(plan.route, block_q=plan.q_rows)
+    return {"varlen_dq_route": plan.route,
+            "kernel": "tma::varlen_dq_wgmma_kernel" if plan.route == "wgmma"
+            else "varlen_dq_kernel", "registers": a["registers"],
+            "spill_bytes": a["local_bytes"]}
+
+
 def dq_kernel_row_extras(d: int) -> dict:
     """The recompute dQ route at head dim ``d`` and its kernel's registers
     and spill bytes, for the ``kernels`` line; fails unless the launcher's
@@ -2702,7 +2816,7 @@ def packed_training_times(packed: dict) -> tuple:
 
     from ffpa_attn_tpu_torch import ffpa_attn_varlen_func
     from ffpa_attn_tpu_torch.ops import varlen
-    from ffpa_attn_tpu_torch.ops.config import varlen_dkdv_plan
+    from ffpa_attn_tpu_torch.ops.config import varlen_dkdv_plan, varlen_dq_plan
     from ffpa_attn_tpu_torch.ops.dispatch import pick_varlen_backward_config
     from ffpa_attn_tpu_torch.ops.reference import expand_kv_heads
     from ffpa_attn_tpu_torch.utils.profiling import (
@@ -2726,6 +2840,11 @@ def packed_training_times(packed: dict) -> tuple:
         f"busy {w['busy'] * 100:.1f}% (idle {(1 - w['busy']) * 100:.1f}%)")
     for kname, ms in sorted(w["by_kernel"].items(), key=lambda kv: -kv[1])[:6]:
         log(f"    {ms:9.3f} ms  {kname[:100]}")
+    # The call as the user makes it: the backward reads the forward's saved
+    # tile schedule (one ``_tile_needed`` a call).
+    cms = _timed(fwd_bwd, 5, warmup=2)
+    log(f"  forward + backward on the saved schedule: device {cms[0]:.4f} ms, CUDA events "
+        f"{cms[1]:.4f} ms a call (mean of 5)")
 
     # The varlen forward at this packing, beside the serving packing's row.
     def run_fwd():
@@ -2749,10 +2868,10 @@ def packed_training_times(packed: dict) -> tuple:
     o, lse = varlen._varlen_forward(q, k, v, cu, cu, meta=meta, **kw)
     delta = varlen._varlen_delta(do, o)
     cfg = pick_varlen_backward_config(d=d, dv=d, tq=t, dtype=bf)
-    plan = varlen_dkdv_plan(d, d)
     ops = varlen._BwdOperands(q, k, v, do, lse, delta, None)
-    dkdv_sched, dq_sched = varlen._varlen_bwd_schedules(meta, t, cfg.block_q_dq, True, (-1, -1),
-                                                        (plan.q_rows, plan.kv_rows))
+    dkdv_sched, dq_sched = varlen._backward_schedules(
+        meta, t, varlen_dkdv_plan(d, d), varlen_dq_plan(d, d), cfg.block_q_dq, True, (-1, -1),
+        varlen._call_walk(meta, t, d, d, True, (-1, -1)))
     rows, events = [], {}
 
     # The library call for the pair: autograd of SDPA over the packed T.
@@ -2796,7 +2915,7 @@ def packed_training_times(packed: dict) -> tuple:
             def run_plain():
                 return (varlen._varlen_dq_plain(q, k, v, do, lse, delta, meta, **kw),)
 
-            outs, kernels = ("dq",), ("varlen_dq_kernel",)
+            outs, kernels = ("dq",), varlen.DQ_KERNELS
         got = run()
         torch.cuda.synchronize()
         err = _hold(f"{name}_T{t}_causal", dict(zip(outs, zip(got, run_plain()))))
@@ -2814,8 +2933,8 @@ def packed_training_times(packed: dict) -> tuple:
             replaces=replaces, launches=packed["launches"][name], max_abs_err=err, ms=kms[0],
             plain_ms=pms[0], bound_ms=bms, bound_by=bby, library_ms=lms[0],
         ))
-        if name == "varlen_dkdv":
-            rows[-1].update(varlen_dkdv_kernel_row_extras(d))
+        rows[-1].update(varlen_dkdv_kernel_row_extras(d) if name == "varlen_dkdv"
+                        else varlen_dq_kernel_row_extras(d))
         events[name] = (kms[1], pms[1], lms[1])
         torch.cuda.empty_cache()
     return rows, events, fwd_packed

@@ -3,7 +3,7 @@
 // (ffpa_attn_tpu/ops/varlen.py). ops/varlen.py calls the C entry points
 // ffpa_varlen_bwd_dkdv and ffpa_varlen_bwd_dq through ctypes.
 //
-// All three blocks below are the dense backward's (flash_bwd.cu) with two
+// All four blocks below are the dense backward's (flash_bwd.cu) with two
 // changes:
 //   * the causal / window band test becomes the segment / rank keep-mask of
 //     the forward (varlen_fwd.cu),
@@ -11,11 +11,12 @@
 //     read from the per-token metadata in device memory; masked elements
 //     get P = 0 and dS = 0 exactly, so rows with no key (padding, rows past
 //     Tq, an empty interval's [0, 0] tile) add nothing;
-//   * the tile range of each block is an interval read from device memory,
-//     computed on the device at the kernel's own tiles (ops/varlen.py
-//     _varlen_bwd_schedules): for dK/dV a KV tile's [imin, imax] of Q tiles
-//     (64 x 64 on the wgmma route, 128 x 32 on mma.sync), for dQ a Q tile's
-//     [jmin, jmax] of 64-row KV tiles.
+//   * the tiles each block walks are read from device memory, computed on
+//     the device at the kernel's own tiles (ops/varlen.py): for dK/dV a KV
+//     tile's [imin, imax] of Q tiles (64 x 64 on the wgmma route, 128 x 32
+//     on mma.sync), for dQ a 64-row Q tile's list of needed 64-row KV tiles
+//     (wgmma; the forward's own schedule) or a block_q-row Q tile's [jmin,
+//     jmax] (mma.sync).
 // q, dO [T, Hq, D|Dv] and k, v [T, Hkv, D|Dv] are read through their row
 // and head strides (no head-major copy, no padding of T); dq, dk and dv are
 // written packed, the ragged tails bounds-checked. lse and delta are [Hq, Tq]
@@ -36,15 +37,21 @@
 // block's registers and dK, dV are stored once each (the TPU kernel writes
 // a per-q-head dK/dV in the input type and sums the group afterwards).
 //
-// dQ: a block owns BQ packed query rows of one head with Q and dO resident
-// and walks the KV tiles of its interval: S over the K chunks, dP over the V
-// chunks, dS to shared memory, dQ += dS K over the K chunks again, the fp32
-// dQ tile in registers like the forward's O tile.
+// dQ has two routes, by head dims alone (tma::make_dq_plan). D, Dv <= 512
+// take the TMA + wgmma block of namespace tma (the dense dq::wgmma_dq_kernel's
+// design on the varlen forward's walk, details beside it): 64 Q rows of one
+// query head with Q and dO resident, the listed KV tiles' K and V boxes
+// streamed, the fp32 dQ tile split over two consumer warpgroups. Wider
+// heads take the mma.sync varlen_dq_kernel: a block owns BQ packed query
+// rows of one head with Q and dO resident and walks the KV tiles of its
+// interval: S over the K chunks, dP over the V chunks, dS to shared memory,
+// dQ += dS K over the K chunks again, the fp32 dQ tile in registers like
+// the forward's O tile.
 //
 // Bound on an H100: operations (4 matmul units of 2 * pairs * D flop for
 // dK/dV, 3 for dQ, over the segments' bands; utils/profiling.py
 // varlen_backward_counts). The design against it is the dense backward's,
-// walking only the intervals' tiles.
+// walking only the needed tiles (dQ) or the intervals' tiles (dK/dV).
 #include <string.h>
 
 #include <algorithm>
@@ -74,9 +81,11 @@ struct VarlenBwdParams {
   const int* k_pos;
   const int* lo;       // [tiles] first tile of each block's interval
   const int* hi;       // last tile
-  const int* order;    // [tiles] dK/dV's KV tiles, longest interval first (wgmma route)
+  const int* order;    // [tiles] the blocks' tiles in launch order (wgmma routes)
+  const int* tiles;    // [Q tiles, tiles_ld] each Q tile's needed KV tiles (wgmma dQ)
+  const int* ntile;    // [Q tiles] how many it lists
   const float* alibi;  // [Hq] slopes, or null
-  int Hq, Hkv, group, tq, tk, D, Dv, col_passes;
+  int Hq, Hkv, group, tq, tk, D, Dv, col_passes, tiles_ld;
   float scale, softcap;
   int window_left, window_right;  // window_right: 0 when causal, -1 open
 };
@@ -1005,29 +1014,34 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-// The host side of one launch: tensor maps over the packed layout (dims (D,
-// T, H), strides in bytes), shared memory, the grid (passes x KV heads, KV
-// tiles).
+// The tensor maps of a launch over the packed layout: dims (D, T, H),
+// strides in bytes, extents at the true Tq and Tk, 64 x 64 boxes.
+inline cudaError_t encode_maps(const VarlenBwdParams& bp, bool f16, Maps* maps) {
+  memset(maps, 0, sizeof(*maps));
+  const uint64_t mq = bp.tq > 0 ? bp.tq : 1, mkv = bp.tk > 0 ? bp.tk : 1;
+  cudaError_t e = encode_3d(&maps->q_map, f16, bp.q, bp.D, mq, bp.Hq, (uint64_t)bp.q_rs * 2,
+                            (uint64_t)bp.q_hs * 2, COLS, QROWS);
+  if (e == cudaSuccess)
+    e = encode_3d(&maps->do_map, f16, bp.dout, bp.Dv, mq, bp.Hq, (uint64_t)bp.do_rs * 2,
+                  (uint64_t)bp.do_hs * 2, COLS, QROWS);
+  if (e == cudaSuccess)
+    e = encode_3d(&maps->k_map, f16, bp.k, bp.D, mkv, bp.Hkv, (uint64_t)bp.k_rs * 2,
+                  (uint64_t)bp.k_hs * 2, COLS, ROWS);
+  if (e == cudaSuccess)
+    e = encode_3d(&maps->v_map, f16, bp.v, bp.Dv, mkv, bp.Hkv, (uint64_t)bp.v_rs * 2,
+                  (uint64_t)bp.v_hs * 2, COLS, ROWS);
+  return e;
+}
+
+// The host side of one launch: tensor maps, shared memory, the grid (passes
+// x KV heads, KV tiles).
 template <typename T>
 cudaError_t launch(const VarlenBwdParams& bp, const Plan& pl, int num_kv_tiles,
                    cudaStream_t stream) {
-  const bool f16 = std::is_same<T, __half>::value;
   Maps maps;
-  memset(&maps, 0, sizeof(maps));
   VarlenBwdParams p = bp;
   p.col_passes = pl.passes;
-  const uint64_t mq = bp.tq > 0 ? bp.tq : 1, mkv = bp.tk > 0 ? bp.tk : 1;
-  cudaError_t e = encode_3d(&maps.q_map, f16, bp.q, bp.D, mq, bp.Hq, (uint64_t)bp.q_rs * 2,
-                            (uint64_t)bp.q_hs * 2, COLS, QROWS);
-  if (e == cudaSuccess)
-    e = encode_3d(&maps.do_map, f16, bp.dout, bp.Dv, mq, bp.Hq, (uint64_t)bp.do_rs * 2,
-                  (uint64_t)bp.do_hs * 2, COLS, QROWS);
-  if (e == cudaSuccess)
-    e = encode_3d(&maps.k_map, f16, bp.k, bp.D, mkv, bp.Hkv, (uint64_t)bp.k_rs * 2,
-                  (uint64_t)bp.k_hs * 2, COLS, ROWS);
-  if (e == cudaSuccess)
-    e = encode_3d(&maps.v_map, f16, bp.v, bp.Dv, mkv, bp.Hkv, (uint64_t)bp.v_rs * 2,
-                  (uint64_t)bp.v_hs * 2, COLS, ROWS);
+  cudaError_t e = encode_maps(bp, std::is_same<T, __half>::value, &maps);
   if (e != cudaSuccess) return e;
   const dim3 grid(pl.passes * bp.Hkv, num_kv_tiles);
   e = cudaFuncSetAttribute(varlen_dkdv_wgmma_kernel<T>,
@@ -1035,6 +1049,420 @@ cudaError_t launch(const VarlenBwdParams& bp, const Plan& pl, int num_kv_tiles,
   if (e != cudaSuccess) return e;
   if (grid.x * grid.y == 0) return cudaSuccess;
   varlen_dkdv_wgmma_kernel<T><<<grid, THREADS, pl.smem, stream>>>(maps, p, pl.stages);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// dQ for D, Dv <= 512: TMA + mbarrier + wgmma
+// ---------------------------------------------------------------------------
+
+// The Hopper route of ffpa_varlen_bwd_dq: the dense recompute dQ block
+// (flash_bwd.cu namespace dq) over the packed layout, on the varlen
+// forward's walk (varlen_fwd.cu namespace tma). The mma.sync
+// varlen_dq_kernel above owned block_q rows, ran m16n8k16 products from
+// ldmatrix fragments with a block barrier after every 64-column chunk of
+// its cp.async ring (no product in flight during a barrier), and walked
+// every KV tile of its Q tile's interval (1.49x the band's pairs at the
+// packed-training packing): 2.13 ms there on an H100, 16x its bound; this
+// block 0.65 ms, 4.9x (PERF.md). Here 384 threads own 64 Q rows of one
+// query head:
+//  - warpgroup 0 is the producer (setmaxnreg 24). One thread loads Q and dO
+//    once by TMA into D / 64 and Dv / 64 resident 64 x 64 boxes (128 B
+//    swizzle; 3-D maps (D, T, H) with the row and head strides at the true
+//    Tq and Tk, so the ragged tail reads as zero), then per listed KV tile
+//    streams the K boxes (for S) and the V boxes (for dP) in two-box
+//    stages, then the K boxes again (for dQ), box j of consumer 0's half of
+//    D beside box j of consumer 1's: one stage feeds both dQ products;
+//  - warpgroups 1 and 2 are the consumers (setmaxnreg 240). Consumer c
+//    computes S = Q K^T and dP = dO V^T for KV columns 32c..32c+31
+//    (wgmma m64n32k16), forms dS = P (dP - delta) in registers (softcap's
+//    factor included), rounds it to the input type into its 32 columns of
+//    one swizzled [q][kv] exchange box and, after a named barrier, runs
+//    dQ[:, own half of D] += dS K (m64n64k16 a box; 128 fp32 registers a
+//    thread at D512);
+//  - the walk is the forward's schedule, saved by the forward: a Q tile
+//    visits only the KV tiles its row of _needed_tiles(_tile_needed(...,
+//    64, 64)) lists. The grid is (Hq, Q tiles): the heads of a Q tile side
+//    by side, so a GQA group's K and V stay in L2, and the Q tiles most
+//    needed first. A Q tile with no listed tile loads nothing (not even Q)
+//    and stores dQ = 0;
+//  - a consumer's 64 x 32 block inside one segment's band with no softcap,
+//    ALiBi or left window is full (the forward's test: varlen._full_blocks
+//    at 64 x 32) and takes p = exp(s scale - lse) alone. Any other block
+//    masks element by element: P is selected to 0 where the mask drops the
+//    pair (a row with no key has lse = MASK_VALUE + log(1e-38), where
+//    exp(s scale - lse) overflows), its metadata read from L1 through
+//    addresses formed from an index hidden behind an empty asm, so none is
+//    hoisted and held beside dQ. Scores stay in natural units until the
+//    exponent (MASK_VALUE * log2 e is -inf).
+// Two named barriers a tile order the exchange box, as in the dense block.
+// ptxas keeps the wgmma pipeline because products start with scale-d 0,
+// roles are template arguments, each stage's products are committed in
+// their own block, stage releases are predicated arrivals and the zeros of
+// dQ are fenced off from its products.
+constexpr int DQ_MAX_STAGES = 8;
+constexpr int DQ_BOXES = MAX_BOXES / 2;  // D boxes of one consumer's dQ: 64 x 256 fp32
+
+// The route and tiling of a dQ launch at head dims (D, Dv), multiples of
+// 64: D, Dv <= 512 take this block (64 Q rows, consumer 0 owning the first
+// ceil(nd / 2) of D's nd boxes of dQ and consumer 1 the rest), with as many
+// ring stages as shared memory holds after Q, dO and the dS box (5 at D =
+// Dv = 512); wider heads the mma.sync varlen_dq_kernel, whose row tile is
+// the largest its registers (rows x D <= 64 x 512) and shared memory hold.
+// The dense dQ plan (flash_bwd.cu dq::make_plan) with the varlen mma.sync
+// block's shared memory. ffpa_varlen_bwd_dq_plan hands it out; ops/config.py
+// varlen_dq_plan mirrors it and the card test holds the two equal.
+struct DqPlan {
+  int route, rows, stages, nd0;
+  size_t smem;
+};
+inline DqPlan make_dq_plan(int D, int Dv) {
+  DqPlan pl;
+  const int nd = D / COLS, nv = Dv / COLS;
+  pl.nd0 = col_block(nd, 2, 0).nc;
+  if (nd <= MAX_BOXES && nv <= MAX_BOXES) {
+    pl.route = WGMMA;
+    pl.rows = QROWS;
+    // Q, dO, the dS box, the 1024 B alignment and their barrier; a stage
+    // is two boxes and its two barriers.
+    const size_t fixed = (size_t)(nd + nv + 1) * BOX_BYTES + 1024 + sizeof(uint64_t);
+    const size_t stage = STAGE_BYTES + 2 * sizeof(uint64_t);
+    pl.stages = (int)std::min((size_t)DQ_MAX_STAGES, (SMEM_LIMIT - fixed) / stage);
+    pl.smem = fixed + pl.stages * stage;
+  } else {
+    pl.route = MMA_SYNC;
+    const bool tall =
+        64 * D <= 32 * 1024 && dq_smem_bytes<__nv_bfloat16>(64, D, Dv) <= (size_t)SMEM_LIMIT;
+    pl.rows = tall ? 64 : 32;
+    pl.stages = NST;
+    pl.smem = dq_smem_bytes<__nv_bfloat16>(pl.rows, D, Dv);
+  }
+  return pl;
+}
+
+// Shared memory of a dQ block, from a 1024 B boundary: the Q boxes, the dO
+// boxes, the dS box, the ring's stages, their full / empty barriers and the
+// barrier of Q and dO.
+struct DqSmem {
+  unsigned char* q;
+  unsigned char* dout;
+  unsigned char* ds;  // dS (softcap's factor included): [q][kv]
+  unsigned char* ring;
+  uint64_t* full;
+  uint64_t* empty;
+  uint64_t* q_full;
+};
+__device__ __forceinline__ DqSmem dq_carve(unsigned char* base, int nd, int nv, int stages) {
+  DqSmem sm;
+  sm.q = base;
+  sm.dout = base + nd * BOX_BYTES;
+  sm.ds = sm.dout + nv * BOX_BYTES;
+  sm.ring = sm.ds + BOX_BYTES;
+  sm.full = reinterpret_cast<uint64_t*>(sm.ring + stages * STAGE_BYTES);
+  sm.empty = sm.full + stages;
+  sm.q_full = sm.empty + stages;
+  return sm;
+}
+
+// A dQ block's query head, its Q tile's first row, and its walk: entries
+// [first, first + n) of p.tiles. The same in every thread.
+struct DqBlock {
+  int head, row0, first, n;
+};
+
+// The producer's thread: Q and dO once, then per listed KV tile the K
+// stages and the V stages (two boxes each, an odd last box alone), then the
+// dQ stages (K box j of consumer 0's half beside box nd0 + j of consumer
+// 1's, alone where that half is shorter).
+__device__ __forceinline__ void dq_produce(const Maps& maps, const VarlenBwdParams& p,
+                                           const DqSmem& sm, const DqBlock& k, int stages, int nd,
+                                           int nv, int nd0) {
+  prefetch_map(&maps.q_map);
+  prefetch_map(&maps.do_map);
+  prefetch_map(&maps.k_map);
+  prefetch_map(&maps.v_map);
+  const int kvh = k.head / p.group;
+  mbar_arrive_expect_tx(sm.q_full, (nd + nv) * BOX_BYTES);
+  for (int j = 0; j < nd; ++j)
+    tma_load_3d(sm.q + j * BOX_BYTES, &maps.q_map, sm.q_full, j * COLS, k.row0, k.head);
+  for (int j = 0; j < nv; ++j)
+    tma_load_3d(sm.dout + j * BOX_BYTES, &maps.do_map, sm.q_full, j * COLS, k.row0, k.head);
+  int it = 0;
+  // Stage it % stages, free again, expecting nb boxes.
+  auto claim = [&](int nb) -> unsigned char* {
+    const int st = it % stages;
+    if (it >= stages) mbar_wait(&sm.empty[st], ((it / stages) - 1) & 1);
+    mbar_arrive_expect_tx(&sm.full[st], nb * BOX_BYTES);
+    return sm.ring + st * STAGE_BYTES;
+  };
+  auto run = [&](const CUtensorMap* map, int n, int kv0) {
+    for (int c = 0; c < n; c += STAGE_BOXES, ++it) {
+      const int nb = min(STAGE_BOXES, n - c);
+      unsigned char* dst = claim(nb);
+      for (int b = 0; b < nb; ++b)
+        tma_load_3d(dst + b * BOX_BYTES, map, &sm.full[it % stages], (c + b) * COLS, kv0, kvh);
+    }
+  };
+  for (int t = 0; t < k.n; ++t) {
+    const int kv0 = __ldg(p.tiles + k.first + t) * ROWS;
+    run(&maps.k_map, nd, kv0);
+    run(&maps.v_map, nv, kv0);
+    for (int j = 0; j < nd0; ++j, ++it) {
+      const bool both = nd0 + j < nd;
+      unsigned char* dst = claim(both ? 2 : 1);
+      tma_load_3d(dst, &maps.k_map, &sm.full[it % stages], j * COLS, kv0, kvh);
+      if (both)
+        tma_load_3d(dst + BOX_BYTES, &maps.k_map, &sm.full[it % stages], (nd0 + j) * COLS, kv0,
+                    kvh);
+    }
+  }
+}
+
+// Consumer C of a dQ block; C is a template argument so that no branch
+// around a wgmma depends on the thread. Accumulator element 4 j + 2 hh + e
+// of thread (warp, g = lane / 4, t4 = lane % 4) of S and dP is Q row 16
+// warp + g + 8 hh, KV column 32 C + 8 j + 2 t4 + e of the tile; of dQ's box
+// jj, Q row 16 warp + g + 8 hh, column 8 j + 2 t4 + e of the box.
+template <typename T, int C>
+__device__ __forceinline__ void dq_consume(const VarlenBwdParams& p, const DqSmem& sm,
+                                           const DqBlock& k, int stages, int nd, int nv,
+                                           int nd0) {
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int own = C == 0 ? nd0 : nd - nd0;  // D boxes of this consumer's dQ
+  const int r0 = 16 * warp + g;             // this thread's rows: r0, r0 + 8
+  constexpr float LOG2E = 1.4426950408889634f;
+  // No feature that changes a kept element's p: a full block skips the mask.
+  const bool plain = p.alibi == nullptr && p.softcap <= 0.f && p.window_left < 0;
+
+  // lse and delta of this thread's two rows; rows past Tq keep no key.
+  float lse[2], dl[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = k.row0 + r0 + 8 * hh;
+    const bool ok = row < p.tq;
+    lse[hh] = ok ? p.lse[(long long)k.head * p.tq + row] : 0.f;
+    dl[hh] = ok ? p.delta[(long long)k.head * p.tq + row] : 0.f;
+  }
+
+  // Every ordinary write of an accumulator is fenced off from the wgmma
+  // that follows, or ptxas serializes the pipeline.
+  float acc[DQ_BOXES * 32];
+#pragma unroll
+  for (int i = 0; i < DQ_BOXES * 32; ++i) acc[i] = 0.f;
+  fence_operands(acc);
+
+  // it: the stream's stage index; held: a stage whose products may still
+  // run. done_with frees the stage before once this one's products are
+  // issued and the older ones completed (one group stays in flight).
+  int it = 0, held = -1;
+  auto release = [&](int st, bool pred) { mbar_arrive_if(&sm.empty[st], pred && lane == 0); };
+  auto done_with = [&](int st) {
+    wgmma_commit();
+    wgmma_wait<1>();
+    release(held >= 0 ? held : 0, held >= 0);
+    held = st;
+  };
+  auto drain = [&]() {
+    wgmma_wait<0>();
+    release(held >= 0 ? held : 0, held >= 0);
+    held = -1;
+  };
+  auto wait_full = [&](int st) { mbar_wait(&sm.full[st], (it / stages) & 1); };
+  // S or dP for this consumer's 32 KV columns over n resident boxes: the
+  // stages of two boxes, then an odd last box alone (a conditional wgmma
+  // inside a stage would make ptxas serialize), each committed beside its
+  // products.
+  auto stream = [&](float(&a)[16], const unsigned char* res, int n) {
+    int c = 0;
+    for (; c + 2 <= n; c += 2, ++it) {
+      const int st = it % stages;
+      const unsigned char* sb = sm.ring + st * STAGE_BYTES + C * 4096;
+      wait_full(st);
+      wgmma_fence();
+      box_mma<T, 32, 0>(a, res + c * BOX_BYTES, sb, c == 0);
+      box_mma<T, 32, 0>(a, res + (c + 1) * BOX_BYTES, sb + BOX_BYTES);
+      done_with(st);
+    }
+    if (c < n) {
+      const int st = it % stages;
+      wait_full(st);
+      wgmma_fence();
+      box_mma<T, 32, 0>(a, res + c * BOX_BYTES, sm.ring + st * STAGE_BYTES + C * 4096, c == 0);
+      done_with(st);
+      ++it;
+    }
+  };
+
+  if (k.n > 0) mbar_wait(sm.q_full, 0);
+  for (int t = 0; t < k.n; ++t) {
+    // This consumer's first KV column, from the list entry of the tile.
+    int idx = k.first + t;
+    asm volatile("" : "+r"(idx));
+    const int kc = __ldg(p.tiles + idx) * ROWS + 32 * C;
+    float s[16], dp[16];
+    stream(s, sm.q, nd);
+    stream(dp, sm.dout, nv);
+    drain();  // also completes this consumer's dQ products of the tile before
+    fence_operands(s);
+    fence_operands(dp);
+
+    // The full-block test reads the same six words in every thread, the
+    // rows' from an index the empty asm hides (else their loads are hoisted
+    // out of the walk and held beside dQ).
+    int q_first = k.row0;
+    asm volatile("" : "+r"(q_first));
+    const int ks = __ldg(p.k_seg + kc);
+    const bool full =
+        plain && ks >= 0 && __ldg(p.k_seg + kc + 31) == ks && __ldg(p.q_seg + q_first) == ks &&
+        __ldg(p.q_seg + q_first + QROWS - 1) == ks &&
+        (p.window_right < 0 ||
+         __ldg(p.k_pos + kc + 31) <= __ldg(p.q_rank + q_first) + p.window_right);
+    uint32_t dw[8];
+    if (full) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          float dsv[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * j + 2 * hh + e;
+            dsv[e] = ex2((s[i] * p.scale - lse[hh]) * LOG2E) * (dp[i] - dl[hh]);
+          }
+          dw[2 * j + hh] = pack2<T>(dsv[0], dsv[1]);
+        }
+    } else {
+      const float slope = p.alibi != nullptr ? __ldg(p.alibi + k.head) : 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          // One pair at a time: the empty asm ties the pair's scores, its
+          // first column and its row, so nothing of a pair (the metadata
+          // loads and their addresses) is computed ahead of the pairs
+          // before, and the mask's registers are needed once, not 8 times
+          // beside the 128 of dQ.
+          const int i0 = 4 * j + 2 * hh;
+          int col = kc + 8 * j + 2 * t4, row = k.row0 + r0 + 8 * hh;
+          asm volatile("" : "+f"(s[i0]), "+f"(s[i0 + 1]), "+f"(dp[i0]), "+f"(dp[i0 + 1]),
+                       "+r"(col), "+r"(row));
+          const int qs = __ldg(p.q_seg + row), qr = __ldg(p.q_rank + row);
+          float dsv[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int kp = __ldg(p.k_pos + col + e);
+            const Prob pr = score_prob(p, keeps(p, qs, qr, __ldg(p.k_seg + col + e), kp),
+                                       s[i0 + e], lse[hh], slope, qr - kp);
+            dsv[e] = pr.p * pr.cap * (dp[i0 + e] - dl[hh]);
+          }
+          dw[2 * j + hh] = pack2<T>(dsv[0], dsv[1]);
+        }
+    }
+    // Both consumers have completed the tile before's dQ products: the dS
+    // box is free.
+    named_barrier_sync(1, 2 * 128);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<uint32_t*>(sm.ds + swz(r0 + 8 * hh, 32 * C + 8 * j + 2 * t4)) =
+            dw[2 * j + hh];
+    fence_proxy_async();
+    named_barrier_sync(1, 2 * 128);  // both halves of dS are in the box
+
+    // dQ[:, own boxes] += dS K: dQ stage j holds this consumer's K box j at
+    // C * BOX_BYTES; a consumer with fewer boxes frees the stage unread.
+#pragma unroll
+    for (int j = 0; j < DQ_BOXES; ++j) {
+      if (j < nd0) {
+        const int st = it % stages;
+        wait_full(st);
+        if (j < own) {
+          wgmma_fence();
+          box_mma<T, 64, 1>(*reinterpret_cast<float(*)[32]>(acc + 32 * j), sm.ds,
+                            sm.ring + st * STAGE_BYTES + C * BOX_BYTES);
+          done_with(st);
+        } else {
+          release(st, true);
+        }
+        ++it;
+      }
+    }
+  }
+  drain();
+  fence_operands(acc);
+
+  // Epilogue: dQ = scale * sum, packed [Tq, Hq, D]; rows past Tq are not
+  // stored. A Q tile that walked nothing stores zeros.
+  const int col0 = C == 0 ? 0 : nd0 * COLS;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = k.row0 + r0 + 8 * hh;
+    if (row >= p.tq) continue;
+    const long long base = ((long long)row * p.Hq + k.head) * p.D + col0 + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < DQ_BOXES; ++j) {
+      if (j >= own) break;
+#pragma unroll
+      for (int j8 = 0; j8 < 8; ++j8)
+        store2<T>(p.dq, base + COLS * j + 8 * j8, acc[32 * j + 4 * j8 + 2 * hh] * p.scale,
+                  acc[32 * j + 4 * j8 + 2 * hh + 1] * p.scale, 0);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+    varlen_dq_wgmma_kernel(const __grid_constant__ Maps maps, const VarlenBwdParams p,
+                           const int stages) {
+  extern __shared__ unsigned char smem_raw[];
+  // Boxes on 1024 B boundaries, the offset added to smem_raw itself (see
+  // varlen_dkdv_wgmma_kernel).
+  unsigned char* base = smem_raw + ((1024u - (cvta_smem(smem_raw) & 1023u)) & 1023u);
+  const int nd = p.D / COLS, nv = p.Dv / COLS, nd0 = col_block(nd, 2, 0).nc;
+  const DqSmem sm = dq_carve(base, nd, nv, stages);
+  // Block order: the query heads of a Q tile side by side, the Q tiles in
+  // the schedule's order (most needed KV tiles first).
+  const int tile = p.order[blockIdx.y];
+  const DqBlock k = {(int)blockIdx.x, tile * QROWS, tile * p.tiles_ld, p.ntile[tile]};
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], CONSUMER_WARPS);
+    }
+    mbar_init(sm.q_full, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<24>();
+    // A Q tile that needs no KV tile loads nothing (not even Q).
+    if (threadIdx.x == 0 && k.n > 0) dq_produce(maps, p, sm, k, stages, nd, nv, nd0);
+  } else {
+    setmaxnreg_inc<240>();
+    if (threadIdx.x < 256)
+      dq_consume<T, 0>(p, sm, k, stages, nd, nv, nd0);
+    else
+      dq_consume<T, 1>(p, sm, k, stages, nd, nv, nd0);
+  }
+}
+
+// The host side of one dQ launch: tensor maps, shared memory, the grid
+// (query heads, Q tiles).
+template <typename T>
+cudaError_t dq_launch(const VarlenBwdParams& p, const DqPlan& pl, int num_q_tiles,
+                      cudaStream_t stream) {
+  const dim3 grid(p.Hq, num_q_tiles);
+  if (grid.x * grid.y == 0) return cudaSuccess;
+  Maps maps;
+  cudaError_t e = encode_maps(p, std::is_same<T, __half>::value, &maps);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(varlen_dq_wgmma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)pl.smem);
+  if (e != cudaSuccess) return e;
+  varlen_dq_wgmma_kernel<T><<<grid, THREADS, pl.smem, stream>>>(maps, p, pl.stages);
   return cudaGetLastError();
 }
 
@@ -1145,31 +1573,50 @@ extern "C" int ffpa_varlen_bwd_dkdv_attrs(int route, int is_fp16, int* regs, int
   return 0;
 }
 
-// dQ [Tq, Hq, D] in the input type. One block per (head, block_q-row Q tile):
-// num_q_tiles = ceil(Tq / block_q); lo / hi hold each Q tile's interval of
-// 64-row KV tiles.
+// dQ [Tq, Hq, D] in the input type; the route is tma::make_dq_plan's, by
+// head dims alone. Each schedule's pointers are taken; the route reads its
+// own. On the wgmma route a block owns 64 Q rows (num_q_tiles = ceil(Tq /
+// 64); block_q is not read) and walks tiles[tile * num_kv_tiles ..][0,
+// ntile[tile]) of its Q tile, the Q tiles in order's order; jmin / jmax are
+// not read. On mma.sync a block owns block_q rows (num_q_tiles = ceil(Tq /
+// block_q)) and walks every 64-row KV tile of [jmin, jmax]; tiles, ntile
+// and order are not read.
 extern "C" int ffpa_varlen_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                   long long q_rs, long long q_hs, long long k_rs, long long k_hs,
                                   long long v_rs, long long v_hs, long long do_rs,
                                   long long do_hs, const float* lse, const float* delta, void* dq,
                                   const int* q_seg, const int* q_rank, const int* k_seg,
                                   const int* k_pos, const int* jmin, const int* jmax,
+                                  const int* tiles, const int* ntile, const int* order,
                                   const float* alibi, int is_fp16, int block_q, int Hq, int Hkv,
-                                  int tq, int tk, int num_q_tiles, int D, int Dv, float scale,
-                                  float softcap, int window_left, int window_right,
-                                  void* stream) {
+                                  int tq, int tk, int num_q_tiles, int num_kv_tiles, int D,
+                                  int Dv, float scale, float softcap, int window_left,
+                                  int window_right, void* stream) {
   VarlenBwdParams p = make_params(q, k, v, dout, q_rs, q_hs, k_rs, k_hs, v_rs, v_hs, do_rs,
                                   do_hs, lse, delta, q_seg, q_rank, k_seg, k_pos, jmin, jmax,
                                   alibi, Hq, Hkv, tq, tk, D, Dv, scale, softcap, window_left,
                                   window_right);
   p.dq = dq;
-  // Registers hold block_q x D fp32 (64 per thread); D and Dv are 64-multiples.
-  if (D % CH != 0 || Dv % CH != 0 || (long long)block_q * D > 32 * 1024 ||
-      (block_q != 64 && block_q != 32) || Hkv < 1 || Hq % Hkv != 0 ||
-      num_q_tiles * block_q < tq)
+  p.tiles = tiles;
+  p.ntile = ntile;
+  p.order = order;
+  p.tiles_ld = num_kv_tiles;
+  if (D <= 0 || Dv <= 0 || D % CH != 0 || Dv % CH != 0 || Hkv < 1 || Hq % Hkv != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const tma::DqPlan pl = tma::make_dq_plan(D, Dv);
+  if (pl.route == tma::WGMMA) {
+    if (tiles == nullptr || ntile == nullptr || order == nullptr ||
+        (long long)num_q_tiles * tma::QROWS < tq || (long long)num_kv_tiles * tma::ROWS < tk)
+      return (int)cudaErrorInvalidValue;
+    return (int)(is_fp16 ? tma::dq_launch<__half>(p, pl, num_q_tiles, st)
+                         : tma::dq_launch<__nv_bfloat16>(p, pl, num_q_tiles, st));
+  }
+  // Registers hold block_q x D fp32 (64 per thread).
+  if (jmin == nullptr || jmax == nullptr || (long long)block_q * D > 32 * 1024 ||
+      (block_q != 64 && block_q != 32) || (long long)num_q_tiles * block_q < tq)
     return (int)cudaErrorInvalidValue;
   const dim3 grid(Hq, num_q_tiles);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_fp16) {
     return (int)(block_q == 64
                      ? launch(varlen_dq_kernel<__half, 64>, grid, dq_smem_bytes<__half>(64, D, Dv),
@@ -1181,4 +1628,57 @@ extern "C" int ffpa_varlen_bwd_dq(const void* q, const void* k, const void* v, c
                                       dq_smem_bytes<__nv_bfloat16>(64, D, Dv), p, st)
                              : launch(varlen_dq_kernel<__nv_bfloat16, 32>, grid,
                                       dq_smem_bytes<__nv_bfloat16>(32, D, Dv), p, st));
+}
+
+// The route and tiling ffpa_varlen_bwd_dq takes at head dims (D, Dv),
+// multiples of 64, in ffpa_bwd_dq_plan's layout: out[0..4] are the route (1
+// wgmma, 0 mma.sync), the Q rows of a block (for mma.sync the largest row
+// tile its registers and shared memory hold), the KV rows of a tile, the
+// ring's stages and the dynamic shared-memory bytes (bf16); out[5] the
+// number of dQ column blocks (the consumers' halves, or the whole block's),
+// then (first column, width) of each; cap is out's length.
+extern "C" int ffpa_varlen_bwd_dq_plan(int D, int Dv, int* out, int cap) {
+  if (D <= 0 || Dv <= 0 || D % CH != 0 || Dv % CH != 0 || cap < 10)
+    return (int)cudaErrorInvalidValue;
+  const tma::DqPlan pl = tma::make_dq_plan(D, Dv);
+  out[0] = pl.route;
+  out[1] = pl.rows;
+  out[2] = CH;
+  out[3] = pl.stages;
+  out[4] = (int)pl.smem;
+  if (pl.route == tma::WGMMA) {
+    out[5] = 2;
+    out[6] = 0;
+    out[7] = pl.nd0 * CH;
+    out[8] = pl.nd0 * CH;
+    out[9] = D - pl.nd0 * CH;
+  } else {
+    out[5] = 1;
+    out[6] = 0;
+    out[7] = D;
+  }
+  return 0;
+}
+
+// Registers a thread (at launch, before setmaxnreg moves them between the
+// warpgroups) and local (spill) bytes a thread of a varlen dQ kernel: route
+// 1 the wgmma kernel, 0 varlen_dq_kernel at row tile block_q (64 or 32), in
+// f16 or bf16.
+extern "C" int ffpa_varlen_bwd_dq_attrs(int route, int is_fp16, int block_q, int* regs,
+                                        int* local_bytes) {
+  cudaFuncAttributes a;
+  cudaError_t e;
+  if (route == tma::WGMMA)
+    e = is_fp16 ? cudaFuncGetAttributes(&a, tma::varlen_dq_wgmma_kernel<__half>)
+                : cudaFuncGetAttributes(&a, tma::varlen_dq_wgmma_kernel<__nv_bfloat16>);
+  else if (block_q == 64)
+    e = is_fp16 ? cudaFuncGetAttributes(&a, varlen_dq_kernel<__half, 64>)
+                : cudaFuncGetAttributes(&a, varlen_dq_kernel<__nv_bfloat16, 64>);
+  else
+    e = is_fp16 ? cudaFuncGetAttributes(&a, varlen_dq_kernel<__half, 32>)
+                : cudaFuncGetAttributes(&a, varlen_dq_kernel<__nv_bfloat16, 32>);
+  if (e != cudaSuccess) return (int)e;
+  *regs = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
+  return 0;
 }

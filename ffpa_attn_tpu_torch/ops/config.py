@@ -46,9 +46,13 @@ never refused by the card.
   tiling below (64 KV rows, 64-row Q tiles, passes of at most 256
   columns), its segment metadata read from device memory; wider heads the
   mma.sync dK/dV block (32 KV rows, 128-row Q tiles, 512-column passes)
-  with the tiles' segment ids and ranks in shared memory. dQ is the
-  mma.sync recompute dQ block with the row tile's segment ids and ranks in
-  shared memory.
+  with the tiles' segment ids and ranks in shared memory. dQ has two
+  routes the same way (``varlen_dq_plan`` mirrors the launcher's
+  ``tma::make_dq_plan``): D and Dv <= 512 take the dense wgmma dQ block's
+  tiling below (64 Q rows whatever ``block_q_dq`` asks), its segment
+  metadata and tile lists read from device memory; wider heads the
+  mma.sync recompute dQ block at ``block_q_dq`` rows with the row tile's
+  segment ids and ranks in shared memory.
 * Dense dK/dV, D and Dv <= 512 (``csrc/flash_bwd.cu`` namespace ``dkdv``,
   TMA + wgmma): a block of 384 threads owns 64 KV rows with K and V
   resident in shared memory (128 KB at D512) and one column pass of at
@@ -227,7 +231,8 @@ class BlockConfig:
     of the S residual's slab (``flash_fwd.scores_padding``). Likewise the
     recompute dQ launcher at D and Dv <= 512 picks its own 64-row tile
     (``dq_plan``): there ``block_q_dq`` sets nothing, and the dbias slab's
-    rows pad to 64.
+    rows pad to 64. So does the packed varlen dQ launcher
+    (``varlen_dq_plan``), where ``block_q_dq`` then sets nothing either.
     """
 
     block_q: int = 64
@@ -766,6 +771,26 @@ def dq_plan(d: int, dv: int, itemsize: int = 2) -> DqPlan:
                   dq_smem_bytes(rows, d_pad, dv_pad, itemsize), ((0, d_pad),))
 
 
+def varlen_dq_plan(d: int, dv: int, itemsize: int = 2) -> DqPlan:
+    """The packed varlen dQ route by head dims alone (padded to 64-column
+    chunks), as ``csrc/varlen_bwd.cu`` ``tma::make_dq_plan`` computes it
+    (the library hands its own out through ``varlen.varlen_dq_kernel_plan``;
+    the card test holds the two equal): D and Dv <= 512 take the wgmma
+    block, whose tiling is the dense ``dq_plan``'s (64 Q rows whatever
+    ``block_q_dq`` asks; the block reads its segment metadata and tile lists
+    from device memory, so it costs no shared memory); wider heads the
+    mma.sync block at its tallest row tile, with ``varlen_dq_smem_bytes``."""
+    plan = dq_plan(d, dv, itemsize)
+    if plan.route == "wgmma":
+        return plan
+    d_pad, dv_pad = _round_up(d, D_CHUNK), _round_up(dv, D_CHUNK)
+    tall = FWD_ROW_TILES[0] * d_pad <= FWD_ACC_ELEMS and \
+        varlen_dq_smem_bytes(FWD_ROW_TILES[0], d_pad, dv_pad, itemsize) <= SMEM_LIMIT_BYTES
+    rows = FWD_ROW_TILES[0] if tall else FWD_ROW_TILES[1]
+    return replace(plan, q_rows=rows,
+                   smem_bytes=varlen_dq_smem_bytes(rows, d_pad, dv_pad, itemsize))
+
+
 def dq_fits(block_q: int, d: int, dv: int, itemsize: int = 2) -> bool:
     """Whether the dQ kernels take this row tile: the fp32 dQ tile
     (block_q x D) in registers and the recompute block in shared memory."""
@@ -831,6 +856,7 @@ __all__ = [
     "varlen_dkdv_plan",
     "varlen_dkdv_smem_bytes",
     "varlen_dq_smem_bytes",
+    "varlen_dq_plan",
     "varlen_bwd_fits",
     "dq_fits",
     "FROM_S_MAX_DV",

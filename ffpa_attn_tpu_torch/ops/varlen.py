@@ -15,15 +15,18 @@ compares ``(q_seg == k_seg) & (k_pos <= q_rank [+ wr]) [& k_pos >= q_rank -
 wl]`` (``_varlen_mask``). ``_tile_needed`` marks the (Q tile, KV tile)
 pairs that are not provably fully masked, at each kernel's own tile sizes;
 ``_interval_schedule`` turns it into intervals of tiles and
-``_needed_tiles`` into per-tile lists. The forward's wgmma route walks each
-64-row Q tile's needed KV tiles only, the Q tiles most needed first; its
-mma.sync route each ``block_q``-row Q tile's [jmin, jmax]
-(``_varlen_fwd_tiles``). dK/dV walks each KV tile's [imin, imax] of Q
-tiles (the needed matrix transposed, at the dK/dV route's tiles: 64 x 64
-on wgmma, 128 x 32 on mma.sync) and dQ each Q tile's [jmin, jmax]
-(``_varlen_bwd_schedules``). The kernels read their schedules from device
-memory. The metadata is computed once per call, padded so that every
-kernel's tiles divide it, and saved for the backward.
+``_needed_tiles`` into per-tile lists. On the wgmma routes (D, Dv <= 512)
+one schedule serves the whole call (``_walk_schedule``: the needed matrix
+at 64 x 64 and its lists, computed once by the forward and saved for the
+backward): the forward and dQ walk each 64-row Q tile's needed KV tiles
+only, the Q tiles most needed first; dK/dV each KV tile's [imin, imax] of
+Q tiles, the needed matrix transposed (``_backward_schedules``). The
+mma.sync routes (wider heads) compute their own intervals at their own
+tiles: the forward each ``block_q``-row Q tile's [jmin, jmax], dK/dV at
+128 x 32 and dQ at ``block_q_dq`` x 64 (``_varlen_bwd_schedules``). The
+kernels read their schedules from device memory. The metadata is computed
+once per call, padded so that every kernel's tiles divide it, and saved
+for the backward.
 
 Bound on an H100: bytes, barely. The forward does 4 * Hq * D flop per
 attended (row, col) pair, summed over the segments' bands; at the serving
@@ -43,11 +46,13 @@ interval's tiles.
 The backward is bound by operations: 4 matmul units of 2 * Hq * D flop per
 band pair for dK/dV and 3 for dQ (``utils/profiling.py``
 ``varlen_backward_counts``). Its kernels are the dense backward's blocks
-(``csrc/flash_bwd.cu``) with the segment mask and the intervals: dK/dV at
-D, Dv <= 512 the TMA + wgmma block (64 KV rows, 64-row Q tiles, a fast
-path for blocks inside one segment's band, the longest intervals first),
-wider heads and dQ the mma.sync blocks. The dK/dV block reduces the GQA
-group in fp32 in its registers. delta = rowsum(dO * O) is a plain
+(``csrc/flash_bwd.cu``) with the segment mask and the schedule: at D, Dv
+<= 512 the TMA + wgmma blocks, dK/dV (64 KV rows, 64-row Q tiles, the
+longest intervals first) and dQ (64 Q rows walking the forward's needed
+tiles, the most needed Q tiles first), each with a fast path for blocks
+inside one segment's band; wider heads the mma.sync blocks over their
+intervals. The dK/dV block reduces the GQA group in fp32 in its
+registers. delta = rowsum(dO * O) is a plain
 reduction, outside any kernel as in JAX.
 """
 
@@ -62,8 +67,8 @@ from ..env import ENV
 from ..logger import init_logger
 from . import _build
 from .config import (
-    D_CHUNK, DKDV_Q_TILE, FWD_ROW_TILES, KV_TILE, BlockConfig, DkdvPlan, FwdPlan, cdiv,
-    varlen_dkdv_plan, varlen_dq_smem_bytes, varlen_fits, varlen_fwd_plan,
+    D_CHUNK, DKDV_Q_TILE, FWD_ROW_TILES, KV_TILE, BlockConfig, DkdvPlan, DqPlan, FwdPlan, cdiv,
+    varlen_dkdv_plan, varlen_dq_plan, varlen_fits, varlen_fwd_plan,
 )
 from .flash_fwd import _pad_last, check_kernel_inputs
 from .reference import DEFAULT_MASK_VALUE
@@ -359,21 +364,49 @@ def _strided_rows(x: torch.Tensor, width: int) -> torch.Tensor:
     return x if ok else x.contiguous()
 
 
+def _walk_schedule(meta, tq: int, rows: int, causal: bool, window):
+    """The wgmma routes' one schedule of a call, on the metadata's device
+    with no host sync: (needed, tiles, count, order), ``needed``
+    [ceil(Tq / rows), Tk_pad / KV_TILE] of ``_tile_needed`` over the
+    metadata cut to ``rows``-row Q tiles, then its ``_needed_tiles``. The
+    forward and dQ walk each Q tile's listed KV tiles, the Q tiles in
+    ``order``; dK/dV the intervals of ``needed``'s transpose
+    (``_dkdv_intervals``). ``window`` is normalized."""
+    needed = _tile_needed(*_q_tiles(meta, tq, rows), rows, KV_TILE, causal, int(window[0]),
+                          int(window[1]))
+    return (needed,) + _needed_tiles(needed)
+
+
+def _call_walk(meta, tq: int, d_pad: int, dv_pad: int, causal: bool, window):
+    """The call's ``_walk_schedule`` at the forward's 64-row tiles where
+    the forward takes its wgmma route (D, Dv <= 512: the backward's routes
+    then are wgmma too, at the same tiles), else None. ``window`` is
+    normalized."""
+    plan = varlen_fwd_plan(d_pad, dv_pad)
+    if plan.route != "wgmma":
+        return None
+    return _walk_schedule(meta, tq, plan.q_rows, causal, window)
+
+
 def _varlen_fwd_tiles(meta, tq: int, d_pad: int, dv_pad: int, config: BlockConfig, causal: bool,
-                      window):
+                      window, walk=None):
     """(plan, rows, meta, schedule) of a forward launch, on the metadata's
     device with no host sync: the route by head dims (``varlen_fwd_plan``),
     its Q rows (the plan's 64 on wgmma whatever ``config.block_q`` asks,
     ``config.block_q`` on mma.sync), the metadata cut to those rows' tiles,
-    and the schedule at those tiles and KV_TILE keys: on wgmma
-    ``_needed_tiles`` of ``_tile_needed`` (each Q tile's needed KV tiles,
-    their count, the Q tiles most needed first), on mma.sync
+    and the schedule at those tiles and KV_TILE keys: on wgmma the lists of
+    ``_walk_schedule`` (each Q tile's needed KV tiles, their count, the Q
+    tiles most needed first; ``walk``'s when given), on mma.sync
     ``_interval_schedule``'s (jmin, jmax). ``window`` is normalized."""
     plan = varlen_fwd_plan(d_pad, dv_pad)
     rows = plan.q_rows if plan.route == "wgmma" else config.block_q
     meta = _q_tiles(meta, tq, rows)
-    needed = _tile_needed(*meta, rows, KV_TILE, causal, int(window[0]), int(window[1]))
-    schedule = _needed_tiles(needed) if plan.route == "wgmma" else _interval_schedule(needed)
+    if plan.route == "wgmma":
+        schedule = (walk if walk is not None else
+                    _walk_schedule(meta, tq, rows, causal, window))[1:]
+    else:
+        schedule = _interval_schedule(
+            _tile_needed(*meta, rows, KV_TILE, causal, int(window[0]), int(window[1])))
     return plan, rows, meta, schedule
 
 
@@ -429,13 +462,16 @@ def _varlen_kernel(q, k, v, meta, schedule, config: BlockConfig, plan: FwdPlan, 
 
 
 def _varlen_forward(q, k, v, cu_q, cu_k, *, scale, causal, config: Optional[BlockConfig] = None,
-                    softcap: float = 0.0, window: tuple = (-1, -1), alibi=None, meta=None):
+                    softcap: float = 0.0, window: tuple = (-1, -1), alibi=None, meta=None,
+                    walk=None):
     """Packed varlen forward: (o [Tq, Hq, Dv], lse [Hq, Tq] fp32).
 
     ``meta`` is the call's ``_call_metadata`` (computed here when not
-    given). The schedule is computed at the route's tiles on the inputs'
-    device (``_varlen_fwd_tiles``). CPU tensors run the plain version;
-    CUDA tensors launch the kernel, or raise for what it does not take."""
+    given), ``walk`` its ``_call_walk`` (the wgmma route's schedule,
+    computed here when not given). The schedule is computed at the route's
+    tiles on the inputs' device (``_varlen_fwd_tiles``). CPU tensors run the
+    plain version; CUDA tensors launch the kernel, or raise for what it
+    does not take."""
     from .dispatch import pick_varlen_config
 
     tq, _, d = q.shape
@@ -448,7 +484,8 @@ def _varlen_forward(q, k, v, cu_q, cu_k, *, scale, causal, config: Optional[Bloc
     if q.device.type == "cpu":
         return _varlen_forward_plain(q, k, v, meta, scale=scale, causal=causal, softcap=softcap,
                                      window=window, alibi=alibi)
-    plan, _, meta, schedule = _varlen_fwd_tiles(meta, tq, d_pad, dv_pad, config, causal, window)
+    plan, _, meta, schedule = _varlen_fwd_tiles(meta, tq, d_pad, dv_pad, config, causal, window,
+                                                walk)
     return _varlen_kernel(q, k, v, meta, schedule, config, plan, scale=scale, causal=causal,
                           softcap=softcap, window=window, alibi=alibi)
 
@@ -548,11 +585,43 @@ def _varlen_bwd_schedules(meta, tq: int, block_q_dq: int, causal: bool, window,
     normalized."""
     wl, wr = int(window[0]), int(window[1])
     q_rows, kv_rows = dkdv_tiles
-    needed = _tile_needed(*meta, q_rows, kv_rows, causal, wl, wr)
+    dkdv = _dkdv_intervals(_tile_needed(*meta, q_rows, kv_rows, causal, wl, wr))
+    needed = _tile_needed(*_q_tiles(meta, tq, block_q_dq), block_q_dq, KV_TILE, causal, wl, wr)
+    return dkdv, _interval_schedule(needed)
+
+
+def _dkdv_intervals(needed):
+    """The dK/dV kernel's (imin, imax, order) from a ``needed`` matrix at
+    its tiles [Q tiles, KV tiles]: each KV tile's interval of Q tiles (the
+    matrix transposed), and the KV tiles longest interval first (a stable
+    sort on the device)."""
     imin, imax = _interval_schedule(needed.T)
     order = torch.argsort(imax - imin, descending=True, stable=True).to(torch.int32)
-    needed = _tile_needed(*_q_tiles(meta, tq, block_q_dq), block_q_dq, KV_TILE, causal, wl, wr)
-    return (imin, imax, order), _interval_schedule(needed)
+    return imin, imax, order
+
+
+def _backward_schedules(meta, tq: int, dkdv_plan: DkdvPlan, dq_plan: DqPlan, block_q_dq: int,
+                        causal: bool, window, walk=None):
+    """(dK/dV schedule, dQ schedule) of a backward launch, each at its
+    route's tiles, on the metadata's device with no host sync. The two
+    routes agree (both by head dims alone). On wgmma (64 x 64 tiles) both
+    read the forward's ``walk`` (``_call_walk``; computed here when not
+    given): dQ takes its lists (tiles, count, order) as they are, dK/dV the
+    ``_dkdv_intervals`` of its needed matrix. That matrix has ceil(Tq / 64)
+    rows where ``_tile_needed`` over the call's metadata (padded to 128
+    query rows) has one more when ceil(Tq / 64) is odd; that tile holds
+    only rows past Tq, whose segment id -1 matches no key, so its row is
+    all False and the intervals are the same. On mma.sync they are
+    ``_varlen_bwd_schedules``' own: dK/dV at the plan's 128 x 32, dQ each
+    ``block_q_dq``-row Q tile's (jmin, jmax). ``window`` is normalized."""
+    assert dkdv_plan.route == dq_plan.route
+    if dq_plan.route != "wgmma":
+        return _varlen_bwd_schedules(meta, tq, block_q_dq, causal, window,
+                                     (dkdv_plan.q_rows, dkdv_plan.kv_rows))
+    assert (dkdv_plan.q_rows, dkdv_plan.kv_rows) == (dq_plan.q_rows, KV_TILE)
+    if walk is None:
+        walk = _walk_schedule(meta, tq, dq_plan.q_rows, causal, window)
+    return _dkdv_intervals(walk[0]), walk[1:]
 
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -561,14 +630,17 @@ _VARLEN_BWD_ARGTYPES = {
     + [_P],
     "ffpa_varlen_bwd_dkdv_plan": [_I, _I, ctypes.POINTER(ctypes.c_int), _I],
     "ffpa_varlen_bwd_dkdv_attrs": [_I] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2,
-    "ffpa_varlen_bwd_dq": [_P] * 4 + [_LL] * 8 + [_P] * 10 + [_I] * 9 + [_F] * 2 + [_I] * 2
+    "ffpa_varlen_bwd_dq": [_P] * 4 + [_LL] * 8 + [_P] * 13 + [_I] * 10 + [_F] * 2 + [_I] * 2
     + [_P],
+    "ffpa_varlen_bwd_dq_plan": [_I, _I, ctypes.POINTER(ctypes.c_int), _I],
+    "ffpa_varlen_bwd_dq_attrs": [_I] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2,
 }
 
 
-# The dK/dV kernels of both routes, by the substrings of their names (what
-# a profiler filter matches).
+# The dK/dV and the dQ kernels of both routes, by the substrings of their
+# names (what a profiler filter matches).
 DKDV_KERNELS = ("varlen_dkdv_kernel", "varlen_dkdv_wgmma_kernel")
+DQ_KERNELS = ("varlen_dq_kernel", "varlen_dq_wgmma_kernel")
 
 
 def _varlen_bwd_lib() -> ctypes.CDLL:
@@ -605,6 +677,31 @@ def varlen_dkdv_kernel_attrs(route: str, dtype=torch.bfloat16) -> dict:
     err = lib.ffpa_varlen_bwd_dkdv_attrs(int(route == "wgmma"), int(dtype == torch.float16),
                                          ctypes.byref(regs), ctypes.byref(local))
     _build.check(lib, err, "varlen dkdv kernel attributes")
+    return {"registers": regs.value, "local_bytes": local.value}
+
+
+def varlen_dq_kernel_plan(d: int, dv: int) -> DqPlan:
+    """The route and tiling the varlen dQ launcher takes at head dims (d,
+    dv) (padded to 64-column chunks), read from the library: what
+    ``config.varlen_dq_plan`` mirrors. Needs a card."""
+    lib = _varlen_bwd_lib()
+    out = (ctypes.c_int * 16)()
+    err = lib.ffpa_varlen_bwd_dq_plan(cdiv(d, D_CHUNK) * D_CHUNK, cdiv(dv, D_CHUNK) * D_CHUNK,
+                                      out, len(out))
+    _build.check(lib, err, "varlen dq kernel plan")
+    blocks = tuple((out[6 + 2 * i], out[7 + 2 * i]) for i in range(out[5]))
+    return DqPlan("wgmma" if out[0] == 1 else "mma_sync", out[1], out[2], out[3], out[4], blocks)
+
+
+def varlen_dq_kernel_attrs(route: str, dtype=torch.bfloat16, block_q: int = 64) -> dict:
+    """Registers a thread (at launch, before setmaxnreg) and local (spill)
+    bytes of the varlen dQ kernel of ``route`` ("wgmma", or "mma_sync" at
+    row tile ``block_q``), from cudaFuncGetAttributes. Needs a card."""
+    lib = _varlen_bwd_lib()
+    regs, local = ctypes.c_int(0), ctypes.c_int(0)
+    err = lib.ffpa_varlen_bwd_dq_attrs(int(route == "wgmma"), int(dtype == torch.float16),
+                                       block_q, ctypes.byref(regs), ctypes.byref(local))
+    _build.check(lib, err, "varlen dq kernel attributes")
     return {"registers": regs.value, "local_bytes": local.value}
 
 
@@ -670,27 +767,37 @@ def _varlen_dkdv_kernel(ops: _BwdOperands, meta, schedule, config: BlockConfig, 
 def _varlen_dq_kernel(ops: _BwdOperands, meta, schedule, config: BlockConfig, *, scale, causal,
                       softcap, window):
     """Launch the dQ kernel of ``csrc/varlen_bwd.cu``: dq packed in the
-    input type (same contract as ``_varlen_dq_plain``)."""
+    input type (same contract as ``_varlen_dq_plain``). The route is the
+    library's by head dims (``config.varlen_dq_plan``); ``schedule`` is
+    ``_backward_schedules``' dQ part at its tiles: (tiles, count, order) on
+    wgmma (64-row Q tiles), (jmin, jmax) at ``config.block_q_dq`` rows on
+    mma.sync."""
     tq, hq = ops.q.shape[0], ops.q.shape[1]
     tk, hkv = ops.k.shape[0], ops.k.shape[1]
-    bq = config.block_q_dq
+    plan = varlen_dq_plan(ops.d_pad, ops.dv_pad, ops.q.element_size())
     dq = torch.empty((tq, hq, ops.d_pad), dtype=ops.q.dtype, device=ops.q.device)
-    jmin, jmax = schedule
+    if plan.route == "wgmma":
+        (tiles, ntile, order), jmin, jmax = schedule, None, None
+        num_q_tiles, rows = tiles.shape[0], plan.q_rows
+    else:
+        (jmin, jmax), tiles, ntile, order = schedule, None, None, None
+        num_q_tiles, rows = jmin.shape[0], config.block_q_dq
     q_seg, q_rank, k_seg, k_pos = meta
     if ENV.device_log_level() >= 2:
-        logger.info("varlen_dq launch grid=(%d,%d) block_q=%d smem=%d D=%d Dv=%d Tq=%d Tk=%d",
-                    hq, jmin.shape[0], bq,
-                    varlen_dq_smem_bytes(bq, ops.d_pad, ops.dv_pad, ops.q.element_size()),
-                    ops.d_pad, ops.dv_pad, tq, tk)
+        logger.info("varlen_dq launch route=%s grid=(%d,%d) rows=%d D=%d Dv=%d Tq=%d Tk=%d",
+                    plan.route, hq, num_q_tiles, rows, ops.d_pad, ops.dv_pad, tq, tk)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     lib = _varlen_bwd_lib()
     with torch.cuda.device(ops.q.device):
         err = lib.ffpa_varlen_bwd_dq(
             *ops.head(), dq.data_ptr(), q_seg.data_ptr(), q_rank.data_ptr(), k_seg.data_ptr(),
-            k_pos.data_ptr(), jmin.data_ptr(), jmax.data_ptr(),
-            None if ops.alibi is None else ops.alibi.data_ptr(),
-            int(ops.q.dtype == torch.float16), bq, hq, hkv, tq, tk, jmin.shape[0], ops.d_pad,
-            ops.dv_pad, float(scale), float(softcap), int(window[0]),
-            0 if causal else int(window[1]),
+            k_pos.data_ptr(), ptr(jmin), ptr(jmax), ptr(tiles), ptr(ntile), ptr(order),
+            ptr(ops.alibi), int(ops.q.dtype == torch.float16), config.block_q_dq, hq, hkv, tq,
+            tk, num_q_tiles, k_seg.shape[0] // KV_TILE, ops.d_pad, ops.dv_pad, float(scale),
+            float(softcap), int(window[0]), 0 if causal else int(window[1]),
             torch.cuda.current_stream(ops.q.device).cuda_stream,
         )
     _build.check(lib, err, "varlen_dq kernel launch")
@@ -699,17 +806,19 @@ def _varlen_dq_kernel(ops: _BwdOperands, meta, schedule, config: BlockConfig, *,
 
 
 def _varlen_backward(q, k, v, o, lse, do, meta, *, scale, causal, softcap: float = 0.0,
-                     window: tuple = (-1, -1), alibi=None):
+                     window: tuple = (-1, -1), alibi=None, walk=None):
     """Packed varlen backward: (dq [Tq, Hq, D], dk [Tk, Hkv, D], dv [Tk,
     Hkv, Dv]) in the inputs' dtypes, from the forward's o and lse
     (sink-inclusive where there are sinks) and the cotangent ``do``;
-    ``meta`` is the call's ``_call_metadata``.
+    ``meta`` is the call's ``_call_metadata`` and ``walk`` its
+    ``_call_walk`` as the forward saved it (None: computed here where a
+    route needs it).
 
     CPU tensors run the plain version. CUDA tensors compute delta and both
-    tile schedules on the device (no host sync; the dK/dV schedule at its
-    route's tiles) and launch the dK/dV kernel then the dQ kernel, counted
-    in ``dkdv_launches`` and ``dq_launches``, or raise for what they do not
-    take."""
+    tile schedules on the device (``_backward_schedules``: no host sync,
+    each at its route's tiles, the wgmma routes' from ``walk``) and launch
+    the dK/dV kernel then the dQ kernel, counted in ``dkdv_launches`` and
+    ``dq_launches``, or raise for what they do not take."""
     from .dispatch import pick_varlen_backward_config
 
     window = (int(window[0]), -1 if causal else int(window[1]))
@@ -719,9 +828,10 @@ def _varlen_backward(q, k, v, o, lse, do, meta, *, scale, causal, softcap: float
     ops = _BwdOperands(q, k, v, do, lse, _varlen_delta(do, o), alibi)
     config = pick_varlen_backward_config(d=ops.d_pad, dv=ops.dv_pad, tq=q.shape[0],
                                          dtype=q.dtype)
-    plan = varlen_dkdv_plan(ops.d_pad, ops.dv_pad, q.element_size())
-    dkdv_sched, dq_sched = _varlen_bwd_schedules(meta, q.shape[0], config.block_q_dq, causal,
-                                                 window, (plan.q_rows, plan.kv_rows))
+    dkdv_sched, dq_sched = _backward_schedules(
+        meta, q.shape[0], varlen_dkdv_plan(ops.d_pad, ops.dv_pad, q.element_size()),
+        varlen_dq_plan(ops.d_pad, ops.dv_pad, q.element_size()), config.block_q_dq, causal,
+        window, walk)
     dk, dv = _varlen_dkdv_kernel(ops, meta, dkdv_sched, config, **kw)
     dq = _varlen_dq_kernel(ops, meta, dq_sched, config, **kw)
     return dq, dk, dv
@@ -742,20 +852,27 @@ def _varlen_apply_sinks(o, lse, sinks):
 class _VarlenCore(torch.autograd.Function):
     """The varlen core op (the JAX package's ``_varlen_core`` custom_vjp).
 
-    The forward computes the call's metadata once, runs ``_varlen_forward``
-    and applies sinks; it saves q, k, v, the sink-inclusive o and lse and
-    the metadata. The backward runs ``_varlen_backward`` (the kernels are
-    exact under sink-inclusive residuals), the sinks' closed-form gradient
-    and a zero gradient for ALiBi slopes; the lse cotangent is ignored."""
+    The forward computes the call's metadata once and, where the routes are
+    wgmma (D, Dv <= 512), its one tile schedule (``_call_walk``), runs
+    ``_varlen_forward`` on them and applies sinks; it saves q, k, v, the
+    sink-inclusive o and lse, the metadata and the schedule. The backward
+    runs ``_varlen_backward`` on the saved metadata and schedule (the
+    kernels are exact under sink-inclusive residuals), the sinks'
+    closed-form gradient and a zero gradient for ALiBi slopes; the lse
+    cotangent is ignored."""
 
     @staticmethod
     def forward(ctx, scale, causal, config, softcap, window, q, k, v, cu_q, cu_k, alibi, sinks):
         meta = _call_metadata(cu_q, cu_k, q.shape[0], k.shape[0], q.device)
+        wnorm = (int(window[0]), -1 if causal else int(window[1]))
+        walk = _call_walk(meta, q.shape[0], cdiv(q.shape[-1], D_CHUNK) * D_CHUNK,
+                          cdiv(v.shape[-1], D_CHUNK) * D_CHUNK, causal, wnorm)
         o, lse = _varlen_forward(q, k, v, cu_q, cu_k, scale=scale, causal=causal, config=config,
-                                 softcap=softcap, window=window, alibi=alibi, meta=meta)
+                                 softcap=softcap, window=window, alibi=alibi, meta=meta,
+                                 walk=walk)
         if sinks is not None:
             o, lse = _varlen_apply_sinks(o, lse, sinks)
-        ctx.save_for_backward(q, k, v, o, lse, *meta, alibi, sinks)
+        ctx.save_for_backward(q, k, v, o, lse, *meta, alibi, sinks, *(walk or ()))
         ctx.static = dict(scale=scale, causal=causal, softcap=softcap, window=window)
         ctx.mark_non_differentiable(lse)
         return o, lse
@@ -763,9 +880,10 @@ class _VarlenCore(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do, dlse):
         del dlse  # lse is a non-differentiable output
-        q, k, v, o, lse, *meta, alibi, sinks = ctx.saved_tensors
+        q, k, v, o, lse, *rest = ctx.saved_tensors
+        meta, (alibi, sinks), walk = rest[:4], rest[4:6], rest[6:]
         dq, dk, dv = _varlen_backward(q, k, v, o, lse, do, tuple(meta), alibi=alibi,
-                                      **ctx.static)
+                                      walk=tuple(walk) or None, **ctx.static)
         dsinks = None
         if sinks is not None:
             from .attention import sink_grad

@@ -23,6 +23,7 @@ from _torch_parity import (  # noqa: F401
 )
 from ffpa_attn_tpu_torch import ffpa_attn_varlen_func
 from ffpa_attn_tpu_torch.ops import varlen as tvar
+from ffpa_attn_tpu_torch.ops.config import varlen_dkdv_plan, varlen_dq_plan
 from test_torch_varlen import CARD_CASES, CASES, _inputs, _kwargs, _max_seqlens
 
 GRAD_TOL = {"bfloat16": 5e-2, "float16": 1e-2}
@@ -170,6 +171,158 @@ def test_backward_schedules_cover_every_visible_pair(causal, window, cu_k_shift,
     assert ((jmin[i] <= j) & (j <= jmax[i])).all()
 
 
+def _saved_walk(x, case):
+    """The schedule ``_VarlenCore`` saves from the forward of one
+    ``ffpa_attn_varlen_func`` call on the CPU (the last four of its saved
+    tensors: needed, tiles, count, order)."""
+    leaves = [to_torch(x[n], "bfloat16").requires_grad_() for n in ("q", "k", "v")]
+    cu = [torch.from_numpy(x[n]) for n in ("cu_q", "cu_k")]
+    out = ffpa_attn_varlen_func(*leaves, *cu, *_max_seqlens(x), **_call_kwargs(case))
+    return tuple(out.grad_fn.saved_tensors[-4:])
+
+
+@pytest.mark.parametrize("causal,window", [
+    (False, (-1, -1)), (True, (-1, -1)), (True, (24, -1)), (False, (16, 8)),
+])
+@pytest.mark.parametrize("cu_k_shift", [0, 40])
+@pytest.mark.parametrize("route", ["wgmma", "mma_sync"])
+def test_saved_schedules_equal_fresh(causal, window, cu_k_shift, route):
+    """The schedule the forward saves (64 x 64 needed tiles) gives the
+    backward the same schedules ``_varlen_bwd_schedules`` computes afresh:
+    on the wgmma routes dK/dV's intervals, order included, equal those at 64
+    x 64 over the call's metadata (padded to 128 query rows: the extra Q
+    tile holds only rows past Tq and is never needed), and dQ walks each
+    64-row Q tile's needed tiles, every one inside its [jmin, jmax]; the
+    mma.sync routes (D1024) ignore it and compute their own at 128 x 32 and
+    ``block_q_dq`` x 64. A padded tail, a length-0 segment, tail-aligned
+    cross keys."""
+    cu_q = np.asarray([0, 70, 70, 200, 201, 300], np.int32)
+    cu_k = cu_q.copy()
+    cu_k[-1] += cu_k_shift
+    tq, tk = 330, 330 + cu_k_shift
+    rng = np.random.default_rng(2)
+    x = dict(q=randn(rng, (tq, 2, 64)), k=randn(rng, (tk, 2, 64)), v=randn(rng, (tk, 2, 64)),
+             cu_q=cu_q, cu_k=cu_k)
+    case = dict(causal=causal, window=window)
+    walk = _saved_walk(x, case)
+    wnorm = (window[0], -1 if causal else window[1])
+    meta = tvar._call_metadata(torch.from_numpy(cu_q), torch.from_numpy(cu_k), tq, tk, "cpu")
+    fresh = tvar._walk_schedule(meta, tq, 64, causal, wnorm)
+    assert walk[0].dtype == torch.bool and walk[0].shape == (-(-tq // 64), -(-tk // 64))
+    assert all(torch.equal(a, b) for a, b in zip(walk, fresh))
+    d = 64 if route == "wgmma" else 1024
+    dkdv_plan, dq_plan = varlen_dkdv_plan(d, d), varlen_dq_plan(d, d)
+    assert dkdv_plan.route == dq_plan.route == route
+    bq = 32 if route == "mma_sync" else 64
+    (imin, imax, order), dq = tvar._backward_schedules(meta, tq, dkdv_plan, dq_plan, bq, causal,
+                                                       wnorm, walk)
+    want_dkdv, (jmin, jmax) = tvar._varlen_bwd_schedules(
+        meta, tq, bq, causal, wnorm, (dkdv_plan.q_rows, dkdv_plan.kv_rows))
+    for got, want in zip((imin, imax, order), want_dkdv):
+        assert torch.equal(got, want)
+    if route == "mma_sync":
+        assert torch.equal(dq[0], jmin) and torch.equal(dq[1], jmax)
+        return
+    tiles, count, qorder = dq
+    assert all(torch.equal(a, b) for a, b in zip(dq, walk[1:]))
+    assert sorted(qorder.tolist()) == list(range(tiles.shape[0]))
+    for i in range(tiles.shape[0]):
+        listed = tiles[i, :int(count[i])]
+        assert torch.equal(listed, torch.nonzero(walk[0][i]).flatten().to(torch.int32))
+        assert bool(((listed >= jmin[i]) & (listed <= jmax[i])).all())
+
+
+def _dq_walk(q, k, v, do, lse, delta, meta, schedule, *, scale, causal, softcap=0.0,
+             window=(-1, -1), alibi=None):
+    """The wgmma dQ kernel's walk in plain fp32 PyTorch: the 64-row Q tiles
+    in the schedule's order, each visiting only its listed KV tiles; a 64 x
+    32 block that ``_full_blocks`` marks full skips the keep-mask, any other
+    selects P to 0 where the mask drops the pair; dS (softcap's factor
+    included) rounded to the input type before dS K. A Q tile with no listed
+    tile gives dQ = 0. ``window`` is normalized. dq [Tq, Hq, D] as
+    ``_varlen_dq_plain`` returns it."""
+    tiles, count, order = schedule
+    tq, hq, d = q.shape
+    hkv, dv = k.shape[1], v.shape[-1]
+    q_seg, q_rank, k_seg, k_pos = meta
+    nqb, tk_pad = tiles.shape[0], k_seg.shape[0]
+
+    def rows_of(t, n, width):  # [T, H, W] -> [H, n, W] fp32, zero rows past T
+        out = torch.zeros((t.shape[1], n, width))
+        out[:, :t.shape[0]] = t.transpose(0, 1).float()
+        return out
+
+    qf, dof = rows_of(q, nqb * 64, d), rows_of(do, nqb * 64, dv)
+    kf = rows_of(k, tk_pad, d).repeat_interleave(hq // hkv, 0)
+    vf = rows_of(v, tk_pad, dv).repeat_interleave(hq // hkv, 0)
+    lsef, deltaf = torch.zeros((hq, nqb * 64)), torch.zeros((hq, nqb * 64))
+    lsef[:, :tq], deltaf[:, :tq] = lse, delta
+    full = tvar._full_blocks(meta, 64, 32, causal, window, softcap=softcap,
+                             alibi=alibi is not None)
+    dq = torch.zeros((hq, nqb * 64, d))
+    for i in order.tolist():
+        r = slice(64 * i, 64 * i + 64)
+        acc = torch.zeros((hq, 64, d))
+        for j in tiles[i, :int(count[i])].tolist():
+            c = slice(64 * j, 64 * j + 64)
+            s = torch.einsum("hqd,hkd->hqk", qf[:, r], kf[:, c]) * scale
+            cap = 1.0
+            if softcap > 0.0:
+                s = softcap * torch.tanh(s / softcap)
+                cap = 1.0 - torch.square(s / softcap)
+            if alibi is not None:
+                s = s - alibi.float()[:, None, None] * (
+                    q_rank[r, None] - k_pos[None, c]).abs().float()
+            keep = tvar._varlen_mask(q_seg[r, None], q_rank[r, None], k_seg[None, c],
+                                     k_pos[None, c], causal, window[0], window[1])
+            keep = keep | full[i, 2 * j:2 * j + 2].repeat_interleave(32)[None, :]
+            p = torch.where(keep, torch.exp(s - lsef[:, r, None]), 0.0)
+            dp = torch.einsum("hqd,hkd->hqk", dof[:, r], vf[:, c])
+            ds = p * (dp - deltaf[:, r, None]) * cap
+            acc += torch.einsum("hqk,hkd->hqd", ds.to(q.dtype).float(), kf[:, c])
+        dq[:, r] = acc * scale
+    assert sorted(order.tolist()) == list(range(nqb))
+    return dq[:, :tq].transpose(0, 1).to(q.dtype)
+
+
+@pytest.mark.parametrize("name", sorted(CARD_CASES))
+def test_dq_walk_matches_plain(name):
+    """The wgmma dQ kernel's walk (the forward's saved schedule: only the
+    needed 64 x 64 tiles, the Q tiles most needed first) and its full-block
+    fast path compute ``_varlen_dq_plain``'s function: dq per row at the
+    bf16 gradient tolerance (the walk rounds dS to bf16 as the kernel
+    does), and every Q tile with no listed KV tile exactly 0, as the plain
+    version gives."""
+    case = CARD_CASES[name]
+    x = _inputs(case, seed=8)
+    q, k, v = (to_torch(x[n], "bfloat16") for n in ("q", "k", "v"))
+    do = to_torch(_cotangent(x, seed=9), "bfloat16")
+    tq, tk = q.shape[0], k.shape[0]
+    causal = case.get("causal", False)
+    window = case.get("window", (-1, -1))
+    window = (window[0], -1 if causal else window[1])
+    alibi = to_torch(x["alibi"])
+    kw = dict(scale=q.shape[-1] ** -0.5, causal=causal, softcap=case.get("softcap", 0.0),
+              window=window)
+    meta = tvar._call_metadata(*(torch.from_numpy(x[n]) for n in ("cu_q", "cu_k")), tq, tk, "cpu")
+    o, lse = tvar._varlen_forward_plain(q, k, v, meta, alibi=alibi, **kw)
+    if x["sinks"] is not None:
+        o, lse = tvar._varlen_apply_sinks(o, lse, to_torch(x["sinks"]))
+    delta = tvar._varlen_delta(do, o)
+    walk = tvar._walk_schedule(meta, tq, 64, causal, window)
+    got = _dq_walk(q, k, v, do, lse, delta, tvar._q_tiles(meta, tq, 64), walk[1:],
+                   alibi=alibi, **kw)
+    want = tvar._varlen_dq_plain(q, k, v, do, lse, delta, meta, alibi=alibi, **kw)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert grad_row_rel_err(got, want) < GRAD_TOL["bfloat16"], name
+    tiles, count, _ = walk[1:]
+    for i in torch.nonzero(count == 0).flatten().tolist():
+        assert bool((got[64 * i:64 * i + 64] == 0).all()) and bool(
+            (want[64 * i:64 * i + 64] == 0).all()), name
+    if name == "cross_causal_empty_rows":
+        assert int(count[0]) == 0
+
+
 # -- on the card: each kernel against its plain version ----------------------
 
 
@@ -206,6 +359,22 @@ def test_varlen_backward_kernels_match_plain_on_card(cuda, name, dtype):
         assert g.dtype == w.dtype and g.shape == w.shape, n
         assert bool(torch.isfinite(g).all()), (name, n)
         assert grad_row_rel_err(g, w) < GRAD_TOL[dtype], (name, n)
+
+
+@pytest.mark.parametrize("name", sorted(CARD_CASES))
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_saved_schedule_gives_the_fresh_gradients_on_card(cuda, name, dtype):
+    """``torch.autograd.grad`` through ``ffpa_attn_varlen_func`` (the
+    backward on the forward's saved schedule) gives bit for bit the
+    gradients of ``_varlen_backward`` with its schedules computed afresh,
+    on the same inputs."""
+    case = CARD_CASES[name]
+    x = _inputs(case, seed=5)
+    do = _cotangent(x)
+    got = _torch_grads(x, case, do, dtype, device=cuda)[:3]
+    fresh, _ = _card_backward(x, case, dtype, cuda, do=do)
+    for g, w, n in zip(got, fresh, ("dq", "dk", "dv")):
+        assert torch.equal(g, w), (name, n)
 
 
 def test_varlen_backward_strided_and_expanded_on_card(cuda):

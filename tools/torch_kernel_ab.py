@@ -56,11 +56,16 @@ wrappers passed, ``LegacyBanded``):
 * varlen_dkdv and varlen_dq: the packed-training backward of
   ``chip_smoke.py`` (8 documents of 2048..284 tokens, 8192 in all, H8/4
   D512 causal bf16), each kernel alone on the plain forward's (o, lse) with
-  its tile schedule computed beforehand. At D512 the head library runs the
-  wgmma dK/dV route on its 64 x 64 schedule; a base library without
-  ``ffpa_varlen_bwd_dkdv_plan`` (built from sources before that route) is
-  called with its own argument list and its mma.sync route's 128 x 32
-  schedule and 512-column passes (``LegacyVarlenBwd``).
+  its tile schedule computed beforehand (``varlen._backward_schedules`` on
+  the forward's 64 x 64 walk); the kernel's device time alone (either
+  route's, ``varlen.DKDV_KERNELS`` / ``varlen.DQ_KERNELS``) and the names of
+  the kernels each tree ran. At D512 the head library runs the wgmma
+  routes; a base library without ``ffpa_varlen_bwd_dkdv_plan`` (built from
+  sources before the wgmma dK/dV route) is called with its own argument
+  list and its mma.sync route's 128 x 32 schedule and 512-column passes
+  (``LegacyVarlenBwd``), one without ``ffpa_varlen_bwd_dq_plan`` (before
+  the wgmma dQ route) with its own argument list and its intervals at
+  ``block_q_dq`` rows (``LegacyVarlenDq``).
 
 A kernel whose source the base tree lacks is timed on the head alone. Each
 time is the kernels' device time per call from torch.profiler (for from_s
@@ -104,7 +109,7 @@ from ffpa_attn_tpu_torch.ops import (  # noqa: E402
     _build, decode, flash_bwd, flash_fwd, paged, varlen,
 )
 from ffpa_attn_tpu_torch.ops.config import (  # noqa: E402
-    FWD_ACC_ELEMS, dkdv_col_passes, varlen_dkdv_plan,
+    FWD_ACC_ELEMS, dkdv_col_passes, varlen_dkdv_plan, varlen_dq_plan,
 )
 from ffpa_attn_tpu_torch.ops.dispatch import (  # noqa: E402
     pick_backward_config, pick_varlen_backward_config,
@@ -126,7 +131,8 @@ SOURCE = {"flash_fwd": "flash_fwd", "flash_fwd_scores": "flash_fwd",
 # kernel -> the substrings of its CUDA kernels' names (either route), where a
 # run also launches other kernels that are not timed
 ONLY = {"from_s": flash_bwd.FROM_S_KERNELS, "varlen_fwd": varlen.FWD_KERNELS,
-        "varlen_fwd_train": varlen.FWD_KERNELS}
+        "varlen_fwd_train": varlen.FWD_KERNELS, "varlen_dkdv": varlen.DKDV_KERNELS,
+        "varlen_dq": varlen.DQ_KERNELS}
 # kernels whose C entry point an older tree may lack
 ENTRY = {"from_s": "ffpa_bwd_dkdv_from_s", "banded_dk": "ffpa_bwd_banded_dk",
          "varlen_fwd": "ffpa_varlen_fwd", "varlen_fwd_train": "ffpa_varlen_fwd",
@@ -249,6 +255,45 @@ class LegacyVarlenBwd:
             args[self.TILES] = imin.shape[0]
             args[self.PASSES] = dkdv_col_passes(args[self.D], args[self.DV])
             del args[self.ORDER]
+            return fn(*args)
+
+        call.argtypes = argtypes
+        return call
+
+
+class LegacyVarlenDq:
+    """A varlen_bwd library built from sources before the wgmma dQ route:
+    its dQ entry point takes no needed-tile list, counts or order (the
+    three arguments after jmax) and no KV tile count (the argument after
+    the Q tile count), and walks each ``block_q``-row Q tile's [jmin,
+    jmax]. The intervals at that row tile (``SCHEDULE``, set by
+    ``make_runs``) and their Q tile count are put in; every other symbol is
+    the library's own."""
+
+    SCHEDULE = None  # (jmin, jmax) at block_q_dq x 64
+    JMIN, JMAX, TILES, NTILE, ORDER, NQT, NKVT = 19, 20, 21, 22, 23, 31, 32
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if name != "ffpa_varlen_bwd_dq":
+            return fn
+        drop = (self.NKVT, self.ORDER, self.NTILE, self.TILES)  # descending
+        argtypes = list(varlen._VARLEN_BWD_ARGTYPES[name])
+        for i in drop:
+            del argtypes[i]
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+
+        def call(*args):
+            args = list(args)
+            jmin, jmax = self.SCHEDULE
+            args[self.JMIN], args[self.JMAX] = jmin.data_ptr(), jmax.data_ptr()
+            args[self.NQT] = jmin.shape[0]
+            for i in drop:
+                del args[i]
             return fn(*args)
 
         call.argtypes = argtypes
@@ -474,11 +519,10 @@ def make_runs(gen) -> tuple:
     bcfg = pick_varlen_backward_config(d=d, dv=d, tq=bt, dtype=torch.bfloat16)
     bdelta = varlen._varlen_delta(bdo, bo)
     ops = varlen._BwdOperands(bq, bk, bv, bdo, blse, bdelta, None)
-    plan = varlen_dkdv_plan(d, d)
-    sched = varlen._varlen_bwd_schedules(meta, bt, bcfg.block_q_dq, True, (-1, -1),
-                                         (plan.q_rows, plan.kv_rows))
-    LegacyVarlenBwd.SCHEDULE = varlen._varlen_bwd_schedules(
-        meta, bt, bcfg.block_q_dq, True, (-1, -1), (128, 32))[0][:2]
+    sched = varlen._backward_schedules(meta, bt, varlen_dkdv_plan(d, d), varlen_dq_plan(d, d),
+                                       bcfg.block_q_dq, True, (-1, -1))
+    older = varlen._varlen_bwd_schedules(meta, bt, bcfg.block_q_dq, True, (-1, -1), (128, 32))
+    LegacyVarlenBwd.SCHEDULE, LegacyVarlenDq.SCHEDULE = older[0][:2], older[1]
     bkw = dict(scale=scale, causal=True, softcap=0.0, window=(-1, -1))
     del bo
     vmeta = varlen._call_metadata(cu, cu, tot, tot, "cuda")
@@ -587,7 +631,9 @@ def main() -> int:
         trees["base"]["paged_decode"] = LegacyPaged(base_paged)
     base_varlen = trees["base"].get("varlen_bwd")
     if base_varlen is not None and not hasattr(base_varlen, "ffpa_varlen_bwd_dkdv_plan"):
-        trees["base"]["varlen_bwd"] = LegacyVarlenBwd(base_varlen)
+        trees["base"]["varlen_bwd"] = base_varlen = LegacyVarlenBwd(base_varlen)
+    if base_varlen is not None and not hasattr(base_varlen, "ffpa_varlen_bwd_dq_plan"):
+        trees["base"]["varlen_bwd"] = LegacyVarlenDq(base_varlen)
     base_fwd = trees["base"].get("varlen_fwd")
     if base_fwd is not None and not hasattr(base_fwd, "ffpa_varlen_fwd_plan"):
         trees["base"]["varlen_fwd"] = LegacyVarlenFwd(base_fwd)

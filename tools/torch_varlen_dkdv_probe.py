@@ -1,16 +1,17 @@
-"""What two design choices of the wgmma varlen dK/dV kernel buy, on a card.
+"""What the design choices of the wgmma varlen dK/dV and dQ kernels buy, on
+a card.
 
 Run from the repository root on a machine with a card:
 
-    python tools/torch_varlen_dkdv_probe.py
+    python tools/torch_varlen_dkdv_probe.py [--kernel dkdv|dq]
 
 The shape is ``chip_smoke.py``'s packed-training backward: 8 documents of
-2048..284 tokens (8192 in all), H8/4, D = Dv = 512, causal, bf16, the dK/dV
+2048..284 tokens (8192 in all), H8/4, D = Dv = 512, causal, bf16, the
 kernel alone on the plain forward's (o, lse) with its 64 x 64 schedule
-computed beforehand. Each reading is device ms per call from
-torch.profiler, taken in turns (v1 .. vn, vn .. v1), and each run's dK and
-dV are held against ``_varlen_dkdv_plain`` per row (bf16 5e-2, a row's
-floor at 1e-3 of the tensor's max):
+computed beforehand (``varlen._backward_schedules``). Each reading is
+device ms per call from torch.profiler, taken in turns (v1 .. vn, vn ..
+v1), and each run's output is held against its plain version per row
+(bf16 5e-2, a row's floor at 1e-3 of the tensor's max). dK/dV:
 
 * ``longest_first``: the kernel as built, its KV tiles in the schedule's
   order (longest interval first);
@@ -18,12 +19,23 @@ floor at 1e-3 of the tensor's max):
 * ``no_fast_path``: ``csrc/varlen_bwd.cu`` rebuilt with its full-block test
   off, so every consumer block takes the per-element mask.
 
+dQ:
+
+* ``needed_tiles``: the kernel as built, each Q tile walking its needed KV
+  tiles, the most needed Q tiles first;
+* ``q_tile_order``: the same library with the Q tiles in index order;
+* ``interval_tiles``: the same library walking every KV tile of each 64-row
+  Q tile's [jmin, jmax] (the mma.sync route's walk);
+* ``no_fast_path``: the rebuilt library, every consumer block masked
+  element by element.
+
 Prints the card's name and power limit, each variant's ptxas registers and
 spill bytes, then one JSON line; exits 1 if a run misses the tolerance.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import re
@@ -37,7 +49,7 @@ REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
 from ffpa_attn_tpu_torch.ops import _build, varlen  # noqa: E402
-from ffpa_attn_tpu_torch.ops.config import varlen_dkdv_plan  # noqa: E402
+from ffpa_attn_tpu_torch.ops.config import varlen_dkdv_plan, varlen_dq_plan  # noqa: E402
 from ffpa_attn_tpu_torch.ops.dispatch import pick_varlen_backward_config  # noqa: E402
 from ffpa_attn_tpu_torch.utils.profiling import device_ms  # noqa: E402
 
@@ -49,9 +61,9 @@ _PLAIN = "  const bool plain = p.alibi == nullptr && p.softcap <= 0.f && p.windo
 SOURCES = {"as_built": [], "no_fast_path": [(_PLAIN, "  const bool plain = false;\n")]}
 
 
-def build(out: Path) -> dict:
+def build(out: Path, kernel: str) -> dict:
     """Compile each library's source with the package's flags and ptxas's
-    report, all at once; print each wgmma kernel's registers and spills."""
+    report, all at once; print the wgmma kernel's registers and spills."""
     src = (_build.CSRC_DIR / "varlen_bwd.cu").read_text()
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -74,7 +86,7 @@ def build(out: Path) -> dict:
             raise SystemExit(f"nvcc failed on {name}:\n{log}")
         lines = log.splitlines()
         for i, ln in enumerate(lines):
-            if "Compiling entry" in ln and "varlen_dkdv_wgmma_kernel" in ln:
+            if "Compiling entry" in ln and f"varlen_{kernel}_wgmma_kernel" in ln:
                 spill = re.search(r"(\d+) bytes spill stores", lines[i + 2])
                 regs = re.search(r"Used (\d+) registers", lines[i + 3])
                 print(f"{name} {'f16' if '__half' in ln else 'bf16'}: {regs.group(1)} registers, "
@@ -93,13 +105,16 @@ def row_rel(got, want, floor: float = 1e-3) -> float:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernel", choices=("dkdv", "dq"), default="dkdv")
+    kernel = ap.parse_args().kernel
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0])
-    libs = build(REPO / "build" / "varlen_dkdv_probe")
+    libs = build(REPO / "build" / "varlen_dkdv_probe", kernel)
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def randn(*shape):
@@ -114,16 +129,34 @@ def main() -> int:
     o, lse = varlen._varlen_forward_plain(q, k, v, meta, scale=kw["scale"], causal=True)
     delta = varlen._varlen_delta(do, o)
     cfg = pick_varlen_backward_config(d=d, dv=d, tq=t, dtype=torch.bfloat16)
-    plan = varlen_dkdv_plan(d, d)
-    sched, _ = varlen._varlen_bwd_schedules(meta, t, cfg.block_q_dq, True, (-1, -1),
-                                            (plan.q_rows, plan.kv_rows))
-    in_order = (sched[0], sched[1], torch.arange(sched[0].shape[0], dtype=torch.int32,
-                                                 device="cuda"))
+    dkdv, dq = varlen._backward_schedules(meta, t, varlen_dkdv_plan(d, d), varlen_dq_plan(d, d),
+                                          cfg.block_q_dq, True, (-1, -1))
     ops = varlen._BwdOperands(q, k, v, do, lse, delta, None)
-    want = varlen._varlen_dkdv_plain(q, k, v, do, lse, delta, meta, **kw)
-    # variant -> (library, schedule)
-    variants = {"longest_first": ("as_built", sched), "kv_tile_order": ("as_built", in_order),
-                "no_fast_path": ("no_fast_path", sched)}
+    if kernel == "dkdv":
+        launch, sched = varlen._varlen_dkdv_kernel, dkdv
+        want = varlen._varlen_dkdv_plain(q, k, v, do, lse, delta, meta, **kw)
+        in_order = (sched[0], sched[1], torch.arange(sched[0].shape[0], dtype=torch.int32,
+                                                     device="cuda"))
+        # variant -> (library, schedule)
+        variants = {"longest_first": ("as_built", sched), "kv_tile_order": ("as_built", in_order),
+                    "no_fast_path": ("no_fast_path", sched)}
+    else:
+        def launch(*a, **k_):
+            return (varlen._varlen_dq_kernel(*a, **k_),)
+
+        sched = dq
+        want = (varlen._varlen_dq_plain(q, k, v, do, lse, delta, meta, **kw),)
+        tiles, count, order = sched
+        in_order = (tiles, count, torch.arange(tiles.shape[0], dtype=torch.int32, device="cuda"))
+        # Every KV tile of each Q tile's interval, listed as the kernel reads it.
+        jmin, jmax = varlen._interval_schedule(varlen._tile_needed(
+            *varlen._q_tiles(meta, t, 64), 64, 64, True))
+        ids = torch.arange(tiles.shape[1], dtype=torch.int32, device="cuda")
+        walk = (ids[None, :] >= jmin[:, None]) & (ids[None, :] <= jmax[:, None])
+        interval = varlen._needed_tiles(walk)
+        variants = {"needed_tiles": ("as_built", sched), "q_tile_order": ("as_built", in_order),
+                    "interval_tiles": ("as_built", interval),
+                    "no_fast_path": ("no_fast_path", sched)}
     load = _build.load
     res, errs = {}, {}
     for name in list(variants) + list(variants)[::-1]:
@@ -131,14 +164,15 @@ def main() -> int:
         _build.load = lambda n, lib=lib: libs[lib] if n == "varlen_bwd" else load(n)
 
         def run(sc=sc):
-            return varlen._varlen_dkdv_kernel(ops, meta, sc, cfg, **kw)
+            return launch(ops, meta, sc, cfg, **kw)
 
         res.setdefault(name, []).append(round(device_ms(run, reps=REPS, warmup=3), 5))
         got = run()
         torch.cuda.synchronize()
         errs[name] = max(errs.get(name, 0.0), *(row_rel(g, w) for g, w in zip(got, want)))
     _build.load = load
-    print(json.dumps({"lens": LENS, "device_ms": res, "row_rel_err_vs_plain": errs, "tol": TOL}))
+    print(json.dumps({"kernel": kernel, "lens": LENS, "device_ms": res,
+                      "row_rel_err_vs_plain": errs, "tol": TOL}))
     return 0 if all(e < TOL for e in errs.values()) else 1
 
 

@@ -14,13 +14,16 @@ the causal band's pairs; then the wgmma kernel's walk (D, Dv <= 512: only
 the needed tiles at 64 x 64, ``_needed_tiles``), its tiles per Q tile and
 the 64 x 32 consumer blocks its full-block test (``_full_blocks`` at 64 x 32) lets
 skip the mask. Then the
-backward's (``_varlen_bwd_schedules``): the pairs the dK/dV kernel walks at
-each route's tiles (each KV tile's [imin, imax] of Q tiles: 64 x 64 on the
-wgmma route, D and Dv <= 512; 128 x 32 on mma.sync), with, at 64 x 64, the
-needed tiles inside the intervals and those the wgmma consumers' full-block
-test (``_dkdv_full_blocks``: one segment, inside the band) lets skip the
-mask, and the dQ kernel at block_q x 64, against the band. Prints one JSON
-line. The default lengths are the serving bench's; the packed-training
+backward's (``_backward_schedules`` and ``_varlen_bwd_schedules``): the
+pairs the dK/dV kernel walks at each route's tiles (each KV tile's [imin,
+imax] of Q tiles: 64 x 64 on the wgmma route, D and Dv <= 512, the
+forward's needed matrix transposed; 128 x 32 on mma.sync), with, at 64 x
+64, the needed tiles inside the intervals and those the wgmma consumers'
+full-block test (``_dkdv_full_blocks``: one segment, inside the band) lets
+skip the mask; and dQ's: the wgmma walk (the forward's needed tiles at 64
+x 64, ``dq_wgmma``, with its full 64 x 32 consumer blocks) beside the
+mma.sync interval walk at block_q x 64 (``dq_*``), against the band.
+Prints one JSON line. The default lengths are the serving bench's; the packed-training
 packing of ``chip_smoke.py`` is ``--lens
 2048,1536,1200,1024,900,700,500,284``.
 """
@@ -37,7 +40,9 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from ffpa_attn_tpu_torch.ops import varlen  # noqa: E402
-from ffpa_attn_tpu_torch.ops.config import KV_TILE  # noqa: E402
+from ffpa_attn_tpu_torch.ops.config import (  # noqa: E402
+    KV_TILE, varlen_dkdv_plan, varlen_dq_plan,
+)
 from ffpa_attn_tpu_torch.utils.profiling import band_pairs  # noqa: E402
 
 
@@ -105,6 +110,21 @@ def main() -> int:
         "consumer_blocks_walked": int(walked_halves.sum()),
         "consumer_blocks_full": int((halves & walked_halves).sum()),
     }
+    # dQ's wgmma walk: the forward's lists, read through the backward's
+    # schedule (the same tiles and full blocks as the forward's walk).
+    _, (dtiles, dcount, _) = varlen._backward_schedules(
+        meta, t, varlen_dkdv_plan(512, 512), varlen_dq_plan(512, 512), bq, True, (-1, -1))
+    assert torch.equal(dtiles, tiles) and torch.equal(dcount, count)
+    dq_wgmma = {
+        "tiles": f"64x{KV_TILE}", "kv_tiles_walked": int(dcount.sum()),
+        "walked_over_band": int(dcount.sum()) * 64 * KV_TILE / band,
+        "interval_tiles_at_64_rows": _walked(wlo, whi),
+        "kv_tiles_per_q_tile": {"min": int(dcount.min()), "max": int(dcount.max()),
+                                "mean": float(dcount.float().mean())},
+        "empty_q_tiles": int((dcount == 0).sum()),
+        "consumer_blocks_walked": int(walked_halves.sum()),
+        "consumer_blocks_full": int((halves & walked_halves).sum()),
+    }
     dq_pairs = _walked(jmin, jmax) * bq * KV_TILE
     print(json.dumps({
         "lens": lens, "block_q": bq, "kv_tile": KV_TILE, "q_tiles": len(lo),
@@ -117,6 +137,7 @@ def main() -> int:
         "needed_over_band": inside * bq * KV_TILE / band,
         "fwd_wgmma": fwd_wgmma,
         "dkdv": dkdv,
+        "dq_wgmma": dq_wgmma,
         "dq_tiles": f"{bq}x{KV_TILE}",
         "dq_pairs_walked_per_head": dq_pairs,
         "dq_walked_over_band": dq_pairs / band,
