@@ -12,7 +12,8 @@ It imports only ``ffpa_attn_tpu_torch``, torch and numpy, and runs, in order:
    stated tolerances: the forward on both of its routes (wgmma at D, Dv
    <= 512, mma.sync above) and its S residual, decode on both of its
    routes (TMA at D, Dv <= 512, cp.async above; one valid column, the
-   serving step's gap, 32 packed rows, D != Dv; and its score residual),
+   serving step's gap, 32 packed rows, D != Dv, the speculative verify
+   block at Nq 5 with its per-row bias; and its score residual),
    dkdv, dq (both routes, D != Dv, fp16, fp32 dQ
    storage), banded dQ, the from-S dK/dV pass in both
    variants and banded dK (a slab NaN outside the band among them), the
@@ -35,7 +36,15 @@ It imports only ``ffpa_attn_tpu_torch``, torch and numpy, and runs, in order:
    batching, the JAX package's serving bench (B4, prompts of 589..886
    tokens, 128 generated, page 256): ``serve_batch``, ``serve_batch_paged``
    over bf16 and int8 pools and a ``ServingEngine`` serving 8 requests over
-   4 slots, each with its launch counts, tokens/s and logit gates;
+   4 slots, each with its launch counts, tokens/s and logit gates; the
+   monkey-patch: ``scaled_dot_product_attention`` patched at the prefill
+   shape (one forward launch, bit-equal to ``ffpa_attn_func``), a D64, a
+   dropout and a causal Nq 1024 / Nkv 4096 call on the stock function (no
+   launch, equal to the pristine function), then unpatched; speculative
+   decoding, the JAX package's ``bench_speculative`` (prompt 1024, 128
+   tokens, k_spec 4), self-spec and a one-layer draft, each with its launch
+   counts, accept rate and tokens/s, the stream and every verify block held
+   to the target teacher-forced, plain ``generate`` beside them;
 5. training path: ``make_train_step`` (AdamW 1e-4) of the same model at
    N8192 B1, one warm-up step and 3 timed steps with the launch counts of
    each, in the dS-handoff tier (the model's default), with
@@ -46,7 +55,9 @@ It imports only ``ffpa_attn_tpu_torch``, torch and numpy, and runs, in order:
    causal B1 H32 N8192 D512, auto residency) held in head slices and timed
    against the handoff; a GQA decode call's gradients; the windowed model
    (``mistral_like``, depth cut to L2), which takes the recompute backward;
-   a tiny model's two steps on the card against the CPU; packed training at
+   a tiny model's two steps on the card against the CPU; a checkpoint of
+   the tiny model saved, restored into a fresh model and stepped on both,
+   bit-equal; packed training at
    op level: ``ffpa_attn_varlen_func`` under autograd over 8 documents
    packed into 8192 tokens (H8/4 D512 causal, bf16 and fp16; then the
    gpt_oss_like window and sinks), 1 varlen-forward, 1 varlen-dK/dV and 1
@@ -132,6 +143,12 @@ SERVE_LENS = [589, 698, 763, 886]
 # (tools/torch_varlen_schedule.py), so segment edges straddle tiles.
 PACK_LENS = [2048, 1536, 1200, 1024, 900, 700, 500, 284]
 ENGINE_REQUESTS, ENGINE_SLOTS = 8, 4
+# Speculative decoding: the JAX package's bench_speculative (cli/_e2e.py:216-278)
+# at its defaults, prompt 1024 from numpy seed 0, 128 generated, k_spec 4,
+# max_len prompt + gen + k_spec + 2; self-spec and a draft of the target's
+# first layer.
+SPEC_PROMPT, SPEC_GEN, SPEC_K, SPEC_DRAFT_LAYERS = 1024, 128, 4, 1
+SPEC_MAX_LEN = SPEC_PROMPT + SPEC_GEN + SPEC_K + 2
 PAGED_TOL, INT8_TOL = 5e-2, 6e-2  # tests/test_models.py:262, tests/test_paged.py:361
 
 
@@ -321,7 +338,12 @@ def _decode_case(name, *, b=1, hkv=4, group=2, nq=1, nkv=MAX_LEN, d=512, dv=None
     o, lse = decode._decode_forward(q, k, v, bias, **kw)
     torch.cuda.synchronize()
     qp = q.reshape(b, hkv, group * nq, d)
-    po, plse = decode._decode_plain(qp, k, v, bias, nq=nq, scale=kw["scale"], is_causal=causal,
+    pbias = bias
+    if bias is not None and (bias.shape[1] != 1 or (bias.shape[2] != 1 and group > 1)):
+        # A head- or row-varying bias packed like Q, as the wrapper packs it.
+        pbias = bias.expand(bias.shape[0], hq, nq, nkv).reshape(bias.shape[0], hkv, group * nq,
+                                                                 nkv)
+    po, plse = decode._decode_plain(qp, k, v, pbias, nq=nq, scale=kw["scale"], is_causal=causal,
                                     softcap=softcap, window_left=window[0],
                                     window_right=window[1])
     po, plse = po.reshape(o.shape), plse.reshape(lse.shape)
@@ -767,6 +789,12 @@ def phase_kernels_vs_plain() -> dict:
     # column, the kernels walk only the window's tiles; logged, not held.
     _decode_case("window_masked_row", b=2, nkv=1024, window=(256, -1), causal=True, valid=None,
                  masked_batch=1, seed=13)
+    # The speculative verify block: Nq = k_spec + 1 = 5 (10 packed rows) under
+    # its per-row validity bias at pos 1100 (models/generate.py decode_block).
+    from ffpa_attn_tpu_torch.models.generate import validity_bias
+
+    _decode_case("spec_verify_nq5", nq=SPEC_K + 1, nkv=SPEC_MAX_LEN,
+                 bias=validity_bias(1100, SPEC_K + 1, SPEC_MAX_LEN, device="cuda"), seed=14)
     # The backward at N4096 and feature cases at N1024; the training
     # shapes (N8192) are held in training_times, beside their times.
     _bwd_case("slice_N4096_D512", nq=PROMPT, nkv=PROMPT)
@@ -1270,6 +1298,198 @@ def phase_serving(model) -> dict:
                 launches={"varlen_fwd": cfg.n_layers, "paged_decode": n_dec})
 
 
+def phase_monkey_patch() -> None:
+    """``patch_dot_product_attention`` on the card, inside try / finally
+    unpatch (phase 6 times the stock function as a yardstick): the patched
+    call at the prefill shape launches the forward kernel once and equals
+    ``ffpa_attn_func`` bit for bit; a D64 call, a dropout call and a causal
+    Nq 1024 / Nkv 4096 call launch no kernel of the port and equal the
+    pristine function (dropout from the same seed); after unpatch the
+    function is the pristine object again."""
+    import torch.nn.functional as F
+
+    import ffpa_attn_tpu_torch as ffpa
+    from ffpa_attn_tpu_torch import interface
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    hq, hkv, d = SLICE["n_heads"], SLICE["n_kv_heads"], SLICE["head_dim"]
+    q, k, v = (_randn((1, h, PROMPT, d), torch.bfloat16, gen) for h in (hq, hkv, hkv))
+    kw = dict(is_causal=True, enable_gqa=True)
+    stock = {
+        "d64": ((q[..., :64].contiguous(), k[..., :64].contiguous(),
+                 v[..., :64].contiguous()), kw),
+        "dropout_p0.1": ((q, k, v), dict(kw, dropout_p=0.1)),
+        "causal_nq1024_nkv4096": ((q[:, :, :1024].contiguous(), k, v), kw),
+    }
+    try:
+        ffpa.patch_dot_product_attention()
+        ffpa.patch_dot_product_attention()  # idempotent
+        _all_counts(zero=True)
+        out = F.scaled_dot_product_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        counts = {n: c for n, c in _all_counts().items() if c}
+        same = torch.equal(out, ffpa.ffpa_attn_func(q, k, v, **kw))
+        ok = counts == {"flash_fwd": 1} and same
+        log(f"monkey-patch: B1 H{hq}/{hkv} N{PROMPT} D{d} causal bf16 through the patched "
+            f"scaled_dot_product_attention: launches {counts}, bit-equal to ffpa_attn_func "
+            f"{same} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("the patched call did not run the forward kernel as ffpa_attn_func does")
+        for name, (args, call_kw) in stock.items():
+            _all_counts(zero=True)
+            torch.manual_seed(41)
+            got = F.scaled_dot_product_attention(*args, **call_kw)
+            torch.cuda.synchronize()
+            counts = {n: c for n, c in _all_counts().items() if c}
+            torch.manual_seed(41)
+            same = torch.equal(got, interface._IMPORT_TIME_SDPA(*args, **call_kw))
+            ok = not counts and same
+            log(f"  {name}: routed to the stock function, port launches {counts or 0}, "
+                f"equal to the pristine function {same} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"monkey-patch: {name} did not go to the stock function")
+    finally:
+        ffpa.unpatch_dot_product_attention()
+    if F.scaled_dot_product_attention is not interface._IMPORT_TIME_SDPA:
+        fail("unpatch did not restore the pristine scaled_dot_product_attention")
+    log(f"  unpatched: the pristine object is back; phase {time.perf_counter() - t0:.1f} s")
+
+
+def hold_speculative(label: str, forced, toks, blocks) -> dict:
+    """The speculative stream against the target teacher-forced on it
+    (``forced``: ``_teacher_forced_logits``, one single-row ``decode_step``
+    a token): each emitted token is the argmax wherever the top two logits
+    are more than 2 BF16_TOL max|logit| apart (a nearer tie is logged, not
+    held), and each verify block's rows whose inputs are the stream's lie
+    within BF16_TOL of max|logit| of the forced logits at the same position.
+    ``blocks``: (pos, block tokens, logits [m, vocab]) of each verify call."""
+    stream = toks[0].tolist()
+    ties, missed, tie_same = [], [], 0
+    for j, w in enumerate(forced):
+        top = w.topk(2).values
+        gap, margin = float(top[0] - top[1]), 2 * BF16_TOL * float(w.abs().max())
+        if gap <= margin:
+            ties.append(j)
+            tie_same += int(w.argmax()) == stream[j]
+        elif int(w.argmax()) != stream[j]:
+            missed.append(j)
+    worst, rows = 0.0, 0
+    for pos, block, logits in blocks:
+        c = pos - SPEC_PROMPT
+        for t in range(len(block)):
+            j = c + t + 1
+            if j >= len(stream) or block[t] != stream[c + t]:
+                break
+            w = forced[j]
+            worst = max(worst, float((logits[t] - w).abs().max() / w.abs().max()))
+            rows += 1
+    ok = not missed and worst < BF16_TOL and rows > 0
+    log(f"  {label}: stream vs the target teacher-forced: argmax held at "
+        f"{len(stream) - len(ties)} of {len(stream)} tokens, missed {missed}; {len(ties)} near "
+        f"ties (logged, the argmax equal at {tie_same}) at {ties}; {len(blocks)} verify "
+        f"blocks, {rows} rows on the stream, worst logits rel_err {worst:.2e} (tol {BF16_TOL:g} of max|logit|) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"speculative {label}: the stream or a verify block disagrees with the target")
+    return dict(near_ties=len(ties), verify_rows=rows, verify_err=worst)
+
+
+def phase_speculative(model) -> dict:
+    """The JAX package's ``bench_speculative`` at its defaults on the
+    full-width model: self-spec, then a draft of the target's first layer
+    (a ``Transformer`` sharing its parameters, with its own cache). Each:
+    one recorded call (every verify block's logits kept), then one timed
+    call with the launch counts set to 0 just before it and read just after
+    (forward: the two prefills; decode: iterations x ((k_spec + 1) L_draft +
+    L_target)); the stream and the blocks held to the target teacher-forced
+    (``hold_speculative``); tokens/s = gen over the timed call. Plain
+    ``generate`` at the same prompt and length beside them."""
+    from torch import nn
+
+    from ffpa_attn_tpu_torch.models import Transformer, generate, speculative_generate
+    from ffpa_attn_tpu_torch.models import speculative as spec
+
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    prompt = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab_size, (1, SPEC_PROMPT))).cuda()
+    draft = Transformer(replace(cfg, n_layers=SPEC_DRAFT_LAYERS), device="meta")
+    draft.embed, draft.final_norm = model.embed, model.final_norm
+    draft.layers = nn.ModuleList(list(model.layers)[:SPEC_DRAFT_LAYERS])
+    log(f"speculative decoding (bench_speculative): prompt {SPEC_PROMPT}, {SPEC_GEN} tokens, "
+        f"k_spec {SPEC_K}, max_len {SPEC_MAX_LEN}, target L{cfg.n_layers}:")
+
+    blocks, verify = [], spec.decode_block
+
+    def recording(m, cache, pos, toks):
+        logits, cache = verify(m, cache, pos, toks)
+        blocks.append((pos, toks[0].tolist(), logits[0].float().cpu()))
+        return logits, cache
+
+    def run(dmodel):
+        return speculative_generate(model, dmodel, prompt, SPEC_GEN, SPEC_MAX_LEN,
+                                    k_spec=SPEC_K, return_stats=True)
+
+    out = {"rates": {}, "accept": {}, "launches": {}}
+    forced = None
+    for label, dmodel in (("self_spec", model), (f"draft_L{SPEC_DRAFT_LAYERS}", draft)):
+        blocks.clear()
+        spec.decode_block = recording  # the verify blocks, not the draft's steps
+        try:
+            toks, stats = run(dmodel)
+        finally:
+            spec.decode_block = verify
+        torch.cuda.synchronize()
+        _all_counts(zero=True)
+        t0 = time.perf_counter()
+        toks2, stats2 = run(dmodel)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = {n: c for n, c in _all_counts().items() if c}
+        ld, lt = dmodel.cfg.n_layers, cfg.n_layers
+        want = {"flash_fwd": lt + ld, "decode": stats2["target_calls"] * ((SPEC_K + 1) * ld + lt)}
+        rate, accept = SPEC_GEN / dt, stats2["draft_accepted"] / stats2["proposals"]
+        log(f"  {label}: {SPEC_GEN} tokens in {dt * 1e3:.1f} ms = {rate:.1f} tokens/s, accept "
+            f"rate {accept:.3f}, stats {stats2}, launches {counts} (expected {want})")
+        if counts != want:
+            fail(f"speculative {label}: launch counts {counts} != expected {want}")
+        if not torch.equal(toks, toks2) or stats != stats2:
+            fail(f"speculative {label}: two calls on the same inputs differ")
+        if tuple(toks.shape) != (1, SPEC_GEN) or not bool(
+                ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+            fail(f"speculative {label}: bad tokens of shape {tuple(toks.shape)}")
+        if label == "self_spec" and stats2["draft_accepted"] < stats2["proposals"] - 2:
+            fail(f"speculative self_spec accepted {stats2['draft_accepted']} of "
+                 f"{stats2['proposals']} proposals (gate: all but 2)")
+        if forced is None or not torch.equal(toks, stream):
+            forced, stream = _teacher_forced_logits(model, prompt, toks), toks
+        out[label] = hold_speculative(label, forced, toks, blocks)
+        out["rates"][label], out["accept"][label] = rate, accept
+        out["launches"][label] = counts
+    def plain():
+        return generate(model, prompt, SPEC_GEN, max_len=SPEC_MAX_LEN)
+
+    def rate(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return SPEC_GEN / (time.perf_counter() - t0)
+
+    toks = plain()  # warm-up at this cache length
+    out["rates"]["generate"] = rate(plain)
+    agree = int((toks == stream).cumprod(dim=1).sum())
+    # Self-spec against plain decode in one call, in turns.
+    turns = [rate(fn) for fn in (plain, lambda: run(model), lambda: run(model), plain)]
+    log(f"  plain generate at the same prompt and length: {out['rates']['generate']:.1f} "
+        f"tokens/s; its greedy stream agrees with the speculative one for the first {agree} of "
+        f"{SPEC_GEN} tokens (informational: near ties round either way); in turns generate, "
+        f"self-spec, self-spec, generate: {', '.join(f'{r:.1f}' for r in turns)} tokens/s; "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+    out["turns"] = turns
+    return out
+
+
 def _counts() -> dict:
     from ffpa_attn_tpu_torch.ops import flash_bwd, flash_fwd
 
@@ -1682,6 +1902,42 @@ def phase_tiny_training() -> None:
         f"max|g| (tol {GRAD_TOL[torch.bfloat16]:g}) {'ok' if ok else 'FAIL'}")
     if not ok:
         fail("tiny model: training on the card differs from the CPU")
+
+
+def phase_checkpoint() -> None:
+    """Train-state checkpoints on the card: the tiny model of
+    ``phase_tiny_training`` takes one step, is saved, and is restored into a
+    fresh model (other weights) and optimizer state; one more step on each
+    gives bit-equal losses and parameters."""
+    import tempfile
+
+    from ffpa_attn_tpu_torch.models import (
+        ModelConfig, adamw, make_train_step, params_from_jax, random_params,
+        restore_train_state, save_train_state,
+    )
+
+    t0 = time.perf_counter()
+    tiny = ModelConfig(vocab_size=64, d_model=64, n_layers=1, n_heads=2, n_kv_heads=1,
+                       head_dim=320, max_seq_len=256)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(0, 64, (1, 129)))
+    opt = adamw(1e-3)
+    step = make_train_step(tiny, opt)
+    model = params_from_jax(random_params(tiny, seed=2), tiny)
+    state, _ = step(model, opt.init(list(model.parameters())), tokens)
+    fresh = params_from_jax(random_params(tiny, seed=5), tiny)
+    with tempfile.TemporaryDirectory() as d:
+        save_train_state(d, 1, model, state)
+        fresh, fstate, fstep = restore_train_state(d, fresh, opt.init(list(fresh.parameters())))
+    state, la = step(model, state, tokens)
+    fstate, lb = step(fresh, fstate, tokens)
+    same = [torch.equal(a, b) for a, b in zip(model.parameters(), fresh.parameters())]
+    ok = fstep == 1 and torch.equal(la, lb) and all(same)
+    log(f"  checkpoint: step 1 saved and restored into a fresh model; the next step's loss "
+        f"{float(la):.6f} / {float(lb):.6f}, bit-equal {torch.equal(la, lb)}, parameters "
+        f"bit-equal {sum(same)} of {len(same)}; {time.perf_counter() - t0:.1f} s "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("checkpoint: the restored run does not continue the saved one bit for bit")
 
 
 def _all_counts(zero: bool = False) -> dict:
@@ -3106,6 +3362,11 @@ def main() -> int:
     serving = phase_serving(main_path["model"])
     log(f"serving tokens/s on {smi}: " + " ".join(
         f"{k} {v:.1f}" for k, v in serving["rates"].items()))
+    phase_monkey_patch()
+    spec = phase_speculative(main_path["model"])
+    log(f"speculative tokens/s on {smi}: " + " ".join(
+        f"{k} {v:.1f}" for k, v in spec["rates"].items()) + " accept rates " + " ".join(
+        f"{k} {v:.3f}" for k, v in spec["accept"].items()))
     training = phase_training()
     resident = phase_resident_training(training["oracle"])
     partial = phase_partial_residency(training.pop("oracle"))
@@ -3115,8 +3376,13 @@ def main() -> int:
     phase_decode_grad()
     windowed = phase_windowed()
     phase_tiny_training()
+    phase_checkpoint()
     packed = phase_packed_training()
     rows = phase_times(errs, main_path, training, windowed, resident, serving, packed)
+    for r in rows:  # launches per speculative call beside the main path's
+        if r["name"] in ("flash_fwd", "decode"):
+            r["speculative_launches"] = {k: c.get(r["name"], 0)
+                                         for k, c in spec["launches"].items()}
     log(f"summary: prefill_ms {main_path['prefill_ms']:.3f} decode_tokens_per_s "
         f"{main_path['decode_tok_s']:.2f} generate_ms {main_path['generate_ms']:.1f} "
         f"train_step_ms {training['step_ms']:.2f} train_tokens_per_s {training['tok_s']:.1f} "
@@ -3127,6 +3393,7 @@ def main() -> int:
         f"{op_level['ms']['handoff']:.3f} packed_fwd_bwd_ms {packed['fwd_bwd_ms']:.3f} "
         f"packed_bwd_ms {packed['bwd_ms']:.3f} packed_bwd_tflops {packed['bwd_tflops']:.1f} "
         + "".join(f"{k} {v:.1f} " for k, v in serving["rates"].items())
+        + "".join(f"spec_{k} {v:.1f} " for k, v in spec["rates"].items())
         + f"loss_rel_err {training['loss_err']:.2e} "
         f"grad_rel_err {training['grad_err']:.2e} s_resident_grad_rel_err "
         f"{resident['grad_err']:.2e} total {time.perf_counter() - t_start:.1f} s on {smi}")

@@ -7,7 +7,12 @@ first use). CPU tensors run each kernel's plain PyTorch version.
 """
 
 from .functional import Backend, CudaBackend, FFPAAttnMeta, SDPABackend
-from .interface import ffpa_attn_func, ffpa_attn_varlen_func
+from .interface import (
+    ffpa_attn_func,
+    ffpa_attn_varlen_func,
+    patch_dot_product_attention,
+    unpatch_dot_product_attention,
+)
 from .ops.paged import (
     PageAllocator,
     PagedKVCache,
@@ -21,6 +26,8 @@ from .version import __version__
 __all__ = [
     "ffpa_attn_func",
     "ffpa_attn_varlen_func",
+    "patch_dot_product_attention",
+    "unpatch_dot_product_attention",
     "Backend",
     "SDPABackend",
     "CudaBackend",

@@ -4,6 +4,11 @@
 signature, the JAX package's error taxonomy and fallback policy, and the same
 extension kwargs. Fallback shapes run the port's own fp32 reference, never a
 library attention call.
+
+``patch_dot_product_attention`` routes
+``torch.nn.functional.scaled_dot_product_attention`` through
+``ffpa_attn_func``; what FFPA does not compute as the stock function does
+goes to the stock function.
 """
 
 from __future__ import annotations
@@ -11,6 +16,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from .functional import FFPAAttnMeta
 from .logger import init_logger
@@ -167,4 +173,94 @@ def ffpa_attn_varlen_func(
     )
 
 
-__all__ = ["ffpa_attn_func", "ffpa_attn_varlen_func"]
+# ---------------------------------------------------------------------------
+# Monkey-patch of torch.nn.functional.scaled_dot_product_attention
+# ---------------------------------------------------------------------------
+
+_ORIG_SDPA = None
+# The pristine function, captured at import, so that the passthrough can
+# never recurse into the patched symbol.
+_IMPORT_TIME_SDPA = F.scaled_dot_product_attention
+_PATCH_DTYPES = (torch.float16, torch.bfloat16)
+
+
+def _original_sdpa():
+    original = _ORIG_SDPA or _IMPORT_TIME_SDPA
+    if original is _sdpa_compatible_ffpa:  # pragma: no cover - safety net
+        original = _IMPORT_TIME_SDPA
+    return original
+
+
+def _stock_reason(query, key, value, attn_mask, dropout_p, is_causal, args, kwargs):
+    """Why a call must go to the stock function, or None for FFPA."""
+    if args or kwargs:
+        return "arguments FFPA does not take (%s)" % ", ".join(
+            sorted(kwargs) or ["positional extras"])
+    if dropout_p > 0.0:
+        # SDPA has no seed argument: a fixed dropout_seed would repeat one
+        # keep mask on every call.
+        return "dropout_p > 0 (no dropout seed in the SDPA signature)"
+    tensors = (query, key, value)
+    if not all(isinstance(t, torch.Tensor) and t.ndim == 4 for t in tensors):
+        return "inputs that are not 4-D tensors"
+    if query.dtype not in _PATCH_DTYPES or key.dtype != query.dtype or value.dtype != query.dtype:
+        return "dtypes other than float16 / bfloat16"
+    if is_causal and query.shape[2] != key.shape[2]:
+        # Stock is_causal is top-left aligned (row 0 sees key 0); FFPA's is
+        # tail-aligned (row m sees keys <= m + Nkv - Nq).
+        return "is_causal with Nq != Nkv (top-left alignment)"
+    if FFPAAttnMeta.from_kwargs().fallback(query, key, attn_mask, dropout_p):
+        return "shapes outside FFPA's range (head dim or sequence length)"
+    return None
+
+
+def _sdpa_compatible_ffpa(query, key, value, attn_mask=None, dropout_p=0.0, is_causal=False,
+                          *args, scale=None, enable_gqa=False, **kwargs):
+    """``ffpa_attn_func`` under the ``scaled_dot_product_attention``
+    signature (the layout is already ``[B, H, N, D]``).
+
+    The stock function takes a call with arguments FFPA does not take
+    (it raises as it would), ``dropout_p > 0``, ``is_causal`` with Nq !=
+    Nkv, inputs that are not 4-D fp16 / bf16, and every shape
+    ``FFPAAttnMeta.fallback`` sends away; a patched user gets the stock
+    semantics there, never another function. Everything else runs through
+    ``ffpa_attn_func``, differentiable under ``torch.autograd``.
+    """
+    reason = _stock_reason(query, key, value, attn_mask, dropout_p, is_causal, args, kwargs)
+    if reason is not None:
+        logger.warning_once(
+            "scaled_dot_product_attention called with %s; routing to the original "
+            "implementation", reason)
+        return _original_sdpa()(
+            query, key, value, attn_mask, dropout_p, is_causal, *args,
+            scale=scale, enable_gqa=enable_gqa, **kwargs)
+    return ffpa_attn_func(query, key, value, attn_mask=attn_mask, is_causal=is_causal,
+                          scale=scale, enable_gqa=enable_gqa)
+
+
+def patch_dot_product_attention() -> None:
+    """One-line integration: route
+    ``torch.nn.functional.scaled_dot_product_attention`` through FFPA, with
+    the stock function for what FFPA does not compute alike. Idempotent."""
+    global _ORIG_SDPA
+    if _ORIG_SDPA is None:
+        _ORIG_SDPA = F.scaled_dot_product_attention
+    F.scaled_dot_product_attention = _sdpa_compatible_ffpa
+    logger.info_once("torch.nn.functional.scaled_dot_product_attention patched with FFPA")
+
+
+def unpatch_dot_product_attention() -> None:
+    """Restore the function ``patch_dot_product_attention`` replaced.
+    Idempotent."""
+    global _ORIG_SDPA
+    if _ORIG_SDPA is not None:
+        F.scaled_dot_product_attention = _ORIG_SDPA
+        _ORIG_SDPA = None
+
+
+__all__ = [
+    "ffpa_attn_func",
+    "ffpa_attn_varlen_func",
+    "patch_dot_product_attention",
+    "unpatch_dot_product_attention",
+]

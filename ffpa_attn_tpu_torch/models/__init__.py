@@ -1,12 +1,15 @@
 """Model layer: the large-head-dim transformer LM, its serving paths
 (``generate``, continuous batching over a dense or paged cache, the serving
-engine) and its training step."""
+engine, speculative decoding), its training step and train-state
+checkpoints."""
 
+from .checkpoint import latest_step, restore_train_state, save_train_state
 from .convert import params_from_jax, params_to_jax, random_params
 from .engine import ServingEngine
 from .generate import decode_step, generate, init_kv_cache, prefill
 from .sampling import filter_logits, sample_logits
 from .serving import pack_prompts, prefill_packed, serve_batch, serve_batch_paged
+from .speculative import speculative_accept, speculative_generate
 from .transformer import (
     ModelConfig,
     Transformer,
@@ -35,6 +38,11 @@ __all__ = [
     "serve_batch",
     "serve_batch_paged",
     "ServingEngine",
+    "speculative_accept",
+    "speculative_generate",
+    "save_train_state",
+    "restore_train_state",
+    "latest_step",
     "filter_logits",
     "sample_logits",
 ]

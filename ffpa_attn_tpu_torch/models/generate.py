@@ -4,7 +4,8 @@ The prefill runs the causal forward kernel over the prompt while writing the
 per-layer KV cache; each decode step computes one token's q/k/v, writes it
 into the cache and attends over the whole cache through the split-KV decode
 kernel, with an additive validity bias masking the rows past the current
-position. The cache has a static shape [B, Hkv, max_len, Dh].
+position (``decode_block``, which also teacher-forces up to 8 tokens at
+once for speculative decoding). The cache has a static shape [B, Hkv, max_len, Dh].
 """
 
 from __future__ import annotations
@@ -63,7 +64,50 @@ def prefill(model: Transformer, tokens, cache):
     return (x @ model.embed.T)[:, 0], cache
 
 
+def validity_bias(pos: int, m: int, max_len: int, sliding_window: int = 0, device=None):
+    """The additive validity bias [1, 1, m, max_len] (fp32) of m tokens at
+    positions pos..pos+m-1 over the cache: row t sees cache rows <= pos + t,
+    and with a sliding window W only those >= pos + t - W."""
+    rows = pos + torch.arange(m, device=device)[:, None]
+    cols = torch.arange(max_len, device=device)[None, :]
+    valid = cols <= rows
+    if sliding_window > 0:
+        valid = valid & (cols >= rows - sliding_window)
+    return torch.where(valid, 0.0, DEFAULT_MASK_VALUE).float()[None, None]
+
+
 @torch.inference_mode()
+def decode_block(model: Transformer, cache, pos: int, toks):
+    """Teacher-force ``toks`` [B, m] (m <= 8, the decode route) at positions
+    pos..pos+m-1: ``decode_step`` is its m = 1 case, speculative decoding's
+    verify block its m = k_spec + 1 case.
+
+    Writes their K/V into the cache in place (rows pos..pos+m-1, where the
+    JAX package uses dynamic_update_slice) and attends over the whole cache
+    under ``validity_bias``. Returns (logits [B, m, vocab], cache)."""
+    cfg = model.cfg
+    b, m = toks.shape
+    dev = toks.device
+    x = model.embed[toks]  # [B, m, D]
+    positions = pos + torch.arange(m, device=dev)
+    bias = validity_bias(pos, m, cache[0]["k"].shape[2], cfg.sliding_window, device=dev)
+    enable_gqa = cfg.n_heads != cfg.n_kv_heads
+    for li, layer in enumerate(model.layers):
+        h = _rmsnorm(x, layer.attn_norm)
+        q, k, v = _project_qkv(layer, h, cfg, positions)
+        cache[li]["k"][:, :, pos : pos + m] = k
+        cache[li]["v"][:, :, pos : pos + m] = v
+        o = ffpa_attn_func(
+            q, cache[li]["k"], cache[li]["v"], attn_mask=bias,
+            enable_gqa=enable_gqa, **_feature_kwargs(cfg, layer, window=False),
+        )
+        x = x + layer.wo(o.transpose(1, 2).reshape(b, m, -1))
+        h = _rmsnorm(x, layer.mlp_norm)
+        x = x + _mlp(layer, h)
+    x = _rmsnorm(x, model.final_norm)
+    return x @ model.embed.T, cache
+
+
 def decode_step(model: Transformer, cache, pos: int, token):
     """One autoregressive step.
 
@@ -74,36 +118,8 @@ def decode_step(model: Transformer, cache, pos: int, token):
 
     Returns (logits [B, vocab], cache).
     """
-    cfg = model.cfg
-    b = token.shape[0]
-    max_len = cache[0]["k"].shape[2]
-    dev = token.device
-    x = model.embed[token][:, None]  # [B, 1, D]
-    positions = torch.full((1,), pos, dtype=torch.int64, device=dev)
-    # Validity bias over the cache: rows <= pos participate; a model sliding
-    # window also drops rows before pos - W.
-    cache_rows = torch.arange(max_len, device=dev)
-    valid = cache_rows <= pos
-    if cfg.sliding_window > 0:
-        valid = valid & (cache_rows >= pos - cfg.sliding_window)
-    bias = torch.where(valid, 0.0, DEFAULT_MASK_VALUE).float()[None, None, None, :]
-    enable_gqa = cfg.n_heads != cfg.n_kv_heads
-
-    for li, layer in enumerate(model.layers):
-        h = _rmsnorm(x, layer.attn_norm)
-        q, k, v = _project_qkv(layer, h, cfg, positions)
-        # In place, where the JAX package uses dynamic_update_slice.
-        cache[li]["k"][:, :, pos : pos + 1] = k
-        cache[li]["v"][:, :, pos : pos + 1] = v
-        o = ffpa_attn_func(
-            q, cache[li]["k"], cache[li]["v"], attn_mask=bias,
-            enable_gqa=enable_gqa, **_feature_kwargs(cfg, layer, window=False),
-        )
-        x = x + layer.wo(o.transpose(1, 2).reshape(b, 1, -1))
-        h = _rmsnorm(x, layer.mlp_norm)
-        x = x + _mlp(layer, h)
-    x = _rmsnorm(x[:, -1], model.final_norm)
-    return x @ model.embed.T, cache
+    logits, cache = decode_block(model, cache, pos, token[:, None])
+    return logits[:, 0], cache
 
 
 @torch.inference_mode()
