@@ -41,10 +41,10 @@ It imports only ``ffpa_attn_tpu_torch``, torch and numpy, and runs, in order:
    shape (one forward launch, bit-equal to ``ffpa_attn_func``), a D64, a
    dropout and a causal Nq 1024 / Nkv 4096 call on the stock function (no
    launch, equal to the pristine function), then unpatched; speculative
-   decoding, the JAX package's ``bench_speculative`` (prompt 1024, 128
-   tokens, k_spec 4), self-spec and a one-layer draft, each with its launch
-   counts, accept rate and tokens/s, the stream and every verify block held
-   to the target teacher-forced, plain ``generate`` beside them;
+   decoding, the bench's ``bench_speculative`` (``cli/_e2e.py``: prompt
+   1024, 128 tokens, k_spec 4), self-spec and a one-layer draft, each with
+   its launch counts, accept rate and tokens/s, the stream and every verify
+   block held to the target teacher-forced, plain ``generate`` beside them;
 5. training path: ``make_train_step`` (AdamW 1e-4) of the same model at
    N8192 B1, one warm-up step and 3 timed steps with the launch counts of
    each, in the dS-handoff tier (the model's default), with
@@ -87,7 +87,16 @@ It imports only ``ffpa_attn_tpu_torch``, torch and numpy, and runs, in order:
    the bound (the phase fails if it stays below);
    banded dQ, banded dK and dK/dV also at the op-level shape (H32 MHA)
    with their TFLOP/s;
-7. the ``kernels`` line.
+7. bench CLI: the windowed paged leg (window 256, page 128) in process,
+   its paged steps teacher-forced against the dense steps and the paged
+   kernel timed with and without the window; MHA decode on the decode
+   kernel beside the fp32 composite; then, each in a subprocess, ``python
+   -m ffpa_attn_tpu_torch.bench`` over its ten cases, fwd and bwd, at H8
+   N4096 (cut from H32 N8192 for run time), every row gated with the
+   port's launches and the SDPA backend torch took; the headline line
+   (``cli._headline``, B1 H32 N8192 D512 bf16); the ``serve_paged_window``
+   and ``speculative`` legs of ``--e2e``;
+8. the ``kernels`` line.
 
 Every phase raises on failure; the script exits 0 only when all passed. The
 last three lines are the ``kernels`` JSON line, the nvidia-smi line and the
@@ -143,13 +152,18 @@ SERVE_LENS = [589, 698, 763, 886]
 # (tools/torch_varlen_schedule.py), so segment edges straddle tiles.
 PACK_LENS = [2048, 1536, 1200, 1024, 900, 700, 500, 284]
 ENGINE_REQUESTS, ENGINE_SLOTS = 8, 4
-# Speculative decoding: the JAX package's bench_speculative (cli/_e2e.py:216-278)
-# at its defaults, prompt 1024 from numpy seed 0, 128 generated, k_spec 4,
-# max_len prompt + gen + k_spec + 2; self-spec and a draft of the target's
-# first layer.
+# Speculative decoding: the bench's bench_speculative workload
+# (ffpa_attn_tpu_torch/cli/_e2e.py, held equal in phase_speculative), prompt
+# 1024 from numpy seed 0, 128 generated, k_spec 4, max_len prompt + gen +
+# k_spec + 2; self-spec and a draft of the target's first layer.
 SPEC_PROMPT, SPEC_GEN, SPEC_K, SPEC_DRAFT_LAYERS = 1024, 128, 4, 1
 SPEC_MAX_LEN = SPEC_PROMPT + SPEC_GEN + SPEC_K + 2
 PAGED_TOL, INT8_TOL = 5e-2, 6e-2  # tests/test_models.py:262, tests/test_paged.py:361
+# The bench CLI (ffpa_attn_tpu_torch/cli/_bench.py): its ten cases, cut from
+# H32 N8192 to H8 N4096 for run time; the windowed paged serving leg
+# (cli/_e2e.py bench_serve_paged_window) at its defaults: window 256, page
+# 128, the serving workload above.
+BENCH_H, BENCH_N, SERVE_WINDOW, WINDOW_PAGE = 8, 4096, 256, 128
 
 
 def log(msg: str) -> None:
@@ -1114,16 +1128,27 @@ def phase_main_path() -> dict:
                 generate_ms=gen_s * 1e3, model=model, prompt=prompt)
 
 
-def _serve_counts(zero: bool = False) -> dict:
-    """The serving kernels' launch counts (set to 0 with ``zero``)."""
-    from ffpa_attn_tpu_torch.ops import decode, flash_fwd, paged, varlen
+TRAIN_KERNELS = ("flash_fwd", "dkdv", "dq", "banded_dq", "dkdv_from_s", "banded_dk")
+SERVE_KERNELS = ("flash_fwd", "decode", "varlen_fwd", "paged_decode")
 
-    fns = {"flash_fwd": flash_fwd.flash_attention_forward, "decode": decode._decode_forward,
-           "varlen_fwd": varlen._varlen_forward, "paged_decode": paged.paged_decode_attention}
-    if zero:
-        for fn in fns.values():
-            fn.launches = 0
-    return {name: fn.launches for name, fn in fns.items()}
+
+def launch_counts(zero: bool = False) -> dict:
+    """Every kernel wrapper's launch count (``utils.profiling.launch_counts``;
+    set to 0 first with ``zero``)."""
+    from ffpa_attn_tpu_torch.utils.profiling import launch_counts as counts
+
+    return counts(zero)
+
+
+def _counts(names) -> dict:
+    """The launch counts of the kernels ``names``."""
+    counts = launch_counts()
+    return {n: counts[n] for n in names}
+
+
+def _launched() -> dict:
+    """The kernels launched since the counts were set to 0, with their counts."""
+    return {n: c for n, c in launch_counts().items() if c}
 
 
 def serve_prompts():
@@ -1144,12 +1169,12 @@ def _timed_serve(label, fn, want) -> float:
     call (cli/_e2e.py:124-132)."""
     fn()
     torch.cuda.synchronize()
-    _serve_counts(zero=True)
+    launch_counts(zero=True)
     t0 = time.perf_counter()
     toks = fn()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = _serve_counts()
+    counts = _counts(SERVE_KERNELS)
     tok_s = SERVE_B * SERVE_GEN / dt
     log(f"  {label}: {SERVE_B * SERVE_GEN} tokens in {dt * 1e3:.1f} ms = {tok_s:.1f} tokens/s, "
         f"launches {counts}")
@@ -1251,10 +1276,10 @@ def phase_serving(model) -> dict:
     rids = {eng.submit(p, max_new_tokens=mx): (p, mx) for p, mx in requests}
     done, steps = {}, 0
     while not eng.done():
-        _serve_counts(zero=True)
+        launch_counts(zero=True)
         ran = eng.steps_run
         done.update(eng.step())
-        counts = _serve_counts()
+        counts = _counts(SERVE_KERNELS)
         if eng.steps_run > ran and counts["paged_decode"] != cfg.n_layers:
             fail(f"engine step {steps}: {counts['paged_decode']} paged launches, expected "
                  f"{cfg.n_layers}")
@@ -1325,10 +1350,10 @@ def phase_monkey_patch() -> None:
     try:
         ffpa.patch_dot_product_attention()
         ffpa.patch_dot_product_attention()  # idempotent
-        _all_counts(zero=True)
+        launch_counts(zero=True)
         out = F.scaled_dot_product_attention(q, k, v, **kw)
         torch.cuda.synchronize()
-        counts = {n: c for n, c in _all_counts().items() if c}
+        counts = _launched()
         same = torch.equal(out, ffpa.ffpa_attn_func(q, k, v, **kw))
         ok = counts == {"flash_fwd": 1} and same
         log(f"monkey-patch: B1 H{hq}/{hkv} N{PROMPT} D{d} causal bf16 through the patched "
@@ -1337,11 +1362,11 @@ def phase_monkey_patch() -> None:
         if not ok:
             fail("the patched call did not run the forward kernel as ffpa_attn_func does")
         for name, (args, call_kw) in stock.items():
-            _all_counts(zero=True)
+            launch_counts(zero=True)
             torch.manual_seed(41)
             got = F.scaled_dot_product_attention(*args, **call_kw)
             torch.cuda.synchronize()
-            counts = {n: c for n, c in _all_counts().items() if c}
+            counts = _launched()
             torch.manual_seed(41)
             same = torch.equal(got, interface._IMPORT_TIME_SDPA(*args, **call_kw))
             ok = not counts and same
@@ -1395,27 +1420,26 @@ def hold_speculative(label: str, forced, toks, blocks) -> dict:
 
 
 def phase_speculative(model) -> dict:
-    """The JAX package's ``bench_speculative`` at its defaults on the
-    full-width model: self-spec, then a draft of the target's first layer
-    (a ``Transformer`` sharing its parameters, with its own cache). Each:
-    one recorded call (every verify block's logits kept), then one timed
-    call with the launch counts set to 0 just before it and read just after
-    (forward: the two prefills; decode: iterations x ((k_spec + 1) L_draft +
-    L_target)); the stream and the blocks held to the target teacher-forced
-    (``hold_speculative``); tokens/s = gen over the timed call. Plain
-    ``generate`` at the same prompt and length beside them."""
-    from torch import nn
-
-    from ffpa_attn_tpu_torch.models import Transformer, generate, speculative_generate
+    """The bench's ``bench_speculative`` (``cli/_e2e.py``) on the full-width
+    model, its workload (``speculative_workload``) and its timed call
+    (``run_speculative``): self-spec, then a draft of the target's first
+    layer (a ``Transformer`` sharing its parameters, with its own cache).
+    Each: one recorded call (every verify block's logits kept), then the
+    bench's timed call with the launch counts set to 0 just before it and
+    read just after (forward: the two prefills; decode: iterations x
+    ((k_spec + 1) L_draft + L_target)); the stream and the blocks held to
+    the target teacher-forced (``hold_speculative``); tokens/s = gen over the
+    timed call. Plain ``generate`` at the same prompt and length beside
+    them."""
+    from ffpa_attn_tpu_torch.cli import _e2e
+    from ffpa_attn_tpu_torch.models import generate, speculative_generate
     from ffpa_attn_tpu_torch.models import speculative as spec
 
     t_phase = time.perf_counter()
     cfg = model.cfg
-    prompt = torch.from_numpy(
-        np.random.default_rng(0).integers(0, cfg.vocab_size, (1, SPEC_PROMPT))).cuda()
-    draft = Transformer(replace(cfg, n_layers=SPEC_DRAFT_LAYERS), device="meta")
-    draft.embed, draft.final_norm = model.embed, model.final_norm
-    draft.layers = nn.ModuleList(list(model.layers)[:SPEC_DRAFT_LAYERS])
+    if (SPEC_PROMPT, SPEC_GEN, SPEC_K) != (_e2e.SPEC_PROMPT, _e2e.SPEC_GEN, _e2e.SPEC_K):
+        fail(f"SPEC_* {(SPEC_PROMPT, SPEC_GEN, SPEC_K)} != bench_speculative's "
+             f"{(_e2e.SPEC_PROMPT, _e2e.SPEC_GEN, _e2e.SPEC_K)}")
     log(f"speculative decoding (bench_speculative): prompt {SPEC_PROMPT}, {SPEC_GEN} tokens, "
         f"k_spec {SPEC_K}, max_len {SPEC_MAX_LEN}, target L{cfg.n_layers}:")
 
@@ -1426,26 +1450,24 @@ def phase_speculative(model) -> dict:
         blocks.append((pos, toks[0].tolist(), logits[0].float().cpu()))
         return logits, cache
 
-    def run(dmodel):
-        return speculative_generate(model, dmodel, prompt, SPEC_GEN, SPEC_MAX_LEN,
-                                    k_spec=SPEC_K, return_stats=True)
-
     out = {"rates": {}, "accept": {}, "launches": {}}
     forced = None
-    for label, dmodel in (("self_spec", model), (f"draft_L{SPEC_DRAFT_LAYERS}", draft)):
+    for draft_layers in (0, SPEC_DRAFT_LAYERS):
+        prompt, dmodel, max_len, _ = _e2e.speculative_workload(model, draft_layers=draft_layers)
+        if max_len != SPEC_MAX_LEN:
+            fail(f"bench_speculative's max_len {max_len} != {SPEC_MAX_LEN}")
+        label = f"draft_L{draft_layers}" if draft_layers else "self_spec"
         blocks.clear()
         spec.decode_block = recording  # the verify blocks, not the draft's steps
         try:
-            toks, stats = run(dmodel)
+            toks, stats = speculative_generate(model, dmodel, prompt, SPEC_GEN, max_len,
+                                               k_spec=SPEC_K, return_stats=True)
         finally:
             spec.decode_block = verify
         torch.cuda.synchronize()
-        _all_counts(zero=True)
-        t0 = time.perf_counter()
-        toks2, stats2 = run(dmodel)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        counts = {n: c for n, c in _all_counts().items() if c}
+        timed = _e2e.run_speculative(model, dmodel, prompt, SPEC_GEN, max_len, SPEC_K,
+                                     warmup=False)
+        toks2, stats2, dt, counts = (timed[k_] for k_ in ("toks", "stats", "seconds", "launches"))
         ld, lt = dmodel.cfg.n_layers, cfg.n_layers
         want = {"flash_fwd": lt + ld, "decode": stats2["target_calls"] * ((SPEC_K + 1) * ld + lt)}
         rate, accept = SPEC_GEN / dt, stats2["draft_accepted"] / stats2["proposals"]
@@ -1466,8 +1488,13 @@ def phase_speculative(model) -> dict:
         out[label] = hold_speculative(label, forced, toks, blocks)
         out["rates"][label], out["accept"][label] = rate, accept
         out["launches"][label] = counts
+
     def plain():
         return generate(model, prompt, SPEC_GEN, max_len=SPEC_MAX_LEN)
+
+    def run(dmodel):
+        return speculative_generate(model, dmodel, prompt, SPEC_GEN, SPEC_MAX_LEN,
+                                    k_spec=SPEC_K, return_stats=True)
 
     def rate(fn) -> float:
         torch.cuda.synchronize()
@@ -1490,25 +1517,6 @@ def phase_speculative(model) -> dict:
     return out
 
 
-def _counts() -> dict:
-    from ffpa_attn_tpu_torch.ops import flash_bwd, flash_fwd
-
-    return {"flash_fwd": flash_fwd.flash_attention_forward.launches,
-            "dkdv": flash_bwd._dkdv_launch.launches, "dq": flash_bwd._dq_launch.launches,
-            "banded_dq": flash_bwd._banded_dq_from_ds.launches,
-            "from_s": flash_bwd._dkdv_from_s_launch.launches,
-            "banded_dk": flash_bwd._banded_dk_from_ds.launches}
-
-
-def _zero_counts() -> None:
-    from ffpa_attn_tpu_torch.ops import flash_bwd, flash_fwd
-
-    flash_fwd.flash_attention_forward.launches = 0
-    for fn in (flash_bwd._dkdv_launch, flash_bwd._dq_launch, flash_bwd._banded_dq_from_ds,
-               flash_bwd._dkdv_from_s_launch, flash_bwd._banded_dk_from_ds):
-        fn.launches = 0
-
-
 def _s_resident_launches(layers: int, heads_split: bool = False) -> dict:
     """Launches of one S-resident backward step per layer: the forward, the
     from-S pass, banded dK where dK is out of the kernel (the dispatch
@@ -1520,7 +1528,7 @@ def _s_resident_launches(layers: int, heads_split: bool = False) -> dict:
                                nkv=TRAIN_N, dtype=torch.bfloat16)
     extra = 1 if heads_split else 0
     return {"flash_fwd": layers * (1 + extra), "dkdv": layers * extra, "dq": 0,
-            "banded_dq": layers * (1 + extra), "from_s": layers,
+            "banded_dq": layers * (1 + extra), "dkdv_from_s": layers,
             "banded_dk": 0 if cfg.dkdv_dk_in_kernel else layers}
 
 
@@ -1530,12 +1538,12 @@ def _train_steps(model, state, step, tokens, n, want, label) -> tuple:
     losses, times, total = [], [], dict.fromkeys(want, 0)
     for i in range(n):
         torch.cuda.synchronize()
-        _zero_counts()
+        launch_counts(zero=True)
         t0 = time.perf_counter()
         state, loss = step(model, state, tokens)
         loss = float(loss)  # synchronizes
         times.append((time.perf_counter() - t0) * 1e3)
-        counts = _counts()
+        counts = _counts(TRAIN_KERNELS)
         if counts != want:
             fail(f"{label} step {i}: launch counts {counts} != expected {want}")
         for name in total:
@@ -1645,7 +1653,7 @@ def phase_training() -> dict:
 
     cfg = ModelConfig(**TRAIN)
     per_step = {"flash_fwd": cfg.n_layers, "dkdv": cfg.n_layers, "dq": 0,
-                "banded_dq": cfg.n_layers, "from_s": 0, "banded_dk": 0}
+                "banded_dq": cfg.n_layers, "dkdv_from_s": 0, "banded_dk": 0}
     return _train_and_hold(cfg, "training path", per_step, TRAIN_STEPS)
 
 
@@ -1728,10 +1736,10 @@ def phase_op_level() -> dict:
 
     fwd_bwd()  # warm-up
     torch.cuda.synchronize()
-    _zero_counts()
+    launch_counts(zero=True)
     grads, _ = fwd_bwd()
     torch.cuda.synchronize()
-    counts = _counts()
+    counts = _counts(TRAIN_KERNELS)
     want = dict(_s_resident_launches(1), dkdv=0, dq=0)
     log(f"  launches {counts}")
     if counts != want:
@@ -1857,7 +1865,7 @@ def phase_windowed() -> dict:
     opt = adamw(1e-4)
     step = make_train_step(cfg, opt)
     per_step = {"flash_fwd": cfg.n_layers, "dkdv": cfg.n_layers, "dq": cfg.n_layers,
-                "banded_dq": 0, "from_s": 0, "banded_dk": 0}
+                "banded_dq": 0, "dkdv_from_s": 0, "banded_dk": 0}
     _, losses, times, launches = _train_steps(model, opt.init(list(model.parameters())), step,
                                               tokens, WINDOW_STEPS, per_step, "windowed")
     log(f"windowed path (mistral_like window {WINDOW}, L{cfg.n_layers}, N{TRAIN_N}): step ms "
@@ -1940,18 +1948,6 @@ def phase_checkpoint() -> None:
         fail("checkpoint: the restored run does not continue the saved one bit for bit")
 
 
-def _all_counts(zero: bool = False) -> dict:
-    """Every kernel wrapper's launch count (set to 0 with ``zero``)."""
-    from ffpa_attn_tpu_torch.ops import varlen
-
-    bwd = varlen._varlen_backward
-    if zero:
-        _zero_counts()
-        bwd.dkdv_launches = bwd.dq_launches = 0
-    return dict(_counts(), **_serve_counts(zero), varlen_dkdv=bwd.dkdv_launches,
-                varlen_dq=bwd.dq_launches)
-
-
 def packed_inputs(dtype) -> dict:
     """The packed-training inputs: the bench_train token budget packed as
     PACK_LENS documents, q, k, v and dO from numpy seed 0, on the card."""
@@ -2013,7 +2009,7 @@ def phase_packed_training() -> dict:
 
     t, n = sum(PACK_LENS), max(PACK_LENS)
     hq, hkv, d = TRAIN["n_heads"], TRAIN["n_kv_heads"], TRAIN["head_dim"]
-    want = dict.fromkeys(_all_counts(), 0)
+    want = dict.fromkeys(launch_counts(), 0)
     want.update(varlen_fwd=1, varlen_dkdv=1, varlen_dq=1)
     log(f"packed training (op level): ffpa_attn_varlen_func + backward over {len(PACK_LENS)} "
         f"documents {PACK_LENS} = T{t}, H{hq}/{hkv} D{d} causal")
@@ -2026,10 +2022,10 @@ def phase_packed_training() -> dict:
                 dict(window_size=(128, -1)))):
             label = f"{str(dtype)[6:]}{' gpt_oss_like' if sinks is not None else ''}"
             torch.cuda.synchronize()
-            _all_counts(zero=True)
+            launch_counts(zero=True)
             r = _packed_call(x, sinks=sinks, **kw)
             torch.cuda.synchronize()
-            counts = _all_counts()
+            counts = launch_counts()
             if counts != want:
                 fail(f"packed training {label}: launch counts {counts} != expected {want}")
             window = kw.get("window_size", (-1, -1))
@@ -2099,6 +2095,213 @@ def phase_packed_training() -> dict:
     return out
 
 
+def _json_lines(stdout: str) -> list:
+    return [json.loads(ln) for ln in stdout.splitlines() if ln.startswith("{")]
+
+
+def _run(cmd, label: str, timeout: int, env=None) -> tuple:
+    """``cmd`` in a subprocess (killed at ``timeout``): (its JSON lines, its
+    wall seconds); fails on a non-zero exit code with its stderr's tail."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout, env=env)
+    dt = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"{label}: rc {proc.returncode}\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return _json_lines(proc.stdout), dt
+
+
+@torch.inference_mode()
+def _window_stream_logits(model, prompts, toks) -> tuple:
+    """Teacher-forced on the token stream ``toks`` [B, gen]: per decode step,
+    (the paged step's logits, the dense shared-row step's logits), both
+    after one packed prefill; and the paged pools at the end."""
+    from ffpa_attn_tpu_torch.models import init_kv_cache, pack_prompts, prefill_packed
+    from ffpa_attn_tpu_torch.models.serving import _batched_decode_step, _paged_decode_step
+    from ffpa_attn_tpu_torch.ops.paged import PagedKVCache, fill_from_prefill
+
+    cfg, dev = model.cfg, prompts[0].device
+    lens = [int(p.shape[0]) for p in prompts]
+    base = max(lens)
+    packed, cu = pack_prompts(prompts, sum(lens))
+    cache = init_kv_cache(cfg, len(prompts), SERVE_MAX_LEN, device=dev)
+    _, cache = prefill_packed(model, packed, cu, base, cache)
+    pools = [fill_from_prefill(
+        PagedKVCache.alloc(len(lens), SERVE_MAX_LEN, cfg.n_kv_heads, cfg.head_dim, WINDOW_PAGE,
+                           dtype=cfg.torch_dtype, device=dev),
+        c["k"][:, :, :base], c["v"][:, :, :base], lens) for c in cache]
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    steps = []
+    for t in range(toks.shape[1] - 1):
+        paged, pools = _paged_decode_step(model, pools, toks[:, t])
+        dense, cache = _batched_decode_step(model, cache, lens_t, t, toks[:, t], base)
+        steps.append((paged.float(), dense.float()))
+    return steps, pools
+
+
+def phase_bench_cli(model) -> dict:
+    """The bench CLI. First, in this process on the main path's weights, the
+    windowed paged leg (window 256, page 128, the serving workload):
+    ``serve_batch_paged`` (4 varlen forward and 4 x 127 paged decode
+    launches) beside ``serve_batch``, every step's logits teacher-forced on
+    the paged stream held to the dense step's (PAGED_TOL of max|logit|, the
+    same argmax wherever the top two are more than twice that apart), and
+    the paged kernel's device ms at the last step with and without the
+    window; MHA decode at the bench's default shape, the kernel beside the
+    fp32 composite the JAX package's route would take. Then the commands a
+    user runs, each in a subprocess, after this process's last profiled
+    window (in an H100 run with the subprocesses first, this process's
+    profiler then recorded only part of its device events): ``python -m
+    ffpa_attn_tpu_torch.bench`` over its ten cases, fwd and bwd (H8 N4096,
+    cut from H32 N8192 for run time), each row gated, with port launches and
+    its SDPA backend; the headline line (``cli._headline``, B1 H32 N8192
+    D512 bf16); the ``serve_paged_window`` and ``speculative`` legs
+    (``--e2e``, one subprocess each)."""
+    import os
+
+    from ffpa_attn_tpu_torch import ffpa_attn_func
+    from ffpa_attn_tpu_torch.cli import _e2e
+    from ffpa_attn_tpu_torch.cli._bench import CASES
+    from ffpa_attn_tpu_torch.models import serve_batch, serve_batch_paged
+    from ffpa_attn_tpu_torch.ops import paged
+    from ffpa_attn_tpu_torch.ops.reference import reference_attention
+    from ffpa_attn_tpu_torch.utils.profiling import bound_ms, paged_decode_counts
+
+    t_phase = time.perf_counter()
+    # The windowed paged leg in this process, on the main path's weights.
+    cfg, dev = model.cfg, torch.device("cuda")
+    wmodel = _e2e.shared_model(model, sliding_window=SERVE_WINDOW, max_seq_len=SERVE_MAX_LEN)
+    prompts = _e2e.serve_prompts(SERVE_B, SERVE_PROMPT, cfg.vocab_size, dev)
+    lens = [int(p.shape[0]) for p in prompts]
+    if lens != SERVE_LENS:
+        fail(f"serving prompt lengths {lens} != {SERVE_LENS}")
+    toks, dt_window, counts = _e2e.timed_call(
+        lambda: serve_batch_paged(wmodel, prompts, SERVE_GEN, SERVE_MAX_LEN,
+                                  page_size=WINDOW_PAGE), dev)
+    want = {"varlen_fwd": cfg.n_layers, "paged_decode": cfg.n_layers * (SERVE_GEN - 1)}
+    window_tok_s = SERVE_B * SERVE_GEN / dt_window
+    log(f"windowed paged serving (W{SERVE_WINDOW}, page {WINDOW_PAGE}, B{SERVE_B} prompts "
+        f"{SERVE_LENS}, {SERVE_GEN} tokens): {window_tok_s:.1f} tokens/s, launches {counts}")
+    if counts != want:
+        fail(f"windowed paged serving: launch counts {counts} != expected {want}")
+    dense_toks = serve_batch(wmodel, prompts, SERVE_GEN, SERVE_MAX_LEN)
+    steps, pools = _window_stream_logits(wmodel, prompts, toks)
+    worst, ties, missed, replayed = 0.0, 0, [], 0
+    for t, (lp, ld) in enumerate(steps):
+        worst = max(worst, row_rel(lp, ld))
+        replayed += int(torch.equal(lp.argmax(-1), toks[:, t + 1]))
+        top = ld.topk(2, dim=-1).values
+        tie = (top[:, 0] - top[:, 1]) <= 2 * PAGED_TOL * ld.abs().amax(-1)
+        ties += int(tie.sum())
+        bad = (lp.argmax(-1) != ld.argmax(-1)) & ~tie
+        missed += [(t, int(b_)) for b_ in bad.nonzero()[:, 0].tolist()]
+    same = int((toks == dense_toks).all(dim=0).cumprod(0).sum())
+    ok = worst < PAGED_TOL and not missed
+    log(f"  paged vs dense steps, teacher-forced on the paged stream: {len(steps)} steps x "
+        f"B{SERVE_B}, worst per-row logits {worst:.2e} (tol {PAGED_TOL:g} of max|logit|), argmax "
+        f"missed at {missed}, {ties} near ties (logged); the paged steps give the paged stream's "
+        f"next token at {replayed} of {len(steps)} steps; free-running serve_batch and "
+        f"serve_batch_paged agree for {same} of {SERVE_GEN} tokens {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("windowed serving: the paged steps disagree with the dense steps")
+
+    # The paged kernel at the last step, with and without the window.
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    q = _randn((SERVE_B, cfg.n_heads, 1, cfg.head_dim), torch.bfloat16, gen)
+    names = ("paged_tma_kernel", "paged_decode_kernel", "split_merge_kernel")
+    step_lens = pools[0].lens.tolist()
+    walk = {}
+    for label, wl in (("windowed", SERVE_WINDOW), ("unwindowed", -1)):
+        def call(wl=wl):
+            return paged.paged_decode_attention(q, pools[0], scale=cfg.head_dim ** -0.5,
+                                                window_left=wl)
+        live = [min(n, wl + 1) if wl >= 0 else n for n in step_lens]
+        bms = bound_ms(*paged_decode_counts(live, hq=cfg.n_heads, hkv=cfg.n_kv_heads,
+                                            d=cfg.head_dim, dv=cfg.head_dim))[0]
+        with torch.inference_mode():  # the pools are inference tensors
+            kms = _above_bound(f"paged decode ({label})", _kernel_timed(call, names, 100), bms,
+                               lambda call=call: _kernel_timed(call, names, 100))
+        walk[label] = (*kms, bms)
+    log(f"  paged decode at the last step (lens {step_lens}): windowed {walk['windowed'][0]:.4f} "
+        f"ms [{walk['windowed'][1]:.4f}] (bound {walk['windowed'][2]:.4f}) vs unwindowed "
+        f"{walk['unwindowed'][0]:.4f} ms [{walk['unwindowed'][1]:.4f}] (bound "
+        f"{walk['unwindowed'][2]:.4f}); device ms of the kernels [CUDA-event ms a call]")
+    del pools, steps, wmodel
+
+    # MHA decode at the bench's default shape: the kernel (ffpa_attn_func)
+    # and the fp32 composite.
+    qd = _randn((1, 32, 1, 512), torch.bfloat16, gen)
+    kd, vd = (_randn((1, 32, 8192, 512), torch.bfloat16, gen) for _ in range(2))
+    launch_counts(zero=True)
+    got = ffpa_attn_func(qd, kd, vd)
+    torch.cuda.synchronize()
+    routed = _launched()
+    want_o = reference_attention(qd, kd, vd)
+    err = row_rel(got, want_o)
+    mha = {name: _timed(fn, 20) for name, fn in (
+        ("kernel", lambda: ffpa_attn_func(qd, kd, vd)),
+        ("composite", lambda: reference_attention(qd, kd, vd)))}
+    mha_bound = bound_ms(*paged_decode_counts([8192], hq=32, hkv=32, d=512, dv=512))[0]
+    mha["kernel"] = _above_bound("MHA decode", mha["kernel"], mha_bound,
+                                 lambda: _timed(lambda: ffpa_attn_func(qd, kd, vd), 20))
+    log(f"  MHA decode B1 H32 Nkv8192 D512: ffpa_attn_func launches {routed}, per-row error vs "
+        f"the fp32 composite {err:.2e} (tol {BF16_TOL:g}); device ms [CUDA-event ms]: kernel "
+        f"{mha['kernel'][0]:.4f} [{mha['kernel'][1]:.4f}], composite {mha['composite'][0]:.4f} "
+        f"[{mha['composite'][1]:.4f}]; bound {mha_bound:.4f}")
+    if routed != {"decode": 1} or err >= BF16_TOL:
+        fail("MHA decode did not take the decode kernel, or disagrees with the composite")
+    del qd, kd, vd
+
+    # The commands a user runs, each in a subprocess of its own.
+    torch.cuda.empty_cache()  # the subprocesses share the card
+    cmd = [sys.executable, "-m", "ffpa_attn_tpu_torch.bench", "--cases", *CASES,
+           "--directions", "fwd", "bwd", "--B", "1", "--H", str(BENCH_H), "--N", str(BENCH_N),
+           "--D", "512", "--json"]
+    log(f"bench CLI: python {' '.join(cmd[1:])} (H{BENCH_H} N{BENCH_N}: cut from the default "
+        f"H32 N8192 for run time)")
+    rows, dt = _run(cmd, "bench CLI", 900)
+    if len(rows) != 2 * len(CASES):
+        fail(f"bench CLI: {len(rows)} rows, expected {2 * len(CASES)}")
+    for r in rows:
+        ok = r["verified"] and bool(r["launches"]) and bool(r["sdpa_backend"])
+        route = r["launches"] if r["direction"] == "fwd" else (
+            f"{r['launches']} (backward {r['backward_launches']})")
+        dev = f"device {r['ffpa_device_ms']:.4f}, outside the port's kernels " + (
+            "not measured" if r["non_port_device_ms"] is None else
+            f"{r['non_port_device_ms']:.4f}")
+        log(f"  {r['case']:>14} {r['direction']}: FFPA {r['ffpa_ms']:.4f} ms ({dev}) "
+            f"vs SDPA {r['sdpa_ms']:.4f} ms ({r['baseline']}; torch backend {r['sdpa_backend']}; "
+            f"{ {k: round(v, 4) for k, v in r['baseline_ms'].items()} }) {r['speedup']:.2f}x, "
+            f"bound {r['bound_ms']:.4f} ({r['bound_by']}); route {route}; gate "
+            f"{'on' if r['verified'] else 'OFF'} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"bench CLI row {r['case']} {r['direction']}: gate off, no port launch or no "
+                 f"SDPA backend")
+    log(f"  {len(rows)} rows in {dt:.1f} s")
+
+    lines, dt = _run([sys.executable, "-m", "ffpa_attn_tpu_torch.cli._headline"], "headline", 600)
+    head = lines[-1] if lines else {}
+    log(f"headline ({dt:.1f} s): {json.dumps(head)}")
+    if not (head.get("value", 0) > 0 and head.get("vs_baseline", 0) > 0
+            and head.get("bwd_causal_tflops", 0) > 0):
+        fail(f"the headline line lacks a forward or a causal backward number: {head}")
+
+    legs = "serve_paged_window,speculative"
+    lines, dt = _run([sys.executable, "-m", "ffpa_attn_tpu_torch.bench", "--e2e"], "e2e legs",
+                     900, env=dict(os.environ, FFPA_TORCH_E2E_ONLY=legs))
+    for ln in lines:
+        log(f"  e2e: {json.dumps(ln)}")
+    metrics = [ln.get("metric") for ln in lines]
+    if metrics != ["serve_paged_window_tokens_per_s", "speculative_tokens_per_s"] or any(
+            "error" in ln or not ln.get("value", 0) > 0 for ln in lines):
+        fail(f"--e2e {legs}: {lines}")
+    log(f"  e2e legs {legs} in {dt:.1f} s")
+
+    torch.cuda.empty_cache()
+    log(f"  phase {time.perf_counter() - t_phase:.1f} s")
+    return dict(rows=rows, headline=head, e2e=lines, window_tok_s=window_tok_s, paged_walk=walk,
+                mha_decode=mha)
+
+
 def where_the_time_goes(model, prompt) -> None:
     """Device time by kernel and the device's busy share over one prefill
     and over 8 decode steps of the main path (torch.profiler)."""
@@ -2134,19 +2337,6 @@ def _timed(fn, reps: int, warmup: int = 3) -> tuple:
     from ffpa_attn_tpu_torch.utils.profiling import cuda_ms, device_ms
 
     return device_ms(fn, reps=reps, warmup=1), cuda_ms(fn, reps=reps, warmup=warmup)
-
-
-def _sdpa_backend(fn) -> str:
-    """Which SDPA backend PyTorch took for ``fn``, from the kernels it ran."""
-    from ffpa_attn_tpu_torch.utils.profiling import device_window
-
-    by_kernel = device_window(fn, reps=1, warmup=1)["by_kernel"]
-    names = " ".join(by_kernel).lower()
-    for key, label in (("flash", "flash"), ("cudnn", "cudnn"), ("fmha", "efficient"),
-                       ("mem_eff", "efficient"), ("attention_kernel", "efficient")):
-        if key in names:
-            return label
-    return "math"
 
 
 def _hold(label: str, pairs: dict, dtype=torch.bfloat16) -> float:
@@ -2226,6 +2416,7 @@ def training_times(training: dict, windowed: dict, resident: dict) -> tuple:
     variants) and banded dK."""
     import torch.nn.functional as F
 
+    from ffpa_attn_tpu_torch.cli._bench import sdpa_backend
     from ffpa_attn_tpu_torch.ops import flash_bwd, flash_fwd
     from ffpa_attn_tpu_torch.ops.dispatch import pick_backward_config
     from ffpa_attn_tpu_torch.ops.reference import expand_kv_heads
@@ -2279,16 +2470,17 @@ def training_times(training: dict, windowed: dict, resident: dict) -> tuple:
         plain_kw = dict(is_causal=True, causal_offset=0, dropout_p=0.0, seed=0, softcap=0.0,
                         window=window, alibi=None)
         if window[0] < 0:
-            out = F.scaled_dot_product_attention(ql, ke, ve, is_causal=True)
+            sdpa_kw = dict(is_causal=True)
         else:
             r = torch.arange(n, device="cuda")
             band = (r[None, :] <= r[:, None]) & (r[None, :] >= r[:, None] - window[0])
-            out = F.scaled_dot_product_attention(ql, ke, ve, attn_mask=band)
+            sdpa_kw = dict(attn_mask=band)
+        out = F.scaled_dot_product_attention(ql, ke, ve, **sdpa_kw)
 
         def library():
             return torch.autograd.grad(out, (ql, ke, ve), do, retain_graph=True)
 
-        backend = _sdpa_backend(library)
+        backend = sdpa_backend(ql, ke, ve, **sdpa_kw)
         lib = _timed(library, 5)
         log(f"  library for {'/'.join(names)}: torch.autograd.grad through "
             f"scaled_dot_product_attention ({backend} backend, K/V heads expanded, "
@@ -2379,7 +2571,8 @@ def training_times(training: dict, windowed: dict, resident: dict) -> tuple:
 
     fwd_lib = _timed(fwd_library, 3, warmup=1)
     log(f"  library for flash_fwd at N{n}: scaled_dot_product_attention "
-        f"({_sdpa_backend(fwd_library)} backend, causal, GQA) {fwd_lib[0]:.4f} ms "
+        f"({sdpa_backend(q, k, v, is_causal=True, enable_gqa=True)} backend, causal, GQA) "
+        f"{fwd_lib[0]:.4f} ms "
         f"[{fwd_lib[1]:.4f}]; bound {fb_ms:.4f} ms")
     fwd_train = dict(training_ms=fwd_ms[0], training_ms_with_scores=fwd_s_ms[0],
                      training_bound_ms=fb_ms, training_library_ms=fwd_lib[0])
@@ -2430,7 +2623,7 @@ def training_times(training: dict, windowed: dict, resident: dict) -> tuple:
     flops, nbytes = backward_counts("dkdv_from_s", b=b, hq=hq, hkv=hkv, nq=n, nkv=n, d=d, dv=d,
                                     causal=True, slab_bytes=s.numel() * 2,
                                     dk_in_kernel=cfg.dkdv_dk_in_kernel)
-    row("dkdv_from_s", "ffpa_attn_tpu/ops/flash_bwd.py:344", resident["launches"]["from_s"],
+    row("dkdv_from_s", "ffpa_attn_tpu/ops/flash_bwd.py:344", resident["launches"]["dkdv_from_s"],
         err, kms, pms, lms, flops, nbytes,
         lambda: _kernel_timed(run_picked, flash_bwd.FROM_S_KERNELS, 10, setup=lambda: s.clone()))
     rows[-1].update(from_s_kernel_row_extras(d, cfg.dkdv_dk_in_kernel))
@@ -2887,6 +3080,7 @@ def serving_times(errs: dict, serving: dict, model) -> tuple:
     (a yardstick: the gather is not timed)."""
     import torch.nn.functional as F
 
+    from ffpa_attn_tpu_torch.cli._bench import sdpa_backend
     from ffpa_attn_tpu_torch.models import init_kv_cache, pack_prompts, prefill_packed
     from ffpa_attn_tpu_torch.models.serving import _paged_decode_step
     from ffpa_attn_tpu_torch.ops import paged, varlen
@@ -2975,7 +3169,8 @@ def serving_times(errs: dict, serving: dict, model) -> tuple:
 
     lms = _timed(library, 10)
     log(f"  library for varlen_fwd: scaled_dot_product_attention over the packed T{t} with a "
-        f"block-diagonal causal bool mask ({_sdpa_backend(library)} backend)")
+        f"block-diagonal causal bool mask "
+        f"({sdpa_backend(qh, kh, vh, attn_mask=block_causal, enable_gqa=True)} backend)")
     rows.append(dict(
         name="varlen_fwd", route="cuda", source="ffpa_attn_tpu_torch/csrc/varlen_fwd.cu",
         replaces="ffpa_attn_tpu/ops/varlen.py:214", launches=serving["launches"]["varlen_fwd"],
@@ -3070,6 +3265,7 @@ def packed_training_times(packed: dict) -> tuple:
     the block-diagonal causal bool mask (K/V heads expanded)."""
     import torch.nn.functional as F
 
+    from ffpa_attn_tpu_torch.cli._bench import sdpa_backend
     from ffpa_attn_tpu_torch import ffpa_attn_varlen_func
     from ffpa_attn_tpu_torch.ops import varlen
     from ffpa_attn_tpu_torch.ops.config import varlen_dkdv_plan, varlen_dq_plan
@@ -3144,7 +3340,7 @@ def packed_training_times(packed: dict) -> tuple:
     def library():
         return torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True)
 
-    backend = _sdpa_backend(library)
+    backend = sdpa_backend(qh, kh, vh, attn_mask=block_causal)
     lms = _timed(library, 3, warmup=1)
     log(f"  library for varlen_dkdv/varlen_dq: torch.autograd.grad through "
         f"scaled_dot_product_attention over the packed T{t} with a block-diagonal causal bool "
@@ -3379,6 +3575,7 @@ def main() -> int:
     phase_checkpoint()
     packed = phase_packed_training()
     rows = phase_times(errs, main_path, training, windowed, resident, serving, packed)
+    bench = phase_bench_cli(main_path["model"])
     for r in rows:  # launches per speculative call beside the main path's
         if r["name"] in ("flash_fwd", "decode"):
             r["speculative_launches"] = {k: c.get(r["name"], 0)
@@ -3394,6 +3591,10 @@ def main() -> int:
         f"packed_bwd_ms {packed['bwd_ms']:.3f} packed_bwd_tflops {packed['bwd_tflops']:.1f} "
         + "".join(f"{k} {v:.1f} " for k, v in serving["rates"].items())
         + "".join(f"spec_{k} {v:.1f} " for k, v in spec["rates"].items())
+        + f"headline_fwd_tflops {bench['headline']['value']} headline_vs_baseline "
+        f"{bench['headline']['vs_baseline']} headline_bwd_causal_tflops "
+        f"{bench['headline']['bwd_causal_tflops']} serve_paged_window_tokens_per_s "
+        f"{bench['window_tok_s']:.1f} "
         + f"loss_rel_err {training['loss_err']:.2e} "
         f"grad_rel_err {training['grad_err']:.2e} s_resident_grad_rel_err "
         f"{resident['grad_err']:.2e} total {time.perf_counter() - t_start:.1f} s on {smi}")

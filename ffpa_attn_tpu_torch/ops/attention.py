@@ -13,8 +13,7 @@ of the JAX package:
 * ``SDPABackend``: autograd through the fp32 oracle ``reference_attention``.
 
 ``apply_attention`` routes decode shapes (Nq <= 8) to the split-KV decode
-kernel (GQA) or to the fp32 composite (MHA), and everything else to the
-core op.
+kernel, MHA and GQA alike, and everything else to the core op.
 
 fp16 runs natively on the card: no cast to bf16, no hi+lo split, and the
 gradients come back in the inputs' dtype.
@@ -300,7 +299,7 @@ def apply_attention(
     sinks=None,
 ):
     """Dispatch a normalized attention call: decode shapes to the split-KV
-    kernel (GQA) or the fp32 composite (MHA), the rest to the core op."""
+    kernel, the rest to the core op."""
     fwd_be = meta.forward_backend
     softcap = float(getattr(meta, "softcap", 0.0) or 0.0)
     window = tuple(getattr(meta, "window", (-1, -1)))
@@ -316,30 +315,12 @@ def apply_attention(
     if nq <= 8 and meta.dropout_p == 0.0 and alibi is None:
         # Decode path, Nq 1..8 (speculative decoding included). ALiBi decode
         # takes the dense kernel.
-        from .decode import (
-            _DECODE_BWD_COMPOSITE_MAX_ELEMS,
-            decode_attention,
-            decode_attention_supported,
-        )
+        from .decode import decode_attention, decode_attention_supported
 
         if decode_attention_supported(q, k):
-            if (
-                q.shape[1] == k.shape[1]
-                and q.numel() * k.shape[2] // q.shape[3]
-                <= _DECODE_BWD_COMPOSITE_MAX_ELEMS
-            ):
-                # MHA decode: with no PackGQA fold the kernel has no
-                # bandwidth edge over the composite (both stream K/V once);
-                # GQA keeps the kernel, whose fold cuts K/V traffic by the
-                # group size.
-                return reference_attention(
-                    q, k, v, bias,
-                    is_causal=meta.is_causal,
-                    scale=meta.scale,
-                    softcap=softcap,
-                    window=window,
-                    sinks=sinks,
-                )
+            # MHA too: the JAX package sends MHA decode to its XLA composite,
+            # which XLA fuses and, under jax.grad, shares residuals with;
+            # here that composite is the unfused fp32 oracle.
             return decode_attention(
                 q, k, v, bias,
                 scale=meta.scale,

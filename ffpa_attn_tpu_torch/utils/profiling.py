@@ -2,15 +2,20 @@
 
 * ``cuda_ms``: mean time per call between CUDA events around back-to-back
   calls; it includes host gaps when the host cannot keep the card busy.
+* ``queued_ms``: device time of a block of work from CUDA events, the host's
+  enqueue held off the clock by a spin kernel queued before it.
 * ``device_window``: the kernels a block of work ran, from ``torch.profiler``
   (CUPTI): device time by kernel name, and the device's busy share of the
   wall-clock window. ``device_ms`` is its device time per call. Both raise
   when the profiler recorded no device time in two windows running, rather
   than report another clock under the same name.
+* ``launch_counts``: every kernel wrapper's launch counter, by kernel.
 * ``bound_ms``: the least time the card could take for given operations
   and bytes, at the published H100 SXM peaks; ``backward_counts``,
   ``varlen_counts``, ``varlen_backward_counts`` and ``paged_decode_counts``
-  give a kernel's operations and bytes for this run's shapes.
+  give a kernel's operations and bytes for this run's shapes; ``band_pairs``
+  (``cli/_flops.attention_valid_pairs``) the (row, col) score pairs inside
+  the tail-aligned causal / window band of one head.
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ from typing import Callable
 
 import torch
 
+from ..cli._flops import attention_valid_pairs as band_pairs
+
 # Published NVIDIA H100 SXM peaks (dense): bf16/fp16 tensor cores, HBM3.
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BW = 3.35e12
@@ -30,19 +37,6 @@ def bound_ms(flops: float, nbytes: float) -> tuple:
     """(least time in ms, "operations" or "bytes": whichever bounds it)."""
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BW
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
-
-
-def band_pairs(nq: int, nkv: int, *, causal: bool, window=(-1, -1)) -> int:
-    """(row, col) score pairs inside the tail-aligned causal / window band
-    of one head: the work a kernel that skips masked tiles must still do."""
-    off, wl = nkv - nq, int(window[0])
-    wr = 0 if causal else int(window[1])
-    total = 0
-    for i in range(nq):
-        lo = 0 if wl < 0 else max(0, i + off - wl)
-        hi = nkv - 1 if wr < 0 else min(nkv - 1, i + off + wr)
-        total += max(0, hi - lo + 1)
-    return total
 
 
 def backward_counts(kernel: str, *, b: int, hq: int, hkv: int, nq: int, nkv: int, d: int,
@@ -126,6 +120,27 @@ def paged_decode_counts(lens, *, hq: int, hkv: int, d: int, dv: int, nq: int = 1
     return 2 * nq * hq * rows * (d + dv), kv_bytes + qo_bytes
 
 
+def launch_counts(zero: bool = False) -> dict:
+    """Each kernel wrapper's launch count (set to 0 first with ``zero``),
+    under the kernel's name in ``chip_smoke.py``'s ``kernels`` line. A
+    wrapper counts a launch of its kernel only; calls on CPU tensors run
+    the plain version and count nothing."""
+    from ..ops import decode, flash_bwd, flash_fwd, paged, varlen
+
+    bwd = varlen._varlen_backward
+    fns = {"flash_fwd": flash_fwd.flash_attention_forward, "dkdv": flash_bwd._dkdv_launch,
+           "dq": flash_bwd._dq_launch, "banded_dq": flash_bwd._banded_dq_from_ds,
+           "dkdv_from_s": flash_bwd._dkdv_from_s_launch, "banded_dk": flash_bwd._banded_dk_from_ds,
+           "decode": decode._decode_forward, "varlen_fwd": varlen._varlen_forward,
+           "paged_decode": paged.paged_decode_attention}
+    if zero:
+        for fn in fns.values():
+            fn.launches = 0
+        bwd.dkdv_launches = bwd.dq_launches = 0
+    return dict({n: fn.launches for n, fn in fns.items()}, varlen_dkdv=bwd.dkdv_launches,
+                varlen_dq=bwd.dq_launches)
+
+
 def cuda_ms(fn: Callable, reps: int = 20, warmup: int = 3) -> float:
     """Mean time per call of ``fn`` between CUDA events over ``reps`` calls."""
     for _ in range(warmup):
@@ -141,13 +156,41 @@ def cuda_ms(fn: Callable, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def queued_ms(calls: Callable, cycles: int = 50_000_000) -> float:
+    """Device ms of the work ``calls()`` enqueues, from CUDA events with the
+    host's enqueue taken out: a spin kernel (``torch.cuda._sleep``) holds
+    the stream while the host enqueues the work between two events, so the
+    device runs it back to back. Where the host took longer to enqueue than
+    the spin lasted, the spin is doubled and ``calls`` run again (a
+    backward, which runs once, enqueues in well under the spin). No
+    profiler: its device events can be lost (``device_window``)."""
+    while True:
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(cycles)
+        ev[1].record()
+        t0 = time.perf_counter()
+        calls()
+        ev[2].record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ev[2].synchronize()
+        if ev[0].elapsed_time(ev[1]) > host_ms:
+            return ev[1].elapsed_time(ev[2])
+        cycles *= 2
+
+
+class LostDeviceEvents(RuntimeError):
+    """torch.profiler recorded no device event in a window of device work."""
+
+
 def device_window(fn: Callable, reps: int = 1, warmup: int = 1) -> dict:
     """Profile ``reps`` calls of ``fn``: {"device_ms": total device time,
     "wall_ms": the window's wall-clock time, "busy": device_ms / wall_ms,
     "by_kernel": {name: device ms}}. A window in which the profiler
-    recorded no device event (it lost them: seen once on an H100 in a
-    window of ten matmuls) is profiled again once; a second such window
-    raises."""
+    recorded no device event (it lost them: seen on an H100 in a window of
+    ten matmuls, and in processes that had run large windows before) is
+    profiled again once; a second such window raises ``LostDeviceEvents``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -169,7 +212,7 @@ def device_window(fn: Callable, reps: int = 1, warmup: int = 1) -> dict:
         if total > 0.0:
             return dict(device_ms=total, wall_ms=wall_ms, busy=total / wall_ms,
                         by_kernel=dict(by_kernel))
-    raise RuntimeError("torch.profiler recorded no device time, twice")
+    raise LostDeviceEvents("torch.profiler recorded no device time, twice")
 
 
 def device_ms(fn: Callable, reps: int = 10, warmup: int = 3) -> float:
@@ -179,6 +222,6 @@ def device_ms(fn: Callable, reps: int = 10, warmup: int = 3) -> float:
 
 __all__ = [
     "PEAK_BF16_FLOPS", "PEAK_HBM_BW", "bound_ms", "band_pairs", "backward_counts",
-    "varlen_counts", "varlen_backward_counts", "paged_decode_counts", "cuda_ms",
-    "device_window", "device_ms",
+    "varlen_counts", "varlen_backward_counts", "paged_decode_counts", "launch_counts", "cuda_ms",
+    "queued_ms", "LostDeviceEvents", "device_window", "device_ms",
 ]

@@ -188,3 +188,22 @@ def test_package_never_imports_jax():
     for path in sorted(PKG.rglob("*.py")):
         hits = pat.findall(path.read_text())
         assert not hits, f"{path.name}: {hits}"
+
+
+def test_mha_decode_takes_the_decode_route(monkeypatch):
+    """Decode shapes take the decode route for MHA as for GQA (the JAX
+    package's MHA composite would be the unfused fp32 oracle here)."""
+    from ffpa_attn_tpu_torch.ops import decode as tdec_mod
+
+    calls = []
+    real = tdec_mod.decode_attention
+
+    def spy(*a, **k):
+        calls.append(a[0].shape)
+        return real(*a, **k)
+
+    monkeypatch.setattr(tdec_mod, "decode_attention", spy)
+    q, k, v = _qkv(1, 4, 4, 1, 256, 512)
+    jo, to = _both(q, k, v)
+    assert calls == [torch.Size([1, 4, 1, 512])]
+    assert rel_err(to, jo) < BF16_TOL
