@@ -9,8 +9,11 @@ It imports only ``ffpa_attn_tpu_torch``, torch and numpy, and runs, in order:
    ``ffpa_attn_tpu_torch/csrc`` (one nvcc per source, all started together);
 3. kernel vs plain: each kernel against its plain PyTorch version on the
    card, at the serving and training shapes and at feature cases, with
-   stated tolerances: the forward on both of its routes (wgmma at D, Dv
-   <= 512, mma.sync above) and its S residual, decode on both of its
+   stated tolerances: the forward on both of its routes (one wgmma block
+   at D, Dv <= 512, a cluster of two splitting D and Dv above: D640 and
+   D1024 over bias, ALiBi, softcap, windows, dropout, fp16, GQA, a ragged
+   edge and D != Dv) and its S residual, a causal D1024 backward through
+   the S-resident tier (``ffpa_attn_func`` + ``.backward``), decode on both of its
    routes (TMA at D, Dv <= 512, cp.async above; one valid column, the
    serving step's gap, 32 packed rows, D != Dv, the speculative verify
    block at Nq 5 with its per-row bias; and its score residual),
@@ -294,7 +297,7 @@ def _fwd_case(name, *, b=1, hq=8, hkv=4, nq, nkv, d=512, dv=None, dtype=torch.bf
     tol = F16_TOL if dtype == torch.float16 else BF16_TOL
     err, lerr = row_rel(o[:, :, rows], po[:, :, rows]), rel(lse[:, :, rows], plse[:, :, rows])
     ok = err < tol and lerr < LSE_TOL and bool(torch.isfinite(o).all())
-    log(f"  fwd {name:<22} {flash_fwd.fwd_kernel_plan(d, dv).route:<8} row_rel_err {err:.2e} (tol {tol:g}) "
+    log(f"  fwd {name:<24} {flash_fwd.fwd_kernel_plan(d, dv).route:<13} row_rel_err {err:.2e} (tol {tol:g}) "
         f"rel_err {rel(o[:, :, rows], po[:, :, rows]):.2e} "
         f"lse_rel_err {lerr:.2e} (tol {LSE_TOL:g}) max_abs_err {max_abs(o, po):.3e} "
         f"{'ok' if ok else 'FAIL'}"
@@ -505,6 +508,57 @@ def _fwd_scores_case(name, *, b=1, hq=8, hkv=4, nq, nkv, d=512, causal=True, bia
     if not ok:
         fail(f"forward S residual disagrees with its plain version: {name}")
     return max_abs(torch.where(band, got, 0.0), torch.where(band, want, 0.0))
+
+
+def _s_resident_bwd_case(name, *, b=1, h=8, n, d, seed=0):
+    """``ffpa_attn_func(..., is_causal=True)`` and ``.backward`` through the
+    S-resident tier (``save_scores=True``) at head dim ``d``: its launches,
+    then the gradients per row against the plain backward chain fed the
+    forward kernel's (o, lse, S) and, as whole tensors, against the fp32
+    oracle's autograd."""
+    from ffpa_attn_tpu_torch import CudaBackend, ffpa_attn_func
+    from ffpa_attn_tpu_torch.ops import flash_bwd, flash_fwd
+    from ffpa_attn_tpu_torch.ops.dispatch import pick_backward_config
+    from ffpa_attn_tpu_torch.ops.reference import reference_attention
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(400 + seed)
+    q, k, v, do = (_randn((b, h, n, d), bf, gen) for _ in range(4))
+    scale = d ** -0.5
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    launch_counts(zero=True)
+    o = ffpa_attn_func(*leaves, is_causal=True, backward_backend=CudaBackend(save_scores=True))
+    o.backward(do)
+    torch.cuda.synchronize()
+    counts = {n_: c for n_, c in _counts(TRAIN_KERNELS).items() if c}
+    cfg = pick_backward_config(d=d, dv=d, nq=n, nkv=n, dtype=bf)
+    want = {"flash_fwd": 1, "dkdv_from_s": 1, "banded_dq": 1}
+    if not cfg.dkdv_dk_in_kernel:
+        want["banded_dk"] = 1
+    po, plse, ps = flash_fwd.flash_attention_forward(q, k, v, None, scale=scale, is_causal=True,
+                                                     return_scores=True)
+    pdk, pdv, pds = flash_bwd._dkdv_from_s_plain(
+        q, v, ps, do, plse, (do.float() * po.float()).sum(-1), scale=scale, is_causal=True,
+        causal_offset=0, dropout_p=0.0, seed=0, softcap=0.0, dk_in_kernel=cfg.dkdv_dk_in_kernel)
+    if pdk is None:
+        pdk = flash_bwd._banded_dk_plain(pds, q, scale=scale, nq=n, nkv=n, hkv=h)
+    pdq = flash_bwd._banded_dq_plain(pds, k, scale=scale, nq=n, nkv=n)
+    sl = [t.float().requires_grad_() for t in (q, k, v)]
+    oracle = torch.autograd.grad(reference_attention(*sl, is_causal=True), sl, do.float())
+    errs = {}
+    for nm, g, w, wo in zip(("dq", "dk", "dv"), (t.grad for t in leaves), (pdq, pdk, pdv),
+                            oracle):
+        errs[f"{nm}_plain"] = grad_row_rel(g, w)
+        errs[f"{nm}_oracle"] = rel(g, wo)
+    tol = GRAD_TOL[bf]
+    ok = counts == want and all(e < tol for e in errs.values()) and all(
+        bool(torch.isfinite(t.grad).all()) for t in leaves)
+    log(f"  S-resident bwd {name:<13} ffpa_attn_func B{b} H{h} N{n} D{d} causal, forward route "
+        f"{flash_fwd.fwd_kernel_plan(d, d).route}, launches {counts}: "
+        + " ".join(f"{nm} {e:.2e}" for nm, e in errs.items())
+        + f" (tol {tol:g}; per row vs plain, whole vs oracle) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"S-resident backward at D{d}: launches {counts} (want {want}) or gradients off")
 
 
 def _from_s_case(name, *, b=1, hq=8, hkv=4, nq, nkv, d=512, causal=True, bias=None,
@@ -784,6 +838,19 @@ def phase_kernels_vs_plain() -> dict:
               bias=True, seed=21)
     _fwd_case(f"train_N{TRAIN_N}", nq=TRAIN_N, nkv=TRAIN_N, seed=22)  # the training shape
     _fwd_case("window_masked_row", nq=1024, nkv=1024, window=(256, -1), masked_row=700, seed=23)
+    # D or Dv above 512: the cluster of two blocks, each rank holding half of
+    # D's boxes and half of Dv's (rank 1 with 2 of D320's 5 D boxes, with 2
+    # of Dv320's 5 Dv boxes).
+    for hd in (640, 1024):
+        _fwd_case(f"d{hd}_bias_alibi_softcap", nq=1024, nkv=1100, d=hd, causal=False, bias=True,
+                  alibi=True, softcap=30.0, seed=hd + 1)
+        _fwd_case(f"d{hd}_window", nq=1024, nkv=1024, d=hd, window=(256, -1), seed=hd + 2)
+        _fwd_case(f"d{hd}_dropout", nq=1024, nkv=1024, d=hd, dropout=0.1, seed=hd + 3)
+        _fwd_case(f"d{hd}_fp16", nq=1024, nkv=1024, d=hd, dtype=torch.float16, seed=hd + 4)
+        _fwd_case(f"d{hd}_gqa_group1", hq=8, hkv=8, nq=1024, nkv=1024, d=hd, seed=hd + 5)
+        _fwd_case(f"d{hd}_nq40_nkv1100", nq=40, nkv=1100, d=hd, seed=hd + 6)
+    _fwd_case("d1024_dv320", nq=1024, nkv=1100, d=1024, dv=320, seed=1031)
+    _fwd_case("d320_dv1024", nq=1024, nkv=1100, d=320, dv=1024, seed=1032)
     errs["decode"] = _decode_case("slice_Nkv4224_g2")
     _decode_case("group1", group=1, seed=1)
     _decode_case("group4", group=4, seed=2)
@@ -850,6 +917,12 @@ def phase_kernels_vs_plain() -> dict:
     _fwd_scores_case("nq24_rows_pad32", nq=24, nkv=1100, seed=8)  # a 32-row slab, 64-row tile
     _fwd_scores_case("alibi_bias_nkv1100", nq=1000, nkv=1100, alibi=True, bias=True, seed=9)
     _fwd_scores_case(f"train_N{TRAIN_N}", nq=TRAIN_N, nkv=TRAIN_N, seed=10)
+    # The cluster route's S residual: each rank stores half of a block's rows.
+    _fwd_scores_case("d1024_alibi_bias_nkv1100", nq=1000, nkv=1100, d=1024, alibi=True,
+                     bias=True, seed=11)
+    _fwd_scores_case("d640_softcap", nq=1024, nkv=1024, d=640, softcap=30.0, seed=12)
+    _fwd_scores_case("d1024_nq20_rows_pad32", nq=20, nkv=300, d=1024, seed=13)
+    _s_resident_bwd_case("d1024_causal", n=1024, d=1024)
     _from_s_case("gqa_N1024", nq=1024, nkv=1024)
     _from_s_case("bias_full_noncausal", nq=1024, nkv=1024, causal=False, bias="full", seed=1)
     _from_s_case("dropout", nq=1024, nkv=1024, dropout=0.1, seed=2)
@@ -2427,7 +2500,8 @@ def training_times(training: dict, windowed: dict, resident: dict) -> tuple:
 
     n, b, hq, hkv, d = TRAIN_N, 1, TRAIN["n_heads"], TRAIN["n_kv_heads"], TRAIN["head_dim"]
     # The forward at the training shape: its launches in the profiled step.
-    fwd_ms = sum(ms for kname, ms in by_kernel.items() if "fwd_kernel" in kname)
+    fwd_ms = sum(ms for kname, ms in by_kernel.items()
+                 if any(nm in kname for nm in flash_fwd.FWD_KERNELS))
     fwd_flops = 2 * b * hq * (n * (n + 1) // 2) * (d + d)
     fwd_bytes = 2 * (2 * b * hq * n * d + 2 * b * hkv * n * d) + 4 * b * hq * n
     fb_ms, fb_by = bound_ms(fwd_flops, fwd_bytes)
@@ -2657,31 +2731,35 @@ def training_times(training: dict, windowed: dict, resident: dict) -> tuple:
 
 
 def fwd_kernel_row_extras(d: int) -> dict:
-    """The forward's route at head dim ``d`` and its kernel's registers and
-    spill bytes, for the ``kernels`` line; fails unless the launcher's plan
-    equals its mirror (``ops/config.py`` ``fwd_plan``) at D, Dv 64..1024,
-    the wgmma kernel spills nothing and ptxas kept the wgmma pipeline of
-    every kernel of flash_fwd.cu, flash_bwd.cu, decode.cu, paged_decode.cu,
-    varlen_fwd.cu and varlen_bwd.cu (no C7515 / C7520 note in any of their
-    builds' logs)."""
+    """The forward's route at head dim ``d`` and both routes' kernels'
+    registers and spill bytes, for the ``kernels`` line; fails unless the
+    launcher's plan equals its mirror (``ops/config.py`` ``fwd_plan``) at
+    every head-dim pair of ``tests/test_torch_fwd_plan.py`` (D, Dv 64..1024,
+    both routes), neither route's kernel spills, and ptxas kept the wgmma
+    pipeline of every kernel of flash_fwd.cu, flash_bwd.cu, decode.cu,
+    paged_decode.cu, varlen_fwd.cu and varlen_bwd.cu (no C7515 / C7520 note
+    in any of their builds' logs)."""
     from ffpa_attn_tpu_torch.ops import _build, flash_fwd
     from ffpa_attn_tpu_torch.ops.config import fwd_plan
 
-    pairs = [(x, x) for x in range(64, 1025, 64)] + [(512, 128), (128, 512), (448, 64),
-                                                     (512, 1024), (1024, 320), (400, 400)]
+    pairs = [(x, x) for x in range(64, 1025, 64)] + [
+        (128, 512), (512, 128), (320, 512), (448, 64), (512, 64), (512, 1024), (1024, 320),
+        (64, 1024), (1024, 64), (400, 400), (100, 200), (320, 1024), (640, 1024)]
     for hd, hdv in pairs:
         if flash_fwd.fwd_kernel_plan(hd, hdv) != fwd_plan(hd, hdv):
             fail(f"forward launcher's plan at D{hd}/Dv{hdv} {flash_fwd.fwd_kernel_plan(hd, hdv)} "
                  f"differs from ops/config.py fwd_plan {fwd_plan(hd, hdv)}")
-    log(f"  flash_fwd plan at D{d}: {flash_fwd.fwd_kernel_plan(d, d)} (the launcher's, equal to "
-        f"ops/config.py fwd_plan at {len(pairs)} head-dim pairs)")
-    for route, bq in (("wgmma", 64), ("mma_sync", 64), ("mma_sync", 32)):
+    log(f"  flash_fwd plan at D{d}: {flash_fwd.fwd_kernel_plan(d, d)}; at D1024: "
+        f"{flash_fwd.fwd_kernel_plan(1024, 1024)} (the launcher's, equal to ops/config.py "
+        f"fwd_plan at {len(pairs)} head-dim pairs)")
+    attrs = {}
+    for route in ("wgmma", "wgmma_cluster"):
         for dt in (torch.bfloat16, torch.float16):
-            a = flash_fwd.fwd_kernel_attrs(route, dt, bq)
-            log(f"  flash_fwd {route} rows {bq} {str(dt)[6:]}: {a['registers']} registers a "
-                f"thread at launch, {a['local_bytes']} local (spill) bytes")
-            if route == "wgmma" and a["local_bytes"] != 0:
-                fail(f"the wgmma forward kernel ({dt}) spills {a['local_bytes']} bytes")
+            a = attrs[route, dt] = flash_fwd.fwd_kernel_attrs(route, dt)
+            log(f"  flash_fwd {route} {str(dt)[6:]}: {a['registers']} registers a thread at "
+                f"launch, {a['local_bytes']} local (spill) bytes")
+            if a["local_bytes"] != 0:
+                fail(f"the {route} forward kernel ({dt}) spills {a['local_bytes']} bytes")
     for name in ("flash_fwd", "flash_bwd", "decode", "paged_decode", "varlen_fwd", "varlen_bwd"):
         build_log = _build.build_log(name)
         if "ptxas info" not in build_log:
@@ -2697,8 +2775,55 @@ def fwd_kernel_row_extras(d: int) -> dict:
         if notes:
             fail(f"ptxas serialized a wgmma kernel of {name}.cu")
     route = flash_fwd.fwd_kernel_plan(d, d).route
-    a = flash_fwd.fwd_kernel_attrs(route)
-    return {"fwd_route": route, "registers": a["registers"], "spill_bytes": a["local_bytes"]}
+    a, c = attrs[route, torch.bfloat16], attrs["wgmma_cluster", torch.bfloat16]
+    return {"fwd_route": route, "registers": a["registers"], "spill_bytes": a["local_bytes"],
+            "cluster_registers": c["registers"], "cluster_spill_bytes": c["local_bytes"]}
+
+
+def fwd_cluster_times() -> dict:
+    """The forward's cluster route at the bench's D sweep's causal D1024
+    shape cut to H8 (B1 N8192 bf16): the kernel held against its plain
+    version per row, then timed (device ms of the forward kernel by name,
+    CUDA-event ms) beside its bound, its plain version and
+    ``scaled_dot_product_attention``; for the ``kernels`` line."""
+    import torch.nn.functional as F
+
+    from ffpa_attn_tpu_torch.cli._bench import sdpa_backend
+    from ffpa_attn_tpu_torch.ops import flash_fwd
+    from ffpa_attn_tpu_torch.utils.profiling import band_pairs, bound_ms
+
+    b, h, n, d = 1, 8, TRAIN_N, 1024
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    q, k, v = (_randn((b, h, n, d), torch.bfloat16, gen) for _ in range(3))
+    kw = dict(scale=d ** -0.5, is_causal=True)
+
+    def run():
+        return flash_fwd.flash_attention_forward(q, k, v, None, **kw)
+
+    def plain():
+        return flash_fwd.flash_attention_forward_plain(q, k, v, None, **kw)
+
+    o, _ = run()
+    torch.cuda.synchronize()
+    po, _ = plain()
+    err = row_rel(o, po)
+    if not err < BF16_TOL:
+        fail(f"the cluster forward at D{d} N{n} disagrees with its plain version: {err:.2e}")
+    mae = max_abs(o, po)
+    del o, po
+    flops = 2 * b * h * band_pairs(n, n, causal=True) * (d + d)
+    bms, bby = bound_ms(flops, 2 * 4 * b * h * n * d + 4 * b * h * n)
+    kms = _above_bound("flash_fwd cluster (D1024)", _kernel_timed(run, flash_fwd.FWD_KERNELS, 5),
+                       bms, lambda: _kernel_timed(run, flash_fwd.FWD_KERNELS, 5))
+    pms = _timed(plain, 2, warmup=1)
+    lms = _timed(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 3, warmup=1)
+    log(f"  flash_fwd cluster route (B{b} H{h} N{n} D{d} causal bf16): {kms[0]:.4f} ms "
+        f"[{kms[1]:.4f}], {flops / kms[0] / 1e9:.1f} TFLOP/s, bound {bms:.4f} ms ({bby}); plain "
+        f"{pms[0]:.4f} ms; scaled_dot_product_attention ({sdpa_backend(q, k, v, is_causal=True)} "
+        f"backend) {lms[0]:.4f} ms; per-row error vs plain {err:.2e}")
+    return {"d1024_shape": f"B{b} H{h} N{n} D{d} causal bf16", "d1024_ms": kms[0],
+            "d1024_event_ms": kms[1], "d1024_bound_ms": bms, "d1024_plain_ms": pms[0],
+            "d1024_library_ms": lms[0], "d1024_max_abs_err": mae}
 
 
 def decode_kernel_row_extras(d: int) -> dict:
@@ -3436,6 +3561,7 @@ def phase_times(errs: dict, main_path: dict, training: dict, windowed: dict,
         bound_by=bby, library_ms=lms[0], ms_with_scores=sms[0],
     ))
     rows[-1].update(fwd_kernel_row_extras(d))
+    rows[-1].update(fwd_cluster_times())
     events = {"flash_fwd": (kms[1], pms[1], lms[1])}
 
     # Decode at the generate step (Nkv = max_len, GQA group 2, validity

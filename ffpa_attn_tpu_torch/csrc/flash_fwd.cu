@@ -1,12 +1,13 @@
-// Forward attention kernels for Hopper (sm_90a): the counterpart of the
+// Forward attention kernel for Hopper (sm_90a): the counterpart of the
 // Pallas _fwd_kernel (ffpa_attn_tpu/ops/flash_fwd.py). ops/flash_fwd.py calls
 // the C entry point ffpa_flash_fwd through ctypes.
 //
-// Two routes, chosen by head dims alone (fwd::make_plan, handed out by
+// One TMA + mbarrier + wgmma block (namespace fwd, details beside it) on two
+// routes, chosen by head dims alone (fwd::make_plan, handed out by
 // ffpa_flash_fwd_plan and mirrored by ops/config.py fwd_plan): D and Dv up
-// to 512 take the TMA + mbarrier + wgmma block of namespace fwd (details
-// beside it); wider heads take the mma.sync block fwd_kernel below. Both
-// compute the same function:
+// to 512 take one block per 64 Q rows; wider heads, up to 1024, a cluster
+// of two such blocks that split D and Dv between them. Both compute the
+// same function:
 //
 // Queries are tail-aligned (causal_offset = Nkv - Nq); tail-aligned causal
 // and sliding-window tiles outside the band are never loaded; the bias is
@@ -25,26 +26,7 @@
 // from-S kernel re-masks the band and never reads them. Storing it changes
 // no arithmetic of (o, lse).
 //
-// The mma.sync block (D or Dv > 512): grid (Hq, B, ceil(Nq / BQ)), one block
-// of 16 warps per BQ query rows of one query head; K/V are read from head
-// h / group (GQA). BQ is 64 for Dv up to 512 and 32 up to 1024. Blocks are
-// dispatched x-fastest, so every head's longest causal tiles (the last
-// query rows) go out first and the short ones fill the tail. The TPU kernel
-// keeps a BQ x Dv fp32 accumulator in VMEM. At Dv 512..1024 no single warp
-// can hold its rows' accumulator, so the O tile is split over the block's
-// 16 warps by rows and columns: warp w owns 16 rows (rt = w / WC) and, in
-// every 64-wide column chunk of Dv, CW = 64 / WC columns (wc = w % WC), 64
-// fp32 registers per thread in all. Products are mma.sync m16n8k16 (bf16 or
-// f16 in, fp32 accumulate) fed by ldmatrix:
-//   * Q stays resident in shared memory for the whole KV walk;
-//   * K and V stream through a ring of shared-memory slots in 64 x 64
-//     chunks with cp.async, NST - 1 chunks ahead of the math: per KV tile
-//     the D / 64 K chunks, then the Dv / 64 V chunks;
-//   * S = Q K^T (each warp a 16 x CW piece) goes through shared memory so
-//     that the online softmax sees whole rows; P goes back the same way and
-//     every warp multiplies it into its own O columns.
-//
-// Bound on an H100: operations (2 units of 2 * pairs * D flop, 989 TFLOP/s
+// Bound on an H100: operations (2 * pairs * (D + Dv) flop, 989 TFLOP/s
 // dense bf16 / f16; utils/profiling.py).
 #include <string.h>
 
@@ -58,14 +40,9 @@ namespace {
 
 using namespace ffpa;
 
-constexpr int NW = 16;             // warps per block
-constexpr int NTHR = NW * 32;
 constexpr int KV_TILE = 64;        // K/V rows per tile (ops/config.py KV_TILE)
-constexpr int CH = 64;             // head-dim columns per streamed chunk
-constexpr int NST = 4;             // stream ring slots (ops/config.py FWD_STREAM_STAGES)
-constexpr int LDC = CH + 8;        // chunk / P row stride (elements)
-constexpr int LDS = KV_TILE + 4;   // S row stride (floats)
-constexpr int O_PER_THREAD = 64;   // fp32 accumulator registers per thread
+constexpr int CH = 64;             // head-dim columns of a box
+constexpr int MAX_HEAD_DIM = 1024;  // D, Dv of either route
 
 struct FwdParams {
   const void* q;
@@ -105,375 +82,149 @@ __device__ __forceinline__ float score(const FwdParams& p, float acc, int b, int
   return s;
 }
 
-// Dynamic shared memory of one block; ops/config.py fwd_smem_bytes is the
-// same formula (the S residual adds none).
-template <typename T>
-size_t fwd_smem_bytes(int bq, int d) {
-  return (size_t)bq * (d + 8) * sizeof(T)             // resident Q
-         + (size_t)NST * KV_TILE * LDC * sizeof(T)     // K / V ring
-         + (size_t)bq * LDS * sizeof(float)            // S
-         + (size_t)bq * LDC * sizeof(T)                // P
-         + 3 * (size_t)bq * sizeof(float);             // m, l, alpha
-}
-
-template <typename T, int BQ>
-__global__ void __launch_bounds__(NTHR, 1) fwd_kernel(const FwdParams p) {
-  constexpr int RT = BQ / 16;             // 16-row tiles
-  constexpr int WC = NW / RT;             // warps per row tile
-  constexpr int CW = CH / WC;             // columns per warp per chunk (16 or 8)
-  constexpr int N8 = CW / 8;              // n8 mma tiles per warp per chunk
-  constexpr int NVMAX = O_PER_THREAD / (4 * N8);  // Dv chunks the registers hold
-  constexpr int RPW = BQ / NW;            // softmax rows per warp
-  static_assert(N8 == 1 || N8 == 2, "BQ must be 32 or 64");
-
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int LDQ = p.D + 8;
-  T* Qs = reinterpret_cast<T*>(smem_raw);
-  T* ring = Qs + BQ * LDQ;
-  float* S = reinterpret_cast<float*>(ring + NST * KV_TILE * LDC);
-  T* P = reinterpret_cast<T*>(S + BQ * LDS);
-  float* m_s = reinterpret_cast<float*>(P + BQ * LDC);
-  float* l_s = m_s + BQ;
-  float* a_s = l_s + BQ;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int rt = warp / WC, wc = warp % WC;
-  const int head = blockIdx.x, b = blockIdx.y, kvh = head / p.group;
-  const int row0 = (gridDim.z - 1 - blockIdx.z) * BQ;  // the longest causal rows start first
-  const int row_last = min(row0 + BQ, p.nq) - 1;
-  int kv_lo = 0, kv_hi = p.nkv;
-  // Band tile skipping: tiles no row of this block attends are never loaded.
-  if (p.window_right >= 0) kv_hi = min(p.nkv, row_last + p.causal_offset + p.window_right + 1);
-  if (p.window_left >= 0) kv_lo = max(0, row0 + p.causal_offset - p.window_left);
-  kv_lo = (kv_lo / KV_TILE) * KV_TILE;
-
-  const T* qb = static_cast<const T*>(p.q) + ((long long)(b * p.Hq + head) * p.nq) * p.D;
-  const T* kb = static_cast<const T*>(p.k) + ((long long)(b * p.Hkv + kvh) * p.nkv) * p.D;
-  const T* vb = static_cast<const T*>(p.v) + ((long long)(b * p.Hkv + kvh) * p.nkv) * p.Dv;
-  const float slope = p.alibi != nullptr ? p.alibi[b * p.Hq + head] : 0.f;
-
-  // Resident Q: rows past Nq are zero-filled.
-  for (int i = tid; i < BQ * (p.D / 8); i += NTHR) {
-    const int r = i / (p.D / 8), c = (i % (p.D / 8)) * 8;
-    const bool ok = row0 + r < p.nq;
-    cp_async16(Qs + r * LDQ + c, ok ? qb + (long long)(row0 + r) * p.D + c : qb, ok);
-  }
-  cp_async_commit();
-  for (int i = tid; i < BQ; i += NTHR) {
-    m_s[i] = -INFINITY;
-    l_s[i] = 0.f;
-  }
-
-  const int nD = p.D / CH, nV = p.Dv / CH, per_tile = nD + nV;
-  const int ntiles = kv_hi > kv_lo ? (kv_hi - kv_lo + KV_TILE - 1) / KV_TILE : 0;
-  const int total = ntiles * per_tile;
-
-  // Chunk g of the stream: per KV tile, the nD K chunks then the nV V chunks,
-  // 64 rows x 64 columns each, rows past Nkv zero-filled.
-  auto issue = [&](int gi) {
-    if (gi < total) {
-      const int t = gi / per_tile, c = gi - t * per_tile;
-      const int kv0 = kv_lo + t * KV_TILE;
-      const T* src = c < nD ? kb : vb;
-      const int ld = c < nD ? p.D : p.Dv;
-      const int c0 = (c < nD ? c : c - nD) * CH;
-      T* dst = ring + (gi % NST) * (KV_TILE * LDC);
-      const int r = tid >> 3, cv = (tid & 7) * 8;  // one 16-byte vector per thread
-      const bool ok = kv0 + r < p.nkv;
-      cp_async16(dst + r * LDC + cv, ok ? src + (long long)(kv0 + r) * ld + c0 + cv : src, ok);
-    }
-    cp_async_commit();
-  };
-  // Wait for chunk gi (and everything before it), with the ring refilled ahead.
-  auto begin = [&](int gi) -> const T* {
-    issue(gi + NST - 1);
-    cp_async_wait<NST - 1>();
-    __syncthreads();
-    return ring + (gi % NST) * (KV_TILE * LDC);
-  };
-
-  float o[NVMAX][N8][4];
-#pragma unroll
-  for (int vc = 0; vc < NVMAX; ++vc)
-#pragma unroll
-    for (int n = 0; n < N8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[vc][n][e] = 0.f;
-
-  // ldmatrix lane addressing (see common.cuh): A tiles and trans-B tiles
-  // take rows lane % 16 at column 8 * (lane / 16); B from a [n][k] tile takes
-  // n = lane % 8 (+ 8 for the second n8 tile), k = 8 * ((lane / 8) % 2).
-  const int a_row = lane & 15, a_col = (lane >> 4) * 8;
-  const int bn_row = (lane & 7) + ((lane >> 4) << 3), bn_col = ((lane >> 3) & 1) * 8;
-  const int bt_row = (lane & 7) + (((lane >> 3) & 1) << 3), bt_col = (lane >> 4) * 8;
-
-#pragma unroll
-  for (int gi = 0; gi < NST - 1; ++gi) issue(gi);
-  for (int t = 0; t < ntiles; ++t) {
-    const int kv0 = kv_lo + t * KV_TILE;
-    const int gt = t * per_tile;
-
-    // S = Q K^T: this warp's 16 x CW piece, over the D chunks.
-    float s_acc[N8][4];
-#pragma unroll
-    for (int n = 0; n < N8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s_acc[n][e] = 0.f;
-    for (int c = 0; c < nD; ++c) {
-      const T* kc = begin(gt + c);
-#pragma unroll
-      for (int kk = 0; kk < CH / 16; ++kk) {
-        uint32_t a[4];
-        ldsm_x4(a, Qs + (rt * 16 + a_row) * LDQ + c * CH + kk * 16 + a_col);
-        if (N8 == 2) {
-          uint32_t bf[4];
-          ldsm_x4(bf, kc + (wc * CW + bn_row) * LDC + kk * 16 + bn_col);
-          mma16816<T>(s_acc[0], a, bf[0], bf[1]);
-          mma16816<T>(s_acc[N8 - 1], a, bf[2], bf[3]);
-        } else {
-          uint32_t bf[2];
-          ldsm_x2(bf, kc + (wc * CW + (lane & 7)) * LDC + kk * 16 + bn_col);
-          mma16816<T>(s_acc[0], a, bf[0], bf[1]);
-        }
-      }
-      __syncthreads();  // the slot read here is refilled by a later issue
-    }
-#pragma unroll
-    for (int n = 0; n < N8; ++n) {
-      const int col = wc * CW + n * 8 + 2 * t4;
-      *reinterpret_cast<float2*>(S + (rt * 16 + g) * LDS + col) =
-          make_float2(s_acc[n][0], s_acc[n][1]);
-      *reinterpret_cast<float2*>(S + (rt * 16 + g + 8) * LDS + col) =
-          make_float2(s_acc[n][2], s_acc[n][3]);
-    }
-    __syncthreads();
-
-    // Online softmax: each warp owns RPW rows, two columns per lane; the
-    // rows' reductions are interleaved so their latencies overlap.
-    {
-      float sv[RPW][2], red[RPW];
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) {
-        const int r = warp + i * NW, row = row0 + r;
-        const bool valid = row < p.nq;
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int cc = lane + 32 * j, col = kv0 + cc;
-          const float s = score(p, S[r * LDS + cc], b, head, row, col, kv_hi, slope);
-          sv[i][j] = s;
-          if (p.s_out != nullptr)
-            p.s_out[((long long)(b * p.Hq + head) * p.s_rows + row) * p.s_ld + col] =
-                __float2bfloat16((!valid || s == -INFINITY) ? MASK_VALUE : s);
-        }
-        red[i] = fmaxf(sv[i][0], sv[i][1]);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-#pragma unroll
-        for (int i = 0; i < RPW; ++i)
-          red[i] = fmaxf(red[i], __shfl_xor_sync(0xffffffffu, red[i], off));
-      float m_new[RPW], alpha[RPW];
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) {
-        const int r = warp + i * NW;
-        const float m_old = m_s[r];
-        m_new[i] = fmaxf(m_old, red[i]);
-        float p0 = 0.f, p1 = 0.f;
-        alpha[i] = 1.f;
-        if (m_new[i] != -INFINITY) {
-          alpha[i] = __expf(m_old - m_new[i]);
-          p0 = __expf(sv[i][0] - m_new[i]);
-          p1 = __expf(sv[i][1] - m_new[i]);
-        }
-        red[i] = p0 + p1;
-        if (p.dropout_p > 0.f) {
-          const int row = row0 + r, col = kv0 + lane;
-          if (dropout_uniform(p.seed, b, head, row, col) < p.dropout_p) p0 = 0.f;
-          if (dropout_uniform(p.seed, b, head, row, col + 32) < p.dropout_p) p1 = 0.f;
-          p0 *= p.dropout_inv;
-          p1 *= p.dropout_inv;
-        }
-        P[r * LDC + lane] = from_float<T>(p0);
-        P[r * LDC + lane + 32] = from_float<T>(p1);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-#pragma unroll
-        for (int i = 0; i < RPW; ++i) red[i] += __shfl_xor_sync(0xffffffffu, red[i], off);
-      __syncwarp();
-      if (lane == 0) {
-#pragma unroll
-        for (int i = 0; i < RPW; ++i) {
-          const int r = warp + i * NW;
-          m_s[r] = m_new[i];
-          l_s[r] = alpha[i] * l_s[r] + red[i];
-          a_s[r] = alpha[i];
-        }
-      }
-    }
-    __syncthreads();
-
-    // O = alpha * O + P V, chunk by chunk of Dv; each warp its own columns.
-    const float al0 = a_s[rt * 16 + g], al1 = a_s[rt * 16 + g + 8];
-#pragma unroll
-    for (int vc = 0; vc < NVMAX; ++vc) {
-      if (vc < nV) {
-#pragma unroll
-        for (int n = 0; n < N8; ++n) {
-          o[vc][n][0] *= al0;
-          o[vc][n][1] *= al0;
-          o[vc][n][2] *= al1;
-          o[vc][n][3] *= al1;
-        }
-        const T* vch = begin(gt + nD + vc);
-#pragma unroll
-        for (int kk = 0; kk < KV_TILE / 16; ++kk) {
-          uint32_t a[4];
-          ldsm_x4(a, P + (rt * 16 + a_row) * LDC + kk * 16 + a_col);
-          if (N8 == 2) {
-            uint32_t bf[4];
-            ldsm_x4_trans(bf, vch + (kk * 16 + bt_row) * LDC + wc * CW + bt_col);
-            mma16816<T>(o[vc][0], a, bf[0], bf[1]);
-            mma16816<T>(o[vc][N8 - 1], a, bf[2], bf[3]);
-          } else {
-            uint32_t bf[2];
-            ldsm_x2_trans(bf, vch + (kk * 16 + bt_row) * LDC + wc * CW);
-            mma16816<T>(o[vc][0], a, bf[0], bf[1]);
-          }
-        }
-        __syncthreads();  // the slot read here is refilled by a later issue
-      }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // Epilogue: O / l and lse = m + log(max(l, 1e-38)); l == 0 rows give 0.
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = rt * 16 + g + 8 * h, row = row0 + r;
-    if (row >= p.nq) continue;
-    const float l = l_s[r];
-    const float l_safe = (l == 0.f) ? 1.f : l;
-    const long long base = ((long long)(b * p.Hq + head) * p.nq) + row;
-    T* dst = static_cast<T*>(p.o) + base * p.Dv;
-#pragma unroll
-    for (int vc = 0; vc < NVMAX; ++vc) {
-      if (vc < nV) {
-#pragma unroll
-        for (int n = 0; n < N8; ++n) {
-          const int col = vc * CH + wc * CW + n * 8 + 2 * t4;
-          const float x0 = o[vc][n][2 * h] / l_safe, x1 = o[vc][n][2 * h + 1] / l_safe;
-          *reinterpret_cast<uint32_t*>(dst + col) = pack2<T>(x0, x1);
-        }
-      }
-    }
-    if (wc == 0 && t4 == 0) p.lse[base] = m_s[r] + logf(fmaxf(l, 1e-38f));
-  }
-}
-
-template <typename T, int BQ>
-cudaError_t launch(const FwdParams& p, int B, cudaStream_t stream) {
-  auto kern = fwd_kernel<T, BQ>;
-  const size_t smem = fwd_smem_bytes<T>(BQ, p.D);
-  cudaError_t e =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid(p.Hq, B, (p.nq + BQ - 1) / BQ);
-  kern<<<grid, NTHR, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
 // ---------------------------------------------------------------------------
-// D, Dv <= 512: TMA + mbarrier + wgmma
+// The TMA + mbarrier + wgmma block, alone (D, Dv <= 512) or as a cluster of
+// two (D or Dv in (512, 1024])
 // ---------------------------------------------------------------------------
 
-// The Hopper route of ffpa_flash_fwd (the reference's SM90 split-D forward
-// block, FFPAAttnFwdSm90SplitD). The mma.sync block above is bound by its
-// block barriers and shared-memory round trips: every 64 x 64 chunk waits at
-// two __syncthreads, S goes out to shared memory for a softmax on 512
-// threads and P comes back the same way. Here a block of 384 threads owns
-// 64 Q rows of one query head, with the same grid and block order:
-//  - warpgroup 0 is the producer (setmaxnreg 24): one thread loads Q once
-//    by TMA into D / 64 resident 64 x 64 boxes (128 B swizzle), then per KV
-//    tile of the band streams the D / 64 K boxes and the Dv / 64 V boxes
-//    through a ring of two-box stages (one mbarrier handshake per two
-//    boxes); tensor maps at the true extents zero-fill rows past Nq and Nkv;
+// The Hopper forward (the reference's SM90 split-D forward block,
+// FFPAAttnFwdSm90SplitD). A block of 384 threads owns 64 Q rows of one
+// query head; blocks go out heads fastest, the longest causal rows first:
+//  - warpgroup 0 is the producer (setmaxnreg 24): one thread loads the
+//    block's Q boxes once by TMA into resident 64 x 64 boxes (128 B
+//    swizzle), then per KV tile of the band streams the block's K boxes and
+//    V boxes through a ring of two-box stages (one mbarrier handshake per
+//    two boxes); tensor maps at the true extents zero-fill rows past Nq and
+//    Nkv;
 //  - warpgroups 1 and 2 are the consumers (setmaxnreg 240). The fp32 O
 //    tile (64 x 512 at Dv 512) does not fit one warpgroup, so O is split by
 //    columns: consumer c owns the Dv boxes of its half (128 registers a
-//    thread at Dv 512) for the whole walk, and a V stage holds one box of
+//    thread at 4 boxes) for the whole walk, and a V stage holds one box of
 //    each half;
 //  - per KV tile, consumer c computes S for KV columns 32c..32c+31 (wgmma
-//    m64n32k16 over D, Q and the K box both K-major), so both do the same
-//    tensor work. The scores stay in the accumulator's layout: a row lives
-//    in the 4 threads of a quad (two shuffles a reduction); the two halves
-//    of a row meet through a shared buffer of row maxima (a named barrier).
-//    Each consumer writes its half of P into the shared P box (swizzled,
-//    K-major); after a second named barrier, O[:, own columns] += P V
-//    (m64n64k16 a box, V N-major with the transpose bit). The row sum l
-//    stays per thread and is combined in the epilogue;
+//    m64n32k16 over the block's D boxes, Q and the K box both K-major), so
+//    both do the same tensor work. The scores stay in the accumulator's
+//    layout: a row lives in the 4 threads of a quad (two shuffles a
+//    reduction); the two halves of a row meet through a shared buffer of
+//    row maxima (a named barrier). Each consumer writes its half of P into
+//    the shared P box (swizzled, K-major); after a second named barrier,
+//    O[:, own columns] += P V (m64n64k16 a box, V N-major with the
+//    transpose bit). The row sum l stays per thread and is combined in the
+//    epilogue;
 //  - a tile with no bias, ALiBi, softcap or dropout, inside the band and
 //    the Nkv edge on every element, skips the per-element feature code.
 // The two named barriers a tile also order the reuse of the P box and the
-// exchange buffer. ptxas keeps the wgmma pipeline (no C7515 / C7520 note)
+// row exchange. ptxas keeps the wgmma pipeline (no C7515 / C7520 note)
 // because products start with scale-d 0, roles are template arguments,
-// stage releases are predicated arrivals and every ordinary write of O (the
-// zeros, the rescale) is fenced off from the products around it. A block
-// reads its band's K and V from L2 once per 64 Q rows: 64 flop a byte.
+// stage releases are predicated arrivals and every ordinary write of an
+// accumulator (the zeros, the rescale of O, the sum of partial scores) is
+// fenced off from the products around it. A block reads its band's K and V
+// from L2 once per 64 Q rows: 64 flop a byte.
+//
+// D, Dv <= 512 (SPLIT false): the block holds all of D and Dv, 8 Q boxes,
+// a P box and a ring of 8 stages (a D512 tile's K and V) at most.
+//
+// Wider heads (SPLIT true, D or Dv in (512, 1024]): a 64 x 1024 Q tile
+// (128 KB) leaves no room for the ring and a 64 x 1024 fp32 O tile is the
+// whole register file, so a cluster of two blocks (grid x = 2 Hq, the pair
+// adjacent in x: the same block order) owns the 64 rows and splits both
+// head dims: rank r owns the D boxes and the Dv boxes of its half (rank 0
+// the larger; sm90.cuh col_block), loads only its Q boxes and, per KV tile,
+// only its K and V boxes, so every byte of Q, K and V is read once per
+// cluster, as one D512 block reads it. Consumer c of each rank computes a
+// partial S over its rank's D boxes and stores it (64 x 32 fp32, 8 KB)
+// into the shared memory of the partner's consumer c (st.async, completing
+// its bytes on the partner's barrier), then adds the partner's partial to
+// its own. fp32 addition of two values is commutative, so both ranks hold
+// bit-identical S, and so the same m, l, P and dropout mask; from there
+// each rank runs the softmax above and accumulates P V into its own Dv
+// boxes (at most 4 a consumer). The exchange is double-buffered: a rank
+// stores into slot t % 2 at tile t only after it received the partner's
+// tile t - 1, which the partner stored after reading its slot of tile t - 2,
+// so no slot is overwritten unread. Both ranks walk the same band (it
+// depends on rows alone); a block that visits no tile exchanges nothing.
+// Each rank writes its own O columns; rank 0 writes lse; the S residual's
+// rows are split (rank hh stores rows r0 + 8 hh of each thread), so each
+// stores half. The ring is 7 stages deep beside a rank's 8 Q boxes and the
+// 32 KB exchange; the cluster barrier at the start publishes the barriers'
+// initialisation, the one at the end keeps a block alive while its partner
+// may still store into it.
 namespace fwd {
 
 using namespace ffpa::sm90;
 
-constexpr int ROWS = 64;                     // Q rows of a block
-constexpr int COLS = 64;                     // columns of a box (128 B of 16-bit)
-static_assert(ROWS * COLS * 2 == BOX_BYTES && KV_TILE == 64, "Q, K and V boxes are 64 x 64");
-constexpr int MAX_BOXES = 8;                 // D, Dv <= 512 on this route
-constexpr int O_BOXES = MAX_BOXES / 2;       // Dv boxes of one consumer: 64 x 256 fp32
-constexpr int STAGE_BOXES = 2;               // boxes a stage (one barrier handshake)
+constexpr int ROWS = 64;                       // Q rows of a block
+constexpr int COLS = 64;                       // columns of a box (128 B of 16-bit)
+static_assert(ROWS * COLS * 2 == BOX_BYTES && KV_TILE == 64 && CH == COLS,
+              "Q, K and V boxes are 64 x 64");
+constexpr int MAX_BOXES = 8;                   // D, Dv boxes of a block: D512, a rank's half of D1024
+static_assert(2 * MAX_BOXES * COLS == MAX_HEAD_DIM, "two blocks hold the widest head");
+constexpr int O_BOXES = MAX_BOXES / 2;         // Dv boxes of one consumer: 64 x 256 fp32
+constexpr int STAGE_BOXES = 2;                 // boxes a stage (one barrier handshake)
 constexpr int STAGE_BYTES = STAGE_BOXES * BOX_BYTES;
-constexpr int STAGES = 8;                    // ring depth: a D512 tile's K and V
-constexpr int THREADS = 384;                 // producer warpgroup + 2 consumer warpgroups
-constexpr int CONSUMER_WARPS = 8;            // arrivals that free a stage
-constexpr int XCH_BYTES = 2 * ROWS * 4;      // row maxima, then row sums, of both consumers
+constexpr int THREADS = 384;                   // producer warpgroup + 2 consumer warpgroups
+constexpr int CONSUMER_WARPS = 8;              // arrivals that free a stage
+constexpr int XCH_BYTES = 2 * ROWS * 4;        // row maxima, then row sums, of both consumers
+constexpr int PART_BYTES = ROWS * 32 * 4;      // one consumer's partial S (64 x 32 fp32)
+constexpr int PART_SLOTS = 2;                  // the partial exchange's double buffer
+constexpr int PART_BUF_BYTES = PART_SLOTS * 2 * PART_BYTES;
 constexpr int SMEM_LIMIT = 232448;
-constexpr int WGMMA = 1, MMA_SYNC = 0;       // routes
+constexpr int WGMMA = 1, CLUSTER = 2;          // routes
 
-// Shared memory of this block: Q, the P box, the 1024 B alignment, Q's
-// barrier and the exchange, then the stages and their two barriers each.
-constexpr size_t smem_bytes(int nd) {
+// Ring depth: a D512 tile's K and V alone; the deepest ring that fits
+// beside a rank's 8 Q boxes and the exchange in a cluster.
+__host__ __device__ constexpr int stages_of(bool split) { return split ? 7 : 8; }
+
+// Shared memory of a block laid out for nd Q boxes: Q, the P box, the 1024
+// B alignment, the ring, the exchange (split), then the stages' two
+// barriers each, Q's barrier, the row exchange and the exchange's barriers
+// (split).
+constexpr size_t smem_bytes(int nd, bool split) {
   return (size_t)(nd + 1) * BOX_BYTES + 1024 + sizeof(uint64_t) + XCH_BYTES +
-         (size_t)STAGES * (STAGE_BYTES + 2 * sizeof(uint64_t));
+         (split ? (size_t)PART_BUF_BYTES + PART_SLOTS * 2 * sizeof(uint64_t) : 0) +
+         (size_t)stages_of(split) * (STAGE_BYTES + 2 * sizeof(uint64_t));
 }
-static_assert(smem_bytes(MAX_BOXES) <= SMEM_LIMIT, "D512's block fits the card");
+static_assert(smem_bytes(MAX_BOXES, false) <= SMEM_LIMIT, "D512's block fits the card");
+static_assert(smem_bytes(MAX_BOXES, true) <= SMEM_LIMIT &&
+                  smem_bytes(MAX_BOXES, true) + STAGE_BYTES + 2 * sizeof(uint64_t) > SMEM_LIMIT,
+              "a D1024 rank fits the card with the deepest ring that does");
 
-// The route and tiling of a launch at head dims (D, Dv), multiples of 64:
-// D, Dv <= 512 take this block, consumer 0 owning the first ceil(nv / 2)
-// Dv boxes and consumer 1 the rest; wider heads take fwd_kernel, whose
-// row tile is the largest the registers hold (block_q * Dv <= 64 * 512).
-// ffpa_flash_fwd_plan hands it out; ops/config.py fwd_plan mirrors it and
-// the card test holds the two equal.
+// A block's share of the head dims: its first D box and D boxes, its first
+// Dv box and Dv boxes, and consumer 0's Dv boxes (the first ceil(nv / 2);
+// consumer 1 owns the rest). Alone a block holds everything; split, rank r
+// holds half of each, rank 0 the larger half.
+struct Part {
+  int d0, nd, v0, nv, nv0;
+};
+__host__ __device__ inline Part part_of(int nd, int nv, bool split, int rank) {
+  Part pt = {0, nd, 0, nv, 0};
+  if (split) {
+    const Cols d = col_block(nd, 2, rank), v = col_block(nv, 2, rank);
+    pt = {d.c0 / COLS, d.nc, v.c0 / COLS, v.nc, 0};
+  }
+  pt.nv0 = (pt.nv + 1) / 2;
+  return pt;
+}
+
+// The route and tiling of a launch at head dims (D, Dv), multiples of 64
+// up to 1024: D, Dv <= 512 take one block per 64 Q rows, wider heads the
+// cluster. ffpa_flash_fwd_plan hands it out; ops/config.py fwd_plan
+// mirrors it and the card test holds the two equal.
 struct Plan {
-  int route, rows, stages, nd, nv, nv0;
+  int route, rows, stages;
+  Part part[2];  // each rank's share (the lone block's is part[0])
   size_t smem;
 };
 inline Plan make_plan(int D, int Dv) {
+  const int nd = D / COLS, nv = Dv / COLS;
+  const bool split = nd > MAX_BOXES || nv > MAX_BOXES;
   Plan pl;
-  pl.nd = D / COLS;
-  pl.nv = Dv / COLS;
-  pl.nv0 = (pl.nv + 1) / 2;
-  if (pl.nd <= MAX_BOXES && pl.nv <= MAX_BOXES) {
-    pl.route = WGMMA;
-    pl.rows = ROWS;
-    pl.stages = STAGES;
-    pl.smem = smem_bytes(pl.nd);
-  } else {
-    pl.route = MMA_SYNC;
-    pl.rows = 64 * Dv <= 32 * 1024 ? 64 : 32;
-    pl.stages = NST;
-    pl.smem = fwd_smem_bytes<__nv_bfloat16>(pl.rows, D);
-  }
+  pl.route = split ? CLUSTER : WGMMA;
+  pl.rows = ROWS;
+  pl.stages = stages_of(split);
+  pl.part[0] = part_of(nd, nv, split, 0);
+  pl.part[1] = part_of(nd, nv, split, 1);
+  pl.smem = smem_bytes(pl.part[0].nd, split);
   return pl;
 }
 
@@ -487,37 +238,46 @@ struct Maps {
 };
 
 // Shared memory of a block, from a 1024 B boundary: the Q boxes, the P box,
-// the ring's stages, their full / empty barriers, Q's barrier and the
-// exchange buffer.
+// the ring's stages, the partial-score exchange (split), the stages' full /
+// empty barriers, Q's barrier, the row exchange and the partial exchange's
+// barriers (split). Both ranks of a cluster lay it out alike (for rank 0's
+// Q boxes), so an offset here is the same offset in the partner.
 struct Smem {
   unsigned char* q;
   unsigned char* p;
   unsigned char* ring;
+  unsigned char* part;  // [PART_SLOTS][2][PART_BYTES]: partial S the partner stored here
   uint64_t* full;
   uint64_t* empty;
   uint64_t* q_full;
-  float* xch;  // [2][ROWS]: row maxima of consumers 0 and 1, then their row sums
+  float* xch;           // [2][ROWS]: row maxima of consumers 0 and 1, then their row sums
+  uint64_t* part_full;  // [PART_SLOTS][2]: the partner's partial for consumer c has landed
 };
+template <bool SPLIT>
 __device__ __forceinline__ Smem carve(unsigned char* base, int nd) {
+  constexpr int STAGES = stages_of(SPLIT);
   Smem sm;
   sm.q = base;
   sm.p = base + nd * BOX_BYTES;
   sm.ring = sm.p + BOX_BYTES;
-  sm.full = reinterpret_cast<uint64_t*>(sm.ring + STAGES * STAGE_BYTES);
+  sm.part = sm.ring + STAGES * STAGE_BYTES;
+  sm.full = reinterpret_cast<uint64_t*>(sm.part + (SPLIT ? PART_BUF_BYTES : 0));
   sm.empty = sm.full + STAGES;
   sm.q_full = sm.empty + STAGES;
   sm.xch = reinterpret_cast<float*>(sm.q_full + 1);
+  sm.part_full = reinterpret_cast<uint64_t*>(sm.xch + 2 * ROWS);
   return sm;
 }
 
 // A block's rows and the KV tiles of its band, [kv_lo, kv_hi) in ntiles
-// tiles: the same in every thread.
+// tiles: the same in every thread, and in both ranks of a cluster.
 struct Block {
   int b, head, kvh, row0, kv_lo, kv_hi, ntiles;
 };
+template <bool SPLIT>
 __device__ __forceinline__ Block block_of(const FwdParams& p) {
   Block k;
-  k.head = blockIdx.x;
+  k.head = SPLIT ? blockIdx.x >> 1 : blockIdx.x;
   k.b = blockIdx.y;
   k.kvh = k.head / p.group;
   k.row0 = (gridDim.z - 1 - blockIdx.z) * ROWS;  // the longest causal rows start first
@@ -532,18 +292,21 @@ __device__ __forceinline__ Block block_of(const FwdParams& p) {
   return k;
 }
 
-// The producer's thread: Q once, then per KV tile the K stages (two boxes
-// each, an odd last box alone) and the V stages (box j of consumer 0's
-// half beside box j of consumer 1's, alone where that half is shorter).
+// The producer's thread: the block's Q boxes once, then per KV tile its K
+// stages (two boxes each, an odd last box alone) and its V stages (box j of
+// consumer 0's half beside box j of consumer 1's, alone where that half is
+// shorter).
+template <bool SPLIT>
 __device__ __forceinline__ void produce(const Maps& maps, const FwdParams& p, const Smem& sm,
-                                        const Block& k, int nd, int nv, int nv0) {
+                                        const Block& k, const Part& pt) {
+  constexpr int STAGES = stages_of(SPLIT);
   prefetch_map(&maps.q_map);
   prefetch_map(&maps.k_map);
   prefetch_map(&maps.v_map);
   const int bq = k.b * p.Hq + k.head, bkv = k.b * p.Hkv + k.kvh;
-  mbar_arrive_expect_tx(sm.q_full, nd * BOX_BYTES);
-  for (int j = 0; j < nd; ++j)
-    tma_load_3d(sm.q + j * BOX_BYTES, &maps.q_map, sm.q_full, j * COLS, k.row0, bq);
+  mbar_arrive_expect_tx(sm.q_full, pt.nd * BOX_BYTES);
+  for (int j = 0; j < pt.nd; ++j)
+    tma_load_3d(sm.q + j * BOX_BYTES, &maps.q_map, sm.q_full, (pt.d0 + j) * COLS, k.row0, bq);
   int it = 0;
   // Stage it % STAGES, free again, expecting nb boxes.
   auto claim = [&](int nb) -> unsigned char* {
@@ -554,20 +317,20 @@ __device__ __forceinline__ void produce(const Maps& maps, const FwdParams& p, co
   };
   for (int t = 0; t < k.ntiles; ++t) {
     const int kv0 = k.kv_lo + t * KV_TILE;
-    for (int c = 0; c < nd; c += STAGE_BOXES, ++it) {
-      const int nb = min(STAGE_BOXES, nd - c);
+    for (int c = 0; c < pt.nd; c += STAGE_BOXES, ++it) {
+      const int nb = min(STAGE_BOXES, pt.nd - c);
       unsigned char* dst = claim(nb);
       for (int g = 0; g < nb; ++g)
-        tma_load_3d(dst + g * BOX_BYTES, &maps.k_map, &sm.full[it % STAGES], (c + g) * COLS,
-                    kv0, bkv);
+        tma_load_3d(dst + g * BOX_BYTES, &maps.k_map, &sm.full[it % STAGES],
+                    (pt.d0 + c + g) * COLS, kv0, bkv);
     }
-    for (int j = 0; j < nv0; ++j, ++it) {
-      const bool both = nv0 + j < nv;
+    for (int j = 0; j < pt.nv0; ++j, ++it) {
+      const bool both = pt.nv0 + j < pt.nv;
       unsigned char* dst = claim(both ? 2 : 1);
-      tma_load_3d(dst, &maps.v_map, &sm.full[it % STAGES], j * COLS, kv0, bkv);
+      tma_load_3d(dst, &maps.v_map, &sm.full[it % STAGES], (pt.v0 + j) * COLS, kv0, bkv);
       if (both)
-        tma_load_3d(dst + BOX_BYTES, &maps.v_map, &sm.full[it % STAGES], (nv0 + j) * COLS, kv0,
-                    bkv);
+        tma_load_3d(dst + BOX_BYTES, &maps.v_map, &sm.full[it % STAGES],
+                    (pt.v0 + pt.nv0 + j) * COLS, kv0, bkv);
     }
   }
 }
@@ -577,11 +340,13 @@ __device__ __forceinline__ void produce(const Maps& maps, const FwdParams& p, co
 // prove uniform). Accumulator element 4 j + 2 hh + e of thread (warp, g =
 // lane / 4, t4 = lane % 4) is row 16 warp + g + 8 hh and, in its 8-column
 // block j, column 8 j + 2 t4 + e.
-template <typename T, int C>
+template <typename T, int C, bool SPLIT>
 __device__ __forceinline__ void consume(const FwdParams& p, const Smem& sm, const Block& k,
-                                        int nd, int nv, int nv0) {
+                                        const Part& pt, int rank) {
+  constexpr int STAGES = stages_of(SPLIT);
   const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
+  const int nd = pt.nd, nv = pt.nv, nv0 = pt.nv0;
   const int own = C == 0 ? nv0 : nv - nv0;  // Dv boxes of this consumer
   const int r0 = 16 * warp + g;             // this thread's rows: r0, r0 + 8
   constexpr float LOG2E = 1.4426950408889634f;
@@ -644,6 +409,31 @@ __device__ __forceinline__ void consume(const FwdParams& p, const Smem& sm, cons
     fence_operands(s);
     fence_operands(o);  // no rescale of O moves above the wait
 
+    if constexpr (SPLIT) {
+      // S = this rank's partial + the partner's, the same bits in both. A
+      // rank without D boxes contributes 0. Element 4 i + e of thread tid
+      // sits at (i * 128 + tid) * 16 + 4 e bytes of its slot.
+      const int slot = t & 1;
+      const uint32_t mine = cvta_smem(sm.part) + (slot * 2 + C) * PART_BYTES + tid * 16;
+      uint64_t* landed = &sm.part_full[slot * 2 + C];
+      const uint32_t partner = rank ^ 1;
+      const uint32_t there = mapa(mine, partner), there_bar = mapa(cvta_smem(landed), partner);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) s[i] = nd > 0 ? s[i] : 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) st_async_v4(there + i * 2048, s + 4 * i, there_bar);
+      mbar_arrive_expect_tx_if(landed, PART_BYTES, tid == 0);
+      mbar_wait_cluster(landed, (t >> 1) & 1);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float x[4];
+        lds_v4(mine + i * 2048, x);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[4 * i + e] += x[e];
+      }
+      fence_operands(s);
+    }
+
     // Scores: the interior fast path, or score() element by element.
     const bool interior =
         plain && kc + 31 < k.kv_hi &&
@@ -671,7 +461,7 @@ __device__ __forceinline__ void consume(const FwdParams& p, const Smem& sm, cons
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         const int row = k.row0 + r0 + 8 * hh;
-        if (row >= p.s_rows) continue;
+        if (row >= p.s_rows || (SPLIT && hh != rank)) continue;
         __nv_bfloat16* dst = s_blk + ((r0 + 8 * hh) * p.s_ld + kc + 2 * t4);
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
@@ -774,7 +564,8 @@ __device__ __forceinline__ void consume(const FwdParams& p, const Smem& sm, cons
     if (row >= p.nq) continue;
     const float lt = l[hh] + sm.xch[(1 - C) * ROWS + r];  // the same sum in both
     const float inv = lt == 0.f ? 1.f : __fdividef(1.f, lt);
-    T* dst = static_cast<T*>(p.o) + (bh * p.nq + row) * p.Dv + (C == 0 ? 0 : nv0 * COLS) + 2 * t4;
+    T* dst = static_cast<T*>(p.o) + (bh * p.nq + row) * p.Dv +
+             (pt.v0 + (C == 0 ? 0 : nv0)) * COLS + 2 * t4;
 #pragma unroll
     for (int j = 0; j < O_BOXES; ++j) {
       if (j >= own) break;
@@ -783,46 +574,67 @@ __device__ __forceinline__ void consume(const FwdParams& p, const Smem& sm, cons
         *reinterpret_cast<uint32_t*>(dst + COLS * j + 8 * j8) =
             pack2<T>(o[32 * j + 4 * j8 + 2 * hh] * inv, o[32 * j + 4 * j8 + 2 * hh + 1] * inv);
     }
-    if (C == 0 && t4 == 0) p.lse[bh * p.nq + row] = m[hh] + logf(fmaxf(lt, 1e-38f));
+    if (C == 0 && t4 == 0 && (!SPLIT || rank == 0))
+      p.lse[bh * p.nq + row] = m[hh] + logf(fmaxf(lt, 1e-38f));
   }
 }
 
-template <typename T>
+template <typename T, bool SPLIT>
 __global__ void __launch_bounds__(THREADS, 1) wgmma_fwd_kernel(const __grid_constant__ Maps maps,
                                                                const FwdParams p) {
+  constexpr int STAGES = stages_of(SPLIT);
   extern __shared__ unsigned char smem_raw[];
-  // Boxes on 1024 B boundaries: the 128 B swizzle's atom.
-  unsigned char* base = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  const int nd = p.D / COLS, nv = p.Dv / COLS, nv0 = (nv + 1) / 2;
-  const Smem sm = carve(base, nd);
-  const Block k = block_of(p);
+  // Boxes on 1024 B boundaries: the 128 B swizzle's atom. On the cluster
+  // route the offset is added to the shared array itself, so every pointer
+  // into it stays a 32-bit shared one: its consumers have no registers for
+  // 64-bit generic ones (through uintptr_t the row exchange's address
+  // spilled).
+  unsigned char* base;
+  if constexpr (SPLIT)
+    base = smem_raw + ((1024 - (cvta_smem(smem_raw) & 1023)) & 1023);
+  else
+    base = reinterpret_cast<unsigned char*>(
+        (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const int rank = SPLIT ? (int)cluster_rank() : 0;
+  const int nd = p.D / COLS;
+  const Part pt = part_of(nd, p.Dv / COLS, SPLIT, rank);
+  const Smem sm = carve<SPLIT>(base, SPLIT ? (nd + 1) / 2 : nd);  // both ranks alike
+  const Block k = block_of<SPLIT>(p);
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&sm.full[s], 1);
       mbar_init(&sm.empty[s], CONSUMER_WARPS);
     }
     mbar_init(sm.q_full, 1);
+    if constexpr (SPLIT)
+      for (int s = 0; s < PART_SLOTS * 2; ++s) mbar_init(&sm.part_full[s], 1);
     fence_barrier_init();
   }
-  __syncthreads();
+  // The partner's barriers are initialised before this block's first
+  // store into its shared memory.
+  if constexpr (SPLIT)
+    cluster_sync();
+  else
+    __syncthreads();
 
   if (threadIdx.x < 128) {
     setmaxnreg_dec<24>();
-    if (threadIdx.x == 0) produce(maps, p, sm, k, nd, nv, nv0);
+    if (threadIdx.x == 0) produce<SPLIT>(maps, p, sm, k, pt);
   } else {
     setmaxnreg_inc<240>();
     if (threadIdx.x < 256)
-      consume<T, 0>(p, sm, k, nd, nv, nv0);
+      consume<T, 0, SPLIT>(p, sm, k, pt, rank);
     else
-      consume<T, 1>(p, sm, k, nd, nv, nv0);
+      consume<T, 1, SPLIT>(p, sm, k, pt, rank);
   }
+  if constexpr (SPLIT) cluster_sync();  // the partner may still store into this block
 }
 
-// The host side of one launch: tensor maps, shared memory, the grid.
-template <typename T>
+// The host side of one launch: tensor maps, shared memory, the grid (and
+// for the split, the cluster of two along x).
+template <typename T, bool SPLIT>
 cudaError_t launch(const FwdParams& p, const Plan& pl, int B, cudaStream_t stream) {
-  const dim3 grid(p.Hq, B, (p.nq + ROWS - 1) / ROWS);
+  const dim3 grid((SPLIT ? 2 : 1) * p.Hq, B, (p.nq + ROWS - 1) / ROWS);
   if (grid.x * grid.y * grid.z == 0) return cudaSuccess;
   const bool f16 = std::is_same<T, __half>::value;
   Maps maps;
@@ -837,11 +649,22 @@ cudaError_t launch(const FwdParams& p, const Plan& pl, int B, cudaStream_t strea
     e = encode_3d(&maps.v_map, f16, p.v, p.Dv, mkv, (uint64_t)B * p.Hkv, (uint64_t)p.Dv * 2,
                   mkv * p.Dv * 2, COLS, KV_TILE);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(wgmma_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)pl.smem);
+  auto kern = wgmma_fwd_kernel<T, SPLIT>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
   if (e != cudaSuccess) return e;
-  wgmma_fwd_kernel<T><<<grid, THREADS, pl.smem, stream>>>(maps, p);
-  return cudaGetLastError();
+  if constexpr (SPLIT) {
+    return launch_cluster(kern, grid, THREADS, pl.smem, stream, 2, maps, p);
+  } else {
+    kern<<<grid, THREADS, pl.smem, stream>>>(maps, p);
+    return cudaGetLastError();
+  }
+}
+
+template <bool SPLIT>
+cudaError_t launch_typed(bool f16, const FwdParams& p, const Plan& pl, int B,
+                         cudaStream_t stream) {
+  return f16 ? launch<__half, SPLIT>(p, pl, B, stream)
+             : launch<__nv_bfloat16, SPLIT>(p, pl, B, stream);
 }
 
 }  // namespace fwd
@@ -886,71 +709,75 @@ extern "C" int ffpa_flash_fwd(const void* q, const void* k, const void* v, void*
   p.dropout_p = dropout_p;
   p.dropout_inv = dropout_inv;
   p.seed = seed;
-  // Registers hold block_q x Dv fp32 (64 per thread); D and Dv are 64-multiples.
-  // The S residual's rows cover every block's rows, its columns every tile.
-  if (D % CH != 0 || Dv % CH != 0 || (long long)block_q * Dv > 32 * 1024 ||
+  // D and Dv are 64-multiples up to 1024. The kernel picks its own 64-row
+  // tile; block_q (64, or 32 at Dv > 512: block_q * Dv <= 32768) is the
+  // config's row tile, which sets the S residual's row padding: the slab's
+  // rows cover every row tile, its columns every KV tile.
+  if (D <= 0 || Dv <= 0 || D % CH != 0 || Dv % CH != 0 || D > MAX_HEAD_DIM ||
+      Dv > MAX_HEAD_DIM || (long long)block_q * Dv > 32 * 1024 ||
       (block_q != 64 && block_q != 32) ||
       (s_out != nullptr && (s_rows < ((nq + block_q - 1) / block_q) * block_q ||
                             s_ld < ((nkv + KV_TILE - 1) / KV_TILE) * KV_TILE)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const fwd::Plan pl = fwd::make_plan(D, Dv);
-  if (pl.route == fwd::WGMMA)  // picks its own 64-row tile; block_q is only checked
-    return (int)(is_fp16 ? fwd::launch<__half>(p, pl, B, st)
-                         : fwd::launch<__nv_bfloat16>(p, pl, B, st));
-  if (is_fp16) {
-    return (int)(block_q == 64 ? launch<__half, 64>(p, B, st) : launch<__half, 32>(p, B, st));
-  }
-  return (int)(block_q == 64 ? launch<__nv_bfloat16, 64>(p, B, st)
-                             : launch<__nv_bfloat16, 32>(p, B, st));
+  return (int)(pl.route == fwd::CLUSTER ? fwd::launch_typed<true>(is_fp16, p, pl, B, st)
+                                        : fwd::launch_typed<false>(is_fp16, p, pl, B, st));
 }
 
 // The route and tiling ffpa_flash_fwd takes at head dims (D, Dv), multiples
-// of 64: out[0..4] are the route (1 wgmma, 0 mma.sync), the Q rows of a
-// block (for mma.sync the largest row tile the registers hold), the KV
-// rows of a tile, the ring's stages and the dynamic shared-memory bytes;
-// out[5] the number of O column blocks (the consumers' halves, or the
-// whole block's), then (first column, width) of each; cap is out's length.
+// of 64 up to 1024: out[0..4] are the route (1 one block, 2 the cluster of
+// two), the Q rows of a block, the KV rows of a tile, the ring's stages and
+// the dynamic shared-memory bytes of a block; out[5] the number of O column
+// blocks (each consumer's, rank by rank), then (first column, width) of
+// each; then the number of ranks that split the head dims (0 for one
+// block) and for each its (first D column, D width, first Dv column, Dv
+// width). cap is out's length.
 extern "C" int ffpa_flash_fwd_plan(int D, int Dv, int* out, int cap) {
-  if (D <= 0 || Dv <= 0 || D % CH != 0 || Dv % CH != 0 || cap < 10)
+  if (D <= 0 || Dv <= 0 || D % CH != 0 || Dv % CH != 0 || D > MAX_HEAD_DIM ||
+      Dv > MAX_HEAD_DIM || cap < 6 + 8 + 1 + 8)
     return (int)cudaErrorInvalidValue;
   const fwd::Plan pl = fwd::make_plan(D, Dv);
-  out[0] = pl.route;
-  out[1] = pl.rows;
-  out[2] = KV_TILE;
-  out[3] = pl.stages;
-  out[4] = (int)pl.smem;
-  if (pl.route == fwd::WGMMA) {
-    out[5] = 2;
-    out[6] = 0;
-    out[7] = pl.nv0 * CH;
-    out[8] = pl.nv0 * CH;
-    out[9] = (pl.nv - pl.nv0) * CH;
-  } else {
-    out[5] = 1;
-    out[6] = 0;
-    out[7] = Dv;
+  const int ranks = pl.route == fwd::CLUSTER ? 2 : 1;
+  int n = 0;
+  out[n++] = pl.route;
+  out[n++] = pl.rows;
+  out[n++] = KV_TILE;
+  out[n++] = pl.stages;
+  out[n++] = (int)pl.smem;
+  out[n++] = 2 * ranks;
+  for (int r = 0; r < ranks; ++r) {
+    const fwd::Part& pt = pl.part[r];
+    out[n++] = pt.v0 * CH;
+    out[n++] = pt.nv0 * CH;
+    out[n++] = (pt.v0 + pt.nv0) * CH;
+    out[n++] = (pt.nv - pt.nv0) * CH;
+  }
+  out[n++] = ranks == 2 ? 2 : 0;
+  for (int r = 0; r < (ranks == 2 ? 2 : 0); ++r) {
+    const fwd::Part& pt = pl.part[r];
+    out[n++] = pt.d0 * CH;
+    out[n++] = pt.nd * CH;
+    out[n++] = pt.v0 * CH;
+    out[n++] = pt.nv * CH;
   }
   return 0;
 }
 
 // Registers a thread (at launch, before setmaxnreg moves them between the
-// warpgroups) and local (spill) bytes a thread of a forward kernel: route 1
-// the wgmma kernel, 0 fwd_kernel at row tile block_q (64 or 32), in f16 or
-// bf16.
-extern "C" int ffpa_flash_fwd_attrs(int route, int is_fp16, int block_q, int* regs,
-                                    int* local_bytes) {
+// warpgroups) and local (spill) bytes a thread of the forward kernel of
+// route 1 (one block) or 2 (the cluster), in f16 or bf16.
+extern "C" int ffpa_flash_fwd_attrs(int route, int is_fp16, int* regs, int* local_bytes) {
   cudaFuncAttributes a;
   cudaError_t e;
-  if (route == fwd::WGMMA)
-    e = is_fp16 ? cudaFuncGetAttributes(&a, fwd::wgmma_fwd_kernel<__half>)
-                : cudaFuncGetAttributes(&a, fwd::wgmma_fwd_kernel<__nv_bfloat16>);
-  else if (block_q == 64)
-    e = is_fp16 ? cudaFuncGetAttributes(&a, fwd_kernel<__half, 64>)
-                : cudaFuncGetAttributes(&a, fwd_kernel<__nv_bfloat16, 64>);
+  if (route == fwd::CLUSTER)
+    e = is_fp16 ? cudaFuncGetAttributes(&a, fwd::wgmma_fwd_kernel<__half, true>)
+                : cudaFuncGetAttributes(&a, fwd::wgmma_fwd_kernel<__nv_bfloat16, true>);
+  else if (route == fwd::WGMMA)
+    e = is_fp16 ? cudaFuncGetAttributes(&a, fwd::wgmma_fwd_kernel<__half, false>)
+                : cudaFuncGetAttributes(&a, fwd::wgmma_fwd_kernel<__nv_bfloat16, false>);
   else
-    e = is_fp16 ? cudaFuncGetAttributes(&a, fwd_kernel<__half, 32>)
-                : cudaFuncGetAttributes(&a, fwd_kernel<__nv_bfloat16, 32>);
+    return (int)cudaErrorInvalidValue;
   if (e != cudaSuccess) return (int)e;
   *regs = a.numRegs;
   *local_bytes = (int)a.localSizeBytes;

@@ -1,5 +1,7 @@
 // Hopper (sm_90a) pipeline building blocks: TMA tensor maps and loads, the
-// mbarrier stage ring, wgmma with shared-memory descriptors, setmaxnreg.
+// mbarrier stage ring, wgmma with shared-memory descriptors, setmaxnreg,
+// and thread block clusters (rank, distributed shared memory, the cluster
+// barrier, the cluster launch).
 //
 // The layout every helper here agrees on is the 128-byte swizzle: a TMA box
 // whose inner extent is 64 16-bit elements (128 B) lands in shared memory
@@ -117,6 +119,29 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+// mbar_arrive_expect_tx where pred is set, as a predicated instruction.
+__device__ __forceinline__ void mbar_arrive_expect_tx_if(uint64_t* bar, uint32_t bytes, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n"
+      "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n}\n" ::"r"(cvta_smem(bar)),
+      "r"(bytes), "r"((int)pred)
+      : "memory");
+}
+// mbar_wait with acquire at cluster scope: for data another block of the
+// cluster stored here (st_async_v4) before completing the phase.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = cvta_smem(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
 // A barrier among `count` threads (whole warps) on hardware barrier `id`
 // (1..15; 0 is __syncthreads).
 __device__ __forceinline__ void named_barrier_sync(int id, int count) {
@@ -140,6 +165,72 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(cvta_smem(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(cvta_smem(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Thread block clusters: rank, distributed shared memory, cluster barrier
+// ---------------------------------------------------------------------------
+
+// This block's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// The shared::cluster address, in block `rank` of the cluster, of the
+// shared::cta address `addr` of this block (the same offset there).
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+// Four floats stored into another block's shared memory at `remote` (a
+// mapa address), completing 16 bytes of transaction on the mbarrier at
+// `remote_bar` in that block: the receiver expects the bytes on its own
+// barrier and waits there (mbar_wait_cluster). Fire and forget here.
+__device__ __forceinline__ void st_async_v4(uint32_t remote, const float* x, uint32_t remote_bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(remote),
+      "f"(x[0]), "f"(x[1]), "f"(x[2]), "f"(x[3]), "r"(remote_bar)
+      : "memory");
+}
+// Four floats of this block's shared memory at shared::cta address addr.
+__device__ __forceinline__ void lds_v4(uint32_t addr, float* x) {
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(x[0]), "=f"(x[1]), "=f"(x[2]), "=f"(x[3])
+               : "r"(addr)
+               : "memory");
+}
+// Every thread of every block of the cluster meets here: what a thread
+// wrote before (barrier initialisation included) is visible to the whole
+// cluster after, and no block runs past while another may still write
+// into its shared memory.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// Host: launches `kernel` over `grid` in clusters of `cluster_x` blocks
+// along x (cudaLaunchKernelEx with the cluster-dimension attribute); a
+// launch the card refuses returns its error.
+template <typename... Params, typename... Args>
+inline cudaError_t launch_cluster(void (*kernel)(Params...), dim3 grid, int threads, size_t smem,
+                                  cudaStream_t stream, unsigned cluster_x, Args&&... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster_x;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, static_cast<Args&&>(args)...);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------

@@ -8,20 +8,24 @@ what the kernels' launchers ask for (the same formulas as in
 ``csrc/flash_fwd.cu`` and ``csrc/decode.cu``), so a config picked here is
 never refused by the card.
 
-* Forward (``csrc/flash_fwd.cu``), two routes by head dims alone
-  (``fwd_plan`` mirrors the launcher's ``fwd::make_plan``):
-  - D and Dv <= 512 (namespace ``fwd``, TMA + wgmma): a block of 384
-    threads owns 64 Q rows with Q resident in 64 x 64 boxes (64 KB at
-    D512); a producer warpgroup streams each KV tile's K and V boxes
-    through a ring of 8 two-box stages; two consumer warpgroups each
-    compute S for half of the tile's 64 KV columns and own half of the
-    fp32 O tile's columns (128 registers a thread at Dv 512). The
-    launcher picks this tiling itself; the config's row tile is only
-    checked, and still sets the S residual's row padding.
-  - Wider heads (mma.sync): Q stays resident in shared memory, K and V
-    stream through a ring of 64 x 64 chunks, and the fp32 O tile lives
-    in the registers of the block's 16 warps, 64 per thread: block_q * Dv
-    <= 64 * 512. Row tiles 64 (Dv <= 512) and 32 (Dv <= 1024).
+* Forward (``csrc/flash_fwd.cu``), one TMA + wgmma block on two routes by
+  head dims alone (``fwd_plan`` mirrors the launcher's ``fwd::make_plan``):
+  - D and Dv <= 512 (route "wgmma"): a block of 384 threads owns 64 Q rows
+    with Q resident in 64 x 64 boxes (64 KB at D512); a producer warpgroup
+    streams each KV tile's K and V boxes through a ring of 8 two-box
+    stages; two consumer warpgroups each compute S for half of the tile's
+    64 KV columns and own half of the fp32 O tile's columns (128
+    registers a thread at Dv 512).
+  - D or Dv in (512, 1024] (route "wgmma_cluster"): a cluster of two such
+    blocks per 64 Q rows, rank r owning half of D's boxes and half of
+    Dv's (rank 0 the larger half): each loads only its Q, K and V boxes,
+    computes a partial S over its D boxes, exchanges it with the partner
+    through distributed shared memory (two 16 KB slots) and accumulates
+    P V into its own Dv boxes; a ring of 7 stages.
+  The launcher picks this tiling itself; the config's row tile is only
+  checked (``fwd_fits``: the retired mma.sync block's shared memory and
+  register budget, kept so that the S residual's row padding stays
+  what it was) and sets the S residual's row padding.
 * Decode (``csrc/decode.cu``), two routes by head dims alone
   (``decode_plan`` mirrors the launcher's ``make_plan``): D and Dv <= 512
   take the TMA block (16 packed rows, a ring of 8 KiB stages as deep as
@@ -144,13 +148,17 @@ _DKDV_WG_PASS_COLS = 256
 _DKDV_WG_STAGE_BOXES = 2
 _DKDV_WG_MAX_STAGES = 6
 # Compile-time constants of the wgmma forward block (flash_fwd.cu namespace
-# fwd: ROWS, MAX_BOXES * 64, STAGE_BOXES, STAGES, XCH_BYTES), not
-# settings: fwd_plan mirrors the launcher with them.
+# fwd: ROWS, MAX_BOXES * 64, 2 * MAX_BOXES * 64, STAGE_BOXES, stages_of,
+# XCH_BYTES, PART_BUF_BYTES and the exchange's 4 barriers), not settings:
+# fwd_plan mirrors the launcher with them.
 _FWD_WG_ROWS = 64
 _FWD_WG_MAX_D = 512
+FWD_MAX_HEAD_DIM = 1024
 _FWD_WG_STAGE_BOXES = 2
 _FWD_WG_STAGES = 8
+_FWD_CLUSTER_STAGES = 7
 _FWD_WG_XCH_BYTES = 2 * 64 * 4
+_FWD_CLUSTER_PART_BYTES = 2 * 2 * 64 * 32 * 4 + 4 * 8
 # Compile-time constants of the wgmma from-S block (flash_bwd.cu namespace
 # from_s: ROWS, QROWS, MAX_BOXES * 64, MAX_STAGES), not settings:
 # from_s_plan mirrors the launcher with them.
@@ -266,10 +274,12 @@ class BlockConfig:
 
 
 def fwd_smem_bytes(cfg: BlockConfig, d: int, dv: int, itemsize: int = 2) -> int:
-    """Shared memory of one forward block: resident Q [bq, D] + the K/V
-    chunk ring + fp32 S [bq, bkv] + P [bq, bkv] + per-row m, l, alpha.
-    Dv costs registers, not shared memory; so does the S residual of
-    ``return_scores``, stored from the softmax's registers."""
+    """Shared memory of one mma.sync forward block (the packed varlen
+    forward's route for wider heads builds on it: ``varlen_smem_bytes``):
+    resident Q [bq, D] + the K/V chunk ring + fp32 S [bq, bkv] + P [bq,
+    bkv] + per-row m, l, alpha. Dv costs registers, not shared memory; so
+    does the S residual of ``return_scores``, stored from the softmax's
+    registers."""
     del dv
     bq, bkv = cfg.block_q, cfg.block_kv
     q_res = bq * (_round_up(d, D_CHUNK) + _PAD_T) * itemsize
@@ -280,7 +290,11 @@ def fwd_smem_bytes(cfg: BlockConfig, d: int, dv: int, itemsize: int = 2) -> int:
 
 
 def fwd_fits(cfg: BlockConfig, d: int, dv: int, itemsize: int = 2) -> bool:
-    """Whether the forward kernel takes this row tile at (D, Dv)."""
+    """Whether the forward takes this row tile at (D, Dv): the mma.sync
+    block's budget (``fwd_smem_bytes``, block_q * Dv <= FWD_ACC_ELEMS). The
+    dense forward's wgmma routes pick their own 64-row tile; there the row
+    tile only sets the S residual's row padding, so keeping this gate keeps
+    the slab's shape (and its consumers') as it was on every route."""
     return (
         cfg.block_q in FWD_ROW_TILES
         and cfg.block_q * _round_up(dv, D_CHUNK) <= FWD_ACC_ELEMS
@@ -292,15 +306,19 @@ def fwd_fits(cfg: BlockConfig, d: int, dv: int, itemsize: int = 2) -> bool:
 class FwdPlan:
     """The route and tiling of one forward launch, as ``csrc/flash_fwd.cu``
     ``fwd::make_plan`` computes it (the library hands its own out through
-    ``flash_fwd.fwd_kernel_plan``; the card test holds the two equal).
+    ``flash_fwd.fwd_kernel_plan``; the card test holds the two equal). The
+    packed varlen forward's plan (``varlen_fwd_plan``) has the same fields.
 
-    ``route`` is "wgmma" (D and Dv <= 512) or "mma_sync"; ``q_rows`` a
+    ``route`` is "wgmma" (D and Dv <= 512), "wgmma_cluster" (up to 1024)
+    or, for the varlen forward's wider heads only, "mma_sync"; ``q_rows`` a
     block's Q rows (for mma.sync the largest row tile its registers hold),
     ``kv_rows`` a KV tile's rows, ``stages`` the ring's depth,
-    ``smem_bytes`` the dynamic shared memory a block asks for (at
-    ``q_rows`` for mma.sync) and ``o_blocks`` the (first column, width) of
-    O that each owner accumulates: the two consumer warpgroups (wgmma) or
-    the whole block (mma.sync).
+    ``smem_bytes`` the dynamic shared memory a block asks for and
+    ``o_blocks`` the (first column, width) of O that each owner
+    accumulates: the consumer warpgroups (rank by rank on the cluster) or
+    the whole block (mma.sync). ``rank_blocks`` holds, for each rank of the
+    cluster, its ((first D column, D width), (first Dv column, Dv width));
+    it is empty where one block holds all of D and Dv.
     """
 
     route: str
@@ -309,28 +327,37 @@ class FwdPlan:
     stages: int
     smem_bytes: int
     o_blocks: tuple
+    rank_blocks: tuple = ()
 
 
 def fwd_plan(d: int, dv: int) -> FwdPlan:
-    """The forward route by head dims alone (padded to 64-column chunks;
-    16-bit inputs): D and Dv <= 512 take the wgmma block, consumer 0 owning
-    the first ceil(nv / 2) of Dv's nv boxes and consumer 1 the rest, with a
+    """The forward route by head dims alone (padded to 64-column chunks, at
+    most 1024; 16-bit inputs). D and Dv <= 512 take one wgmma block, with a
     ring of 8 stages (two 64 x 64 boxes each) beside Q, the P box and the
-    row exchange; wider heads the mma.sync block (``fwd_smem_bytes`` at its
-    largest row tile)."""
+    row exchange. Wider heads take a cluster of two such blocks, rank r
+    holding its half of D's boxes and of Dv's (``_even_blocks``: rank 0 the
+    larger), with a ring of 7 stages beside rank 0's Q boxes and the
+    partial-score exchange. In each block consumer 0 owns the first
+    ceil(nv / 2) of the block's nv Dv boxes and consumer 1 the rest."""
     nd, nv = cdiv(d, D_CHUNK), cdiv(dv, D_CHUNK)
-    if max(nd, nv) * D_CHUNK <= _FWD_WG_MAX_D:
-        box = _FWD_WG_ROWS * D_CHUNK * 2
-        smem = ((nd + 1) * box + 1024 + 8 + _FWD_WG_XCH_BYTES
-                + _FWD_WG_STAGES * (_FWD_WG_STAGE_BOXES * box + 16))
-        nv0 = cdiv(nv, 2)
-        return FwdPlan("wgmma", _FWD_WG_ROWS, KV_TILE, _FWD_WG_STAGES, smem,
-                       ((0, nv0 * D_CHUNK), (nv0 * D_CHUNK, (nv - nv0) * D_CHUNK)))
-    rows = FWD_ROW_TILES[0] if FWD_ROW_TILES[0] * nv * D_CHUNK <= FWD_ACC_ELEMS else \
-        FWD_ROW_TILES[1]
-    return FwdPlan("mma_sync", rows, KV_TILE, FWD_STREAM_STAGES,
-                   fwd_smem_bytes(BlockConfig(block_q=rows), nd * D_CHUNK, nv * D_CHUNK),
-                   ((0, nv * D_CHUNK),))
+    if max(nd, nv) * D_CHUNK > FWD_MAX_HEAD_DIM:
+        raise ValueError(f"the forward kernel takes D, Dv <= {FWD_MAX_HEAD_DIM}, got D={d}, "
+                         f"Dv={dv}")
+    split = max(nd, nv) * D_CHUNK > _FWD_WG_MAX_D
+    ranks = 2 if split else 1
+    d_blocks, v_blocks = _even_blocks(nd, ranks), _even_blocks(nv, ranks)
+    o_blocks = []
+    for v0, width in v_blocks:
+        boxes = width // D_CHUNK
+        nv0 = cdiv(boxes, 2)
+        o_blocks += [(v0, nv0 * D_CHUNK), (v0 + nv0 * D_CHUNK, (boxes - nv0) * D_CHUNK)]
+    stages = _FWD_CLUSTER_STAGES if split else _FWD_WG_STAGES
+    box = _FWD_WG_ROWS * D_CHUNK * 2
+    smem = ((d_blocks[0][1] // D_CHUNK + 1) * box + 1024 + 8 + _FWD_WG_XCH_BYTES
+            + (_FWD_CLUSTER_PART_BYTES if split else 0)
+            + stages * (_FWD_WG_STAGE_BOXES * box + 16))
+    return FwdPlan("wgmma_cluster" if split else "wgmma", _FWD_WG_ROWS, KV_TILE, stages, smem,
+                   tuple(o_blocks), tuple(zip(d_blocks, v_blocks)) if split else ())
 
 
 def decode_smem_bytes(cfg: BlockConfig, dv: int, itemsize: int = 2) -> int:
@@ -411,14 +438,16 @@ def varlen_fwd_plan(d: int, dv: int) -> FwdPlan:
     64-column chunks), as ``csrc/varlen_fwd.cu`` ``tma::make_plan``
     computes it (the library hands its own out through
     ``varlen.varlen_fwd_kernel_plan``; the card test holds the two equal):
-    the dense ``fwd_plan``, whose wgmma block reads its segment metadata
-    from device memory and so costs no more shared memory, with the
-    mma.sync block's ``varlen_smem_bytes`` for wider heads."""
-    plan = fwd_plan(d, dv)
-    if plan.route == "wgmma":
-        return plan
-    return replace(plan, smem_bytes=varlen_smem_bytes(
-        BlockConfig(block_q=plan.q_rows), _round_up(d, D_CHUNK), _round_up(dv, D_CHUNK)))
+    D, Dv <= 512 take the dense ``fwd_plan``, whose wgmma block reads its
+    segment metadata from device memory and so costs no more shared
+    memory; wider heads the mma.sync block at the largest row tile its
+    registers hold, with ``varlen_smem_bytes``."""
+    d_pad, dv_pad = _round_up(d, D_CHUNK), _round_up(dv, D_CHUNK)
+    if max(d_pad, dv_pad) <= _FWD_WG_MAX_D:
+        return fwd_plan(d, dv)
+    rows = FWD_ROW_TILES[0] if FWD_ROW_TILES[0] * dv_pad <= FWD_ACC_ELEMS else FWD_ROW_TILES[1]
+    return FwdPlan("mma_sync", rows, KV_TILE, FWD_STREAM_STAGES,
+                   varlen_smem_bytes(BlockConfig(block_q=rows), d_pad, dv_pad), ((0, dv_pad),))
 
 
 def varlen_fits(cfg: BlockConfig, d: int, dv: int, itemsize: int = 2) -> bool:
@@ -808,9 +837,10 @@ def default_config(
     nkv: int,
     itemsize: int = 2,
 ) -> BlockConfig:
-    """Forward row tile: 64 where its O tile fits the registers (Dv <= 512),
-    else 32; shrunk to 32 for short queries. A taller tile divides the K/V
-    re-reads (Nq / block_q passes over K/V)."""
+    """Forward row tile: 64 where ``fwd_fits`` (Dv <= 512), else 32; shrunk
+    to 32 for short queries. The dense forward's kernels take their own
+    64-row tile, so this sets the S residual's row padding there and the
+    packed varlen forward's row tile on its mma.sync route."""
     for bq in FWD_ROW_TILES:
         cfg = BlockConfig(block_q=bq).clamp(nq, nkv, FWD_ROW_TILES)
         if fwd_fits(cfg, d, dv, itemsize):
@@ -824,6 +854,7 @@ __all__ = [
     "KV_TILE",
     "D_CHUNK",
     "FWD_ROW_TILES",
+    "FWD_MAX_HEAD_DIM",
     "ROW_TILES",
     "cdiv",
     "fwd_smem_bytes",

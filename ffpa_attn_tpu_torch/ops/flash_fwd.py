@@ -9,28 +9,29 @@ halved for causal; at the serving prefill (B1 Hq8 N4096 D512 causal) that is
 1.37e11 flop per layer, 0.14 ms at 989 TFLOP/s, while its bytes (q, k, v, o
 once each, ~100 MB) take 0.03 ms at 3.35 TB/s.
 
-Design against that bound (``csrc/flash_fwd.cu``), two routes chosen by
-head dims alone (``config.fwd_plan`` mirrors the launcher's plan; a build or
-launch error on either raises, nothing retries on the other):
+Design against that bound (``csrc/flash_fwd.cu``): one TMA + wgmma block
+(the reference's SM90 split-D forward) on two routes chosen by head dims
+alone (``config.fwd_plan`` mirrors the launcher's plan; a build or launch
+error raises, nothing retries another way). A producer warpgroup loads Q
+once into resident 128 B-swizzled boxes and streams each KV tile's K and V
+boxes through an mbarrier ring; two consumer warpgroups each compute S for
+half of the tile's KV columns (``wgmma``), meet on the row maxima through a
+small shared buffer, write their halves of P into one shared box and
+accumulate P V into their own half of the fp32 O tile's columns. The
+softmax runs in the accumulator's layout (a row in one quad of threads);
+tiles with no feature inside the band skip the per-element feature code.
 
-* D and Dv <= 512: a TMA + wgmma block (the reference's SM90 split-D
-  forward). A producer warpgroup loads Q once into resident 128 B-swizzled
-  boxes and streams each KV tile's K and V boxes through an mbarrier ring;
-  two consumer warpgroups each compute S for half of the tile's KV columns
-  (``wgmma``), meet on the row maxima through a small shared buffer, write
-  their halves of P into one shared box and accumulate P V into their own
-  half of the fp32 O tile's columns. The softmax runs in the accumulator's
-  layout (a row in one quad of threads); tiles with no feature inside the
-  band skip the per-element feature code.
-* Wider heads: mma.sync tensor-core products (bf16/f16 in, fp32
-  accumulate) fed by ldmatrix; the 64 x 512 fp32 O tile is split over the
-  registers of 16 warps by rows and columns (Split-D of the accumulator:
-  no warp holds a whole row); Q stays resident in shared memory while K/V
-  stream through a cp.async ring.
+* D and Dv <= 512 ("wgmma"): one such block per 64 Q rows.
+* D or Dv in (512, 1024] ("wgmma_cluster"): a thread-block cluster of two,
+  each rank holding half of D's and half of Dv's boxes. Each rank computes a
+  partial S over its D boxes and stores it into the partner's shared memory
+  (distributed shared memory); both add the two partials in the same
+  commutative fp32 sum, so both hold bit-identical S and so the same
+  softmax, and each accumulates P V into its own Dv boxes. Every byte of
+  Q, K and V is read once per cluster.
 
-On both, whole KV tiles outside the causal / window band are never
-loaded and heads and query tiles fill the grid, the longest causal tiles
-first. Dropout is the hash of ``rng.py``, written into the kernel
+Whole KV tiles outside the causal / window band are never loaded, and
+heads and query tiles fill the grid, the longest causal tiles first. Dropout is the hash of ``rng.py``, written into the kernel
 (``csrc/rng.cuh``) so the backward replays its bits. With
 ``return_scores`` the softmax also stores each visited tile's scores as the
 bf16 S residual of the S-resident backward (1 GiB at B1 Hq8 N8192, 0.32 ms
@@ -52,11 +53,11 @@ from .config import (
     D_CHUNK,
     FWD_ROW_TILES,
     KV_TILE,
+    FWD_MAX_HEAD_DIM,
     BlockConfig,
     FwdPlan,
     cdiv,
     fwd_fits,
-    fwd_smem_bytes,
 )
 from .reference import DEFAULT_MASK_VALUE, expand_kv_heads, reference_attention
 
@@ -101,8 +102,13 @@ _ARGTYPES = {
         + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     ),
     "ffpa_flash_fwd_plan": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int],
-    "ffpa_flash_fwd_attrs": [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2,
+    "ffpa_flash_fwd_attrs": [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2,
 }
+# The library's route numbers (csrc/flash_fwd.cu fwd::WGMMA, fwd::CLUSTER).
+_ROUTES = {1: "wgmma", 2: "wgmma_cluster"}
+# Substrings of the forward kernel's name in a profiler's trace, on either
+# route (both are instantiations of one template).
+FWD_KERNELS = ("fwd::wgmma_fwd_kernel",)
 
 
 def _fwd_lib() -> ctypes.CDLL:
@@ -120,23 +126,26 @@ def fwd_kernel_plan(d: int, dv: int) -> FwdPlan:
     (padded to 64-column chunks), read from the library: what
     ``config.fwd_plan`` mirrors. Needs a card."""
     lib = _fwd_lib()
-    out = (ctypes.c_int * 16)()
+    out = (ctypes.c_int * 32)()
     err = lib.ffpa_flash_fwd_plan(cdiv(d, D_CHUNK) * D_CHUNK, cdiv(dv, D_CHUNK) * D_CHUNK, out,
                                   len(out))
     _build.check(lib, err, "flash_fwd kernel plan")
+    n = 6 + 2 * out[5]
     blocks = tuple((out[6 + 2 * i], out[7 + 2 * i]) for i in range(out[5]))
-    return FwdPlan("wgmma" if out[0] == 1 else "mma_sync", out[1], out[2], out[3], out[4],
-                   blocks)
+    ranks = tuple(((out[n + 1 + 4 * r], out[n + 2 + 4 * r]),
+                   (out[n + 3 + 4 * r], out[n + 4 + 4 * r])) for r in range(out[n]))
+    return FwdPlan(_ROUTES[out[0]], out[1], out[2], out[3], out[4], blocks, ranks)
 
 
-def fwd_kernel_attrs(route: str, dtype=torch.bfloat16, block_q: int = 64) -> dict:
+def fwd_kernel_attrs(route: str, dtype=torch.bfloat16) -> dict:
     """Registers a thread (at launch, before setmaxnreg) and local (spill)
-    bytes of the forward kernel of ``route`` ("wgmma", or "mma_sync" at row
-    tile ``block_q``), from cudaFuncGetAttributes. Needs a card."""
+    bytes of the forward kernel of ``route`` ("wgmma" or "wgmma_cluster"),
+    from cudaFuncGetAttributes. Needs a card."""
     lib = _fwd_lib()
     regs, local = ctypes.c_int(0), ctypes.c_int(0)
-    err = lib.ffpa_flash_fwd_attrs(int(route == "wgmma"), int(dtype == torch.float16),
-                                   int(block_q), ctypes.byref(regs), ctypes.byref(local))
+    code = {name: num for num, name in _ROUTES.items()}[route]
+    err = lib.ffpa_flash_fwd_attrs(code, int(dtype == torch.float16), ctypes.byref(regs),
+                                   ctypes.byref(local))
     _build.check(lib, err, "flash_fwd kernel attributes")
     return {"registers": regs.value, "local_bytes": local.value}
 
@@ -273,6 +282,9 @@ def flash_attention_forward(
     if return_scores:
         s_pad = torch.empty((b, hq, nq_pad, nkv_pad), dtype=torch.bfloat16, device=q.device)
     d_pad, dv_pad = cdiv(d, D_CHUNK) * D_CHUNK, cdiv(dv, D_CHUNK) * D_CHUNK
+    if max(d_pad, dv_pad) > FWD_MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention_forward: the kernel takes D, Dv <= "
+                         f"{FWD_MAX_HEAD_DIM}, got D={d}, Dv={dv}")
     if not fwd_fits(config, d_pad, dv_pad, q.element_size()):
         raise ValueError(
             f"flash_attention_forward: block_q={config.block_q} does not fit "
@@ -298,12 +310,10 @@ def flash_attention_forward(
 
     if ENV.device_log_level() >= 2:
         plan = fwd_kernel_plan(d_pad, dv_pad)
-        rows = plan.q_rows if plan.route == "wgmma" else config.block_q
-        smem = (plan.smem_bytes if plan.route == "wgmma"
-                else fwd_smem_bytes(config, d_pad, dv_pad, q.element_size()))
         logger.info(
             "flash_fwd launch route=%s grid=(%d,%d,%d) rows=%d smem=%d D=%d Dv=%d",
-            plan.route, hq, b, cdiv(nq, rows), rows, smem, d_pad, dv_pad,
+            plan.route, hq * max(1, len(plan.rank_blocks)), b, cdiv(nq, plan.q_rows),
+            plan.q_rows, plan.smem_bytes, d_pad, dv_pad,
         )
     lib = _fwd_lib()
     with torch.cuda.device(q.device):
@@ -334,6 +344,7 @@ __all__ = [
     "flash_attention_forward_plain",
     "fwd_kernel_plan",
     "fwd_kernel_attrs",
+    "FWD_KERNELS",
     "scores_plain",
     "scores_padding",
     "check_kernel_inputs",

@@ -189,3 +189,115 @@ def test_kernel_matches_plain_on_card(cuda, name, dtype, tol):
     )
     assert row_rel_err(ko, po) < tol, name
     assert rel_err(kl, pl) < LSE_TOL, name
+
+
+# ---------------------------------------------------------------------------
+# The cluster route's split (D or Dv > 512), emulated in plain PyTorch
+# ---------------------------------------------------------------------------
+
+MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)  # the kernels' masked score
+
+# D640, D1024, D != Dv both ways; causal, windows, a bias with ALiBi and
+# softcap, ragged Nkv and Nq not a multiple of 64; a few heads, N <= 256.
+CLUSTER_CASES = {
+    "d640_causal_nq200": dict(hq=2, hkv=1, nq=200, nkv=200, d=640, is_causal=True),
+    "d1024_bias_ragged_nkv": dict(nq=96, nkv=200, d=1024, bias=True),
+    "d1024_dv320_causal": dict(nq=100, nkv=160, d=1024, dv=320, is_causal=True),
+    "d320_dv1024_window": dict(nq=128, nkv=128, d=320, dv=1024, window=(40, 8)),
+    "d1024_causal_window": dict(nq=192, nkv=256, d=1024, window=(100, -1), is_causal=True),
+    "d640_bias_alibi_softcap": dict(hq=2, hkv=1, nq=70, nkv=130, d=640, bias=True, alibi=True,
+                                    softcap=4.0, is_causal=True),
+}
+
+
+def _cluster_walk(q, k, v, bias, *, scale, is_causal, window, softcap, alibi, plan, dtype):
+    """The cluster kernel's arithmetic in fp32 on 64 x 64 tiles: per 64-row
+    block the KV tiles of its band; per tile each rank's partial S over its
+    D boxes (box by box), S = own + partner in both ranks' order (held
+    bit-equal), the scores' features and masks, the online softmax, P
+    rounded to the input type, and O accumulated per rank's Dv boxes.
+    Returns (o, lse) fp32."""
+    b, hq, nq, _ = q.shape
+    nkv, dv = k.shape[2], v.shape[-1]
+    group = hq // k.shape[1]
+    qf = q.float()
+    kf, vf = (x.float().repeat_interleave(group, dim=1) for x in (k, v))
+    off, (wl, wr) = nkv - nq, window
+    wr = 0 if is_causal else wr
+    o = torch.zeros((b, hq, nq, dv))
+    lse = torch.zeros((b, hq, nq))
+    for row0 in range(0, nq, 64):
+        rows = torch.arange(row0, min(row0 + 64, nq))
+        kv_lo, kv_hi = 0, nkv
+        if wr >= 0:
+            kv_hi = min(nkv, int(rows[-1]) + off + wr + 1)
+        if wl >= 0:
+            kv_lo = max(0, row0 + off - wl) // 64 * 64
+        m = torch.full((b, hq, len(rows)), -math.inf)
+        l = torch.zeros((b, hq, len(rows)))
+        acc = [torch.zeros((b, hq, len(rows), vw)) for _, (_, vw) in plan.rank_blocks]
+        for kv0 in range(kv_lo, kv_hi, 64):
+            cols = torch.arange(kv0, min(kv0 + 64, nkv))
+            qt, kt = qf[:, :, rows], kf[:, :, cols]
+            part = []
+            for (d0, dw), _ in plan.rank_blocks:
+                p_r = torch.zeros((b, hq, len(rows), len(cols)))
+                for c in range(d0, d0 + dw, 64):
+                    p_r = p_r + qt[..., c:c + 64] @ kt[..., c:c + 64].transpose(-1, -2)
+                part.append(p_r)
+            s_rank0, s_rank1 = part[0] + part[1], part[1] + part[0]
+            assert torch.equal(s_rank0, s_rank1)
+            s = s_rank0 * scale
+            if softcap > 0.0:
+                s = softcap * torch.tanh(s / softcap)
+            dist = (rows[:, None] + off - cols[None, :]).float()
+            if alibi is not None:
+                s = s - alibi.float()[..., None, None] * dist.abs()
+            if bias is not None:
+                s = s + bias.float()[:, :, rows][..., cols]
+            if wr >= 0:
+                s = torch.where(-dist > wr, MASK_VALUE, s)
+            if wl >= 0:
+                s = torch.where(dist > wl, MASK_VALUE, s)
+            s = torch.where(cols[None, :] >= kv_hi, -math.inf, s)
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.where(m_new == -math.inf, 1.0, torch.exp(m - m_new))
+            p = torch.where(m_new[..., None] == -math.inf, 0.0, torch.exp(s - m_new[..., None]))
+            l = alpha * l + p.sum(-1)
+            pt = p.to(dtype).float()
+            for r, (_, (v0, vw)) in enumerate(plan.rank_blocks):
+                acc[r] = acc[r] * alpha[..., None] + pt @ vf[:, :, cols, v0:v0 + vw]
+            m = m_new
+        l_safe = torch.where(l == 0, 1.0, l)
+        o[:, :, rows] = torch.cat(acc, dim=-1) / l_safe[..., None]
+        lse[:, :, rows] = m + torch.log(torch.clamp(l, min=1e-38))
+    return o, lse
+
+
+@pytest.mark.parametrize("name", sorted(CLUSTER_CASES))
+def test_cluster_split_emulation_matches_jax(jax_ref, name):
+    """The two ranks' S are bit-equal and the split's (o, lse) hold to the
+    JAX forward (2e-2 / 1e-4, the suite's forward tolerances)."""
+    from ffpa_attn_tpu_torch.ops.config import fwd_plan
+
+    case = CLUSTER_CASES[name]
+    d, dv = case["d"], case.get("dv", case["d"])
+    plan = fwd_plan(d, dv)
+    assert plan.route == "wgmma_cluster"
+    rng = np.random.default_rng(len(name))
+    b, hq, hkv, nq, nkv = 1, case.get("hq", 2), case.get("hkv", 2), case["nq"], case["nkv"]
+    x = dict(q=randn(rng, (b, hq, nq, d)), k=randn(rng, (b, hkv, nkv, d)),
+             v=randn(rng, (b, hkv, nkv, dv)), bias=None, alibi=None)
+    if case.get("bias"):
+        x["bias"] = randn(rng, (b, 1, nq, nkv))
+    if case.get("alibi"):
+        x["alibi"] = rng.uniform(0.01, 0.3, (b, hq)).astype(np.float32)
+    jo, jl = _jax_fwd(jax_ref[0], x, case, "bfloat16")
+    q, k, v = (to_torch(x[n], "bfloat16") for n in ("q", "k", "v"))
+    kw = _kwargs(case)
+    o, lse = _cluster_walk(q, k, v, to_torch(x["bias"]), alibi=to_torch(x["alibi"]), plan=plan,
+                           dtype=torch.bfloat16, is_causal=kw["is_causal"], scale=kw["scale"],
+                           window=kw["window"], softcap=kw["softcap"])
+    assert tuple(o.shape) == tuple(jo.shape)
+    assert rel_err(o.to(torch.bfloat16), jo) < BF16_TOL, name
+    assert rel_err(lse, jl) < LSE_TOL, name

@@ -17,7 +17,9 @@ wrappers passed, ``LegacyBanded``):
   flash_fwd_scores the same with the S residual; flash_fwd_train and
   flash_fwd_train_scores: N8192 (a training layer), without and with it.
   At D512 the head library runs its wgmma route, a base built from older
-  sources the mma.sync kernel;
+  sources the mma.sync kernel; flash_fwd_d1024: B1 H8/4 N4096 D1024 causal
+  bf16, where the head library runs the cluster of two blocks, a base built
+  from sources before it the mma.sync kernel;
 * decode: B1 H8/4 Nkv 4224 D512 with the validity bias (the generate step),
   and decode_serving (``--kernels decode`` runs both): B4 H8/4 max_len 1152
   with the serving step's shared-row bias and its gap; four caches in turn
@@ -122,6 +124,7 @@ from ffpa_attn_tpu_torch.utils.profiling import (  # noqa: E402
 # kernel -> the source it is built from
 SOURCE = {"flash_fwd": "flash_fwd", "flash_fwd_scores": "flash_fwd",
           "flash_fwd_train": "flash_fwd", "flash_fwd_train_scores": "flash_fwd",
+          "flash_fwd_d1024": "flash_fwd",
           "decode": "decode", "decode_serving": "decode", "dkdv": "flash_bwd",
           "banded_dq": "flash_bwd", "dq": "flash_bwd", "from_s": "flash_bwd",
           "banded_dk": "flash_bwd", "varlen_fwd": "varlen_fwd", "varlen_fwd_train": "varlen_fwd",
@@ -397,6 +400,7 @@ def make_runs(gen) -> tuple:
     scale = 1.0 / math.sqrt(d)
     n, max_len, nt = 4096, 4224, 8192
     q, k, v = randn(b, hq, n, d), randn(b, hkv, n, d), randn(b, hkv, n, d)
+    wq, wk, wv = randn(b, hq, n, 1024), randn(b, hkv, n, 1024), randn(b, hkv, n, 1024)
     qd = randn(b, hq, 1, d)
     caches = [(randn(b, hkv, max_len, d), randn(b, hkv, max_len, d)) for _ in range(4)]
     cols = torch.arange(max_len, device="cuda")
@@ -536,21 +540,23 @@ def make_runs(gen) -> tuple:
         state.pop("s_ds", None)
 
     def fwd(q_, k_, v_, scores):
-        return flash_fwd.flash_attention_forward(q_, k_, v_, None, scale=scale, is_causal=True,
-                                                 return_scores=scores)
+        return flash_fwd.flash_attention_forward(q_, k_, v_, None, scale=q_.shape[-1] ** -0.5,
+                                                 is_causal=True, return_scores=scores)
 
     def fwd_plain(q_, k_, v_, scores):
-        o, lse = flash_fwd.flash_attention_forward_plain(q_, k_, v_, None, scale=scale,
+        hd = q_.shape[-1]
+        o, lse = flash_fwd.flash_attention_forward_plain(q_, k_, v_, None, scale=hd ** -0.5,
                                                          is_causal=True)
         if not scores:
             return o, lse
-        nq_pad, nkv_pad = flash_fwd.scores_padding(q_.shape[2], k_.shape[2], d, d, q_.dtype)
-        return o, lse, flash_fwd.scores_plain(q_, k_, None, scale=scale, is_causal=True,
+        nq_pad, nkv_pad = flash_fwd.scores_padding(q_.shape[2], k_.shape[2], hd, hd, q_.dtype)
+        return o, lse, flash_fwd.scores_plain(q_, k_, None, scale=hd ** -0.5, is_causal=True,
                                               nq_pad=nq_pad, nkv_pad=nkv_pad)
 
     fwd_inputs = {"flash_fwd": (q, k, v, False), "flash_fwd_scores": (q, k, v, True),
                   "flash_fwd_train": (tq, tk, tv, False),
-                  "flash_fwd_train_scores": (tq, tk, tv, True)}
+                  "flash_fwd_train_scores": (tq, tk, tv, True),
+                  "flash_fwd_d1024": (wq, wk, wv, False)}
     runs = {name: (lambda a=a: fwd(*a)) for name, a in fwd_inputs.items()}
     runs.update({
         "decode": lambda: run_decode()[0],
