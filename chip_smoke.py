@@ -17,7 +17,10 @@ It imports only ``ffpa_attn_tpu_torch``, torch and numpy, and runs, in order:
    routes (TMA at D, Dv <= 512, cp.async above; one valid column, the
    serving step's gap, 32 packed rows, D != Dv, the speculative verify
    block at Nq 5 with its per-row bias; and its score residual),
-   dkdv, dq (both routes, D != Dv, fp16, fp32 dQ
+   dkdv (both routes: one wgmma block at D, Dv <= 512, a cluster of two
+   splitting D and Dv above: D640, D1024, fp16, D != Dv down to a rank
+   without a box of one dim, bias + ALiBi + dropout, and a dS handoff cut
+   into three KV stripes), dq (both routes, D != Dv, fp16, fp32 dQ
    storage), banded dQ, the from-S dK/dV pass in both
    variants and banded dK (a slab NaN outside the band among them), the
    packed varlen forward, the varlen dK/dV and dQ kernels (bf16 and fp16
@@ -89,7 +92,9 @@ It imports only ``ffpa_attn_tpu_torch``, torch and numpy, and runs, in order:
    CUDA-event ms and its bound, and timed again once where it reads below
    the bound (the phase fails if it stays below);
    banded dQ, banded dK and dK/dV also at the op-level shape (H32 MHA)
-   with their TFLOP/s;
+   with their TFLOP/s; the dK/dV cluster route at B1 H8 N8192 D1024
+   causal fp16 beside its bound, its plain version and the autograd of
+   SDPA;
 7. bench CLI: the windowed paged leg (window 256, page 128) in process,
    its paged steps teacher-forced against the dense steps and the paged
    kernel timed with and without the window; MHA decode on the decode
@@ -167,6 +172,12 @@ PAGED_TOL, INT8_TOL = 5e-2, 6e-2  # tests/test_models.py:262, tests/test_paged.p
 # (cli/_e2e.py bench_serve_paged_window) at its defaults: window 256, page
 # 128, the serving workload above.
 BENCH_H, BENCH_N, SERVE_WINDOW, WINDOW_PAGE = 8, 4096, 256, 128
+# Head-dim pairs at which the forward's and the dK/dV launcher's plans are
+# held equal to their mirrors (tests/test_torch_fwd_plan.py, both routes of
+# each: D, Dv 64..1024, D != Dv, a rank without a box of one dim).
+PLAN_PAIRS = [(x, x) for x in range(64, 1025, 64)] + [
+    (128, 512), (512, 128), (320, 512), (448, 64), (512, 64), (512, 1024), (1024, 320),
+    (64, 1024), (1024, 64), (400, 400), (100, 200), (320, 1024), (640, 1024)]
 
 
 def log(msg: str) -> None:
@@ -466,6 +477,56 @@ def _bwd_case(name, *, b=1, hq=8, hkv=4, nq, nkv, d=512, dv=None, dtype=torch.bf
         + f" (tol {tol:g}, per row) {'ok' if ok else 'FAIL'}")
     if not ok:
         fail(f"backward kernels disagree with their plain versions: {name}")
+
+
+def _striped_bwd_case(name, *, b=1, hq=8, hkv=4, n, d, dtype=torch.bfloat16, dropout=0.0,
+                      stripes=3, seed=0):
+    """The causal dS-handoff backward through ``flash_attention_backward``
+    with a slab limit of 1 / ``stripes`` of the slab, so it is cut into
+    that many KV stripes: one dkdv launch a stripe at its row / column
+    offsets (dropout replayed on global ids), banded dQ summed over them;
+    dQ, dK and dV against the plain versions over the whole call."""
+    import os
+
+    from ffpa_attn_tpu_torch.ops import flash_bwd, flash_fwd
+    from ffpa_attn_tpu_torch.ops.config import DKDV_Q_TILE, DKDV_SLAB_COLS, cdiv
+
+    gen = torch.Generator(device="cuda").manual_seed(100 + seed)
+    q, do = _randn((b, hq, n, d), dtype, gen), _randn((b, hq, n, d), dtype, gen)
+    k, v = _randn((b, hkv, n, d), dtype, gen), _randn((b, hkv, n, d), dtype, gen)
+    scale = 1.0 / math.sqrt(d)
+    kw = dict(scale=scale, is_causal=True, dropout_p=dropout, dropout_seed=seed)
+    o, lse = flash_fwd.flash_attention_forward(q, k, v, None, **kw)
+    slab = (b * hq * cdiv(n, DKDV_Q_TILE) * DKDV_Q_TILE * cdiv(n, DKDV_SLAB_COLS)
+            * DKDV_SLAB_COLS * q.element_size())
+    key, launches = "FFPA_TORCH_DS_HANDOFF_LIMIT_BYTES", flash_bwd._dkdv_launch.launches
+    before = os.environ.get(key)
+    os.environ[key] = str(cdiv(slab, stripes))
+    try:
+        dq, dk, dv, _ = flash_bwd.flash_attention_backward(q, k, v, None, o, lse, do,
+                                                           ds_handoff=True, **kw)
+        torch.cuda.synchronize()
+    finally:
+        if before is None:
+            del os.environ[key]
+        else:
+            os.environ[key] = before
+    launched = flash_bwd._dkdv_launch.launches - launches
+    delta = (do.float() * o.float()).sum(-1)
+    plain_kw = dict(is_causal=True, causal_offset=0, dropout_p=dropout, seed=seed, softcap=0.0,
+                    window=(-1, -1), alibi=None)
+    pdk, pdv, _ = flash_bwd._dkdv_plain(q, k, v, None, do, lse, delta, scale=scale,
+                                        emit_ds=False, nq_pad=n, nkv_pad=n, **plain_kw)
+    pdq, _ = flash_bwd._dq_plain(q, k, v, None, do, lse, delta, scale=scale, emit_dbias=False,
+                                 **plain_kw)
+    errs = {"dq": grad_row_rel(dq, pdq), "dk": grad_row_rel(dk, pdk), "dv": grad_row_rel(dv, pdv)}
+    tol = GRAD_TOL[dtype]
+    ok = launched == stripes and all(e < tol for e in errs.values())
+    log(f"  bwd {name:<22} {launched} dkdv launches (stripes) "
+        + " ".join(f"{nm} {e:.2e}" for nm, e in errs.items())
+        + f" (tol {tol:g}, per row) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"the striped dS handoff disagrees with the plain versions: {name}")
 
 
 def _band(nq, nkv, causal, device="cuda"):
@@ -889,7 +950,7 @@ def phase_kernels_vs_plain() -> dict:
     _bwd_case("d320", nq=1024, nkv=1024, d=320, seed=8)
     _bwd_case("d448", nq=1024, nkv=1024, d=448, seed=12)  # dK/dV passes of 256 + 192
     _bwd_case("gqa_group1", hq=8, hkv=8, nq=1024, nkv=1024, seed=13)
-    _bwd_case("d1024", nq=1024, nkv=1024, d=1024, seed=9)  # the mma.sync dK/dV route
+    _bwd_case("d1024_cluster", nq=1024, nkv=1024, d=1024, seed=9)  # the dK/dV cluster route
     _bwd_case("fp16", nq=1024, nkv=1024, dtype=torch.float16, seed=10)
     _bwd_case("batch2_bias_alibi", b=2, nq=1024, nkv=1100, bias="full", alibi=True, seed=11)
     # D != Dv on the wgmma routes: K, V and Q, dO stream different box
@@ -903,6 +964,19 @@ def phase_kernels_vs_plain() -> dict:
               bias="full", seed=18)
     _bwd_case("dq_f32_window_dropout", nq=1024, nkv=1024, window=(256, -1), dropout=0.1,
               grad_q="f32", seed=19)
+    # D or Dv above 512: the dK/dV cluster of two blocks, each rank holding
+    # half of D's and of Dv's boxes (at D64 / Dv1024 rank 1 holds no D box,
+    # at D1024 / Dv64 no Dv box); fp16, a feature case, and the dS handoff
+    # cut into KV stripes, each a launch at its row / column offsets.
+    _bwd_case("d640_cluster", nq=1024, nkv=1024, d=640, seed=30)
+    _bwd_case("d1024_fp16", nq=1024, nkv=1024, d=1024, dtype=torch.float16, seed=31)
+    _bwd_case("d512_dv1024", nq=1000, nkv=1100, d=512, dv=1024, seed=32)
+    _bwd_case("d1024_dv320", nq=1000, nkv=1100, d=1024, dv=320, seed=33)
+    _bwd_case("d64_dv1024", nq=1000, nkv=1100, d=64, dv=1024, seed=34)
+    _bwd_case("d1024_dv64", nq=1000, nkv=1100, d=1024, dv=64, seed=35)
+    _bwd_case("d1024_bias_alibi_dropout", nq=1024, nkv=1100, d=1024, causal=False, bias="full",
+              alibi=True, dropout=0.1, seed=36)
+    _striped_bwd_case("d1024_striped_dropout", n=1024, d=1024, dropout=0.1, seed=37)
     # The S-resident tier: the forward's S residual, the from-S dK/dV kernel
     # in both variants, banded dK and banded dQ from its slab; the training
     # shape (N8192) is held in s_resident_times, beside its times.
@@ -2581,6 +2655,7 @@ def training_times(training: dict, windowed: dict, resident: dict) -> tuple:
             row("dkdv", "ffpa_attn_tpu/ops/flash_bwd.py:194", training["launches"]["dkdv"],
                 err, kms, pms, lib, flops, nbytes, lambda: _timed(run_dkdv, 10))
             rows[-1].update(dkdv_kernel_row_extras(d))
+            rows[-1].update(dkdv_cluster_times())
 
             def run_banded():
                 return flash_bwd._banded_dq_from_ds(ds, k, cfg, scale=scale, group=hq // hkv,
@@ -2742,9 +2817,7 @@ def fwd_kernel_row_extras(d: int) -> dict:
     from ffpa_attn_tpu_torch.ops import _build, flash_fwd
     from ffpa_attn_tpu_torch.ops.config import fwd_plan
 
-    pairs = [(x, x) for x in range(64, 1025, 64)] + [
-        (128, 512), (512, 128), (320, 512), (448, 64), (512, 64), (512, 1024), (1024, 320),
-        (64, 1024), (1024, 64), (400, 400), (100, 200), (320, 1024), (640, 1024)]
+    pairs = PLAN_PAIRS
     for hd, hdv in pairs:
         if flash_fwd.fwd_kernel_plan(hd, hdv) != fwd_plan(hd, hdv):
             fail(f"forward launcher's plan at D{hd}/Dv{hdv} {flash_fwd.fwd_kernel_plan(hd, hdv)} "
@@ -2898,31 +2971,100 @@ def paged_kernel_row_extras(d: int) -> dict:
 
 
 def dkdv_kernel_row_extras(d: int) -> dict:
-    """The dK/dV route at head dim ``d`` and its kernel's registers and
-    spill bytes, for the ``kernels`` line; fails unless the launcher's plan
-    equals its mirror (``ops/config.py`` ``dkdv_plan``) at D, Dv 64..1024
-    and the wgmma kernel spills nothing."""
+    """The dK/dV route at head dim ``d`` and both routes' kernels' registers
+    and spill bytes, for the ``kernels`` line; fails unless the launcher's
+    plan equals its mirror (``ops/config.py`` ``dkdv_plan``) at every pair
+    of ``PLAN_PAIRS`` and neither route's kernel spills in either dtype."""
     from ffpa_attn_tpu_torch.ops import flash_bwd
     from ffpa_attn_tpu_torch.ops.config import dkdv_plan
 
-    pairs = [(x, x) for x in range(64, 1025, 64)] + [(512, 128), (128, 512), (448, 64),
-                                                     (512, 1024), (1024, 320), (400, 400)]
-    for hd, hdv in pairs:
+    for hd, hdv in PLAN_PAIRS:
         if flash_bwd.dkdv_kernel_plan(hd, hdv) != dkdv_plan(hd, hdv):
             fail(f"dK/dV launcher's plan at D{hd}/Dv{hdv} {flash_bwd.dkdv_kernel_plan(hd, hdv)} "
                  f"differs from ops/config.py dkdv_plan {dkdv_plan(hd, hdv)}")
-    log(f"  dkdv plan at D{d}: {flash_bwd.dkdv_kernel_plan(d, d)} (the launcher's, equal to "
-        f"ops/config.py dkdv_plan at {len(pairs)} head-dim pairs)")
-    for route in ("wgmma", "mma_sync"):
+    log(f"  dkdv plan at D{d}: {flash_bwd.dkdv_kernel_plan(d, d)}; at D1024: "
+        f"{flash_bwd.dkdv_kernel_plan(1024, 1024)} (the launcher's, equal to ops/config.py "
+        f"dkdv_plan at {len(PLAN_PAIRS)} head-dim pairs)")
+    attrs = {}
+    for route in ("wgmma", "wgmma_cluster"):
         for dt in (torch.bfloat16, torch.float16):
-            a = flash_bwd.dkdv_kernel_attrs(route, dt)
+            a = attrs[route, dt] = flash_bwd.dkdv_kernel_attrs(route, dt)
             log(f"  dkdv {route} {str(dt)[6:]}: {a['registers']} registers a thread at launch, "
                 f"{a['local_bytes']} local (spill) bytes")
-            if route == "wgmma" and a["local_bytes"] != 0:
-                fail(f"the wgmma dK/dV kernel ({dt}) spills {a['local_bytes']} bytes")
+            if a["local_bytes"] != 0:
+                fail(f"the {route} dK/dV kernel ({dt}) spills {a['local_bytes']} bytes")
     route = dkdv_plan(d, d).route
-    a = flash_bwd.dkdv_kernel_attrs(route)
-    return {"dkdv_route": route, "registers": a["registers"], "spill_bytes": a["local_bytes"]}
+    a, c = attrs[route, torch.bfloat16], attrs["wgmma_cluster", torch.bfloat16]
+    return {"dkdv_route": route, "registers": a["registers"], "spill_bytes": a["local_bytes"],
+            "cluster_registers": c["registers"], "cluster_spill_bytes": c["local_bytes"]}
+
+
+def dkdv_cluster_times() -> dict:
+    """The dK/dV cluster route at the bench's D sweep's causal D1024 shape
+    cut to H8 (B1 N8192 fp16, with the dS slab: the handoff tier fp16
+    takes): the kernel held against its plain version per row, then timed
+    (device ms of the dK/dV kernel by name, CUDA-event ms) beside its
+    bound, its plain version and ``torch.autograd.grad`` through
+    ``scaled_dot_product_attention`` (dQ, dK and dV); for the ``kernels``
+    line."""
+    import torch.nn.functional as F
+
+    from ffpa_attn_tpu_torch.cli._bench import sdpa_backend
+    from ffpa_attn_tpu_torch.ops import flash_bwd, flash_fwd
+    from ffpa_attn_tpu_torch.ops.dispatch import pick_backward_config
+    from ffpa_attn_tpu_torch.utils.profiling import backward_counts, bound_ms
+
+    b, h, n, d, dt = 1, 8, TRAIN_N, 1024, torch.float16
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    q, k, v, do = (_randn((b, h, n, d), dt, gen) for _ in range(4))
+    scale = d ** -0.5
+    o, lse = flash_fwd.flash_attention_forward(q, k, v, None, scale=scale, is_causal=True)
+    delta = (do.float() * o.float()).sum(-1)
+    del o
+    cfg = pick_backward_config(d=d, dv=d, nq=n, nkv=n, dtype=dt)
+    kw = dict(scale=scale, is_causal=True, causal_offset=0, dropout_p=0.0, group=1)
+
+    def run():
+        return flash_bwd._dkdv_launch(q, k, v, None, do, lse, delta, 0, cfg,
+                                      grad_kv_storage_dtype=None, emit_ds=True, **kw)
+
+    def plain():
+        return flash_bwd._dkdv_plain(q, k, v, None, do, lse, delta, scale=scale, emit_ds=True,
+                                     nq_pad=n, nkv_pad=n, is_causal=True, causal_offset=0,
+                                     dropout_p=0.0, seed=0, softcap=0.0, window=(-1, -1),
+                                     alibi=None)
+
+    before = flash_bwd._dkdv_launch.launches
+    kdk, kdv, kds = run()
+    torch.cuda.synchronize()
+    if flash_bwd._dkdv_launch.launches != before + 1:
+        fail("the dK/dV cluster call at D1024 launched no kernel")
+    pdk, pdv, pds = plain()
+    err = _hold(f"dkdv_cluster_N{n}_D{d}", {"dk": (kdk, pdk), "dv": (kdv, pdv), "ds": (kds, pds)},
+                dt)
+    del kdk, kdv, kds, pdk, pdv, pds
+    torch.cuda.empty_cache()
+    flops, nbytes = backward_counts("dkdv", b=b, hq=h, hkv=h, nq=n, nkv=n, d=d, dv=d, causal=True,
+                                    slab_bytes=b * h * n * n * 2)
+    bms, bby = bound_ms(flops, nbytes)
+    kms = _above_bound("dkdv cluster (D1024)", _kernel_timed(run, flash_bwd.DKDV_KERNELS, 5),
+                       bms, lambda: _kernel_timed(run, flash_bwd.DKDV_KERNELS, 5))
+    pms = _timed(plain, 2, warmup=1)
+    torch.cuda.empty_cache()
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+    lms = _timed(lambda: torch.autograd.grad(out, (ql, kl, vl), do, retain_graph=True), 3,
+                 warmup=1)
+    log(f"  dkdv cluster route (B{b} H{h} N{n} D{d} causal fp16, with the slab): "
+        f"{kms[0]:.4f} ms [{kms[1]:.4f}], {flops / kms[0] / 1e9:.1f} TFLOP/s, bound "
+        f"{bms:.4f} ms ({bby}); plain {pms[0]:.4f} ms; torch.autograd.grad through "
+        f"scaled_dot_product_attention ({sdpa_backend(ql, kl, vl, is_causal=True)} backend, dQ "
+        f"dK dV) {lms[0]:.4f} ms; max|err| vs plain {err:.3e}")
+    del out
+    torch.cuda.empty_cache()
+    return {"d1024_shape": f"B{b} H{h} N{n} D{d} causal fp16", "d1024_ms": kms[0],
+            "d1024_event_ms": kms[1], "d1024_bound_ms": bms, "d1024_plain_ms": pms[0],
+            "d1024_library_ms": lms[0], "d1024_max_abs_err": err}
 
 
 def varlen_fwd_kernel_row_extras(d: int) -> dict:

@@ -9,15 +9,16 @@
 //                           forward's S residual, dS written over S in place
 //   ffpa_bwd_banded_dk   <- _banded_dk_kernel: dK = scale * dS^T Q from the slab
 //
-// dK/dV for D, Dv <= 512 runs on TMA and wgmma (namespace dkdv, details
-// beside it); the route is dkdv::make_plan's, by head dims alone. So does
-// dQ for D, Dv <= 512 (namespace dq, dq::make_plan's route). From-S with
-// dK out of the kernel at Dv <= 512 does too (namespace from_s; the route
-// is from_s::make_plan's). dK/dV and dQ for wider heads and the other
-// from-S variants are built from the forward's pieces (flash_fwd.cu):
-// 16 warps, mma.sync m16n8k16 (bf16 or f16 in, fp32 accumulate) fed by
-// ldmatrix, a block's owned tile resident in shared memory and the other
-// operand streamed in 64 x 64 chunks through a 4-slot cp.async ring, fp32
+// dK/dV runs on TMA and wgmma (namespace dkdv, details beside it) on two
+// routes, by head dims alone (dkdv::make_plan): one block at D, Dv <= 512,
+// a thread-block cluster of two that splits D and Dv above, up to 1024.
+// dQ for D, Dv <= 512 does too (namespace dq, dq::make_plan's route), and
+// so does from-S with dK out of the kernel at Dv <= 512 (namespace from_s;
+// the route is from_s::make_plan's). dQ for wider heads and the other
+// from-S variants are built from the mma.sync pieces of bwd_tiles.cuh: 16 warps,
+// mma.sync m16n8k16 (bf16 or f16 in, fp32 accumulate) fed by ldmatrix, a
+// block's owned tile resident in shared memory and the other operand
+// streamed in 64 x 64 chunks through a 4-slot cp.async ring, fp32
 // accumulators split over the warps' registers by rows and columns.
 //
 // The score gradient of one element is _recompute_ds: s = scale * q.k,
@@ -30,17 +31,16 @@
 // are never loaded.
 //
 // dK/dV (TPU: one grid cell per KV tile, the GQA group x Q tiles on a
-// sequential grid axis; here: a loop inside the block). The mma.sync block
-// (D or Dv > 512) owns 32 KV rows of one KV head, with K and V resident,
-// and walks the group's 128-row Q tiles (128 rows give each warp 8 mma
-// between block barriers; 64 rows gave 4 and took 1.5x the time). S^T =
-// K Q^T streams the Q chunks; P^T goes to shared memory;
-// dP^T = V dO^T and dV += P^T dO share one stream of the dO chunks; dS^T goes
-// to shared memory (and to the slab); dK += dS^T Q streams the Q chunks
-// again. dK and dV come out group-reduced with one store each and no
-// atomics. Two 32 x 512 fp32 accumulators take the 64 registers a thread
-// has for them, so wider heads split the dK / dV columns over col_passes
-// blocks, each recomputing S and dP (the reference's SM90 D512 D-split).
+// sequential grid axis; here: a loop inside the block). A block (or a
+// cluster) owns 64 KV rows of one KV head with K and V resident and walks
+// the group's 64-row Q tiles; dK and dV come out group-reduced with one
+// store each and no atomics. Two 64 x 256 fp32 accumulators take the 128
+// registers a consumer thread has for them, so wider heads split the dK /
+// dV columns over passes, each recomputing S and dP (the reference's SM90
+// D512 D-split); above D512 the cluster's ranks split D and Dv and add
+// their partial S^T and dP^T through distributed shared memory. The
+// mma.sync block that held D or Dv > 512 before (32 KV rows, 128-row Q
+// tiles, 512-column passes) is gone; varlen_bwd.cu keeps its own.
 //
 // dQ (recompute tier), the mma.sync block (D or Dv > 512): a block owns BQ
 // query rows with Q and dO resident
@@ -138,273 +138,6 @@ __device__ __forceinline__ Prob score_prob(const BwdParams& p, int b, int h, int
 // x with the element's dropout applied: 0 where dropped, scaled where kept.
 __device__ __forceinline__ float dropped(const BwdParams& p, bool keep, float x) {
   return p.dropout_p > 0.f ? (keep ? x * p.dropout_inv : 0.f) : x;
-}
-
-// ---------------------------------------------------------------------------
-// dK / dV
-// ---------------------------------------------------------------------------
-
-// Dynamic shared memory of one dK/dV block; ops/config.py dkdv_smem_bytes is
-// the same formula.
-template <typename T>
-size_t dkdv_smem_bytes(int d, int dv) {
-  return ((size_t)KVT * (d + 8) + (size_t)KVT * (dv + 8) + (size_t)NST * QT * LDC +
-          2 * (size_t)KVT * LDP) * sizeof(T) + 2 * QT * sizeof(float);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NTHR, 1) dkdv_kernel(const BwdParams p) {
-  constexpr int RT = KVT / 16;  // 16-row tiles of the KV tile (2)
-  constexpr int WC = NW / RT;   // warps per row tile (8)
-  constexpr int CQ = QT / WC;   // Q columns of S^T / dP^T per warp (16: two n8 tiles)
-  constexpr int CW = CH / WC;   // dK / dV columns per chunk per warp (8: one n8 tile)
-  static_assert(CQ == 16 && CW == 8, "warp tiles");
-
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int LDK = p.D + 8, LDV = p.Dv + 8;
-  T* Ks = reinterpret_cast<T*>(smem_raw);
-  T* Vs = Ks + KVT * LDK;
-  T* ring = Vs + KVT * LDV;
-  T* Pt = ring + NST * QT * LDC;  // P (dropped) transposed: [kv][q]
-  T* dSt = Pt + KVT * LDP;        // dS (with the softcap factor) transposed
-  float* lse_s = reinterpret_cast<float*>(dSt + KVT * LDP);
-  float* delta_s = lse_s + QT;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int rt = warp / WC, wc = warp % WC;
-  const Lanes L(lane);
-  const int kvh = blockIdx.x / p.col_passes, pass = blockIdx.x % p.col_passes;
-  const int b = blockIdx.y, kv0 = blockIdx.z * KVT;
-  const int nD = p.D / CH, nV = p.Dv / CH;
-  const int d_lo = pass * nD / p.col_passes, ndo = (pass + 1) * nD / p.col_passes - d_lo;
-  const int v_lo = pass * nV / p.col_passes, nvo = (pass + 1) * nV / p.col_passes - v_lo;
-  const bool emit = p.ds != nullptr && pass == 0;
-
-  // Q tiles of the band: [i_lo, i_hi) of every group member.
-  const int nqt = (p.nq + QT - 1) / QT;
-  int i_lo = 0, i_hi = nqt;
-  if (p.window_right >= 0)
-    i_lo = max(0, floordiv(kv0 - p.causal_offset - p.window_right, QT));
-  if (p.window_left >= 0)
-    i_hi = min(nqt, floordiv(kv0 + KVT - 1 - p.causal_offset + p.window_left, QT) + 1);
-  const int ni = max(0, i_hi - i_lo);
-  const int ntiles = p.group * ni;
-
-  const T* kb = static_cast<const T*>(p.k) + ((long long)(b * p.Hkv + kvh) * p.nkv) * p.D;
-  const T* vb = static_cast<const T*>(p.v) + ((long long)(b * p.Hkv + kvh) * p.nkv) * p.Dv;
-
-  // Resident K and V: rows past Nkv are zero-filled.
-  for (int i = tid; i < KVT * (p.D / 8); i += NTHR) {
-    const int r = i / (p.D / 8), c = (i % (p.D / 8)) * 8;
-    const bool ok = kv0 + r < p.nkv;
-    cp_async16(Ks + r * LDK + c, ok ? kb + (long long)(kv0 + r) * p.D + c : kb, ok);
-  }
-  for (int i = tid; i < KVT * (p.Dv / 8); i += NTHR) {
-    const int r = i / (p.Dv / 8), c = (i % (p.Dv / 8)) * 8;
-    const bool ok = kv0 + r < p.nkv;
-    cp_async16(Vs + r * LDV + c, ok ? vb + (long long)(kv0 + r) * p.Dv + c : vb, ok);
-  }
-  cp_async_commit();
-
-  // Chunk gi of the stream: per Q tile, the nD Q chunks (S), the nV dO
-  // chunks, this block's own dV columns first (dP and dV), then this
-  // block's ndo Q chunks again (dK); 128 rows x 64 columns, rows past Nq
-  // zero-filled.
-  const int per_tile = nD + nV + ndo;
-  const int total = ntiles * per_tile;
-  auto issue = [&](int gi) {
-    if (gi < total) {
-      const int t = gi / per_tile, c = gi - t * per_tile;
-      const int h = kvh * p.group + t / ni, q0 = (i_lo + t % ni) * QT;
-      const T* src;
-      int ld, c0;
-      if (c < nD) {
-        src = static_cast<const T*>(p.q);
-        ld = p.D;
-        c0 = c;
-      } else if (c < nD + nV) {
-        const int vc = c - nD;  // own chunks first, then the others in order
-        src = static_cast<const T*>(p.dout);
-        ld = p.Dv;
-        c0 = vc < nvo ? v_lo + vc : (vc - nvo < v_lo ? vc - nvo : vc);
-      } else {
-        src = static_cast<const T*>(p.q);
-        ld = p.D;
-        c0 = d_lo + c - nD - nV;
-      }
-      src += ((long long)(b * p.Hq + h) * p.nq) * ld;
-      T* dst = ring + (gi % NST) * (QT * LDC);
-#pragma unroll
-      for (int half = 0; half < QT / 64; ++half) {  // two 16-byte vectors per thread
-        const int r = (tid >> 3) + 64 * half, cv = (tid & 7) * 8;
-        const bool ok = q0 + r < p.nq;
-        cp_async16(dst + r * LDC + cv, ok ? src + (long long)(q0 + r) * ld + c0 * CH + cv : src,
-                   ok);
-      }
-    }
-    cp_async_commit();
-  };
-  auto begin = [&](int gi) -> const T* {
-    issue(gi + NST - 1);
-    cp_async_wait<NST - 1>();
-    __syncthreads();
-    return ring + (gi % NST) * (QT * LDC);
-  };
-
-  float dk_acc[MAXC][1][4], dv_acc[MAXC][1][4];
-#pragma unroll
-  for (int c = 0; c < MAXC; ++c)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[c][0][e] = dv_acc[c][0][e] = 0.f;
-
-  const T* Krow = Ks + (rt * 16) * LDK;
-  const T* Vrow = Vs + (rt * 16) * LDV;
-  const int kv_loc = rt * 16 + g;  // + 8 for fragment elements 2, 3
-
-#pragma unroll
-  for (int gi = 0; gi < NST - 1; ++gi) issue(gi);
-  for (int t = 0; t < ntiles; ++t) {
-    const int h = kvh * p.group + t / ni, q0 = (i_lo + t % ni) * QT;
-    const int gt = t * per_tile;
-    const float slope = p.alibi != nullptr ? p.alibi[b * p.Hq + h] : 0.f;
-    __syncthreads();  // the previous tile's readers of lse_s / delta_s are done
-    if (tid < QT) {
-      const long long idx = (long long)(b * p.Hq + h) * p.nq + q0 + tid;
-      const bool ok = q0 + tid < p.nq;
-      lse_s[tid] = ok ? p.lse[idx] : 0.f;
-      delta_s[tid] = ok ? p.delta[idx] : 0.f;
-    }
-
-    // S^T = K Q^T: this warp's 16 KV rows x 16 Q columns.
-    float st[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-    for (int c = 0; c < nD; ++c) {
-      const T* ch = begin(gt + c);
-      mma_abt<T, 2>(st, Krow + c * CH, LDK, ch + (wc * CQ) * LDC, L, lane);
-      __syncthreads();  // the slot read here is refilled by a later issue
-    }
-
-    // P (dropped) to shared memory, transposed; p times the softcap factor
-    // and the keep bits stay in registers for dS.
-    float pc[2][4];
-    uint32_t kept = 0;
-#pragma unroll
-    for (int n = 0; n < 2; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kvl = kv_loc + ((e >> 1) << 3), ql = wc * CQ + n * 8 + 2 * t4 + (e & 1);
-        const Prob pr = score_prob(p, b, h, q0 + ql, kv0 + kvl, st[n][e], lse_s[ql], slope);
-        pc[n][e] = pr.p * pr.cap;
-        kept |= (uint32_t)pr.keep << (4 * n + e);
-        st[n][e] = dropped(p, pr.keep, pr.p);
-      }
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
-        *reinterpret_cast<uint32_t*>(Pt + (kv_loc + 8 * hh) * LDP + wc * CQ + n * 8 + 2 * t4) =
-            pack2<T>(st[n][2 * hh], st[n][2 * hh + 1]);
-    }
-
-    // dP^T = V dO^T over every dO chunk; dV += P^T dO over this block's own.
-    float dpt[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-    for (int vc = 0; vc < MAXC; ++vc) {
-      if (vc < nvo) {
-        const T* ch = begin(gt + nD + vc);
-        mma_abt<T, 2>(dpt, Vrow + (v_lo + vc) * CH, LDV, ch + (wc * CQ) * LDC, L, lane);
-        mma_ab<T, 1, QT / 16>(dv_acc[vc], Pt + (rt * 16) * LDP, LDP, ch + wc * CW, L);
-        __syncthreads();
-      }
-    }
-    for (int vc = nvo; vc < nV; ++vc) {
-      const T* ch = begin(gt + nD + vc);
-      const int c0 = vc - nvo < v_lo ? vc - nvo : vc;
-      mma_abt<T, 2>(dpt, Vrow + c0 * CH, LDV, ch + (wc * CQ) * LDC, L, lane);
-      __syncthreads();
-    }
-
-    // dS = P * (dP - delta), transposed into shared memory.
-#pragma unroll
-    for (int n = 0; n < 2; ++n) {
-      float dsv[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ql = wc * CQ + n * 8 + 2 * t4 + (e & 1);
-        dsv[e] = pc[n][e] * (dropped(p, (kept >> (4 * n + e)) & 1u, dpt[n][e]) - delta_s[ql]);
-      }
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
-        *reinterpret_cast<uint32_t*>(dSt + (kv_loc + 8 * hh) * LDP + wc * CQ + n * 8 + 2 * t4) =
-            pack2<T>(dsv[2 * hh], dsv[2 * hh + 1]);
-    }
-    if (emit) {
-      __syncthreads();
-      // Slab rows q0..q0+127, columns kv0..kv0+31: 8 columns per thread.
-      const int ql = tid >> 2, kv8 = (tid & 3) * 8;
-      T vals[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) vals[j] = dSt[(kv8 + j) * LDP + ql];
-      T* dst = static_cast<T*>(p.ds) +
-               ((long long)(b * p.Hq + h) * p.ds_rows + q0 + ql) * p.ds_ld + kv0 + kv8;
-      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(vals);
-    }
-
-    // dK += dS^T Q over this block's own Q chunks; this warp's dS^T rows
-    // stay in registers as A fragments across the chunks (32 registers:
-    // P, dP and the keep bits are dead by now).
-    uint32_t dsf[QT / 16][4];
-#pragma unroll
-    for (int dc = 0; dc < MAXC; ++dc) {
-      if (dc < ndo) {
-        const T* ch = begin(gt + nD + nV + dc);
-        if (dc == 0) {
-#pragma unroll
-          for (int kk = 0; kk < QT / 16; ++kk)
-            ldsm_x4(dsf[kk], dSt + (rt * 16 + L.a_row) * LDP + kk * 16 + L.a_col);
-        }
-#pragma unroll
-        for (int kk = 0; kk < QT / 16; ++kk) {
-          uint32_t bf[2];
-          ldsm_x2_trans(bf, ch + (kk * 16 + L.bt_row) * LDC + wc * CW);
-          mma16816<T>(dk_acc[dc][0], dsf[kk], bf[0], bf[1]);
-        }
-        __syncthreads();
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-  // Skipped Q tiles of the band still define their dS slab tile: zeros.
-  if (emit) {
-    const int ql = tid >> 2, kv8 = (tid & 3) * 8;
-    for (int gg = 0; gg < p.group; ++gg) {
-      const int h = kvh * p.group + gg;
-      for (int i = 0; i < nqt; ++i) {
-        if (i >= i_lo && i < i_hi) continue;
-        T* dst = static_cast<T*>(p.ds) +
-                 ((long long)(b * p.Hq + h) * p.ds_rows + i * QT + ql) * p.ds_ld + kv0 + kv8;
-        *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
-      }
-    }
-  }
-
-  // Epilogue: dK = scale * sum, dV; rows past Nkv are not stored.
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int kv = kv0 + kv_loc + 8 * hh;
-    if (kv >= p.nkv) continue;
-    const long long rk = ((long long)(b * p.Hkv + kvh) * p.nkv + kv) * p.D;
-    const long long rv = ((long long)(b * p.Hkv + kvh) * p.nkv + kv) * p.Dv;
-#pragma unroll
-    for (int c = 0; c < MAXC; ++c) {
-      const int col = wc * CW + 2 * t4;
-      if (c < ndo)
-        store2<T>(p.dk, rk + (d_lo + c) * CH + col, dk_acc[c][0][2 * hh] * p.scale,
-                  dk_acc[c][0][2 * hh + 1] * p.scale, p.out_f32);
-      if (c < nvo)
-        store2<T>(p.dv, rv + (v_lo + c) * CH + col, dv_acc[c][0][2 * hh],
-                  dv_acc[c][0][2 * hh + 1], p.out_f32);
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1149,13 +882,14 @@ cudaError_t launch(const void* ds, const void* bsrc, void* out, int out_f32, int
 }  // namespace band
 
 // ---------------------------------------------------------------------------
-// dK / dV for D, Dv <= 512: TMA + mbarrier + wgmma
+// dK / dV: TMA + mbarrier + wgmma, one block (D, Dv <= 512) or a cluster of
+// two (D or Dv in (512, 1024])
 // ---------------------------------------------------------------------------
 
-// The Hopper route of ffpa_bwd_dkdv (the reference's SM90 split-D dK/dV
-// block). A block owns 64 KV rows of one KV head and one column pass: at
-// most 256 columns of dK and of dV, whose fp32 tiles (64 x 256 each) take
-// 128 registers of each thread of a consumer warpgroup. K and V (64 x D,
+// ffpa_bwd_dkdv's kernel (the reference's SM90 split-D dK/dV block). A
+// block owns 64 KV rows of one KV head and one column pass: at most 256
+// columns of dK and of dV, whose fp32 tiles (64 x 256 each) take 128
+// registers of each thread of a consumer warpgroup. K and V (64 x D,
 // 64 x Dv) are loaded by TMA once and stay resident in 128 B-swizzled
 // boxes; warpgroup 0 is the producer (one thread streams the group's Q and
 // dO tiles, 64 rows x 64 columns a box, through a ring of two-box stages:
@@ -1184,6 +918,39 @@ cudaError_t launch(const void* ds, const void* bsrc, void* out, int out_f32, int
 // while a 2-CTA cluster multicasting the S^T / dP^T boxes to both passes,
 // or holding the pass's boxes in the ring instead of loading them again,
 // did not help (times in PERF.md).
+//
+// D, Dv <= 512 (SPLIT false): one block holds all of D and Dv, 6 stages at
+// most (5 at D512).
+//
+// Wider heads (SPLIT true, D or Dv in (512, 1024]): K and V of 64 rows at
+// D1024 (256 KB) fit no block, so a cluster of two blocks (grid x = 2 x KV
+// tiles x passes, the pair adjacent in x: the same block order) owns the
+// 64 KV rows and one pass and splits both head dims: rank r holds the K
+// boxes of its half of D and the V boxes of its half of Dv, resident (rank
+// 0 the larger half; sm90.cuh col_block), and per Q tile streams only its
+// own Q and dO boxes, so every byte of Q, K, V and dO is read once per
+// cluster, as one D512 block reads it. Consumer c of each rank computes a
+// partial S^T over its rank's D boxes and a partial dP^T over its Dv boxes
+// (64 x 32 fp32, 8 KB each), stores both into the shared memory of the
+// partner's consumer c (st.async, completing their bytes on the partner's
+// barrier; S^T as soon as its products complete, so its bytes travel
+// under the dP^T products) and adds the partner's partials to its own. fp32 addition of
+// two values is commutative, so both ranks hold bit-identical S^T and
+// dP^T, and so the same P, dS and dropout mask, with no further exchange.
+// Each rank then runs dK += dS^T Q over the pass's share of its D boxes
+// and dV += P^T dO over its share of its Dv boxes (passes of at most 256
+// columns of a rank's half, each recomputing the partials: 2 at D1024) and
+// stores its own columns; rank 0's pass 0 writes the slab. The exchange
+// has one slot (the arithmetic is beside make_plan), so a rank stores tile
+// t's partials only after the partner has read tile t - 1's: each thread
+// that read its share of the slot arrives on the partner's "free" barrier
+// (a remote arrive, release at cluster scope), which the storing consumer
+// waits on with acquire. Both ranks walk the same Q tiles (the band
+// depends on KV rows alone). A rank may hold no D box (D64 / Dv1024) or no
+// Dv box (D1024 / Dv64): it sends zero partials of that product and owns
+// no columns of that gradient. The cluster barrier at the start publishes
+// the barriers' initialisation, the one at the end keeps a block alive
+// while its partner may still store or arrive into it.
 namespace dkdv {
 
 using namespace ffpa::sm90;
@@ -1191,7 +958,8 @@ using namespace ffpa::sm90;
 constexpr int ROWS = 64;                     // KV rows of a block
 constexpr int QROWS = 64;                    // Q rows of a streamed tile
 constexpr int COLS = 64;                     // columns of a box (128 B of 16-bit)
-constexpr int MAX_BOXES = 8;                 // D, Dv <= 512 on this route
+constexpr int MAX_BOXES = 8;                 // D, Dv boxes of a block: D512, a rank's half of D1024
+constexpr int MAX_HEAD_DIM = 2 * MAX_BOXES * COLS;  // D, Dv of either route
 constexpr int PASS_BOXES = 4;                // dK / dV columns of a pass: 256
 constexpr int STAGE_BOXES = 2;               // boxes a stage (one barrier handshake)
 static_assert(STAGE_BOXES == 2, "the consumers' stage loops take pairs of boxes");
@@ -1199,39 +967,66 @@ constexpr int STAGE_BYTES = STAGE_BOXES * BOX_BYTES;
 constexpr int MAX_STAGES = 6;
 constexpr int THREADS = 384;                 // producer warpgroup + 2 consumer warpgroups
 constexpr int CONSUMER_WARPS = 8;            // arrivals that free a stage
+constexpr int CONSUMER_THREADS = 128;        // arrivals that free a consumer's exchange slot
+constexpr int PART_BYTES = ROWS * 32 * 4;    // one consumer's partial S^T or dP^T (64 x 32 fp32)
+constexpr int PART_BUF_BYTES = 2 * 2 * PART_BYTES;  // both consumers' S^T and dP^T: one slot
+constexpr int PART_BARRIERS = 4;             // landed and free, per consumer
 constexpr int SMEM_LIMIT = 232448;
-constexpr int WGMMA = 1, MMA_SYNC = 0;       // routes
+constexpr int WGMMA = 1, CLUSTER = 2;        // routes
 
-// The route and tiling of a launch at head dims (D, Dv), multiples of 64:
-// D, Dv <= 512 take this kernel, with ceil(max(D, Dv) / 256) passes whose
-// column blocks split the 64-column boxes of D and of Dv as evenly as
-// possible (sm90.cuh col_block), and as many ring stages as shared memory
-// holds after K, V and the two exchange boxes. Wider heads take the
-// mma.sync dkdv_kernel. ffpa_bwd_dkdv_plan hands it out; ops/config.py
+// A block's share of the head dims: its first D box and D boxes, its first
+// Dv box and Dv boxes. Alone a block holds everything; split, rank r holds
+// half of each, rank 0 the larger half.
+struct Part {
+  int d0, nd, v0, nv;
+};
+__host__ __device__ inline Part part_of(int nd, int nv, bool split, int rank) {
+  if (!split) return {0, nd, 0, nv};
+  const Cols d = col_block(nd, 2, rank), v = col_block(nv, 2, rank);
+  return {d.c0 / COLS, d.nc, v.c0 / COLS, v.nc};
+}
+
+// Shared memory of a block laid out for nd K boxes and nv V boxes, apart
+// from the ring: K, V, the P and dS boxes, the 1024 B alignment, the K/V
+// barrier and, split, the exchange's slot and its barriers. A ring stage is
+// STAGE_BOXES boxes and its two barriers.
+inline size_t fixed_bytes(int nd, int nv, bool split) {
+  return (size_t)(nd + nv + 2) * BOX_BYTES + 1024 + sizeof(uint64_t) +
+         (split ? (size_t)PART_BUF_BYTES + PART_BARRIERS * sizeof(uint64_t) : 0);
+}
+constexpr size_t STAGE_SMEM = STAGE_BYTES + 2 * sizeof(uint64_t);
+
+// The route and tiling of a launch at head dims (D, Dv), multiples of 64
+// up to 1024: D, Dv <= 512 take one block, wider heads the cluster; ceil(
+// (a block's boxes of D or of Dv) / 4) passes whose column blocks split a
+// block's D boxes and its Dv boxes as evenly as possible (sm90.cuh
+// col_block), and as many ring stages (at most 6) as shared memory holds
+// beside the rest. Both ranks of a cluster lay out rank 0's share. At D =
+// Dv = 1024 a rank's K and V take 16 boxes (128 KB), the P and dS boxes 16
+// KB and the exchange's slot 32 KB (2 consumers x (S^T + dP^T) x 8 KB):
+// with the alignment and the barriers 181,288 B, and 3 stages of 16,400 B
+// make 230,488 of the 232,448 a block may ask for. A second slot (as the
+// forward's double buffer) would leave room for 1 stage: one slot, and the
+// "free" barriers. ffpa_bwd_dkdv_plan hands the plan out; ops/config.py
 // dkdv_plan mirrors it and the card test holds the two equal.
 struct Plan {
-  int route, passes, nd, nv, stages;
+  int route, passes, stages;
+  Part part[2];  // each rank's share (the lone block's is part[0])
   size_t smem;
 };
 inline Plan make_plan(int D, int Dv) {
+  const int nd = D / COLS, nv = Dv / COLS;
+  const bool split = nd > MAX_BOXES || nv > MAX_BOXES;
   Plan pl;
-  pl.nd = D / COLS;
-  pl.nv = Dv / COLS;
-  if (pl.nd <= MAX_BOXES && pl.nv <= MAX_BOXES) {
-    pl.route = WGMMA;
-    pl.passes = std::max((pl.nd + PASS_BOXES - 1) / PASS_BOXES, (pl.nv + PASS_BOXES - 1) / PASS_BOXES);
-    // K, V, the P and dS boxes, the 1024 B alignment and the K/V barrier;
-    // a stage is STAGE_BOXES boxes and its two barriers.
-    const size_t fixed = (size_t)(pl.nd + pl.nv + 2) * BOX_BYTES + 1024 + sizeof(uint64_t);
-    const size_t stage = STAGE_BYTES + 2 * sizeof(uint64_t);
-    pl.stages = (int)std::min((size_t)MAX_STAGES, (SMEM_LIMIT - fixed) / stage);
-    pl.smem = fixed + pl.stages * stage;
-  } else {
-    pl.route = MMA_SYNC;
-    pl.passes = std::max((D + MAXC * CH - 1) / (MAXC * CH), (Dv + MAXC * CH - 1) / (MAXC * CH));
-    pl.stages = NST;
-    pl.smem = dkdv_smem_bytes<__nv_bfloat16>(D, Dv);
-  }
+  pl.route = split ? CLUSTER : WGMMA;
+  pl.part[0] = part_of(nd, nv, split, 0);
+  pl.part[1] = part_of(nd, nv, split, 1);
+  const Part& lay = pl.part[0];
+  pl.passes = std::max((lay.nd + PASS_BOXES - 1) / PASS_BOXES,
+                       (lay.nv + PASS_BOXES - 1) / PASS_BOXES);
+  const size_t fixed = fixed_bytes(lay.nd, lay.nv, split);
+  pl.stages = (int)std::min((size_t)MAX_STAGES, (SMEM_LIMIT - fixed) / STAGE_SMEM);
+  pl.smem = fixed + pl.stages * STAGE_SMEM;
   return pl;
 }
 
@@ -1243,23 +1038,90 @@ struct Maps {
   CUtensorMap k_map, v_map;   // (D | Dv, nkv, B * Hkv); box 64 x 64
 };
 
+// Shared memory of a block, from a 1024 B boundary: the K boxes, the V
+// boxes, the P and dS boxes, the ring's stages, the exchange's slot
+// (split), the stages' full / empty barriers, K/V's barrier and the
+// exchange's barriers (split). Both ranks of a cluster lay it out alike
+// (for rank 0's share), so an offset here is the same offset in the
+// partner.
+struct Smem {
+  unsigned char* k;
+  unsigned char* v;
+  unsigned char* p;     // P^T (dropped), swizzled [kv][q]
+  unsigned char* ds;    // dS^T (softcap's factor included), swizzled [kv][q]
+  unsigned char* ring;
+  unsigned char* part;  // [2][2][PART_BYTES]: consumer c's partial S^T, dP^T from the partner
+  uint64_t* full;
+  uint64_t* empty;
+  uint64_t* kv_full;
+  uint64_t* part_full;  // [2]: the partner's partials for consumer c have landed
+  uint64_t* part_free;  // [2]: the partner's consumer c has read the partials sent to it
+};
+template <bool SPLIT>
+__device__ __forceinline__ Smem carve(unsigned char* base, int nd, int nv, int stages) {
+  Smem sm;
+  sm.k = base;
+  sm.v = base + nd * BOX_BYTES;
+  sm.p = base + (nd + nv) * BOX_BYTES;
+  sm.ds = sm.p + BOX_BYTES;
+  sm.ring = sm.ds + BOX_BYTES;
+  sm.part = sm.ring + stages * STAGE_BYTES;
+  sm.full = reinterpret_cast<uint64_t*>(sm.part + (SPLIT ? PART_BUF_BYTES : 0));
+  sm.empty = sm.full + stages;
+  sm.kv_full = sm.empty + stages;
+  sm.part_full = sm.kv_full + 1;
+  sm.part_free = sm.part_full + 2;
+  return sm;
+}
+
+// The producer's thread: the block's K and V boxes once, then per Q tile
+// four runs of boxes: its nd Q boxes, its nv dO boxes, the pass's dO boxes,
+// the pass's Q boxes; a stage takes up to STAGE_BOXES boxes of one run.
+__device__ __forceinline__ void produce(const Maps& maps, const BwdParams& p, const Smem& sm,
+                                        int stages, const Part& pt, sm90::Cols dc,
+                                        sm90::Cols vc, int ntiles, int ni, int i_lo, int kvh,
+                                        int b, int kv0) {
+  prefetch_map(&maps.q_map);
+  prefetch_map(&maps.do_map);
+  prefetch_map(&maps.k_map);
+  prefetch_map(&maps.v_map);
+  const int bkv = b * p.Hkv + kvh;
+  mbar_arrive_expect_tx(sm.kv_full, (pt.nd + pt.nv) * BOX_BYTES);
+  for (int j = 0; j < pt.nd; ++j)
+    tma_load_3d(sm.k + j * BOX_BYTES, &maps.k_map, sm.kv_full, (pt.d0 + j) * COLS, kv0, bkv);
+  for (int j = 0; j < pt.nv; ++j)
+    tma_load_3d(sm.v + j * BOX_BYTES, &maps.v_map, sm.kv_full, (pt.v0 + j) * COLS, kv0, bkv);
+  int it = 0;
+  auto run = [&](const CUtensorMap* map, int first, int n, int q0, int bh) {
+    for (int c = 0; c < n; c += STAGE_BOXES, ++it) {
+      const int st = it % stages, nb = min(STAGE_BOXES, n - c);
+      if (it >= stages) mbar_wait(&sm.empty[st], ((it / stages) - 1) & 1);
+      mbar_arrive_expect_tx(&sm.full[st], nb * BOX_BYTES);
+      for (int g = 0; g < nb; ++g)
+        tma_load_3d(sm.ring + st * STAGE_BYTES + g * BOX_BYTES, map, &sm.full[st],
+                    (first + c + g) * COLS, q0, bh);
+    }
+  };
+  for (int t = 0; t < ntiles; ++t) {
+    const int h = kvh * p.group + t / ni, q0 = (i_lo + t % ni) * QROWS;
+    const int bh = b * p.Hq + h;
+    run(&maps.q_map, pt.d0, pt.nd, q0, bh);
+    run(&maps.do_map, pt.v0, pt.nv, q0, bh);
+    run(&maps.do_map, vc.c0 / COLS, vc.nc, q0, bh);
+    run(&maps.q_map, dc.c0 / COLS, dc.nc, q0, bh);
+  }
+}
+
 // Consumer CW (0: dK, 1: dV) of a block; CW is a template argument so
 // that no branch around a wgmma depends on the thread (ptxas serializes
-// wgmma on a path it cannot prove uniform).
-template <typename T, int CW>
-__device__ __forceinline__ void consume(const BwdParams& p, int stages, unsigned char* smem,
+// wgmma on a path it cannot prove uniform). dc and vc are the pass's dK and
+// dV columns (absolute).
+template <typename T, int CW, bool SPLIT>
+__device__ __forceinline__ void consume(const BwdParams& p, int stages, const Smem& sm,
                                         int ntiles, int ni, int i_lo, int kvh, int b, int kv0,
-                                        sm90::Cols dc, sm90::Cols vc, bool emit) {
-  const int nd = p.D / COLS, nv = p.Dv / COLS;
-  const unsigned char* Ks = smem;
-  const unsigned char* Vs = Ks + nd * BOX_BYTES;
-  unsigned char* sP = smem + (nd + nv) * BOX_BYTES;
-  unsigned char* sdS = sP + BOX_BYTES;
-  unsigned char* ring = sdS + BOX_BYTES;
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * STAGE_BYTES);
-  uint64_t* empty = full + stages;
-  uint64_t* kv_full = empty + stages;
-
+                                        const Part& pt, sm90::Cols dc, sm90::Cols vc, bool emit,
+                                        int rank) {
+  const int nd = pt.nd, nv = pt.nv;
   constexpr int cw = CW;  // 0: dK, Q columns 0..31; 1: dV, 32..63
   const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
@@ -1277,7 +1139,7 @@ __device__ __forceinline__ void consume(const BwdParams& p, int stages, unsigned
   // run. done_with frees the stage before once this one's products are
   // issued and the older ones completed (one group stays in flight).
   int it = 0, held = -1;
-  auto release = [&](int st, bool pred) { mbar_arrive_if(&empty[st], pred && lane == 0); };
+  auto release = [&](int st, bool pred) { mbar_arrive_if(&sm.empty[st], pred && lane == 0); };
   auto done_with = [&](int st) {
     wgmma_commit();
     wgmma_wait<1>();
@@ -1290,7 +1152,7 @@ __device__ __forceinline__ void consume(const BwdParams& p, int stages, unsigned
     held = -1;
   };
 
-  mbar_wait(kv_full, 0);
+  mbar_wait(sm.kv_full, 0);
   for (int t = 0; t < ntiles; ++t) {
     const int h = kvh * p.group + t / ni, q0 = (i_lo + t % ni) * QROWS;
     const long long bh = (long long)b * p.Hq + h;
@@ -1314,8 +1176,8 @@ __device__ __forceinline__ void consume(const BwdParams& p, int stages, unsigned
       int c = 0;
       for (; c + 2 <= n; c += 2, ++it) {
         const int st = it % stages;
-        const unsigned char* sb = ring + st * STAGE_BYTES + cw * 4096;
-        mbar_wait(&full[st], (it / stages) & 1);
+        const unsigned char* sb = sm.ring + st * STAGE_BYTES + cw * 4096;
+        mbar_wait(&sm.full[st], (it / stages) & 1);
         wgmma_fence();
         box_mma<T, 32, 0>(a, res + c * BOX_BYTES, sb, c == 0);
         box_mma<T, 32, 0>(a, res + (c + 1) * BOX_BYTES, sb + BOX_BYTES);
@@ -1323,18 +1185,64 @@ __device__ __forceinline__ void consume(const BwdParams& p, int stages, unsigned
       }
       if (c < n) {
         const int st = it % stages;
-        mbar_wait(&full[st], (it / stages) & 1);
+        mbar_wait(&sm.full[st], (it / stages) & 1);
         wgmma_fence();
-        box_mma<T, 32, 0>(a, res + c * BOX_BYTES, ring + st * STAGE_BYTES + cw * 4096, c == 0);
+        box_mma<T, 32, 0>(a, res + c * BOX_BYTES, sm.ring + st * STAGE_BYTES + cw * 4096,
+                          c == 0);
         done_with(st);
         ++it;
       }
     };
-    stream(s, Ks, nd);
-    stream(dp, Vs, nv);
+    // Split: S^T and dP^T = this rank's partials + the partner's, the same
+    // bits in both. Element 4 i + e of thread tid sits at (i * 128 + tid) *
+    // 16 + 4 e bytes of its consumer's S^T slot, and as far into the dP^T
+    // slot PART_BYTES on; a thread reads back what the partner's thread tid
+    // stored. A rank without D (Dv) boxes sends zeros for S^T (dP^T). S^T
+    // goes out before the dP^T products, so its bytes travel under them
+    // (1-2 % at D640 and D1024 against sending it beside dP^T).
+    const uint32_t partner = rank ^ 1;
+    const uint32_t mine = cvta_smem(sm.part) + CW * 2 * PART_BYTES + tid * 16;
+    auto send = [&](float(&a)[16], int n, uint32_t off) {
+      const uint32_t there = mapa(mine + off, partner);
+      const uint32_t there_bar = mapa(cvta_smem(&sm.part_full[CW]), partner);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) a[i] = n > 0 ? a[i] : 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) st_async_v4(there + i * 2048, a + 4 * i, there_bar);
+    };
+    stream(s, sm.k, nd);
+    if constexpr (SPLIT) {
+      drain();
+      fence_operands(s);
+      // The partner has read tile t - 1's partials (at t = 0 the wait for
+      // parity 1 of a fresh barrier returns at once).
+      mbar_wait_cluster(&sm.part_free[CW], (t + 1) & 1);
+      send(s, nd, 0);
+    }
+    stream(dp, sm.v, nv);
     drain();
     fence_operands(s);
     fence_operands(dp);
+
+    if constexpr (SPLIT) {
+      send(dp, nv, PART_BYTES);
+      mbar_arrive_expect_tx_if(&sm.part_full[CW], 2 * PART_BYTES, tid == 0);
+      mbar_wait_cluster(&sm.part_full[CW], t & 1);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float x[4], y[4];
+        lds_v4(mine + i * 2048, x);
+        lds_v4(mine + PART_BYTES + i * 2048, y);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[4 * i + e] += x[e];
+          dp[4 * i + e] += y[e];
+        }
+      }
+      mbar_arrive_cluster(mapa(cvta_smem(&sm.part_free[CW]), partner));
+      fence_operands(s);
+      fence_operands(dp);
+    }
 
     // P (dropped) and dS at the accumulator's (kv, q) coordinates: element
     // 4 jj + 2 hh + e is KV row 16 warp + g + 8 hh, Q column 32 cw + 8 jj +
@@ -1391,8 +1299,8 @@ __device__ __forceinline__ void consume(const BwdParams& p, int stages, unsigned
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         const uint32_t off = swz(16 * warp + g + 8 * hh, 32 * cw + 8 * jj + 2 * t4);
-        *reinterpret_cast<uint32_t*>(sP + off) = pw[2 * jj + hh];
-        *reinterpret_cast<uint32_t*>(sdS + off) = dw[2 * jj + hh];
+        *reinterpret_cast<uint32_t*>(sm.p + off) = pw[2 * jj + hh];
+        *reinterpret_cast<uint32_t*>(sm.ds + off) = dw[2 * jj + hh];
       }
     fence_proxy_async();
     named_barrier_sync(1, 2 * 128);
@@ -1406,7 +1314,7 @@ __device__ __forceinline__ void consume(const BwdParams& p, int stages, unsigned
         T vals[8];
 #pragma unroll
         for (int e = 0; e < 8; ++e)
-          vals[e] = *reinterpret_cast<const T*>(sdS + swz(kb + 8 * half + e, ql));
+          vals[e] = *reinterpret_cast<const T*>(sm.ds + swz(kb + 8 * half + e, ql));
         *reinterpret_cast<uint4*>(dst + 8 * half) = *reinterpret_cast<const uint4*>(vals);
       }
     }
@@ -1418,30 +1326,30 @@ __device__ __forceinline__ void consume(const BwdParams& p, int stages, unsigned
     auto skip = [&](int n) {  // the stages of n boxes
       for (int c = 0; c < n; c += STAGE_BOXES, ++it) {
         const int st = it % stages;
-        mbar_wait(&full[st], (it / stages) & 1);
+        mbar_wait(&sm.full[st], (it / stages) & 1);
         release(st, true);
       }
     };
     if constexpr (CW == 0) skip(vc.nc);
-    const unsigned char* a_box = CW == 0 ? sdS : sP;
+    const unsigned char* a_box = CW == 0 ? sm.ds : sm.p;
 #pragma unroll
     for (int jj = 0; jj < PASS_BOXES; jj += 2) {
       if (jj + 2 <= own) {
         const int st = it % stages;
-        mbar_wait(&full[st], (it / stages) & 1);
+        mbar_wait(&sm.full[st], (it / stages) & 1);
         wgmma_fence();
         box_mma<T, 64, 1>(*reinterpret_cast<float(*)[32]>(acc + 32 * jj), a_box,
-                          ring + st * STAGE_BYTES);
+                          sm.ring + st * STAGE_BYTES);
         box_mma<T, 64, 1>(*reinterpret_cast<float(*)[32]>(acc + 32 * (jj + 1)), a_box,
-                          ring + st * STAGE_BYTES + BOX_BYTES);
+                          sm.ring + st * STAGE_BYTES + BOX_BYTES);
         done_with(st);
         ++it;
       } else if (jj < own) {
         const int st = it % stages;
-        mbar_wait(&full[st], (it / stages) & 1);
+        mbar_wait(&sm.full[st], (it / stages) & 1);
         wgmma_fence();
         box_mma<T, 64, 1>(*reinterpret_cast<float(*)[32]>(acc + 32 * jj), a_box,
-                          ring + st * STAGE_BYTES);
+                          sm.ring + st * STAGE_BYTES);
         done_with(st);
         ++it;
       }
@@ -1492,26 +1400,37 @@ __device__ __forceinline__ void consume(const BwdParams& p, int stages, unsigned
   }
 }
 
-template <typename T>
+template <typename T, bool SPLIT>
 __global__ void __launch_bounds__(THREADS, 1) kernel(const __grid_constant__ Maps maps,
                                                      const BwdParams p, const int stages) {
   extern __shared__ unsigned char smem_raw[];
-  // Boxes on 1024 B boundaries: the 128 B swizzle's atom.
-  unsigned char* smem = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  // Boxes on 1024 B boundaries: the 128 B swizzle's atom. On the cluster
+  // route the offset is added to the shared array itself, so every pointer
+  // into it stays a 32-bit shared one (the forward's cluster spilled a
+  // 64-bit generic one beside its accumulators).
+  unsigned char* base;
+  if constexpr (SPLIT)
+    base = smem_raw + ((1024 - (cvta_smem(smem_raw) & 1023)) & 1023);
+  else
+    base = reinterpret_cast<unsigned char*>(
+        (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const int rank = SPLIT ? (int)cluster_rank() : 0;
   const int nd = p.D / COLS, nv = p.Dv / COLS, passes = p.col_passes;
-  unsigned char* ring = smem + (nd + nv + 2) * BOX_BYTES;
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * STAGE_BYTES);
-  uint64_t* empty = full + stages;
-  uint64_t* kv_full = empty + stages;
+  const Part pt = part_of(nd, nv, SPLIT, rank);
+  const Part lay = part_of(nd, nv, SPLIT, 0);  // both ranks alike
+  const Smem sm = carve<SPLIT>(base, lay.nd, lay.nv, stages);
 
   // Block order: the passes of a KV tile side by side (they read the same
-  // Q and dO tiles), the KV tiles of a head longest first (under causal the
-  // first tiles walk the most Q tiles), then the heads.
-  const int pass = blockIdx.x % passes, kv0 = (blockIdx.x / passes) * ROWS;
+  // Q and dO tiles; on the cluster route each pass's two ranks adjacent),
+  // the KV tiles of a head longest first (under causal the first tiles walk
+  // the most Q tiles), then the heads.
+  const int blk = SPLIT ? (int)(blockIdx.x >> 1) : (int)blockIdx.x;
+  const int pass = blk % passes, kv0 = (blk / passes) * ROWS;
   const int kvh = blockIdx.y, b = blockIdx.z;
-  const sm90::Cols dc = sm90::col_block(nd, passes, pass);
-  const sm90::Cols vc = sm90::col_block(nv, passes, pass);
+  sm90::Cols dc = sm90::col_block(pt.nd, passes, pass);
+  sm90::Cols vc = sm90::col_block(pt.nv, passes, pass);
+  dc.c0 += pt.d0 * COLS;
+  vc.c0 += pt.v0 * COLS;
 
   // Q tiles of the band: [i_lo, i_lo + ni) of every group member.
   const int nqt = (p.nq + QROWS - 1) / QROWS;
@@ -1525,64 +1444,42 @@ __global__ void __launch_bounds__(THREADS, 1) kernel(const __grid_constant__ Map
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], CONSUMER_WARPS);
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], CONSUMER_WARPS);
     }
-    mbar_init(kv_full, 1);
+    mbar_init(sm.kv_full, 1);
+    if constexpr (SPLIT)
+      for (int c = 0; c < 2; ++c) {
+        mbar_init(&sm.part_full[c], 1);
+        mbar_init(&sm.part_free[c], CONSUMER_THREADS);
+      }
     fence_barrier_init();
   }
-  __syncthreads();
+  // The partner's barriers are initialised before this block's first
+  // store into its shared memory.
+  if constexpr (SPLIT)
+    cluster_sync();
+  else
+    __syncthreads();
 
   if (threadIdx.x < 128) {
     setmaxnreg_dec<40>();
-    if (threadIdx.x == 0) {
-      prefetch_map(&maps.q_map);
-      prefetch_map(&maps.do_map);
-      prefetch_map(&maps.k_map);
-      prefetch_map(&maps.v_map);
-      const int bkv = b * p.Hkv + kvh;
-      mbar_arrive_expect_tx(kv_full, (nd + nv) * BOX_BYTES);
-      for (int j = 0; j < nd; ++j)
-        tma_load_3d(smem + j * BOX_BYTES, &maps.k_map, kv_full, j * COLS, kv0, bkv);
-      for (int j = 0; j < nv; ++j)
-        tma_load_3d(smem + (nd + j) * BOX_BYTES, &maps.v_map, kv_full, j * COLS, kv0, bkv);
-      // Per Q tile four runs of boxes: the nd Q boxes, the nv dO boxes,
-      // the pass's dO boxes, its Q boxes; a stage takes up to STAGE_BOXES
-      // boxes of one run.
-      int it = 0;
-      auto run = [&](const CUtensorMap* map, int first, int n, int q0, int bh) {
-        for (int c = 0; c < n; c += STAGE_BOXES, ++it) {
-          const int st = it % stages, nb = min(STAGE_BOXES, n - c);
-          if (it >= stages) mbar_wait(&empty[st], ((it / stages) - 1) & 1);
-          mbar_arrive_expect_tx(&full[st], nb * BOX_BYTES);
-          for (int g = 0; g < nb; ++g)
-            tma_load_3d(ring + st * STAGE_BYTES + g * BOX_BYTES, map, &full[st],
-                        (first + c + g) * COLS, q0, bh);
-        }
-      };
-      for (int t = 0; t < ntiles; ++t) {
-        const int h = kvh * p.group + t / ni, q0 = (i_lo + t % ni) * QROWS;
-        const int bh = b * p.Hq + h;
-        run(&maps.q_map, 0, nd, q0, bh);
-        run(&maps.do_map, 0, nv, q0, bh);
-        run(&maps.do_map, vc.c0 / COLS, vc.nc, q0, bh);
-        run(&maps.q_map, dc.c0 / COLS, dc.nc, q0, bh);
-      }
-    }
+    if (threadIdx.x == 0) produce(maps, p, sm, stages, pt, dc, vc, ntiles, ni, i_lo, kvh, b, kv0);
   } else {
     setmaxnreg_inc<232>();
-    const bool emit = p.ds != nullptr && pass == 0;
+    const bool emit = p.ds != nullptr && pass == 0 && rank == 0;
     if (threadIdx.x < 256)
-      consume<T, 0>(p, stages, smem, ntiles, ni, i_lo, kvh, b, kv0, dc, vc, emit);
+      consume<T, 0, SPLIT>(p, stages, sm, ntiles, ni, i_lo, kvh, b, kv0, pt, dc, vc, emit, rank);
     else
-      consume<T, 1>(p, stages, smem, ntiles, ni, i_lo, kvh, b, kv0, dc, vc, emit);
+      consume<T, 1, SPLIT>(p, stages, sm, ntiles, ni, i_lo, kvh, b, kv0, pt, dc, vc, emit, rank);
   }
+  if constexpr (SPLIT) cluster_sync();  // the partner may still store or arrive into this block
 }
 
 // The host side of one launch: tensor maps, shared memory, the grid (KV
 // tiles over the slab's columns when it is written, so each of its
-// columns is).
-template <typename T>
+// columns is; for the split, the cluster of two along x).
+template <typename T, bool SPLIT>
 cudaError_t launch(const BwdParams& bp, const Plan& pl, int B, cudaStream_t stream) {
   const bool f16 = std::is_same<T, __half>::value;
   Maps maps;
@@ -1603,12 +1500,24 @@ cudaError_t launch(const BwdParams& bp, const Plan& pl, int B, cudaStream_t stre
                   (uint64_t)bp.Dv * 2, mkv * bp.Dv * 2, COLS, ROWS);
   if (e != cudaSuccess) return e;
   const int kv_tiles = bp.ds != nullptr ? bp.ds_ld / ROWS : (bp.nkv + ROWS - 1) / ROWS;
-  const dim3 grid(kv_tiles * pl.passes, bp.Hkv, B);
-  e = cudaFuncSetAttribute(kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
+  const dim3 grid((SPLIT ? 2 : 1) * kv_tiles * pl.passes, bp.Hkv, B);
+  auto kern = kernel<T, SPLIT>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
   if (e != cudaSuccess) return e;
   if (grid.x * grid.y * grid.z == 0) return cudaSuccess;
-  kernel<T><<<grid, THREADS, pl.smem, stream>>>(maps, p, pl.stages);
-  return cudaGetLastError();
+  if constexpr (SPLIT) {
+    return launch_cluster(kern, grid, THREADS, pl.smem, stream, 2, maps, p, pl.stages);
+  } else {
+    kern<<<grid, THREADS, pl.smem, stream>>>(maps, p, pl.stages);
+    return cudaGetLastError();
+  }
+}
+
+template <bool SPLIT>
+cudaError_t launch_typed(bool f16, const BwdParams& p, const Plan& pl, int B,
+                         cudaStream_t stream) {
+  return f16 ? launch<__half, SPLIT>(p, pl, B, stream)
+             : launch<__nv_bfloat16, SPLIT>(p, pl, B, stream);
 }
 
 }  // namespace dkdv
@@ -2667,18 +2576,18 @@ BwdParams make_params(const void* q, const void* k, const void* v, const void* d
 }  // namespace
 
 // dK / dV (and the dS slab): the route is dkdv::make_plan's, by head dims
-// alone. The wgmma route picks its own passes (col_passes is not read) and
-// takes a slab of 64-row, 64-column tiles; the mma.sync route takes
-// col_passes and a slab of 128 x 32 tiles.
+// alone (one block at D, Dv <= 512, the cluster of two up to 1024). The
+// launcher picks its own passes and takes a slab of 64-row, 64-column
+// tiles.
 extern "C" int ffpa_bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
                              const float* lse, const float* delta, void* dk, void* dv, void* ds,
                              const float* bias, long long sb, long long sh, long long sr,
                              long long sc, const float* alibi, int is_fp16, int out_f32, int B,
-                             int Hq, int Hkv, int nq, int nkv, int D, int Dv, int col_passes,
-                             int ds_rows, int ds_ld, float scale, float softcap,
-                             int causal_offset, int window_left, int window_right,
-                             float dropout_p, float dropout_inv, unsigned seed, int row_offset,
-                             int col_offset, void* stream) {
+                             int Hq, int Hkv, int nq, int nkv, int D, int Dv, int ds_rows,
+                             int ds_ld, float scale, float softcap, int causal_offset,
+                             int window_left, int window_right, float dropout_p,
+                             float dropout_inv, unsigned seed, int row_offset, int col_offset,
+                             void* stream) {
   BwdParams p = make_params(q, k, v, dout, lse, delta, bias, sb, sh, sr, sc, alibi, Hq, Hkv, nq,
                             nkv, D, Dv, scale, softcap, causal_offset, window_left, window_right,
                             dropout_p, dropout_inv, seed, row_offset, col_offset);
@@ -2687,82 +2596,77 @@ extern "C" int ffpa_bwd_dkdv(const void* q, const void* k, const void* v, const 
   p.ds = ds;
   p.ds_rows = ds_rows;
   p.ds_ld = ds_ld;
-  p.col_passes = col_passes;
   p.out_f32 = out_f32;
-  if (D <= 0 || Dv <= 0 || D % CH != 0 || Dv % CH != 0 || Hkv <= 0 || Hq % Hkv != 0 ||
-      (ds != nullptr && ds_ld < nkv))
+  if (D <= 0 || Dv <= 0 || D % CH != 0 || Dv % CH != 0 || D > dkdv::MAX_HEAD_DIM ||
+      Dv > dkdv::MAX_HEAD_DIM || Hkv <= 0 || Hq % Hkv != 0 ||
+      (ds != nullptr &&
+       (ds_ld < nkv || ds_ld % dkdv::ROWS != 0 || ds_rows % dkdv::QROWS != 0 ||
+        ds_rows < (nq + dkdv::QROWS - 1) / dkdv::QROWS * dkdv::QROWS)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dkdv::Plan pl = dkdv::make_plan(D, Dv);
-  if (pl.route == dkdv::WGMMA) {
-    if (ds != nullptr && (ds_ld % dkdv::ROWS != 0 || ds_rows % dkdv::QROWS != 0 ||
-                          ds_rows < (nq + dkdv::QROWS - 1) / dkdv::QROWS * dkdv::QROWS))
-      return (int)cudaErrorInvalidValue;
-    return (int)(is_fp16 ? dkdv::launch<__half>(p, pl, B, st)
-                         : dkdv::launch<__nv_bfloat16>(p, pl, B, st));
-  }
-  // Every pass owns at most MAXC chunks of dK and of dV; the slab's tiles
-  // are QT x KVT.
-  if (col_passes < 1 || (D / CH + col_passes - 1) / col_passes > MAXC ||
-      (Dv / CH + col_passes - 1) / col_passes > MAXC ||
-      (ds != nullptr && (ds_ld % KVT != 0 || ds_rows % QT != 0)))
-    return (int)cudaErrorInvalidValue;
-  const int kv_tiles = ds != nullptr ? ds_ld / KVT : (nkv + KVT - 1) / KVT;
-  const dim3 grid(Hkv * col_passes, B, kv_tiles);
-  if (is_fp16)
-    return (int)launch(dkdv_kernel<__half>, grid, dkdv_smem_bytes<__half>(D, Dv), p, st);
-  return (int)launch(dkdv_kernel<__nv_bfloat16>, grid, dkdv_smem_bytes<__nv_bfloat16>(D, Dv), p, st);
+  return (int)(pl.route == dkdv::CLUSTER ? dkdv::launch_typed<true>(is_fp16, p, pl, B, st)
+                                         : dkdv::launch_typed<false>(is_fp16, p, pl, B, st));
 }
 
 // The route and tiling ffpa_bwd_dkdv takes at head dims (D, Dv), multiples
-// of 64: out[0..5] are the route (1 wgmma, 0 mma.sync), the passes, a
-// block's KV rows, the streamed Q rows, the ring's stages and the dynamic
-// shared-memory bytes, then per pass (first column, width) of dK and of
-// dV; cap is out's length.
+// of 64 up to 1024: out[0..6] are the route (1 one block, 2 the cluster of
+// two), the passes, a block's KV rows, the streamed Q rows, the ring's
+// stages, the dynamic shared-memory bytes of a block and the ranks that
+// split the head dims (1 or 2); then for each block of a KV tile, rank by
+// rank and pass by pass, the (first column, width) of dK and of dV it
+// owns; then for each rank of the cluster (none for one block) its (first
+// D column, D width, first Dv column, Dv width). cap is out's length.
 extern "C" int ffpa_bwd_dkdv_plan(int D, int Dv, int* out, int cap) {
-  if (D <= 0 || Dv <= 0 || D % CH != 0 || Dv % CH != 0) return (int)cudaErrorInvalidValue;
+  if (D <= 0 || Dv <= 0 || D % CH != 0 || Dv % CH != 0 || D > dkdv::MAX_HEAD_DIM ||
+      Dv > dkdv::MAX_HEAD_DIM)
+    return (int)cudaErrorInvalidValue;
   const dkdv::Plan pl = dkdv::make_plan(D, Dv);
-  if (cap < 6 + 4 * pl.passes) return (int)cudaErrorInvalidValue;
-  const bool wg = pl.route == dkdv::WGMMA;
-  out[0] = pl.route;
-  out[1] = pl.passes;
-  out[2] = wg ? dkdv::ROWS : KVT;
-  out[3] = wg ? dkdv::QROWS : QT;
-  out[4] = pl.stages;
-  out[5] = (int)pl.smem;
-  const int nD = D / CH, nV = Dv / CH;
-  for (int ps = 0; ps < pl.passes; ++ps) {
-    int* o = out + 6 + 4 * ps;
-    if (wg) {
-      const sm90::Cols dc = sm90::col_block(nD, pl.passes, ps);
-      const sm90::Cols vc = sm90::col_block(nV, pl.passes, ps);
-      o[0] = dc.c0;
-      o[1] = dc.nc * CH;
-      o[2] = vc.c0;
-      o[3] = vc.nc * CH;
-    } else {  // dkdv_kernel's d_lo / ndo and v_lo / nvo
-      const int d_lo = ps * nD / pl.passes, v_lo = ps * nV / pl.passes;
-      o[0] = d_lo * CH;
-      o[1] = ((ps + 1) * nD / pl.passes - d_lo) * CH;
-      o[2] = v_lo * CH;
-      o[3] = ((ps + 1) * nV / pl.passes - v_lo) * CH;
+  const int ranks = pl.route == dkdv::CLUSTER ? 2 : 1;
+  if (cap < 7 + 4 * ranks * pl.passes + (ranks == 2 ? 8 : 0)) return (int)cudaErrorInvalidValue;
+  int n = 0;
+  out[n++] = pl.route;
+  out[n++] = pl.passes;
+  out[n++] = dkdv::ROWS;
+  out[n++] = dkdv::QROWS;
+  out[n++] = pl.stages;
+  out[n++] = (int)pl.smem;
+  out[n++] = ranks;
+  for (int r = 0; r < ranks; ++r) {
+    const dkdv::Part& pt = pl.part[r];
+    for (int ps = 0; ps < pl.passes; ++ps) {
+      const sm90::Cols dc = sm90::col_block(pt.nd, pl.passes, ps);
+      const sm90::Cols vc = sm90::col_block(pt.nv, pl.passes, ps);
+      out[n++] = pt.d0 * CH + dc.c0;
+      out[n++] = dc.nc * CH;
+      out[n++] = pt.v0 * CH + vc.c0;
+      out[n++] = vc.nc * CH;
     }
+  }
+  for (int r = 0; r < (ranks == 2 ? 2 : 0); ++r) {
+    const dkdv::Part& pt = pl.part[r];
+    out[n++] = pt.d0 * CH;
+    out[n++] = pt.nd * CH;
+    out[n++] = pt.v0 * CH;
+    out[n++] = pt.nv * CH;
   }
   return 0;
 }
 
 // Registers a thread (at launch, before setmaxnreg moves them between the
-// warpgroups) and local (spill) bytes a thread of a dK/dV kernel: route 1
-// the wgmma kernel, 0 dkdv_kernel, in f16 or bf16.
+// warpgroups) and local (spill) bytes a thread of the dK/dV kernel of
+// route 1 (one block) or 2 (the cluster), in f16 or bf16.
 extern "C" int ffpa_bwd_dkdv_attrs(int route, int is_fp16, int* regs, int* local_bytes) {
   cudaFuncAttributes a;
   cudaError_t e;
-  if (route == dkdv::WGMMA)
-    e = is_fp16 ? cudaFuncGetAttributes(&a, dkdv::kernel<__half>)
-                : cudaFuncGetAttributes(&a, dkdv::kernel<__nv_bfloat16>);
+  if (route == dkdv::CLUSTER)
+    e = is_fp16 ? cudaFuncGetAttributes(&a, dkdv::kernel<__half, true>)
+                : cudaFuncGetAttributes(&a, dkdv::kernel<__nv_bfloat16, true>);
+  else if (route == dkdv::WGMMA)
+    e = is_fp16 ? cudaFuncGetAttributes(&a, dkdv::kernel<__half, false>)
+                : cudaFuncGetAttributes(&a, dkdv::kernel<__nv_bfloat16, false>);
   else
-    e = is_fp16 ? cudaFuncGetAttributes(&a, dkdv_kernel<__half>)
-                : cudaFuncGetAttributes(&a, dkdv_kernel<__nv_bfloat16>);
+    return (int)cudaErrorInvalidValue;
   if (e != cudaSuccess) return (int)e;
   *regs = a.numRegs;
   *local_bytes = (int)a.localSizeBytes;

@@ -195,6 +195,13 @@ __device__ __forceinline__ void st_async_v4(uint32_t remote, const float* x, uin
       "f"(x[0]), "f"(x[1]), "f"(x[2]), "f"(x[3]), "r"(remote_bar)
       : "memory");
 }
+// One arrival on the mbarrier at `remote` (a mapa address of a barrier in
+// another block of the cluster), releasing this thread's earlier accesses
+// at cluster scope: the owner waits on it with mbar_wait_cluster.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t remote) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(remote)
+               : "memory");
+}
 // Four floats of this block's shared memory at shared::cta address addr.
 __device__ __forceinline__ void lds_v4(uint32_t addr, float* x) {
   asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"

@@ -349,12 +349,7 @@ def apply_attention(
             save_scores=bwd_be.save_scores,
         )
         if bwd_be.block_q_dq is not None:
-            from .dispatch import pick_backward_config
-
-            picked = pick_backward_config(d=q.shape[-1], dv=v.shape[-1], nq=nq,
-                                          nkv=k.shape[2], dtype=q.dtype)
-            bwd["bwd_config"] = BlockConfig(block_q_dq=bwd_be.block_q_dq,
-                                            dkdv_col_passes=picked.dkdv_col_passes)
+            bwd["bwd_config"] = BlockConfig(block_q_dq=bwd_be.block_q_dq)
     static = StaticArgs(
         scale=meta.scale,
         is_causal=meta.is_causal,

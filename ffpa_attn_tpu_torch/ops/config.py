@@ -57,21 +57,26 @@ never refused by the card.
   metadata and tile lists read from device memory; wider heads the
   mma.sync recompute dQ block at ``block_q_dq`` rows with the row tile's
   segment ids and ranks in shared memory.
-* Dense dK/dV, D and Dv <= 512 (``csrc/flash_bwd.cu`` namespace ``dkdv``,
-  TMA + wgmma): a block of 384 threads owns 64 KV rows with K and V
-  resident in shared memory (128 KB at D512) and one column pass of at
-  most 256 columns of dK and of dV (128 fp32 registers of each consumer
-  thread), and streams 64-row Q and dO tiles in 64-column boxes through a
-  ring of two-box stages, as deep as shared memory allows. The launcher
-  picks the route and this tiling itself; ``dkdv_plan`` mirrors it. Wider
-  heads take the mma.sync block below.
-* Backward (``csrc/flash_bwd.cu``), 16 warps and the forward's chunk ring:
-  - dK/dV, D or Dv > 512: a block owns a 32-row KV tile with K and V resident in shared
-    memory and streams 128-row Q tiles. Its two fp32 accumulators (dK and
-    dV, 32 x 512 each at D512) share the 64 registers a thread has for
-    them, so at most 512 columns of each fit one block: wider heads split
-    the columns over ``dkdv_col_passes`` blocks (the reference's SM90 D512
-    "2-pass D-split"), each recomputing S and dP for its half.
+* Dense dK/dV (``csrc/flash_bwd.cu`` namespace ``dkdv``, TMA + wgmma),
+  two routes by head dims alone (``dkdv_plan`` mirrors the launcher's
+  ``dkdv::make_plan``):
+  - D and Dv <= 512 (route "wgmma"): a block of 384 threads owns 64 KV
+    rows with K and V resident in shared memory (128 KB at D512) and one
+    column pass of at most 256 columns of dK and of dV (128 fp32
+    registers of each consumer thread), and streams 64-row Q and dO tiles
+    in 64-column boxes through a ring of two-box stages, as deep as shared
+    memory allows.
+  - D or Dv in (512, 1024] (route "wgmma_cluster"): a cluster of two such
+    blocks per 64 KV rows and pass, rank r holding half of D's K boxes
+    and half of Dv's V boxes (rank 0 the larger half) and streaming only
+    its Q and dO boxes; each rank's consumers compute partial S^T and
+    dP^T over its boxes and add the partner's through distributed shared
+    memory (one 32 KB slot), then accumulate the pass's share of the
+    rank's dK and dV columns; a ring of 3 stages at D = Dv = 1024.
+* Backward (``csrc/flash_bwd.cu``), 16 warps and the chunk ring:
+  - the mma.sync dK/dV block (32 KV rows, 128-row Q tiles, column passes
+    of at most 512: ``dkdv_col_passes``, ``dkdv_smem_bytes``) is the
+    packed varlen dK/dV's wider-head route only (``varlen_dkdv_plan``).
   - dQ (recompute), two routes by head dims alone (``dq_plan`` mirrors
     the launcher's ``dq::make_plan``). D and Dv <= 512 take a TMA + wgmma
     block (namespace ``dq``): 384 threads own 64 Q rows with Q and dO
@@ -127,9 +132,10 @@ FWD_ACC_ELEMS = 64 * 512
 FWD_ROW_TILES = (64, 32)
 ROW_TILES = (128, 64, 32, 16)  # decode (wmma fragments are 16 rows)
 PAGED_ROW_TILES = (64, 32, 16)  # paged decode (csrc/paged_decode.cu)
-# Backward tiles of the mma.sync dK/dV kernels (flash_bwd.cu, varlen_bwd.cu;
-# D or Dv > 512): owned KV rows and streamed Q rows (the wgmma routes take
-# 64 and 64); the dQ kernels' row tiles are FWD_ROW_TILES.
+# Backward tiles of the mma.sync dK/dV kernel (varlen_bwd.cu, D or Dv >
+# 512): owned KV rows and streamed Q rows (the wgmma routes take 64 and 64);
+# DKDV_Q_TILE also pads the dense dS slab's rows. The dQ kernels' row tiles
+# are FWD_ROW_TILES.
 DKDV_KV_TILE = 32
 DKDV_Q_TILE = 128
 # Columns of dK (and of dV) one dK/dV block accumulates: 32 rows x 512
@@ -139,14 +145,17 @@ DKDV_MAX_COLS = 512
 # dK/dV block, a multiple of the mma.sync block's DKDV_KV_TILE.
 DKDV_SLAB_COLS = 64
 # Compile-time constants of the wgmma dK/dV block (flash_bwd.cu namespace
-# dkdv: ROWS, QROWS, MAX_BOXES * 64, PASS_BOXES * 64, STAGE_BOXES,
-# MAX_STAGES), not settings: dkdv_plan mirrors the launcher with them.
+# dkdv: ROWS, QROWS, MAX_BOXES * 64, MAX_HEAD_DIM, PASS_BOXES * 64,
+# STAGE_BOXES, MAX_STAGES, and the cluster's PART_BUF_BYTES with its 4
+# barriers), not settings: dkdv_plan mirrors the launcher with them.
 _DKDV_WG_ROWS = 64
 _DKDV_WG_Q_ROWS = 64
 _DKDV_WG_MAX_D = 512
+DKDV_MAX_HEAD_DIM = 1024
 _DKDV_WG_PASS_COLS = 256
 _DKDV_WG_STAGE_BOXES = 2
 _DKDV_WG_MAX_STAGES = 6
+_DKDV_CLUSTER_PART_BYTES = 2 * 2 * 64 * 32 * 4 + 4 * 8
 # Compile-time constants of the wgmma forward block (flash_fwd.cu namespace
 # fwd: ROWS, MAX_BOXES * 64, 2 * MAX_BOXES * 64, STAGE_BOXES, stages_of,
 # XCH_BYTES, PART_BUF_BYTES and the exchange's 4 barriers), not settings:
@@ -524,14 +533,16 @@ def paged_plan(d: int, dv: int, rows: int, page: int, itemsize: int = 2,
 
 
 def dkdv_col_passes(d: int, dv: int) -> int:
-    """Column passes of the dK/dV kernel: each block accumulates at most
-    DKDV_MAX_COLS columns of dK and of dV."""
+    """Column passes of the mma.sync dK/dV kernel (the packed varlen
+    dK/dV's wider heads): each block accumulates at most DKDV_MAX_COLS
+    columns of dK and of dV."""
     return max(cdiv(_round_up(d, D_CHUNK), DKDV_MAX_COLS),
                cdiv(_round_up(dv, D_CHUNK), DKDV_MAX_COLS))
 
 
 def dkdv_smem_bytes(d: int, dv: int, itemsize: int = 2) -> int:
-    """Shared memory of one dK/dV block: resident K [32, D] and V [32, Dv]
+    """Shared memory of one mma.sync dK/dV block (the packed varlen dK/dV's
+    wider heads, before its segment metadata): resident K [32, D] and V [32, Dv]
     + the Q / dO chunk ring + P and dS [32, 128] in the input type + the
     Q tile's lse and delta. The column passes cost no shared memory."""
     kv = DKDV_KV_TILE * (_round_up(d, D_CHUNK) + _round_up(dv, D_CHUNK) + 2 * _PAD_T)
@@ -553,8 +564,8 @@ def dq_smem_bytes(block_q: int, d: int, dv: int, itemsize: int = 2) -> int:
 def varlen_dkdv_smem_bytes(d: int, dv: int, itemsize: int = 2) -> int:
     """Shared memory of one packed varlen dK/dV block of the mma.sync route
     (``csrc/varlen_bwd.cu`` ``varlen_dkdv_kernel``, D or Dv > 512): the
-    dense mma.sync dK/dV block's, plus the Q tile's segment ids and ranks
-    and the KV tile's segment ids and positions (int32)."""
+    mma.sync dK/dV block's (``dkdv_smem_bytes``), plus the Q tile's segment
+    ids and ranks and the KV tile's segment ids and positions (int32)."""
     return dkdv_smem_bytes(d, dv, itemsize) + 2 * (DKDV_Q_TILE + DKDV_KV_TILE) * 4
 
 
@@ -679,11 +690,16 @@ class DkdvPlan:
     hands its own out through ``flash_bwd.dkdv_kernel_plan``; the card test
     holds the two equal).
 
-    ``route`` is "wgmma" (D and Dv <= 512) or "mma_sync"; ``passes`` the
-    column passes, ``d_blocks`` / ``dv_blocks`` the (first column, width)
-    of dK / dV each pass owns (a width may be 0); ``kv_rows`` a block's KV
-    rows, ``q_rows`` the streamed Q rows, ``stages`` the ring's depth and
-    ``smem_bytes`` the dynamic shared memory a block asks for.
+    ``route`` is "wgmma" (D and Dv <= 512), "wgmma_cluster" (up to 1024)
+    or, for the packed varlen dK/dV's wider heads only, "mma_sync";
+    ``passes`` the column passes, ``d_blocks`` / ``dv_blocks`` the (first
+    column, width) of dK / dV each block of a KV tile owns, pass by pass
+    (rank by rank, then pass by pass, on the cluster; a width may be 0);
+    ``kv_rows`` a block's KV rows, ``q_rows`` the streamed Q rows,
+    ``stages`` the ring's depth and ``smem_bytes`` the dynamic shared
+    memory a block asks for. ``rank_blocks`` holds, for each rank of the
+    cluster, its ((first D column, D width), (first Dv column, Dv width));
+    it is empty where one block holds all of D and Dv.
     """
 
     route: str
@@ -694,6 +710,7 @@ class DkdvPlan:
     smem_bytes: int
     d_blocks: tuple
     dv_blocks: tuple
+    rank_blocks: tuple = ()
 
 
 def _even_blocks(chunks: int, nb: int) -> tuple:
@@ -710,30 +727,37 @@ def _even_blocks(chunks: int, nb: int) -> tuple:
 
 def dkdv_plan(d: int, dv: int, itemsize: int = 2) -> DkdvPlan:
     """The dense dK/dV route by head dims alone (padded to 64-column
-    chunks): D and Dv <= 512 take the wgmma block, with ceil(max(D, Dv) /
-    256) passes, each dK and dV split evenly over them, and as many ring
-    stages (two 64 x 64 boxes each, at most 6) as fit beside K, V and the P
-    / dS boxes; wider heads the mma.sync block (``dkdv_col_passes``, its
-    floor split, ``dkdv_smem_bytes``)."""
+    chunks, at most 1024; 16-bit inputs). D and Dv <= 512 take one wgmma
+    block; wider heads a cluster of two such blocks, rank r holding its
+    half of D's boxes and of Dv's (``_even_blocks``: rank 0 the larger).
+    A block takes ceil(max(its D boxes, its Dv boxes) / 4) passes (rank
+    0's on the cluster, for both ranks), each of its dK and dV boxes split
+    evenly over them, and as many ring stages (two 64 x 64 boxes each, at
+    most 6) as fit beside K, V, the P / dS boxes and, on the cluster, the
+    partial exchange's slot (both ranks lay out rank 0's share)."""
     nd, nv = cdiv(d, D_CHUNK), cdiv(dv, D_CHUNK)
-    if max(nd, nv) * D_CHUNK <= _DKDV_WG_MAX_D:
-        per = _DKDV_WG_PASS_COLS // D_CHUNK
-        passes = max(cdiv(nd, per), cdiv(nv, per))
-        box = _DKDV_WG_Q_ROWS * D_CHUNK * itemsize
-        fixed = (nd + nv + 2) * box + 1024 + 8
-        stage = _DKDV_WG_STAGE_BOXES * box + 16
-        stages = min(_DKDV_WG_MAX_STAGES, (SMEM_LIMIT_BYTES - fixed) // stage)
-        return DkdvPlan("wgmma", passes, _DKDV_WG_ROWS, _DKDV_WG_Q_ROWS, stages,
-                        fixed + stages * stage, _even_blocks(nd, passes),
-                        _even_blocks(nv, passes))
-    passes = dkdv_col_passes(d, dv)
+    if max(nd, nv) * D_CHUNK > DKDV_MAX_HEAD_DIM:
+        raise ValueError(f"the dK/dV kernel takes D, Dv <= {DKDV_MAX_HEAD_DIM}, got D={d}, "
+                         f"Dv={dv}")
+    split = max(nd, nv) * D_CHUNK > _DKDV_WG_MAX_D
+    ranks = 2 if split else 1
+    d_ranks, v_ranks = _even_blocks(nd, ranks), _even_blocks(nv, ranks)
+    lay_nd, lay_nv = d_ranks[0][1] // D_CHUNK, v_ranks[0][1] // D_CHUNK
+    per = _DKDV_WG_PASS_COLS // D_CHUNK
+    passes = max(cdiv(lay_nd, per), cdiv(lay_nv, per))
+    box = _DKDV_WG_Q_ROWS * D_CHUNK * itemsize
+    fixed = ((lay_nd + lay_nv + 2) * box + 1024 + 8
+             + (_DKDV_CLUSTER_PART_BYTES if split else 0))
+    stage = _DKDV_WG_STAGE_BOXES * box + 16
+    stages = min(_DKDV_WG_MAX_STAGES, (SMEM_LIMIT_BYTES - fixed) // stage)
 
-    def floor_split(n):
-        return tuple((p * n // passes * D_CHUNK, ((p + 1) * n // passes - p * n // passes)
-                      * D_CHUNK) for p in range(passes))
+    def pass_blocks(rank_blocks):
+        return tuple((c0 + x0, w) for c0, width in rank_blocks
+                     for x0, w in _even_blocks(width // D_CHUNK, passes))
 
-    return DkdvPlan("mma_sync", passes, DKDV_KV_TILE, DKDV_Q_TILE, FWD_STREAM_STAGES,
-                    dkdv_smem_bytes(d, dv, itemsize), floor_split(nd), floor_split(nv))
+    return DkdvPlan("wgmma_cluster" if split else "wgmma", passes, _DKDV_WG_ROWS,
+                    _DKDV_WG_Q_ROWS, stages, fixed + stages * stage, pass_blocks(d_ranks),
+                    pass_blocks(v_ranks), tuple(zip(d_ranks, v_ranks)) if split else ())
 
 
 def varlen_dkdv_plan(d: int, dv: int, itemsize: int = 2) -> DkdvPlan:
@@ -743,13 +767,20 @@ def varlen_dkdv_plan(d: int, dv: int, itemsize: int = 2) -> DkdvPlan:
     ``varlen.varlen_dkdv_kernel_plan``; the card test holds the two equal):
     D and Dv <= 512 take the wgmma block, whose tiling is the dense
     ``dkdv_plan``'s (the block reads its segment metadata from device
-    memory, so it costs no shared memory); wider heads the mma.sync block,
-    with the dense split and ``varlen_dkdv_smem_bytes``."""
-    plan = dkdv_plan(d, dv, itemsize)
-    if plan.route == "wgmma":
-        return plan
-    return replace(plan, smem_bytes=varlen_dkdv_smem_bytes(
-        _round_up(d, D_CHUNK), _round_up(dv, D_CHUNK), itemsize))
+    memory, so it costs no shared memory); wider heads the mma.sync block
+    (``dkdv_col_passes``, its floor split, ``varlen_dkdv_smem_bytes``)."""
+    nd, nv = cdiv(d, D_CHUNK), cdiv(dv, D_CHUNK)
+    if max(nd, nv) * D_CHUNK <= _DKDV_WG_MAX_D:
+        return dkdv_plan(d, dv, itemsize)
+    passes = dkdv_col_passes(d, dv)
+
+    def floor_split(n):
+        return tuple((p * n // passes * D_CHUNK, ((p + 1) * n // passes - p * n // passes)
+                      * D_CHUNK) for p in range(passes))
+
+    return DkdvPlan("mma_sync", passes, DKDV_KV_TILE, DKDV_Q_TILE, FWD_STREAM_STAGES,
+                    varlen_dkdv_smem_bytes(nd * D_CHUNK, nv * D_CHUNK, itemsize),
+                    floor_split(nd), floor_split(nv))
 
 
 @dataclass(frozen=True)
@@ -877,6 +908,7 @@ __all__ = [
     "DKDV_Q_TILE",
     "DKDV_MAX_COLS",
     "DKDV_SLAB_COLS",
+    "DKDV_MAX_HEAD_DIM",
     "DkdvPlan",
     "dkdv_plan",
     "dkdv_col_passes",

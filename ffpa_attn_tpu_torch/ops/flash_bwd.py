@@ -29,19 +29,21 @@ causal) the dK/dV pass does 4 matmul units of 2 * Hq * N(N+1)/2 * D flop,
 at 3.35 TB/s); banded dQ does one unit (0.28 ms). Design against that bound
 (``csrc/flash_bwd.cu``): whole tiles outside the causal / window band are
 never loaded; a dK/dV block loops over the GQA group and the Q tiles itself
-(one store of the group-reduced dK/dV, no atomics). For D and Dv <= 512
-the dK/dV block runs on TMA and wgmma (``config.dkdv_plan``): 64 KV rows
-with K and V resident, a producer warpgroup streaming 64-row Q and dO
-boxes, two consumer warpgroups each computing half of S^T and dP^T and
-then one of dK and dV, at most 256 columns a pass. The recompute dQ block
+(one store of the group-reduced dK/dV, no atomics). The dK/dV block runs
+on TMA and wgmma (``config.dkdv_plan``): 64 KV rows with K and V resident,
+a producer warpgroup streaming 64-row Q and dO boxes, two consumer
+warpgroups each computing half of S^T and dP^T and then one of dK and
+dV, at most 256 columns a pass; for D or Dv above 512 a cluster of two
+such blocks splits D and Dv, each rank adding the partner's partial S^T
+and dP^T through distributed shared memory. The recompute dQ block
 at D and Dv <= 512 is its mirror (``config.dq_plan``): 64 Q rows with Q
 and dO resident, K, V and again K boxes streamed, two consumers each
 computing half of S and dP and then owning half of dQ's columns. Wider
-heads take the mma.sync dK/dV and dQ blocks, the forward's mma.sync tiles
-and chunk ring. Banded dQ and banded dK are plain GEMMs over a causal k-range
-and run on Hopper's TMA and wgmma (``csrc/sm90.cuh``): a producer
-warpgroup keeps a 4-stage ring of TMA tiles full, two consumer warpgroups
-run wgmma.m64n256k16 on 128 rows x at most 256 columns a block
+heads take the mma.sync dQ block and its chunk ring. Banded dQ and banded
+dK are plain GEMMs over a causal k-range and run on Hopper's TMA and wgmma
+(``csrc/sm90.cuh``): a producer warpgroup keeps a 4-stage ring of TMA
+tiles full, two consumer warpgroups run wgmma.m64n256k16 on 128 rows x at
+most 256 columns a block
 (``config.banded_plan``), the transposes (K and Q read N-major, dS^T read
 M-major from the [q][kv] slab) done by wgmma's operand bits. Their tensor
 maps declare the slab's extents (nq, nkv), so its padding is never read.
@@ -77,7 +79,6 @@ from .config import (
     FromSPlan,
     banded_plan,
     cdiv,
-    dkdv_col_passes,
     dkdv_plan,
     dq_plan,
     from_s_fits,
@@ -228,7 +229,7 @@ _LL = ctypes.c_longlong
 _F = ctypes.c_float
 _ARGTYPES = {
     "ffpa_bwd_dkdv": (
-        [_P] * 10 + [_LL] * 4 + [_P] + [_I] * 12 + [_F] * 2 + [_I] * 3 + [_F] * 2
+        [_P] * 10 + [_LL] * 4 + [_P] + [_I] * 11 + [_F] * 2 + [_I] * 3 + [_F] * 2
         + [ctypes.c_uint32] + [_I] * 2 + [_P]
     ),
     "ffpa_bwd_dq": (
@@ -321,9 +322,11 @@ def _dkdv_launch(
     padding. ``causal_offset`` is the launch's local offset;
     ``row_offset`` / ``col_offset`` map its rows / columns to the global
     ids the dropout hash takes. ``seed`` is the dropout seed. The kernel's
-    route (wgmma for D, Dv <= 512, else mma.sync) is the launcher's own,
-    by head dims alone (``config.dkdv_plan``); the slab's padding
-    (DKDV_Q_TILE rows, DKDV_SLAB_COLS columns) suits both."""
+    route is the launcher's own, by head dims alone (``config.dkdv_plan``):
+    one wgmma block for D, Dv <= 512, above that a cluster of two whose
+    ranks split D and Dv and exchange partial S^T and dP^T; either picks
+    its own column passes. The slab's padding (DKDV_Q_TILE rows,
+    DKDV_SLAB_COLS columns) suits both routes' 64 x 64 tiles."""
     b, hq, nq, d = q.shape
     _, hkv, nkv, _ = k.shape
     dv_dim = v.shape[-1]
@@ -345,8 +348,6 @@ def _dkdv_launch(
 
     ops = _kernel_operands(q, k, v, do, bias, alibi, lse, delta)
     d_pad, dv_pad = ops.q.shape[-1], ops.v.shape[-1]
-    # The mma.sync route's column passes; the wgmma route picks its own.
-    passes = max(config.dkdv_col_passes, dkdv_col_passes(d_pad, dv_pad))
     out_f32, wt = _out_dtype(dk_dtype, q.dtype)
     dk = torch.empty((b, hkv, nkv, d_pad), dtype=wt, device=q.device)
     dv = torch.empty((b, hkv, nkv, dv_pad), dtype=wt, device=q.device)
@@ -362,7 +363,7 @@ def _dkdv_launch(
             *ops.ptrs(), dk.data_ptr(), dv.data_ptr(),
             None if ds_full is None else ds_full.data_ptr(), *ops.extras(),
             int(q.dtype == torch.float16), out_f32, b, hq, hkv, nq, nkv, d_pad, dv_pad,
-            passes, nq_pad, nkv_pad, float(scale), float(softcap), int(causal_offset),
+            nq_pad, nkv_pad, float(scale), float(softcap), int(causal_offset),
             window_left, 0 if is_causal else window_right,
             *dropout_args(dropout_p, seed), int(row_offset), int(col_offset),
             torch.cuda.current_stream(q.device).cuda_stream,
@@ -448,14 +449,21 @@ def _dq_launch(
 _dq_launch.launches = 0
 
 
+# The dK/dV launcher's routes by the codes of its C entry points.
+_DKDV_ROUTES = {1: "wgmma", 2: "wgmma_cluster"}
+# Substrings of the dK/dV kernels' names (both routes), for timing filters.
+DKDV_KERNELS = ("dkdv::kernel<",)
+
+
 def dkdv_kernel_attrs(route: str, dtype=torch.bfloat16) -> dict:
     """Registers a thread (at launch, before setmaxnreg) and local (spill)
-    bytes of the dK/dV kernel of ``route`` ("wgmma" or "mma_sync"), from
-    cudaFuncGetAttributes. Needs a card."""
+    bytes of the dK/dV kernel of ``route`` ("wgmma" or "wgmma_cluster"),
+    from cudaFuncGetAttributes. Needs a card."""
     lib = _bwd_lib()
     regs, local = ctypes.c_int(0), ctypes.c_int(0)
-    err = lib.ffpa_bwd_dkdv_attrs(int(route == "wgmma"), int(dtype == torch.float16),
-                                  ctypes.byref(regs), ctypes.byref(local))
+    code = {name: num for num, name in _DKDV_ROUTES.items()}[route]
+    err = lib.ffpa_bwd_dkdv_attrs(code, int(dtype == torch.float16), ctypes.byref(regs),
+                                  ctypes.byref(local))
     _build.check(lib, err, "dkdv kernel attributes")
     return {"registers": regs.value, "local_bytes": local.value}
 
@@ -469,10 +477,14 @@ def dkdv_kernel_plan(d: int, dv: int) -> DkdvPlan:
     err = lib.ffpa_bwd_dkdv_plan(cdiv(d, D_CHUNK) * D_CHUNK, cdiv(dv, D_CHUNK) * D_CHUNK, out,
                                  len(out))
     _build.check(lib, err, "dkdv kernel plan")
-    passes = out[1]
-    blocks = [tuple(out[6 + 4 * i:10 + 4 * i]) for i in range(passes)]
-    return DkdvPlan("wgmma" if out[0] == 1 else "mma_sync", passes, out[2], out[3], out[4],
-                    out[5], tuple(bl[:2] for bl in blocks), tuple(bl[2:] for bl in blocks))
+    passes, ranks = out[1], out[6]
+    blocks = [tuple(out[7 + 4 * i:11 + 4 * i]) for i in range(ranks * passes)]
+    n = 7 + 4 * ranks * passes
+    rank_blocks = tuple(((out[n + 4 * r], out[n + 4 * r + 1]),
+                         (out[n + 4 * r + 2], out[n + 4 * r + 3]))
+                        for r in range(ranks if ranks == 2 else 0))
+    return DkdvPlan(_DKDV_ROUTES[out[0]], passes, out[2], out[3], out[4], out[5],
+                    tuple(bl[:2] for bl in blocks), tuple(bl[2:] for bl in blocks), rank_blocks)
 
 
 def dq_kernel_attrs(route: str, dtype=torch.bfloat16, block_q: int = 64) -> dict:

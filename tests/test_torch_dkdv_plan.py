@@ -4,8 +4,11 @@ the dS slab's padding that both routes share.
 
 D and Dv up to 512 take the TMA + wgmma block: column passes of at most
 256 columns of dK and of dV in whole 64-column boxes, in the card's shared
-memory; wider heads take the mma.sync block. On a card the mirror is held
-equal to the plan the library launches with. On the CPU the slab, padded to
+memory; wider heads, up to 1024, a cluster of two such blocks whose ranks
+each hold half of D's and half of Dv's boxes (rank 0 the larger half), the
+same passes over a rank's half. The packed varlen dK/dV keeps its mma.sync
+plan for wider heads. On a card the mirror is held equal to the plan the
+library launches with. On the CPU the slab, padded to
 DKDV_Q_TILE rows and DKDV_SLAB_COLS columns, trims to the JAX package's
 slab, whole and cut into KV stripes; its padding holds zeros.
 """
@@ -27,6 +30,7 @@ from ffpa_attn_tpu_torch.ops.config import (
     SMEM_LIMIT_BYTES,
     cdiv,
     dkdv_plan,
+    varlen_dkdv_plan,
 )
 from ffpa_attn_tpu_torch.ops.dispatch import pick_backward_config
 
@@ -37,6 +41,9 @@ HEAD_DIMS = [(d, d) for d in range(320, 1025, 64)] + [
     (64, 64), (128, 512), (320, 512), (448, 64), (512, 128), (512, 1024), (1024, 320),
     (400, 400),
 ]
+# Pairs where one rank of the cluster holds no box of a head dim, and an
+# uneven one: with HEAD_DIMS, where a plan must fit the card.
+EDGE_DIMS = [(64, 1024), (1024, 64), (640, 1024)]
 
 
 def _tiles(blocks, width):
@@ -53,22 +60,94 @@ def test_dkdv_plan_routes_by_head_dims(d, dv):
     plan = dkdv_plan(d, dv)
     d_pad, dv_pad = cdiv(d, D_CHUNK) * D_CHUNK, cdiv(dv, D_CHUNK) * D_CHUNK
     wide = max(d_pad, dv_pad) > WGMMA_MAX_D
-    assert plan.route == ("mma_sync" if wide else "wgmma")
-    assert len(plan.d_blocks) == len(plan.dv_blocks) == plan.passes
+    assert plan.route == ("wgmma_cluster" if wide else "wgmma")
+    ranks = 2 if wide else 1
+    assert len(plan.rank_blocks) == (2 if wide else 0)
+    assert len(plan.d_blocks) == len(plan.dv_blocks) == ranks * plan.passes
     assert _tiles(plan.d_blocks, d_pad) and _tiles(plan.dv_blocks, dv_pad)
     assert plan.smem_bytes <= SMEM_LIMIT_BYTES
-    if plan.route == "wgmma":
-        assert plan.kv_rows == 64 and plan.q_rows == 64 and plan.stages >= 3
-        assert plan.passes == cdiv(max(d_pad, dv_pad), PASS_MAX_COLS)
+    assert plan.kv_rows == 64 and plan.q_rows == 64 and plan.stages >= 3
+    # A block's passes: its boxes (a rank's half on the cluster) in passes
+    # of at most 256 columns, rank 0's count for both ranks.
+    widest = (max(plan.rank_blocks[0][0][1], plan.rank_blocks[0][1][1]) if wide
+              else max(d_pad, dv_pad))
+    assert plan.passes == cdiv(widest, PASS_MAX_COLS)
+    for r in range(ranks):
         for blocks in (plan.d_blocks, plan.dv_blocks):
-            widths = [w for _, w in blocks]
+            widths = [w for _, w in blocks[r * plan.passes:(r + 1) * plan.passes]]
             assert max(widths) <= PASS_MAX_COLS
             assert max(widths) - min(widths) <= D_CHUNK  # as even as boxes allow
             assert widths == sorted(widths, reverse=True)  # the first pass is the widest
-    else:
-        assert plan.kv_rows == 32 and plan.q_rows == DKDV_Q_TILE
-        assert plan.passes == max(cdiv(d_pad, 512), cdiv(dv_pad, 512))
     assert dkdv_plan(d_pad, dv_pad) == plan
+
+
+@pytest.mark.parametrize("d,dv", [hd for hd in HEAD_DIMS + EDGE_DIMS
+                                  if max(hd) > WGMMA_MAX_D])
+def test_cluster_ranks_cover_their_halves_in_order(d, dv):
+    """Each rank's D and Dv boxes are its half of the head dims, the two
+    halves in order; each rank's passes cover its own half in order."""
+    plan = dkdv_plan(d, dv)
+    d_pad, dv_pad = cdiv(d, D_CHUNK) * D_CHUNK, cdiv(dv, D_CHUNK) * D_CHUNK
+    (d0, v0), (d1, v1) = plan.rank_blocks
+    assert _tiles((d0, d1), d_pad) and _tiles((v0, v1), dv_pad)
+    for r, (dr, vr) in enumerate(plan.rank_blocks):
+        own = slice(r * plan.passes, (r + 1) * plan.passes)  # rank r's passes
+        for (c0, width), blocks in ((dr, plan.d_blocks[own]), (vr, plan.dv_blocks[own])):
+            start = c0
+            for b0, w in blocks:
+                assert b0 == start
+                start += w
+            assert start == c0 + width
+
+
+@pytest.mark.parametrize("d,dv", [hd for hd in HEAD_DIMS + EDGE_DIMS
+                                  if max(hd) > WGMMA_MAX_D])
+def test_cluster_rank0_takes_the_larger_half(d, dv):
+    plan = dkdv_plan(d, dv)
+    (d0, v0), (d1, v1) = plan.rank_blocks
+    for first, second in ((d0, d1), (v0, v1)):
+        assert 0 <= first[1] - second[1] <= D_CHUNK
+    # A pair of 64 / 1024 leaves rank 1 without a box of the narrow dim.
+    if min(d, dv) == 64:
+        assert min(d1[1], v1[1]) == 0
+
+
+@pytest.mark.parametrize("d,dv", HEAD_DIMS + EDGE_DIMS)
+def test_dkdv_plan_fits_the_card(d, dv):
+    """Every plan fits the card's shared memory with a ring of at least 3
+    stages and passes of at most 256 columns."""
+    plan = dkdv_plan(d, dv)
+    assert plan.stages >= 3 and plan.smem_bytes <= SMEM_LIMIT_BYTES
+    assert max(w for _, w in plan.d_blocks + plan.dv_blocks) <= PASS_MAX_COLS
+
+
+def test_cluster_plan_at_d1024_is_three_stages_in_one_slot():
+    """The arithmetic beside make_plan: a rank's K and V halves (16 boxes),
+    the P and dS boxes, one 32 KB exchange slot and 3 stages of 16,400 B."""
+    plan = dkdv_plan(1024, 1024)
+    assert plan.route == "wgmma_cluster" and plan.passes == 2 and plan.stages == 3
+    assert plan.smem_bytes == 181_288 + 3 * 16_400
+    assert plan.smem_bytes + 32 * 1024 > SMEM_LIMIT_BYTES  # no second slot beside 3 stages
+    assert plan.rank_blocks == (((0, 512), (0, 512)), ((512, 512), (512, 512)))
+    assert plan.d_blocks == ((0, 256), (256, 256), (512, 256), (768, 256))
+
+
+@pytest.mark.parametrize("d,dv", [(1024, 1024), (640, 640), (576, 576), (1024, 320)])
+def test_varlen_dkdv_plan_keeps_its_mma_sync_plan_above_d512(d, dv):
+    """The packed varlen dK/dV's wider heads stay on its own mma.sync block:
+    32 KV rows, 128-row Q tiles, passes of at most 512 columns."""
+    plan = varlen_dkdv_plan(d, dv)
+    assert plan.route == "mma_sync" and plan.rank_blocks == ()
+    assert (plan.kv_rows, plan.q_rows) == (32, DKDV_Q_TILE)
+    assert plan.passes == max(cdiv(d, 512), cdiv(dv, 512))
+    assert _tiles(plan.d_blocks, cdiv(d, D_CHUNK) * D_CHUNK)
+    assert _tiles(plan.dv_blocks, cdiv(dv, D_CHUNK) * D_CHUNK)
+    assert varlen_dkdv_plan(512, 512) == dkdv_plan(512, 512)
+
+
+def test_dkdv_plan_refuses_heads_above_1024():
+    with pytest.raises(ValueError):
+        dkdv_plan(1088, 64)
 
 
 def test_dkdv_plan_d448_takes_passes_of_256_and_192():
@@ -77,7 +156,7 @@ def test_dkdv_plan_d448_takes_passes_of_256_and_192():
     assert plan.d_blocks == plan.dv_blocks == ((0, 256), (256, 192))
 
 
-@pytest.mark.parametrize("d,dv", HEAD_DIMS)
+@pytest.mark.parametrize("d,dv", HEAD_DIMS + EDGE_DIMS)
 def test_dkdv_plan_matches_library_on_card(cuda, d, dv):  # noqa: F811
     assert tbwd.dkdv_kernel_plan(d, dv) == dkdv_plan(d, dv)
 

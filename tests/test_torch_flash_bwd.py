@@ -42,6 +42,13 @@ CASES = {
     # D != Dv: the wgmma dK/dV and dQ routes stream different box counts.
     "d320_dv512_causal_bias": dict(nq=130, nkv=150, causal=True, bias="full", d=320, dv=512),
     "d512_dv320_window": dict(nq=160, nkv=160, window=(40, 8), d=512, dv=320),
+    # D or Dv above 512: the dK/dV cluster of two blocks, each rank holding
+    # half of D's and of Dv's boxes (at D64 / Dv1024 rank 1 holds no D box).
+    "d1024_causal_fp16": dict(nq=130, nkv=150, causal=True, dtype="float16", d=1024),
+    "d640_bias_full": dict(nq=120, nkv=150, bias="full", d=640),
+    "d512_dv1024_dropout": dict(nq=130, nkv=150, causal=True, dropout=0.2, d=512, dv=1024),
+    "d1024_dv320_window": dict(nq=160, nkv=160, window=(40, 8), d=1024, dv=320),
+    "d64_dv1024_causal": dict(nq=130, nkv=150, causal=True, d=64, dv=1024),
 }
 CAUSAL = sorted(n for n, c in CASES.items() if c.get("causal"))
 

@@ -31,6 +31,12 @@ wrappers passed, ``LegacyBanded``):
   (the training step's dS-handoff backward); head and base take the same
   slab padding (the head wrapper's), and at D512 the head library runs
   its wgmma route, a base built from older sources the mma.sync kernel;
+  dkdv_d1024 and dkdv_d640: B1 H8/4 N4096 causal fp16 with the slab (the
+  handoff tier fp16 takes at the bench's D sweep), where the head library
+  runs the cluster of two blocks and a base built from sources before it
+  the mma.sync kernel, given the column passes its wrapper passed
+  (``LegacyDkdv``), each held against the plain version at the fp16
+  gradient tolerance 1e-2;
 * dq: the same shape with a 4096-token left window (the windowed model's
   recompute backward);
 * from_s (the from-S dK/dV pass with dK out of the kernel, on a fresh copy
@@ -126,6 +132,7 @@ SOURCE = {"flash_fwd": "flash_fwd", "flash_fwd_scores": "flash_fwd",
           "flash_fwd_train": "flash_fwd", "flash_fwd_train_scores": "flash_fwd",
           "flash_fwd_d1024": "flash_fwd",
           "decode": "decode", "decode_serving": "decode", "dkdv": "flash_bwd",
+          "dkdv_d1024": "flash_bwd", "dkdv_d640": "flash_bwd",
           "banded_dq": "flash_bwd", "dq": "flash_bwd", "from_s": "flash_bwd",
           "banded_dk": "flash_bwd", "varlen_fwd": "varlen_fwd", "varlen_fwd_train": "varlen_fwd",
           "paged_decode": "paged_decode",
@@ -192,6 +199,47 @@ class LegacyBanded:
         def call(*args):
             args = list(args)
             args[tile] = 64 if 64 * args[d] <= FWD_ACC_ELEMS and args[dim] % 64 == 0 else 32
+            return fn(*args)
+
+        call.argtypes = fn.argtypes
+        return call
+
+
+class LegacyDkdv:
+    """A flash_bwd library built from sources before the dK/dV cluster
+    route: D or Dv above 512 take its mma.sync kernel, whose entry point
+    takes col_passes after Dv (the current one picks its own passes), so
+    the passes those sources' wrapper passed (``dkdv_col_passes``) are put
+    in. Every other symbol is the wrapped library's own."""
+
+    PASSES, D, DV = 24, 22, 23  # ffpa_bwd_dkdv's col_passes, D and Dv
+
+    @staticmethod
+    def needed(lib) -> bool:
+        """Whether ``lib`` sends D1024 to the mma.sync route (route 0)."""
+        if not hasattr(lib, "ffpa_bwd_dkdv_plan"):
+            return True
+        fn = lib.ffpa_bwd_dkdv_plan
+        fn.argtypes = flash_bwd._ARGTYPES["ffpa_bwd_dkdv_plan"]
+        fn.restype = ctypes.c_int
+        out = (ctypes.c_int * 64)()
+        return fn(1024, 1024, out, len(out)) == 0 and out[0] == 0
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if name != "ffpa_bwd_dkdv":
+            return fn
+        argtypes = list(flash_bwd._ARGTYPES[name])
+        argtypes.insert(self.PASSES, ctypes.c_int)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+
+        def call(*args):
+            args = list(args)
+            args.insert(self.PASSES, dkdv_col_passes(args[self.D], args[self.DV]))
             return fn(*args)
 
         call.argtypes = fn.argtypes
@@ -343,6 +391,8 @@ class LegacyVarlenFwd:
 
 
 TOL = 5e-2  # bf16 gradients (tests/test_ffpa_bwd.py:19)
+# Gradient kernels run in fp16: its gradient tolerance (tests/test_ffpa_bwd.py:19).
+GRAD_KERNEL_TOL = {"dkdv_d1024": 1e-2, "dkdv_d640": 1e-2}
 # Per-kernel tolerances where a kernel is held to the forward's (per row).
 KERNEL_TOL = {"paged_decode": 2e-2, "paged_decode_int8": 2e-2, "decode": 2e-2,
               "decode_serving": 2e-2, "varlen_fwd": 2e-2, "varlen_fwd_train": 2e-2}
@@ -448,6 +498,36 @@ def make_runs(gen) -> tuple:
                                      grad_kv_storage_dtype=None, emit_ds=True, **kw)
         state["ds"] = out[2]
         return out
+
+    # The dK/dV cluster route's shapes: fp16, the plain forward's (o, lse).
+    wn = n  # n is reused below
+    def wide_inputs(wd):
+        def h(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").half()
+
+        q_, k_, v_, do_ = h(b, hq, wn, wd), h(b, hkv, wn, wd), h(b, hkv, wn, wd), h(b, hq, wn, wd)
+        o_, lse_ = flash_fwd.flash_attention_forward_plain(q_, k_, v_, None, scale=wd ** -0.5,
+                                                           is_causal=True)
+        return q_, k_, v_, do_, lse_, (do_.float() * o_.float()).sum(-1)
+
+    wide = {}  # made at first use: only these two runs need them
+
+    def run_dkdv_wide(wd):
+        if wd not in wide:
+            wide[wd] = wide_inputs(wd)
+        q_, k_, v_, do_, lse_, delta_ = wide[wd]
+        wcfg = pick_backward_config(d=wd, dv=wd, nq=wn, nkv=wn, dtype=torch.float16)
+        return flash_bwd._dkdv_launch(q_, k_, v_, None, do_, lse_, delta_, 0, wcfg,
+                                      grad_kv_storage_dtype=None, emit_ds=True,
+                                      scale=wd ** -0.5, is_causal=True, causal_offset=0,
+                                      dropout_p=0.0, group=hq // hkv)
+
+    def dkdv_wide_plain(wd):
+        q_, k_, v_, do_, lse_, delta_ = wide[wd]
+        return flash_bwd._dkdv_plain(q_, k_, v_, None, do_, lse_, delta_, scale=wd ** -0.5,
+                                     emit_ds=True, nq_pad=wn, nkv_pad=wn, is_causal=True,
+                                     causal_offset=0, dropout_p=0.0, seed=0, softcap=0.0,
+                                     window=(-1, -1), alibi=None)
 
     def run_banded():
         if "ds" not in state:
@@ -562,6 +642,8 @@ def make_runs(gen) -> tuple:
         "decode": lambda: run_decode()[0],
         "decode_serving": lambda: run_decode(True)[0],
         "dkdv": run_dkdv,
+        "dkdv_d1024": lambda: run_dkdv_wide(1024),
+        "dkdv_d640": lambda: run_dkdv_wide(640),
         "banded_dq": run_banded,
         "dq": run_dq,
         "from_s": run_from_s,
@@ -585,6 +667,8 @@ def make_runs(gen) -> tuple:
     plains = {name: (lambda a=a: fwd_plain(*a)) for name, a in fwd_inputs.items()}
     plains.update({
         "dkdv": dkdv_plain,
+        "dkdv_d1024": lambda: dkdv_wide_plain(1024),
+        "dkdv_d640": lambda: dkdv_wide_plain(640),
         "banded_dq": lambda: flash_bwd._banded_dq_plain(state["ds"], tk, scale=scale, nq=nt,
                                                         nkv=nt),
         "from_s": lambda: flash_bwd._dkdv_from_s_plain(
@@ -631,7 +715,9 @@ def main() -> int:
     }
     base_bwd = trees["base"].get("flash_bwd")
     if base_bwd is not None and not hasattr(base_bwd, "ffpa_bwd_banded_plan"):
-        trees["base"]["flash_bwd"] = LegacyBanded(base_bwd)
+        trees["base"]["flash_bwd"] = base_bwd = LegacyBanded(base_bwd)
+    if base_bwd is not None and LegacyDkdv.needed(base_bwd):
+        trees["base"]["flash_bwd"] = LegacyDkdv(base_bwd)
     base_paged = trees["base"].get("paged_decode")
     if base_paged is not None and not hasattr(base_paged, "ffpa_paged_plan"):
         trees["base"]["paged_decode"] = LegacyPaged(base_paged)
@@ -709,12 +795,13 @@ def main() -> int:
     print(json.dumps({"card": smi, "order": "base head head base", "device_ms": times,
                       "event_ms": events, "host_us": enqueue, "kernel_names": names,
                       "max_abs_diff_head_vs_base": diff, "row_rel_err_vs_plain": vs_plain,
-                      "tol": TOL, "fwd_tol": FWD_TOL, "kernel_tol": KERNEL_TOL}))
+                      "tol": TOL, "fwd_tol": FWD_TOL, "kernel_tol": KERNEL_TOL,
+                      "grad_kernel_tol": GRAD_KERNEL_TOL}))
 
     def held(k, e) -> bool:
         if isinstance(e, dict):
             return all(v < FWD_TOL[n] for n, v in e.items())
-        return e < KERNEL_TOL.get(k, TOL)
+        return e < KERNEL_TOL.get(k, GRAD_KERNEL_TOL.get(k, TOL))
 
     return 0 if all(held(k, e) for per in vs_plain.values() for k, es in per.items()
                     for e in es) else 1
