@@ -571,14 +571,16 @@ def _fwd_scores_case(name, *, b=1, hq=8, hkv=4, nq, nkv, d=512, causal=True, bia
     return max_abs(torch.where(band, got, 0.0), torch.where(band, want, 0.0))
 
 
-def _s_resident_bwd_case(name, *, b=1, h=8, n, d, seed=0):
+def _s_resident_bwd_case(name, *, b=1, h=8, n, d, seed=0) -> dict:
     """``ffpa_attn_func(..., is_causal=True)`` and ``.backward`` through the
-    S-resident tier (``save_scores=True``) at head dim ``d``: its launches,
-    then the gradients per row against the plain backward chain fed the
-    forward kernel's (o, lse, S) and, as whole tensors, against the fp32
-    oracle's autograd."""
+    S-resident tier (``save_scores=True``) at head dim ``d``: its launches
+    (the counts set to 0 just before, read just after, and returned), the
+    from-S route the launch took, then the gradients per row against the
+    plain backward chain fed the forward kernel's (o, lse, S) and, as whole
+    tensors, against the fp32 oracle's autograd."""
     from ffpa_attn_tpu_torch import CudaBackend, ffpa_attn_func
     from ffpa_attn_tpu_torch.ops import flash_bwd, flash_fwd
+    from ffpa_attn_tpu_torch.ops.config import from_s_plan
     from ffpa_attn_tpu_torch.ops.dispatch import pick_backward_config
     from ffpa_attn_tpu_torch.ops.reference import reference_attention
 
@@ -592,7 +594,9 @@ def _s_resident_bwd_case(name, *, b=1, h=8, n, d, seed=0):
     o.backward(do)
     torch.cuda.synchronize()
     counts = {n_: c for n_, c in _counts(TRAIN_KERNELS).items() if c}
-    cfg = pick_backward_config(d=d, dv=d, nq=n, nkv=n, dtype=bf)
+    cfg = flash_bwd._fit_blocks_to_scores(pick_backward_config(d=d, dv=d, nq=n, nkv=n, dtype=bf),
+                                          n, n, d, d, bf)
+    route = from_s_plan(d, cfg.dkdv_dk_in_kernel).route
     want = {"flash_fwd": 1, "dkdv_from_s": 1, "banded_dq": 1}
     if not cfg.dkdv_dk_in_kernel:
         want["banded_dk"] = 1
@@ -615,33 +619,39 @@ def _s_resident_bwd_case(name, *, b=1, h=8, n, d, seed=0):
     ok = counts == want and all(e < tol for e in errs.values()) and all(
         bool(torch.isfinite(t.grad).all()) for t in leaves)
     log(f"  S-resident bwd {name:<13} ffpa_attn_func B{b} H{h} N{n} D{d} causal, forward route "
-        f"{flash_fwd.fwd_kernel_plan(d, d).route}, launches {counts}: "
+        f"{flash_fwd.fwd_kernel_plan(d, d).route}, from-S route {route}, launches {counts}: "
         + " ".join(f"{nm} {e:.2e}" for nm, e in errs.items())
         + f" (tol {tol:g}; per row vs plain, whole vs oracle) {'ok' if ok else 'FAIL'}")
     if not ok:
         fail(f"S-resident backward at D{d}: launches {counts} (want {want}) or gradients off")
+    if d > 512 and route != "wgmma_cluster":
+        fail(f"the S-resident backward at D{d} took the from-S route {route}, not the cluster")
+    return counts
 
 
-def _from_s_case(name, *, b=1, hq=8, hkv=4, nq, nkv, d=512, causal=True, bias=None,
+def _from_s_case(name, *, b=1, hq=8, hkv=4, nq, nkv, d=512, dv=None, causal=True, bias=None,
                  softcap=0.0, dropout=0.0, sinks=False, nan_fill=False, banded_out=None,
                  seed=0):
-    """The from-S dK/dV kernel in each variant it takes, banded dK (causal)
-    and banded dQ from its slab, against their plain versions on the same
-    inputs. The S residual comes from the forward kernel; with
-    ``nan_fill`` everything of the slab outside the band (the tiles the
-    forward never writes, padding) is NaN before the backward reads it;
-    ``banded_out`` is the dtype banded dK and banded dQ write (fp32: the
-    kernels' out_f32 stores)."""
+    """The from-S dK/dV kernel in each variant it takes at head dims (d,
+    dv) (dv defaults to d; dK out of the kernel runs the wgmma block at Dv
+    <= 512 and its cluster above), banded dK (causal) and banded dQ from
+    its slab, against their plain versions on the same inputs. The S
+    residual comes from the forward kernel; with ``nan_fill`` everything
+    of the slab outside the band (the tiles the forward never writes,
+    padding) is NaN before the backward reads it; ``banded_out`` is the
+    dtype banded dK and banded dQ write (fp32: the kernels' out_f32
+    stores)."""
     from ffpa_attn_tpu_torch.ops import flash_bwd, flash_fwd
     from ffpa_attn_tpu_torch.ops.attention import apply_sinks
-    from ffpa_attn_tpu_torch.ops.config import from_s_fits
+    from ffpa_attn_tpu_torch.ops.config import from_s_fits, from_s_plan
     from ffpa_attn_tpu_torch.ops.dispatch import pick_backward_config
 
+    dv = dv or d
     gen = torch.Generator(device="cuda").manual_seed(300 + seed)
     bf = torch.bfloat16
     q, k, v = _randn((b, hq, nq, d), bf, gen), _randn((b, hkv, nkv, d), bf, gen), _randn(
-        (b, hkv, nkv, d), bf, gen)
-    do = _randn((b, hq, nq, d), bf, gen)
+        (b, hkv, nkv, dv), bf, gen)
+    do = _randn((b, hq, nq, dv), bf, gen)
     bias_t = _randn((b, 1, nq, nkv), torch.float32, gen) if bias == "full" else None
     scale, group = 1.0 / math.sqrt(d), hq // hkv
     o, lse, s = flash_fwd.flash_attention_forward(
@@ -657,14 +667,15 @@ def _from_s_case(name, *, b=1, hq=8, hkv=4, nq, nkv, d=512, causal=True, bias=No
             band &= cols <= rows + nkv - nq
         s.masked_fill_(~band, float("nan"))
     delta = (do.float() * o.float()).sum(-1)
-    cfg = pick_backward_config(d=d, dv=d, nq=nq, nkv=nkv, dtype=bf)
+    cfg = pick_backward_config(d=d, dv=dv, nq=nq, nkv=nkv, dtype=bf)
     kw = dict(scale=scale, is_causal=causal, causal_offset=nkv - nq, dropout_p=dropout,
               softcap=softcap)
     tol = GRAD_TOL[bf]
-    errs, slab = {}, None
+    errs, slab, routes = {}, None, []
     for dk_in in (True, False):
-        if dk_in and not from_s_fits(d, d, True):
+        if dk_in and not from_s_fits(d, dv, True):
             continue
+        routes.append(from_s_plan(dv, dk_in).route)
         c = "in" if dk_in else "out"
         ks = s.clone()
         kdk, kdv, kds = flash_bwd._dkdv_from_s_launch(
@@ -701,7 +712,7 @@ def _from_s_case(name, *, b=1, hq=8, hkv=4, nq, nkv, d=512, causal=True, bias=No
     if bias_t is not None:
         errs["dbias"] = rel(flash_bwd._dbias_from_ds(slab[:, :, :nq, :nkv], bias_t), pdb)
     ok = all(e < tol for e in errs.values())
-    log(f"  from-S {name:<19} slab {tuple(s.shape)} " + " ".join(
+    log(f"  from-S {name:<19} {'/'.join(routes)} slab {tuple(s.shape)} " + " ".join(
         f"{n} {e:.2e}" for n, e in errs.items()) + f" (tol {tol:g}, per row) "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
@@ -996,7 +1007,11 @@ def phase_kernels_vs_plain() -> dict:
                      bias=True, seed=11)
     _fwd_scores_case("d640_softcap", nq=1024, nkv=1024, d=640, softcap=30.0, seed=12)
     _fwd_scores_case("d1024_nq20_rows_pad32", nq=20, nkv=300, d=1024, seed=13)
-    _s_resident_bwd_case("d1024_causal", n=1024, d=1024)
+    # The from-S cluster's path: an S-resident backward above D512 through
+    # the entry point, one from-S launch on the cluster route each.
+    errs["from_s_cluster_launches"] = sum(
+        _s_resident_bwd_case(nm, n=1024, d=dh)["dkdv_from_s"]
+        for nm, dh in (("d1024_causal", 1024), ("d640_causal", 640)))
     _from_s_case("gqa_N1024", nq=1024, nkv=1024)
     _from_s_case("bias_full_noncausal", nq=1024, nkv=1024, causal=False, bias="full", seed=1)
     _from_s_case("dropout", nq=1024, nkv=1024, dropout=0.1, seed=2)
@@ -1005,7 +1020,23 @@ def phase_kernels_vs_plain() -> dict:
     _from_s_case("nq1000_nkv1100", nq=1000, nkv=1100, seed=5)
     _from_s_case("nq20_rows_pad32", nq=20, nkv=300, seed=6)
     _from_s_case("d320", nq=1024, nkv=1024, d=320, seed=7)
-    _from_s_case("d1024", nq=1024, nkv=1024, d=1024, seed=8)
+    # The cluster route (dK out of the kernel, Dv > 512): odd box counts
+    # (rank 0 five boxes, rank 1 four at Dv 576), D != Dv, the features it
+    # replays, a NaN-filled slab, and many Q tiles a block (a race between
+    # rank 0's dS stores and rank 1's read of an S tile shows in dV's upper
+    # columns).
+    _from_s_case("d1024_cluster", nq=1024, nkv=1024, d=1024, seed=8)
+    _from_s_case("dv576_odd_boxes", nq=1000, nkv=1100, d=576, seed=13)
+    _from_s_case("d640", nq=1024, nkv=1024, d=640, seed=14)
+    _from_s_case("d64_dv1024", nq=1024, nkv=1024, d=64, dv=1024, seed=15)
+    _from_s_case("d512_dv1024_noncausal", nq=1024, nkv=1100, d=512, dv=1024, causal=False,
+                 seed=16)
+    _from_s_case("d1024_dropout_group4", hq=8, hkv=2, nq=1024, nkv=1024, d=1024, dropout=0.1,
+                 seed=17)
+    _from_s_case("d1024_softcap", nq=1024, nkv=1024, d=1024, softcap=30.0, seed=18)
+    _from_s_case("d640_nan_filled_slab", nq=1000, nkv=1100, d=640, nan_fill=True, seed=19)
+    _from_s_case("d1024_nq20_rows_pad32", nq=20, nkv=300, d=1024, seed=20)
+    _from_s_case("d1024_many_q_tiles", hq=8, hkv=2, nq=4096, nkv=4096, d=1024, seed=21)
     _from_s_case("nan_filled_slab", nq=1000, nkv=1100, nan_fill=True, seed=9)
     _from_s_case("mha_batch2", b=2, hq=4, hkv=4, nq=512, nkv=640, seed=10)
     _from_s_case("gqa_group4_dropout", hq=8, hkv=2, nq=1024, nkv=1024, dropout=0.1, seed=11)
@@ -2554,13 +2585,16 @@ def _profile_step(label: str, run: dict) -> dict:
     return w["by_kernel"]
 
 
-def training_times(training: dict, windowed: dict, resident: dict) -> tuple:
+def training_times(training: dict, windowed: dict, resident: dict,
+                   from_s_cluster_launches: int) -> tuple:
     """One step of the handoff and of the S-resident model under the
     profiler, then the backward kernels at their main-path shapes, each held
     against its plain version on the same inputs and timed beside it: dkdv
     (with the dS slab) and banded dQ at the training step's shape, dq at
-    the windowed model's, and the S-resident tier's from-S pass (both
-    variants) and banded dK."""
+    the windowed model's, the S-resident tier's from-S pass (both
+    variants), its cluster route above Dv 512 (``from_s_cluster_times``;
+    ``from_s_cluster_launches`` its launches in the S-resident backwards
+    above D512 through ``ffpa_attn_func``) and banded dK."""
     import torch.nn.functional as F
 
     from ffpa_attn_tpu_torch.cli._bench import sdpa_backend
@@ -2776,6 +2810,13 @@ def training_times(training: dict, windowed: dict, resident: dict) -> tuple:
         err, kms, pms, lms, flops, nbytes,
         lambda: _kernel_timed(run_picked, flash_bwd.FROM_S_KERNELS, 10, setup=lambda: s.clone()))
     rows[-1].update(from_s_kernel_row_extras(d, cfg.dkdv_dk_in_kernel))
+    del s, o, lse, delta
+    torch.cuda.empty_cache()
+    fc = from_s_cluster_times()
+    row("dkdv_from_s_cluster", "ffpa_attn_tpu/ops/flash_bwd.py:344", from_s_cluster_launches,
+        fc["err"], fc["kms"], fc["pms"], fc["lms"], fc["flops"], fc["nbytes"], fc["retime"])
+    rows[-1].update(shape=fc["shape"], from_s_route="wgmma_cluster", registers=fc["registers"],
+                    spill_bytes=fc["spill_bytes"])
 
     def run_banded_dk():
         return flash_bwd._banded_dk_from_ds(slab, q, cfg, scale=scale, group=hq // hkv, nq=n,
@@ -2798,7 +2839,7 @@ def training_times(training: dict, windowed: dict, resident: dict) -> tuple:
         f"(library {lms[0]:.4f} ms)")
     row("banded_dk", "ffpa_attn_tpu/ops/flash_bwd.py:1323", resident["launches"]["banded_dk"],
         err, kms, pms, lms, flops, nbytes, lambda: _timed(run_banded_dk, 10))
-    del slab, s, o, lse, delta
+    del slab
     torch.cuda.empty_cache()
     banded_op_level_times()
     dkdv_op_level_times()
@@ -3192,11 +3233,12 @@ def dq_kernel_row_extras(d: int) -> dict:
 
 
 def from_s_kernel_row_extras(d: int, dk_in: bool) -> dict:
-    """The from-S route the training shape's launch takes (head dim ``d``,
-    the dispatch rule's ``dk_in``) and its kernel's registers and spill
-    bytes, for the ``kernels`` line; fails unless the launcher's plan
-    equals its mirror (``ops/config.py`` ``from_s_plan``) at Dv 64..1024
-    with dK in and out of the kernel, and the wgmma kernel spills nothing."""
+    """The from-S route a launch at head dim ``d`` takes (with the dispatch
+    rule's ``dk_in``) and its kernel's registers and spill bytes, for the
+    ``kernels`` line; fails unless the launcher's plan equals its mirror
+    (``ops/config.py`` ``from_s_plan``) at Dv 64..1024 with dK in and out
+    of the kernel, and neither wgmma route (the block, the cluster)
+    spills."""
     from ffpa_attn_tpu_torch.ops import flash_bwd
     from ffpa_attn_tpu_torch.ops.config import from_s_plan
 
@@ -3206,18 +3248,92 @@ def from_s_kernel_row_extras(d: int, dk_in: bool) -> dict:
             fail(f"from-S launcher's plan at Dv{dv} dk_in={dk} "
                  f"{flash_bwd.from_s_kernel_plan(dv, dk)} differs from ops/config.py "
                  f"from_s_plan {from_s_plan(dv, dk)}")
+    attrs = {route: flash_bwd.from_s_kernel_attrs(route)
+             for route in ("wgmma", "wgmma_cluster", "mma_sync")}
     log(f"  from-S plan at Dv{d}: dK out {flash_bwd.from_s_kernel_plan(d, False)}, dK in "
-        f"{flash_bwd.from_s_kernel_plan(d, True)} (the launcher's, equal to ops/config.py "
-        f"from_s_plan at {len(cases)} (Dv, dK in / out) pairs)")
-    for route, dk in (("wgmma", False), ("mma_sync", False), ("mma_sync", True)):
-        a = flash_bwd.from_s_kernel_attrs(route, dk)
-        log(f"  from-S {route} dK {'in' if dk else 'out of'} the kernel: {a['registers']} "
-            f"registers a thread at launch, {a['local_bytes']} local (spill) bytes")
-        if route == "wgmma" and a["local_bytes"] != 0:
-            fail(f"the wgmma from-S kernel spills {a['local_bytes']} bytes")
+        f"{flash_bwd.from_s_kernel_plan(d, True)}; at Dv1024 dK out "
+        f"{flash_bwd.from_s_kernel_plan(1024, False)} (the launcher's, equal to "
+        f"ops/config.py from_s_plan at {len(cases)} (Dv, dK in / out) pairs)")
+    for route, a in attrs.items():
+        log(f"  from-S {route} dK {'in' if route == 'mma_sync' else 'out of'} the kernel: "
+            f"{a['registers']} registers a thread at launch, {a['local_bytes']} local "
+            f"(spill) bytes")
+    for route in ("wgmma", "wgmma_cluster"):
+        if attrs[route]["local_bytes"] != 0:
+            fail(f"the {route} from-S kernel spills {attrs[route]['local_bytes']} bytes")
     route = from_s_plan(d, dk_in).route
-    a = flash_bwd.from_s_kernel_attrs(route, dk_in)
-    return {"from_s_route": route, "registers": a["registers"], "spill_bytes": a["local_bytes"]}
+    return {"from_s_route": route, "registers": attrs[route]["registers"],
+            "spill_bytes": attrs[route]["local_bytes"]}
+
+
+def from_s_cluster_times() -> dict:
+    """The from-S cluster route (dK out of the kernel, Dv > 512) at the
+    bench's D sweep's causal D1024 shape cut to H8 (B1 N8192 bf16, the
+    S-resident tier bf16 takes): the kernel held against its plain version
+    per row (dV and the dS written over the slab), then timed (device ms of
+    the from-S kernel by name, CUDA-event ms less the copy of S each call
+    needs) beside its bound, its plain version and, as its yardstick (no
+    single PyTorch call computes the pass), the two dense ``torch.matmul``
+    it contains, dO V^T and P^T dO, on the same shapes; the pieces of the
+    ``kernels`` line's row ``dkdv_from_s_cluster``, with the kernel's
+    registers and spill bytes."""
+    from ffpa_attn_tpu_torch.ops import flash_bwd, flash_fwd
+    from ffpa_attn_tpu_torch.ops.config import from_s_plan
+    from ffpa_attn_tpu_torch.ops.dispatch import pick_backward_config
+    from ffpa_attn_tpu_torch.utils.profiling import backward_counts
+
+    b, h, n, d, bf = 1, 8, TRAIN_N, 1024, torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(42)
+    q, k, v, do = (_randn((b, h, n, d), bf, gen) for _ in range(4))
+    scale = d ** -0.5
+    o, lse, s = flash_fwd.flash_attention_forward(q, k, v, None, scale=scale, is_causal=True,
+                                                  return_scores=True)
+    delta = (do.float() * o.float()).sum(-1)
+    del o, k
+    cfg = flash_bwd._fit_blocks_to_scores(pick_backward_config(d=d, dv=d, nq=n, nkv=n, dtype=bf),
+                                          n, n, d, d, bf)
+    if from_s_plan(d, cfg.dkdv_dk_in_kernel).route != "wgmma_cluster":
+        fail(f"from-S at D{d} does not take the cluster route")
+    kw = dict(scale=scale, is_causal=True, causal_offset=0, dropout_p=0.0)
+
+    def run():
+        return flash_bwd._dkdv_from_s_launch(q, v, s.clone(), do, lse, delta, 0, cfg, group=1,
+                                             grad_kv_storage_dtype=None, **kw)
+
+    def plain():
+        return flash_bwd._dkdv_from_s_plain(q, v, s, do, lse, delta, seed=0, softcap=0.0,
+                                            dk_in_kernel=False, **kw)
+
+    before = flash_bwd._dkdv_from_s_launch.launches
+    _, kdv, kds = run()
+    torch.cuda.synchronize()
+    if flash_bwd._dkdv_from_s_launch.launches != before + 1:
+        fail("the from-S cluster call at D1024 launched no kernel")
+    _, pdv, pds = plain()
+    err = _hold(f"from_s_cluster_N{n}_D{d}", {"dv": (kdv, pdv), "ds": (kds, pds)})
+    del kdv, kds, pdv, pds
+    torch.cuda.empty_cache()
+    flops, nbytes = backward_counts("dkdv_from_s", b=b, hq=h, hkv=h, nq=n, nkv=n, d=d, dv=d,
+                                    causal=True, slab_bytes=s.numel() * 2)
+
+    def timed():
+        return _kernel_timed(run, flash_bwd.FROM_S_KERNELS, 10, setup=lambda: s.clone())
+
+    kms = timed()
+    pms = _timed(plain, 2, warmup=1)
+    torch.cuda.empty_cache()
+    p_bf = torch.exp(s.float() - lse[..., None]).to(bf)
+    lms = _timed(lambda: (torch.matmul(do, v.transpose(-1, -2)),
+                          torch.matmul(p_bf.transpose(-1, -2), do)), 5)
+    del p_bf
+    log(f"  from-S cluster route (B{b} H{h} N{n} D{d} causal bf16, dK out of the kernel): "
+        f"{kms[0]:.4f} ms [{kms[1]:.4f}], {flops / kms[0] / 1e9:.1f} TFLOP/s; plain "
+        f"{pms[0]:.4f} ms; yardstick (two dense torch.matmul, dO V^T and P^T dO) {lms[0]:.4f} ms; "
+        f"max|err| vs plain {err:.3e}")
+    a = flash_bwd.from_s_kernel_attrs("wgmma_cluster")
+    return dict(shape=f"B{b} H{h} N{n} D{d} causal bf16", err=err, kms=kms, pms=pms, lms=lms,
+                flops=flops, nbytes=nbytes, retime=timed, registers=a["registers"],
+                spill_bytes=a["local_bytes"])
 
 
 def dkdv_op_level_times() -> None:
@@ -3793,7 +3909,8 @@ def phase_times(errs: dict, main_path: dict, training: dict, windowed: dict,
     events["decode"] = (kms[1], pms[1], lms[1])
     torch.cuda.empty_cache()
     serve_rows, serve_events = serving_times(errs, serving, main_path["model"])
-    train_rows, train_events, fwd_train = training_times(training, windowed, resident)
+    train_rows, train_events, fwd_train = training_times(training, windowed, resident,
+                                                         errs["from_s_cluster_launches"])
     rows[0].update(fwd_train)  # the flash_fwd row: the training shape beside the prefill
     packed_rows, packed_events, fwd_packed = packed_training_times(packed)
     serve_rows[0].update(fwd_packed)  # the varlen_fwd row: the 8192 packing beside serving

@@ -498,10 +498,12 @@ def run_case(
 
         device_ms = statistics.median(queued() for _ in range(WINDOWS))
         # The split by kernel from the profiler, kept only where its window
-        # holds (nearly) the whole device time: on an H100 it lost device
-        # events in processes that had run large baselines, and a window of
-        # many small kernels sums to less than the queued time by the gaps
-        # between them.
+        # holds (nearly) the whole device time and the port's kernels: on an
+        # H100 it lost device events in processes that had run large
+        # baselines (a bench process's non-causal backward kept the fp32
+        # products' GEMMs and lost the from-S kernel, whose launch the
+        # counts above show), and a window of many small kernels sums to
+        # less than the queued time by the gaps between them.
         try:
             if direction == "fwd":
                 w = profiling.device_window(fwd_call(ffpa_fwd, mask), reps=iters, warmup=1)
@@ -510,12 +512,11 @@ def run_case(
         except profiling.LostDeviceEvents:
             w = None
         reps = iters if direction == "fwd" else 1
-        if w is not None and w["device_ms"] / reps >= 0.85 * device_ms:
-            port_ms = sum(ms for n, ms in w["by_kernel"].items() if is_port_kernel(n))
-            timed_launches = launches if direction == "fwd" else backward_launches
-            if timed_launches and port_ms <= 0.0:
-                raise RuntimeError(f"bench {case.name} {direction}: no kernel the profiler saw "
-                                   f"is the port's: {sorted(w['by_kernel'])}")
+        timed_launches = launches if direction == "fwd" else backward_launches
+        port_ms = 0.0 if w is None else sum(
+            ms for n, ms in w["by_kernel"].items() if is_port_kernel(n))
+        if (w is not None and w["device_ms"] / reps >= 0.85 * device_ms
+                and (port_ms > 0.0 or not timed_launches)):
             non_port_ms = (w["device_ms"] - port_ms) / reps
         else:
             print(f"  [{case.name} {direction}: the profiler lost device events; the split by "

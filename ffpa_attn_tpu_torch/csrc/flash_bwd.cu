@@ -13,9 +13,10 @@
 // routes, by head dims alone (dkdv::make_plan): one block at D, Dv <= 512,
 // a thread-block cluster of two that splits D and Dv above, up to 1024.
 // dQ for D, Dv <= 512 does too (namespace dq, dq::make_plan's route), and
-// so does from-S with dK out of the kernel at Dv <= 512 (namespace from_s;
-// the route is from_s::make_plan's). dQ for wider heads and the other
-// from-S variants are built from the mma.sync pieces of bwd_tiles.cuh: 16 warps,
+// so does from-S with dK out of the kernel (namespace from_s, the route
+// from_s::make_plan's): one block at Dv <= 512, a cluster of two that
+// splits Dv above, up to 1024. dQ for wider heads and from-S with dK in
+// the kernel are built from the mma.sync pieces of bwd_tiles.cuh: 16 warps,
 // mma.sync m16n8k16 (bf16 or f16 in, fp32 accumulate) fed by ldmatrix, a
 // block's owned tile resident in shared memory and the other operand
 // streamed in 64 x 64 chunks through a 4-slot cp.async ring, fp32
@@ -350,22 +351,21 @@ size_t from_s_smem_bytes(int dv) {
          2 * QT * sizeof(float);
 }
 
-// The mma.sync route of ffpa_bwd_dkdv_from_s: dK in the kernel (DK), or dK
-// out of it at Dv > 512 (dK out at Dv <= 512 takes the wgmma block of
-// namespace from_s below). A block owns KV rows [kv0, kv0 + 32) of one KV
+// The mma.sync route of ffpa_bwd_dkdv_from_s: dK in the kernel (dK out of
+// it takes the wgmma block of namespace from_s below, or its cluster of two
+// above Dv 512). A block owns KV rows [kv0, kv0 + 32) of one KV
 // head with V resident and walks the GQA group's 128-row Q tiles of the
 // causal band. Per tile the ring brings the S tile (128 x 32 of the slab),
-// then the dO chunks, then (DK) the Q chunks. P = exp(S - lse) is re-masked
+// then the dO chunks, then the Q chunks. P = exp(S - lse) is re-masked
 // here (rows past Nq, columns past Nkv or above the causal diagonal give 0
 // whatever the slab holds there), dP^T = V dO^T and dV += P^T dO share the
 // dO stream, dS = P (dP - delta) (times the softcap factor 1 - (s/cap)^2
-// read from S) overwrites the S tile in place, and with DK dK += dS^T Q.
+// read from S) overwrites the S tile in place, and dK += dS^T Q.
 // Exactly one block owns each slab tile and reads it before it writes it,
 // so the in-place update has no race. Q tiles the band skips get zeros, so
 // every tile of the slab is defined for banded dQ / dK and dbias. 16 warps
-// as 2 row tiles x 8: dV alone up to 1024 columns, or dK and dV up to 512
-// each (DK), in 64 fp32 registers a thread.
-template <bool DK>
+// as 2 row tiles x 8: dK and dV up to 512 columns each, in 64 fp32
+// registers a thread.
 __global__ void __launch_bounds__(NTHR, 1) dkdv_from_s_kernel(const BwdParams p) {
   using T = __nv_bfloat16;
   constexpr int KV = KVT;
@@ -375,7 +375,7 @@ __global__ void __launch_bounds__(NTHR, 1) dkdv_from_s_kernel(const BwdParams p)
   constexpr int NQ8 = CQ / 8;    // n8 tiles of them (2)
   constexpr int CW = CH / WC;    // dK / dV columns per chunk per warp (8)
   constexpr int NC8 = CW / 8;    // n8 tiles of them (1)
-  constexpr int MAXV = ACC_PER_THREAD / ((DK ? 2 : 1) * 4 * NC8);  // dV chunks held
+  constexpr int MAXV = ACC_PER_THREAD / (2 * 4 * NC8);  // dK and dV chunks held
   static_assert(KV * QT / 8 % NTHR == 0, "slab tile vectors per thread");
 
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -413,9 +413,9 @@ __global__ void __launch_bounds__(NTHR, 1) dkdv_from_s_kernel(const BwdParams p)
   cp_async_commit();
 
   // Chunk gi of the stream: per Q tile, the S tile (128 rows x KV columns
-  // of the slab; rows past the slab zero-filled), the nV dO chunks, and
-  // with DK the nD Q chunks (128 x 64, rows past Nq zero-filled).
-  const int per_tile = 1 + nV + (DK ? nD : 0);
+  // of the slab; rows past the slab zero-filled), the nV dO chunks and the
+  // nD Q chunks (128 x 64, rows past Nq zero-filled).
+  const int per_tile = 1 + nV + nD;
   const int total = ntiles * per_tile;
   auto issue = [&](int gi) {
     if (gi < total) {
@@ -456,7 +456,7 @@ __global__ void __launch_bounds__(NTHR, 1) dkdv_from_s_kernel(const BwdParams p)
   };
 
   float dv_acc[MAXV][NC8][4];
-  float dk_acc[DK ? MAXV : 1][1][4];
+  float dk_acc[MAXV][1][4];
 #pragma unroll
   for (int c = 0; c < MAXV; ++c)
 #pragma unroll
@@ -464,7 +464,7 @@ __global__ void __launch_bounds__(NTHR, 1) dkdv_from_s_kernel(const BwdParams p)
 #pragma unroll
       for (int e = 0; e < 4; ++e) dv_acc[c][n][e] = 0.f;
 #pragma unroll
-  for (int c = 0; c < (DK ? MAXV : 1); ++c)
+  for (int c = 0; c < MAXV; ++c)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[c][0][e] = 0.f;
 
@@ -568,27 +568,25 @@ __global__ void __launch_bounds__(NTHR, 1) dkdv_from_s_kernel(const BwdParams p)
       }
     }
 
-    if constexpr (DK) {
-      // dK += dS^T Q over the Q chunks, this warp's dS^T rows held as A
-      // fragments across the chunks.
-      uint32_t dsf[QT / 16][4];
+    // dK += dS^T Q over the Q chunks, this warp's dS^T rows held as A
+    // fragments across the chunks.
+    uint32_t dsf[QT / 16][4];
 #pragma unroll
-      for (int dc = 0; dc < MAXV; ++dc) {
-        if (dc < nD) {
-          const T* ch = begin(gt + 1 + nV + dc);
-          if (dc == 0) {
+    for (int dc = 0; dc < MAXV; ++dc) {
+      if (dc < nD) {
+        const T* ch = begin(gt + 1 + nV + dc);
+        if (dc == 0) {
 #pragma unroll
-            for (int kk = 0; kk < QT / 16; ++kk)
-              ldsm_x4(dsf[kk], dSt + (rt * 16 + L.a_row) * LDP + kk * 16 + L.a_col);
-          }
-#pragma unroll
-          for (int kk = 0; kk < QT / 16; ++kk) {
-            uint32_t bf[2];
-            ldsm_x2_trans(bf, ch + (kk * 16 + L.bt_row) * LDC + wc * CW);
-            mma16816<T>(dk_acc[dc][0], dsf[kk], bf[0], bf[1]);
-          }
-          __syncthreads();
+          for (int kk = 0; kk < QT / 16; ++kk)
+            ldsm_x4(dsf[kk], dSt + (rt * 16 + L.a_row) * LDP + kk * 16 + L.a_col);
         }
+#pragma unroll
+        for (int kk = 0; kk < QT / 16; ++kk) {
+          uint32_t bf[2];
+          ldsm_x2_trans(bf, ch + (kk * 16 + L.bt_row) * LDC + wc * CW);
+          mma16816<T>(dk_acc[dc][0], dsf[kk], bf[0], bf[1]);
+        }
+        __syncthreads();
       }
     }
   }
@@ -605,7 +603,7 @@ __global__ void __launch_bounds__(NTHR, 1) dkdv_from_s_kernel(const BwdParams p)
     }
   }
 
-  // Epilogue: dV (and dK = scale * sum); rows past Nkv are not stored.
+  // Epilogue: dV and dK = scale * sum; rows past Nkv are not stored.
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int kv = kv0 + kv_loc + 8 * hh;
@@ -619,11 +617,9 @@ __global__ void __launch_bounds__(NTHR, 1) dkdv_from_s_kernel(const BwdParams p)
         const int col = c * CH + wc * CW + n * 8 + 2 * t4;
         if (c < nV)
           store2<T>(p.dv, rv + col, dv_acc[c][n][2 * hh], dv_acc[c][n][2 * hh + 1], p.out_f32);
-        if constexpr (DK) {
-          if (c < nD)
-            store2<T>(p.dk, rk + col, dk_acc[c][0][2 * hh] * p.scale,
-                      dk_acc[c][0][2 * hh + 1] * p.scale, p.out_f32);
-        }
+        if (c < nD)
+          store2<T>(p.dk, rk + col, dk_acc[c][0][2 * hh] * p.scale,
+                    dk_acc[c][0][2 * hh + 1] * p.scale, p.out_f32);
       }
     }
   }
@@ -2036,8 +2032,8 @@ cudaError_t launch(const BwdParams& p, const Plan& pl, int B, cudaStream_t strea
 }  // namespace dq
 
 // ---------------------------------------------------------------------------
-// dK / dV from the S residual, dK out of the kernel, Dv <= 512: TMA +
-// mbarrier + wgmma
+// dK / dV from the S residual, dK out of the kernel: TMA + mbarrier +
+// wgmma, one block (Dv <= 512) or a cluster of two (Dv in (512, 1024])
 // ---------------------------------------------------------------------------
 
 // The Hopper route of ffpa_bwd_dkdv_from_s with dK out of the kernel (the
@@ -2089,6 +2085,41 @@ cudaError_t launch(const BwdParams& p, const Plan& pl, int B, cudaStream_t strea
 // are template arguments, each stage's products are committed in their
 // own block, stage releases and the slab stores under wgmma are predicated
 // instructions, and the zeros of dV are fenced off from its products.
+//
+// Dv <= 512 (SPLIT false): one block holds all of Dv, 9 stages at Dv 512.
+//
+// Wider Dv (SPLIT true, Dv in (512, 1024]; every bf16 S-resident backward
+// above D512): a 64 x 1024 V tile (128 KB) leaves too little room for the
+// ring, and a 64 x 512 fp32 dV half is all a consumer's registers hold, so
+// a cluster of two blocks (grid x = 2 x KV tiles, the pair adjacent in x:
+// the same block order) owns the 64 KV rows and splits Dv: rank r holds
+// the V boxes of its half of Dv resident (rank 0 the larger; sm90.cuh
+// col_block) and per Q tile streams only the dO boxes of that half, plus
+// the S box, which both ranks load; every byte of V and dO is read once
+// per cluster. Consumer c of each rank computes a partial dP^T over its
+// rank's Dv boxes (64 x 32 fp32, 8 KB), stores it into the shared memory
+// of the partner's consumer c (st.async, completing its bytes on the
+// partner's barrier) and adds the partner's partial to its own. fp32
+// addition of two values is commutative, so both ranks hold bit-identical
+// dP^T, and so the same P, dS and dropout mask, with no second exchange.
+// Each rank then runs dV[:, its half] += P^T dO on its own dO boxes (at
+// most 4 a consumer: 128 registers a thread, as at Dv 512) and stores its
+// own dV columns. Only dP^T crosses the pair: S is read from the slab, not
+// recomputed, and no K or Q is resident.
+// The exchange is double-buffered (32 KB; 7 stages at Dv 1024 beside a
+// rank's 8 V boxes): a rank stores into slot t % 2 at tile t only after it
+// received the partner's tile t - 1, which the partner stored after
+// reading its slot of tile t - 2, so no slot is overwritten unread.
+// The in-place write and the partner's read of the same S tile: rank 0
+// alone writes dS over the slab (and the zero tiles above the band), and a
+// consumer sends its partial of tile t only after it waited on its own S
+// box's barrier for tile t (that TMA load has landed). Rank 0 forms dS of
+// tile t only after both of its consumers received the partner's partials
+// of tile t, so its stores come after rank 1's read of that tile. Both
+// ranks walk the same Q tiles (the band depends on KV rows alone). The
+// cluster barrier at the start publishes the barriers' initialisation, the
+// one at the end keeps a block alive while its partner may still store
+// into it.
 namespace from_s {
 
 using namespace ffpa::sm90;
@@ -2096,47 +2127,73 @@ using namespace ffpa::sm90;
 constexpr int ROWS = 64;                 // KV rows of a block
 constexpr int QROWS = 64;                // Q rows of a streamed tile
 constexpr int COLS = 64;                 // columns of a box (128 B of 16-bit)
-constexpr int MAX_BOXES = 8;             // Dv <= 512 on this route
+constexpr int MAX_BOXES = 8;             // Dv boxes of a block: Dv 512, a rank's half of Dv 1024
 constexpr int V_BOXES = MAX_BOXES / 2;   // Dv boxes of one consumer's dV: 64 x 256 fp32
 constexpr int STAGE_BYTES = 2 * BOX_BYTES;
 constexpr int MAX_STAGES = 12;
 constexpr int THREADS = 384;             // producer warpgroup + 2 consumer warpgroups
 constexpr int CONSUMER_WARPS = 8;        // arrivals that free a stage
+constexpr int PART_BYTES = ROWS * 32 * 4;  // one consumer's partial dP^T (64 x 32 fp32)
+constexpr int PART_SLOTS = 2;            // the exchange is double-buffered
+constexpr int XCH_BYTES = PART_SLOTS * 2 * PART_BYTES;  // both consumers, both slots
 constexpr int SMEM_LIMIT = 232448;
-constexpr int WGMMA = 1, MMA_SYNC = 0;   // routes
+constexpr int MMA_SYNC = 0, WGMMA = 1, CLUSTER = 2;  // routes
+
+// A block's share of Dv: its first Dv box and its Dv boxes. Alone a block
+// holds everything; split, rank r holds half, rank 0 the larger half.
+struct Part {
+  int v0, nv;
+};
+__host__ __device__ inline Part part_of(int nv, bool split, int rank) {
+  if (!split) return {0, nv};
+  const Cols c = col_block(nv, 2, rank);
+  return {c.c0 / COLS, c.nc};
+}
+
+// Shared memory of a block laid out for nv V boxes, apart from the ring:
+// V, the P and dS boxes, the 1024 B alignment, V's barrier and, split, the
+// exchange's slots and their barriers. A ring stage is two boxes and its
+// two barriers.
+inline size_t fixed_bytes(int nv, bool split) {
+  return (size_t)(nv + 2) * BOX_BYTES + 1024 + sizeof(uint64_t) +
+         (split ? (size_t)XCH_BYTES + PART_SLOTS * 2 * sizeof(uint64_t) : 0);
+}
+constexpr size_t STAGE_SMEM = STAGE_BYTES + 2 * sizeof(uint64_t);
 
 // The route and tiling of a from-S launch at value head dim Dv (a multiple
-// of 64): dK out of the kernel at Dv <= 512 takes this block, consumer 0
-// owning the first ceil(nv / 2) of Dv's nv boxes and consumer 1 the rest,
-// with as many ring stages as shared memory holds after V and the P and dS
-// boxes (a tile takes 1 + ceil(nv / 2) stages: 9 at Dv 512 hold 1.8
-// tiles); dK in the kernel, and Dv > 512, take the mma.sync
-// dkdv_from_s_kernel. ffpa_bwd_from_s_plan hands it out; ops/config.py
-// from_s_plan mirrors it and the card test holds the two equal.
+// of 64): dK out of the kernel takes this block at Dv <= 512 and its
+// cluster of two up to Dv 1024; within a block (a rank) consumer 0 owns
+// the first ceil(nv / 2) of its nv Dv boxes and consumer 1 the rest, with
+// as many ring stages as shared memory holds beside the rest (a tile
+// takes 1 + ceil(nv / 2) stages: 9 at Dv 512 hold 1.8 tiles; both ranks
+// lay out rank 0's share, 7 at Dv 1024 hold 1.4). dK in the kernel takes
+// the mma.sync dkdv_from_s_kernel. ffpa_bwd_from_s_plan hands it out;
+// ops/config.py from_s_plan mirrors it and the card test holds the two
+// equal.
 struct Plan {
-  int route, kv_rows, q_rows, stages, nv0;
+  int route, kv_rows, q_rows, stages;
+  Part part[2];  // each rank's share (the lone block's is part[0])
   size_t smem;
 };
 inline Plan make_plan(int Dv, bool dk_in) {
   Plan pl;
   const int nv = Dv / COLS;
-  if (!dk_in && nv <= MAX_BOXES) {
-    pl.route = WGMMA;
+  if (!dk_in && nv <= 2 * MAX_BOXES) {
+    const bool split = nv > MAX_BOXES;
+    pl.route = split ? CLUSTER : WGMMA;
     pl.kv_rows = ROWS;
     pl.q_rows = QROWS;
-    pl.nv0 = (nv + 1) / 2;
-    // V, the P and dS boxes, the 1024 B alignment and V's barrier; a stage
-    // is two boxes and its two barriers.
-    const size_t fixed = (size_t)(nv + 2) * BOX_BYTES + 1024 + sizeof(uint64_t);
-    const size_t stage = STAGE_BYTES + 2 * sizeof(uint64_t);
-    pl.stages = (int)std::min((size_t)MAX_STAGES, (SMEM_LIMIT - fixed) / stage);
-    pl.smem = fixed + pl.stages * stage;
+    pl.part[0] = part_of(nv, split, 0);
+    pl.part[1] = part_of(nv, split, 1);
+    const size_t fixed = fixed_bytes(pl.part[0].nv, split);
+    pl.stages = (int)std::min((size_t)MAX_STAGES, (SMEM_LIMIT - fixed) / STAGE_SMEM);
+    pl.smem = fixed + pl.stages * STAGE_SMEM;
   } else {
     pl.route = MMA_SYNC;
     pl.kv_rows = KVT;
     pl.q_rows = QT;
     pl.stages = NST;
-    pl.nv0 = nv;
+    pl.part[0] = pl.part[1] = {0, nv};
     pl.smem = from_s_smem_bytes(Dv);
   }
   return pl;
@@ -2151,36 +2208,46 @@ struct Maps {
 };
 
 // Shared memory of a block, from a 1024 B boundary: the V boxes, the P and
-// dS boxes, the ring's stages, their full / empty barriers and V's barrier.
+// dS boxes, the ring's stages, the exchange's slots (split), their full /
+// empty barriers, V's barrier and the exchange's barriers (split). Both
+// ranks of a cluster lay it out alike (for rank 0's share), so an offset
+// here is the same offset in the partner.
 struct Smem {
   unsigned char* v;
-  unsigned char* p;   // P^T (dropped): [kv][q]
-  unsigned char* ds;  // dS: [q][kv], the slab's layout
+  unsigned char* p;     // P^T (dropped): [kv][q]
+  unsigned char* ds;    // dS: [q][kv], the slab's layout
   unsigned char* ring;
+  unsigned char* part;  // [slot][consumer][PART_BYTES]: the partner's partial dP^T
   uint64_t* full;
   uint64_t* empty;
   uint64_t* v_full;
+  uint64_t* part_full;  // [slot][consumer]: the partner's partial has landed
 };
+template <bool SPLIT>
 __device__ __forceinline__ Smem carve(unsigned char* base, int nv, int stages) {
   Smem sm;
   sm.v = base;
   sm.p = base + nv * BOX_BYTES;
   sm.ds = sm.p + BOX_BYTES;
   sm.ring = sm.ds + BOX_BYTES;
-  sm.full = reinterpret_cast<uint64_t*>(sm.ring + stages * STAGE_BYTES);
+  sm.part = sm.ring + stages * STAGE_BYTES;
+  sm.full = reinterpret_cast<uint64_t*>(sm.part + (SPLIT ? XCH_BYTES : 0));
   sm.empty = sm.full + stages;
   sm.v_full = sm.empty + stages;
+  sm.part_full = sm.v_full + 1;
   return sm;
 }
 
 // A block's KV rows and the Q tiles of its band, [i_lo, i_lo + ni) of
-// every group member (64-row tiles of ds_rows): the same in every thread.
+// every group member (64-row tiles of ds_rows): the same in every thread
+// and in both ranks of a cluster.
 struct Block {
   int b, kvh, kv0, i_lo, ni, ntiles;
 };
+template <bool SPLIT>
 __device__ __forceinline__ Block block_of(const BwdParams& p) {
   Block k;
-  k.kv0 = blockIdx.x * ROWS;
+  k.kv0 = (SPLIT ? (int)(blockIdx.x >> 1) : (int)blockIdx.x) * ROWS;
   k.kvh = blockIdx.y;
   k.b = blockIdx.z;
   const int nqt = (p.ds_rows + QROWS - 1) / QROWS;
@@ -2192,17 +2259,18 @@ __device__ __forceinline__ Block block_of(const BwdParams& p) {
   return k;
 }
 
-// The producer's thread: V once, then per Q tile the S stage and the dO
-// stages (box j and box nv0 + j, alone where consumer 1's half is shorter).
+// The producer's thread: the block's V boxes once, then per Q tile the S
+// stage and the dO stages of its share of Dv (box j and box nv0 + j of the
+// share, alone where consumer 1's half is shorter).
 __device__ __forceinline__ void produce(const Maps& maps, const BwdParams& p, const Smem& sm,
-                                        const Block& k, int stages, int nv, int nv0) {
+                                        const Block& k, int stages, const Part& pt, int nv0) {
   prefetch_map(&maps.s_map);
   prefetch_map(&maps.do_map);
   prefetch_map(&maps.v_map);
   const int bkv = k.b * p.Hkv + k.kvh;
-  mbar_arrive_expect_tx(sm.v_full, nv * BOX_BYTES);
-  for (int j = 0; j < nv; ++j)
-    tma_load_3d(sm.v + j * BOX_BYTES, &maps.v_map, sm.v_full, j * COLS, k.kv0, bkv);
+  mbar_arrive_expect_tx(sm.v_full, pt.nv * BOX_BYTES);
+  for (int j = 0; j < pt.nv; ++j)
+    tma_load_3d(sm.v + j * BOX_BYTES, &maps.v_map, sm.v_full, (pt.v0 + j) * COLS, k.kv0, bkv);
   int it = 0;
   // Stage it % stages, free again, expecting nb boxes.
   auto claim = [&](int nb) -> unsigned char* {
@@ -2217,19 +2285,19 @@ __device__ __forceinline__ void produce(const Maps& maps, const BwdParams& p, co
     tma_load_3d(dst, &maps.s_map, &sm.full[it % stages], k.kv0, q0, bh);
     ++it;
     for (int j = 0; j < nv0; ++j, ++it) {
-      const bool both = nv0 + j < nv;
+      const bool both = nv0 + j < pt.nv;
       dst = claim(both ? 2 : 1);
-      tma_load_3d(dst, &maps.do_map, &sm.full[it % stages], j * COLS, q0, bh);
+      tma_load_3d(dst, &maps.do_map, &sm.full[it % stages], (pt.v0 + j) * COLS, q0, bh);
       if (both)
-        tma_load_3d(dst + BOX_BYTES, &maps.do_map, &sm.full[it % stages], (nv0 + j) * COLS, q0,
-                    bh);
+        tma_load_3d(dst + BOX_BYTES, &maps.do_map, &sm.full[it % stages],
+                    (pt.v0 + nv0 + j) * COLS, q0, bh);
     }
   }
 }
 
-// Warps 1..3 of the producer warpgroup: zeros over the block's 64 slab
-// columns in the Q tiles above the band (rows below ds_rows), 16 B a
-// thread, 8 threads a row.
+// Warps 1..3 of the producer warpgroup (of rank 0 on the cluster): zeros
+// over the block's 64 slab columns in the Q tiles above the band (rows
+// below ds_rows), 16 B a thread, 8 threads a row.
 __device__ __forceinline__ void zero_above_band(const BwdParams& p, const Block& k) {
   const int u = threadIdx.x - 32, n = 96;
   const int rows = min(k.i_lo * QROWS, p.ds_rows);
@@ -2256,21 +2324,32 @@ __device__ __forceinline__ void st_global_16_if(void* dst, uint4 v, bool pred) {
 // Consumer C of a block; C is a template argument so that no branch around
 // a wgmma depends on the thread. Accumulator element 4 jj + 2 hh + e of
 // thread (warp, g = lane / 4, t4 = lane % 4) of dP^T is KV row 16 warp + g
-// + 8 hh, Q column 32 C + 8 jj + 2 t4 + e.
-template <int C, bool DROP>
+// + 8 hh, Q column 32 C + 8 jj + 2 t4 + e. pt is the block's share of Dv,
+// nv0 consumer 0's boxes of it; rank the block's rank (0 alone), which
+// alone writes the slab.
+template <int C, bool DROP, bool SPLIT>
 __device__ __forceinline__ void consume(const BwdParams& p, const Smem& sm, const Block& k,
-                                        int stages, int nv, int nv0) {
+                                        int stages, const Part& pt, int nv0, int rank) {
   using T = __nv_bfloat16;
   const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
+  const int nv = pt.nv;
   const int own = C == 0 ? nv0 : nv - nv0;  // Dv boxes of this consumer's dV
   const int pairs = nv - nv0;               // dO stages holding two boxes
   const int kr = k.kv0 + 16 * warp + g;     // this thread's KV rows: kr, kr + 8
+  const bool emit = rank == 0;              // this block writes the slab
   // The lanes' row addresses of ldmatrix / stmatrix: matrix m = lane / 8 of
   // a call is (jj = 2 x + m / 2, hh = m % 2), its row lane % 8 the Q column.
   const int xq = 32 * C + 8 * (lane >> 4) + (lane & 7), xk = 16 * warp + 8 * ((lane >> 3) & 1);
   constexpr float LOG2E = 1.4426950408889634f;
   const float inv_cap = p.softcap > 0.f ? __fdividef(1.f, p.softcap) : 0.f;
+  // Split: element 4 i + e of thread tid's partial dP^T sits at (i * 128 +
+  // tid) * 16 + 4 e bytes of its consumer's slot; a thread reads back what
+  // the partner's thread tid stored. The addresses are formed once, before
+  // the products.
+  const uint32_t mine = cvta_smem(sm.part) + C * PART_BYTES + tid * 16;
+  const uint32_t there = SPLIT ? mapa(mine, rank ^ 1) : 0u;
+  const uint32_t there_bar = SPLIT ? mapa(cvta_smem(&sm.part_full[C]), rank ^ 1) : 0u;
 
   // Every ordinary write of an accumulator is fenced off from the wgmma
   // that follows, or ptxas serializes the pipeline.
@@ -2302,11 +2381,12 @@ __device__ __forceinline__ void consume(const BwdParams& p, const Smem& sm, cons
         dl_r[2 * jj + e] = p.delta[q];
       }
 
-    // dP^T for this consumer's 32 Q columns over Dv: the pairs' stages, then
-    // an odd last box alone (a conditional wgmma inside a stage would make
-    // ptxas serialize), each committed beside its products: a commit after
-    // the loop, with no wgmma in its block, became an empty wgmma that ptxas
-    // scheduled into the next mbarrier wait's retry loop (C7520).
+    // dP^T for this consumer's 32 Q columns over the block's Dv: the pairs'
+    // stages, then an odd last box alone (a conditional wgmma inside a stage
+    // would make ptxas serialize), each committed beside its products: a
+    // commit after the loop, with no wgmma in its block, became an empty
+    // wgmma that ptxas scheduled into the next mbarrier wait's retry loop
+    // (C7520).
     float dp[16];
     for (int j = 0; j < pairs; ++j) {
       const int st = (it_do + j) % stages;
@@ -2337,6 +2417,29 @@ __device__ __forceinline__ void consume(const BwdParams& p, const Smem& sm, cons
     }
     wgmma_wait<0>();
     fence_operands(dp);
+
+    if constexpr (SPLIT) {
+      // dP^T = this rank's partial + the partner's, the same bits in both.
+      // This consumer waited on its S box above, so its rank's load of the
+      // tile's S has landed before the partial leaves: rank 0 writes dS
+      // over that tile only after it received both of rank 1's partials.
+      const int slot = t & 1;
+      const uint32_t off = slot * 2 * PART_BYTES;
+      uint64_t* landed = &sm.part_full[slot * 2 + C];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        st_async_v4(there + off + i * 2048, dp + 4 * i, there_bar + slot * 2 * sizeof(uint64_t));
+      mbar_arrive_expect_tx_if(landed, PART_BYTES, tid == 0);
+      mbar_wait_cluster(landed, (t >> 1) & 1);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float x[4];
+        lds_v4(mine + off + i * 2048, x);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[4 * i + e] += x[e];
+      }
+      fence_operands(dp);
+    }
 
     // P (dropped) and dS. A tile with no softcap or dropout, inside the band
     // and the ragged edges on every element, takes p = 2^(s log2 e - lse
@@ -2423,8 +2526,9 @@ __device__ __forceinline__ void consume(const BwdParams& p, const Smem& sm, cons
       }
     }
 
-    // dS over the S tile of the slab while they run: rows q0..q0+63 (those
-    // below ds_rows), 8 columns a 16 B store, 8 threads a row.
+    // dS over the S tile of the slab while they run (rank 0 on the
+    // cluster): rows q0..q0+63 (those below ds_rows), 8 columns a 16 B
+    // store, 8 threads a row.
     {
       const int u = threadIdx.x - 128;
       T* dst = static_cast<T*>(p.ds) + (bh * p.ds_rows + q0) * p.ds_ld + k.kv0;
@@ -2433,7 +2537,7 @@ __device__ __forceinline__ void consume(const BwdParams& p, const Smem& sm, cons
         const int v = u + 256 * x, r = v >> 3, c = v & 7;
         st_global_16_if(dst + (long long)r * p.ds_ld + 8 * c,
                         *reinterpret_cast<const uint4*>(sm.ds + r * 128 + ((c ^ (r & 7)) << 4)),
-                        q0 + r < p.ds_rows);
+                        emit && q0 + r < p.ds_rows);
       }
     }
     wgmma_wait<0>();
@@ -2444,7 +2548,7 @@ __device__ __forceinline__ void consume(const BwdParams& p, const Smem& sm, cons
   fence_operands(acc);
 
   // Epilogue: dV (group-reduced in the walk); rows past Nkv are not stored.
-  const int col0 = C == 0 ? 0 : nv0 * COLS;
+  const int col0 = (pt.v0 + (C == 0 ? 0 : nv0)) * COLS;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int kv = kr + 8 * hh;
@@ -2461,44 +2565,63 @@ __device__ __forceinline__ void consume(const BwdParams& p, const Smem& sm, cons
   }
 }
 
-template <bool DROP>
+template <bool DROP, bool SPLIT>
 __global__ void __launch_bounds__(THREADS, 1)
     wgmma_dkdv_from_s_kernel(const __grid_constant__ Maps maps, const BwdParams p,
                              const int stages) {
   extern __shared__ unsigned char smem_raw[];
-  // Boxes on 1024 B boundaries: the 128 B swizzle's atom.
-  unsigned char* base = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  const int nv = p.Dv / COLS, nv0 = (nv + 1) / 2;
-  const Smem sm = carve(base, nv, stages);
-  const Block k = block_of(p);
+  // Boxes on 1024 B boundaries: the 128 B swizzle's atom. On the cluster
+  // route the offset is added to the shared array itself, so every pointer
+  // into it stays a 32-bit shared one (the forward's cluster spilled a
+  // 64-bit generic one beside its accumulators).
+  unsigned char* base;
+  if constexpr (SPLIT)
+    base = smem_raw + ((1024 - (cvta_smem(smem_raw) & 1023)) & 1023);
+  else
+    base = reinterpret_cast<unsigned char*>(
+        (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const int rank = SPLIT ? (int)cluster_rank() : 0;
+  const int nv = p.Dv / COLS;
+  const Part pt = part_of(nv, SPLIT, rank);
+  const int nv0 = (pt.nv + 1) / 2;
+  const Smem sm = carve<SPLIT>(base, part_of(nv, SPLIT, 0).nv, stages);  // both ranks alike
+  const Block k = block_of<SPLIT>(p);
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
       mbar_init(&sm.full[s], 1);
       mbar_init(&sm.empty[s], CONSUMER_WARPS);
     }
     mbar_init(sm.v_full, 1);
+    if constexpr (SPLIT)
+      for (int s = 0; s < PART_SLOTS * 2; ++s) mbar_init(&sm.part_full[s], 1);
     fence_barrier_init();
   }
-  __syncthreads();
+  // The partner's barriers are initialised before this block's first
+  // store into its shared memory.
+  if constexpr (SPLIT)
+    cluster_sync();
+  else
+    __syncthreads();
 
   if (threadIdx.x < 128) {
     setmaxnreg_dec<40>();
     if (threadIdx.x == 0)
-      produce(maps, p, sm, k, stages, nv, nv0);
-    else if (threadIdx.x >= 32)
+      produce(maps, p, sm, k, stages, pt, nv0);
+    else if (threadIdx.x >= 32 && rank == 0)
       zero_above_band(p, k);
   } else {
     setmaxnreg_inc<232>();
     if (threadIdx.x < 256)
-      consume<0, DROP>(p, sm, k, stages, nv, nv0);
+      consume<0, DROP, SPLIT>(p, sm, k, stages, pt, nv0, rank);
     else
-      consume<1, DROP>(p, sm, k, stages, nv, nv0);
+      consume<1, DROP, SPLIT>(p, sm, k, stages, pt, nv0, rank);
   }
+  if constexpr (SPLIT) cluster_sync();  // the partner may still store into this block
 }
 
 // The host side of one launch: tensor maps, shared memory, the grid (every
-// 64-column KV tile of the slab, so each of its columns is written).
+// 64-column KV tile of the slab, so each of its columns is written; on the
+// cluster route the pair of each tile adjacent along x).
 cudaError_t launch(const BwdParams& p, const Plan& pl, int B, cudaStream_t stream) {
   Maps maps;
   memset(&maps, 0, sizeof(maps));
@@ -2512,12 +2635,16 @@ cudaError_t launch(const BwdParams& p, const Plan& pl, int B, cudaStream_t strea
     e = encode_3d(&maps.v_map, false, p.v, p.Dv, mkv, (uint64_t)B * p.Hkv, (uint64_t)p.Dv * 2,
                   mkv * p.Dv * 2, COLS, ROWS);
   if (e != cudaSuccess) return e;
-  const dim3 grid(p.ds_ld / ROWS, p.Hkv, B);
-  auto kern = p.dropout_p > 0.f ? wgmma_dkdv_from_s_kernel<true>
-                                : wgmma_dkdv_from_s_kernel<false>;
+  const bool split = pl.route == CLUSTER, drop = p.dropout_p > 0.f;
+  const dim3 grid((split ? 2 : 1) * (p.ds_ld / ROWS), p.Hkv, B);
+  auto kern = split ? (drop ? wgmma_dkdv_from_s_kernel<true, true>
+                            : wgmma_dkdv_from_s_kernel<false, true>)
+                    : (drop ? wgmma_dkdv_from_s_kernel<true, false>
+                            : wgmma_dkdv_from_s_kernel<false, false>);
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
   if (e != cudaSuccess) return e;
   if (grid.x * grid.y * grid.z == 0) return cudaSuccess;
+  if (split) return launch_cluster(kern, grid, THREADS, pl.smem, stream, 2, maps, p, pl.stages);
   kern<<<grid, THREADS, pl.smem, stream>>>(maps, p, pl.stages);
   return cudaGetLastError();
 }
@@ -2777,11 +2904,11 @@ extern "C" int ffpa_bwd_dq_attrs(int route, int is_fp16, int block_q, int* regs,
 
 // S-resident dK/dV (bf16): the slab holds S on entry and dS on return. The
 // route is from_s::make_plan's, by Dv and dk_in_kernel alone: dK out of the
-// kernel at Dv <= 512 takes the wgmma block (a slab of 64-column tiles);
-// dK in the kernel (D, Dv <= 512) and dK out at Dv up to 1024 the mma.sync
-// kernel (32-column tiles). kv_tile is not read: it stays in the argument
-// list, which libraries built from older sources share (they take 64 for
-// dK out at Dv <= 512, else 32).
+// kernel takes the wgmma block at Dv <= 512 and its cluster of two up to
+// Dv 1024 (a slab of 64-column tiles); dK in the kernel (D, Dv <= 512) the
+// mma.sync kernel (32-column tiles). kv_tile is not read: it stays in the
+// argument list, which libraries built from older sources share (they take
+// 64 for dK out at Dv <= 512, else 32).
 extern "C" int ffpa_bwd_dkdv_from_s(const void* q, const void* v, const void* dout,
                                     const float* lse, const float* delta, void* slab, void* dk,
                                     void* dv, int dk_in_kernel, int kv_tile, int out_f32, int B,
@@ -2806,55 +2933,71 @@ extern "C" int ffpa_bwd_dkdv_from_s(const void* q, const void* v, const void* do
   const from_s::Plan pl = from_s::make_plan(Dv, dk_in);
   if (ds_ld % pl.kv_rows != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (pl.route == from_s::WGMMA) return (int)from_s::launch(p, pl, B, st);
+  if (pl.route != from_s::MMA_SYNC) return (int)from_s::launch(p, pl, B, st);
   const dim3 grid(Hkv, B, ds_ld / KVT);
-  return (int)launch(dk_in ? dkdv_from_s_kernel<true> : dkdv_from_s_kernel<false>, grid, pl.smem,
-                     p, st);
+  return (int)launch(dkdv_from_s_kernel, grid, pl.smem, p, st);
 }
 
 // The route and tiling ffpa_bwd_dkdv_from_s takes at value head dim Dv (a
-// multiple of 64) and dk_in_kernel: out[0..4] are the route (1 wgmma, 0
-// mma.sync), a block's KV rows, the streamed Q rows, the ring's stages and
-// the dynamic shared-memory bytes; out[5] the number of dV column blocks
-// (the consumers' halves, or the whole block's), then (first column,
-// width) of each; cap is out's length.
+// multiple of 64) and dk_in_kernel: out[0..4] are the route (2 the wgmma
+// cluster, 1 the wgmma block, 0 mma.sync), a block's KV rows, the streamed
+// Q rows, the ring's stages and the dynamic shared-memory bytes; out[5] the
+// number n of dV column blocks (each rank's consumers' halves, rank by
+// rank, or the mma.sync block's whole Dv), then (first column, width) of
+// each; out[6 + 2n] the number of ranks of a cluster (0 for one block),
+// then (first column, width) of each rank's share of Dv; cap is out's
+// length.
 extern "C" int ffpa_bwd_from_s_plan(int Dv, int dk_in_kernel, int* out, int cap) {
-  if (Dv <= 0 || Dv % CH != 0 || cap < 10) return (int)cudaErrorInvalidValue;
+  if (Dv <= 0 || Dv % CH != 0 || cap < 19) return (int)cudaErrorInvalidValue;
   const from_s::Plan pl = from_s::make_plan(Dv, dk_in_kernel != 0);
   out[0] = pl.route;
   out[1] = pl.kv_rows;
   out[2] = pl.q_rows;
   out[3] = pl.stages;
   out[4] = (int)pl.smem;
-  if (pl.route == from_s::WGMMA) {
-    out[5] = 2;
-    out[6] = 0;
-    out[7] = pl.nv0 * CH;
-    out[8] = pl.nv0 * CH;
-    out[9] = Dv - pl.nv0 * CH;
-  } else {
-    out[5] = 1;
+  int n = 0;
+  if (pl.route == from_s::MMA_SYNC) {
     out[6] = 0;
     out[7] = Dv;
+    n = 1;
+  } else {
+    const int ranks = pl.route == from_s::CLUSTER ? 2 : 1;
+    for (int r = 0; r < ranks; ++r)
+      for (int c = 0; c < 2; ++c, ++n) {
+        const sm90::Cols cb = sm90::col_block(pl.part[r].nv, 2, c);
+        out[6 + 2 * n] = pl.part[r].v0 * CH + cb.c0;
+        out[7 + 2 * n] = cb.nc * CH;
+      }
+  }
+  out[5] = n;
+  const int ranks = pl.route == from_s::CLUSTER ? 2 : 0;
+  out[6 + 2 * n] = ranks;
+  for (int r = 0; r < ranks; ++r) {
+    out[7 + 2 * n + 2 * r] = pl.part[r].v0 * CH;
+    out[8 + 2 * n + 2 * r] = pl.part[r].nv * CH;
   }
   return 0;
 }
 
 // Registers a thread (at launch, before setmaxnreg moves them between the
 // warpgroups) and local (spill) bytes a thread of a from-S kernel: route 1
-// the wgmma kernel (the registers of its instantiation without dropout,
-// the larger spill of the two), 0 dkdv_from_s_kernel with dK in the kernel
-// or not.
+// the wgmma block, 2 its cluster (each the registers of its instantiation
+// without dropout, the larger spill of the two), 0 dkdv_from_s_kernel (dK
+// in the kernel; dk_in_kernel is not read).
 extern "C" int ffpa_bwd_from_s_attrs(int route, int dk_in_kernel, int* regs, int* local_bytes) {
+  (void)dk_in_kernel;
   cudaFuncAttributes a, d;
   cudaError_t e;
-  if (route == from_s::WGMMA) {
-    e = cudaFuncGetAttributes(&a, from_s::wgmma_dkdv_from_s_kernel<false>);
-    if (e == cudaSuccess) e = cudaFuncGetAttributes(&d, from_s::wgmma_dkdv_from_s_kernel<true>);
+  if (route == from_s::WGMMA || route == from_s::CLUSTER) {
+    const bool split = route == from_s::CLUSTER;
+    e = cudaFuncGetAttributes(&a, split ? from_s::wgmma_dkdv_from_s_kernel<false, true>
+                                        : from_s::wgmma_dkdv_from_s_kernel<false, false>);
+    if (e == cudaSuccess)
+      e = cudaFuncGetAttributes(&d, split ? from_s::wgmma_dkdv_from_s_kernel<true, true>
+                                          : from_s::wgmma_dkdv_from_s_kernel<true, false>);
     if (e == cudaSuccess) a.localSizeBytes = std::max(a.localSizeBytes, d.localSizeBytes);
   } else {
-    e = dk_in_kernel ? cudaFuncGetAttributes(&a, dkdv_from_s_kernel<true>)
-                     : cudaFuncGetAttributes(&a, dkdv_from_s_kernel<false>);
+    e = cudaFuncGetAttributes(&a, dkdv_from_s_kernel);
   }
   if (e != cudaSuccess) return (int)e;
   *regs = a.numRegs;

@@ -97,11 +97,13 @@ never refused by the card.
     boxes, a producer warpgroup streams each 64-row Q tile's S box and dO
     boxes through a ring of two-box stages, and two consumer warpgroups
     each compute dP^T for half of the tile's Q columns and own half of
-    the fp32 dV tile's columns. dK in the kernel, and Dv up to 1024, take
-    the mma.sync block: 32 KV rows with V resident, the S tile, dO and
-    (dK in kernel) Q through the chunk ring; with dK in the kernel at
-    most 512 columns of each, because a second column pass would read S
-    after the first had overwritten it with dS.
+    the fp32 dV tile's columns. Dv in (512, 1024] takes a cluster of two
+    such blocks, each holding half of Dv's V boxes and adding the
+    partner's partial dP^T to its own through distributed shared memory.
+    dK in the kernel takes the mma.sync block: 32 KV rows with V resident,
+    the S tile, dO and Q through the chunk ring; at most 512 columns of
+    each, because a second column pass would read S after the first had
+    overwritten it with dS.
 * Banded dQ and banded dK (``csrc/flash_bwd.cu`` namespace ``band``, TMA +
   wgmma, ``csrc/sm90.cuh``): a block of 384 threads (a producer warpgroup,
   two consumer warpgroups) owns 128 output rows (Q rows for dQ, KV rows
@@ -169,14 +171,16 @@ _FWD_CLUSTER_STAGES = 7
 _FWD_WG_XCH_BYTES = 2 * 64 * 4
 _FWD_CLUSTER_PART_BYTES = 2 * 2 * 64 * 32 * 4 + 4 * 8
 # Compile-time constants of the wgmma from-S block (flash_bwd.cu namespace
-# from_s: ROWS, QROWS, MAX_BOXES * 64, MAX_STAGES), not settings:
-# from_s_plan mirrors the launcher with them.
+# from_s: ROWS, QROWS, MAX_BOXES * 64, MAX_STAGES, and the cluster's
+# XCH_BYTES with the exchange's 4 barriers), not settings: from_s_plan
+# mirrors the launcher with them.
 _FROM_S_WG_ROWS = 64
 _FROM_S_WG_Q_ROWS = 64
 _FROM_S_WG_MAX_DV = 512
 _FROM_S_WG_MAX_STAGES = 12
-# The from-S pass's widest dV: 1024 columns in the mma.sync block's
-# registers.
+_FROM_S_CLUSTER_PART_BYTES = 2 * 2 * 64 * 32 * 4 + 4 * 8
+# The from-S pass's widest dV with dK out of the kernel: 1024 columns, a
+# cluster of two blocks each holding half.
 FROM_S_MAX_DV = 1024
 # Compile-time constants of the wgmma recompute dQ block (flash_bwd.cu
 # namespace dq: ROWS, KV_ROWS, MAX_BOXES * 64, MAX_STAGES), not settings:
@@ -595,12 +599,15 @@ class FromSPlan:
     hands its own out through ``flash_bwd.from_s_kernel_plan``; the card
     test holds the two equal).
 
-    ``route`` is "wgmma" (dK out of the kernel, Dv <= 512) or "mma_sync";
-    ``kv_rows`` a block's KV rows (the slab's column tile), ``q_rows`` the
-    streamed Q rows, ``stages`` the ring's depth, ``smem_bytes`` the
-    dynamic shared memory a block asks for and ``dv_blocks`` the (first
-    column, width) of dV each consumer owns (one block on mma.sync; a
-    width may be 0).
+    ``route`` is "wgmma" (dK out of the kernel, Dv <= 512),
+    "wgmma_cluster" (dK out, Dv in (512, 1024]) or "mma_sync" (dK in the
+    kernel); ``kv_rows`` a block's KV rows (the slab's column tile),
+    ``q_rows`` the streamed Q rows, ``stages`` the ring's depth,
+    ``smem_bytes`` the dynamic shared memory a block asks for and
+    ``dv_blocks`` the (first column, width) of dV each consumer owns, rank
+    by rank on the cluster (one block on mma.sync; a width may be 0).
+    ``rank_blocks`` holds the (first column, width) of Dv each rank of the
+    cluster holds; it is empty where one block holds all of Dv.
     """
 
     route: str
@@ -609,27 +616,36 @@ class FromSPlan:
     stages: int
     smem_bytes: int
     dv_blocks: tuple
+    rank_blocks: tuple = ()
 
 
 def from_s_plan(dv: int, dk_in_kernel: bool, itemsize: int = 2) -> FromSPlan:
     """The from-S route by Dv (padded to 64-column chunks) and
-    ``dk_in_kernel`` alone: dK out of the kernel at Dv <= 512 takes the
-    wgmma block, consumer 0 owning the first ceil(nv / 2) of Dv's nv boxes,
-    with as many ring stages (two 64 x 64 boxes each, at most 12) as fit
-    beside V and the P and dS boxes; otherwise the mma.sync block: 32 KV
-    rows, resident V [32, Dv], the ring of 128-row slots (S tile, dO and Q
-    chunks), P and dS [32, 128] and the Q tile's lse and delta (no K tile:
-    S is read, not recomputed; D costs registers only)."""
+    ``dk_in_kernel`` alone. dK out of the kernel takes the wgmma block at
+    Dv <= 512 and a cluster of two such blocks up to 1024, rank r holding
+    its half of Dv's boxes (``_even_blocks``: rank 0 the larger); within a
+    block consumer 0 owns the first ceil(n / 2) of its n boxes, with as
+    many ring stages (two 64 x 64 boxes each, at most 12) as fit beside V,
+    the P and dS boxes and, on the cluster, the partial exchange's two
+    slots (both ranks lay out rank 0's share). dK in the kernel takes the
+    mma.sync block: 32 KV rows, resident V [32, Dv], the ring of 128-row
+    slots (S tile, dO and Q chunks), P and dS [32, 128] and the Q tile's
+    lse and delta (no K tile: S is read, not recomputed; D costs registers
+    only)."""
     nv = cdiv(dv, D_CHUNK)
-    if not dk_in_kernel and nv * D_CHUNK <= _FROM_S_WG_MAX_DV:
+    if not dk_in_kernel and nv * D_CHUNK <= FROM_S_MAX_DV:
+        split = nv * D_CHUNK > _FROM_S_WG_MAX_DV
+        ranks = _even_blocks(nv, 2 if split else 1)
         box = _FROM_S_WG_Q_ROWS * D_CHUNK * itemsize
-        fixed = (nv + 2) * box + 1024 + 8
+        fixed = ((ranks[0][1] // D_CHUNK + 2) * box + 1024 + 8
+                 + (_FROM_S_CLUSTER_PART_BYTES if split else 0))
         stage = 2 * box + 16
         stages = min(_FROM_S_WG_MAX_STAGES, (SMEM_LIMIT_BYTES - fixed) // stage)
-        nv0 = cdiv(nv, 2)
-        return FromSPlan("wgmma", _FROM_S_WG_ROWS, _FROM_S_WG_Q_ROWS, stages,
-                         fixed + stages * stage,
-                         ((0, nv0 * D_CHUNK), (nv0 * D_CHUNK, (nv - nv0) * D_CHUNK)))
+        dv_blocks = tuple((c0 + x0, w) for c0, width in ranks
+                          for x0, w in _even_blocks(width // D_CHUNK, 2))
+        return FromSPlan("wgmma_cluster" if split else "wgmma", _FROM_S_WG_ROWS,
+                         _FROM_S_WG_Q_ROWS, stages, fixed + stages * stage, dv_blocks,
+                         ranks if split else ())
     v_res = DKDV_KV_TILE * (nv * D_CHUNK + _PAD_T)
     ring = FWD_STREAM_STAGES * DKDV_Q_TILE * (D_CHUNK + _PAD_T)
     p_ds = 2 * DKDV_KV_TILE * (DKDV_Q_TILE + _PAD_T)
@@ -640,8 +656,8 @@ def from_s_plan(dv: int, dk_in_kernel: bool, itemsize: int = 2) -> FromSPlan:
 
 def from_s_fits(d: int, dv: int, dk_in_kernel: bool, itemsize: int = 2) -> bool:
     """Whether the from-S kernel takes (D, Dv): dK in kernel only in one
-    column pass (at most 512 columns of each); dV alone up to 1024; and
-    the planned block in shared memory."""
+    column pass (at most 512 columns of each); dV alone up to 1024 (the
+    cluster above 512); and the planned block in shared memory."""
     dp, dvp = _round_up(d, D_CHUNK), _round_up(dv, D_CHUNK)
     cols_ok = (dp <= DKDV_MAX_COLS and dvp <= DKDV_MAX_COLS) if dk_in_kernel else \
         dvp <= FROM_S_MAX_DV

@@ -513,15 +513,19 @@ def dq_kernel_plan(d: int, dv: int) -> DqPlan:
     return DqPlan("wgmma" if out[0] == 1 else "mma_sync", out[1], out[2], out[3], out[4], blocks)
 
 
-def from_s_kernel_attrs(route: str, dk_in_kernel: bool = False) -> dict:
+# The from-S routes, indexed by the code the C entry points use.
+_FROM_S_ROUTES = ("mma_sync", "wgmma", "wgmma_cluster")
+
+
+def from_s_kernel_attrs(route: str) -> dict:
     """Registers a thread (at launch, before setmaxnreg) and local (spill)
-    bytes of the from-S kernel of ``route`` ("wgmma" or "mma_sync", the
-    latter with dK in the kernel or not), from cudaFuncGetAttributes.
+    bytes of the from-S kernel of ``route`` ("wgmma", "wgmma_cluster" or
+    "mma_sync", which holds dK in the kernel), from cudaFuncGetAttributes.
     Needs a card."""
     lib = _bwd_lib()
     regs, local = ctypes.c_int(0), ctypes.c_int(0)
-    err = lib.ffpa_bwd_from_s_attrs(int(route == "wgmma"), int(dk_in_kernel), ctypes.byref(regs),
-                                    ctypes.byref(local))
+    err = lib.ffpa_bwd_from_s_attrs(_FROM_S_ROUTES.index(route), int(route == "mma_sync"),
+                                    ctypes.byref(regs), ctypes.byref(local))
     _build.check(lib, err, "from-S kernel attributes")
     return {"registers": regs.value, "local_bytes": local.value}
 
@@ -531,12 +535,13 @@ def from_s_kernel_plan(dv: int, dk_in_kernel: bool) -> FromSPlan:
     ``dv`` (padded to 64-column chunks), read from the library: what
     ``config.from_s_plan`` mirrors. Needs a card."""
     lib = _bwd_lib()
-    out = (ctypes.c_int * 16)()
+    out = (ctypes.c_int * 24)()
     err = lib.ffpa_bwd_from_s_plan(cdiv(dv, D_CHUNK) * D_CHUNK, int(dk_in_kernel), out, len(out))
     _build.check(lib, err, "from-S kernel plan")
-    blocks = tuple((out[6 + 2 * i], out[7 + 2 * i]) for i in range(out[5]))
-    return FromSPlan("wgmma" if out[0] == 1 else "mma_sync", out[1], out[2], out[3], out[4],
-                     blocks)
+    n = out[5]
+    blocks = tuple((out[6 + 2 * i], out[7 + 2 * i]) for i in range(n))
+    ranks = tuple((out[7 + 2 * n + 2 * r], out[8 + 2 * n + 2 * r]) for r in range(out[6 + 2 * n]))
+    return FromSPlan(_FROM_S_ROUTES[out[0]], out[1], out[2], out[3], out[4], blocks, ranks)
 
 
 def banded_kernel_attrs(dk: bool, dtype=torch.bfloat16) -> dict:
@@ -678,10 +683,12 @@ def _dkdv_from_s_launch(
 _dkdv_from_s_launch.launches = 0
 
 # The from-S kernels' names as the profiler reports them: the mma.sync
-# ``dkdv_from_s_kernel<...>`` (dK in the kernel, Dv > 512, and every dK-out
-# launch of libraries built from sources before the wgmma route) and
-# ``from_s::wgmma_dkdv_from_s_kernel``. Timing tools match a kernel on any.
-FROM_S_KERNELS = ("dkdv_from_s_kernel<", "wgmma_dkdv_from_s_kernel")
+# ``(anonymous namespace)::dkdv_from_s_kernel`` (dK in the kernel; in
+# libraries built from older sources the template ``dkdv_from_s_kernel<...>``,
+# which also took dK out above Dv 512, and before the wgmma route every dK-out
+# launch) and ``from_s::wgmma_dkdv_from_s_kernel<DROP, SPLIT>`` (both dK-out
+# routes). Timing tools match a kernel on any.
+FROM_S_KERNELS = ("::dkdv_from_s_kernel", "wgmma_dkdv_from_s_kernel")
 
 
 def _banded_dk_from_ds(ds_full, q, config, *, scale, group, nq, nkv, causal_offset, dk_dtype):

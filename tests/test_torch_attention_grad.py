@@ -120,6 +120,42 @@ def test_grads_match_jax(name, tier):
         assert rel_err(got[n], want[n]) < TOL["bfloat16"], n
 
 
+# Above D512, through the S-resident tier: dK out of the kernel, on a card
+# the from-S cluster of two blocks.
+WIDE_CASES = {
+    "d640_causal_gqa": dict(shape=(1, 4, 2, 128, 160, 640), is_causal=True),
+    "d1024_cross_keybias": dict(shape=(1, 2, 1, 128, 192, 1024), mask="key"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WIDE_CASES))
+def test_wide_resident_grads_match_jax(name):
+    case = WIDE_CASES[name]
+    x = _inputs(case, seed=5)
+    want = _jax_grads(case, x, "resident", "bfloat16")
+    got = _torch_grads(case, x, "resident", "bfloat16")
+    assert set(got) == set(want)
+    for n in got:
+        assert tuple(got[n].shape) == want[n].shape, n
+        assert rel_err(got[n], want[n]) < TOL["bfloat16"], n
+
+
+@pytest.mark.parametrize("name", sorted(WIDE_CASES))
+def test_wide_resident_grads_on_card_match_cpu(cuda, name):
+    """One from-S launch (the cluster route), banded dQ and dK under causal."""
+    case = WIDE_CASES[name]
+    x = _inputs(case, seed=6)
+    before = _launches()
+    got = _torch_grads(case, x, "resident", "bfloat16", cuda)
+    torch.cuda.synchronize()
+    causal = int(case.get("is_causal", False))
+    assert tuple(a - b for a, b in zip(_launches(), before)) == (0, 0, causal, 1, causal)
+    want = _torch_grads(case, x, "resident", "bfloat16")
+    for n in got:
+        measure = grad_row_rel_err if n in "qkv" else rel_err
+        assert measure(got[n], want[n]) < TOL["bfloat16"], n
+
+
 def test_fp16_grads_meet_the_oracle():
     case = CASES["causal_gqa"]
     x = _inputs(case, seed=1)

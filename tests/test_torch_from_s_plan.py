@@ -4,13 +4,15 @@ and, on a card, that kernel against its plain version.
 
 dK out of the kernel at Dv up to 512 takes the TMA + wgmma block: 64 KV
 rows, 64-row Q tiles, a ring of two-box stages that holds at least one
-whole tile (its S box and its dO boxes) in the card's shared memory. dK in
-the kernel, and Dv up to 1024, take the mma.sync block (32 KV rows,
-128-row Q tiles). ``from_s_fits`` reads the plan. On a card the mirror is
-held equal to the plan the library launches with, the wgmma kernel spills
-nothing, and each route's outputs (dV, the dS written over the slab, and
-banded dK on that slab) are held against the plain versions on the same
-inputs, per row at the bf16 gradient tolerance 5e-2 with the 1e-3 floor
+whole tile (its S box and its dO boxes) in the card's shared memory. Dv in
+(512, 1024] takes a cluster of two such blocks, rank r holding its half of
+Dv's boxes (rank 0 the larger) and the two exchanging partial dP^T through
+two slots. dK in the kernel takes the mma.sync block (32 KV rows, 128-row
+Q tiles). ``from_s_fits`` reads the plan. On a card the mirror is held
+equal to the plan the library launches with, neither wgmma route spills,
+and each route's outputs (dV, the dS written over the slab, and banded dK
+on that slab) are held against the plain versions on the same inputs, per
+row at the bf16 gradient tolerance 5e-2 with the 1e-3 floor
 (``grad_row_rel_err``; tests/test_ffpa_bwd.py:19).
 """
 
@@ -40,6 +42,13 @@ from ffpa_attn_tpu_torch.ops.dispatch import pick_backward_config
 GRAD_TOL = 5e-2
 WGMMA_MAX_DV = 512  # one consumer's half of dV, 64 x 256 fp32: 128 registers a thread
 DVS = list(range(64, 1025, 64))
+CLUSTER_DVS = [dv for dv in DVS if dv > WGMMA_MAX_DV]
+
+
+def _route(dv, dk_in):
+    if dk_in:
+        return "mma_sync"
+    return "wgmma" if dv <= WGMMA_MAX_DV else "wgmma_cluster"
 
 
 @pytest.mark.parametrize("dk_in", [False, True])
@@ -47,7 +56,7 @@ DVS = list(range(64, 1025, 64))
 def test_from_s_plan_routes_by_dv_and_dk_in(dv, dk_in):
     plan = from_s_plan(dv, dk_in)
     nv = cdiv(dv, D_CHUNK)
-    assert plan.route == ("wgmma" if not dk_in and dv <= WGMMA_MAX_DV else "mma_sync")
+    assert plan.route == _route(dv, dk_in)
     assert plan.stages >= 2 and plan.smem_bytes <= SMEM_LIMIT_BYTES
     start = 0
     for c0, w in plan.dv_blocks:  # the consumers' dV columns tile [0, Dv) in order
@@ -55,15 +64,43 @@ def test_from_s_plan_routes_by_dv_and_dk_in(dv, dk_in):
         start += w
     assert start == nv * D_CHUNK
     if plan.route == "wgmma":
-        assert (plan.kv_rows, plan.q_rows) == (64, 64)
+        assert (plan.kv_rows, plan.q_rows) == (64, 64) and plan.rank_blocks == ()
         assert len(plan.dv_blocks) == 2 and plan.dv_blocks[0][1] == cdiv(nv, 2) * D_CHUNK
         assert plan.stages >= 1 + cdiv(nv, 2)  # a whole tile (S + dO stages) fits the ring
+    elif plan.route == "wgmma_cluster":
+        assert (plan.kv_rows, plan.q_rows) == (64, 64) and len(plan.rank_blocks) == 2
+        assert len(plan.dv_blocks) == 4  # two consumers a rank
+        assert plan.dv_blocks[0][1] + plan.dv_blocks[1][1] == plan.rank_blocks[0][1]
     else:
         assert (plan.kv_rows, plan.q_rows, plan.stages) == (32, 128, 4)
         assert plan.dv_blocks == ((0, dv),)
     fits = dv <= (DKDV_MAX_COLS if dk_in else FROM_S_MAX_DV)
     assert from_s_fits(dv, dv, dk_in) == fits
     assert from_s_plan(dv - 8, dk_in) == plan  # padded to 64-column boxes
+
+
+@pytest.mark.parametrize("dv", CLUSTER_DVS)
+def test_from_s_cluster_plan_splits_dv_across_ranks(dv):
+    """Above Dv 512 the ranks' Dv blocks tile [0, Dv) in order, rank 0 the
+    larger by at most a box and neither above 512 columns; each rank's two
+    consumers split its block the same way (4 boxes at most: 128 fp32
+    registers a thread); a whole tile (the S box, then ceil(n / 2) dO
+    stages for rank 0's n boxes) fits the ring, and the block, the
+    exchange's two 32 KB slots included, fits the card."""
+    plan = from_s_plan(dv, False)
+    (r0, w0), (r1, w1) = plan.rank_blocks
+    assert (r0, r1, w0 + w1) == (0, w0, dv)
+    assert 0 <= w0 - w1 <= D_CHUNK and w0 <= WGMMA_MAX_DV
+    for r, (c0, w) in enumerate(plan.rank_blocks):
+        (a0, aw), (b0, bw) = plan.dv_blocks[2 * r:2 * r + 2]
+        assert (a0, b0, aw + bw) == (c0, c0 + aw, w)
+        assert 0 <= aw - bw <= D_CHUNK and aw <= WGMMA_MAX_DV // 2
+    assert plan.stages >= 1 + cdiv(w0 // D_CHUNK, 2)
+    box = 64 * 64 * 2
+    fixed = (w0 // D_CHUNK + 2) * box + 1024 + 8 + 2 * 2 * 64 * 32 * 4 + 4 * 8
+    assert plan.smem_bytes == fixed + plan.stages * (2 * box + 16) <= SMEM_LIMIT_BYTES
+    assert SMEM_LIMIT_BYTES - plan.smem_bytes < 2 * box + 16 or plan.stages == 12
+    assert from_s_fits(dv, dv, False) and not from_s_fits(dv, dv, True)
 
 
 def test_from_s_plan_d512_holds_almost_two_tiles():
@@ -100,8 +137,15 @@ def test_wgmma_from_s_kernel_spills_nothing_on_card(cuda):  # noqa: F811
     assert tbwd.from_s_kernel_attrs("wgmma")["local_bytes"] == 0
 
 
-# Each case: head dims, GQA group, shape and the features the from-S pass
-# replays. D = Dv; dK out of the kernel (the wgmma route at Dv <= 512).
+def test_cluster_from_s_kernel_spills_nothing_on_card(cuda):  # noqa: F811
+    assert tbwd.from_s_kernel_attrs("wgmma_cluster")["local_bytes"] == 0
+
+
+# Each case: head dims (D = Dv unless dv is given), GQA group, shape and the
+# features the from-S pass replays; nan_fill sets everything of the S
+# residual outside the band to NaN first. dK out of the kernel takes the
+# wgmma block at Dv <= 512 and its cluster above; dK in, asked where it
+# does not fit, falls back to dK out as the backward does.
 CARD_CASES = {
     "dv64_group1": dict(d=64, hq=2, hkv=2, nq=200, nkv=200, causal=True),
     "dv128_group2": dict(d=128, hq=4, hkv=2, nq=130, nkv=150, causal=True),
@@ -111,16 +155,31 @@ CARD_CASES = {
     "dv512_softcap": dict(d=512, hq=4, hkv=2, nq=130, nkv=150, causal=True, softcap=5.0),
     "dv512_rows32": dict(d=512, hq=4, hkv=2, nq=20, nkv=140, causal=True),
     "dv512_batch2": dict(d=512, b=2, hq=2, hkv=1, nq=256, nkv=320, causal=True),
+    # The cluster (Dv > 512).
+    "dv576_odd_boxes": dict(d=576, hq=4, hkv=2, nq=200, nkv=200, causal=True),
+    "dv640_group2": dict(d=640, hq=4, hkv=2, nq=256, nkv=256, causal=True),
+    "dv1024_group4_nq_ne_nkv": dict(d=1024, hq=8, hkv=2, nq=150, nkv=300, causal=True),
+    "d64_dv1024": dict(d=64, dv=1024, hq=4, hkv=2, nq=130, nkv=150, causal=True),
+    "d512_dv1024_noncausal": dict(d=512, dv=1024, hq=2, hkv=1, nq=100, nkv=230, causal=False),
+    "dv1024_dropout": dict(d=1024, hq=4, hkv=2, nq=200, nkv=200, causal=True, dropout=0.2),
+    "dv1024_softcap": dict(d=1024, hq=4, hkv=2, nq=130, nkv=150, causal=True, softcap=5.0),
+    "dv1024_rows32": dict(d=1024, hq=4, hkv=2, nq=20, nkv=140, causal=True),
+    "dv640_nan_filled_slab": dict(d=640, hq=4, hkv=2, nq=150, nkv=230, causal=True,
+                                  nan_fill=True),
+    # Many Q tiles a block (8 a head, 4 heads a group): a race between rank
+    # 0's dS stores and rank 1's read of the same S tile would show as wrong
+    # P in rank 1, so in dV's upper columns.
+    "dv1024_many_q_tiles": dict(d=1024, hq=8, hkv=2, nq=512, nkv=512, causal=True),
 }
 
 
 def _card_inputs(case, device):
     rng = np.random.default_rng(11)
     b, hq, hkv, d = case.get("b", 1), case["hq"], case["hkv"], case["d"]
-    nq, nkv = case["nq"], case["nkv"]
+    dv, nq, nkv = case.get("dv", d), case["nq"], case["nkv"]
     return {n: to_torch(randn(rng, shape), "bfloat16", device) for n, shape in (
-        ("q", (b, hq, nq, d)), ("k", (b, hkv, nkv, d)), ("v", (b, hkv, nkv, d)),
-        ("do", (b, hq, nq, d)))}
+        ("q", (b, hq, nq, d)), ("k", (b, hkv, nkv, d)), ("v", (b, hkv, nkv, dv)),
+        ("do", (b, hq, nq, dv)))}
 
 
 @pytest.mark.parametrize("dk_in", [False, True])
@@ -134,6 +193,7 @@ def test_from_s_kernel_on_card_matches_plain(cuda, name, dk_in):  # noqa: F811
     case = CARD_CASES[name]
     x = _card_inputs(case, cuda)
     nq, nkv, d = case["nq"], case["nkv"], case["d"]
+    dv = case.get("dv", d)
     group = case["hq"] // case["hkv"]
     kw = dict(scale=1.0 / math.sqrt(d), is_causal=case["causal"],
               dropout_p=case.get("dropout", 0.0), softcap=case.get("softcap", 0.0))
@@ -141,9 +201,21 @@ def test_from_s_kernel_on_card_matches_plain(cuda, name, dk_in):  # noqa: F811
                                              dropout_seed=3, **kw)
     if case["nq"] <= 32:
         assert s.shape[2] == 32  # the forward's 32-row slab
+    if case.get("nan_fill"):
+        rows = torch.arange(s.shape[2], device=cuda)[:, None]
+        cols = torch.arange(s.shape[3], device=cuda)[None, :]
+        band = (rows < nq) & (cols < nkv)
+        if case["causal"]:
+            band &= cols <= rows + nkv - nq
+        s.masked_fill_(~band, float("nan"))
     delta = (x["do"].float() * o.float()).sum(-1)
-    cfg = dataclasses.replace(pick_backward_config(d=d, dv=d, nq=nq, nkv=nkv,
+    cfg = dataclasses.replace(pick_backward_config(d=d, dv=dv, nq=nq, nkv=nkv,
                                                    dtype=torch.bfloat16), dkdv_dk_in_kernel=dk_in)
+    cfg = tbwd._fit_blocks_to_scores(cfg, s.shape[2], s.shape[3], d, dv, torch.bfloat16)
+    assert cfg.dkdv_dk_in_kernel == (dk_in and from_s_fits(d, dv, True))
+    route = from_s_plan(dv, cfg.dkdv_dk_in_kernel).route
+    assert route == ("mma_sync" if cfg.dkdv_dk_in_kernel else
+                     "wgmma" if dv <= WGMMA_MAX_DV else "wgmma_cluster")
     fkw = dict(scale=kw["scale"], is_causal=kw["is_causal"], causal_offset=nkv - nq,
                dropout_p=kw["dropout_p"], softcap=kw["softcap"])
     cpu = {n: t.cpu() for n, t in dict(q=x["q"], v=x["v"], do=x["do"], lse=lse, delta=delta,
@@ -161,7 +233,8 @@ def test_from_s_kernel_on_card_matches_plain(cuda, name, dk_in):  # noqa: F811
     assert grad_row_rel_err(kdv, pdv) < GRAD_TOL, "dv"
     assert grad_row_rel_err(kds, pds) < GRAD_TOL, "ds"
     assert not kds[:, :, nq:].any() and not kds[:, :, :, nkv:].any()  # padding: zeros
-    if dk_in:
+    assert (kdk is None) == (pdk is None) == (not cfg.dkdv_dk_in_kernel)
+    if cfg.dkdv_dk_in_kernel:
         assert grad_row_rel_err(kdk, pdk) < GRAD_TOL, "dk"
     if case["causal"]:
         bkw = dict(scale=kw["scale"], group=group, nq=nq, nkv=nkv, causal_offset=nkv - nq,

@@ -27,6 +27,7 @@ from _torch_parity import (  # noqa: F401
 )
 from ffpa_attn_tpu_torch.ops import flash_bwd as tbwd
 from ffpa_attn_tpu_torch.ops import flash_fwd as tfwd
+from ffpa_attn_tpu_torch.ops.config import from_s_fits
 from ffpa_attn_tpu_torch.ops.dispatch import pick_backward_config
 
 FWD_TOL, GRAD_TOL = 2e-2, 5e-2
@@ -40,6 +41,11 @@ CASES = {
     "dropout": dict(nq=130, nkv=150, causal=True, dropout=0.2),
     "alibi": dict(nq=128, nkv=128, causal=True, alibi=True),
     "short_nq": dict(nq=20, nkv=140, causal=True),
+    # Dv above 512: from-S with dK out of the kernel (dK in does not fit,
+    # so the dK-in variant falls back to it), the cluster route on a card.
+    "d640_causal_gqa": dict(hq=4, hkv=2, nq=130, nkv=150, causal=True, d=640),
+    "d1024_dropout": dict(nq=130, nkv=150, causal=True, dropout=0.2, d=1024),
+    "d512_dv1024_softcap": dict(nq=130, nkv=150, causal=True, softcap=5.0, d=512, dv=1024),
 }
 
 
@@ -47,8 +53,10 @@ def _inputs(case, seed=0):
     rng = np.random.default_rng(seed)
     b, hq, hkv = case.get("b", 1), case.get("hq", 2), case.get("hkv", 1)
     nq, nkv, d = case["nq"], case["nkv"], case.get("d", 320)
+    dv = case.get("dv", d)
     x = dict(q=randn(rng, (b, hq, nq, d)), k=randn(rng, (b, hkv, nkv, d)),
-             v=randn(rng, (b, hkv, nkv, d)), do=randn(rng, (b, hq, nq, d)), bias=None, alibi=None)
+             v=randn(rng, (b, hkv, nkv, dv)), do=randn(rng, (b, hq, nq, dv)), bias=None,
+             alibi=None)
     if case.get("bias") == "full":
         x["bias"] = randn(rng, (b, 1, nq, nkv))
     elif case.get("bias") == "key":
@@ -99,13 +107,13 @@ def _jax_side(name):
                                              alibi_slopes=alibi, **kw)
     o0, lse0 = jfwd.flash_attention_forward(q, k, v, bias, alibi_slopes=alibi, **kw)
     delta = jnp.sum(do.astype(jnp.float32) * o.astype(jnp.float32), axis=-1)
-    nq, nkv, d = x["q"].shape[2], x["k"].shape[2], x["q"].shape[-1]
+    nq, nkv, d, d_v = x["q"].shape[2], x["k"].shape[2], x["q"].shape[-1], x["v"].shape[-1]
     group = x["q"].shape[1] // x["k"].shape[1]
     seed = jnp.asarray(3, jnp.int32).reshape(1, 1)
     out = dict(o=o, lse=lse, s=s, o0=o0, lse0=lse0, delta=delta)
     for dk_in in (True, False):
         cfg = dataclasses.replace(BlockConfig().clamp(nq, nkv), dkdv_dk_in_kernel=dk_in)
-        cfg = jbwd._fit_blocks_to_scores(cfg, s.shape[2], s.shape[3], d, d, q.dtype)
+        cfg = jbwd._fit_blocks_to_scores(cfg, s.shape[2], s.shape[3], d, d_v, q.dtype)
         dk, dv, ds = jbwd._dkdv_from_s_launch(
             q, v, jnp.array(s), do, lse, delta, seed, cfg, scale=kw["scale"],
             is_causal=kw["is_causal"], causal_offset=nkv - nq, dropout_p=kw["dropout_p"],
@@ -169,15 +177,19 @@ def test_forward_scores_refuse_a_window():
 
 
 def _from_s(case, x, dk_in, device="cpu"):
-    """The from-S launcher on ``device`` over the port's own forward there."""
+    """The from-S launcher on ``device`` over the port's own forward there,
+    with the variant the backward takes for that S residual: dK stays in
+    the kernel only where it fits (``_fit_blocks_to_scores``), as on the
+    JAX side."""
     kw = _fwd_kw(case, x)
-    nq, nkv, d = x["q"].shape[2], x["k"].shape[2], x["q"].shape[-1]
+    nq, nkv, d, dv = x["q"].shape[2], x["k"].shape[2], x["q"].shape[-1], x["v"].shape[-1]
     q, v, do = (to_torch(x[n], "bfloat16", device) for n in ("q", "v", "do"))
     o, lse, s, _, _ = _port_forward(case, x, device)
     delta = (do.float() * o.float()).sum(-1)
-    cfg = dataclasses.replace(pick_backward_config(d=d, dv=d, nq=nq, nkv=nkv,
+    cfg = dataclasses.replace(pick_backward_config(d=d, dv=dv, nq=nq, nkv=nkv,
                                                    dtype=torch.bfloat16),
                               dkdv_dk_in_kernel=dk_in)
+    cfg = tbwd._fit_blocks_to_scores(cfg, s.shape[2], s.shape[3], d, dv, torch.bfloat16)
     return tbwd._dkdv_from_s_launch(
         q, v, s, do, lse, delta, 3, cfg, scale=kw["scale"],
         is_causal=kw["is_causal"], causal_offset=nkv - nq, dropout_p=kw["dropout_p"],
@@ -192,9 +204,11 @@ def test_dkdv_from_s_matches_jax(jax_ready, name, dk_in):
     x, j = _jax_side(name)
     tag = "in" if dk_in else "out"
     dk, dv, ds = _from_s(case, x, dk_in)
-    assert (dk is None) == (not dk_in)
+    # The port keeps dK in the kernel only where it fits; JAX's keeps it.
+    dk_kept = dk_in and from_s_fits(x["q"].shape[-1], x["v"].shape[-1], True)
+    assert (dk is None) == (not dk_kept)
     assert rel_err(dv, j[f"dv_{tag}"]) < GRAD_TOL, "dv"
-    if dk_in:
+    if dk_kept:
         assert rel_err(dk, j["dk_in"]) < GRAD_TOL, "dk"
     band = _band(case, x)
     assert rel_err(_banded(ds, band), _banded(j[f"ds_{tag}"], band)) < GRAD_TOL, "ds"
@@ -418,8 +432,9 @@ def test_dkdv_from_s_kernel_on_card_matches_plain(cuda, name, dk_in):
     torch.cuda.synchronize()
     assert tbwd._dkdv_from_s_launch.launches == before + 1
     pdk, pdv, pds = _from_s(case, x, dk_in)
+    assert (kdk is None) == (pdk is None)
     assert grad_row_rel_err(kdv, pdv) < GRAD_TOL
-    if dk_in:
+    if pdk is not None:
         assert grad_row_rel_err(kdk, pdk) < GRAD_TOL
     assert torch.isfinite(kds.float()).all()
     assert grad_row_rel_err(kds, pds) < GRAD_TOL

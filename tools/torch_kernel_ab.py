@@ -43,7 +43,12 @@ wrappers passed, ``LegacyBanded``):
   of the S residual each call: it overwrites S with dS) and banded_dk: the
   same shape as dkdv (the S-resident backward of the training step). At
   D512 the head library runs its wgmma route, a base built from older
-  sources the mma.sync kernel;
+  sources the mma.sync kernel; from_s_d1024 and from_s_d640: the same pass
+  at B1 H8/4 N4096 causal bf16 (the S-resident tier bf16 takes at the
+  bench's D sweep), where the head library runs the cluster of two blocks
+  and a base built from sources before it the mma.sync kernel, each held
+  against the plain version (dV and the slab) at the bf16 gradient
+  tolerance 5e-2;
 * varlen_fwd: the serving packing of continuous batching (prompts of 589,
   698, 763 and 886 tokens, H8/4 D512 causal bf16), and varlen_fwd_train
   (``--kernels varlen_fwd`` runs both) the packed-training packing (8
@@ -134,17 +139,20 @@ SOURCE = {"flash_fwd": "flash_fwd", "flash_fwd_scores": "flash_fwd",
           "decode": "decode", "decode_serving": "decode", "dkdv": "flash_bwd",
           "dkdv_d1024": "flash_bwd", "dkdv_d640": "flash_bwd",
           "banded_dq": "flash_bwd", "dq": "flash_bwd", "from_s": "flash_bwd",
+          "from_s_d1024": "flash_bwd", "from_s_d640": "flash_bwd",
           "banded_dk": "flash_bwd", "varlen_fwd": "varlen_fwd", "varlen_fwd_train": "varlen_fwd",
           "paged_decode": "paged_decode",
           "paged_decode_int8": "paged_decode", "varlen_dkdv": "varlen_bwd",
           "varlen_dq": "varlen_bwd"}
 # kernel -> the substrings of its CUDA kernels' names (either route), where a
 # run also launches other kernels that are not timed
-ONLY = {"from_s": flash_bwd.FROM_S_KERNELS, "varlen_fwd": varlen.FWD_KERNELS,
+ONLY = {"from_s": flash_bwd.FROM_S_KERNELS, "from_s_d1024": flash_bwd.FROM_S_KERNELS,
+        "from_s_d640": flash_bwd.FROM_S_KERNELS, "varlen_fwd": varlen.FWD_KERNELS,
         "varlen_fwd_train": varlen.FWD_KERNELS, "varlen_dkdv": varlen.DKDV_KERNELS,
         "varlen_dq": varlen.DQ_KERNELS}
 # kernels whose C entry point an older tree may lack
-ENTRY = {"from_s": "ffpa_bwd_dkdv_from_s", "banded_dk": "ffpa_bwd_banded_dk",
+ENTRY = {"from_s": "ffpa_bwd_dkdv_from_s", "from_s_d1024": "ffpa_bwd_dkdv_from_s",
+         "from_s_d640": "ffpa_bwd_dkdv_from_s", "banded_dk": "ffpa_bwd_banded_dk",
          "varlen_fwd": "ffpa_varlen_fwd", "varlen_fwd_train": "ffpa_varlen_fwd",
          "paged_decode": "ffpa_paged_decode",
          "paged_decode_int8": "ffpa_paged_decode", "varlen_dkdv": "ffpa_varlen_bwd_dkdv",
@@ -529,6 +537,38 @@ def make_runs(gen) -> tuple:
                                      causal_offset=0, dropout_p=0.0, seed=0, softcap=0.0,
                                      window=(-1, -1), alibi=None)
 
+    # The from-S cluster route's shapes: bf16, the plain forward's (lse, S),
+    # so both trees read the same ones; each call works on a copy of S.
+    def s_wide_inputs(wd):
+        q_, k_, v_, do_ = (randn(b, hq, wn, wd), randn(b, hkv, wn, wd), randn(b, hkv, wn, wd),
+                           randn(b, hq, wn, wd))
+        o_, lse_ = flash_fwd.flash_attention_forward_plain(q_, k_, v_, None, scale=wd ** -0.5,
+                                                           is_causal=True)
+        s_ = flash_fwd.scores_plain(q_, k_, None, scale=wd ** -0.5, is_causal=True, nq_pad=wn,
+                                    nkv_pad=wn)
+        return q_, v_, do_, lse_, (do_.float() * o_.float()).sum(-1), s_
+
+    s_wide = {}  # made at first use: only these two runs need them
+    s_wkw = dict(is_causal=True, causal_offset=0, dropout_p=0.0)
+
+    def run_from_s_wide(wd):
+        if wd not in s_wide:
+            s_wide[wd] = s_wide_inputs(wd)
+        q_, v_, do_, lse_, delta_, s_ = s_wide[wd]
+        wcfg = dataclasses.replace(pick_backward_config(d=wd, dv=wd, nq=wn, nkv=wn,
+                                                        dtype=torch.bfloat16),
+                                   dkdv_dk_in_kernel=False)
+        _, dv_, slab_ = flash_bwd._dkdv_from_s_launch(q_, v_, s_.clone(), do_, lse_, delta_, 0,
+                                                      wcfg, scale=wd ** -0.5, group=hq // hkv,
+                                                      grad_kv_storage_dtype=None, **s_wkw)
+        return dv_, slab_
+
+    def from_s_wide_plain(wd):
+        q_, v_, do_, lse_, delta_, s_ = s_wide[wd]
+        return flash_bwd._dkdv_from_s_plain(q_, v_, s_, do_, lse_, delta_, scale=wd ** -0.5,
+                                            seed=0, softcap=0.0, dk_in_kernel=False,
+                                            **s_wkw)[1:]
+
     def run_banded():
         if "ds" not in state:
             run_dkdv()
@@ -647,6 +687,8 @@ def make_runs(gen) -> tuple:
         "banded_dq": run_banded,
         "dq": run_dq,
         "from_s": run_from_s,
+        "from_s_d1024": lambda: run_from_s_wide(1024),
+        "from_s_d640": lambda: run_from_s_wide(640),
         "banded_dk": run_banded_dk,
         "varlen_fwd": lambda: varlen._varlen_forward(vq, vk, vv, cu, cu, scale=scale,
                                                      causal=True)[0],
@@ -674,6 +716,8 @@ def make_runs(gen) -> tuple:
         "from_s": lambda: flash_bwd._dkdv_from_s_plain(
             tq, tv, s_pad, tdo, lse, delta, scale=scale, is_causal=True, causal_offset=0,
             dropout_p=0.0, seed=0, softcap=0.0, dk_in_kernel=False)[1:],
+        "from_s_d1024": lambda: from_s_wide_plain(1024),
+        "from_s_d640": lambda: from_s_wide_plain(640),
         "banded_dk": lambda: flash_bwd._banded_dk_plain(state["s_ds"], tq, scale=scale, nq=nt,
                                                         nkv=nt, hkv=hkv),
         "paged_decode": lambda: paged_plain(False),

@@ -1,0 +1,70 @@
+"""The bound of each kernel route that no chip run has timed apart: the
+wide (D or Dv > 512) mma.sync / cp.async routes of the recompute dQ, the
+varlen forward, dK/dV and dQ, dense decode, and paged decode over pages
+that are not a multiple of 16 rows.
+
+Run anywhere (it needs no card: the numbers are counted from the shapes):
+
+    python tools/torch_wide_bounds.py
+
+Each route is counted at the shape the bench or ``chip_smoke.py`` would
+give it at D1024 (paged decode at the serving step, D512, pages of 24
+rows): operations and bytes from ``utils/profiling.py`` (each input read
+once, each output written once, products over the band's pairs only), the
+bound (the larger of operations over 989 TFLOP/s and bytes over 3.35 TB/s)
+and the launches a call makes of the route's wrapper. Prints one JSON line.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+from ffpa_attn_tpu_torch.utils.profiling import (  # noqa: E402
+    backward_counts, bound_ms, paged_decode_counts, varlen_backward_counts, varlen_counts,
+)
+
+PACKING = [2048, 1536, 1200, 1024, 900, 700, 500, 284]  # chip_smoke.py's packed training
+SERVE_LENS = [716, 825, 890, 1013]  # the serving step's cached rows (B4)
+
+
+def routes() -> list:
+    d = 1024
+    wide = dict(hq=8, hkv=4, d=d, dv=d)
+    return [
+        ("3 (D > 512)", "dq_kernel (mma.sync)", "B1 H8/4 N8192 D1024 causal, recompute tier",
+         "1 a recompute-tier backward",
+         backward_counts("dq", b=1, nq=8192, nkv=8192, causal=True, **wide)),
+        ("7 (D > 512)", "decode_kernel (cp.async)", "B1 H8/4 Nkv 4224 D1024, one query row",
+         "1 a decode step (walk and split merge)",
+         paged_decode_counts([4224], **wide)),
+        ("8 (D > 512)", "varlen_fwd_kernel (mma.sync)",
+         "8 documents in 8192 tokens, H8/4 D1024 causal", "1 a packed call",
+         varlen_counts(PACKING, PACKING, causal=True, **wide)),
+        ("9 (D > 512)", "varlen_dkdv_kernel (mma.sync)",
+         "8 documents in 8192 tokens, H8/4 D1024 causal", "1 a packed backward",
+         varlen_backward_counts("varlen_dkdv", PACKING, PACKING, causal=True, **wide)),
+        ("10 (D > 512)", "varlen_dq_kernel (mma.sync)",
+         "8 documents in 8192 tokens, H8/4 D1024 causal", "1 a packed backward",
+         varlen_backward_counts("varlen_dq", PACKING, PACKING, causal=True, **wide)),
+        ("11 (cp.async)", "paged_decode_kernel (cp.async)",
+         "B4 H8/4 D512, pages of 24 rows, the serving step", "1 a decode step",
+         paged_decode_counts(SERVE_LENS, hq=8, hkv=4, d=512, dv=512)),
+    ]
+
+
+def main() -> int:
+    out = []
+    for row, kernel, shape, launches, (flops, nbytes) in routes():
+        ms, by = bound_ms(flops, nbytes)
+        out.append(dict(row=row, kernel=kernel, shape=shape, launches=launches, flop=flops,
+                        bytes=nbytes, bound_ms=round(ms, 4), bound_by=by))
+    print(json.dumps({"not_timed": out}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
