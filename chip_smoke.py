@@ -13,15 +13,19 @@ It imports only ``ffpa_attn_tpu_torch``, torch and numpy, and runs, in order:
    at D, Dv <= 512, a cluster of two splitting D and Dv above: D640 and
    D1024 over bias, ALiBi, softcap, windows, dropout, fp16, GQA, a ragged
    edge and D != Dv) and its S residual, a causal D1024 backward through
-   the S-resident tier (``ffpa_attn_func`` + ``.backward``), decode on both of its
+   the S-resident tier (``ffpa_attn_func`` + ``.backward``), a windowed
+   D1024 backward through the recompute tier (its forward, dK/dV and dQ
+   launches all on cluster routes), decode on both of its
    routes (TMA at D, Dv <= 512, cp.async above; one valid column, the
    serving step's gap, 32 packed rows, D != Dv, the speculative verify
    block at Nq 5 with its per-row bias; and its score residual),
    dkdv (both routes: one wgmma block at D, Dv <= 512, a cluster of two
    splitting D and Dv above: D640, D1024, fp16, D != Dv down to a rank
    without a box of one dim, bias + ALiBi + dropout, and a dS handoff cut
-   into three KV stripes), dq (both routes, D != Dv, fp16, fp32 dQ
-   storage), banded dQ, the from-S dK/dV pass in both
+   into three KV stripes), dq (both routes: one wgmma block at D, Dv <=
+   512, a cluster of two splitting D and Dv above: D576, D640, D1024, a
+   window, softcap with a bias, D != Dv, fp16, fp32 dQ storage), banded
+   dQ, the from-S dK/dV pass in both
    variants and banded dK (a slab NaN outside the band among them), the
    packed varlen forward, the varlen dK/dV and dQ kernels (bf16 and fp16
    feature cases, both routes of each) and paged decode (bf16 and int8
@@ -93,7 +97,8 @@ It imports only ``ffpa_attn_tpu_torch``, torch and numpy, and runs, in order:
    the bound (the phase fails if it stays below);
    banded dQ, banded dK and dK/dV also at the op-level shape (H32 MHA)
    with their TFLOP/s; the dK/dV cluster route at B1 H8 N8192 D1024
-   causal fp16 beside its bound, its plain version and the autograd of
+   causal fp16 and the dQ cluster route at B1 H8/4 N8192 D1024 causal
+   bf16 beside their bounds, their plain versions and the autograd of
    SDPA;
 7. bench CLI: the windowed paged leg (window 256, page 128) in process,
    its paged steps teacher-forced against the dense steps and the paged
@@ -629,6 +634,73 @@ def _s_resident_bwd_case(name, *, b=1, h=8, n, d, seed=0) -> dict:
     return counts
 
 
+def _recompute_bwd_case(name, *, b=1, hq=8, hkv=4, n, d, window, seed=0) -> dict:
+    """``ffpa_attn_func(..., is_causal=True, window_size=window)`` and
+    ``.backward`` (a window takes the recompute tier) at head dim ``d``: its
+    launches (the counts set to 0 just before, read just after, and
+    returned; one forward, one dK/dV, one dQ), the routes they took (the
+    clusters above D512), the gradients per row against the plain backward
+    chain fed the forward kernel's (o, lse), and the call's device ms."""
+    from ffpa_attn_tpu_torch import CudaBackend, ffpa_attn_func
+    from ffpa_attn_tpu_torch.ops import flash_bwd, flash_fwd
+    from ffpa_attn_tpu_torch.ops.config import dkdv_plan, dq_plan, fwd_plan
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(450 + seed)
+    q, do = _randn((b, hq, n, d), bf, gen), _randn((b, hq, n, d), bf, gen)
+    k, v = _randn((b, hkv, n, d), bf, gen), _randn((b, hkv, n, d), bf, gen)
+    scale = d ** -0.5
+    backend = CudaBackend(ds_handoff=False, save_scores=False)
+
+    def fwd_bwd():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        ffpa_attn_func(*leaves, is_causal=True, window_size=window, enable_gqa=True,
+                       backward_backend=backend).backward(do)
+        return leaves
+
+    launch_counts(zero=True)
+    leaves = fwd_bwd()
+    torch.cuda.synchronize()
+    counts = {n_: c for n_, c in _counts(TRAIN_KERNELS).items() if c}
+    want = {"flash_fwd": 1, "dkdv": 1, "dq": 1}
+    routes = {"flash_fwd": fwd_plan(d, d).route, "dkdv": dkdv_plan(d, d).route,
+              "dq": dq_plan(d, d).route}
+    o, lse = flash_fwd.flash_attention_forward(q, k, v, None, scale=scale, is_causal=True,
+                                               window=window)
+    delta = (do.float() * o.float()).sum(-1)
+    plain_kw = dict(scale=scale, is_causal=True, causal_offset=0, dropout_p=0.0, seed=0,
+                    softcap=0.0, window=window, alibi=None)
+    pdk, pdv, _ = flash_bwd._dkdv_plain(q, k, v, None, do, lse, delta, emit_ds=False, nq_pad=n,
+                                        nkv_pad=n, **plain_kw)
+    pdq, _ = flash_bwd._dq_plain(q, k, v, None, do, lse, delta, emit_dbias=False, **plain_kw)
+    errs = {nm: grad_row_rel(g.grad, w) for nm, g, w in zip(("dq", "dk", "dv"), leaves,
+                                                             (pdq, pdk, pdv))}
+    del o, lse, delta, pdk, pdv, pdq
+    tol = GRAD_TOL[bf]
+    ok = (counts == want and all(e < tol for e in errs.values())
+          and all(bool(torch.isfinite(t.grad).all()) for t in leaves)
+          and (d <= 512 or set(routes.values()) == {"wgmma_cluster"}))
+    del leaves
+    torch.cuda.empty_cache()
+    # Device ms from CUDA events with the host's enqueue off the clock, not
+    # the profiler: a profiler window this early in the process made the
+    # later phases' windows lose device events (their readings fell to
+    # 0.4-0.7x their CUDA-event times).
+    from ffpa_attn_tpu_torch.utils.profiling import cuda_ms, queued_ms
+
+    dev_ms = queued_ms(lambda: [fwd_bwd() for _ in range(3)]) / 3
+    ev_ms = cuda_ms(fwd_bwd, reps=3, warmup=1)
+    log(f"  recompute bwd {name:<16} ffpa_attn_func B{b} H{hq}/{hkv} N{n} D{d} causal window "
+        f"{window}, routes {routes}, launches {counts}: "
+        + " ".join(f"{nm} {e:.2e}" for nm, e in errs.items())
+        + f" (tol {tol:g}, per row vs plain); forward + backward device {dev_ms:.4f} ms, CUDA "
+        f"events {ev_ms:.4f} ms {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"recompute backward at D{d}: launches {counts} (want {want}), routes {routes} or "
+             "gradients off")
+    return counts
+
+
 def _from_s_case(name, *, b=1, hq=8, hkv=4, nq, nkv, d=512, dv=None, causal=True, bias=None,
                  softcap=0.0, dropout=0.0, sinks=False, nan_fill=False, banded_out=None,
                  seed=0):
@@ -987,6 +1059,13 @@ def phase_kernels_vs_plain() -> dict:
     _bwd_case("d1024_dv64", nq=1000, nkv=1100, d=1024, dv=64, seed=35)
     _bwd_case("d1024_bias_alibi_dropout", nq=1024, nkv=1100, d=1024, causal=False, bias="full",
               alibi=True, dropout=0.1, seed=36)
+    # The dQ cluster's own cases: a window (the windowed model's band), an
+    # odd box count (rank 0 five D boxes, rank 1 four) and softcap with a
+    # bias (the recompute tier's other takers).
+    _bwd_case("d1024_window", nq=1024, nkv=1024, d=1024, window=(256, -1), seed=38)
+    _bwd_case("d576", nq=1000, nkv=1100, d=576, seed=39)
+    _bwd_case("d1024_softcap_bias", nq=1024, nkv=1024, d=1024, softcap=30.0, bias="full",
+              seed=40)
     _striped_bwd_case("d1024_striped_dropout", n=1024, d=1024, dropout=0.1, seed=37)
     # The S-resident tier: the forward's S residual, the from-S dK/dV kernel
     # in both variants, banded dK and banded dQ from its slab; the training
@@ -1012,6 +1091,10 @@ def phase_kernels_vs_plain() -> dict:
     errs["from_s_cluster_launches"] = sum(
         _s_resident_bwd_case(nm, n=1024, d=dh)["dkdv_from_s"]
         for nm, dh in (("d1024_causal", 1024), ("d640_causal", 640)))
+    # The dQ cluster's path: a windowed backward above D512 through the
+    # entry point, the recompute tier.
+    errs["dq_cluster_launches"] = _recompute_bwd_case("d1024_window1024", n=4096, d=1024,
+                                                      window=(1024, -1))["dq"]
     _from_s_case("gqa_N1024", nq=1024, nkv=1024)
     _from_s_case("bias_full_noncausal", nq=1024, nkv=1024, causal=False, bias="full", seed=1)
     _from_s_case("dropout", nq=1024, nkv=1024, dropout=0.1, seed=2)
@@ -2586,7 +2669,7 @@ def _profile_step(label: str, run: dict) -> dict:
 
 
 def training_times(training: dict, windowed: dict, resident: dict,
-                   from_s_cluster_launches: int) -> tuple:
+                   from_s_cluster_launches: int, dq_cluster_launches: int) -> tuple:
     """One step of the handoff and of the S-resident model under the
     profiler, then the backward kernels at their main-path shapes, each held
     against its plain version on the same inputs and timed beside it: dkdv
@@ -2594,7 +2677,9 @@ def training_times(training: dict, windowed: dict, resident: dict,
     the windowed model's, the S-resident tier's from-S pass (both
     variants), its cluster route above Dv 512 (``from_s_cluster_times``;
     ``from_s_cluster_launches`` its launches in the S-resident backwards
-    above D512 through ``ffpa_attn_func``) and banded dK."""
+    above D512 through ``ffpa_attn_func``), banded dK and the dQ cluster
+    route above D512 (``dq_cluster_times``; ``dq_cluster_launches`` its
+    launches in the windowed D1024 backward through ``ffpa_attn_func``)."""
     import torch.nn.functional as F
 
     from ffpa_attn_tpu_torch.cli._bench import sdpa_backend
@@ -2817,6 +2902,11 @@ def training_times(training: dict, windowed: dict, resident: dict,
         fc["err"], fc["kms"], fc["pms"], fc["lms"], fc["flops"], fc["nbytes"], fc["retime"])
     rows[-1].update(shape=fc["shape"], from_s_route="wgmma_cluster", registers=fc["registers"],
                     spill_bytes=fc["spill_bytes"])
+    dc = dq_cluster_times()
+    row("dq_cluster", "ffpa_attn_tpu/ops/flash_bwd.py:647", dq_cluster_launches, dc["err"],
+        dc["kms"], dc["pms"], dc["lms"], dc["flops"], dc["nbytes"], dc["retime"])
+    rows[-1].update(shape=dc["shape"], dq_route="wgmma_cluster", registers=dc["registers"],
+                    spill_bytes=dc["spill_bytes"])
 
     def run_banded_dk():
         return flash_bwd._banded_dk_from_ds(slab, q, cfg, scale=scale, group=hq // hkv, nq=n,
@@ -3204,32 +3294,33 @@ def varlen_dq_kernel_row_extras(d: int) -> dict:
 
 
 def dq_kernel_row_extras(d: int) -> dict:
-    """The recompute dQ route at head dim ``d`` and its kernel's registers
-    and spill bytes, for the ``kernels`` line; fails unless the launcher's
-    plan equals its mirror (``ops/config.py`` ``dq_plan``) at D, Dv
-    64..1024 and the wgmma kernel spills nothing."""
+    """The recompute dQ route at head dim ``d`` and both routes' kernels'
+    registers and spill bytes, for the ``kernels`` line; fails unless the
+    launcher's plan equals its mirror (``ops/config.py`` ``dq_plan``) at
+    every pair of ``PLAN_PAIRS`` and neither route's kernel spills in
+    either dtype (with dropout or without)."""
     from ffpa_attn_tpu_torch.ops import flash_bwd
     from ffpa_attn_tpu_torch.ops.config import dq_plan
 
-    pairs = [(x, x) for x in range(64, 1025, 64)] + [(512, 128), (128, 512), (512, 64),
-                                                     (64, 512), (448, 64), (512, 1024),
-                                                     (1024, 320), (400, 400)]
-    for hd, hdv in pairs:
+    for hd, hdv in PLAN_PAIRS:
         if flash_bwd.dq_kernel_plan(hd, hdv) != dq_plan(hd, hdv):
             fail(f"dQ launcher's plan at D{hd}/Dv{hdv} {flash_bwd.dq_kernel_plan(hd, hdv)} "
                  f"differs from ops/config.py dq_plan {dq_plan(hd, hdv)}")
-    log(f"  dq plan at D{d}: {flash_bwd.dq_kernel_plan(d, d)} (the launcher's, equal to "
-        f"ops/config.py dq_plan at {len(pairs)} head-dim pairs)")
-    for route, bq in (("wgmma", 64), ("mma_sync", 64), ("mma_sync", 32)):
+    log(f"  dq plan at D{d}: {flash_bwd.dq_kernel_plan(d, d)}; at D1024: "
+        f"{flash_bwd.dq_kernel_plan(1024, 1024)} (the launcher's, equal to ops/config.py "
+        f"dq_plan at {len(PLAN_PAIRS)} head-dim pairs)")
+    attrs = {}
+    for route in ("wgmma", "wgmma_cluster"):
         for dt in (torch.bfloat16, torch.float16):
-            a = flash_bwd.dq_kernel_attrs(route, dt, bq)
-            log(f"  dq {route} rows {bq} {str(dt)[6:]}: {a['registers']} registers a thread at "
-                f"launch, {a['local_bytes']} local (spill) bytes")
-            if route == "wgmma" and a["local_bytes"] != 0:
-                fail(f"the wgmma dQ kernel ({dt}) spills {a['local_bytes']} bytes")
+            a = attrs[route, dt] = flash_bwd.dq_kernel_attrs(route, dt)
+            log(f"  dq {route} {str(dt)[6:]}: {a['registers']} registers a thread at launch, "
+                f"{a['local_bytes']} local (spill) bytes")
+            if a["local_bytes"] != 0:
+                fail(f"the {route} dQ kernel ({dt}) spills {a['local_bytes']} bytes")
     route = dq_plan(d, d).route
-    a = flash_bwd.dq_kernel_attrs(route)
-    return {"dq_route": route, "registers": a["registers"], "spill_bytes": a["local_bytes"]}
+    a, c = attrs[route, torch.bfloat16], attrs["wgmma_cluster", torch.bfloat16]
+    return {"dq_route": route, "registers": a["registers"], "spill_bytes": a["local_bytes"],
+            "cluster_registers": c["registers"], "cluster_spill_bytes": c["local_bytes"]}
 
 
 def from_s_kernel_row_extras(d: int, dk_in: bool) -> dict:
@@ -3333,6 +3424,80 @@ def from_s_cluster_times() -> dict:
     a = flash_bwd.from_s_kernel_attrs("wgmma_cluster")
     return dict(shape=f"B{b} H{h} N{n} D{d} causal bf16", err=err, kms=kms, pms=pms, lms=lms,
                 flops=flops, nbytes=nbytes, retime=timed, registers=a["registers"],
+                spill_bytes=a["local_bytes"])
+
+
+def dq_cluster_times() -> dict:
+    """The recompute dQ cluster route at the bench's D sweep's causal D1024
+    shape cut to H8/4 (B1 N8192 bf16, the recompute tier): the kernel held
+    against its plain version per row, then timed (device ms of the dQ
+    kernel by name, CUDA-event ms) beside its bound, its plain version and
+    ``torch.autograd.grad`` through ``scaled_dot_product_attention`` (dQ, dK
+    and dV; K/V heads expanded); the pieces of the ``kernels`` line's row
+    ``dq_cluster``, with the kernel's registers and spill bytes."""
+    import torch.nn.functional as F
+
+    from ffpa_attn_tpu_torch.cli._bench import sdpa_backend
+    from ffpa_attn_tpu_torch.ops import flash_bwd, flash_fwd
+    from ffpa_attn_tpu_torch.ops.config import dq_plan
+    from ffpa_attn_tpu_torch.ops.dispatch import pick_backward_config
+    from ffpa_attn_tpu_torch.ops.reference import expand_kv_heads
+    from ffpa_attn_tpu_torch.utils.profiling import backward_counts
+
+    b, hq, hkv, n, d, bf = 1, 8, 4, TRAIN_N, 1024, torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    q, do = _randn((b, hq, n, d), bf, gen), _randn((b, hq, n, d), bf, gen)
+    k, v = _randn((b, hkv, n, d), bf, gen), _randn((b, hkv, n, d), bf, gen)
+    scale = d ** -0.5
+    o, lse = flash_fwd.flash_attention_forward(q, k, v, None, scale=scale, is_causal=True)
+    delta = (do.float() * o.float()).sum(-1)
+    del o
+    if dq_plan(d, d).route != "wgmma_cluster":
+        fail(f"dQ at D{d} does not take the cluster route")
+    cfg = pick_backward_config(d=d, dv=d, nq=n, nkv=n, dtype=bf)
+    kw = dict(scale=scale, is_causal=True, causal_offset=0, dropout_p=0.0, group=hq // hkv)
+
+    def run():
+        return flash_bwd._dq_launch(q, k, v, None, do, lse, delta, 0, cfg,
+                                    grad_q_storage_dtype=None, **kw)[0]
+
+    def plain():
+        return flash_bwd._dq_plain(q, k, v, None, do, lse, delta, scale=scale, emit_dbias=False,
+                                   is_causal=True, causal_offset=0, dropout_p=0.0, seed=0,
+                                   softcap=0.0, window=(-1, -1), alibi=None)[0]
+
+    before = flash_bwd._dq_launch.launches
+    kdq = run()
+    torch.cuda.synchronize()
+    if flash_bwd._dq_launch.launches != before + 1:
+        fail("the dQ cluster call at D1024 launched no kernel")
+    err = _hold(f"dq_cluster_N{n}_D{d}", {"dq": (kdq, plain())})
+    del kdq
+    torch.cuda.empty_cache()
+    flops, nbytes = backward_counts("dq", b=b, hq=hq, hkv=hkv, nq=n, nkv=n, d=d, dv=d,
+                                    causal=True)
+
+    def timed():
+        return _kernel_timed(run, flash_bwd.DQ_KERNELS, 10)
+
+    kms = timed()
+    pms = _timed(plain, 2, warmup=1)
+    torch.cuda.empty_cache()
+    ql, ke, ve = (t.detach().requires_grad_() for t in
+                  (q, expand_kv_heads(k, hq), expand_kv_heads(v, hq)))
+    out = F.scaled_dot_product_attention(ql, ke, ve, is_causal=True)
+    lms = _timed(lambda: torch.autograd.grad(out, (ql, ke, ve), do, retain_graph=True), 3,
+                 warmup=1)
+    log(f"  dq cluster route (B{b} H{hq}/{hkv} N{n} D{d} causal bf16, recompute): "
+        f"{kms[0]:.4f} ms [{kms[1]:.4f}], {flops / kms[0] / 1e9:.1f} TFLOP/s; plain "
+        f"{pms[0]:.4f} ms; torch.autograd.grad through scaled_dot_product_attention "
+        f"({sdpa_backend(ql, ke, ve, is_causal=True)} backend, K/V heads expanded, dQ dK dV) "
+        f"{lms[0]:.4f} ms; max|err| vs plain {err:.3e}")
+    del out, ql, ke, ve
+    torch.cuda.empty_cache()
+    a = flash_bwd.dq_kernel_attrs("wgmma_cluster")
+    return dict(shape=f"B{b} H{hq}/{hkv} N{n} D{d} causal bf16", err=err, kms=kms, pms=pms,
+                lms=lms, flops=flops, nbytes=nbytes, retime=timed, registers=a["registers"],
                 spill_bytes=a["local_bytes"])
 
 
@@ -3910,7 +4075,8 @@ def phase_times(errs: dict, main_path: dict, training: dict, windowed: dict,
     torch.cuda.empty_cache()
     serve_rows, serve_events = serving_times(errs, serving, main_path["model"])
     train_rows, train_events, fwd_train = training_times(training, windowed, resident,
-                                                         errs["from_s_cluster_launches"])
+                                                         errs["from_s_cluster_launches"],
+                                                         errs["dq_cluster_launches"])
     rows[0].update(fwd_train)  # the flash_fwd row: the training shape beside the prefill
     packed_rows, packed_events, fwd_packed = packed_training_times(packed)
     serve_rows[0].update(fwd_packed)  # the varlen_fwd row: the 8192 packing beside serving

@@ -12,15 +12,15 @@
 // dK/dV runs on TMA and wgmma (namespace dkdv, details beside it) on two
 // routes, by head dims alone (dkdv::make_plan): one block at D, Dv <= 512,
 // a thread-block cluster of two that splits D and Dv above, up to 1024.
-// dQ for D, Dv <= 512 does too (namespace dq, dq::make_plan's route), and
-// so does from-S with dK out of the kernel (namespace from_s, the route
+// The recompute dQ does too (namespace dq, dq::make_plan's route), and so
+// does from-S with dK out of the kernel (namespace from_s, the route
 // from_s::make_plan's): one block at Dv <= 512, a cluster of two that
-// splits Dv above, up to 1024. dQ for wider heads and from-S with dK in
-// the kernel are built from the mma.sync pieces of bwd_tiles.cuh: 16 warps,
-// mma.sync m16n8k16 (bf16 or f16 in, fp32 accumulate) fed by ldmatrix, a
-// block's owned tile resident in shared memory and the other operand
-// streamed in 64 x 64 chunks through a 4-slot cp.async ring, fp32
-// accumulators split over the warps' registers by rows and columns.
+// splits Dv above, up to 1024. From-S with dK in the kernel is built from
+// the mma.sync pieces of bwd_tiles.cuh: 16 warps, mma.sync m16n8k16 (bf16
+// or f16 in, fp32 accumulate) fed by ldmatrix, a block's owned tile
+// resident in shared memory and the other operand streamed in 64 x 64
+// chunks through a 4-slot cp.async ring, fp32 accumulators split over the
+// warps' registers by rows and columns.
 //
 // The score gradient of one element is _recompute_ds: s = scale * q.k,
 // softcap (keeping its 1 - (s/cap)^2 chain factor for the dK / dQ products
@@ -43,12 +43,14 @@
 // mma.sync block that held D or Dv > 512 before (32 KV rows, 128-row Q
 // tiles, 512-column passes) is gone; varlen_bwd.cu keeps its own.
 //
-// dQ (recompute tier), the mma.sync block (D or Dv > 512): a block owns BQ
-// query rows with Q and dO resident
-// and walks the KV tiles of its band: S over the K chunks, dP over the V
-// chunks, dS to shared memory (and fp32 dS to the dbias slab), then
-// dQ += dS K over the K chunks again; the BQ x D fp32 dQ tile lives in
-// registers exactly like the forward's O tile.
+// dQ (recompute tier): a block (or a cluster) owns 64 query rows of one
+// head with Q and dO resident and walks the KV tiles of its band: S and dP
+// over the K and V boxes, dS exchanged between its consumers (and fp32 dS
+// to the dbias slab), then dQ += dS K over the K boxes again; above D512
+// the cluster's ranks split D and Dv and add their partial S and dP
+// through distributed shared memory. The mma.sync block that held D or Dv
+// > 512 before (32 or 64 rows, its fp32 dQ tile over 16 warps' registers)
+// is gone; varlen_bwd.cu keeps its own.
 //
 // From-S dK/dV (S-resident tier, bf16 only): below, beside its two kernels.
 //
@@ -141,17 +143,8 @@ __device__ __forceinline__ float dropped(const BwdParams& p, bool keep, float x)
   return p.dropout_p > 0.f ? (keep ? x * p.dropout_inv : 0.f) : x;
 }
 
-// ---------------------------------------------------------------------------
-// dQ (recompute)
-// ---------------------------------------------------------------------------
-
-template <typename T>
-size_t dq_smem_bytes(int bq, int d, int dv) {
-  return ((size_t)bq * (d + 8) + (size_t)bq * (dv + 8) + (size_t)NST * CH * LDC +
-          (size_t)bq * LDC) * sizeof(T) + 2 * (size_t)bq * sizeof(float);
-}
-
-// The KV range [kv_lo, kv_hi) rows row0..row_last see, kv_lo tile-aligned.
+// The KV range [kv_lo, kv_hi) rows row0..row_last see (the recompute dQ's
+// band, namespace dq), kv_lo tile-aligned.
 __device__ __forceinline__ void kv_band(const BwdParams& p, int row0, int row_last, int& kv_lo,
                                         int& kv_hi) {
   kv_lo = 0;
@@ -160,182 +153,6 @@ __device__ __forceinline__ void kv_band(const BwdParams& p, int row0, int row_la
     kv_hi = min(p.nkv, row_last + p.causal_offset + p.window_right + 1);
   if (p.window_left >= 0) kv_lo = max(0, row0 + p.causal_offset - p.window_left);
   kv_lo = (kv_lo / CH) * CH;
-}
-
-template <typename T, int BQ>
-__global__ void __launch_bounds__(NTHR, 1) dq_kernel(const BwdParams p) {
-  constexpr int RT = BQ / 16;
-  constexpr int WC = NW / RT;
-  constexpr int CW = CH / WC;
-  constexpr int N8 = CW / 8;
-  constexpr int NVMAX = ACC_PER_THREAD / (4 * N8);  // D chunks the registers hold
-  static_assert(N8 == 1 || N8 == 2, "BQ must be 32 or 64");
-
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int LDQ = p.D + 8, LDO = p.Dv + 8;
-  T* Qs = reinterpret_cast<T*>(smem_raw);
-  T* dOs = Qs + BQ * LDQ;
-  T* ring = dOs + BQ * LDO;
-  T* dSs = ring + NST * CH * LDC;
-  float* lse_s = reinterpret_cast<float*>(dSs + BQ * LDC);
-  float* delta_s = lse_s + BQ;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int rt = warp / WC, wc = warp % WC;
-  const Lanes L(lane);
-  const int head = blockIdx.x, b = blockIdx.y, kvh = head / p.group;
-  const int row0 = (gridDim.z - 1 - blockIdx.z) * BQ;  // the longest causal rows start first
-  const int row_last = min(row0 + BQ, p.nq) - 1;
-  int kv_lo, kv_hi;
-  kv_band(p, row0, row_last, kv_lo, kv_hi);
-  const int nD = p.D / CH, nV = p.Dv / CH;
-  const int ntiles = kv_hi > kv_lo ? (kv_hi - kv_lo + CH - 1) / CH : 0;
-
-  const long long qh = (long long)(b * p.Hq + head) * p.nq;
-  const T* qb = static_cast<const T*>(p.q) + qh * p.D;
-  const T* ob = static_cast<const T*>(p.dout) + qh * p.Dv;
-  const T* kb = static_cast<const T*>(p.k) + ((long long)(b * p.Hkv + kvh) * p.nkv) * p.D;
-  const T* vb = static_cast<const T*>(p.v) + ((long long)(b * p.Hkv + kvh) * p.nkv) * p.Dv;
-  const float slope = p.alibi != nullptr ? p.alibi[b * p.Hq + head] : 0.f;
-
-  // Resident Q and dO: rows past Nq zero-filled.
-  for (int i = tid; i < BQ * (p.D / 8); i += NTHR) {
-    const int r = i / (p.D / 8), c = (i % (p.D / 8)) * 8;
-    const bool ok = row0 + r < p.nq;
-    cp_async16(Qs + r * LDQ + c, ok ? qb + (long long)(row0 + r) * p.D + c : qb, ok);
-  }
-  for (int i = tid; i < BQ * (p.Dv / 8); i += NTHR) {
-    const int r = i / (p.Dv / 8), c = (i % (p.Dv / 8)) * 8;
-    const bool ok = row0 + r < p.nq;
-    cp_async16(dOs + r * LDO + c, ok ? ob + (long long)(row0 + r) * p.Dv + c : ob, ok);
-  }
-  cp_async_commit();
-  for (int i = tid; i < BQ; i += NTHR) {
-    const bool ok = row0 + i < p.nq;
-    lse_s[i] = ok ? p.lse[qh + row0 + i] : 0.f;
-    delta_s[i] = ok ? p.delta[qh + row0 + i] : 0.f;
-  }
-
-  // Chunk gi of the stream: per KV tile, the nD K chunks (S), the nV V
-  // chunks (dP), the nD K chunks again (dQ); rows past Nkv zero-filled.
-  const int per_tile = 2 * nD + nV;
-  const int total = ntiles * per_tile;
-  auto issue = [&](int gi) {
-    if (gi < total) {
-      const int t = gi / per_tile, c = gi - t * per_tile;
-      const int kv0 = kv_lo + t * CH;
-      const bool is_v = c >= nD && c < nD + nV;
-      const T* src = is_v ? vb : kb;
-      const int ld = is_v ? p.Dv : p.D;
-      const int c0 = c < nD ? c : (is_v ? c - nD : c - nD - nV);
-      T* dst = ring + (gi % NST) * (CH * LDC);
-      const int r = tid >> 3, cv = (tid & 7) * 8;
-      const bool ok = kv0 + r < p.nkv;
-      cp_async16(dst + r * LDC + cv, ok ? src + (long long)(kv0 + r) * ld + c0 * CH + cv : src, ok);
-    }
-    cp_async_commit();
-  };
-  auto begin = [&](int gi) -> const T* {
-    issue(gi + NST - 1);
-    cp_async_wait<NST - 1>();
-    __syncthreads();
-    return ring + (gi % NST) * (CH * LDC);
-  };
-
-  float o[NVMAX][N8][4];
-#pragma unroll
-  for (int vc = 0; vc < NVMAX; ++vc)
-#pragma unroll
-    for (int n = 0; n < N8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[vc][n][e] = 0.f;
-
-#pragma unroll
-  for (int gi = 0; gi < NST - 1; ++gi) issue(gi);
-  for (int t = 0; t < ntiles; ++t) {
-    const int kv0 = kv_lo + t * CH;
-    const int gt = t * per_tile;
-
-    float s_acc[N8][4], dp_acc[N8][4];
-#pragma unroll
-    for (int n = 0; n < N8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s_acc[n][e] = dp_acc[n][e] = 0.f;
-    for (int c = 0; c < nD; ++c) {
-      const T* ch = begin(gt + c);
-      mma_abt<T, N8>(s_acc, Qs + (rt * 16) * LDQ + c * CH, LDQ, ch + (wc * CW) * LDC, L, lane);
-      __syncthreads();
-    }
-    for (int c = 0; c < nV; ++c) {
-      const T* ch = begin(gt + nD + c);
-      mma_abt<T, N8>(dp_acc, dOs + (rt * 16) * LDO + c * CH, LDO, ch + (wc * CW) * LDC, L, lane);
-      __syncthreads();
-    }
-
-    // dS to shared memory (with the softcap factor) and to the dbias slab
-    // (without it).
-#pragma unroll
-    for (int n = 0; n < N8; ++n) {
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int rl = rt * 16 + g + 8 * hh, cl = wc * CW + n * 8 + 2 * t4;
-        float ds[2], dsqk[2];
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const Prob pr = score_prob(p, b, head, row0 + rl, kv0 + cl + j, s_acc[n][2 * hh + j],
-                                     lse_s[rl], slope);
-          ds[j] = pr.p * (dropped(p, pr.keep, dp_acc[n][2 * hh + j]) - delta_s[rl]);
-          dsqk[j] = ds[j] * pr.cap;
-        }
-        *reinterpret_cast<uint32_t*>(dSs + rl * LDC + cl) = pack2<T>(dsqk[0], dsqk[1]);
-        if (p.dbias != nullptr)
-          *reinterpret_cast<float2*>(p.dbias + ((long long)(b * p.Hq + head) * p.ds_rows + row0 + rl) *
-                                                   p.ds_ld + kv0 + cl) = make_float2(ds[0], ds[1]);
-      }
-    }
-
-    // dQ += dS K over the K chunks.
-#pragma unroll
-    for (int vc = 0; vc < NVMAX; ++vc) {
-      if (vc < nD) {
-        const T* ch = begin(gt + nD + nV + vc);
-        mma_ab<T, N8>(o[vc], dSs + (rt * 16) * LDC, LDC, ch + wc * CW, L);
-        __syncthreads();
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-  // dbias tiles outside the band: zeros.
-  if (p.dbias != nullptr) {
-    const int kv_end = kv_lo + ntiles * CH;
-    for (int i = tid; i < BQ * (p.ds_ld / 4); i += NTHR) {
-      const int r = i / (p.ds_ld / 4), c = (i % (p.ds_ld / 4)) * 4;
-      if (c >= kv_lo && c < kv_end) continue;
-      *reinterpret_cast<float4*>(p.dbias + ((long long)(b * p.Hq + head) * p.ds_rows + row0 + r) *
-                                               p.ds_ld + c) = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  }
-
-  // Epilogue: dQ = scale * sum.
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int row = row0 + rt * 16 + g + 8 * hh;
-    if (row >= p.nq) continue;
-    const long long base = (qh + row) * p.D;
-#pragma unroll
-    for (int vc = 0; vc < NVMAX; ++vc) {
-      if (vc < nD) {
-#pragma unroll
-        for (int n = 0; n < N8; ++n) {
-          const int col = vc * CH + wc * CW + n * 8 + 2 * t4;
-          store2<T>(p.dq, base + col, o[vc][n][2 * hh] * p.scale, o[vc][n][2 * hh + 1] * p.scale,
-                    p.out_f32);
-        }
-      }
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1519,21 +1336,22 @@ cudaError_t launch_typed(bool f16, const BwdParams& p, const Plan& pl, int B,
 }  // namespace dkdv
 
 // ---------------------------------------------------------------------------
-// dQ (recompute) for D, Dv <= 512: TMA + mbarrier + wgmma
+// dQ (recompute): TMA + mbarrier + wgmma, one block (D, Dv <= 512) or a
+// cluster of two (D or Dv in (512, 1024])
 // ---------------------------------------------------------------------------
 
-// The Hopper route of ffpa_bwd_dq (ffpa_attn_tpu/ops/flash_bwd.py _dq_kernel,
-// the recompute tier's second launch). Bound on an H100: operations, 3
-// matmul units (S, dP, dQ) of 2 * pairs * (D, Dv, D) flop. The mma.sync
-// dq_kernel above walked 2 D / 64 + Dv / 64 chunks a KV tile through the
-// cp.async ring, each behind two __syncthreads (48 block barriers a tile at
-// D512), with no product in flight during a barrier: 10x its bound at the
+// ffpa_bwd_dq's kernel (ffpa_attn_tpu/ops/flash_bwd.py _dq_kernel, the
+// recompute tier's second launch). Bound on an H100: operations, 3 matmul
+// units (S, dP, dQ) of 2 * pairs * (D, Dv, D) flop. The mma.sync block it
+// replaced walked 2 D / 64 + Dv / 64 chunks a KV tile through a cp.async
+// ring, each behind two __syncthreads (48 block barriers a tile at D512),
+// with no product in flight during a barrier: 10x its bound at the
 // windowed training shape on an H100, this block 3x (PERF.md). This block
 // is the forward's (flash_fwd.cu namespace fwd) with dP beside S and no
 // softmax, and the mirror of dkdv::kernel with (K, V) and (Q, dO) swapped
-// and one output. 384 threads own 64 Q rows of one query head (grid and
-// longest-first order of dq_kernel), and walk the KV tiles of the rows'
-// causal / window band:
+// and one output. 384 threads own 64 Q rows of one query head (the longest
+// causal rows first), and walk the KV tiles of the rows' causal / window
+// band:
 //  - warpgroup 0 is the producer (setmaxnreg 24). One thread loads Q and
 //    dO once by TMA into D / 64 and Dv / 64 resident 64 x 64 boxes (128 B
 //    swizzle; tensor maps at the true extents, so rows past Nq and Nkv read
@@ -1566,55 +1384,110 @@ cudaError_t launch_typed(bool f16, const BwdParams& p, const Plan& pl, int B,
 // each stage's products are committed in their own block, stage releases
 // and the dbias stores are predicated instructions, and the zeros of dQ
 // are fenced off from its products.
+//
+// D, Dv <= 512 (SPLIT false): one block holds all of D and Dv, 5 stages at
+// D = Dv = 512.
+//
+// Wider heads (SPLIT true, D or Dv in (512, 1024]): Q and dO of 64 rows at
+// D1024 (256 KB) fit no block, and a 64 x 512 fp32 dQ half is all a
+// consumer's registers hold, so a cluster of two blocks (grid x = 2 Hq,
+// the pair adjacent in x: the same block order) owns the 64 Q rows and
+// splits both head dims: rank r holds the Q boxes of its half of D and the
+// dO boxes of its half of Dv, resident (rank 0 the larger half; sm90.cuh
+// col_block), and per KV tile streams only its K boxes (for S), its V
+// boxes (for dP) and its K boxes again (for dQ), so every byte of Q, dO, K
+// and V is read once per cluster, as one D512 block reads it. Consumer c
+// of each rank computes a partial S over its rank's D boxes and a partial
+// dP over its Dv boxes (64 x 32 fp32, 8 KB each), stores both into the
+// shared memory of the partner's consumer c (st.async, completing their
+// bytes on the partner's barrier; S as soon as its products complete, so
+// its bytes travel under the dP products) and adds the partner's partials
+// to its own. fp32 addition of two values is commutative, so both ranks
+// hold bit-identical S and dP, and so the same P, dS and dropout mask,
+// with no further exchange. Each rank writes the whole dS box and runs
+// dQ[:, its half of D] += dS K over its own K boxes (consumer c owning
+// ceil or floor of the rank's boxes, at most 4: 128 registers a thread, as
+// at D512) and stores its own dQ columns. Rank 0 alone writes the dbias
+// slab (its consumers the band, its producer warps 1..3 the zeros outside
+// it), so each of its bytes has one writer. The exchange has one slot (the
+// arithmetic is beside make_plan), so a rank stores tile t's partials only
+// after the partner has read tile t - 1's: each thread that read its share
+// of the slot arrives on the partner's "free" barrier (a remote arrive,
+// release at cluster scope), which the storing consumer waits on with
+// acquire. Both ranks walk the same KV tiles (the band depends on rows
+// alone). A rank may hold no D box (D64 / Dv1024) or no Dv box (D1024 /
+// Dv64): it sends zero partials of that product and, without D boxes,
+// owns no dQ columns. The exchange addresses are formed once, before the
+// products (the dK/dV cluster spilled in fp16 when they were formed after
+// them). The cluster barrier at the start publishes the barriers'
+// initialisation, the one at the end keeps a block alive while its partner
+// may still store or arrive into it.
 namespace dq {
 
 using namespace ffpa::sm90;
+using dkdv::Part;     // a block's first D box and D boxes, first Dv box and Dv boxes
+using dkdv::part_of;  // alone everything; split, rank r's half (rank 0 the larger)
 
 constexpr int ROWS = 64;                   // Q rows of a block
 constexpr int KV_ROWS = 64;                // KV rows of a streamed tile
 constexpr int COLS = 64;                   // columns of a box (128 B of 16-bit)
 static_assert(KV_ROWS == CH, "kv_band aligns the band to the chunk width");
-constexpr int MAX_BOXES = 8;               // D, Dv <= 512 on this route
+static_assert(COLS == dkdv::COLS, "part_of counts boxes of dkdv::COLS columns");
+constexpr int MAX_BOXES = 8;               // D, Dv boxes of a block: D512, a rank's half of D1024
+constexpr int MAX_HEAD_DIM = 2 * MAX_BOXES * COLS;  // D, Dv of either route
 constexpr int Q_BOXES = MAX_BOXES / 2;     // D boxes of one consumer's dQ: 64 x 256 fp32
 constexpr int STAGE_BYTES = 2 * BOX_BYTES;
 constexpr int MAX_STAGES = 8;
 constexpr int THREADS = 384;               // producer warpgroup + 2 consumer warpgroups
 constexpr int CONSUMER_WARPS = 8;          // arrivals that free a stage
+constexpr int CONSUMER_THREADS = 128;      // arrivals that free a consumer's exchange slot
+constexpr int PART_BYTES = ROWS * 32 * 4;  // one consumer's partial S or dP (64 x 32 fp32)
+constexpr int PART_BUF_BYTES = 2 * 2 * PART_BYTES;  // both consumers' S and dP: one slot
+// The exchange's slot and its 4 barriers (landed and free, per consumer),
+// padded to a 1024 B atom: on the cluster route they lead the layout, at
+// offsets the compiler knows.
+constexpr int XCH_BYTES = PART_BUF_BYTES + 1024;
 constexpr int SMEM_LIMIT = 232448;
-constexpr int WGMMA = 1, MMA_SYNC = 0;     // routes
+constexpr int WGMMA = 1, CLUSTER = 2;      // routes
 
-// The route and tiling of a launch at head dims (D, Dv), multiples of 64:
-// D, Dv <= 512 take this block, consumer 0 owning the first ceil(nd / 2)
-// of D's nd boxes of dQ and consumer 1 the rest (sm90.cuh col_block), with as
-// many ring stages as shared memory holds after Q, dO and the dS box (5 at
-// D = Dv = 512); wider heads take the mma.sync dq_kernel, whose row tile is
-// the largest its registers (rows x D <= 64 x 512) and shared memory hold.
-// ffpa_bwd_dq_plan hands it out; ops/config.py dq_plan mirrors it and the
-// card test holds the two equal.
+// Shared memory of a block laid out for nd Q boxes and nv dO boxes, apart
+// from the ring: Q, dO, the dS box, the 1024 B alignment, Q's barrier and,
+// split, the exchange's slot and barriers. A ring stage is two boxes and
+// its two barriers.
+inline size_t fixed_bytes(int nd, int nv, bool split) {
+  return (size_t)(nd + nv + 1) * BOX_BYTES + 1024 + sizeof(uint64_t) + (split ? XCH_BYTES : 0);
+}
+constexpr size_t STAGE_SMEM = STAGE_BYTES + 2 * sizeof(uint64_t);
+
+// The route and tiling of a launch at head dims (D, Dv), multiples of 64
+// up to 1024: D, Dv <= 512 take one block, wider heads the cluster; within
+// a block (a rank) consumer 0 owns the first ceil(nd / 2) of its nd D
+// boxes of dQ and consumer 1 the rest (sm90.cuh col_block), with as many
+// ring stages (at most 8) as shared memory holds beside the rest: 5 at D =
+// Dv = 512. Both ranks of a cluster lay out rank 0's share. At D = Dv =
+// 1024 a rank's Q and dO take 16 boxes (128 KB), the dS box 8 KB and the
+// exchange's slot 32 KB (2 consumers x (S + dP) x 8 KB) with its barriers
+// in a 1 KB atom: with the alignment and Q's barrier 174,088 B, and 3
+// stages of 16,400 B make 223,288 of the 232,448 a block may ask for. A
+// second slot would leave room for 1 stage: one slot, and the "free"
+// barriers. ffpa_bwd_dq_plan
+// hands the plan out; ops/config.py dq_plan mirrors it and the card test
+// holds the two equal.
 struct Plan {
-  int route, rows, stages, nd0;
+  int route, stages;
+  Part part[2];  // each rank's share (the lone block's is part[0])
   size_t smem;
 };
 inline Plan make_plan(int D, int Dv) {
-  Plan pl;
   const int nd = D / COLS, nv = Dv / COLS;
-  pl.nd0 = sm90::col_block(nd, 2, 0).nc;
-  if (nd <= MAX_BOXES && nv <= MAX_BOXES) {
-    pl.route = WGMMA;
-    pl.rows = ROWS;
-    // Q, dO, the dS box, the 1024 B alignment and their barrier; a stage
-    // is two boxes and its two barriers.
-    const size_t fixed = (size_t)(nd + nv + 1) * BOX_BYTES + 1024 + sizeof(uint64_t);
-    const size_t stage = STAGE_BYTES + 2 * sizeof(uint64_t);
-    pl.stages = (int)std::min((size_t)MAX_STAGES, (SMEM_LIMIT - fixed) / stage);
-    pl.smem = fixed + pl.stages * stage;
-  } else {
-    pl.route = MMA_SYNC;
-    const bool tall = 64 * D <= 32 * 1024 && dq_smem_bytes<__nv_bfloat16>(64, D, Dv) <= SMEM_LIMIT;
-    pl.rows = tall ? 64 : 32;
-    pl.stages = NST;
-    pl.smem = dq_smem_bytes<__nv_bfloat16>(pl.rows, D, Dv);
-  }
+  const bool split = nd > MAX_BOXES || nv > MAX_BOXES;
+  Plan pl;
+  pl.route = split ? CLUSTER : WGMMA;
+  pl.part[0] = part_of(nd, nv, split, 0);
+  pl.part[1] = part_of(nd, nv, split, 1);
+  const size_t fixed = fixed_bytes(pl.part[0].nd, pl.part[0].nv, split);
+  pl.stages = (int)std::min((size_t)MAX_STAGES, (SMEM_LIMIT - fixed) / STAGE_SMEM);
+  pl.smem = fixed + pl.stages * STAGE_SMEM;
   return pl;
 }
 
@@ -1625,22 +1498,34 @@ struct Maps {
   CUtensorMap k_map, v_map;   // (D | Dv, nkv, B * Hkv); box 64 x 64
 };
 
-// Shared memory of a block, from a 1024 B boundary: the Q boxes, the dO
-// boxes, the dS box, the ring's stages, their full / empty barriers and the
-// barrier of Q and dO.
+// Shared memory of a block, from a 1024 B boundary: split, the exchange's
+// slot and its barriers (an atom); the Q boxes, the dO boxes, the dS box,
+// the ring's stages, their full / empty barriers and the barrier of Q and
+// dO. The exchange leads so that its addresses are constant offsets from
+// the base: formed from the ring's extent they took registers the feature
+// path needs (the non-dropout cluster spilled 8 B). Both ranks of a
+// cluster lay it out alike (for rank 0's share), so an offset here is the
+// same offset in the partner.
 struct Smem {
   unsigned char* q;
   unsigned char* dout;
-  unsigned char* ds;  // dS (softcap's factor included): [q][kv]
+  unsigned char* ds;    // dS (softcap's factor included): [q][kv]
   unsigned char* ring;
+  unsigned char* part;  // [2][2][PART_BYTES]: consumer c's partial S, dP from the partner
   uint64_t* full;
   uint64_t* empty;
   uint64_t* q_full;
+  uint64_t* part_full;  // [2]: the partner's partials for consumer c have landed
+  uint64_t* part_free;  // [2]: the partner's consumer c has read the partials sent to it
 };
+template <bool SPLIT>
 __device__ __forceinline__ Smem carve(unsigned char* base, int nd, int nv, int stages) {
   Smem sm;
-  sm.q = base;
-  sm.dout = base + nd * BOX_BYTES;
+  sm.part = base;
+  sm.part_full = reinterpret_cast<uint64_t*>(base + PART_BUF_BYTES);
+  sm.part_free = sm.part_full + 2;
+  sm.q = base + (SPLIT ? XCH_BYTES : 0);
+  sm.dout = sm.q + nd * BOX_BYTES;
   sm.ds = sm.dout + nv * BOX_BYTES;
   sm.ring = sm.ds + BOX_BYTES;
   sm.full = reinterpret_cast<uint64_t*>(sm.ring + stages * STAGE_BYTES);
@@ -1650,13 +1535,14 @@ __device__ __forceinline__ Smem carve(unsigned char* base, int nd, int nv, int s
 }
 
 // A block's Q rows and the KV tiles of its band, [kv_lo, kv_lo + 64
-// ntiles): the same in every thread.
+// ntiles): the same in every thread and in both ranks of a cluster.
 struct Block {
   int b, head, kvh, row0, kv_lo, ntiles;
 };
+template <bool SPLIT>
 __device__ __forceinline__ Block block_of(const BwdParams& p) {
   Block k;
-  k.head = blockIdx.x;
+  k.head = SPLIT ? (int)(blockIdx.x >> 1) : (int)blockIdx.x;
   k.b = blockIdx.y;
   k.kvh = k.head / p.group;
   k.row0 = (gridDim.z - 1 - blockIdx.z) * ROWS;  // the longest causal rows start first
@@ -1666,22 +1552,23 @@ __device__ __forceinline__ Block block_of(const BwdParams& p) {
   return k;
 }
 
-// The producer's thread: Q and dO once, then per KV tile the K stages and
-// the V stages (two boxes each, an odd last box alone), then the dQ stages
-// (K box j of consumer 0's half beside box nd0 + j of consumer 1's, alone
-// where that half is shorter).
+// The producer's thread: the block's Q and dO boxes once, then per KV tile
+// the stages of its K boxes and of its V boxes (two boxes each, an odd last
+// box alone), then the dQ stages (K box j of consumer 0's share beside box
+// nd0 + j of consumer 1's, alone where that share is shorter).
 __device__ __forceinline__ void produce(const Maps& maps, const BwdParams& p, const Smem& sm,
-                                        const Block& k, int stages, int nd, int nv, int nd0) {
+                                        const Block& k, int stages, const Part& pt, int nd0) {
   prefetch_map(&maps.q_map);
   prefetch_map(&maps.do_map);
   prefetch_map(&maps.k_map);
   prefetch_map(&maps.v_map);
   const int bq = k.b * p.Hq + k.head, bkv = k.b * p.Hkv + k.kvh;
-  mbar_arrive_expect_tx(sm.q_full, (nd + nv) * BOX_BYTES);
-  for (int j = 0; j < nd; ++j)
-    tma_load_3d(sm.q + j * BOX_BYTES, &maps.q_map, sm.q_full, j * COLS, k.row0, bq);
-  for (int j = 0; j < nv; ++j)
-    tma_load_3d(sm.dout + j * BOX_BYTES, &maps.do_map, sm.q_full, j * COLS, k.row0, bq);
+  mbar_arrive_expect_tx(sm.q_full, (pt.nd + pt.nv) * BOX_BYTES);
+  for (int j = 0; j < pt.nd; ++j)
+    tma_load_3d(sm.q + j * BOX_BYTES, &maps.q_map, sm.q_full, (pt.d0 + j) * COLS, k.row0, bq);
+  for (int j = 0; j < pt.nv; ++j)
+    tma_load_3d(sm.dout + j * BOX_BYTES, &maps.do_map, sm.q_full, (pt.v0 + j) * COLS, k.row0,
+                bq);
   int it = 0;
   // Stage it % stages, free again, expecting nb boxes.
   auto claim = [&](int nb) -> unsigned char* {
@@ -1690,32 +1577,33 @@ __device__ __forceinline__ void produce(const Maps& maps, const BwdParams& p, co
     mbar_arrive_expect_tx(&sm.full[st], nb * BOX_BYTES);
     return sm.ring + st * STAGE_BYTES;
   };
-  auto run = [&](const CUtensorMap* map, int n, int kv0) {
+  auto run = [&](const CUtensorMap* map, int first, int n, int kv0) {
     for (int c = 0; c < n; c += 2, ++it) {
       const int nb = min(2, n - c);
       unsigned char* dst = claim(nb);
       for (int g = 0; g < nb; ++g)
-        tma_load_3d(dst + g * BOX_BYTES, map, &sm.full[it % stages], (c + g) * COLS, kv0, bkv);
+        tma_load_3d(dst + g * BOX_BYTES, map, &sm.full[it % stages], (first + c + g) * COLS, kv0,
+                    bkv);
     }
   };
   for (int t = 0; t < k.ntiles; ++t) {
     const int kv0 = k.kv_lo + t * KV_ROWS;
-    run(&maps.k_map, nd, kv0);
-    run(&maps.v_map, nv, kv0);
+    run(&maps.k_map, pt.d0, pt.nd, kv0);
+    run(&maps.v_map, pt.v0, pt.nv, kv0);
     for (int j = 0; j < nd0; ++j, ++it) {
-      const bool both = nd0 + j < nd;
+      const bool both = nd0 + j < pt.nd;
       unsigned char* dst = claim(both ? 2 : 1);
-      tma_load_3d(dst, &maps.k_map, &sm.full[it % stages], j * COLS, kv0, bkv);
+      tma_load_3d(dst, &maps.k_map, &sm.full[it % stages], (pt.d0 + j) * COLS, kv0, bkv);
       if (both)
-        tma_load_3d(dst + BOX_BYTES, &maps.k_map, &sm.full[it % stages], (nd0 + j) * COLS, kv0,
-                    bkv);
+        tma_load_3d(dst + BOX_BYTES, &maps.k_map, &sm.full[it % stages],
+                    (pt.d0 + nd0 + j) * COLS, kv0, bkv);
     }
   }
 }
 
-// Warps 1..3 of the producer warpgroup: zeros over the block's 64 rows of
-// the dbias slab in the columns outside the band's tiles, [0, kv_lo) and
-// [kv_lo + 64 ntiles, ds_ld), 16 B a store.
+// Warps 1..3 of the producer warpgroup (of rank 0 on the cluster): zeros
+// over the block's 64 rows of the dbias slab in the columns outside the
+// band's tiles, [0, kv_lo) and [kv_lo + 64 ntiles, ds_ld), 16 B a store.
 __device__ __forceinline__ void zero_dbias_outside(const BwdParams& p, const Block& k) {
   const int u = threadIdx.x - 32, n = 96;
   const int lo4 = k.kv_lo / 4, hi = k.kv_lo + k.ntiles * KV_ROWS;
@@ -1772,35 +1660,70 @@ __device__ __forceinline__ float2 ds_feature(const BwdParams& p, int b, int h, i
   return make_float2(ds * cap, ds);
 }
 
-// Consumer C of a block; C and DROP are template arguments so that no
-// branch around a wgmma depends on the thread. Accumulator element 4 j + 2
-// hh + e of thread (warp, g = lane / 4, t4 = lane % 4) of S and dP is Q
-// row 16 warp + g + 8 hh, KV column 32 C + 8 j + 2 t4 + e of the tile; of
-// dQ's box jj, Q row 16 warp + g + 8 hh, column 8 j + 2 t4 + e of the box.
-template <typename T, int C, bool DROP>
+// Consumer C of a block; C, DROP and SPLIT are template arguments so that
+// no branch around a wgmma depends on the thread. Accumulator element 4 j
+// + 2 hh + e of thread (warp, g = lane / 4, t4 = lane % 4) of S and dP is
+// Q row 16 warp + g + 8 hh, KV column 32 C + 8 j + 2 t4 + e of the tile;
+// of dQ's box jj, Q row 16 warp + g + 8 hh, column 8 j + 2 t4 + e of the
+// box. pt is the block's share of the head dims, nd0 consumer 0's D boxes
+// of it; rank the block's rank (0 alone), which alone writes dbias.
+template <typename T, int C, bool DROP, bool SPLIT>
 __device__ __forceinline__ void consume(const BwdParams& p, const Smem& sm, const Block& k,
-                                        int stages, int nd, int nv, int nd0) {
+                                        int stages, const Part& pt, int nd0, int rank) {
   const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  const int own = C == 0 ? nd0 : nd - nd0;  // D boxes of this consumer's dQ
+  // The block's box counts (D, Dv, consumer 0's D boxes) and its rank in
+  // one register, unpacked where they are used; on the cluster route it
+  // goes behind an empty asm each time, so the rank's values are not held
+  // apart beside the dQ accumulators (held apart they spilled).
+  const uint32_t counts = pt.nd | pt.nv << 8 | nd0 << 16 | rank << 24;
+  auto count = [&](int field) -> int {
+    uint32_t x = counts;
+    if constexpr (SPLIT) asm volatile("" : "+r"(x));
+    return (int)((x >> (8 * field)) & 255u);
+  };
   const int r0 = 16 * warp + g;             // this thread's rows: r0, r0 + 8
   constexpr float LOG2E = 1.4426950408889634f;
-  const long long bh = (long long)k.b * p.Hq + k.head;
-  const float scale_log2 = p.scale * LOG2E;
+  // The block's (batch, head) row of lse and delta, formed where it is
+  // used; on the cluster route behind an empty asm (a 64-bit value held
+  // across the walk spilled).
+  auto head_row = [&]() -> long long {
+    int x = k.b * p.Hq + k.head;
+    if constexpr (SPLIT) asm volatile("" : "+r"(x));
+    return x;
+  };
   const bool plain = !DROP && p.bias == nullptr && p.alibi == nullptr && p.softcap <= 0.f;
-  const float slope = p.alibi != nullptr ? p.alibi[bh] : 0.f;
-  const float inv_cap = p.softcap > 0.f ? __fdividef(1.f, p.softcap) : 0.f;
+  // scale log2 e, the ALiBi slope and 1 / softcap. One block forms them
+  // once for its walk (the _w values); a rank of the cluster at each tile,
+  // and not before the walk at all (held across its walk, or formed before
+  // it, they spilled with dropout).
+  const float scale_log2_w = SPLIT ? 0.f : p.scale * LOG2E;
+  const float slope_w = SPLIT ? 0.f : (p.alibi != nullptr ? p.alibi[head_row()] : 0.f);
+  const float inv_cap_w = SPLIT ? 0.f : (p.softcap > 0.f ? __fdividef(1.f, p.softcap) : 0.f);
+  // Split: element 4 i + e of thread tid's partial S sits at (i * 128 +
+  // tid) * 16 + 4 e bytes of its consumer's S slot, and its partial dP as
+  // far into the dP slot PART_BYTES on; a thread reads back what the
+  // partner's thread tid stored. The addresses are formed where they are
+  // used, as the dK/dV cluster forms them, at constant offsets from the
+  // base (held across the walk they spilled).
+  auto slot = [&]() { return cvta_smem(sm.part) + C * 2 * PART_BYTES + tid * 16; };
 
-  // lse (times log2 e) and delta of this thread's two rows, for the walk.
+  // lse (times log2 e) and delta of this thread's two rows. One block
+  // loads them once for its walk; a rank of the cluster at each tile, after
+  // the exchange (held across its walk, they spilled).
   float lse2[2], dl[2];
+  auto load_rows = [&]() {
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int row = k.row0 + r0 + 8 * hh;
-    const bool ok = row < p.nq;
-    lse2[hh] = ok ? p.lse[bh * p.nq + row] * LOG2E : 0.f;
-    dl[hh] = ok ? p.delta[bh * p.nq + row] : 0.f;
-  }
-  const bool emit = p.dbias != nullptr;
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = k.row0 + r0 + 8 * hh;
+      const bool ok = row < p.nq;
+      const long long at = head_row() * p.nq + row;
+      lse2[hh] = ok ? p.lse[at] * LOG2E : 0.f;
+      dl[hh] = ok ? p.delta[at] : 0.f;
+    }
+  };
+  if constexpr (!SPLIT) load_rows();
+  const bool emit = p.dbias != nullptr && rank == 0;
 
   // Every ordinary write of an accumulator is fenced off from the wgmma
   // that follows, or ptxas serializes the pipeline.
@@ -1850,16 +1773,62 @@ __device__ __forceinline__ void consume(const BwdParams& p, const Smem& sm, cons
       ++it;
     }
   };
+  // Split: this rank's partial a (zeros where the rank holds no box of the
+  // product) into the partner's slot at off.
+  auto send = [&](float(&a)[16], int n, uint32_t off) {
+    const uint32_t there = mapa(slot() + off, count(3) ^ 1);
+    const uint32_t there_bar = mapa(cvta_smem(&sm.part_full[C]), count(3) ^ 1);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) a[i] = n > 0 ? a[i] : 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) st_async_v4(there + i * 2048, a + 4 * i, there_bar);
+  };
 
   mbar_wait(sm.q_full, 0);
   for (int t = 0; t < k.ntiles; ++t) {
     const int kc = k.kv_lo + t * KV_ROWS + 32 * C;  // this consumer's first KV column
+    const float scale_log2 = SPLIT ? p.scale * LOG2E : scale_log2_w;
+    const float slope = SPLIT ? (p.alibi != nullptr ? p.alibi[head_row()] : 0.f) : slope_w;
+    const float inv_cap = SPLIT ? (p.softcap > 0.f ? __fdividef(1.f, p.softcap) : 0.f) : inv_cap_w;
     float s[16], dp[16];
-    stream(s, sm.q, nd);
-    stream(dp, sm.dout, nv);
+    stream(s, sm.q, count(0));
+    if constexpr (SPLIT) {
+      drain();  // also completes this consumer's dQ products of the tile before
+      fence_operands(s);
+      // The partner has read tile t - 1's partials (at t = 0 the wait for
+      // parity 1 of a fresh barrier returns at once). S goes out before
+      // the dP products, so its bytes travel under them.
+      mbar_wait_cluster(&sm.part_free[C], (t + 1) & 1);
+      send(s, count(0), 0);
+    }
+    stream(dp, sm.dout, count(1));
     drain();  // also completes this consumer's dQ products of the tile before
     fence_operands(s);
     fence_operands(dp);
+
+    if constexpr (SPLIT) {
+      // S and dP = this rank's partials + the partner's, the same bits in
+      // both ranks.
+      send(dp, count(1), PART_BYTES);
+      mbar_arrive_expect_tx_if(&sm.part_full[C], 2 * PART_BYTES, tid == 0);
+      mbar_wait_cluster(&sm.part_full[C], t & 1);
+      const uint32_t mine = slot();
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float x[4], y[4];
+        lds_v4(mine + i * 2048, x);
+        lds_v4(mine + PART_BYTES + i * 2048, y);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[4 * i + e] += x[e];
+          dp[4 * i + e] += y[e];
+        }
+      }
+      mbar_arrive_cluster(mapa(cvta_smem(&sm.part_free[C]), count(3) ^ 1));
+      fence_operands(s);
+      fence_operands(dp);
+      load_rows();
+    }
 
     const bool interior =
         plain && k.row0 + ROWS - 1 < p.nq && kc + 31 < p.nkv &&
@@ -1869,7 +1838,7 @@ __device__ __forceinline__ void consume(const BwdParams& p, const Smem& sm, cons
     // and hidden from the compiler by the empty asm: otherwise it hoists a
     // 64-bit address for each element out of the walk and spills them. The
     // slab's rows cover the block's.
-    float* dtile = p.dbias + (bh * p.ds_rows + k.row0 + r0) * p.ds_ld + kc + 2 * t4;
+    float* dtile = p.dbias + (head_row() * p.ds_rows + k.row0 + r0) * p.ds_ld + kc + 2 * t4;
     asm volatile("" : "+l"(dtile));
     uint32_t dw[8];
     if (interior) {
@@ -1903,11 +1872,16 @@ __device__ __forceinline__ void consume(const BwdParams& p, const Smem& sm, cons
           int col = kc + 8 * j + 2 * t4;
           asm volatile("" : "+f"(s[i0]), "+f"(s[i0 + 1]), "+f"(dp[i0]), "+f"(dp[i0 + 1]),
                        "+r"(col), "+l"(btile), "+l"(dtile));
+          // On the cluster route the row goes behind an asm too, so the
+          // dropout hash of the row is formed per pair (two rows' hashes
+          // held across the walk spilled).
+          int row = k.row0 + r0 + 8 * hh;
+          if constexpr (SPLIT) asm volatile("" : "+r"(row));
           float2 d2[2];
 #pragma unroll
           for (int e = 0; e < 2; ++e)
-            d2[e] = ds_feature<DROP>(p, k.b, k.head, k.row0 + r0 + 8 * hh, col + e, s[i0 + e],
-                                     dp[i0 + e], lse2[hh], dl[hh], slope, inv_cap,
+            d2[e] = ds_feature<DROP>(p, k.b, k.head, row, col + e, s[i0 + e], dp[i0 + e],
+                                     lse2[hh], dl[hh], slope, inv_cap,
                                      btile + 8 * hh * p.sr + (long long)(8 * j + e) * p.sc);
           dw[2 * j + hh] = pack2<T>(d2[0].x, d2[1].x);
           st_global_f2_if(dtile + 8 * hh * p.ds_ld + 8 * j, d2[0].y, d2[1].y, emit);
@@ -1927,9 +1901,10 @@ __device__ __forceinline__ void consume(const BwdParams& p, const Smem& sm, cons
 
     // dQ[:, own boxes] += dS K: dQ stage j holds this consumer's K box j at
     // C * BOX_BYTES; a consumer with fewer boxes frees the stage unread.
+    const int nd0_t = count(2), own = C == 0 ? nd0_t : count(0) - nd0_t;
 #pragma unroll
     for (int j = 0; j < Q_BOXES; ++j) {
-      if (j < nd0) {
+      if (j < nd0_t) {
         const int st = it % stages;
         wait_full(st);
         if (j < own) {
@@ -1949,12 +1924,14 @@ __device__ __forceinline__ void consume(const BwdParams& p, const Smem& sm, cons
 
   // Epilogue: dQ = scale * sum, in the output type or fp32; rows past Nq
   // are not stored.
-  const int col0 = C == 0 ? 0 : nd0 * COLS;
+  const int d0 = SPLIT ? part_of(p.D / COLS, p.Dv / COLS, true, count(3)).d0 : 0;
+  const int nd0_e = count(2), own = C == 0 ? nd0_e : count(0) - nd0_e;
+  const int col0 = (d0 + (C == 0 ? 0 : nd0_e)) * COLS;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int row = k.row0 + r0 + 8 * hh;
     if (row >= p.nq) continue;
-    const long long base = (bh * p.nq + row) * p.D + col0 + 2 * t4;
+    const long long base = (head_row() * p.nq + row) * p.D + col0 + 2 * t4;
 #pragma unroll
     for (int j = 0; j < Q_BOXES; ++j) {
       if (j >= own) break;
@@ -1966,45 +1943,68 @@ __device__ __forceinline__ void consume(const BwdParams& p, const Smem& sm, cons
   }
 }
 
-template <typename T, bool DROP>
+template <typename T, bool DROP, bool SPLIT>
 __global__ void __launch_bounds__(THREADS, 1)
     wgmma_dq_kernel(const __grid_constant__ Maps maps, const BwdParams p, const int stages) {
   extern __shared__ unsigned char smem_raw[];
-  // Boxes on 1024 B boundaries: the 128 B swizzle's atom.
-  unsigned char* base = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  const int nd = p.D / COLS, nv = p.Dv / COLS, nd0 = sm90::col_block(nd, 2, 0).nc;
-  const Smem sm = carve(base, nd, nv, stages);
-  const Block k = block_of(p);
+  // Boxes on 1024 B boundaries: the 128 B swizzle's atom. On the cluster
+  // route the offset is added to the shared array itself, so every pointer
+  // into it stays a 32-bit shared one (the forward's cluster spilled a
+  // 64-bit generic one beside its accumulators).
+  unsigned char* base;
+  if constexpr (SPLIT)
+    base = smem_raw + ((1024 - (cvta_smem(smem_raw) & 1023)) & 1023);
+  else
+    base = reinterpret_cast<unsigned char*>(
+        (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const int rank = SPLIT ? (int)cluster_rank() : 0;
+  const int nd = p.D / COLS, nv = p.Dv / COLS;
+  const Part pt = part_of(nd, nv, SPLIT, rank);
+  const Part lay = part_of(nd, nv, SPLIT, 0);  // both ranks alike
+  const int nd0 = sm90::col_block(pt.nd, 2, 0).nc;
+  const Smem sm = carve<SPLIT>(base, lay.nd, lay.nv, stages);
+  const Block k = block_of<SPLIT>(p);
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
       mbar_init(&sm.full[s], 1);
       mbar_init(&sm.empty[s], CONSUMER_WARPS);
     }
     mbar_init(sm.q_full, 1);
+    if constexpr (SPLIT)
+      for (int c = 0; c < 2; ++c) {
+        mbar_init(&sm.part_full[c], 1);
+        mbar_init(&sm.part_free[c], CONSUMER_THREADS);
+      }
     fence_barrier_init();
   }
-  __syncthreads();
+  // The partner's barriers are initialised before this block's first
+  // store into its shared memory.
+  if constexpr (SPLIT)
+    cluster_sync();
+  else
+    __syncthreads();
 
   if (threadIdx.x < 128) {
     setmaxnreg_dec<24>();
     if (threadIdx.x == 0)
-      produce(maps, p, sm, k, stages, nd, nv, nd0);
-    else if (threadIdx.x >= 32 && p.dbias != nullptr)
+      produce(maps, p, sm, k, stages, pt, nd0);
+    else if (threadIdx.x >= 32 && p.dbias != nullptr && rank == 0)
       zero_dbias_outside(p, k);
   } else {
     setmaxnreg_inc<240>();
     if (threadIdx.x < 256)
-      consume<T, 0, DROP>(p, sm, k, stages, nd, nv, nd0);
+      consume<T, 0, DROP, SPLIT>(p, sm, k, stages, pt, nd0, rank);
     else
-      consume<T, 1, DROP>(p, sm, k, stages, nd, nv, nd0);
+      consume<T, 1, DROP, SPLIT>(p, sm, k, stages, pt, nd0, rank);
   }
+  if constexpr (SPLIT) cluster_sync();  // the partner may still store or arrive into this block
 }
 
-// The host side of one launch: tensor maps, shared memory, the grid.
-template <typename T>
+// The host side of one launch: tensor maps, shared memory, the grid (on
+// the cluster route the pair of each head adjacent along x).
+template <typename T, bool SPLIT>
 cudaError_t launch(const BwdParams& p, const Plan& pl, int B, cudaStream_t stream) {
-  const dim3 grid(p.Hq, B, (p.nq + ROWS - 1) / ROWS);
+  const dim3 grid((SPLIT ? 2 : 1) * p.Hq, B, (p.nq + ROWS - 1) / ROWS);
   if (grid.x * grid.y * grid.z == 0) return cudaSuccess;
   const bool f16 = std::is_same<T, __half>::value;
   Maps maps;
@@ -2022,11 +2022,23 @@ cudaError_t launch(const BwdParams& p, const Plan& pl, int B, cudaStream_t strea
     e = encode_3d(&maps.v_map, f16, p.v, p.Dv, mkv, (uint64_t)B * p.Hkv, (uint64_t)p.Dv * 2,
                   mkv * p.Dv * 2, COLS, KV_ROWS);
   if (e != cudaSuccess) return e;
-  auto kern = p.dropout_p > 0.f ? wgmma_dq_kernel<T, true> : wgmma_dq_kernel<T, false>;
+  auto kern =
+      p.dropout_p > 0.f ? wgmma_dq_kernel<T, true, SPLIT> : wgmma_dq_kernel<T, false, SPLIT>;
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
   if (e != cudaSuccess) return e;
-  kern<<<grid, THREADS, pl.smem, stream>>>(maps, p, pl.stages);
-  return cudaGetLastError();
+  if constexpr (SPLIT) {
+    return launch_cluster(kern, grid, THREADS, pl.smem, stream, 2, maps, p, pl.stages);
+  } else {
+    kern<<<grid, THREADS, pl.smem, stream>>>(maps, p, pl.stages);
+    return cudaGetLastError();
+  }
+}
+
+template <bool SPLIT>
+cudaError_t launch_typed(bool f16, const BwdParams& p, const Plan& pl, int B,
+                         cudaStream_t stream) {
+  return f16 ? launch<__half, SPLIT>(p, pl, B, stream)
+             : launch<__nv_bfloat16, SPLIT>(p, pl, B, stream);
 }
 
 }  // namespace dq
@@ -2800,6 +2812,11 @@ extern "C" int ffpa_bwd_dkdv_attrs(int route, int is_fp16, int* regs, int* local
   return 0;
 }
 
+// dQ (and the fp32 dbias slab): the route is dq::make_plan's, by head dims
+// alone (one block at D, Dv <= 512, the cluster of two up to 1024), at its
+// own 64-row tile. block_q is not read: it stays in the argument list,
+// which libraries built from older sources share (their mma.sync route
+// above D512 took it). The dbias slab is of 64-row, 64-column tiles.
 extern "C" int ffpa_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                            const float* lse, const float* delta, void* dq, float* dbias,
                            const float* bias, long long sb, long long sh, long long sr,
@@ -2808,6 +2825,7 @@ extern "C" int ffpa_bwd_dq(const void* q, const void* k, const void* v, const vo
                            int ds_rows, int ds_ld, float scale, float softcap, int causal_offset,
                            int window_left, int window_right, float dropout_p, float dropout_inv,
                            unsigned seed, void* stream) {
+  (void)block_q;
   BwdParams p = make_params(q, k, v, dout, lse, delta, bias, sb, sh, sr, sc, alibi, Hq, Hkv, nq,
                             nkv, D, Dv, scale, softcap, causal_offset, window_left, window_right,
                             dropout_p, dropout_inv, seed, 0, 0);
@@ -2816,89 +2834,79 @@ extern "C" int ffpa_bwd_dq(const void* q, const void* k, const void* v, const vo
   p.ds_rows = ds_rows;
   p.ds_ld = ds_ld;
   p.out_f32 = out_f32;
-  if (D <= 0 || Dv <= 0 || D % CH != 0 || Dv % CH != 0 || Hkv <= 0 || Hq % Hkv != 0)
+  if (D <= 0 || Dv <= 0 || D % CH != 0 || Dv % CH != 0 || D > dq::MAX_HEAD_DIM ||
+      Dv > dq::MAX_HEAD_DIM || Hkv <= 0 || Hq % Hkv != 0 ||
+      (dbias != nullptr && (ds_ld % dq::KV_ROWS != 0 || ds_ld < nkv || ds_rows % dq::ROWS != 0 ||
+                            ds_rows < nq)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dq::Plan pl = dq::make_plan(D, Dv);
-  if (pl.route == dq::WGMMA) {  // picks its own 64-row tile; block_q is not read
-    if (dbias != nullptr && (ds_ld % dq::KV_ROWS != 0 || ds_ld < nkv || ds_rows % dq::ROWS != 0 ||
-                             ds_rows < nq))
-      return (int)cudaErrorInvalidValue;
-    return (int)(is_fp16 ? dq::launch<__half>(p, pl, B, st)
-                         : dq::launch<__nv_bfloat16>(p, pl, B, st));
-  }
-  // Registers hold block_q x D fp32 (64 per thread).
-  if ((long long)block_q * D > 32 * 1024 || (block_q != 64 && block_q != 32) ||
-      (dbias != nullptr && (ds_ld % CH != 0 || ds_rows % block_q != 0)))
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid(Hq, B, (nq + block_q - 1) / block_q);
-  if (is_fp16) {
-    return (int)(block_q == 64
-                     ? launch(dq_kernel<__half, 64>, grid, dq_smem_bytes<__half>(64, D, Dv), p, st)
-                     : launch(dq_kernel<__half, 32>, grid, dq_smem_bytes<__half>(32, D, Dv), p, st));
-  }
-  return (int)(block_q == 64 ? launch(dq_kernel<__nv_bfloat16, 64>, grid,
-                                      dq_smem_bytes<__nv_bfloat16>(64, D, Dv), p, st)
-                             : launch(dq_kernel<__nv_bfloat16, 32>, grid,
-                                      dq_smem_bytes<__nv_bfloat16>(32, D, Dv), p, st));
+  return (int)(pl.route == dq::CLUSTER ? dq::launch_typed<true>(is_fp16, p, pl, B, st)
+                                       : dq::launch_typed<false>(is_fp16, p, pl, B, st));
 }
 
 // The route and tiling ffpa_bwd_dq takes at head dims (D, Dv), multiples of
-// 64: out[0..4] are the route (1 wgmma, 0 mma.sync), the Q rows of a block
-// (for mma.sync the largest row tile its registers and shared memory hold),
-// the KV rows of a tile, the ring's stages and the dynamic shared-memory
-// bytes; out[5] the number of dQ column blocks (the consumers' halves, or
-// the whole block's), then (first column, width) of each; cap is out's
-// length.
+// 64 up to 1024: out[0..4] are the route (1 one block, 2 the cluster of
+// two), the Q rows of a block, the KV rows of a tile, the ring's stages and
+// the dynamic shared-memory bytes of a block; out[5] the number n of dQ
+// column blocks (each rank's consumers' shares, rank by rank), then (first
+// column, width) of each; out[6 + 2n] the number of ranks of a cluster (0
+// for one block), then each rank's (first D column, D width, first Dv
+// column, Dv width). cap is out's length.
 extern "C" int ffpa_bwd_dq_plan(int D, int Dv, int* out, int cap) {
-  if (D <= 0 || Dv <= 0 || D % CH != 0 || Dv % CH != 0 || cap < 10)
+  if (D <= 0 || Dv <= 0 || D % CH != 0 || Dv % CH != 0 || D > dq::MAX_HEAD_DIM ||
+      Dv > dq::MAX_HEAD_DIM || cap < 23)
     return (int)cudaErrorInvalidValue;
   const dq::Plan pl = dq::make_plan(D, Dv);
+  const int ranks = pl.route == dq::CLUSTER ? 2 : 1;
   out[0] = pl.route;
-  out[1] = pl.rows;
+  out[1] = dq::ROWS;
   out[2] = dq::KV_ROWS;
   out[3] = pl.stages;
   out[4] = (int)pl.smem;
-  if (pl.route == dq::WGMMA) {
-    out[5] = 2;
-    out[6] = 0;
-    out[7] = pl.nd0 * CH;
-    out[8] = pl.nd0 * CH;
-    out[9] = D - pl.nd0 * CH;
-  } else {
-    out[5] = 1;
-    out[6] = 0;
-    out[7] = D;
+  int n = 6;
+  out[5] = 2 * ranks;
+  for (int r = 0; r < ranks; ++r)
+    for (int c = 0; c < 2; ++c) {
+      const sm90::Cols cb = sm90::col_block(pl.part[r].nd, 2, c);
+      out[n++] = pl.part[r].d0 * CH + cb.c0;
+      out[n++] = cb.nc * CH;
+    }
+  out[n++] = ranks == 2 ? 2 : 0;
+  for (int r = 0; r < (ranks == 2 ? 2 : 0); ++r) {
+    out[n++] = pl.part[r].d0 * CH;
+    out[n++] = pl.part[r].nd * CH;
+    out[n++] = pl.part[r].v0 * CH;
+    out[n++] = pl.part[r].nv * CH;
   }
   return 0;
 }
 
 // Registers a thread (at launch, before setmaxnreg moves them between the
-// warpgroups) and local (spill) bytes a thread of a dQ kernel: route 1 the
-// wgmma kernel (the registers of its instantiation without dropout, the
-// larger spill of the two), 0 dq_kernel at row tile block_q (64 or 32), in
-// f16 or bf16.
-extern "C" int ffpa_bwd_dq_attrs(int route, int is_fp16, int block_q, int* regs,
-                                 int* local_bytes) {
+// warpgroups) and local (spill) bytes a thread of the dQ kernel of route 1
+// (one block) or 2 (the cluster), in f16 or bf16: the registers of its
+// instantiation without dropout, the larger spill of the two.
+extern "C" int ffpa_bwd_dq_attrs(int route, int is_fp16, int* regs, int* local_bytes) {
+  if (route != dq::WGMMA && route != dq::CLUSTER) return (int)cudaErrorInvalidValue;
+  const bool split = route == dq::CLUSTER;
   cudaFuncAttributes a, d;
   cudaError_t e;
-  if (route == dq::WGMMA) {
-    e = is_fp16 ? cudaFuncGetAttributes(&a, dq::wgmma_dq_kernel<__half, false>)
-                : cudaFuncGetAttributes(&a, dq::wgmma_dq_kernel<__nv_bfloat16, false>);
+  if (is_fp16) {
+    e = cudaFuncGetAttributes(&a, split ? dq::wgmma_dq_kernel<__half, false, true>
+                                        : dq::wgmma_dq_kernel<__half, false, false>);
     if (e == cudaSuccess)
-      e = is_fp16 ? cudaFuncGetAttributes(&d, dq::wgmma_dq_kernel<__half, true>)
-                  : cudaFuncGetAttributes(&d, dq::wgmma_dq_kernel<__nv_bfloat16, true>);
-    if (e == cudaSuccess) a.localSizeBytes = std::max(a.localSizeBytes, d.localSizeBytes);
-  } else if (block_q == 64) {
-    e = is_fp16 ? cudaFuncGetAttributes(&a, dq_kernel<__half, 64>)
-                : cudaFuncGetAttributes(&a, dq_kernel<__nv_bfloat16, 64>);
+      e = cudaFuncGetAttributes(&d, split ? dq::wgmma_dq_kernel<__half, true, true>
+                                          : dq::wgmma_dq_kernel<__half, true, false>);
   } else {
-    e = is_fp16 ? cudaFuncGetAttributes(&a, dq_kernel<__half, 32>)
-                : cudaFuncGetAttributes(&a, dq_kernel<__nv_bfloat16, 32>);
+    e = cudaFuncGetAttributes(&a, split ? dq::wgmma_dq_kernel<__nv_bfloat16, false, true>
+                                        : dq::wgmma_dq_kernel<__nv_bfloat16, false, false>);
+    if (e == cudaSuccess)
+      e = cudaFuncGetAttributes(&d, split ? dq::wgmma_dq_kernel<__nv_bfloat16, true, true>
+                                          : dq::wgmma_dq_kernel<__nv_bfloat16, true, false>);
   }
   if (e != cudaSuccess) return (int)e;
   *regs = a.numRegs;
-  *local_bytes = (int)a.localSizeBytes;
+  *local_bytes = (int)std::max(a.localSizeBytes, d.localSizeBytes);
   return 0;
 }
 

@@ -54,7 +54,8 @@ class CudaBackend(Backend):
     the cost model's pick). ``block_q`` must be a row tile the forward
     kernel is compiled for, ``block_kv`` its KV tile.
     ``block_q_dq``: the dQ kernels' row tile override (one the kernels are
-    compiled for).
+    compiled for); the dense recompute dQ takes its own 64-row tile at
+    every head dim and does not read it.
     ``grad_kv_storage_dtype`` / ``grad_q_storage_dtype``: the dtype the
     backward returns dK/dV and dQ in ('f16', 'bf16', 'f32'; None = the
     input's).

@@ -54,9 +54,9 @@ never refused by the card.
   routes the same way (``varlen_dq_plan`` mirrors the launcher's
   ``tma::make_dq_plan``): D and Dv <= 512 take the dense wgmma dQ block's
   tiling below (64 Q rows whatever ``block_q_dq`` asks), its segment
-  metadata and tile lists read from device memory; wider heads the
-  mma.sync recompute dQ block at ``block_q_dq`` rows with the row tile's
-  segment ids and ranks in shared memory.
+  metadata and tile lists read from device memory; wider heads its own
+  mma.sync dQ block (``csrc/varlen_bwd.cu``) at ``block_q_dq`` rows with
+  the row tile's segment ids and ranks in shared memory.
 * Dense dK/dV (``csrc/flash_bwd.cu`` namespace ``dkdv``, TMA + wgmma),
   two routes by head dims alone (``dkdv_plan`` mirrors the launcher's
   ``dkdv::make_plan``):
@@ -85,9 +85,13 @@ never refused by the card.
     of two-box stages (5 at D = Dv = 512), and two consumer warpgroups
     each compute S and dP for half of the tile's 64 KV columns and own
     half of the fp32 dQ tile's columns (128 registers a thread at D512).
-    Wider heads take the mma.sync block: a 64-row or 32-row Q tile
-    (``block_q_dq``) whose fp32 dQ tile lives in the registers of 16
-    warps like the forward's O tile, with Q and dO resident.
+    D or Dv in (512, 1024] (route "wgmma_cluster"): a cluster of two such
+    blocks per 64 Q rows, rank r holding half of D's Q boxes and half of
+    Dv's dO boxes (rank 0 the larger half) and streaming only its K and V
+    boxes; each rank's consumers compute partial S and dP over its boxes
+    and add the partner's through distributed shared memory (one 32 KB
+    slot), then accumulate their share of the rank's dQ columns; a ring of
+    3 stages at D = Dv = 1024.
   - S-resident tier (bf16): the forward's S residual costs no shared
     memory (it is stored from the softmax's registers). The from-S dK/dV
     pass has two routes, by Dv and ``dkdv_dk_in_kernel`` alone
@@ -183,12 +187,15 @@ _FROM_S_CLUSTER_PART_BYTES = 2 * 2 * 64 * 32 * 4 + 4 * 8
 # cluster of two blocks each holding half.
 FROM_S_MAX_DV = 1024
 # Compile-time constants of the wgmma recompute dQ block (flash_bwd.cu
-# namespace dq: ROWS, KV_ROWS, MAX_BOXES * 64, MAX_STAGES), not settings:
-# dq_plan mirrors the launcher with them.
+# namespace dq: ROWS, KV_ROWS, MAX_BOXES * 64, MAX_HEAD_DIM, MAX_STAGES, and
+# the cluster's XCH_BYTES: the exchange's slot and its barriers in a 1 KB
+# atom), not settings: dq_plan mirrors the launcher with them.
 _DQ_WG_ROWS = 64
 _DQ_WG_KV_ROWS = 64
 _DQ_WG_MAX_D = 512
+DQ_MAX_HEAD_DIM = 1024
 _DQ_WG_MAX_STAGES = 8
+_DQ_CLUSTER_XCH_BYTES = 2 * 2 * 64 * 32 * 4 + 1024
 # Compile-time constants of the TMA paged decode block (paged_decode.cu
 # namespace tma: ROWS, the dims it takes, STAGE_BYTES, MAX_STAGES,
 # BLOCK_SMEM, Q_BOX_BYTES, STAGING_BYTES, XCH_FLOATS * 4), not settings:
@@ -241,19 +248,19 @@ class BlockConfig:
     ``block_kv``-row K/V tiles. A dK/dV block owns ``DKDV_KV_TILE`` KV rows
     (64 on the wgmma routes) and ``1 / dkdv_col_passes`` of the dK and dV
     columns, and streams ``DKDV_Q_TILE``-row Q tiles (64 on wgmma); the
-    packed varlen dK/dV takes its passes from ``varlen_dkdv_plan``. A dQ
-    block owns ``block_q_dq`` Q rows and streams ``KV_TILE``-row K/V tiles.
-    ``dkdv_dk_in_kernel`` picks the from-S dK/dV variant: dK accumulated
-    beside dV, or dK left to the banded dK kernel (causal) or one product
-    (otherwise) over the dS slab.
+    packed varlen dK/dV takes its passes from ``varlen_dkdv_plan``.
+    ``block_q_dq`` is the packed varlen dQ's row tile on its mma.sync route
+    (D or Dv > 512, ``varlen_dq_plan``), streaming ``KV_TILE``-row K/V
+    tiles. ``dkdv_dk_in_kernel`` picks the from-S dK/dV variant: dK
+    accumulated beside dV, or dK left to the banded dK kernel (causal) or
+    one product (otherwise) over the dS slab.
 
     For a forward with D and Dv <= 512 the wgmma launcher picks its own
     64-row tile (``fwd_plan``); there ``block_q`` sets only the row padding
-    of the S residual's slab (``flash_fwd.scores_padding``). Likewise the
-    recompute dQ launcher at D and Dv <= 512 picks its own 64-row tile
-    (``dq_plan``): there ``block_q_dq`` sets nothing, and the dbias slab's
-    rows pad to 64. So does the packed varlen dQ launcher
-    (``varlen_dq_plan``), where ``block_q_dq`` then sets nothing either.
+    of the S residual's slab (``flash_fwd.scores_padding``). The recompute
+    dQ launcher picks its own 64-row tile at every head dim (``dq_plan``):
+    ``block_q_dq`` sets nothing there, and the dbias slab's rows pad to 64.
+    So does the packed varlen dQ launcher at D and Dv <= 512.
     """
 
     block_q: int = 64
@@ -556,7 +563,8 @@ def dkdv_smem_bytes(d: int, dv: int, itemsize: int = 2) -> int:
 
 
 def dq_smem_bytes(block_q: int, d: int, dv: int, itemsize: int = 2) -> int:
-    """Shared memory of one recompute dQ block: resident Q [bq, D] and dO
+    """Shared memory of one mma.sync dQ block (the packed varlen dQ's wider
+    heads, before its segment metadata): resident Q [bq, D] and dO
     [bq, Dv] + the K / V chunk ring + dS [bq, 64] in the input type + the
     tile's lse and delta. dQ costs registers, not shared memory."""
     res = block_q * (_round_up(d, D_CHUNK) + _round_up(dv, D_CHUNK) + 2 * _PAD_T)
@@ -574,8 +582,8 @@ def varlen_dkdv_smem_bytes(d: int, dv: int, itemsize: int = 2) -> int:
 
 
 def varlen_dq_smem_bytes(block_q: int, d: int, dv: int, itemsize: int = 2) -> int:
-    """Shared memory of one packed varlen dQ block: the dense recompute dQ
-    block's, plus the row tile's segment ids and ranks (int32)."""
+    """Shared memory of one packed varlen dQ block of the mma.sync route:
+    ``dq_smem_bytes``, plus the row tile's segment ids and ranks (int32)."""
     return dq_smem_bytes(block_q, d, dv, itemsize) + 2 * block_q * 4
 
 
@@ -804,16 +812,20 @@ class DqPlan:
     """The route and tiling of one recompute dQ launch, as
     ``csrc/flash_bwd.cu`` ``dq::make_plan`` computes it (the library hands
     its own out through ``flash_bwd.dq_kernel_plan``; the card test holds
-    the two equal).
+    the two equal), or of one packed varlen dQ launch (``varlen_dq_plan``).
 
-    ``route`` is "wgmma" (D and Dv <= 512) or "mma_sync"; ``q_rows`` a
-    block's Q rows (for mma.sync the largest row tile its registers and
-    shared memory hold; the launch takes ``block_q_dq``), ``kv_rows`` a KV
-    tile's rows, ``stages`` the ring's depth, ``smem_bytes`` the dynamic
-    shared memory a block asks for (at ``q_rows`` for mma.sync) and
-    ``dq_blocks`` the (first column, width) of dQ each owner accumulates:
-    the two consumer warpgroups (wgmma; a width may be 0) or the whole
-    block (mma.sync).
+    ``route`` is "wgmma" (D and Dv <= 512), "wgmma_cluster" (up to 1024)
+    or, for the packed varlen dQ's wider heads only, "mma_sync";
+    ``q_rows`` a block's Q rows (for mma.sync the largest row tile its
+    registers and shared memory hold; the launch takes ``block_q_dq``),
+    ``kv_rows`` a KV tile's rows, ``stages`` the ring's depth,
+    ``smem_bytes`` the dynamic shared memory a block asks for (at
+    ``q_rows`` for mma.sync) and ``dq_blocks`` the (first column, width) of
+    dQ each owner accumulates: the two consumer warpgroups of a block (rank
+    by rank on the cluster; a width may be 0) or the whole block
+    (mma.sync). ``rank_blocks`` holds, for each rank of the cluster, its
+    ((first D column, D width), (first Dv column, Dv width)); it is empty
+    where one block holds all of D and Dv.
     """
 
     route: str
@@ -822,29 +834,34 @@ class DqPlan:
     stages: int
     smem_bytes: int
     dq_blocks: tuple
+    rank_blocks: tuple = ()
 
 
 def dq_plan(d: int, dv: int, itemsize: int = 2) -> DqPlan:
     """The recompute dQ route by head dims alone (padded to 64-column
-    chunks): D and Dv <= 512 take the wgmma block, consumer 0 owning the
-    first ceil(nd / 2) of D's nd boxes of dQ and consumer 1 the rest, with
-    as many ring stages (two 64 x 64 boxes each, at most 8) as fit beside
-    Q, dO and the dS box; wider heads the mma.sync block
-    (``dq_smem_bytes`` at its tallest row tile)."""
+    chunks, at most 1024; 16-bit inputs): D and Dv <= 512 take one wgmma
+    block, wider heads a cluster of two such blocks, rank r holding its
+    half of D's boxes and of Dv's (``_even_blocks``: rank 0 the larger).
+    Within a block (a rank) consumer 0 owns the first ceil(nd / 2) of its
+    nd D boxes of dQ and consumer 1 the rest, with as many ring stages (two
+    64 x 64 boxes each, at most 8) as fit beside Q, dO, the dS box and, on
+    the cluster, the partial exchange's slot (both ranks lay out rank 0's
+    share)."""
     nd, nv = cdiv(d, D_CHUNK), cdiv(dv, D_CHUNK)
-    if max(nd, nv) * D_CHUNK <= _DQ_WG_MAX_D:
-        box = _DQ_WG_ROWS * D_CHUNK * itemsize
-        fixed = (nd + nv + 1) * box + 1024 + 8
-        stage = 2 * box + 16
-        stages = min(_DQ_WG_MAX_STAGES, (SMEM_LIMIT_BYTES - fixed) // stage)
-        return DqPlan("wgmma", _DQ_WG_ROWS, _DQ_WG_KV_ROWS, stages, fixed + stages * stage,
-                      _even_blocks(nd, 2))
-    d_pad, dv_pad = nd * D_CHUNK, nv * D_CHUNK
-    tall = FWD_ROW_TILES[0] * d_pad <= FWD_ACC_ELEMS and \
-        dq_smem_bytes(FWD_ROW_TILES[0], d_pad, dv_pad, itemsize) <= SMEM_LIMIT_BYTES
-    rows = FWD_ROW_TILES[0] if tall else FWD_ROW_TILES[1]
-    return DqPlan("mma_sync", rows, KV_TILE, FWD_STREAM_STAGES,
-                  dq_smem_bytes(rows, d_pad, dv_pad, itemsize), ((0, d_pad),))
+    if max(nd, nv) * D_CHUNK > DQ_MAX_HEAD_DIM:
+        raise ValueError(f"the dQ kernel takes D, Dv <= {DQ_MAX_HEAD_DIM}, got D={d}, Dv={dv}")
+    split = max(nd, nv) * D_CHUNK > _DQ_WG_MAX_D
+    ranks = 2 if split else 1
+    d_ranks, v_ranks = _even_blocks(nd, ranks), _even_blocks(nv, ranks)
+    lay_nd, lay_nv = d_ranks[0][1] // D_CHUNK, v_ranks[0][1] // D_CHUNK
+    box = _DQ_WG_ROWS * D_CHUNK * itemsize
+    fixed = (lay_nd + lay_nv + 1) * box + 1024 + 8 + (_DQ_CLUSTER_XCH_BYTES if split else 0)
+    stage = 2 * box + 16
+    stages = min(_DQ_WG_MAX_STAGES, (SMEM_LIMIT_BYTES - fixed) // stage)
+    blocks = tuple((c0 + x0, w) for c0, width in d_ranks
+                   for x0, w in _even_blocks(width // D_CHUNK, 2))
+    return DqPlan("wgmma_cluster" if split else "wgmma", _DQ_WG_ROWS, _DQ_WG_KV_ROWS, stages,
+                  fixed + stages * stage, blocks, tuple(zip(d_ranks, v_ranks)) if split else ())
 
 
 def varlen_dq_plan(d: int, dv: int, itemsize: int = 2) -> DqPlan:
@@ -855,26 +872,17 @@ def varlen_dq_plan(d: int, dv: int, itemsize: int = 2) -> DqPlan:
     block, whose tiling is the dense ``dq_plan``'s (64 Q rows whatever
     ``block_q_dq`` asks; the block reads its segment metadata and tile lists
     from device memory, so it costs no shared memory); wider heads the
-    mma.sync block at its tallest row tile, with ``varlen_dq_smem_bytes``."""
-    plan = dq_plan(d, dv, itemsize)
-    if plan.route == "wgmma":
-        return plan
+    mma.sync block at its tallest row tile (its fp32 dQ tile, rows x D, at
+    most 64 x 512 in registers; ``varlen_dq_smem_bytes``), which owns all of
+    D. It keeps its own plan: the dense route above D512 is the cluster."""
     d_pad, dv_pad = _round_up(d, D_CHUNK), _round_up(dv, D_CHUNK)
+    if max(d_pad, dv_pad) <= _DQ_WG_MAX_D:
+        return dq_plan(d, dv, itemsize)
     tall = FWD_ROW_TILES[0] * d_pad <= FWD_ACC_ELEMS and \
         varlen_dq_smem_bytes(FWD_ROW_TILES[0], d_pad, dv_pad, itemsize) <= SMEM_LIMIT_BYTES
     rows = FWD_ROW_TILES[0] if tall else FWD_ROW_TILES[1]
-    return replace(plan, q_rows=rows,
-                   smem_bytes=varlen_dq_smem_bytes(rows, d_pad, dv_pad, itemsize))
-
-
-def dq_fits(block_q: int, d: int, dv: int, itemsize: int = 2) -> bool:
-    """Whether the dQ kernels take this row tile: the fp32 dQ tile
-    (block_q x D) in registers and the recompute block in shared memory."""
-    return (
-        block_q in FWD_ROW_TILES
-        and block_q * _round_up(d, D_CHUNK) <= FWD_ACC_ELEMS
-        and dq_smem_bytes(block_q, d, dv, itemsize) <= SMEM_LIMIT_BYTES
-    )
+    return DqPlan("mma_sync", rows, KV_TILE, FWD_STREAM_STAGES,
+                  varlen_dq_smem_bytes(rows, d_pad, dv_pad, itemsize), ((0, d_pad),))
 
 
 def default_config(
@@ -930,6 +938,7 @@ __all__ = [
     "dkdv_col_passes",
     "dkdv_smem_bytes",
     "dq_smem_bytes",
+    "DQ_MAX_HEAD_DIM",
     "DqPlan",
     "dq_plan",
     "varlen_dkdv_plan",
@@ -937,7 +946,6 @@ __all__ = [
     "varlen_dq_smem_bytes",
     "varlen_dq_plan",
     "varlen_bwd_fits",
-    "dq_fits",
     "FROM_S_MAX_DV",
     "FromSPlan",
     "from_s_plan",

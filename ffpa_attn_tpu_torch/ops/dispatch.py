@@ -9,7 +9,6 @@ from .config import (
     FWD_ROW_TILES,
     BlockConfig,
     default_config,
-    dq_fits,
     from_s_fits,
     varlen_bwd_fits,
     varlen_dkdv_plan,
@@ -71,19 +70,14 @@ FROM_S_DK_IN_MAX_NKV = 0
 def pick_backward_config(
     *, d: int, dv: int, nq: int, nkv: int, dtype: torch.dtype
 ) -> BlockConfig:
-    """Heuristic backward config. The dK/dV launcher picks its tiles and
-    column passes itself (``dkdv_plan``). The dQ row tile is the tallest
-    that fits (a taller tile divides the K/V re-reads), shrunk to 32 for
-    short queries. The from-S pass
-    keeps dK in the kernel for key ranges up to ``FROM_S_DK_IN_MAX_NKV``
-    (none since the wgmma route) where one column pass holds it."""
+    """Heuristic backward config. The dK/dV and recompute dQ launchers pick
+    their tiles and column passes themselves (``dkdv_plan``, ``dq_plan``).
+    The from-S pass keeps dK in the kernel for key ranges up to
+    ``FROM_S_DK_IN_MAX_NKV`` (none since the wgmma route) where one column
+    pass holds it."""
     itemsize = torch.empty((), dtype=dtype).element_size()
-    dk_in = nkv <= FROM_S_DK_IN_MAX_NKV and from_s_fits(d, dv, True, itemsize)
-    for bq in FWD_ROW_TILES:
-        bq = BlockConfig(block_q=bq).clamp(nq, 0, FWD_ROW_TILES).block_q
-        if dq_fits(bq, d, dv, itemsize):
-            return BlockConfig(block_q_dq=bq, dkdv_dk_in_kernel=dk_in)
-    raise ValueError(f"no backward row tile fits D={d}, Dv={dv}")
+    return BlockConfig(dkdv_dk_in_kernel=nkv <= FROM_S_DK_IN_MAX_NKV
+                       and from_s_fits(d, dv, True, itemsize))
 
 
 __all__ = ["pick_forward_config", "pick_varlen_config",

@@ -35,11 +35,12 @@ a producer warpgroup streaming 64-row Q and dO boxes, two consumer
 warpgroups each computing half of S^T and dP^T and then one of dK and
 dV, at most 256 columns a pass; for D or Dv above 512 a cluster of two
 such blocks splits D and Dv, each rank adding the partner's partial S^T
-and dP^T through distributed shared memory. The recompute dQ block
-at D and Dv <= 512 is its mirror (``config.dq_plan``): 64 Q rows with Q
-and dO resident, K, V and again K boxes streamed, two consumers each
-computing half of S and dP and then owning half of dQ's columns. Wider
-heads take the mma.sync dQ block and its chunk ring. Banded dQ and banded
+and dP^T through distributed shared memory. The recompute dQ block is
+its mirror (``config.dq_plan``): 64 Q rows with Q and dO resident, K, V
+and again K boxes streamed, two consumers each computing half of S and dP
+and then owning half of dQ's columns; for D or Dv above 512 a cluster of
+two such blocks splits D and Dv, each rank adding the partner's partial S
+and dP through distributed shared memory. Banded dQ and banded
 dK are plain GEMMs over a causal k-range and run on Hopper's TMA and wgmma
 (``csrc/sm90.cuh``): a producer warpgroup keeps a 4-stage ring of TMA
 tiles full, two consumer warpgroups run wgmma.m64n256k16 on 128 rows x at
@@ -247,7 +248,7 @@ _ARGTYPES = {
     "ffpa_bwd_dkdv_plan": [_I, _I, ctypes.POINTER(ctypes.c_int), _I],
     "ffpa_bwd_from_s_attrs": [_I] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2,
     "ffpa_bwd_from_s_plan": [_I, _I, ctypes.POINTER(ctypes.c_int), _I],
-    "ffpa_bwd_dq_attrs": [_I] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2,
+    "ffpa_bwd_dq_attrs": [_I] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2,
     "ffpa_bwd_dq_plan": [_I, _I, ctypes.POINTER(ctypes.c_int), _I],
 }
 
@@ -376,13 +377,11 @@ def _dkdv_launch(
 _dkdv_launch.launches = 0
 
 
-def dbias_slab_shape(nq: int, nkv: int, d: int, dv: int, config: BlockConfig) -> tuple:
+def dbias_slab_shape(nq: int, nkv: int, d: int, dv: int) -> tuple:
     """(rows, columns) of the fp32 dbias slab the dQ kernel writes at head
     dims (d, dv) (padded to 64-column chunks): rows padded to the block's Q
-    rows (64 on the wgmma route, ``block_q_dq`` on mma.sync), columns to
-    KV_TILE."""
-    plan = dq_plan(d, dv)
-    rows = plan.q_rows if plan.route == "wgmma" else config.block_q_dq
+    rows (64 on both routes), columns to KV_TILE."""
+    rows = dq_plan(d, dv).q_rows
     return cdiv(nq, rows) * rows, cdiv(nkv, KV_TILE) * KV_TILE
 
 
@@ -393,10 +392,10 @@ def _dq_launch(
 ):
     """dQ [B, Hq, Nq, D] and, for a bias when ``emit_dbias``, its gradient
     reduced to the bias's compact shape: the post-bias score gradient,
-    without softcap's factor. The kernel's route (wgmma for D, Dv <= 512,
-    else mma.sync at ``config.block_q_dq`` rows) is the launcher's own, by
-    head dims alone (``config.dq_plan``); the dbias slab pads to its rows
-    (``dbias_slab_shape``)."""
+    without softcap's factor. The kernel's route (one wgmma block for D,
+    Dv <= 512, a cluster of two up to 1024) and its 64-row tile are the
+    launcher's own, by head dims alone (``config.dq_plan``); ``config`` is
+    not read. The dbias slab pads to its rows (``dbias_slab_shape``)."""
     b, hq, nq, d = q.shape
     _, hkv, nkv, _ = k.shape
     dq_dtype = _grad_dtype(grad_q_storage_dtype, q.dtype)
@@ -413,22 +412,21 @@ def _dq_launch(
     else:
         ops = _kernel_operands(q, k, v, do, bias, alibi, lse, delta)
         d_pad, dv_pad = ops.q.shape[-1], ops.v.shape[-1]
-        bq = config.block_q_dq
         out_f32, wt = _out_dtype(dq_dtype, q.dtype)
         dq = torch.empty((b, hq, nq, d_pad), dtype=wt, device=q.device)
         dbias_full = None
         if emit_dbias:
-            dbias_full = torch.empty((b, hq, *dbias_slab_shape(nq, nkv, d_pad, dv_pad, config)),
+            dbias_full = torch.empty((b, hq, *dbias_slab_shape(nq, nkv, d_pad, dv_pad)),
                                      dtype=torch.float32, device=q.device)
         if ENV.device_log_level() >= 2:
-            logger.info("dq launch route=%s block_q_dq=%d D=%d Dv=%d dbias=%s",
-                        dq_plan(d_pad, dv_pad).route, bq, d_pad, dv_pad, emit_dbias)
+            logger.info("dq launch route=%s D=%d Dv=%d dbias=%s", dq_plan(d_pad, dv_pad).route,
+                        d_pad, dv_pad, emit_dbias)
         lib = _bwd_lib()
         with torch.cuda.device(q.device):
             err = lib.ffpa_bwd_dq(
                 *ops.ptrs(), dq.data_ptr(),
                 None if dbias_full is None else dbias_full.data_ptr(), *ops.extras(),
-                int(q.dtype == torch.float16), out_f32, bq, b, hq, hkv, nq, nkv, d_pad, dv_pad,
+                int(q.dtype == torch.float16), out_f32, 0, b, hq, hkv, nq, nkv, d_pad, dv_pad,
                 0 if dbias_full is None else dbias_full.shape[2],
                 0 if dbias_full is None else dbias_full.shape[3],
                 float(scale), float(softcap), int(causal_offset), window_left,
@@ -487,15 +485,23 @@ def dkdv_kernel_plan(d: int, dv: int) -> DkdvPlan:
                     tuple(bl[:2] for bl in blocks), tuple(bl[2:] for bl in blocks), rank_blocks)
 
 
-def dq_kernel_attrs(route: str, dtype=torch.bfloat16, block_q: int = 64) -> dict:
+# The recompute dQ launcher's routes by the codes of its C entry points.
+_DQ_ROUTES = {1: "wgmma", 2: "wgmma_cluster"}
+# Substrings of the recompute dQ kernel's name (both routes), for timing
+# filters.
+DQ_KERNELS = ("dq::wgmma_dq_kernel<",)
+
+
+def dq_kernel_attrs(route: str, dtype=torch.bfloat16) -> dict:
     """Registers a thread (at launch, before setmaxnreg) and local (spill)
-    bytes of the recompute dQ kernel of ``route`` ("wgmma": the larger
-    spill of its two dropout instantiations; "mma_sync" at row tile
-    ``block_q``), from cudaFuncGetAttributes. Needs a card."""
+    bytes of the recompute dQ kernel of ``route`` ("wgmma" or
+    "wgmma_cluster": the larger spill of its two dropout instantiations),
+    from cudaFuncGetAttributes. Needs a card."""
     lib = _bwd_lib()
     regs, local = ctypes.c_int(0), ctypes.c_int(0)
-    err = lib.ffpa_bwd_dq_attrs(int(route == "wgmma"), int(dtype == torch.float16), block_q,
-                                ctypes.byref(regs), ctypes.byref(local))
+    code = {name: num for num, name in _DQ_ROUTES.items()}[route]
+    err = lib.ffpa_bwd_dq_attrs(code, int(dtype == torch.float16), ctypes.byref(regs),
+                                ctypes.byref(local))
     _build.check(lib, err, "dq kernel attributes")
     return {"registers": regs.value, "local_bytes": local.value}
 
@@ -505,12 +511,17 @@ def dq_kernel_plan(d: int, dv: int) -> DqPlan:
     (d, dv) (padded to 64-column chunks), read from the library: what
     ``config.dq_plan`` mirrors. Needs a card."""
     lib = _bwd_lib()
-    out = (ctypes.c_int * 16)()
+    out = (ctypes.c_int * 32)()
     err = lib.ffpa_bwd_dq_plan(cdiv(d, D_CHUNK) * D_CHUNK, cdiv(dv, D_CHUNK) * D_CHUNK, out,
                                len(out))
     _build.check(lib, err, "dq kernel plan")
-    blocks = tuple((out[6 + 2 * i], out[7 + 2 * i]) for i in range(out[5]))
-    return DqPlan("wgmma" if out[0] == 1 else "mma_sync", out[1], out[2], out[3], out[4], blocks)
+    n = out[5]
+    blocks = tuple((out[6 + 2 * i], out[7 + 2 * i]) for i in range(n))
+    r0 = 7 + 2 * n
+    rank_blocks = tuple(((out[r0 + 4 * r], out[r0 + 4 * r + 1]),
+                         (out[r0 + 4 * r + 2], out[r0 + 4 * r + 3]))
+                        for r in range(out[6 + 2 * n]))
+    return DqPlan(_DQ_ROUTES[out[0]], out[1], out[2], out[3], out[4], blocks, rank_blocks)
 
 
 # The from-S routes, indexed by the code the C entry points use.
@@ -1019,6 +1030,7 @@ __all__ = [
     "flash_attention_backward",
     "_dkdv_launch",
     "_dq_launch",
+    "DQ_KERNELS",
     "_banded_dq_from_ds",
     "_dkdv_from_s_launch",
     "FROM_S_KERNELS",

@@ -156,6 +156,40 @@ def test_wide_resident_grads_on_card_match_cpu(cuda, name):
         assert measure(got[n], want[n]) < TOL["bfloat16"], n
 
 
+# Above D512 through the recompute tier (a window takes it whatever the
+# backend asks): on a card the dK/dV and dQ clusters of two blocks.
+WIDE_RECOMPUTE_CASES = {
+    "d640_window_gqa": dict(shape=(1, 4, 2, 160, 160, 640), is_causal=True,
+                            window_size=(48, -1)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WIDE_RECOMPUTE_CASES))
+def test_wide_recompute_grads_match_jax(name):
+    case = WIDE_RECOMPUTE_CASES[name]
+    x = _inputs(case, seed=7)
+    want = _jax_grads(case, x, "recompute", "bfloat16")
+    got = _torch_grads(case, x, "recompute", "bfloat16")
+    assert set(got) == set(want)
+    for n in got:
+        assert tuple(got[n].shape) == want[n].shape, n
+        assert rel_err(got[n], want[n]) < TOL["bfloat16"], n
+
+
+@pytest.mark.parametrize("name", sorted(WIDE_RECOMPUTE_CASES))
+def test_wide_recompute_grads_on_card_match_cpu(cuda, name):
+    """One dK/dV and one dQ launch (both on the cluster route)."""
+    case = WIDE_RECOMPUTE_CASES[name]
+    x = _inputs(case, seed=8)
+    before = _launches()
+    got = _torch_grads(case, x, "recompute", "bfloat16", cuda)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_launches(), before)) == (1, 1, 0, 0, 0)
+    want = _torch_grads(case, x, "recompute", "bfloat16")
+    for n in got:
+        assert grad_row_rel_err(got[n], want[n]) < TOL["bfloat16"], n
+
+
 def test_fp16_grads_meet_the_oracle():
     case = CASES["causal_gqa"]
     x = _inputs(case, seed=1)

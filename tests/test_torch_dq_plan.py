@@ -4,11 +4,13 @@ dbias slab's padding.
 
 D and Dv up to 512 take the TMA + wgmma block: 64 Q rows, the dQ columns
 split over the two consumer warpgroups in whole 64-column boxes, a ring of
-two-box stages in the card's shared memory; wider heads take the mma.sync
-block. On the CPU the dbias slab, padded to the route's rows, trims to the
-JAX package's at D != Dv. On a card the mirror is held equal to the plan
-the library launches with, the wgmma kernel spills nothing, and the kernel
-is held against its plain version at mixed head dims.
+two-box stages in the card's shared memory; wider heads, up to 1024, take
+a cluster of two such blocks, each rank holding half of D's and of Dv's
+boxes. The packed varlen dQ keeps its own mma.sync plan above 512. On the
+CPU the dbias slab, padded to 64 rows, trims to the JAX package's at D !=
+Dv. On a card the mirror is held equal to the plan the library launches
+with, neither route's kernel spills, and the kernel is held against its
+plain version at mixed head dims.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from ffpa_attn_tpu_torch.ops.config import (
     BlockConfig,
     cdiv,
     dq_plan,
+    varlen_dq_plan,
 )
 from ffpa_attn_tpu_torch.ops.dispatch import pick_backward_config
 
@@ -56,18 +59,16 @@ def test_dq_plan_routes_by_head_dims(d, dv):
     plan = dq_plan(d, dv)
     d_pad, dv_pad = cdiv(d, D_CHUNK) * D_CHUNK, cdiv(dv, D_CHUNK) * D_CHUNK
     wide = max(d_pad, dv_pad) > WGMMA_MAX_D
-    assert plan.route == ("mma_sync" if wide else "wgmma")
+    assert plan.route == ("wgmma_cluster" if wide else "wgmma")
     assert _tiles(plan.dq_blocks, d_pad)
     assert plan.smem_bytes <= SMEM_LIMIT_BYTES
     assert plan.kv_rows == KV_TILE
-    if plan.route == "wgmma":
-        assert plan.q_rows == 64 and plan.stages >= 3
-        widths = [w for _, w in plan.dq_blocks]
-        assert len(widths) == 2 and max(widths) <= CONSUMER_MAX_COLS
-        assert widths[0] - widths[1] in (0, D_CHUNK)  # the first consumer takes the odd box
-    else:
-        assert plan.dq_blocks == ((0, d_pad),)
-        assert plan.q_rows in (64, 32) and plan.q_rows * d_pad <= 64 * 512
+    assert plan.q_rows == 64 and plan.stages >= 3
+    widths = [w for _, w in plan.dq_blocks]
+    assert len(widths) == (4 if wide else 2) and max(widths) <= CONSUMER_MAX_COLS
+    for c0, c1 in zip(widths[::2], widths[1::2]):
+        assert c0 - c1 in (0, D_CHUNK)  # the first consumer takes the odd box
+    assert len(plan.rank_blocks) == (2 if wide else 0)
     assert dq_plan(d_pad, dv_pad) == plan
 
 
@@ -77,14 +78,47 @@ def test_dq_plan_d512_holds_five_stages_beside_q_and_do():
     assert plan.dq_blocks == ((0, 256), (256, 256))
 
 
+WIDE_PAIRS = [(x, x) for x in range(576, 1025, 64)] + [
+    (d, dv) for d, dv in HEAD_DIMS if max(d, dv) > WGMMA_MAX_D and d != dv]
+
+
+@pytest.mark.parametrize("d,dv", WIDE_PAIRS)
+def test_dq_cluster_plan_splits_d_and_dv_over_the_ranks(d, dv):
+    """The cluster's ranks hold halves of D's and Dv's boxes (rank 0 the
+    larger), their consumers' dQ blocks tile [0, D) in order, rank by rank,
+    and a ring of at least 3 stages fits beside Q, dO, the dS box and the
+    32 KB exchange slot."""
+    plan = dq_plan(d, dv)
+    d_pad, dv_pad = cdiv(d, D_CHUNK) * D_CHUNK, cdiv(dv, D_CHUNK) * D_CHUNK
+    assert plan.route == "wgmma_cluster"
+    assert plan.stages >= 3 and plan.smem_bytes <= SMEM_LIMIT_BYTES
+    (d0, v0), (d1, v1) = plan.rank_blocks
+    for (a0, w0), (a1, w1), width in ((d0, d1, d_pad), (v0, v1, dv_pad)):
+        assert a0 == 0 and a1 == w0 and w0 + w1 == width and w0 - w1 in (0, D_CHUNK)
+    assert _tiles(plan.dq_blocks[:2], d0[1]) and _tiles(plan.dq_blocks, d_pad)
+    assert plan.dq_blocks[2][0] == d1[0]
+
+
+@pytest.mark.parametrize("d,dv", [(576, 576), (1024, 1024), (640, 320), (64, 1024)])
+def test_varlen_dq_plan_stays_mma_sync_above_512(d, dv):
+    """The packed varlen dQ keeps its own mma.sync block above 512: it does
+    not inherit the dense route's cluster or its column blocks."""
+    plan = varlen_dq_plan(d, dv)
+    d_pad = cdiv(d, D_CHUNK) * D_CHUNK
+    assert plan.route == "mma_sync" and plan.rank_blocks == ()
+    assert plan.dq_blocks == ((0, d_pad),) and plan.q_rows in (64, 32)
+    assert plan.smem_bytes <= SMEM_LIMIT_BYTES
+
+
 @pytest.mark.parametrize("nq,block_q_dq", [(130, 64), (130, 32), (20, 32), (64, 64)])
 def test_dbias_slab_rows_follow_the_route(nq, block_q_dq):
-    """The wgmma route pads the slab's rows to its own 64 whatever
-    ``block_q_dq`` says; the mma.sync route (D1024) to ``block_q_dq``."""
-    cfg = BlockConfig(block_q_dq=block_q_dq)
-    assert tbwd.dbias_slab_shape(nq, 150, 512, 320, cfg) == (cdiv(nq, 64) * 64, 192)
-    assert tbwd.dbias_slab_shape(nq, 150, 1024, 1024, cfg) == (
-        cdiv(nq, block_q_dq) * block_q_dq, 192)
+    """Both routes pad the slab's rows to their own 64 (the wgmma block at
+    D512 / Dv320, the cluster at D1024), whatever ``block_q_dq`` a config
+    asks: the padding covers every row tile a config may name."""
+    rows = cdiv(nq, 64) * 64
+    assert tbwd.dbias_slab_shape(nq, 150, 512, 320) == (rows, 192)
+    assert tbwd.dbias_slab_shape(nq, 150, 1024, 1024) == (rows, 192)
+    assert rows % BlockConfig(block_q_dq=block_q_dq).block_q_dq == 0
 
 
 @pytest.mark.parametrize("d,dv", HEAD_DIMS)
@@ -95,6 +129,13 @@ def test_dq_plan_matches_library_on_card(cuda, d, dv):  # noqa: F811
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_wgmma_dq_kernel_spills_nothing_on_card(cuda, dtype):  # noqa: F811
     assert tbwd.dq_kernel_attrs("wgmma", dtype)["local_bytes"] == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_cluster_dq_kernel_spills_nothing_on_card(cuda, dtype):  # noqa: F811
+    """Both dropout instantiations of the cluster route (the larger spill
+    of the two)."""
+    assert tbwd.dq_kernel_attrs("wgmma_cluster", dtype)["local_bytes"] == 0
 
 
 # ---------------------------------------------------------------------------

@@ -49,6 +49,11 @@ CASES = {
     "d512_dv1024_dropout": dict(nq=130, nkv=150, causal=True, dropout=0.2, d=512, dv=1024),
     "d1024_dv320_window": dict(nq=160, nkv=160, window=(40, 8), d=1024, dv=320),
     "d64_dv1024_causal": dict(nq=130, nkv=150, causal=True, d=64, dv=1024),
+    # The recompute dQ's cluster: an odd box count (rank 0 five D boxes,
+    # rank 1 four) with dropout, and softcap with a key bias at D1024.
+    "d576_causal_dropout": dict(nq=130, nkv=150, causal=True, dropout=0.2, d=576),
+    "d1024_softcap_keybias": dict(nq=130, nkv=150, causal=True, softcap=5.0, bias="key",
+                                  d=1024),
 }
 CAUSAL = sorted(n for n, c in CASES.items() if c.get("causal"))
 

@@ -38,7 +38,13 @@ wrappers passed, ``LegacyBanded``):
   (``LegacyDkdv``), each held against the plain version at the fp16
   gradient tolerance 1e-2;
 * dq: the same shape with a 4096-token left window (the windowed model's
-  recompute backward);
+  recompute backward); dq_d1024 and dq_d640: B1 H8/4 N4096 causal bf16 (the
+  recompute tier at the bench's D sweep's head dims), and dq_d1024_fp16
+  the first in fp16, on the plain forward's (o, lse), where the head
+  library runs the cluster of two blocks and a base built from sources
+  before it the mma.sync kernel, given the row tile its plan names
+  (``LegacyDq``), each held against the plain version (fp16 at the fp16
+  gradient tolerance 1e-2);
 * from_s (the from-S dK/dV pass with dK out of the kernel, on a fresh copy
   of the S residual each call: it overwrites S with dS) and banded_dk: the
   same shape as dkdv (the S-resident backward of the training step). At
@@ -138,7 +144,8 @@ SOURCE = {"flash_fwd": "flash_fwd", "flash_fwd_scores": "flash_fwd",
           "flash_fwd_d1024": "flash_fwd",
           "decode": "decode", "decode_serving": "decode", "dkdv": "flash_bwd",
           "dkdv_d1024": "flash_bwd", "dkdv_d640": "flash_bwd",
-          "banded_dq": "flash_bwd", "dq": "flash_bwd", "from_s": "flash_bwd",
+          "banded_dq": "flash_bwd", "dq": "flash_bwd", "dq_d1024": "flash_bwd",
+          "dq_d640": "flash_bwd", "dq_d1024_fp16": "flash_bwd", "from_s": "flash_bwd",
           "from_s_d1024": "flash_bwd", "from_s_d640": "flash_bwd",
           "banded_dk": "flash_bwd", "varlen_fwd": "varlen_fwd", "varlen_fwd_train": "varlen_fwd",
           "paged_decode": "paged_decode",
@@ -248,6 +255,50 @@ class LegacyDkdv:
         def call(*args):
             args = list(args)
             args.insert(self.PASSES, dkdv_col_passes(args[self.D], args[self.DV]))
+            return fn(*args)
+
+        call.argtypes = fn.argtypes
+        return call
+
+
+class LegacyDq:
+    """A flash_bwd library built from sources before the dQ cluster route:
+    D or Dv above 512 take its mma.sync kernel, which reads block_q (the
+    current entry point takes its own 64-row tile, and the wrapper passes
+    0), so the row tile that library's own plan names is put in. Every
+    other symbol is the wrapped library's own."""
+
+    BLOCK_Q, D, DV = 16, 22, 23  # ffpa_bwd_dq's block_q, D and Dv
+
+    @staticmethod
+    def _rows(lib, d: int, dv: int) -> tuple:
+        """(route, Q rows) of ``lib``'s dQ plan at (d, dv)."""
+        fn = lib.ffpa_bwd_dq_plan
+        fn.argtypes = flash_bwd._ARGTYPES["ffpa_bwd_dq_plan"]
+        fn.restype = ctypes.c_int
+        out = (ctypes.c_int * 32)()
+        if fn(d, dv, out, len(out)) != 0:
+            raise RuntimeError(f"the base library refuses a dQ plan at D{d}/Dv{dv}")
+        return out[0], out[1]
+
+    @staticmethod
+    def needed(lib) -> bool:
+        """Whether ``lib`` sends D1024 to the mma.sync route (route 0)."""
+        return LegacyDq._rows(lib, 1024, 1024)[0] == 0
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if name != "ffpa_bwd_dq":
+            return fn
+        fn.argtypes = flash_bwd._ARGTYPES[name]
+        fn.restype = ctypes.c_int
+
+        def call(*args):
+            args = list(args)
+            args[self.BLOCK_Q] = self._rows(self._lib, args[self.D], args[self.DV])[1]
             return fn(*args)
 
         call.argtypes = fn.argtypes
@@ -400,7 +451,7 @@ class LegacyVarlenFwd:
 
 TOL = 5e-2  # bf16 gradients (tests/test_ffpa_bwd.py:19)
 # Gradient kernels run in fp16: its gradient tolerance (tests/test_ffpa_bwd.py:19).
-GRAD_KERNEL_TOL = {"dkdv_d1024": 1e-2, "dkdv_d640": 1e-2}
+GRAD_KERNEL_TOL = {"dkdv_d1024": 1e-2, "dkdv_d640": 1e-2, "dq_d1024_fp16": 1e-2}
 # Per-kernel tolerances where a kernel is held to the forward's (per row).
 KERNEL_TOL = {"paged_decode": 2e-2, "paged_decode_int8": 2e-2, "decode": 2e-2,
               "decode_serving": 2e-2, "varlen_fwd": 2e-2, "varlen_fwd_train": 2e-2}
@@ -581,6 +632,36 @@ def make_runs(gen) -> tuple:
         return flash_bwd._dq_launch(tq, tk, tv, None, tdo, lse, delta, 0, cfg,
                                     grad_q_storage_dtype=None, window=(4096, -1), **kw)[0]
 
+    # The dQ cluster route's shapes: the plain forward's (o, lse), so both
+    # trees read the same ones.
+    dq_wide = {}  # made at first use: only these runs need them
+
+    def dq_wide_inputs(wd, dt):
+        if (wd, dt) not in dq_wide:
+            def h(*shape):
+                return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+            q_, k_, v_, do_ = h(b, hq, wn, wd), h(b, hkv, wn, wd), h(b, hkv, wn, wd), h(b, hq, wn,
+                                                                                        wd)
+            o_, lse_ = flash_fwd.flash_attention_forward_plain(q_, k_, v_, None,
+                                                               scale=wd ** -0.5, is_causal=True)
+            dq_wide[wd, dt] = (q_, k_, v_, do_, lse_, (do_.float() * o_.float()).sum(-1))
+        return dq_wide[wd, dt]
+
+    def run_dq_wide(wd, dt=torch.bfloat16):
+        q_, k_, v_, do_, lse_, delta_ = dq_wide_inputs(wd, dt)
+        wcfg = pick_backward_config(d=wd, dv=wd, nq=wn, nkv=wn, dtype=dt)
+        return flash_bwd._dq_launch(q_, k_, v_, None, do_, lse_, delta_, 0, wcfg,
+                                    grad_q_storage_dtype=None, scale=wd ** -0.5, is_causal=True,
+                                    causal_offset=0, dropout_p=0.0, group=hq // hkv)[0]
+
+    def dq_wide_plain(wd, dt=torch.bfloat16):
+        q_, k_, v_, do_, lse_, delta_ = dq_wide_inputs(wd, dt)
+        return flash_bwd._dq_plain(q_, k_, v_, None, do_, lse_, delta_, scale=wd ** -0.5,
+                                   emit_dbias=False, is_causal=True, causal_offset=0,
+                                   dropout_p=0.0, seed=0, softcap=0.0, window=(-1, -1),
+                                   alibi=None)[0]
+
     # The S-resident tier: the plain version's S residual, so both trees
     # read the same one; from_s works on a copy (it writes dS over S).
     s_pad = flash_fwd.scores_plain(tq, tk, None, scale=scale, is_causal=True, nq_pad=nt,
@@ -686,6 +767,9 @@ def make_runs(gen) -> tuple:
         "dkdv_d640": lambda: run_dkdv_wide(640),
         "banded_dq": run_banded,
         "dq": run_dq,
+        "dq_d1024": lambda: run_dq_wide(1024),
+        "dq_d640": lambda: run_dq_wide(640),
+        "dq_d1024_fp16": lambda: run_dq_wide(1024, torch.float16),
         "from_s": run_from_s,
         "from_s_d1024": lambda: run_from_s_wide(1024),
         "from_s_d640": lambda: run_from_s_wide(640),
@@ -711,6 +795,9 @@ def make_runs(gen) -> tuple:
         "dkdv": dkdv_plain,
         "dkdv_d1024": lambda: dkdv_wide_plain(1024),
         "dkdv_d640": lambda: dkdv_wide_plain(640),
+        "dq_d1024": lambda: dq_wide_plain(1024),
+        "dq_d640": lambda: dq_wide_plain(640),
+        "dq_d1024_fp16": lambda: dq_wide_plain(1024, torch.float16),
         "banded_dq": lambda: flash_bwd._banded_dq_plain(state["ds"], tk, scale=scale, nq=nt,
                                                         nkv=nt),
         "from_s": lambda: flash_bwd._dkdv_from_s_plain(
@@ -761,7 +848,9 @@ def main() -> int:
     if base_bwd is not None and not hasattr(base_bwd, "ffpa_bwd_banded_plan"):
         trees["base"]["flash_bwd"] = base_bwd = LegacyBanded(base_bwd)
     if base_bwd is not None and LegacyDkdv.needed(base_bwd):
-        trees["base"]["flash_bwd"] = LegacyDkdv(base_bwd)
+        trees["base"]["flash_bwd"] = base_bwd = LegacyDkdv(base_bwd)
+    if base_bwd is not None and LegacyDq.needed(base_bwd):
+        trees["base"]["flash_bwd"] = LegacyDq(base_bwd)
     base_paged = trees["base"].get("paged_decode")
     if base_paged is not None and not hasattr(base_paged, "ffpa_paged_plan"):
         trees["base"]["paged_decode"] = LegacyPaged(base_paged)

@@ -1,18 +1,21 @@
-"""The bound of each kernel route that no chip run has timed apart: the
-wide (D or Dv > 512) mma.sync / cp.async routes of the recompute dQ, the
-varlen forward, dK/dV and dQ, dense decode, and paged decode over pages
-that are not a multiple of 16 rows.
+"""The bound of each wide kernel route: the recompute dQ's cluster above
+D512, the mma.sync routes of the varlen forward, dK/dV and dQ above D512,
+dense decode on cp.async above D512, and paged decode on cp.async over
+pages that are not a multiple of 16 rows.
 
 Run anywhere (it needs no card: the numbers are counted from the shapes):
 
     python tools/torch_wide_bounds.py
 
 Each route is counted at the shape the bench or ``chip_smoke.py`` would
-give it at D1024 (paged decode at the serving step, D512, pages of 24
-rows): operations and bytes from ``utils/profiling.py`` (each input read
+give it at D1024 (dense decode at the generate step, the rows the
+validity bias leaves live; paged decode at the serving step, D512, pages
+of 24 rows): operations and bytes from ``utils/profiling.py`` (each input read
 once, each output written once, products over the band's pairs only), the
 bound (the larger of operations over 989 TFLOP/s and bytes over 3.35 TB/s)
 and the launches a call makes of the route's wrapper. Prints one JSON line.
+``tools/torch_wide_probe.py`` times the same routes at the same shapes on
+a card.
 """
 
 from __future__ import annotations
@@ -31,16 +34,25 @@ PACKING = [2048, 1536, 1200, 1024, 900, 700, 500, 284]  # chip_smoke.py's packed
 SERVE_LENS = [716, 825, 890, 1013]  # the serving step's cached rows (B4)
 
 
+def decode_counts(live: int, nkv: int, *, hq: int, hkv: int, d: int, dv: int) -> tuple:
+    """(flop, bytes) of a B1 decode step (``chip_smoke.py``'s decode row):
+    the ``live`` cache rows the validity bias leaves, the bias read and the
+    lse written."""
+    flops, nbytes = paged_decode_counts([live], hq=hq, hkv=hkv, d=d, dv=dv)
+    return flops, nbytes + 4 * nkv + 4 * hq
+
+
 def routes() -> list:
     d = 1024
     wide = dict(hq=8, hkv=4, d=d, dv=d)
     return [
-        ("3 (D > 512)", "dq_kernel (mma.sync)", "B1 H8/4 N8192 D1024 causal, recompute tier",
+        ("3 (D > 512)", "dq::wgmma_dq_kernel<T, DROP, true> (the cluster)",
+         "B1 H8/4 N8192 D1024 causal, recompute tier",
          "1 a recompute-tier backward",
          backward_counts("dq", b=1, nq=8192, nkv=8192, causal=True, **wide)),
-        ("7 (D > 512)", "decode_kernel (cp.async)", "B1 H8/4 Nkv 4224 D1024, one query row",
-         "1 a decode step (walk and split merge)",
-         paged_decode_counts([4224], **wide)),
+        ("7 (D > 512)", "decode_kernel (cp.async)",
+         "B1 H8/4 Nkv 4224 D1024, one query row, 4097 rows live under the validity bias",
+         "1 a decode step (walk and split merge)", decode_counts(4097, 4224, **wide)),
         ("8 (D > 512)", "varlen_fwd_kernel (mma.sync)",
          "8 documents in 8192 tokens, H8/4 D1024 causal", "1 a packed call",
          varlen_counts(PACKING, PACKING, causal=True, **wide)),
@@ -62,7 +74,7 @@ def main() -> int:
         ms, by = bound_ms(flops, nbytes)
         out.append(dict(row=row, kernel=kernel, shape=shape, launches=launches, flop=flops,
                         bytes=nbytes, bound_ms=round(ms, 4), bound_by=by))
-    print(json.dumps({"not_timed": out}))
+    print(json.dumps({"wide_routes": out}))
     return 0
 
 
