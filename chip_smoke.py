@@ -1168,7 +1168,7 @@ def phase_kernels_vs_plain() -> dict:
         _varlen_bwd_case(f"{tag}_sinks_window", seqs=[300, 17, 500], window=(128, -1),
                          sinks=True, dtype=dt, seed=s + 9)
         _varlen_bwd_case(f"{tag}_d320", seqs=[300, 17, 500], d=320, dtype=dt, seed=s + 10)
-        _varlen_bwd_case(f"{tag}_d1024_col_passes", seqs=[300, 17, 500], d=1024, dtype=dt,
+        _varlen_bwd_case(f"{tag}_d1024_cluster", seqs=[300, 17, 500], d=1024, dtype=dt,
                          seed=s + 11)
         _varlen_bwd_case(f"{tag}_padded_tail_empty_seg", seqs=[300, 0, 500], pad=45, dtype=dt,
                          seed=s + 12)
@@ -1184,6 +1184,25 @@ def phase_kernels_vs_plain() -> dict:
         # key, so dQ's first 64-row Q tile walks no KV tile.
         _varlen_bwd_case(f"{tag}_rows_without_keys", seqs=[150, 40, 90], seqs_k=[30, 40, 200],
                          dtype=dt, seed=s + 16)
+        # D or Dv above 512: the dK/dV cluster of two blocks, each rank
+        # holding half of D's and of Dv's boxes (rank 0 five of D576's nine,
+        # rank 1 no D box at D64 / Dv1024 and no Dv box at D1024 / Dv64),
+        # over the features, packings and groups of the cases above.
+        for i_, (name, kw) in enumerate((
+                ("d640", dict(d=640)), ("d576", dict(d=576)),
+                ("d1024_window_causal", dict(d=1024, window=(64, -1))),
+                ("d1024_softcap", dict(d=1024, softcap=30.0)),
+                ("d1024_alibi", dict(d=1024, alibi=True)),
+                ("d1024_sinks_window", dict(d=1024, window=(128, -1), sinks=True)),
+                ("d512_dv1024", dict(d=512, dv=1024)), ("d1024_dv320", dict(d=1024, dv=320)),
+                ("d64_dv1024", dict(d=64, dv=1024)), ("d1024_dv64", dict(d=1024, dv=64)),
+                ("d1024_straddles_3_segs", dict(d=1024, seqs=[20, 9, 50, 3, 300])),
+                ("d1024_rows_without_keys", dict(d=1024, seqs=[150, 40, 90],
+                                                 seqs_k=[30, 40, 200])),
+                ("d1024_gqa_group4", dict(d=1024, hq=8, hkv=2)),
+                ("d1024_mha", dict(d=1024, hq=8, hkv=8)))):
+            kw = dict(dict(seqs=[300, 17, 500]), **kw)
+            _varlen_bwd_case(f"{tag}_cluster_{name}", dtype=dt, seed=s + 40 + i_, **kw)
     serve_lens = [n + 1 for n in SERVE_LENS]  # the first decode step's cache
     errs["paged_decode"] = _paged_case("serving_page256", lens=serve_lens)
     _paged_case("int8_page256", lens=serve_lens, quantized=True, seed=1)
@@ -2209,12 +2228,13 @@ def phase_checkpoint() -> None:
         fail("checkpoint: the restored run does not continue the saved one bit for bit")
 
 
-def packed_inputs(dtype) -> dict:
+def packed_inputs(dtype, d: int = TRAIN["head_dim"]) -> dict:
     """The packed-training inputs: the bench_train token budget packed as
-    PACK_LENS documents, q, k, v and dO from numpy seed 0, on the card."""
+    PACK_LENS documents, q, k, v and dO of head dim ``d`` from numpy seed 0,
+    on the card."""
     rng = np.random.default_rng(0)
     t = sum(PACK_LENS)
-    hq, hkv, d = TRAIN["n_heads"], TRAIN["n_kv_heads"], TRAIN["head_dim"]
+    hq, hkv = TRAIN["n_heads"], TRAIN["n_kv_heads"]
     q, k, v, do = (torch.from_numpy(rng.standard_normal((t, h, d), dtype=np.float32)).to(
         "cuda", dtype) for h in (hq, hkv, hkv, hq))
     cu = torch.tensor(np.cumsum([0] + PACK_LENS), dtype=torch.int32, device="cuda")
@@ -2262,8 +2282,10 @@ def phase_packed_training() -> dict:
     1 varlen-forward, 1 varlen-dK/dV and 1 varlen-dQ launch and no other per
     call; dq, dk, dv per row against the plain chain on the same (o, lse)
     and against the per-segment dense path. Then the gpt_oss_like features
-    (window (128, -1), sinks) with dsinks against the plain chain, and the
-    bf16 call's forward + backward times."""
+    (window (128, -1), sinks) with dsinks against the plain chain, the bf16
+    call's forward + backward times, and one bf16 call at D1024 (the dK/dV
+    cluster route; the forward and dQ on their mma.sync routes) with its
+    launches counted alone and its gradients against the plain chain."""
     from ffpa_attn_tpu_torch.ops import varlen
     from ffpa_attn_tpu_torch.ops.attention import sink_grad
     from ffpa_attn_tpu_torch.utils.profiling import varlen_counts
@@ -2353,6 +2375,35 @@ def phase_packed_training() -> dict:
         f"({out['fwd_bwd_tflops']:.1f} TFLOP/s at 3.5 x the forward's flop), backward "
         f"{bwd:.3f} ms ({out['bwd_tflops']:.1f} TFLOP/s at 2.5 x; forward flop over the band "
         f"{fwd_flops:.4g}); all {[[round(a, 3), round(b, 3)] for a, b in runs]}")
+
+    # Above D512: the same packing at D1024, where dK/dV takes the cluster.
+    from ffpa_attn_tpu_torch.ops.config import varlen_dkdv_plan
+
+    wd = 1024
+    if varlen_dkdv_plan(wd, wd).route != "wgmma_cluster":
+        fail(f"varlen dK/dV at D{wd} does not take the cluster route")
+    x = packed_inputs(torch.bfloat16, d=wd)
+    meta = varlen._call_metadata(x["cu"], x["cu"], t, t, "cuda")
+    torch.cuda.synchronize()
+    launch_counts(zero=True)
+    r = _packed_call(x)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if counts != want:
+        fail(f"packed training D{wd}: launch counts {counts} != expected {want}")
+    plain = varlen._varlen_backward_plain(x["q"], x["k"], x["v"], r["o"], r["lse"], x["do"],
+                                          meta, scale=wd ** -0.5, causal=True)
+    errs = {nm: grad_row_rel(g, w) for nm, g, w in zip(("dq", "dk", "dv"), r["grads"], plain)}
+    del plain, r
+    tol = GRAD_TOL[torch.bfloat16]
+    ok = all(e < tol for e in errs.values())
+    log(f"  bf16 D{wd} (dK/dV on the cluster): launches {counts}; "
+        + " ".join(f"{k_}_plain {e:.2e}" for k_, e in errs.items())
+        + f" (tol {tol:g}, per row) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"packed training D{wd}: gradients disagree")
+    out["wide"] = dict(x=x, launches=counts["varlen_dkdv"], errs=errs)
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3230,34 +3281,41 @@ def varlen_fwd_kernel_row_extras(d: int) -> dict:
 
 
 def varlen_dkdv_kernel_row_extras(d: int) -> dict:
-    """The varlen dK/dV route at head dim ``d`` and its kernel's registers
-    and spill bytes, for the ``kernels`` line; fails unless the launcher's
-    plan equals its mirror (``ops/config.py`` ``varlen_dkdv_plan``) at D, Dv
-    64..1024 and D != Dv, and the wgmma kernel spills nothing."""
+    """The varlen dK/dV route at head dim ``d`` and both routes' kernels'
+    registers and spill bytes, for the ``kernels`` line; fails unless the
+    launcher's plan equals its mirror (``ops/config.py`` ``varlen_dkdv_plan``,
+    the dense ``dkdv_plan``) at D, Dv 64..1024, D != Dv and a rank without a
+    box of one dim, and neither route's kernel (one block, the cluster)
+    spills in either dtype. ``fwd_kernel_row_extras`` fails on a C7515 /
+    C7520 note in ``varlen_bwd.cu``."""
     from ffpa_attn_tpu_torch.ops import varlen
-    from ffpa_attn_tpu_torch.ops.config import varlen_dkdv_plan
+    from ffpa_attn_tpu_torch.ops.config import dkdv_plan, varlen_dkdv_plan
 
     pairs = [(x, x) for x in range(64, 1025, 64)] + [(512, 320), (320, 512), (512, 64),
                                                      (64, 512), (448, 64), (512, 1024),
-                                                     (1024, 320), (400, 400)]
+                                                     (1024, 320), (400, 400), (64, 1024),
+                                                     (1024, 64), (640, 1024), (576, 576)]
     for hd, hdv in pairs:
-        if varlen.varlen_dkdv_kernel_plan(hd, hdv) != varlen_dkdv_plan(hd, hdv):
-            fail(f"varlen dK/dV launcher's plan at D{hd}/Dv{hdv} "
-                 f"{varlen.varlen_dkdv_kernel_plan(hd, hdv)} differs from ops/config.py "
-                 f"varlen_dkdv_plan {varlen_dkdv_plan(hd, hdv)}")
-    log(f"  varlen_dkdv plan at D{d}: {varlen.varlen_dkdv_kernel_plan(d, d)} (the launcher's, "
-        f"equal to ops/config.py varlen_dkdv_plan at {len(pairs)} head-dim pairs)")
-    for route in ("wgmma", "mma_sync"):
+        got, want = varlen.varlen_dkdv_kernel_plan(hd, hdv), varlen_dkdv_plan(hd, hdv)
+        if got != want or want != dkdv_plan(hd, hdv):
+            fail(f"varlen dK/dV launcher's plan at D{hd}/Dv{hdv} {got} differs from "
+                 f"ops/config.py varlen_dkdv_plan {want}")
+    log(f"  varlen_dkdv plan at D{d}: {varlen.varlen_dkdv_kernel_plan(d, d)}; at D1024: "
+        f"{varlen.varlen_dkdv_kernel_plan(1024, 1024)} (the launcher's, equal to ops/config.py "
+        f"varlen_dkdv_plan at {len(pairs)} head-dim pairs)")
+    attrs = {}
+    for route in ("wgmma", "wgmma_cluster"):
         for dt in (torch.bfloat16, torch.float16):
-            a = varlen.varlen_dkdv_kernel_attrs(route, dt)
+            a = attrs[route, dt] = varlen.varlen_dkdv_kernel_attrs(route, dt)
             log(f"  varlen_dkdv {route} {str(dt)[6:]}: {a['registers']} registers a thread at "
                 f"launch, {a['local_bytes']} local (spill) bytes")
-            if route == "wgmma" and a["local_bytes"] != 0:
-                fail(f"the wgmma varlen dK/dV kernel ({dt}) spills {a['local_bytes']} bytes")
+            if a["local_bytes"] != 0:
+                fail(f"the {route} varlen dK/dV kernel ({dt}) spills {a['local_bytes']} bytes")
     route = varlen_dkdv_plan(d, d).route
-    a = varlen.varlen_dkdv_kernel_attrs(route)
+    a, c = attrs[route, torch.bfloat16], attrs["wgmma_cluster", torch.bfloat16]
     return {"varlen_dkdv_route": route, "registers": a["registers"],
-            "spill_bytes": a["local_bytes"]}
+            "spill_bytes": a["local_bytes"], "cluster_registers": c["registers"],
+            "cluster_spill_bytes": c["local_bytes"]}
 
 
 def varlen_dq_kernel_row_extras(d: int) -> dict:
@@ -3937,7 +3995,101 @@ def packed_training_times(packed: dict) -> tuple:
                         else varlen_dq_kernel_row_extras(d))
         events[name] = (kms[1], pms[1], lms[1])
         torch.cuda.empty_cache()
+    row, events["varlen_dkdv_cluster"] = varlen_dkdv_cluster_times(packed.pop("wide"))
+    rows.append(row)
     return rows, events, fwd_packed
+
+
+def varlen_dkdv_cluster_times(wide: dict) -> tuple:
+    """The varlen dK/dV cluster route (``PERF.md``'s row "9 (D > 512)") at
+    the wide routes' packing (``tools/torch_wide_bounds.py`` ``PACKING``: 8
+    documents in 8192 tokens, H8/4 D1024 causal bf16, the inputs of
+    ``phase_packed_training``'s D1024 call): the kernel alone on its
+    schedule, held against its plain version per row, then timed (device
+    ms of the dK/dV kernel by name, CUDA-event ms) beside its bound, its
+    plain version and ``torch.autograd.grad`` through
+    ``scaled_dot_product_attention`` with the block-diagonal causal bool
+    mask (the dK/dV + dQ pair, K/V heads expanded). Returns the ``kernels``
+    line's row ``varlen_dkdv_cluster`` (its launches those of the D1024
+    packed backward through ``ffpa_attn_varlen_func``) and its (CUDA-event
+    ms of the kernel, the plain version, the library call)."""
+    import torch.nn.functional as F
+
+    from ffpa_attn_tpu_torch.cli._bench import sdpa_backend
+    from ffpa_attn_tpu_torch.ops import varlen
+    from ffpa_attn_tpu_torch.ops.config import varlen_dkdv_plan, varlen_dq_plan
+    from ffpa_attn_tpu_torch.ops.dispatch import pick_varlen_backward_config
+    from ffpa_attn_tpu_torch.ops.reference import expand_kv_heads
+    from ffpa_attn_tpu_torch.utils.profiling import bound_ms, varlen_backward_counts
+
+    x = wide.pop("x")
+    q, k, v, do, cu = x["q"], x["k"], x["v"], x["do"], x["cu"]
+    t, hq, d = q.shape
+    hkv, bf = k.shape[1], torch.bfloat16
+    kw = dict(scale=d ** -0.5, causal=True, softcap=0.0, window=(-1, -1))
+    meta = varlen._call_metadata(cu, cu, t, t, "cuda")
+    o, lse = varlen._varlen_forward(q, k, v, cu, cu, meta=meta, **kw)
+    delta = varlen._varlen_delta(do, o)
+    del o
+    cfg = pick_varlen_backward_config(d=d, dv=d, tq=t, dtype=bf)
+    plan = varlen_dkdv_plan(d, d)
+    ops = varlen._BwdOperands(q, k, v, do, lse, delta, None)
+    sched, _ = varlen._backward_schedules(meta, t, plan, varlen_dq_plan(d, d), cfg.block_q_dq,
+                                          True, (-1, -1))
+
+    def run():
+        return varlen._varlen_dkdv_kernel(ops, meta, sched, cfg, **kw)
+
+    def plain():
+        return varlen._varlen_dkdv_plain(q, k, v, do, lse, delta, meta, **kw)
+
+    got = run()
+    torch.cuda.synchronize()
+    err = _hold(f"varlen_dkdv_cluster_T{t}_D{d}", dict(zip(("dk", "dv"), zip(got, plain()))))
+    del got
+    torch.cuda.empty_cache()
+    flops, nbytes = varlen_backward_counts("varlen_dkdv", PACK_LENS, PACK_LENS, hq=hq, hkv=hkv,
+                                           d=d, dv=d, causal=True)
+    bms, bby = bound_ms(flops, nbytes)
+
+    def timed():
+        return _kernel_timed(run, varlen.DKDV_KERNELS, 10)
+
+    kms = _above_bound("varlen_dkdv cluster (D1024)", timed(), bms, timed)
+    pms = _timed(plain, 2, warmup=1)
+    torch.cuda.empty_cache()
+    seg = torch.repeat_interleave(torch.arange(len(PACK_LENS), device="cuda"),
+                                  torch.tensor(PACK_LENS, device="cuda"))
+    r = torch.arange(t, device="cuda")
+    block_causal = (seg[:, None] == seg[None, :]) & (r[None, :] <= r[:, None])
+    qh = q.transpose(0, 1)[None].detach().requires_grad_()
+    kh = expand_kv_heads(k.transpose(0, 1)[None], hq).detach().requires_grad_()
+    vh = expand_kv_heads(v.transpose(0, 1)[None], hq).detach().requires_grad_()
+    out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=block_causal)
+    doh = do.transpose(0, 1)[None]
+    backend = sdpa_backend(qh, kh, vh, attn_mask=block_causal)
+    lms = _timed(lambda: torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True), 3,
+                 warmup=1)
+    del out, qh, kh, vh, block_causal
+    torch.cuda.empty_cache()
+    a = varlen.varlen_dkdv_kernel_attrs("wgmma_cluster")
+    shape = f"{len(PACK_LENS)} documents in {t} tokens, H{hq}/{hkv} D{d} causal bf16"
+    log(f"  varlen_dkdv cluster route ({shape}): device {kms[0]:.4f} ms, CUDA events "
+        f"{kms[1]:.4f} ms, {flops / kms[0] / 1e9:.1f} TFLOP/s, bound {bms:.4f} ms ({bby}); "
+        f"plain {pms[0]:.4f} ms; torch.autograd.grad through scaled_dot_product_attention "
+        f"({backend} backend, block-diagonal causal bool mask, K/V heads expanded, the dK/dV + "
+        f"dQ pair) {lms[0]:.4f} ms; max|err| vs plain {err:.3e}; {a['registers']} registers, "
+        f"{a['local_bytes']} spill bytes")
+    row = dict(
+        name="varlen_dkdv_cluster", row="9 (D > 512)", route="cuda",
+        source="ffpa_attn_tpu_torch/csrc/varlen_bwd.cu",
+        replaces="ffpa_attn_tpu/ops/varlen.py:433", launches=wide["launches"], max_abs_err=err,
+        ms=kms[0], plain_ms=pms[0], bound_ms=bms, bound_by=bby, library_ms=lms[0],
+        event_ms=kms[1], shape=shape, varlen_dkdv_route=plan.route,
+        kernel="tma::varlen_dkdv_wgmma_kernel<T, true>", registers=a["registers"],
+        spill_bytes=a["local_bytes"], packed_call_grad_errs=wide["errs"],
+    )
+    return row, (kms[1], pms[1], lms[1])
 
 
 def phase_times(errs: dict, main_path: dict, training: dict, windowed: dict,

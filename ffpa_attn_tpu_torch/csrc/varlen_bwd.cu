@@ -3,7 +3,7 @@
 // (ffpa_attn_tpu/ops/varlen.py). ops/varlen.py calls the C entry points
 // ffpa_varlen_bwd_dkdv and ffpa_varlen_bwd_dq through ctypes.
 //
-// All four blocks below are the dense backward's (flash_bwd.cu) with two
+// Every block below is the dense backward's (flash_bwd.cu) with two
 // changes:
 //   * the causal / window band test becomes the segment / rank keep-mask of
 //     the forward (varlen_fwd.cu),
@@ -12,30 +12,25 @@
 //     get P = 0 and dS = 0 exactly, so rows with no key (padding, rows past
 //     Tq, an empty interval's [0, 0] tile) add nothing;
 //   * the tiles each block walks are read from device memory, computed on
-//     the device at the kernel's own tiles (ops/varlen.py): for dK/dV a KV
-//     tile's [imin, imax] of Q tiles (64 x 64 on the wgmma route, 128 x 32
-//     on mma.sync), for dQ a 64-row Q tile's list of needed 64-row KV tiles
-//     (wgmma; the forward's own schedule) or a block_q-row Q tile's [jmin,
-//     jmax] (mma.sync).
+//     the device at the kernel's own tiles (ops/varlen.py): for dK/dV a 64-row
+//     KV tile's [imin, imax] of 64-row Q tiles, for dQ a 64-row Q tile's list
+//     of needed 64-row KV tiles (wgmma; the forward's own schedule) or a
+//     block_q-row Q tile's [jmin, jmax] (mma.sync).
 // q, dO [T, Hq, D|Dv] and k, v [T, Hkv, D|Dv] are read through their row
 // and head strides (no head-major copy, no padding of T); dq, dk and dv are
 // written packed, the ragged tails bounds-checked. lse and delta are [Hq, Tq]
 // fp32 (delta = rowsum(dO * O), the sink-inclusive O where there are sinks).
 //
-// dK/dV has two routes, by head dims alone (tma::make_plan). D, Dv <= 512
-// take the TMA + wgmma block of namespace tma (the dense dkdv::kernel's
-// design, details beside it): 64 KV rows of one KV head with K and V
-// resident, the GQA group's 64-row Q and dO tiles streamed as TMA boxes,
-// column passes of at most 256 columns. Wider heads take the mma.sync
-// varlen_dkdv_kernel: a block owns 32 KV rows of one KV head with K and V
-// resident and walks, for every q-head of its GQA group, the 128-row Q
-// tiles of its interval: S^T = K Q^T over the Q chunks, P^T to shared
-// memory, dP^T = V dO^T and dV += P^T dO over one stream of dO chunks, dS^T
-// to shared memory, dK += dS^T Q over the Q chunks again; above 512
-// columns of dK or dV, col_passes blocks split the columns, each
-// recomputing S and dP. On both routes the group is reduced in fp32 in the
-// block's registers and dK, dV are stored once each (the TPU kernel writes
-// a per-q-head dK/dV in the input type and sums the group afterwards).
+// dK/dV is the TMA + wgmma block of namespace tma (the dense dkdv::kernel's
+// design, details beside it) on two routes, by head dims alone
+// (tma::make_plan): 64 KV rows of one KV head with K and V resident, the
+// GQA group's 64-row Q and dO tiles streamed as TMA boxes, column passes of
+// at most 256 columns; one block at D, Dv <= 512, a cluster of two blocks up
+// to 1024 (each rank holding half of D's and of Dv's boxes, the partial
+// S^T and dP^T exchanged through distributed shared memory). The group is
+// reduced in fp32 in the block's registers and dK, dV are stored once each
+// (the TPU kernel writes a per-q-head dK/dV in the input type and sums the
+// group afterwards).
 //
 // dQ has two routes, by head dims alone (tma::make_dq_plan). D, Dv <= 512
 // take the TMA + wgmma block of namespace tma (the dense dq::wgmma_dq_kernel's
@@ -117,255 +112,6 @@ __device__ __forceinline__ Prob score_prob(const VarlenBwdParams& p, bool keep, 
   if (p.alibi != nullptr) s -= slope * fabsf((float)dist);
   r.p = __expf(s - lse);
   return r;
-}
-
-// ---------------------------------------------------------------------------
-// dK / dV
-// ---------------------------------------------------------------------------
-
-// Dynamic shared memory of one dK/dV block; ops/config.py
-// varlen_dkdv_smem_bytes is the same formula: the dense block's, plus the Q
-// tile's segment ids and ranks and the KV tile's segment ids and positions.
-template <typename T>
-size_t dkdv_smem_bytes(int d, int dv) {
-  return ((size_t)KVT * (d + 8) + (size_t)KVT * (dv + 8) + (size_t)NST * QT * LDC +
-          2 * (size_t)KVT * LDP) * sizeof(T) + 2 * QT * sizeof(float) +
-         2 * QT * sizeof(int) + 2 * KVT * sizeof(int);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NTHR, 1) varlen_dkdv_kernel(const VarlenBwdParams p) {
-  constexpr int RT = KVT / 16;  // 16-row tiles of the KV tile (2)
-  constexpr int WC = NW / RT;   // warps per row tile (8)
-  constexpr int CQ = QT / WC;   // Q columns of S^T / dP^T per warp (16: two n8 tiles)
-  constexpr int CW = CH / WC;   // dK / dV columns per chunk per warp (8: one n8 tile)
-  static_assert(CQ == 16 && CW == 8, "warp tiles");
-
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int LDK = p.D + 8, LDV = p.Dv + 8;
-  T* Ks = reinterpret_cast<T*>(smem_raw);
-  T* Vs = Ks + KVT * LDK;
-  T* ring = Vs + KVT * LDV;
-  T* Pt = ring + NST * QT * LDC;  // P transposed: [kv][q]
-  T* dSt = Pt + KVT * LDP;        // dS (with the softcap factor) transposed
-  float* lse_s = reinterpret_cast<float*>(dSt + KVT * LDP);
-  float* delta_s = lse_s + QT;
-  int* qseg_s = reinterpret_cast<int*>(delta_s + QT);
-  int* qrank_s = qseg_s + QT;
-  int* kseg_s = qrank_s + QT;
-  int* kpos_s = kseg_s + KVT;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int rt = warp / WC, wc = warp % WC;
-  const Lanes L(lane);
-  const int kvh = blockIdx.x / p.col_passes, pass = blockIdx.x % p.col_passes;
-  const int kv0 = blockIdx.y * KVT;
-  const int nD = p.D / CH, nV = p.Dv / CH;
-  const int d_lo = pass * nD / p.col_passes, ndo = (pass + 1) * nD / p.col_passes - d_lo;
-  const int v_lo = pass * nV / p.col_passes, nvo = (pass + 1) * nV / p.col_passes - v_lo;
-
-  // Q tiles of the interval, [i_lo, i_lo + ni) of every group member; an
-  // empty interval is [0, 0]: one fully masked tile.
-  const int i_lo = p.lo[blockIdx.y];
-  const int ni = p.hi[blockIdx.y] - i_lo + 1;
-  const int ntiles = p.group * ni;
-
-  const T* kb = static_cast<const T*>(p.k) + (long long)kvh * p.k_hs;
-  const T* vb = static_cast<const T*>(p.v) + (long long)kvh * p.v_hs;
-
-  // Resident K and V: rows past Tk are zero-filled.
-  for (int i = tid; i < KVT * (p.D / 8); i += NTHR) {
-    const int r = i / (p.D / 8), c = (i % (p.D / 8)) * 8;
-    const bool ok = kv0 + r < p.tk;
-    cp_async16(Ks + r * LDK + c, ok ? kb + (long long)(kv0 + r) * p.k_rs + c : kb, ok);
-  }
-  for (int i = tid; i < KVT * (p.Dv / 8); i += NTHR) {
-    const int r = i / (p.Dv / 8), c = (i % (p.Dv / 8)) * 8;
-    const bool ok = kv0 + r < p.tk;
-    cp_async16(Vs + r * LDV + c, ok ? vb + (long long)(kv0 + r) * p.v_rs + c : vb, ok);
-  }
-  cp_async_commit();
-  if (tid < KVT) {
-    kseg_s[tid] = p.k_seg[kv0 + tid];
-    kpos_s[tid] = p.k_pos[kv0 + tid];
-  }
-
-  // Chunk gi of the stream: per Q tile, the nD Q chunks (S), the nV dO
-  // chunks, this block's own dV columns first (dP and dV), then this
-  // block's ndo Q chunks again (dK); 128 rows x 64 columns, rows past Tq
-  // zero-filled.
-  const int per_tile = nD + nV + ndo;
-  const int total = ntiles * per_tile;
-  auto issue = [&](int gi) {
-    if (gi < total) {
-      const int t = gi / per_tile, c = gi - t * per_tile;
-      const int h = kvh * p.group + t / ni, q0 = (i_lo + t % ni) * QT;
-      const T* src;
-      long long rs;
-      int c0;
-      if (c < nD) {
-        src = static_cast<const T*>(p.q) + (long long)h * p.q_hs;
-        rs = p.q_rs;
-        c0 = c;
-      } else if (c < nD + nV) {
-        const int vc = c - nD;  // own chunks first, then the others in order
-        src = static_cast<const T*>(p.dout) + (long long)h * p.do_hs;
-        rs = p.do_rs;
-        c0 = vc < nvo ? v_lo + vc : (vc - nvo < v_lo ? vc - nvo : vc);
-      } else {
-        src = static_cast<const T*>(p.q) + (long long)h * p.q_hs;
-        rs = p.q_rs;
-        c0 = d_lo + c - nD - nV;
-      }
-      T* dst = ring + (gi % NST) * (QT * LDC);
-#pragma unroll
-      for (int half = 0; half < QT / 64; ++half) {  // two 16-byte vectors per thread
-        const int r = (tid >> 3) + 64 * half, cv = (tid & 7) * 8;
-        const bool ok = q0 + r < p.tq;
-        cp_async16(dst + r * LDC + cv, ok ? src + (long long)(q0 + r) * rs + c0 * CH + cv : src,
-                   ok);
-      }
-    }
-    cp_async_commit();
-  };
-  auto begin = [&](int gi) -> const T* {
-    issue(gi + NST - 1);
-    cp_async_wait<NST - 1>();
-    __syncthreads();
-    return ring + (gi % NST) * (QT * LDC);
-  };
-
-  float dk_acc[MAXC][1][4], dv_acc[MAXC][1][4];
-#pragma unroll
-  for (int c = 0; c < MAXC; ++c)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[c][0][e] = dv_acc[c][0][e] = 0.f;
-
-  const T* Krow = Ks + (rt * 16) * LDK;
-  const T* Vrow = Vs + (rt * 16) * LDV;
-  const int kv_loc = rt * 16 + g;  // + 8 for fragment elements 2, 3
-
-#pragma unroll
-  for (int gi = 0; gi < NST - 1; ++gi) issue(gi);
-  for (int t = 0; t < ntiles; ++t) {
-    const int h = kvh * p.group + t / ni, q0 = (i_lo + t % ni) * QT;
-    const int gt = t * per_tile;
-    const float slope = p.alibi != nullptr ? p.alibi[h] : 0.f;
-    __syncthreads();  // the previous tile's readers of the row arrays are done
-    if (tid < QT) {
-      const long long idx = (long long)h * p.tq + q0 + tid;
-      const bool ok = q0 + tid < p.tq;
-      lse_s[tid] = ok ? p.lse[idx] : 0.f;
-      delta_s[tid] = ok ? p.delta[idx] : 0.f;
-      qseg_s[tid] = p.q_seg[q0 + tid];
-      qrank_s[tid] = p.q_rank[q0 + tid];
-    }
-
-    // S^T = K Q^T: this warp's 16 KV rows x 16 Q columns.
-    float st[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-    for (int c = 0; c < nD; ++c) {
-      const T* ch = begin(gt + c);
-      mma_abt<T, 2>(st, Krow + c * CH, LDK, ch + (wc * CQ) * LDC, L, lane);
-      __syncthreads();  // the slot read here is refilled by a later issue
-    }
-
-    // P to shared memory, transposed; p times the softcap factor stays in
-    // registers for dS.
-    float pc[2][4];
-#pragma unroll
-    for (int n = 0; n < 2; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kvl = kv_loc + ((e >> 1) << 3), ql = wc * CQ + n * 8 + 2 * t4 + (e & 1);
-        const int qr = qrank_s[ql], kp = kpos_s[kvl];
-        const Prob pr = score_prob(p, keeps(p, qseg_s[ql], qr, kseg_s[kvl], kp), st[n][e],
-                                   lse_s[ql], slope, qr - kp);
-        pc[n][e] = pr.p * pr.cap;
-        st[n][e] = pr.p;
-      }
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
-        *reinterpret_cast<uint32_t*>(Pt + (kv_loc + 8 * hh) * LDP + wc * CQ + n * 8 + 2 * t4) =
-            pack2<T>(st[n][2 * hh], st[n][2 * hh + 1]);
-    }
-
-    // dP^T = V dO^T over every dO chunk; dV += P^T dO over this block's own.
-    float dpt[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-    for (int vc = 0; vc < MAXC; ++vc) {
-      if (vc < nvo) {
-        const T* ch = begin(gt + nD + vc);
-        mma_abt<T, 2>(dpt, Vrow + (v_lo + vc) * CH, LDV, ch + (wc * CQ) * LDC, L, lane);
-        mma_ab<T, 1, QT / 16>(dv_acc[vc], Pt + (rt * 16) * LDP, LDP, ch + wc * CW, L);
-        __syncthreads();
-      }
-    }
-    for (int vc = nvo; vc < nV; ++vc) {
-      const T* ch = begin(gt + nD + vc);
-      const int c0 = vc - nvo < v_lo ? vc - nvo : vc;
-      mma_abt<T, 2>(dpt, Vrow + c0 * CH, LDV, ch + (wc * CQ) * LDC, L, lane);
-      __syncthreads();
-    }
-
-    // dS = P * (dP - delta), transposed into shared memory.
-#pragma unroll
-    for (int n = 0; n < 2; ++n) {
-      float dsv[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ql = wc * CQ + n * 8 + 2 * t4 + (e & 1);
-        dsv[e] = pc[n][e] * (dpt[n][e] - delta_s[ql]);
-      }
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
-        *reinterpret_cast<uint32_t*>(dSt + (kv_loc + 8 * hh) * LDP + wc * CQ + n * 8 + 2 * t4) =
-            pack2<T>(dsv[2 * hh], dsv[2 * hh + 1]);
-    }
-
-    // dK += dS^T Q over this block's own Q chunks; this warp's dS^T rows
-    // stay in registers as A fragments across the chunks.
-    uint32_t dsf[QT / 16][4];
-#pragma unroll
-    for (int dc = 0; dc < MAXC; ++dc) {
-      if (dc < ndo) {
-        const T* ch = begin(gt + nD + nV + dc);
-        if (dc == 0) {
-#pragma unroll
-          for (int kk = 0; kk < QT / 16; ++kk)
-            ldsm_x4(dsf[kk], dSt + (rt * 16 + L.a_row) * LDP + kk * 16 + L.a_col);
-        }
-#pragma unroll
-        for (int kk = 0; kk < QT / 16; ++kk) {
-          uint32_t bf[2];
-          ldsm_x2_trans(bf, ch + (kk * 16 + L.bt_row) * LDC + wc * CW);
-          mma16816<T>(dk_acc[dc][0], dsf[kk], bf[0], bf[1]);
-        }
-        __syncthreads();
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-  // Epilogue: dK = scale * sum, dV, packed [Tk, Hkv, D]; rows past Tk are
-  // not stored.
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int kv = kv0 + kv_loc + 8 * hh;
-    if (kv >= p.tk) continue;
-    const long long rk = ((long long)kv * p.Hkv + kvh) * p.D;
-    const long long rv = ((long long)kv * p.Hkv + kvh) * p.Dv;
-#pragma unroll
-    for (int c = 0; c < MAXC; ++c) {
-      const int col = wc * CW + 2 * t4;
-      if (c < ndo)
-        store2<T>(p.dk, rk + (d_lo + c) * CH + col, dk_acc[c][0][2 * hh] * p.scale,
-                  dk_acc[c][0][2 * hh + 1] * p.scale, 0);
-      if (c < nvo)
-        store2<T>(p.dv, rv + (v_lo + c) * CH + col, dv_acc[c][0][2 * hh],
-                  dv_acc[c][0][2 * hh + 1], 0);
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -600,27 +346,28 @@ VarlenBwdParams make_params(const void* q, const void* k, const void* v, const v
 }
 
 // ---------------------------------------------------------------------------
-// dK / dV for D, Dv <= 512: TMA + mbarrier + wgmma
+// dK / dV: TMA + mbarrier + wgmma, one block (D, Dv <= 512) or a cluster of
+// two (D or Dv in (512, 1024])
 // ---------------------------------------------------------------------------
 
-// The Hopper route of ffpa_varlen_bwd_dkdv, built on the dense dK/dV block
-// (flash_bwd.cu namespace dkdv; sm90.cuh). The mma.sync block above owned
-// 32 KV rows, ran m16n8k16 products from ldmatrix fragments and put a block
-// barrier after every 64-column chunk of its cp.async ring, so nothing
+// ffpa_varlen_bwd_dkdv's kernel, built on the dense dK/dV block
+// (flash_bwd.cu namespace dkdv; sm90.cuh). The mma.sync block it replaced
+// owned 32 KV rows, ran m16n8k16 products from ldmatrix fragments and put a
+// block barrier after every 64-column chunk of its cp.async ring, so nothing
 // overlapped (3.19 ms at the packed-training shape on an H100, 18x its
-// bound). Here a block of 384 threads owns 64 KV rows of one KV head and
-// one column pass (at most 256 columns of dK and of dV, 128 fp32 registers
-// of each consumer thread). K and V are loaded by TMA once and stay
-// resident in 64 x 64 boxes with 128 B swizzle; warpgroup 0 is the
-// producer: one thread streams, for every q-head of the GQA group and every
-// 64-row Q tile of the KV tile's interval, the Q and dO boxes through a
-// ring of two-box stages (tensor maps over the packed layout: dims (D, T,
-// H) with the row and head strides, extents at the true Tq and Tk, so TMA
-// zero-fills the ragged tail). Warpgroups 1 and 2 are the consumers; per Q
-// tile:
-//  - S^T = K Q^T and dP^T = V dO^T over all of D and Dv: consumer c takes Q
-//    columns 32c..32c+31 (wgmma.m64n32k16), so each thread holds its own
-//    S, dP, lse and delta;
+// bound; above D512 9.57 ms, 27x, at 8 documents in 8192 tokens H8/4 D1024).
+// Here a block of 384 threads owns 64 KV rows of one KV head and one column
+// pass (at most 256 columns of dK and of dV, 128 fp32 registers of each
+// consumer thread). K and V are loaded by TMA once and stay resident in 64 x
+// 64 boxes with 128 B swizzle; warpgroup 0 is the producer: one thread
+// streams, for every q-head of the GQA group and every 64-row Q tile of the
+// KV tile's interval, the Q and dO boxes through a ring of two-box stages
+// (tensor maps over the packed layout: dims (D, T, H) with the row and head
+// strides, extents at the true Tq and Tk, so TMA zero-fills the ragged
+// tail). Warpgroups 1 and 2 are the consumers; per Q tile:
+//  - S^T = K Q^T and dP^T = V dO^T over all of the block's D and Dv boxes:
+//    consumer c takes Q columns 32c..32c+31 (wgmma.m64n32k16), so each
+//    thread holds its own S, dP, lse and delta;
 //  - P and dS = P (dP - delta) (softcap's factor included): a block of 64
 //    KV rows x 32 Q columns that lies in one segment and inside the band,
 //    with no feature on (no softcap, no ALiBi, no left window), is full:
@@ -638,61 +385,121 @@ VarlenBwdParams make_params(const void* q, const void* k, const void* v, const v
 // The blocks of the longest intervals start first (the schedule's order:
 // under causal packing a segment's first KV tiles walk the most Q tiles),
 // with a KV tile's passes and KV heads side by side. S and dP are
-// recomputed in every pass: at D512 (two passes) 6 matmul units execute
-// against the bound's 4. dK and dV are stored packed, rows past Tk not.
+// recomputed in every pass. dK and dV are stored packed, rows past Tk not.
+//
+// D, Dv <= 512 (SPLIT false): one block holds all of D and Dv, 6 stages at
+// most (5 at D512).
+//
+// Wider heads (SPLIT true, D or Dv in (512, 1024]): K and V of 64 rows at
+// D1024 (256 KB) fit no block, so a cluster of two blocks (grid x = 2 x
+// passes x KV heads, the pair adjacent in x: the same block order) owns the
+// 64 KV rows and one pass and splits both head dims, as the dense dK/dV
+// cluster does: rank r holds the K boxes of its half of D and the V boxes
+// of its half of Dv, resident (rank 0 the larger half; sm90.cuh col_block),
+// and per Q tile streams only its own Q and dO boxes, so every byte of Q,
+// K, V and dO is read once per cluster. Consumer c of each rank computes a
+// partial S^T over its rank's D boxes and a partial dP^T over its Dv boxes
+// (64 x 32 fp32, 8 KB each), stores both into the shared memory of the
+// partner's consumer c (st.async, completing their bytes on the partner's
+// barrier; S^T as soon as its products complete, so its bytes travel under
+// the dP^T products) and adds the partner's partials to its own. fp32
+// addition of two values is commutative, so both ranks hold bit-identical
+// S^T and dP^T, and so the same P, dS and full-block test from the same
+// metadata, with no further exchange. Each rank then runs dK += dS^T Q over
+// the pass's share of its D boxes and dV += P^T dO over its share of its Dv
+// boxes (passes of at most 256 columns of a rank's half: 2 at D1024) and
+// stores its own columns. The exchange has one slot (3 stages at D = Dv =
+// 1024; the arithmetic is beside make_plan), so a rank stores tile t's
+// partials only after the partner has read tile t - 1's: each thread that
+// read its share of the slot arrives on the partner's "free" barrier (a
+// remote arrive, release at cluster scope), which the storing consumer waits
+// on with acquire. Both ranks walk the same Q tiles (the interval of the KV
+// tile). A rank may hold no D box (D64 / Dv1024) or no Dv box (D1024 /
+// Dv64): it sends zero partials of that product and owns no columns of that
+// gradient. The cluster barrier at the start publishes the barriers'
+// initialisation, the one at the end keeps a block alive while its partner
+// may still store or arrive into it.
 namespace tma {
 
 using namespace ffpa::sm90;
 
-constexpr int ROWS = 64;                // KV rows of a block
-constexpr int QROWS = 64;               // Q rows of a streamed tile
-constexpr int COLS = 64;                // columns of a box (128 B of 16-bit)
-constexpr int MAX_BOXES = 8;            // D, Dv <= 512 on this route
-constexpr int PASS_BOXES = 4;           // dK / dV columns of a pass: 256
-constexpr int STAGE_BOXES = 2;          // boxes a stage (one barrier handshake)
+constexpr int ROWS = 64;                     // KV rows of a block
+constexpr int QROWS = 64;                    // Q rows of a streamed tile
+constexpr int COLS = 64;                     // columns of a box (128 B of 16-bit)
+constexpr int MAX_BOXES = 8;                 // D, Dv boxes of a block: D512, a rank's half of D1024
+constexpr int MAX_HEAD_DIM = 2 * MAX_BOXES * COLS;  // D, Dv of either dK/dV route
+constexpr int PASS_BOXES = 4;                // dK / dV columns of a pass: 256
+constexpr int STAGE_BOXES = 2;               // boxes a stage (one barrier handshake)
 static_assert(STAGE_BOXES == 2, "the consumers' stage loops take pairs of boxes");
 constexpr int STAGE_BYTES = STAGE_BOXES * BOX_BYTES;
 constexpr int MAX_STAGES = 6;
-constexpr int THREADS = 384;            // producer warpgroup + 2 consumer warpgroups
-constexpr int CONSUMER_WARPS = 8;       // arrivals that free a stage
+constexpr int THREADS = 384;                 // producer warpgroup + 2 consumer warpgroups
+constexpr int CONSUMER_WARPS = 8;            // arrivals that free a stage
+constexpr int CONSUMER_THREADS = 128;        // arrivals that free a consumer's exchange slot
+constexpr int PART_BYTES = ROWS * 32 * 4;    // one consumer's partial S^T or dP^T (64 x 32 fp32)
+constexpr int PART_BUF_BYTES = 2 * 2 * PART_BYTES;  // both consumers' S^T and dP^T: one slot
+constexpr int PART_BARRIERS = 4;             // landed and free, per consumer
 constexpr int SMEM_LIMIT = 232448;
-constexpr int WGMMA = 1, MMA_SYNC = 0;  // routes
+constexpr int MMA_SYNC = 0, WGMMA = 1, CLUSTER = 2;  // routes (mma.sync: the wide dQ's)
 
-// The route and tiling of a launch at head dims (D, Dv), multiples of 64:
-// D, Dv <= 512 take this block, with ceil(max(D, Dv) / 256) passes whose
-// column blocks split the boxes of D and of Dv by sm90.cuh col_block, and
-// as many ring stages as shared memory holds after K, V and the two
-// exchange boxes (the dense block's tiling, flash_bwd.cu dkdv::make_plan);
-// wider heads the mma.sync varlen_dkdv_kernel with its 512-column passes.
-// ffpa_varlen_bwd_dkdv_plan hands it out; ops/config.py varlen_dkdv_plan
-// mirrors it (through dkdv_plan) and the card test holds the two equal.
+// A block's share of the head dims: its first D box and D boxes, its first
+// Dv box and Dv boxes. Alone a block holds everything; split, rank r holds
+// half of each, rank 0 the larger half.
+struct Part {
+  int d0, nd, v0, nv;
+};
+__host__ __device__ inline Part part_of(int nd, int nv, bool split, int rank) {
+  if (!split) return {0, nd, 0, nv};
+  const Cols d = col_block(nd, 2, rank), v = col_block(nv, 2, rank);
+  return {d.c0 / COLS, d.nc, v.c0 / COLS, v.nc};
+}
+
+// Shared memory of a block laid out for nd K boxes and nv V boxes, apart
+// from the ring: K, V, the P and dS boxes, the 1024 B alignment, the K/V
+// barrier and, split, the exchange's slot and its barriers. A ring stage is
+// STAGE_BOXES boxes and its two barriers.
+inline size_t fixed_bytes(int nd, int nv, bool split) {
+  return (size_t)(nd + nv + 2) * BOX_BYTES + 1024 + sizeof(uint64_t) +
+         (split ? (size_t)PART_BUF_BYTES + PART_BARRIERS * sizeof(uint64_t) : 0);
+}
+constexpr size_t STAGE_SMEM = STAGE_BYTES + 2 * sizeof(uint64_t);
+
+// The route and tiling of a launch at head dims (D, Dv), multiples of 64
+// up to 1024: the dense dK/dV block's (flash_bwd.cu dkdv::make_plan). D, Dv
+// <= 512 take one block, wider heads the cluster; ceil((a block's boxes of D
+// or of Dv) / 4) passes whose column blocks split a block's D boxes and its
+// Dv boxes as evenly as possible (sm90.cuh col_block), and as many ring
+// stages (at most 6) as shared memory holds beside the rest. Both ranks of a
+// cluster lay out rank 0's share. At D = Dv = 1024 a rank's K and V take 16
+// boxes (128 KB), the P and dS boxes 16 KB and the exchange's slot 32 KB:
+// with the alignment and the barriers 181,288 B, and 3 stages of 16,400 B
+// make 230,488 of the 232,448 a block may ask for. The segment metadata and
+// the schedule are read from device memory and cost no shared memory.
+// ffpa_varlen_bwd_dkdv_plan hands the plan out; ops/config.py
+// varlen_dkdv_plan mirrors it (it is dkdv_plan) and the card test holds the
+// two equal.
 struct Plan {
-  int route, passes, nd, nv, stages;
+  int route, passes, stages;
+  Part part[2];  // each rank's share (the lone block's is part[0])
   size_t smem;
 };
 inline Plan make_plan(int D, int Dv) {
+  const int nd = D / COLS, nv = Dv / COLS;
+  const bool split = nd > MAX_BOXES || nv > MAX_BOXES;
   Plan pl;
-  pl.nd = D / COLS;
-  pl.nv = Dv / COLS;
-  if (pl.nd <= MAX_BOXES && pl.nv <= MAX_BOXES) {
-    pl.route = WGMMA;
-    pl.passes = std::max((pl.nd + PASS_BOXES - 1) / PASS_BOXES, (pl.nv + PASS_BOXES - 1) / PASS_BOXES);
-    // K, V, the P and dS boxes, the 1024 B alignment and the K/V barrier;
-    // a stage is STAGE_BOXES boxes and its two barriers.
-    const size_t fixed = (size_t)(pl.nd + pl.nv + 2) * BOX_BYTES + 1024 + sizeof(uint64_t);
-    const size_t stage = STAGE_BYTES + 2 * sizeof(uint64_t);
-    pl.stages = (int)std::min((size_t)MAX_STAGES, (SMEM_LIMIT - fixed) / stage);
-    pl.smem = fixed + pl.stages * stage;
-  } else {
-    pl.route = MMA_SYNC;
-    pl.passes = std::max((D + MAXC * CH - 1) / (MAXC * CH), (Dv + MAXC * CH - 1) / (MAXC * CH));
-    pl.stages = NST;
-    pl.smem = dkdv_smem_bytes<__nv_bfloat16>(D, Dv);
-  }
+  pl.route = split ? CLUSTER : WGMMA;
+  pl.part[0] = part_of(nd, nv, split, 0);
+  pl.part[1] = part_of(nd, nv, split, 1);
+  const Part& lay = pl.part[0];
+  pl.passes = std::max((lay.nd + PASS_BOXES - 1) / PASS_BOXES,
+                       (lay.nv + PASS_BOXES - 1) / PASS_BOXES);
+  const size_t fixed = fixed_bytes(lay.nd, lay.nv, split);
+  pl.stages = (int)std::min((size_t)MAX_STAGES, (SMEM_LIMIT - fixed) / STAGE_SMEM);
+  pl.smem = fixed + pl.stages * STAGE_SMEM;
   return pl;
 }
 
-// The kernel's tensor maps, a __grid_constant__ parameter of their own (TMA
+// The kernels' tensor maps, a __grid_constant__ parameter of their own (TMA
 // reads them by address); the scalars stay an ordinary parameter, read from
 // the constant bank (p.col_passes is the plan's passes).
 struct Maps {
@@ -700,30 +507,154 @@ struct Maps {
   CUtensorMap k_map, v_map;   // (D | Dv, Tk, Hkv)
 };
 
-// Consumer CW (0: dK, 1: dV) of a block; CW is a template argument so that
-// no branch around a wgmma depends on the thread (ptxas serializes wgmma on
-// a path it cannot prove uniform).
-template <typename T, int CW>
-__device__ __forceinline__ void consume(const VarlenBwdParams& p, int stages, unsigned char* smem,
-                                        int ni, int i_lo, int kvh, int kv0, Cols dc, Cols vc) {
-  const int nd = p.D / COLS, nv = p.Dv / COLS;
-  const unsigned char* Ks = smem;
-  const unsigned char* Vs = Ks + nd * BOX_BYTES;
-  unsigned char* sP = smem + (nd + nv) * BOX_BYTES;
-  unsigned char* sdS = sP + BOX_BYTES;
-  unsigned char* ring = sdS + BOX_BYTES;
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * STAGE_BYTES);
-  uint64_t* empty = full + stages;
-  uint64_t* kv_full = empty + stages;
+// Shared memory of a block, from a 1024 B boundary: the K boxes, the V
+// boxes, the P and dS boxes, the ring's stages, the exchange's slot
+// (split), the stages' full / empty barriers, K/V's barrier and the
+// exchange's barriers (split). Both ranks of a cluster lay it out alike
+// (for rank 0's share), so an offset here is the same offset in the
+// partner.
+struct Smem {
+  unsigned char* k;
+  unsigned char* v;
+  unsigned char* p;     // P^T, swizzled [kv][q]
+  unsigned char* ds;    // dS^T (softcap's factor included), swizzled [kv][q]
+  unsigned char* ring;
+  unsigned char* part;  // [2][2][PART_BYTES]: consumer c's partial S^T, dP^T from the partner
+  uint64_t* full;
+  uint64_t* empty;
+  uint64_t* kv_full;
+  uint64_t* part_full;  // [2]: the partner's partials for consumer c have landed
+  uint64_t* part_free;  // [2]: the partner's consumer c has read the partials sent to it
+};
+template <bool SPLIT>
+__device__ __forceinline__ Smem carve(unsigned char* base, int nd, int nv, int stages) {
+  Smem sm;
+  sm.k = base;
+  sm.v = base + nd * BOX_BYTES;
+  sm.p = base + (nd + nv) * BOX_BYTES;
+  sm.ds = sm.p + BOX_BYTES;
+  sm.ring = sm.ds + BOX_BYTES;
+  sm.part = sm.ring + stages * STAGE_BYTES;
+  sm.full = reinterpret_cast<uint64_t*>(sm.part + (SPLIT ? PART_BUF_BYTES : 0));
+  sm.empty = sm.full + stages;
+  sm.kv_full = sm.empty + stages;
+  sm.part_full = sm.kv_full + 1;
+  sm.part_free = sm.part_full + 2;
+  return sm;
+}
 
+// A block's work: its KV tile's first row and KV head, the tile's Q tiles
+// [i_lo, i_lo + ni) of every group member (an empty interval is [0, 0]: one
+// fully masked tile, which both ranks of a cluster walk and exchange), its
+// rank's share of the head dims and its pass's dK and dV columns
+// (absolute). Block order: the passes of a (KV tile, KV head) side by side
+// (they read the same Q and dO tiles; on the cluster route each pass's two
+// ranks adjacent), the KV heads of a tile next, the KV tiles in the
+// schedule's order (longest interval first). Each warpgroup forms it after
+// setmaxnreg (formed before and held across, a value spilled).
+struct Work {
+  int kv0, kvh, i_lo, ni;
+  Part pt;
+  Cols dc, vc;
+};
+template <bool SPLIT>
+__device__ __forceinline__ Work work_of(const VarlenBwdParams& p) {
+  Work w;
+  const int passes = p.col_passes;
+  const int blk = SPLIT ? (int)(blockIdx.x >> 1) : (int)blockIdx.x;
+  const int pass = blk % passes, tile = p.order[blockIdx.y];
+  w.kv0 = tile * ROWS;
+  w.kvh = blk / passes;
+  w.i_lo = p.lo[tile];
+  w.ni = p.hi[tile] - w.i_lo + 1;
+  w.pt = part_of(p.D / COLS, p.Dv / COLS, SPLIT, SPLIT ? (int)cluster_rank() : 0);
+  w.dc = col_block(w.pt.nd, passes, pass);
+  w.vc = col_block(w.pt.nv, passes, pass);
+  w.dc.c0 += w.pt.d0 * COLS;
+  w.vc.c0 += w.pt.v0 * COLS;
+  return w;
+}
+
+// The pass's dK (dim 0) or dV (dim 1) columns of a rank of the cluster,
+// absolute (Work's dc and vc), from its block index and rank.
+__device__ __forceinline__ Cols split_pass_cols(const VarlenBwdParams& p, int dim) {
+  const Cols r = col_block((dim ? p.Dv : p.D) / COLS, 2, (int)cluster_rank());
+  Cols c = col_block(r.nc, p.col_passes, (int)(blockIdx.x >> 1) % p.col_passes);
+  c.c0 += r.c0;
+  return c;
+}
+
+// The producer's thread: the block's K and V boxes once, then per Q tile
+// four runs of boxes: its nd Q boxes, its nv dO boxes, the pass's dO boxes,
+// the pass's Q boxes; a stage takes up to STAGE_BOXES boxes of one run.
+__device__ __forceinline__ void produce(const Maps& maps, const VarlenBwdParams& p,
+                                        const Smem& sm, int stages, const Work& w) {
+  const Part& pt = w.pt;
+  prefetch_map(&maps.q_map);
+  prefetch_map(&maps.do_map);
+  prefetch_map(&maps.k_map);
+  prefetch_map(&maps.v_map);
+  mbar_arrive_expect_tx(sm.kv_full, (pt.nd + pt.nv) * BOX_BYTES);
+  for (int j = 0; j < pt.nd; ++j)
+    tma_load_3d(sm.k + j * BOX_BYTES, &maps.k_map, sm.kv_full, (pt.d0 + j) * COLS, w.kv0, w.kvh);
+  for (int j = 0; j < pt.nv; ++j)
+    tma_load_3d(sm.v + j * BOX_BYTES, &maps.v_map, sm.kv_full, (pt.v0 + j) * COLS, w.kv0, w.kvh);
+  // A Q tile's four runs, (first box, boxes) in 4 bits each (at most 15),
+  // in one register unpacked behind an empty asm at each tile: the producer
+  // has 24 registers, and held apart they spilled.
+  const uint32_t runs = pt.d0 | pt.nd << 4 | pt.v0 << 8 | pt.nv << 12 | (w.vc.c0 / COLS) << 16 |
+                        w.vc.nc << 20 | (w.dc.c0 / COLS) << 24 | (uint32_t)w.dc.nc << 28;
+  const int h0 = w.kvh * p.group, i_lo = w.i_lo, ni = w.ni;
+  int it = 0;
+  auto run = [&](const CUtensorMap* map, int first, int n, int q0, int h) {
+    for (int c = 0; c < n; c += STAGE_BOXES, ++it) {
+      const int st = it % stages, nb = min(STAGE_BOXES, n - c);
+      if (it >= stages) mbar_wait(&sm.empty[st], ((it / stages) - 1) & 1);
+      mbar_arrive_expect_tx(&sm.full[st], nb * BOX_BYTES);
+      for (int b = 0; b < nb; ++b)
+        tma_load_3d(sm.ring + st * STAGE_BYTES + b * BOX_BYTES, map, &sm.full[st],
+                    (first + c + b) * COLS, q0, h);
+    }
+  };
+  for (int t = 0; t < p.group * ni; ++t) {
+    const int h = h0 + t / ni, q0 = (i_lo + t % ni) * QROWS;
+    uint32_t r = runs;
+    asm volatile("" : "+r"(r));
+    run(&maps.q_map, r & 15, (r >> 4) & 15, q0, h);
+    run(&maps.do_map, (r >> 8) & 15, (r >> 12) & 15, q0, h);
+    run(&maps.do_map, (r >> 16) & 15, (r >> 20) & 15, q0, h);
+    run(&maps.q_map, (r >> 24) & 15, r >> 28, q0, h);
+  }
+}
+
+// Consumer CW (0: dK, 1: dV) of a block; CW and SPLIT are template
+// arguments so that no branch around a wgmma depends on the thread (ptxas
+// serializes wgmma on a path it cannot prove uniform).
+template <typename T, int CW, bool SPLIT>
+__device__ __forceinline__ void consume(const VarlenBwdParams& p, int stages, const Smem& sm,
+                                        const Work& w) {
+  const int ni = w.ni, i_lo = w.i_lo, kvh = w.kvh, kv0 = w.kv0;
   constexpr int cw = CW;  // 0: dK, Q columns 0..31; 1: dV, 32..63
   const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  const int own = CW == 0 ? dc.nc : vc.nc;  // boxes of this consumer's product
+  // The pass's dK (dim 0) or dV (dim 1) columns: one block holds them from
+  // w; a rank of the cluster forms them where they are used (held across
+  // the walk beside the exchange's values, they spilled).
+  auto cols = [&](int dim) -> Cols {
+    if constexpr (SPLIT) return split_pass_cols(p, dim);
+    return dim ? w.vc : w.dc;
+  };
   constexpr float LOG2E = 1.4426950408889634f;
   const float scale_log2 = p.scale * LOG2E;
   // No feature that changes a kept element's p: a full block skips the mask.
   const bool plain = p.alibi == nullptr && p.softcap <= 0.f && p.window_left < 0;
+  // The block's D or Dv boxes: all of them alone; split, its rank's half,
+  // formed where it is used from the rank the hardware reports (a rank's
+  // values held across the walk cost registers beside the accumulator).
+  auto boxes = [&](int dim) -> int {
+    if constexpr (SPLIT) return col_block(dim / COLS, 2, (int)cluster_rank()).nc;
+    return dim / COLS;
+  };
 
   float acc[PASS_BOXES * 32];
 #pragma unroll
@@ -733,7 +664,7 @@ __device__ __forceinline__ void consume(const VarlenBwdParams& p, int stages, un
   // run. done_with frees the stage before once this one's products are
   // issued and the older ones completed (one group stays in flight).
   int it = 0, held = -1;
-  auto release = [&](int st, bool pred) { mbar_arrive_if(&empty[st], pred && lane == 0); };
+  auto release = [&](int st, bool pred) { mbar_arrive_if(&sm.empty[st], pred && lane == 0); };
   auto done_with = [&](int st) {
     wgmma_commit();
     wgmma_wait<1>();
@@ -745,58 +676,115 @@ __device__ __forceinline__ void consume(const VarlenBwdParams& p, int stages, un
     release(held >= 0 ? held : 0, held >= 0);
     held = -1;
   };
+  // S^T or dP^T: this warpgroup's 32 Q columns of each of n resident boxes,
+  // a stage's boxes in one wgmma group. The stages of two boxes, then an
+  // odd last box alone: a conditional wgmma inside a stage makes ptxas
+  // serialize.
+  auto stream = [&](float(&a)[16], const unsigned char* res, int n) {
+    int c = 0;
+    for (; c + 2 <= n; c += 2, ++it) {
+      const int st = it % stages;
+      const unsigned char* sb = sm.ring + st * STAGE_BYTES + cw * 4096;
+      mbar_wait(&sm.full[st], (it / stages) & 1);
+      wgmma_fence();
+      box_mma<T, 32, 0>(a, res + c * BOX_BYTES, sb, c == 0);
+      box_mma<T, 32, 0>(a, res + (c + 1) * BOX_BYTES, sb + BOX_BYTES);
+      done_with(st);
+    }
+    if (c < n) {
+      const int st = it % stages;
+      mbar_wait(&sm.full[st], (it / stages) & 1);
+      wgmma_fence();
+      box_mma<T, 32, 0>(a, res + c * BOX_BYTES, sm.ring + st * STAGE_BYTES + cw * 4096, c == 0);
+      done_with(st);
+      ++it;
+    }
+  };
+  // Split: element 4 i + e of thread tid's partial sits at (i * 128 + tid)
+  // * 16 + 4 e bytes of its consumer's S^T slot, and as far into the dP^T
+  // slot PART_BYTES on; a thread reads back what the partner's thread tid
+  // stored. The addresses are formed where they are used.
+  auto slot = [&]() { return cvta_smem(sm.part) + CW * 2 * PART_BYTES + tid * 16; };
+  // This rank's partial a (zeros where the rank holds no box of the
+  // product) into the partner's slot at off.
+  auto send = [&](float(&a)[16], int n, uint32_t off) {
+    const uint32_t partner = cluster_rank() ^ 1u;
+    const uint32_t there = mapa(slot() + off, partner);
+    const uint32_t there_bar = mapa(cvta_smem(&sm.part_full[CW]), partner);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) a[i] = n > 0 ? a[i] : 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) st_async_v4(there + i * 2048, a + 4 * i, there_bar);
+  };
 
-  mbar_wait(kv_full, 0);
+  mbar_wait(sm.kv_full, 0);
   // The walk, group member outer, Q tiles inner: q-head h, Q rows q0; the
   // interval's rows are [q_end - span, q_end). (A tile count divided by ni
-  // kept i_lo live across the products, and it spilled.)
+  // kept i_lo live across the products, and it spilled.) Split, the parity
+  // of the exchange's barriers flips each tile.
   const int span = ni * QROWS;
   const int h_end = (kvh + 1) * p.group;
   int h = kvh * p.group, q0 = i_lo * QROWS;
   const int q_end = q0 + span;
+  uint32_t phase = 0;
   for (; h < h_end;) {
     const int qc = q0 + 32 * cw;  // this consumer's first Q column
     // lse and delta of this thread's 8 Q columns: qc + 8 jj + 2 t4 + e.
+    // One block loads them once a tile, before the products; a rank of the
+    // cluster a column group's where the group uses them (group_rows: held
+    // across the products and the exchange, they spilled).
     float lse_r[8], dl_r[8];
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj)
+    auto load_rows = [&](int jj, int col) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int q = qc + 8 * jj + 2 * t4 + e;
-        const bool ok = q < p.tq;
-        lse_r[2 * jj + e] = ok ? p.lse[(long long)h * p.tq + q] : 0.f;
-        dl_r[2 * jj + e] = ok ? p.delta[(long long)h * p.tq + q] : 0.f;
-      }
-
-    // S^T and dP^T: this warpgroup's 32 Q columns of each box, a stage's
-    // boxes in one wgmma group. The stages of two boxes, then an odd last
-    // box alone: a conditional wgmma inside a stage makes ptxas serialize.
-    float s[16], dp[16];
-    auto stream = [&](float(&a)[16], const unsigned char* res, int n) {
-      int c = 0;
-      for (; c + 2 <= n; c += 2, ++it) {
-        const int st = it % stages;
-        const unsigned char* sb = ring + st * STAGE_BYTES + cw * 4096;
-        mbar_wait(&full[st], (it / stages) & 1);
-        wgmma_fence();
-        box_mma<T, 32, 0>(a, res + c * BOX_BYTES, sb, c == 0);
-        box_mma<T, 32, 0>(a, res + (c + 1) * BOX_BYTES, sb + BOX_BYTES);
-        done_with(st);
-      }
-      if (c < n) {
-        const int st = it % stages;
-        mbar_wait(&full[st], (it / stages) & 1);
-        wgmma_fence();
-        box_mma<T, 32, 0>(a, res + c * BOX_BYTES, ring + st * STAGE_BYTES + cw * 4096, c == 0);
-        done_with(st);
-        ++it;
+        const bool ok = col + e < p.tq;
+        lse_r[2 * jj + e] = ok ? p.lse[(long long)h * p.tq + col + e] : 0.f;
+        dl_r[2 * jj + e] = ok ? p.delta[(long long)h * p.tq + col + e] : 0.f;
       }
     };
-    stream(s, Ks, nd);
-    stream(dp, Vs, nv);
+    if constexpr (!SPLIT) {
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) load_rows(jj, qc + 8 * jj + 2 * t4);
+    }
+    float s[16], dp[16];
+    stream(s, sm.k, boxes(p.D));
+    if constexpr (SPLIT) {
+      drain();
+      fence_operands(s);
+      // The partner has read the tile before's partials (at the first tile
+      // the wait for parity 1 of a fresh barrier returns at once). S^T goes
+      // out before the dP^T products, so its bytes travel under them.
+      mbar_wait_cluster(&sm.part_free[CW], phase ^ 1u);
+      send(s, boxes(p.D), 0);
+    }
+    stream(dp, sm.v, boxes(p.Dv));
     drain();
     fence_operands(s);
     fence_operands(dp);
+
+    if constexpr (SPLIT) {
+      // S^T and dP^T = this rank's partials + the partner's, the same bits
+      // in both ranks.
+      send(dp, boxes(p.Dv), PART_BYTES);
+      mbar_arrive_expect_tx_if(&sm.part_full[CW], 2 * PART_BYTES, tid == 0);
+      mbar_wait_cluster(&sm.part_full[CW], phase);
+      const uint32_t mine = slot();
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float x[4], y[4];
+        lds_v4(mine + i * 2048, x);
+        lds_v4(mine + PART_BYTES + i * 2048, y);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[4 * i + e] += x[e];
+          dp[4 * i + e] += y[e];
+        }
+      }
+      mbar_arrive_cluster(mapa(cvta_smem(&sm.part_free[CW]), cluster_rank() ^ 1u));
+      fence_operands(s);
+      fence_operands(dp);
+      phase ^= 1u;
+    }
 
     // The other consumer is done with the previous tile's P and dS boxes
     // (its products completed), so each pair of P and dS goes there as it
@@ -816,9 +804,20 @@ __device__ __forceinline__ void consume(const VarlenBwdParams& p, int stages, un
         __ldg(p.q_seg + qc) == ks && __ldg(p.q_seg + qc + 31) == ks &&
         (p.window_right < 0 ||
          __ldg(p.k_pos + kv_first + ROWS - 1) <= __ldg(p.q_rank + qc) + p.window_right);
+    // Split: column group jj's rows, loaded after the empty asm ties the
+    // group's scores, so no load is hoisted ahead of the groups before.
+    auto group_rows = [&](int jj) {
+      if constexpr (SPLIT) {
+        int col = qc + 8 * jj + 2 * t4;
+        asm volatile("" : "+f"(s[4 * jj]), "+f"(s[4 * jj + 1]), "+f"(s[4 * jj + 2]),
+                     "+f"(s[4 * jj + 3]), "+r"(col));
+        load_rows(jj, col);
+      }
+    };
     if (full_block) {
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
+      for (int jj = 0; jj < 4; ++jj) {
+        group_rows(jj);
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           float pv[2], dsv[2];
@@ -829,13 +828,15 @@ __device__ __forceinline__ void consume(const VarlenBwdParams& p, int stages, un
             dsv[e] = pv[e] * (dp[idx] - dl_r[2 * jj + e]);
           }
           const uint32_t off = swz(16 * warp + g + 8 * hh, 32 * cw + 8 * jj + 2 * t4);
-          *reinterpret_cast<uint32_t*>(sP + off) = pack2<T>(pv[0], pv[1]);
-          *reinterpret_cast<uint32_t*>(sdS + off) = pack2<T>(dsv[0], dsv[1]);
+          *reinterpret_cast<uint32_t*>(sm.p + off) = pack2<T>(pv[0], pv[1]);
+          *reinterpret_cast<uint32_t*>(sm.ds + off) = pack2<T>(dsv[0], dsv[1]);
         }
+      }
     } else {
       const float slope = p.alibi != nullptr ? p.alibi[h] : 0.f;
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
+      for (int jj = 0; jj < 4; ++jj) {
+        group_rows(jj);
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           // One pair at a time: the empty asm ties the pair's scores and
@@ -858,9 +859,10 @@ __device__ __forceinline__ void consume(const VarlenBwdParams& p, int stages, un
             dsv[e] = pr.p * pr.cap * (dp[i0 + e] - dl_r[2 * jj + e]);
           }
           const uint32_t off = swz(16 * warp + g + 8 * hh, 32 * cw + 8 * jj + 2 * t4);
-          *reinterpret_cast<uint32_t*>(sP + off) = pack2<T>(pv[0], pv[1]);
-          *reinterpret_cast<uint32_t*>(sdS + off) = pack2<T>(dsv[0], dsv[1]);
+          *reinterpret_cast<uint32_t*>(sm.p + off) = pack2<T>(pv[0], pv[1]);
+          *reinterpret_cast<uint32_t*>(sm.ds + off) = pack2<T>(dsv[0], dsv[1]);
         }
+      }
     }
     fence_proxy_async();
     named_barrier_sync(1, 2 * 128);
@@ -872,35 +874,36 @@ __device__ __forceinline__ void consume(const VarlenBwdParams& p, int stages, un
     auto skip = [&](int n) {  // the stages of n boxes
       for (int c = 0; c < n; c += STAGE_BOXES, ++it) {
         const int st = it % stages;
-        mbar_wait(&full[st], (it / stages) & 1);
+        mbar_wait(&sm.full[st], (it / stages) & 1);
         release(st, true);
       }
     };
-    if constexpr (CW == 0) skip(vc.nc);
-    const unsigned char* a_box = CW == 0 ? sdS : sP;
+    if constexpr (CW == 0) skip(cols(1).nc);
+    const unsigned char* a_box = CW == 0 ? sm.ds : sm.p;
+    const int own = cols(CW).nc;  // boxes of this consumer's product
 #pragma unroll
     for (int jj = 0; jj < PASS_BOXES; jj += 2) {
       if (jj + 2 <= own) {
         const int st = it % stages;
-        mbar_wait(&full[st], (it / stages) & 1);
+        mbar_wait(&sm.full[st], (it / stages) & 1);
         wgmma_fence();
         box_mma<T, 64, 1>(*reinterpret_cast<float(*)[32]>(acc + 32 * jj), a_box,
-                          ring + st * STAGE_BYTES);
+                          sm.ring + st * STAGE_BYTES);
         box_mma<T, 64, 1>(*reinterpret_cast<float(*)[32]>(acc + 32 * (jj + 1)), a_box,
-                          ring + st * STAGE_BYTES + BOX_BYTES);
+                          sm.ring + st * STAGE_BYTES + BOX_BYTES);
         done_with(st);
         ++it;
       } else if (jj < own) {
         const int st = it % stages;
-        mbar_wait(&full[st], (it / stages) & 1);
+        mbar_wait(&sm.full[st], (it / stages) & 1);
         wgmma_fence();
         box_mma<T, 64, 1>(*reinterpret_cast<float(*)[32]>(acc + 32 * jj), a_box,
-                          ring + st * STAGE_BYTES);
+                          sm.ring + st * STAGE_BYTES);
         done_with(st);
         ++it;
       }
     }
-    if constexpr (CW == 1) skip(dc.nc);
+    if constexpr (CW == 1) skip(cols(0).nc);
     drain();
     q0 += QROWS;
     if (q0 == q_end) {
@@ -911,8 +914,8 @@ __device__ __forceinline__ void consume(const VarlenBwdParams& p, int stages, un
   fence_operands(acc);
 
   // Epilogue: dK = scale * sum (consumer 0) or dV (consumer 1), packed
-  // [Tk, Hkv, D|Dv]; rows past Tk are not stored.
-  const int col0 = cw == 0 ? dc.c0 : vc.c0;
+  // [Tk, Hkv, D|Dv], this block's columns; rows past Tk are not stored.
+  const Cols out_cols = cols(CW);
   const int ld = cw == 0 ? p.D : p.Dv;
   const float mul = cw == 0 ? p.scale : 1.f;
   void* out = cw == 0 ? p.dk : p.dv;
@@ -920,10 +923,10 @@ __device__ __forceinline__ void consume(const VarlenBwdParams& p, int stages, un
   for (int hh = 0; hh < 2; ++hh) {
     const int kv = kv0 + 16 * warp + g + 8 * hh;
     if (kv >= p.tk) continue;
-    const long long base = ((long long)kv * p.Hkv + kvh) * ld + col0 + 2 * t4;
+    const long long base = ((long long)kv * p.Hkv + kvh) * ld + out_cols.c0 + 2 * t4;
 #pragma unroll
     for (int jj = 0; jj < PASS_BOXES; ++jj) {
-      if (jj >= own) break;
+      if (jj >= out_cols.nc) break;
 #pragma unroll
       for (int j8 = 0; j8 < 8; ++j8)
         store2<T>(out, base + 64 * jj + 8 * j8, acc[32 * jj + 4 * j8 + 2 * hh] * mul,
@@ -932,7 +935,7 @@ __device__ __forceinline__ void consume(const VarlenBwdParams& p, int stages, un
   }
 }
 
-template <typename T>
+template <typename T, bool SPLIT>
 __global__ void __launch_bounds__(THREADS, 1)
     varlen_dkdv_wgmma_kernel(const __grid_constant__ Maps maps, const VarlenBwdParams p,
                              const int stages) {
@@ -940,78 +943,42 @@ __global__ void __launch_bounds__(THREADS, 1)
   // Boxes on 1024 B boundaries: the 128 B swizzle's atom. The offset is
   // added to smem_raw itself, so the compiler keeps every pointer below in
   // the shared space (32-bit) rather than generic (64-bit, two registers).
-  unsigned char* smem = smem_raw + ((1024u - (cvta_smem(smem_raw) & 1023u)) & 1023u);
-  const int nd = p.D / COLS, nv = p.Dv / COLS, passes = p.col_passes;
-  unsigned char* ring = smem + (nd + nv + 2) * BOX_BYTES;
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * STAGE_BYTES);
-  uint64_t* empty = full + stages;
-  uint64_t* kv_full = empty + stages;
-
-  // Block order: the passes of a (KV tile, KV head) side by side (they read
-  // the same Q and dO tiles), the KV heads of a tile next, the KV tiles in
-  // the schedule's order (longest interval first).
-  const int pass = blockIdx.x % passes, kvh = blockIdx.x / passes;
-  const int tile = p.order[blockIdx.y], kv0 = tile * ROWS;
-  const Cols dc = col_block(nd, passes, pass);
-  const Cols vc = col_block(nv, passes, pass);
-
-  // Q tiles of the interval, [i_lo, i_lo + ni) of every group member; an
-  // empty interval is [0, 0]: one fully masked tile.
-  const int i_lo = p.lo[tile];
-  const int ni = p.hi[tile] - i_lo + 1;
-  const int ntiles = p.group * ni;
+  unsigned char* base = smem_raw + ((1024u - (cvta_smem(smem_raw) & 1023u)) & 1023u);
+  const Part lay = part_of(p.D / COLS, p.Dv / COLS, SPLIT, 0);  // both ranks alike
+  const Smem sm = carve<SPLIT>(base, lay.nd, lay.nv, stages);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], CONSUMER_WARPS);
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], CONSUMER_WARPS);
     }
-    mbar_init(kv_full, 1);
+    mbar_init(sm.kv_full, 1);
+    if constexpr (SPLIT)
+      for (int c = 0; c < 2; ++c) {
+        mbar_init(&sm.part_full[c], 1);
+        mbar_init(&sm.part_free[c], CONSUMER_THREADS);
+      }
     fence_barrier_init();
   }
-  __syncthreads();
+  // The partner's barriers are initialised before this block's first
+  // store into its shared memory.
+  if constexpr (SPLIT)
+    cluster_sync();
+  else
+    __syncthreads();
 
   if (threadIdx.x < 128) {
     setmaxnreg_dec<24>();
-    if (threadIdx.x == 0) {
-      prefetch_map(&maps.q_map);
-      prefetch_map(&maps.do_map);
-      prefetch_map(&maps.k_map);
-      prefetch_map(&maps.v_map);
-      mbar_arrive_expect_tx(kv_full, (nd + nv) * BOX_BYTES);
-      for (int j = 0; j < nd; ++j)
-        tma_load_3d(smem + j * BOX_BYTES, &maps.k_map, kv_full, j * COLS, kv0, kvh);
-      for (int j = 0; j < nv; ++j)
-        tma_load_3d(smem + (nd + j) * BOX_BYTES, &maps.v_map, kv_full, j * COLS, kv0, kvh);
-      // Per Q tile four runs of boxes: the nd Q boxes, the nv dO boxes, the
-      // pass's dO boxes, its Q boxes; a stage takes up to STAGE_BOXES boxes
-      // of one run.
-      int it = 0;
-      auto run = [&](const CUtensorMap* map, int first, int n, int q0, int h) {
-        for (int c = 0; c < n; c += STAGE_BOXES, ++it) {
-          const int st = it % stages, nb = min(STAGE_BOXES, n - c);
-          if (it >= stages) mbar_wait(&empty[st], ((it / stages) - 1) & 1);
-          mbar_arrive_expect_tx(&full[st], nb * BOX_BYTES);
-          for (int b = 0; b < nb; ++b)
-            tma_load_3d(ring + st * STAGE_BYTES + b * BOX_BYTES, map, &full[st],
-                        (first + c + b) * COLS, q0, h);
-        }
-      };
-      for (int t = 0; t < ntiles; ++t) {
-        const int h = kvh * p.group + t / ni, q0 = (i_lo + t % ni) * QROWS;
-        run(&maps.q_map, 0, nd, q0, h);
-        run(&maps.do_map, 0, nv, q0, h);
-        run(&maps.do_map, vc.c0 / COLS, vc.nc, q0, h);
-        run(&maps.q_map, dc.c0 / COLS, dc.nc, q0, h);
-      }
-    }
+    if (threadIdx.x == 0) produce(maps, p, sm, stages, work_of<SPLIT>(p));
   } else {
     setmaxnreg_inc<240>();
+    const Work w = work_of<SPLIT>(p);
     if (threadIdx.x < 256)
-      consume<T, 0>(p, stages, smem, ni, i_lo, kvh, kv0, dc, vc);
+      consume<T, 0, SPLIT>(p, stages, sm, w);
     else
-      consume<T, 1>(p, stages, smem, ni, i_lo, kvh, kv0, dc, vc);
+      consume<T, 1, SPLIT>(p, stages, sm, w);
   }
+  if constexpr (SPLIT) cluster_sync();  // the partner may still store or arrive into this block
 }
 
 // The tensor maps of a launch over the packed layout: dims (D, T, H),
@@ -1033,9 +1000,9 @@ inline cudaError_t encode_maps(const VarlenBwdParams& bp, bool f16, Maps* maps) 
   return e;
 }
 
-// The host side of one launch: tensor maps, shared memory, the grid (passes
-// x KV heads, KV tiles).
-template <typename T>
+// The host side of one dK/dV launch: tensor maps, shared memory, the grid
+// (passes x KV heads, for the split the cluster of two along x; KV tiles).
+template <typename T, bool SPLIT>
 cudaError_t launch(const VarlenBwdParams& bp, const Plan& pl, int num_kv_tiles,
                    cudaStream_t stream) {
   Maps maps;
@@ -1043,13 +1010,24 @@ cudaError_t launch(const VarlenBwdParams& bp, const Plan& pl, int num_kv_tiles,
   p.col_passes = pl.passes;
   cudaError_t e = encode_maps(bp, std::is_same<T, __half>::value, &maps);
   if (e != cudaSuccess) return e;
-  const dim3 grid(pl.passes * bp.Hkv, num_kv_tiles);
-  e = cudaFuncSetAttribute(varlen_dkdv_wgmma_kernel<T>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
+  const dim3 grid((SPLIT ? 2 : 1) * pl.passes * bp.Hkv, num_kv_tiles);
+  auto kern = varlen_dkdv_wgmma_kernel<T, SPLIT>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
   if (e != cudaSuccess) return e;
   if (grid.x * grid.y == 0) return cudaSuccess;
-  varlen_dkdv_wgmma_kernel<T><<<grid, THREADS, pl.smem, stream>>>(maps, p, pl.stages);
-  return cudaGetLastError();
+  if constexpr (SPLIT) {
+    return launch_cluster(kern, grid, THREADS, pl.smem, stream, 2, maps, p, pl.stages);
+  } else {
+    kern<<<grid, THREADS, pl.smem, stream>>>(maps, p, pl.stages);
+    return cudaGetLastError();
+  }
+}
+
+template <bool SPLIT>
+cudaError_t launch_typed(bool f16, const VarlenBwdParams& p, const Plan& pl, int num_kv_tiles,
+                         cudaStream_t stream) {
+  return f16 ? launch<__half, SPLIT>(p, pl, num_kv_tiles, stream)
+             : launch<__nv_bfloat16, SPLIT>(p, pl, num_kv_tiles, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -1471,12 +1449,11 @@ cudaError_t dq_launch(const VarlenBwdParams& p, const DqPlan& pl, int num_q_tile
 }  // namespace
 
 // dK, dV [Tk, Hkv, D|Dv] in the input type, the GQA group reduced; the
-// route is tma::make_plan's, by head dims alone. imin / imax hold each KV
-// tile's interval of Q tiles at the route's tiles: 64 x 64 on the wgmma
-// route (num_kv_tiles = ceil(Tk / 64); col_passes must be the plan's;
-// order lists the KV tiles, longest interval first), 128 x 32 on mma.sync
-// (num_kv_tiles = ceil(Tk / 32); col_passes splits the columns; order is
-// not read).
+// route is tma::make_plan's, by head dims alone (one block at D, Dv <= 512,
+// the cluster of two up to 1024). imin / imax hold each KV tile's interval
+// of Q tiles at the plan's 64 x 64 tiles (num_kv_tiles = ceil(Tk / 64)),
+// order lists the KV tiles, longest interval first; col_passes must be the
+// plan's.
 extern "C" int ffpa_varlen_bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
                                     long long q_rs, long long q_hs, long long k_rs,
                                     long long k_hs, long long v_rs, long long v_hs,
@@ -1496,77 +1473,77 @@ extern "C" int ffpa_varlen_bwd_dkdv(const void* q, const void* k, const void* v,
   p.dv = dv;
   p.order = order;
   p.col_passes = col_passes;
-  if (D <= 0 || Dv <= 0 || D % CH != 0 || Dv % CH != 0 || Hkv < 1 || Hq % Hkv != 0)
+  if (D <= 0 || Dv <= 0 || D % CH != 0 || Dv % CH != 0 || D > tma::MAX_HEAD_DIM ||
+      Dv > tma::MAX_HEAD_DIM || Hkv < 1 || Hq % Hkv != 0)
+    return (int)cudaErrorInvalidValue;
+  const tma::Plan pl = tma::make_plan(D, Dv);
+  if (col_passes != pl.passes || order == nullptr || (long long)num_kv_tiles * tma::ROWS < tk)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const tma::Plan pl = tma::make_plan(D, Dv);
-  if (pl.route == tma::WGMMA) {
-    if (col_passes != pl.passes || order == nullptr ||
-        (long long)num_kv_tiles * tma::ROWS < tk)
-      return (int)cudaErrorInvalidValue;
-    return (int)(is_fp16 ? tma::launch<__half>(p, pl, num_kv_tiles, st)
-                         : tma::launch<__nv_bfloat16>(p, pl, num_kv_tiles, st));
-  }
-  // Every pass owns at most MAXC chunks of dK and of dV.
-  if (col_passes < 1 || (D / CH + col_passes - 1) / col_passes > MAXC ||
-      (Dv / CH + col_passes - 1) / col_passes > MAXC || num_kv_tiles * KVT < tk)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid(Hkv * col_passes, num_kv_tiles);
-  if (is_fp16)
-    return (int)launch(varlen_dkdv_kernel<__half>, grid, dkdv_smem_bytes<__half>(D, Dv), p, st);
-  return (int)launch(varlen_dkdv_kernel<__nv_bfloat16>, grid,
-                     dkdv_smem_bytes<__nv_bfloat16>(D, Dv), p, st);
+  return (int)(pl.route == tma::CLUSTER
+                   ? tma::launch_typed<true>(is_fp16, p, pl, num_kv_tiles, st)
+                   : tma::launch_typed<false>(is_fp16, p, pl, num_kv_tiles, st));
 }
 
 // The route and tiling ffpa_varlen_bwd_dkdv takes at head dims (D, Dv),
-// multiples of 64: out[0..5] are the route (1 wgmma, 0 mma.sync), the
-// passes, a block's KV rows, the streamed Q rows, the ring's stages and the
-// dynamic shared-memory bytes (bf16), then per pass (first column, width)
-// of dK and of dV; cap is out's length. The layout of ffpa_bwd_dkdv_plan.
+// multiples of 64 up to 1024, in ffpa_bwd_dkdv_plan's layout: out[0..6] are
+// the route (1 one block, 2 the cluster of two), the passes, a block's KV
+// rows, the streamed Q rows, the ring's stages, the dynamic shared-memory
+// bytes of a block and the ranks that split the head dims (1 or 2); then for
+// each block of a KV tile, rank by rank and pass by pass, the (first column,
+// width) of dK and of dV it owns; then for each rank of the cluster (none
+// for one block) its (first D column, D width, first Dv column, Dv width).
+// cap is out's length.
 extern "C" int ffpa_varlen_bwd_dkdv_plan(int D, int Dv, int* out, int cap) {
-  if (D <= 0 || Dv <= 0 || D % CH != 0 || Dv % CH != 0) return (int)cudaErrorInvalidValue;
+  if (D <= 0 || Dv <= 0 || D % CH != 0 || Dv % CH != 0 || D > tma::MAX_HEAD_DIM ||
+      Dv > tma::MAX_HEAD_DIM)
+    return (int)cudaErrorInvalidValue;
   const tma::Plan pl = tma::make_plan(D, Dv);
-  if (cap < 6 + 4 * pl.passes) return (int)cudaErrorInvalidValue;
-  const bool wg = pl.route == tma::WGMMA;
-  out[0] = pl.route;
-  out[1] = pl.passes;
-  out[2] = wg ? tma::ROWS : KVT;
-  out[3] = wg ? tma::QROWS : QT;
-  out[4] = pl.stages;
-  out[5] = (int)pl.smem;
-  const int nD = D / CH, nV = Dv / CH;
-  for (int ps = 0; ps < pl.passes; ++ps) {
-    int* o = out + 6 + 4 * ps;
-    if (wg) {
-      const sm90::Cols dc = sm90::col_block(nD, pl.passes, ps);
-      const sm90::Cols vc = sm90::col_block(nV, pl.passes, ps);
-      o[0] = dc.c0;
-      o[1] = dc.nc * CH;
-      o[2] = vc.c0;
-      o[3] = vc.nc * CH;
-    } else {  // varlen_dkdv_kernel's d_lo / ndo and v_lo / nvo
-      const int d_lo = ps * nD / pl.passes, v_lo = ps * nV / pl.passes;
-      o[0] = d_lo * CH;
-      o[1] = ((ps + 1) * nD / pl.passes - d_lo) * CH;
-      o[2] = v_lo * CH;
-      o[3] = ((ps + 1) * nV / pl.passes - v_lo) * CH;
+  const int ranks = pl.route == tma::CLUSTER ? 2 : 1;
+  if (cap < 7 + 4 * ranks * pl.passes + (ranks == 2 ? 8 : 0)) return (int)cudaErrorInvalidValue;
+  int n = 0;
+  out[n++] = pl.route;
+  out[n++] = pl.passes;
+  out[n++] = tma::ROWS;
+  out[n++] = tma::QROWS;
+  out[n++] = pl.stages;
+  out[n++] = (int)pl.smem;
+  out[n++] = ranks;
+  for (int r = 0; r < ranks; ++r) {
+    const tma::Part& pt = pl.part[r];
+    for (int ps = 0; ps < pl.passes; ++ps) {
+      const sm90::Cols dc = sm90::col_block(pt.nd, pl.passes, ps);
+      const sm90::Cols vc = sm90::col_block(pt.nv, pl.passes, ps);
+      out[n++] = pt.d0 * CH + dc.c0;
+      out[n++] = dc.nc * CH;
+      out[n++] = pt.v0 * CH + vc.c0;
+      out[n++] = vc.nc * CH;
     }
+  }
+  for (int r = 0; r < (ranks == 2 ? 2 : 0); ++r) {
+    const tma::Part& pt = pl.part[r];
+    out[n++] = pt.d0 * CH;
+    out[n++] = pt.nd * CH;
+    out[n++] = pt.v0 * CH;
+    out[n++] = pt.nv * CH;
   }
   return 0;
 }
 
 // Registers a thread (at launch, before setmaxnreg moves them between the
-// warpgroups) and local (spill) bytes a thread of a varlen dK/dV kernel:
-// route 1 the wgmma kernel, 0 varlen_dkdv_kernel, in f16 or bf16.
+// warpgroups) and local (spill) bytes a thread of the varlen dK/dV kernel of
+// route 1 (one block) or 2 (the cluster), in f16 or bf16.
 extern "C" int ffpa_varlen_bwd_dkdv_attrs(int route, int is_fp16, int* regs, int* local_bytes) {
   cudaFuncAttributes a;
   cudaError_t e;
-  if (route == tma::WGMMA)
-    e = is_fp16 ? cudaFuncGetAttributes(&a, tma::varlen_dkdv_wgmma_kernel<__half>)
-                : cudaFuncGetAttributes(&a, tma::varlen_dkdv_wgmma_kernel<__nv_bfloat16>);
+  if (route == tma::CLUSTER)
+    e = is_fp16 ? cudaFuncGetAttributes(&a, tma::varlen_dkdv_wgmma_kernel<__half, true>)
+                : cudaFuncGetAttributes(&a, tma::varlen_dkdv_wgmma_kernel<__nv_bfloat16, true>);
+  else if (route == tma::WGMMA)
+    e = is_fp16 ? cudaFuncGetAttributes(&a, tma::varlen_dkdv_wgmma_kernel<__half, false>)
+                : cudaFuncGetAttributes(&a, tma::varlen_dkdv_wgmma_kernel<__nv_bfloat16, false>);
   else
-    e = is_fp16 ? cudaFuncGetAttributes(&a, varlen_dkdv_kernel<__half>)
-                : cudaFuncGetAttributes(&a, varlen_dkdv_kernel<__nv_bfloat16>);
+    return (int)cudaErrorInvalidValue;
   if (e != cudaSuccess) return (int)e;
   *regs = a.numRegs;
   *local_bytes = (int)a.localSizeBytes;

@@ -46,11 +46,10 @@ never refused by the card.
   32, 64, with a staging tile for int8 pools).
 * Packed varlen backward (``csrc/varlen_bwd.cu``). dK/dV has two routes by
   head dims alone (``varlen_dkdv_plan`` mirrors the launcher's
-  ``tma::make_plan``): D and Dv <= 512 take the dense wgmma dK/dV block's
-  tiling below (64 KV rows, 64-row Q tiles, passes of at most 256
-  columns), its segment metadata read from device memory; wider heads the
-  mma.sync dK/dV block (32 KV rows, 128-row Q tiles, 512-column passes)
-  with the tiles' segment ids and ranks in shared memory. dQ has two
+  ``tma::make_plan``), the dense wgmma dK/dV block's tiling below at every
+  width (``dkdv_plan``: 64 KV rows, 64-row Q tiles, passes of at most 256
+  columns; one block at D and Dv <= 512, the cluster of two up to 1024),
+  its segment metadata read from device memory. dQ has two
   routes the same way (``varlen_dq_plan`` mirrors the launcher's
   ``tma::make_dq_plan``): D and Dv <= 512 take the dense wgmma dQ block's
   tiling below (64 Q rows whatever ``block_q_dq`` asks), its segment
@@ -73,10 +72,7 @@ never refused by the card.
     dP^T over its boxes and add the partner's through distributed shared
     memory (one 32 KB slot), then accumulate the pass's share of the
     rank's dK and dV columns; a ring of 3 stages at D = Dv = 1024.
-* Backward (``csrc/flash_bwd.cu``), 16 warps and the chunk ring:
-  - the mma.sync dK/dV block (32 KV rows, 128-row Q tiles, column passes
-    of at most 512: ``dkdv_col_passes``, ``dkdv_smem_bytes``) is the
-    packed varlen dK/dV's wider-head route only (``varlen_dkdv_plan``).
+* Backward (``csrc/flash_bwd.cu``):
   - dQ (recompute), two routes by head dims alone (``dq_plan`` mirrors
     the launcher's ``dq::make_plan``). D and Dv <= 512 take a TMA + wgmma
     block (namespace ``dq``): 384 threads own 64 Q rows with Q and dO
@@ -138,14 +134,14 @@ FWD_ACC_ELEMS = 64 * 512
 FWD_ROW_TILES = (64, 32)
 ROW_TILES = (128, 64, 32, 16)  # decode (wmma fragments are 16 rows)
 PAGED_ROW_TILES = (64, 32, 16)  # paged decode (csrc/paged_decode.cu)
-# Backward tiles of the mma.sync dK/dV kernel (varlen_bwd.cu, D or Dv >
-# 512): owned KV rows and streamed Q rows (the wgmma routes take 64 and 64);
-# DKDV_Q_TILE also pads the dense dS slab's rows. The dQ kernels' row tiles
-# are FWD_ROW_TILES.
+# Backward tiles of the mma.sync from-S kernel with dK in the kernel
+# (flash_bwd.cu): owned KV rows and streamed Q rows (the wgmma routes take
+# 64 and 64); DKDV_Q_TILE also pads the dense dS slab's rows and the varlen
+# metadata's query side. The dQ kernels' row tiles are FWD_ROW_TILES.
 DKDV_KV_TILE = 32
 DKDV_Q_TILE = 128
-# Columns of dK (and of dV) one dK/dV block accumulates: 32 rows x 512
-# columns x 2 accumulators = 64 fp32 registers for each of 512 threads.
+# Columns of dK (and of dV) that block accumulates: 32 rows x 512 columns x
+# 2 accumulators = 64 fp32 registers for each of 512 threads.
 DKDV_MAX_COLS = 512
 # Column padding of the dense dK/dV's dS slab: the KV rows of a wgmma
 # dK/dV block, a multiple of the mma.sync block's DKDV_KV_TILE.
@@ -245,10 +241,9 @@ class BlockConfig:
 
     A forward / decode block owns ``block_q`` rows of Q (query positions
     for the forward, packed GQA rows for decode) and streams
-    ``block_kv``-row K/V tiles. A dK/dV block owns ``DKDV_KV_TILE`` KV rows
-    (64 on the wgmma routes) and ``1 / dkdv_col_passes`` of the dK and dV
-    columns, and streams ``DKDV_Q_TILE``-row Q tiles (64 on wgmma); the
-    packed varlen dK/dV takes its passes from ``varlen_dkdv_plan``.
+    ``block_kv``-row K/V tiles. ``dkdv_col_passes`` is the packed varlen
+    dK/dV's column passes, its plan's (``varlen_dkdv_plan``): a block owns
+    64 KV rows and ``1 / dkdv_col_passes`` of its dK and dV columns.
     ``block_q_dq`` is the packed varlen dQ's row tile on its mma.sync route
     (D or Dv > 512, ``varlen_dq_plan``), streaming ``KV_TILE``-row K/V
     tiles. ``dkdv_dk_in_kernel`` picks the from-S dK/dV variant: dK
@@ -543,25 +538,6 @@ def paged_plan(d: int, dv: int, rows: int, page: int, itemsize: int = 2,
                      paged_smem_bytes(cfg, dv_pad, itemsize, quantized))
 
 
-def dkdv_col_passes(d: int, dv: int) -> int:
-    """Column passes of the mma.sync dK/dV kernel (the packed varlen
-    dK/dV's wider heads): each block accumulates at most DKDV_MAX_COLS
-    columns of dK and of dV."""
-    return max(cdiv(_round_up(d, D_CHUNK), DKDV_MAX_COLS),
-               cdiv(_round_up(dv, D_CHUNK), DKDV_MAX_COLS))
-
-
-def dkdv_smem_bytes(d: int, dv: int, itemsize: int = 2) -> int:
-    """Shared memory of one mma.sync dK/dV block (the packed varlen dK/dV's
-    wider heads, before its segment metadata): resident K [32, D] and V [32, Dv]
-    + the Q / dO chunk ring + P and dS [32, 128] in the input type + the
-    Q tile's lse and delta. The column passes cost no shared memory."""
-    kv = DKDV_KV_TILE * (_round_up(d, D_CHUNK) + _round_up(dv, D_CHUNK) + 2 * _PAD_T)
-    ring = FWD_STREAM_STAGES * DKDV_Q_TILE * (D_CHUNK + _PAD_T)
-    p_ds = 2 * DKDV_KV_TILE * (DKDV_Q_TILE + _PAD_T)
-    return (kv + ring + p_ds) * itemsize + 2 * DKDV_Q_TILE * 4
-
-
 def dq_smem_bytes(block_q: int, d: int, dv: int, itemsize: int = 2) -> int:
     """Shared memory of one mma.sync dQ block (the packed varlen dQ's wider
     heads, before its segment metadata): resident Q [bq, D] and dO
@@ -573,14 +549,6 @@ def dq_smem_bytes(block_q: int, d: int, dv: int, itemsize: int = 2) -> int:
     return (res + ring + ds) * itemsize + 2 * block_q * 4
 
 
-def varlen_dkdv_smem_bytes(d: int, dv: int, itemsize: int = 2) -> int:
-    """Shared memory of one packed varlen dK/dV block of the mma.sync route
-    (``csrc/varlen_bwd.cu`` ``varlen_dkdv_kernel``, D or Dv > 512): the
-    mma.sync dK/dV block's (``dkdv_smem_bytes``), plus the Q tile's segment
-    ids and ranks and the KV tile's segment ids and positions (int32)."""
-    return dkdv_smem_bytes(d, dv, itemsize) + 2 * (DKDV_Q_TILE + DKDV_KV_TILE) * 4
-
-
 def varlen_dq_smem_bytes(block_q: int, d: int, dv: int, itemsize: int = 2) -> int:
     """Shared memory of one packed varlen dQ block of the mma.sync route:
     ``dq_smem_bytes``, plus the row tile's segment ids and ranks (int32)."""
@@ -589,9 +557,9 @@ def varlen_dq_smem_bytes(block_q: int, d: int, dv: int, itemsize: int = 2) -> in
 
 def varlen_bwd_fits(block_q: int, d: int, dv: int, itemsize: int = 2) -> bool:
     """Whether the varlen backward takes (D, Dv) with this dQ row tile: the
-    planned dK/dV block in shared memory (``varlen_dkdv_plan``; its passes
-    split the columns), the fp32 dQ tile (block_q x D) in registers and the
-    dQ block in shared memory."""
+    planned dK/dV block in shared memory (``varlen_dkdv_plan``, which
+    refuses D or Dv above 1024), the fp32 dQ tile (block_q x D) in
+    registers and the dQ block in shared memory."""
     return (
         block_q in FWD_ROW_TILES
         and block_q * _round_up(d, D_CHUNK) <= FWD_ACC_ELEMS
@@ -712,13 +680,14 @@ class DkdvPlan:
     """The route and tiling of one dense dK/dV launch, as
     ``csrc/flash_bwd.cu`` ``dkdv::make_plan`` computes it (the library
     hands its own out through ``flash_bwd.dkdv_kernel_plan``; the card test
-    holds the two equal).
+    holds the two equal), or of one packed varlen dK/dV launch
+    (``varlen_dkdv_plan``: the same tiling).
 
-    ``route`` is "wgmma" (D and Dv <= 512), "wgmma_cluster" (up to 1024)
-    or, for the packed varlen dK/dV's wider heads only, "mma_sync";
-    ``passes`` the column passes, ``d_blocks`` / ``dv_blocks`` the (first
-    column, width) of dK / dV each block of a KV tile owns, pass by pass
-    (rank by rank, then pass by pass, on the cluster; a width may be 0);
+    ``route`` is "wgmma" (D and Dv <= 512) or "wgmma_cluster" (up to
+    1024); ``passes`` the column passes, ``d_blocks`` / ``dv_blocks`` the
+    (first column, width) of dK / dV each block of a KV tile owns, pass by
+    pass (rank by rank, then pass by pass, on the cluster; a width may be
+    0);
     ``kv_rows`` a block's KV rows, ``q_rows`` the streamed Q rows,
     ``stages`` the ring's depth and ``smem_bytes`` the dynamic shared
     memory a block asks for. ``rank_blocks`` holds, for each rank of the
@@ -786,25 +755,14 @@ def dkdv_plan(d: int, dv: int, itemsize: int = 2) -> DkdvPlan:
 
 def varlen_dkdv_plan(d: int, dv: int, itemsize: int = 2) -> DkdvPlan:
     """The packed varlen dK/dV route by head dims alone (padded to
-    64-column chunks), as ``csrc/varlen_bwd.cu`` ``tma::make_plan`` computes
-    it (the library hands its own out through
+    64-column chunks, at most 1024), as ``csrc/varlen_bwd.cu``
+    ``tma::make_plan`` computes it (the library hands its own out through
     ``varlen.varlen_dkdv_kernel_plan``; the card test holds the two equal):
-    D and Dv <= 512 take the wgmma block, whose tiling is the dense
-    ``dkdv_plan``'s (the block reads its segment metadata from device
-    memory, so it costs no shared memory); wider heads the mma.sync block
-    (``dkdv_col_passes``, its floor split, ``varlen_dkdv_smem_bytes``)."""
-    nd, nv = cdiv(d, D_CHUNK), cdiv(dv, D_CHUNK)
-    if max(nd, nv) * D_CHUNK <= _DKDV_WG_MAX_D:
-        return dkdv_plan(d, dv, itemsize)
-    passes = dkdv_col_passes(d, dv)
-
-    def floor_split(n):
-        return tuple((p * n // passes * D_CHUNK, ((p + 1) * n // passes - p * n // passes)
-                      * D_CHUNK) for p in range(passes))
-
-    return DkdvPlan("mma_sync", passes, DKDV_KV_TILE, DKDV_Q_TILE, FWD_STREAM_STAGES,
-                    varlen_dkdv_smem_bytes(nd * D_CHUNK, nv * D_CHUNK, itemsize),
-                    floor_split(nd), floor_split(nv))
+    the dense ``dkdv_plan`` at every width, one wgmma block at D and Dv <=
+    512 and the cluster of two up to 1024 (the block reads its segment
+    metadata and schedule from device memory, so they cost no shared
+    memory)."""
+    return dkdv_plan(d, dv, itemsize)
 
 
 @dataclass(frozen=True)
@@ -935,14 +893,11 @@ __all__ = [
     "DKDV_MAX_HEAD_DIM",
     "DkdvPlan",
     "dkdv_plan",
-    "dkdv_col_passes",
-    "dkdv_smem_bytes",
     "dq_smem_bytes",
     "DQ_MAX_HEAD_DIM",
     "DqPlan",
     "dq_plan",
     "varlen_dkdv_plan",
-    "varlen_dkdv_smem_bytes",
     "varlen_dq_smem_bytes",
     "varlen_dq_plan",
     "varlen_bwd_fits",

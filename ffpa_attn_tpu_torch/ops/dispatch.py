@@ -43,9 +43,10 @@ def pick_varlen_config(*, d: int, dv: int, tq: int, dtype: torch.dtype) -> Block
 
 
 def pick_varlen_backward_config(*, d: int, dv: int, tq: int, dtype: torch.dtype) -> BlockConfig:
-    """Packed varlen backward tiles: the dK/dV column passes of the route
-    ``varlen_dkdv_plan`` picks by head dims (256 columns a pass on wgmma,
-    512 on mma.sync), and the dQ row tile the taller of FWD_ROW_TILES that
+    """Packed varlen backward tiles: the dK/dV column passes of the plan
+    ``varlen_dkdv_plan`` picks by head dims (at most 256 columns a pass of
+    a block's share: all of D and Dv at D, Dv <= 512, a rank's half on the
+    cluster above), and the dQ row tile the taller of FWD_ROW_TILES that
     fits (D, Dv), shrunk to 32 for a packing of at most 32 query rows."""
     itemsize = torch.empty((), dtype=dtype).element_size()
     passes = varlen_dkdv_plan(d, dv, itemsize).passes

@@ -475,6 +475,14 @@ def dkdv_kernel_plan(d: int, dv: int) -> DkdvPlan:
     err = lib.ffpa_bwd_dkdv_plan(cdiv(d, D_CHUNK) * D_CHUNK, cdiv(dv, D_CHUNK) * D_CHUNK, out,
                                  len(out))
     _build.check(lib, err, "dkdv kernel plan")
+    return dkdv_plan_from(out)
+
+
+def dkdv_plan_from(out) -> DkdvPlan:
+    """The DkdvPlan that ``out`` holds in the layout of ``ffpa_bwd_dkdv_plan``
+    (which ``ffpa_varlen_bwd_dkdv_plan`` shares): route code, passes, KV
+    rows, Q rows, stages, shared memory, ranks, each block's dK and dV
+    columns, each rank's share."""
     passes, ranks = out[1], out[6]
     blocks = [tuple(out[7 + 4 * i:11 + 4 * i]) for i in range(ranks * passes)]
     n = 7 + 4 * ranks * passes

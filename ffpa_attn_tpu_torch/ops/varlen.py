@@ -20,13 +20,13 @@ one schedule serves the whole call (``_walk_schedule``: the needed matrix
 at 64 x 64 and its lists, computed once by the forward and saved for the
 backward): the forward and dQ walk each 64-row Q tile's needed KV tiles
 only, the Q tiles most needed first; dK/dV each KV tile's [imin, imax] of
-Q tiles, the needed matrix transposed (``_backward_schedules``). The
-mma.sync routes (wider heads) compute their own intervals at their own
-tiles: the forward each ``block_q``-row Q tile's [jmin, jmax], dK/dV at
-128 x 32 and dQ at ``block_q_dq`` x 64 (``_varlen_bwd_schedules``). The
-kernels read their schedules from device memory. The metadata is computed
-once per call, padded so that every kernel's tiles divide it, and saved
-for the backward.
+Q tiles, the needed matrix transposed (``_backward_schedules``). Wider
+heads compute each kernel's schedule at its own tiles: the mma.sync
+forward each ``block_q``-row Q tile's [jmin, jmax], the dK/dV cluster its
+intervals at 64 x 64 and the mma.sync dQ at ``block_q_dq`` x 64
+(``_varlen_bwd_schedules``). The kernels read their schedules from device
+memory. The metadata is computed once per call, padded so that every
+kernel's tiles divide it, and saved for the backward.
 
 Bound on an H100: bytes, barely. The forward does 4 * Hq * D flop per
 attended (row, col) pair, summed over the segments' bands; at the serving
@@ -46,14 +46,15 @@ interval's tiles.
 The backward is bound by operations: 4 matmul units of 2 * Hq * D flop per
 band pair for dK/dV and 3 for dQ (``utils/profiling.py``
 ``varlen_backward_counts``). Its kernels are the dense backward's blocks
-(``csrc/flash_bwd.cu``) with the segment mask and the schedule: at D, Dv
-<= 512 the TMA + wgmma blocks, dK/dV (64 KV rows, 64-row Q tiles, the
-longest intervals first) and dQ (64 Q rows walking the forward's needed
-tiles, the most needed Q tiles first), each with a fast path for blocks
-inside one segment's band; wider heads the mma.sync blocks over their
-intervals. The dK/dV block reduces the GQA group in fp32 in its
-registers. delta = rowsum(dO * O) is a plain
-reduction, outside any kernel as in JAX.
+(``csrc/flash_bwd.cu``) with the segment mask and the schedule, each with
+a fast path for blocks inside one segment's band: dK/dV the TMA + wgmma
+block (64 KV rows, 64-row Q tiles, the longest intervals first; above
+D512 a cluster of two blocks splitting D and Dv, the partial S^T and dP^T
+exchanged through distributed shared memory); dQ at D, Dv <= 512 the TMA +
+wgmma block (64 Q rows walking the forward's needed tiles, the most needed
+Q tiles first), wider heads the mma.sync block over its intervals. The
+dK/dV block reduces the GQA group in fp32 in its registers. delta =
+rowsum(dO * O) is a plain reduction, outside any kernel as in JAX.
 """
 
 from __future__ import annotations
@@ -70,6 +71,7 @@ from .config import (
     D_CHUNK, DKDV_Q_TILE, FWD_ROW_TILES, KV_TILE, BlockConfig, DkdvPlan, DqPlan, FwdPlan, cdiv,
     varlen_dkdv_plan, varlen_dq_plan, varlen_fits, varlen_fwd_plan,
 )
+from .flash_bwd import dkdv_plan_from
 from .flash_fwd import _pad_last, check_kernel_inputs
 from .reference import DEFAULT_MASK_VALUE
 
@@ -257,10 +259,8 @@ def _needed_tiles(needed):
 def _call_metadata(cu_q, cu_k, tq: int, tk: int, device):
     """A call's ``_segment_metadata`` on ``device``, padded so that every
     varlen kernel's tiles divide it: query tokens to a multiple of
-    DKDV_Q_TILE (128: the mma.sync dK/dV route's Q tile, a multiple of
-    every other row tile), keys to a multiple of KV_TILE (64: the KV tile
-    of the forward, of dQ and of the wgmma dK/dV route, a multiple of the
-    mma.sync route's 32)."""
+    DKDV_Q_TILE (128, a multiple of every row tile), keys to a multiple of
+    KV_TILE (64: the KV tile of every varlen kernel)."""
     return _segment_metadata(cu_q.to(device), cu_k.to(device), tq, tk,
                              cdiv(max(tq, 1), DKDV_Q_TILE) * DKDV_Q_TILE,
                              cdiv(max(tk, 1), KV_TILE) * KV_TILE)
@@ -575,14 +575,14 @@ def _varlen_backward_plain(q, k, v, o, lse, do, meta, *, scale, causal, softcap=
 def _varlen_bwd_schedules(meta, tq: int, block_q_dq: int, causal: bool, window,
                           dkdv_tiles: tuple):
     """((imin, imax, order), (jmin, jmax)) on the metadata's device: each
-    KV tile's interval of Q tiles for the dK/dV kernel at its route's
-    ``dkdv_tiles`` = (Q rows, KV rows) of the plan (``_tile_needed`` at
-    those tiles, transposed) with the KV tiles ordered longest interval
-    first (a stable sort on the device), and each ``block_q_dq``-row Q
-    tile's interval of KV_TILE-row KV tiles for the dQ kernel. Each
-    schedule is computed at its own kernel's tiles: an interval of one
-    geometry read at the other's would drop pairs. ``window`` is
-    normalized."""
+    KV tile's interval of Q tiles for the dK/dV kernel at the plan's
+    ``dkdv_tiles`` = (Q rows, KV rows) (``_tile_needed`` at those tiles
+    over the call's metadata, transposed) with the KV tiles ordered longest
+    interval first (a stable sort on the device), and each
+    ``block_q_dq``-row Q tile's interval of KV_TILE-row KV tiles for the
+    mma.sync dQ kernel. Each schedule is computed at its own kernel's
+    tiles: an interval of one geometry read at the other's would drop
+    pairs. ``window`` is normalized."""
     wl, wr = int(window[0]), int(window[1])
     q_rows, kv_rows = dkdv_tiles
     dkdv = _dkdv_intervals(_tile_needed(*meta, q_rows, kv_rows, causal, wl, wr))
@@ -603,21 +603,24 @@ def _dkdv_intervals(needed):
 def _backward_schedules(meta, tq: int, dkdv_plan: DkdvPlan, dq_plan: DqPlan, block_q_dq: int,
                         causal: bool, window, walk=None):
     """(dK/dV schedule, dQ schedule) of a backward launch, each at its
-    route's tiles, on the metadata's device with no host sync. The two
-    routes agree (both by head dims alone). On wgmma (64 x 64 tiles) both
-    read the forward's ``walk`` (``_call_walk``; computed here when not
-    given): dQ takes its lists (tiles, count, order) as they are, dK/dV the
-    ``_dkdv_intervals`` of its needed matrix. That matrix has ceil(Tq / 64)
-    rows where ``_tile_needed`` over the call's metadata (padded to 128
-    query rows) has one more when ceil(Tq / 64) is odd; that tile holds
-    only rows past Tq, whose segment id -1 matches no key, so its row is
-    all False and the intervals are the same. On mma.sync they are
-    ``_varlen_bwd_schedules``' own: dK/dV at the plan's 128 x 32, dQ each
-    ``block_q_dq``-row Q tile's (jmin, jmax). ``window`` is normalized."""
-    assert dkdv_plan.route == dq_plan.route
+    route's tiles, on the metadata's device with no host sync; route by
+    route (both by head dims alone). At D, Dv <= 512 both routes are wgmma
+    at 64 x 64 tiles and both read the forward's ``walk`` (``_call_walk``;
+    computed here when not given): dQ takes its lists (tiles, count, order)
+    as they are, dK/dV the ``_dkdv_intervals`` of its needed matrix. That
+    matrix has ceil(Tq / 64) rows where ``_tile_needed`` over the call's
+    metadata (padded to 128 query rows) has one more when ceil(Tq / 64) is
+    odd; that tile holds only rows past Tq, whose segment id -1 matches no
+    key, so its row is all False and the intervals are the same. Above
+    D512 the forward saves no walk (its route is mma.sync) and the two
+    routes part: ``_varlen_bwd_schedules`` gives dK/dV (the cluster) its
+    intervals at the plan's 64 x 64 over the call's metadata and dQ
+    (mma.sync) each ``block_q_dq``-row Q tile's (jmin, jmax). ``window``
+    is normalized."""
     if dq_plan.route != "wgmma":
         return _varlen_bwd_schedules(meta, tq, block_q_dq, causal, window,
                                      (dkdv_plan.q_rows, dkdv_plan.kv_rows))
+    assert dkdv_plan.route == "wgmma"
     assert (dkdv_plan.q_rows, dkdv_plan.kv_rows) == (dq_plan.q_rows, KV_TILE)
     if walk is None:
         walk = _walk_schedule(meta, tq, dq_plan.q_rows, causal, window)
@@ -637,9 +640,9 @@ _VARLEN_BWD_ARGTYPES = {
 }
 
 
-# The dK/dV and the dQ kernels of both routes, by the substrings of their
-# names (what a profiler filter matches).
-DKDV_KERNELS = ("varlen_dkdv_kernel", "varlen_dkdv_wgmma_kernel")
+# The dK/dV kernel (both routes) and the dQ kernels of both routes, by the
+# substrings of their names (what a profiler filter matches).
+DKDV_KERNELS = ("varlen_dkdv_wgmma_kernel<",)
 DQ_KERNELS = ("varlen_dq_kernel", "varlen_dq_wgmma_kernel")
 
 
@@ -662,20 +665,18 @@ def varlen_dkdv_kernel_plan(d: int, dv: int) -> DkdvPlan:
     err = lib.ffpa_varlen_bwd_dkdv_plan(cdiv(d, D_CHUNK) * D_CHUNK, cdiv(dv, D_CHUNK) * D_CHUNK,
                                         out, len(out))
     _build.check(lib, err, "varlen dkdv kernel plan")
-    passes = out[1]
-    blocks = [tuple(out[6 + 4 * i:10 + 4 * i]) for i in range(passes)]
-    return DkdvPlan("wgmma" if out[0] == 1 else "mma_sync", passes, out[2], out[3], out[4],
-                    out[5], tuple(bl[:2] for bl in blocks), tuple(bl[2:] for bl in blocks))
+    return dkdv_plan_from(out)
 
 
 def varlen_dkdv_kernel_attrs(route: str, dtype=torch.bfloat16) -> dict:
     """Registers a thread (at launch, before setmaxnreg) and local (spill)
     bytes of the varlen dK/dV kernel of ``route`` ("wgmma" or
-    "mma_sync"), from cudaFuncGetAttributes. Needs a card."""
+    "wgmma_cluster"), from cudaFuncGetAttributes. Needs a card."""
     lib = _varlen_bwd_lib()
     regs, local = ctypes.c_int(0), ctypes.c_int(0)
-    err = lib.ffpa_varlen_bwd_dkdv_attrs(int(route == "wgmma"), int(dtype == torch.float16),
-                                         ctypes.byref(regs), ctypes.byref(local))
+    code = {"wgmma": 1, "wgmma_cluster": 2}[route]
+    err = lib.ffpa_varlen_bwd_dkdv_attrs(code, int(dtype == torch.float16), ctypes.byref(regs),
+                                         ctypes.byref(local))
     _build.check(lib, err, "varlen dkdv kernel attributes")
     return {"registers": regs.value, "local_bytes": local.value}
 
@@ -733,8 +734,9 @@ def _varlen_dkdv_kernel(ops: _BwdOperands, meta, schedule, config: BlockConfig, 
                         causal, softcap, window):
     """Launch the dK/dV kernel of ``csrc/varlen_bwd.cu``: (dk, dv) packed
     in the input type (same contract as ``_varlen_dkdv_plain``). The
-    route is the library's by head dims (``config.varlen_dkdv_plan``);
-    ``schedule`` is ``_varlen_bwd_schedules``' dK/dV part at its tiles and
+    route is the library's by head dims (``config.varlen_dkdv_plan``: one
+    block, or the cluster of two above D512); ``schedule`` is
+    ``_backward_schedules``' dK/dV part at its 64 x 64 tiles and
     ``config.dkdv_col_passes`` its passes."""
     tq, hq = ops.q.shape[0], ops.q.shape[1]
     tk, hkv = ops.k.shape[0], ops.k.shape[1]
@@ -746,8 +748,8 @@ def _varlen_dkdv_kernel(ops: _BwdOperands, meta, schedule, config: BlockConfig, 
     if ENV.device_log_level() >= 2:
         plan = varlen_dkdv_plan(ops.d_pad, ops.dv_pad, ops.q.element_size())
         logger.info("varlen_dkdv launch route=%s grid=(%d,%d) smem=%d D=%d Dv=%d Tq=%d Tk=%d",
-                    plan.route, hkv * passes, imin.shape[0], plan.smem_bytes, ops.d_pad,
-                    ops.dv_pad, tq, tk)
+                    plan.route, len(plan.d_blocks) * hkv, imin.shape[0], plan.smem_bytes,
+                    ops.d_pad, ops.dv_pad, tq, tk)
     lib = _varlen_bwd_lib()
     with torch.cuda.device(ops.q.device):
         err = lib.ffpa_varlen_bwd_dkdv(

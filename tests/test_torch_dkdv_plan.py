@@ -6,8 +6,8 @@ D and Dv up to 512 take the TMA + wgmma block: column passes of at most
 256 columns of dK and of dV in whole 64-column boxes, in the card's shared
 memory; wider heads, up to 1024, a cluster of two such blocks whose ranks
 each hold half of D's and half of Dv's boxes (rank 0 the larger half), the
-same passes over a rank's half. The packed varlen dK/dV keeps its mma.sync
-plan for wider heads. On a card the mirror is held equal to the plan the
+same passes over a rank's half. The packed varlen dK/dV takes the same
+plan at every width. On a card the mirror is held equal to the plan the
 library launches with. On the CPU the slab, padded to
 DKDV_Q_TILE rows and DKDV_SLAB_COLS columns, trims to the JAX package's
 slab, whole and cut into KV stripes; its padding holds zeros.
@@ -134,12 +134,15 @@ def test_cluster_plan_at_d1024_is_three_stages_in_one_slot():
 
 @pytest.mark.parametrize("d,dv", [(1024, 1024), (640, 640), (576, 576), (1024, 320)])
 def test_varlen_dkdv_plan_keeps_its_mma_sync_plan_above_d512(d, dv):
-    """The packed varlen dK/dV's wider heads stay on its own mma.sync block:
-    32 KV rows, 128-row Q tiles, passes of at most 512 columns."""
+    """The packed varlen dK/dV's wider heads (once an mma.sync block of its
+    own) take this cluster's plan: 64 KV rows, 64-row Q tiles, each rank's
+    half of the head dims in passes of at most 256 columns."""
     plan = varlen_dkdv_plan(d, dv)
-    assert plan.route == "mma_sync" and plan.rank_blocks == ()
-    assert (plan.kv_rows, plan.q_rows) == (32, DKDV_Q_TILE)
-    assert plan.passes == max(cdiv(d, 512), cdiv(dv, 512))
+    assert plan == dkdv_plan(d, dv)
+    assert plan.route == "wgmma_cluster" and len(plan.rank_blocks) == 2
+    assert (plan.kv_rows, plan.q_rows) == (64, 64) and plan.q_rows < DKDV_Q_TILE
+    assert plan.passes == cdiv(max(plan.rank_blocks[0][0][1], plan.rank_blocks[0][1][1]),
+                               PASS_MAX_COLS)
     assert _tiles(plan.d_blocks, cdiv(d, D_CHUNK) * D_CHUNK)
     assert _tiles(plan.dv_blocks, cdiv(dv, D_CHUNK) * D_CHUNK)
     assert varlen_dkdv_plan(512, 512) == dkdv_plan(512, 512)

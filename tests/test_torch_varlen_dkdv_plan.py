@@ -3,10 +3,12 @@
 ``tma::make_plan``), the dispatch that takes its passes, the schedule at
 its tiles and the wgmma consumer's full-block test.
 
-D and Dv up to 512 take the TMA + wgmma block: 64 KV rows, 64-row Q tiles,
-column passes of at most 256 columns of dK and of dV in whole 64-column
-boxes, in the card's shared memory; wider heads take the mma.sync block
-(32 KV rows, 128-row Q tiles, passes of 512 columns). A consumer block of
+The plan is the dense ``dkdv_plan`` at every width: D and Dv up to 512 take
+the TMA + wgmma block (64 KV rows, 64-row Q tiles, column passes of at
+most 256 columns of dK and of dV in whole 64-column boxes, in the card's
+shared memory); wider heads, up to 1024, a cluster of two such blocks whose
+ranks each hold half of D's and of Dv's boxes (rank 0 the larger half), the
+same passes over a rank's half. A consumer block of
 64 KV rows x 32 Q columns that ``varlen._dkdv_full_blocks`` marks full
 skips the keep-mask on the card, so every pair in it must be kept
 (``varlen._varlen_mask``). On a card the mirror is held equal to the plan
@@ -26,7 +28,7 @@ from ffpa_attn_tpu_torch.ops.config import (
     D_CHUNK,
     SMEM_LIMIT_BYTES,
     cdiv,
-    dkdv_col_passes,
+    dkdv_plan,
     varlen_dkdv_plan,
 )
 from ffpa_attn_tpu_torch.ops.dispatch import pick_varlen_backward_config
@@ -56,21 +58,64 @@ def test_varlen_dkdv_plan_routes_by_head_dims(d, dv):
     plan = varlen_dkdv_plan(d, dv)
     d_pad, dv_pad = cdiv(d, D_CHUNK) * D_CHUNK, cdiv(dv, D_CHUNK) * D_CHUNK
     wide = max(d_pad, dv_pad) > WGMMA_MAX_D
-    assert plan.route == ("mma_sync" if wide else "wgmma")
-    assert len(plan.d_blocks) == len(plan.dv_blocks) == plan.passes
+    assert plan.route == ("wgmma_cluster" if wide else "wgmma")
+    ranks = 2 if wide else 1
+    assert len(plan.d_blocks) == len(plan.dv_blocks) == ranks * plan.passes
     assert _tiles(plan.d_blocks, d_pad) and _tiles(plan.dv_blocks, dv_pad)
     assert plan.smem_bytes <= SMEM_LIMIT_BYTES
-    if plan.route == "wgmma":
-        assert (plan.kv_rows, plan.q_rows) == (64, 64) and plan.stages >= 3
-        assert plan.passes == (1 if max(d_pad, dv_pad) <= PASS_MAX_COLS else 2)
+    assert (plan.kv_rows, plan.q_rows) == (64, 64) and plan.stages >= 3
+    # A block's passes: its boxes (a rank's half on the cluster) in passes
+    # of at most 256 columns.
+    widest = (max(plan.rank_blocks[0][0][1], plan.rank_blocks[0][1][1]) if wide
+              else max(d_pad, dv_pad))
+    assert plan.passes == cdiv(widest, PASS_MAX_COLS)
+    for r in range(ranks):
         for blocks in (plan.d_blocks, plan.dv_blocks):
-            widths = [w for _, w in blocks]
+            widths = [w for _, w in blocks[r * plan.passes:(r + 1) * plan.passes]]
             assert max(widths) <= PASS_MAX_COLS
             assert max(widths) - min(widths) <= D_CHUNK  # as even as boxes allow
-    else:
-        assert (plan.kv_rows, plan.q_rows) == (32, 128)
-        assert plan.passes == dkdv_col_passes(d, dv)
     assert varlen_dkdv_plan(d_pad, dv_pad) == plan
+
+
+@pytest.mark.parametrize("d,dv", HEAD_DIMS)
+def test_varlen_dkdv_plan_is_the_dense_plan(d, dv):
+    """The packed dK/dV block is the dense block's tiling at every width:
+    its segment metadata and schedule live in device memory and cost no
+    shared memory."""
+    assert varlen_dkdv_plan(d, dv) == dkdv_plan(d, dv)
+    assert varlen_dkdv_plan(d, dv, 2) == dkdv_plan(d, dv, 2)
+
+
+def test_varlen_dkdv_cluster_at_d1024_holds_three_stages():
+    """A rank's K and V halves (16 boxes), the P and dS boxes, one 32 KB
+    exchange slot and 3 stages of 16,400 B, within the card's 232,448 B."""
+    plan = varlen_dkdv_plan(1024, 1024)
+    assert plan.route == "wgmma_cluster" and plan.passes == 2 and plan.stages == 3
+    assert plan.smem_bytes == 181_288 + 3 * 16_400 <= SMEM_LIMIT_BYTES
+    assert plan.rank_blocks == (((0, 512), (0, 512)), ((512, 512), (512, 512)))
+    assert plan.d_blocks == plan.dv_blocks == ((0, 256), (256, 256), (512, 256), (768, 256))
+
+
+@pytest.mark.parametrize("d,dv", [hd for hd in HEAD_DIMS if max(hd) > WGMMA_MAX_D]
+                         + [(64, 1024), (1024, 64)])
+def test_varlen_dkdv_cluster_ranks_take_their_halves(d, dv):
+    """Each rank holds its half of D's and of Dv's boxes, rank 0 the larger
+    (a 64 / 1024 pair leaves rank 1 without a box of the narrow dim); the
+    two halves tile the head dims in order, and each rank's passes tile its
+    own half."""
+    plan = varlen_dkdv_plan(d, dv)
+    d_pad, dv_pad = cdiv(d, D_CHUNK) * D_CHUNK, cdiv(dv, D_CHUNK) * D_CHUNK
+    assert plan.route == "wgmma_cluster"
+    (d0, v0), (d1, v1) = plan.rank_blocks
+    assert _tiles((d0, d1), d_pad) and _tiles((v0, v1), dv_pad)
+    for first, second in ((d0, d1), (v0, v1)):
+        assert 0 <= first[1] - second[1] <= D_CHUNK
+    if min(d, dv) == 64:
+        assert min(d1[1], v1[1]) == 0
+    for r, (dr, vr) in enumerate(plan.rank_blocks):
+        own = slice(r * plan.passes, (r + 1) * plan.passes)
+        for (c0, width), blocks in ((dr, plan.d_blocks[own]), (vr, plan.dv_blocks[own])):
+            assert blocks[0][0] == c0 and sum(w for _, w in blocks) == width
 
 
 def test_varlen_dkdv_plan_d448_takes_passes_of_256_and_192():
@@ -146,11 +191,26 @@ def test_varlen_dkdv_plan_matches_library_on_card(cuda, d, dv):  # noqa: F811
     assert tvar.varlen_dkdv_kernel_plan(d, dv) == varlen_dkdv_plan(d, dv)
 
 
+@pytest.mark.parametrize("route", ["wgmma", "wgmma_cluster"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_varlen_dkdv_kernel_spills_nothing_on_card(cuda, route, dtype):  # noqa: F811
+    attrs = tvar.varlen_dkdv_kernel_attrs(route, dtype)
+    assert attrs["local_bytes"] == 0 and attrs["registers"] > 0
+
+
 CARD_CASES = {
     "d512_dv320": dict(seqs=[300, 17, 500], d=512, dv=320),
     "d320_dv512": dict(seqs=[300, 17, 500], d=320, dv=512),
     "fp16": dict(seqs=[300, 17, 500], d=512, dv=512, dtype=torch.float16),
     "tile_straddles_3_segs": dict(seqs=[20, 9, 50, 3, 300], d=512, dv=512),
+    # The cluster of two blocks above D512: an odd box count (rank 0 five
+    # of D576's nine boxes), a rank without a box of the narrow dim, fp16.
+    "d576_cluster": dict(seqs=[300, 17, 500], d=576, dv=576),
+    "d1024_cluster": dict(seqs=[300, 17, 500], d=1024, dv=1024),
+    "d1024_cluster_fp16": dict(seqs=[300, 17, 500], d=1024, dv=1024, dtype=torch.float16),
+    "d64_dv1024": dict(seqs=[300, 17, 500], d=64, dv=1024),
+    "d1024_dv64": dict(seqs=[300, 17, 500], d=1024, dv=64),
+    "d1024_straddles_3_segs": dict(seqs=[20, 9, 50, 3, 300], d=1024, dv=1024),
 }
 
 

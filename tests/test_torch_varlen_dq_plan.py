@@ -68,8 +68,12 @@ def test_varlen_dq_plan_d512_holds_five_stages_and_routes_with_dkdv():
     plan = varlen_dq_plan(512, 512)
     assert plan.stages == 5
     assert plan.smem_bytes == 17 * 8192 + 1024 + 8 + 5 * (2 * 8192 + 16)
-    for d, dv in HEAD_DIMS:  # the backward's routes agree, so they share one schedule
-        assert varlen_dq_plan(d, dv).route == varlen_dkdv_plan(d, dv).route
+    for d, dv in HEAD_DIMS:
+        # D, Dv <= 512: both wgmma, one schedule (the forward's walk); above,
+        # dK/dV is the cluster and dQ the mma.sync block, each at its tiles.
+        wide = max(cdiv(d, D_CHUNK), cdiv(dv, D_CHUNK)) * D_CHUNK > WGMMA_MAX_D
+        assert (varlen_dkdv_plan(d, dv).route, varlen_dq_plan(d, dv).route) == (
+            ("wgmma_cluster", "mma_sync") if wide else ("wgmma", "wgmma"))
 
 
 def _meta(seqs, tq=None):

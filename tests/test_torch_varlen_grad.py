@@ -4,7 +4,8 @@
 ``jax.vjp`` of the JAX one, the same numpy inputs and cotangent rounded to
 bf16 (or fp16) once. On the CPU the port runs the kernels' plain versions,
 JAX its Pallas kernels in interpret mode (T <= 256: one grid tile of its
-256-row blocks). The cases are the forward's (``tests/test_torch_varlen.py``).
+256-row blocks). The cases are the forward's (``tests/test_torch_varlen.py``),
+and above D512 (``WIDE_CASES``) the head dims of the dK/dV cluster route.
 
 Tolerances: bf16 gradients 5e-2 relative to max|g| (tests/test_ffpa_varlen.py:19,
 tests/test_ffpa_bwd.py:19), the sink gradient 5e-2, the ALiBi gradient
@@ -133,30 +134,87 @@ def test_varlen_fp16_grads_vs_oracle_and_jax(jv):
         assert rel_err(g, j) < GRAD_TOL["bfloat16"], n
 
 
+# Above D512 (the dK/dV cluster route; dQ on its mma.sync block): T <= 256
+# as for CASES, bf16 against JAX and fp16 against the fp32 oracle.
+WIDE_CASES = {
+    "d640_gqa_causal": dict(seqs=[40, 72, 16], hq=4, hkv=2, causal=True, d=640),
+    "d1024_causal": dict(seqs=[40, 72, 16], causal=True, d=1024),
+    "d1024_window_sinks": dict(seqs=[40, 72, 16], causal=True, window=(16, -1), sinks=True,
+                               d=1024),
+    "d576_softcap_two_sided": dict(seqs=[40, 72, 16], window=(8, 8), softcap=5.0, d=576),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WIDE_CASES))
+def test_varlen_grads_above_d512_match_jax(jv, name):
+    """``torch.autograd.grad`` through the port against ``jax.vjp`` of the
+    JAX package at head dims above 512, bf16 at 5e-2; no launch on the CPU."""
+    case = WIDE_CASES[name]
+    x = _inputs(case, seed=11)
+    do = _cotangent(x, seed=12)
+    want = _jax_grads(jv, x, case, do, "bfloat16")
+    counts = (tvar._varlen_backward.dkdv_launches, tvar._varlen_backward.dq_launches)
+    got = _torch_grads(x, case, do, "bfloat16")
+    assert (tvar._varlen_backward.dkdv_launches, tvar._varlen_backward.dq_launches) == counts
+    for g, w, src, n in zip(got, want, ("q", "k", "v"), ("dq", "dk", "dv")):
+        assert g.dtype == torch.bfloat16 and tuple(g.shape) == x[src].shape, n
+        assert rel_err(g, w) < GRAD_TOL["bfloat16"], (name, n)
+    if x["sinks"] is not None:
+        assert rel_err(got[3], want[3]) < SINK_TOL, name
+
+
+def test_varlen_fp16_grads_above_d512_vs_oracle_and_jax(jv):
+    """fp16 at D1024 (GQA, causal): the port natively in fp16 within 1e-2 of
+    the fp32 per-segment oracle, and within 5e-2 of JAX (which computes fp16
+    in bf16)."""
+    case = dict(seqs=[40, 72, 16], hq=4, hkv=2, causal=True, d=1024)
+    x = _inputs(case, seed=13)
+    do = _cotangent(x, seed=14)
+    want = _oracle_grads(x, case, do, "float16")
+    jg = _jax_grads(jv, x, case, do, "float16")
+    got = _torch_grads(x, case, do, "float16")
+    for g, w, j, n in zip(got, want, jg, ("dq", "dk", "dv")):
+        assert g.dtype == torch.float16, n
+        assert rel_err(g, w) < GRAD_TOL["float16"], n
+        assert rel_err(g, j) < GRAD_TOL["bfloat16"], n
+
+
+def _listed(tiles, count, nkb):
+    """[Q tiles, KV tiles] bool: the KV tiles each Q tile's list holds."""
+    out = torch.zeros((tiles.shape[0], nkb), dtype=torch.bool)
+    for i in range(tiles.shape[0]):
+        out[i, tiles[i, :int(count[i])].long()] = True
+    return out
+
+
 @pytest.mark.parametrize("causal,window", [
     (False, (-1, -1)), (True, (-1, -1)), (True, (24, -1)), (False, (16, 8)),
 ])
 @pytest.mark.parametrize("cu_k_shift", [0, 40])
 @pytest.mark.parametrize("bq", [64, 32])
-@pytest.mark.parametrize("dkdv_tiles", [(64, 64), (128, 32)], ids=["wgmma", "mma_sync"])
-def test_backward_schedules_cover_every_visible_pair(causal, window, cu_k_shift, bq, dkdv_tiles):
+@pytest.mark.parametrize("d", [512, 1024], ids=["wgmma", "mma_sync"])
+def test_backward_schedules_cover_every_visible_pair(causal, window, cu_k_shift, bq, d):
     """Every (query, key) pair the keep-mask attends lies inside its KV
-    tile's [imin, imax] at the dK/dV route's tiles (64 x 64 on wgmma, 128 x
-    32 on mma.sync) and inside its Q tile's [jmin, jmax] at the dQ kernel's
-    bq x 64 tiles; the dK/dV order lists every KV tile once, longest
-    interval first; a padded tail (the pseudo-segment), a length-0 segment
-    and tail-aligned cross keys."""
+    tile's [imin, imax] of the dK/dV schedule at the plan's 64 x 64 tiles
+    (both dK/dV routes: one block at D512, the cluster at D1024) and inside
+    the dQ schedule of the route the id names: at D512 (wgmma) its 64-row Q
+    tile's list of needed KV tiles, at D1024 (mma.sync) its bq-row Q tile's
+    [jmin, jmax] of 64-row KV tiles, computed with no saved walk; the dK/dV
+    order lists every KV tile once, longest interval first; a padded tail
+    (the pseudo-segment), a length-0 segment and tail-aligned cross keys."""
     cu_q = np.asarray([0, 70, 70, 200, 201, 300], np.int32)
     cu_k = cu_q.copy()
     cu_k[-1] += cu_k_shift
     tq, tk = 330, 330 + cu_k_shift
     wnorm = (window[0], -1 if causal else window[1])
-    q_rows, kv_rows = dkdv_tiles
+    dkdv_plan, dq_plan = varlen_dkdv_plan(d, d), varlen_dq_plan(d, d)
+    q_rows, kv_rows = dkdv_plan.q_rows, dkdv_plan.kv_rows
+    assert (q_rows, kv_rows) == (64, 64)
     meta = tvar._call_metadata(torch.from_numpy(cu_q), torch.from_numpy(cu_k), tq, tk, "cpu")
-    (imin, imax, order), (jmin, jmax) = tvar._varlen_bwd_schedules(meta, tq, bq, causal, wnorm,
-                                                                   dkdv_tiles)
+    (imin, imax, order), dq = tvar._backward_schedules(meta, tq, dkdv_plan, dq_plan, bq, causal,
+                                                       wnorm)
     q_seg, q_rank, k_seg, k_pos = meta
-    assert imin.shape[0] == k_seg.shape[0] // kv_rows and jmin.shape[0] == -(-tq // bq)
+    assert imin.shape[0] == k_seg.shape[0] // kv_rows
     assert sorted(order.tolist()) == list(range(imin.shape[0]))
     lengths = (imax - imin)[order.long()]
     assert bool((lengths[:-1] >= lengths[1:]).all())
@@ -164,11 +222,19 @@ def test_backward_schedules_cover_every_visible_pair(causal, window, cu_k_shift,
                              causal, *wnorm)
     rows, cols = (t.numpy() for t in torch.nonzero(keep, as_tuple=True))
     assert rows.size > 0 and rows.max() < tq and cols.max() < tk
-    imin, imax, jmin, jmax = (t.numpy() for t in (imin, imax, jmin, jmax))
+    imin, imax = imin.numpy(), imax.numpy()
     i, j = rows // q_rows, cols // kv_rows
     assert ((imin[j] <= i) & (i <= imax[j])).all()
-    i, j = rows // bq, cols // 64
-    assert ((jmin[i] <= j) & (j <= jmax[i])).all()
+    if dq_plan.route == "mma_sync":
+        assert dkdv_plan.route == "wgmma_cluster"
+        jmin, jmax = (t.numpy() for t in dq)
+        assert jmin.shape[0] == -(-tq // bq)
+        i, j = rows // bq, cols // 64
+        assert ((jmin[i] <= j) & (j <= jmax[i])).all()
+    else:
+        tiles, count, _ = dq
+        listed = _listed(tiles, count, k_seg.shape[0] // 64).numpy()
+        assert listed[rows // 64, cols // 64].all()
 
 
 def _saved_walk(x, case):
@@ -189,13 +255,15 @@ def _saved_walk(x, case):
 def test_saved_schedules_equal_fresh(causal, window, cu_k_shift, route):
     """The schedule the forward saves (64 x 64 needed tiles) gives the
     backward the same schedules ``_varlen_bwd_schedules`` computes afresh:
-    on the wgmma routes dK/dV's intervals, order included, equal those at 64
-    x 64 over the call's metadata (padded to 128 query rows: the extra Q
-    tile holds only rows past Tq and is never needed), and dQ walks each
-    64-row Q tile's needed tiles, every one inside its [jmin, jmax]; the
-    mma.sync routes (D1024) ignore it and compute their own at 128 x 32 and
-    ``block_q_dq`` x 64. A padded tail, a length-0 segment, tail-aligned
-    cross keys."""
+    on the wgmma routes (D, Dv <= 512) dK/dV's intervals, order included,
+    equal those at 64 x 64 over the call's metadata (padded to 128 query
+    rows: the extra Q tile holds only rows past Tq and is never needed),
+    and dQ walks each 64-row Q tile's needed tiles, every one inside its
+    [jmin, jmax]. At D1024 (``route`` names the dQ route, mma.sync; dK/dV
+    is the cluster) the forward saves no walk, and the backward computes
+    the cluster's intervals at 64 x 64, the same as the saved walk's, and
+    dQ's at ``block_q_dq`` x 64. A padded tail, a length-0 segment,
+    tail-aligned cross keys."""
     cu_q = np.asarray([0, 70, 70, 200, 201, 300], np.int32)
     cu_k = cu_q.copy()
     cu_k[-1] += cu_k_shift
@@ -212,14 +280,18 @@ def test_saved_schedules_equal_fresh(causal, window, cu_k_shift, route):
     assert all(torch.equal(a, b) for a, b in zip(walk, fresh))
     d = 64 if route == "wgmma" else 1024
     dkdv_plan, dq_plan = varlen_dkdv_plan(d, d), varlen_dq_plan(d, d)
-    assert dkdv_plan.route == dq_plan.route == route
+    assert dq_plan.route == route
+    assert dkdv_plan.route == ("wgmma" if route == "wgmma" else "wgmma_cluster")
     bq = 32 if route == "mma_sync" else 64
+    saved = walk if route == "wgmma" else tvar._call_walk(meta, tq, d, d, causal, wnorm)
+    assert (saved is None) == (route == "mma_sync")
     (imin, imax, order), dq = tvar._backward_schedules(meta, tq, dkdv_plan, dq_plan, bq, causal,
-                                                       wnorm, walk)
+                                                       wnorm, saved)
     want_dkdv, (jmin, jmax) = tvar._varlen_bwd_schedules(
         meta, tq, bq, causal, wnorm, (dkdv_plan.q_rows, dkdv_plan.kv_rows))
-    for got, want in zip((imin, imax, order), want_dkdv):
-        assert torch.equal(got, want)
+    for got, want, from_walk in zip((imin, imax, order), want_dkdv,
+                                    tvar._dkdv_intervals(walk[0])):
+        assert torch.equal(got, want) and torch.equal(got, from_walk)
     if route == "mma_sync":
         assert torch.equal(dq[0], jmin) and torch.equal(dq[1], jmax)
         return
@@ -321,6 +393,134 @@ def test_dq_walk_matches_plain(name):
             (want[64 * i:64 * i + 64] == 0).all()), name
     if name == "cross_causal_empty_rows":
         assert int(count[0]) == 0
+
+
+def _dkdv_walk(q, k, v, do, lse, delta, meta, schedule, plan, *, scale, causal, softcap=0.0,
+               window=(-1, -1), alibi=None):
+    """The wgmma dK/dV kernel's walk in plain fp32 PyTorch, one block or
+    the cluster of two as ``plan`` says: the KV tiles in the schedule's
+    order, each walking the 64-row Q tiles of its [imin, imax] for every
+    member of its GQA group. On the cluster rank r computes partial S^T and
+    dP^T over its own D and Dv columns (``plan.rank_blocks``) and each rank
+    adds the partner's partial to its own: the same two fp32 values, so the
+    same sum in both ranks. A 64 x 32 block that ``_dkdv_full_blocks``
+    marks full skips the keep-mask, any other selects P to 0 where the mask
+    drops the pair; P and dS (softcap's factor included) are rounded to the
+    input type; each block of a KV tile (rank by rank, pass by pass:
+    ``plan.d_blocks`` / ``plan.dv_blocks``) accumulates its own dK and dV
+    columns over the group in fp32 and stores them once, rows past Tk not.
+    ``window`` is normalized. (dk, dv) as ``_varlen_dkdv_plain`` returns
+    them."""
+    imin, imax, order = schedule
+    tq, hq, d = q.shape
+    tk, hkv, dv = v.shape
+    group = hq // hkv
+    q_seg, q_rank, k_seg, k_pos = meta
+    nq_pad, nkb = q_seg.shape[0], imin.shape[0]
+
+    def rows_of(t, n):  # [T, H, W] -> [H, n, W] fp32, zero rows past T
+        out = torch.zeros((t.shape[1], n, t.shape[2]))
+        out[:, :t.shape[0]] = t.transpose(0, 1).float()
+        return out
+
+    qf, dof = rows_of(q, nq_pad), rows_of(do, nq_pad)
+    kf, vf = rows_of(k, nkb * 64), rows_of(v, nkb * 64)
+    lsef, deltaf = torch.zeros((hq, nq_pad)), torch.zeros((hq, nq_pad))
+    lsef[:, :tq], deltaf[:, :tq] = lse, delta
+    full = tvar._dkdv_full_blocks(meta, causal, window, softcap=softcap,
+                                  alibi=alibi is not None)  # [KV tiles, 32-column Q blocks]
+    ranks = plan.rank_blocks or (((0, d), (0, dv)),)
+    dk = torch.full((hkv, nkb * 64, d), float("nan"))
+    dvo = torch.full((hkv, nkb * 64, dv), float("nan"))
+    for j in order.tolist():
+        c = slice(64 * j, 64 * j + 64)
+        for kvh in range(hkv):
+            acc_k, acc_v = torch.zeros((64, d)), torch.zeros((64, dv))
+            for h in range(kvh * group, (kvh + 1) * group):
+                for i in range(int(imin[j]), int(imax[j]) + 1):
+                    r = slice(64 * i, 64 * i + 64)
+                    parts = [(torch.einsum("kd,qd->kq", kf[kvh, c, d0:d0 + nd],
+                                           qf[h, r, d0:d0 + nd]),
+                              torch.einsum("kd,qd->kq", vf[kvh, c, v0:v0 + nv],
+                                           dof[h, r, v0:v0 + nv]))
+                             for (d0, nd), (v0, nv) in ranks]
+                    if len(parts) == 2:  # own + partner, in either rank
+                        (s0, p0), (s1, p1) = parts
+                        assert torch.equal(s0 + s1, s1 + s0) and torch.equal(p0 + p1, p1 + p0)
+                        st, dpt = s0 + s1, p0 + p1
+                    else:
+                        st, dpt = parts[0]
+                    st = st * scale
+                    cap = 1.0
+                    if softcap > 0.0:
+                        st = softcap * torch.tanh(st / softcap)
+                        cap = 1.0 - torch.square(st / softcap)
+                    if alibi is not None:
+                        dist = (q_rank[None, r] - k_pos[c, None]).abs().float()
+                        st = st - alibi[h].float() * dist
+                    keep = tvar._varlen_mask(q_seg[None, r], q_rank[None, r], k_seg[c, None],
+                                             k_pos[c, None], causal, window[0], window[1])
+                    keep = keep | full[j, 2 * i:2 * i + 2].repeat_interleave(32)[None, :]
+                    pt = torch.where(keep, torch.exp(st - lsef[h, None, r]), 0.0)
+                    dst = pt * (dpt - deltaf[h, None, r]) * cap
+                    acc_k += torch.einsum("kq,qd->kd", dst.to(q.dtype).float(), qf[h, r])
+                    acc_v += torch.einsum("kq,qd->kd", pt.to(q.dtype).float(), dof[h, r])
+            # Each block stores its own columns once.
+            for (c0, w), (v0, wv) in zip(plan.d_blocks, plan.dv_blocks):
+                assert bool(dk[kvh, c, c0:c0 + w].isnan().all())
+                assert bool(dvo[kvh, c, v0:v0 + wv].isnan().all())
+                dk[kvh, c, c0:c0 + w] = acc_k[:, c0:c0 + w] * scale
+                dvo[kvh, c, v0:v0 + wv] = acc_v[:, v0:v0 + wv]
+    assert sorted(order.tolist()) == list(range(nkb))
+    assert not bool(dk.isnan().any()) and not bool(dvo.isnan().any())
+    return (dk[:, :tk].transpose(0, 1).to(k.dtype), dvo[:, :tk].transpose(0, 1).to(v.dtype))
+
+
+# The cluster's head dims: D = Dv, D != Dv, a rank without a box of the
+# narrow dim; the features that take the element-by-element path.
+DKDV_WALK_CASES = {
+    "d640": dict(d=640, dv=640, causal=True),
+    "d1024_gqa4": dict(d=1024, dv=1024, causal=True, hq=8, hkv=2),
+    "d1024_dv320_softcap": dict(d=1024, dv=320, causal=True, softcap=5.0),
+    "d64_dv1024_alibi": dict(d=64, dv=1024, causal=True, alibi=True),
+    "d1024_dv64_two_sided": dict(d=1024, dv=64, causal=False, window=(24, 24)),
+    "d512_one_block": dict(d=512, dv=512, causal=True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DKDV_WALK_CASES))
+def test_dkdv_cluster_walk_matches_plain(name):
+    """The dK/dV kernel's walk on the cluster (the rank split, the summed
+    partials, the full-block skip, each block's own columns, the GQA sum in
+    fp32) and on one block (D512) computes ``_varlen_dkdv_plain``'s function:
+    dk and dv per row at the bf16 gradient tolerance, over a packing whose
+    Q tiles straddle segments and whose schedule is the backward's own
+    (``_backward_schedules``: no saved walk above D512)."""
+    case = DKDV_WALK_CASES[name]
+    d, dv, hq, hkv = case["d"], case["dv"], case.get("hq", 4), case.get("hkv", 2)
+    causal, softcap = case["causal"], case.get("softcap", 0.0)
+    window = case.get("window", (-1, -1))
+    window = (window[0], -1 if causal else window[1])
+    seqs = [40, 72, 9, 100]
+    rng = np.random.default_rng(21)
+    t = sum(seqs)
+    q, do = (to_torch(randn(rng, (t, hq, w)), "bfloat16") for w in (d, dv))
+    k, v = (to_torch(randn(rng, (t, hkv, w)), "bfloat16") for w in (d, dv))
+    alibi = torch.from_numpy(rng.uniform(0.01, 0.3, (hq,)).astype(np.float32)) \
+        if case.get("alibi") else None
+    cu = torch.from_numpy(np.cumsum([0] + seqs).astype(np.int32))
+    kw = dict(scale=d ** -0.5, causal=causal, softcap=softcap, window=window)
+    meta = tvar._call_metadata(cu, cu, t, t, "cpu")
+    o, lse = tvar._varlen_forward_plain(q, k, v, meta, alibi=alibi, **kw)
+    delta = tvar._varlen_delta(do, o)
+    plan = varlen_dkdv_plan(d, dv)
+    assert plan.route == ("wgmma" if max(d, dv) <= 512 else "wgmma_cluster")
+    sched, _ = tvar._backward_schedules(meta, t, plan, varlen_dq_plan(d, dv), 64, causal, window)
+    got = _dkdv_walk(q, k, v, do, lse, delta, meta, sched, plan, alibi=alibi, **kw)
+    want = tvar._varlen_dkdv_plain(q, k, v, do, lse, delta, meta, alibi=alibi, **kw)
+    for g, w, n in zip(got, want, ("dk", "dv")):
+        assert g.dtype == w.dtype and g.shape == w.shape, n
+        assert grad_row_rel_err(g, w) < GRAD_TOL["bfloat16"], (name, n)
 
 
 # -- on the card: each kernel against its plain version ----------------------

@@ -77,14 +77,22 @@ wrappers passed, ``LegacyBanded``):
   D512 causal bf16), each kernel alone on the plain forward's (o, lse) with
   its tile schedule computed beforehand (``varlen._backward_schedules`` on
   the forward's 64 x 64 walk); the kernel's device time alone (either
-  route's, ``varlen.DKDV_KERNELS`` / ``varlen.DQ_KERNELS``) and the names of
-  the kernels each tree ran. At D512 the head library runs the wgmma
+  tree's kernel, ``VARLEN_DKDV_KERNELS`` / ``varlen.DQ_KERNELS``) and the
+  names of the kernels each tree ran. At D512 the head library runs the wgmma
   routes; a base library without ``ffpa_varlen_bwd_dkdv_plan`` (built from
   sources before the wgmma dK/dV route) is called with its own argument
   list and its mma.sync route's 128 x 32 schedule and 512-column passes
   (``LegacyVarlenBwd``), one without ``ffpa_varlen_bwd_dq_plan`` (before
   the wgmma dQ route) with its own argument list and its intervals at
-  ``block_q_dq`` rows (``LegacyVarlenDq``).
+  ``block_q_dq`` rows (``LegacyVarlenDq``);
+* varlen_dkdv_d1024, varlen_dkdv_d640 and varlen_dkdv_d1024_fp16: the
+  varlen dK/dV kernel alone above D512, over 8 documents packed into 4096
+  tokens ([1024, 768, 600, 512, 450, 350, 250, 142]), H8/4 causal, on the
+  plain forward's (o, lse), each held against ``_varlen_dkdv_plain`` (fp16
+  at the fp16 gradient tolerance 1e-2). The head library runs the cluster
+  of two blocks on its 64 x 64 schedule; a base library whose plan sends
+  D1024 to the mma.sync route is given that route's own 128 x 32 schedule
+  and 512-column passes (``LegacyVarlenWideDkdv``).
 
 A kernel whose source the base tree lacks is timed on the head alone. Each
 time is the kernels' device time per call from torch.profiler (for from_s
@@ -128,7 +136,7 @@ from ffpa_attn_tpu_torch.ops import (  # noqa: E402
     _build, decode, flash_bwd, flash_fwd, paged, varlen,
 )
 from ffpa_attn_tpu_torch.ops.config import (  # noqa: E402
-    FWD_ACC_ELEMS, dkdv_col_passes, varlen_dkdv_plan, varlen_dq_plan,
+    FWD_ACC_ELEMS, cdiv, varlen_dkdv_plan, varlen_dq_plan,
 )
 from ffpa_attn_tpu_torch.ops.dispatch import (  # noqa: E402
     pick_backward_config, pick_varlen_backward_config,
@@ -150,20 +158,33 @@ SOURCE = {"flash_fwd": "flash_fwd", "flash_fwd_scores": "flash_fwd",
           "banded_dk": "flash_bwd", "varlen_fwd": "varlen_fwd", "varlen_fwd_train": "varlen_fwd",
           "paged_decode": "paged_decode",
           "paged_decode_int8": "paged_decode", "varlen_dkdv": "varlen_bwd",
-          "varlen_dq": "varlen_bwd"}
+          "varlen_dq": "varlen_bwd", "varlen_dkdv_d1024": "varlen_bwd",
+          "varlen_dkdv_d640": "varlen_bwd", "varlen_dkdv_d1024_fp16": "varlen_bwd"}
+# The varlen dK/dV kernels of every tree: the wgmma kernel (one block or the
+# cluster) and the mma.sync kernel an older tree ran above D512.
+VARLEN_DKDV_KERNELS = ("varlen_dkdv_kernel<", "varlen_dkdv_wgmma_kernel<")
 # kernel -> the substrings of its CUDA kernels' names (either route), where a
 # run also launches other kernels that are not timed
 ONLY = {"from_s": flash_bwd.FROM_S_KERNELS, "from_s_d1024": flash_bwd.FROM_S_KERNELS,
         "from_s_d640": flash_bwd.FROM_S_KERNELS, "varlen_fwd": varlen.FWD_KERNELS,
-        "varlen_fwd_train": varlen.FWD_KERNELS, "varlen_dkdv": varlen.DKDV_KERNELS,
-        "varlen_dq": varlen.DQ_KERNELS}
+        "varlen_fwd_train": varlen.FWD_KERNELS, "varlen_dkdv": VARLEN_DKDV_KERNELS,
+        "varlen_dq": varlen.DQ_KERNELS, "varlen_dkdv_d1024": VARLEN_DKDV_KERNELS,
+        "varlen_dkdv_d640": VARLEN_DKDV_KERNELS, "varlen_dkdv_d1024_fp16": VARLEN_DKDV_KERNELS}
 # kernels whose C entry point an older tree may lack
 ENTRY = {"from_s": "ffpa_bwd_dkdv_from_s", "from_s_d1024": "ffpa_bwd_dkdv_from_s",
          "from_s_d640": "ffpa_bwd_dkdv_from_s", "banded_dk": "ffpa_bwd_banded_dk",
          "varlen_fwd": "ffpa_varlen_fwd", "varlen_fwd_train": "ffpa_varlen_fwd",
          "paged_decode": "ffpa_paged_decode",
          "paged_decode_int8": "ffpa_paged_decode", "varlen_dkdv": "ffpa_varlen_bwd_dkdv",
-         "varlen_dq": "ffpa_varlen_bwd_dq"}
+         "varlen_dq": "ffpa_varlen_bwd_dq", "varlen_dkdv_d1024": "ffpa_varlen_bwd_dkdv",
+         "varlen_dkdv_d640": "ffpa_varlen_bwd_dkdv", "varlen_dkdv_d1024_fp16": "ffpa_varlen_bwd_dkdv"}
+
+
+def mma_sync_passes(d: int, dv: int) -> int:
+    """The column passes an older tree's mma.sync dK/dV kernels took (dense
+    before the cluster, varlen above D512): at most 512 columns of dK and of
+    dV a pass."""
+    return max(cdiv(d, 512), cdiv(dv, 512))
 
 
 def build_tree(src: Path, out: Path, wanted) -> dict:
@@ -224,7 +245,7 @@ class LegacyDkdv:
     """A flash_bwd library built from sources before the dK/dV cluster
     route: D or Dv above 512 take its mma.sync kernel, whose entry point
     takes col_passes after Dv (the current one picks its own passes), so
-    the passes those sources' wrapper passed (``dkdv_col_passes``) are put
+    the passes those sources' wrapper passed (``mma_sync_passes``) are put
     in. Every other symbol is the wrapped library's own."""
 
     PASSES, D, DV = 24, 22, 23  # ffpa_bwd_dkdv's col_passes, D and Dv
@@ -254,7 +275,7 @@ class LegacyDkdv:
 
         def call(*args):
             args = list(args)
-            args.insert(self.PASSES, dkdv_col_passes(args[self.D], args[self.DV]))
+            args.insert(self.PASSES, mma_sync_passes(args[self.D], args[self.DV]))
             return fn(*args)
 
         call.argtypes = fn.argtypes
@@ -363,11 +384,55 @@ class LegacyVarlenBwd:
             imin, imax = self.SCHEDULE
             args[self.IMIN], args[self.IMAX] = imin.data_ptr(), imax.data_ptr()
             args[self.TILES] = imin.shape[0]
-            args[self.PASSES] = dkdv_col_passes(args[self.D], args[self.DV])
+            args[self.PASSES] = mma_sync_passes(args[self.D], args[self.DV])
             del args[self.ORDER]
             return fn(*args)
 
         call.argtypes = argtypes
+        return call
+
+
+class LegacyVarlenWideDkdv:
+    """A varlen_bwd library whose plan sends D or Dv above 512 to its
+    mma.sync dK/dV kernel (built from sources before the cluster route):
+    there its entry point reads each KV tile's interval at its own 128 x 32
+    tiles, ceil(Tk / 32) KV tiles and passes of 512 columns, and not the
+    order. Those intervals (``SCHEDULE``, set by ``make_runs`` for the wide
+    packing) and passes are put in at D or Dv above 512; every other call
+    and symbol is the library's own."""
+
+    SCHEDULE = None  # (imin, imax) at 128 x 32
+    IMIN, IMAX, TILES, D, DV, PASSES = 20, 21, 29, 30, 31, 32
+
+    @staticmethod
+    def needed(lib) -> bool:
+        """Whether ``lib`` sends D1024 to the mma.sync route (route 0)."""
+        fn = lib.ffpa_varlen_bwd_dkdv_plan
+        fn.argtypes = varlen._VARLEN_BWD_ARGTYPES["ffpa_varlen_bwd_dkdv_plan"]
+        fn.restype = ctypes.c_int
+        out = (ctypes.c_int * 64)()
+        return fn(1024, 1024, out, len(out)) == 0 and out[0] == 0
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if name != "ffpa_varlen_bwd_dkdv":
+            return fn
+        fn.argtypes = varlen._VARLEN_BWD_ARGTYPES[name]
+        fn.restype = ctypes.c_int
+
+        def call(*args):
+            args = list(args)
+            if max(args[self.D], args[self.DV]) > 512:
+                imin, imax = self.SCHEDULE
+                args[self.IMIN], args[self.IMAX] = imin.data_ptr(), imax.data_ptr()
+                args[self.TILES] = imin.shape[0]
+                args[self.PASSES] = mma_sync_passes(args[self.D], args[self.DV])
+            return fn(*args)
+
+        call.argtypes = fn.argtypes
         return call
 
 
@@ -451,7 +516,8 @@ class LegacyVarlenFwd:
 
 TOL = 5e-2  # bf16 gradients (tests/test_ffpa_bwd.py:19)
 # Gradient kernels run in fp16: its gradient tolerance (tests/test_ffpa_bwd.py:19).
-GRAD_KERNEL_TOL = {"dkdv_d1024": 1e-2, "dkdv_d640": 1e-2, "dq_d1024_fp16": 1e-2}
+GRAD_KERNEL_TOL = {"dkdv_d1024": 1e-2, "dkdv_d640": 1e-2, "dq_d1024_fp16": 1e-2,
+                   "varlen_dkdv_d1024_fp16": 1e-2}
 # Per-kernel tolerances where a kernel is held to the forward's (per row).
 KERNEL_TOL = {"paged_decode": 2e-2, "paged_decode_int8": 2e-2, "decode": 2e-2,
               "decode_serving": 2e-2, "varlen_fwd": 2e-2, "varlen_fwd_train": 2e-2}
@@ -730,6 +796,34 @@ def make_runs(gen) -> tuple:
     LegacyVarlenBwd.SCHEDULE, LegacyVarlenDq.SCHEDULE = older[0][:2], older[1]
     bkw = dict(scale=scale, causal=True, softcap=0.0, window=(-1, -1))
     del bo
+    # The varlen dK/dV above D512: 8 documents in 4096 tokens, H8/4 causal.
+    wlens = [1024, 768, 600, 512, 450, 350, 250, 142]
+    wt = sum(wlens)
+    wcu = torch.tensor([0] + torch.tensor(wlens).cumsum(0).tolist(), dtype=torch.int32,
+                       device="cuda")
+    wmeta = varlen._call_metadata(wcu, wcu, wt, wt, "cuda")
+    wide_varlen = {}
+    for wd, wdt in ((1024, torch.bfloat16), (640, torch.bfloat16), (1024, torch.float16)):
+        def h(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(wdt)
+
+        wq_, wk_, wv_, wdo = h(wt, hq, wd), h(wt, hkv, wd), h(wt, hkv, wd), h(wt, hq, wd)
+        wkw = dict(scale=wd ** -0.5, causal=True, softcap=0.0, window=(-1, -1))
+        wo, wlse = varlen._varlen_forward_plain(wq_, wk_, wv_, wmeta, scale=wkw["scale"],
+                                                causal=True)
+        wdelta = varlen._varlen_delta(wdo, wo)
+        wcfg = pick_varlen_backward_config(d=wd, dv=wd, tq=wt, dtype=wdt)
+        wsched = varlen._backward_schedules(wmeta, wt, varlen_dkdv_plan(wd, wd),
+                                            varlen_dq_plan(wd, wd), wcfg.block_q_dq, True,
+                                            (-1, -1))[0]
+        wide_varlen[wd, wdt] = dict(
+            run=(lambda o_=varlen._BwdOperands(wq_, wk_, wv_, wdo, wlse, wdelta, None), s_=wsched,
+                 c_=wcfg, k_=wkw: varlen._varlen_dkdv_kernel(o_, wmeta, s_, c_, **k_)),
+            plain=(lambda a_=(wq_, wk_, wv_, wdo, wlse, wdelta), k_=wkw:
+                   varlen._varlen_dkdv_plain(*a_, wmeta, **k_)))
+        del wo
+    LegacyVarlenWideDkdv.SCHEDULE = varlen._varlen_bwd_schedules(
+        wmeta, wt, 64, True, (-1, -1), (128, 32))[0][:2]
     vmeta = varlen._call_metadata(cu, cu, tot, tot, "cuda")
     for t_, m_ in ((tot, vmeta), (bt, meta)):  # a base library's intervals at 64 rows
         needed = varlen._tile_needed(*varlen._q_tiles(m_, t_, 64), 64, 64, True)
@@ -782,7 +876,11 @@ def make_runs(gen) -> tuple:
         "paged_decode_int8": lambda: run_paged(True),
         "varlen_dkdv": lambda: varlen._varlen_dkdv_kernel(ops, meta, sched[0], bcfg, **bkw),
         "varlen_dq": lambda: varlen._varlen_dq_kernel(ops, meta, sched[1], bcfg, **bkw),
+        "varlen_dkdv_d1024": wide_varlen[1024, torch.bfloat16]["run"],
+        "varlen_dkdv_d640": wide_varlen[640, torch.bfloat16]["run"],
+        "varlen_dkdv_d1024_fp16": wide_varlen[1024, torch.float16]["run"],
     })
+
     def dkdv_plain():
         lse, delta = state[(-1, -1)]
         return flash_bwd._dkdv_plain(tq, tk, tv, None, tdo, lse, delta, scale=scale, emit_ds=True,
@@ -814,6 +912,9 @@ def make_runs(gen) -> tuple:
         "varlen_dkdv": lambda: varlen._varlen_dkdv_plain(bq, bk, bv, bdo, blse, bdelta, meta,
                                                          **bkw),
         "varlen_dq": lambda: varlen._varlen_dq_plain(bq, bk, bv, bdo, blse, bdelta, meta, **bkw),
+        "varlen_dkdv_d1024": wide_varlen[1024, torch.bfloat16]["plain"],
+        "varlen_dkdv_d640": wide_varlen[640, torch.bfloat16]["plain"],
+        "varlen_dkdv_d1024_fp16": wide_varlen[1024, torch.float16]["plain"],
         "varlen_fwd": lambda: varlen._varlen_forward_plain(vq, vk, vv, vmeta, scale=scale,
                                                            causal=True)[0],
         "varlen_fwd_train": lambda: varlen._varlen_forward_plain(bq, bk, bv, meta, scale=scale,
@@ -858,7 +959,10 @@ def main() -> int:
     if base_varlen is not None and not hasattr(base_varlen, "ffpa_varlen_bwd_dkdv_plan"):
         trees["base"]["varlen_bwd"] = base_varlen = LegacyVarlenBwd(base_varlen)
     if base_varlen is not None and not hasattr(base_varlen, "ffpa_varlen_bwd_dq_plan"):
-        trees["base"]["varlen_bwd"] = LegacyVarlenDq(base_varlen)
+        trees["base"]["varlen_bwd"] = base_varlen = LegacyVarlenDq(base_varlen)
+    if (base_varlen is not None and hasattr(base_varlen, "ffpa_varlen_bwd_dkdv_plan")
+            and LegacyVarlenWideDkdv.needed(base_varlen)):
+        trees["base"]["varlen_bwd"] = LegacyVarlenWideDkdv(base_varlen)
     base_fwd = trees["base"].get("varlen_fwd")
     if base_fwd is not None and not hasattr(base_fwd, "ffpa_varlen_fwd_plan"):
         trees["base"]["varlen_fwd"] = LegacyVarlenFwd(base_fwd)

@@ -3,12 +3,13 @@ a card.
 
 Run from the repository root on a machine with a card:
 
-    python tools/torch_varlen_dkdv_probe.py [--kernel dkdv|dq]
+    python tools/torch_varlen_dkdv_probe.py [--kernel dkdv|dq|dkdv_cluster]
 
 The shape is ``chip_smoke.py``'s packed-training backward: 8 documents of
-2048..284 tokens (8192 in all), H8/4, D = Dv = 512, causal, bf16, the
-kernel alone on the plain forward's (o, lse) with its 64 x 64 schedule
-computed beforehand (``varlen._backward_schedules``). Each reading is
+2048..284 tokens (8192 in all), H8/4, D = Dv = 512 (D = Dv = 1024 for
+``dkdv_cluster``), causal, bf16, the kernel alone on the plain forward's
+(o, lse) with its 64 x 64 schedule computed beforehand
+(``varlen._backward_schedules``). Each reading is
 device ms per call from torch.profiler, taken in turns (v1 .. vn, vn ..
 v1), and each run's output is held against its plain version per row
 (bf16 5e-2, a row's floor at 1e-3 of the tensor's max). dK/dV:
@@ -28,6 +29,15 @@ dQ:
   Q tile's [jmin, jmax] (the mma.sync route's walk);
 * ``no_fast_path``: the rebuilt library, every consumer block masked
   element by element.
+
+dK/dV on the cluster (D1024), where a consumer reads each Q tile's lse and
+delta:
+
+* ``rows_per_group``: the kernel as built, per column group where the group
+  uses them;
+* ``rows_before_products``: ``csrc/varlen_bwd.cu`` rebuilt to load all 16
+  before the S^T products, as the one-block route does;
+* ``rows_lookahead``: rebuilt to load each group's beside the group before.
 
 Prints the card's name and power limit, each variant's ptxas registers and
 spill bytes, then one JSON line; exits 1 if a run misses the tolerance.
@@ -58,7 +68,22 @@ REPS = 20
 TOL = 5e-2
 _PLAIN = "  const bool plain = p.alibi == nullptr && p.softcap <= 0.f && p.window_left < 0;\n"
 # library -> (text, replacement) pairs applied to csrc/varlen_bwd.cu
-SOURCES = {"as_built": [], "no_fast_path": [(_PLAIN, "  const bool plain = false;\n")]}
+_EARLY = ("    if constexpr (!SPLIT) {\n#pragma unroll\n      for (int jj = 0; jj < 4; ++jj) "
+          "load_rows(jj, qc + 8 * jj + 2 * t4);\n    }\n")
+_ALWAYS = ("#pragma unroll\n    for (int jj = 0; jj < 4; ++jj) "
+           "load_rows(jj, qc + 8 * jj + 2 * t4);\n")
+_GROUP = "        load_rows(jj, col);\n      }\n    };\n"
+_CALL = "        group_rows(jj);\n"
+SOURCES = {
+    "dkdv": {"as_built": [], "no_fast_path": [(_PLAIN, "  const bool plain = false;\n")]},
+    "dkdv_cluster": {
+        "as_built": [],
+        "rows_before_products": [(_EARLY, _ALWAYS), (_GROUP, "      }\n    };\n")],
+        "rows_lookahead": [(_CALL, "        if (jj == 0) group_rows(0);\n"
+                                   "        if (jj + 1 < 4) group_rows(jj + 1);\n")],
+    },
+}
+SOURCES["dq"] = SOURCES["dkdv"]
 
 
 def build(out: Path, kernel: str) -> dict:
@@ -67,7 +92,7 @@ def build(out: Path, kernel: str) -> dict:
     src = (_build.CSRC_DIR / "varlen_bwd.cu").read_text()
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, edits in SOURCES.items():
+    for name, edits in SOURCES[kernel].items():
         text = src
         for a, b in edits:
             if a not in text:
@@ -86,11 +111,12 @@ def build(out: Path, kernel: str) -> dict:
             raise SystemExit(f"nvcc failed on {name}:\n{log}")
         lines = log.splitlines()
         for i, ln in enumerate(lines):
-            if "Compiling entry" in ln and f"varlen_{kernel}_wgmma_kernel" in ln:
+            if "Compiling entry" in ln and f"varlen_{kernel[:4]}_wgmma_kernel" in ln:
                 spill = re.search(r"(\d+) bytes spill stores", lines[i + 2])
                 regs = re.search(r"Used (\d+) registers", lines[i + 3])
-                print(f"{name} {'f16' if '__half' in ln else 'bf16'}: {regs.group(1)} registers, "
-                      f"{spill.group(1)} bytes spill stores")
+                route = "cluster" if "Lb1E" in ln else "one block"
+                print(f"{name} {'f16' if '__half' in ln else 'bf16'} {route}: {regs.group(1)} "
+                      f"registers, {spill.group(1)} bytes spill stores")
         lib = ctypes.CDLL(str(out / f"lib{name}.so"))
         lib.ffpa_error_string.argtypes = [ctypes.c_int]
         lib.ffpa_error_string.restype = ctypes.c_char_p
@@ -106,7 +132,7 @@ def row_rel(got, want, floor: float = 1e-3) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--kernel", choices=("dkdv", "dq"), default="dkdv")
+    ap.add_argument("--kernel", choices=("dkdv", "dq", "dkdv_cluster"), default="dkdv")
     kernel = ap.parse_args().kernel
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -120,7 +146,8 @@ def main() -> int:
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
 
-    t, hq, hkv, d = sum(LENS), 8, 4, 512
+    t, hq, hkv = sum(LENS), 8, 4
+    d = 1024 if kernel == "dkdv_cluster" else 512
     cu = torch.tensor([0] + torch.tensor(LENS).cumsum(0).tolist(), dtype=torch.int32,
                       device="cuda")
     q, k, v, do = randn(t, hq, d), randn(t, hkv, d), randn(t, hkv, d), randn(t, hq, d)
@@ -132,7 +159,13 @@ def main() -> int:
     dkdv, dq = varlen._backward_schedules(meta, t, varlen_dkdv_plan(d, d), varlen_dq_plan(d, d),
                                           cfg.block_q_dq, True, (-1, -1))
     ops = varlen._BwdOperands(q, k, v, do, lse, delta, None)
-    if kernel == "dkdv":
+    if kernel == "dkdv_cluster":
+        launch, sched = varlen._varlen_dkdv_kernel, dkdv
+        want = varlen._varlen_dkdv_plain(q, k, v, do, lse, delta, meta, **kw)
+        variants = {"rows_per_group": ("as_built", sched),
+                    "rows_before_products": ("rows_before_products", sched),
+                    "rows_lookahead": ("rows_lookahead", sched)}
+    elif kernel == "dkdv":
         launch, sched = varlen._varlen_dkdv_kernel, dkdv
         want = varlen._varlen_dkdv_plain(q, k, v, do, lse, delta, meta, **kw)
         in_order = (sched[0], sched[1], torch.arange(sched[0].shape[0], dtype=torch.int32,

@@ -15,14 +15,15 @@ the needed tiles at 64 x 64, ``_needed_tiles``), its tiles per Q tile and
 the 64 x 32 consumer blocks its full-block test (``_full_blocks`` at 64 x 32) lets
 skip the mask. Then the
 backward's (``_backward_schedules`` and ``_varlen_bwd_schedules``): the
-pairs the dK/dV kernel walks at each route's tiles (each KV tile's [imin,
-imax] of Q tiles: 64 x 64 on the wgmma route, D and Dv <= 512, the
-forward's needed matrix transposed; 128 x 32 on mma.sync), with, at 64 x
-64, the needed tiles inside the intervals and those the wgmma consumers'
-full-block test (``_dkdv_full_blocks``: one segment, inside the band) lets
-skip the mask; and dQ's: the wgmma walk (the forward's needed tiles at 64
-x 64, ``dq_wgmma``, with its full 64 x 32 consumer blocks) beside the
-mma.sync interval walk at block_q x 64 (``dq_*``), against the band.
+pairs the dK/dV kernel walks at its 64 x 64 tiles on both routes (each KV
+tile's [imin, imax] of Q tiles: the forward's needed matrix transposed on
+the wgmma route, D and Dv <= 512; the same intervals computed afresh on
+the cluster above), with the needed tiles inside the intervals and those
+the consumers' full-block test (``_dkdv_full_blocks``: one segment, inside
+the band) lets skip the mask; and dQ's: the wgmma walk (the forward's
+needed tiles at 64 x 64, ``dq_wgmma``, with its full 64 x 32 consumer
+blocks) beside the mma.sync interval walk at block_q x 64 (``dq_*``),
+against the band.
 Prints one JSON line. The default lengths are the serving bench's; the packed-training
 packing of ``chip_smoke.py`` is ``--lens
 2048,1536,1200,1024,900,700,500,284``.
@@ -70,26 +71,20 @@ def main() -> int:
     walked = _walked(lo, hi)
     inside = int(sum(needed[i, lo[i]:hi[i] + 1].sum() for i in range(len(lo))))
     band = sum(band_pairs(n, n, causal=True) for n in lens)
-    dkdv = {}
-    for q_rows, kv_rows in ((64, 64), (128, 32)):
-        (imin, imax, _), (jmin, jmax) = varlen._varlen_bwd_schedules(
-            meta, t, bq, True, (-1, -1), (q_rows, kv_rows))
-        pairs = _walked(imin, imax) * q_rows * kv_rows
-        tiles = f"{q_rows}x{kv_rows}"
-        dkdv[tiles] = {"pairs_walked_per_head": pairs, "walked_over_band": pairs / band,
-                       "q_tiles_per_block": _spread(imin, imax)}
-        if (q_rows, kv_rows) == (64, 64):
-            need = varlen._tile_needed(*meta, q_rows, kv_rows, True).T  # [kv tile, q tile]
-            walk = torch.zeros_like(need)  # the tiles the intervals walk
-            for j in range(need.shape[0]):
-                walk[j, imin[j]:imax[j] + 1] = True
-            halves = varlen._dkdv_full_blocks(meta, True)  # [kv tile, 32-column block]
-            full = halves.reshape(halves.shape[0], -1, 2).all(dim=2)
-            dkdv[tiles].update(tiles_walked=int(walk.sum()),
-                               tiles_needed=int((need & walk).sum()),
-                               tiles_full=int((full & walk).sum()),
-                               consumer_blocks_full=int(
-                                   (halves & walk.repeat_interleave(2, dim=1)).sum()))
+    (imin, imax, _), (jmin, jmax) = varlen._varlen_bwd_schedules(meta, t, bq, True, (-1, -1),
+                                                                 (64, 64))
+    pairs = _walked(imin, imax) * 64 * 64
+    need = varlen._tile_needed(*meta, 64, 64, True).T  # [kv tile, q tile]
+    walk = torch.zeros_like(need)  # the tiles the intervals walk
+    for j in range(need.shape[0]):
+        walk[j, imin[j]:imax[j] + 1] = True
+    halves = varlen._dkdv_full_blocks(meta, True)  # [kv tile, 32-column block]
+    full = halves.reshape(halves.shape[0], -1, 2).all(dim=2)
+    dkdv = {"64x64": {
+        "pairs_walked_per_head": pairs, "walked_over_band": pairs / band,
+        "q_tiles_per_block": _spread(imin, imax), "tiles_walked": int(walk.sum()),
+        "tiles_needed": int((need & walk).sum()), "tiles_full": int((full & walk).sum()),
+        "consumer_blocks_full": int((halves & walk.repeat_interleave(2, dim=1)).sum())}}
     # The wgmma forward's walk: only the needed tiles at 64 x 64.
     wmeta = varlen._q_tiles(meta, t, 64)
     wneed = varlen._tile_needed(*wmeta, 64, KV_TILE, True)

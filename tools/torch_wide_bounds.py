@@ -1,7 +1,7 @@
-"""The bound of each wide kernel route: the recompute dQ's cluster above
-D512, the mma.sync routes of the varlen forward, dK/dV and dQ above D512,
-dense decode on cp.async above D512, and paged decode on cp.async over
-pages that are not a multiple of 16 rows.
+"""The bound of each wide kernel route: the recompute dQ's and the varlen
+dK/dV's clusters above D512, the mma.sync routes of the varlen forward and
+dQ above D512, dense decode on cp.async above D512, and paged decode on
+cp.async over pages that are not a multiple of 16 rows.
 
 Run anywhere (it needs no card: the numbers are counted from the shapes):
 
@@ -56,7 +56,7 @@ def routes() -> list:
         ("8 (D > 512)", "varlen_fwd_kernel (mma.sync)",
          "8 documents in 8192 tokens, H8/4 D1024 causal", "1 a packed call",
          varlen_counts(PACKING, PACKING, causal=True, **wide)),
-        ("9 (D > 512)", "varlen_dkdv_kernel (mma.sync)",
+        ("9 (D > 512)", "tma::varlen_dkdv_wgmma_kernel<T, true> (the cluster)",
          "8 documents in 8192 tokens, H8/4 D1024 causal", "1 a packed backward",
          varlen_backward_counts("varlen_dkdv", PACKING, PACKING, causal=True, **wide)),
         ("10 (D > 512)", "varlen_dq_kernel (mma.sync)",
