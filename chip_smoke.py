@@ -2376,12 +2376,13 @@ def phase_packed_training() -> dict:
         f"{bwd:.3f} ms ({out['bwd_tflops']:.1f} TFLOP/s at 2.5 x; forward flop over the band "
         f"{fwd_flops:.4g}); all {[[round(a, 3), round(b, 3)] for a, b in runs]}")
 
-    # Above D512: the same packing at D1024, where dK/dV takes the cluster.
-    from ffpa_attn_tpu_torch.ops.config import varlen_dkdv_plan
+    # Above D512: the same packing at D1024, where dK/dV and dQ take their
+    # clusters.
+    from ffpa_attn_tpu_torch.ops.config import varlen_dkdv_plan, varlen_dq_plan
 
     wd = 1024
-    if varlen_dkdv_plan(wd, wd).route != "wgmma_cluster":
-        fail(f"varlen dK/dV at D{wd} does not take the cluster route")
+    if (varlen_dkdv_plan(wd, wd).route, varlen_dq_plan(wd, wd).route) != ("wgmma_cluster",) * 2:
+        fail(f"varlen dK/dV or dQ at D{wd} does not take the cluster route")
     x = packed_inputs(torch.bfloat16, d=wd)
     meta = varlen._call_metadata(x["cu"], x["cu"], t, t, "cuda")
     torch.cuda.synchronize()
@@ -2397,12 +2398,13 @@ def phase_packed_training() -> dict:
     del plain, r
     tol = GRAD_TOL[torch.bfloat16]
     ok = all(e < tol for e in errs.values())
-    log(f"  bf16 D{wd} (dK/dV on the cluster): launches {counts}; "
+    log(f"  bf16 D{wd} (dK/dV and dQ on their clusters): launches {counts}; "
         + " ".join(f"{k_}_plain {e:.2e}" for k_, e in errs.items())
         + f" (tol {tol:g}, per row) {'ok' if ok else 'FAIL'}")
     if not ok:
         fail(f"packed training D{wd}: gradients disagree")
-    out["wide"] = dict(x=x, launches=counts["varlen_dkdv"], errs=errs)
+    out["wide"] = dict(x=x, launches={n_: counts[n_] for n_ in ("varlen_dkdv", "varlen_dq")},
+                       errs=errs)
     torch.cuda.empty_cache()
     return out
 
@@ -3319,36 +3321,39 @@ def varlen_dkdv_kernel_row_extras(d: int) -> dict:
 
 
 def varlen_dq_kernel_row_extras(d: int) -> dict:
-    """The varlen dQ route at head dim ``d`` and its kernel's registers and
-    spill bytes, for the ``kernels`` line; fails unless the launcher's plan
-    equals its mirror (``ops/config.py`` ``varlen_dq_plan``) at D, Dv
-    64..1024 and D != Dv, and the wgmma kernel spills nothing."""
+    """The varlen dQ route at head dim ``d`` and both routes' kernels'
+    registers and spill bytes, for the ``kernels`` line; fails unless the
+    launcher's plan equals its mirror (``ops/config.py`` ``varlen_dq_plan``,
+    which is ``dq_plan``) at D, Dv 64..1024 and D != Dv, rank blocks
+    included, and neither route's kernel spills in either dtype."""
     from ffpa_attn_tpu_torch.ops import varlen
-    from ffpa_attn_tpu_torch.ops.config import varlen_dq_plan
+    from ffpa_attn_tpu_torch.ops.config import dq_plan, varlen_dq_plan
 
     pairs = [(x, x) for x in range(64, 1025, 64)] + [(512, 320), (320, 512), (512, 64),
                                                      (64, 512), (448, 64), (512, 1024),
-                                                     (1024, 320), (400, 400)]
+                                                     (1024, 320), (400, 400), (64, 1024),
+                                                     (1024, 64), (640, 1024), (576, 576)]
     for hd, hdv in pairs:
-        if varlen.varlen_dq_kernel_plan(hd, hdv) != varlen_dq_plan(hd, hdv):
-            fail(f"varlen dQ launcher's plan at D{hd}/Dv{hdv} "
-                 f"{varlen.varlen_dq_kernel_plan(hd, hdv)} differs from ops/config.py "
-                 f"varlen_dq_plan {varlen_dq_plan(hd, hdv)}")
-    log(f"  varlen_dq plan at D{d}: {varlen.varlen_dq_kernel_plan(d, d)} (the launcher's, "
-        f"equal to ops/config.py varlen_dq_plan at {len(pairs)} head-dim pairs)")
-    for route, bq in (("wgmma", 64), ("mma_sync", 64), ("mma_sync", 32)):
+        got, want = varlen.varlen_dq_kernel_plan(hd, hdv), varlen_dq_plan(hd, hdv)
+        if got != want or want != dq_plan(hd, hdv):
+            fail(f"varlen dQ launcher's plan at D{hd}/Dv{hdv} {got} differs from "
+                 f"ops/config.py varlen_dq_plan {want}")
+    log(f"  varlen_dq plan at D{d}: {varlen.varlen_dq_kernel_plan(d, d)}; at D1024: "
+        f"{varlen.varlen_dq_kernel_plan(1024, 1024)} (the launcher's, equal to ops/config.py "
+        f"varlen_dq_plan at {len(pairs)} head-dim pairs)")
+    attrs = {}
+    for route in ("wgmma", "wgmma_cluster"):
         for dt in (torch.bfloat16, torch.float16):
-            a = varlen.varlen_dq_kernel_attrs(route, dt, bq)
-            log(f"  varlen_dq {route} rows {bq} {str(dt)[6:]}: {a['registers']} registers a "
-                f"thread at launch, {a['local_bytes']} local (spill) bytes")
-            if route == "wgmma" and a["local_bytes"] != 0:
-                fail(f"the wgmma varlen dQ kernel ({dt}) spills {a['local_bytes']} bytes")
-    plan = varlen_dq_plan(d, d)
-    a = varlen.varlen_dq_kernel_attrs(plan.route, block_q=plan.q_rows)
-    return {"varlen_dq_route": plan.route,
-            "kernel": "tma::varlen_dq_wgmma_kernel" if plan.route == "wgmma"
-            else "varlen_dq_kernel", "registers": a["registers"],
-            "spill_bytes": a["local_bytes"]}
+            a = attrs[route, dt] = varlen.varlen_dq_kernel_attrs(route, dt)
+            log(f"  varlen_dq {route} {str(dt)[6:]}: {a['registers']} registers a thread at "
+                f"launch, {a['local_bytes']} local (spill) bytes")
+            if a["local_bytes"] != 0:
+                fail(f"the {route} varlen dQ kernel ({dt}) spills {a['local_bytes']} bytes")
+    route = varlen_dq_plan(d, d).route
+    a, c = attrs[route, torch.bfloat16], attrs["wgmma_cluster", torch.bfloat16]
+    return {"varlen_dq_route": route, "kernel": "tma::varlen_dq_wgmma_kernel<T, false>",
+            "registers": a["registers"], "spill_bytes": a["local_bytes"],
+            "cluster_registers": c["registers"], "cluster_spill_bytes": c["local_bytes"]}
 
 
 def dq_kernel_row_extras(d: int) -> dict:
@@ -3925,10 +3930,10 @@ def packed_training_times(packed: dict) -> tuple:
     meta = varlen._call_metadata(cu, cu, t, t, "cuda")
     o, lse = varlen._varlen_forward(q, k, v, cu, cu, meta=meta, **kw)
     delta = varlen._varlen_delta(do, o)
-    cfg = pick_varlen_backward_config(d=d, dv=d, tq=t, dtype=bf)
+    cfg = pick_varlen_backward_config(d=d, dv=d, dtype=bf)
     ops = varlen._BwdOperands(q, k, v, do, lse, delta, None)
     dkdv_sched, dq_sched = varlen._backward_schedules(
-        meta, t, varlen_dkdv_plan(d, d), varlen_dq_plan(d, d), cfg.block_q_dq, True, (-1, -1),
+        meta, t, varlen_dkdv_plan(d, d), varlen_dq_plan(d, d), True, (-1, -1),
         varlen._call_walk(meta, t, d, d, True, (-1, -1)))
     rows, events = [], {}
 
@@ -3968,7 +3973,7 @@ def packed_training_times(packed: dict) -> tuple:
             outs, kernels = ("dk", "dv"), varlen.DKDV_KERNELS
         else:
             def run():
-                return (varlen._varlen_dq_kernel(ops, meta, dq_sched, cfg, **kw),)
+                return (varlen._varlen_dq_kernel(ops, meta, dq_sched, **kw),)
 
             def run_plain():
                 return (varlen._varlen_dq_plain(q, k, v, do, lse, delta, meta, **kw),)
@@ -3995,23 +4000,26 @@ def packed_training_times(packed: dict) -> tuple:
                         else varlen_dq_kernel_row_extras(d))
         events[name] = (kms[1], pms[1], lms[1])
         torch.cuda.empty_cache()
-    row, events["varlen_dkdv_cluster"] = varlen_dkdv_cluster_times(packed.pop("wide"))
-    rows.append(row)
+    wide_rows, wide_events = varlen_cluster_times(packed.pop("wide"))
+    rows += wide_rows
+    events.update(wide_events)
     return rows, events, fwd_packed
 
 
-def varlen_dkdv_cluster_times(wide: dict) -> tuple:
-    """The varlen dK/dV cluster route (``PERF.md``'s row "9 (D > 512)") at
-    the wide routes' packing (``tools/torch_wide_bounds.py`` ``PACKING``: 8
-    documents in 8192 tokens, H8/4 D1024 causal bf16, the inputs of
-    ``phase_packed_training``'s D1024 call): the kernel alone on its
-    schedule, held against its plain version per row, then timed (device
-    ms of the dK/dV kernel by name, CUDA-event ms) beside its bound, its
-    plain version and ``torch.autograd.grad`` through
+def varlen_cluster_times(wide: dict) -> tuple:
+    """The varlen backward's cluster routes (``PERF.md``'s rows "9 (D >
+    512)", dK/dV, and "10 (D > 512)", dQ) at the wide routes' packing
+    (``tools/torch_wide_bounds.py`` ``PACKING``: 8 documents in 8192
+    tokens, H8/4 D1024 causal bf16, the inputs of ``phase_packed_training``'s
+    D1024 call): each kernel alone on the backward's own schedule (one 64 x
+    64 walk), held against its plain version per row, then timed (device
+    ms of the kernel by name, CUDA-event ms) beside its bound, its plain
+    version and ``torch.autograd.grad`` through
     ``scaled_dot_product_attention`` with the block-diagonal causal bool
-    mask (the dK/dV + dQ pair, K/V heads expanded). Returns the ``kernels``
-    line's row ``varlen_dkdv_cluster`` (its launches those of the D1024
-    packed backward through ``ffpa_attn_varlen_func``) and its (CUDA-event
+    mask (the dK/dV + dQ pair, K/V heads expanded; timed once for both).
+    Returns the ``kernels`` line's rows ``varlen_dkdv_cluster`` and
+    ``varlen_dq_cluster`` (their launches those of the D1024 packed
+    backward through ``ffpa_attn_varlen_func``) and each one's (CUDA-event
     ms of the kernel, the plain version, the library call)."""
     import torch.nn.functional as F
 
@@ -4031,33 +4039,11 @@ def varlen_dkdv_cluster_times(wide: dict) -> tuple:
     o, lse = varlen._varlen_forward(q, k, v, cu, cu, meta=meta, **kw)
     delta = varlen._varlen_delta(do, o)
     del o
-    cfg = pick_varlen_backward_config(d=d, dv=d, tq=t, dtype=bf)
-    plan = varlen_dkdv_plan(d, d)
+    cfg = pick_varlen_backward_config(d=d, dv=d, dtype=bf)
+    plans = {"varlen_dkdv": varlen_dkdv_plan(d, d), "varlen_dq": varlen_dq_plan(d, d)}
     ops = varlen._BwdOperands(q, k, v, do, lse, delta, None)
-    sched, _ = varlen._backward_schedules(meta, t, plan, varlen_dq_plan(d, d), cfg.block_q_dq,
-                                          True, (-1, -1))
-
-    def run():
-        return varlen._varlen_dkdv_kernel(ops, meta, sched, cfg, **kw)
-
-    def plain():
-        return varlen._varlen_dkdv_plain(q, k, v, do, lse, delta, meta, **kw)
-
-    got = run()
-    torch.cuda.synchronize()
-    err = _hold(f"varlen_dkdv_cluster_T{t}_D{d}", dict(zip(("dk", "dv"), zip(got, plain()))))
-    del got
-    torch.cuda.empty_cache()
-    flops, nbytes = varlen_backward_counts("varlen_dkdv", PACK_LENS, PACK_LENS, hq=hq, hkv=hkv,
-                                           d=d, dv=d, causal=True)
-    bms, bby = bound_ms(flops, nbytes)
-
-    def timed():
-        return _kernel_timed(run, varlen.DKDV_KERNELS, 10)
-
-    kms = _above_bound("varlen_dkdv cluster (D1024)", timed(), bms, timed)
-    pms = _timed(plain, 2, warmup=1)
-    torch.cuda.empty_cache()
+    dkdv_sched, dq_sched = varlen._backward_schedules(meta, t, plans["varlen_dkdv"],
+                                                      plans["varlen_dq"], True, (-1, -1))
     seg = torch.repeat_interleave(torch.arange(len(PACK_LENS), device="cuda"),
                                   torch.tensor(PACK_LENS, device="cuda"))
     r = torch.arange(t, device="cuda")
@@ -4072,24 +4058,61 @@ def varlen_dkdv_cluster_times(wide: dict) -> tuple:
                  warmup=1)
     del out, qh, kh, vh, block_causal
     torch.cuda.empty_cache()
-    a = varlen.varlen_dkdv_kernel_attrs("wgmma_cluster")
     shape = f"{len(PACK_LENS)} documents in {t} tokens, H{hq}/{hkv} D{d} causal bf16"
-    log(f"  varlen_dkdv cluster route ({shape}): device {kms[0]:.4f} ms, CUDA events "
-        f"{kms[1]:.4f} ms, {flops / kms[0] / 1e9:.1f} TFLOP/s, bound {bms:.4f} ms ({bby}); "
-        f"plain {pms[0]:.4f} ms; torch.autograd.grad through scaled_dot_product_attention "
-        f"({backend} backend, block-diagonal causal bool mask, K/V heads expanded, the dK/dV + "
-        f"dQ pair) {lms[0]:.4f} ms; max|err| vs plain {err:.3e}; {a['registers']} registers, "
-        f"{a['local_bytes']} spill bytes")
-    row = dict(
-        name="varlen_dkdv_cluster", row="9 (D > 512)", route="cuda",
-        source="ffpa_attn_tpu_torch/csrc/varlen_bwd.cu",
-        replaces="ffpa_attn_tpu/ops/varlen.py:433", launches=wide["launches"], max_abs_err=err,
-        ms=kms[0], plain_ms=pms[0], bound_ms=bms, bound_by=bby, library_ms=lms[0],
-        event_ms=kms[1], shape=shape, varlen_dkdv_route=plan.route,
-        kernel="tma::varlen_dkdv_wgmma_kernel<T, true>", registers=a["registers"],
-        spill_bytes=a["local_bytes"], packed_call_grad_errs=wide["errs"],
-    )
-    return row, (kms[1], pms[1], lms[1])
+    rows, events = [], {}
+    for name, row_id, replaces in (
+            ("varlen_dkdv", "9 (D > 512)", "ffpa_attn_tpu/ops/varlen.py:433"),
+            ("varlen_dq", "10 (D > 512)", "ffpa_attn_tpu/ops/varlen.py:489")):
+        if name == "varlen_dkdv":
+            def run():
+                return varlen._varlen_dkdv_kernel(ops, meta, dkdv_sched, cfg, **kw)
+
+            def plain():
+                return varlen._varlen_dkdv_plain(q, k, v, do, lse, delta, meta, **kw)
+
+            outs, kernels = ("dk", "dv"), varlen.DKDV_KERNELS
+            attrs = varlen.varlen_dkdv_kernel_attrs
+        else:
+            def run():
+                return (varlen._varlen_dq_kernel(ops, meta, dq_sched, **kw),)
+
+            def plain():
+                return (varlen._varlen_dq_plain(q, k, v, do, lse, delta, meta, **kw),)
+
+            outs, kernels, attrs = ("dq",), varlen.DQ_KERNELS, varlen.varlen_dq_kernel_attrs
+        got = run()
+        torch.cuda.synchronize()
+        err = _hold(f"{name}_cluster_T{t}_D{d}", dict(zip(outs, zip(got, plain()))))
+        del got
+        torch.cuda.empty_cache()
+        flops, nbytes = varlen_backward_counts(name, PACK_LENS, PACK_LENS, hq=hq, hkv=hkv,
+                                               d=d, dv=d, causal=True)
+        bms, bby = bound_ms(flops, nbytes)
+
+        def timed():
+            return _kernel_timed(run, kernels, 10)
+
+        kms = _above_bound(f"{name} cluster (D{d})", timed(), bms, timed)
+        pms = _timed(plain, 2, warmup=1)
+        torch.cuda.empty_cache()
+        a = attrs("wgmma_cluster")
+        log(f"  {name} cluster route ({shape}): device {kms[0]:.4f} ms, CUDA events "
+            f"{kms[1]:.4f} ms, {flops / kms[0] / 1e9:.1f} TFLOP/s, bound {bms:.4f} ms ({bby}); "
+            f"plain {pms[0]:.4f} ms; torch.autograd.grad through scaled_dot_product_attention "
+            f"({backend} backend, block-diagonal causal bool mask, K/V heads expanded, the "
+            f"dK/dV + dQ pair) {lms[0]:.4f} ms; max|err| vs plain {err:.3e}; "
+            f"{a['registers']} registers, {a['local_bytes']} spill bytes")
+        rows.append(dict(
+            name=f"{name}_cluster", row=row_id, route="cuda",
+            source="ffpa_attn_tpu_torch/csrc/varlen_bwd.cu", replaces=replaces,
+            launches=wide["launches"][name], max_abs_err=err, ms=kms[0], plain_ms=pms[0],
+            bound_ms=bms, bound_by=bby, library_ms=lms[0], event_ms=kms[1], shape=shape,
+            **{f"{name}_route": plans[name].route},
+            kernel=f"tma::{name}_wgmma_kernel<T, true>", registers=a["registers"],
+            spill_bytes=a["local_bytes"], packed_call_grad_errs=wide["errs"],
+        ))
+        events[f"{name}_cluster"] = (kms[1], pms[1], lms[1])
+    return rows, events
 
 
 def phase_times(errs: dict, main_path: dict, training: dict, windowed: dict,

@@ -12,10 +12,11 @@
 //     get P = 0 and dS = 0 exactly, so rows with no key (padding, rows past
 //     Tq, an empty interval's [0, 0] tile) add nothing;
 //   * the tiles each block walks are read from device memory, computed on
-//     the device at the kernel's own tiles (ops/varlen.py): for dK/dV a 64-row
-//     KV tile's [imin, imax] of 64-row Q tiles, for dQ a 64-row Q tile's list
-//     of needed 64-row KV tiles (wgmma; the forward's own schedule) or a
-//     block_q-row Q tile's [jmin, jmax] (mma.sync).
+//     the device from one 64 x 64 walk of the call (ops/varlen.py
+//     _backward_schedules: the forward's own at D, Dv <= 512, computed by
+//     the backward above): for dK/dV a 64-row KV tile's [imin, imax] of
+//     64-row Q tiles, for dQ a 64-row Q tile's list of needed 64-row KV
+//     tiles.
 // q, dO [T, Hq, D|Dv] and k, v [T, Hkv, D|Dv] are read through their row
 // and head strides (no head-major copy, no padding of T); dq, dk and dv are
 // written packed, the ragged tails bounds-checked. lse and delta are [Hq, Tq]
@@ -32,16 +33,13 @@
 // (the TPU kernel writes a per-q-head dK/dV in the input type and sums the
 // group afterwards).
 //
-// dQ has two routes, by head dims alone (tma::make_dq_plan). D, Dv <= 512
-// take the TMA + wgmma block of namespace tma (the dense dq::wgmma_dq_kernel's
-// design on the varlen forward's walk, details beside it): 64 Q rows of one
-// query head with Q and dO resident, the listed KV tiles' K and V boxes
-// streamed, the fp32 dQ tile split over two consumer warpgroups. Wider
-// heads take the mma.sync varlen_dq_kernel: a block owns BQ packed query
-// rows of one head with Q and dO resident and walks the KV tiles of its
-// interval: S over the K chunks, dP over the V chunks, dS to shared memory,
-// dQ += dS K over the K chunks again, the fp32 dQ tile in registers like
-// the forward's O tile.
+// dQ is the TMA + wgmma block of namespace tma (the dense dq::wgmma_dq_kernel's
+// design, details beside it) on two routes, by head dims alone
+// (tma::make_dq_plan): 64 Q rows of one query head with Q and dO resident,
+// the listed KV tiles' K and V boxes streamed, the fp32 dQ tile split over
+// two consumer warpgroups; one block at D, Dv <= 512, a cluster of two
+// blocks up to 1024 (each rank holding half of D's and of Dv's boxes, the
+// partial S and dP exchanged through distributed shared memory).
 //
 // Bound on an H100: operations (4 matmul units of 2 * pairs * D flop for
 // dK/dV, 3 for dQ, over the segments' bands; utils/profiling.py
@@ -74,10 +72,10 @@ struct VarlenBwdParams {
   const int* q_rank;
   const int* k_seg;    // [ceil(Tk / 64) * 64]
   const int* k_pos;
-  const int* lo;       // [tiles] first tile of each block's interval
-  const int* hi;       // last tile
-  const int* order;    // [tiles] the blocks' tiles in launch order (wgmma routes)
-  const int* tiles;    // [Q tiles, tiles_ld] each Q tile's needed KV tiles (wgmma dQ)
+  const int* lo;       // [KV tiles] first Q tile of each dK/dV block's interval
+  const int* hi;       // last Q tile
+  const int* order;    // [tiles] the blocks' tiles in launch order
+  const int* tiles;    // [Q tiles, tiles_ld] each Q tile's needed KV tiles (dQ)
   const int* ntile;    // [Q tiles] how many it lists
   const float* alibi;  // [Hq] slopes, or null
   int Hq, Hkv, group, tq, tk, D, Dv, col_passes, tiles_ld;
@@ -112,192 +110,6 @@ __device__ __forceinline__ Prob score_prob(const VarlenBwdParams& p, bool keep, 
   if (p.alibi != nullptr) s -= slope * fabsf((float)dist);
   r.p = __expf(s - lse);
   return r;
-}
-
-// ---------------------------------------------------------------------------
-// dQ
-// ---------------------------------------------------------------------------
-
-// ops/config.py varlen_dq_smem_bytes is the same formula: the dense dQ
-// block's, plus the row tile's segment ids and ranks.
-template <typename T>
-size_t dq_smem_bytes(int bq, int d, int dv) {
-  return ((size_t)bq * (d + 8) + (size_t)bq * (dv + 8) + (size_t)NST * CH * LDC +
-          (size_t)bq * LDC) * sizeof(T) + 2 * (size_t)bq * sizeof(float) +
-         2 * (size_t)bq * sizeof(int);
-}
-
-template <typename T, int BQ>
-__global__ void __launch_bounds__(NTHR, 1) varlen_dq_kernel(const VarlenBwdParams p) {
-  constexpr int RT = BQ / 16;
-  constexpr int WC = NW / RT;
-  constexpr int CW = CH / WC;
-  constexpr int N8 = CW / 8;
-  constexpr int NVMAX = ACC_PER_THREAD / (4 * N8);  // D chunks the registers hold
-  static_assert(N8 == 1 || N8 == 2, "BQ must be 32 or 64");
-
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int LDQ = p.D + 8, LDO = p.Dv + 8;
-  T* Qs = reinterpret_cast<T*>(smem_raw);
-  T* dOs = Qs + BQ * LDQ;
-  T* ring = dOs + BQ * LDO;
-  T* dSs = ring + NST * CH * LDC;
-  float* lse_s = reinterpret_cast<float*>(dSs + BQ * LDC);
-  float* delta_s = lse_s + BQ;
-  int* qseg_s = reinterpret_cast<int*>(delta_s + BQ);
-  int* qrank_s = qseg_s + BQ;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int rt = warp / WC, wc = warp % WC;
-  const Lanes L(lane);
-  const int head = blockIdx.x, tile = blockIdx.y, kvh = head / p.group;
-  const int row0 = tile * BQ;
-  const int kv_lo = p.lo[tile] * CH;
-  const int ntiles = p.hi[tile] - p.lo[tile] + 1;  // an empty interval is [0, 0]
-  const int nD = p.D / CH, nV = p.Dv / CH;
-
-  const T* qb = static_cast<const T*>(p.q) + (long long)head * p.q_hs;
-  const T* ob = static_cast<const T*>(p.dout) + (long long)head * p.do_hs;
-  const T* kb = static_cast<const T*>(p.k) + (long long)kvh * p.k_hs;
-  const T* vb = static_cast<const T*>(p.v) + (long long)kvh * p.v_hs;
-  const float slope = p.alibi != nullptr ? p.alibi[head] : 0.f;
-
-  // Resident Q and dO: rows past Tq zero-filled.
-  for (int i = tid; i < BQ * (p.D / 8); i += NTHR) {
-    const int r = i / (p.D / 8), c = (i % (p.D / 8)) * 8;
-    const bool ok = row0 + r < p.tq;
-    cp_async16(Qs + r * LDQ + c, ok ? qb + (long long)(row0 + r) * p.q_rs + c : qb, ok);
-  }
-  for (int i = tid; i < BQ * (p.Dv / 8); i += NTHR) {
-    const int r = i / (p.Dv / 8), c = (i % (p.Dv / 8)) * 8;
-    const bool ok = row0 + r < p.tq;
-    cp_async16(dOs + r * LDO + c, ok ? ob + (long long)(row0 + r) * p.do_rs + c : ob, ok);
-  }
-  cp_async_commit();
-  for (int i = tid; i < BQ; i += NTHR) {
-    const bool ok = row0 + i < p.tq;
-    lse_s[i] = ok ? p.lse[(long long)head * p.tq + row0 + i] : 0.f;
-    delta_s[i] = ok ? p.delta[(long long)head * p.tq + row0 + i] : 0.f;
-    qseg_s[i] = p.q_seg[row0 + i];
-    qrank_s[i] = p.q_rank[row0 + i];
-  }
-
-  // Chunk gi of the stream: per KV tile, the nD K chunks (S), the nV V
-  // chunks (dP), the nD K chunks again (dQ); rows past Tk zero-filled.
-  const int per_tile = 2 * nD + nV;
-  const int total = ntiles * per_tile;
-  auto issue = [&](int gi) {
-    if (gi < total) {
-      const int t = gi / per_tile, c = gi - t * per_tile;
-      const int kv0 = kv_lo + t * CH;
-      const bool is_v = c >= nD && c < nD + nV;
-      const T* src = is_v ? vb : kb;
-      const long long rs = is_v ? p.v_rs : p.k_rs;
-      const int c0 = c < nD ? c : (is_v ? c - nD : c - nD - nV);
-      T* dst = ring + (gi % NST) * (CH * LDC);
-      const int r = tid >> 3, cv = (tid & 7) * 8;
-      const bool ok = kv0 + r < p.tk;
-      cp_async16(dst + r * LDC + cv, ok ? src + (long long)(kv0 + r) * rs + c0 * CH + cv : src, ok);
-    }
-    cp_async_commit();
-  };
-  auto begin = [&](int gi) -> const T* {
-    issue(gi + NST - 1);
-    cp_async_wait<NST - 1>();
-    __syncthreads();
-    return ring + (gi % NST) * (CH * LDC);
-  };
-
-  float o[NVMAX][N8][4];
-#pragma unroll
-  for (int vc = 0; vc < NVMAX; ++vc)
-#pragma unroll
-    for (int n = 0; n < N8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[vc][n][e] = 0.f;
-
-#pragma unroll
-  for (int gi = 0; gi < NST - 1; ++gi) issue(gi);
-  for (int t = 0; t < ntiles; ++t) {
-    const int kv0 = kv_lo + t * CH;
-    const int gt = t * per_tile;
-
-    float s_acc[N8][4], dp_acc[N8][4];
-#pragma unroll
-    for (int n = 0; n < N8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s_acc[n][e] = dp_acc[n][e] = 0.f;
-    for (int c = 0; c < nD; ++c) {
-      const T* ch = begin(gt + c);
-      mma_abt<T, N8>(s_acc, Qs + (rt * 16) * LDQ + c * CH, LDQ, ch + (wc * CW) * LDC, L, lane);
-      __syncthreads();
-    }
-    for (int c = 0; c < nV; ++c) {
-      const T* ch = begin(gt + nD + c);
-      mma_abt<T, N8>(dp_acc, dOs + (rt * 16) * LDO + c * CH, LDO, ch + (wc * CW) * LDC, L, lane);
-      __syncthreads();
-    }
-
-    // dS (with the softcap factor) to shared memory. Every column of a tile
-    // lies below ceil(Tk / 64) * 64, the key metadata's length.
-#pragma unroll
-    for (int n = 0; n < N8; ++n) {
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int rl = rt * 16 + g + 8 * hh, cl = wc * CW + n * 8 + 2 * t4;
-        const int qs = qseg_s[rl], qr = qrank_s[rl];
-        float ds[2];
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int kp = __ldg(p.k_pos + kv0 + cl + j);
-          const bool keep = keeps(p, qs, qr, __ldg(p.k_seg + kv0 + cl + j), kp);
-          const Prob pr = score_prob(p, keep, s_acc[n][2 * hh + j], lse_s[rl], slope, qr - kp);
-          ds[j] = pr.p * (dp_acc[n][2 * hh + j] - delta_s[rl]) * pr.cap;
-        }
-        *reinterpret_cast<uint32_t*>(dSs + rl * LDC + cl) = pack2<T>(ds[0], ds[1]);
-      }
-    }
-
-    // dQ += dS K over the K chunks.
-#pragma unroll
-    for (int vc = 0; vc < NVMAX; ++vc) {
-      if (vc < nD) {
-        const T* ch = begin(gt + nD + nV + vc);
-        mma_ab<T, N8>(o[vc], dSs + (rt * 16) * LDC, LDC, ch + wc * CW, L);
-        __syncthreads();
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-  // Epilogue: dQ = scale * sum, packed [Tq, Hq, D].
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int row = row0 + rt * 16 + g + 8 * hh;
-    if (row >= p.tq) continue;
-    const long long base = ((long long)row * p.Hq + head) * p.D;
-#pragma unroll
-    for (int vc = 0; vc < NVMAX; ++vc) {
-      if (vc < nD) {
-#pragma unroll
-        for (int n = 0; n < N8; ++n) {
-          const int col = vc * CH + wc * CW + n * 8 + 2 * t4;
-          store2<T>(p.dq, base + col, o[vc][n][2 * hh] * p.scale, o[vc][n][2 * hh + 1] * p.scale,
-                    0);
-        }
-      }
-    }
-  }
-}
-
-template <typename K>
-cudaError_t launch(K kern, dim3 grid, size_t smem, const VarlenBwdParams& p, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  if (grid.x * grid.y == 0) return cudaSuccess;
-  kern<<<grid, NTHR, smem, stream>>>(p);
-  return cudaGetLastError();
 }
 
 VarlenBwdParams make_params(const void* q, const void* k, const void* v, const void* dout,
@@ -440,7 +252,7 @@ constexpr int PART_BYTES = ROWS * 32 * 4;    // one consumer's partial S^T or dP
 constexpr int PART_BUF_BYTES = 2 * 2 * PART_BYTES;  // both consumers' S^T and dP^T: one slot
 constexpr int PART_BARRIERS = 4;             // landed and free, per consumer
 constexpr int SMEM_LIMIT = 232448;
-constexpr int MMA_SYNC = 0, WGMMA = 1, CLUSTER = 2;  // routes (mma.sync: the wide dQ's)
+constexpr int WGMMA = 1, CLUSTER = 2;       // routes
 
 // A block's share of the head dims: its first D box and D boxes, its first
 // Dv box and Dv boxes. Alone a block holds everything; split, rank r holds
@@ -1031,39 +843,40 @@ cudaError_t launch_typed(bool f16, const VarlenBwdParams& p, const Plan& pl, int
 }
 
 // ---------------------------------------------------------------------------
-// dQ for D, Dv <= 512: TMA + mbarrier + wgmma
+// dQ: TMA + mbarrier + wgmma, one block (D, Dv <= 512) or a cluster of two
+// (D or Dv in (512, 1024])
 // ---------------------------------------------------------------------------
 
-// The Hopper route of ffpa_varlen_bwd_dq: the dense recompute dQ block
-// (flash_bwd.cu namespace dq) over the packed layout, on the varlen
-// forward's walk (varlen_fwd.cu namespace tma). The mma.sync
-// varlen_dq_kernel above owned block_q rows, ran m16n8k16 products from
-// ldmatrix fragments with a block barrier after every 64-column chunk of
-// its cp.async ring (no product in flight during a barrier), and walked
-// every KV tile of its Q tile's interval (1.49x the band's pairs at the
-// packed-training packing): 2.13 ms there on an H100, 16x its bound; this
-// block 0.65 ms, 4.9x (PERF.md). Here 384 threads own 64 Q rows of one
-// query head:
+// ffpa_varlen_bwd_dq's kernel: the dense recompute dQ block (flash_bwd.cu
+// namespace dq) over the packed layout, on a 64 x 64 walk (varlen_fwd.cu
+// namespace tma; the forward saves it at D, Dv <= 512, the backward
+// computes it above). The mma.sync block it replaced owned block_q rows,
+// ran m16n8k16 products from ldmatrix fragments with a block barrier after
+// every 64-column chunk of its cp.async ring (no product in flight during
+// a barrier), and walked every KV tile of its Q tile's interval: at D512
+// 2.13 ms at the packed-training packing on an H100, 16x its bound, where
+// one block of this design reads 0.65 ms, 4.9x; above D512 (32-row tiles)
+// 6.63 ms, 25x, at 8 documents in 8192 tokens H8/4 D1024 (PERF.md). Here
+// 384 threads own 64 Q rows of one query head:
 //  - warpgroup 0 is the producer (setmaxnreg 24). One thread loads Q and dO
-//    once by TMA into D / 64 and Dv / 64 resident 64 x 64 boxes (128 B
-//    swizzle; 3-D maps (D, T, H) with the row and head strides at the true
-//    Tq and Tk, so the ragged tail reads as zero), then per listed KV tile
-//    streams the K boxes (for S) and the V boxes (for dP) in two-box
-//    stages, then the K boxes again (for dQ), box j of consumer 0's half of
-//    D beside box j of consumer 1's: one stage feeds both dQ products;
+//    once by TMA into 64 x 64 resident boxes (128 B swizzle; 3-D maps (D,
+//    T, H) with the row and head strides at the true Tq and Tk, so the
+//    ragged tail reads as zero), then per listed KV tile streams the K
+//    boxes (for S) and the V boxes (for dP) in two-box stages, then the K
+//    boxes again (for dQ), box j of consumer 0's share of D beside box j of
+//    consumer 1's: one stage feeds both dQ products;
 //  - warpgroups 1 and 2 are the consumers (setmaxnreg 240). Consumer c
 //    computes S = Q K^T and dP = dO V^T for KV columns 32c..32c+31
 //    (wgmma m64n32k16), forms dS = P (dP - delta) in registers (softcap's
 //    factor included), rounds it to the input type into its 32 columns of
 //    one swizzled [q][kv] exchange box and, after a named barrier, runs
-//    dQ[:, own half of D] += dS K (m64n64k16 a box; 128 fp32 registers a
-//    thread at D512);
-//  - the walk is the forward's schedule, saved by the forward: a Q tile
-//    visits only the KV tiles its row of _needed_tiles(_tile_needed(...,
-//    64, 64)) lists. The grid is (Hq, Q tiles): the heads of a Q tile side
-//    by side, so a GQA group's K and V stay in L2, and the Q tiles most
-//    needed first. A Q tile with no listed tile loads nothing (not even Q)
-//    and stores dQ = 0;
+//    dQ[:, own share of D] += dS K (m64n64k16 a box; 128 fp32 registers a
+//    thread at a share of 256 columns);
+//  - the walk: a Q tile visits only the KV tiles its row of
+//    _needed_tiles(_tile_needed(..., 64, 64)) lists. The grid is (Hq, Q
+//    tiles): the heads of a Q tile side by side, so a GQA group's K and V
+//    stay in L2, and the Q tiles most needed first. A Q tile with no listed
+//    tile loads nothing (not even Q) and stores dQ = 0;
 //  - a consumer's 64 x 32 block inside one segment's band with no softcap,
 //    ALiBi or left window is full (the forward's test: varlen._full_blocks
 //    at 64 x 32) and takes p = exp(s scale - lse) alone. Any other block
@@ -1078,62 +891,116 @@ cudaError_t launch_typed(bool f16, const VarlenBwdParams& p, const Plan& pl, int
 // roles are template arguments, each stage's products are committed in
 // their own block, stage releases are predicated arrivals and the zeros of
 // dQ are fenced off from its products.
+//
+// D, Dv <= 512 (SPLIT false): one block holds all of D and Dv, 5 stages at
+// D = Dv = 512.
+//
+// Wider heads (SPLIT true, D or Dv in (512, 1024]): Q and dO of 64 rows at
+// D1024 (256 KB) fit no block, and a 64 x 512 fp32 dQ half is all a
+// consumer's registers hold, so a cluster of two blocks (grid x = 2 Hq, the
+// pair adjacent in x: the same block order) owns the 64 Q rows and splits
+// both head dims, as the dense dQ cluster does: rank r holds the Q boxes of
+// its half of D and the dO boxes of its half of Dv, resident (rank 0 the
+// larger half; sm90.cuh col_block), and per listed KV tile streams only its
+// K boxes (for S), its V boxes (for dP) and its K boxes again (for dQ), so
+// every byte of Q, dO, K and V is read once per cluster. Consumer c of each
+// rank computes a partial S over its rank's D boxes and a partial dP over
+// its Dv boxes (64 x 32 fp32, 8 KB each), stores both into the shared
+// memory of the partner's consumer c (st.async, completing their bytes on
+// the partner's barrier; S as soon as its products complete, so its bytes
+// travel under the dP products) and adds the partner's partials to its
+// own. fp32 addition of two values is commutative, so both ranks hold
+// bit-identical S and dP, and so the same P, full-block test (the same
+// metadata words) and dS, with no further exchange. Each rank writes the
+// whole dS box, runs dQ[:, its half of D] += dS K over its own K boxes
+// (consumer c owning ceil or floor of the rank's boxes, at most 4) and
+// stores its own dQ columns. The exchange has one slot (3 stages at D = Dv
+// = 1024; the arithmetic is beside make_dq_plan), so a rank stores tile t's
+// partials only after the partner has read tile t - 1's: each thread that
+// read its share of the slot arrives on the partner's "free" barrier (a
+// remote arrive, release at cluster scope), which the storing consumer
+// waits on with acquire. Both ranks walk the same list (the same Q tile's
+// row of the schedule). A rank may hold no D box (D64 / Dv1024) or no Dv
+// box (D1024 / Dv64): it sends zero partials of that product and, without
+// D boxes, owns no dQ columns. A Q tile with no listed KV tile exchanges
+// nothing; both ranks store zeros. The cluster barrier at the start
+// publishes the barriers' initialisation, the one at the end keeps a block
+// alive while its partner may still store or arrive into it.
 constexpr int DQ_MAX_STAGES = 8;
 constexpr int DQ_BOXES = MAX_BOXES / 2;  // D boxes of one consumer's dQ: 64 x 256 fp32
+// The exchange's slot (2 consumers x (S + dP) x PART_BYTES: a 64 x 32 fp32
+// partial is as large as dK/dV's) and its 4 barriers (landed and free, per
+// consumer), padded to a 1024 B atom: on the cluster route they lead the
+// layout, at offsets the compiler knows.
+constexpr int DQ_XCH_BYTES = PART_BUF_BYTES + 1024;
+
+// Shared memory of a dQ block laid out for nd Q boxes and nv dO boxes,
+// apart from the ring: Q, dO, the dS box, the 1024 B alignment, Q's
+// barrier and, split, the exchange's slot and barriers.
+inline size_t dq_fixed_bytes(int nd, int nv, bool split) {
+  return (size_t)(nd + nv + 1) * BOX_BYTES + 1024 + sizeof(uint64_t) +
+         (split ? DQ_XCH_BYTES : 0);
+}
 
 // The route and tiling of a dQ launch at head dims (D, Dv), multiples of
-// 64: D, Dv <= 512 take this block (64 Q rows, consumer 0 owning the first
-// ceil(nd / 2) of D's nd boxes of dQ and consumer 1 the rest), with as many
-// ring stages as shared memory holds after Q, dO and the dS box (5 at D =
-// Dv = 512); wider heads the mma.sync varlen_dq_kernel, whose row tile is
-// the largest its registers (rows x D <= 64 x 512) and shared memory hold.
-// The dense dQ plan (flash_bwd.cu dq::make_plan) with the varlen mma.sync
-// block's shared memory. ffpa_varlen_bwd_dq_plan hands it out; ops/config.py
-// varlen_dq_plan mirrors it and the card test holds the two equal.
+// 64 up to 1024: the dense dQ plan (flash_bwd.cu dq::make_plan). D, Dv <=
+// 512 take one block, wider heads the cluster; within a block (a rank)
+// consumer 0 owns the first ceil(nd / 2) of its nd D boxes of dQ and
+// consumer 1 the rest, with as many ring stages (at most 8) as shared
+// memory holds beside the rest: 5 at D = Dv = 512. Both ranks of a cluster
+// lay out rank 0's share. At D = Dv = 1024 a rank's Q and dO take 16 boxes
+// (128 KB), the dS box 8 KB and the exchange's slot 32 KB with its
+// barriers in a 1 KB atom: with the alignment and Q's barrier 174,088 B,
+// and 3 stages of 16,400 B make 223,288 of the 232,448 a block may ask
+// for. The segment metadata and the tile lists are read from device memory
+// and cost no shared memory. ffpa_varlen_bwd_dq_plan hands the plan out;
+// ops/config.py varlen_dq_plan mirrors it (it is dq_plan) and the card
+// test holds the two equal.
 struct DqPlan {
-  int route, rows, stages, nd0;
+  int route, stages;
+  Part part[2];  // each rank's share (the lone block's is part[0])
   size_t smem;
 };
 inline DqPlan make_dq_plan(int D, int Dv) {
-  DqPlan pl;
   const int nd = D / COLS, nv = Dv / COLS;
-  pl.nd0 = col_block(nd, 2, 0).nc;
-  if (nd <= MAX_BOXES && nv <= MAX_BOXES) {
-    pl.route = WGMMA;
-    pl.rows = QROWS;
-    // Q, dO, the dS box, the 1024 B alignment and their barrier; a stage
-    // is two boxes and its two barriers.
-    const size_t fixed = (size_t)(nd + nv + 1) * BOX_BYTES + 1024 + sizeof(uint64_t);
-    const size_t stage = STAGE_BYTES + 2 * sizeof(uint64_t);
-    pl.stages = (int)std::min((size_t)DQ_MAX_STAGES, (SMEM_LIMIT - fixed) / stage);
-    pl.smem = fixed + pl.stages * stage;
-  } else {
-    pl.route = MMA_SYNC;
-    const bool tall =
-        64 * D <= 32 * 1024 && dq_smem_bytes<__nv_bfloat16>(64, D, Dv) <= (size_t)SMEM_LIMIT;
-    pl.rows = tall ? 64 : 32;
-    pl.stages = NST;
-    pl.smem = dq_smem_bytes<__nv_bfloat16>(pl.rows, D, Dv);
-  }
+  const bool split = nd > MAX_BOXES || nv > MAX_BOXES;
+  DqPlan pl;
+  pl.route = split ? CLUSTER : WGMMA;
+  pl.part[0] = part_of(nd, nv, split, 0);
+  pl.part[1] = part_of(nd, nv, split, 1);
+  const size_t fixed = dq_fixed_bytes(pl.part[0].nd, pl.part[0].nv, split);
+  pl.stages = (int)std::min((size_t)DQ_MAX_STAGES, (SMEM_LIMIT - fixed) / STAGE_SMEM);
+  pl.smem = fixed + pl.stages * STAGE_SMEM;
   return pl;
 }
 
-// Shared memory of a dQ block, from a 1024 B boundary: the Q boxes, the dO
-// boxes, the dS box, the ring's stages, their full / empty barriers and the
-// barrier of Q and dO.
+// Shared memory of a dQ block, from a 1024 B boundary: split, the
+// exchange's slot and its barriers (an atom); the Q boxes, the dO boxes,
+// the dS box, the ring's stages, their full / empty barriers and the
+// barrier of Q and dO. The exchange leads so that its addresses are
+// constant offsets from the base (as in the dense dQ cluster). Both ranks
+// of a cluster lay it out alike (for rank 0's share), so an offset here is
+// the same offset in the partner.
 struct DqSmem {
   unsigned char* q;
   unsigned char* dout;
-  unsigned char* ds;  // dS (softcap's factor included): [q][kv]
+  unsigned char* ds;    // dS (softcap's factor included): [q][kv]
   unsigned char* ring;
+  unsigned char* part;  // [2][2][PART_BYTES]: consumer c's partial S, dP from the partner
   uint64_t* full;
   uint64_t* empty;
   uint64_t* q_full;
+  uint64_t* part_full;  // [2]: the partner's partials for consumer c have landed
+  uint64_t* part_free;  // [2]: the partner's consumer c has read the partials sent to it
 };
+template <bool SPLIT>
 __device__ __forceinline__ DqSmem dq_carve(unsigned char* base, int nd, int nv, int stages) {
   DqSmem sm;
-  sm.q = base;
-  sm.dout = base + nd * BOX_BYTES;
+  sm.part = base;
+  sm.part_full = reinterpret_cast<uint64_t*>(base + PART_BUF_BYTES);
+  sm.part_free = sm.part_full + 2;
+  sm.q = base + (SPLIT ? DQ_XCH_BYTES : 0);
+  sm.dout = sm.q + nd * BOX_BYTES;
   sm.ds = sm.dout + nv * BOX_BYTES;
   sm.ring = sm.ds + BOX_BYTES;
   sm.full = reinterpret_cast<uint64_t*>(sm.ring + stages * STAGE_BYTES);
@@ -1143,28 +1010,31 @@ __device__ __forceinline__ DqSmem dq_carve(unsigned char* base, int nd, int nv, 
 }
 
 // A dQ block's query head, its Q tile's first row, and its walk: entries
-// [first, first + n) of p.tiles. The same in every thread.
+// [first, first + n) of p.tiles. The same in every thread and in both
+// ranks of a cluster.
 struct DqBlock {
   int head, row0, first, n;
 };
 
-// The producer's thread: Q and dO once, then per listed KV tile the K
-// stages and the V stages (two boxes each, an odd last box alone), then the
-// dQ stages (K box j of consumer 0's half beside box nd0 + j of consumer
-// 1's, alone where that half is shorter).
+// The producer's thread: its Q and dO boxes once, then per listed KV tile
+// the stages of its K boxes and of its V boxes (two boxes each, an odd last
+// box alone), then the dQ stages (K box j of consumer 0's share beside box
+// nd0 + j of consumer 1's, alone where that share is shorter).
 __device__ __forceinline__ void dq_produce(const Maps& maps, const VarlenBwdParams& p,
-                                           const DqSmem& sm, const DqBlock& k, int stages, int nd,
-                                           int nv, int nd0) {
+                                           const DqSmem& sm, const DqBlock& k, int stages,
+                                           const Part& pt, int nd0) {
   prefetch_map(&maps.q_map);
   prefetch_map(&maps.do_map);
   prefetch_map(&maps.k_map);
   prefetch_map(&maps.v_map);
   const int kvh = k.head / p.group;
-  mbar_arrive_expect_tx(sm.q_full, (nd + nv) * BOX_BYTES);
-  for (int j = 0; j < nd; ++j)
-    tma_load_3d(sm.q + j * BOX_BYTES, &maps.q_map, sm.q_full, j * COLS, k.row0, k.head);
-  for (int j = 0; j < nv; ++j)
-    tma_load_3d(sm.dout + j * BOX_BYTES, &maps.do_map, sm.q_full, j * COLS, k.row0, k.head);
+  mbar_arrive_expect_tx(sm.q_full, (pt.nd + pt.nv) * BOX_BYTES);
+  for (int j = 0; j < pt.nd; ++j)
+    tma_load_3d(sm.q + j * BOX_BYTES, &maps.q_map, sm.q_full, (pt.d0 + j) * COLS, k.row0,
+                k.head);
+  for (int j = 0; j < pt.nv; ++j)
+    tma_load_3d(sm.dout + j * BOX_BYTES, &maps.do_map, sm.q_full, (pt.v0 + j) * COLS, k.row0,
+                k.head);
   int it = 0;
   // Stage it % stages, free again, expecting nb boxes.
   auto claim = [&](int nb) -> unsigned char* {
@@ -1173,55 +1043,82 @@ __device__ __forceinline__ void dq_produce(const Maps& maps, const VarlenBwdPara
     mbar_arrive_expect_tx(&sm.full[st], nb * BOX_BYTES);
     return sm.ring + st * STAGE_BYTES;
   };
-  auto run = [&](const CUtensorMap* map, int n, int kv0) {
+  auto run = [&](const CUtensorMap* map, int first, int n, int kv0) {
     for (int c = 0; c < n; c += STAGE_BOXES, ++it) {
       const int nb = min(STAGE_BOXES, n - c);
       unsigned char* dst = claim(nb);
       for (int b = 0; b < nb; ++b)
-        tma_load_3d(dst + b * BOX_BYTES, map, &sm.full[it % stages], (c + b) * COLS, kv0, kvh);
+        tma_load_3d(dst + b * BOX_BYTES, map, &sm.full[it % stages], (first + c + b) * COLS, kv0,
+                    kvh);
     }
   };
   for (int t = 0; t < k.n; ++t) {
     const int kv0 = __ldg(p.tiles + k.first + t) * ROWS;
-    run(&maps.k_map, nd, kv0);
-    run(&maps.v_map, nv, kv0);
+    run(&maps.k_map, pt.d0, pt.nd, kv0);
+    run(&maps.v_map, pt.v0, pt.nv, kv0);
     for (int j = 0; j < nd0; ++j, ++it) {
-      const bool both = nd0 + j < nd;
+      const bool both = nd0 + j < pt.nd;
       unsigned char* dst = claim(both ? 2 : 1);
-      tma_load_3d(dst, &maps.k_map, &sm.full[it % stages], j * COLS, kv0, kvh);
+      tma_load_3d(dst, &maps.k_map, &sm.full[it % stages], (pt.d0 + j) * COLS, kv0, kvh);
       if (both)
-        tma_load_3d(dst + BOX_BYTES, &maps.k_map, &sm.full[it % stages], (nd0 + j) * COLS, kv0,
-                    kvh);
+        tma_load_3d(dst + BOX_BYTES, &maps.k_map, &sm.full[it % stages],
+                    (pt.d0 + nd0 + j) * COLS, kv0, kvh);
     }
   }
 }
 
-// Consumer C of a dQ block; C is a template argument so that no branch
-// around a wgmma depends on the thread. Accumulator element 4 j + 2 hh + e
-// of thread (warp, g = lane / 4, t4 = lane % 4) of S and dP is Q row 16
-// warp + g + 8 hh, KV column 32 C + 8 j + 2 t4 + e of the tile; of dQ's box
-// jj, Q row 16 warp + g + 8 hh, column 8 j + 2 t4 + e of the box.
-template <typename T, int C>
+// Consumer C of a dQ block; C and SPLIT are template arguments so that no
+// branch around a wgmma depends on the thread. Accumulator element 4 j + 2
+// hh + e of thread (warp, g = lane / 4, t4 = lane % 4) of S and dP is Q
+// row 16 warp + g + 8 hh, KV column 32 C + 8 j + 2 t4 + e of the tile; of
+// dQ's box jj, Q row 16 warp + g + 8 hh, column 8 j + 2 t4 + e of the box.
+// pt is the block's share of the head dims, nd0 consumer 0's D boxes of
+// it, rank the block's rank (0 alone).
+template <typename T, int C, bool SPLIT>
 __device__ __forceinline__ void dq_consume(const VarlenBwdParams& p, const DqSmem& sm,
-                                           const DqBlock& k, int stages, int nd, int nv,
-                                           int nd0) {
+                                           const DqBlock& k, int stages, const Part& pt, int nd0,
+                                           int rank) {
   const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  const int own = C == 0 ? nd0 : nd - nd0;  // D boxes of this consumer's dQ
-  const int r0 = 16 * warp + g;             // this thread's rows: r0, r0 + 8
+  // The block's box counts (D, Dv, consumer 0's D boxes) and its rank. One
+  // block reads them as they are; a rank of the cluster from one register
+  // unpacked behind an empty asm where they are used, so the rank's values
+  // are not held apart beside the dQ accumulators (the dense dQ cluster
+  // spilled so).
+  const uint32_t counts = pt.nd | pt.nv << 8 | nd0 << 16 | rank << 24;
+  auto count = [&](int field) -> int {
+    if constexpr (SPLIT) {
+      uint32_t x = counts;
+      asm volatile("" : "+r"(x));
+      return (int)((x >> (8 * field)) & 255u);
+    }
+    return field == 0 ? pt.nd : field == 1 ? pt.nv : field == 2 ? nd0 : 0;
+  };
+  const int r0 = 16 * warp + g;  // this thread's rows: r0, r0 + 8
   constexpr float LOG2E = 1.4426950408889634f;
   // No feature that changes a kept element's p: a full block skips the mask.
   const bool plain = p.alibi == nullptr && p.softcap <= 0.f && p.window_left < 0;
+  // Split: element 4 i + e of thread tid's partial S sits at (i * 128 +
+  // tid) * 16 + 4 e bytes of its consumer's S slot, and its partial dP as
+  // far into the dP slot PART_BYTES on; a thread reads back what the
+  // partner's thread tid stored. The addresses are formed where they are
+  // used, at constant offsets from the base.
+  auto slot = [&]() { return cvta_smem(sm.part) + C * 2 * PART_BYTES + tid * 16; };
 
-  // lse and delta of this thread's two rows; rows past Tq keep no key.
+  // lse and delta of this thread's two rows; rows past Tq keep no key. One
+  // block loads them once for its walk; a rank of the cluster at each tile,
+  // after the exchange (held across the walk, the dense cluster's spilled).
   float lse[2], dl[2];
+  auto load_rows = [&]() {
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int row = k.row0 + r0 + 8 * hh;
-    const bool ok = row < p.tq;
-    lse[hh] = ok ? p.lse[(long long)k.head * p.tq + row] : 0.f;
-    dl[hh] = ok ? p.delta[(long long)k.head * p.tq + row] : 0.f;
-  }
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = k.row0 + r0 + 8 * hh;
+      const bool ok = row < p.tq;
+      lse[hh] = ok ? p.lse[(long long)k.head * p.tq + row] : 0.f;
+      dl[hh] = ok ? p.delta[(long long)k.head * p.tq + row] : 0.f;
+    }
+  };
+  if constexpr (!SPLIT) load_rows();
 
   // Every ordinary write of an accumulator is fenced off from the wgmma
   // that follows, or ptxas serializes the pipeline.
@@ -1271,6 +1168,16 @@ __device__ __forceinline__ void dq_consume(const VarlenBwdParams& p, const DqSme
       ++it;
     }
   };
+  // Split: this rank's partial a (zeros where the rank holds no box of the
+  // product) into the partner's slot at off.
+  auto send = [&](float(&a)[16], int n, uint32_t off) {
+    const uint32_t there = mapa(slot() + off, count(3) ^ 1);
+    const uint32_t there_bar = mapa(cvta_smem(&sm.part_full[C]), count(3) ^ 1);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) a[i] = n > 0 ? a[i] : 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) st_async_v4(there + i * 2048, a + 4 * i, there_bar);
+  };
 
   if (k.n > 0) mbar_wait(sm.q_full, 0);
   for (int t = 0; t < k.n; ++t) {
@@ -1279,15 +1186,48 @@ __device__ __forceinline__ void dq_consume(const VarlenBwdParams& p, const DqSme
     asm volatile("" : "+r"(idx));
     const int kc = __ldg(p.tiles + idx) * ROWS + 32 * C;
     float s[16], dp[16];
-    stream(s, sm.q, nd);
-    stream(dp, sm.dout, nv);
+    stream(s, sm.q, count(0));
+    if constexpr (SPLIT) {
+      drain();  // also completes this consumer's dQ products of the tile before
+      fence_operands(s);
+      // The partner has read tile t - 1's partials (at t = 0 the wait for
+      // parity 1 of a fresh barrier returns at once). S goes out before
+      // the dP products, so its bytes travel under them.
+      mbar_wait_cluster(&sm.part_free[C], (t + 1) & 1);
+      send(s, count(0), 0);
+    }
+    stream(dp, sm.dout, count(1));
     drain();  // also completes this consumer's dQ products of the tile before
     fence_operands(s);
     fence_operands(dp);
 
-    // The full-block test reads the same six words in every thread, the
-    // rows' from an index the empty asm hides (else their loads are hoisted
-    // out of the walk and held beside dQ).
+    if constexpr (SPLIT) {
+      // S and dP = this rank's partials + the partner's, the same bits in
+      // both ranks.
+      send(dp, count(1), PART_BYTES);
+      mbar_arrive_expect_tx_if(&sm.part_full[C], 2 * PART_BYTES, tid == 0);
+      mbar_wait_cluster(&sm.part_full[C], t & 1);
+      const uint32_t mine = slot();
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float x[4], y[4];
+        lds_v4(mine + i * 2048, x);
+        lds_v4(mine + PART_BYTES + i * 2048, y);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[4 * i + e] += x[e];
+          dp[4 * i + e] += y[e];
+        }
+      }
+      mbar_arrive_cluster(mapa(cvta_smem(&sm.part_free[C]), count(3) ^ 1));
+      fence_operands(s);
+      fence_operands(dp);
+      load_rows();
+    }
+
+    // The full-block test reads the same six words in every thread (and in
+    // both ranks), the rows' from an index the empty asm hides (else their
+    // loads are hoisted out of the walk and held beside dQ).
     int q_first = k.row0;
     asm volatile("" : "+r"(q_first));
     const int ks = __ldg(p.k_seg + kc);
@@ -1351,9 +1291,10 @@ __device__ __forceinline__ void dq_consume(const VarlenBwdParams& p, const DqSme
 
     // dQ[:, own boxes] += dS K: dQ stage j holds this consumer's K box j at
     // C * BOX_BYTES; a consumer with fewer boxes frees the stage unread.
+    const int nd0_t = count(2), own = C == 0 ? nd0_t : count(0) - nd0_t;
 #pragma unroll
     for (int j = 0; j < DQ_BOXES; ++j) {
-      if (j < nd0) {
+      if (j < nd0_t) {
         const int st = it % stages;
         wait_full(st);
         if (j < own) {
@@ -1371,9 +1312,11 @@ __device__ __forceinline__ void dq_consume(const VarlenBwdParams& p, const DqSme
   drain();
   fence_operands(acc);
 
-  // Epilogue: dQ = scale * sum, packed [Tq, Hq, D]; rows past Tq are not
-  // stored. A Q tile that walked nothing stores zeros.
-  const int col0 = C == 0 ? 0 : nd0 * COLS;
+  // Epilogue: dQ = scale * sum, packed [Tq, Hq, D], this block's columns;
+  // rows past Tq are not stored. A Q tile that walked nothing stores zeros.
+  const int d0 = SPLIT ? col_block(p.D / COLS, 2, count(3)).c0 : 0;
+  const int nd0_e = count(2), own = C == 0 ? nd0_e : count(0) - nd0_e;
+  const int col0 = d0 + (C == 0 ? 0 : nd0_e * COLS);
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int row = k.row0 + r0 + 8 * hh;
@@ -1390,7 +1333,7 @@ __device__ __forceinline__ void dq_consume(const VarlenBwdParams& p, const DqSme
   }
 }
 
-template <typename T>
+template <typename T, bool SPLIT>
 __global__ void __launch_bounds__(THREADS, 1)
     varlen_dq_wgmma_kernel(const __grid_constant__ Maps maps, const VarlenBwdParams p,
                            const int stages) {
@@ -1398,50 +1341,80 @@ __global__ void __launch_bounds__(THREADS, 1)
   // Boxes on 1024 B boundaries, the offset added to smem_raw itself (see
   // varlen_dkdv_wgmma_kernel).
   unsigned char* base = smem_raw + ((1024u - (cvta_smem(smem_raw) & 1023u)) & 1023u);
-  const int nd = p.D / COLS, nv = p.Dv / COLS, nd0 = col_block(nd, 2, 0).nc;
-  const DqSmem sm = dq_carve(base, nd, nv, stages);
-  // Block order: the query heads of a Q tile side by side, the Q tiles in
-  // the schedule's order (most needed KV tiles first).
+  const int rank = SPLIT ? (int)cluster_rank() : 0;
+  const int nd = p.D / COLS, nv = p.Dv / COLS;
+  const Part pt = part_of(nd, nv, SPLIT, rank);
+  const Part lay = part_of(nd, nv, SPLIT, 0);  // both ranks alike
+  const int nd0 = col_block(pt.nd, 2, 0).nc;
+  const DqSmem sm = dq_carve<SPLIT>(base, lay.nd, lay.nv, stages);
+  // Block order: the query heads of a Q tile side by side (on the cluster
+  // route each head's two ranks adjacent), the Q tiles in the schedule's
+  // order (most needed KV tiles first).
   const int tile = p.order[blockIdx.y];
-  const DqBlock k = {(int)blockIdx.x, tile * QROWS, tile * p.tiles_ld, p.ntile[tile]};
+  const DqBlock k = {SPLIT ? (int)(blockIdx.x >> 1) : (int)blockIdx.x, tile * QROWS,
+                     tile * p.tiles_ld, p.ntile[tile]};
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
       mbar_init(&sm.full[s], 1);
       mbar_init(&sm.empty[s], CONSUMER_WARPS);
     }
     mbar_init(sm.q_full, 1);
+    if constexpr (SPLIT)
+      for (int c = 0; c < 2; ++c) {
+        mbar_init(&sm.part_full[c], 1);
+        mbar_init(&sm.part_free[c], CONSUMER_THREADS);
+      }
     fence_barrier_init();
   }
-  __syncthreads();
+  // The partner's barriers are initialised before this block's first
+  // store into its shared memory. Every block of a cluster reaches both
+  // cluster barriers, a Q tile with no listed KV tile too.
+  if constexpr (SPLIT)
+    cluster_sync();
+  else
+    __syncthreads();
 
   if (threadIdx.x < 128) {
     setmaxnreg_dec<24>();
     // A Q tile that needs no KV tile loads nothing (not even Q).
-    if (threadIdx.x == 0 && k.n > 0) dq_produce(maps, p, sm, k, stages, nd, nv, nd0);
+    if (threadIdx.x == 0 && k.n > 0) dq_produce(maps, p, sm, k, stages, pt, nd0);
   } else {
     setmaxnreg_inc<240>();
     if (threadIdx.x < 256)
-      dq_consume<T, 0>(p, sm, k, stages, nd, nv, nd0);
+      dq_consume<T, 0, SPLIT>(p, sm, k, stages, pt, nd0, rank);
     else
-      dq_consume<T, 1>(p, sm, k, stages, nd, nv, nd0);
+      dq_consume<T, 1, SPLIT>(p, sm, k, stages, pt, nd0, rank);
   }
+  if constexpr (SPLIT) cluster_sync();  // the partner may still store or arrive into this block
 }
 
 // The host side of one dQ launch: tensor maps, shared memory, the grid
-// (query heads, Q tiles).
-template <typename T>
+// (query heads, on the cluster route the pair of each head adjacent along
+// x; Q tiles).
+template <typename T, bool SPLIT>
 cudaError_t dq_launch(const VarlenBwdParams& p, const DqPlan& pl, int num_q_tiles,
                       cudaStream_t stream) {
-  const dim3 grid(p.Hq, num_q_tiles);
+  const dim3 grid((SPLIT ? 2 : 1) * p.Hq, num_q_tiles);
   if (grid.x * grid.y == 0) return cudaSuccess;
   Maps maps;
   cudaError_t e = encode_maps(p, std::is_same<T, __half>::value, &maps);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(varlen_dq_wgmma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)pl.smem);
+  auto kern = varlen_dq_wgmma_kernel<T, SPLIT>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
   if (e != cudaSuccess) return e;
-  varlen_dq_wgmma_kernel<T><<<grid, THREADS, pl.smem, stream>>>(maps, p, pl.stages);
-  return cudaGetLastError();
+  if constexpr (SPLIT) {
+    return launch_cluster(kern, grid, THREADS, pl.smem, stream, 2, maps, p, pl.stages);
+  } else {
+    kern<<<grid, THREADS, pl.smem, stream>>>(maps, p, pl.stages);
+    return cudaGetLastError();
+  }
+}
+
+template <bool SPLIT>
+cudaError_t dq_launch_typed(bool f16, const VarlenBwdParams& p, const DqPlan& pl,
+                            int num_q_tiles, cudaStream_t stream) {
+  return f16 ? dq_launch<__half, SPLIT>(p, pl, num_q_tiles, stream)
+             : dq_launch<__nv_bfloat16, SPLIT>(p, pl, num_q_tiles, stream);
 }
 
 }  // namespace tma
@@ -1551,109 +1524,93 @@ extern "C" int ffpa_varlen_bwd_dkdv_attrs(int route, int is_fp16, int* regs, int
 }
 
 // dQ [Tq, Hq, D] in the input type; the route is tma::make_dq_plan's, by
-// head dims alone. Each schedule's pointers are taken; the route reads its
-// own. On the wgmma route a block owns 64 Q rows (num_q_tiles = ceil(Tq /
-// 64); block_q is not read) and walks tiles[tile * num_kv_tiles ..][0,
-// ntile[tile]) of its Q tile, the Q tiles in order's order; jmin / jmax are
-// not read. On mma.sync a block owns block_q rows (num_q_tiles = ceil(Tq /
-// block_q)) and walks every 64-row KV tile of [jmin, jmax]; tiles, ntile
-// and order are not read.
+// head dims alone (one block at D, Dv <= 512, the cluster of two up to
+// 1024). A block (a cluster) owns 64 Q rows (num_q_tiles = ceil(Tq / 64))
+// and walks tiles[tile * num_kv_tiles ..][0, ntile[tile]) of its Q tile,
+// the Q tiles in order's order.
 extern "C" int ffpa_varlen_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                   long long q_rs, long long q_hs, long long k_rs, long long k_hs,
                                   long long v_rs, long long v_hs, long long do_rs,
                                   long long do_hs, const float* lse, const float* delta, void* dq,
                                   const int* q_seg, const int* q_rank, const int* k_seg,
-                                  const int* k_pos, const int* jmin, const int* jmax,
-                                  const int* tiles, const int* ntile, const int* order,
-                                  const float* alibi, int is_fp16, int block_q, int Hq, int Hkv,
-                                  int tq, int tk, int num_q_tiles, int num_kv_tiles, int D,
-                                  int Dv, float scale, float softcap, int window_left,
+                                  const int* k_pos, const int* tiles, const int* ntile,
+                                  const int* order, const float* alibi, int is_fp16, int Hq,
+                                  int Hkv, int tq, int tk, int num_q_tiles, int num_kv_tiles,
+                                  int D, int Dv, float scale, float softcap, int window_left,
                                   int window_right, void* stream) {
   VarlenBwdParams p = make_params(q, k, v, dout, q_rs, q_hs, k_rs, k_hs, v_rs, v_hs, do_rs,
-                                  do_hs, lse, delta, q_seg, q_rank, k_seg, k_pos, jmin, jmax,
-                                  alibi, Hq, Hkv, tq, tk, D, Dv, scale, softcap, window_left,
-                                  window_right);
+                                  do_hs, lse, delta, q_seg, q_rank, k_seg, k_pos, nullptr,
+                                  nullptr, alibi, Hq, Hkv, tq, tk, D, Dv, scale, softcap,
+                                  window_left, window_right);
   p.dq = dq;
   p.tiles = tiles;
   p.ntile = ntile;
   p.order = order;
   p.tiles_ld = num_kv_tiles;
-  if (D <= 0 || Dv <= 0 || D % CH != 0 || Dv % CH != 0 || Hkv < 1 || Hq % Hkv != 0)
+  if (D <= 0 || Dv <= 0 || D % CH != 0 || Dv % CH != 0 || D > tma::MAX_HEAD_DIM ||
+      Dv > tma::MAX_HEAD_DIM || Hkv < 1 || Hq % Hkv != 0 || tiles == nullptr ||
+      ntile == nullptr || order == nullptr || (long long)num_q_tiles * tma::QROWS < tq ||
+      (long long)num_kv_tiles * tma::ROWS < tk)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const tma::DqPlan pl = tma::make_dq_plan(D, Dv);
-  if (pl.route == tma::WGMMA) {
-    if (tiles == nullptr || ntile == nullptr || order == nullptr ||
-        (long long)num_q_tiles * tma::QROWS < tq || (long long)num_kv_tiles * tma::ROWS < tk)
-      return (int)cudaErrorInvalidValue;
-    return (int)(is_fp16 ? tma::dq_launch<__half>(p, pl, num_q_tiles, st)
-                         : tma::dq_launch<__nv_bfloat16>(p, pl, num_q_tiles, st));
-  }
-  // Registers hold block_q x D fp32 (64 per thread).
-  if (jmin == nullptr || jmax == nullptr || (long long)block_q * D > 32 * 1024 ||
-      (block_q != 64 && block_q != 32) || (long long)num_q_tiles * block_q < tq)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid(Hq, num_q_tiles);
-  if (is_fp16) {
-    return (int)(block_q == 64
-                     ? launch(varlen_dq_kernel<__half, 64>, grid, dq_smem_bytes<__half>(64, D, Dv),
-                              p, st)
-                     : launch(varlen_dq_kernel<__half, 32>, grid, dq_smem_bytes<__half>(32, D, Dv),
-                              p, st));
-  }
-  return (int)(block_q == 64 ? launch(varlen_dq_kernel<__nv_bfloat16, 64>, grid,
-                                      dq_smem_bytes<__nv_bfloat16>(64, D, Dv), p, st)
-                             : launch(varlen_dq_kernel<__nv_bfloat16, 32>, grid,
-                                      dq_smem_bytes<__nv_bfloat16>(32, D, Dv), p, st));
+  return (int)(pl.route == tma::CLUSTER
+                   ? tma::dq_launch_typed<true>(is_fp16, p, pl, num_q_tiles, st)
+                   : tma::dq_launch_typed<false>(is_fp16, p, pl, num_q_tiles, st));
 }
 
 // The route and tiling ffpa_varlen_bwd_dq takes at head dims (D, Dv),
-// multiples of 64, in ffpa_bwd_dq_plan's layout: out[0..4] are the route (1
-// wgmma, 0 mma.sync), the Q rows of a block (for mma.sync the largest row
-// tile its registers and shared memory hold), the KV rows of a tile, the
-// ring's stages and the dynamic shared-memory bytes (bf16); out[5] the
-// number of dQ column blocks (the consumers' halves, or the whole block's),
-// then (first column, width) of each; cap is out's length.
+// multiples of 64 up to 1024, in ffpa_bwd_dq_plan's layout: out[0..4] are
+// the route (1 one block, 2 the cluster of two), the Q rows of a block, the
+// KV rows of a tile, the ring's stages and the dynamic shared-memory bytes
+// of a block; out[5] the number n of dQ column blocks (each rank's
+// consumers' shares, rank by rank), then (first column, width) of each;
+// out[6 + 2n] the number of ranks of a cluster (0 for one block), then each
+// rank's (first D column, D width, first Dv column, Dv width). cap is out's
+// length.
 extern "C" int ffpa_varlen_bwd_dq_plan(int D, int Dv, int* out, int cap) {
-  if (D <= 0 || Dv <= 0 || D % CH != 0 || Dv % CH != 0 || cap < 10)
+  if (D <= 0 || Dv <= 0 || D % CH != 0 || Dv % CH != 0 || D > tma::MAX_HEAD_DIM ||
+      Dv > tma::MAX_HEAD_DIM || cap < 23)
     return (int)cudaErrorInvalidValue;
   const tma::DqPlan pl = tma::make_dq_plan(D, Dv);
+  const int ranks = pl.route == tma::CLUSTER ? 2 : 1;
   out[0] = pl.route;
-  out[1] = pl.rows;
-  out[2] = CH;
+  out[1] = tma::QROWS;
+  out[2] = tma::ROWS;
   out[3] = pl.stages;
   out[4] = (int)pl.smem;
-  if (pl.route == tma::WGMMA) {
-    out[5] = 2;
-    out[6] = 0;
-    out[7] = pl.nd0 * CH;
-    out[8] = pl.nd0 * CH;
-    out[9] = D - pl.nd0 * CH;
-  } else {
-    out[5] = 1;
-    out[6] = 0;
-    out[7] = D;
+  int n = 6;
+  out[5] = 2 * ranks;
+  for (int r = 0; r < ranks; ++r)
+    for (int c = 0; c < 2; ++c) {
+      const sm90::Cols cb = sm90::col_block(pl.part[r].nd, 2, c);
+      out[n++] = pl.part[r].d0 * CH + cb.c0;
+      out[n++] = cb.nc * CH;
+    }
+  out[n++] = ranks == 2 ? 2 : 0;
+  for (int r = 0; r < (ranks == 2 ? 2 : 0); ++r) {
+    out[n++] = pl.part[r].d0 * CH;
+    out[n++] = pl.part[r].nd * CH;
+    out[n++] = pl.part[r].v0 * CH;
+    out[n++] = pl.part[r].nv * CH;
   }
   return 0;
 }
 
 // Registers a thread (at launch, before setmaxnreg moves them between the
-// warpgroups) and local (spill) bytes a thread of a varlen dQ kernel: route
-// 1 the wgmma kernel, 0 varlen_dq_kernel at row tile block_q (64 or 32), in
-// f16 or bf16.
-extern "C" int ffpa_varlen_bwd_dq_attrs(int route, int is_fp16, int block_q, int* regs,
-                                        int* local_bytes) {
+// warpgroups) and local (spill) bytes a thread of the varlen dQ kernel of
+// route 1 (one block) or 2 (the cluster), in f16 or bf16.
+extern "C" int ffpa_varlen_bwd_dq_attrs(int route, int is_fp16, int* regs, int* local_bytes) {
   cudaFuncAttributes a;
   cudaError_t e;
-  if (route == tma::WGMMA)
-    e = is_fp16 ? cudaFuncGetAttributes(&a, tma::varlen_dq_wgmma_kernel<__half>)
-                : cudaFuncGetAttributes(&a, tma::varlen_dq_wgmma_kernel<__nv_bfloat16>);
-  else if (block_q == 64)
-    e = is_fp16 ? cudaFuncGetAttributes(&a, varlen_dq_kernel<__half, 64>)
-                : cudaFuncGetAttributes(&a, varlen_dq_kernel<__nv_bfloat16, 64>);
+  if (route == tma::CLUSTER)
+    e = is_fp16 ? cudaFuncGetAttributes(&a, tma::varlen_dq_wgmma_kernel<__half, true>)
+                : cudaFuncGetAttributes(&a, tma::varlen_dq_wgmma_kernel<__nv_bfloat16, true>);
+  else if (route == tma::WGMMA)
+    e = is_fp16 ? cudaFuncGetAttributes(&a, tma::varlen_dq_wgmma_kernel<__half, false>)
+                : cudaFuncGetAttributes(&a, tma::varlen_dq_wgmma_kernel<__nv_bfloat16, false>);
   else
-    e = is_fp16 ? cudaFuncGetAttributes(&a, varlen_dq_kernel<__half, 32>)
-                : cudaFuncGetAttributes(&a, varlen_dq_kernel<__nv_bfloat16, 32>);
+    return (int)cudaErrorInvalidValue;
   if (e != cudaSuccess) return (int)e;
   *regs = a.numRegs;
   *local_bytes = (int)a.localSizeBytes;

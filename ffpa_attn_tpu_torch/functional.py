@@ -53,9 +53,10 @@ class CudaBackend(Backend):
     ``block_q`` / ``block_kv``: manual forward block-shape overrides (None =
     the cost model's pick). ``block_q`` must be a row tile the forward
     kernel is compiled for, ``block_kv`` its KV tile.
-    ``block_q_dq``: the dQ kernels' row tile override (one the kernels are
-    compiled for); the dense recompute dQ takes its own 64-row tile at
-    every head dim and does not read it.
+    ``block_q_dq``: the JAX package's dQ row tile override, validated (one
+    of the row tiles) and kept for parity with its API; the dense recompute
+    dQ and the packed varlen dQ take their own 64-row tile at every head
+    dim and do not read it.
     ``grad_kv_storage_dtype`` / ``grad_q_storage_dtype``: the dtype the
     backward returns dK/dV and dQ in ('f16', 'bf16', 'f32'; None = the
     input's).

@@ -51,11 +51,10 @@ never refused by the card.
   columns; one block at D and Dv <= 512, the cluster of two up to 1024),
   its segment metadata read from device memory. dQ has two
   routes the same way (``varlen_dq_plan`` mirrors the launcher's
-  ``tma::make_dq_plan``): D and Dv <= 512 take the dense wgmma dQ block's
-  tiling below (64 Q rows whatever ``block_q_dq`` asks), its segment
-  metadata and tile lists read from device memory; wider heads its own
-  mma.sync dQ block (``csrc/varlen_bwd.cu``) at ``block_q_dq`` rows with
-  the row tile's segment ids and ranks in shared memory.
+  ``tma::make_dq_plan``), the dense wgmma dQ block's tiling below at every
+  width (``dq_plan``: 64 Q rows whatever ``block_q_dq`` asks; one block at
+  D and Dv <= 512, the cluster of two up to 1024), its segment metadata
+  and tile lists read from device memory.
 * Dense dK/dV (``csrc/flash_bwd.cu`` namespace ``dkdv``, TMA + wgmma),
   two routes by head dims alone (``dkdv_plan`` mirrors the launcher's
   ``dkdv::make_plan``):
@@ -244,9 +243,9 @@ class BlockConfig:
     ``block_kv``-row K/V tiles. ``dkdv_col_passes`` is the packed varlen
     dK/dV's column passes, its plan's (``varlen_dkdv_plan``): a block owns
     64 KV rows and ``1 / dkdv_col_passes`` of its dK and dV columns.
-    ``block_q_dq`` is the packed varlen dQ's row tile on its mma.sync route
-    (D or Dv > 512, ``varlen_dq_plan``), streaming ``KV_TILE``-row K/V
-    tiles. ``dkdv_dk_in_kernel`` picks the from-S dK/dV variant: dK
+    ``block_q_dq`` is the JAX package's dQ row tile, kept for parity with
+    its API: every dQ launcher of the port picks its own 64-row tile.
+    ``dkdv_dk_in_kernel`` picks the from-S dK/dV variant: dK
     accumulated beside dV, or dK left to the banded dK kernel (causal) or
     one product (otherwise) over the dS slab.
 
@@ -255,8 +254,7 @@ class BlockConfig:
     of the S residual's slab (``flash_fwd.scores_padding``). The recompute
     dQ launcher picks its own 64-row tile at every head dim (``dq_plan``):
     ``block_q_dq`` sets nothing there, and the dbias slab's rows pad to 64.
-    So does the packed varlen dQ launcher at D and Dv <= 512.
-    """
+    So does the packed varlen dQ launcher (``varlen_dq_plan``)."""
 
     block_q: int = 64
     block_kv: int = KV_TILE
@@ -538,36 +536,6 @@ def paged_plan(d: int, dv: int, rows: int, page: int, itemsize: int = 2,
                      paged_smem_bytes(cfg, dv_pad, itemsize, quantized))
 
 
-def dq_smem_bytes(block_q: int, d: int, dv: int, itemsize: int = 2) -> int:
-    """Shared memory of one mma.sync dQ block (the packed varlen dQ's wider
-    heads, before its segment metadata): resident Q [bq, D] and dO
-    [bq, Dv] + the K / V chunk ring + dS [bq, 64] in the input type + the
-    tile's lse and delta. dQ costs registers, not shared memory."""
-    res = block_q * (_round_up(d, D_CHUNK) + _round_up(dv, D_CHUNK) + 2 * _PAD_T)
-    ring = FWD_STREAM_STAGES * KV_TILE * (D_CHUNK + _PAD_T)
-    ds = block_q * (KV_TILE + _PAD_T)
-    return (res + ring + ds) * itemsize + 2 * block_q * 4
-
-
-def varlen_dq_smem_bytes(block_q: int, d: int, dv: int, itemsize: int = 2) -> int:
-    """Shared memory of one packed varlen dQ block of the mma.sync route:
-    ``dq_smem_bytes``, plus the row tile's segment ids and ranks (int32)."""
-    return dq_smem_bytes(block_q, d, dv, itemsize) + 2 * block_q * 4
-
-
-def varlen_bwd_fits(block_q: int, d: int, dv: int, itemsize: int = 2) -> bool:
-    """Whether the varlen backward takes (D, Dv) with this dQ row tile: the
-    planned dK/dV block in shared memory (``varlen_dkdv_plan``, which
-    refuses D or Dv above 1024), the fp32 dQ tile (block_q x D) in
-    registers and the dQ block in shared memory."""
-    return (
-        block_q in FWD_ROW_TILES
-        and block_q * _round_up(d, D_CHUNK) <= FWD_ACC_ELEMS
-        and varlen_dkdv_plan(d, dv, itemsize).smem_bytes <= SMEM_LIMIT_BYTES
-        and varlen_dq_smem_bytes(block_q, d, dv, itemsize) <= SMEM_LIMIT_BYTES
-    )
-
-
 @dataclass(frozen=True)
 class FromSPlan:
     """The route and tiling of one from-S dK/dV launch, as
@@ -770,18 +738,15 @@ class DqPlan:
     """The route and tiling of one recompute dQ launch, as
     ``csrc/flash_bwd.cu`` ``dq::make_plan`` computes it (the library hands
     its own out through ``flash_bwd.dq_kernel_plan``; the card test holds
-    the two equal), or of one packed varlen dQ launch (``varlen_dq_plan``).
+    the two equal), or of one packed varlen dQ launch (``varlen_dq_plan``:
+    the same tiling).
 
-    ``route`` is "wgmma" (D and Dv <= 512), "wgmma_cluster" (up to 1024)
-    or, for the packed varlen dQ's wider heads only, "mma_sync";
-    ``q_rows`` a block's Q rows (for mma.sync the largest row tile its
-    registers and shared memory hold; the launch takes ``block_q_dq``),
-    ``kv_rows`` a KV tile's rows, ``stages`` the ring's depth,
-    ``smem_bytes`` the dynamic shared memory a block asks for (at
-    ``q_rows`` for mma.sync) and ``dq_blocks`` the (first column, width) of
-    dQ each owner accumulates: the two consumer warpgroups of a block (rank
-    by rank on the cluster; a width may be 0) or the whole block
-    (mma.sync). ``rank_blocks`` holds, for each rank of the cluster, its
+    ``route`` is "wgmma" (D and Dv <= 512) or "wgmma_cluster" (up to
+    1024); ``q_rows`` a block's Q rows, ``kv_rows`` a KV tile's rows,
+    ``stages`` the ring's depth, ``smem_bytes`` the dynamic shared memory a
+    block asks for and ``dq_blocks`` the (first column, width) of dQ each
+    consumer warpgroup accumulates (rank by rank on the cluster; a width
+    may be 0). ``rank_blocks`` holds, for each rank of the cluster, its
     ((first D column, D width), (first Dv column, Dv width)); it is empty
     where one block holds all of D and Dv.
     """
@@ -824,23 +789,14 @@ def dq_plan(d: int, dv: int, itemsize: int = 2) -> DqPlan:
 
 def varlen_dq_plan(d: int, dv: int, itemsize: int = 2) -> DqPlan:
     """The packed varlen dQ route by head dims alone (padded to 64-column
-    chunks), as ``csrc/varlen_bwd.cu`` ``tma::make_dq_plan`` computes it
-    (the library hands its own out through ``varlen.varlen_dq_kernel_plan``;
-    the card test holds the two equal): D and Dv <= 512 take the wgmma
-    block, whose tiling is the dense ``dq_plan``'s (64 Q rows whatever
-    ``block_q_dq`` asks; the block reads its segment metadata and tile lists
-    from device memory, so it costs no shared memory); wider heads the
-    mma.sync block at its tallest row tile (its fp32 dQ tile, rows x D, at
-    most 64 x 512 in registers; ``varlen_dq_smem_bytes``), which owns all of
-    D. It keeps its own plan: the dense route above D512 is the cluster."""
-    d_pad, dv_pad = _round_up(d, D_CHUNK), _round_up(dv, D_CHUNK)
-    if max(d_pad, dv_pad) <= _DQ_WG_MAX_D:
-        return dq_plan(d, dv, itemsize)
-    tall = FWD_ROW_TILES[0] * d_pad <= FWD_ACC_ELEMS and \
-        varlen_dq_smem_bytes(FWD_ROW_TILES[0], d_pad, dv_pad, itemsize) <= SMEM_LIMIT_BYTES
-    rows = FWD_ROW_TILES[0] if tall else FWD_ROW_TILES[1]
-    return DqPlan("mma_sync", rows, KV_TILE, FWD_STREAM_STAGES,
-                  varlen_dq_smem_bytes(rows, d_pad, dv_pad, itemsize), ((0, d_pad),))
+    chunks, at most 1024), as ``csrc/varlen_bwd.cu`` ``tma::make_dq_plan``
+    computes it (the library hands its own out through
+    ``varlen.varlen_dq_kernel_plan``; the card test holds the two equal):
+    the dense ``dq_plan`` at every width, one wgmma block at D and Dv <=
+    512 and the cluster of two up to 1024, 64 Q rows whatever
+    ``block_q_dq`` asks (the block reads its segment metadata and tile
+    lists from device memory, so they cost no shared memory)."""
+    return dq_plan(d, dv, itemsize)
 
 
 def default_config(
@@ -893,14 +849,11 @@ __all__ = [
     "DKDV_MAX_HEAD_DIM",
     "DkdvPlan",
     "dkdv_plan",
-    "dq_smem_bytes",
     "DQ_MAX_HEAD_DIM",
     "DqPlan",
     "dq_plan",
     "varlen_dkdv_plan",
-    "varlen_dq_smem_bytes",
     "varlen_dq_plan",
-    "varlen_bwd_fits",
     "FROM_S_MAX_DV",
     "FromSPlan",
     "from_s_plan",

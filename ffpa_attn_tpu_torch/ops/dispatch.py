@@ -10,7 +10,6 @@ from .config import (
     BlockConfig,
     default_config,
     from_s_fits,
-    varlen_bwd_fits,
     varlen_dkdv_plan,
     varlen_fits,
 )
@@ -42,19 +41,14 @@ def pick_varlen_config(*, d: int, dv: int, tq: int, dtype: torch.dtype) -> Block
     raise ValueError(f"no varlen row tile fits D={d}, Dv={dv}")
 
 
-def pick_varlen_backward_config(*, d: int, dv: int, tq: int, dtype: torch.dtype) -> BlockConfig:
-    """Packed varlen backward tiles: the dK/dV column passes of the plan
-    ``varlen_dkdv_plan`` picks by head dims (at most 256 columns a pass of
-    a block's share: all of D and Dv at D, Dv <= 512, a rank's half on the
-    cluster above), and the dQ row tile the taller of FWD_ROW_TILES that
-    fits (D, Dv), shrunk to 32 for a packing of at most 32 query rows."""
+def pick_varlen_backward_config(*, d: int, dv: int, dtype: torch.dtype) -> BlockConfig:
+    """Packed varlen backward tiles, by head dims alone: the dK/dV column
+    passes of the plan ``varlen_dkdv_plan`` picks (at most 256 columns a
+    pass of a block's share: all of D and Dv at D, Dv <= 512, a rank's half
+    on the cluster above). The dQ launcher picks its own 64-row tile
+    (``varlen_dq_plan``), so ``block_q_dq`` keeps its default."""
     itemsize = torch.empty((), dtype=dtype).element_size()
-    passes = varlen_dkdv_plan(d, dv, itemsize).passes
-    for bq in FWD_ROW_TILES:
-        bq = BlockConfig(block_q=bq).clamp(tq, 0, FWD_ROW_TILES).block_q
-        if varlen_bwd_fits(bq, d, dv, itemsize):
-            return BlockConfig(block_q_dq=bq, dkdv_col_passes=passes)
-    raise ValueError(f"no varlen backward tiles fit D={d}, Dv={dv}")
+    return BlockConfig(dkdv_col_passes=varlen_dkdv_plan(d, dv, itemsize).passes)
 
 
 # The from-S dK/dV pass keeps dK in the kernel up to this many keys and

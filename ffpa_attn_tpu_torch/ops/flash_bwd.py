@@ -514,6 +514,20 @@ def dq_kernel_attrs(route: str, dtype=torch.bfloat16) -> dict:
     return {"registers": regs.value, "local_bytes": local.value}
 
 
+def dq_plan_from(out) -> DqPlan:
+    """The DqPlan that ``out`` holds in the layout of ``ffpa_bwd_dq_plan``
+    (which ``ffpa_varlen_bwd_dq_plan`` shares): route code, Q rows, KV
+    rows, stages, shared memory, each consumer's dQ columns, each rank's
+    share."""
+    n = out[5]
+    blocks = tuple((out[6 + 2 * i], out[7 + 2 * i]) for i in range(n))
+    r0 = 7 + 2 * n
+    rank_blocks = tuple(((out[r0 + 4 * r], out[r0 + 4 * r + 1]),
+                         (out[r0 + 4 * r + 2], out[r0 + 4 * r + 3]))
+                        for r in range(out[6 + 2 * n]))
+    return DqPlan(_DQ_ROUTES[out[0]], out[1], out[2], out[3], out[4], blocks, rank_blocks)
+
+
 def dq_kernel_plan(d: int, dv: int) -> DqPlan:
     """The route and tiling the recompute dQ launcher takes at head dims
     (d, dv) (padded to 64-column chunks), read from the library: what
@@ -523,13 +537,7 @@ def dq_kernel_plan(d: int, dv: int) -> DqPlan:
     err = lib.ffpa_bwd_dq_plan(cdiv(d, D_CHUNK) * D_CHUNK, cdiv(dv, D_CHUNK) * D_CHUNK, out,
                                len(out))
     _build.check(lib, err, "dq kernel plan")
-    n = out[5]
-    blocks = tuple((out[6 + 2 * i], out[7 + 2 * i]) for i in range(n))
-    r0 = 7 + 2 * n
-    rank_blocks = tuple(((out[r0 + 4 * r], out[r0 + 4 * r + 1]),
-                         (out[r0 + 4 * r + 2], out[r0 + 4 * r + 3]))
-                        for r in range(out[6 + 2 * n]))
-    return DqPlan(_DQ_ROUTES[out[0]], out[1], out[2], out[3], out[4], blocks, rank_blocks)
+    return dq_plan_from(out)
 
 
 # The from-S routes, indexed by the code the C entry points use.

@@ -15,18 +15,17 @@ compares ``(q_seg == k_seg) & (k_pos <= q_rank [+ wr]) [& k_pos >= q_rank -
 wl]`` (``_varlen_mask``). ``_tile_needed`` marks the (Q tile, KV tile)
 pairs that are not provably fully masked, at each kernel's own tile sizes;
 ``_interval_schedule`` turns it into intervals of tiles and
-``_needed_tiles`` into per-tile lists. On the wgmma routes (D, Dv <= 512)
-one schedule serves the whole call (``_walk_schedule``: the needed matrix
-at 64 x 64 and its lists, computed once by the forward and saved for the
-backward): the forward and dQ walk each 64-row Q tile's needed KV tiles
-only, the Q tiles most needed first; dK/dV each KV tile's [imin, imax] of
-Q tiles, the needed matrix transposed (``_backward_schedules``). Wider
-heads compute each kernel's schedule at its own tiles: the mma.sync
-forward each ``block_q``-row Q tile's [jmin, jmax], the dK/dV cluster its
-intervals at 64 x 64 and the mma.sync dQ at ``block_q_dq`` x 64
-(``_varlen_bwd_schedules``). The kernels read their schedules from device
-memory. The metadata is computed once per call, padded so that every
-kernel's tiles divide it, and saved for the backward.
+``_needed_tiles`` into per-tile lists. One 64 x 64 walk serves the
+backward at every width (``_walk_schedule``: the needed matrix at 64 x 64
+and its lists): dQ walks each 64-row Q tile's needed KV tiles only, the Q
+tiles most needed first; dK/dV each KV tile's [imin, imax] of Q tiles, the
+needed matrix transposed (``_backward_schedules``). Where the forward
+takes its wgmma route (D, Dv <= 512) it walks the same lists, computes the
+walk once and saves it for the backward; wider heads' mma.sync forward
+walks each ``block_q``-row Q tile's [jmin, jmax], and the backward
+computes the walk. The kernels read their schedules from device memory.
+The metadata is computed once per call, padded so that every kernel's
+tiles divide it, and saved for the backward.
 
 Bound on an H100: bytes, barely. The forward does 4 * Hq * D flop per
 attended (row, col) pair, summed over the segments' bands; at the serving
@@ -50,11 +49,12 @@ band pair for dK/dV and 3 for dQ (``utils/profiling.py``
 a fast path for blocks inside one segment's band: dK/dV the TMA + wgmma
 block (64 KV rows, 64-row Q tiles, the longest intervals first; above
 D512 a cluster of two blocks splitting D and Dv, the partial S^T and dP^T
-exchanged through distributed shared memory); dQ at D, Dv <= 512 the TMA +
-wgmma block (64 Q rows walking the forward's needed tiles, the most needed
-Q tiles first), wider heads the mma.sync block over its intervals. The
-dK/dV block reduces the GQA group in fp32 in its registers. delta =
-rowsum(dO * O) is a plain reduction, outside any kernel as in JAX.
+exchanged through distributed shared memory); dQ the TMA + wgmma block (64
+Q rows walking the needed tiles, the most needed Q tiles first; above D512
+a cluster of two blocks splitting D and Dv, the partial S and dP exchanged
+through distributed shared memory). The dK/dV block reduces the GQA group
+in fp32 in its registers. delta = rowsum(dO * O) is a plain reduction,
+outside any kernel as in JAX.
 """
 
 from __future__ import annotations
@@ -71,7 +71,7 @@ from .config import (
     D_CHUNK, DKDV_Q_TILE, FWD_ROW_TILES, KV_TILE, BlockConfig, DkdvPlan, DqPlan, FwdPlan, cdiv,
     varlen_dkdv_plan, varlen_dq_plan, varlen_fits, varlen_fwd_plan,
 )
-from .flash_bwd import dkdv_plan_from
+from .flash_bwd import dkdv_plan_from, dq_plan_from
 from .flash_fwd import _pad_last, check_kernel_inputs
 from .reference import DEFAULT_MASK_VALUE
 
@@ -365,8 +365,8 @@ def _strided_rows(x: torch.Tensor, width: int) -> torch.Tensor:
 
 
 def _walk_schedule(meta, tq: int, rows: int, causal: bool, window):
-    """The wgmma routes' one schedule of a call, on the metadata's device
-    with no host sync: (needed, tiles, count, order), ``needed``
+    """The call's one 64 x 64 schedule (``rows`` = 64), on the metadata's
+    device with no host sync: (needed, tiles, count, order), ``needed``
     [ceil(Tq / rows), Tk_pad / KV_TILE] of ``_tile_needed`` over the
     metadata cut to ``rows``-row Q tiles, then its ``_needed_tiles``. The
     forward and dQ walk each Q tile's listed KV tiles, the Q tiles in
@@ -379,9 +379,8 @@ def _walk_schedule(meta, tq: int, rows: int, causal: bool, window):
 
 def _call_walk(meta, tq: int, d_pad: int, dv_pad: int, causal: bool, window):
     """The call's ``_walk_schedule`` at the forward's 64-row tiles where
-    the forward takes its wgmma route (D, Dv <= 512: the backward's routes
-    then are wgmma too, at the same tiles), else None. ``window`` is
-    normalized."""
+    the forward takes its wgmma route (D, Dv <= 512; the backward walks the
+    same tiles at every width), else None. ``window`` is normalized."""
     plan = varlen_fwd_plan(d_pad, dv_pad)
     if plan.route != "wgmma":
         return None
@@ -572,24 +571,6 @@ def _varlen_backward_plain(q, k, v, o, lse, do, meta, *, scale, causal, softcap=
     return _varlen_dq_plain(q, k, v, do, lse, delta, meta, **kw), dk, dv
 
 
-def _varlen_bwd_schedules(meta, tq: int, block_q_dq: int, causal: bool, window,
-                          dkdv_tiles: tuple):
-    """((imin, imax, order), (jmin, jmax)) on the metadata's device: each
-    KV tile's interval of Q tiles for the dK/dV kernel at the plan's
-    ``dkdv_tiles`` = (Q rows, KV rows) (``_tile_needed`` at those tiles
-    over the call's metadata, transposed) with the KV tiles ordered longest
-    interval first (a stable sort on the device), and each
-    ``block_q_dq``-row Q tile's interval of KV_TILE-row KV tiles for the
-    mma.sync dQ kernel. Each schedule is computed at its own kernel's
-    tiles: an interval of one geometry read at the other's would drop
-    pairs. ``window`` is normalized."""
-    wl, wr = int(window[0]), int(window[1])
-    q_rows, kv_rows = dkdv_tiles
-    dkdv = _dkdv_intervals(_tile_needed(*meta, q_rows, kv_rows, causal, wl, wr))
-    needed = _tile_needed(*_q_tiles(meta, tq, block_q_dq), block_q_dq, KV_TILE, causal, wl, wr)
-    return dkdv, _interval_schedule(needed)
-
-
 def _dkdv_intervals(needed):
     """The dK/dV kernel's (imin, imax, order) from a ``needed`` matrix at
     its tiles [Q tiles, KV tiles]: each KV tile's interval of Q tiles (the
@@ -600,28 +581,22 @@ def _dkdv_intervals(needed):
     return imin, imax, order
 
 
-def _backward_schedules(meta, tq: int, dkdv_plan: DkdvPlan, dq_plan: DqPlan, block_q_dq: int,
-                        causal: bool, window, walk=None):
-    """(dK/dV schedule, dQ schedule) of a backward launch, each at its
-    route's tiles, on the metadata's device with no host sync; route by
-    route (both by head dims alone). At D, Dv <= 512 both routes are wgmma
-    at 64 x 64 tiles and both read the forward's ``walk`` (``_call_walk``;
-    computed here when not given): dQ takes its lists (tiles, count, order)
-    as they are, dK/dV the ``_dkdv_intervals`` of its needed matrix. That
-    matrix has ceil(Tq / 64) rows where ``_tile_needed`` over the call's
-    metadata (padded to 128 query rows) has one more when ceil(Tq / 64) is
-    odd; that tile holds only rows past Tq, whose segment id -1 matches no
-    key, so its row is all False and the intervals are the same. Above
-    D512 the forward saves no walk (its route is mma.sync) and the two
-    routes part: ``_varlen_bwd_schedules`` gives dK/dV (the cluster) its
-    intervals at the plan's 64 x 64 over the call's metadata and dQ
-    (mma.sync) each ``block_q_dq``-row Q tile's (jmin, jmax). ``window``
-    is normalized."""
-    if dq_plan.route != "wgmma":
-        return _varlen_bwd_schedules(meta, tq, block_q_dq, causal, window,
-                                     (dkdv_plan.q_rows, dkdv_plan.kv_rows))
-    assert dkdv_plan.route == "wgmma"
-    assert (dkdv_plan.q_rows, dkdv_plan.kv_rows) == (dq_plan.q_rows, KV_TILE)
+def _backward_schedules(meta, tq: int, dkdv_plan: DkdvPlan, dq_plan: DqPlan, causal: bool,
+                        window, walk=None):
+    """(dK/dV schedule, dQ schedule) of a backward launch, on the
+    metadata's device with no host sync, from one 64 x 64 walk at every
+    width (both routes of both kernels walk 64 x 64 tiles): the forward's
+    ``walk`` (``_call_walk``: saved at D, Dv <= 512) or, where none is
+    given (the mma.sync forward above D512 saves none), ``_walk_schedule``
+    computed here. dQ takes its lists (tiles, count, order) as they are,
+    dK/dV the ``_dkdv_intervals`` of its needed matrix. That matrix has
+    ceil(Tq / 64) rows where ``_tile_needed`` over the call's metadata
+    (padded to 128 query rows) has one more when ceil(Tq / 64) is odd; that
+    tile holds only rows past Tq, whose segment id -1 matches no key, so
+    its row is all False and the intervals are the same. ``window`` is
+    normalized."""
+    assert (dkdv_plan.q_rows, dkdv_plan.kv_rows) == (dq_plan.q_rows, dq_plan.kv_rows)
+    assert dq_plan.kv_rows == KV_TILE
     if walk is None:
         walk = _walk_schedule(meta, tq, dq_plan.q_rows, causal, window)
     return _dkdv_intervals(walk[0]), walk[1:]
@@ -633,17 +608,17 @@ _VARLEN_BWD_ARGTYPES = {
     + [_P],
     "ffpa_varlen_bwd_dkdv_plan": [_I, _I, ctypes.POINTER(ctypes.c_int), _I],
     "ffpa_varlen_bwd_dkdv_attrs": [_I] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2,
-    "ffpa_varlen_bwd_dq": [_P] * 4 + [_LL] * 8 + [_P] * 13 + [_I] * 10 + [_F] * 2 + [_I] * 2
+    "ffpa_varlen_bwd_dq": [_P] * 4 + [_LL] * 8 + [_P] * 11 + [_I] * 9 + [_F] * 2 + [_I] * 2
     + [_P],
     "ffpa_varlen_bwd_dq_plan": [_I, _I, ctypes.POINTER(ctypes.c_int), _I],
-    "ffpa_varlen_bwd_dq_attrs": [_I] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2,
+    "ffpa_varlen_bwd_dq_attrs": [_I] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2,
 }
 
 
-# The dK/dV kernel (both routes) and the dQ kernels of both routes, by the
+# The dK/dV kernel and the dQ kernel (both routes of each), by the
 # substrings of their names (what a profiler filter matches).
 DKDV_KERNELS = ("varlen_dkdv_wgmma_kernel<",)
-DQ_KERNELS = ("varlen_dq_kernel", "varlen_dq_wgmma_kernel")
+DQ_KERNELS = ("varlen_dq_wgmma_kernel<",)
 
 
 def _varlen_bwd_lib() -> ctypes.CDLL:
@@ -686,22 +661,22 @@ def varlen_dq_kernel_plan(d: int, dv: int) -> DqPlan:
     dv) (padded to 64-column chunks), read from the library: what
     ``config.varlen_dq_plan`` mirrors. Needs a card."""
     lib = _varlen_bwd_lib()
-    out = (ctypes.c_int * 16)()
+    out = (ctypes.c_int * 32)()
     err = lib.ffpa_varlen_bwd_dq_plan(cdiv(d, D_CHUNK) * D_CHUNK, cdiv(dv, D_CHUNK) * D_CHUNK,
                                       out, len(out))
     _build.check(lib, err, "varlen dq kernel plan")
-    blocks = tuple((out[6 + 2 * i], out[7 + 2 * i]) for i in range(out[5]))
-    return DqPlan("wgmma" if out[0] == 1 else "mma_sync", out[1], out[2], out[3], out[4], blocks)
+    return dq_plan_from(out)
 
 
-def varlen_dq_kernel_attrs(route: str, dtype=torch.bfloat16, block_q: int = 64) -> dict:
+def varlen_dq_kernel_attrs(route: str, dtype=torch.bfloat16) -> dict:
     """Registers a thread (at launch, before setmaxnreg) and local (spill)
-    bytes of the varlen dQ kernel of ``route`` ("wgmma", or "mma_sync" at
-    row tile ``block_q``), from cudaFuncGetAttributes. Needs a card."""
+    bytes of the varlen dQ kernel of ``route`` ("wgmma" or
+    "wgmma_cluster"), from cudaFuncGetAttributes. Needs a card."""
     lib = _varlen_bwd_lib()
     regs, local = ctypes.c_int(0), ctypes.c_int(0)
-    err = lib.ffpa_varlen_bwd_dq_attrs(int(route == "wgmma"), int(dtype == torch.float16),
-                                       block_q, ctypes.byref(regs), ctypes.byref(local))
+    code = {"wgmma": 1, "wgmma_cluster": 2}[route]
+    err = lib.ffpa_varlen_bwd_dq_attrs(code, int(dtype == torch.float16), ctypes.byref(regs),
+                                       ctypes.byref(local))
     _build.check(lib, err, "varlen dq kernel attributes")
     return {"registers": regs.value, "local_bytes": local.value}
 
@@ -766,40 +741,31 @@ def _varlen_dkdv_kernel(ops: _BwdOperands, meta, schedule, config: BlockConfig, 
     return dk[..., :ops.d], dv[..., :ops.dv]
 
 
-def _varlen_dq_kernel(ops: _BwdOperands, meta, schedule, config: BlockConfig, *, scale, causal,
-                      softcap, window):
+def _varlen_dq_kernel(ops: _BwdOperands, meta, schedule, *, scale, causal, softcap, window):
     """Launch the dQ kernel of ``csrc/varlen_bwd.cu``: dq packed in the
     input type (same contract as ``_varlen_dq_plain``). The route is the
-    library's by head dims (``config.varlen_dq_plan``); ``schedule`` is
-    ``_backward_schedules``' dQ part at its tiles: (tiles, count, order) on
-    wgmma (64-row Q tiles), (jmin, jmax) at ``config.block_q_dq`` rows on
-    mma.sync."""
+    library's by head dims (``config.varlen_dq_plan``: one block, or the
+    cluster of two above D512); ``schedule`` is ``_backward_schedules``'
+    dQ part: (tiles, count, order) at 64-row Q tiles."""
     tq, hq = ops.q.shape[0], ops.q.shape[1]
     tk, hkv = ops.k.shape[0], ops.k.shape[1]
-    plan = varlen_dq_plan(ops.d_pad, ops.dv_pad, ops.q.element_size())
     dq = torch.empty((tq, hq, ops.d_pad), dtype=ops.q.dtype, device=ops.q.device)
-    if plan.route == "wgmma":
-        (tiles, ntile, order), jmin, jmax = schedule, None, None
-        num_q_tiles, rows = tiles.shape[0], plan.q_rows
-    else:
-        (jmin, jmax), tiles, ntile, order = schedule, None, None, None
-        num_q_tiles, rows = jmin.shape[0], config.block_q_dq
+    tiles, ntile, order = schedule
     q_seg, q_rank, k_seg, k_pos = meta
     if ENV.device_log_level() >= 2:
-        logger.info("varlen_dq launch route=%s grid=(%d,%d) rows=%d D=%d Dv=%d Tq=%d Tk=%d",
-                    plan.route, hq, num_q_tiles, rows, ops.d_pad, ops.dv_pad, tq, tk)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
+        plan = varlen_dq_plan(ops.d_pad, ops.dv_pad, ops.q.element_size())
+        logger.info("varlen_dq launch route=%s grid=(%d,%d) smem=%d D=%d Dv=%d Tq=%d Tk=%d",
+                    plan.route, hq * (2 if plan.rank_blocks else 1), tiles.shape[0],
+                    plan.smem_bytes, ops.d_pad, ops.dv_pad, tq, tk)
     lib = _varlen_bwd_lib()
     with torch.cuda.device(ops.q.device):
         err = lib.ffpa_varlen_bwd_dq(
             *ops.head(), dq.data_ptr(), q_seg.data_ptr(), q_rank.data_ptr(), k_seg.data_ptr(),
-            k_pos.data_ptr(), ptr(jmin), ptr(jmax), ptr(tiles), ptr(ntile), ptr(order),
-            ptr(ops.alibi), int(ops.q.dtype == torch.float16), config.block_q_dq, hq, hkv, tq,
-            tk, num_q_tiles, k_seg.shape[0] // KV_TILE, ops.d_pad, ops.dv_pad, float(scale),
-            float(softcap), int(window[0]), 0 if causal else int(window[1]),
+            k_pos.data_ptr(), tiles.data_ptr(), ntile.data_ptr(), order.data_ptr(),
+            None if ops.alibi is None else ops.alibi.data_ptr(),
+            int(ops.q.dtype == torch.float16), hq, hkv, tq, tk, tiles.shape[0],
+            k_seg.shape[0] // KV_TILE, ops.d_pad, ops.dv_pad, float(scale), float(softcap),
+            int(window[0]), 0 if causal else int(window[1]),  # causal is the band's right edge 0
             torch.cuda.current_stream(ops.q.device).cuda_stream,
         )
     _build.check(lib, err, "varlen_dq kernel launch")
@@ -818,7 +784,7 @@ def _varlen_backward(q, k, v, o, lse, do, meta, *, scale, causal, softcap: float
 
     CPU tensors run the plain version. CUDA tensors compute delta and both
     tile schedules on the device (``_backward_schedules``: no host sync,
-    each at its route's tiles, the wgmma routes' from ``walk``) and launch
+    both from ``walk`` or one walk computed there) and launch
     the dK/dV kernel then the dQ kernel, counted in ``dkdv_launches`` and
     ``dq_launches``, or raise for what they do not take."""
     from .dispatch import pick_varlen_backward_config
@@ -828,14 +794,12 @@ def _varlen_backward(q, k, v, o, lse, do, meta, *, scale, causal, softcap: float
     if q.device.type == "cpu":
         return _varlen_backward_plain(q, k, v, o, lse, do, meta, alibi=alibi, **kw)
     ops = _BwdOperands(q, k, v, do, lse, _varlen_delta(do, o), alibi)
-    config = pick_varlen_backward_config(d=ops.d_pad, dv=ops.dv_pad, tq=q.shape[0],
-                                         dtype=q.dtype)
+    config = pick_varlen_backward_config(d=ops.d_pad, dv=ops.dv_pad, dtype=q.dtype)
     dkdv_sched, dq_sched = _backward_schedules(
         meta, q.shape[0], varlen_dkdv_plan(ops.d_pad, ops.dv_pad, q.element_size()),
-        varlen_dq_plan(ops.d_pad, ops.dv_pad, q.element_size()), config.block_q_dq, causal,
-        window, walk)
+        varlen_dq_plan(ops.d_pad, ops.dv_pad, q.element_size()), causal, window, walk)
     dk, dv = _varlen_dkdv_kernel(ops, meta, dkdv_sched, config, **kw)
-    dq = _varlen_dq_kernel(ops, meta, dq_sched, config, **kw)
+    dq = _varlen_dq_kernel(ops, meta, dq_sched, **kw)
     return dq, dk, dv
 
 
@@ -854,8 +818,8 @@ def _varlen_apply_sinks(o, lse, sinks):
 class _VarlenCore(torch.autograd.Function):
     """The varlen core op (the JAX package's ``_varlen_core`` custom_vjp).
 
-    The forward computes the call's metadata once and, where the routes are
-    wgmma (D, Dv <= 512), its one tile schedule (``_call_walk``), runs
+    The forward computes the call's metadata once and, where its route is
+    wgmma (D, Dv <= 512), the call's one tile schedule (``_call_walk``), runs
     ``_varlen_forward`` on them and applies sinks; it saves q, k, v, the
     sink-inclusive o and lse, the metadata and the schedule. The backward
     runs ``_varlen_backward`` on the saved metadata and schedule (the

@@ -6,7 +6,7 @@ D and Dv up to 512 take the TMA + wgmma block: 64 Q rows, the dQ columns
 split over the two consumer warpgroups in whole 64-column boxes, a ring of
 two-box stages in the card's shared memory; wider heads, up to 1024, take
 a cluster of two such blocks, each rank holding half of D's and of Dv's
-boxes. The packed varlen dQ keeps its own mma.sync plan above 512. On the
+boxes; the packed varlen dQ takes the same plan at every width. On the
 CPU the dbias slab, padded to 64 rows, trims to the JAX package's at D !=
 Dv. On a card the mirror is held equal to the plan the library launches
 with, neither route's kernel spills, and the kernel is held against its
@@ -101,13 +101,13 @@ def test_dq_cluster_plan_splits_d_and_dv_over_the_ranks(d, dv):
 
 @pytest.mark.parametrize("d,dv", [(576, 576), (1024, 1024), (640, 320), (64, 1024)])
 def test_varlen_dq_plan_stays_mma_sync_above_512(d, dv):
-    """The packed varlen dQ keeps its own mma.sync block above 512: it does
-    not inherit the dense route's cluster or its column blocks."""
+    """Above 512 the packed varlen dQ takes the dense route's cluster: the
+    same plan, its column blocks and each rank's share included (the name
+    is the test's from when it kept a block of its own there)."""
     plan = varlen_dq_plan(d, dv)
-    d_pad = cdiv(d, D_CHUNK) * D_CHUNK
-    assert plan.route == "mma_sync" and plan.rank_blocks == ()
-    assert plan.dq_blocks == ((0, d_pad),) and plan.q_rows in (64, 32)
-    assert plan.smem_bytes <= SMEM_LIMIT_BYTES
+    assert plan == dq_plan(d, dv) and plan.route == "wgmma_cluster"
+    assert len(plan.rank_blocks) == 2 and len(plan.dq_blocks) == 4
+    assert plan.q_rows == 64 and plan.smem_bytes <= SMEM_LIMIT_BYTES
 
 
 @pytest.mark.parametrize("nq,block_q_dq", [(130, 64), (130, 32), (20, 32), (64, 64)])

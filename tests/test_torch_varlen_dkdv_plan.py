@@ -30,6 +30,7 @@ from ffpa_attn_tpu_torch.ops.config import (
     cdiv,
     dkdv_plan,
     varlen_dkdv_plan,
+    varlen_dq_plan,
 )
 from ffpa_attn_tpu_torch.ops.dispatch import pick_varlen_backward_config
 
@@ -128,7 +129,7 @@ def test_varlen_dkdv_plan_d448_takes_passes_of_256_and_192():
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_pick_varlen_backward_config_takes_the_plans_passes(d, dv, dtype):
     cfg = pick_varlen_backward_config(d=cdiv(d, D_CHUNK) * D_CHUNK,
-                                      dv=cdiv(dv, D_CHUNK) * D_CHUNK, tq=8192, dtype=dtype)
+                                      dv=cdiv(dv, D_CHUNK) * D_CHUNK, dtype=dtype)
     assert cfg.dkdv_col_passes == varlen_dkdv_plan(d, dv).passes
 
 
@@ -233,10 +234,9 @@ def test_varlen_dkdv_kernel_matches_plain_on_card(cuda, name):  # noqa: F811
     meta = tvar._call_metadata(cu, cu, t, t, cuda)
     o, lse = tvar._varlen_forward_plain(q, k, v, meta, scale=kw["scale"], causal=True)
     delta = tvar._varlen_delta(do, o)
-    cfg = pick_varlen_backward_config(d=d, dv=dv, tq=t, dtype=dtype)
+    cfg = pick_varlen_backward_config(d=d, dv=dv, dtype=dtype)
     plan = varlen_dkdv_plan(d, dv)
-    sched, _ = tvar._varlen_bwd_schedules(meta, t, cfg.block_q_dq, True, (-1, -1),
-                                          (plan.q_rows, plan.kv_rows))
+    sched, _ = tvar._backward_schedules(meta, t, plan, varlen_dq_plan(d, dv), True, (-1, -1))
     ops = tvar._BwdOperands(q, k, v, do, lse, delta, None)
     n0 = tvar._varlen_backward.dkdv_launches
     got = tvar._varlen_dkdv_kernel(ops, meta, sched, cfg, **kw)

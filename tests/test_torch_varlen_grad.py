@@ -5,7 +5,8 @@
 bf16 (or fp16) once. On the CPU the port runs the kernels' plain versions,
 JAX its Pallas kernels in interpret mode (T <= 256: one grid tile of its
 256-row blocks). The cases are the forward's (``tests/test_torch_varlen.py``),
-and above D512 (``WIDE_CASES``) the head dims of the dK/dV cluster route.
+and above D512 (``WIDE_CASES``) the head dims of the backward's cluster
+routes.
 
 Tolerances: bf16 gradients 5e-2 relative to max|g| (tests/test_ffpa_varlen.py:19,
 tests/test_ffpa_bwd.py:19), the sink gradient 5e-2, the ALiBi gradient
@@ -134,8 +135,8 @@ def test_varlen_fp16_grads_vs_oracle_and_jax(jv):
         assert rel_err(g, j) < GRAD_TOL["bfloat16"], n
 
 
-# Above D512 (the dK/dV cluster route; dQ on its mma.sync block): T <= 256
-# as for CASES, bf16 against JAX and fp16 against the fp32 oracle.
+# Above D512 (the dK/dV and dQ cluster routes): T <= 256 as for CASES, bf16
+# against JAX and fp16 against the fp32 oracle.
 WIDE_CASES = {
     "d640_gqa_causal": dict(seqs=[40, 72, 16], hq=4, hkv=2, causal=True, d=640),
     "d1024_causal": dict(seqs=[40, 72, 16], causal=True, d=1024),
@@ -191,28 +192,31 @@ def _listed(tiles, count, nkb):
     (False, (-1, -1)), (True, (-1, -1)), (True, (24, -1)), (False, (16, 8)),
 ])
 @pytest.mark.parametrize("cu_k_shift", [0, 40])
-@pytest.mark.parametrize("bq", [64, 32])
-@pytest.mark.parametrize("d", [512, 1024], ids=["wgmma", "mma_sync"])
-def test_backward_schedules_cover_every_visible_pair(causal, window, cu_k_shift, bq, d):
+@pytest.mark.parametrize("given", [False, True], ids=["fresh", "given"])
+@pytest.mark.parametrize("d", [512, 1024], ids=["wgmma", "cluster"])
+def test_backward_schedules_cover_every_visible_pair(causal, window, cu_k_shift, given, d):
     """Every (query, key) pair the keep-mask attends lies inside its KV
     tile's [imin, imax] of the dK/dV schedule at the plan's 64 x 64 tiles
-    (both dK/dV routes: one block at D512, the cluster at D1024) and inside
-    the dQ schedule of the route the id names: at D512 (wgmma) its 64-row Q
-    tile's list of needed KV tiles, at D1024 (mma.sync) its bq-row Q tile's
-    [jmin, jmax] of 64-row KV tiles, computed with no saved walk; the dK/dV
-    order lists every KV tile once, longest interval first; a padded tail
-    (the pseudo-segment), a length-0 segment and tail-aligned cross keys."""
+    and inside its 64-row Q tile's list of needed KV tiles of the dQ
+    schedule, on both routes of both kernels (one block at D512, the
+    cluster at D1024, as the id names), from a walk computed by
+    ``_backward_schedules`` or given to it (``_walk_schedule``, what the
+    forward saves); the dK/dV order lists every KV tile once, longest
+    interval first; a padded tail (the pseudo-segment), a length-0 segment
+    and tail-aligned cross keys."""
     cu_q = np.asarray([0, 70, 70, 200, 201, 300], np.int32)
     cu_k = cu_q.copy()
     cu_k[-1] += cu_k_shift
     tq, tk = 330, 330 + cu_k_shift
     wnorm = (window[0], -1 if causal else window[1])
     dkdv_plan, dq_plan = varlen_dkdv_plan(d, d), varlen_dq_plan(d, d)
+    assert dkdv_plan.route == dq_plan.route == ("wgmma" if d == 512 else "wgmma_cluster")
     q_rows, kv_rows = dkdv_plan.q_rows, dkdv_plan.kv_rows
-    assert (q_rows, kv_rows) == (64, 64)
+    assert (q_rows, kv_rows) == (dq_plan.q_rows, dq_plan.kv_rows) == (64, 64)
     meta = tvar._call_metadata(torch.from_numpy(cu_q), torch.from_numpy(cu_k), tq, tk, "cpu")
-    (imin, imax, order), dq = tvar._backward_schedules(meta, tq, dkdv_plan, dq_plan, bq, causal,
-                                                       wnorm)
+    walk = tvar._walk_schedule(meta, tq, 64, causal, wnorm) if given else None
+    (imin, imax, order), dq = tvar._backward_schedules(meta, tq, dkdv_plan, dq_plan, causal,
+                                                       wnorm, walk)
     q_seg, q_rank, k_seg, k_pos = meta
     assert imin.shape[0] == k_seg.shape[0] // kv_rows
     assert sorted(order.tolist()) == list(range(imin.shape[0]))
@@ -225,16 +229,11 @@ def test_backward_schedules_cover_every_visible_pair(causal, window, cu_k_shift,
     imin, imax = imin.numpy(), imax.numpy()
     i, j = rows // q_rows, cols // kv_rows
     assert ((imin[j] <= i) & (i <= imax[j])).all()
-    if dq_plan.route == "mma_sync":
-        assert dkdv_plan.route == "wgmma_cluster"
-        jmin, jmax = (t.numpy() for t in dq)
-        assert jmin.shape[0] == -(-tq // bq)
-        i, j = rows // bq, cols // 64
-        assert ((jmin[i] <= j) & (j <= jmax[i])).all()
-    else:
-        tiles, count, _ = dq
-        listed = _listed(tiles, count, k_seg.shape[0] // 64).numpy()
-        assert listed[rows // 64, cols // 64].all()
+    tiles, count, qorder = dq
+    assert tiles.shape[0] == -(-tq // 64)
+    assert sorted(qorder.tolist()) == list(range(tiles.shape[0]))
+    listed = _listed(tiles, count, k_seg.shape[0] // 64).numpy()
+    assert listed[rows // 64, cols // 64].all()
 
 
 def _saved_walk(x, case):
@@ -251,18 +250,17 @@ def _saved_walk(x, case):
     (False, (-1, -1)), (True, (-1, -1)), (True, (24, -1)), (False, (16, 8)),
 ])
 @pytest.mark.parametrize("cu_k_shift", [0, 40])
-@pytest.mark.parametrize("route", ["wgmma", "mma_sync"])
+@pytest.mark.parametrize("route", ["wgmma", "wgmma_cluster"])
 def test_saved_schedules_equal_fresh(causal, window, cu_k_shift, route):
-    """The schedule the forward saves (64 x 64 needed tiles) gives the
-    backward the same schedules ``_varlen_bwd_schedules`` computes afresh:
-    on the wgmma routes (D, Dv <= 512) dK/dV's intervals, order included,
-    equal those at 64 x 64 over the call's metadata (padded to 128 query
-    rows: the extra Q tile holds only rows past Tq and is never needed),
-    and dQ walks each 64-row Q tile's needed tiles, every one inside its
-    [jmin, jmax]. At D1024 (``route`` names the dQ route, mma.sync; dK/dV
-    is the cluster) the forward saves no walk, and the backward computes
-    the cluster's intervals at 64 x 64, the same as the saved walk's, and
-    dQ's at ``block_q_dq`` x 64. A padded tail, a length-0 segment,
+    """The schedule the forward saves (64 x 64 needed tiles) is the one the
+    backward computes afresh: on the wgmma routes (D, Dv <= 512; D64 here)
+    the backward reads the saved walk, at D1024 (``route`` names the
+    backward's routes, both clusters) the forward (mma.sync) saves none and
+    the backward computes the walk itself. Either way dK/dV's intervals,
+    order included, equal those of ``_tile_needed`` at 64 x 64 over the
+    call's metadata (padded to 128 query rows: the extra Q tile holds only
+    rows past Tq and is never needed), and dQ walks each 64-row Q tile's
+    needed tiles, the saved lists. A padded tail, a length-0 segment,
     tail-aligned cross keys."""
     cu_q = np.asarray([0, 70, 70, 200, 201, 300], np.int32)
     cu_k = cu_q.copy()
@@ -280,64 +278,73 @@ def test_saved_schedules_equal_fresh(causal, window, cu_k_shift, route):
     assert all(torch.equal(a, b) for a, b in zip(walk, fresh))
     d = 64 if route == "wgmma" else 1024
     dkdv_plan, dq_plan = varlen_dkdv_plan(d, d), varlen_dq_plan(d, d)
-    assert dq_plan.route == route
-    assert dkdv_plan.route == ("wgmma" if route == "wgmma" else "wgmma_cluster")
-    bq = 32 if route == "mma_sync" else 64
-    saved = walk if route == "wgmma" else tvar._call_walk(meta, tq, d, d, causal, wnorm)
-    assert (saved is None) == (route == "mma_sync")
-    (imin, imax, order), dq = tvar._backward_schedules(meta, tq, dkdv_plan, dq_plan, bq, causal,
+    assert dkdv_plan.route == dq_plan.route == route
+    saved = tvar._call_walk(meta, tq, d, d, causal, wnorm)
+    assert (saved is None) == (route == "wgmma_cluster")
+    (imin, imax, order), dq = tvar._backward_schedules(meta, tq, dkdv_plan, dq_plan, causal,
                                                        wnorm, saved)
-    want_dkdv, (jmin, jmax) = tvar._varlen_bwd_schedules(
-        meta, tq, bq, causal, wnorm, (dkdv_plan.q_rows, dkdv_plan.kv_rows))
+    want_dkdv = tvar._dkdv_intervals(tvar._tile_needed(*meta, 64, 64, causal, *wnorm))
     for got, want, from_walk in zip((imin, imax, order), want_dkdv,
                                     tvar._dkdv_intervals(walk[0])):
         assert torch.equal(got, want) and torch.equal(got, from_walk)
-    if route == "mma_sync":
-        assert torch.equal(dq[0], jmin) and torch.equal(dq[1], jmax)
-        return
     tiles, count, qorder = dq
     assert all(torch.equal(a, b) for a, b in zip(dq, walk[1:]))
     assert sorted(qorder.tolist()) == list(range(tiles.shape[0]))
     for i in range(tiles.shape[0]):
         listed = tiles[i, :int(count[i])]
         assert torch.equal(listed, torch.nonzero(walk[0][i]).flatten().to(torch.int32))
-        assert bool(((listed >= jmin[i]) & (listed <= jmax[i])).all())
 
 
-def _dq_walk(q, k, v, do, lse, delta, meta, schedule, *, scale, causal, softcap=0.0,
+def _dq_walk(q, k, v, do, lse, delta, meta, schedule, plan, *, scale, causal, softcap=0.0,
              window=(-1, -1), alibi=None):
-    """The wgmma dQ kernel's walk in plain fp32 PyTorch: the 64-row Q tiles
-    in the schedule's order, each visiting only its listed KV tiles; a 64 x
-    32 block that ``_full_blocks`` marks full skips the keep-mask, any other
-    selects P to 0 where the mask drops the pair; dS (softcap's factor
-    included) rounded to the input type before dS K. A Q tile with no listed
-    tile gives dQ = 0. ``window`` is normalized. dq [Tq, Hq, D] as
+    """The dQ kernel's walk in plain fp32 PyTorch, one block or the cluster
+    of two as ``plan`` says: the 64-row Q tiles in the schedule's order,
+    each visiting only its listed KV tiles. On the cluster rank r computes
+    partial S and dP over its own D and Dv columns (``plan.rank_blocks``)
+    and each rank adds the partner's partial to its own: the same two fp32
+    values, so the same sum in both ranks. A 64 x 32 block that
+    ``_full_blocks`` marks full skips the keep-mask, any other selects P to
+    0 where the mask drops the pair; dS (softcap's factor included) rounded
+    to the input type before dS K; each consumer (rank by rank:
+    ``plan.dq_blocks``) stores its own dQ columns once. A Q tile with no
+    listed tile gives dQ = 0. ``window`` is normalized. dq [Tq, Hq, D] as
     ``_varlen_dq_plain`` returns it."""
     tiles, count, order = schedule
     tq, hq, d = q.shape
     hkv, dv = k.shape[1], v.shape[-1]
+    d_pad, dv_pad = -(-d // 64) * 64, -(-dv // 64) * 64
     q_seg, q_rank, k_seg, k_pos = meta
     nqb, tk_pad = tiles.shape[0], k_seg.shape[0]
 
-    def rows_of(t, n, width):  # [T, H, W] -> [H, n, W] fp32, zero rows past T
+    def rows_of(t, n, width):  # [T, H, W] -> [H, n, width] fp32, zeros past T and W
         out = torch.zeros((t.shape[1], n, width))
-        out[:, :t.shape[0]] = t.transpose(0, 1).float()
+        out[:, :t.shape[0], :t.shape[2]] = t.transpose(0, 1).float()
         return out
 
-    qf, dof = rows_of(q, nqb * 64, d), rows_of(do, nqb * 64, dv)
-    kf = rows_of(k, tk_pad, d).repeat_interleave(hq // hkv, 0)
-    vf = rows_of(v, tk_pad, dv).repeat_interleave(hq // hkv, 0)
+    qf, dof = rows_of(q, nqb * 64, d_pad), rows_of(do, nqb * 64, dv_pad)
+    kf = rows_of(k, tk_pad, d_pad).repeat_interleave(hq // hkv, 0)
+    vf = rows_of(v, tk_pad, dv_pad).repeat_interleave(hq // hkv, 0)
     lsef, deltaf = torch.zeros((hq, nqb * 64)), torch.zeros((hq, nqb * 64))
     lsef[:, :tq], deltaf[:, :tq] = lse, delta
     full = tvar._full_blocks(meta, 64, 32, causal, window, softcap=softcap,
                              alibi=alibi is not None)
-    dq = torch.zeros((hq, nqb * 64, d))
+    ranks = plan.rank_blocks or (((0, d_pad), (0, dv_pad)),)
+    dq = torch.full((hq, nqb * 64, d_pad), float("nan"))
     for i in order.tolist():
         r = slice(64 * i, 64 * i + 64)
-        acc = torch.zeros((hq, 64, d))
+        acc = torch.zeros((hq, 64, d_pad))
         for j in tiles[i, :int(count[i])].tolist():
             c = slice(64 * j, 64 * j + 64)
-            s = torch.einsum("hqd,hkd->hqk", qf[:, r], kf[:, c]) * scale
+            parts = [(torch.einsum("hqd,hkd->hqk", qf[:, r, d0:d0 + nd], kf[:, c, d0:d0 + nd]),
+                      torch.einsum("hqd,hkd->hqk", dof[:, r, v0:v0 + nv], vf[:, c, v0:v0 + nv]))
+                     for (d0, nd), (v0, nv) in ranks]
+            if len(parts) == 2:  # own + partner, in either rank
+                (s0, p0), (s1, p1) = parts
+                assert torch.equal(s0 + s1, s1 + s0) and torch.equal(p0 + p1, p1 + p0)
+                s, dp = s0 + s1, p0 + p1
+            else:
+                s, dp = parts[0]
+            s = s * scale
             cap = 1.0
             if softcap > 0.0:
                 s = softcap * torch.tanh(s / softcap)
@@ -349,19 +356,22 @@ def _dq_walk(q, k, v, do, lse, delta, meta, schedule, *, scale, causal, softcap=
                                      k_pos[None, c], causal, window[0], window[1])
             keep = keep | full[i, 2 * j:2 * j + 2].repeat_interleave(32)[None, :]
             p = torch.where(keep, torch.exp(s - lsef[:, r, None]), 0.0)
-            dp = torch.einsum("hqd,hkd->hqk", dof[:, r], vf[:, c])
             ds = p * (dp - deltaf[:, r, None]) * cap
             acc += torch.einsum("hqk,hkd->hqd", ds.to(q.dtype).float(), kf[:, c])
-        dq[:, r] = acc * scale
+        # Each consumer of each rank stores its own columns once.
+        for c0, w in plan.dq_blocks:
+            assert bool(dq[:, r, c0:c0 + w].isnan().all())
+            dq[:, r, c0:c0 + w] = acc[..., c0:c0 + w] * scale
     assert sorted(order.tolist()) == list(range(nqb))
-    return dq[:, :tq].transpose(0, 1).to(q.dtype)
+    assert not bool(dq.isnan().any())
+    return dq[:, :tq, :d].transpose(0, 1).to(q.dtype)
 
 
 @pytest.mark.parametrize("name", sorted(CARD_CASES))
 def test_dq_walk_matches_plain(name):
-    """The wgmma dQ kernel's walk (the forward's saved schedule: only the
-    needed 64 x 64 tiles, the Q tiles most needed first) and its full-block
-    fast path compute ``_varlen_dq_plain``'s function: dq per row at the
+    """The dQ kernel's walk on the route its plan names (the forward's
+    walk: only the needed 64 x 64 tiles, the Q tiles most needed first) and
+    its full-block fast path compute ``_varlen_dq_plain``'s function: dq per row at the
     bf16 gradient tolerance (the walk rounds dS to bf16 as the kernel
     does), and every Q tile with no listed KV tile exactly 0, as the plain
     version gives."""
@@ -382,7 +392,8 @@ def test_dq_walk_matches_plain(name):
         o, lse = tvar._varlen_apply_sinks(o, lse, to_torch(x["sinks"]))
     delta = tvar._varlen_delta(do, o)
     walk = tvar._walk_schedule(meta, tq, 64, causal, window)
-    got = _dq_walk(q, k, v, do, lse, delta, tvar._q_tiles(meta, tq, 64), walk[1:],
+    plan = varlen_dq_plan(q.shape[-1], v.shape[-1])  # the cluster at D1024
+    got = _dq_walk(q, k, v, do, lse, delta, tvar._q_tiles(meta, tq, 64), walk[1:], plan,
                    alibi=alibi, **kw)
     want = tvar._varlen_dq_plain(q, k, v, do, lse, delta, meta, alibi=alibi, **kw)
     assert got.dtype == want.dtype and got.shape == want.shape
@@ -515,12 +526,49 @@ def test_dkdv_cluster_walk_matches_plain(name):
     delta = tvar._varlen_delta(do, o)
     plan = varlen_dkdv_plan(d, dv)
     assert plan.route == ("wgmma" if max(d, dv) <= 512 else "wgmma_cluster")
-    sched, _ = tvar._backward_schedules(meta, t, plan, varlen_dq_plan(d, dv), 64, causal, window)
+    sched, _ = tvar._backward_schedules(meta, t, plan, varlen_dq_plan(d, dv), causal, window)
     got = _dkdv_walk(q, k, v, do, lse, delta, meta, sched, plan, alibi=alibi, **kw)
     want = tvar._varlen_dkdv_plain(q, k, v, do, lse, delta, meta, alibi=alibi, **kw)
     for g, w, n in zip(got, want, ("dk", "dv")):
         assert g.dtype == w.dtype and g.shape == w.shape, n
         assert grad_row_rel_err(g, w) < GRAD_TOL["bfloat16"], (name, n)
+
+
+@pytest.mark.parametrize("name", sorted(DKDV_WALK_CASES))
+def test_dq_cluster_walk_matches_plain(name):
+    """The dQ kernel's walk on the cluster (the rank split, the summed
+    partial S and dP, the full-block skip, each consumer's own columns) and
+    on one block (D512) computes ``_varlen_dq_plain``'s function: dq per row
+    at the bf16 gradient tolerance, over a packing whose Q tiles straddle
+    segments and whose schedule is the backward's own
+    (``_backward_schedules``: no saved walk above D512). The cases are the
+    dK/dV walk's: D = Dv, D != Dv, a rank without a box of the narrow dim
+    and the features that take the element-by-element path."""
+    case = DKDV_WALK_CASES[name]
+    d, dv, hq, hkv = case["d"], case["dv"], case.get("hq", 4), case.get("hkv", 2)
+    causal, softcap = case["causal"], case.get("softcap", 0.0)
+    window = case.get("window", (-1, -1))
+    window = (window[0], -1 if causal else window[1])
+    seqs = [40, 72, 9, 100]
+    rng = np.random.default_rng(22)
+    t = sum(seqs)
+    q, do = (to_torch(randn(rng, (t, hq, w)), "bfloat16") for w in (d, dv))
+    k, v = (to_torch(randn(rng, (t, hkv, w)), "bfloat16") for w in (d, dv))
+    alibi = torch.from_numpy(rng.uniform(0.01, 0.3, (hq,)).astype(np.float32)) \
+        if case.get("alibi") else None
+    cu = torch.from_numpy(np.cumsum([0] + seqs).astype(np.int32))
+    kw = dict(scale=d ** -0.5, causal=causal, softcap=softcap, window=window)
+    meta = tvar._call_metadata(cu, cu, t, t, "cpu")
+    o, lse = tvar._varlen_forward_plain(q, k, v, meta, alibi=alibi, **kw)
+    delta = tvar._varlen_delta(do, o)
+    plan = varlen_dq_plan(d, dv)
+    assert plan.route == ("wgmma" if max(d, dv) <= 512 else "wgmma_cluster")
+    _, sched = tvar._backward_schedules(meta, t, varlen_dkdv_plan(d, dv), plan, causal, window)
+    got = _dq_walk(q, k, v, do, lse, delta, tvar._q_tiles(meta, t, 64), sched, plan,
+                   alibi=alibi, **kw)
+    want = tvar._varlen_dq_plain(q, k, v, do, lse, delta, meta, alibi=alibi, **kw)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert grad_row_rel_err(got, want) < GRAD_TOL["bfloat16"], name
 
 
 # -- on the card: each kernel against its plain version ----------------------

@@ -82,9 +82,7 @@ wrappers passed, ``LegacyBanded``):
   routes; a base library without ``ffpa_varlen_bwd_dkdv_plan`` (built from
   sources before the wgmma dK/dV route) is called with its own argument
   list and its mma.sync route's 128 x 32 schedule and 512-column passes
-  (``LegacyVarlenBwd``), one without ``ffpa_varlen_bwd_dq_plan`` (before
-  the wgmma dQ route) with its own argument list and its intervals at
-  ``block_q_dq`` rows (``LegacyVarlenDq``);
+  (``LegacyVarlenBwd``);
 * varlen_dkdv_d1024, varlen_dkdv_d640 and varlen_dkdv_d1024_fp16: the
   varlen dK/dV kernel alone above D512, over 8 documents packed into 4096
   tokens ([1024, 768, 600, 512, 450, 350, 250, 142]), H8/4 causal, on the
@@ -92,7 +90,14 @@ wrappers passed, ``LegacyBanded``):
   at the fp16 gradient tolerance 1e-2). The head library runs the cluster
   of two blocks on its 64 x 64 schedule; a base library whose plan sends
   D1024 to the mma.sync route is given that route's own 128 x 32 schedule
-  and 512-column passes (``LegacyVarlenWideDkdv``).
+  and 512-column passes (``LegacyVarlenWideDkdv``);
+* varlen_dq_d1024, varlen_dq_d640 and varlen_dq_d1024_fp16: the varlen dQ
+  kernel alone on the same packing, inputs and schedules, each held
+  against ``_varlen_dq_plain`` (fp16 at 1e-2). The head library runs the
+  cluster of two blocks on its 64 x 64 walk; a base library whose plan
+  sends D1024 to the mma.sync route (and whose dQ entry point takes each Q
+  tile's [jmin, jmax] and a row tile, at every width) is given its plan's
+  row tile and that route's intervals at it (``LegacyVarlenWideDq``).
 
 A kernel whose source the base tree lacks is timed on the head alone. Each
 time is the kernels' device time per call from torch.profiler (for from_s
@@ -159,17 +164,24 @@ SOURCE = {"flash_fwd": "flash_fwd", "flash_fwd_scores": "flash_fwd",
           "paged_decode": "paged_decode",
           "paged_decode_int8": "paged_decode", "varlen_dkdv": "varlen_bwd",
           "varlen_dq": "varlen_bwd", "varlen_dkdv_d1024": "varlen_bwd",
-          "varlen_dkdv_d640": "varlen_bwd", "varlen_dkdv_d1024_fp16": "varlen_bwd"}
+          "varlen_dkdv_d640": "varlen_bwd", "varlen_dkdv_d1024_fp16": "varlen_bwd",
+          "varlen_dq_d1024": "varlen_bwd", "varlen_dq_d640": "varlen_bwd",
+          "varlen_dq_d1024_fp16": "varlen_bwd"}
 # The varlen dK/dV kernels of every tree: the wgmma kernel (one block or the
 # cluster) and the mma.sync kernel an older tree ran above D512.
 VARLEN_DKDV_KERNELS = ("varlen_dkdv_kernel<", "varlen_dkdv_wgmma_kernel<")
+# The varlen dQ kernels of every tree: the wgmma kernel (one block or the
+# cluster) and the mma.sync kernel an older tree ran above D512.
+VARLEN_DQ_KERNELS = ("varlen_dq_kernel<", "varlen_dq_wgmma_kernel<")
 # kernel -> the substrings of its CUDA kernels' names (either route), where a
 # run also launches other kernels that are not timed
 ONLY = {"from_s": flash_bwd.FROM_S_KERNELS, "from_s_d1024": flash_bwd.FROM_S_KERNELS,
         "from_s_d640": flash_bwd.FROM_S_KERNELS, "varlen_fwd": varlen.FWD_KERNELS,
         "varlen_fwd_train": varlen.FWD_KERNELS, "varlen_dkdv": VARLEN_DKDV_KERNELS,
-        "varlen_dq": varlen.DQ_KERNELS, "varlen_dkdv_d1024": VARLEN_DKDV_KERNELS,
-        "varlen_dkdv_d640": VARLEN_DKDV_KERNELS, "varlen_dkdv_d1024_fp16": VARLEN_DKDV_KERNELS}
+        "varlen_dq": VARLEN_DQ_KERNELS, "varlen_dkdv_d1024": VARLEN_DKDV_KERNELS,
+        "varlen_dkdv_d640": VARLEN_DKDV_KERNELS, "varlen_dkdv_d1024_fp16": VARLEN_DKDV_KERNELS,
+        "varlen_dq_d1024": VARLEN_DQ_KERNELS, "varlen_dq_d640": VARLEN_DQ_KERNELS,
+        "varlen_dq_d1024_fp16": VARLEN_DQ_KERNELS}
 # kernels whose C entry point an older tree may lack
 ENTRY = {"from_s": "ffpa_bwd_dkdv_from_s", "from_s_d1024": "ffpa_bwd_dkdv_from_s",
          "from_s_d640": "ffpa_bwd_dkdv_from_s", "banded_dk": "ffpa_bwd_banded_dk",
@@ -177,7 +189,9 @@ ENTRY = {"from_s": "ffpa_bwd_dkdv_from_s", "from_s_d1024": "ffpa_bwd_dkdv_from_s
          "paged_decode": "ffpa_paged_decode",
          "paged_decode_int8": "ffpa_paged_decode", "varlen_dkdv": "ffpa_varlen_bwd_dkdv",
          "varlen_dq": "ffpa_varlen_bwd_dq", "varlen_dkdv_d1024": "ffpa_varlen_bwd_dkdv",
-         "varlen_dkdv_d640": "ffpa_varlen_bwd_dkdv", "varlen_dkdv_d1024_fp16": "ffpa_varlen_bwd_dkdv"}
+         "varlen_dkdv_d640": "ffpa_varlen_bwd_dkdv", "varlen_dkdv_d1024_fp16": "ffpa_varlen_bwd_dkdv",
+         "varlen_dq_d1024": "ffpa_varlen_bwd_dq", "varlen_dq_d640": "ffpa_varlen_bwd_dq",
+         "varlen_dq_d1024_fp16": "ffpa_varlen_bwd_dq"}
 
 
 def mma_sync_passes(d: int, dv: int) -> int:
@@ -436,17 +450,39 @@ class LegacyVarlenWideDkdv:
         return call
 
 
-class LegacyVarlenDq:
-    """A varlen_bwd library built from sources before the wgmma dQ route:
-    its dQ entry point takes no needed-tile list, counts or order (the
-    three arguments after jmax) and no KV tile count (the argument after
-    the Q tile count), and walks each ``block_q``-row Q tile's [jmin,
-    jmax]. The intervals at that row tile (``SCHEDULE``, set by
-    ``make_runs``) and their Q tile count are put in; every other symbol is
-    the library's own."""
+class LegacyVarlenWideDq:
+    """A varlen_bwd library whose plan sends D or Dv above 512 to its
+    mma.sync dQ kernel (built from sources before the dQ cluster route):
+    its dQ entry point takes each Q tile's [jmin, jmax] (the two arguments
+    before the tile list) and a row tile (the argument before Hq), and
+    above D512 walks every 64-row KV tile of each ``block_q``-row Q tile's
+    interval. There the row tile its plan names and those intervals
+    (``SCHEDULE[(tq, rows)]``, set by ``make_runs`` for the wide packing)
+    and their Q tile count are put in; at D, Dv <= 512 (its wgmma route)
+    the intervals are null and the row tile is not read. Every other symbol
+    is the library's own."""
 
-    SCHEDULE = None  # (jmin, jmax) at block_q_dq x 64
-    JMIN, JMAX, TILES, NTILE, ORDER, NQT, NKVT = 19, 20, 21, 22, 23, 31, 32
+    SCHEDULE = {}  # (tq, rows) -> (jmin, jmax) at rows x 64
+    ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 8 + [ctypes.c_void_p] * 13
+                + [ctypes.c_int] * 10 + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
+                + [ctypes.c_void_p])
+    TILES, HQ, TQ, NQT, D, DV = 19, 24, 26, 28, 30, 31  # in the head's argument list
+
+    @staticmethod
+    def rows(lib, d: int, dv: int) -> int:
+        """The route (0 mma.sync) and row tile of ``lib``'s dQ plan."""
+        fn = lib.ffpa_varlen_bwd_dq_plan
+        fn.argtypes = varlen._VARLEN_BWD_ARGTYPES["ffpa_varlen_bwd_dq_plan"]
+        fn.restype = ctypes.c_int
+        out = (ctypes.c_int * 64)()
+        if fn(d, dv, out, len(out)) != 0:
+            raise RuntimeError(f"the base library's dQ plan refuses D{d}/Dv{dv}")
+        return out[0], out[1]
+
+    @classmethod
+    def needed(cls, lib) -> bool:
+        """Whether ``lib`` sends D1024 to the mma.sync route (route 0)."""
+        return hasattr(lib, "ffpa_varlen_bwd_dq_plan") and cls.rows(lib, 1024, 1024)[0] == 0
 
     def __init__(self, lib):
         self._lib = lib
@@ -455,23 +491,22 @@ class LegacyVarlenDq:
         fn = getattr(self._lib, name)
         if name != "ffpa_varlen_bwd_dq":
             return fn
-        drop = (self.NKVT, self.ORDER, self.NTILE, self.TILES)  # descending
-        argtypes = list(varlen._VARLEN_BWD_ARGTYPES[name])
-        for i in drop:
-            del argtypes[i]
-        fn.argtypes = argtypes
+        fn.argtypes = self.ARGTYPES
         fn.restype = ctypes.c_int
 
         def call(*args):
             args = list(args)
-            jmin, jmax = self.SCHEDULE
-            args[self.JMIN], args[self.JMAX] = jmin.data_ptr(), jmax.data_ptr()
-            args[self.NQT] = jmin.shape[0]
-            for i in drop:
-                del args[i]
-            return fn(*args)
+            jmin = jmax = None
+            route, rows = self.rows(self._lib, args[self.D], args[self.DV])
+            if route == 0:
+                jmin, jmax = self.SCHEDULE[(args[self.TQ], rows)]
+                args[self.NQT] = jmin.shape[0]
+            old = (args[:self.TILES] + [None if jmin is None else jmin.data_ptr(),
+                                        None if jmax is None else jmax.data_ptr()]
+                   + args[self.TILES:self.HQ] + [rows] + args[self.HQ:])
+            return fn(*old)
 
-        call.argtypes = argtypes
+        call.argtypes = self.ARGTYPES
         return call
 
 
@@ -517,7 +552,7 @@ class LegacyVarlenFwd:
 TOL = 5e-2  # bf16 gradients (tests/test_ffpa_bwd.py:19)
 # Gradient kernels run in fp16: its gradient tolerance (tests/test_ffpa_bwd.py:19).
 GRAD_KERNEL_TOL = {"dkdv_d1024": 1e-2, "dkdv_d640": 1e-2, "dq_d1024_fp16": 1e-2,
-                   "varlen_dkdv_d1024_fp16": 1e-2}
+                   "varlen_dkdv_d1024_fp16": 1e-2, "varlen_dq_d1024_fp16": 1e-2}
 # Per-kernel tolerances where a kernel is held to the forward's (per row).
 KERNEL_TOL = {"paged_decode": 2e-2, "paged_decode_int8": 2e-2, "decode": 2e-2,
               "decode_serving": 2e-2, "varlen_fwd": 2e-2, "varlen_fwd_train": 2e-2}
@@ -787,13 +822,14 @@ def make_runs(gen) -> tuple:
     bq, bk, bv, bdo = randn(bt, hq, d), randn(bt, hkv, d), randn(bt, hkv, d), randn(bt, hq, d)
     meta = varlen._call_metadata(bcu, bcu, bt, bt, "cuda")
     bo, blse = varlen._varlen_forward_plain(bq, bk, bv, meta, scale=scale, causal=True)
-    bcfg = pick_varlen_backward_config(d=d, dv=d, tq=bt, dtype=torch.bfloat16)
+    bcfg = pick_varlen_backward_config(d=d, dv=d, dtype=torch.bfloat16)
     bdelta = varlen._varlen_delta(bdo, bo)
     ops = varlen._BwdOperands(bq, bk, bv, bdo, blse, bdelta, None)
     sched = varlen._backward_schedules(meta, bt, varlen_dkdv_plan(d, d), varlen_dq_plan(d, d),
-                                       bcfg.block_q_dq, True, (-1, -1))
-    older = varlen._varlen_bwd_schedules(meta, bt, bcfg.block_q_dq, True, (-1, -1), (128, 32))
-    LegacyVarlenBwd.SCHEDULE, LegacyVarlenDq.SCHEDULE = older[0][:2], older[1]
+                                       True, (-1, -1))
+    # The mma.sync dK/dV route's intervals at its 128 x 32 tiles.
+    LegacyVarlenBwd.SCHEDULE = varlen._dkdv_intervals(varlen._tile_needed(*meta, 128, 32,
+                                                                          True))[:2]
     bkw = dict(scale=scale, causal=True, softcap=0.0, window=(-1, -1))
     del bo
     # The varlen dK/dV above D512: 8 documents in 4096 tokens, H8/4 causal.
@@ -812,18 +848,26 @@ def make_runs(gen) -> tuple:
         wo, wlse = varlen._varlen_forward_plain(wq_, wk_, wv_, wmeta, scale=wkw["scale"],
                                                 causal=True)
         wdelta = varlen._varlen_delta(wdo, wo)
-        wcfg = pick_varlen_backward_config(d=wd, dv=wd, tq=wt, dtype=wdt)
-        wsched = varlen._backward_schedules(wmeta, wt, varlen_dkdv_plan(wd, wd),
-                                            varlen_dq_plan(wd, wd), wcfg.block_q_dq, True,
-                                            (-1, -1))[0]
+        wcfg = pick_varlen_backward_config(d=wd, dv=wd, dtype=wdt)
+        wsched, wdq_sched = varlen._backward_schedules(wmeta, wt, varlen_dkdv_plan(wd, wd),
+                                                       varlen_dq_plan(wd, wd), True, (-1, -1))
+        wops = varlen._BwdOperands(wq_, wk_, wv_, wdo, wlse, wdelta, None)
+        wargs = (wq_, wk_, wv_, wdo, wlse, wdelta)
         wide_varlen[wd, wdt] = dict(
-            run=(lambda o_=varlen._BwdOperands(wq_, wk_, wv_, wdo, wlse, wdelta, None), s_=wsched,
-                 c_=wcfg, k_=wkw: varlen._varlen_dkdv_kernel(o_, wmeta, s_, c_, **k_)),
-            plain=(lambda a_=(wq_, wk_, wv_, wdo, wlse, wdelta), k_=wkw:
-                   varlen._varlen_dkdv_plain(*a_, wmeta, **k_)))
+            run=(lambda o_=wops, s_=wsched, c_=wcfg, k_=wkw:
+                 varlen._varlen_dkdv_kernel(o_, wmeta, s_, c_, **k_)),
+            plain=(lambda a_=wargs, k_=wkw: varlen._varlen_dkdv_plain(*a_, wmeta, **k_)),
+            dq_run=(lambda o_=wops, s_=wdq_sched, k_=wkw:
+                    varlen._varlen_dq_kernel(o_, wmeta, s_, **k_)),
+            dq_plain=(lambda a_=wargs, k_=wkw: varlen._varlen_dq_plain(*a_, wmeta, **k_)))
         del wo
-    LegacyVarlenWideDkdv.SCHEDULE = varlen._varlen_bwd_schedules(
-        wmeta, wt, 64, True, (-1, -1), (128, 32))[0][:2]
+    # The mma.sync routes' intervals above D512: dK/dV's at 128 x 32, dQ's
+    # at each row tile x 64.
+    LegacyVarlenWideDkdv.SCHEDULE = varlen._dkdv_intervals(varlen._tile_needed(
+        *wmeta, 128, 32, True))[:2]
+    for rows in (64, 32):
+        LegacyVarlenWideDq.SCHEDULE[(wt, rows)] = varlen._interval_schedule(varlen._tile_needed(
+            *varlen._q_tiles(wmeta, wt, rows), rows, 64, True))
     vmeta = varlen._call_metadata(cu, cu, tot, tot, "cuda")
     for t_, m_ in ((tot, vmeta), (bt, meta)):  # a base library's intervals at 64 rows
         needed = varlen._tile_needed(*varlen._q_tiles(m_, t_, 64), 64, 64, True)
@@ -875,10 +919,13 @@ def make_runs(gen) -> tuple:
         "paged_decode": lambda: run_paged(False),
         "paged_decode_int8": lambda: run_paged(True),
         "varlen_dkdv": lambda: varlen._varlen_dkdv_kernel(ops, meta, sched[0], bcfg, **bkw),
-        "varlen_dq": lambda: varlen._varlen_dq_kernel(ops, meta, sched[1], bcfg, **bkw),
+        "varlen_dq": lambda: varlen._varlen_dq_kernel(ops, meta, sched[1], **bkw),
         "varlen_dkdv_d1024": wide_varlen[1024, torch.bfloat16]["run"],
         "varlen_dkdv_d640": wide_varlen[640, torch.bfloat16]["run"],
         "varlen_dkdv_d1024_fp16": wide_varlen[1024, torch.float16]["run"],
+        "varlen_dq_d1024": wide_varlen[1024, torch.bfloat16]["dq_run"],
+        "varlen_dq_d640": wide_varlen[640, torch.bfloat16]["dq_run"],
+        "varlen_dq_d1024_fp16": wide_varlen[1024, torch.float16]["dq_run"],
     })
 
     def dkdv_plain():
@@ -915,6 +962,9 @@ def make_runs(gen) -> tuple:
         "varlen_dkdv_d1024": wide_varlen[1024, torch.bfloat16]["plain"],
         "varlen_dkdv_d640": wide_varlen[640, torch.bfloat16]["plain"],
         "varlen_dkdv_d1024_fp16": wide_varlen[1024, torch.float16]["plain"],
+        "varlen_dq_d1024": wide_varlen[1024, torch.bfloat16]["dq_plain"],
+        "varlen_dq_d640": wide_varlen[640, torch.bfloat16]["dq_plain"],
+        "varlen_dq_d1024_fp16": wide_varlen[1024, torch.float16]["dq_plain"],
         "varlen_fwd": lambda: varlen._varlen_forward_plain(vq, vk, vv, vmeta, scale=scale,
                                                            causal=True)[0],
         "varlen_fwd_train": lambda: varlen._varlen_forward_plain(bq, bk, bv, meta, scale=scale,
@@ -958,11 +1008,11 @@ def main() -> int:
     base_varlen = trees["base"].get("varlen_bwd")
     if base_varlen is not None and not hasattr(base_varlen, "ffpa_varlen_bwd_dkdv_plan"):
         trees["base"]["varlen_bwd"] = base_varlen = LegacyVarlenBwd(base_varlen)
-    if base_varlen is not None and not hasattr(base_varlen, "ffpa_varlen_bwd_dq_plan"):
-        trees["base"]["varlen_bwd"] = base_varlen = LegacyVarlenDq(base_varlen)
     if (base_varlen is not None and hasattr(base_varlen, "ffpa_varlen_bwd_dkdv_plan")
             and LegacyVarlenWideDkdv.needed(base_varlen)):
-        trees["base"]["varlen_bwd"] = LegacyVarlenWideDkdv(base_varlen)
+        trees["base"]["varlen_bwd"] = base_varlen = LegacyVarlenWideDkdv(base_varlen)
+    if base_varlen is not None and LegacyVarlenWideDq.needed(base_varlen):
+        trees["base"]["varlen_bwd"] = LegacyVarlenWideDq(base_varlen)
     base_fwd = trees["base"].get("varlen_fwd")
     if base_fwd is not None and not hasattr(base_fwd, "ffpa_varlen_fwd_plan"):
         trees["base"]["varlen_fwd"] = LegacyVarlenFwd(base_fwd)

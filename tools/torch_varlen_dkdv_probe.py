@@ -3,11 +3,11 @@ a card.
 
 Run from the repository root on a machine with a card:
 
-    python tools/torch_varlen_dkdv_probe.py [--kernel dkdv|dq|dkdv_cluster]
+    python tools/torch_varlen_dkdv_probe.py [--kernel dkdv|dq|dkdv_cluster|dq_cluster]
 
 The shape is ``chip_smoke.py``'s packed-training backward: 8 documents of
 2048..284 tokens (8192 in all), H8/4, D = Dv = 512 (D = Dv = 1024 for
-``dkdv_cluster``), causal, bf16, the kernel alone on the plain forward's
+``dkdv_cluster`` and ``dq_cluster``), causal, bf16, the kernel alone on the plain forward's
 (o, lse) with its 64 x 64 schedule computed beforehand
 (``varlen._backward_schedules``). Each reading is
 device ms per call from torch.profiler, taken in turns (v1 .. vn, vn ..
@@ -38,6 +38,14 @@ delta:
 * ``rows_before_products``: ``csrc/varlen_bwd.cu`` rebuilt to load all 16
   before the S^T products, as the one-block route does;
 * ``rows_lookahead``: rebuilt to load each group's beside the group before.
+
+dQ on the cluster (D1024):
+
+* ``s_early``: the kernel as built, each consumer's partial S sent to the
+  partner as soon as its products complete (under the dP products);
+* ``s_beside_dp``: ``csrc/varlen_bwd.cu`` rebuilt to send it beside dP,
+  after the dP products;
+* ``no_fast_path``: rebuilt with its full-block test off.
 
 Prints the card's name and power limit, each variant's ptxas registers and
 spill bytes, then one JSON line; exits 1 if a run misses the tolerance.
@@ -84,6 +92,14 @@ SOURCES = {
     },
 }
 SOURCES["dq"] = SOURCES["dkdv"]
+_S_EARLY = ("      mbar_wait_cluster(&sm.part_free[C], (t + 1) & 1);\n"
+            "      send(s, count(0), 0);\n    }\n")
+_DP_SEND = "      send(dp, count(1), PART_BYTES);\n"
+SOURCES["dq_cluster"] = {
+    "as_built": [],
+    "s_beside_dp": [(_S_EARLY, "    }\n"), (_DP_SEND, _S_EARLY.replace("    }\n", "") + _DP_SEND)],
+    "no_fast_path": SOURCES["dkdv"]["no_fast_path"],
+}
 
 
 def build(out: Path, kernel: str) -> dict:
@@ -111,7 +127,7 @@ def build(out: Path, kernel: str) -> dict:
             raise SystemExit(f"nvcc failed on {name}:\n{log}")
         lines = log.splitlines()
         for i, ln in enumerate(lines):
-            if "Compiling entry" in ln and f"varlen_{kernel[:4]}_wgmma_kernel" in ln:
+            if "Compiling entry" in ln and f"varlen_{kernel.split('_')[0]}_wgmma_kernel" in ln:
                 spill = re.search(r"(\d+) bytes spill stores", lines[i + 2])
                 regs = re.search(r"Used (\d+) registers", lines[i + 3])
                 route = "cluster" if "Lb1E" in ln else "one block"
@@ -132,7 +148,7 @@ def row_rel(got, want, floor: float = 1e-3) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--kernel", choices=("dkdv", "dq", "dkdv_cluster"), default="dkdv")
+    ap.add_argument("--kernel", choices=tuple(SOURCES), default="dkdv")
     kernel = ap.parse_args().kernel
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -147,7 +163,7 @@ def main() -> int:
         return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
 
     t, hq, hkv = sum(LENS), 8, 4
-    d = 1024 if kernel == "dkdv_cluster" else 512
+    d = 1024 if kernel.endswith("_cluster") else 512
     cu = torch.tensor([0] + torch.tensor(LENS).cumsum(0).tolist(), dtype=torch.int32,
                       device="cuda")
     q, k, v, do = randn(t, hq, d), randn(t, hkv, d), randn(t, hkv, d), randn(t, hq, d)
@@ -155,9 +171,9 @@ def main() -> int:
     meta = varlen._call_metadata(cu, cu, t, t, "cuda")
     o, lse = varlen._varlen_forward_plain(q, k, v, meta, scale=kw["scale"], causal=True)
     delta = varlen._varlen_delta(do, o)
-    cfg = pick_varlen_backward_config(d=d, dv=d, tq=t, dtype=torch.bfloat16)
+    cfg = pick_varlen_backward_config(d=d, dv=d, dtype=torch.bfloat16)
     dkdv, dq = varlen._backward_schedules(meta, t, varlen_dkdv_plan(d, d), varlen_dq_plan(d, d),
-                                          cfg.block_q_dq, True, (-1, -1))
+                                          True, (-1, -1))
     ops = varlen._BwdOperands(q, k, v, do, lse, delta, None)
     if kernel == "dkdv_cluster":
         launch, sched = varlen._varlen_dkdv_kernel, dkdv
@@ -174,8 +190,8 @@ def main() -> int:
         variants = {"longest_first": ("as_built", sched), "kv_tile_order": ("as_built", in_order),
                     "no_fast_path": ("no_fast_path", sched)}
     else:
-        def launch(*a, **k_):
-            return (varlen._varlen_dq_kernel(*a, **k_),)
+        def launch(ops_, meta_, sched_, cfg_, **k_):  # the dQ launcher reads no config
+            return (varlen._varlen_dq_kernel(ops_, meta_, sched_, **k_),)
 
         sched = dq
         want = (varlen._varlen_dq_plain(q, k, v, do, lse, delta, meta, **kw),)
@@ -190,6 +206,9 @@ def main() -> int:
         variants = {"needed_tiles": ("as_built", sched), "q_tile_order": ("as_built", in_order),
                     "interval_tiles": ("as_built", interval),
                     "no_fast_path": ("no_fast_path", sched)}
+        if kernel == "dq_cluster":
+            variants = {"s_early": ("as_built", sched), "s_beside_dp": ("s_beside_dp", sched),
+                        "no_fast_path": ("no_fast_path", sched)}
     load = _build.load
     res, errs = {}, {}
     for name in list(variants) + list(variants)[::-1]:

@@ -14,16 +14,14 @@ the causal band's pairs; then the wgmma kernel's walk (D, Dv <= 512: only
 the needed tiles at 64 x 64, ``_needed_tiles``), its tiles per Q tile and
 the 64 x 32 consumer blocks its full-block test (``_full_blocks`` at 64 x 32) lets
 skip the mask. Then the
-backward's (``_backward_schedules`` and ``_varlen_bwd_schedules``): the
-pairs the dK/dV kernel walks at its 64 x 64 tiles on both routes (each KV
-tile's [imin, imax] of Q tiles: the forward's needed matrix transposed on
-the wgmma route, D and Dv <= 512; the same intervals computed afresh on
-the cluster above), with the needed tiles inside the intervals and those
-the consumers' full-block test (``_dkdv_full_blocks``: one segment, inside
-the band) lets skip the mask; and dQ's: the wgmma walk (the forward's
-needed tiles at 64 x 64, ``dq_wgmma``, with its full 64 x 32 consumer
-blocks) beside the mma.sync interval walk at block_q x 64 (``dq_*``),
-against the band.
+backward's (``_backward_schedules``, one 64 x 64 walk at every width: the
+forward's saved walk at D, Dv <= 512, the same walk computed afresh
+above): the pairs the dK/dV kernel walks at its 64 x 64 tiles (each KV
+tile's [imin, imax] of Q tiles, the needed matrix transposed), with the
+needed tiles inside the intervals and those the consumers' full-block
+test (``_dkdv_full_blocks``: one segment, inside the band) lets skip the
+mask; and dQ's walk (the needed tiles at 64 x 64, ``dq_wgmma``, with its
+full 64 x 32 consumer blocks), against the band.
 Prints one JSON line. The default lengths are the serving bench's; the packed-training
 packing of ``chip_smoke.py`` is ``--lens
 2048,1536,1200,1024,900,700,500,284``.
@@ -71,8 +69,8 @@ def main() -> int:
     walked = _walked(lo, hi)
     inside = int(sum(needed[i, lo[i]:hi[i] + 1].sum() for i in range(len(lo))))
     band = sum(band_pairs(n, n, causal=True) for n in lens)
-    (imin, imax, _), (jmin, jmax) = varlen._varlen_bwd_schedules(meta, t, bq, True, (-1, -1),
-                                                                 (64, 64))
+    (imin, imax, _), _ = varlen._backward_schedules(
+        meta, t, varlen_dkdv_plan(1024, 1024), varlen_dq_plan(1024, 1024), True, (-1, -1))
     pairs = _walked(imin, imax) * 64 * 64
     need = varlen._tile_needed(*meta, 64, 64, True).T  # [kv tile, q tile]
     walk = torch.zeros_like(need)  # the tiles the intervals walk
@@ -105,11 +103,14 @@ def main() -> int:
         "consumer_blocks_walked": int(walked_halves.sum()),
         "consumer_blocks_full": int((halves & walked_halves).sum()),
     }
-    # dQ's wgmma walk: the forward's lists, read through the backward's
-    # schedule (the same tiles and full blocks as the forward's walk).
-    _, (dtiles, dcount, _) = varlen._backward_schedules(
-        meta, t, varlen_dkdv_plan(512, 512), varlen_dq_plan(512, 512), bq, True, (-1, -1))
+    # dQ's walk: the forward's lists, read through the backward's schedule
+    # (the same tiles and full blocks as the forward's walk) at D512, the
+    # same lists computed by the backward at D1024.
+    saved = varlen._call_walk(meta, t, 512, 512, True, (-1, -1))
+    (imin_s, imax_s, _), (dtiles, dcount, _) = varlen._backward_schedules(
+        meta, t, varlen_dkdv_plan(512, 512), varlen_dq_plan(512, 512), True, (-1, -1), saved)
     assert torch.equal(dtiles, tiles) and torch.equal(dcount, count)
+    assert torch.equal(imin_s, imin) and torch.equal(imax_s, imax)
     dq_wgmma = {
         "tiles": f"64x{KV_TILE}", "kv_tiles_walked": int(dcount.sum()),
         "walked_over_band": int(dcount.sum()) * 64 * KV_TILE / band,
@@ -120,7 +121,6 @@ def main() -> int:
         "consumer_blocks_walked": int(walked_halves.sum()),
         "consumer_blocks_full": int((halves & walked_halves).sum()),
     }
-    dq_pairs = _walked(jmin, jmax) * bq * KV_TILE
     print(json.dumps({
         "lens": lens, "block_q": bq, "kv_tile": KV_TILE, "q_tiles": len(lo),
         "intervals": list(zip(lo.tolist(), hi.tolist())),
@@ -133,10 +133,6 @@ def main() -> int:
         "fwd_wgmma": fwd_wgmma,
         "dkdv": dkdv,
         "dq_wgmma": dq_wgmma,
-        "dq_tiles": f"{bq}x{KV_TILE}",
-        "dq_pairs_walked_per_head": dq_pairs,
-        "dq_walked_over_band": dq_pairs / band,
-        "dq_kv_tiles_per_block": _spread(jmin, jmax),
     }))
     return 0
 

@@ -1,7 +1,7 @@
-"""The bound of each wide kernel route: the recompute dQ's and the varlen
-dK/dV's clusters above D512, the mma.sync routes of the varlen forward and
-dQ above D512, dense decode on cp.async above D512, and paged decode on
-cp.async over pages that are not a multiple of 16 rows.
+"""The bound of each wide kernel route: the recompute dQ's, the varlen
+dK/dV's and the varlen dQ's clusters above D512, the mma.sync route of the
+varlen forward above D512, dense decode on cp.async above D512, and paged
+decode on cp.async over pages that are not a multiple of 16 rows.
 
 Run anywhere (it needs no card: the numbers are counted from the shapes):
 
@@ -59,7 +59,7 @@ def routes() -> list:
         ("9 (D > 512)", "tma::varlen_dkdv_wgmma_kernel<T, true> (the cluster)",
          "8 documents in 8192 tokens, H8/4 D1024 causal", "1 a packed backward",
          varlen_backward_counts("varlen_dkdv", PACKING, PACKING, causal=True, **wide)),
-        ("10 (D > 512)", "varlen_dq_kernel (mma.sync)",
+        ("10 (D > 512)", "tma::varlen_dq_wgmma_kernel<T, true> (the cluster)",
          "8 documents in 8192 tokens, H8/4 D1024 causal", "1 a packed backward",
          varlen_backward_counts("varlen_dq", PACKING, PACKING, causal=True, **wide)),
         ("11 (cp.async)", "paged_decode_kernel (cp.async)",

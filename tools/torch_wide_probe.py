@@ -201,10 +201,10 @@ def varlen_bwd_routes(gen) -> tuple:
     o, lse = varlen._varlen_forward(q, k, v, cu, cu, meta=meta, **kw)
     delta = varlen._varlen_delta(do, o)
     del o
-    cfg = pick_varlen_backward_config(d=d, dv=d, tq=t, dtype=BF)
+    cfg = pick_varlen_backward_config(d=d, dv=d, dtype=BF)
     ops = varlen._BwdOperands(q, k, v, do, lse, delta, None)
     dkdv_sched, dq_sched = varlen._backward_schedules(
-        meta, t, varlen_dkdv_plan(d, d), varlen_dq_plan(d, d), cfg.block_q_dq, True, (-1, -1))
+        meta, t, varlen_dkdv_plan(d, d), varlen_dq_plan(d, d), True, (-1, -1))
     qh = q.transpose(0, 1)[None].detach().requires_grad_()
     kh = expand_kv_heads(k.transpose(0, 1)[None], hq).detach().requires_grad_()
     vh = expand_kv_heads(v.transpose(0, 1)[None], hq).detach().requires_grad_()
@@ -221,9 +221,9 @@ def varlen_bwd_routes(gen) -> tuple:
     dkdv = dict(common, run=lambda: varlen._varlen_dkdv_kernel(ops, meta, dkdv_sched, cfg, **kw),
                 plain=lambda: varlen._varlen_dkdv_plain(q, k, v, do, lse, delta, meta, **kw),
                 names=varlen.DKDV_KERNELS)
-    dq = dict(common, run=lambda: varlen._varlen_dq_kernel(ops, meta, dq_sched, cfg, **kw),
+    dq = dict(common, run=lambda: varlen._varlen_dq_kernel(ops, meta, dq_sched, **kw),
               plain=lambda: varlen._varlen_dq_plain(q, k, v, do, lse, delta, meta, **kw),
-              names=varlen.DQ_KERNELS)
+              names=VARLEN_DQ_NAMES)
     return dkdv, dq
 
 
@@ -268,6 +268,9 @@ def paged_route(gen) -> dict:
 # The recompute dQ kernels of every tree this probe may time: the mma.sync
 # block before the cluster route, the wgmma block and its cluster after.
 DQ_NAMES = ("::dq_kernel<", "wgmma_dq_kernel<")
+# The varlen dQ kernels of every tree: the mma.sync block an older tree ran
+# above D512, the wgmma block (one block or the cluster).
+VARLEN_DQ_NAMES = ("varlen_dq_kernel<", "varlen_dq_wgmma_kernel<")
 
 
 def probe(row: str, spec: dict, bound: tuple) -> dict:
