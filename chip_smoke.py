@@ -73,7 +73,9 @@ It imports only ``ffpa_attn_tpu_torch``, torch and numpy, and runs, in order:
    gpt_oss_like window and sinks), 1 varlen-forward, 1 varlen-dK/dV and 1
    varlen-dQ launch per call (the backward on the forward's saved tile
    schedule), its gradients against the plain chain and the per-segment
-   dense path, and its forward + backward times;
+   dense path, and its forward + backward times; then one bf16 call at
+   D1024, all three launches on their clusters and one 64 x 64 walk
+   built;
 6. times: device time by kernel and the device's busy share over one
    prefill, decode steps, one packed prefill, paged decode steps, one
    training step of each tier and one packed forward + backward, then each
@@ -88,7 +90,7 @@ It imports only ``ffpa_attn_tpu_torch``, torch and numpy, and runs, in order:
    registers and spill bytes, and ptxas's log of flash_fwd.cu,
    flash_bwd.cu, decode.cu, paged_decode.cu, varlen_fwd.cu and
    varlen_bwd.cu free of wgmma serialization notes; the packed call's
-   device and CUDA-event ms;
+   device and CUDA-event ms; the three varlen clusters timed at D1024;
    decode's walk and merge timed apart beside the wrapper's total, at the
    generate step and at the serving step; paged decode's likewise, over
    bf16 and int8 pools; each backward
@@ -1146,6 +1148,23 @@ def phase_kernels_vs_plain() -> dict:
                  seed=13)
     _varlen_case("rows_without_keys", seqs=[150, 40, 90], seqs_k=[30, 40, 200], seed=14)
     _varlen_case("straddle_three", seqs=[20, 9, 50, 3, 300], seed=15)
+    # D or Dv above 512: the forward's cluster of two blocks, each rank
+    # holding half of D's and of Dv's boxes (rank 0 five of D576's nine,
+    # rank 1 no D box at D64 / Dv1024 and no Dv box at D1024 / Dv64), over
+    # the features, packings and groups of the cases above.
+    for i_, (name, kw) in enumerate((
+            ("d640", dict(d=640)), ("d576", dict(d=576)),
+            ("d1024_window", dict(d=1024, window=(256, -1))),
+            ("d1024_softcap", dict(d=1024, softcap=30.0)),
+            ("d1024_alibi", dict(d=1024, alibi=True)),
+            ("d1024_fp16", dict(d=1024, dtype=torch.float16)),
+            ("d1024_mha", dict(d=1024, hq=8, hkv=8)),
+            ("d1024_gqa_group4", dict(d=1024, hq=8, hkv=2)),
+            ("d1024_rows_without_keys", dict(d=1024, seqs=[150, 40, 90], seqs_k=[30, 40, 200])),
+            ("d1024_straddle_three", dict(d=1024, seqs=[20, 9, 50, 3, 300])),
+            ("d512_dv1024", dict(d=512, dv=1024)), ("d1024_dv320", dict(d=1024, dv=320)),
+            ("d64_dv1024", dict(d=64, dv=1024)), ("d1024_dv64", dict(d=1024, dv=64)))):
+        _varlen_case(f"cluster_{name}", **dict(dict(seqs=[300, 17, 500]), **kw), seed=20 + i_)
     # Packed training: the varlen backward kernels over feature cases, each
     # in bf16 and fp16; the 8192-token packing is held in
     # packed_training_times, beside its times.
@@ -2283,9 +2302,10 @@ def phase_packed_training() -> dict:
     call; dq, dk, dv per row against the plain chain on the same (o, lse)
     and against the per-segment dense path. Then the gpt_oss_like features
     (window (128, -1), sinks) with dsinks against the plain chain, the bf16
-    call's forward + backward times, and one bf16 call at D1024 (the dK/dV
-    cluster route; the forward and dQ on their mma.sync routes) with its
-    launches counted alone and its gradients against the plain chain."""
+    call's forward + backward times, and one bf16 call at D1024 (the
+    forward, dK/dV and dQ on their cluster routes, one 64 x 64 walk built by
+    the forward and read by the backward) with its launches counted alone
+    and its gradients against the plain chain."""
     from ffpa_attn_tpu_torch.ops import varlen
     from ffpa_attn_tpu_torch.ops.attention import sink_grad
     from ffpa_attn_tpu_torch.utils.profiling import varlen_counts
@@ -2351,21 +2371,22 @@ def phase_packed_training() -> dict:
     x = out["x"]
     fwd_flops = varlen_counts(PACK_LENS, PACK_LENS, hq=hq, hkv=hkv, d=d, dv=d, causal=True)[0]
 
-    def fwd_bwd():
+    def fwd_bwd(x_):
         from ffpa_attn_tpu_torch import ffpa_attn_varlen_func
 
-        leaves = [x[nm].detach().requires_grad_() for nm in ("q", "k", "v")]
+        leaves = [x_[nm].detach().requires_grad_() for nm in ("q", "k", "v")]
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         ev[0].record()
-        o = ffpa_attn_varlen_func(*leaves, x["cu"], x["cu"], n, n, causal=True, enable_gqa=True)
+        o = ffpa_attn_varlen_func(*leaves, x_["cu"], x_["cu"], n, n, causal=True,
+                                  enable_gqa=True)
         ev[1].record()
-        o.backward(x["do"])
+        o.backward(x_["do"])
         ev[2].record()
         ev[2].synchronize()
         return ev[0].elapsed_time(ev[2]), ev[1].elapsed_time(ev[2])
 
-    fwd_bwd()  # warm-up
-    runs = [fwd_bwd() for _ in range(3)]
+    fwd_bwd(x)  # warm-up
+    runs = [fwd_bwd(x) for _ in range(3)]
     total = sorted(r_[0] for r_ in runs)[1]
     bwd = sorted(r_[1] for r_ in runs)[1]
     out.update(fwd_bwd_ms=total, bwd_ms=bwd, bwd_tflops=2.5 * fwd_flops / bwd / 1e9,
@@ -2376,34 +2397,57 @@ def phase_packed_training() -> dict:
         f"{bwd:.3f} ms ({out['bwd_tflops']:.1f} TFLOP/s at 2.5 x; forward flop over the band "
         f"{fwd_flops:.4g}); all {[[round(a, 3), round(b, 3)] for a, b in runs]}")
 
-    # Above D512: the same packing at D1024, where dK/dV and dQ take their
-    # clusters.
-    from ffpa_attn_tpu_torch.ops.config import varlen_dkdv_plan, varlen_dq_plan
+    # Above D512: the same packing at D1024, where the forward, dK/dV and
+    # dQ take their clusters and the call builds one 64 x 64 walk.
+    from ffpa_attn_tpu_torch.ops.config import varlen_dkdv_plan, varlen_dq_plan, varlen_fwd_plan
 
     wd = 1024
-    if (varlen_dkdv_plan(wd, wd).route, varlen_dq_plan(wd, wd).route) != ("wgmma_cluster",) * 2:
-        fail(f"varlen dK/dV or dQ at D{wd} does not take the cluster route")
+    routes = (varlen_fwd_plan(wd, wd).route, varlen_dkdv_plan(wd, wd).route,
+              varlen_dq_plan(wd, wd).route)
+    if routes != ("wgmma_cluster",) * 3:
+        fail(f"the varlen forward, dK/dV or dQ at D{wd} does not take the cluster route: "
+             f"{routes}")
     x = packed_inputs(torch.bfloat16, d=wd)
     meta = varlen._call_metadata(x["cu"], x["cu"], t, t, "cuda")
     torch.cuda.synchronize()
-    launch_counts(zero=True)
-    r = _packed_call(x)
-    torch.cuda.synchronize()
-    counts = launch_counts()
+    walks, walk = [], varlen._walk_schedule
+
+    def counted_walk(*args, **kwargs):
+        walks.append(args[2])
+        return walk(*args, **kwargs)
+
+    varlen._walk_schedule = counted_walk
+    try:
+        launch_counts(zero=True)
+        r = _packed_call(x)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    finally:
+        varlen._walk_schedule = walk
     if counts != want:
         fail(f"packed training D{wd}: launch counts {counts} != expected {want}")
+    if walks != [64]:
+        fail(f"packed training D{wd}: the call built {len(walks)} walks (rows {walks}), not "
+             f"one 64 x 64 walk")
     plain = varlen._varlen_backward_plain(x["q"], x["k"], x["v"], r["o"], r["lse"], x["do"],
                                           meta, scale=wd ** -0.5, causal=True)
     errs = {nm: grad_row_rel(g, w) for nm, g, w in zip(("dq", "dk", "dv"), r["grads"], plain)}
     del plain, r
     tol = GRAD_TOL[torch.bfloat16]
     ok = all(e < tol for e in errs.values())
-    log(f"  bf16 D{wd} (dK/dV and dQ on their clusters): launches {counts}; "
+    log(f"  bf16 D{wd} (forward, dK/dV and dQ on their clusters; one walk of 64 x 64 "
+        f"tiles): launches {counts}; "
         + " ".join(f"{k_}_plain {e:.2e}" for k_, e in errs.items())
         + f" (tol {tol:g}, per row) {'ok' if ok else 'FAIL'}")
     if not ok:
         fail(f"packed training D{wd}: gradients disagree")
-    out["wide"] = dict(x=x, launches={n_: counts[n_] for n_ in ("varlen_dkdv", "varlen_dq")},
+    fwd_bwd(x)  # warm-up
+    runs = [fwd_bwd(x) for _ in range(3)]
+    log(f"  bf16 D{wd} times (CUDA events, median of 3): forward + backward "
+        f"{sorted(r_[0] for r_ in runs)[1]:.3f} ms, backward {sorted(r_[1] for r_ in runs)[1]:.3f}"
+        f" ms; all {[[round(a, 3), round(b, 3)] for a, b in runs]}")
+    out["wide"] = dict(x=x, launches={n_: counts[n_] for n_ in
+                                      ("varlen_fwd", "varlen_dkdv", "varlen_dq")},
                        errs=errs)
     torch.cuda.empty_cache()
     return out
@@ -3252,33 +3296,39 @@ def dkdv_cluster_times() -> dict:
 
 
 def varlen_fwd_kernel_row_extras(d: int) -> dict:
-    """The varlen forward's route at head dim ``d`` and its kernel's
-    registers and spill bytes, for the ``kernels`` line; fails unless the
-    launcher's plan equals its mirror (``ops/config.py`` ``varlen_fwd_plan``)
-    at D, Dv 64..1024 and D != Dv, and the wgmma kernel spills nothing."""
+    """The varlen forward's route at head dim ``d`` and both routes'
+    kernels' registers and spill bytes, for the ``kernels`` line; fails
+    unless the launcher's plan equals its mirror (``ops/config.py``
+    ``varlen_fwd_plan``, the dense ``fwd_plan``) at D, Dv 64..1024 and D !=
+    Dv, and neither route spills in either dtype. The C7515 / C7520 notes of
+    ``varlen_fwd.cu`` are checked with the build's."""
     from ffpa_attn_tpu_torch.ops import varlen
-    from ffpa_attn_tpu_torch.ops.config import varlen_fwd_plan
+    from ffpa_attn_tpu_torch.ops.config import fwd_plan, varlen_fwd_plan
 
     pairs = [(x, x) for x in range(64, 1025, 64)] + [(512, 320), (320, 512), (512, 64),
                                                      (64, 512), (448, 64), (512, 1024),
-                                                     (1024, 320), (400, 400)]
+                                                     (1024, 320), (400, 400), (64, 1024),
+                                                     (1024, 64)]
     for hd, hdv in pairs:
-        if varlen.varlen_fwd_kernel_plan(hd, hdv) != varlen_fwd_plan(hd, hdv):
-            fail(f"varlen forward launcher's plan at D{hd}/Dv{hdv} "
-                 f"{varlen.varlen_fwd_kernel_plan(hd, hdv)} differs from ops/config.py "
-                 f"varlen_fwd_plan {varlen_fwd_plan(hd, hdv)}")
-    log(f"  varlen_fwd plan at D{d}: {varlen.varlen_fwd_kernel_plan(d, d)} (the launcher's, "
-        f"equal to ops/config.py varlen_fwd_plan at {len(pairs)} head-dim pairs)")
-    for route, bq in (("wgmma", 64), ("mma_sync", 64), ("mma_sync", 32)):
+        got, want = varlen.varlen_fwd_kernel_plan(hd, hdv), varlen_fwd_plan(hd, hdv)
+        if got != want or want != fwd_plan(hd, hdv):
+            fail(f"varlen forward launcher's plan at D{hd}/Dv{hdv} {got} differs from "
+                 f"ops/config.py varlen_fwd_plan {want}")
+    log(f"  varlen_fwd plan at D{d}: {varlen.varlen_fwd_kernel_plan(d, d)}; at D1024: "
+        f"{varlen.varlen_fwd_kernel_plan(1024, 1024)} (the launcher's, equal to ops/config.py "
+        f"varlen_fwd_plan at {len(pairs)} head-dim pairs)")
+    attrs = {}
+    for route in ("wgmma", "wgmma_cluster"):
         for dt in (torch.bfloat16, torch.float16):
-            a = varlen.varlen_fwd_kernel_attrs(route, dt, bq)
-            log(f"  varlen_fwd {route} rows {bq} {str(dt)[6:]}: {a['registers']} registers a "
-                f"thread at launch, {a['local_bytes']} local (spill) bytes")
-            if route == "wgmma" and a["local_bytes"] != 0:
-                fail(f"the wgmma varlen forward kernel ({dt}) spills {a['local_bytes']} bytes")
+            a = attrs[route, dt] = varlen.varlen_fwd_kernel_attrs(route, dt)
+            log(f"  varlen_fwd {route} {str(dt)[6:]}: {a['registers']} registers a thread at "
+                f"launch, {a['local_bytes']} local (spill) bytes")
+            if a["local_bytes"] != 0:
+                fail(f"the {route} varlen forward kernel ({dt}) spills {a['local_bytes']} bytes")
     route = varlen_fwd_plan(d, d).route
-    a = varlen.varlen_fwd_kernel_attrs(route)
-    return {"varlen_fwd_route": route, "registers": a["registers"],
+    a = attrs[route, torch.bfloat16]
+    return {"varlen_fwd_route": route, "kernel": f"tma::varlen_fwd_wgmma_kernel<T, "
+            f"{'true' if route == 'wgmma_cluster' else 'false'}>", "registers": a["registers"],
             "spill_bytes": a["local_bytes"]}
 
 
@@ -3761,8 +3811,7 @@ def serving_times(errs: dict, serving: dict, model) -> tuple:
     meta = varlen._call_metadata(cu_q, cu_q, t, t, "cuda")
     plan, rows_q, _, sched = varlen._varlen_fwd_tiles(meta, t, d, d, BlockConfig(), True,
                                                       (-1, -1))
-    wg = plan.route == "wgmma"
-    tiles_walked = int(sched[1].sum()) if wg else int((sched[1] - sched[0] + 1).sum())
+    tiles_walked = int(sched[1].sum())
     band = sum(band_pairs(n, n, causal=True) for n in SERVE_LENS)
     log(f"  varlen_fwd walks {tiles_walked} tiles of {rows_q} x {KV_TILE} a head on its "
         f"{plan.route} route: {tiles_walked * rows_q * KV_TILE / band:.3f} x the band's pairs")
@@ -3934,7 +3983,7 @@ def packed_training_times(packed: dict) -> tuple:
     ops = varlen._BwdOperands(q, k, v, do, lse, delta, None)
     dkdv_sched, dq_sched = varlen._backward_schedules(
         meta, t, varlen_dkdv_plan(d, d), varlen_dq_plan(d, d), True, (-1, -1),
-        varlen._call_walk(meta, t, d, d, True, (-1, -1)))
+        varlen._call_walk(meta, t, True, (-1, -1)))
     rows, events = [], {}
 
     # The library call for the pair: autograd of SDPA over the packed T.
@@ -4007,28 +4056,31 @@ def packed_training_times(packed: dict) -> tuple:
 
 
 def varlen_cluster_times(wide: dict) -> tuple:
-    """The varlen backward's cluster routes (``PERF.md``'s rows "9 (D >
-    512)", dK/dV, and "10 (D > 512)", dQ) at the wide routes' packing
-    (``tools/torch_wide_bounds.py`` ``PACKING``: 8 documents in 8192
-    tokens, H8/4 D1024 causal bf16, the inputs of ``phase_packed_training``'s
-    D1024 call): each kernel alone on the backward's own schedule (one 64 x
-    64 walk), held against its plain version per row, then timed (device
-    ms of the kernel by name, CUDA-event ms) beside its bound, its plain
-    version and ``torch.autograd.grad`` through
-    ``scaled_dot_product_attention`` with the block-diagonal causal bool
-    mask (the dK/dV + dQ pair, K/V heads expanded; timed once for both).
-    Returns the ``kernels`` line's rows ``varlen_dkdv_cluster`` and
-    ``varlen_dq_cluster`` (their launches those of the D1024 packed
-    backward through ``ffpa_attn_varlen_func``) and each one's (CUDA-event
-    ms of the kernel, the plain version, the library call)."""
+    """The varlen kernels' cluster routes (``PERF.md``'s rows "8 (D >
+    512)", the forward, "9 (D > 512)", dK/dV, and "10 (D > 512)", dQ) at the
+    wide routes' packing (``tools/torch_wide_bounds.py`` ``PACKING``: 8
+    documents in 8192 tokens, H8/4 D1024 causal bf16, the inputs of
+    ``phase_packed_training``'s D1024 call): each kernel alone on the call's
+    one 64 x 64 walk, held against its plain version per row, then timed
+    (device ms of the kernel by name, CUDA-event ms) beside its bound, its
+    plain version and, for the forward, ``scaled_dot_product_attention``
+    with the block-diagonal causal bool mask, for the backward pair
+    ``torch.autograd.grad`` through it (K/V heads expanded; timed once for
+    both). Returns the ``kernels`` line's rows ``varlen_fwd_cluster``,
+    ``varlen_dkdv_cluster`` and ``varlen_dq_cluster`` (their launches those
+    of the D1024 packed call through ``ffpa_attn_varlen_func``) and each
+    one's (CUDA-event ms of the kernel, the plain version, the library
+    call)."""
     import torch.nn.functional as F
 
     from ffpa_attn_tpu_torch.cli._bench import sdpa_backend
     from ffpa_attn_tpu_torch.ops import varlen
-    from ffpa_attn_tpu_torch.ops.config import varlen_dkdv_plan, varlen_dq_plan
+    from ffpa_attn_tpu_torch.ops.config import varlen_dkdv_plan, varlen_dq_plan, varlen_fwd_plan
     from ffpa_attn_tpu_torch.ops.dispatch import pick_varlen_backward_config
     from ffpa_attn_tpu_torch.ops.reference import expand_kv_heads
-    from ffpa_attn_tpu_torch.utils.profiling import bound_ms, varlen_backward_counts
+    from ffpa_attn_tpu_torch.utils.profiling import (
+        bound_ms, varlen_backward_counts, varlen_counts,
+    )
 
     x = wide.pop("x")
     q, k, v, do, cu = x["q"], x["k"], x["v"], x["do"], x["cu"]
@@ -4036,14 +4088,19 @@ def varlen_cluster_times(wide: dict) -> tuple:
     hkv, bf = k.shape[1], torch.bfloat16
     kw = dict(scale=d ** -0.5, causal=True, softcap=0.0, window=(-1, -1))
     meta = varlen._call_metadata(cu, cu, t, t, "cuda")
-    o, lse = varlen._varlen_forward(q, k, v, cu, cu, meta=meta, **kw)
+    walk = varlen._call_walk(meta, t, True, (-1, -1))
+
+    def run_fwd():
+        return varlen._varlen_forward(q, k, v, cu, cu, meta=meta, walk=walk, **kw)
+
+    o, lse = run_fwd()
     delta = varlen._varlen_delta(do, o)
-    del o
     cfg = pick_varlen_backward_config(d=d, dv=d, dtype=bf)
-    plans = {"varlen_dkdv": varlen_dkdv_plan(d, d), "varlen_dq": varlen_dq_plan(d, d)}
+    plans = {"varlen_fwd": varlen_fwd_plan(d, d), "varlen_dkdv": varlen_dkdv_plan(d, d),
+             "varlen_dq": varlen_dq_plan(d, d)}
     ops = varlen._BwdOperands(q, k, v, do, lse, delta, None)
     dkdv_sched, dq_sched = varlen._backward_schedules(meta, t, plans["varlen_dkdv"],
-                                                      plans["varlen_dq"], True, (-1, -1))
+                                                      plans["varlen_dq"], True, (-1, -1), walk)
     seg = torch.repeat_interleave(torch.arange(len(PACK_LENS), device="cuda"),
                                   torch.tensor(PACK_LENS, device="cuda"))
     r = torch.arange(t, device="cuda")
@@ -4051,6 +4108,9 @@ def varlen_cluster_times(wide: dict) -> tuple:
     qh = q.transpose(0, 1)[None].detach().requires_grad_()
     kh = expand_kv_heads(k.transpose(0, 1)[None], hq).detach().requires_grad_()
     vh = expand_kv_heads(v.transpose(0, 1)[None], hq).detach().requires_grad_()
+    with torch.no_grad():
+        flms = _timed(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=block_causal),
+                      3, warmup=1)
     out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=block_causal)
     doh = do.transpose(0, 1)[None]
     backend = sdpa_backend(qh, kh, vh, attn_mask=block_causal)
@@ -4060,6 +4120,44 @@ def varlen_cluster_times(wide: dict) -> tuple:
     torch.cuda.empty_cache()
     shape = f"{len(PACK_LENS)} documents in {t} tokens, H{hq}/{hkv} D{d} causal bf16"
     rows, events = [], {}
+
+    # The forward's cluster: o per row and lse against the plain version
+    # (every row of a causal packing keeps a key), then its times.
+    fkw = dict(scale=kw["scale"], causal=True)
+    po, plse = varlen._varlen_forward_plain(q, k, v, meta, **fkw)
+    ferr, flerr = row_rel(o, po), rel(lse, plse)
+    fmax = max_abs(o, po)
+    ok = ferr < BF16_TOL and flerr < LSE_TOL and bool(torch.isfinite(o).all())
+    log(f"  varlen_fwd_cluster_T{t}_D{d} row_rel_err {ferr:.2e} (tol {BF16_TOL:g}) lse_rel_err "
+        f"{flerr:.2e} (tol {LSE_TOL:g}) max_abs_err {fmax:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"the varlen forward's cluster disagrees with its plain version at D{d}")
+    del o, po, plse
+    fbms, fbby = bound_ms(*varlen_counts(PACK_LENS, PACK_LENS, hq=hq, hkv=hkv, d=d, dv=d,
+                                         causal=True))
+
+    def fwd_timed():
+        return _kernel_timed(run_fwd, varlen.FWD_KERNELS, 10)
+
+    fkms = _above_bound(f"varlen_fwd cluster (D{d})", fwd_timed(), fbms, fwd_timed)
+    fpms = _timed(lambda: varlen._varlen_forward_plain(q, k, v, meta, **fkw), 2, warmup=1)
+    torch.cuda.empty_cache()
+    a = varlen.varlen_fwd_kernel_attrs("wgmma_cluster")
+    log(f"  varlen_fwd cluster route ({shape}): device {fkms[0]:.4f} ms, CUDA events "
+        f"{fkms[1]:.4f} ms, bound {fbms:.4f} ms ({fbby}); plain {fpms[0]:.4f} ms; "
+        f"scaled_dot_product_attention ({backend} backend, block-diagonal causal bool mask, K/V "
+        f"heads expanded) {flms[0]:.4f} ms; {a['registers']} registers, {a['local_bytes']} "
+        f"spill bytes")
+    rows.append(dict(
+        name="varlen_fwd_cluster", row="8 (D > 512)", route="cuda",
+        source="ffpa_attn_tpu_torch/csrc/varlen_fwd.cu", replaces="ffpa_attn_tpu/ops/varlen.py:214",
+        launches=wide["launches"]["varlen_fwd"], max_abs_err=fmax, ms=fkms[0], plain_ms=fpms[0],
+        bound_ms=fbms, bound_by=fbby, library_ms=flms[0], event_ms=fkms[1], shape=shape,
+        varlen_fwd_route=plans["varlen_fwd"].route, kernel="tma::varlen_fwd_wgmma_kernel<T, true>",
+        registers=a["registers"], spill_bytes=a["local_bytes"],
+    ))
+    events["varlen_fwd_cluster"] = (fkms[1], fpms[1], flms[1])
+
     for name, row_id, replaces in (
             ("varlen_dkdv", "9 (D > 512)", "ffpa_attn_tpu/ops/varlen.py:433"),
             ("varlen_dq", "10 (D > 512)", "ffpa_attn_tpu/ops/varlen.py:489")):

@@ -4,10 +4,11 @@
 //
 // The TPU kernel walks a (Hq, Tq / bq, Tk / bkv) grid over head-major
 // [H, T, D] copies of the inputs, clamping the KV axis into each Q tile's
-// [jmin, jmax] interval. Here one block owns the packed query rows of one Q
-// tile of one query head and loops over KV tiles itself, reading its
-// schedule from device memory (computed on the device at the route's tiles,
-// ops/varlen.py). q [Tq, Hq, D], k [Tk, Hkv, D] and v [Tk, Hkv, Dv] are read
+// [jmin, jmax] interval. Here one block (or a cluster of two) owns the
+// packed query rows of one 64-row Q tile of one query head and loops over
+// the KV tiles its Q tile needs, reading the list from device memory (one 64
+// x 64 walk a call, computed on the device in ops/varlen.py and saved for
+// the backward). q [Tq, Hq, D], k [Tk, Hkv, D] and v [Tk, Hkv, Dv] are read
 // through their row and head strides (no head-major copy, no padding of T);
 // o [Tq, Hq, Dv] and lse [Hq, Tq] are written directly, rows past Tq not.
 // The keep-mask is the segment / rank test on the per-token metadata
@@ -16,15 +17,10 @@
 // keep-mask is empty (padding, a Q tile that needs no KV tile) gives o = 0
 // and lse = MASK_VALUE + log(1e-38), as on the TPU.
 //
-// Two routes, by head dims alone (tma::make_plan). D, Dv <= 512 take the
-// TMA + wgmma block of namespace tma (details beside it): 64 Q rows, and
-// only the KV tiles the JAX package's _tile_needed marks needed, listed per
-// Q tile. Wider heads take varlen_fwd_kernel below, the dense forward's
-// mma.sync block (Split-D with the fp32 O tile over the registers of 16 warps,
-// mma.sync m16n8k16 fed by ldmatrix, Q resident in shared memory, K and V
-// streaming through a cp.async ring in 64 x 64 chunks) over every KV tile of
-// a BQ-row Q tile's [jmin, jmax] interval, the row tile's metadata in
-// shared memory and each key tile's in registers.
+// One TMA + wgmma block (namespace tma, details beside it) on two routes,
+// chosen by head dims alone (tma::make_plan, the dense forward's plan): D,
+// Dv <= 512 one block per 64 Q rows; wider heads, up to 1024, a cluster of
+// two such blocks that split D and Dv between them.
 //
 // Bound on an H100: bytes, barely (q, k, v and o once each against 4 * Hq *
 // D flop per attended pair; ops/varlen.py).
@@ -37,14 +33,8 @@ namespace {
 
 using namespace ffpa;
 
-constexpr int NW = 16;             // warps per block
-constexpr int NTHR = NW * 32;
 constexpr int KV_TILE = 64;        // K/V rows per tile (ops/config.py KV_TILE)
-constexpr int CH = 64;             // head-dim columns per streamed chunk
-constexpr int NST = 4;             // stream ring slots (ops/config.py FWD_STREAM_STAGES)
-constexpr int LDC = CH + 8;        // chunk / P row stride (elements)
-constexpr int LDS = KV_TILE + 4;   // S row stride (floats)
-constexpr int O_PER_THREAD = 64;   // fp32 accumulator registers per thread
+constexpr int CH = 64;             // head-dim columns of a box
 
 struct VarlenParams {
   const void* q;
@@ -53,13 +43,11 @@ struct VarlenParams {
   long long q_rs, q_hs, k_rs, k_hs, v_rs, v_hs;  // row and head strides, elements
   void* o;      // [Tq, Hq, Dv] in the input type
   float* lse;   // [Hq, Tq]
-  const int* q_seg;   // [num_q_tiles * BQ]
+  const int* q_seg;   // [num_q_tiles * 64]
   const int* q_rank;
   const int* k_seg;   // [ceil(Tk / 64) * 64]
   const int* k_pos;
-  const int* jmin;    // mma.sync: [num_q_tiles] first KV tile of each Q tile's interval
-  const int* jmax;    // last KV tile
-  const int* tiles;   // wgmma: [num_q_tiles, tiles_ld] the needed KV tiles of each Q tile
+  const int* tiles;   // [num_q_tiles, tiles_ld] the needed KV tiles of each Q tile
   const int* ntile;   // [num_q_tiles] how many of them
   const int* order;   // [num_q_tiles] the Q tiles, most needed tiles first
   int tiles_ld;
@@ -69,303 +57,25 @@ struct VarlenParams {
   int window_left, window_right;  // window_right: 0 when causal, -1 open
 };
 
-// Dynamic shared memory of one block; ops/config.py varlen_smem_bytes is the
-// same formula.
-template <typename T>
-size_t varlen_smem_bytes(int bq, int d) {
-  return (size_t)bq * (d + 8) * sizeof(T)             // resident Q
-         + (size_t)NST * KV_TILE * LDC * sizeof(T)     // K / V ring
-         + (size_t)bq * LDS * sizeof(float)            // S
-         + (size_t)bq * LDC * sizeof(T)                // P
-         + 3 * (size_t)bq * sizeof(float)              // m, l, alpha
-         + 2 * (size_t)bq * sizeof(int);               // q_seg, q_rank
-}
-
-template <typename T, int BQ>
-__global__ void __launch_bounds__(NTHR, 1) varlen_fwd_kernel(const VarlenParams p) {
-  constexpr int RT = BQ / 16;             // 16-row tiles
-  constexpr int WC = NW / RT;             // warps per row tile
-  constexpr int CW = CH / WC;             // columns per warp per chunk (16 or 8)
-  constexpr int N8 = CW / 8;              // n8 mma tiles per warp per chunk
-  constexpr int NVMAX = O_PER_THREAD / (4 * N8);  // Dv chunks the registers hold
-  constexpr int RPW = BQ / NW;            // softmax rows per warp
-  static_assert(N8 == 1 || N8 == 2, "BQ must be 32 or 64");
-
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int LDQ = p.D + 8;
-  T* Qs = reinterpret_cast<T*>(smem_raw);
-  T* ring = Qs + BQ * LDQ;
-  float* S = reinterpret_cast<float*>(ring + NST * KV_TILE * LDC);
-  T* P = reinterpret_cast<T*>(S + BQ * LDS);
-  float* m_s = reinterpret_cast<float*>(P + BQ * LDC);
-  float* l_s = m_s + BQ;
-  float* a_s = l_s + BQ;
-  int* qseg_s = reinterpret_cast<int*>(a_s + BQ);
-  int* qrank_s = qseg_s + BQ;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int rt = warp / WC, wc = warp % WC;
-  const int head = blockIdx.x, tile = blockIdx.y, kvh = head / p.group;
-  const int row0 = tile * BQ;
-  const int j_lo = p.jmin[tile], j_hi = p.jmax[tile];
-  const int kv_lo = j_lo * KV_TILE;
-  const int ntiles = j_hi - j_lo + 1;  // an empty interval is [0, 0]: one masked tile
-
-  const T* qb = static_cast<const T*>(p.q) + (long long)head * p.q_hs;
-  const T* kb = static_cast<const T*>(p.k) + (long long)kvh * p.k_hs;
-  const T* vb = static_cast<const T*>(p.v) + (long long)kvh * p.v_hs;
-  const float slope = p.alibi != nullptr ? p.alibi[head] : 0.f;
-
-  // Resident Q: rows past Tq are zero-filled.
-  for (int i = tid; i < BQ * (p.D / 8); i += NTHR) {
-    const int r = i / (p.D / 8), c = (i % (p.D / 8)) * 8;
-    const bool ok = row0 + r < p.tq;
-    cp_async16(Qs + r * LDQ + c, ok ? qb + (long long)(row0 + r) * p.q_rs + c : qb, ok);
-  }
-  cp_async_commit();
-  for (int i = tid; i < BQ; i += NTHR) {
-    m_s[i] = -INFINITY;
-    l_s[i] = 0.f;
-    qseg_s[i] = p.q_seg[row0 + i];
-    qrank_s[i] = p.q_rank[row0 + i];
-  }
-
-  const int nD = p.D / CH, nV = p.Dv / CH, per_tile = nD + nV;
-  const int total = ntiles * per_tile;
-
-  // Chunk gi of the stream: per KV tile, the nD K chunks then the nV V
-  // chunks, 64 rows x 64 columns each, rows past Tk zero-filled.
-  auto issue = [&](int gi) {
-    if (gi < total) {
-      const int t = gi / per_tile, c = gi - t * per_tile;
-      const int kv0 = kv_lo + t * KV_TILE;
-      const T* src = c < nD ? kb : vb;
-      const long long rs = c < nD ? p.k_rs : p.v_rs;
-      const int c0 = (c < nD ? c : c - nD) * CH;
-      T* dst = ring + (gi % NST) * (KV_TILE * LDC);
-      const int r = tid >> 3, cv = (tid & 7) * 8;  // one 16-byte vector per thread
-      const bool ok = kv0 + r < p.tk;
-      cp_async16(dst + r * LDC + cv, ok ? src + (long long)(kv0 + r) * rs + c0 + cv : src, ok);
-    }
-    cp_async_commit();
-  };
-  // Wait for chunk gi (and everything before it), with the ring refilled ahead.
-  auto begin = [&](int gi) -> const T* {
-    issue(gi + NST - 1);
-    cp_async_wait<NST - 1>();
-    __syncthreads();
-    return ring + (gi % NST) * (KV_TILE * LDC);
-  };
-
-  float o[NVMAX][N8][4];
-#pragma unroll
-  for (int vc = 0; vc < NVMAX; ++vc)
-#pragma unroll
-    for (int n = 0; n < N8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[vc][n][e] = 0.f;
-
-  // ldmatrix lane addressing (see common.cuh and flash_fwd.cu).
-  const int a_row = lane & 15, a_col = (lane >> 4) * 8;
-  const int bn_row = (lane & 7) + ((lane >> 4) << 3), bn_col = ((lane >> 3) & 1) * 8;
-  const int bt_row = (lane & 7) + (((lane >> 3) & 1) << 3), bt_col = (lane >> 4) * 8;
-
-#pragma unroll
-  for (int gi = 0; gi < NST - 1; ++gi) issue(gi);
-  for (int t = 0; t < ntiles; ++t) {
-    const int kv0 = kv_lo + t * KV_TILE;
-    const int gt = t * per_tile;
-
-    // S = Q K^T: this warp's 16 x CW piece, over the D chunks.
-    float s_acc[N8][4];
-#pragma unroll
-    for (int n = 0; n < N8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s_acc[n][e] = 0.f;
-    for (int c = 0; c < nD; ++c) {
-      const T* kc = begin(gt + c);
-#pragma unroll
-      for (int kk = 0; kk < CH / 16; ++kk) {
-        uint32_t a[4];
-        ldsm_x4(a, Qs + (rt * 16 + a_row) * LDQ + c * CH + kk * 16 + a_col);
-        if (N8 == 2) {
-          uint32_t bf[4];
-          ldsm_x4(bf, kc + (wc * CW + bn_row) * LDC + kk * 16 + bn_col);
-          mma16816<T>(s_acc[0], a, bf[0], bf[1]);
-          mma16816<T>(s_acc[N8 - 1], a, bf[2], bf[3]);
-        } else {
-          uint32_t bf[2];
-          ldsm_x2(bf, kc + (wc * CW + (lane & 7)) * LDC + kk * 16 + bn_col);
-          mma16816<T>(s_acc[0], a, bf[0], bf[1]);
-        }
-      }
-      __syncthreads();  // the slot read here is refilled by a later issue
-    }
-#pragma unroll
-    for (int n = 0; n < N8; ++n) {
-      const int col = wc * CW + n * 8 + 2 * t4;
-      *reinterpret_cast<float2*>(S + (rt * 16 + g) * LDS + col) =
-          make_float2(s_acc[n][0], s_acc[n][1]);
-      *reinterpret_cast<float2*>(S + (rt * 16 + g + 8) * LDS + col) =
-          make_float2(s_acc[n][2], s_acc[n][3]);
-    }
-    __syncthreads();
-
-    // Online softmax: each warp owns RPW rows, two columns per lane. Every
-    // column of a tile lies below ceil(Tk / 64) * 64, the key metadata's length.
-    {
-      int kseg[2], kpos[2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        kseg[j] = p.k_seg[kv0 + lane + 32 * j];
-        kpos[j] = p.k_pos[kv0 + lane + 32 * j];
-      }
-      float sv[RPW][2], red[RPW];
-      bool keep[RPW][2];
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) {
-        const int r = warp + i * NW;
-        const int qs = qseg_s[r], qr = qrank_s[r];
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          bool kp = qs == kseg[j];
-          if (p.window_right >= 0) kp = kp && kpos[j] <= qr + p.window_right;
-          if (p.window_left >= 0) kp = kp && kpos[j] >= qr - p.window_left;
-          float s = MASK_VALUE;
-          if (kp) {
-            s = S[r * LDS + lane + 32 * j] * p.scale;
-            if (p.softcap > 0.f) s = p.softcap * tanhf(s / p.softcap);
-            if (p.alibi != nullptr) s -= slope * fabsf((float)(qr - kpos[j]));
-          }
-          sv[i][j] = s;
-          keep[i][j] = kp;
-        }
-        red[i] = fmaxf(sv[i][0], sv[i][1]);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-#pragma unroll
-        for (int i = 0; i < RPW; ++i)
-          red[i] = fmaxf(red[i], __shfl_xor_sync(0xffffffffu, red[i], off));
-      float m_new[RPW], alpha[RPW];
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) {
-        const int r = warp + i * NW;
-        const float m_old = m_s[r];
-        m_new[i] = fmaxf(m_old, red[i]);  // >= MASK_VALUE: finite from the first tile on
-        alpha[i] = __expf(m_old - m_new[i]);
-        const float p0 = keep[i][0] ? __expf(sv[i][0] - m_new[i]) : 0.f;
-        const float p1 = keep[i][1] ? __expf(sv[i][1] - m_new[i]) : 0.f;
-        red[i] = p0 + p1;
-        P[r * LDC + lane] = from_float<T>(p0);
-        P[r * LDC + lane + 32] = from_float<T>(p1);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-#pragma unroll
-        for (int i = 0; i < RPW; ++i) red[i] += __shfl_xor_sync(0xffffffffu, red[i], off);
-      __syncwarp();
-      if (lane == 0) {
-#pragma unroll
-        for (int i = 0; i < RPW; ++i) {
-          const int r = warp + i * NW;
-          m_s[r] = m_new[i];
-          l_s[r] = alpha[i] * l_s[r] + red[i];
-          a_s[r] = alpha[i];
-        }
-      }
-    }
-    __syncthreads();
-
-    // O = alpha * O + P V, chunk by chunk of Dv; each warp its own columns.
-    const float al0 = a_s[rt * 16 + g], al1 = a_s[rt * 16 + g + 8];
-#pragma unroll
-    for (int vc = 0; vc < NVMAX; ++vc) {
-      if (vc < nV) {
-#pragma unroll
-        for (int n = 0; n < N8; ++n) {
-          o[vc][n][0] *= al0;
-          o[vc][n][1] *= al0;
-          o[vc][n][2] *= al1;
-          o[vc][n][3] *= al1;
-        }
-        const T* vch = begin(gt + nD + vc);
-#pragma unroll
-        for (int kk = 0; kk < KV_TILE / 16; ++kk) {
-          uint32_t a[4];
-          ldsm_x4(a, P + (rt * 16 + a_row) * LDC + kk * 16 + a_col);
-          if (N8 == 2) {
-            uint32_t bf[4];
-            ldsm_x4_trans(bf, vch + (kk * 16 + bt_row) * LDC + wc * CW + bt_col);
-            mma16816<T>(o[vc][0], a, bf[0], bf[1]);
-            mma16816<T>(o[vc][N8 - 1], a, bf[2], bf[3]);
-          } else {
-            uint32_t bf[2];
-            ldsm_x2_trans(bf, vch + (kk * 16 + bt_row) * LDC + wc * CW);
-            mma16816<T>(o[vc][0], a, bf[0], bf[1]);
-          }
-        }
-        __syncthreads();  // the slot read here is refilled by a later issue
-      }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // Epilogue: O / l and lse = m + log(max(l, 1e-38)); l == 0 rows give 0.
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = rt * 16 + g + 8 * h, row = row0 + r;
-    if (row >= p.tq) continue;
-    const float l = l_s[r];
-    const float l_safe = (l == 0.f) ? 1.f : l;
-    T* dst = static_cast<T*>(p.o) + ((long long)row * p.Hq + head) * p.Dv;
-#pragma unroll
-    for (int vc = 0; vc < NVMAX; ++vc) {
-      if (vc < nV) {
-#pragma unroll
-        for (int n = 0; n < N8; ++n) {
-          const int col = vc * CH + wc * CW + n * 8 + 2 * t4;
-          const float x0 = o[vc][n][2 * h] / l_safe, x1 = o[vc][n][2 * h + 1] / l_safe;
-          *reinterpret_cast<uint32_t*>(dst + col) = pack2<T>(x0, x1);
-        }
-      }
-    }
-    if (wc == 0 && t4 == 0) p.lse[(long long)head * p.tq + row] = m_s[r] + logf(fmaxf(l, 1e-38f));
-  }
-}
-
-template <typename T, int BQ>
-cudaError_t launch(const VarlenParams& p, int num_q_tiles, cudaStream_t stream) {
-  auto kern = varlen_fwd_kernel<T, BQ>;
-  const size_t smem = varlen_smem_bytes<T>(BQ, p.D);
-  cudaError_t e =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid(p.Hq, num_q_tiles);
-  kern<<<grid, NTHR, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
 // ---------------------------------------------------------------------------
-// D, Dv <= 512: TMA + mbarrier + wgmma
+// TMA + mbarrier + wgmma, one block (D, Dv <= 512) or a cluster of two (D or
+// Dv in (512, 1024])
 // ---------------------------------------------------------------------------
 
-// The Hopper route of ffpa_varlen_fwd: the dense forward's block
-// (flash_fwd.cu namespace fwd, sm90.cuh) over the packed layout. The
-// mma.sync block above put a block barrier after every 64 x 64 chunk of its
-// cp.async ring, sent S through shared memory for a softmax on 512 threads
-// and P back the same way, and walked every KV tile of its interval (0.56 ms
-// at the serving packing on an H100, 26x its bound). Here a block of 384
-// threads owns 64 packed Q rows of one query head:
+// The kernel of ffpa_varlen_fwd: the dense forward's block (flash_fwd.cu
+// namespace fwd, sm90.cuh) over the packed layout. The mma.sync block it
+// replaced put a block barrier after every 64 x 64 chunk of its cp.async
+// ring, sent S through shared memory for a softmax on 512 threads and P back
+// the same way, and walked every KV tile of its interval (0.56 ms at the
+// serving packing on an H100, 26x its bound; above D512, at 32-row tiles,
+// 4.49 ms at 8 documents in 8192 tokens H8/4 D1024, 25x). Here a block of
+// 384 threads owns 64 packed Q rows of one query head:
 //  - warpgroup 0 is the producer (setmaxnreg 24): one thread loads Q once by
-//    TMA into D / 64 resident 64 x 64 boxes (128 B swizzle), then, per KV
-//    tile of the Q tile's list, streams the D / 64 K boxes and the Dv / 64 V
-//    boxes through a ring of two-box stages. The tensor maps span the packed
-//    layout: dims (D, T, H) with the row and head strides, extents at the
-//    true Tq and Tk, so TMA zero-fills the ragged tail (varlen_bwd.cu's
-//    maps);
+//    TMA into resident 64 x 64 boxes (128 B swizzle), then, per KV tile of
+//    the Q tile's list, streams the K boxes and the V boxes through a ring
+//    of two-box stages. The tensor maps span the packed layout: dims (D, T,
+//    H) with the row and head strides, extents at the true Tq and Tk, so
+//    TMA zero-fills the ragged tail (varlen_bwd.cu's maps);
 //  - the list holds only the KV tiles that _tile_needed (the JAX package's
 //    conservative test) marks needed inside the Q tile's [jmin, jmax]
 //    interval: a tile it leaves out is fully masked and changes neither m's
@@ -376,7 +86,7 @@ cudaError_t launch(const VarlenParams& p, int num_q_tiles, cudaStream_t stream) 
 //    block: consumer c computes S for KV columns 32c..32c+31 (m64n32k16 over
 //    D), the halves of a row meet through a shared buffer of row maxima, P
 //    goes through one swizzled box and O is split by columns (consumer 0
-//    owns the first ceil(nv / 2) Dv boxes);
+//    owns the first ceil(nv / 2) of the block's nv Dv boxes);
 //  - a consumer's 64 x 32 block that lies in one segment and inside the band
 //    on every pair, with no softcap, ALiBi or left window, is full: the first
 //    and last rows' and columns' segment ids equal and the last key's k_pos
@@ -393,60 +103,129 @@ cudaError_t launch(const VarlenParams& p, int num_q_tiles, cudaStream_t stream) 
 // schedule's order, most needed tiles first (the tail of the last wave is
 // short). ptxas keeps the wgmma pipeline because products start with
 // scale-d 0, roles are template arguments, stage releases are predicated
-// arrivals and every ordinary write of O is fenced off from the products.
+// arrivals and every ordinary write of an accumulator (the zeros, the
+// rescale of O, the sum of partial scores) is fenced off from the products.
+//
+// D, Dv <= 512 (SPLIT false): the block holds all of D and Dv, 8 Q boxes, a
+// P box and a ring of 8 stages (a D512 tile's K and V) at most.
+//
+// Wider heads (SPLIT true, D or Dv in (512, 1024]): a 64 x 1024 Q tile
+// (128 KB) leaves no room for the ring and a 64 x 1024 fp32 O tile is the
+// whole register file, so a cluster of two blocks (grid x = 2 Hq, the pair
+// adjacent in x: the same block order) owns the 64 rows and splits both
+// head dims, as the dense forward's cluster does: rank r owns the D boxes
+// and the Dv boxes of its half (rank 0 the larger; sm90.cuh col_block),
+// loads only its Q boxes and, per listed KV tile, only its K and V boxes, so
+// every byte of Q, K and V is read once per cluster. Consumer c of each rank
+// computes a partial S over its rank's D boxes and stores it (64 x 32 fp32,
+// 8 KB) into the shared memory of the partner's consumer c (st.async,
+// completing its bytes on the partner's barrier), then adds the partner's
+// partial to its own. fp32 addition of two values is commutative, so both
+// ranks hold bit-identical S, and so the same keep-mask, full-block test (the
+// same metadata words), m, l and P with no further exchange; each rank
+// accumulates P V into its own Dv boxes (at most 4 a consumer). A rank with
+// no D box (D64 / Dv1024) sends zeros; one with no Dv box (D1024 / Dv64)
+// writes no O. The exchange is double-buffered: a rank stores into slot t %
+// 2 at tile t only after it received the partner's tile t - 1, which the
+// partner stored after reading its slot of tile t - 2, so no slot is
+// overwritten unread. Both ranks walk the same list (the same Q tile's row
+// of the schedule); a Q tile with no listed tile loads and exchanges nothing.
+// Each rank writes its own O columns; rank 0 writes lse. The ring is 7
+// stages deep beside a rank's 8 Q boxes and the 32 KB exchange, which leads
+// the boxes so that its addresses are constant offsets from their base; the
+// barriers and the row exchange sit before the alignment. The cluster
+// barrier at the start publishes the barriers' initialisation (every block
+// reaches it, a Q tile with nothing to walk too), the one at the end keeps a
+// block alive while its partner may still store into it.
 namespace tma {
 
 using namespace ffpa::sm90;
 
 constexpr int ROWS = 64;                     // Q rows of a block
 constexpr int COLS = 64;                     // columns of a box (128 B of 16-bit)
-static_assert(ROWS * COLS * 2 == BOX_BYTES && KV_TILE == 64, "Q, K and V boxes are 64 x 64");
-constexpr int MAX_BOXES = 8;                 // D, Dv <= 512 on this route
+static_assert(ROWS * COLS * 2 == BOX_BYTES && KV_TILE == 64 && CH == COLS,
+              "Q, K and V boxes are 64 x 64");
+constexpr int MAX_BOXES = 8;                 // D, Dv boxes of a block: D512, a rank's half of D1024
+constexpr int MAX_HEAD_DIM = 2 * MAX_BOXES * COLS;  // D, Dv of either route
 constexpr int O_BOXES = MAX_BOXES / 2;       // Dv boxes of one consumer: 64 x 256 fp32
 constexpr int STAGE_BOXES = 2;               // boxes a stage (one barrier handshake)
 constexpr int STAGE_BYTES = STAGE_BOXES * BOX_BYTES;
-constexpr int STAGES = 8;                    // ring depth: a D512 tile's K and V
 constexpr int THREADS = 384;                 // producer warpgroup + 2 consumer warpgroups
 constexpr int CONSUMER_WARPS = 8;            // arrivals that free a stage
 constexpr int XCH_BYTES = 2 * ROWS * 4;      // row maxima, then row sums, of both consumers
+constexpr int PART_BYTES = ROWS * 32 * 4;    // one consumer's partial S (64 x 32 fp32)
+constexpr int PART_SLOTS = 2;                // the partial exchange's double buffer
+constexpr int PART_BUF_BYTES = PART_SLOTS * 2 * PART_BYTES;
 constexpr int SMEM_LIMIT = 232448;
-constexpr int WGMMA = 1, MMA_SYNC = 0;       // routes
+constexpr int WGMMA = 1, CLUSTER = 2;        // routes
 
-// Shared memory of this block: Q, the P box, the 1024 B alignment, Q's
-// barrier and the exchange, then the stages and their two barriers each.
-constexpr size_t smem_bytes(int nd) {
+// Ring depth: a D512 tile's K and V alone; the deepest ring that fits
+// beside a rank's 8 Q boxes and the exchange in a cluster (flash_fwd.cu
+// fwd::stages_of).
+__host__ __device__ constexpr int stages_of(bool split) { return split ? 7 : 8; }
+
+// Shared memory of a block laid out for nd Q boxes: Q, the P box, the 1024
+// B alignment, the exchange (split), then the stages' two barriers each,
+// Q's barrier, the row exchange and the exchange's barriers (split): the
+// dense forward's formula (flash_fwd.cu fwd::smem_bytes), so the plans are
+// equal.
+constexpr size_t smem_bytes(int nd, bool split) {
   return (size_t)(nd + 1) * BOX_BYTES + 1024 + sizeof(uint64_t) + XCH_BYTES +
-         (size_t)STAGES * (STAGE_BYTES + 2 * sizeof(uint64_t));
+         (split ? (size_t)PART_BUF_BYTES + PART_SLOTS * 2 * sizeof(uint64_t) : 0) +
+         (size_t)stages_of(split) * (STAGE_BYTES + 2 * sizeof(uint64_t));
 }
-static_assert(smem_bytes(MAX_BOXES) <= SMEM_LIMIT, "D512's block fits the card");
+static_assert(smem_bytes(MAX_BOXES, false) <= SMEM_LIMIT, "D512's block fits the card");
+static_assert(smem_bytes(MAX_BOXES, true) <= SMEM_LIMIT, "a D1024 rank fits the card");
 
-// The route and tiling of a launch at head dims (D, Dv), multiples of 64:
-// D, Dv <= 512 take this block (64 Q rows, consumer 0 owning the first
-// ceil(nv / 2) Dv boxes); wider heads take varlen_fwd_kernel at the largest
-// row tile the registers hold (block_q * Dv <= 64 * 512). The dense
-// forward's plan (flash_fwd.cu fwd::make_plan) with the varlen mma.sync
-// block's shared memory. ffpa_varlen_fwd_plan hands it out; ops/config.py
-// varlen_fwd_plan mirrors it and the card test holds the two equal.
+// The split layout's head, before the alignment: the stages' full / empty
+// barriers, Q's barrier, the exchange's barriers and the row exchange. The
+// head plus the worst alignment (1023 B) fits the 1024 B, the barriers and
+// the row exchange that smem_bytes counts.
+constexpr int SPLIT_HEAD_BYTES =
+    (2 * stages_of(true) + 1 + PART_SLOTS * 2) * (int)sizeof(uint64_t) + XCH_BYTES;
+static_assert(SPLIT_HEAD_BYTES + 1023 <=
+                  1024 + XCH_BYTES + (2 * stages_of(true) + 1 + PART_SLOTS * 2) * 8,
+              "the split head and the alignment fit smem_bytes");
+
+// A block's share of the head dims: its first D box and D boxes, its first
+// Dv box and Dv boxes, and consumer 0's Dv boxes (the first ceil(nv / 2);
+// consumer 1 owns the rest). Alone a block holds everything; split, rank r
+// holds half of each, rank 0 the larger half (flash_fwd.cu fwd::part_of).
+struct Part {
+  int d0, nd, v0, nv, nv0;
+};
+__host__ __device__ inline Part part_of(int nd, int nv, bool split, int rank) {
+  Part pt = {0, nd, 0, nv, 0};
+  if (split) {
+    const Cols d = col_block(nd, 2, rank), v = col_block(nv, 2, rank);
+    pt = {d.c0 / COLS, d.nc, v.c0 / COLS, v.nc, 0};
+  }
+  pt.nv0 = (pt.nv + 1) / 2;
+  return pt;
+}
+
+// The route and tiling of a launch at head dims (D, Dv), multiples of 64
+// up to 1024: the dense forward's (flash_fwd.cu fwd::make_plan). D, Dv <=
+// 512 take one block per 64 Q rows, wider heads the cluster. The segment
+// metadata and the tile lists are read from device memory and cost no
+// shared memory. ffpa_varlen_fwd_plan hands it out; ops/config.py
+// varlen_fwd_plan mirrors it (it is fwd_plan) and the card test holds the
+// two equal.
 struct Plan {
-  int route, rows, stages, nd, nv, nv0;
+  int route, rows, stages;
+  Part part[2];  // each rank's share (the lone block's is part[0])
   size_t smem;
 };
 inline Plan make_plan(int D, int Dv) {
+  const int nd = D / COLS, nv = Dv / COLS;
+  const bool split = nd > MAX_BOXES || nv > MAX_BOXES;
   Plan pl;
-  pl.nd = D / COLS;
-  pl.nv = Dv / COLS;
-  pl.nv0 = (pl.nv + 1) / 2;
-  if (pl.nd <= MAX_BOXES && pl.nv <= MAX_BOXES) {
-    pl.route = WGMMA;
-    pl.rows = ROWS;
-    pl.stages = STAGES;
-    pl.smem = smem_bytes(pl.nd);
-  } else {
-    pl.route = MMA_SYNC;
-    pl.rows = 64 * Dv <= 32 * 1024 ? 64 : 32;
-    pl.stages = NST;
-    pl.smem = varlen_smem_bytes<__nv_bfloat16>(pl.rows, D);
-  }
+  pl.route = split ? CLUSTER : WGMMA;
+  pl.rows = ROWS;
+  pl.stages = stages_of(split);
+  pl.part[0] = part_of(nd, nv, split, 0);
+  pl.part[1] = part_of(nd, nv, split, 1);
+  pl.smem = smem_bytes(pl.part[0].nd, split);
   return pl;
 }
 
@@ -459,48 +238,82 @@ struct Maps {
   CUtensorMap v_map;  // (Dv, Tk, Hkv)
 };
 
-// Shared memory of a block, from a 1024 B boundary: the Q boxes, the P box,
-// the ring's stages, their full / empty barriers, Q's barrier and the
-// exchange buffer.
+// Shared memory of a block. One block, from a 1024 B boundary: the Q boxes,
+// the P box, the ring's stages, their full / empty barriers, Q's barrier and
+// the row exchange. Split: the head (the barriers, the exchange's barriers
+// and the row exchange) at the start of the dynamic shared memory, then
+// from a 1024 B boundary the partial exchange, the Q boxes, the P box and
+// the ring. Both ranks of a cluster lay it out alike (for rank 0's Q boxes),
+// so an offset here is the same offset in the partner.
 struct Smem {
+  unsigned char* part;  // [PART_SLOTS][2][PART_BYTES]: partial S the partner stored here
   unsigned char* q;
   unsigned char* p;
   unsigned char* ring;
   uint64_t* full;
   uint64_t* empty;
   uint64_t* q_full;
-  float* xch;  // [2][ROWS]: row maxima of consumers 0 and 1, then their row sums
+  uint64_t* part_full;  // [PART_SLOTS][2]: the partner's partial for consumer c has landed
+  float* xch;           // [2][ROWS]: row maxima of consumers 0 and 1, then their row sums
 };
-__device__ __forceinline__ Smem carve(unsigned char* base, int nd) {
+template <bool SPLIT>
+__device__ __forceinline__ Smem carve(unsigned char* smem_raw, int nd) {
+  constexpr int STAGES = stages_of(SPLIT);
   Smem sm;
-  sm.q = base;
-  sm.p = base + nd * BOX_BYTES;
+  if constexpr (SPLIT) {
+    sm.full = reinterpret_cast<uint64_t*>(smem_raw);
+    sm.empty = sm.full + STAGES;
+    sm.q_full = sm.empty + STAGES;
+    sm.part_full = sm.q_full + 1;
+    sm.xch = reinterpret_cast<float*>(sm.part_full + PART_SLOTS * 2);
+    // Boxes on 1024 B boundaries: the 128 B swizzle's atom. The offset is
+    // added to smem_raw itself, so the compiler keeps every pointer below in
+    // the shared space (32-bit) rather than generic (64-bit, two registers).
+    unsigned char* base =
+        smem_raw + SPLIT_HEAD_BYTES +
+        ((1024u - ((cvta_smem(smem_raw) + SPLIT_HEAD_BYTES) & 1023u)) & 1023u);
+    sm.part = base;
+    sm.q = base + PART_BUF_BYTES;
+  } else {
+    unsigned char* base = smem_raw + ((1024u - (cvta_smem(smem_raw) & 1023u)) & 1023u);
+    sm.part = nullptr;
+    sm.q = base;
+  }
+  sm.p = sm.q + nd * BOX_BYTES;
   sm.ring = sm.p + BOX_BYTES;
-  sm.full = reinterpret_cast<uint64_t*>(sm.ring + STAGES * STAGE_BYTES);
-  sm.empty = sm.full + STAGES;
-  sm.q_full = sm.empty + STAGES;
-  sm.xch = reinterpret_cast<float*>(sm.q_full + 1);
+  if constexpr (!SPLIT) {
+    sm.full = reinterpret_cast<uint64_t*>(sm.ring + STAGES * STAGE_BYTES);
+    sm.empty = sm.full + STAGES;
+    sm.q_full = sm.empty + STAGES;
+    sm.xch = reinterpret_cast<float*>(sm.q_full + 1);
+    sm.part_full = nullptr;
+  }
   return sm;
 }
 
 // A block's query head, its Q tile's first row, and its walk: entries
-// [first, first + n) of p.tiles. The same in every thread.
+// [first, first + n) of p.tiles. The same in every thread and in both ranks
+// of a cluster.
 struct Block {
   int head, row0, first, n;
 };
 
-// The producer's thread: Q once, then per listed KV tile the K stages (two
-// boxes each, an odd last box alone) and the V stages (box j of consumer
-// 0's half beside box j of consumer 1's, alone where that half is shorter).
+// The producer's thread: the block's Q boxes once, then per listed KV tile
+// its K stages (two boxes each, an odd last box alone) and its V stages (box
+// j of consumer 0's half beside box j of consumer 1's, alone where that half
+// is shorter).
+template <bool SPLIT>
 __device__ __forceinline__ void produce(const Maps& maps, const VarlenParams& p, const Smem& sm,
-                                        const Block& k, int nd, int nv, int nv0) {
+                                        const Block& k, const Part& pt) {
+  constexpr int STAGES = stages_of(SPLIT);
   prefetch_map(&maps.q_map);
   prefetch_map(&maps.k_map);
   prefetch_map(&maps.v_map);
   const int kvh = k.head / p.group;
-  mbar_arrive_expect_tx(sm.q_full, nd * BOX_BYTES);
-  for (int j = 0; j < nd; ++j)
-    tma_load_3d(sm.q + j * BOX_BYTES, &maps.q_map, sm.q_full, j * COLS, k.row0, k.head);
+  mbar_arrive_expect_tx(sm.q_full, pt.nd * BOX_BYTES);
+  for (int j = 0; j < pt.nd; ++j)
+    tma_load_3d(sm.q + j * BOX_BYTES, &maps.q_map, sm.q_full, (pt.d0 + j) * COLS, k.row0,
+                k.head);
   int it = 0;
   // Stage it % STAGES, free again, expecting nb boxes.
   auto claim = [&](int nb) -> unsigned char* {
@@ -511,35 +324,49 @@ __device__ __forceinline__ void produce(const Maps& maps, const VarlenParams& p,
   };
   for (int t = 0; t < k.n; ++t) {
     const int kv0 = __ldg(p.tiles + k.first + t) * KV_TILE;
-    for (int c = 0; c < nd; c += STAGE_BOXES, ++it) {
-      const int nb = min(STAGE_BOXES, nd - c);
+    for (int c = 0; c < pt.nd; c += STAGE_BOXES, ++it) {
+      const int nb = min(STAGE_BOXES, pt.nd - c);
       unsigned char* dst = claim(nb);
       for (int g = 0; g < nb; ++g)
-        tma_load_3d(dst + g * BOX_BYTES, &maps.k_map, &sm.full[it % STAGES], (c + g) * COLS,
-                    kv0, kvh);
+        tma_load_3d(dst + g * BOX_BYTES, &maps.k_map, &sm.full[it % STAGES],
+                    (pt.d0 + c + g) * COLS, kv0, kvh);
     }
-    for (int j = 0; j < nv0; ++j, ++it) {
-      const bool both = nv0 + j < nv;
+    for (int j = 0; j < pt.nv0; ++j, ++it) {
+      const bool both = pt.nv0 + j < pt.nv;
       unsigned char* dst = claim(both ? 2 : 1);
-      tma_load_3d(dst, &maps.v_map, &sm.full[it % STAGES], j * COLS, kv0, kvh);
+      tma_load_3d(dst, &maps.v_map, &sm.full[it % STAGES], (pt.v0 + j) * COLS, kv0, kvh);
       if (both)
-        tma_load_3d(dst + BOX_BYTES, &maps.v_map, &sm.full[it % STAGES], (nv0 + j) * COLS, kv0,
-                    kvh);
+        tma_load_3d(dst + BOX_BYTES, &maps.v_map, &sm.full[it % STAGES],
+                    (pt.v0 + pt.nv0 + j) * COLS, kv0, kvh);
     }
   }
 }
 
-// Consumer C of a block; C is a template argument so that no branch around
-// a wgmma depends on the thread (ptxas serializes wgmma on a path it cannot
-// prove uniform). Accumulator element 4 j + 2 hh + e of thread (warp, g =
-// lane / 4, t4 = lane % 4) is row 16 warp + g + 8 hh and, in its 8-column
-// block j, column 8 j + 2 t4 + e.
-template <typename T, int C>
+// Consumer C of a block; C and SPLIT are template arguments so that no
+// branch around a wgmma depends on the thread (ptxas serializes wgmma on a
+// path it cannot prove uniform). Accumulator element 4 j + 2 hh + e of
+// thread (warp, g = lane / 4, t4 = lane % 4) is row 16 warp + g + 8 hh and,
+// in its 8-column block j, column 8 j + 2 t4 + e. pt is the block's share
+// of the head dims, rank the block's rank (0 alone).
+template <typename T, int C, bool SPLIT>
 __device__ __forceinline__ void consume(const VarlenParams& p, const Smem& sm, const Block& k,
-                                        int nd, int nv, int nv0) {
+                                        const Part& pt, int rank) {
+  constexpr int STAGES = stages_of(SPLIT);
   const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  const int own = C == 0 ? nv0 : nv - nv0;  // Dv boxes of this consumer
+  // The block's box counts (D, Dv, consumer 0's Dv) and its rank. One block
+  // reads them as they are; a rank of the cluster from one register
+  // unpacked behind an empty asm where they are used, so the rank's values
+  // are not held apart beside O (varlen_bwd.cu's dQ cluster spilled so).
+  const uint32_t counts = pt.nd | pt.nv << 8 | pt.nv0 << 16 | rank << 24;
+  auto count = [&](int field) -> int {
+    if constexpr (SPLIT) {
+      uint32_t x = counts;
+      asm volatile("" : "+r"(x));
+      return (int)((x >> (8 * field)) & 255u);
+    }
+    return field == 0 ? pt.nd : field == 1 ? pt.nv : field == 2 ? pt.nv0 : 0;
+  };
   const int r0 = 16 * warp + g;             // this thread's rows: r0, r0 + 8
   constexpr float LOG2E = 1.4426950408889634f;
   // No feature that changes a kept element's score: a full block skips the mask.
@@ -580,6 +407,7 @@ __device__ __forceinline__ void consume(const VarlenParams& p, const Smem& sm, c
 
     // S for this consumer's 32 KV columns: rows 32 C.. of each K box.
     float s[16];
+    const int nd = count(0);
     int c = 0;
     for (; c + 2 <= nd; c += 2, ++it) {
       const int st = it % STAGES;
@@ -602,10 +430,36 @@ __device__ __forceinline__ void consume(const VarlenParams& p, const Smem& sm, c
     fence_operands(s);
     fence_operands(o);  // no rescale of O moves above the wait
 
+    if constexpr (SPLIT) {
+      // S = this rank's partial + the partner's, the same bits in both. A
+      // rank without D boxes contributes 0. Element 4 i + e of thread tid
+      // sits at (i * 128 + tid) * 16 + 4 e bytes of its slot, at a constant
+      // offset from the exchange's base.
+      const int slot = t & 1;
+      const uint32_t mine = cvta_smem(sm.part) + (slot * 2 + C) * PART_BYTES + tid * 16;
+      uint64_t* landed = &sm.part_full[slot * 2 + C];
+      const uint32_t partner = (uint32_t)count(3) ^ 1u;
+      const uint32_t there = mapa(mine, partner), there_bar = mapa(cvta_smem(landed), partner);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) s[i] = nd > 0 ? s[i] : 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) st_async_v4(there + i * 2048, s + 4 * i, there_bar);
+      mbar_arrive_expect_tx_if(landed, PART_BYTES, tid == 0);
+      mbar_wait_cluster(landed, (t >> 1) & 1);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float x[4];
+        lds_v4(mine + i * 2048, x);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[4 * i + e] += x[e];
+      }
+      fence_operands(s);
+    }
+
     // Scores in natural units; keep holds the keep-mask, bit i for s[i].
-    // The full-block test reads the same six words in every thread, the
-    // rows' from an index the empty asm hides (else their loads are hoisted
-    // out of the walk and held beside O).
+    // The full-block test reads the same six words in every thread (and in
+    // both ranks), the rows' from an index the empty asm hides (else their
+    // loads are hoisted out of the walk and held beside O).
     int q_first = k.row0;
     asm volatile("" : "+r"(q_first));
     const int ks = __ldg(p.k_seg + kc);
@@ -701,6 +555,7 @@ __device__ __forceinline__ void consume(const VarlenParams& p, const Smem& sm, c
 
     // O[:, own boxes] += P V: V stage j holds this consumer's box j at
     // C * BOX_BYTES; a consumer with fewer boxes frees the stage unread.
+    const int nv0 = count(2), own = C == 0 ? nv0 : count(1) - nv0;
 #pragma unroll
     for (int j = 0; j < O_BOXES; ++j) {
       if (j < nv0) {
@@ -723,8 +578,9 @@ __device__ __forceinline__ void consume(const VarlenParams& p, const Smem& sm, c
 
   // Epilogue: l over the quad and both consumers (in the maxima's slots,
   // read by the other consumer before the last tile's second barrier); O /
-  // l on rows below Tq, packed [Tq, Hq, Dv]; lse = m + log(max(l, 1e-38));
-  // rows with l == 0 give O = 0 and lse = MASK_VALUE + log(1e-38).
+  // l on rows below Tq, packed [Tq, Hq, Dv], this block's columns; lse = m +
+  // log(max(l, 1e-38)) (rank 0 alone on the cluster); rows with l == 0 give
+  // O = 0 and lse = MASK_VALUE + log(1e-38).
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
@@ -732,14 +588,16 @@ __device__ __forceinline__ void consume(const VarlenParams& p, const Smem& sm, c
     if (t4 == 0) sm.xch[C * ROWS + r0 + 8 * hh] = l[hh];
   }
   named_barrier_sync(1, 2 * 128);
+  const int v0 = SPLIT ? col_block(p.Dv / COLS, 2, count(3)).c0 : 0;
+  const int nv0_e = count(2), own = C == 0 ? nv0_e : count(1) - nv0_e;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int r = r0 + 8 * hh, row = k.row0 + r;
     if (row >= p.tq) continue;
     const float lt = l[hh] + sm.xch[(1 - C) * ROWS + r];  // the same sum in both
     const float inv = lt == 0.f ? 1.f : __fdividef(1.f, lt);
-    T* dst = static_cast<T*>(p.o) + ((long long)row * p.Hq + k.head) * p.Dv +
-             (C == 0 ? 0 : nv0 * COLS) + 2 * t4;
+    T* dst = static_cast<T*>(p.o) + ((long long)row * p.Hq + k.head) * p.Dv + v0 +
+             (C == 0 ? 0 : nv0_e * COLS) + 2 * t4;
 #pragma unroll
     for (int j = 0; j < O_BOXES; ++j) {
       if (j >= own) break;
@@ -748,53 +606,64 @@ __device__ __forceinline__ void consume(const VarlenParams& p, const Smem& sm, c
         *reinterpret_cast<uint32_t*>(dst + COLS * j + 8 * j8) =
             pack2<T>(o[32 * j + 4 * j8 + 2 * hh] * inv, o[32 * j + 4 * j8 + 2 * hh + 1] * inv);
     }
-    if (C == 0 && t4 == 0)
+    if (C == 0 && t4 == 0 && (!SPLIT || count(3) == 0))
       p.lse[(long long)k.head * p.tq + row] = m[hh] + logf(fmaxf(lt, 1e-38f));
   }
 }
 
-template <typename T>
+template <typename T, bool SPLIT>
 __global__ void __launch_bounds__(THREADS, 1)
     varlen_fwd_wgmma_kernel(const __grid_constant__ Maps maps, const VarlenParams p) {
+  constexpr int STAGES = stages_of(SPLIT);
   extern __shared__ unsigned char smem_raw[];
-  // Boxes on 1024 B boundaries: the 128 B swizzle's atom. The offset is
-  // added to smem_raw itself, so the compiler keeps every pointer below in
-  // the shared space (32-bit) rather than generic (64-bit, two registers).
-  unsigned char* base = smem_raw + ((1024u - (cvta_smem(smem_raw) & 1023u)) & 1023u);
-  const int nd = p.D / COLS, nv = p.Dv / COLS, nv0 = (nv + 1) / 2;
-  const Smem sm = carve(base, nd);
-  // Block order: the query heads of a Q tile side by side, the Q tiles in
-  // the schedule's order (most needed KV tiles first).
+  const int rank = SPLIT ? (int)cluster_rank() : 0;
+  const int nd = p.D / COLS;
+  const Part pt = part_of(nd, p.Dv / COLS, SPLIT, rank);
+  const Smem sm = carve<SPLIT>(smem_raw, SPLIT ? (nd + 1) / 2 : nd);  // both ranks alike
+  // Block order: the query heads of a Q tile side by side (on the cluster
+  // route each head's two ranks adjacent), the Q tiles in the schedule's
+  // order (most needed KV tiles first).
   const int tile = p.order[blockIdx.y];
-  const Block k = {(int)blockIdx.x, tile * ROWS, tile * p.tiles_ld, p.ntile[tile]};
+  const Block k = {SPLIT ? (int)(blockIdx.x >> 1) : (int)blockIdx.x, tile * ROWS,
+                   tile * p.tiles_ld, p.ntile[tile]};
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&sm.full[s], 1);
       mbar_init(&sm.empty[s], CONSUMER_WARPS);
     }
     mbar_init(sm.q_full, 1);
+    if constexpr (SPLIT)
+      for (int s = 0; s < PART_SLOTS * 2; ++s) mbar_init(&sm.part_full[s], 1);
     fence_barrier_init();
   }
-  __syncthreads();
+  // The partner's barriers are initialised before this block's first store
+  // into its shared memory. Every block of a cluster reaches both cluster
+  // barriers, a Q tile with no listed KV tile too.
+  if constexpr (SPLIT)
+    cluster_sync();
+  else
+    __syncthreads();
 
   if (threadIdx.x < 128) {
     setmaxnreg_dec<24>();
     // A Q tile that needs no KV tile loads nothing (not even Q).
-    if (threadIdx.x == 0 && k.n > 0) produce(maps, p, sm, k, nd, nv, nv0);
+    if (threadIdx.x == 0 && k.n > 0) produce<SPLIT>(maps, p, sm, k, pt);
   } else {
     setmaxnreg_inc<240>();
     if (threadIdx.x < 256)
-      consume<T, 0>(p, sm, k, nd, nv, nv0);
+      consume<T, 0, SPLIT>(p, sm, k, pt, rank);
     else
-      consume<T, 1>(p, sm, k, nd, nv, nv0);
+      consume<T, 1, SPLIT>(p, sm, k, pt, rank);
   }
+  if constexpr (SPLIT) cluster_sync();  // the partner may still store into this block
 }
 
 // The host side of one launch: tensor maps over the packed layout (dims (D,
-// T, H), strides in bytes), shared memory, the grid (query heads, Q tiles).
-template <typename T>
+// T, H), strides in bytes), shared memory, the grid (query heads, on the
+// cluster route the pair of each head adjacent along x; Q tiles).
+template <typename T, bool SPLIT>
 cudaError_t launch(const VarlenParams& p, const Plan& pl, int num_q_tiles, cudaStream_t stream) {
-  const dim3 grid(p.Hq, num_q_tiles);
+  const dim3 grid((SPLIT ? 2 : 1) * p.Hq, num_q_tiles);
   if (grid.x * grid.y == 0) return cudaSuccess;
   const bool f16 = std::is_same<T, __half>::value;
   Maps maps;
@@ -809,11 +678,22 @@ cudaError_t launch(const VarlenParams& p, const Plan& pl, int num_q_tiles, cudaS
     e = encode_3d(&maps.v_map, f16, p.v, p.Dv, mkv, p.Hkv, (uint64_t)p.v_rs * 2,
                   (uint64_t)p.v_hs * 2, COLS, KV_TILE);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(varlen_fwd_wgmma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)pl.smem);
+  auto kern = varlen_fwd_wgmma_kernel<T, SPLIT>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
   if (e != cudaSuccess) return e;
-  varlen_fwd_wgmma_kernel<T><<<grid, THREADS, pl.smem, stream>>>(maps, p);
-  return cudaGetLastError();
+  if constexpr (SPLIT) {
+    return launch_cluster(kern, grid, THREADS, pl.smem, stream, 2, maps, p);
+  } else {
+    kern<<<grid, THREADS, pl.smem, stream>>>(maps, p);
+    return cudaGetLastError();
+  }
+}
+
+template <bool SPLIT>
+cudaError_t launch_typed(bool f16, const VarlenParams& p, const Plan& pl, int num_q_tiles,
+                         cudaStream_t stream) {
+  return f16 ? launch<__half, SPLIT>(p, pl, num_q_tiles, stream)
+             : launch<__nv_bfloat16, SPLIT>(p, pl, num_q_tiles, stream);
 }
 
 }  // namespace tma
@@ -821,12 +701,12 @@ cudaError_t launch(const VarlenParams& p, const Plan& pl, int num_q_tiles, cudaS
 }  // namespace
 
 // o [Tq, Hq, Dv] in the input type and lse [Hq, Tq] fp32; the route is
-// tma::make_plan's, by head dims alone. On the wgmma route a block owns 64
-// Q rows (num_q_tiles = ceil(Tq / 64); block_q is only checked) and walks
-// tiles[tile * num_kv_tiles ..][0, ntile[tile]) of its Q tile, the Q tiles
-// in order's order; jmin / jmax are not read. On mma.sync a block owns
-// block_q rows (num_q_tiles = ceil(Tq / block_q)) and walks every KV tile of
-// [jmin, jmax]; tiles, ntile and order are not read.
+// tma::make_plan's, by head dims alone (one block at D, Dv <= 512, the
+// cluster of two up to 1024). A block (a cluster) owns 64 Q rows
+// (num_q_tiles = ceil(Tq / 64)) and walks tiles[tile * num_kv_tiles ..][0,
+// ntile[tile]) of its Q tile, the Q tiles in order's order. jmin, jmax and
+// block_q are not read (the argument list of the entry point that walked
+// block_q-row intervals above D512).
 extern "C" int ffpa_varlen_fwd(const void* q, const void* k, const void* v, long long q_rs,
                                long long q_hs, long long k_rs, long long k_hs, long long v_rs,
                                long long v_hs, void* o, float* lse, const int* q_seg,
@@ -836,6 +716,9 @@ extern "C" int ffpa_varlen_fwd(const void* q, const void* k, const void* v, long
                                int is_fp16, int block_q, int Hq, int Hkv, int tq, int tk,
                                int num_q_tiles, int num_kv_tiles, int D, int Dv, float scale,
                                float softcap, int window_left, int window_right, void* stream) {
+  (void)jmin;
+  (void)jmax;
+  (void)block_q;
   VarlenParams p = {};
   p.q = q;
   p.k = k;
@@ -852,8 +735,6 @@ extern "C" int ffpa_varlen_fwd(const void* q, const void* k, const void* v, long
   p.q_rank = q_rank;
   p.k_seg = k_seg;
   p.k_pos = k_pos;
-  p.jmin = jmin;
-  p.jmax = jmax;
   p.tiles = tiles;
   p.ntile = ntile;
   p.order = order;
@@ -870,76 +751,71 @@ extern "C" int ffpa_varlen_fwd(const void* q, const void* k, const void* v, long
   p.softcap = softcap;
   p.window_left = window_left;
   p.window_right = window_right;
-  // Registers hold block_q x Dv fp32 (64 per thread); D and Dv are 64-multiples.
-  if (D <= 0 || Dv <= 0 || D % CH != 0 || Dv % CH != 0 || (long long)block_q * Dv > 32 * 1024 ||
-      (block_q != 64 && block_q != 32) || num_q_tiles < 1 || Hkv < 1 || Hq % Hkv != 0)
+  if (D <= 0 || Dv <= 0 || D % CH != 0 || Dv % CH != 0 || D > tma::MAX_HEAD_DIM ||
+      Dv > tma::MAX_HEAD_DIM || Hkv < 1 || Hq % Hkv != 0 || tiles == nullptr ||
+      ntile == nullptr || order == nullptr || num_q_tiles < 1 ||
+      (long long)num_q_tiles * tma::ROWS < tq || (long long)num_kv_tiles * KV_TILE < tk)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const tma::Plan pl = tma::make_plan(D, Dv);
-  if (pl.route == tma::WGMMA) {
-    if (tiles == nullptr || ntile == nullptr || order == nullptr ||
-        (long long)num_q_tiles * tma::ROWS < tq || (long long)num_kv_tiles * KV_TILE < tk)
-      return (int)cudaErrorInvalidValue;
-    return (int)(is_fp16 ? tma::launch<__half>(p, pl, num_q_tiles, st)
-                         : tma::launch<__nv_bfloat16>(p, pl, num_q_tiles, st));
-  }
-  if (jmin == nullptr || jmax == nullptr || (long long)num_q_tiles * block_q < tq)
-    return (int)cudaErrorInvalidValue;
-  if (is_fp16) {
-    return (int)(block_q == 64 ? launch<__half, 64>(p, num_q_tiles, st)
-                               : launch<__half, 32>(p, num_q_tiles, st));
-  }
-  return (int)(block_q == 64 ? launch<__nv_bfloat16, 64>(p, num_q_tiles, st)
-                             : launch<__nv_bfloat16, 32>(p, num_q_tiles, st));
+  return (int)(pl.route == tma::CLUSTER
+                   ? tma::launch_typed<true>(is_fp16, p, pl, num_q_tiles, st)
+                   : tma::launch_typed<false>(is_fp16, p, pl, num_q_tiles, st));
 }
 
-// The route and tiling ffpa_varlen_fwd takes at head dims (D, Dv), multiples
-// of 64, in ffpa_flash_fwd_plan's layout: out[0..4] are the route (1 wgmma,
-// 0 mma.sync), the Q rows of a block (for mma.sync the largest row tile the
-// registers hold), the KV rows of a tile, the ring's stages and the dynamic
-// shared-memory bytes (bf16); out[5] the number of O column blocks (the
-// consumers' halves, or the whole block's), then (first column, width) of
-// each; cap is out's length.
+// The route and tiling ffpa_varlen_fwd takes at head dims (D, Dv),
+// multiples of 64 up to 1024, in ffpa_flash_fwd_plan's layout: out[0..4]
+// are the route (1 one block, 2 the cluster of two), the Q rows of a block,
+// the KV rows of a tile, the ring's stages and the dynamic shared-memory
+// bytes of a block; out[5] the number of O column blocks (each consumer's,
+// rank by rank), then (first column, width) of each; then the number of
+// ranks that split the head dims (0 for one block) and for each its (first
+// D column, D width, first Dv column, Dv width). cap is out's length.
 extern "C" int ffpa_varlen_fwd_plan(int D, int Dv, int* out, int cap) {
-  if (D <= 0 || Dv <= 0 || D % CH != 0 || Dv % CH != 0 || cap < 10)
+  if (D <= 0 || Dv <= 0 || D % CH != 0 || Dv % CH != 0 || D > tma::MAX_HEAD_DIM ||
+      Dv > tma::MAX_HEAD_DIM || cap < 6 + 8 + 1 + 8)
     return (int)cudaErrorInvalidValue;
   const tma::Plan pl = tma::make_plan(D, Dv);
-  out[0] = pl.route;
-  out[1] = pl.rows;
-  out[2] = KV_TILE;
-  out[3] = pl.stages;
-  out[4] = (int)pl.smem;
-  if (pl.route == tma::WGMMA) {
-    out[5] = 2;
-    out[6] = 0;
-    out[7] = pl.nv0 * CH;
-    out[8] = pl.nv0 * CH;
-    out[9] = (pl.nv - pl.nv0) * CH;
-  } else {
-    out[5] = 1;
-    out[6] = 0;
-    out[7] = Dv;
+  const int ranks = pl.route == tma::CLUSTER ? 2 : 1;
+  int n = 0;
+  out[n++] = pl.route;
+  out[n++] = pl.rows;
+  out[n++] = KV_TILE;
+  out[n++] = pl.stages;
+  out[n++] = (int)pl.smem;
+  out[n++] = 2 * ranks;
+  for (int r = 0; r < ranks; ++r) {
+    const tma::Part& pt = pl.part[r];
+    out[n++] = pt.v0 * CH;
+    out[n++] = pt.nv0 * CH;
+    out[n++] = (pt.v0 + pt.nv0) * CH;
+    out[n++] = (pt.nv - pt.nv0) * CH;
+  }
+  out[n++] = ranks == 2 ? 2 : 0;
+  for (int r = 0; r < (ranks == 2 ? 2 : 0); ++r) {
+    const tma::Part& pt = pl.part[r];
+    out[n++] = pt.d0 * CH;
+    out[n++] = pt.nd * CH;
+    out[n++] = pt.v0 * CH;
+    out[n++] = pt.nv * CH;
   }
   return 0;
 }
 
 // Registers a thread (at launch, before setmaxnreg moves them between the
-// warpgroups) and local (spill) bytes a thread of a varlen forward kernel:
-// route 1 the wgmma kernel, 0 varlen_fwd_kernel at row tile block_q (64 or
-// 32), in f16 or bf16.
-extern "C" int ffpa_varlen_fwd_attrs(int route, int is_fp16, int block_q, int* regs,
-                                     int* local_bytes) {
+// warpgroups) and local (spill) bytes a thread of the varlen forward kernel
+// of route 1 (one block) or 2 (the cluster), in f16 or bf16.
+extern "C" int ffpa_varlen_fwd_attrs(int route, int is_fp16, int* regs, int* local_bytes) {
   cudaFuncAttributes a;
   cudaError_t e;
-  if (route == tma::WGMMA)
-    e = is_fp16 ? cudaFuncGetAttributes(&a, tma::varlen_fwd_wgmma_kernel<__half>)
-                : cudaFuncGetAttributes(&a, tma::varlen_fwd_wgmma_kernel<__nv_bfloat16>);
-  else if (block_q == 64)
-    e = is_fp16 ? cudaFuncGetAttributes(&a, varlen_fwd_kernel<__half, 64>)
-                : cudaFuncGetAttributes(&a, varlen_fwd_kernel<__nv_bfloat16, 64>);
+  if (route == tma::CLUSTER)
+    e = is_fp16 ? cudaFuncGetAttributes(&a, tma::varlen_fwd_wgmma_kernel<__half, true>)
+                : cudaFuncGetAttributes(&a, tma::varlen_fwd_wgmma_kernel<__nv_bfloat16, true>);
+  else if (route == tma::WGMMA)
+    e = is_fp16 ? cudaFuncGetAttributes(&a, tma::varlen_fwd_wgmma_kernel<__half, false>)
+                : cudaFuncGetAttributes(&a, tma::varlen_fwd_wgmma_kernel<__nv_bfloat16, false>);
   else
-    e = is_fp16 ? cudaFuncGetAttributes(&a, varlen_fwd_kernel<__half, 32>)
-                : cudaFuncGetAttributes(&a, varlen_fwd_kernel<__nv_bfloat16, 32>);
+    return (int)cudaErrorInvalidValue;
   if (e != cudaSuccess) return (int)e;
   *regs = a.numRegs;
   *local_bytes = (int)a.localSizeBytes;

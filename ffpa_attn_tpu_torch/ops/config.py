@@ -34,10 +34,10 @@ never refused by the card.
   stream through two slots (row tiles 16 .. 128).
 * Packed varlen forward (``csrc/varlen_fwd.cu``), two routes by head dims
   alone (``varlen_fwd_plan`` mirrors the launcher's ``tma::make_plan``):
-  D and Dv <= 512 take the dense wgmma forward block's tiling (64 Q rows,
-  whatever ``block_q`` says), its segment metadata read from device
-  memory; wider heads the mma.sync forward block with the row tile's
-  segment ids and ranks in shared memory.
+  the dense wgmma forward block's tiling at every width (``fwd_plan``: 64
+  Q rows whatever ``block_q`` says; one block at D and Dv <= 512, the
+  cluster of two up to 1024), its segment metadata and tile lists read
+  from device memory.
 * Paged decode (``csrc/paged_decode.cu``), two routes (``paged_plan``
   mirrors the launcher's ``make_plan``): D and Dv <= 512 with a page of a
   multiple of 16 rows take the TMA block (16 packed rows, a ring of 8 KiB
@@ -287,12 +287,11 @@ class BlockConfig:
 
 
 def fwd_smem_bytes(cfg: BlockConfig, d: int, dv: int, itemsize: int = 2) -> int:
-    """Shared memory of one mma.sync forward block (the packed varlen
-    forward's route for wider heads builds on it: ``varlen_smem_bytes``):
-    resident Q [bq, D] + the K/V chunk ring + fp32 S [bq, bkv] + P [bq,
-    bkv] + per-row m, l, alpha. Dv costs registers, not shared memory; so
-    does the S residual of ``return_scores``, stored from the softmax's
-    registers."""
+    """Shared memory of one mma.sync forward block (retired; ``fwd_fits``
+    keeps its budget for the S residual's row padding): resident Q [bq, D]
+    + the K/V chunk ring + fp32 S [bq, bkv] + P [bq, bkv] + per-row m, l,
+    alpha. Dv costs registers, not shared memory; so does the S residual of
+    ``return_scores``, stored from the softmax's registers."""
     del dv
     bq, bkv = cfg.block_q, cfg.block_kv
     q_res = bq * (_round_up(d, D_CHUNK) + _PAD_T) * itemsize
@@ -322,16 +321,14 @@ class FwdPlan:
     ``flash_fwd.fwd_kernel_plan``; the card test holds the two equal). The
     packed varlen forward's plan (``varlen_fwd_plan``) has the same fields.
 
-    ``route`` is "wgmma" (D and Dv <= 512), "wgmma_cluster" (up to 1024)
-    or, for the varlen forward's wider heads only, "mma_sync"; ``q_rows`` a
-    block's Q rows (for mma.sync the largest row tile its registers hold),
-    ``kv_rows`` a KV tile's rows, ``stages`` the ring's depth,
-    ``smem_bytes`` the dynamic shared memory a block asks for and
-    ``o_blocks`` the (first column, width) of O that each owner
-    accumulates: the consumer warpgroups (rank by rank on the cluster) or
-    the whole block (mma.sync). ``rank_blocks`` holds, for each rank of the
-    cluster, its ((first D column, D width), (first Dv column, Dv width));
-    it is empty where one block holds all of D and Dv.
+    ``route`` is "wgmma" (D and Dv <= 512) or "wgmma_cluster" (up to
+    1024); ``q_rows`` a block's Q rows, ``kv_rows`` a KV tile's rows,
+    ``stages`` the ring's depth, ``smem_bytes`` the dynamic shared memory a
+    block asks for and ``o_blocks`` the (first column, width) of O that
+    each consumer warpgroup accumulates, rank by rank on the cluster.
+    ``rank_blocks`` holds, for each rank of the cluster, its ((first D
+    column, D width), (first Dv column, Dv width)); it is empty where one
+    block holds all of D and Dv.
     """
 
     route: str
@@ -438,46 +435,27 @@ def decode_row_tile(dv: int, rows: int, itemsize: int = 2) -> BlockConfig:
     return cfg
 
 
-def varlen_smem_bytes(cfg: BlockConfig, d: int, dv: int, itemsize: int = 2) -> int:
-    """Shared memory of one packed varlen forward block of the mma.sync
-    route (``csrc/varlen_fwd.cu`` ``varlen_fwd_kernel``): the forward's
-    block plus the row tile's segment ids and ranks (int32). Key metadata
-    is read from device memory into registers, one tile at a time."""
-    return fwd_smem_bytes(cfg, d, dv, itemsize) + 2 * cfg.block_q * 4
-
-
 def varlen_fwd_plan(d: int, dv: int) -> FwdPlan:
     """The packed varlen forward's route by head dims alone (padded to
-    64-column chunks), as ``csrc/varlen_fwd.cu`` ``tma::make_plan``
-    computes it (the library hands its own out through
+    64-column chunks, at most 1024), as ``csrc/varlen_fwd.cu``
+    ``tma::make_plan`` computes it (the library hands its own out through
     ``varlen.varlen_fwd_kernel_plan``; the card test holds the two equal):
-    D, Dv <= 512 take the dense ``fwd_plan``, whose wgmma block reads its
-    segment metadata from device memory and so costs no more shared
-    memory; wider heads the mma.sync block at the largest row tile its
-    registers hold, with ``varlen_smem_bytes``."""
-    d_pad, dv_pad = _round_up(d, D_CHUNK), _round_up(dv, D_CHUNK)
-    if max(d_pad, dv_pad) <= _FWD_WG_MAX_D:
-        return fwd_plan(d, dv)
-    rows = FWD_ROW_TILES[0] if FWD_ROW_TILES[0] * dv_pad <= FWD_ACC_ELEMS else FWD_ROW_TILES[1]
-    return FwdPlan("mma_sync", rows, KV_TILE, FWD_STREAM_STAGES,
-                   varlen_smem_bytes(BlockConfig(block_q=rows), d_pad, dv_pad), ((0, dv_pad),))
+    the dense ``fwd_plan`` at every width. Its block reads the segment
+    metadata and the tile lists from device memory, so they cost no shared
+    memory."""
+    return fwd_plan(d, dv)
 
 
 def varlen_fits(cfg: BlockConfig, d: int, dv: int, itemsize: int = 2) -> bool:
-    """Whether the varlen forward takes this row tile at (D, Dv). The
-    wgmma route (D, Dv <= 512) takes its own 64-row tile whatever
-    ``block_q`` says, so any of FWD_ROW_TILES is accepted there when the
-    route's block fits shared memory; the mma.sync route holds the fp32 O
-    tile of ``block_q`` rows in registers and its block in shared memory."""
-    if cfg.block_q not in FWD_ROW_TILES:
+    """Whether the varlen forward takes this row tile at (D, Dv). Both
+    routes take their own 64-row tile whatever ``block_q`` says, so any of
+    FWD_ROW_TILES is accepted where the plan's block fits shared memory
+    and the head dims are at most 1024."""
+    del itemsize
+    if cfg.block_q not in FWD_ROW_TILES or max(_round_up(d, D_CHUNK),
+                                               _round_up(dv, D_CHUNK)) > FWD_MAX_HEAD_DIM:
         return False
-    plan = varlen_fwd_plan(d, dv)
-    if plan.route == "wgmma":
-        return plan.smem_bytes <= SMEM_LIMIT_BYTES
-    return (
-        cfg.block_q * _round_up(dv, D_CHUNK) <= FWD_ACC_ELEMS
-        and varlen_smem_bytes(cfg, d, dv, itemsize) <= SMEM_LIMIT_BYTES
-    )
+    return varlen_fwd_plan(d, dv).smem_bytes <= SMEM_LIMIT_BYTES
 
 
 def paged_smem_bytes(cfg: BlockConfig, dv: int, itemsize: int = 2,
@@ -834,7 +812,6 @@ __all__ = [
     "DecodePlan",
     "decode_plan",
     "decode_row_tile",
-    "varlen_smem_bytes",
     "varlen_fwd_plan",
     "varlen_fits",
     "PAGED_ROW_TILES",

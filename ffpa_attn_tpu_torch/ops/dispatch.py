@@ -31,8 +31,8 @@ def pick_forward_config(
 def pick_varlen_config(*, d: int, dv: int, tq: int, dtype: torch.dtype) -> BlockConfig:
     """Packed varlen forward row tile: the taller of FWD_ROW_TILES that
     fits (D, Dv) on the route ``varlen_fwd_plan`` picks (``varlen_fits``),
-    shrunk to 32 for a packing of at most 32 query rows. The wgmma route
-    (D, Dv <= 512) walks 64-row tiles whatever the row tile says."""
+    shrunk to 32 for a packing of at most 32 query rows. Both routes walk
+    64-row tiles whatever the row tile says."""
     itemsize = torch.empty((), dtype=dtype).element_size()
     for bq in FWD_ROW_TILES:
         cfg = BlockConfig(block_q=bq).clamp(tq, 0, FWD_ROW_TILES)

@@ -130,6 +130,13 @@ def fwd_kernel_plan(d: int, dv: int) -> FwdPlan:
     err = lib.ffpa_flash_fwd_plan(cdiv(d, D_CHUNK) * D_CHUNK, cdiv(dv, D_CHUNK) * D_CHUNK, out,
                                   len(out))
     _build.check(lib, err, "flash_fwd kernel plan")
+    return fwd_plan_from(out)
+
+
+def fwd_plan_from(out) -> FwdPlan:
+    """A ``FwdPlan`` from the ints a plan entry point wrote in
+    ``ffpa_flash_fwd_plan``'s layout (the packed varlen forward's
+    ``ffpa_varlen_fwd_plan`` writes the same)."""
     n = 6 + 2 * out[5]
     blocks = tuple((out[6 + 2 * i], out[7 + 2 * i]) for i in range(out[5]))
     ranks = tuple(((out[n + 1 + 4 * r], out[n + 2 + 4 * r]),

@@ -15,15 +15,13 @@ compares ``(q_seg == k_seg) & (k_pos <= q_rank [+ wr]) [& k_pos >= q_rank -
 wl]`` (``_varlen_mask``). ``_tile_needed`` marks the (Q tile, KV tile)
 pairs that are not provably fully masked, at each kernel's own tile sizes;
 ``_interval_schedule`` turns it into intervals of tiles and
-``_needed_tiles`` into per-tile lists. One 64 x 64 walk serves the
-backward at every width (``_walk_schedule``: the needed matrix at 64 x 64
-and its lists): dQ walks each 64-row Q tile's needed KV tiles only, the Q
-tiles most needed first; dK/dV each KV tile's [imin, imax] of Q tiles, the
-needed matrix transposed (``_backward_schedules``). Where the forward
-takes its wgmma route (D, Dv <= 512) it walks the same lists, computes the
-walk once and saves it for the backward; wider heads' mma.sync forward
-walks each ``block_q``-row Q tile's [jmin, jmax], and the backward
-computes the walk. The kernels read their schedules from device memory.
+``_needed_tiles`` into per-tile lists. One 64 x 64 walk serves the whole
+call at every width (``_walk_schedule``: the needed matrix at 64 x 64 and
+its lists): the forward and dQ walk each 64-row Q tile's needed KV tiles
+only, the Q tiles most needed first; dK/dV each KV tile's [imin, imax] of
+Q tiles, the needed matrix transposed (``_backward_schedules``). The
+forward computes the walk once and saves it for the backward. The kernels
+read their schedules from device memory.
 The metadata is computed once per call, padded so that every kernel's
 tiles divide it, and saved for the backward.
 
@@ -34,13 +32,13 @@ layer, 0.018 ms at 989 TFLOP/s, against 0.022 ms for its 72 MB (q, k, v,
 o once each) at 3.35 TB/s. A kernel that re-reads K/V per Q tile is bound
 by its products long before either.
 
-Design against that bound: at D, Dv <= 512 the dense forward's TMA +
-wgmma block (64 Q rows with Q resident, K and V boxes through a ring of
-stages, two consumer warpgroups, a fast path for blocks inside one
-segment's band) over the packed [T, H, D] layout through 3-D tensor maps
-at the true extents (no head-major copy, no padding of T), visiting only
-the needed KV tiles; wider heads the dense mma.sync block over its
-interval's tiles.
+Design against that bound: the dense forward's TMA + wgmma block (64 Q
+rows with Q resident, K and V boxes through a ring of stages, two consumer
+warpgroups, a fast path for blocks inside one segment's band) over the
+packed [T, H, D] layout through 3-D tensor maps at the true extents (no
+head-major copy, no padding of T), visiting only the needed KV tiles; above
+D512 a cluster of two such blocks splitting D and Dv, the partial S
+exchanged through distributed shared memory.
 
 The backward is bound by operations: 4 matmul units of 2 * Hq * D flop per
 band pair for dK/dV and 3 for dQ (``utils/profiling.py``
@@ -72,7 +70,7 @@ from .config import (
     varlen_dkdv_plan, varlen_dq_plan, varlen_fits, varlen_fwd_plan,
 )
 from .flash_bwd import dkdv_plan_from, dq_plan_from
-from .flash_fwd import _pad_last, check_kernel_inputs
+from .flash_fwd import _pad_last, check_kernel_inputs, fwd_plan_from
 from .reference import DEFAULT_MASK_VALUE
 
 logger = init_logger(__name__)
@@ -205,7 +203,7 @@ def _full_blocks(meta, q_rows: int, kv_rows: int, causal: bool, window=(-1, -1),
     (id >= 0), and, under a right edge, the last key's k_pos at most the
     first row's q_rank plus it. Exact for packings whose segments are
     contiguous with rising positions, as ``_segment_metadata`` makes them.
-    The forward's consumer blocks are 64 x 32 (``_varlen_fwd_tiles``' Q
+    The forward's consumer blocks are 64 x 32 (``_walk_schedule``'s Q
     tiles, half a KV tile each); dK/dV's are ``_dkdv_full_blocks``.
     ``window`` is normalized."""
     q_seg, q_rank, k_seg, k_pos = meta
@@ -310,12 +308,12 @@ _VARLEN_ARGTYPES = {
     + [ctypes.c_int] * 10 + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
     "ffpa_varlen_fwd_plan": [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
                              ctypes.c_int],
-    "ffpa_varlen_fwd_attrs": [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2,
+    "ffpa_varlen_fwd_attrs": [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2,
 }
 
-# The forward kernels of both routes, by the substrings of their names (what
-# a profiler filter matches).
-FWD_KERNELS = ("varlen_fwd_kernel", "varlen_fwd_wgmma_kernel")
+# The forward kernel (both routes), by the substring of its name (what a
+# profiler filter matches).
+FWD_KERNELS = ("varlen_fwd_wgmma_kernel<",)
 
 
 def _varlen_lib() -> ctypes.CDLL:
@@ -333,23 +331,22 @@ def varlen_fwd_kernel_plan(d: int, dv: int) -> FwdPlan:
     (d, dv) (padded to 64-column chunks), read from the library: what
     ``config.varlen_fwd_plan`` mirrors. Needs a card."""
     lib = _varlen_lib()
-    out = (ctypes.c_int * 16)()
+    out = (ctypes.c_int * 32)()
     err = lib.ffpa_varlen_fwd_plan(cdiv(d, D_CHUNK) * D_CHUNK, cdiv(dv, D_CHUNK) * D_CHUNK, out,
                                    len(out))
     _build.check(lib, err, "varlen forward kernel plan")
-    blocks = tuple((out[6 + 2 * i], out[7 + 2 * i]) for i in range(out[5]))
-    return FwdPlan("wgmma" if out[0] == 1 else "mma_sync", out[1], out[2], out[3], out[4], blocks)
+    return fwd_plan_from(out)
 
 
-def varlen_fwd_kernel_attrs(route: str, dtype=torch.bfloat16, block_q: int = 64) -> dict:
+def varlen_fwd_kernel_attrs(route: str, dtype=torch.bfloat16) -> dict:
     """Registers a thread (at launch, before setmaxnreg) and local (spill)
-    bytes of the varlen forward kernel of ``route`` ("wgmma", or
-    "mma_sync" at row tile ``block_q``), from cudaFuncGetAttributes. Needs a
-    card."""
+    bytes of the varlen forward kernel of ``route`` ("wgmma" or
+    "wgmma_cluster"), from cudaFuncGetAttributes. Needs a card."""
     lib = _varlen_lib()
     regs, local = ctypes.c_int(0), ctypes.c_int(0)
-    err = lib.ffpa_varlen_fwd_attrs(int(route == "wgmma"), int(dtype == torch.float16), block_q,
-                                    ctypes.byref(regs), ctypes.byref(local))
+    code = {"wgmma": 1, "wgmma_cluster": 2}[route]
+    err = lib.ffpa_varlen_fwd_attrs(code, int(dtype == torch.float16), ctypes.byref(regs),
+                                    ctypes.byref(local))
     _build.check(lib, err, "varlen forward kernel attributes")
     return {"registers": regs.value, "local_bytes": local.value}
 
@@ -377,43 +374,37 @@ def _walk_schedule(meta, tq: int, rows: int, causal: bool, window):
     return (needed,) + _needed_tiles(needed)
 
 
-def _call_walk(meta, tq: int, d_pad: int, dv_pad: int, causal: bool, window):
-    """The call's ``_walk_schedule`` at the forward's 64-row tiles where
-    the forward takes its wgmma route (D, Dv <= 512; the backward walks the
-    same tiles at every width), else None. ``window`` is normalized."""
-    plan = varlen_fwd_plan(d_pad, dv_pad)
-    if plan.route != "wgmma":
-        return None
-    return _walk_schedule(meta, tq, plan.q_rows, causal, window)
+def _call_walk(meta, tq: int, causal: bool, window):
+    """The call's ``_walk_schedule`` at the forward's 64-row Q tiles (both
+    routes of every varlen kernel walk 64 x 64 tiles, whatever the head
+    dims), which the forward saves for the backward. ``window`` is
+    normalized."""
+    return _walk_schedule(meta, tq, varlen_fwd_plan(D_CHUNK, D_CHUNK).q_rows, causal, window)
 
 
 def _varlen_fwd_tiles(meta, tq: int, d_pad: int, dv_pad: int, config: BlockConfig, causal: bool,
                       window, walk=None):
     """(plan, rows, meta, schedule) of a forward launch, on the metadata's
     device with no host sync: the route by head dims (``varlen_fwd_plan``),
-    its Q rows (the plan's 64 on wgmma whatever ``config.block_q`` asks,
-    ``config.block_q`` on mma.sync), the metadata cut to those rows' tiles,
-    and the schedule at those tiles and KV_TILE keys: on wgmma the lists of
-    ``_walk_schedule`` (each Q tile's needed KV tiles, their count, the Q
-    tiles most needed first; ``walk``'s when given), on mma.sync
-    ``_interval_schedule``'s (jmin, jmax). ``window`` is normalized."""
+    its Q rows (the plan's 64 whatever ``config.block_q`` asks), the
+    metadata cut to those rows' tiles, and the lists of ``walk`` (each Q
+    tile's needed KV tiles, their count, the Q tiles most needed first;
+    ``_call_walk`` computed here when not given). ``window`` is
+    normalized."""
+    del config  # the JAX API's row tile: both routes walk 64-row Q tiles
     plan = varlen_fwd_plan(d_pad, dv_pad)
-    rows = plan.q_rows if plan.route == "wgmma" else config.block_q
-    meta = _q_tiles(meta, tq, rows)
-    if plan.route == "wgmma":
-        schedule = (walk if walk is not None else
-                    _walk_schedule(meta, tq, rows, causal, window))[1:]
-    else:
-        schedule = _interval_schedule(
-            _tile_needed(*meta, rows, KV_TILE, causal, int(window[0]), int(window[1])))
-    return plan, rows, meta, schedule
+    if walk is None:
+        walk = _call_walk(meta, tq, causal, window)
+    return plan, plan.q_rows, _q_tiles(meta, tq, plan.q_rows), walk[1:]
 
 
-def _varlen_kernel(q, k, v, meta, schedule, config: BlockConfig, plan: FwdPlan, *, scale,
-                   causal, softcap, window, alibi):
+def _varlen_kernel(q, k, v, meta, schedule, config: BlockConfig, *, scale, causal, softcap,
+                   window, alibi):
     """Launch ``csrc/varlen_fwd.cu`` (same contract as
-    ``_varlen_forward_plain``) on the route ``plan`` names, with the
-    metadata and schedule of ``_varlen_fwd_tiles``."""
+    ``_varlen_forward_plain``) on the route its plan names by head dims (one
+    block, or the cluster of two above D512), with the call's metadata and
+    ``schedule`` of ``_varlen_fwd_tiles``: the lists (tiles, count, order)
+    at 64-row Q tiles. ``config.block_q`` is passed on and not read."""
     check_kernel_inputs("_varlen_forward", q, k, v)
     tq, hq, d = q.shape
     tk, hkv, _ = k.shape
@@ -422,36 +413,27 @@ def _varlen_kernel(q, k, v, meta, schedule, config: BlockConfig, plan: FwdPlan, 
     q_, k_, v_ = _strided_rows(q, d_pad), _strided_rows(k, d_pad), _strided_rows(v, dv_pad)
     o = torch.empty((tq, hq, dv_pad), dtype=q.dtype, device=q.device)
     lse = torch.empty((hq, tq), dtype=torch.float32, device=q.device)
-    if plan.route == "wgmma":
-        (tiles, ntile, order), jmin, jmax = schedule, None, None
-        num_q_tiles = tiles.shape[0]
-    else:
-        (jmin, jmax), tiles, ntile, order = schedule, None, None, None
-        num_q_tiles = jmin.shape[0]
+    tiles, ntile, order = schedule
     alibi_ptr = None
     if alibi is not None:
         alibi = alibi.to(device=q.device, dtype=torch.float32).contiguous()
         alibi_ptr = alibi.data_ptr()
     q_seg, q_rank, k_seg, k_pos = meta
-    rows = plan.q_rows if plan.route == "wgmma" else config.block_q
     if ENV.device_log_level() >= 2:
-        logger.info(
-            "varlen_fwd launch route=%s grid=(%d,%d) rows=%d smem=%d D=%d Dv=%d Tq=%d Tk=%d",
-            plan.route, hq, num_q_tiles, rows, plan.smem_bytes, d_pad, dv_pad, tq, tk,
-        )
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
+        plan = varlen_fwd_plan(d_pad, dv_pad)
+        logger.info("varlen_fwd launch route=%s grid=(%d,%d) smem=%d D=%d Dv=%d Tq=%d Tk=%d",
+                    plan.route, hq * (2 if plan.rank_blocks else 1), tiles.shape[0],
+                    plan.smem_bytes, d_pad, dv_pad, tq, tk)
     lib = _varlen_lib()
     with torch.cuda.device(q.device):
         err = lib.ffpa_varlen_fwd(
             q_.data_ptr(), k_.data_ptr(), v_.data_ptr(),
             q_.stride(0), q_.stride(1), k_.stride(0), k_.stride(1), v_.stride(0), v_.stride(1),
             o.data_ptr(), lse.data_ptr(), q_seg.data_ptr(), q_rank.data_ptr(),
-            k_seg.data_ptr(), k_pos.data_ptr(), ptr(jmin), ptr(jmax), ptr(tiles), ptr(ntile),
-            ptr(order), alibi_ptr, int(q.dtype == torch.float16), config.block_q, hq, hkv, tq, tk,
-            num_q_tiles, k_seg.shape[0] // KV_TILE, d_pad, dv_pad, float(scale), float(softcap),
+            k_seg.data_ptr(), k_pos.data_ptr(), None, None, tiles.data_ptr(), ntile.data_ptr(),
+            order.data_ptr(), alibi_ptr, int(q.dtype == torch.float16), config.block_q, hq, hkv,
+            tq, tk, tiles.shape[0], k_seg.shape[0] // KV_TILE, d_pad, dv_pad, float(scale),
+            float(softcap),
             int(window[0]), 0 if causal else int(window[1]),  # causal is the band's right edge 0
             torch.cuda.current_stream(q.device).cuda_stream,
         )
@@ -466,11 +448,10 @@ def _varlen_forward(q, k, v, cu_q, cu_k, *, scale, causal, config: Optional[Bloc
     """Packed varlen forward: (o [Tq, Hq, Dv], lse [Hq, Tq] fp32).
 
     ``meta`` is the call's ``_call_metadata`` (computed here when not
-    given), ``walk`` its ``_call_walk`` (the wgmma route's schedule,
-    computed here when not given). The schedule is computed at the route's
-    tiles on the inputs' device (``_varlen_fwd_tiles``). CPU tensors run the
-    plain version; CUDA tensors launch the kernel, or raise for what it
-    does not take."""
+    given), ``walk`` its ``_call_walk`` (computed here, on the inputs'
+    device with no host sync, when not given). CPU tensors run the plain
+    version; CUDA tensors launch the kernel, or raise for what it does not
+    take."""
     from .dispatch import pick_varlen_config
 
     tq, _, d = q.shape
@@ -483,9 +464,9 @@ def _varlen_forward(q, k, v, cu_q, cu_k, *, scale, causal, config: Optional[Bloc
     if q.device.type == "cpu":
         return _varlen_forward_plain(q, k, v, meta, scale=scale, causal=causal, softcap=softcap,
                                      window=window, alibi=alibi)
-    plan, _, meta, schedule = _varlen_fwd_tiles(meta, tq, d_pad, dv_pad, config, causal, window,
-                                                walk)
-    return _varlen_kernel(q, k, v, meta, schedule, config, plan, scale=scale, causal=causal,
+    _, _, meta, schedule = _varlen_fwd_tiles(meta, tq, d_pad, dv_pad, config, causal, window,
+                                             walk)
+    return _varlen_kernel(q, k, v, meta, schedule, config, scale=scale, causal=causal,
                           softcap=softcap, window=window, alibi=alibi)
 
 
@@ -586,9 +567,9 @@ def _backward_schedules(meta, tq: int, dkdv_plan: DkdvPlan, dq_plan: DqPlan, cau
     """(dK/dV schedule, dQ schedule) of a backward launch, on the
     metadata's device with no host sync, from one 64 x 64 walk at every
     width (both routes of both kernels walk 64 x 64 tiles): the forward's
-    ``walk`` (``_call_walk``: saved at D, Dv <= 512) or, where none is
-    given (the mma.sync forward above D512 saves none), ``_walk_schedule``
-    computed here. dQ takes its lists (tiles, count, order) as they are,
+    ``walk`` (``_call_walk``, which the forward saves) or, where none is
+    given (a direct call), ``_walk_schedule`` computed here. dQ takes its
+    lists (tiles, count, order) as they are,
     dK/dV the ``_dkdv_intervals`` of its needed matrix. That matrix has
     ceil(Tq / 64) rows where ``_tile_needed`` over the call's metadata
     (padded to 128 query rows) has one more when ceil(Tq / 64) is odd; that
@@ -779,8 +760,7 @@ def _varlen_backward(q, k, v, o, lse, do, meta, *, scale, causal, softcap: float
     Hkv, Dv]) in the inputs' dtypes, from the forward's o and lse
     (sink-inclusive where there are sinks) and the cotangent ``do``;
     ``meta`` is the call's ``_call_metadata`` and ``walk`` its
-    ``_call_walk`` as the forward saved it (None: computed here where a
-    route needs it).
+    ``_call_walk`` as the forward saved it (None: computed here).
 
     CPU tensors run the plain version. CUDA tensors compute delta and both
     tile schedules on the device (``_backward_schedules``: no host sync,
@@ -818,9 +798,9 @@ def _varlen_apply_sinks(o, lse, sinks):
 class _VarlenCore(torch.autograd.Function):
     """The varlen core op (the JAX package's ``_varlen_core`` custom_vjp).
 
-    The forward computes the call's metadata once and, where its route is
-    wgmma (D, Dv <= 512), the call's one tile schedule (``_call_walk``), runs
-    ``_varlen_forward`` on them and applies sinks; it saves q, k, v, the
+    The forward computes the call's metadata and its one tile schedule
+    (``_call_walk``) once, runs ``_varlen_forward`` on them and applies
+    sinks; it saves q, k, v, the
     sink-inclusive o and lse, the metadata and the schedule. The backward
     runs ``_varlen_backward`` on the saved metadata and schedule (the
     kernels are exact under sink-inclusive residuals), the sinks'
@@ -831,14 +811,13 @@ class _VarlenCore(torch.autograd.Function):
     def forward(ctx, scale, causal, config, softcap, window, q, k, v, cu_q, cu_k, alibi, sinks):
         meta = _call_metadata(cu_q, cu_k, q.shape[0], k.shape[0], q.device)
         wnorm = (int(window[0]), -1 if causal else int(window[1]))
-        walk = _call_walk(meta, q.shape[0], cdiv(q.shape[-1], D_CHUNK) * D_CHUNK,
-                          cdiv(v.shape[-1], D_CHUNK) * D_CHUNK, causal, wnorm)
+        walk = _call_walk(meta, q.shape[0], causal, wnorm)
         o, lse = _varlen_forward(q, k, v, cu_q, cu_k, scale=scale, causal=causal, config=config,
                                  softcap=softcap, window=window, alibi=alibi, meta=meta,
                                  walk=walk)
         if sinks is not None:
             o, lse = _varlen_apply_sinks(o, lse, sinks)
-        ctx.save_for_backward(q, k, v, o, lse, *meta, alibi, sinks, *(walk or ()))
+        ctx.save_for_backward(q, k, v, o, lse, *meta, alibi, sinks, *walk)
         ctx.static = dict(scale=scale, causal=causal, softcap=softcap, window=window)
         ctx.mark_non_differentiable(lse)
         return o, lse
@@ -849,7 +828,7 @@ class _VarlenCore(torch.autograd.Function):
         q, k, v, o, lse, *rest = ctx.saved_tensors
         meta, (alibi, sinks), walk = rest[:4], rest[4:6], rest[6:]
         dq, dk, dv = _varlen_backward(q, k, v, o, lse, do, tuple(meta), alibi=alibi,
-                                      walk=tuple(walk) or None, **ctx.static)
+                                      walk=tuple(walk), **ctx.static)
         dsinks = None
         if sinks is not None:
             from .attention import sink_grad

@@ -46,6 +46,9 @@ CASES = {
     "sinks": dict(seqs=[40, 72, 16], causal=True, sinks=True),
     "d512": dict(seqs=[40, 72, 16], causal=True, d=512),
     "padded_tail_empty_segment": dict(seqs=[40, 0, 56], pad_q=20, causal=True),
+    # Above D512: the forward's cluster route (and the backward's).
+    "d1024": dict(seqs=[40, 72, 16], causal=True, d=1024),
+    "d640_dv1024": dict(seqs=[40, 72, 16], causal=True, d=640, dv=1024),
 }
 
 
@@ -57,7 +60,8 @@ def _inputs(case, seed=0):
     tq = sum(seqs) + case.get("pad_q", 0)
     tk = sum(seqs_k) + case.get("pad_q", 0)
     x = dict(
-        q=randn(rng, (tq, hq, d)), k=randn(rng, (tk, hkv, d)), v=randn(rng, (tk, hkv, d)),
+        q=randn(rng, (tq, hq, d)), k=randn(rng, (tk, hkv, d)),
+        v=randn(rng, (tk, hkv, case.get("dv", d))),
         cu_q=np.cumsum([0] + list(seqs)).astype(np.int32),
         cu_k=np.cumsum([0] + list(seqs_k)).astype(np.int32),
         alibi=rng.uniform(0.01, 0.3, (hq,)).astype(np.float32) if case.get("alibi") else None,
@@ -233,6 +237,30 @@ def test_varlen_rejected_kwargs():
     assert tuple(out.shape) == tuple(q.shape)
 
 
+def test_wide_packed_call_walks_once(monkeypatch):
+    """One D1024 packed forward + backward through ``ffpa_attn_varlen_func``
+    builds one 64 x 64 walk: the forward computes it (``_call_walk``) and
+    saves it, and the backward reads the saved one."""
+    calls = []
+    walk = tvar._walk_schedule
+
+    def counted(*args, **kw):
+        calls.append(args[2])
+        return walk(*args, **kw)
+
+    monkeypatch.setattr(tvar, "_walk_schedule", counted)
+    case = dict(seqs=[40, 72, 16], causal=True, d=1024)
+    x = _inputs(case, seed=8)
+    q, k, v = (to_torch(x[n], "bfloat16").requires_grad_() for n in ("q", "k", "v"))
+    cu = torch.from_numpy(x["cu_q"])
+    o = ffpa_attn_varlen_func(q, k, v, cu, cu, 72, 72, causal=True)
+    assert calls == [64] and len(o.grad_fn.saved_tensors) == 15
+    o.float().sum().backward()
+    assert calls == [64]
+    assert all(t.grad is not None and bool(torch.isfinite(t.grad.float()).all())
+               for t in (q, k, v))
+
+
 def test_varlen_backward_matches_jax_vjp(jv):
     """The packed-training slice: ``o.float().sum().backward()`` (an
     expanded, stride-0 cotangent) runs the varlen backward and matches
@@ -259,22 +287,32 @@ def test_varlen_backward_matches_jax_vjp(jv):
 
 CARD_CASES = {
     **CASES,
-    "d1024": dict(seqs=[40, 72, 16], causal=True, d=1024),
     "mha_long": dict(seqs=[300, 17, 500], hq=4, hkv=4, causal=True),
     "tile_straddles_three_segments": dict(seqs=[20, 9, 50, 3], causal=True),
     # Keys fewer than queries, tail-aligned: the first 120 rows keep no key,
     # so the first 64-row Q tile needs no KV tile at all.
     "cross_causal_empty_rows": dict(seqs=[150, 40], seqs_k=[30, 40], causal=True),
+    # The forward's cluster: D = Dv, an odd box count (rank 0 five of nine),
+    # a rank without a D box (D64 / Dv1024) and one without a Dv box (D1024 /
+    # Dv64).
+    "d640": dict(seqs=[40, 72, 16], causal=True, d=640),
+    "d576_odd_boxes": dict(seqs=[20, 9, 50, 3], causal=True, d=576),
+    "d64_dv1024": dict(seqs=[40, 72, 16], causal=True, d=64, dv=1024),
+    "d1024_dv64": dict(seqs=[40, 72, 16], window=(16, 8), d=1024, dv=64),
 }
 
 
-def _kernel_walk(q, k, v, meta, schedule, *, scale, causal, softcap=0.0, window=(-1, -1),
+def _kernel_walk(q, k, v, meta, schedule, plan, *, scale, causal, softcap=0.0, window=(-1, -1),
                  alibi=None):
-    """The wgmma forward kernel's walk in plain fp32 PyTorch: the 64-row Q
-    tiles in the schedule's order, each an online softmax over only its
-    listed KV tiles with m started at MASK_VALUE, P rounded to the input
-    type for P V; a 64 x 32 block that ``_full_blocks`` marks full skips
-    the keep-mask. ``window`` is normalized. (o, lse) as
+    """The forward kernel's walk in plain fp32 PyTorch, one block or the
+    cluster as ``plan`` (``varlen_fwd_plan``) names: the 64-row Q tiles in
+    the schedule's order, each an online softmax over only its listed KV
+    tiles with m started at MASK_VALUE, P rounded to the input type for P V;
+    a 64 x 32 block that ``_full_blocks`` marks full skips the keep-mask.
+    On the cluster S is rank 0's partial over its half of D's boxes plus rank
+    1's over the other half (a rank without a box adds 0), each in fp32, and
+    each rank accumulates and writes only its half of Dv's columns (every
+    column written once). ``window`` is normalized. (o, lse) as
     ``_varlen_forward_plain`` returns them."""
     tiles, count, order = schedule
     tq, hq, d = q.shape
@@ -289,14 +327,24 @@ def _kernel_walk(q, k, v, meta, schedule, *, scale, causal, softcap=0.0, window=
     kf, vf = kf.repeat_interleave(hq // hkv, 0), vf.repeat_interleave(hq // hkv, 0)
     full = tvar._full_blocks(meta, 64, 32, causal, window, softcap=softcap,
                              alibi=alibi is not None)
-    o, lse = torch.zeros((hq, nqb * 64, dv)), torch.zeros((hq, nqb * 64))
+    d_pad, dv_pad = -(-d // 64) * 64, -(-dv // 64) * 64
+    if plan.rank_blocks:
+        d_cols = [dc for dc, _ in plan.rank_blocks]
+        v_cols = [vc for _, vc in plan.rank_blocks]
+        assert sum(w for _, w in d_cols) == d_pad and sum(w for _, w in v_cols) == dv_pad
+    else:
+        d_cols, v_cols = [(0, d_pad)], [(0, dv_pad)]
+    o, lse = torch.full((hq, nqb * 64, dv), float("nan")), torch.zeros((hq, nqb * 64))
     for i in order.tolist():
         r = slice(64 * i, 64 * i + 64)
         m, l, acc = mask.expand(hq, 64, 1).clone(), torch.zeros((hq, 64, 1)), torch.zeros(
             (hq, 64, dv))
         for j in tiles[i, :int(count[i])].tolist():
             c = slice(64 * j, 64 * j + 64)
-            s = torch.einsum("hqd,hkd->hqk", qf[:, r], kf[:, c]) * scale
+            s = torch.zeros((hq, 64, 64))
+            for d0, dw in d_cols:  # each rank's partial, summed in rank order
+                s = s + torch.einsum("hqd,hkd->hqk", qf[:, r, d0:d0 + dw], kf[:, c, d0:d0 + dw])
+            s = s * scale
             if softcap > 0.0:
                 s = softcap * torch.tanh(s / softcap)
             if alibi is not None:
@@ -312,16 +360,21 @@ def _kernel_walk(q, k, v, meta, schedule, *, scale, causal, softcap=0.0, window=
             l = alpha * l + p.sum(-1, keepdim=True)
             acc = alpha * acc + torch.einsum("hqk,hkd->hqd", p.to(q.dtype).float(), vf[:, c])
             m = mn
-        o[:, r] = acc / torch.where(l == 0.0, 1.0, l)
+        for v0, vw in v_cols:  # each rank writes its own columns
+            cols = slice(v0, min(v0 + vw, dv))
+            assert bool(o[:, r, cols].isnan().all())
+            o[:, r, cols] = acc[..., cols] / torch.where(l == 0.0, 1.0, l)
         lse[:, r] = (m + torch.log(l.clamp_min(1e-38)))[..., 0]
     assert sorted(order.tolist()) == list(range(nqb))
+    assert not bool(o.isnan().any())
     return o[:, :tq].transpose(0, 1).to(q.dtype), lse[:, :tq]
 
 
 @pytest.mark.parametrize("name", sorted(CARD_CASES))
 def test_kernel_walk_matches_plain(name):
-    """The wgmma route's schedule (only the needed KV tiles, the Q tiles
-    most needed first) and its full-block fast path compute the plain
+    """The forward's schedule (only the needed KV tiles, the Q tiles most
+    needed first), its full-block fast path and, above D512, the cluster's
+    split (summed partial S, each rank's Dv columns) compute the plain
     version's function: o per row at the bf16 tolerance (the walk rounds P
     to bf16 as the kernel does), lse of the rows that keep a key at 1e-4,
     and every row that keeps none (a Q tile with no KV tile among them)
@@ -338,10 +391,10 @@ def test_kernel_walk_matches_plain(name):
     meta = tvar._call_metadata(*(torch.from_numpy(x[n]) for n in ("cu_q", "cu_k")), tq, tk, "cpu")
     d_pad, dv_pad = -(-q.shape[-1] // 64) * 64, -(-v.shape[-1] // 64) * 64
     cfg = BlockConfig(block_q=64)
-    plan, rows, cut, sched = tvar._varlen_fwd_tiles(meta, tq, min(d_pad, 512), min(dv_pad, 512),
-                                                   cfg, causal, window)
-    assert plan.route == "wgmma" and rows == 64
-    wo, wl = _kernel_walk(q, k, v, cut, sched, **kw)
+    plan, rows, cut, sched = tvar._varlen_fwd_tiles(meta, tq, d_pad, dv_pad, cfg, causal, window)
+    assert plan.route == ("wgmma_cluster" if max(d_pad, dv_pad) > 512 else "wgmma")
+    assert rows == 64 and bool(plan.rank_blocks) == (plan.route == "wgmma_cluster")
+    wo, wl = _kernel_walk(q, k, v, cut, sched, plan, **kw)
     po, pl = tvar._varlen_forward_plain(q, k, v, meta, **kw)
     assert row_rel_err(wo, po) < BF16_TOL, name
     empty = torch.tensor(DEFAULT_MASK_VALUE, dtype=torch.float32) + torch.log(

@@ -1,19 +1,22 @@
 """The route and tiling of the packed varlen forward (``ops/config.py``
 ``varlen_fwd_plan``, the mirror of ``csrc/varlen_fwd.cu`` ``tma::make_plan``),
-the row tiles the dispatch accepts on each route, the schedule at the
-route's tiles and the wgmma consumer's full-block test.
+the row tiles the dispatch accepts, the schedule at the route's tiles and
+the wgmma consumer's full-block test.
 
-D and Dv up to 512 take the TMA + wgmma block: 64 Q rows whatever
-``block_q`` asks, walking only the KV tiles ``_tile_needed`` marks needed
-(``_needed_tiles``), the Q tiles most needed first; wider heads take the
-mma.sync block at ``block_q`` rows over each Q tile's [jmin, jmax]. A
-consumer block of 64 Q rows x 32 KV columns that ``varlen._full_blocks``
-marks full skips the keep-mask on the card, so every pair in it must be kept
+The plan is the dense forward's (``fwd_plan``) at every width: D and Dv up
+to 512 take one TMA + wgmma block, wider heads up to 1024 a cluster of two
+such blocks splitting D and Dv ("wgmma_cluster"). Both walk 64 Q rows
+whatever ``block_q`` asks, only the KV tiles ``_tile_needed`` marks needed
+(``_needed_tiles``), the Q tiles most needed first. A consumer block of 64
+Q rows x 32 KV columns that ``varlen._full_blocks`` marks full skips the
+keep-mask on the card, so every pair in it must be kept
 (``varlen._varlen_mask``). On a card the mirror is held equal to the plan the
-library launches with, the wgmma kernel spills nothing, and the kernel
+library launches with, neither route spills in either dtype, and the kernel
 matches ``_varlen_forward_plain`` per row at bf16 2e-2 / fp16 1e-2
 (tests/test_features.py:127), lse at 1e-4 of max|lse| over the rows that keep
-a key (fp32 math on identical inputs), at D != Dv and at D640.
+a key (fp32 math on identical inputs), at D != Dv and above D512 (D576's odd
+box count, a rank without a D box at D64 / Dv1024 and without a Dv box at
+D1024 / Dv64).
 """
 
 from __future__ import annotations
@@ -35,7 +38,6 @@ from ffpa_attn_tpu_torch.ops.config import (
     fwd_plan,
     varlen_fits,
     varlen_fwd_plan,
-    varlen_smem_bytes,
 )
 from ffpa_attn_tpu_torch.ops.dispatch import pick_varlen_config
 from ffpa_attn_tpu_torch.ops.reference import DEFAULT_MASK_VALUE
@@ -53,54 +55,63 @@ LSE_TOL = 1e-4
 
 @pytest.mark.parametrize("d,dv", HEAD_DIMS)
 def test_varlen_fwd_plan_routes_by_head_dims(d, dv):
+    """The dense forward's plan at every width (its metadata and lists cost
+    no shared memory): one block of 8 stages at D, Dv <= 512, the cluster
+    of 7 above, rank r holding its half of D's and Dv's boxes (rank 0 the
+    larger), each rank's consumers half of its Dv boxes."""
     plan = varlen_fwd_plan(d, dv)
     d_pad, dv_pad = cdiv(d, D_CHUNK) * D_CHUNK, cdiv(dv, D_CHUNK) * D_CHUNK
     wide = max(d_pad, dv_pad) > WGMMA_MAX_D
-    assert plan.route == ("mma_sync" if wide else "wgmma")
-    assert plan.kv_rows == 64 and plan.smem_bytes <= SMEM_LIMIT_BYTES
+    assert plan == fwd_plan(d, dv)
+    assert plan.route == ("wgmma_cluster" if wide else "wgmma")
+    assert (plan.q_rows, plan.kv_rows, plan.stages) == (64, 64, 7 if wide else 8)
+    assert plan.smem_bytes <= SMEM_LIMIT_BYTES
     start = 0
     for c0, w in plan.o_blocks:  # the O column blocks cover [0, Dv) in order
         assert c0 == start and w % D_CHUNK == 0
         start += w
     assert start == dv_pad
-    if plan.route == "wgmma":
-        # The dense forward's block: its metadata costs no shared memory.
-        assert plan == fwd_plan(d, dv) and (plan.q_rows, plan.stages) == (64, 8)
-        nv = dv_pad // D_CHUNK
-        assert [w for _, w in plan.o_blocks] == [cdiv(nv, 2) * D_CHUNK, nv // 2 * D_CHUNK]
+    if wide:
+        (d0, dw0), (v0, vw0) = plan.rank_blocks[0]
+        (d1, dw1), (v1, vw1) = plan.rank_blocks[1]
+        assert (d0, v0, d1, v1) == (0, 0, dw0, vw0)
+        assert dw0 + dw1 == d_pad and vw0 + vw1 == dv_pad
+        assert 0 <= dw0 - dw1 <= D_CHUNK and 0 <= vw0 - vw1 <= D_CHUNK
+        halves = [(v0, vw0), (v1, vw1)]
     else:
-        assert plan.q_rows == (64 if 64 * dv_pad <= 64 * 512 else 32)
-        assert plan.smem_bytes == varlen_smem_bytes(BlockConfig(block_q=plan.q_rows), d_pad,
-                                                    dv_pad)
+        assert plan.rank_blocks == ()
+        halves = [(0, dv_pad)]
+    want = []
+    for v0, vw in halves:
+        nv = vw // D_CHUNK
+        want += [(v0, cdiv(nv, 2) * D_CHUNK), (v0 + cdiv(nv, 2) * D_CHUNK, nv // 2 * D_CHUNK)]
+    assert list(plan.o_blocks) == want
     assert varlen_fwd_plan(d_pad, dv_pad) == plan
 
 
 @pytest.mark.parametrize("d,dv", HEAD_DIMS)
 @pytest.mark.parametrize("bq", FWD_ROW_TILES)
 def test_varlen_fits_takes_the_routes_block(d, dv, bq):
-    """On the wgmma route every row tile is accepted (the launcher takes its
-    own 64 rows); on mma.sync a row tile fits where its fp32 O tile fits the
-    registers (block_q * Dv <= 64 * 512) and its block shared memory."""
+    """Every row tile is accepted at every width (both routes take their own
+    64 rows), the plan's block fitting shared memory; the dispatch picks
+    the taller tile."""
     d_pad, dv_pad = cdiv(d, D_CHUNK) * D_CHUNK, cdiv(dv, D_CHUNK) * D_CHUNK
     cfg = BlockConfig(block_q=bq)
-    fits = varlen_fits(cfg, d_pad, dv_pad)
-    if varlen_fwd_plan(d, dv).route == "wgmma":
-        assert fits
-    else:
-        assert fits == (bq * dv_pad <= 64 * 512
-                        and varlen_smem_bytes(cfg, d_pad, dv_pad) <= SMEM_LIMIT_BYTES)
+    assert varlen_fits(cfg, d_pad, dv_pad)
+    assert varlen_fwd_plan(d, dv).smem_bytes <= SMEM_LIMIT_BYTES
     picked = pick_varlen_config(d=d_pad, dv=dv_pad, tq=8192, dtype=torch.bfloat16)
-    assert varlen_fits(picked, d_pad, dv_pad)
+    assert varlen_fits(picked, d_pad, dv_pad) and picked.block_q == FWD_ROW_TILES[0]
 
 
 def test_explicit_block_q_on_each_route():
-    """The JAX API's explicit block_q=32 is accepted at D512 (the wgmma
-    route walks 64-row tiles anyway); 64 is refused where the mma.sync O
-    tile does not fit the registers (Dv 1024)."""
+    """The JAX API's explicit block_q is accepted on both routes (each walks
+    64-row tiles anyway), 64 at D1024 too; head dims above 1024 fit no
+    row tile."""
     assert tvar._varlen_block_config(32, None, 512, 512, 4096, torch.bfloat16).block_q == 32
     assert tvar._varlen_block_config(32, None, 1024, 1024, 4096, torch.bfloat16).block_q == 32
+    assert tvar._varlen_block_config(64, None, 1024, 1024, 4096, torch.bfloat16).block_q == 64
     with pytest.raises(ValueError, match="does not fit"):
-        tvar._varlen_block_config(64, None, 1024, 1024, 4096, torch.bfloat16)
+        tvar._varlen_block_config(64, None, 1088, 1088, 4096, torch.bfloat16)
 
 
 SERVE_LENS = [589, 698, 763, 886]
@@ -116,22 +127,22 @@ def _meta(seqs, seqs_k=None, pad=0):
 @pytest.mark.parametrize("bq", FWD_ROW_TILES)
 @pytest.mark.parametrize("d", [512, 320, 1024])
 def test_schedule_at_the_routes_rows(bq, d):
-    """The schedule is computed at the route's rows: 64-row Q tiles with
-    their needed KV tiles on wgmma whatever block_q asks, block_q-row
-    intervals on mma.sync (D1024)."""
+    """The schedule is computed at 64-row Q tiles with their needed KV
+    tiles on both routes (the cluster at D1024) whatever block_q asks: the
+    call's one walk (``_call_walk``), which the forward saves."""
     tq = sum(SERVE_LENS)
     meta = _meta(SERVE_LENS)
     plan, rows, cut, sched = tvar._varlen_fwd_tiles(meta, tq, d, d, BlockConfig(block_q=bq),
                                                     True, (-1, -1))
-    if d <= WGMMA_MAX_D:
-        tiles, count, order = sched
-        assert plan.route == "wgmma" and rows == 64
-        assert tiles.shape == (cdiv(tq, 64), cdiv(tq, 64)) and count.shape == order.shape
-        assert all(t.dtype == torch.int32 for t in sched)
-    else:
-        jmin, jmax = sched
-        assert plan.route == "mma_sync" and rows == bq
-        assert jmin.shape == jmax.shape == (cdiv(tq, bq),)
+    tiles, count, order = sched
+    assert plan.route == ("wgmma" if d <= WGMMA_MAX_D else "wgmma_cluster") and rows == 64
+    assert tiles.shape == (cdiv(tq, 64), cdiv(tq, 64)) and count.shape == order.shape
+    assert all(t.dtype == torch.int32 for t in sched)
+    walk = tvar._call_walk(meta, tq, True, (-1, -1))
+    assert all(torch.equal(a, b) for a, b in zip(sched, walk[1:]))
+    given = tvar._varlen_fwd_tiles(meta, tq, d, d, BlockConfig(block_q=bq), True, (-1, -1),
+                                   walk)[3]
+    assert all(a is b for a, b in zip(given, walk[1:]))
     assert cut[0].shape[0] == cdiv(tq, rows) * rows and cut[2].shape[0] == cdiv(tq, 64) * 64
 
 
@@ -231,20 +242,30 @@ def test_wgmma_kernel_spills_nothing_on_card(cuda, dtype):  # noqa: F811
     assert a["local_bytes"] == 0 and a["registers"] > 0
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_cluster_kernel_spills_nothing_on_card(cuda, dtype):  # noqa: F811
+    a = tvar.varlen_fwd_kernel_attrs("wgmma_cluster", dtype)
+    assert a["local_bytes"] == 0 and a["registers"] > 0
+
+
 CARD_CASES = {
     "d512_dv320": dict(seqs=[300, 17, 500], d=512, dv=320),
     "d320_dv512": dict(seqs=[300, 17, 500], d=320, dv=512),
     "d448_dv64_window": dict(seqs=[300, 17, 500], d=448, dv=64, window=(100, -1)),
     "d640": dict(seqs=[300, 17, 500], d=640, dv=640),
     "d512_rows_without_keys": dict(seqs=[150, 40, 90], seqs_k=[30, 40, 200], d=512, dv=512),
+    "d1024": dict(seqs=[300, 17, 500], d=1024, dv=1024),
+    "d576": dict(seqs=[300, 17, 500], d=576, dv=576),
+    "d64_dv1024": dict(seqs=[300, 17, 500], d=64, dv=1024),
+    "d1024_dv64": dict(seqs=[300, 17, 500], d=1024, dv=64),
 }
 
 
 @pytest.mark.parametrize("name", sorted(CARD_CASES))
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_varlen_fwd_kernel_matches_plain_on_card(cuda, name, dtype):  # noqa: F811
-    """The kernel of the plan's route (wgmma at D, Dv <= 512, mma.sync at
-    D640) against ``_varlen_forward_plain`` on the same inputs: o per row,
+    """The kernel of the plan's route (one block at D, Dv <= 512, the
+    cluster above) against ``_varlen_forward_plain`` on the same inputs: o per row,
     lse over the rows that keep a key, and the rows that keep none at
     exactly the plain version's MASK_VALUE + log(1e-38)."""
     case = CARD_CASES[name]

@@ -25,7 +25,7 @@ from _torch_parity import (  # noqa: F401
 )
 from ffpa_attn_tpu_torch import ffpa_attn_varlen_func
 from ffpa_attn_tpu_torch.ops import varlen as tvar
-from ffpa_attn_tpu_torch.ops.config import varlen_dkdv_plan, varlen_dq_plan
+from ffpa_attn_tpu_torch.ops.config import varlen_dkdv_plan, varlen_dq_plan, varlen_fwd_plan
 from test_torch_varlen import CARD_CASES, CASES, _inputs, _kwargs, _max_seqlens
 
 GRAD_TOL = {"bfloat16": 5e-2, "float16": 1e-2}
@@ -253,11 +253,11 @@ def _saved_walk(x, case):
 @pytest.mark.parametrize("route", ["wgmma", "wgmma_cluster"])
 def test_saved_schedules_equal_fresh(causal, window, cu_k_shift, route):
     """The schedule the forward saves (64 x 64 needed tiles) is the one the
-    backward computes afresh: on the wgmma routes (D, Dv <= 512; D64 here)
-    the backward reads the saved walk, at D1024 (``route`` names the
-    backward's routes, both clusters) the forward (mma.sync) saves none and
-    the backward computes the walk itself. Either way dK/dV's intervals,
-    order included, equal those of ``_tile_needed`` at 64 x 64 over the
+    backward would compute afresh, on the one-block routes (D, Dv <= 512;
+    D64 here) and at D1024 (``route`` names the routes, the forward's and
+    both backward kernels' clusters): the backward reads the saved walk at
+    every width. dK/dV's intervals, order included, equal those of
+    ``_tile_needed`` at 64 x 64 over the
     call's metadata (padded to 128 query rows: the extra Q tile holds only
     rows past Tq and is never needed), and dQ walks each 64-row Q tile's
     needed tiles, the saved lists. A padded tail, a length-0 segment,
@@ -278,9 +278,9 @@ def test_saved_schedules_equal_fresh(causal, window, cu_k_shift, route):
     assert all(torch.equal(a, b) for a, b in zip(walk, fresh))
     d = 64 if route == "wgmma" else 1024
     dkdv_plan, dq_plan = varlen_dkdv_plan(d, d), varlen_dq_plan(d, d)
-    assert dkdv_plan.route == dq_plan.route == route
-    saved = tvar._call_walk(meta, tq, d, d, causal, wnorm)
-    assert (saved is None) == (route == "wgmma_cluster")
+    assert dkdv_plan.route == dq_plan.route == varlen_fwd_plan(d, d).route == route
+    saved = tvar._call_walk(meta, tq, causal, wnorm)
+    assert all(torch.equal(a, b) for a, b in zip(saved, fresh))
     (imin, imax, order), dq = tvar._backward_schedules(meta, tq, dkdv_plan, dq_plan, causal,
                                                        wnorm, saved)
     want_dkdv = tvar._dkdv_intervals(tvar._tile_needed(*meta, 64, 64, causal, *wnorm))

@@ -66,6 +66,14 @@ wrappers passed, ``LegacyBanded``):
   library without ``ffpa_varlen_fwd_plan`` (built from sources before the
   wgmma route) is called with its own argument list and its intervals at
   64-row Q tiles (``LegacyVarlenFwd``);
+* varlen_fwd_d1024, varlen_fwd_d640 and varlen_fwd_d1024_fp16: the varlen
+  forward above D512 over 8 documents packed into 4096 tokens ([1024, 768,
+  600, 512, 450, 350, 250, 142]), H8/4 causal, each held against
+  ``_varlen_forward_plain`` per row (fp16 at its forward tolerance 1e-2).
+  The head library runs the cluster of two blocks on its 64 x 64 walk; a
+  base library whose plan sends D1024 to the mma.sync route is given its
+  plan's row tile and each Q tile's [jmin, jmax] at it
+  (``LegacyVarlenWideFwd``);
 * paged_decode and paged_decode_int8 (``--kernels paged_decode`` runs
   both): the serving step over bf16 and over int8 pools (B4, lens 64 tokens into generation, page 256), four layers'
   pools in turn, each held against ``_paged_decode_plain`` per row at the
@@ -161,12 +169,17 @@ SOURCE = {"flash_fwd": "flash_fwd", "flash_fwd_scores": "flash_fwd",
           "dq_d640": "flash_bwd", "dq_d1024_fp16": "flash_bwd", "from_s": "flash_bwd",
           "from_s_d1024": "flash_bwd", "from_s_d640": "flash_bwd",
           "banded_dk": "flash_bwd", "varlen_fwd": "varlen_fwd", "varlen_fwd_train": "varlen_fwd",
+          "varlen_fwd_d1024": "varlen_fwd", "varlen_fwd_d640": "varlen_fwd",
+          "varlen_fwd_d1024_fp16": "varlen_fwd",
           "paged_decode": "paged_decode",
           "paged_decode_int8": "paged_decode", "varlen_dkdv": "varlen_bwd",
           "varlen_dq": "varlen_bwd", "varlen_dkdv_d1024": "varlen_bwd",
           "varlen_dkdv_d640": "varlen_bwd", "varlen_dkdv_d1024_fp16": "varlen_bwd",
           "varlen_dq_d1024": "varlen_bwd", "varlen_dq_d640": "varlen_bwd",
           "varlen_dq_d1024_fp16": "varlen_bwd"}
+# The varlen forward kernels of every tree: the wgmma kernel (one block or
+# the cluster) and the mma.sync kernel an older tree ran above D512.
+VARLEN_FWD_KERNELS = ("varlen_fwd_kernel<", "varlen_fwd_wgmma_kernel<")
 # The varlen dK/dV kernels of every tree: the wgmma kernel (one block or the
 # cluster) and the mma.sync kernel an older tree ran above D512.
 VARLEN_DKDV_KERNELS = ("varlen_dkdv_kernel<", "varlen_dkdv_wgmma_kernel<")
@@ -176,8 +189,10 @@ VARLEN_DQ_KERNELS = ("varlen_dq_kernel<", "varlen_dq_wgmma_kernel<")
 # kernel -> the substrings of its CUDA kernels' names (either route), where a
 # run also launches other kernels that are not timed
 ONLY = {"from_s": flash_bwd.FROM_S_KERNELS, "from_s_d1024": flash_bwd.FROM_S_KERNELS,
-        "from_s_d640": flash_bwd.FROM_S_KERNELS, "varlen_fwd": varlen.FWD_KERNELS,
-        "varlen_fwd_train": varlen.FWD_KERNELS, "varlen_dkdv": VARLEN_DKDV_KERNELS,
+        "from_s_d640": flash_bwd.FROM_S_KERNELS, "varlen_fwd": VARLEN_FWD_KERNELS,
+        "varlen_fwd_train": VARLEN_FWD_KERNELS, "varlen_fwd_d1024": VARLEN_FWD_KERNELS,
+        "varlen_fwd_d640": VARLEN_FWD_KERNELS, "varlen_fwd_d1024_fp16": VARLEN_FWD_KERNELS,
+        "varlen_dkdv": VARLEN_DKDV_KERNELS,
         "varlen_dq": VARLEN_DQ_KERNELS, "varlen_dkdv_d1024": VARLEN_DKDV_KERNELS,
         "varlen_dkdv_d640": VARLEN_DKDV_KERNELS, "varlen_dkdv_d1024_fp16": VARLEN_DKDV_KERNELS,
         "varlen_dq_d1024": VARLEN_DQ_KERNELS, "varlen_dq_d640": VARLEN_DQ_KERNELS,
@@ -186,6 +201,8 @@ ONLY = {"from_s": flash_bwd.FROM_S_KERNELS, "from_s_d1024": flash_bwd.FROM_S_KER
 ENTRY = {"from_s": "ffpa_bwd_dkdv_from_s", "from_s_d1024": "ffpa_bwd_dkdv_from_s",
          "from_s_d640": "ffpa_bwd_dkdv_from_s", "banded_dk": "ffpa_bwd_banded_dk",
          "varlen_fwd": "ffpa_varlen_fwd", "varlen_fwd_train": "ffpa_varlen_fwd",
+         "varlen_fwd_d1024": "ffpa_varlen_fwd", "varlen_fwd_d640": "ffpa_varlen_fwd",
+         "varlen_fwd_d1024_fp16": "ffpa_varlen_fwd",
          "paged_decode": "ffpa_paged_decode",
          "paged_decode_int8": "ffpa_paged_decode", "varlen_dkdv": "ffpa_varlen_bwd_dkdv",
          "varlen_dq": "ffpa_varlen_bwd_dq", "varlen_dkdv_d1024": "ffpa_varlen_bwd_dkdv",
@@ -549,13 +566,66 @@ class LegacyVarlenFwd:
         return call
 
 
+class LegacyVarlenWideFwd:
+    """A varlen_fwd library whose plan sends D or Dv above 512 to its
+    mma.sync kernel (built from sources before the forward's cluster
+    route): there its entry point walks every KV tile of each
+    ``block_q``-row Q tile's [jmin, jmax] (ceil(Tq / block_q) Q tiles). The
+    row tile its plan names, the intervals at it (``SCHEDULE[(tq, rows)]``,
+    set by ``make_runs`` for the wide packing) and their Q tile count are
+    put in; at D, Dv <= 512 (its wgmma route) the call is passed as it is.
+    Every other symbol is the library's own."""
+
+    SCHEDULE = {}  # (tq, rows) -> (jmin, jmax) at rows x 64
+    JMIN, JMAX, BLOCK_Q, TQ, NQT, D, DV = 15, 16, 22, 25, 27, 29, 30
+
+    @staticmethod
+    def plan(lib, d: int, dv: int) -> tuple:
+        """The route (0 mma.sync) and row tile of ``lib``'s forward plan."""
+        fn = lib.ffpa_varlen_fwd_plan
+        fn.argtypes = varlen._VARLEN_ARGTYPES["ffpa_varlen_fwd_plan"]
+        fn.restype = ctypes.c_int
+        out = (ctypes.c_int * 32)()
+        if fn(d, dv, out, len(out)) != 0:
+            raise RuntimeError(f"the base library's forward plan refuses D{d}/Dv{dv}")
+        return out[0], out[1]
+
+    @classmethod
+    def needed(cls, lib) -> bool:
+        """Whether ``lib`` sends D1024 to the mma.sync route (route 0)."""
+        return hasattr(lib, "ffpa_varlen_fwd_plan") and cls.plan(lib, 1024, 1024)[0] == 0
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if name != "ffpa_varlen_fwd":
+            return fn
+        fn.argtypes = varlen._VARLEN_ARGTYPES[name]
+        fn.restype = ctypes.c_int
+
+        def call(*args):
+            args = list(args)
+            route, rows = self.plan(self._lib, args[self.D], args[self.DV])
+            if route == 0:
+                jmin, jmax = self.SCHEDULE[(args[self.TQ], rows)]
+                args[self.JMIN], args[self.JMAX] = jmin.data_ptr(), jmax.data_ptr()
+                args[self.BLOCK_Q], args[self.NQT] = rows, jmin.shape[0]
+            return fn(*args)
+
+        call.argtypes = fn.argtypes
+        return call
+
+
 TOL = 5e-2  # bf16 gradients (tests/test_ffpa_bwd.py:19)
 # Gradient kernels run in fp16: its gradient tolerance (tests/test_ffpa_bwd.py:19).
 GRAD_KERNEL_TOL = {"dkdv_d1024": 1e-2, "dkdv_d640": 1e-2, "dq_d1024_fp16": 1e-2,
                    "varlen_dkdv_d1024_fp16": 1e-2, "varlen_dq_d1024_fp16": 1e-2}
 # Per-kernel tolerances where a kernel is held to the forward's (per row).
 KERNEL_TOL = {"paged_decode": 2e-2, "paged_decode_int8": 2e-2, "decode": 2e-2,
-              "decode_serving": 2e-2, "varlen_fwd": 2e-2, "varlen_fwd_train": 2e-2}
+              "decode_serving": 2e-2, "varlen_fwd": 2e-2, "varlen_fwd_train": 2e-2,
+              "varlen_fwd_d1024": 2e-2, "varlen_fwd_d640": 2e-2, "varlen_fwd_d1024_fp16": 1e-2}
 # The forward's outputs: O per row (bf16, tests/test_features.py:127), lse
 # relative to max|lse| (fp32 math on both sides), S per row on the band.
 FWD_TOL = {"o": 2e-2, "lse": 1e-4, "s": 1e-2}
@@ -859,15 +929,20 @@ def make_runs(gen) -> tuple:
             plain=(lambda a_=wargs, k_=wkw: varlen._varlen_dkdv_plain(*a_, wmeta, **k_)),
             dq_run=(lambda o_=wops, s_=wdq_sched, k_=wkw:
                     varlen._varlen_dq_kernel(o_, wmeta, s_, **k_)),
-            dq_plain=(lambda a_=wargs, k_=wkw: varlen._varlen_dq_plain(*a_, wmeta, **k_)))
+            dq_plain=(lambda a_=wargs, k_=wkw: varlen._varlen_dq_plain(*a_, wmeta, **k_)),
+            fwd_run=(lambda a_=(wq_, wk_, wv_), s_=wkw["scale"]:
+                     varlen._varlen_forward(*a_, wcu, wcu, scale=s_, causal=True)[0]),
+            fwd_plain=(lambda a_=(wq_, wk_, wv_), s_=wkw["scale"]:
+                       varlen._varlen_forward_plain(*a_, wmeta, scale=s_, causal=True)[0]))
         del wo
     # The mma.sync routes' intervals above D512: dK/dV's at 128 x 32, dQ's
     # at each row tile x 64.
     LegacyVarlenWideDkdv.SCHEDULE = varlen._dkdv_intervals(varlen._tile_needed(
         *wmeta, 128, 32, True))[:2]
     for rows in (64, 32):
-        LegacyVarlenWideDq.SCHEDULE[(wt, rows)] = varlen._interval_schedule(varlen._tile_needed(
-            *varlen._q_tiles(wmeta, wt, rows), rows, 64, True))
+        LegacyVarlenWideDq.SCHEDULE[(wt, rows)] = LegacyVarlenWideFwd.SCHEDULE[(wt, rows)] = (
+            varlen._interval_schedule(varlen._tile_needed(*varlen._q_tiles(wmeta, wt, rows), rows,
+                                                          64, True)))
     vmeta = varlen._call_metadata(cu, cu, tot, tot, "cuda")
     for t_, m_ in ((tot, vmeta), (bt, meta)):  # a base library's intervals at 64 rows
         needed = varlen._tile_needed(*varlen._q_tiles(m_, t_, 64), 64, 64, True)
@@ -926,6 +1001,9 @@ def make_runs(gen) -> tuple:
         "varlen_dq_d1024": wide_varlen[1024, torch.bfloat16]["dq_run"],
         "varlen_dq_d640": wide_varlen[640, torch.bfloat16]["dq_run"],
         "varlen_dq_d1024_fp16": wide_varlen[1024, torch.float16]["dq_run"],
+        "varlen_fwd_d1024": wide_varlen[1024, torch.bfloat16]["fwd_run"],
+        "varlen_fwd_d640": wide_varlen[640, torch.bfloat16]["fwd_run"],
+        "varlen_fwd_d1024_fp16": wide_varlen[1024, torch.float16]["fwd_run"],
     })
 
     def dkdv_plain():
@@ -965,6 +1043,9 @@ def make_runs(gen) -> tuple:
         "varlen_dq_d1024": wide_varlen[1024, torch.bfloat16]["dq_plain"],
         "varlen_dq_d640": wide_varlen[640, torch.bfloat16]["dq_plain"],
         "varlen_dq_d1024_fp16": wide_varlen[1024, torch.float16]["dq_plain"],
+        "varlen_fwd_d1024": wide_varlen[1024, torch.bfloat16]["fwd_plain"],
+        "varlen_fwd_d640": wide_varlen[640, torch.bfloat16]["fwd_plain"],
+        "varlen_fwd_d1024_fp16": wide_varlen[1024, torch.float16]["fwd_plain"],
         "varlen_fwd": lambda: varlen._varlen_forward_plain(vq, vk, vv, vmeta, scale=scale,
                                                            causal=True)[0],
         "varlen_fwd_train": lambda: varlen._varlen_forward_plain(bq, bk, bv, meta, scale=scale,
@@ -1016,6 +1097,8 @@ def main() -> int:
     base_fwd = trees["base"].get("varlen_fwd")
     if base_fwd is not None and not hasattr(base_fwd, "ffpa_varlen_fwd_plan"):
         trees["base"]["varlen_fwd"] = LegacyVarlenFwd(base_fwd)
+    elif base_fwd is not None and LegacyVarlenWideFwd.needed(base_fwd):
+        trees["base"]["varlen_fwd"] = LegacyVarlenWideFwd(base_fwd)
     runs, reset, plains = make_runs(torch.Generator(device="cuda").manual_seed(0))
 
     tma_splits, decode_splits = paged._tma_splits, decode._tma_splits

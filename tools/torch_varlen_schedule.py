@@ -5,18 +5,16 @@ Run from the repository root (no card needed):
     python tools/torch_varlen_schedule.py [--lens 589,698,763,886] [--block-q 64]
 
 For causal self-attention over prompts of the given lengths, prints the
-forward's schedule: each Q tile's [jmin, jmax] interval of 64-key tiles
-(``ops/varlen.py`` ``_tile_needed`` and ``_interval_schedule``, the JAX
-package's schedule, at ``--block-q`` rows), the KV tiles the mma.sync
-kernel (D or Dv > 512) walks there, the tiles that ``_tile_needed`` marks
-needed inside those intervals, and the (row, col) pairs each covers against
-the causal band's pairs; then the wgmma kernel's walk (D, Dv <= 512: only
-the needed tiles at 64 x 64, ``_needed_tiles``), its tiles per Q tile and
-the 64 x 32 consumer blocks its full-block test (``_full_blocks`` at 64 x 32) lets
-skip the mask. Then the
-backward's (``_backward_schedules``, one 64 x 64 walk at every width: the
-forward's saved walk at D, Dv <= 512, the same walk computed afresh
-above): the pairs the dK/dV kernel walks at its 64 x 64 tiles (each KV
+JAX package's schedule: each Q tile's [jmin, jmax] interval of 64-key
+tiles (``ops/varlen.py`` ``_tile_needed`` and ``_interval_schedule`` at
+``--block-q`` rows), every KV tile of those intervals, the tiles that
+``_tile_needed`` marks needed inside them, and the (row, col) pairs each
+covers against the causal band's pairs; then the forward kernel's walk (at
+every width only the needed tiles at 64 x 64, ``_needed_tiles``), its
+tiles per Q tile and the 64 x 32 consumer blocks its full-block test
+(``_full_blocks`` at 64 x 32) lets skip the mask. Then the backward's
+(``_backward_schedules`` on the forward's saved walk, at every width):
+the pairs the dK/dV kernel walks at its 64 x 64 tiles (each KV
 tile's [imin, imax] of Q tiles, the needed matrix transposed), with the
 needed tiles inside the intervals and those the consumers' full-block
 test (``_dkdv_full_blocks``: one segment, inside the band) lets skip the
@@ -103,10 +101,10 @@ def main() -> int:
         "consumer_blocks_walked": int(walked_halves.sum()),
         "consumer_blocks_full": int((halves & walked_halves).sum()),
     }
-    # dQ's walk: the forward's lists, read through the backward's schedule
-    # (the same tiles and full blocks as the forward's walk) at D512, the
-    # same lists computed by the backward at D1024.
-    saved = varlen._call_walk(meta, t, 512, 512, True, (-1, -1))
+    # dQ's walk: the forward's lists (saved at every width), read through
+    # the backward's schedule: the same tiles and full blocks as the
+    # forward's walk.
+    saved = varlen._call_walk(meta, t, True, (-1, -1))
     (imin_s, imax_s, _), (dtiles, dcount, _) = varlen._backward_schedules(
         meta, t, varlen_dkdv_plan(512, 512), varlen_dq_plan(512, 512), True, (-1, -1), saved)
     assert torch.equal(dtiles, tiles) and torch.equal(dcount, count)

@@ -1,7 +1,7 @@
-"""The bound of each wide kernel route: the recompute dQ's, the varlen
-dK/dV's and the varlen dQ's clusters above D512, the mma.sync route of the
-varlen forward above D512, dense decode on cp.async above D512, and paged
-decode on cp.async over pages that are not a multiple of 16 rows.
+"""The bound of each wide kernel route: the recompute dQ's and the varlen
+forward's, dK/dV's and dQ's clusters above D512, dense decode on cp.async
+above D512, and paged decode on cp.async over pages that are not a
+multiple of 16 rows.
 
 Run anywhere (it needs no card: the numbers are counted from the shapes):
 
@@ -53,7 +53,7 @@ def routes() -> list:
         ("7 (D > 512)", "decode_kernel (cp.async)",
          "B1 H8/4 Nkv 4224 D1024, one query row, 4097 rows live under the validity bias",
          "1 a decode step (walk and split merge)", decode_counts(4097, 4224, **wide)),
-        ("8 (D > 512)", "varlen_fwd_kernel (mma.sync)",
+        ("8 (D > 512)", "tma::varlen_fwd_wgmma_kernel<T, true> (the cluster)",
          "8 documents in 8192 tokens, H8/4 D1024 causal", "1 a packed call",
          varlen_counts(PACKING, PACKING, causal=True, **wide)),
         ("9 (D > 512)", "tma::varlen_dkdv_wgmma_kernel<T, true> (the cluster)",
