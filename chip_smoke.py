@@ -120,8 +120,10 @@ last three lines are the ``kernels`` JSON line, the nvidia-smi line and the
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -137,6 +139,10 @@ LSE_TOL = 1e-4  # relative to max|lse|: fp32 math on identical inputs
 # Gradient tolerances (tests/test_ffpa_bwd.py:19), per row for kernel vs
 # plain (grad_row_rel) and per leaf of the model's gradients.
 GRAD_TOL = {torch.bfloat16: 5e-2, torch.float16: 1e-2}
+# banded dQ over an e4m3 slab against its plain version on the same slab,
+# per row (floored): identical inputs, so the summation order alone
+# differs.
+FP8_READER_TOL = 2e-2
 # Losses, relative, set from readings on an H100: the first step's loss
 # against the oracle attention's read 2.34e-6 at N8192, the tiny model's
 # two losses on the card against the CPU 1.35e-5. With random weights the
@@ -185,6 +191,23 @@ BENCH_H, BENCH_N, SERVE_WINDOW, WINDOW_PAGE = 8, 4096, 256, 128
 PLAN_PAIRS = [(x, x) for x in range(64, 1025, 64)] + [
     (128, 512), (512, 128), (320, 512), (448, 64), (512, 64), (512, 1024), (1024, 320),
     (64, 1024), (1024, 64), (400, 400), (100, 200), (320, 1024), (640, 1024)]
+
+
+@contextlib.contextmanager
+def _env(key: str, value: str):
+    """``os.environ[key] = value`` inside the block, the old state after."""
+    before = os.environ.get(key)
+    os.environ[key] = value
+    try:
+        yield
+    finally:
+        if before is None:
+            del os.environ[key]
+        else:
+            os.environ[key] = before
+
+
+FP8_FLAG = "FFPA_TORCH_ALLOW_FP8_DS"
 
 
 def log(msg: str) -> None:
@@ -534,6 +557,65 @@ def _striped_bwd_case(name, *, b=1, hq=8, hkv=4, n, d, dtype=torch.bfloat16, dro
         + f" (tol {tol:g}, per row) {'ok' if ok else 'FAIL'}")
     if not ok:
         fail(f"the striped dS handoff disagrees with the plain versions: {name}")
+
+
+def _fp8_ds_case(name, *, b=1, hq=8, hkv=4, nq, nkv, d=512, causal=True, softcap=0.0,
+                 dropout=0.0, seed=0) -> None:
+    """The e4m3 dS slab (``ds_store_bits = 8``, bf16): the dK/dV kernel's
+    e4m3 writer against the same kernel's 16-bit-slab launch (dK and dV
+    bit-equal: both take the 16-bit dS) and against the plain version's
+    slab (within one e4m3 step on every element: the two fp32 dS differ in
+    summation order only); under causal, banded dQ's e4m3 reader over the
+    kernel's own slab against the plain version on that slab, per row at
+    2e-2."""
+    from ffpa_attn_tpu_torch.ops import flash_bwd, flash_fwd
+    from ffpa_attn_tpu_torch.ops.config import BlockConfig, dkdv_plan
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(300 + seed)
+    q, do = _randn((b, hq, nq, d), bf, gen), _randn((b, hq, nq, d), bf, gen)
+    k, v = _randn((b, hkv, nkv, d), bf, gen), _randn((b, hkv, nkv, d), bf, gen)
+    scale = 1.0 / math.sqrt(d)
+    o, lse = flash_fwd.flash_attention_forward(q, k, v, None, scale=scale, is_causal=causal,
+                                               dropout_p=dropout, dropout_seed=seed,
+                                               softcap=softcap)
+    delta = (do.float() * o.float()).sum(-1)
+    del o
+    kern_kw = dict(scale=scale, is_causal=causal, causal_offset=nkv - nq, dropout_p=dropout,
+                   group=hq // hkv, softcap=softcap)
+    args = (q, k, v, None, do, lse, delta, seed)
+    dk16, dv16, _ = flash_bwd._dkdv_launch(*args, BlockConfig(), grad_kv_storage_dtype=None,
+                                           emit_ds=True, **kern_kw)
+    dk8, dv8, ds8 = flash_bwd._dkdv_launch(*args, BlockConfig(ds_store_bits=8),
+                                           grad_kv_storage_dtype=None, emit_ds=True, **kern_kw)
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(dk8, dk16) and torch.equal(dv8, dv16))
+    del dk16, dv16, dk8, dv8
+    _, _, pds = flash_bwd._dkdv_plain(
+        q, k, v, None, do, lse, delta, scale=scale, emit_ds=True, nq_pad=ds8.shape[2],
+        nkv_pad=ds8.shape[3], ds_fp8=True, is_causal=causal, causal_offset=nkv - nq,
+        dropout_p=dropout, seed=seed, softcap=softcap, window=(-1, -1), alibi=None)
+    steps = flash_bwd.e4m3_steps(ds8, pds)
+    max_steps, off = int(steps.max()), int((steps > 0).sum())
+    del pds, steps
+    errs = {}
+    if causal:
+        kbq = flash_bwd._banded_dq_from_ds(ds8, k, None, scale=scale, group=hq // hkv, nq=nq,
+                                           nkv=nkv, causal_offset=nkv - nq, dq_dtype=bf)
+        torch.cuda.synchronize()
+        pbq = flash_bwd._banded_dq_plain(ds8, k, scale=scale, nq=nq, nkv=nkv)
+        errs["banded_dq"] = grad_row_rel(kbq, pbq)
+        del kbq, pbq
+    ok = (equal and max_steps <= 1 and ds8.dtype == torch.float8_e4m3fn
+          and all(e < FP8_READER_TOL for e in errs.values()))
+    log(f"  fp8 dS {name:<24} dkdv route {dkdv_plan(d, d).route}: dK, dV "
+        f"{'bit-equal' if equal else 'DIFFER'} to the 16-bit-slab launch; slab within "
+        f"{max_steps} e4m3 step(s) of the plain version's ({off} of {ds8.numel()} elements "
+        f"one step off)" + "".join(f"; {n} {e:.2e} (tol {FP8_READER_TOL:g}, per row)"
+                                   for n, e in errs.items()) + f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"the e4m3 dS kernels disagree with the 16-bit launch or their plain versions: "
+             f"{name}")
 
 
 def _band(nq, nkv, causal, device="cuda"):
@@ -1069,6 +1151,14 @@ def phase_kernels_vs_plain() -> dict:
     _bwd_case("d1024_softcap_bias", nq=1024, nkv=1024, d=1024, softcap=30.0, bias="full",
               seed=40)
     _striped_bwd_case("d1024_striped_dropout", n=1024, d=1024, dropout=0.1, seed=37)
+    # The e4m3 dS slab (ds_store_bits 8): the writer on both routes at the
+    # training shape and on the cluster, the reader on the writer's slab;
+    # and feature cases (a ragged edge, softcap with dropout, no causal).
+    _fp8_ds_case(f"train_N{TRAIN_N}", nq=TRAIN_N, nkv=TRAIN_N)
+    _fp8_ds_case("cluster_N4096_D1024", nq=PROMPT, nkv=PROMPT, d=1024, seed=1)
+    _fp8_ds_case("ragged_nq1000_nkv1100", nq=1000, nkv=1100, seed=2)
+    _fp8_ds_case("softcap_dropout", nq=1024, nkv=1024, softcap=30.0, dropout=0.1, seed=3)
+    _fp8_ds_case("noncausal_d640_cluster", nq=1000, nkv=1100, d=640, causal=False, seed=4)
     # The S-resident tier: the forward's S residual, the from-S dK/dV kernel
     # in both variants, banded dK and banded dQ from its slab; the training
     # shape (N8192) is held in s_resident_times, beside its times.
@@ -1833,7 +1923,8 @@ def _s_resident_launches(layers: int, heads_split: bool = False) -> dict:
 
 def _train_steps(model, state, step, tokens, n, want, label) -> tuple:
     """n steps, each driven with the counts set to 0 just before it and
-    read just after. Returns (state, losses, step ms, summed counts)."""
+    read just after, held to ``want`` (the counts of the kernels it names).
+    Returns (state, losses, step ms, summed counts)."""
     losses, times, total = [], [], dict.fromkeys(want, 0)
     for i in range(n):
         torch.cuda.synchronize()
@@ -1842,7 +1933,7 @@ def _train_steps(model, state, step, tokens, n, want, label) -> tuple:
         state, loss = step(model, state, tokens)
         loss = float(loss)  # synchronizes
         times.append((time.perf_counter() - t0) * 1e3)
-        counts = _counts(TRAIN_KERNELS)
+        counts = _counts(want)
         if counts != want:
             fail(f"{label} step {i}: launch counts {counts} != expected {want}")
         for name in total:
@@ -1954,6 +2045,94 @@ def phase_training() -> dict:
     per_step = {"flash_fwd": cfg.n_layers, "dkdv": cfg.n_layers, "dq": 0,
                 "banded_dq": cfg.n_layers, "dkdv_from_s": 0, "banded_dk": 0}
     return _train_and_hold(cfg, "training path", per_step, TRAIN_STEPS)
+
+
+def phase_fp8_training(oracle) -> dict:
+    """The dS-handoff tier with its slab in e4m3 (``FFPA_TORCH_ALLOW_FP8_DS=1``;
+    the dispatcher proposes it for bf16, no bias, Nq * Nkv >= 4096^2) on the
+    training path's model and tokens: one warm-up step with the flag, then
+    three steps with it and three without in turns (e4m3, 16-bit, ...),
+    each held to its launch counts (with the flag the e4m3 writer and reader
+    once a layer and no 16-bit dK/dV or banded dQ; without, the reverse).
+    Losses finite and falling. Logged, not held: the warm-up step's slabs
+    (max |dS| and the share of zeros on the causal band, with the flag and
+    in the first 16-bit step) and its gradients against the fp32 oracle's,
+    the wq leaves (through dQ, the slab's reader) apart from the others:
+    the JAX design stores dS unscaled, and at this shape it sits below
+    e4m3's range (the flag stays off by default)."""
+    from ffpa_attn_tpu_torch.models import (
+        ModelConfig, adamw, make_train_step, params_from_jax, random_params,
+    )
+    from ffpa_attn_tpu_torch.ops import flash_bwd
+
+    cfg = ModelConfig(**TRAIN)
+    zero = {"flash_fwd": cfg.n_layers, "dkdv": 0, "dq": 0, "banded_dq": 0, "dkdv_from_s": 0,
+            "banded_dk": 0, "dkdv_fp8_ds": 0, "banded_dq_fp8_ds": 0}
+    want = {"1": dict(zero, dkdv_fp8_ds=cfg.n_layers, banded_dq_fp8_ds=cfg.n_layers),
+            "0": dict(zero, dkdv=cfg.n_layers, banded_dq=cfg.n_layers)}
+    model = params_from_jax(random_params(cfg, seed=0), cfg)
+    tokens = torch.from_numpy(
+        np.random.default_rng(1).integers(0, cfg.vocab_size, (1, TRAIN_N + 1))).cuda()
+    opt = adamw(1e-4)
+    state = opt.init(list(model.parameters()))
+    step = make_train_step(cfg, opt)
+    log(f"e4m3 dS training path ({FP8_FLAG}=1): the training path's model and tokens")
+    band = TRAIN_N * (TRAIN_N + 1) // 2 * cfg.n_heads
+    slabs, launch = [], flash_bwd._dkdv_launch
+
+    def recording(*a, **kw):  # the slab each layer's dK/dV launch writes
+        out = launch(*a, **kw)
+        ds = out[2].float()
+        slabs.append((str(out[2].dtype)[6:], float(ds.abs().max()),
+                      1.0 - int(torch.count_nonzero(ds)) / band))
+        return out
+
+    flash_bwd._dkdv_launch = recording
+    try:
+        with _env(FP8_FLAG, "1"):
+            state, losses, warm_ms, _ = _train_steps(model, state, step, tokens, 1, want["1"],
+                                                     "e4m3 dS warm-up")
+        grads = [(name, p.grad.detach().clone()) for name, p in model.named_parameters()]
+        with _env(FP8_FLAG, "0"):
+            state, more, first16, _ = _train_steps(model, state, step, tokens, 1, want["0"],
+                                                   "16-bit step on the e4m3 path's model")
+    finally:
+        flash_bwd._dkdv_launch = launch
+    losses += more
+    times = {"1": [], "0": first16}
+    launches = dict.fromkeys(want["1"], 0)
+    for flag in ("1", "1", "0", "1", "0"):  # with the step above: e4m3, 16, 16, e4m3, ...
+        with _env(FP8_FLAG, flag):
+            state, more, ms, counts = _train_steps(model, state, step, tokens, 1, want[flag],
+                                                   f"{FP8_FLAG}={flag} step")
+        losses += more
+        times[flag] += ms
+        if flag == "1":
+            launches = {n: launches[n] + c for n, c in counts.items()}
+    worst = {"wq": (0.0, ""), "other": (0.0, "")}
+    for (name, g), (oname, og) in zip(grads, oracle[1]):
+        assert name == oname
+        e, key = rel(g, og), "wq" if ".wq." in name else "other"
+        if not math.isfinite(e) or e > worst[key][0]:
+            worst[key] = (e, name)
+    del grads
+    step_ms = {f: sorted(t)[len(t) // 2] for f, t in times.items()}
+    log(f"  steps: warm-up {warm_ms[0]:.1f} ms; in turns, {FP8_FLAG}=1 "
+        f"{[round(t, 2) for t in times['1']]} ms (median {step_ms['1']:.2f}), =0 "
+        f"{[round(t, 2) for t in times['0']]} ms (median {step_ms['0']:.2f}); losses "
+        f"{[round(x, 5) for x in losses]}; launches per e4m3 step {want['1']}")
+    log("  the warm-up step's slabs (e4m3) and the first 16-bit step's, layer by layer: "
+        + "; ".join(f"{dt} max|dS| {mx:.3e}, {z * 100:.2f}% of the band zero"
+                    for dt, mx, z in slabs))
+    log(f"  warm-up gradients vs the oracle's attention (logged, not held): wq leaves worst "
+        f"{worst['wq'][1]} rel_err {worst['wq'][0]:.2e}; the other leaves worst "
+        f"{worst['other'][1]} rel_err {worst['other'][0]:.2e}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"e4m3 dS training path: losses must be finite and fall: {losses}")
+    torch.cuda.empty_cache()
+    return dict(model=model, state=state, step=step, tokens=tokens, launches=launches,
+                step_ms=step_ms["1"], step_ms_16=step_ms["0"], losses=losses,
+                grad_err_wq=worst["wq"][0], grad_err_other=worst["other"][0], slabs=slabs)
 
 
 def phase_resident_training(oracle) -> dict:
@@ -2766,7 +2945,8 @@ def _profile_step(label: str, run: dict) -> dict:
 
 
 def training_times(training: dict, windowed: dict, resident: dict,
-                   from_s_cluster_launches: int, dq_cluster_launches: int) -> tuple:
+                   from_s_cluster_launches: int, dq_cluster_launches: int,
+                   fp8_training: dict) -> tuple:
     """One step of the handoff and of the S-resident model under the
     profiler, then the backward kernels at their main-path shapes, each held
     against its plain version on the same inputs and timed beside it: dkdv
@@ -2776,7 +2956,9 @@ def training_times(training: dict, windowed: dict, resident: dict,
     ``from_s_cluster_launches`` its launches in the S-resident backwards
     above D512 through ``ffpa_attn_func``), banded dK and the dQ cluster
     route above D512 (``dq_cluster_times``; ``dq_cluster_launches`` its
-    launches in the windowed D1024 backward through ``ffpa_attn_func``)."""
+    launches in the windowed D1024 backward through ``ffpa_attn_func``),
+    and the e4m3 dS slab's writer and reader beside the 16-bit ones
+    (``fp8_ds_times``, on the e4m3 training step ``fp8_training``)."""
     import torch.nn.functional as F
 
     from ffpa_attn_tpu_torch.cli._bench import sdpa_backend
@@ -2786,6 +2968,8 @@ def training_times(training: dict, windowed: dict, resident: dict,
     from ffpa_attn_tpu_torch.utils.profiling import backward_counts, bound_ms
 
     by_kernel = _profile_step("training step (dS handoff)", training)
+    with _env(FP8_FLAG, "1"):
+        fp8_by_kernel = _profile_step("training step (dS handoff, e4m3 slab)", fp8_training)
     _profile_step("training step (S-resident)", resident)
 
     n, b, hq, hkv, d = TRAIN_N, 1, TRAIN["n_heads"], TRAIN["n_kv_heads"], TRAIN["head_dim"]
@@ -2897,6 +3081,9 @@ def training_times(training: dict, windowed: dict, resident: dict,
                 training["launches"]["banded_dq"], err, kms, pms, lms, flops, nbytes,
                 lambda: _timed(run_banded, 10))
             del ds
+            fp8_ds_times(row, rows, fp8_training, fp8_by_kernel, lib, dict(
+                q=q, k=k, v=v, do=do, o=o, lse=lse, delta=delta, kd=ke.detach(),
+                kern_kw=kern_kw, plain_kw=plain_kw))
         else:
             def run_dq():
                 return flash_bwd._dq_launch(q, k, v, None, do, lse, delta, 0, cfg,
@@ -3031,6 +3218,150 @@ def training_times(training: dict, windowed: dict, resident: dict,
     banded_op_level_times()
     dkdv_op_level_times()
     return rows, events, fwd_train
+
+
+def fp8_ds_times(row, rows: list, fp8_training: dict, by_kernel: dict, lib: tuple,
+                 x: dict) -> None:
+    """The e4m3 dS slab's kernels. First the e4m3 instances' registers and
+    spill bytes (fail on a spill) and banded dQ's plan over an e4m3 slab
+    against its mirror at every D. Then, at the training shape (B1 H8/4
+    N8192 D512 causal bf16), the dK/dV kernel writing the slab (dK, dV
+    bit-equal to the 16-bit-slab launch, the slab within one e4m3 step of
+    the plain version's) and banded dQ reading it (per row at 2e-2 against
+    the plain version on the same slab), each timed beside its plain
+    version and its bound (operations as the 16-bit rows; the slab at 1 B
+    an element) into a ``kernels`` row through ``row``, which appends to
+    ``rows``. The dK/dV row's library call is the 16-bit row's (autograd of
+    SDPA, ``lib``); banded dQ's yardstick is one ``torch.matmul`` of the
+    slab widened to bf16 and K, the widening copy included and timed alone
+    beside it. Last, one line of four numbers: the e4m3 training step's ms,
+    the device ms of the two e4m3 kernels in its profiled step
+    (``by_kernel``), the slab's bytes, and dQ's RMS and worst-element error
+    of a whole handoff backward with the flag set against it unset."""
+    from ffpa_attn_tpu_torch.ops import flash_bwd
+    from ffpa_attn_tpu_torch.ops.config import BlockConfig, banded_plan
+    from ffpa_attn_tpu_torch.utils.profiling import backward_counts
+
+    for route in ("wgmma", "wgmma_cluster"):
+        a = flash_bwd.dkdv_kernel_attrs(route, torch.bfloat16, ds_bits=8)
+        log(f"  dkdv {route} bf16, e4m3 slab: {a['registers']} registers a thread at launch, "
+            f"{a['local_bytes']} local (spill) bytes")
+        if a["local_bytes"] != 0:
+            fail(f"the {route} dK/dV kernel writing an e4m3 slab spills {a['local_bytes']} bytes")
+    a = flash_bwd.banded_kernel_attrs(False, torch.bfloat16, ds_bits=8)
+    log(f"  banded_dq bf16, e4m3 slab: {a['registers']} registers a thread at launch, "
+        f"{a['local_bytes']} local (spill) bytes")
+    if a["local_bytes"] != 0:
+        fail(f"banded dQ over an e4m3 slab spills {a['local_bytes']} bytes")
+    for hd in range(64, 1025, 64):
+        if flash_bwd.banded_kernel_plan(hd, 8) != banded_plan(hd, ds_itemsize=1):
+            fail(f"banded launcher's plan over an e4m3 slab at D{hd} "
+                 f"{flash_bwd.banded_kernel_plan(hd, 8)} differs from ops/config.py "
+                 f"banded_plan {banded_plan(hd, ds_itemsize=1)}")
+    log(f"  banded plan over an e4m3 slab at D512: {flash_bwd.banded_kernel_plan(512, 8)} (the "
+        f"launcher's, equal to ops/config.py banded_plan(ds_itemsize=1) at D 64..1024)")
+
+    q, k, v, do, lse, delta = (x[n] for n in ("q", "k", "v", "do", "lse", "delta"))
+    b, hq, n, d = q.shape
+    hkv, bf = k.shape[1], torch.bfloat16
+    scale = x["kern_kw"]["scale"]
+    cfg8 = BlockConfig(ds_store_bits=8)
+
+    def run_dkdv(cfg=cfg8):
+        return flash_bwd._dkdv_launch(q, k, v, None, do, lse, delta, 0, cfg,
+                                      grad_kv_storage_dtype=None, emit_ds=True, **x["kern_kw"])
+
+    def run_dkdv_plain():
+        return flash_bwd._dkdv_plain(q, k, v, None, do, lse, delta, scale=scale, emit_ds=True,
+                                     nq_pad=n, nkv_pad=n, ds_fp8=True, **x["plain_kw"])
+
+    dk16, dv16, _ = run_dkdv(BlockConfig())
+    dk8, dv8, ds8 = run_dkdv()
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(dk8, dk16) and torch.equal(dv8, dv16))
+    del dk16, dv16
+    pdk, pdv, pds = run_dkdv_plain()
+    steps = int(flash_bwd.e4m3_steps(ds8, pds).max())
+    _hold("dkdv_fp8_ds_N8192", {"dk": (dk8, pdk), "dv": (dv8, pdv)})
+    err = max(max_abs(dk8, pdk), max_abs(dv8, pdv), max_abs(ds8.float(), pds.float()))
+    log(f"  dkdv_fp8_ds_N{n}: dK, dV {'bit-equal' if equal else 'DIFFER'} to the 16-bit-slab "
+        f"launch; slab within {steps} e4m3 step(s) of the plain version's")
+    if not equal or steps > 1:
+        fail("the e4m3 dS writer disagrees with the 16-bit launch or its plain version")
+    del dk8, dv8, pdk, pdv, pds
+    kms = _timed(run_dkdv, 10)
+    pms = _timed(run_dkdv_plain, 3, warmup=1)
+    slab_bytes = ds8.numel()
+    flops, nbytes = backward_counts("dkdv", b=b, hq=hq, hkv=hkv, nq=n, nkv=n, d=d, dv=d,
+                                    causal=True, slab_bytes=slab_bytes)
+    row("dkdv_fp8_ds", "ffpa_attn_tpu/ops/flash_bwd.py:194",
+        fp8_training["launches"]["dkdv_fp8_ds"], err, kms, pms, lib, flops, nbytes,
+        lambda: _timed(run_dkdv, 10))
+
+    def run_banded():
+        return flash_bwd._banded_dq_from_ds(ds8, k, None, scale=scale, group=hq // hkv, nq=n,
+                                            nkv=n, causal_offset=0, dq_dtype=bf)
+
+    def run_banded_plain():
+        return flash_bwd._banded_dq_plain(ds8, k, scale=scale, nq=n, nkv=n)
+
+    kbq = run_banded()
+    torch.cuda.synchronize()
+    pbq = run_banded_plain()
+    rr = grad_row_rel(kbq, pbq)
+    err = max_abs(kbq, pbq)
+    log(f"  bwd banded_dq_fp8_ds_N{n}   dq {rr:.2e} (tol {FP8_READER_TOL:g}, per row) "
+        f"{'ok' if rr < FP8_READER_TOL else 'FAIL'}")
+    if not rr < FP8_READER_TOL or not bool(torch.isfinite(kbq).all()):
+        fail("banded dQ over an e4m3 slab disagrees with its plain version")
+    del kbq, pbq
+    kms = _timed(run_banded, 10)
+    pms = _timed(run_banded_plain, 3, warmup=1)
+    kd = x["kd"]
+    lms = _timed(lambda: torch.matmul(ds8.to(bf), kd), 10)
+    widen = _timed(lambda: ds8.to(bf), 10)
+    log(f"  yardstick for banded_dq_fp8_ds: the slab widened to bf16, then one dense "
+        f"torch.matmul with K: {lms[0]:.4f} ms [{lms[1]:.4f}], of which the widening copy "
+        f"alone {widen[0]:.4f} ms [{widen[1]:.4f}]")
+    flops, nbytes = backward_counts("banded_dq", b=b, hq=hq, hkv=hkv, nq=n, nkv=n, d=d, dv=d,
+                                    causal=True, ds_itemsize=1)
+    row("banded_dq_fp8_ds", "ffpa_attn_tpu/ops/flash_bwd.py:1186",
+        fp8_training["launches"]["banded_dq_fp8_ds"], err, kms, pms, lms, flops, nbytes,
+        lambda: _timed(run_banded, 10))
+    del ds8
+    torch.cuda.empty_cache()
+
+    # dQ of a whole handoff backward with the flag set against it unset.
+    dq = {}
+    for flag in ("0", "1"):
+        with _env(FP8_FLAG, flag):
+            dq[flag] = flash_bwd.flash_attention_backward(
+                q, k, v, None, x["o"], lse, do, scale=scale, is_causal=True,
+                ds_handoff=True)[0].float()
+    diff = dq["1"] - dq["0"]
+    dq_rms = float(diff.pow(2).mean().sqrt() / dq["0"].pow(2).mean().sqrt())
+    dq_worst = float(diff.abs().max() / dq["0"].abs().max())
+    del dq, diff
+    names = {"dkdv": "dkdv::kernel<__nv_bfloat16, false, true>",
+             "banded_dq": "banded_kernel<__nv_bfloat16, false, true>"}
+    dev = {k_: sum(ms for kname, ms in by_kernel.items() if nm in kname) / TRAIN["n_layers"]
+           for k_, nm in names.items()}
+    log(f"  e4m3 dS handoff at N{n}: step_ms {fp8_training['step_ms']:.2f} (the 16-bit step "
+        f"in turns on the same model {fp8_training['step_ms_16']:.2f}); e4m3 kernels' device "
+        f"ms a launch in the profiled step: dkdv {dev['dkdv']:.4f}, banded_dq "
+        f"{dev['banded_dq']:.4f}; slab_bytes {slab_bytes} a layer (16-bit: {2 * slab_bytes}); "
+        f"dQ vs the 16-bit run: rms {dq_rms:.3e} worst {dq_worst:.3e} (of RMS and max|dQ|; "
+        f"the JAX test's bounds 4e-2, 8e-2 at N <= 512)")
+    if min(dev.values()) <= 0.0:
+        fail(f"the profiled e4m3 step shows no e4m3 kernel: {sorted(by_kernel)[:8]}")
+    by_name = {r["name"]: r for r in rows}
+    by_name["dkdv_fp8_ds"].update(table_row="2 (fp8 dS)", slab_bytes=slab_bytes,
+                                  step_device_ms=dev["dkdv"])
+    by_name["banded_dq_fp8_ds"].update(table_row="5 (fp8 dS)", slab_bytes=slab_bytes,
+                        step_device_ms=dev["banded_dq"], widen_copy_ms=widen[0],
+                        handoff_dq_rms_rel=dq_rms, handoff_dq_worst_rel=dq_worst,
+                        train_step_ms=fp8_training["step_ms"],
+                        train_step_ms_16=fp8_training["step_ms_16"])
 
 
 def fwd_kernel_row_extras(d: int) -> dict:
@@ -4214,7 +4545,7 @@ def varlen_cluster_times(wide: dict) -> tuple:
 
 
 def phase_times(errs: dict, main_path: dict, training: dict, windowed: dict,
-                resident: dict, serving: dict, packed: dict) -> list:
+                resident: dict, serving: dict, packed: dict, fp8_training: dict) -> list:
     import torch.nn.functional as F
 
     from ffpa_attn_tpu_torch.ops import decode, flash_fwd
@@ -4349,7 +4680,8 @@ def phase_times(errs: dict, main_path: dict, training: dict, windowed: dict,
     serve_rows, serve_events = serving_times(errs, serving, main_path["model"])
     train_rows, train_events, fwd_train = training_times(training, windowed, resident,
                                                          errs["from_s_cluster_launches"],
-                                                         errs["dq_cluster_launches"])
+                                                         errs["dq_cluster_launches"],
+                                                         fp8_training)
     rows[0].update(fwd_train)  # the flash_fwd row: the training shape beside the prefill
     packed_rows, packed_events, fwd_packed = packed_training_times(packed)
     serve_rows[0].update(fwd_packed)  # the varlen_fwd row: the 8192 packing beside serving
@@ -4388,6 +4720,7 @@ def main() -> int:
         f"{k} {v:.1f}" for k, v in spec["rates"].items()) + " accept rates " + " ".join(
         f"{k} {v:.3f}" for k, v in spec["accept"].items()))
     training = phase_training()
+    fp8_training = phase_fp8_training(training["oracle"])
     resident = phase_resident_training(training["oracle"])
     partial = phase_partial_residency(training.pop("oracle"))
     del partial["model"], partial["state"], partial["oracle"], resident["oracle"]
@@ -4398,7 +4731,8 @@ def main() -> int:
     phase_tiny_training()
     phase_checkpoint()
     packed = phase_packed_training()
-    rows = phase_times(errs, main_path, training, windowed, resident, serving, packed)
+    rows = phase_times(errs, main_path, training, windowed, resident, serving, packed,
+                       fp8_training)
     bench = phase_bench_cli(main_path["model"])
     for r in rows:  # launches per speculative call beside the main path's
         if r["name"] in ("flash_fwd", "decode"):
@@ -4407,6 +4741,7 @@ def main() -> int:
     log(f"summary: prefill_ms {main_path['prefill_ms']:.3f} decode_tokens_per_s "
         f"{main_path['decode_tok_s']:.2f} generate_ms {main_path['generate_ms']:.1f} "
         f"train_step_ms {training['step_ms']:.2f} train_tokens_per_s {training['tok_s']:.1f} "
+        f"fp8_ds_train_step_ms {fp8_training['step_ms']:.2f} "
         f"s_resident_step_ms {resident['step_ms']:.2f} s_resident_tokens_per_s "
         f"{resident['tok_s']:.1f} partial_step_ms {partial['step_ms']:.2f} "
         f"windowed_step_ms {windowed['step_ms']:.2f} "

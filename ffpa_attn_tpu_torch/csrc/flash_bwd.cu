@@ -73,6 +73,8 @@
 #include <algorithm>
 #include <type_traits>
 
+#include <cuda_fp8.h>
+
 #include "bwd_tiles.cuh"
 #include "rng.cuh"
 #include "sm90.cuh"
@@ -91,7 +93,7 @@ struct BwdParams {
   void* dq;            // [B, Hq, Nq, D]
   void* dk;            // [B, Hkv, Nkv, D]
   void* dv;            // [B, Hkv, Nkv, Dv]
-  void* ds;            // dS slab [B, Hq, ds_rows, ds_ld] in the input type, or null
+  void* ds;            // dS slab [B, Hq, ds_rows, ds_ld] (input type or e4m3), or null
   float* dbias;        // fp32 dS slab [B, Hq, ds_rows, ds_ld], or null
   const float* bias;
   long long sb, sh, sr, sc;  // bias strides, 0 on broadcast dims
@@ -141,6 +143,22 @@ __device__ __forceinline__ Prob score_prob(const BwdParams& p, int b, int h, int
 // x with the element's dropout applied: 0 where dropped, scaled where kept.
 __device__ __forceinline__ float dropped(const BwdParams& p, bool keep, float x) {
   return p.dropout_p > 0.f ? (keep ? x * p.dropout_inv : 0.f) : x;
+}
+
+// The e4m3 dS slab (BlockConfig ds_store_bits 8). Two fp32 values as two
+// e4m3 in the low 16 bits, lo in the low byte: round to nearest even,
+// saturated to +-448 past the range (cvt.rn.satfinite.e4m3x2.f32; NaN stays
+// NaN). ops/flash_bwd.py quantize_e4m3 is the same rule.
+__device__ __forceinline__ uint32_t e4m3x2(float lo, float hi) {
+  return __nv_cvt_float2_to_fp8x2(make_float2(lo, hi), __NV_SATFINITE, __NV_E4M3);
+}
+// Two e4m3 (the low 16 bits of v, low byte first) as bf16x2, exactly: every
+// e4m3 value is an f16 value and a bf16 value.
+__device__ __forceinline__ uint32_t e4m3x2_to_bf16x2(uint32_t v) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)(v & 0xffffu), __NV_E4M3);
+  const float2 f = __half22float2(__half2(h));
+  const __nv_bfloat162 b = __float22bfloat162_rn(f);
+  return *reinterpret_cast<const uint32_t*>(&b);
 }
 
 // The KV range [kv_lo, kv_hi) rows row0..row_last see (the recompute dQ's
@@ -465,6 +483,20 @@ __global__ void __launch_bounds__(NTHR, 1) dkdv_from_s_kernel(const BwdParams p)
 // The tensor maps declare dS with extents (nkv, nq), Q with nq rows and K
 // with nkv rows, so TMA zero-fills past them: padding of the slab is never
 // read, a ragged last tile needs no mask.
+//
+// Banded dQ over an e4m3 slab (FP8, bf16 K; ds_store_bits 8 in
+// ops/config.py): an e4m3 wgmma needs both operands e4m3 and K-major, and K
+// is bf16 read N-major, so dS is widened to bf16 first. TMA loads the 1-byte
+// dS tile (128 rows of 64 B, unswizzled) into an 8 KB box at the end of the
+// stage; each consumer widens its 64 rows exactly (e4m3 -> f16 -> bf16) into
+// the 128 B-swizzled bf16 A tile at the head of the stage, which the wgmma
+// reads as it reads a 16-bit slab's tile, after a proxy fence and a barrier
+// of its warpgroup. The stage is freed once its products completed, as
+// always, so the widened tile is never overwritten under them. A stage is
+// 8 KB larger (4 stages of 56 KB at D512, 230,464 B of the 232,448). The
+// slab's stream halves (1 B an element); the widening costs each consumer
+// thread two 16 B loads, 16 conversions and four 16 B stores a stage, under
+// the previous stage's products.
 namespace band {
 
 using namespace ffpa::sm90;
@@ -478,6 +510,7 @@ constexpr int THREADS = 384;       // producer warpgroup + 2 consumer warpgroups
 constexpr int CONSUMER_WARPS = 8;  // arrivals that free a stage
 constexpr int A_BYTES = ROWS * KT * 2;      // the dS tile of a stage (16 KB)
 constexpr int BOX_BYTES = KT * COLS * 2;    // one 64 x 64 box (8 KB)
+constexpr int A8_BYTES = ROWS * KT;         // an e4m3 dS tile (8 KB), at the end of a stage
 
 struct Params {
   CUtensorMap ds_map;  // dS: (nkv, nq, B * Hq); box 64 x 128 (dQ) or 64 x 64 (dK)
@@ -489,28 +522,54 @@ struct Params {
 };
 
 // The tiling of a launch at head dim D (a multiple of COLS): the column
-// blocks, the bytes of a stage (the dS tile and the widest block's boxes)
-// and the block's dynamic shared memory (the stages, their mbarriers and
-// the 1024 B alignment of the swizzled stages). ffpa_bwd_banded_plan hands
-// it out; ops/config.py banded_plan mirrors it and the card test holds the
-// two equal.
+// blocks, the bytes of a stage (the dS tile, the widest block's boxes and,
+// over an e4m3 slab, its 1-byte tile) and the block's dynamic shared memory
+// (the stages, their mbarriers and the 1024 B alignment of the swizzled
+// stages). ffpa_bwd_banded_plan hands it out; ops/config.py banded_plan
+// mirrors it and the card test holds the two equal.
 struct Plan {
   int chunks, col_blocks, stage_bytes;
   size_t smem;
 };
-inline Plan make_plan(int D) {
+inline Plan make_plan(int D, bool fp8 = false) {
   Plan pl;
   pl.chunks = D / COLS;
   pl.col_blocks = (pl.chunks + MAX_CHUNKS - 1) / MAX_CHUNKS;
-  pl.stage_bytes = A_BYTES + col_block(pl.chunks, pl.col_blocks, 0).nc * BOX_BYTES;
+  pl.stage_bytes = A_BYTES + col_block(pl.chunks, pl.col_blocks, 0).nc * BOX_BYTES +
+                   (fp8 ? A8_BYTES : 0);
   pl.smem = (size_t)STAGES * pl.stage_bytes + 2 * STAGES * sizeof(uint64_t) + 1024;
   return pl;
 }
 
-// A consumer warpgroup's part: wait for each stage, 4 wgmma k16 steps on
-// it, free the previous stage once its products completed (one group stays
-// in flight), then scale and store its 64 rows x N columns.
-template <typename T, int NC, bool DK>
+// The e4m3 dS tile's 64 rows of consumer cw widened to bf16 into its rows
+// of the stage's 16-bit A tile (128 B swizzle, as TMA lays a 16-bit tile
+// out), then a proxy fence and a barrier of the warpgroup: the wgmma reads
+// them next. Thread tid takes rows tid / 4 and 32 + tid / 4, 16 columns
+// each (a warp reads 512 B in a row, writes 16 B chunks of distinct banks).
+__device__ __forceinline__ void widen_ds(unsigned char* st, int stage_bytes, int cw) {
+  const unsigned char* a8 = st + stage_bytes - A8_BYTES + cw * (A8_BYTES / 2);
+  unsigned char* a16 = st + cw * (A_BYTES / 2);
+  const int tid = threadIdx.x & 127;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = (tid >> 2) + 32 * i, c = (tid & 3) * 16;
+    const uint4 raw = *reinterpret_cast<const uint4*>(a8 + r * KT + c);
+    const uint4 lo = make_uint4(e4m3x2_to_bf16x2(raw.x), e4m3x2_to_bf16x2(raw.x >> 16),
+                                e4m3x2_to_bf16x2(raw.y), e4m3x2_to_bf16x2(raw.y >> 16));
+    const uint4 hi = make_uint4(e4m3x2_to_bf16x2(raw.z), e4m3x2_to_bf16x2(raw.z >> 16),
+                                e4m3x2_to_bf16x2(raw.w), e4m3x2_to_bf16x2(raw.w >> 16));
+    *reinterpret_cast<uint4*>(a16 + swz(r, c)) = lo;
+    *reinterpret_cast<uint4*>(a16 + swz(r, c + 8)) = hi;
+  }
+  fence_proxy_async();
+  named_barrier_sync(1 + cw, 128);
+}
+
+// A consumer warpgroup's part: wait for each stage (over an e4m3 slab,
+// widen its dS rows), 4 wgmma k16 steps on it, free the previous stage
+// once its products completed (one group stays in flight), then scale and
+// store its 64 rows x N columns.
+template <typename T, int NC, bool DK, bool FP8>
 __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, uint64_t* full,
                                         uint64_t* empty, int ntiles, int cw, int row0, int c0,
                                         long long out_rows, int row_limit) {
@@ -518,11 +577,15 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, ui
   float acc[N / 2];
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  // Over an e4m3 slab the zeros are pinned before the walk: without the
+  // fence ptxas serialized the products (C7515).
+  if constexpr (FP8) fence_operands(acc);
   const int lane = threadIdx.x & 31;
   for (int t = 0; t < ntiles; ++t) {
     const int s = t % STAGES;
     mbar_wait(&full[s], (t / STAGES) & 1);
     unsigned char* st = smem + s * p.stage_bytes;
+    if constexpr (FP8) widen_ds(st, p.stage_bytes, cw);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < KT / 16; ++kk) {
@@ -552,8 +615,10 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, ui
   }
 }
 
-template <typename T, bool DK>
+template <typename T, bool DK, bool FP8 = false>
 __global__ void __launch_bounds__(THREADS, 1) banded_kernel(const __grid_constant__ Params p) {
+  static_assert(!FP8 || (!DK && std::is_same<T, __nv_bfloat16>::value),
+                "an e4m3 slab is read by banded dQ with bf16 K");
   extern __shared__ unsigned char smem_raw[];
   // Stage buffers on 1024 B boundaries: the 128 B swizzle's atom.
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -601,7 +666,7 @@ __global__ void __launch_bounds__(THREADS, 1) banded_kernel(const __grid_constan
     if (threadIdx.x == 0) {
       prefetch_map(&p.ds_map);
       prefetch_map(&p.b_map);
-      const uint32_t bytes = A_BYTES + cols.nc * BOX_BYTES;
+      const uint32_t bytes = (FP8 ? A8_BYTES : A_BYTES) + cols.nc * BOX_BYTES;
       for (int t = 0; t < ntiles; ++t) {
         const int s = t % STAGES;
         if (t >= STAGES) mbar_wait(&empty[s], ((t / STAGES) - 1) & 1);
@@ -617,7 +682,8 @@ __global__ void __launch_bounds__(THREADS, 1) banded_kernel(const __grid_constan
         } else {
           k0 = t * KT;  // KV columns
           bh = b * p.Hkv + head / p.group;
-          tma_load_3d(st, &p.ds_map, &full[s], k0, row0, b * p.Hq + head);
+          tma_load_3d(FP8 ? st + p.stage_bytes - A8_BYTES : st, &p.ds_map, &full[s], k0, row0,
+                      b * p.Hq + head);
         }
         for (int j = 0; j < cols.nc; ++j)
           tma_load_3d(st + A_BYTES + j * BOX_BYTES, &p.b_map, &full[s], cols.c0 + j * COLS, k0,
@@ -632,28 +698,33 @@ __global__ void __launch_bounds__(THREADS, 1) banded_kernel(const __grid_constan
     const int limit = DK ? p.nkv : p.nq;
     switch (cols.nc) {
       case 4:
-        consume<T, 4, DK>(p, smem, full, empty, ntiles, cw, row0, cols.c0, out_rows, limit);
+        consume<T, 4, DK, FP8>(p, smem, full, empty, ntiles, cw, row0, cols.c0, out_rows,
+                                 limit);
         break;
       case 3:
-        consume<T, 3, DK>(p, smem, full, empty, ntiles, cw, row0, cols.c0, out_rows, limit);
+        consume<T, 3, DK, FP8>(p, smem, full, empty, ntiles, cw, row0, cols.c0, out_rows,
+                                 limit);
         break;
       case 2:
-        consume<T, 2, DK>(p, smem, full, empty, ntiles, cw, row0, cols.c0, out_rows, limit);
+        consume<T, 2, DK, FP8>(p, smem, full, empty, ntiles, cw, row0, cols.c0, out_rows,
+                                 limit);
         break;
       default:
-        consume<T, 1, DK>(p, smem, full, empty, ntiles, cw, row0, cols.c0, out_rows, limit);
+        consume<T, 1, DK, FP8>(p, smem, full, empty, ntiles, cw, row0, cols.c0, out_rows,
+                               limit);
         break;
     }
   }
 }
 
-// The host side of one launch: the plan, tensor maps, shared memory.
-template <typename T, bool DK>
+// The host side of one launch: the plan, tensor maps, shared memory. FP8:
+// the slab is e4m3 (rows of 16 B multiples), read through a map of bytes.
+template <typename T, bool DK, bool FP8 = false>
 cudaError_t launch(const void* ds, const void* bsrc, void* out, int out_f32, int B, int Hq,
                    int Hkv, int nq, int nkv, int D, int ds_rows, int ds_ld, float scale,
                    int causal_offset, cudaStream_t stream) {
   if (D <= 0 || D % COLS != 0 || Hkv <= 0 || Hq % Hkv != 0 || ds_rows < nq || ds_ld < nkv ||
-      ds_ld % 8 != 0)
+      ds_ld % (FP8 ? 16 : 8) != 0)
     return cudaErrorInvalidValue;
   const bool f16 = std::is_same<T, __half>::value;
   Params p;
@@ -665,7 +736,7 @@ cudaError_t launch(const void* ds, const void* bsrc, void* out, int out_f32, int
   p.nq = nq;
   p.nkv = nkv;
   p.D = D;
-  const Plan pl = make_plan(D);
+  const Plan pl = make_plan(D, FP8);
   p.chunks = pl.chunks;
   p.col_blocks = pl.col_blocks;
   p.stage_bytes = pl.stage_bytes;
@@ -677,18 +748,21 @@ cudaError_t launch(const void* ds, const void* bsrc, void* out, int out_f32, int
   // Extents of at least 1 keep an empty operand encodable; its tiles are
   // never loaded (the k-range is empty).
   const uint64_t mq = nq > 0 ? nq : 1, mkv = nkv > 0 ? nkv : 1;
-  cudaError_t e = encode_3d(&p.ds_map, f16, ds, mkv, mq, (uint64_t)B * Hq, (uint64_t)ds_ld * 2,
-                            (uint64_t)ds_rows * ds_ld * 2, COLS, DK ? KT : ROWS);
+  cudaError_t e =
+      FP8 ? encode_3d_bytes(&p.ds_map, ds, mkv, mq, (uint64_t)B * Hq, (uint64_t)ds_ld,
+                            (uint64_t)ds_rows * ds_ld, KT, ROWS)
+          : encode_3d(&p.ds_map, f16, ds, mkv, mq, (uint64_t)B * Hq, (uint64_t)ds_ld * 2,
+                      (uint64_t)ds_rows * ds_ld * 2, COLS, DK ? KT : ROWS);
   if (e != cudaSuccess) return e;
   e = DK ? encode_3d(&p.b_map, f16, bsrc, D, mq, (uint64_t)B * Hq, (uint64_t)D * 2,
                      (uint64_t)nq * D * 2, COLS, KT)
          : encode_3d(&p.b_map, f16, bsrc, D, mkv, (uint64_t)B * Hkv, (uint64_t)D * 2,
                      (uint64_t)nkv * D * 2, COLS, KT);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(banded_kernel<T, DK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)pl.smem);
+  e = cudaFuncSetAttribute(banded_kernel<T, DK, FP8>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
   if (e != cudaSuccess) return e;
-  banded_kernel<T, DK><<<grid, THREADS, pl.smem, stream>>>(p);
+  banded_kernel<T, DK, FP8><<<grid, THREADS, pl.smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -722,7 +796,18 @@ cudaError_t launch(const void* ds, const void* bsrc, void* out, int out_f32, int
 //    boxes come again after the S^T / dP^T boxes, its dO boxes then its Q
 //    boxes, and the ring holds them all, so both consumers work at once;
 //  - pass 0 writes the dS tile to the slab ([q][kv], 16 B a thread) from
-//    the exchange box.
+//    the exchange box; or, for an e4m3 slab (FP8, bf16 only), from its own
+//    fp32 dS: each thread rounds its 16 values to e4m3 in pairs
+//    (cvt.rn.satfinite.e4m3x2.f32, never through bf16, which would round
+//    some ties the other way), the 8 lanes of a warp that share t4 trade
+//    bytes in three xor-shuffle rounds until lane (x, t4) holds Q column
+//    8 (x / 2) + 2 t4 + x % 2 over the warp's 16 KV rows, and each thread
+//    stores those 16 bytes: no shared memory (the D512 block and the
+//    cluster leave less than 2 KB). Beside the writer's registers the
+//    16-bit instance's held P and dS pairs spilled, so this instance takes
+//    the box barrier first and writes each pair as it is formed. The
+//    16-bit dS box that dK's product reads is the same, so dK and dV are
+//    bit-equal to a 16-bit-slab launch.
 // Two named barriers a tile order the exchange. S and dP are recomputed in
 // every pass: at D512 (two passes) 6 matmul units are executed against the
 // bound's 4 (operations: 1.11 ms at the training shape on an H100). Q tiles
@@ -925,11 +1010,49 @@ __device__ __forceinline__ void produce(const Maps& maps, const BwdParams& p, co
   }
 }
 
+// The e4m3 slab's part of a warp: lane (g, t4) holds in q8[jj] its dS of Q
+// columns 8 jj + 2 t4 + e as e4m3, bytes (KV row g, e 0), (g, 1),
+// (g + 8, 0), (g + 8, 1) of the warp's 16 rows. Each of three rounds swaps
+// one bit of the lane's g with one bit of the column index x = 2 jj + e
+// between partner lanes (xor 4, 8, 16: the same t4): e is a byte's place
+// in its half, jj a word. After them lane (x, t4) holds column x, KV row
+// r in byte r % 2 of word r / 2 (r < 8) or byte 2 + r % 2 (r >= 8), and
+// stores its 16 bytes at row 8 (x / 2) + 2 t4 + x % 2 of `base` (the
+// warp's first column of the consumer's first Q row).
+__device__ __forceinline__ void store_e4m3(unsigned char* base, int ld, uint32_t (&q8)[4], int g,
+                                           int t4) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t o = __shfl_xor_sync(0xffffffffu, q8[j], 4);
+    q8[j] = __byte_perm(q8[j], o, (g & 1) ? 0x3715 : 0x6240);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; j += 2) {
+    const uint32_t o = __shfl_xor_sync(0xffffffffu, (g & 2) ? q8[j] : q8[j + 1], 8);
+    if (g & 2)
+      q8[j] = o;
+    else
+      q8[j + 1] = o;
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const uint32_t o = __shfl_xor_sync(0xffffffffu, (g & 4) ? q8[j] : q8[j + 2], 16);
+    if (g & 4)
+      q8[j] = o;
+    else
+      q8[j + 2] = o;
+  }
+  const int row = 8 * (g >> 1) + 2 * t4 + (g & 1);
+  *reinterpret_cast<uint4*>(base + (long long)row * ld) =
+      make_uint4(__byte_perm(q8[0], q8[1], 0x5410), __byte_perm(q8[2], q8[3], 0x5410),
+                 __byte_perm(q8[0], q8[1], 0x7632), __byte_perm(q8[2], q8[3], 0x7632));
+}
+
 // Consumer CW (0: dK, 1: dV) of a block; CW is a template argument so
 // that no branch around a wgmma depends on the thread (ptxas serializes
 // wgmma on a path it cannot prove uniform). dc and vc are the pass's dK and
 // dV columns (absolute).
-template <typename T, int CW, bool SPLIT>
+template <typename T, int CW, bool SPLIT, bool FP8>
 __device__ __forceinline__ void consume(const BwdParams& p, int stages, const Smem& sm,
                                         int ntiles, int ni, int i_lo, int kvh, int b, int kv0,
                                         const Part& pt, sm90::Cols dc, sm90::Cols vc, bool emit,
@@ -1064,11 +1187,45 @@ __device__ __forceinline__ void consume(const BwdParams& p, int stages, const Sm
     // every element, takes p = 2^(s * scale * log2 e - lse * log2 e) alone;
     // the others score_prob, element by element.
     const int qc = q0 + 32 * cw;  // this consumer's first Q column
+    // The one-block e4m3 instance forms the test's block values here from
+    // values the compiler cannot hoist: formed before the walk, they were
+    // spilled (as were its lane values and its zero tiles' range below).
+    int kvt = kv0;
+    const float* bias_t = p.bias;
+    if constexpr (FP8 && !SPLIT) asm volatile("" : "+r"(kvt), "+l"(bias_t));
+    const bool plain_t = FP8 && !SPLIT ? bias_t == nullptr && p.alibi == nullptr &&
+                                             p.softcap <= 0.f && p.dropout_p <= 0.f
+                                       : plain;
     const bool interior =
-        plain && qc + 31 < p.nq && kv0 + ROWS - 1 < p.nkv &&
-        (p.window_right < 0 || kv0 + ROWS - 1 <= qc + p.causal_offset + p.window_right) &&
-        (p.window_left < 0 || kv0 >= qc + 31 + p.causal_offset - p.window_left);
-    uint32_t pw[8], dw[8];
+        plain_t && qc + 31 < p.nq && kvt + ROWS - 1 < p.nkv &&
+        (p.window_right < 0 || kvt + ROWS - 1 <= qc + p.causal_offset + p.window_right) &&
+        (p.window_left < 0 || kvt >= qc + 31 + p.causal_offset - p.window_left);
+    // 16-bit slab: P and dS go to the boxes from pw / dw after the other
+    // consumer is done with them. e4m3 slab: the writer's registers (q8[jj]:
+    // this thread's dS of Q columns 8 jj + 2 t4 + e as e4m3, each rounded
+    // from fp32 once; store_e4m3 has the byte order) did not fit beside
+    // pw / dw (the D512 block spilled), so that wait comes first and each
+    // pair goes to its box as it is formed, at 32-bit shared addresses
+    // (their 64-bit generic forms, formed before the walk, spilled too).
+    uint32_t pw[8], dw[8], q8[4];
+    int row = 16 * warp + g;
+    if constexpr (FP8) {
+      if constexpr (!SPLIT) asm volatile("" : "+r"(row));
+      // The other consumer is done with the previous tile's P and dS boxes.
+      named_barrier_sync(1, 2 * 128);
+    }
+    auto keep = [&](int jj, int hh, const float(&pv)[2], const float(&dsv)[2]) {
+      if constexpr (FP8) {
+        const uint32_t off = swz(row + 8 * hh, 32 * cw + 8 * jj + 2 * t4);
+        sts_u32(cvta_smem(sm.p) + off, pack2<T>(pv[0], pv[1]));
+        sts_u32(cvta_smem(sm.ds) + off, pack2<T>(dsv[0], dsv[1]));
+        const uint32_t e = e4m3x2(dsv[0], dsv[1]);
+        q8[jj] = hh == 0 ? e : q8[jj] | (e << 16);
+      } else {
+        pw[2 * jj + hh] = pack2<T>(pv[0], pv[1]);
+        dw[2 * jj + hh] = pack2<T>(dsv[0], dsv[1]);
+      }
+    };
     if (interior) {
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj)
@@ -1081,8 +1238,7 @@ __device__ __forceinline__ void consume(const BwdParams& p, int stages, const Sm
             pv[e] = exp2f(fmaf(s[idx], scale_log2, -lse_r[2 * jj + e] * LOG2E));
             dsv[e] = pv[e] * (dp[idx] - dl_r[2 * jj + e]);
           }
-          pw[2 * jj + hh] = pack2<T>(pv[0], pv[1]);
-          dw[2 * jj + hh] = pack2<T>(dsv[0], dsv[1]);
+          keep(jj, hh, pv, dsv);
         }
     } else {
       const float slope = p.alibi != nullptr ? p.alibi[bh] : 0.f;
@@ -1100,25 +1256,34 @@ __device__ __forceinline__ void consume(const BwdParams& p, int stages, const Sm
             pv[e] = dropped(p, pr.keep, pr.p);
             dsv[e] = pr.p * pr.cap * (dropped(p, pr.keep, dp[idx]) - dl_r[2 * jj + e]);
           }
-          pw[2 * jj + hh] = pack2<T>(pv[0], pv[1]);
-          dw[2 * jj + hh] = pack2<T>(dsv[0], dsv[1]);
+          keep(jj, hh, pv, dsv);
         }
     }
-    // The other consumer is done with the previous tile's P and dS boxes
-    // (its products completed, its slab reads returned).
-    named_barrier_sync(1, 2 * 128);
+    if constexpr (!FP8) {
+      // The other consumer is done with the previous tile's P and dS boxes
+      // (its products completed, its slab reads returned).
+      named_barrier_sync(1, 2 * 128);
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj)
+      for (int jj = 0; jj < 4; ++jj)
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const uint32_t off = swz(16 * warp + g + 8 * hh, 32 * cw + 8 * jj + 2 * t4);
-        *reinterpret_cast<uint32_t*>(sm.p + off) = pw[2 * jj + hh];
-        *reinterpret_cast<uint32_t*>(sm.ds + off) = dw[2 * jj + hh];
-      }
+        for (int hh = 0; hh < 2; ++hh) {
+          const uint32_t off = swz(16 * warp + g + 8 * hh, 32 * cw + 8 * jj + 2 * t4);
+          *reinterpret_cast<uint32_t*>(sm.p + off) = pw[2 * jj + hh];
+          *reinterpret_cast<uint32_t*>(sm.ds + off) = dw[2 * jj + hh];
+        }
+    }
     fence_proxy_async();
     named_barrier_sync(1, 2 * 128);
 
-    if (emit) {
+    if constexpr (FP8) {
+      if (emit) {
+        int gg = g, tt = t4, col = kv0 + 16 * warp;
+        if constexpr (!SPLIT) asm volatile("" : "+r"(gg), "+r"(tt), "+r"(col));
+        store_e4m3(static_cast<unsigned char*>(p.ds) + (bh * p.ds_rows + q0 + 32 * cw) * p.ds_ld +
+                       col,
+                   p.ds_ld, q8, gg, tt);
+      }
+    } else if (emit) {
       // Slab rows q0..q0+63, columns kv0..kv0+63: 16 columns a thread.
       const int u = threadIdx.x - 128, ql = u >> 2, kb = (u & 3) * 16;
       T* dst = static_cast<T*>(p.ds) + (bh * p.ds_rows + q0 + ql) * p.ds_ld + kv0 + kb;
@@ -1173,19 +1338,29 @@ __device__ __forceinline__ void consume(const BwdParams& p, int stages, const Sm
   fence_operands(acc);
 
   // Q tiles the band skips: zeros over this block's columns of the slab
-  // (every 64-row tile of ds_rows outside [i_lo, i_lo + ni)).
+  // (every 64-row tile of ds_rows outside [i_lo, i_lo + ni)); 16 B a store,
+  // 8 elements of 16 bits or 16 of e4m3.
   if (emit) {
     const int u = threadIdx.x - 128;
     for (int gg = 0; gg < p.group; ++gg) {
       const long long bh = (long long)b * p.Hq + kvh * p.group + gg;
       for (int i = 0; i < p.ds_rows / QROWS; ++i) {
-        if (i >= i_lo && i < i_lo + ni) continue;
-#pragma unroll
-        for (int k = 0; k < 2; ++k) {
-          const int v = u + 256 * k, ql = v >> 3, kb = (v & 7) * 8;
-          *reinterpret_cast<uint4*>(static_cast<T*>(p.ds) +
+        int lo_t = i_lo, n_t = ni;
+        if constexpr (FP8 && !SPLIT) asm volatile("" : "+r"(lo_t), "+r"(n_t));
+        if (i >= lo_t && i < lo_t + n_t) continue;
+        if constexpr (FP8) {
+          const int ql = u >> 2, kb = (u & 3) * 16;
+          *reinterpret_cast<uint4*>(static_cast<unsigned char*>(p.ds) +
                                     (bh * p.ds_rows + i * QROWS + ql) * p.ds_ld + kv0 + kb) =
               make_uint4(0u, 0u, 0u, 0u);
+        } else {
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            const int v = u + 256 * k, ql = v >> 3, kb = (v & 7) * 8;
+            *reinterpret_cast<uint4*>(static_cast<T*>(p.ds) +
+                                      (bh * p.ds_rows + i * QROWS + ql) * p.ds_ld + kv0 + kb) =
+                make_uint4(0u, 0u, 0u, 0u);
+          }
         }
       }
     }
@@ -1213,9 +1388,10 @@ __device__ __forceinline__ void consume(const BwdParams& p, int stages, const Sm
   }
 }
 
-template <typename T, bool SPLIT>
+template <typename T, bool SPLIT, bool FP8 = false>
 __global__ void __launch_bounds__(THREADS, 1) kernel(const __grid_constant__ Maps maps,
                                                      const BwdParams p, const int stages) {
+  static_assert(!FP8 || std::is_same<T, __nv_bfloat16>::value, "an e4m3 slab takes bf16");
   extern __shared__ unsigned char smem_raw[];
   // Boxes on 1024 B boundaries: the 128 B swizzle's atom. On the cluster
   // route the offset is added to the shared array itself, so every pointer
@@ -1282,17 +1458,20 @@ __global__ void __launch_bounds__(THREADS, 1) kernel(const __grid_constant__ Map
     setmaxnreg_inc<232>();
     const bool emit = p.ds != nullptr && pass == 0 && rank == 0;
     if (threadIdx.x < 256)
-      consume<T, 0, SPLIT>(p, stages, sm, ntiles, ni, i_lo, kvh, b, kv0, pt, dc, vc, emit, rank);
+      consume<T, 0, SPLIT, FP8>(p, stages, sm, ntiles, ni, i_lo, kvh, b, kv0, pt, dc, vc, emit,
+                                rank);
     else
-      consume<T, 1, SPLIT>(p, stages, sm, ntiles, ni, i_lo, kvh, b, kv0, pt, dc, vc, emit, rank);
+      consume<T, 1, SPLIT, FP8>(p, stages, sm, ntiles, ni, i_lo, kvh, b, kv0, pt, dc, vc, emit,
+                                rank);
   }
   if constexpr (SPLIT) cluster_sync();  // the partner may still store or arrive into this block
 }
 
 // The host side of one launch: tensor maps, shared memory, the grid (KV
 // tiles over the slab's columns when it is written, so each of its
-// columns is; for the split, the cluster of two along x).
-template <typename T, bool SPLIT>
+// columns is; for the split, the cluster of two along x). FP8: the slab is
+// e4m3.
+template <typename T, bool SPLIT, bool FP8 = false>
 cudaError_t launch(const BwdParams& bp, const Plan& pl, int B, cudaStream_t stream) {
   const bool f16 = std::is_same<T, __half>::value;
   Maps maps;
@@ -1314,7 +1493,7 @@ cudaError_t launch(const BwdParams& bp, const Plan& pl, int B, cudaStream_t stre
   if (e != cudaSuccess) return e;
   const int kv_tiles = bp.ds != nullptr ? bp.ds_ld / ROWS : (bp.nkv + ROWS - 1) / ROWS;
   const dim3 grid((SPLIT ? 2 : 1) * kv_tiles * pl.passes, bp.Hkv, B);
-  auto kern = kernel<T, SPLIT>;
+  auto kern = kernel<T, SPLIT, FP8>;
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
   if (e != cudaSuccess) return e;
   if (grid.x * grid.y * grid.z == 0) return cudaSuccess;
@@ -1326,9 +1505,13 @@ cudaError_t launch(const BwdParams& bp, const Plan& pl, int B, cudaStream_t stre
   }
 }
 
+// An e4m3 slab (fp8) takes bf16 inputs and a slab to write.
 template <bool SPLIT>
-cudaError_t launch_typed(bool f16, const BwdParams& p, const Plan& pl, int B,
+cudaError_t launch_typed(bool f16, bool fp8, const BwdParams& p, const Plan& pl, int B,
                          cudaStream_t stream) {
+  if (fp8)
+    return f16 || p.ds == nullptr ? cudaErrorInvalidValue
+                                  : launch<__nv_bfloat16, SPLIT, true>(p, pl, B, stream);
   return f16 ? launch<__half, SPLIT>(p, pl, B, stream)
              : launch<__nv_bfloat16, SPLIT>(p, pl, B, stream);
 }
@@ -2717,7 +2900,7 @@ BwdParams make_params(const void* q, const void* k, const void* v, const void* d
 // dK / dV (and the dS slab): the route is dkdv::make_plan's, by head dims
 // alone (one block at D, Dv <= 512, the cluster of two up to 1024). The
 // launcher picks its own passes and takes a slab of 64-row, 64-column
-// tiles.
+// tiles, of the input type (ds_bits 16) or e4m3 (ds_bits 8, bf16 only).
 extern "C" int ffpa_bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
                              const float* lse, const float* delta, void* dk, void* dv, void* ds,
                              const float* bias, long long sb, long long sh, long long sr,
@@ -2726,7 +2909,7 @@ extern "C" int ffpa_bwd_dkdv(const void* q, const void* k, const void* v, const 
                              int ds_ld, float scale, float softcap, int causal_offset,
                              int window_left, int window_right, float dropout_p,
                              float dropout_inv, unsigned seed, int row_offset, int col_offset,
-                             void* stream) {
+                             int ds_bits, void* stream) {
   BwdParams p = make_params(q, k, v, dout, lse, delta, bias, sb, sh, sr, sc, alibi, Hq, Hkv, nq,
                             nkv, D, Dv, scale, softcap, causal_offset, window_left, window_right,
                             dropout_p, dropout_inv, seed, row_offset, col_offset);
@@ -2737,15 +2920,17 @@ extern "C" int ffpa_bwd_dkdv(const void* q, const void* k, const void* v, const 
   p.ds_ld = ds_ld;
   p.out_f32 = out_f32;
   if (D <= 0 || Dv <= 0 || D % CH != 0 || Dv % CH != 0 || D > dkdv::MAX_HEAD_DIM ||
-      Dv > dkdv::MAX_HEAD_DIM || Hkv <= 0 || Hq % Hkv != 0 ||
+      Dv > dkdv::MAX_HEAD_DIM || Hkv <= 0 || Hq % Hkv != 0 || (ds_bits != 8 && ds_bits != 16) ||
       (ds != nullptr &&
        (ds_ld < nkv || ds_ld % dkdv::ROWS != 0 || ds_rows % dkdv::QROWS != 0 ||
         ds_rows < (nq + dkdv::QROWS - 1) / dkdv::QROWS * dkdv::QROWS)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dkdv::Plan pl = dkdv::make_plan(D, Dv);
-  return (int)(pl.route == dkdv::CLUSTER ? dkdv::launch_typed<true>(is_fp16, p, pl, B, st)
-                                         : dkdv::launch_typed<false>(is_fp16, p, pl, B, st));
+  const bool fp8 = ds_bits == 8;
+  return (int)(pl.route == dkdv::CLUSTER
+                   ? dkdv::launch_typed<true>(is_fp16, fp8, p, pl, B, st)
+                   : dkdv::launch_typed<false>(is_fp16, fp8, p, pl, B, st));
 }
 
 // The route and tiling ffpa_bwd_dkdv takes at head dims (D, Dv), multiples
@@ -2794,16 +2979,22 @@ extern "C" int ffpa_bwd_dkdv_plan(int D, int Dv, int* out, int cap) {
 
 // Registers a thread (at launch, before setmaxnreg moves them between the
 // warpgroups) and local (spill) bytes a thread of the dK/dV kernel of
-// route 1 (one block) or 2 (the cluster), in f16 or bf16.
-extern "C" int ffpa_bwd_dkdv_attrs(int route, int is_fp16, int* regs, int* local_bytes) {
+// route 1 (one block) or 2 (the cluster), in f16 or bf16; ds_bits 8 the
+// bf16 instance that writes an e4m3 slab.
+extern "C" int ffpa_bwd_dkdv_attrs(int route, int is_fp16, int ds_bits, int* regs,
+                                   int* local_bytes) {
   cudaFuncAttributes a;
   cudaError_t e;
+  if ((ds_bits != 8 && ds_bits != 16) || (ds_bits == 8 && is_fp16))
+    return (int)cudaErrorInvalidValue;
   if (route == dkdv::CLUSTER)
-    e = is_fp16 ? cudaFuncGetAttributes(&a, dkdv::kernel<__half, true>)
-                : cudaFuncGetAttributes(&a, dkdv::kernel<__nv_bfloat16, true>);
+    e = ds_bits == 8 ? cudaFuncGetAttributes(&a, dkdv::kernel<__nv_bfloat16, true, true>)
+        : is_fp16    ? cudaFuncGetAttributes(&a, dkdv::kernel<__half, true>)
+                     : cudaFuncGetAttributes(&a, dkdv::kernel<__nv_bfloat16, true>);
   else if (route == dkdv::WGMMA)
-    e = is_fp16 ? cudaFuncGetAttributes(&a, dkdv::kernel<__half, false>)
-                : cudaFuncGetAttributes(&a, dkdv::kernel<__nv_bfloat16, false>);
+    e = ds_bits == 8 ? cudaFuncGetAttributes(&a, dkdv::kernel<__nv_bfloat16, false, true>)
+        : is_fp16    ? cudaFuncGetAttributes(&a, dkdv::kernel<__half, false>)
+                     : cudaFuncGetAttributes(&a, dkdv::kernel<__nv_bfloat16, false>);
   else
     return (int)cudaErrorInvalidValue;
   if (e != cudaSuccess) return (int)e;
@@ -3027,16 +3218,22 @@ extern "C" int ffpa_bwd_banded_dk(const void* ds, const void* q, void* dk, int o
                                                 static_cast<cudaStream_t>(stream));
 }
 
-// Causal dQ = scale * dS K from the slab (bf16 or f16). The kernel picks its
-// own tiles (128-row panels x column blocks of at most 256): block_q is not
-// read; it stays in the argument list, which libraries built from older
-// sources share.
+// Causal dQ = scale * dS K from the slab (bf16 or f16, ds_bits 16; or e4m3
+// with bf16 K, ds_bits 8). The kernel picks its own tiles (128-row panels x
+// column blocks of at most 256): block_q is not read; it stays in the
+// argument list, which libraries built from older sources share.
 extern "C" int ffpa_bwd_banded_dq(const void* ds, const void* k, void* dq, int is_fp16,
                                   int out_f32, int block_q, int B, int Hq, int Hkv, int nq,
                                   int nkv, int D, int ds_rows, int ds_ld, float scale,
-                                  int causal_offset, void* stream) {
+                                  int causal_offset, int ds_bits, void* stream) {
   (void)block_q;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if ((ds_bits != 8 && ds_bits != 16) || (ds_bits == 8 && is_fp16))
+    return (int)cudaErrorInvalidValue;
+  if (ds_bits == 8)
+    return (int)band::launch<__nv_bfloat16, false, true>(ds, k, dq, out_f32, B, Hq, Hkv, nq, nkv,
+                                                         D, ds_rows, ds_ld, scale, causal_offset,
+                                                         st);
   if (is_fp16)
     return (int)band::launch<__half, false>(ds, k, dq, out_f32, B, Hq, Hkv, nq, nkv, D, ds_rows,
                                             ds_ld, scale, causal_offset, st);
@@ -3044,13 +3241,14 @@ extern "C" int ffpa_bwd_banded_dq(const void* ds, const void* k, void* dq, int i
                                                  ds_rows, ds_ld, scale, causal_offset, st);
 }
 
-// The tiling band::launch takes at head dim D (a multiple of 64): out[0..4]
-// are the column blocks, rows of a block, k-step, stages and dynamic
-// shared-memory bytes, then (first column, width) of each column block;
-// cap is out's length.
-extern "C" int ffpa_bwd_banded_plan(int D, int* out, int cap) {
-  if (D <= 0 || D % band::COLS != 0) return (int)cudaErrorInvalidValue;
-  const band::Plan pl = band::make_plan(D);
+// The tiling band::launch takes at head dim D (a multiple of 64) over a
+// slab of ds_bits (16, or 8: banded dQ over e4m3): out[0..4] are the column
+// blocks, rows of a block, k-step, stages and dynamic shared-memory bytes,
+// then (first column, width) of each column block; cap is out's length.
+extern "C" int ffpa_bwd_banded_plan(int D, int ds_bits, int* out, int cap) {
+  if (D <= 0 || D % band::COLS != 0 || (ds_bits != 8 && ds_bits != 16))
+    return (int)cudaErrorInvalidValue;
+  const band::Plan pl = band::make_plan(D, ds_bits == 8);
   if (cap < 5 + 2 * pl.col_blocks) return (int)cudaErrorInvalidValue;
   out[0] = pl.col_blocks;
   out[1] = band::ROWS;
@@ -3067,13 +3265,19 @@ extern "C" int ffpa_bwd_banded_plan(int D, int* out, int cap) {
 
 // Registers a thread (at launch, before setmaxnreg moves them between the
 // warpgroups) and local (spill) bytes a thread of a banded kernel: dk 1 is
-// banded dK, else banded dQ in f16 or bf16.
-extern "C" int ffpa_bwd_banded_attrs(int dk, int is_fp16, int* regs, int* local_bytes) {
+// banded dK, else banded dQ in f16 or bf16 over a 16-bit slab, or (ds_bits
+// 8) bf16 over an e4m3 slab.
+extern "C" int ffpa_bwd_banded_attrs(int dk, int is_fp16, int ds_bits, int* regs,
+                                     int* local_bytes) {
   cudaFuncAttributes a;
+  if ((ds_bits != 8 && ds_bits != 16) || (ds_bits == 8 && (dk || is_fp16)))
+    return (int)cudaErrorInvalidValue;
   const cudaError_t e =
       dk ? cudaFuncGetAttributes(&a, band::banded_kernel<__nv_bfloat16, true>)
-         : (is_fp16 ? cudaFuncGetAttributes(&a, band::banded_kernel<__half, false>)
-                    : cudaFuncGetAttributes(&a, band::banded_kernel<__nv_bfloat16, false>));
+      : ds_bits == 8
+          ? cudaFuncGetAttributes(&a, band::banded_kernel<__nv_bfloat16, false, true>)
+          : (is_fp16 ? cudaFuncGetAttributes(&a, band::banded_kernel<__half, false>)
+                     : cudaFuncGetAttributes(&a, band::banded_kernel<__nv_bfloat16, false>));
   if (e != cudaSuccess) return (int)e;
   *regs = a.numRegs;
   *local_bytes = (int)a.localSizeBytes;

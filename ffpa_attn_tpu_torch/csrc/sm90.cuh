@@ -71,6 +71,30 @@ inline cudaError_t encode_3d(CUtensorMap* map, bool f16, const void* base, uint6
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// A 3-D map of 1-byte elements (an e4m3 slab read as bytes), unswizzled: a
+// box row of box0 bytes (a multiple of 16) lands in shared memory as a
+// dense row, so a box is box1 rows of box0 bytes on a 128 B boundary. Dims
+// and box innermost first, strides in bytes of dims 1 and 2. Elements past
+// dims read as 0.
+inline cudaError_t encode_3d_bytes(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1,
+                                   uint64_t d2, uint64_t stride1, uint64_t stride2, uint32_t box0,
+                                   uint32_t box1) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  if (reinterpret_cast<uintptr_t>(base) % 16 != 0 || stride1 % 16 != 0 || stride2 % 16 != 0 ||
+      box0 % 16 != 0)
+    return cudaErrorInvalidValue;
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {stride1, stride2};
+  const cuuint32_t box[3] = {box0, box1, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(base), dims,
+                        strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // ---------------------------------------------------------------------------
 // Device: mbarriers and TMA
 // ---------------------------------------------------------------------------
@@ -208,6 +232,11 @@ __device__ __forceinline__ void lds_v4(uint32_t addr, float* x) {
                : "=f"(x[0]), "=f"(x[1]), "=f"(x[2]), "=f"(x[3])
                : "r"(addr)
                : "memory");
+}
+// One 32-bit word into this block's shared memory at shared::cta address
+// addr.
+__device__ __forceinline__ void sts_u32(uint32_t addr, uint32_t x) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(x) : "memory");
 }
 // Every thread of every block of the cluster meets here: what a thread
 // wrote before (barrier initialisation included) is visible to the whole

@@ -58,6 +58,17 @@ class ENV:
         return _env_int("FFPA_TORCH_DS_HANDOFF_LIMIT_BYTES", 5 * _GIB)
 
     @staticmethod
+    def allow_fp8_ds() -> bool:
+        """Opt-in for float8_e4m3fn storage of the dS-handoff slab
+        (``BlockConfig.ds_store_bits = 8``), default off. It halves the
+        slab's device-memory write and read; dQ carries the slab's
+        rounding (dS is stored unscaled, as in the JAX package, so a small
+        dS loses its digits). Unset, the backward stores 16-bit dS and the
+        dispatcher proposes no fp8. The counterpart of the JAX package's
+        ``FFPA_TPU_ALLOW_FP8_DS``."""
+        return _env_bool("FFPA_TORCH_ALLOW_FP8_DS", False)
+
+    @staticmethod
     def hbm_bytes() -> int:
         """Device memory the backward's headroom gates assume: an H100's
         80 GB (the port's own setting, not the TPU's 16 GiB)."""

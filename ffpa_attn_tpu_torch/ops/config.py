@@ -117,6 +117,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, replace
 from functools import lru_cache
+from typing import Optional
 
 # Largest dynamic shared memory a block may opt into on an H100.
 SMEM_LIMIT_BYTES = 232_448
@@ -247,7 +248,14 @@ class BlockConfig:
     its API: every dQ launcher of the port picks its own 64-row tile.
     ``dkdv_dk_in_kernel`` picks the from-S dK/dV variant: dK
     accumulated beside dV, or dK left to the banded dK kernel (causal) or
-    one product (otherwise) over the dS slab.
+    one product (otherwise) over the dS slab. ``ds_store_bits`` is the
+    storage width of the dS-handoff slab: 16 (the input type) or 8
+    (float8_e4m3fn, written by the dK/dV kernel from its fp32 dS and
+    widened by banded dQ and the non-causal product). 8 is honoured only
+    with ``FFPA_TORCH_ALLOW_FP8_DS`` set, for bf16 inputs, a cotangent that
+    is not fp16 and no bias; otherwise the backward stores 16 bits. The
+    S-resident tier never stores fp8 (its dS is written over the bf16 S
+    residual).
 
     For a forward with D and Dv <= 512 the wgmma launcher picks its own
     64-row tile (``fwd_plan``); there ``block_q`` sets only the row padding
@@ -261,8 +269,11 @@ class BlockConfig:
     block_q_dq: int = 64
     dkdv_col_passes: int = 1
     dkdv_dk_in_kernel: bool = True
+    ds_store_bits: int = 16
 
     def __post_init__(self):
+        if self.ds_store_bits not in (8, 16):
+            raise ValueError(f"ds_store_bits must be 8 or 16, got {self.ds_store_bits}")
         if self.block_q not in ROW_TILES:
             raise ValueError(
                 f"block_q must be one of {ROW_TILES}, got {self.block_q}"
@@ -607,16 +618,20 @@ class BandedPlan:
     smem_bytes: int
 
 
-def banded_plan(d: int, itemsize: int = 2) -> BandedPlan:
+def banded_plan(d: int, itemsize: int = 2, ds_itemsize: Optional[int] = None) -> BandedPlan:
     """Column blocks of D (padded to 64-column chunks): ceil(D / 256) of
     them, the chunks split as evenly as possible, the first blocks one
-    chunk wider; a stage holds the dS tile and the widest block's K / Q
-    tile."""
+    chunk wider; a stage holds the dS tile the consumers read (``itemsize``
+    bytes an element) and the widest block's K / Q tile. A dS slab of
+    ``ds_itemsize`` 1 (e4m3, banded dQ only) adds the 1-byte tile TMA
+    loads beside the 16-bit tile it is widened into."""
     chunks = cdiv(d, D_CHUNK)
     nb = cdiv(chunks, _BANDED_MAX_COLS // D_CHUNK)
     blocks = _even_blocks(chunks, nb)
     widest = blocks[0][1]
     stage = (_BANDED_ROWS + widest) * _BANDED_K_TILE * itemsize
+    if ds_itemsize is not None and ds_itemsize < itemsize:
+        stage += _BANDED_ROWS * _BANDED_K_TILE * ds_itemsize
     smem = _BANDED_STAGES * stage + 2 * _BANDED_STAGES * 8 + 1024
     return BandedPlan(blocks, _BANDED_ROWS, _BANDED_K_TILE, _BANDED_STAGES, smem)
 

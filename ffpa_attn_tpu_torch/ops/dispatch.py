@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from ..env import ENV
 from .config import (
     FWD_ROW_TILES,
     BlockConfig,
@@ -62,19 +63,34 @@ def pick_varlen_backward_config(*, d: int, dv: int, dtype: torch.dtype) -> Block
 FROM_S_DK_IN_MAX_NKV = 0
 
 
+# fp8 (e4m3) dS storage is proposed only where the slab stream is large
+# enough to matter: Nq * Nkv at least this (the JAX package's rule, shared
+# with its autotune's candidates). Below it the slab fits unstriped and
+# fp8 buys no bandwidth, only dQ's quantization noise.
+FP8_DS_MIN_PAIRS = 4096 * 4096
+
+
 def pick_backward_config(
-    *, d: int, dv: int, nq: int, nkv: int, dtype: torch.dtype
+    *, d: int, dv: int, nq: int, nkv: int, dtype: torch.dtype, has_bias: bool = False,
+    f16: bool = False,
 ) -> BlockConfig:
     """Heuristic backward config. The dK/dV and recompute dQ launchers pick
     their tiles and column passes themselves (``dkdv_plan``, ``dq_plan``).
     The from-S pass keeps dK in the kernel for key ranges up to
     ``FROM_S_DK_IN_MAX_NKV`` (none since the wgmma route) where one column
-    pass holds it."""
+    pass holds it. The dS-handoff slab is proposed in e4m3
+    (``ds_store_bits = 8``) only when all hold: ``FFPA_TORCH_ALLOW_FP8_DS``
+    is set, the inputs are bf16, neither they nor the cotangent are fp16
+    (``f16``), there is no bias, and Nq * Nkv >= ``FP8_DS_MIN_PAIRS`` (the
+    JAX package's ``propose_fp8``)."""
     itemsize = torch.empty((), dtype=dtype).element_size()
+    fp8 = (ENV.allow_fp8_ds() and dtype == torch.bfloat16 and not f16 and not has_bias
+           and nq * nkv >= FP8_DS_MIN_PAIRS)
     return BlockConfig(dkdv_dk_in_kernel=nkv <= FROM_S_DK_IN_MAX_NKV
-                       and from_s_fits(d, dv, True, itemsize))
+                       and from_s_fits(d, dv, True, itemsize),
+                       ds_store_bits=8 if fp8 else 16)
 
 
 __all__ = ["pick_forward_config", "pick_varlen_config",
            "pick_varlen_backward_config", "pick_backward_config",
-           "FROM_S_DK_IN_MAX_NKV"]
+           "FROM_S_DK_IN_MAX_NKV", "FP8_DS_MIN_PAIRS"]

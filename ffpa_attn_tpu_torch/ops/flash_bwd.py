@@ -7,11 +7,13 @@ the CUDA kernel for CUDA tensors and runs the plain version for CPU
 tensors:
 
 * ``_dkdv_launch`` (Pallas ``_dkdv_kernel``): dK, dV and optionally the dS
-  slab of the dS-handoff tier;
+  slab of the dS-handoff tier, in the input type or (``ds_store_bits =
+  8``) in float8_e4m3fn;
 * ``_dq_launch`` (``_dq_kernel``): dQ and optionally dbias, the recompute
   tier's second launch;
 * ``_banded_dq_from_ds`` (``_banded_dq_kernel``): dQ = scale * dS K from
-  the slab, causal tiles above the diagonal skipped;
+  the slab (16-bit, or e4m3 widened to bf16 in the kernel), causal tiles
+  above the diagonal skipped;
 * ``_dkdv_from_s_launch`` (``_dkdv_from_s_kernel``): the S-resident tier's
   dV (and dK) from the forward's S residual, dS written over S in place;
 * ``_banded_dk_from_ds`` (``_banded_dk_kernel``): dK = scale * dS^T Q from
@@ -48,6 +50,17 @@ most 256 columns a block
 (``config.banded_plan``), the transposes (K and Q read N-major, dS^T read
 M-major from the [q][kv] slab) done by wgmma's operand bits. Their tensor
 maps declare the slab's extents (nq, nkv), so its padding is never read.
+
+fp8 dS storage (opt-in, ``FFPA_TORCH_ALLOW_FP8_DS``; bf16 inputs, no fp16
+cotangent, no bias, the handoff tier only): the dK/dV kernel quantizes its
+fp32 dS straight to float8_e4m3fn (never through bf16: the double rounding
+can round a tie the other way) with round-to-nearest-even, and dK and dV,
+formed from the 16-bit dS in the kernel, are bit-equal to the 16-bit run.
+Past e4m3's range the port saturates: |dS| > 448 is stored as +-448 (CUDA's
+``cvt.rn.satfinite``; the plain version clamps before its cast), so a
+gradient never holds a NaN that its input did not. The JAX package's
+``astype`` gives NaN from ~464 on; this is a deliberate difference. NaN
+stays NaN. Readers widen exactly (every e4m3 value is a bf16 value).
 
 The delta preprocess ``rowsum(dO * O)``, ``_dq_from_ds`` and
 ``_dbias_from_ds`` are plain large reductions and products outside any
@@ -92,6 +105,28 @@ from .rng import dropout_keep_mask, make_row_col_ids
 logger = init_logger(__name__)
 
 _GRAD_DTYPES = {"f16": torch.float16, "bf16": torch.bfloat16, "f32": torch.float32}
+
+# The largest finite float8_e4m3fn, where the port saturates dS.
+E4M3_MAX = 448.0
+
+
+def quantize_e4m3(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (fp32) in float8_e4m3fn by the port's rule: round to nearest
+    even, saturating to +-448 past the range (NaN stays NaN), as the dK/dV
+    kernel's ``cvt.rn.satfinite.e4m3x2.f32``."""
+    return x.float().clamp(-E4M3_MAX, E4M3_MAX).to(torch.float8_e4m3fn)
+
+
+def e4m3_steps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Element by element, how many places of the ordered e4m3 grid lie
+    between two float8_e4m3fn tensors (+0 and -0 are one place): 1 where a
+    kernel and a plain version rounded fp32 values that differ in their
+    last bits to neighbouring values."""
+    def place(x):
+        code = x.contiguous().view(torch.uint8).to(torch.int16)
+        return torch.where(code >= 0x80, -(code & 0x7F), code)
+
+    return (place(a) - place(b)).abs()
 
 
 def _grad_dtype(storage: Optional[str], default_dtype: torch.dtype) -> torch.dtype:
@@ -153,8 +188,11 @@ def _score_grads_plain(
     return p_dropped, ds, ds if cap is None else ds * cap
 
 
-def _dkdv_plain(q, k, v, bias, do, lse, delta, *, scale, emit_ds, nq_pad, nkv_pad, **kw):
-    """(dk, dv) in fp32, group-reduced, and the dS slab (padded, input type)."""
+def _dkdv_plain(q, k, v, bias, do, lse, delta, *, scale, emit_ds, nq_pad, nkv_pad,
+                ds_fp8=False, **kw):
+    """(dk, dv) in fp32, group-reduced, and the dS slab (padded; the input
+    type, or with ``ds_fp8`` float8_e4m3fn quantized from the fp32 dS by
+    ``quantize_e4m3``). dK takes the 16-bit dS either way."""
     hkv, t = k.shape[1], q.dtype
     p_dropped, _, ds_qk = _score_grads_plain(q, k, v, do, lse, delta, bias, scale=scale, **kw)
     ds_t = ds_qk.to(t)
@@ -162,7 +200,10 @@ def _dkdv_plain(q, k, v, bias, do, lse, delta, *, scale, emit_ds, nq_pad, nkv_pa
     dk = reduce_q_heads(torch.einsum("bhqk,bhqd->bhkd", ds_t.float(), q.float()), hkv) * scale
     ds_full = None
     if emit_ds:
-        ds_full = _pad_rows(_pad_rows(ds_t, nkv_pad, dim=3), nq_pad, dim=2)
+        src = ds_qk if ds_fp8 else ds_t
+        ds_full = _pad_rows(_pad_rows(src, nkv_pad, dim=3), nq_pad, dim=2)
+        if ds_fp8:
+            ds_full = quantize_e4m3(ds_full)
     return dk, dv, ds_full
 
 
@@ -231,20 +272,20 @@ _F = ctypes.c_float
 _ARGTYPES = {
     "ffpa_bwd_dkdv": (
         [_P] * 10 + [_LL] * 4 + [_P] + [_I] * 11 + [_F] * 2 + [_I] * 3 + [_F] * 2
-        + [ctypes.c_uint32] + [_I] * 2 + [_P]
+        + [ctypes.c_uint32] + [_I] * 3 + [_P]
     ),
     "ffpa_bwd_dq": (
         [_P] * 9 + [_LL] * 4 + [_P] + [_I] * 12 + [_F] * 2 + [_I] * 3 + [_F] * 2
         + [ctypes.c_uint32] + [_P]
     ),
-    "ffpa_bwd_banded_dq": [_P] * 3 + [_I] * 11 + [_F] + [_I] + [_P],
+    "ffpa_bwd_banded_dq": [_P] * 3 + [_I] * 11 + [_F] + [_I] * 2 + [_P],
     "ffpa_bwd_dkdv_from_s": (
         [_P] * 8 + [_I] * 12 + [_F] * 2 + [_I] * 2 + [_F] * 2 + [ctypes.c_uint32] + [_P]
     ),
     "ffpa_bwd_banded_dk": [_P] * 3 + [_I] * 10 + [_F] + [_I] + [_P],
-    "ffpa_bwd_banded_attrs": [_I] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2,
-    "ffpa_bwd_banded_plan": [_I, ctypes.POINTER(ctypes.c_int), _I],
-    "ffpa_bwd_dkdv_attrs": [_I] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2,
+    "ffpa_bwd_banded_attrs": [_I] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2,
+    "ffpa_bwd_banded_plan": [_I, _I, ctypes.POINTER(ctypes.c_int), _I],
+    "ffpa_bwd_dkdv_attrs": [_I] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2,
     "ffpa_bwd_dkdv_plan": [_I, _I, ctypes.POINTER(ctypes.c_int), _I],
     "ffpa_bwd_from_s_attrs": [_I] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2,
     "ffpa_bwd_from_s_plan": [_I, _I, ctypes.POINTER(ctypes.c_int), _I],
@@ -318,11 +359,15 @@ def _dkdv_launch(
     row_offset=0, softcap=0.0, window=(-1, -1), alibi=None,
 ):
     """dK, dV [B, Hkv, Nkv, D|Dv] (GQA group reduced) and, with
-    ``emit_ds``, the dS slab [B, Hq, nq_pad, nkv_pad] in q's dtype: the
-    score gradient with softcap's factor, zeros outside the band and on
-    padding. ``causal_offset`` is the launch's local offset;
-    ``row_offset`` / ``col_offset`` map its rows / columns to the global
-    ids the dropout hash takes. ``seed`` is the dropout seed. The kernel's
+    ``emit_ds``, the dS slab [B, Hq, nq_pad, nkv_pad]: the score gradient
+    with softcap's factor, zeros outside the band and on padding, in q's
+    dtype or, where ``config.ds_store_bits`` is 8 (bf16 inputs only),
+    in float8_e4m3fn quantized from the fp32 dS (``quantize_e4m3``); dK
+    and dV are the same either way. A caller applies the rules that keep
+    16 bits (``flash_attention_backward``). ``causal_offset`` is the
+    launch's local offset; ``row_offset`` / ``col_offset`` map its rows /
+    columns to the global ids the dropout hash takes. ``seed`` is the
+    dropout seed. The kernel's
     route is the launcher's own, by head dims alone (``config.dkdv_plan``):
     one wgmma block for D, Dv <= 512, above that a cluster of two whose
     ranks split D and Dv and exchange partial S^T and dP^T; either picks
@@ -337,10 +382,13 @@ def _dkdv_launch(
     dv_dtype = _grad_dtype(grad_kv_storage_dtype, v.dtype)
     window_left = int(window[0])
     window_right = -1 if is_causal else int(window[1])
+    ds_fp8 = emit_ds and config is not None and config.ds_store_bits == 8
+    if ds_fp8 and q.dtype != torch.bfloat16:
+        raise TypeError("dkdv: an e4m3 dS slab takes bf16 inputs")
     if q.device.type == "cpu":
         dk, dv, ds_full = _dkdv_plain(
             q, k, v, bias, do, lse, delta, scale=scale, emit_ds=emit_ds, nq_pad=nq_pad,
-            nkv_pad=nkv_pad, is_causal=is_causal, causal_offset=causal_offset,
+            nkv_pad=nkv_pad, ds_fp8=ds_fp8, is_causal=is_causal, causal_offset=causal_offset,
             dropout_p=dropout_p, seed=seed, softcap=softcap,
             window=(window_left, window_right), alibi=alibi, row_offset=row_offset,
             col_offset=col_offset,
@@ -352,12 +400,13 @@ def _dkdv_launch(
     out_f32, wt = _out_dtype(dk_dtype, q.dtype)
     dk = torch.empty((b, hkv, nkv, d_pad), dtype=wt, device=q.device)
     dv = torch.empty((b, hkv, nkv, dv_pad), dtype=wt, device=q.device)
-    ds_full = (torch.empty((b, hq, nq_pad, nkv_pad), dtype=q.dtype, device=q.device)
+    ds_dtype = torch.float8_e4m3fn if ds_fp8 else q.dtype
+    ds_full = (torch.empty((b, hq, nq_pad, nkv_pad), dtype=ds_dtype, device=q.device)
                if emit_ds else None)
     if ENV.device_log_level() >= 2:
         plan = dkdv_plan(d_pad, dv_pad)
-        logger.info("dkdv launch route=%s passes=%d kv_rows=%d D=%d Dv=%d emit_ds=%s",
-                    plan.route, plan.passes, plan.kv_rows, d_pad, dv_pad, emit_ds)
+        logger.info("dkdv launch route=%s passes=%d kv_rows=%d D=%d Dv=%d emit_ds=%s ds=%s",
+                    plan.route, plan.passes, plan.kv_rows, d_pad, dv_pad, emit_ds, ds_dtype)
     lib = _bwd_lib()
     with torch.cuda.device(q.device):
         err = lib.ffpa_bwd_dkdv(
@@ -367,14 +416,20 @@ def _dkdv_launch(
             nq_pad, nkv_pad, float(scale), float(softcap), int(causal_offset),
             window_left, 0 if is_causal else window_right,
             *dropout_args(dropout_p, seed), int(row_offset), int(col_offset),
-            torch.cuda.current_stream(q.device).cuda_stream,
+            8 if ds_fp8 else 16, torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(lib, err, "dkdv kernel launch")
-    _dkdv_launch.launches += 1
+    if ds_fp8:
+        _dkdv_launch.fp8_launches += 1
+    else:
+        _dkdv_launch.launches += 1
     return dk[..., :d].to(dk_dtype), dv[..., :dv_dim].to(dv_dtype), ds_full
 
 
+# launches: the 16-bit-slab (or slab-less) kernel; fp8_launches: the
+# instance that writes an e4m3 slab.
 _dkdv_launch.launches = 0
+_dkdv_launch.fp8_launches = 0
 
 
 def dbias_slab_shape(nq: int, nkv: int, d: int, dv: int) -> tuple:
@@ -453,15 +508,16 @@ _DKDV_ROUTES = {1: "wgmma", 2: "wgmma_cluster"}
 DKDV_KERNELS = ("dkdv::kernel<",)
 
 
-def dkdv_kernel_attrs(route: str, dtype=torch.bfloat16) -> dict:
+def dkdv_kernel_attrs(route: str, dtype=torch.bfloat16, ds_bits: int = 16) -> dict:
     """Registers a thread (at launch, before setmaxnreg) and local (spill)
     bytes of the dK/dV kernel of ``route`` ("wgmma" or "wgmma_cluster"),
-    from cudaFuncGetAttributes. Needs a card."""
+    from cudaFuncGetAttributes; ``ds_bits`` 8 the instance that writes an
+    e4m3 slab (bf16 only). Needs a card."""
     lib = _bwd_lib()
     regs, local = ctypes.c_int(0), ctypes.c_int(0)
     code = {name: num for num, name in _DKDV_ROUTES.items()}[route]
-    err = lib.ffpa_bwd_dkdv_attrs(code, int(dtype == torch.float16), ctypes.byref(regs),
-                                  ctypes.byref(local))
+    err = lib.ffpa_bwd_dkdv_attrs(code, int(dtype == torch.float16), int(ds_bits),
+                                  ctypes.byref(regs), ctypes.byref(local))
     _build.check(lib, err, "dkdv kernel attributes")
     return {"registers": regs.value, "local_bytes": local.value}
 
@@ -571,25 +627,27 @@ def from_s_kernel_plan(dv: int, dk_in_kernel: bool) -> FromSPlan:
     return FromSPlan(_FROM_S_ROUTES[out[0]], out[1], out[2], out[3], out[4], blocks, ranks)
 
 
-def banded_kernel_attrs(dk: bool, dtype=torch.bfloat16) -> dict:
+def banded_kernel_attrs(dk: bool, dtype=torch.bfloat16, ds_bits: int = 16) -> dict:
     """Registers a thread (at launch, before setmaxnreg) and local (spill)
     bytes of the banded dK (``dk``) or banded dQ kernel, from
-    cudaFuncGetAttributes. Needs a card."""
+    cudaFuncGetAttributes; ``ds_bits`` 8 the banded dQ instance that reads
+    an e4m3 slab (bf16 K). Needs a card."""
     lib = _bwd_lib()
     regs, local = ctypes.c_int(0), ctypes.c_int(0)
-    err = lib.ffpa_bwd_banded_attrs(int(dk), int(dtype == torch.float16), ctypes.byref(regs),
-                                    ctypes.byref(local))
+    err = lib.ffpa_bwd_banded_attrs(int(dk), int(dtype == torch.float16), int(ds_bits),
+                                    ctypes.byref(regs), ctypes.byref(local))
     _build.check(lib, err, "banded kernel attributes")
     return {"registers": regs.value, "local_bytes": local.value}
 
 
-def banded_kernel_plan(d: int) -> BandedPlan:
+def banded_kernel_plan(d: int, ds_bits: int = 16) -> BandedPlan:
     """The tiling the banded kernels' launcher takes at head dim ``d``
-    (padded to 64-column chunks), read from the library: what
-    ``config.banded_plan`` mirrors. Needs a card."""
+    (padded to 64-column chunks) for a slab of ``ds_bits`` (8: banded dQ
+    over an e4m3 slab), read from the library: what ``config.banded_plan``
+    mirrors. Needs a card."""
     lib = _bwd_lib()
     out = (ctypes.c_int * 32)()
-    err = lib.ffpa_bwd_banded_plan(cdiv(d, D_CHUNK) * D_CHUNK, out, len(out))
+    err = lib.ffpa_bwd_banded_plan(cdiv(d, D_CHUNK) * D_CHUNK, int(ds_bits), out, len(out))
     _build.check(lib, err, "banded kernel plan")
     blocks = tuple((out[5 + 2 * i], out[6 + 2 * i]) for i in range(out[0]))
     return BandedPlan(blocks, out[1], out[2], out[3], out[4])
@@ -597,22 +655,30 @@ def banded_kernel_plan(d: int) -> BandedPlan:
 
 def _check_banded_slab(name, ds_full):
     """The banded kernels read the slab through a TMA tensor map: its row
-    stride must be a multiple of 16 B and its start 16 B-aligned."""
-    if ds_full.shape[3] % 8 != 0 or ds_full.data_ptr() % 16 != 0:
-        raise ValueError(f"{name}: the dS slab needs rows of a multiple of 8 elements and a "
-                         f"16-byte-aligned start (TMA), got {tuple(ds_full.shape)}")
+    stride must be a multiple of 16 B (8 elements of 16 bits, 16 of e4m3)
+    and its start 16 B-aligned."""
+    if (ds_full.shape[3] * ds_full.element_size()) % 16 != 0 or ds_full.data_ptr() % 16 != 0:
+        raise ValueError(f"{name}: the dS slab needs rows of a multiple of 16 bytes and a "
+                         f"16-byte-aligned start (TMA), got {tuple(ds_full.shape)} "
+                         f"{ds_full.dtype}")
 
 
 def _banded_dq_from_ds(ds_full, k, config, *, scale, group, nq, nkv, causal_offset, dq_dtype):
     """Causal dQ = scale * dS K from the dS slab ([B, Hq, nq_pad, nkv_pad],
     zeros above the band), tiles above the diagonal skipped.
-    ``causal_offset`` is the launch's local offset."""
+    ``causal_offset`` is the launch's local offset. The slab is in K's
+    type, or float8_e4m3fn with bf16 K (widened exactly to bf16 before the
+    product, in the kernel and in the plain version)."""
     del group
     b, hq, nq_pad, nkv_pad = ds_full.shape
     d = k.shape[-1]
+    fp8 = ds_full.dtype == torch.float8_e4m3fn
+    if fp8 and k.dtype != torch.bfloat16:
+        raise TypeError("banded dQ: an e4m3 dS slab takes bf16 K")
     if ds_full.device.type == "cpu":
         return _banded_dq_plain(ds_full, k, scale=scale, nq=nq, nkv=nkv).to(dq_dtype)
-    if ds_full.dtype not in (torch.bfloat16, torch.float16) or k.dtype != ds_full.dtype:
+    if not fp8 and (ds_full.dtype not in (torch.bfloat16, torch.float16)
+                    or k.dtype != ds_full.dtype):
         raise TypeError("banded dQ: dS and K must share a bf16 or f16 dtype")
     hkv = k.shape[1]
     d_pad = cdiv(d, D_CHUNK) * D_CHUNK
@@ -622,23 +688,30 @@ def _banded_dq_from_ds(ds_full, k, config, *, scale, group, nq, nkv, causal_offs
     out_f32, wt = _out_dtype(dq_dtype, k.dtype)
     dq = torch.empty((b, hq, nq, d_pad), dtype=wt, device=k.device)
     if ENV.device_log_level() >= 2:
-        plan = banded_plan(d_pad)
-        logger.info("banded dq launch grid=(%d,%d,%d) col_blocks=%s D=%d",
-                    len(plan.col_blocks) * cdiv(nq, plan.rows), hq, b, plan.col_blocks, d_pad)
+        plan = banded_plan(d_pad, ds_itemsize=ds_.element_size())
+        logger.info("banded dq launch grid=(%d,%d,%d) col_blocks=%s D=%d ds=%s",
+                    len(plan.col_blocks) * cdiv(nq, plan.rows), hq, b, plan.col_blocks, d_pad,
+                    ds_.dtype)
     lib = _bwd_lib()
     with torch.cuda.device(k.device):
         err = lib.ffpa_bwd_banded_dq(
             ds_.data_ptr(), k_.data_ptr(), dq.data_ptr(), int(k.dtype == torch.float16),
             out_f32, 0,  # the row tile: not read, the launcher picks its own
             b, hq, hkv, nq, nkv, d_pad, nq_pad, nkv_pad,
-            float(scale), int(causal_offset), torch.cuda.current_stream(k.device).cuda_stream,
+            float(scale), int(causal_offset), 8 if fp8 else 16,
+            torch.cuda.current_stream(k.device).cuda_stream,
         )
     _build.check(lib, err, "banded dq kernel launch")
-    _banded_dq_from_ds.launches += 1
+    if fp8:
+        _banded_dq_from_ds.fp8_launches += 1
+    else:
+        _banded_dq_from_ds.launches += 1
     return dq[..., :d].to(dq_dtype)
 
 
+# launches: over a 16-bit slab; fp8_launches: over an e4m3 slab.
 _banded_dq_from_ds.launches = 0
+_banded_dq_from_ds.fp8_launches = 0
 
 
 def _check_slab(name, s_pad, q):
@@ -793,7 +866,7 @@ def _dbias_from_ds(ds_c, bias):
 
 def _dq_from_ds(ds_full, k, bias, *, scale, group, nq, nkv, dq_dtype):
     """dQ (and dbias) from the dS slab: one plain product, as JAX leaves
-    it to XLA."""
+    it to XLA. An e4m3 slab is widened (exactly) with the rest."""
     hq = ds_full.shape[1]
     ds_c = ds_full[:, :, :nq, :nkv]
     dq = torch.einsum("bhqk,bhkd->bhqd", ds_c.float(), expand_kv_heads(k, hq).float())
@@ -868,7 +941,9 @@ def flash_attention_backward(
     if config is None:
         from .dispatch import pick_backward_config
 
-        config = pick_backward_config(d=d, dv=dv_dim, nq=nq, nkv=nkv, dtype=q.dtype)
+        config = pick_backward_config(
+            d=d, dv=dv_dim, nq=nq, nkv=nkv, dtype=q.dtype, has_bias=bias is not None,
+            f16=torch.float16 in (q.dtype, do.dtype))
     grad_bias = bias if bias_grad else None
 
     window_left = int(window[0])
@@ -930,9 +1005,18 @@ def flash_attention_backward(
         return dq, dk, dv, dbias
 
     itemsize = q.element_size()
+    # fp8 dS storage only for bf16 inputs, a cotangent that is not fp16
+    # (the 1e-2 contract leaves no room for its noise), no bias (dbias sums
+    # the stored slab) and the opt-in set: the JAX package's rule. The slab,
+    # and so the stripes and the auto gate, follow the stored width.
+    if config.ds_store_bits == 8 and (
+            q.dtype != torch.bfloat16 or do.dtype == torch.float16 or bias is not None
+            or not ENV.allow_fp8_ds()):
+        config = replace(config, ds_store_bits=16)
+    ds_itemsize = config.ds_store_bits // 8
     limit = ENV.ds_handoff_limit_bytes()
     bq_h, bkv_h = DKDV_Q_TILE, DKDV_SLAB_COLS
-    ds_bytes = b * hq * cdiv(nq, bq_h) * bq_h * cdiv(nkv, bkv_h) * bkv_h * itemsize
+    ds_bytes = b * hq * cdiv(nq, bq_h) * bq_h * cdiv(nkv, bkv_h) * bkv_h * ds_itemsize
     if ds_handoff is None:
         # The largest live slab (one stripe, <= limit) must fit the call's
         # device-memory headroom: the card minus this call's tensors (q, k,
@@ -1056,4 +1140,7 @@ __all__ = [
     "_dq_from_ds",
     "_dbias_from_ds",
     "_grad_dtype",
+    "quantize_e4m3",
+    "e4m3_steps",
+    "E4M3_MAX",
 ]

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import time
 from collections import defaultdict
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -41,7 +41,8 @@ def bound_ms(flops: float, nbytes: float) -> tuple:
 
 def backward_counts(kernel: str, *, b: int, hq: int, hkv: int, nq: int, nkv: int, d: int,
                     dv: int, causal: bool, window=(-1, -1), itemsize: int = 2,
-                    slab_bytes: int = 0, dk_in_kernel: bool = False) -> tuple:
+                    slab_bytes: int = 0, dk_in_kernel: bool = False,
+                    ds_itemsize: Optional[int] = None) -> tuple:
     """(flop, bytes) one backward kernel needs, for ``bound_ms`` (the
     counterpart of the JAX package's ``cli/_flops.py`` for the backward).
 
@@ -54,7 +55,9 @@ def backward_counts(kernel: str, *, b: int, hq: int, hkv: int, nq: int, nkv: int
     ``slab_bytes`` of dS (written by dkdv and, over S in place, by
     dkdv_from_s) or dbias; dkdv_from_s reads the band's S, V, dO (and Q with
     dK) and no K; banded_dq reads the band's dS and K and writes dQ,
-    banded_dk the band's dS and Q and writes dK."""
+    banded_dk the band's dS and Q and writes dK. ``ds_itemsize`` is the
+    bytes of a dS element banded dQ reads (1 for an e4m3 slab; default
+    ``itemsize``)."""
     pairs = b * hq * band_pairs(nq, nkv, causal=causal, window=window)
     q_b, kv_b = b * hq * nq * d * itemsize, b * hkv * nkv * (d + dv) * itemsize
     do_b, rows_b = b * hq * nq * dv * itemsize, 2 * b * hq * nq * 4
@@ -64,7 +67,7 @@ def backward_counts(kernel: str, *, b: int, hq: int, hkv: int, nq: int, nkv: int
     if kernel == "dq":
         return 2 * pairs * (2 * d + dv), 2 * q_b + kv_b + do_b + rows_b + slab_bytes
     if kernel == "banded_dq":
-        return 2 * pairs * d, pairs * itemsize + k_b + q_b
+        return 2 * pairs * d, pairs * (ds_itemsize or itemsize) + k_b + q_b
     if kernel == "dkdv_from_s":
         flops = 2 * pairs * (2 * dv + (d if dk_in_kernel else 0))
         nbytes = pairs * itemsize + 2 * v_b + do_b + rows_b + slab_bytes
@@ -124,7 +127,9 @@ def launch_counts(zero: bool = False) -> dict:
     """Each kernel wrapper's launch count (set to 0 first with ``zero``),
     under the kernel's name in ``chip_smoke.py``'s ``kernels`` line. A
     wrapper counts a launch of its kernel only; calls on CPU tensors run
-    the plain version and count nothing."""
+    the plain version and count nothing. The dK/dV kernel writing an e4m3
+    dS slab and banded dQ reading one count apart, as ``dkdv_fp8_ds`` and
+    ``banded_dq_fp8_ds``."""
     from ..ops import decode, flash_bwd, flash_fwd, paged, varlen
 
     bwd = varlen._varlen_backward
@@ -133,12 +138,15 @@ def launch_counts(zero: bool = False) -> dict:
            "dkdv_from_s": flash_bwd._dkdv_from_s_launch, "banded_dk": flash_bwd._banded_dk_from_ds,
            "decode": decode._decode_forward, "varlen_fwd": varlen._varlen_forward,
            "paged_decode": paged.paged_decode_attention}
+    fp8 = {"dkdv_fp8_ds": flash_bwd._dkdv_launch, "banded_dq_fp8_ds": flash_bwd._banded_dq_from_ds}
     if zero:
         for fn in fns.values():
             fn.launches = 0
+        for fn in fp8.values():
+            fn.fp8_launches = 0
         bwd.dkdv_launches = bwd.dq_launches = 0
     return dict({n: fn.launches for n, fn in fns.items()}, varlen_dkdv=bwd.dkdv_launches,
-                varlen_dq=bwd.dq_launches)
+                varlen_dq=bwd.dq_launches, **{n: fn.fp8_launches for n, fn in fp8.items()})
 
 
 def cuda_ms(fn: Callable, reps: int = 20, warmup: int = 3) -> float:

@@ -158,7 +158,8 @@ def test_launch_counts_reads_and_zeroes_every_counter(monkeypatch):
 
     assert list(profiling.launch_counts()) == [
         "flash_fwd", "dkdv", "dq", "banded_dq", "dkdv_from_s", "banded_dk", "decode",
-        "varlen_fwd", "paged_decode", "varlen_dkdv", "varlen_dq"]
+        "varlen_fwd", "paged_decode", "varlen_dkdv", "varlen_dq", "dkdv_fp8_ds",
+        "banded_dq_fp8_ds"]
     monkeypatch.setattr(flash_bwd._dkdv_from_s_launch, "launches", 3)
     monkeypatch.setattr(varlen._varlen_backward, "dq_launches", 2)
     counts = profiling.launch_counts()

@@ -11,7 +11,9 @@ compiled with the package's nvcc flags and timed at the main-path shapes of
 ``chip_smoke.py`` in the order base, head, head, base, through the same
 Python wrappers (the two share the C interface; a base library whose
 banded entry points still read a row tile is given the one its own
-wrappers passed, ``LegacyBanded``):
+wrappers passed, ``LegacyBanded``; one built from sources before the e4m3
+dS slab has the dS width taken out of its dK/dV and banded dQ argument
+lists, ``LegacyDsBits``: every run here stores a 16-bit slab):
 
 * flash_fwd: B1 H8/4 N4096 D512 causal bf16 (the serving prefill), and
   flash_fwd_scores the same with the S residual; flash_fwd_train and
@@ -240,6 +242,46 @@ def build_tree(src: Path, out: Path, wanted) -> dict:
         lib.ffpa_error_string.restype = ctypes.c_char_p
         libs[name] = lib
     return libs
+
+
+class LegacyDsBits:
+    """A flash_bwd library built from sources before the e4m3 dS slab: its
+    dK/dV and banded dQ entry points, their plan and their attributes take
+    no dS width, so the 16 the package's wrappers pass (every run of this
+    tool stores a 16-bit slab) is taken out of the argument list; any other
+    width raises. Every other symbol is the wrapped library's own."""
+
+    # entry point -> index of the dS width in the package's argument list
+    DS_BITS = {"ffpa_bwd_dkdv": -2, "ffpa_bwd_banded_dq": -2, "ffpa_bwd_banded_plan": 1,
+               "ffpa_bwd_banded_attrs": 2, "ffpa_bwd_dkdv_attrs": 2}
+
+    @staticmethod
+    def needed(src: Path) -> bool:
+        """Whether the sources in ``src`` predate the dS width."""
+        return "int ds_bits" not in (src / "flash_bwd.cu").read_text()
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if name not in self.DS_BITS:
+            return fn
+        argtypes = list(flash_bwd._ARGTYPES[name])
+        at = self.DS_BITS[name] % len(argtypes)
+        del argtypes[at]
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+
+        def call(*args):
+            args = list(args)
+            if args[at] != 16:
+                raise ValueError(f"{name}: a library without the e4m3 slab takes 16-bit dS only")
+            del args[at]
+            return fn(*args)
+
+        call.argtypes = fn.argtypes
+        return call
 
 
 class LegacyBanded:
@@ -1077,6 +1119,8 @@ def main() -> int:
         "head": build_tree(_build.CSRC_DIR, REPO / "build" / "ab" / "head", wanted),
     }
     base_bwd = trees["base"].get("flash_bwd")
+    if base_bwd is not None and LegacyDsBits.needed(Path(args.base).resolve()):
+        trees["base"]["flash_bwd"] = base_bwd = LegacyDsBits(base_bwd)
     if base_bwd is not None and not hasattr(base_bwd, "ffpa_bwd_banded_plan"):
         trees["base"]["flash_bwd"] = base_bwd = LegacyBanded(base_bwd)
     if base_bwd is not None and LegacyDkdv.needed(base_bwd):
