@@ -28,9 +28,10 @@ It imports only ``ffpa_attn_tpu_torch``, torch and numpy, and runs, in order:
    dQ, the from-S dK/dV pass in both
    variants and banded dK (a slab NaN outside the band among them), the
    packed varlen forward, the varlen dK/dV and dQ kernels (bf16 and fp16
-   feature cases, both routes of each) and paged decode (bf16 and int8
-   pools, both routes: TMA over pages of 16..256 rows, 64 packed rows,
-   windows, lengths on tile edges; cp.async over a page of 24 rows); a row
+   feature cases, both routes of each) and paged decode (bf16, fp16 and
+   int8 pools on its one TMA block: pages of 8..256 rows and of 17, 20 and
+   24, 64 packed rows, windows, lengths on tile edges; D640 and D1024 on
+   its two-warpgroup instance); a row
    that a bias masks everywhere under a window, for the forward and for
    decode, is logged against the mean of V over the columns each side
    visits (the plain version every column, the kernels the window's
@@ -46,8 +47,10 @@ It imports only ``ffpa_attn_tpu_torch``, torch and numpy, and runs, in order:
    batching, the JAX package's serving bench (B4, prompts of 589..886
    tokens, 128 generated, page 256): ``serve_batch``, ``serve_batch_paged``
    over bf16 and int8 pools and a ``ServingEngine`` serving 8 requests over
-   4 slots, each with its launch counts, tokens/s and logit gates; the
-   monkey-patch: ``scaled_dot_product_attention`` patched at the prefill
+   4 slots, each with its launch counts, tokens/s and logit gates; paged
+   serving of the same model at Dh1024 (depth cut to L2) over pages of 256
+   bf16 and int8 rows and of 24 rows, each step teacher-forced against the
+   dense step; the monkey-patch: ``scaled_dot_product_attention`` patched at the prefill
    shape (one forward launch, bit-equal to ``ffpa_attn_func``), a D64, a
    dropout and a causal Nq 1024 / Nkv 4096 call on the stock function (no
    launch, equal to the pristine function), then unpatched; speculative
@@ -93,7 +96,7 @@ It imports only ``ffpa_attn_tpu_torch``, torch and numpy, and runs, in order:
    device and CUDA-event ms; the three varlen clusters timed at D1024;
    decode's walk and merge timed apart beside the wrapper's total, at the
    generate step and at the serving step; paged decode's likewise, over
-   bf16 and int8 pools; each backward
+   bf16 and int8 pools, over pages of 24 rows and at D1024; each backward
    kernel's, decode's and paged decode's device ms logged beside its
    CUDA-event ms and its bound, and timed again once where it reads below
    the bound (the phase fails if it stays below);
@@ -173,6 +176,12 @@ SERVE_LENS = [589, 698, 763, 886]
 # (tools/torch_varlen_schedule.py), so segment edges straddle tiles.
 PACK_LENS = [2048, 1536, 1200, 1024, 900, 700, 500, 284]
 ENGINE_REQUESTS, ENGINE_SLOTS = 8, 4
+# The Dh1024 paged leg: the serving model at head dim 1024 (dm1024 H8/4
+# Dh1024 vocab 32000 bf16), depth cut to L2 for run time, on the serving
+# workload above over pools of 256 bf16 rows, 256 int8 rows and 24 bf16 rows
+# a page (the two-warpgroup paged block; boxes of 64 and 8 rows).
+WIDE = dict(SLICE, head_dim=1024, n_layers=2)
+WIDE_POOLS = (("page256", 256, False), ("page256_int8", 256, True), ("page24", 24, False))
 # Speculative decoding: the bench's bench_speculative workload
 # (ffpa_attn_tpu_torch/cli/_e2e.py, held equal in phase_speculative), prompt
 # 1024 from numpy seed 0, 128 generated, k_spec 4, max_len prompt + gen +
@@ -1014,8 +1023,10 @@ def _paged_case(name, *, lens, page=256, max_len=1152, group=2, nq=1, hkv=4, d=5
     """The paged decode kernel against its plain version on the same pools
     (an int8 pool against the plain version of the same int8 pool); with
     ``idle`` slot 0 is an idle engine slot (null table row, lens at
-    max_len), whose output must be finite."""
+    max_len), whose output must be finite. Logs the plan's box rows and
+    consumer warpgroups; fails unless the call launched the kernel once."""
     from ffpa_attn_tpu_torch.ops import paged
+    from ffpa_attn_tpu_torch.ops.config import paged_plan
 
     gen = torch.Generator(device="cuda").manual_seed(600 + seed)
     cache = _paged_pools(lens, page=page, max_len=max_len, hkv=hkv, d=d, dtype=dtype,
@@ -1025,16 +1036,21 @@ def _paged_case(name, *, lens, page=256, max_len=1152, group=2, nq=1, hkv=4, d=5
         cache.lens[0] = max_len
     q = _randn((len(lens), hkv * group, nq, d), dtype, gen)
     kw = dict(nq=nq, scale=1.0 / math.sqrt(d), softcap=softcap, window_left=window)
+    plan = paged_plan(d, d, page, quantized)
+    before = paged.paged_decode_attention.launches
     o = paged.paged_decode_attention(q, cache, scale=kw["scale"], softcap=softcap,
                                      window_left=window)
     torch.cuda.synchronize()
+    if paged.paged_decode_attention.launches != before + 1:
+        fail(f"paged decode case {name} did not launch the kernel once")
     po, _ = paged._paged_decode_plain(q.reshape(len(lens), hkv, group * nq, d), cache, **kw)
     po = po.reshape(o.shape)
     tol = F16_TOL if dtype == torch.float16 else BF16_TOL
     err = row_rel(o, po)
     ok = err < tol and bool(torch.isfinite(o).all())
-    log(f"  paged {name:<20} lens {list(lens)} page {page} row_rel_err {err:.2e} (tol {tol:g}) "
-        f"max_abs_err {max_abs(o, po):.3e} {'ok' if ok else 'FAIL'}")
+    log(f"  paged {name:<24} D{d} lens {list(lens)} page {page} (boxes of {plan.box_rows} rows, "
+        f"{plan.consumers} consumer warpgroup{'s' if plan.consumers > 1 else ''}) row_rel_err "
+        f"{err:.2e} (tol {tol:g}) max_abs_err {max_abs(o, po):.3e} {'ok' if ok else 'FAIL'}")
     if not ok:
         fail(f"paged decode kernel disagrees with its plain version: {name}")
     return max_abs(o, po)
@@ -1327,10 +1343,12 @@ def phase_kernels_vs_plain() -> dict:
     _paged_case("int8_shuffled_page128", lens=serve_lens, page=128, shuffle=True,
                 quantized=True, seed=10)
     _paged_case("fp16", lens=serve_lens, dtype=torch.float16, seed=11)
-    # The TMA route's edges: smaller pages (boxes of 32 / 16 rows), 64 packed
+    # The block's edges: smaller pages (boxes of 32 / 16 rows), 64 packed
     # rows (four row blocks), a window starting mid-box, lengths on tile
-    # edges, an f16 int8 pool, D 320 int8 (a half-empty last slab); and the
-    # cp.async route (a page of 24 rows).
+    # edges, an f16 int8 pool, D 320 int8 (a half-empty last slab); pages of
+    # 24, 8, 20 and 17 rows (boxes of 8, 8, 4 and 1 rows, up to 64 a stage);
+    # and the two-warpgroup instance above D512 (D640, D1024, 64 packed
+    # rows, a window with softcap, fp16, int8, small pages).
     _paged_case("page64", lens=serve_lens, page=64, seed=12)
     _paged_case("page32_int8", lens=serve_lens, page=32, quantized=True, seed=13)
     _paged_case("page16_nq8_group8", lens=[n + 8 for n in SERVE_LENS], page=16, nq=8, group=8,
@@ -1340,7 +1358,28 @@ def phase_kernels_vs_plain() -> dict:
     _paged_case("fp16_int8", lens=serve_lens, dtype=torch.float16, quantized=True, seed=17)
     _paged_case("d320_int8_page32", lens=[150, 71, 300, 5], page=32, d=320, quantized=True,
                 max_len=320, seed=18)
-    _paged_case("cp_async_page24", lens=[150, 71, 300, 5], page=24, max_len=336, seed=19)
+    _paged_case("page24", lens=[150, 71, 300, 5], page=24, max_len=336, seed=19)
+    for i, page in enumerate((24, 8, 20, 17)):
+        _paged_case(f"page{page}_serving", lens=serve_lens, page=page, seed=20 + i)
+        _paged_case(f"page{page}_int8", lens=serve_lens, page=page, quantized=True, seed=24 + i)
+    _paged_case("page17_fp16_nq4", lens=[n + 4 for n in SERVE_LENS], page=17, nq=4,
+                dtype=torch.float16, seed=28)
+    errs["paged_decode_wide"] = _paged_case("d1024_serving", lens=serve_lens, d=1024, seed=30)
+    _paged_case("d1024_int8", lens=serve_lens, d=1024, quantized=True, seed=31)
+    _paged_case("d640", lens=serve_lens, d=640, seed=32)
+    _paged_case("d640_int8_page24", lens=serve_lens, d=640, page=24, quantized=True, seed=33)
+    _paged_case("d1024_nq8_group8", lens=[n + 8 for n in SERVE_LENS], d=1024, nq=8, group=8,
+                hkv=1, seed=34)
+    _paged_case("d1024_window_softcap", lens=serve_lens, d=1024, window=256, softcap=30.0,
+                seed=35)
+    _paged_case("d1024_fp16", lens=serve_lens, d=1024, dtype=torch.float16, seed=36)
+    _paged_case("d1024_fp16_int8_page20", lens=serve_lens, d=1024, page=20,
+                dtype=torch.float16, quantized=True, seed=37)
+    for i, page in enumerate((24, 8, 17)):
+        _paged_case(f"d1024_page{page}", lens=serve_lens, d=1024, page=page, seed=38 + i)
+        _paged_case(f"d1024_page{page}_int8", lens=serve_lens, d=1024, page=page,
+                    quantized=True, seed=41 + i)
+    _paged_case("d512_page24_serving_step", lens=[n + 64 for n in SERVE_LENS], page=24, seed=44)
     return errs
 
 
@@ -1710,6 +1749,94 @@ def phase_serving(model) -> dict:
         fail("tiny model: serving logits on the card differ from the CPU")
     return dict(rates=rates, errs=errs, prompts=prompts,
                 launches={"varlen_fwd": cfg.n_layers, "paged_decode": n_dec})
+
+
+def phase_paged_wide(smi: str) -> dict:
+    """Paged serving above D512, on the two-warpgroup paged block: the
+    serving model at head dim 1024 (``WIDE``: dm1024 H8/4 Dh1024 vocab 32000
+    bf16, random weights from numpy seed 0, depth cut to L2 for run time)
+    on the serving workload (B4 prompts ``SERVE_LENS``, 128 generated,
+    max_len 1152). For each of ``WIDE_POOLS`` (pages of 256 bf16 and int8
+    rows, of 24 bf16 rows): ``serve_batch_paged`` once to warm up, then
+    once with the launch counts set to 0 just before and read just after
+    (L varlen forward and L x 127 paged launches) and its tokens/s;
+    every decode step's logits, teacher-forced on that paged stream, held
+    to the dense shared-row step's (PAGED_TOL of max|logit| over bf16
+    pools, INT8_TOL over int8); and the paged wrapper's device ms a step
+    (walk and merge, one layer, CUDA events with the host's enqueue taken
+    out) at the last step's pools."""
+    from ffpa_attn_tpu_torch.models import ModelConfig, params_from_jax, random_params
+    from ffpa_attn_tpu_torch.models import serve_batch_paged
+    from ffpa_attn_tpu_torch.ops import paged
+    from ffpa_attn_tpu_torch.ops.config import paged_plan
+    from ffpa_attn_tpu_torch.utils.profiling import bound_ms, paged_decode_counts, queued_ms
+
+    cfg = ModelConfig(**WIDE)
+    model = params_from_jax(random_params(cfg, seed=0), cfg)
+    prompts, _ = serve_prompts()
+    log(f"Dh1024 paged serving: model L{cfg.n_layers} (depth cut from L4 for run time) "
+        f"dm{cfg.d_model} H{cfg.n_heads}/{cfg.n_kv_heads} Dh{cfg.head_dim} vocab "
+        f"{cfg.vocab_size} {cfg.dtype}, B{SERVE_B} prompts {SERVE_LENS}, gen {SERVE_GEN}, "
+        f"max_len {SERVE_MAX_LEN}")
+    n_dec = cfg.n_layers * (SERVE_GEN - 1)
+    want = {"flash_fwd": 0, "decode": 0, "varlen_fwd": cfg.n_layers, "paged_decode": n_dec}
+    out = {"rates": {}, "errs": {}, "step_ms": {}, "launches": {}}
+    for label, page, quantized in WIDE_POOLS:
+        plan = paged_plan(cfg.head_dim, cfg.head_dim, page, quantized)
+        if plan.consumers != 2:
+            fail(f"Dh1024 paged serving {label}: the plan {plan} is not the two-warpgroup block")
+
+        def run(page=page, quantized=quantized):
+            return serve_batch_paged(model, prompts, SERVE_GEN, SERVE_MAX_LEN, page_size=page,
+                                     quantized=quantized)
+
+        run()
+        torch.cuda.synchronize()
+        launch_counts(zero=True)
+        t0 = time.perf_counter()
+        toks = run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = _counts(SERVE_KERNELS)
+        tok_s = SERVE_B * SERVE_GEN / dt
+        if counts != want:
+            fail(f"Dh1024 serve_batch_paged {label}: launch counts {counts} != expected {want}")
+        if tuple(toks.shape) != (SERVE_B, SERVE_GEN) or not bool(
+                ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+            fail(f"Dh1024 serve_batch_paged {label}: bad tokens of shape {tuple(toks.shape)}")
+        steps, pools = _window_stream_logits(model, prompts, toks, page=page, quantized=quantized)
+        worst, ties = 0.0, 0
+        tol = INT8_TOL if quantized else PAGED_TOL
+        for lp, ld in steps:
+            worst = max(worst, row_rel(lp, ld))
+            top = ld.topk(2, dim=-1).values
+            ties += int(((top[:, 0] - top[:, 1]) <= 2 * tol * ld.abs().amax(-1)).sum())
+        finite = all(bool(torch.isfinite(lp).all()) for lp, _ in steps)
+        gen = torch.Generator(device="cuda").manual_seed(40)
+        q = _randn((SERVE_B, cfg.n_heads, 1, cfg.head_dim), torch.bfloat16, gen)
+        step_lens = pools[0].lens.tolist()
+        with torch.inference_mode():  # the pools are inference tensors
+            step_ms = queued_ms(lambda: [paged.paged_decode_attention(
+                q, pools[i % len(pools)], scale=cfg.head_dim ** -0.5) for i in range(50)]) / 50
+        bms, bby = bound_ms(*paged_decode_counts(step_lens, hq=cfg.n_heads, hkv=cfg.n_kv_heads,
+                                                 d=cfg.head_dim, dv=cfg.head_dim,
+                                                 quantized=quantized))
+        ok = worst < tol and finite
+        log(f"  {label}: {SERVE_B * SERVE_GEN} tokens in {dt * 1e3:.1f} ms = {tok_s:.1f} tokens/s, "
+            f"launches {counts} (boxes of {plan.box_rows} rows, {plan.stages} stages); "
+            f"{len(steps)} steps teacher-forced on the paged stream, worst per-row logits vs the "
+            f"dense step {worst:.2e} (tol {tol:g} of max|logit|), {ties} near ties (logged); "
+            f"paged decode at the last step (lens {step_lens}) {step_ms:.4f} device ms a layer, "
+            f"bound {bms:.4f} ms ({bby}), on {smi} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"Dh1024 paged serving {label}: the paged steps disagree with the dense steps")
+        out["rates"][label], out["errs"][label] = tok_s, worst
+        out["step_ms"][label], out["launches"][label] = step_ms, counts["paged_decode"]
+        del steps, pools
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_monkey_patch() -> None:
@@ -2648,10 +2775,11 @@ def _run(cmd, label: str, timeout: int, env=None) -> tuple:
 
 
 @torch.inference_mode()
-def _window_stream_logits(model, prompts, toks) -> tuple:
+def _window_stream_logits(model, prompts, toks, page=WINDOW_PAGE, quantized=False) -> tuple:
     """Teacher-forced on the token stream ``toks`` [B, gen]: per decode step,
     (the paged step's logits, the dense shared-row step's logits), both
-    after one packed prefill; and the paged pools at the end."""
+    after one packed prefill, over pools of ``page`` rows a page (int8 with
+    ``quantized``); and the paged pools at the end."""
     from ffpa_attn_tpu_torch.models import init_kv_cache, pack_prompts, prefill_packed
     from ffpa_attn_tpu_torch.models.serving import _batched_decode_step, _paged_decode_step
     from ffpa_attn_tpu_torch.ops.paged import PagedKVCache, fill_from_prefill
@@ -2663,8 +2791,8 @@ def _window_stream_logits(model, prompts, toks) -> tuple:
     cache = init_kv_cache(cfg, len(prompts), SERVE_MAX_LEN, device=dev)
     _, cache = prefill_packed(model, packed, cu, base, cache)
     pools = [fill_from_prefill(
-        PagedKVCache.alloc(len(lens), SERVE_MAX_LEN, cfg.n_kv_heads, cfg.head_dim, WINDOW_PAGE,
-                           dtype=cfg.torch_dtype, device=dev),
+        PagedKVCache.alloc(len(lens), SERVE_MAX_LEN, cfg.n_kv_heads, cfg.head_dim, page,
+                           dtype=cfg.torch_dtype, quantized=quantized, device=dev),
         c["k"][:, :, :base], c["v"][:, :, :base], lens) for c in cache]
     lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
     steps = []
@@ -2744,7 +2872,7 @@ def phase_bench_cli(model) -> dict:
     # The paged kernel at the last step, with and without the window.
     gen = torch.Generator(device="cuda").manual_seed(30)
     q = _randn((SERVE_B, cfg.n_heads, 1, cfg.head_dim), torch.bfloat16, gen)
-    names = ("paged_tma_kernel", "paged_decode_kernel", "split_merge_kernel")
+    names = ("paged_tma_kernel", "split_merge_kernel")
     step_lens = pools[0].lens.tolist()
     walk = {}
     for label, wl in (("windowed", SERVE_WINDOW), ("unwindowed", -1)):
@@ -3492,41 +3620,44 @@ def decode_kernel_row_extras(d: int) -> dict:
 
 
 def paged_kernel_row_extras(d: int) -> dict:
-    """Paged decode's route at the serving step and its TMA kernel's
-    registers and spill bytes, for the ``kernels`` line; fails unless the
+    """Paged decode's tiling at head dim ``d`` over the serving pages and
+    both instances' registers and spill bytes (one consumer warpgroup
+    at D, Dv <= 512, two above), for the ``kernels`` line; fails unless the
     launcher's plan equals its mirror (``ops/config.py`` ``paged_plan``)
-    over the serving path's shapes and the cp.async route's, and the TMA
-    kernel spills nothing."""
+    over head dims 64..1024 (D != Dv among them), pages of 1..256 rows and
+    int8 pools, and neither instance spills in either dtype."""
     from ffpa_attn_tpu_torch.ops import paged
     from ffpa_attn_tpu_torch.ops.config import paged_plan
 
-    shapes = [(d, d, rows, page, q8) for rows in (2, 8, 64) for page in (16, 32, 64, 128, 256)
+    pages = (1, 2, 8, 16, 17, 20, 24, 32, 48, 64, 100, 128, 256)
+    shapes = [(hd, hd, pg, q8) for hd in (64, 320, 512, 576, 640, 1024) for pg in pages
               for q8 in (False, True)]
-    shapes += [(320, 320, 4, 32, True), (64, 512, 2, 48, False), (576, 576, 2, 256, False),
-               (d, d, 2, 24, True), (d, d, 64, 8, False)]
-    for hd, hdv, rows, page, q8 in shapes:
-        got, want = paged.paged_kernel_plan(hd, hdv, rows, page, q8), paged_plan(
-            hd, hdv, rows, page, 2, q8)
+    shapes += [(64, 1024, 24, True), (1024, 64, 17, False), (512, 640, 20, True),
+               (1024, 320, 256, False), (128, 512, 80, True)]
+    for hd, hdv, pg, q8 in shapes:
+        got, want = paged.paged_kernel_plan(hd, hdv, pg, q8), paged_plan(hd, hdv, pg, q8)
         if got != want:
-            fail(f"paged launcher's plan at D{hd}/Dv{hdv} R{rows} page {page} int8 {q8} {got} "
-                 f"differs from ops/config.py paged_plan {want}")
-    plan = paged.paged_kernel_plan(d, d, 2, SERVE_PAGE)
-    log(f"  paged_decode plan at the serving step: {plan} (the launcher's, equal to "
-        f"ops/config.py paged_plan at {len(shapes)} shapes)")
+            fail(f"paged launcher's plan at D{hd}/Dv{hdv} page {pg} int8 {q8} {got} differs "
+                 f"from ops/config.py paged_plan {want}")
+    plan = paged.paged_kernel_plan(d, d, SERVE_PAGE)
+    log(f"  paged_decode plan at D{d} over pages of {SERVE_PAGE} rows: {plan} (the launcher's, "
+        f"equal to ops/config.py paged_plan at {len(shapes)} shapes)")
     attrs = {}
-    for route in ("tma", "cp_async"):
+    for consumers in (1, 2):
         for dt in (torch.bfloat16, torch.float16):
             for q8 in (False, True):
-                a = paged.paged_kernel_attrs(route, dt, q8)
-                attrs[(route, dt, q8)] = a
-                log(f"  paged_decode {route} {str(dt)[6:]}{' int8' if q8 else ''}: "
+                a = paged.paged_kernel_attrs(dt, q8, consumers)
+                attrs[(consumers, dt, q8)] = a
+                wgs = f"{consumers} consumer warpgroup{'s' if consumers > 1 else ''}"
+                log(f"  paged_decode ({wgs}) {str(dt)[6:]}{' int8' if q8 else ''}: "
                     f"{a['registers']} registers a thread, {a['local_bytes']} local (spill) bytes")
-                if route == "tma" and a["local_bytes"] != 0:
-                    fail(f"the TMA paged decode kernel ({dt}, int8 {q8}) spills "
-                         f"{a['local_bytes']} bytes")
-    a = attrs[(plan.route, torch.bfloat16, False)]
-    return {"paged_route": plan.route, "registers": a["registers"],
-            "spill_bytes": a["local_bytes"]}
+                if a["local_bytes"] != 0:
+                    fail(f"the paged decode kernel ({consumers} consumer warpgroups, {dt}, int8 "
+                         f"{q8}) spills {a['local_bytes']} bytes")
+    a = attrs[(plan.consumers, torch.bfloat16, False)]
+    return {"paged_route": plan.route, "consumers": plan.consumers, "box_rows": plan.box_rows,
+            "kernel": f"tma::paged_tma_kernel<T, Q8, {'true' if plan.consumers == 2 else 'false'}>",
+            "registers": a["registers"], "spill_bytes": a["local_bytes"]}
 
 
 def dkdv_kernel_row_extras(d: int) -> dict:
@@ -4062,7 +4193,7 @@ def banded_op_level_times() -> None:
     torch.cuda.empty_cache()
 
 
-def serving_times(errs: dict, serving: dict, model) -> tuple:
+def serving_times(errs: dict, serving: dict, wide: dict, model) -> tuple:
     """The serving path under the profiler (one packed prefill, 8 paged
     decode steps), then the varlen forward at the serving packing and paged
     decode at the serving step (page 256, each sequence 64 tokens into its
@@ -4174,16 +4305,72 @@ def serving_times(errs: dict, serving: dict, model) -> tuple:
     del q, k, v, qh, kh, vh, block_causal
     torch.cuda.empty_cache()
 
-    # Paged decode at the serving step: four layers' pools in turn, so the
-    # K/V pages (44 MB a layer) do not sit in L2. The wrapper's device time
-    # (the walk and the merge), then each launch alone by kernel name.
+    # Paged decode at the serving step (page 256), the same step over pages
+    # of 24 rows, and at Dh1024 on the two-warpgroup block.
+    serve = _paged_step_times(gen, d=d, page=SERVE_PAGE, hq=hq, hkv=hkv, label="paged_decode")
+    p24 = _paged_step_times(gen, d=d, page=24, hq=hq, hkv=hkv, label="paged_decode page 24",
+                            int8=False)
+    wd = WIDE["head_dim"]
+    wide_t = _paged_step_times(gen, d=wd, page=SERVE_PAGE, hq=hq, hkv=hkv,
+                               label="paged_decode D1024")
+    w24 = _paged_step_times(gen, d=wd, page=24, hq=hq, hkv=hkv, label="paged_decode D1024 page 24",
+                            int8=False, plain=False, library=False)
+    log("  yardstick for paged_decode (not one library call on the pools): "
+        "scaled_dot_product_attention over the cache gathered dense, with a length mask")
+    rows.append(dict(
+        name="paged_decode", route="cuda", source="ffpa_attn_tpu_torch/csrc/paged_decode.cu",
+        replaces="ffpa_attn_tpu/ops/paged.py:297",
+        launches=serving["launches"]["paged_decode"], max_abs_err=errs["paged_decode"],
+        ms=serve["ms"], plain_ms=serve["plain_ms"], bound_ms=serve["bound_ms"],
+        bound_by=serve["bound_by"], library_ms=serve["library_ms"], walk_ms=serve["walk_ms"],
+        merge_ms=serve["merge_ms"], int8_ms=serve["int8_ms"], int8_walk_ms=serve["int8_walk_ms"],
+        int8_merge_ms=serve["int8_merge_ms"], int8_bound_ms=serve["int8_bound_ms"],
+        page24_ms=p24["ms"], page24_walk_ms=p24["walk_ms"], page24_merge_ms=p24["merge_ms"],
+        page24_bound_ms=p24["bound_ms"], page24_plain_ms=p24["plain_ms"],
+        page24_library_ms=p24["library_ms"],
+    ))
+    rows[-1].update(paged_kernel_row_extras(d))
+    events["paged_decode"] = serve["events"]
+    rows.append(dict(
+        name="paged_decode_wide", route="cuda", source="ffpa_attn_tpu_torch/csrc/paged_decode.cu",
+        replaces="ffpa_attn_tpu/ops/paged.py:297",
+        launches=wide["launches"]["page256"], max_abs_err=errs["paged_decode_wide"],
+        ms=wide_t["ms"], plain_ms=wide_t["plain_ms"], bound_ms=wide_t["bound_ms"],
+        bound_by=wide_t["bound_by"], library_ms=wide_t["library_ms"], walk_ms=wide_t["walk_ms"],
+        merge_ms=wide_t["merge_ms"], int8_ms=wide_t["int8_ms"],
+        int8_walk_ms=wide_t["int8_walk_ms"], int8_merge_ms=wide_t["int8_merge_ms"],
+        int8_bound_ms=wide_t["int8_bound_ms"], page24_ms=w24["ms"], page24_walk_ms=w24["walk_ms"],
+        page24_merge_ms=w24["merge_ms"], page24_bound_ms=w24["bound_ms"],
+        launches_by_pool=wide["launches"], serving_tokens_per_s=wide["rates"],
+    ))
+    rows[-1].update(paged_kernel_row_extras(wd))
+    events["paged_decode_wide"] = wide_t["events"]
+    torch.cuda.empty_cache()
+    return rows, events
+
+
+def _paged_step_times(gen, *, d: int, page: int, hq: int, hkv: int, label: str,
+                      int8: bool = True, plain: bool = True, library: bool = True) -> dict:
+    """Paged decode at the serving step (B4, max_len 1152, each sequence 64
+    tokens into its generation) at head dim ``d`` over pages of ``page``
+    rows: four layers' pools in turn, so the K/V pages do not sit in L2.
+    The wrapper's device time (the walk and the merge), then each launch
+    alone by kernel name, beside the bound; over bf16 pools (and over int8
+    ones with ``int8``), the plain version's time and SDPA over the cache
+    gathered dense with a length mask (a yardstick: the gather is not
+    timed)."""
+    import torch.nn.functional as F
+
+    from ffpa_attn_tpu_torch.ops import paged
+    from ffpa_attn_tpu_torch.utils.profiling import bound_ms, paged_decode_counts
+
     step_lens = [n + 64 for n in SERVE_LENS]
-    times, parts, bounds = {}, {}, {}
-    walk_names = ("paged_tma_kernel", "paged_decode_kernel")
-    for quantized in (False, True):
-        pools = [_paged_pools(step_lens, page=SERVE_PAGE, max_len=SERVE_MAX_LEN, hkv=hkv, d=d,
-                              quantized=quantized, gen=gen) for _ in range(cfg.n_layers)]
-        qd = _randn((SERVE_B, hq, 1, d), bf, gen)
+    scale = 1.0 / math.sqrt(d)
+    out = {}
+    for quantized in (False, True) if int8 else (False,):
+        pools = [_paged_pools(step_lens, page=page, max_len=SERVE_MAX_LEN, hkv=hkv, d=d,
+                              quantized=quantized, gen=gen) for _ in range(SLICE["n_layers"])]
+        qd = _randn((SERVE_B, hq, 1, d), torch.bfloat16, gen)
         it = iter(range(1 << 30))
 
         def pick():
@@ -4192,60 +4379,56 @@ def serving_times(errs: dict, serving: dict, model) -> tuple:
         def run_paged():
             return paged.paged_decode_attention(qd, pick(), scale=scale)
 
-        tag = "paged_decode int8" if quantized else "paged_decode"
-        bounds[quantized] = bound_ms(*paged_decode_counts(step_lens, hq=hq, hkv=hkv, d=d, dv=d,
-                                                          nq=1, quantized=quantized))
-        times[quantized] = _above_bound(tag, _timed(run_paged, 100, warmup=8),
-                                        bounds[quantized][0],
-                                        lambda: _timed(run_paged, 100, warmup=8))
-        parts[quantized] = (_kernel_timed(run_paged, walk_names, 100)[0],
-                            _kernel_timed(run_paged, ("split_merge_kernel",), 100)[0])
-        if times[quantized][0] < 0.95 * sum(parts[quantized]):
+        tag = f"{label} int8" if quantized else label
+        bms, bby = bound_ms(*paged_decode_counts(step_lens, hq=hq, hkv=hkv, d=d, dv=d, nq=1,
+                                                 quantized=quantized))
+        times = _above_bound(tag, _timed(run_paged, 100, warmup=8), bms,
+                             lambda: _timed(run_paged, 100, warmup=8))
+        parts = (_kernel_timed(run_paged, ("paged_tma_kernel",), 100)[0],
+                 _kernel_timed(run_paged, ("split_merge_kernel",), 100)[0])
+        if times[0] < 0.95 * sum(parts):
             # The total reads below its own launches (lost profiler events):
             # time it again once, and fail if it stays below.
-            first, times[quantized] = times[quantized], _timed(run_paged, 100, warmup=8)
-            log(f"  {tag}: total {first[0]:.4f} ms below walk + merge "
-                f"{sum(parts[quantized]):.4f} ms, timed again: {times[quantized][0]:.4f} ms")
-            if times[quantized][0] < 0.95 * sum(parts[quantized]):
+            first, times = times, _timed(run_paged, 100, warmup=8)
+            log(f"  {tag}: total {first[0]:.4f} ms below walk + merge {sum(parts):.4f} ms, "
+                f"timed again: {times[0]:.4f} ms")
+            if times[0] < 0.95 * sum(parts):
                 fail(f"{tag} reads below its own launches twice: {first[0]:.4f} and "
-                     f"{times[quantized][0]:.4f} ms against {sum(parts[quantized]):.4f} ms")
+                     f"{times[0]:.4f} ms against {sum(parts):.4f} ms")
+        log(f"  {tag} at the serving step (D{d}, lens {step_lens}, page {page}): {times[0]:.4f} "
+            f"ms [{times[1]:.4f}] = walk {parts[0]:.4f} + merge {parts[1]:.4f} ms, bound "
+            f"{bms:.4f} ms ({bby})")
+        key = "int8_" if quantized else ""
+        out.update({f"{key}ms": times[0], f"{key}walk_ms": parts[0], f"{key}merge_ms": parts[1],
+                    f"{key}bound_ms": bms})
         if quantized:
             continue
-        qp = qd.reshape(SERVE_B, hkv, hq // hkv, d)
-        pms = _timed(lambda: paged._paged_decode_plain(qp, pick(), nq=1, scale=scale, softcap=0.0,
-                                                       window_left=-1), 20)
-        dense = [(paged._dense_rows(c.k_pages, c.page_table), paged._dense_rows(c.v_pages,
-                                                                                c.page_table))
-                 for c in pools]
-        cols = torch.arange(dense[0][0].shape[2], device="cuda")
-        valid = (cols[None, :] < torch.tensor(step_lens, device="cuda")[:, None])[:, None, None]
+        out["bound_by"] = bby
+        pms = lms = (float("nan"), float("nan"))
+        if plain:
+            qp = qd.reshape(SERVE_B, hkv, hq // hkv, d)
+            pms = _timed(lambda: paged._paged_decode_plain(qp, pick(), nq=1, scale=scale,
+                                                           softcap=0.0, window_left=-1), 20)
+        if library:
+            dense = [(paged._dense_rows(c.k_pages, c.page_table),
+                      paged._dense_rows(c.v_pages, c.page_table)) for c in pools]
+            cols = torch.arange(dense[0][0].shape[2], device="cuda")
+            valid = (cols[None, :] < torch.tensor(step_lens, device="cuda")[:, None])[:, None, None]
 
-        def gathered_sdpa():
-            kc, vc = dense[next(it) % len(dense)]
-            return F.scaled_dot_product_attention(qd, kc, vc, attn_mask=valid, enable_gqa=True)
+            def gathered_sdpa():
+                kc, vc = dense[next(it) % len(dense)]
+                return F.scaled_dot_product_attention(qd, kc, vc, attn_mask=valid,
+                                                      enable_gqa=True)
 
-        lms = _timed(gathered_sdpa, 100, warmup=8)
-        del dense
-    for quantized, tag in ((False, "bf16"), (True, "int8")):
-        log(f"  paged_decode at the serving step (lens {step_lens}, page {SERVE_PAGE}), {tag} "
-            f"pools: {times[quantized][0]:.4f} ms [{times[quantized][1]:.4f}] = walk "
-            f"{parts[quantized][0]:.4f} + merge {parts[quantized][1]:.4f} ms, bound "
-            f"{bounds[quantized][0]:.4f} ms ({bounds[quantized][1]})")
-    log("  yardstick for paged_decode (not one library call on the pools): "
-        "scaled_dot_product_attention over the cache gathered dense, with a length mask")
-    rows.append(dict(
-        name="paged_decode", route="cuda", source="ffpa_attn_tpu_torch/csrc/paged_decode.cu",
-        replaces="ffpa_attn_tpu/ops/paged.py:297",
-        launches=serving["launches"]["paged_decode"], max_abs_err=errs["paged_decode"],
-        ms=times[False][0], plain_ms=pms[0], bound_ms=bounds[False][0],
-        bound_by=bounds[False][1], library_ms=lms[0], walk_ms=parts[False][0],
-        merge_ms=parts[False][1], int8_ms=times[True][0], int8_walk_ms=parts[True][0],
-        int8_merge_ms=parts[True][1], int8_bound_ms=bounds[True][0],
-    ))
-    rows[-1].update(paged_kernel_row_extras(d))
-    events["paged_decode"] = (times[False][1], pms[1], lms[1])
-    torch.cuda.empty_cache()
-    return rows, events
+            lms = _timed(gathered_sdpa, 100, warmup=8)
+            del dense
+        out.update(plain_ms=pms[0], library_ms=lms[0], events=(times[1], pms[1], lms[1]))
+        if plain or library:
+            log(f"  {label}: plain {pms[0]:.4f} ms [{pms[1]:.4f}], gathered SDPA {lms[0]:.4f} ms "
+                f"[{lms[1]:.4f}]")
+        del pools
+        torch.cuda.empty_cache()
+    return out
 
 
 def packed_training_times(packed: dict) -> tuple:
@@ -4545,7 +4728,8 @@ def varlen_cluster_times(wide: dict) -> tuple:
 
 
 def phase_times(errs: dict, main_path: dict, training: dict, windowed: dict,
-                resident: dict, serving: dict, packed: dict, fp8_training: dict) -> list:
+                resident: dict, serving: dict, packed: dict, fp8_training: dict,
+                wide: dict) -> list:
     import torch.nn.functional as F
 
     from ffpa_attn_tpu_torch.ops import decode, flash_fwd
@@ -4677,7 +4861,7 @@ def phase_times(errs: dict, main_path: dict, training: dict, windowed: dict,
     rows[-1].update(decode_kernel_row_extras(d))
     events["decode"] = (kms[1], pms[1], lms[1])
     torch.cuda.empty_cache()
-    serve_rows, serve_events = serving_times(errs, serving, main_path["model"])
+    serve_rows, serve_events = serving_times(errs, serving, wide, main_path["model"])
     train_rows, train_events, fwd_train = training_times(training, windowed, resident,
                                                          errs["from_s_cluster_launches"],
                                                          errs["dq_cluster_launches"],
@@ -4714,6 +4898,10 @@ def main() -> int:
     serving = phase_serving(main_path["model"])
     log(f"serving tokens/s on {smi}: " + " ".join(
         f"{k} {v:.1f}" for k, v in serving["rates"].items()))
+    wide = phase_paged_wide(smi)
+    log(f"Dh1024 paged serving tokens/s on {smi}: " + " ".join(
+        f"{k} {v:.1f}" for k, v in wide["rates"].items()) + "; paged decode device ms a step: "
+        + " ".join(f"{k} {v:.4f}" for k, v in wide["step_ms"].items()))
     phase_monkey_patch()
     spec = phase_speculative(main_path["model"])
     log(f"speculative tokens/s on {smi}: " + " ".join(
@@ -4732,7 +4920,7 @@ def main() -> int:
     phase_checkpoint()
     packed = phase_packed_training()
     rows = phase_times(errs, main_path, training, windowed, resident, serving, packed,
-                       fp8_training)
+                       fp8_training, wide)
     bench = phase_bench_cli(main_path["model"])
     for r in rows:  # launches per speculative call beside the main path's
         if r["name"] in ("flash_fwd", "decode"):

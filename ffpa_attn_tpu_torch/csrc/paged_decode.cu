@@ -20,40 +20,45 @@
 // serving shape that is 16 blocks for 132 SMs. So the walk is split, and
 // launch 2 merges the splits by LSE (split_merge.cuh, the dense decode's):
 //   launch 1, grid (splits, Hkv * row_blocks, B), writes fp32 partials
-//     normalised by their own l with lse_s = m + log l (-inf where a split
-//     attended nothing), [B, Hkv, splits, R, Dv] and [B, Hkv, splits, R].
+//   normalised by their own l with lse_s = m + log l (-inf where a split
+//   attended nothing), [B, Hkv, splits, R, Dv] and [B, Hkv, splits, R].
 //
-// Two routes for launch 1, chosen by make_plan (ffpa_paged_plan hands it out,
-// ops/config.py paged_plan mirrors it):
+// Launch 1 is one TMA + wgmma block (namespace tma) for every shape the
+// TPU kernel takes: D, Dv <= 1024 in 64-column multiples, pages of any
+// size, bf16/f16 or int8 pools. make_plan sizes it (ffpa_paged_plan hands
+// the plan out, ops/config.py paged_plan mirrors it).
 //
-// * TMA (namespace tma; D, Dv <= 512 in 64-column multiples, pages of a
-//   multiple of 16 rows): built for bytes in flight and blocks with work.
-//   Each block cuts its split from its own sequence's length on the device:
-//   the live range [first, lens[b]) (first: the window's first position
-//   rounded down to a 64-row tile, else 0) is cut into `splits` near-equal
-//   runs of whole tiles, so every block of a live sequence streams about the
-//   same bytes and none streams positions past lens[b]. One producer thread
-//   reads the page table once per box and keeps a ring of 8 KiB stages full
-//   (up to 12, about 90 KiB in flight a block, two blocks an SM): each stage
-//   is 64 cache rows x 128 B of K or V (64 bf16/f16 or 128 int8 columns), as
-//   TMA boxes of box_rows rows (box_rows divides the page and 64, so a box
-//   never crosses a page) through a 3-D map (D, page, P * Hkv) with the 128 B
-//   swizzle. One consumer warpgroup does the math with wgmma, roles swapped
-//   so the 64 cache rows are M and the packed rows N = 16: S^T = K Q^T (Q
-//   resident in 16-row boxes) and O^T += V^T P^T (V read M-major, P^T through
-//   one swizzled 16 x 64 box); S and the fp32 O^T (64 registers a thread at
-//   Dv 512) stay in registers, the row maxima cross the four warps through
-//   shared memory, and only two 128-thread named barriers a tile stand
-//   between the stages. int8 stages are widened to the query type into two
-//   swizzled 64 x 64 boxes by the consumers before their products.
-// * cp.async (paged_decode_kernel below; any other shape: D or Dv > 512, a
-//   page that is no multiple of 16): a block of BQ packed rows walks
-//   [s * kv_per_split, (s + 1) * kv_per_split) cut to [window start, lens)
-//   in 64-row tiles with nvcuda::wmma fragments, the fp32 O tile in shared
-//   memory, Q/K chunk pairs and V chunks streamed through two slots one chunk
-//   ahead with each row's address looked up in the page table; int8 chunks
-//   are widened into a staging tile.
-#include <mma.h>
+// * The split. Each block cuts its split from its own sequence's length on
+//   the device: the live range [first, lens[b]) (first: the window's first
+//   position rounded down to a 64-row tile, else 0) is cut into `splits`
+//   near-equal runs of whole tiles, so every block of a live sequence streams
+//   about the same bytes and none streams positions past lens[b].
+// * The stream. The producer warp keeps a ring of 8 KiB stages full (up to
+//   12, about 90 KiB in flight a block): each stage is 64 cache rows x 128 B
+//   of K or V (64 bf16/f16 or 128 int8 columns), landed by TMA through a 3-D
+//   map (D, page, P * Hkv) with the 128 B swizzle as boxes of box_rows rows,
+//   box_rows the largest power of two dividing both the page and 64, so a box
+//   never crosses a page. TMA swizzles by the shared address, so a stage of
+//   boxes of 1..64 rows reads as one 64-row box; at 64 / box_rows boxes a
+//   stage (up to 64, pages of an odd size) the warp's lanes share the issues,
+//   each reading the page table once for each of its boxes a tile.
+// * The math. One consumer warpgroup (D, Dv <= 512) does it with wgmma, roles
+//   swapped so the 64 cache rows are M and the packed rows N = 16:
+//   S^T = K Q^T (Q resident in 16-row boxes) and O^T += V^T P^T (V read
+//   M-major, P^T through one swizzled 16 x 64 box); S and the fp32 O^T (64
+//   registers a thread at Dv 512) stay in registers, the row maxima cross the
+//   four warps through shared memory, and only two 128-thread named barriers
+//   a tile stand between the stages. int8 stages are widened to the query
+//   type into two swizzled 64 x 64 boxes by the consumers before their
+//   products. Two blocks fit an SM.
+// * Above 512 (SPLIT): O^T at Dv 1024 would take 128 registers a thread, so
+//   two consumer warpgroups split Dv's stages (col_block), each holding the
+//   D512 block's 64 registers of O^T. Both form the same S^T from every K
+//   stage (bit-identical, so the same softmax, with no barrier between them:
+//   a decode's S products are a few percent of its time) and keep their own
+//   P^T box, exchange slots and int8 staging; each waits on and frees every
+//   stage of the stream, its partner's V stages unread, so a stage's phases
+//   stay in step. One block an SM, 288 threads.
 #include <string.h>
 
 #include <algorithm>
@@ -66,412 +71,69 @@
 namespace {
 
 using namespace ffpa;
-using namespace nvcuda;
 
 constexpr int KV_TILE = 64;   // K/V rows per tile (ops/config.py KV_TILE)
-constexpr int D_CHUNK = 64;   // head-dim columns per streamed chunk
-constexpr int PAD_T = 8;      // row padding of 16-bit tiles, in elements
-constexpr int PAD_F = 4;      // row padding of fp32 tiles, in elements
-constexpr int LDT = D_CHUNK + PAD_T;  // Q/K/V chunk and P row stride (KV_TILE == D_CHUNK)
-constexpr int LDS = KV_TILE + PAD_F;  // S row stride
-constexpr int LDB = D_CHUNK + 16;     // int8 chunk row stride, in bytes
-constexpr int NSTAGES = 2;    // stream slots (ops/config.py DECODE_STREAM_STAGES)
-constexpr size_t SMEM_LIMIT = 232448;  // dynamic shared memory a block may opt into
-constexpr int NWARPS = 8;
-constexpr int NTHREADS = NWARPS * 32;
-static_assert(NTHREADS == KV_TILE * (D_CHUNK / 16), "one int8 vector per thread per chunk");
-
-struct PagedParams {
-  const void* q;          // packed [B, Hkv, R, D]
-  const void* k_pages;    // [P, Hkv, page, D]
-  const void* v_pages;    // [P, Hkv, page, Dv]
-  const float* k_scales;  // [P, Hkv, page] (int8 pools), else null
-  const float* v_scales;
-  const int* table;       // [B * max_pages] pool page ids
-  const int* lens;        // [B] cached positions per sequence
-  float* o_part;          // [B, Hkv, splits, R, Dv] fp32 partials
-  float* lse_part;        // [B, Hkv, splits, R]
-  int Hkv, nrows, nq, D, Dv, page, max_pages;
-  float scale, softcap;
-  int window_left;
-  int kv_per_split, num_splits, row_blocks;
-};
-
-// Dynamic shared memory of one block; ops/config.py paged_smem_bytes is the
-// same formula.
-template <typename T, bool Q8>
-size_t paged_smem_bytes(int bq, int dv) {
-  return (size_t)bq * (dv + PAD_F) * 4 + (size_t)bq * LDS * 4 + (size_t)bq * LDT * sizeof(T) +
-         NSTAGES * (size_t)(bq + KV_TILE) * LDT * sizeof(T) + 3 * (size_t)bq * 4 +
-         (Q8 ? (size_t)KV_TILE * LDT * sizeof(T) : 0);
-}
-
-template <typename T, int BQ, bool Q8>
-__global__ void __launch_bounds__(NTHREADS) paged_decode_kernel(const PagedParams p) {
-  using KVT = typename std::conditional<Q8, int8_t, T>::type;
-  constexpr int RT = BQ / 16;                          // 16-row tiles
-  constexpr int CT = KV_TILE / 16;                     // 16-col tiles per S / O chunk
-  constexpr int NT = RT * CT;                          // wmma tiles per S / O chunk
-  constexpr int TPW = (NT + NWARPS - 1) / NWARPS;      // tiles per warp
-  constexpr int SLOT = (BQ + KV_TILE) * LDT;           // elements per stream slot
-  constexpr int RPW = BQ / NWARPS;                     // softmax rows per warp
-  constexpr int KV_ROW_BYTES = Q8 ? LDB : LDT * (int)sizeof(T);  // K/V chunk row stride
-  constexpr int VPR = D_CHUNK * (int)sizeof(KVT) / 16;  // 16-byte vectors per K/V chunk row
-  static_assert(BQ % NWARPS == 0, "row tile must split evenly over the warps");
-
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int LDO = p.Dv + PAD_F;
-  float* O = reinterpret_cast<float*>(smem_raw);
-  float* S = O + BQ * LDO;
-  T* P = reinterpret_cast<T*>(S + BQ * LDS);
-  T* slots = P + BQ * LDT;
-  T* KT = slots + NSTAGES * SLOT;  // int8 pools: the widened K or V chunk
-  float* m_s = reinterpret_cast<float*>(KT + (Q8 ? KV_TILE * LDT : 0));
-  float* l_s = m_s + BQ;
-  float* a_s = l_s + BQ;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int b = blockIdx.z;
-  const int kvh = blockIdx.y / p.row_blocks;
-  const int row0 = (blockIdx.y % p.row_blocks) * BQ;
-  const int split_lo = blockIdx.x * p.kv_per_split;
-  const int n = p.lens[b];
-  int kv_lo = split_lo;
-  if (p.window_left >= 0) {
-    // The earliest position any of the nq rows attends (row 0's window start).
-    const int first = max(0, n - p.nq - p.window_left);
-    kv_lo = max(kv_lo, (first / KV_TILE) * KV_TILE);
-  }
-  const int kv_hi = min(min(split_lo + p.kv_per_split, n), p.max_pages * p.page);
-  const int* trow = p.table + (long long)b * p.max_pages;
-  const T* qb = static_cast<const T*>(p.q) + ((long long)(b * p.Hkv + kvh) * p.nrows) * p.D;
-  const KVT* kpool = static_cast<const KVT*>(p.k_pages);
-  const KVT* vpool = static_cast<const KVT*>(p.v_pages);
-
-  // Pool row (in units of head-dim rows) of this sequence's cache position.
-  auto pool_row = [&](int pos) -> long long {
-    return ((long long)trow[pos / p.page] * p.Hkv + kvh) * p.page + pos % p.page;
-  };
-
-  for (int i = tid; i < BQ * LDO; i += NTHREADS) O[i] = 0.f;
-  for (int i = tid; i < BQ; i += NTHREADS) {
-    m_s[i] = -INFINITY;
-    l_s[i] = 0.f;
-    a_s[i] = 1.f;
-  }
-
-  const int nD = p.D / D_CHUNK, nV = p.Dv / D_CHUNK, per_tile = nD + nV;
-  const int ntiles = kv_hi > kv_lo ? (kv_hi - kv_lo + KV_TILE - 1) / KV_TILE : 0;
-  const int total = ntiles * per_tile;
-
-  // A [64, 64] chunk of K or V at cache positions kv0.., through the table;
-  // positions past kv_hi are zero-filled.
-  auto load_kv = [&](T* dst, const KVT* pool, int kv0, int ld, int c0) {
-    for (int i = tid; i < KV_TILE * VPR; i += NTHREADS) {
-      const int r = i / VPR, cv = (i % VPR) * (16 / (int)sizeof(KVT));
-      const int pos = kv0 + r;
-      const bool ok = pos < kv_hi;
-      const KVT* src = ok ? pool + pool_row(pos) * ld + c0 + cv : pool;
-      cp_async16(reinterpret_cast<unsigned char*>(dst) + r * KV_ROW_BYTES + cv * sizeof(KVT), src,
-                 ok);
-    }
-  };
-  // Chunk g of the stream: per KV tile, nD (Q, K) chunk pairs then nV V chunks.
-  auto issue = [&](int g) {
-    if (g < total) {
-      const int t = g / per_tile, c = g - t * per_tile;
-      T* dst = slots + (g % NSTAGES) * SLOT;
-      const int kv0 = kv_lo + t * KV_TILE;
-      if (c < nD) {
-        for (int i = tid; i < BQ * (D_CHUNK / 8); i += NTHREADS) {
-          const int r = i / (D_CHUNK / 8), cv = (i % (D_CHUNK / 8)) * 8;
-          const bool ok = row0 + r < p.nrows;
-          cp_async16(dst + r * LDT + cv,
-                     ok ? qb + (long long)(row0 + r) * p.D + c * D_CHUNK + cv : qb, ok);
-        }
-        load_kv(dst + BQ * LDT, kpool, kv0, p.D, c * D_CHUNK);
-      } else {
-        load_kv(dst, vpool, kv0, p.Dv, (c - nD) * D_CHUNK);
-      }
-    }
-    cp_async_commit();
-  };
-  // int8 pools: widen the raw chunk at raw into KT (64 rows x 4 vectors of 16).
-  auto widen = [&](const T* raw) {
-    const int r = tid >> 2, c16 = (tid & 3) * 16;
-    const int4 x =
-        *reinterpret_cast<const int4*>(reinterpret_cast<const unsigned char*>(raw) + r * LDB + c16);
-    const int8_t* e = reinterpret_cast<const int8_t*>(&x);
-    uint32_t w[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) w[i] = pack2<T>((float)e[2 * i], (float)e[2 * i + 1]);
-    uint4* d = reinterpret_cast<uint4*>(KT + r * LDT + c16);
-    d[0] = make_uint4(w[0], w[1], w[2], w[3]);
-    d[1] = make_uint4(w[4], w[5], w[6], w[7]);
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[TPW];
-#pragma unroll
-  for (int g = 0; g < NSTAGES - 1; ++g) issue(g);
-  for (int t = 0; t < ntiles; ++t) {
-    const int kv0 = kv_lo + t * KV_TILE;
-#pragma unroll
-    for (int i = 0; i < TPW; ++i) wmma::fill_fragment(acc[i], 0.f);
-    for (int c = 0; c < per_tile; ++c) {
-      const int g = t * per_tile + c;
-      issue(g + NSTAGES - 1);  // into the slot chunk g - 1 used
-      cp_async_wait<NSTAGES - 1>();
-      __syncthreads();
-      const T* cur = slots + (g % NSTAGES) * SLOT;
-      const T* kv_tile = c < nD ? cur + BQ * LDT : cur;  // the K or V chunk, [64, LDT]
-      if constexpr (Q8) {
-        widen(kv_tile);
-        __syncthreads();
-        kv_tile = KT;
-      }
-      if (c < nD) {
-        // S += Q_chunk K_chunk^T
-#pragma unroll
-        for (int i = 0; i < TPW; ++i) {
-          const int tile = warp + i * NWARPS;
-          if (tile < NT) {
-            const int rt = tile / CT, ct = tile % CT;
-#pragma unroll
-            for (int kk = 0; kk < D_CHUNK / 16; ++kk) {
-              wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> fa;
-              wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> fb;
-              wmma::load_matrix_sync(fa, cur + rt * 16 * LDT + kk * 16, LDT);
-              wmma::load_matrix_sync(fb, kv_tile + ct * 16 * LDT + kk * 16, LDT);
-              wmma::mma_sync(acc[i], fa, fb, acc[i]);
-            }
-          }
-        }
-        if (c == nD - 1) {
-#pragma unroll
-          for (int i = 0; i < TPW; ++i) {
-            const int tile = warp + i * NWARPS;
-            if (tile < NT) {
-              const int rt = tile / CT, ct = tile % CT;
-              wmma::store_matrix_sync(S + rt * 16 * LDS + ct * 16, acc[i], LDS,
-                                      wmma::mem_row_major);
-            }
-          }
-          __syncthreads();
-          // Online softmax: each warp owns RPW rows, two columns per lane.
-          float ksc[2] = {1.f, 1.f}, vsc[2] = {1.f, 1.f};
-          if constexpr (Q8) {
-#pragma unroll
-            for (int j = 0; j < 2; ++j) {
-              const int pos = kv0 + lane + 32 * j;
-              if (pos < kv_hi) {
-                const long long pr = pool_row(pos);
-                ksc[j] = p.k_scales[pr];
-                vsc[j] = p.v_scales[pr];
-              }
-            }
-          }
-          float sv[RPW][2], red[RPW];
-          bool keep[RPW][2];
-#pragma unroll
-          for (int i = 0; i < RPW; ++i) {
-            const int r = warp + i * NWARPS;
-            const int row = row0 + r;
-            const bool valid = row < p.nrows;
-            const int limit = n - (p.nq - 1) + row % p.nq;
-#pragma unroll
-            for (int j = 0; j < 2; ++j) {
-              const int cc = lane + 32 * j, col = kv0 + cc;
-              bool kp = valid && col < kv_hi && col < limit;
-              if (p.window_left >= 0) kp = kp && col >= limit - 1 - p.window_left;
-              float s = MASK_VALUE;
-              if (kp) {
-                s = S[r * LDS + cc] * p.scale * ksc[j];
-                if (p.softcap > 0.f) s = p.softcap * tanhf(s / p.softcap);
-              }
-              sv[i][j] = s;
-              keep[i][j] = kp;
-            }
-            red[i] = fmaxf(sv[i][0], sv[i][1]);
-          }
-#pragma unroll
-          for (int o = 16; o > 0; o >>= 1)
-#pragma unroll
-            for (int i = 0; i < RPW; ++i)
-              red[i] = fmaxf(red[i], __shfl_xor_sync(0xffffffffu, red[i], o));
-          float m_new[RPW], alpha[RPW];
-#pragma unroll
-          for (int i = 0; i < RPW; ++i) {
-            const int r = warp + i * NWARPS;
-            const float m_old = m_s[r];
-            m_new[i] = fmaxf(m_old, red[i]);  // >= MASK_VALUE: finite from the first tile on
-            alpha[i] = __expf(m_old - m_new[i]);
-            const float p0 = keep[i][0] ? __expf(sv[i][0] - m_new[i]) : 0.f;
-            const float p1 = keep[i][1] ? __expf(sv[i][1] - m_new[i]) : 0.f;
-            P[r * LDT + lane] = from_float<T>(p0 * vsc[0]);  // V's dequant folded into P
-            P[r * LDT + lane + 32] = from_float<T>(p1 * vsc[1]);
-            red[i] = p0 + p1;
-          }
-#pragma unroll
-          for (int o = 16; o > 0; o >>= 1)
-#pragma unroll
-            for (int i = 0; i < RPW; ++i) red[i] += __shfl_xor_sync(0xffffffffu, red[i], o);
-          __syncwarp();
-          if (lane == 0) {
-#pragma unroll
-            for (int i = 0; i < RPW; ++i) {
-              const int r = warp + i * NWARPS;
-              m_s[r] = m_new[i];
-              l_s[r] = alpha[i] * l_s[r] + red[i];
-              a_s[r] = alpha[i];
-            }
-          }
-        }
-      } else {
-        // O[:, chunk] = alpha * O[:, chunk] + P V_chunk
-        const int vc = c - nD;
-#pragma unroll
-        for (int i = 0; i < TPW; ++i) {
-          const int tile = warp + i * NWARPS;
-          if (tile < NT) {
-            const int rt = tile / CT, ct = tile % CT;
-            float* op = O + rt * 16 * LDO + vc * D_CHUNK + ct * 16;
-            if (t > 0) {
-              const int r = lane >> 1, c8 = (lane & 1) * 8;
-              const float al = a_s[rt * 16 + r];
-              float4* o4 = reinterpret_cast<float4*>(op + r * LDO + c8);
-#pragma unroll
-              for (int h = 0; h < 2; ++h) {
-                float4 x = o4[h];
-                x.x *= al;
-                x.y *= al;
-                x.z *= al;
-                x.w *= al;
-                o4[h] = x;
-              }
-              __syncwarp();
-            }
-            wmma::fragment<wmma::accumulator, 16, 16, 16, float> oacc;
-            wmma::load_matrix_sync(oacc, op, LDO, wmma::mem_row_major);
-#pragma unroll
-            for (int kk = 0; kk < KV_TILE / 16; ++kk) {
-              wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> fa;
-              wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> fb;
-              wmma::load_matrix_sync(fa, P + rt * 16 * LDT + kk * 16, LDT);
-              wmma::load_matrix_sync(fb, kv_tile + kk * 16 * LDT + ct * 16, LDT);
-              wmma::mma_sync(oacc, fa, fb, oacc);
-            }
-            wmma::store_matrix_sync(op, oacc, LDO, wmma::mem_row_major);
-          }
-        }
-      }
-      __syncthreads();  // the slot (and staging tile) read here is refilled next
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // Epilogue: partial o_s = O / l and lse_s = m + log(l); a row that attended
-  // nothing here gives o_s = 0 and lse_s = -inf, which the merge weighs 0.
-  for (int r = warp; r < BQ; r += NWARPS) {
-    const int row = row0 + r;
-    if (row >= p.nrows) continue;
-    const float l = l_s[r];
-    const float l_safe = (l == 0.f) ? 1.f : l;
-    const float* orow = O + r * LDO;
-    const long long base =
-        (((long long)(b * p.Hkv + kvh) * p.num_splits + blockIdx.x) * p.nrows) + row;
-    float* dst = p.o_part + base * p.Dv;
-    for (int c = lane * 4; c < p.Dv; c += 128) {
-      float4 x = *reinterpret_cast<const float4*>(orow + c);
-      x.x /= l_safe;
-      x.y /= l_safe;
-      x.z /= l_safe;
-      x.w /= l_safe;
-      *reinterpret_cast<float4*>(dst + c) = x;
-    }
-    if (lane == 0) p.lse_part[base] = (l == 0.f) ? -INFINITY : m_s[r] + logf(fmaxf(l, 1e-38f));
-  }
-}
-
-template <typename T, int BQ, bool Q8>
-cudaError_t launch_partials(const PagedParams& p, dim3 grid, cudaStream_t stream) {
-  auto kern = paged_decode_kernel<T, BQ, Q8>;
-  const size_t smem = paged_smem_bytes<T, Q8>(BQ, p.Dv);
-  cudaError_t e =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  kern<<<grid, NTHREADS, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-template <typename T, bool Q8>
-cudaError_t launch_paged(const PagedParams& p, void* o, float* lse, int block_rows, int B,
-                         cudaStream_t st) {
-  const dim3 grid(p.num_splits, p.Hkv * p.row_blocks, B);
-  cudaError_t e;
-  switch (block_rows) {
-    case 16: e = launch_partials<T, 16, Q8>(p, grid, st); break;
-    case 32: e = launch_partials<T, 32, Q8>(p, grid, st); break;
-    case 64: e = launch_partials<T, 64, Q8>(p, grid, st); break;
-    default: return cudaErrorInvalidValue;
-  }
-  if (e != cudaSuccess) return e;
-  return launch_split_merge<T>(p.o_part, p.lse_part, o, lse, p.nrows, p.num_splits, p.Dv,
-                               B * p.Hkv, st);
-}
-
-// ---------------------------------------------------------------------------
-// The TMA route
-// ---------------------------------------------------------------------------
+constexpr int D_CHUNK = 64;   // head-dim columns per box (ops/config.py D_CHUNK)
+constexpr int MAX_D = 1024;   // head dims the block takes
 
 namespace tma {
 
 using namespace ffpa::sm90;
 
 constexpr int ROWS = 16;                       // packed rows of a block: wgmma's N
-constexpr int TILE = 64;                       // cache rows of a tile: wgmma's M (KV_TILE)
+constexpr int TILE = KV_TILE;                  // cache rows of a tile: wgmma's M
 constexpr int STAGE_BYTES = TILE * 128;        // 64 rows x 128 B of K or V
-constexpr int MAX_BOXES = 8;                   // D, Dv <= 512: 64-column boxes of Q and of O
+constexpr int MAX_BOXES = 8;                   // 64-column boxes of O^T a warpgroup holds
 constexpr int MAX_STAGES = 12;
-constexpr int CONSUMERS = 128;                 // one warpgroup: the math
-constexpr int THREADS = CONSUMERS + 32;        // and one producer warp
-constexpr int CONSUMER_WARPS = CONSUMERS / 32; // arrivals that free a stage
+constexpr int CONSUMERS = 128;                 // a warpgroup: the math
+constexpr int CONSUMER_WARPS = CONSUMERS / 32; // a warpgroup's arrivals that free a stage
 constexpr int Q_BOX_BYTES = ROWS * 128;        // 16 rows x 64 columns of Q, or of P^T
 constexpr int STAGING_BYTES = 2 * BOX_BYTES;   // an int8 stage widened: two 64 x 64 boxes
 constexpr int XCH_FLOATS = 2 * CONSUMER_WARPS * ROWS;  // per-warp row maxima, two tiles
-// Two blocks an SM: 228 KiB of shared memory, 1 KiB of it reserved a block.
+// D, Dv <= 512: two blocks an SM, 228 KiB of shared memory, 1 KiB of it
+// reserved a block. Above: one block an SM, all a block may opt into.
 constexpr size_t BLOCK_SMEM = 115712;
-static_assert(TILE == KV_TILE, "a tile is the cp.async kernel's");
+constexpr size_t SPLIT_BLOCK_SMEM = 232448;
+
+// Consumer warpgroups of the instance, and its threads (and one producer
+// warp).
+__host__ __device__ constexpr int warpgroups(bool split) { return split ? 2 : 1; }
+__host__ __device__ constexpr int threads(bool split) {
+  return warpgroups(split) * CONSUMERS + 32;
+}
 
 // Shared memory of a block besides its ring (a stage is STAGE_COST with its
-// two barriers): the 1024 B alignment, int8's two staging buffers, Q's
-// boxes, the P^T box and the exchange.
-constexpr size_t fixed_bytes(int nd, bool q8) {
-  return 1024 + (q8 ? 2 * (size_t)STAGING_BYTES : 0) + (size_t)(nd + 1) * Q_BOX_BYTES +
-         XCH_FLOATS * sizeof(float);
+// two barriers): the 1024 B alignment, Q's boxes and, per warpgroup, int8's
+// two staging buffers, the P^T box and the exchange.
+constexpr size_t fixed_bytes(int nd, bool q8, bool split) {
+  return 1024 + (size_t)nd * Q_BOX_BYTES +
+         warpgroups(split) * ((q8 ? 2 * (size_t)STAGING_BYTES : 0) + Q_BOX_BYTES +
+                              XCH_FLOATS * sizeof(float));
 }
 constexpr size_t STAGE_COST = STAGE_BYTES + 2 * sizeof(uint64_t);
-static_assert(fixed_bytes(MAX_BOXES, true) + 2 * STAGE_COST <= BLOCK_SMEM,
+static_assert(fixed_bytes(MAX_BOXES, true, false) + 2 * STAGE_COST <= BLOCK_SMEM,
               "int8 at D512 keeps a ring of two stages or more");
+static_assert(fixed_bytes(MAX_D / 64, true, true) + 2 * STAGE_COST <= SPLIT_BLOCK_SMEM,
+              "int8 at D1024 keeps a ring of two stages or more");
 
 // Shared memory of a block, from a 1024 B boundary.
 struct Smem {
   unsigned char* ring;     // stages x 8 KiB
-  unsigned char* staging;  // int8: two buffers of two widened boxes
+  unsigned char* staging;  // int8: per warpgroup two buffers of two widened boxes
   unsigned char* q;        // nd boxes of 16 x 64
-  unsigned char* p;        // P^T: 16 packed rows x 64 cache rows
-  float* xch;              // [2][CONSUMER_WARPS][ROWS]
+  unsigned char* p;        // per warpgroup P^T: 16 packed rows x 64 cache rows
+  float* xch;              // per warpgroup [2][CONSUMER_WARPS][ROWS]
   uint64_t* full;
   uint64_t* empty;
 };
-__device__ __forceinline__ Smem carve(unsigned char* base, int nd, int stages, bool q8) {
+__device__ __forceinline__ Smem carve(unsigned char* base, int nd, int stages, bool q8, int wgs) {
   Smem sm;
   sm.ring = base;
   sm.staging = sm.ring + (size_t)stages * STAGE_BYTES;
-  sm.q = sm.staging + (q8 ? 2 * STAGING_BYTES : 0);
+  sm.q = sm.staging + (q8 ? wgs * 2 * STAGING_BYTES : 0);
   sm.p = sm.q + nd * Q_BOX_BYTES;
-  sm.xch = reinterpret_cast<float*>(sm.p + Q_BOX_BYTES);
-  sm.full = reinterpret_cast<uint64_t*>(sm.xch + XCH_FLOATS);
+  sm.xch = reinterpret_cast<float*>(sm.p + wgs * Q_BOX_BYTES);
+  sm.full = reinterpret_cast<uint64_t*>(sm.xch + wgs * XCH_FLOATS);
   sm.empty = sm.full + stages;
   return sm;
 }
@@ -541,26 +203,31 @@ __device__ __forceinline__ Range range_of(const Params& p) {
   return r;
 }
 
-// The producer's thread: per tile, the page of each box read once from the
-// table (past the table's end, the null page: such rows are masked), then
+// The producer warp: per tile, lane l takes boxes l and l + 32 of every
+// stage (64 / box_rows boxes a stage), each box's page read once from the
+// table (past the table's end, the null page: such rows are masked); then
 // the K stages and the V stages, each all the boxes of 64 rows of one 128 B
-// column slab.
+// column slab. Lane 0 arms the stage's barrier before any lane issues.
 __device__ __forceinline__ void produce(const Maps& maps, const Params& p, const Smem& sm,
                                         const Range& r, int nks, int nvs, int slab_cols) {
-  prefetch_map(&maps.k_map);
-  prefetch_map(&maps.v_map);
+  const int lane = threadIdx.x & 31;
+  if (lane == 0) {
+    prefetch_map(&maps.k_map);
+    prefetch_map(&maps.v_map);
+  }
   const int* trow = p.table + (long long)r.b * p.max_pages;
   const int nb = TILE / p.box_rows;
   int it = 0;
   for (int t = 0; t < r.ntiles; ++t) {
     const int kv0 = r.kv_lo + t * TILE;
-    int slab[4], off[4];
+    int slab[2], off[2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < 2; ++i) {
+      const int bx = lane + 32 * i;
       slab[i] = 0;
       off[i] = 0;
-      if (i < nb) {
-        const int pos = kv0 + i * p.box_rows, pi = pos / p.page;
+      if (bx < nb) {
+        const int pos = kv0 + bx * p.box_rows, pi = pos / p.page;
         const int pid = pi < p.max_pages ? __ldg(trow + pi) : 0;
         slab[i] = pid * p.Hkv + r.kvh;
         off[i] = pos - pi * p.page;
@@ -573,13 +240,16 @@ __device__ __forceinline__ void produce(const Maps& maps, const Params& p, const
       for (int j = 0; j < ns; ++j, ++it) {
         const int st = it % p.stages;
         if (it >= p.stages) mbar_wait(&sm.empty[st], ((it / p.stages) - 1) & 1);
-        mbar_arrive_expect_tx(&sm.full[st], STAGE_BYTES);
+        if (lane == 0) mbar_arrive_expect_tx(&sm.full[st], STAGE_BYTES);
+        __syncwarp();
         unsigned char* dst = sm.ring + (size_t)st * STAGE_BYTES;
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          if (i < nb)
-            tma_load_3d(dst + i * p.box_rows * 128, map, &sm.full[st], j * slab_cols, off[i],
+        for (int i = 0; i < 2; ++i) {
+          const int bx = lane + 32 * i;
+          if (bx < nb)
+            tma_load_3d(dst + bx * p.box_rows * 128, map, &sm.full[st], j * slab_cols, off[i],
                         slab[i]);
+        }
       }
     }
   }
@@ -648,22 +318,39 @@ __device__ __forceinline__ void pv_mma(float (&acc)[8], const unsigned char* vbo
     wgmma_ss<T, ROWS, 1, 0>(acc, da + kk * (2048 >> 4), db + kk * (32 >> 4), 1);
 }
 
-// The consumer warpgroup. Accumulator element 4 j + 2 hh + e of thread (warp,
+// A consumer warpgroup. Accumulator element 4 j + 2 hh + e of thread (warp,
 // g = lane / 4, t4 = lane % 4) is M row 16 warp + g + 8 hh and packed row
 // (N column) 8 j + 2 t4 + e: for S^T the cache row kv0 + 16 warp + g + 8 hh,
 // for O^T box i's column 64 i + 16 warp + g + 8 hh. Element 4 j + 2 hh + e
-// belongs to this thread's packed-row slot jj = 2 j + e.
-template <typename T, bool Q8>
+// belongs to this thread's packed-row slot jj = 2 j + e. With SPLIT,
+// warpgroup wg owns V stages [vs0, vs0 + vsn) of each tile (col_block over
+// the tile's nvs), Dv boxes from vb0 on.
+template <typename T, bool Q8, bool SPLIT>
 __device__ __forceinline__ void consume(const Params& p, const Smem& sm, const Range& r, int nd,
                                         int nv, int nks, int nvs) {
-  constexpr int MAX_VS = Q8 ? MAX_BOXES / 2 : MAX_BOXES;  // V stages of a tile, at most
+  constexpr int WGS = warpgroups(SPLIT);
+  constexpr int MAX_VS = Q8 ? MAX_BOXES / 2 : MAX_BOXES;  // V stages of a warpgroup, at most
   constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x & (CONSUMERS - 1), warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
+  // The warpgroup's index through a shuffle, so the compiler sees it uniform
+  // across the warp and the branches on it around wgmma as not divergent.
+  const int wg = SPLIT ? __shfl_sync(0xffffffffu, (int)(threadIdx.x / CONSUMERS), 0) : 0;
+  const int bar = SPLIT ? 2 + wg : 1;  // this warpgroup's named barrier
+  int vs0 = 0, vsn = nvs;
+  if constexpr (SPLIT) {
+    const Cols c = col_block(nvs, WGS, wg);
+    vs0 = c.c0 / 64;
+    vsn = c.nc;
+  }
+  const int vb0 = Q8 ? 2 * vs0 : vs0;  // this warpgroup's first Dv box
+  unsigned char* const pbox = sm.p + wg * Q_BOX_BYTES;
+  float* const xch0 = sm.xch + wg * XCH_FLOATS;
 
-  // Q: the block's 16 packed rows (zeros past R) into nd swizzled boxes.
+  // Q: the block's 16 packed rows (zeros past R) into nd swizzled boxes, by
+  // every consumer thread.
   const T* qb = static_cast<const T*>(p.q) + (long long)(r.b * p.Hkv + r.kvh) * p.nrows * p.D;
-  for (int i = tid; i < ROWS * nd * 8; i += CONSUMERS) {
+  for (int i = threadIdx.x; i < ROWS * nd * 8; i += WGS * CONSUMERS) {
     const int row = i / (nd * 8), c = i - row * (nd * 8);  // 8-column chunk c of the row
     uint4 x = make_uint4(0u, 0u, 0u, 0u);
     if (r.row0 + row < p.nrows)
@@ -688,7 +375,7 @@ __device__ __forceinline__ void consume(const Params& p, const Smem& sm, const R
   for (int i = 0; i < MAX_BOXES * 8; ++i) o[i] = 0.f;
   fence_operands(o);
   fence_proxy_async();
-  named_barrier_sync(1, CONSUMERS);  // Q is in
+  named_barrier_sync(1, WGS * CONSUMERS);  // Q is in
 
   // it: the stream's stage index; held: a stage whose products may still
   // run (one group stays in flight); sg: int8 staging buffers used.
@@ -705,16 +392,26 @@ __device__ __forceinline__ void consume(const Params& p, const Smem& sm, const R
     release(held >= 0 ? held : 0, held >= 0);
     held = -1;
   };
-  // int8: stage st widened into the next staging buffer, then freed; the
-  // buffer's products of two stages before completed at the last wait.
+  // int8: stage st widened into this warpgroup's next staging buffer, then
+  // freed; the buffer's products of two stages before completed at the
+  // last wait.
   auto widen = [&](int st) -> const unsigned char* {
-    unsigned char* stg = sm.staging + (sg++ & 1) * STAGING_BYTES;
+    unsigned char* stg = sm.staging + (wg * 2 + (sg++ & 1)) * STAGING_BYTES;
     widen_stage<T>(sm.ring + (size_t)st * STAGE_BYTES, stg, tid);
     __syncwarp();
     release(st, true);
     fence_proxy_async();
-    named_barrier_sync(1, CONSUMERS);
+    named_barrier_sync(bar, CONSUMERS);
     return stg;
+  };
+  // SPLIT: the partner's V stages, waited on and freed unread, so this
+  // warpgroup sees every phase of every stage.
+  auto pass_over = [&](int count) {
+    for (int j = 0; j < count; ++j, ++it) {
+      const int st = it % p.stages;
+      mbar_wait(&sm.full[st], (it / p.stages) & 1);
+      release(st, true);
+    }
   };
   const int* trow = p.table + (long long)r.b * p.max_pages;
 
@@ -774,7 +471,7 @@ __device__ __forceinline__ void consume(const Params& p, const Smem& sm, const R
 
     // Column (packed-row) maxima: this thread's two cache rows, the warp's
     // 16 (lanes of one t4), then the four warps through the exchange.
-    float* xch = sm.xch + (t & 1) * (CONSUMER_WARPS * ROWS);
+    float* xch = xch0 + (t & 1) * (CONSUMER_WARPS * ROWS);
     float mx[4];
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
@@ -785,7 +482,7 @@ __device__ __forceinline__ void consume(const Params& p, const Smem& sm, const R
       mx[jj] = fmaxf(mx[jj], __shfl_xor_sync(0xffffffffu, mx[jj], 16));
       if (g == 0) xch[warp * ROWS + col[jj]] = mx[jj];
     }
-    named_barrier_sync(1, CONSUMERS);
+    named_barrier_sync(bar, CONSUMERS);
     float alpha[4];
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
@@ -804,77 +501,83 @@ __device__ __forceinline__ void consume(const Params& p, const Smem& sm, const R
       const float pv = sv[i] == MASK_VALUE ? 0.f : ex2(sv[i] - m[jj]);
       if ((i & 2) == 0) l[jj] *= alpha[jj];
       l[jj] += pv;
-      *reinterpret_cast<T*>(sm.p + swz(col[jj], 16 * warp + g + 8 * hh)) =
+      *reinterpret_cast<T*>(pbox + swz(col[jj], 16 * warp + g + 8 * hh)) =
           from_float<T>(pv * vsc[hh]);
     }
 #pragma unroll
     for (int i = 0; i < MAX_BOXES * 8; ++i) o[i] *= alpha[2 * ((i & 7) >> 2) + (i & 1)];
     fence_operands(o);
     fence_proxy_async();
-    named_barrier_sync(1, CONSUMERS);  // P^T is in; every warp has read the maxima
+    named_barrier_sync(bar, CONSUMERS);  // P^T is in; every warp has read the maxima
 
-    // O^T += V^T P^T: V stage j is the 128 B column slab j (Dv box j, or
-    // boxes 2 j and 2 j + 1 of an int8 pool).
+    // O^T += V^T P^T: V stage vs0 + j is the 128 B column slab vs0 + j (Dv
+    // box vb0 + j, or boxes vb0 + 2 j and vb0 + 2 j + 1 of an int8 pool).
+    if constexpr (SPLIT) pass_over(vs0);
 #pragma unroll
     for (int j = 0; j < MAX_VS; ++j) {
-      if (j < nvs) {
+      if (j < vsn) {
         const int st = it % p.stages;
         mbar_wait(&sm.full[st], (it / p.stages) & 1);
         if constexpr (Q8) {
           const unsigned char* stg = widen(st);
           wgmma_fence();
-          pv_mma<T>(*reinterpret_cast<float(*)[8]>(o + 16 * j), stg, sm.p);
-          if (2 * j + 1 < nv)
-            pv_mma<T>(*reinterpret_cast<float(*)[8]>(o + 16 * j + 8), stg + BOX_BYTES, sm.p);
+          pv_mma<T>(*reinterpret_cast<float(*)[8]>(o + 16 * j), stg, pbox);
+          if (vb0 + 2 * j + 1 < nv)
+            pv_mma<T>(*reinterpret_cast<float(*)[8]>(o + 16 * j + 8), stg + BOX_BYTES, pbox);
           wgmma_commit();
           wgmma_wait<1>();
         } else {
           wgmma_fence();
           pv_mma<T>(*reinterpret_cast<float(*)[8]>(o + 8 * j), sm.ring + (size_t)st * STAGE_BYTES,
-                    sm.p);
+                    pbox);
           done_with(st);
         }
         ++it;
       }
     }
+    if constexpr (SPLIT) pass_over(nvs - vs0 - vsn);
   }
   drain();
   fence_operands(o);
 
   // Epilogue: l over the warp's lanes and the four warps; o_s = O / l and
-  // lse_s = m + log l on rows below R (l == 0: o_s = 0, lse_s = -inf).
+  // lse_s = m + log l on rows below R (l == 0: o_s = 0, lse_s = -inf). A
+  // warpgroup writes its own Dv boxes; warpgroup 0 writes lse_s.
 #pragma unroll
   for (int jj = 0; jj < 4; ++jj) {
     l[jj] += __shfl_xor_sync(0xffffffffu, l[jj], 4);
     l[jj] += __shfl_xor_sync(0xffffffffu, l[jj], 8);
     l[jj] += __shfl_xor_sync(0xffffffffu, l[jj], 16);
-    if (g == 0) sm.xch[warp * ROWS + col[jj]] = l[jj];  // read by all before the last barrier
+    if (g == 0) xch0[warp * ROWS + col[jj]] = l[jj];  // read by all before the last barrier
   }
-  named_barrier_sync(1, CONSUMERS);
+  named_barrier_sync(bar, CONSUMERS);
+  const int nvb = SPLIT ? min(nv - vb0, (Q8 ? 2 : 1) * vsn) : nv;  // this warpgroup's boxes
   const long long base = ((long long)(r.b * p.Hkv + r.kvh) * p.num_splits + blockIdx.x) * p.nrows;
 #pragma unroll
   for (int jj = 0; jj < 4; ++jj) {
     if (!live[jj]) continue;
     float lt = 0.f;
 #pragma unroll
-    for (int w = 0; w < CONSUMER_WARPS; ++w) lt += sm.xch[w * ROWS + col[jj]];
+    for (int w = 0; w < CONSUMER_WARPS; ++w) lt += xch0[w * ROWS + col[jj]];
     const float inv = lt == 0.f ? 0.f : __fdividef(1.f, lt);
     const long long row = base + r.row0 + col[jj];
-    float* dst = p.o_part + row * p.Dv + 16 * warp + g;
+    float* dst = p.o_part + row * p.Dv + 64 * vb0 + 16 * warp + g;
 #pragma unroll
     for (int i = 0; i < MAX_BOXES; ++i) {
-      if (i < nv) {
+      if (i < nvb) {
         dst[64 * i] = o[8 * i + 4 * (jj >> 1) + (jj & 1)] * inv;
         dst[64 * i + 8] = o[8 * i + 4 * (jj >> 1) + 2 + (jj & 1)] * inv;
       }
     }
-    if (warp == 0 && g == 0) p.lse_part[row] = lt == 0.f ? -INFINITY : m[jj] * LN2 + logf(lt);
+    if (wg == 0 && warp == 0 && g == 0)
+      p.lse_part[row] = lt == 0.f ? -INFINITY : m[jj] * LN2 + logf(lt);
   }
 }
 
-template <typename T, bool Q8>
-__global__ void __launch_bounds__(THREADS, 2)
+template <typename T, bool Q8, bool SPLIT>
+__global__ void __launch_bounds__(threads(SPLIT), SPLIT ? 1 : 2)
     paged_tma_kernel(const __grid_constant__ Maps maps, const Params p) {
+  constexpr int WGS = warpgroups(SPLIT);
   extern __shared__ unsigned char smem_raw[];
   // Boxes on 1024 B boundaries: the 128 B swizzle's atom.
   unsigned char* base = reinterpret_cast<unsigned char*>(
@@ -888,26 +591,27 @@ __global__ void __launch_bounds__(THREADS, 2)
     const long long base_row =
         ((long long)(r.b * p.Hkv + r.kvh) * p.num_splits + blockIdx.x) * p.nrows + r.row0;
     const int rows = min(ROWS, p.nrows - r.row0);
-    for (int i = threadIdx.x; i < rows * p.Dv; i += THREADS) p.o_part[base_row * p.Dv + i] = 0.f;
+    for (int i = threadIdx.x; i < rows * p.Dv; i += threads(SPLIT))
+      p.o_part[base_row * p.Dv + i] = 0.f;
     if (threadIdx.x < rows) p.lse_part[base_row + threadIdx.x] = -INFINITY;
     return;
   }
-  const Smem sm = carve(base, nd, p.stages, Q8);
+  const Smem sm = carve(base, nd, p.stages, Q8, WGS);
   if (threadIdx.x == 0) {
     for (int s = 0; s < p.stages; ++s) {
       mbar_init(&sm.full[s], 1);
-      mbar_init(&sm.empty[s], CONSUMER_WARPS);
+      mbar_init(&sm.empty[s], WGS * CONSUMER_WARPS);
     }
     fence_barrier_init();
   }
   __syncthreads();
-  if (threadIdx.x < CONSUMERS)
-    consume<T, Q8>(p, sm, r, nd, nv, nks, nvs);
-  else if (threadIdx.x == CONSUMERS)
+  if (threadIdx.x < WGS * CONSUMERS)
+    consume<T, Q8, SPLIT>(p, sm, r, nd, nv, nks, nvs);
+  else
     produce(maps, p, sm, r, nks, nvs, SLAB_COLS);
 }
 
-template <typename T, bool Q8>
+template <typename T, bool Q8, bool SPLIT>
 cudaError_t launch(const Params& p, size_t smem, const void* k_pages, const void* v_pages,
                    int num_pages, int B, cudaStream_t st) {
   const bool f16 = std::is_same<T, __half>::value;
@@ -919,83 +623,70 @@ cudaError_t launch(const Params& p, size_t smem, const void* k_pages, const void
   if (e == cudaSuccess)
     e = encode_pool(&maps.v_map, esize, f16, v_pages, p.Dv, p.page, slabs, p.box_rows);
   if (e != cudaSuccess) return e;
-  auto kern = paged_tma_kernel<T, Q8>;
+  auto kern = paged_tma_kernel<T, Q8, SPLIT>;
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(p.num_splits, p.Hkv * p.row_blocks, B);
-  kern<<<grid, THREADS, smem, st>>>(maps, p);
+  kern<<<grid, threads(SPLIT), smem, st>>>(maps, p);
   return cudaGetLastError();
+}
+
+// The launch's registers a thread and local (spill) bytes a thread.
+template <typename T, bool Q8>
+cudaError_t attributes(bool split, cudaFuncAttributes* a) {
+  return split ? cudaFuncGetAttributes(a, paged_tma_kernel<T, Q8, true>)
+               : cudaFuncGetAttributes(a, paged_tma_kernel<T, Q8, false>);
 }
 
 }  // namespace tma
 
-// The route and tiling of a launch (head dims multiples of 64, R packed
-// rows): D, Dv <= 512 and a page of a multiple of 16 rows take the TMA
-// block (16 packed rows; box_rows the largest of 64, 32, 16 dividing the
-// page; as many 8 KiB stages, at most 12, as leave two blocks an SM);
-// anything else the cp.async block (the smallest of 16, 32, 64 rows holding
-// R, halved while its shared memory does not fit). ffpa_paged_plan hands it
-// out; ops/config.py paged_plan mirrors it and the card test holds the two
+// The tiling of a launch at head dims (D, Dv), multiples of 64 up to 1024,
+// over pages of `page` rows: 16 packed rows a block (a taller packing takes
+// row blocks); box_rows the largest power of two dividing the page and 64;
+// D, Dv <= 512 one consumer warpgroup in a block's share of two an SM,
+// wider heads two (SPLIT) in one block an SM; as many 8 KiB stages, at most
+// 12, as fit beside the fixed bytes. ffpa_paged_plan hands it out;
+// ops/config.py paged_plan mirrors it and the card test holds the two
 // equal.
-constexpr int TMA = 1, CP_ASYNC = 0;  // routes
 struct Plan {
-  int route, rows, box_rows, stages;
+  int rows, box_rows, stages, consumers, blocks_per_sm;
   size_t smem;
 };
-inline Plan make_plan(int D, int Dv, int R, int page, bool q8) {
+inline Plan make_plan(int D, int Dv, int page, bool q8) {
   Plan pl = {};
-  if (D <= 512 && Dv <= 512 && page % 16 == 0) {
-    pl.route = TMA;
-    pl.rows = tma::ROWS;
-    pl.box_rows = page % 64 == 0 ? 64 : page % 32 == 0 ? 32 : 16;
-    const size_t fixed = tma::fixed_bytes(D / 64, q8);
-    pl.stages = (int)std::min((size_t)tma::MAX_STAGES, (tma::BLOCK_SMEM - fixed) / tma::STAGE_COST);
-    pl.smem = fixed + pl.stages * tma::STAGE_COST;
-  } else {
-    pl.route = CP_ASYNC;
-    pl.rows = R <= 16 ? 16 : R <= 32 ? 32 : 64;
-    auto bytes = [&](int bq) {
-      return q8 ? paged_smem_bytes<__nv_bfloat16, true>(bq, Dv)
-                : paged_smem_bytes<__nv_bfloat16, false>(bq, Dv);
-    };
-    while (pl.rows > 16 && bytes(pl.rows) > SMEM_LIMIT) pl.rows /= 2;
-    pl.stages = NSTAGES;
-    pl.smem = bytes(pl.rows);
-  }
+  const bool split = D > 512 || Dv > 512;
+  pl.rows = tma::ROWS;
+  pl.box_rows = KV_TILE;
+  while (page % pl.box_rows != 0) pl.box_rows /= 2;
+  pl.consumers = tma::warpgroups(split);
+  pl.blocks_per_sm = split ? 1 : 2;
+  const size_t fixed = tma::fixed_bytes(D / 64, q8, split);
+  const size_t budget = split ? tma::SPLIT_BLOCK_SMEM : tma::BLOCK_SMEM;
+  pl.stages = (int)std::min((size_t)tma::MAX_STAGES, (budget - fixed) / tma::STAGE_COST);
+  pl.smem = fixed + pl.stages * tma::STAGE_COST;
   return pl;
 }
 
+inline bool valid_dims(int D, int Dv, int page) {
+  return D > 0 && Dv > 0 && D <= MAX_D && Dv <= MAX_D && D % D_CHUNK == 0 && Dv % D_CHUNK == 0 &&
+         page >= 1;
+}
+
 template <typename T>
-cudaError_t launch_paged_tma(const PagedParams& pp, const Plan& pl, bool q8, const void* k_pages,
-                             const void* v_pages, int num_pages, void* o, float* lse, int B,
-                             cudaStream_t st) {
-  tma::Params p = {};
-  p.q = pp.q;
-  p.k_scales = pp.k_scales;
-  p.v_scales = pp.v_scales;
-  p.table = pp.table;
-  p.lens = pp.lens;
-  p.o_part = pp.o_part;
-  p.lse_part = pp.lse_part;
-  p.Hkv = pp.Hkv;
-  p.nrows = pp.nrows;
-  p.nq = pp.nq;
-  p.D = pp.D;
-  p.Dv = pp.Dv;
-  p.page = pp.page;
-  p.max_pages = pp.max_pages;
-  p.box_rows = pl.box_rows;
-  p.stages = pl.stages;
-  p.num_splits = pp.num_splits;
-  p.row_blocks = pp.row_blocks;
-  p.scale = pp.scale;
-  p.softcap = pp.softcap;
-  p.window_left = pp.window_left;
-  cudaError_t e = q8 ? tma::launch<T, true>(p, pl.smem, k_pages, v_pages, num_pages, B, st)
-                     : tma::launch<T, false>(p, pl.smem, k_pages, v_pages, num_pages, B, st);
+cudaError_t launch_paged(const tma::Params& p, const Plan& pl, bool q8, const void* k_pages,
+                         const void* v_pages, int num_pages, void* o, float* lse, int B,
+                         cudaStream_t st) {
+  const bool split = pl.consumers == 2;
+  cudaError_t e;
+  if (q8)
+    e = split ? tma::launch<T, true, true>(p, pl.smem, k_pages, v_pages, num_pages, B, st)
+              : tma::launch<T, true, false>(p, pl.smem, k_pages, v_pages, num_pages, B, st);
+  else
+    e = split ? tma::launch<T, false, true>(p, pl.smem, k_pages, v_pages, num_pages, B, st)
+              : tma::launch<T, false, false>(p, pl.smem, k_pages, v_pages, num_pages, B, st);
   if (e != cudaSuccess) return e;
-  return launch_split_merge<T>(pp.o_part, pp.lse_part, o, lse, pp.nrows, pp.num_splits, pp.Dv,
-                               B * pp.Hkv, st);
+  return launch_split_merge<T>(p.o_part, p.lse_part, o, lse, p.nrows, p.num_splits, p.Dv,
+                               B * p.Hkv, st);
 }
 
 }  // namespace
@@ -1003,21 +694,16 @@ cudaError_t launch_paged_tma(const PagedParams& pp, const Plan& pl, bool q8, con
 extern "C" int ffpa_paged_decode(const void* q, const void* k_pages, const void* v_pages,
                                  const float* k_scales, const float* v_scales, const int* table,
                                  const int* lens, void* o, float* lse, float* o_part,
-                                 float* lse_part, int is_fp16, int quantized, int block_rows,
-                                 int B, int Hkv, int R, int nq, int D, int Dv, int page,
-                                 int max_pages, int num_pages, float scale, float softcap,
-                                 int window_left, int kv_per_split, int num_splits,
-                                 void* stream) {
-  if (D % D_CHUNK != 0 || Dv % D_CHUNK != 0 || page < 1 || max_pages < 1 || num_pages < 1 ||
-      nq < 1 || R < 1 || num_splits < 1 || kv_per_split % KV_TILE != 0 ||
-      (quantized && (k_scales == nullptr || v_scales == nullptr)))
+                                 float* lse_part, int is_fp16, int quantized, int B, int Hkv,
+                                 int R, int nq, int D, int Dv, int page, int max_pages,
+                                 int num_pages, float scale, float softcap, int window_left,
+                                 int num_splits, void* stream) {
+  if (!valid_dims(D, Dv, page) || max_pages < 1 || num_pages < 1 || nq < 1 || R < 1 ||
+      num_splits < 1 || (quantized && (k_scales == nullptr || v_scales == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const Plan pl = make_plan(D, Dv, R, page, quantized != 0);
-  if (block_rows != pl.rows) return (int)cudaErrorInvalidValue;  // the wrapper follows the plan
-  PagedParams p = {};
+  const Plan pl = make_plan(D, Dv, page, quantized != 0);
+  tma::Params p = {};
   p.q = q;
-  p.k_pages = k_pages;
-  p.v_pages = v_pages;
   p.k_scales = k_scales;
   p.v_scales = v_scales;
   p.table = table;
@@ -1031,64 +717,53 @@ extern "C" int ffpa_paged_decode(const void* q, const void* k_pages, const void*
   p.Dv = Dv;
   p.page = page;
   p.max_pages = max_pages;
+  p.box_rows = pl.box_rows;
+  p.stages = pl.stages;
+  p.num_splits = num_splits;
+  p.row_blocks = (R + pl.rows - 1) / pl.rows;
   p.scale = scale;
   p.softcap = softcap;
   p.window_left = window_left;
-  p.kv_per_split = kv_per_split;
-  p.num_splits = num_splits;
-  p.row_blocks = (R + pl.rows - 1) / pl.rows;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (pl.route == TMA)
-    return (int)(is_fp16 ? launch_paged_tma<__half>(p, pl, quantized, k_pages, v_pages, num_pages,
-                                                    o, lse, B, st)
-                         : launch_paged_tma<__nv_bfloat16>(p, pl, quantized, k_pages, v_pages,
-                                                           num_pages, o, lse, B, st));
-  if (is_fp16)
-    return (int)(quantized ? launch_paged<__half, true>(p, o, lse, pl.rows, B, st)
-                           : launch_paged<__half, false>(p, o, lse, pl.rows, B, st));
-  return (int)(quantized ? launch_paged<__nv_bfloat16, true>(p, o, lse, pl.rows, B, st)
-                         : launch_paged<__nv_bfloat16, false>(p, o, lse, pl.rows, B, st));
+  return (int)(is_fp16 ? launch_paged<__half>(p, pl, quantized, k_pages, v_pages, num_pages, o,
+                                              lse, B, st)
+                       : launch_paged<__nv_bfloat16>(p, pl, quantized, k_pages, v_pages,
+                                                     num_pages, o, lse, B, st));
 }
 
-// The route and tiling ffpa_paged_decode takes at head dims (D, Dv),
-// multiples of 64, R packed rows and a page of `page` rows: out[0..4] are
-// the route (1 TMA, 0 cp.async), the packed rows of a block, the rows of a
-// TMA box (0 on cp.async), the ring's stages and the dynamic shared-memory
-// bytes of a block; cap is out's length.
-extern "C" int ffpa_paged_plan(int D, int Dv, int R, int page, int quantized, int* out, int cap) {
-  if (D <= 0 || Dv <= 0 || D % D_CHUNK != 0 || Dv % D_CHUNK != 0 || R < 1 || page < 1 || cap < 5)
-    return (int)cudaErrorInvalidValue;
-  const Plan pl = make_plan(D, Dv, R, page, quantized != 0);
-  out[0] = pl.route;
+// The tiling ffpa_paged_decode takes at head dims (D, Dv), multiples of 64
+// up to 1024, over pages of `page` rows: out[0..6] are the route (1, TMA:
+// the only one), the packed rows of a block, the rows of a TMA box, the
+// ring's stages, the dynamic shared-memory bytes of a block, its consumer
+// warpgroups and the blocks an SM holds; cap is out's length.
+extern "C" int ffpa_paged_plan(int D, int Dv, int page, int quantized, int* out, int cap) {
+  if (!valid_dims(D, Dv, page) || cap < 7) return (int)cudaErrorInvalidValue;
+  const Plan pl = make_plan(D, Dv, page, quantized != 0);
+  out[0] = 1;
   out[1] = pl.rows;
   out[2] = pl.box_rows;
   out[3] = pl.stages;
   out[4] = (int)pl.smem;
+  out[5] = pl.consumers;
+  out[6] = pl.blocks_per_sm;
   return 0;
 }
 
 // Registers a thread and local (spill) bytes a thread of the launch-1
-// kernel of `route` (1 TMA, 0 cp.async at 16 rows), in f16 or bf16, over an
-// int8 pool or not.
-extern "C" int ffpa_paged_attrs(int route, int is_fp16, int quantized, int* regs,
+// kernel with `consumers` warpgroups (1: D, Dv <= 512; 2: wider), in f16
+// or bf16, over an int8 pool or not.
+extern "C" int ffpa_paged_attrs(int consumers, int is_fp16, int quantized, int* regs,
                                 int* local_bytes) {
+  if (consumers != 1 && consumers != 2) return (int)cudaErrorInvalidValue;
+  const bool split = consumers == 2;
   cudaFuncAttributes a;
   cudaError_t e;
-  if (route == TMA) {
-    if (is_fp16)
-      e = quantized ? cudaFuncGetAttributes(&a, tma::paged_tma_kernel<__half, true>)
-                    : cudaFuncGetAttributes(&a, tma::paged_tma_kernel<__half, false>);
-    else
-      e = quantized ? cudaFuncGetAttributes(&a, tma::paged_tma_kernel<__nv_bfloat16, true>)
-                    : cudaFuncGetAttributes(&a, tma::paged_tma_kernel<__nv_bfloat16, false>);
-  } else {
-    if (is_fp16)
-      e = quantized ? cudaFuncGetAttributes(&a, paged_decode_kernel<__half, 16, true>)
-                    : cudaFuncGetAttributes(&a, paged_decode_kernel<__half, 16, false>);
-    else
-      e = quantized ? cudaFuncGetAttributes(&a, paged_decode_kernel<__nv_bfloat16, 16, true>)
-                    : cudaFuncGetAttributes(&a, paged_decode_kernel<__nv_bfloat16, 16, false>);
-  }
+  if (is_fp16)
+    e = quantized ? tma::attributes<__half, true>(split, &a)
+                  : tma::attributes<__half, false>(split, &a);
+  else
+    e = quantized ? tma::attributes<__nv_bfloat16, true>(split, &a)
+                  : tma::attributes<__nv_bfloat16, false>(split, &a);
   if (e != cudaSuccess) return (int)e;
   *regs = a.numRegs;
   *local_bytes = (int)a.localSizeBytes;

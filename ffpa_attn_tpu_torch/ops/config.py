@@ -38,12 +38,12 @@ never refused by the card.
   Q rows whatever ``block_q`` says; one block at D and Dv <= 512, the
   cluster of two up to 1024), its segment metadata and tile lists read
   from device memory.
-* Paged decode (``csrc/paged_decode.cu``), two routes (``paged_plan``
-  mirrors the launcher's ``make_plan``): D and Dv <= 512 with a page of a
-  multiple of 16 rows take the TMA block (16 packed rows, a ring of 8 KiB
-  stages as deep as leaves two blocks an SM, two staging buffers for int8
-  pools); anything else the cp.async block (the decode block, row tiles 16,
-  32, 64, with a staging tile for int8 pools).
+* Paged decode (``csrc/paged_decode.cu``), one TMA block for every shape
+  (``paged_plan`` mirrors the launcher's ``make_plan``): 16 packed rows,
+  boxes of the largest power of two rows dividing the page and 64, a ring
+  of 8 KiB stages; D and Dv <= 512 one consumer warpgroup in a block's
+  share of two an SM, wider heads (up to 1024) two that split Dv in one
+  block an SM; two staging buffers a warpgroup for int8 pools.
 * Packed varlen backward (``csrc/varlen_bwd.cu``). dK/dV has two routes by
   head dims alone (``varlen_dkdv_plan`` mirrors the launcher's
   ``tma::make_plan``), the dense wgmma dK/dV block's tiling below at every
@@ -133,7 +133,6 @@ FWD_ACC_ELEMS = 64 * 512
 # Row tiles the kernels are instantiated for.
 FWD_ROW_TILES = (64, 32)
 ROW_TILES = (128, 64, 32, 16)  # decode (wmma fragments are 16 rows)
-PAGED_ROW_TILES = (64, 32, 16)  # paged decode (csrc/paged_decode.cu)
 # Backward tiles of the mma.sync from-S kernel with dK in the kernel
 # (flash_bwd.cu): owned KV rows and streamed Q rows (the wgmma routes take
 # 64 and 64); DKDV_Q_TILE also pads the dense dS slab's rows and the varlen
@@ -193,15 +192,17 @@ DQ_MAX_HEAD_DIM = 1024
 _DQ_WG_MAX_STAGES = 8
 _DQ_CLUSTER_XCH_BYTES = 2 * 2 * 64 * 32 * 4 + 1024
 # Compile-time constants of the TMA paged decode block (paged_decode.cu
-# namespace tma: ROWS, the dims it takes, STAGE_BYTES, MAX_STAGES,
-# BLOCK_SMEM, Q_BOX_BYTES, STAGING_BYTES, XCH_FLOATS * 4), not settings:
-# paged_plan mirrors the launcher with them.
+# namespace tma: ROWS, MAX_D, STAGE_BYTES, MAX_STAGES, BLOCK_SMEM,
+# SPLIT_BLOCK_SMEM, Q_BOX_BYTES, STAGING_BYTES, XCH_FLOATS * 4; above 512 the
+# block splits Dv over two consumer warpgroups), not settings: paged_plan
+# mirrors the launcher with them.
 _PAGED_TMA_ROWS = 16
-_PAGED_TMA_MAX_D = 512
-_PAGED_TMA_PAGE_MULTIPLE = 16
+_PAGED_TMA_MAX_D = 1024
+_PAGED_TMA_SPLIT_D = 512
 _PAGED_TMA_STAGE_BYTES = 64 * 128
 _PAGED_TMA_MAX_STAGES = 12
 _PAGED_TMA_BLOCK_SMEM = 115_712
+_PAGED_TMA_SPLIT_BLOCK_SMEM = 232_448
 _PAGED_TMA_Q_BOX_BYTES = 16 * 128
 _PAGED_TMA_STAGING_BYTES = 2 * 64 * 64 * 2
 _PAGED_TMA_XCH_BYTES = 2 * 4 * 16 * 4
@@ -469,27 +470,18 @@ def varlen_fits(cfg: BlockConfig, d: int, dv: int, itemsize: int = 2) -> bool:
     return varlen_fwd_plan(d, dv).smem_bytes <= SMEM_LIMIT_BYTES
 
 
-def paged_smem_bytes(cfg: BlockConfig, dv: int, itemsize: int = 2,
-                     quantized: bool = False) -> int:
-    """Shared memory of one paged decode block (``csrc/paged_decode.cu``):
-    the decode block's, plus for int8 pools a [KV_TILE, 64] staging tile
-    in the query type that each int8 chunk is widened into (the values
-    only; the scales multiply S and P, never the tile)."""
-    stage = cfg.block_kv * (D_CHUNK + _PAD_T) * itemsize if quantized else 0
-    return decode_smem_bytes(cfg, dv, itemsize) + stage
-
-
 @dataclass(frozen=True)
 class PagedPlan:
-    """The route and tiling of one paged decode launch, as
-    ``csrc/paged_decode.cu`` ``make_plan`` computes it (the library hands
-    its own out through ``paged.paged_kernel_plan``; the card test holds
-    the two equal).
+    """The tiling of one paged decode launch, as ``csrc/paged_decode.cu``
+    ``make_plan`` computes it (the library hands its own out through
+    ``paged.paged_kernel_plan``; the card test holds the two equal).
 
-    ``route`` is "tma" or "cp_async"; ``rows`` the packed rows of a block
+    ``route`` is "tma", the only one; ``rows`` the packed rows of a block
     (a taller packing takes ``cdiv(R, rows)`` row blocks), ``box_rows`` the
-    rows of a TMA box (0 on cp.async), ``stages`` the ring's depth and
-    ``smem_bytes`` the dynamic shared memory a block asks for.
+    rows of a TMA box, ``stages`` the ring's depth, ``smem_bytes`` the
+    dynamic shared memory a block asks for, ``consumers`` its consumer
+    warpgroups (2 above D512: they split Dv) and ``blocks_per_sm`` the
+    blocks an SM holds at once.
     """
 
     route: str
@@ -497,32 +489,38 @@ class PagedPlan:
     box_rows: int
     stages: int
     smem_bytes: int
+    consumers: int
+    blocks_per_sm: int
 
 
-def paged_plan(d: int, dv: int, rows: int, page: int, itemsize: int = 2,
-               quantized: bool = False) -> PagedPlan:
-    """The paged decode route at head dims (d, dv) (padded to 64-column
-    chunks), ``rows`` packed rows (group * nq) and pages of ``page`` rows:
-    D, Dv <= 512 and a page of a multiple of 16 rows take the TMA block,
-    its box the largest of 64, 32, 16 rows dividing the page, as many 8 KiB
-    stages (at most 12) as fit beside Q, the P box, the exchange and (int8)
-    the staging boxes in a block's share of two an SM; anything else the
-    cp.async block at the smallest of ``PAGED_ROW_TILES`` holding ``rows``,
-    halved while it does not fit shared memory."""
+def paged_plan(d: int, dv: int, page: int, quantized: bool = False) -> PagedPlan:
+    """The paged decode tiling at head dims (d, dv) (padded to 64-column
+    chunks, at most 1024) over pages of ``page`` rows: 16 packed rows; TMA
+    boxes of the largest power of two rows dividing the page and 64 (so a
+    box never crosses a page); D and Dv <= 512 one consumer warpgroup in a
+    block's share of two an SM, wider heads two (each holding half of Dv's
+    stages) in one block an SM; as many 8 KiB stages (at most 12) as fit
+    beside Q's boxes and, per warpgroup, the P box, the exchange and (int8)
+    the two staging buffers."""
     d_pad, dv_pad = _round_up(d, D_CHUNK), _round_up(dv, D_CHUNK)
-    if max(d_pad, dv_pad) <= _PAGED_TMA_MAX_D and page % _PAGED_TMA_PAGE_MULTIPLE == 0:
-        box_rows = next(r for r in (64, 32, 16) if page % r == 0)
-        fixed = (1024 + (2 * _PAGED_TMA_STAGING_BYTES if quantized else 0)
-                 + (d_pad // D_CHUNK + 1) * _PAGED_TMA_Q_BOX_BYTES + _PAGED_TMA_XCH_BYTES)
-        stage = _PAGED_TMA_STAGE_BYTES + 16
-        stages = min(_PAGED_TMA_MAX_STAGES, (_PAGED_TMA_BLOCK_SMEM - fixed) // stage)
-        return PagedPlan("tma", _PAGED_TMA_ROWS, box_rows, stages, fixed + stages * stage)
-    cfg = BlockConfig(block_q=64).clamp(rows, 0, PAGED_ROW_TILES)
-    while cfg.block_q > min(PAGED_ROW_TILES) and \
-            paged_smem_bytes(cfg, dv_pad, itemsize, quantized) > SMEM_LIMIT_BYTES:
-        cfg = BlockConfig(block_q=cfg.block_q // 2)
-    return PagedPlan("cp_async", cfg.block_q, 0, DECODE_STREAM_STAGES,
-                     paged_smem_bytes(cfg, dv_pad, itemsize, quantized))
+    if min(d_pad, dv_pad) < D_CHUNK or max(d_pad, dv_pad) > _PAGED_TMA_MAX_D:
+        raise ValueError(f"paged decode takes head dims in 1..{_PAGED_TMA_MAX_D}, got D={d}, "
+                         f"Dv={dv}")
+    if page < 1:
+        raise ValueError(f"paged decode takes pages of 1 row or more, got {page}")
+    box_rows = KV_TILE
+    while page % box_rows:
+        box_rows //= 2
+    split = max(d_pad, dv_pad) > _PAGED_TMA_SPLIT_D
+    wgs = 2 if split else 1
+    fixed = (1024 + (d_pad // D_CHUNK) * _PAGED_TMA_Q_BOX_BYTES
+             + wgs * ((2 * _PAGED_TMA_STAGING_BYTES if quantized else 0)
+                      + _PAGED_TMA_Q_BOX_BYTES + _PAGED_TMA_XCH_BYTES))
+    stage = _PAGED_TMA_STAGE_BYTES + 16
+    budget = _PAGED_TMA_SPLIT_BLOCK_SMEM if split else _PAGED_TMA_BLOCK_SMEM
+    stages = min(_PAGED_TMA_MAX_STAGES, (budget - fixed) // stage)
+    return PagedPlan("tma", _PAGED_TMA_ROWS, box_rows, stages, fixed + stages * stage, wgs,
+                     1 if split else 2)
 
 
 @dataclass(frozen=True)
@@ -829,8 +827,6 @@ __all__ = [
     "decode_row_tile",
     "varlen_fwd_plan",
     "varlen_fits",
-    "PAGED_ROW_TILES",
-    "paged_smem_bytes",
     "PagedPlan",
     "paged_plan",
     "default_config",

@@ -21,17 +21,16 @@ serving shape (B4, lens ~600..1000, Hkv4, D512, bf16), 7 us at 3.35 TB/s.
 
 Design against that bound: the TPU walks one sequence's pages in order on a
 (B, Hkv, max_pages) grid, 16 blocks at the serving shape; the kernel splits
-each sequence's page walk over blocks (their count from the SM count and
-the pool's capacity, so no host sync reads ``lens``) and merges the splits
-by LSE with the dense decode's merge launch. On the TMA route
-(``config.paged_plan``: D, Dv <= 512, pages of a multiple of 16 rows) each
-block cuts its split from its sequence's length on the device
-(``paged_split_ranges`` is the rule), so every block of a live sequence
-streams about the same bytes, and keeps a ring of TMA boxes in flight, one
-page-table read per box; other shapes take the cp.async kernel, which cuts
-the capacity evenly and skips positions past ``lens[b]``. PackGQA rows
-stream each KV head's pages once; an int8 pool halves the bytes, its scales
-folded into S and P.
+each sequence's page walk over blocks (their count from the SM count, the
+plan's blocks an SM and the pool's capacity, so no host sync reads
+``lens``) and merges the splits by LSE with the dense decode's merge
+launch. One TMA + wgmma block takes every shape (``config.paged_plan``:
+head dims up to 1024, pages of any size): each block cuts its split from
+its sequence's length on the device (``paged_split_ranges`` is the rule),
+so every block of a live sequence streams about the same bytes, and keeps
+a ring of TMA boxes in flight, one page-table read per box. PackGQA rows
+stream each KV head's pages once; an int8 pool halves the bytes, its
+scales folded into S and P.
 """
 
 from __future__ import annotations
@@ -48,7 +47,6 @@ from ..env import ENV, resolve_device
 from ..logger import init_logger
 from . import _build
 from .config import D_CHUNK, KV_TILE, PagedPlan, cdiv, paged_plan
-from .decode import _num_splits
 from .reference import DEFAULT_MASK_VALUE
 
 logger = init_logger(__name__)
@@ -251,15 +249,16 @@ def _paged_decode_plain(qp, cache: PagedKVCache, *, nq, scale, softcap, window_l
     return o.to(qp.dtype), lse
 
 
-def _tma_splits(blocks_per_split: int, kv_tiles: int, num_sms: int, quantized: bool) -> int:
-    """KV splits of the TMA route: as many as keep every block of the
-    launch resident at once, and no more than the capacity's tiles. Over
-    bf16 / f16 pools a stage costs its consumers only bytes, so one block an
-    SM (fewer splits to merge); over int8 pools the consumers widen every
-    stage, so two (twice the warps on that work). Each block cuts its share
-    of the live range on the device, so the count need not divide the
-    capacity."""
-    per_sm = 2 if quantized else 1
+def _tma_splits(blocks_per_split: int, kv_tiles: int, num_sms: int, plan: PagedPlan,
+                quantized: bool) -> int:
+    """KV splits of the launch: as many as keep every block of the launch
+    resident at once, and no more than the capacity's tiles. Over bf16 /
+    f16 pools a stage costs its consumers only bytes, so one block an SM
+    (fewer splits to merge); over int8 pools the consumers widen every
+    stage, so as many as the plan holds an SM (two below D512: twice the
+    warps on that work). Each block cuts its share of the live range on
+    the device, so the count need not divide the capacity."""
+    per_sm = plan.blocks_per_sm if quantized else 1
     return max(1, min(kv_tiles, per_sm * num_sms // max(blocks_per_split, 1)))
 
 
@@ -285,8 +284,8 @@ def paged_split_ranges(lens, num_splits: int, *, nq: int = 1, window_left: int =
 
 _I, _P = ctypes.c_int, ctypes.c_void_p
 _ARGTYPES = {
-    "ffpa_paged_decode": [_P] * 11 + [_I] * 12 + [ctypes.c_float] * 2 + [_I] * 3 + [_P],
-    "ffpa_paged_plan": [_I] * 5 + [ctypes.POINTER(_I), _I],
+    "ffpa_paged_decode": [_P] * 11 + [_I] * 11 + [ctypes.c_float] * 2 + [_I] * 2 + [_P],
+    "ffpa_paged_plan": [_I] * 4 + [ctypes.POINTER(_I), _I],
     "ffpa_paged_attrs": [_I] * 3 + [ctypes.POINTER(_I)] * 2,
 }
 
@@ -305,24 +304,26 @@ def _check(err: int, what: str) -> None:
     _build.check(_build.load("paged_decode"), err, what)
 
 
-def paged_kernel_plan(d: int, dv: int, rows: int, page: int, quantized: bool = False) -> PagedPlan:
-    """The route and tiling the launcher takes at head dims (d, dv) (padded
-    to 64-column chunks), ``rows`` packed rows and pages of ``page`` rows,
-    read from the library: what ``config.paged_plan`` mirrors. Needs a
-    card."""
+def paged_kernel_plan(d: int, dv: int, page: int, quantized: bool = False) -> PagedPlan:
+    """The tiling the launcher takes at head dims (d, dv) (padded to
+    64-column chunks) over pages of ``page`` rows, read from the library:
+    what ``config.paged_plan`` mirrors. Needs a card."""
     out = (ctypes.c_int * 8)()
     err = _paged_fn("ffpa_paged_plan")(cdiv(d, D_CHUNK) * D_CHUNK, cdiv(dv, D_CHUNK) * D_CHUNK,
-                                       rows, page, int(quantized), out, len(out))
+                                       page, int(quantized), out, len(out))
     _check(err, "paged decode plan")
-    return PagedPlan("tma" if out[0] == 1 else "cp_async", out[1], out[2], out[3], out[4])
+    if out[0] != 1:
+        raise RuntimeError(f"paged decode plan: unknown route {out[0]}")
+    return PagedPlan("tma", *out[1:7])
 
 
-def paged_kernel_attrs(route: str, dtype=torch.bfloat16, quantized: bool = False) -> dict:
+def paged_kernel_attrs(dtype=torch.bfloat16, quantized: bool = False,
+                       consumers: int = 1) -> dict:
     """Registers a thread and local (spill) bytes of the paged decode
-    kernel of ``route`` ("tma", or "cp_async" at 16 rows), from
+    kernel with ``consumers`` warpgroups (1: D, Dv <= 512; 2: wider), from
     cudaFuncGetAttributes. Needs a card."""
     regs, local = ctypes.c_int(0), ctypes.c_int(0)
-    err = _paged_fn("ffpa_paged_attrs")(int(route == "tma"), int(dtype == torch.float16),
+    err = _paged_fn("ffpa_paged_attrs")(int(consumers), int(dtype == torch.float16),
                                         int(quantized), ctypes.byref(regs), ctypes.byref(local))
     _check(err, "paged decode kernel attributes")
     return {"registers": regs.value, "local_bytes": local.value}
@@ -330,7 +331,7 @@ def paged_kernel_attrs(route: str, dtype=torch.bfloat16, quantized: bool = False
 
 def _paged_decode_kernel(qp, cache: PagedKVCache, *, nq, scale, softcap, window_left):
     """Launch ``csrc/paged_decode.cu`` and its merge (same contract as
-    ``_paged_decode_plain``) on the route ``config.paged_plan`` names."""
+    ``_paged_decode_plain``) on the tiling ``config.paged_plan`` names."""
     if qp.device.type != "cuda":
         raise ValueError("paged_decode_attention: the kernel takes CUDA tensors")
     if qp.dtype not in (torch.bfloat16, torch.float16):
@@ -349,15 +350,11 @@ def _paged_decode_kernel(qp, cache: PagedKVCache, *, nq, scale, softcap, window_
         raise ValueError(f"paged_decode_attention: the kernel takes head dims that are "
                          f"multiples of {D_CHUNK}, got D={d}, Dv={dv}")
     max_pages = cache.page_table.shape[1]
-    plan = paged_plan(d, dv, rows, page, qp.element_size(), cache.quantized)
+    plan = paged_plan(d, dv, page, cache.quantized)
     row_blocks = cdiv(rows, plan.rows)
     kv_tiles = cdiv(max_pages * page, KV_TILE)
     num_sms = torch.cuda.get_device_properties(qp.device).multi_processor_count
-    if plan.route == "tma":
-        splits = _tma_splits(b * hkv * row_blocks, kv_tiles, num_sms, cache.quantized)
-    else:
-        splits = _num_splits(b * hkv * row_blocks, kv_tiles, num_sms)
-    kv_per_split = cdiv(kv_tiles, splits) * KV_TILE
+    splits = _tma_splits(b * hkv * row_blocks, kv_tiles, num_sms, plan, cache.quantized)
     dev = qp.device
     q_ = qp.contiguous()
     o = torch.empty((b, hkv, rows, dv), dtype=qp.dtype, device=dev)
@@ -370,9 +367,9 @@ def _paged_decode_kernel(qp, cache: PagedKVCache, *, nq, scale, softcap, window_
         scales = [t.contiguous() for t in (cache.k_scales, cache.v_scales)]
     if ENV.device_log_level() >= 2:
         logger.info(
-            "paged_decode launch route=%s grid=(%d,%d,%d) block_rows=%d rows=%d page=%d "
-            "box_rows=%d stages=%d kv_per_split=%d int8=%s", plan.route, splits, hkv * row_blocks,
-            b, plan.rows, rows, page, plan.box_rows, plan.stages, kv_per_split, cache.quantized,
+            "paged_decode launch grid=(%d,%d,%d) rows=%d page=%d box_rows=%d stages=%d "
+            "consumers=%d int8=%s", splits, hkv * row_blocks, b, rows, page, plan.box_rows,
+            plan.stages, plan.consumers, cache.quantized,
         )
     launch = _paged_fn("ffpa_paged_decode")
     with torch.cuda.device(dev):
@@ -382,9 +379,9 @@ def _paged_decode_kernel(qp, cache: PagedKVCache, *, nq, scale, softcap, window_
             None if scales[1] is None else scales[1].data_ptr(),
             pools[2].data_ptr(), pools[3].data_ptr(), o.data_ptr(), lse.data_ptr(),
             o_part.data_ptr(), lse_part.data_ptr(),
-            int(qp.dtype == torch.float16), int(cache.quantized), plan.rows, b, hkv, rows, nq,
-            d, dv, page, max_pages, cache.k_pages.shape[0], float(scale), float(softcap),
-            int(window_left), kv_per_split, splits, torch.cuda.current_stream(dev).cuda_stream,
+            int(qp.dtype == torch.float16), int(cache.quantized), b, hkv, rows, nq, d, dv, page,
+            max_pages, cache.k_pages.shape[0], float(scale), float(softcap), int(window_left),
+            splits, torch.cuda.current_stream(dev).cuda_stream,
         )
     _check(err, "paged_decode kernel launch")
     paged_decode_attention.launches += 1

@@ -179,6 +179,8 @@ DECODE_CASES = {
     "window_softcap_sinks": dict(group=2, nq=1, window=40, softcap=5.0, sinks=True, page=32),
     "shuffled_table": dict(group=2, nq=1, shuffle=True),
     "shuffled_table_int8_page32": dict(group=2, nq=4, shuffle=True, quantized=True, page=32),
+    "page24": dict(group=2, nq=1, page=24),
+    "d1024": dict(group=2, nq=1, d=1024),
 }
 
 
@@ -186,7 +188,7 @@ def _decode_pair(jp, case, seed=0, dtype="bfloat16", device="cpu"):
     """(JAX cache or None, port cache, q, lens) filled from the same dense
     K/V; the port's cache on ``device``."""
     _, jnp, jpg = jp if jp is not None else (None, None, None)
-    hkv, d = 2, 320
+    hkv, d = 2, case.get("d", 320)
     page, quantized = case.get("page", 64), case.get("quantized", False)
     nq, hq = case["nq"], hkv * case["group"]
     lens = case.get("lens", [150, 67 + nq])

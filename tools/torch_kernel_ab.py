@@ -77,11 +77,16 @@ lists, ``LegacyDsBits``: every run here stores a 16-bit slab):
   plan's row tile and each Q tile's [jmin, jmax] at it
   (``LegacyVarlenWideFwd``);
 * paged_decode and paged_decode_int8 (``--kernels paged_decode`` runs
-  both): the serving step over bf16 and over int8 pools (B4, lens 64 tokens into generation, page 256), four layers'
-  pools in turn, each held against ``_paged_decode_plain`` per row at the
-  bf16 forward tolerance 2e-2. A base library without ``ffpa_paged_plan``
-  (built from sources before the TMA route) is called with its own
-  argument list (``LegacyPaged``);
+  both): the serving step over bf16 and over int8 pools (B4, lens 64 tokens
+  into generation, page 256, D512), four layers' pools in turn, each held
+  against ``_paged_decode_plain`` per row at the bf16 forward tolerance
+  2e-2; paged_decode_page16 and paged_decode_page32_int8 the same step
+  over pages of 16 bf16 and 32 int8 rows (boxes of 16 and 32 rows);
+  paged_decode_page24 over pages of 24 rows and paged_decode_d1024 at
+  D1024 (page 256), where a base built from sources before the one-route
+  block runs its cp.async kernel. A base library whose
+  entry point still takes a row tile and kv_per_split is given them
+  (``LegacyPagedArgs``);
 * varlen_dkdv and varlen_dq: the packed-training backward of
   ``chip_smoke.py`` (8 documents of 2048..284 tokens, 8192 in all, H8/4
   D512 causal bf16), each kernel alone on the plain forward's (o, lse) with
@@ -174,7 +179,9 @@ SOURCE = {"flash_fwd": "flash_fwd", "flash_fwd_scores": "flash_fwd",
           "varlen_fwd_d1024": "varlen_fwd", "varlen_fwd_d640": "varlen_fwd",
           "varlen_fwd_d1024_fp16": "varlen_fwd",
           "paged_decode": "paged_decode",
-          "paged_decode_int8": "paged_decode", "varlen_dkdv": "varlen_bwd",
+          "paged_decode_int8": "paged_decode", "paged_decode_page16": "paged_decode",
+          "paged_decode_page32_int8": "paged_decode", "paged_decode_page24": "paged_decode",
+          "paged_decode_d1024": "paged_decode", "varlen_dkdv": "varlen_bwd",
           "varlen_dq": "varlen_bwd", "varlen_dkdv_d1024": "varlen_bwd",
           "varlen_dkdv_d640": "varlen_bwd", "varlen_dkdv_d1024_fp16": "varlen_bwd",
           "varlen_dq_d1024": "varlen_bwd", "varlen_dq_d640": "varlen_bwd",
@@ -206,7 +213,10 @@ ENTRY = {"from_s": "ffpa_bwd_dkdv_from_s", "from_s_d1024": "ffpa_bwd_dkdv_from_s
          "varlen_fwd_d1024": "ffpa_varlen_fwd", "varlen_fwd_d640": "ffpa_varlen_fwd",
          "varlen_fwd_d1024_fp16": "ffpa_varlen_fwd",
          "paged_decode": "ffpa_paged_decode",
-         "paged_decode_int8": "ffpa_paged_decode", "varlen_dkdv": "ffpa_varlen_bwd_dkdv",
+         "paged_decode_int8": "ffpa_paged_decode", "paged_decode_page16": "ffpa_paged_decode",
+         "paged_decode_page32_int8": "ffpa_paged_decode",
+         "paged_decode_page24": "ffpa_paged_decode", "paged_decode_d1024": "ffpa_paged_decode",
+         "varlen_dkdv": "ffpa_varlen_bwd_dkdv",
          "varlen_dq": "ffpa_varlen_bwd_dq", "varlen_dkdv_d1024": "ffpa_varlen_bwd_dkdv",
          "varlen_dkdv_d640": "ffpa_varlen_bwd_dkdv", "varlen_dkdv_d1024_fp16": "ffpa_varlen_bwd_dkdv",
          "varlen_dq_d1024": "ffpa_varlen_bwd_dq", "varlen_dq_d640": "ffpa_varlen_bwd_dq",
@@ -399,16 +409,21 @@ class LegacyDq:
         return call
 
 
-class LegacyPaged:
-    """A paged_decode library built from sources before the TMA route: its
-    entry point takes no pool page count (the argument after max_pages,
-    which the package's wrapper passes) and reads block_rows as its row
-    tile; the wrapper's block_rows (the plan's) is the tile those sources
-    picked at the A/B's shapes (16 rows for R <= 16). While it is in use
-    the wrapper splits the walk by those sources' rule (``SPLITS``)."""
+class LegacyPagedArgs:
+    """A paged_decode library built from sources with the cp.async route
+    beside the TMA one: its entry point takes a row tile after
+    the int8 flag and the cp.async route's kv_per_split before the split
+    count, which the package's wrapper no longer passes. It is given 16
+    (the row tile those sources planned for R <= 16 on both routes) and the
+    capacity's 64-row tiles cut evenly over the wrapper's splits (its TMA
+    route reads neither; at the wrapper's splits its cp.async route walks
+    the same capacity). Its plan and attribute entry points are not
+    called."""
 
-    SPLITS = staticmethod(lambda bps, kv_tiles, num_sms, quantized: decode._num_splits(
-        bps, kv_tiles, num_sms))
+    @staticmethod
+    def needed(src: Path) -> bool:
+        """Whether the sources in ``src`` still take kv_per_split."""
+        return "kv_per_split" in (src / "paged_decode.cu").read_text()
 
     def __init__(self, lib):
         self._lib = lib
@@ -418,12 +433,15 @@ class LegacyPaged:
         if name != "ffpa_paged_decode":
             return fn
         argtypes = list(paged._ARGTYPES[name])
-        del argtypes[22]
+        argtypes.insert(13, ctypes.c_int)  # the row tile, after the int8 flag
+        argtypes.insert(26, ctypes.c_int)  # kv_per_split, before the split count
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
 
         def call(*args):
-            return fn(*args[:22], *args[23:])
+            page, max_pages, splits = args[19], args[20], args[25]
+            kv_per_split = cdiv(cdiv(max_pages * page, 64), splits) * 64
+            return fn(*args[:13], 16, *args[13:25], kv_per_split, *args[25:])
 
         call.argtypes = argtypes
         return call
@@ -665,7 +683,9 @@ TOL = 5e-2  # bf16 gradients (tests/test_ffpa_bwd.py:19)
 GRAD_KERNEL_TOL = {"dkdv_d1024": 1e-2, "dkdv_d640": 1e-2, "dq_d1024_fp16": 1e-2,
                    "varlen_dkdv_d1024_fp16": 1e-2, "varlen_dq_d1024_fp16": 1e-2}
 # Per-kernel tolerances where a kernel is held to the forward's (per row).
-KERNEL_TOL = {"paged_decode": 2e-2, "paged_decode_int8": 2e-2, "decode": 2e-2,
+KERNEL_TOL = {"paged_decode": 2e-2, "paged_decode_int8": 2e-2, "paged_decode_page16": 2e-2,
+              "paged_decode_page32_int8": 2e-2, "paged_decode_page24": 2e-2,
+              "paged_decode_d1024": 2e-2, "decode": 2e-2,
               "decode_serving": 2e-2, "varlen_fwd": 2e-2, "varlen_fwd_train": 2e-2,
               "varlen_fwd_d1024": 2e-2, "varlen_fwd_d640": 2e-2, "varlen_fwd_d1024_fp16": 1e-2}
 # The forward's outputs: O per row (bf16, tests/test_features.py:127), lse
@@ -902,29 +922,36 @@ def make_runs(gen) -> tuple:
     vq, vk, vv = randn(tot, hq, d), randn(tot, hkv, d), randn(tot, hkv, d)
     cu = torch.tensor([0] + torch.tensor(lens).cumsum(0).tolist(), dtype=torch.int32,
                       device="cuda")
-    pools = {False: [], True: []}
-    for quantized in (False, True):
+    # Pools keyed by kind: bf16 (False) and int8 (True) pages of 256 rows
+    # at D512, pages of 16 bf16, 32 int8 and 24 bf16 rows at D512, pages of
+    # 256 rows at D1024.
+    kinds = {False: (d, 256, False), True: (d, 256, True), "page16": (d, 16, False),
+             "page32_int8": (d, 32, True), "page24": (d, 24, False), "d1024": (1024, 256, False)}
+    pools = {kind: [] for kind in kinds}
+    for kind, (pd, page, quantized) in kinds.items():
         for _ in range(4):
-            pool = paged.PagedKVCache.alloc(len(lens), 1152, hkv, d, page_size=256,
+            pool = paged.PagedKVCache.alloc(len(lens), 1152, hkv, pd, page_size=page,
                                             quantized=quantized)
             n = max(lens) + 64
-            pools[quantized].append(paged.fill_from_prefill(
-                pool, randn(len(lens), hkv, n, d), randn(len(lens), hkv, n, d),
+            pools[kind].append(paged.fill_from_prefill(
+                pool, randn(len(lens), hkv, n, pd), randn(len(lens), hkv, n, pd),
                 [m + 64 for m in lens]))
-    qpd = randn(len(lens), hq, 1, d)
+    qpds = {512: randn(len(lens), hq, 1, d), 1024: randn(len(lens), hq, 1, 1024)}
     last_pool = {}
 
-    def run_paged(quantized):
-        pool = pools[quantized][turn[0] % 4]
+    def run_paged(kind):
+        pool = pools[kind][turn[0] % 4]
         turn[0] += 1
-        last_pool[quantized] = pool
-        return paged.paged_decode_attention(qpd, pool, scale=scale)
+        last_pool[kind] = pool
+        pd = kinds[kind][0]
+        return paged.paged_decode_attention(qpds[pd], pool, scale=pd ** -0.5)
 
-    def paged_plain(quantized):
-        o, _ = paged._paged_decode_plain(qpd.reshape(len(lens), hkv, hq // hkv, d),
-                                         last_pool[quantized], nq=1, scale=scale, softcap=0.0,
+    def paged_plain(kind):
+        pd = kinds[kind][0]
+        o, _ = paged._paged_decode_plain(qpds[pd].reshape(len(lens), hkv, hq // hkv, pd),
+                                         last_pool[kind], nq=1, scale=pd ** -0.5, softcap=0.0,
                                          window_left=-1)
-        return o.reshape(qpd.shape[0], hq, 1, d)
+        return o.reshape(len(lens), hq, 1, pd)
 
     # Packed training: the backward of the 8192-token packing.
     blens = [2048, 1536, 1200, 1024, 900, 700, 500, 284]
@@ -1035,6 +1062,10 @@ def make_runs(gen) -> tuple:
                                                            causal=True)[0],
         "paged_decode": lambda: run_paged(False),
         "paged_decode_int8": lambda: run_paged(True),
+        "paged_decode_page16": lambda: run_paged("page16"),
+        "paged_decode_page32_int8": lambda: run_paged("page32_int8"),
+        "paged_decode_page24": lambda: run_paged("page24"),
+        "paged_decode_d1024": lambda: run_paged("d1024"),
         "varlen_dkdv": lambda: varlen._varlen_dkdv_kernel(ops, meta, sched[0], bcfg, **bkw),
         "varlen_dq": lambda: varlen._varlen_dq_kernel(ops, meta, sched[1], **bkw),
         "varlen_dkdv_d1024": wide_varlen[1024, torch.bfloat16]["run"],
@@ -1074,6 +1105,10 @@ def make_runs(gen) -> tuple:
                                                         nkv=nt, hkv=hkv),
         "paged_decode": lambda: paged_plain(False),
         "paged_decode_int8": lambda: paged_plain(True),
+        "paged_decode_page16": lambda: paged_plain("page16"),
+        "paged_decode_page32_int8": lambda: paged_plain("page32_int8"),
+        "paged_decode_page24": lambda: paged_plain("page24"),
+        "paged_decode_d1024": lambda: paged_plain("d1024"),
         "decode": decode_plain,
         "decode_serving": lambda: decode_plain(True),
         "varlen_dkdv": lambda: varlen._varlen_dkdv_plain(bq, bk, bv, bdo, blse, bdelta, meta,
@@ -1128,8 +1163,8 @@ def main() -> int:
     if base_bwd is not None and LegacyDq.needed(base_bwd):
         trees["base"]["flash_bwd"] = LegacyDq(base_bwd)
     base_paged = trees["base"].get("paged_decode")
-    if base_paged is not None and not hasattr(base_paged, "ffpa_paged_plan"):
-        trees["base"]["paged_decode"] = LegacyPaged(base_paged)
+    if base_paged is not None and LegacyPagedArgs.needed(Path(args.base).resolve()):
+        trees["base"]["paged_decode"] = LegacyPagedArgs(base_paged)
     base_varlen = trees["base"].get("varlen_bwd")
     if base_varlen is not None and not hasattr(base_varlen, "ffpa_varlen_bwd_dkdv_plan"):
         trees["base"]["varlen_bwd"] = base_varlen = LegacyVarlenBwd(base_varlen)
@@ -1145,12 +1180,10 @@ def main() -> int:
         trees["base"]["varlen_fwd"] = LegacyVarlenWideFwd(base_fwd)
     runs, reset, plains = make_runs(torch.Generator(device="cuda").manual_seed(0))
 
-    tma_splits, decode_splits = paged._tma_splits, decode._tma_splits
+    decode_splits = decode._tma_splits
 
     def use(tag):
         _build.load = lambda name: trees[tag][name]
-        legacy = isinstance(trees[tag].get("paged_decode"), LegacyPaged)
-        paged._tma_splits = LegacyPaged.SPLITS if legacy else tma_splits
         legacy_decode = not hasattr(trees[tag].get("decode"), "ffpa_decode_plan")
         decode._tma_splits = decode._num_splits if legacy_decode else decode_splits
 

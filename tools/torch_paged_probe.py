@@ -45,15 +45,15 @@ REPS = 200
 _MMA_BF16 = ("box_mma<T, ROWS, 0>(s, sm.ring + (size_t)st * STAGE_BYTES, sm.q + j * Q_BOX_BYTES, "
              "j == 0);")
 _PV_BF16 = ("pv_mma<T>(*reinterpret_cast<float(*)[8]>(o + 8 * j), sm.ring + (size_t)st * "
-            "STAGE_BYTES,\n                    sm.p);")
+            "STAGE_BYTES,\n                    pbox);")
 _NOWIDEN = [("    widen_stage<T>(sm.ring + (size_t)st * STAGE_BYTES, stg, tid);\n", "")]
 _NOMMA_Q8 = [
     ("        box_mma<T, ROWS, 0>(s, stg, sm.q + 2 * j * Q_BOX_BYTES, j == 0);\n", ""),
     ("          box_mma<T, ROWS, 0>(s, stg + BOX_BYTES, sm.q + (2 * j + 1) * Q_BOX_BYTES);\n",
      ";\n"),
-    ("          pv_mma<T>(*reinterpret_cast<float(*)[8]>(o + 16 * j), stg, sm.p);\n", ""),
+    ("          pv_mma<T>(*reinterpret_cast<float(*)[8]>(o + 16 * j), stg, pbox);\n", ""),
     ("            pv_mma<T>(*reinterpret_cast<float(*)[8]>(o + 16 * j + 8), stg + BOX_BYTES, "
-     "sm.p);\n", ";\n"),
+     "pbox);\n", ";\n"),
 ]
 # variant -> (text, replacement) pairs applied to csrc/paged_decode.cu
 VARIANTS = {

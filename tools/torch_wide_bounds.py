@@ -1,7 +1,7 @@
 """The bound of each wide kernel route: the recompute dQ's and the varlen
 forward's, dK/dV's and dQ's clusters above D512, dense decode on cp.async
-above D512, and paged decode on cp.async over pages that are not a
-multiple of 16 rows.
+above D512, and paged decode over pages of 24 rows and above D512 (its
+two-warpgroup block).
 
 Run anywhere (it needs no card: the numbers are counted from the shapes):
 
@@ -9,8 +9,8 @@ Run anywhere (it needs no card: the numbers are counted from the shapes):
 
 Each route is counted at the shape the bench or ``chip_smoke.py`` would
 give it at D1024 (dense decode at the generate step, the rows the
-validity bias leaves live; paged decode at the serving step, D512, pages
-of 24 rows): operations and bytes from ``utils/profiling.py`` (each input read
+validity bias leaves live; paged decode at the serving step, D512 over
+pages of 24 rows and D1024 over pages of 256): operations and bytes from ``utils/profiling.py`` (each input read
 once, each output written once, products over the band's pairs only), the
 bound (the larger of operations over 989 TFLOP/s and bytes over 3.35 TB/s)
 and the launches a call makes of the route's wrapper. Prints one JSON line.
@@ -62,9 +62,12 @@ def routes() -> list:
         ("10 (D > 512)", "tma::varlen_dq_wgmma_kernel<T, true> (the cluster)",
          "8 documents in 8192 tokens, H8/4 D1024 causal", "1 a packed backward",
          varlen_backward_counts("varlen_dq", PACKING, PACKING, causal=True, **wide)),
-        ("11 (cp.async)", "paged_decode_kernel (cp.async)",
-         "B4 H8/4 D512, pages of 24 rows, the serving step", "1 a decode step",
+        ("11 (page 24)", "tma::paged_tma_kernel<T, false, false> (boxes of 8 rows)",
+         "B4 H8/4 D512, pages of 24 rows, the serving step", "1 a decode step (walk and merge)",
          paged_decode_counts(SERVE_LENS, hq=8, hkv=4, d=512, dv=512)),
+        ("11 (D > 512)", "tma::paged_tma_kernel<T, false, true> (two consumer warpgroups)",
+         "B4 H8/4 D1024, pages of 256 rows, the serving step",
+         "1 a decode step (walk and merge)", paged_decode_counts(SERVE_LENS, **wide)),
     ]
 
 

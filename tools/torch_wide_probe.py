@@ -21,9 +21,11 @@ through the wrapper that launches it (nothing here dispatches):
   bf16; library: SDPA over the packed T with the block-diagonal causal bool
   mask (GQA) for the forward, its autograd (K/V heads expanded) for the
   backward pair;
-* ``11 (cp.async)``: ``paged.paged_decode_attention`` at the serving step
-  (B4 H8/4 D512, pages of 24 rows, four pools in turn); yardstick: SDPA
-  over the cache gathered dense with a length mask (the gather untimed).
+* ``11 (page 24)`` and ``11 (D > 512)``: ``paged.paged_decode_attention``
+  at the serving step (B4 H8/4, four pools in turn), D512 over pages of 24
+  rows and D1024 (the two-warpgroup block) over pages of 256; yardstick:
+  SDPA over the cache gathered dense with a length mask (the gather
+  untimed).
 
 Every route is held against its plain version per row first (a forward at
 2e-2, a gradient at 5e-2 with a floor of 1e-3 of the tensor's max, the
@@ -227,8 +229,8 @@ def varlen_bwd_routes(gen) -> tuple:
     return dkdv, dq
 
 
-def paged_route(gen) -> dict:
-    b, hq, hkv, d, page, max_len = len(SERVE_LENS), 8, 4, 512, 24, 1152
+def paged_route(gen, d: int, page: int) -> dict:
+    b, hq, hkv, max_len = len(SERVE_LENS), 8, 4, 1152
     n = max(SERVE_LENS)
     pools = []
     for _ in range(4):
@@ -260,8 +262,7 @@ def paged_route(gen) -> dict:
         return F.scaled_dot_product_attention(q, kc, vc, attn_mask=valid, enable_gqa=True)
 
     return dict(run=run, plain=plain, library=library, grad=False, reps=100, plain_reps=20,
-                names=("paged_decode_kernel", "paged_tma_kernel", "split_merge_kernel"),
-                walk=("paged_decode_kernel", "paged_tma_kernel"),
+                names=("paged_tma_kernel", "split_merge_kernel"), walk=("paged_tma_kernel",),
                 library_label="yardstick: SDPA over the cache gathered dense, length mask")
 
 
@@ -311,7 +312,9 @@ def probe(row: str, spec: dict, bound: tuple) -> dict:
 
 
 BUILDERS = {"3 (D > 512)": dq_route, "7 (D > 512)": decode_route,
-            "8 (D > 512)": varlen_fwd_route, "11 (cp.async)": paged_route}
+            "8 (D > 512)": varlen_fwd_route,
+            "11 (page 24)": lambda gen: paged_route(gen, 512, 24),
+            "11 (D > 512)": lambda gen: paged_route(gen, 1024, 256)}
 
 
 def main() -> int:
