@@ -15,10 +15,12 @@ It imports only ``ffpa_attn_tpu_torch``, torch and numpy, and runs, in order:
    edge and D != Dv) and its S residual, a causal D1024 backward through
    the S-resident tier (``ffpa_attn_func`` + ``.backward``), a windowed
    D1024 backward through the recompute tier (its forward, dK/dV and dQ
-   launches all on cluster routes), decode on both of its
-   routes (TMA at D, Dv <= 512, cp.async above; one valid column, the
-   serving step's gap, 32 packed rows, D != Dv, the speculative verify
-   block at Nq 5 with its per-row bias; and its score residual),
+   launches all on cluster routes), decode on both instances of its TMA
+   block (one consumer warpgroup at D, Dv <= 512, two splitting Dv above:
+   one valid column, the serving step's gap, 32 packed rows, D != Dv, the
+   speculative verify block at Nq 5 with its per-row bias; D640, D1024,
+   D1024 / Dv320, D576 at 33 packed rows, fp16 and a split masked
+   throughout on the second; and its score residual at D512 and D1024),
    dkdv (both routes: one wgmma block at D, Dv <= 512, a cluster of two
    splitting D and Dv above: D640, D1024, fp16, D != Dv down to a rank
    without a box of one dim, bias + ALiBi + dropout, and a dS handoff cut
@@ -47,10 +49,14 @@ It imports only ``ffpa_attn_tpu_torch``, torch and numpy, and runs, in order:
    batching, the JAX package's serving bench (B4, prompts of 589..886
    tokens, 128 generated, page 256): ``serve_batch``, ``serve_batch_paged``
    over bf16 and int8 pools and a ``ServingEngine`` serving 8 requests over
-   4 slots, each with its launch counts, tokens/s and logit gates; paged
-   serving of the same model at Dh1024 (depth cut to L2) over pages of 256
-   bf16 and int8 rows and of 24 rows, each step teacher-forced against the
-   dense step; the monkey-patch: ``scaled_dot_product_attention`` patched at the prefill
+   4 slots, each with its launch counts, tokens/s and logit gates; the
+   same model at Dh1024 (depth cut to L2): ``generate`` (the 4096-token
+   prompt, 32 tokens) and ``serve_batch`` (the serving workload), their
+   decode launches on the two-warpgroup decode block, the first-step
+   logits and every teacher-forced ``serve_batch`` step against the fp32
+   oracle's attention; then its paged serving over pages of 256 bf16 and
+   int8 rows and of 24 rows, each step teacher-forced against the dense
+   step; the monkey-patch: ``scaled_dot_product_attention`` patched at the prefill
    shape (one forward launch, bit-equal to ``ffpa_attn_func``), a D64, a
    dropout and a causal Nq 1024 / Nkv 4096 call on the stock function (no
    launch, equal to the pristine function), then unpatched; speculative
@@ -95,7 +101,8 @@ It imports only ``ffpa_attn_tpu_torch``, torch and numpy, and runs, in order:
    varlen_bwd.cu free of wgmma serialization notes; the packed call's
    device and CUDA-event ms; the three varlen clusters timed at D1024;
    decode's walk and merge timed apart beside the wrapper's total, at the
-   generate step and at the serving step; paged decode's likewise, over
+   generate step and at the serving step, at D512 and at D1024 (the
+   two-warpgroup instance); paged decode's likewise, over
    bf16 and int8 pools, over pages of 24 rows and at D1024; each backward
    kernel's, decode's and paged decode's device ms logged beside its
    CUDA-event ms and its bound, and timed again once where it reads below
@@ -124,6 +131,7 @@ last three lines are the ``kernels`` JSON line, the nvidia-smi line and the
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -420,8 +428,8 @@ def _decode_case(name, *, b=1, hkv=4, group=2, nq=1, nkv=MAX_LEN, d=512, dv=None
     tol = F16_TOL if dtype == torch.float16 else BF16_TOL
     err, lerr = row_rel(o[held], po[held]), rel(lse[held], plse[held])
     ok = err < tol and lerr < LSE_TOL and bool(torch.isfinite(o).all())
-    route = decode_plan(d, dv, group * nq).route
-    log(f"  decode {name:<19} {route:<8} row_rel_err {err:.2e} (tol {tol:g}) rel_err "
+    wgs = f"{decode_plan(d, dv, group * nq).consumers} wg"
+    log(f"  decode {name:<19} {wgs:<4} row_rel_err {err:.2e} (tol {tol:g}) rel_err "
         f"{rel(o[held], po[held]):.2e} "
         f"lse_rel_err {lerr:.2e} (tol {LSE_TOL:g}) max_abs_err {max_abs(o, po):.3e} "
         f"{'ok' if ok else 'FAIL'}"
@@ -1108,7 +1116,20 @@ def phase_kernels_vs_plain() -> dict:
                  bias=_serve_gap_bias(SERVE_MAX_LEN, SERVE_LENS, 64), seed=9)
     _decode_case("rows32", group=4, nq=8, causal=True, valid=None, seed=10)  # two row blocks
     _decode_case("d512_dv320", dv=320, seed=11)
-    _decode_case("d640_cp_async", d=640, nkv=1000, valid=900, seed=12)
+    # Above D512, the two-warpgroup instance: Dh1024's steps, D != Dv (the
+    # second warpgroup holds 2 of Dv320's 5 boxes), 33 packed rows (three
+    # row blocks), a split masked throughout, fp16, softcap with a window.
+    _decode_case("d640_split", d=640, nkv=1000, valid=900, seed=12)
+    errs["decode_wide"] = _decode_case("d1024_Nkv4224_g2", d=1024, seed=15)
+    _decode_case("d1024_serve_b4_gap", b=SERVE_B, nkv=SERVE_MAX_LEN, d=1024,
+                 bias=_serve_gap_bias(SERVE_MAX_LEN, SERVE_LENS, 64), seed=16)
+    _decode_case("d1024_dv320", d=1024, dv=320, nkv=1000, valid=900, seed=17)
+    _decode_case("d576_rows33", group=11, nq=3, d=576, nkv=1000, causal=True, valid=None,
+                 seed=18)
+    _decode_case("d1024_valid1", d=1024, valid=1, seed=19)  # every split but the first masked
+    _decode_case("d1024_fp16", d=1024, dtype=torch.float16, seed=20)
+    _decode_case("d1024_softcap_window", d=1024, softcap=30.0, window=(1024, -1), causal=True,
+                 valid=None, seed=21)
     # A row masked everywhere under a window (the bias masks every column
     # of batch element 1): the plain version gives the mean of V over every
     # column, the kernels walk only the window's tiles; logged, not held.
@@ -1235,6 +1256,8 @@ def phase_kernels_vs_plain() -> dict:
     _decode_scores_case("slice_Nkv4224_g2")
     _decode_scores_case("nq4_causal", nq=4, causal=True, valid=None, seed=1)
     _decode_scores_case("softcap", softcap=30.0, valid=None, seed=2)
+    _decode_scores_case("d1024", d=1024, seed=3)
+    _decode_scores_case("d576_rows33", group=11, nq=3, d=576, causal=True, valid=None, seed=4)
     # Continuous batching: the varlen forward at the serving packing and
     # feature cases; paged decode at the serving step (page 256) and cases.
     errs["varlen_fwd"] = _varlen_case("serving_packing", seqs=SERVE_LENS)
@@ -1751,10 +1774,146 @@ def phase_serving(model) -> dict:
                 launches={"varlen_fwd": cfg.n_layers, "paged_decode": n_dec})
 
 
-def phase_paged_wide(smi: str) -> dict:
+@torch.inference_mode()
+def _oracle_batched_step(model, cache, lens, t: int, token, base: int):
+    """``models/serving.py`` ``_batched_decode_step`` with its attention
+    computed by the fp32 oracle (``reference_attention``, K/V heads
+    expanded) under the same shared-row bias, over its own ``cache``
+    (written in place): no kernel and no kernel wrapper runs."""
+    from ffpa_attn_tpu_torch.models.serving import _token_block, shared_row_bias
+    from ffpa_attn_tpu_torch.ops.reference import expand_kv_heads, reference_attention
+
+    cfg = model.cfg
+    row = base + t
+    bias = shared_row_bias(lens, t, base, cache[0]["k"].shape[2])
+
+    def attend(li, q, k, v):
+        cache[li]["k"][:, :, row:row + 1] = k
+        cache[li]["v"][:, :, row:row + 1] = v
+        return reference_attention(q, expand_kv_heads(cache[li]["k"], cfg.n_heads),
+                                   expand_kv_heads(cache[li]["v"], cfg.n_heads), bias)
+
+    return _token_block(model, token, lens + t, attend)
+
+
+@torch.inference_mode()
+def _serve_stream_vs_oracle(model, prompts, toks) -> list:
+    """Teacher-forced on ``serve_batch``'s token stream ``toks`` [B, gen]:
+    per decode step, (the kernel step's logits, the oracle step's logits),
+    each on its own copy of one packed prefill's dense shared-row cache."""
+    from ffpa_attn_tpu_torch.models import init_kv_cache, pack_prompts, prefill_packed
+    from ffpa_attn_tpu_torch.models.serving import _batched_decode_step
+
+    cfg, dev = model.cfg, prompts[0].device
+    lens = [int(p.shape[0]) for p in prompts]
+    base = max(lens)
+    packed, cu = pack_prompts(prompts, sum(lens))
+    cache = init_kv_cache(cfg, len(prompts), SERVE_MAX_LEN, device=dev)
+    _, cache = prefill_packed(model, packed, cu, base, cache)
+    oracle = [{k: x.clone() for k, x in c.items()} for c in cache]
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    steps = []
+    for t in range(toks.shape[1] - 1):
+        got, cache = _batched_decode_step(model, cache, lens_t, t, toks[:, t], base)
+        want = _oracle_batched_step(model, oracle, lens_t, t, toks[:, t], base)
+        steps.append((got.float(), want.float()))
+    return steps
+
+
+def phase_wide_dense(smi: str) -> dict:
+    """The dense serving paths above D512, on the two-warpgroup decode
+    block: the serving model at head dim 1024 (``WIDE``: dm1024 H8/4 Dh1024
+    vocab 32000 bf16, random weights from numpy seed 0, depth cut to L2 for
+    run time). ``generate`` on phase 4's 4096-token prompt, 32 greedy tokens
+    (one warm-up call, then one with the launch counts set to 0 just before
+    and read just after: L forward and L x 32 decode launches) with its
+    tokens/s, and the first step's logits (prefill and one decode step)
+    against the oracle's attention (BF16_TOL of max|logit|); then
+    ``serve_batch`` on the serving workload (B4 prompts ``SERVE_LENS``, 128
+    generated, max_len 1152; L varlen forward and L x 127 decode launches)
+    with its tokens/s, and every decode step, teacher-forced on its stream,
+    against the oracle's attention step (BF16_TOL of max|logit|, per
+    sequence). Returns the model for the paged leg."""
+    from ffpa_attn_tpu_torch.models import (
+        ModelConfig, decode_step, generate, init_kv_cache, params_from_jax, prefill,
+        random_params, serve_batch,
+    )
+    from ffpa_attn_tpu_torch.ops.config import decode_plan
+
+    cfg = ModelConfig(**WIDE)
+    model = params_from_jax(random_params(cfg, seed=0), cfg)
+    group = cfg.n_heads // cfg.n_kv_heads
+    plan = decode_plan(cfg.head_dim, cfg.head_dim, group)
+    log(f"Dh1024 dense serving: model L{cfg.n_layers} (depth cut from L4 for run time) "
+        f"dm{cfg.d_model} H{cfg.n_heads}/{cfg.n_kv_heads} Dh{cfg.head_dim} vocab "
+        f"{cfg.vocab_size} {cfg.dtype}; decode plan {plan}")
+    if plan.consumers != 2:
+        fail(f"Dh1024 dense serving: the decode plan {plan} is not the two-warpgroup block")
+    out = {"rates": {}, "launches": {}, "errs": {}}
+
+    # generate: B1, the 4096-token prompt, 32 tokens.
+    prompt = torch.from_numpy(
+        np.random.default_rng(1).integers(0, cfg.vocab_size, (1, PROMPT))).cuda()
+    generate(model, prompt, 2, max_len=MAX_LEN)  # warm-up
+    torch.cuda.synchronize()
+    launch_counts(zero=True)
+    t0 = time.perf_counter()
+    toks = generate(model, prompt, STEPS, max_len=MAX_LEN)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = _counts(SERVE_KERNELS)
+    want = {"flash_fwd": cfg.n_layers, "decode": cfg.n_layers * STEPS, "varlen_fwd": 0,
+            "paged_decode": 0}
+    if counts != want:
+        fail(f"Dh1024 generate: launch counts {counts} != expected {want}")
+    if tuple(toks.shape) != (1, STEPS) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        fail(f"Dh1024 generate: bad tokens {toks}")
+    logits0, cache = prefill(model, prompt, init_kv_cache(cfg, 1, MAX_LEN))
+    first = logits0.argmax(-1)
+    logits1, _ = decode_step(model, cache, PROMPT, first)
+    o0, o1 = oracle_logits(model, prompt, first)
+    e0, e1 = row_rel(logits0, o0), row_rel(logits1, o1)
+    ok = e0 < BF16_TOL and e1 < BF16_TOL and bool(torch.isfinite(logits1).all())
+    out["rates"]["generate"], out["launches"]["generate"] = STEPS / dt, counts["decode"]
+    out["errs"]["generate"] = e1
+    log(f"  generate: {STEPS} tokens in {dt * 1e3:.1f} ms = {STEPS / dt:.1f} tokens/s (B1, "
+        f"prefill included), launches {counts}; first-step logits vs the oracle's attention: "
+        f"prefill rel_err {e0:.2e}, decode rel_err {e1:.2e} (tol {BF16_TOL:g}, of max|logit|) "
+        f"on {smi} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("Dh1024 generate: logits disagree with the oracle's attention")
+    del cache
+
+    # serve_batch: the serving workload over the dense shared-row cache.
+    prompts, _ = serve_prompts()
+    n_dec = cfg.n_layers * (SERVE_GEN - 1)
+    want = {"flash_fwd": 0, "decode": n_dec, "varlen_fwd": cfg.n_layers, "paged_decode": 0}
+    rate = _timed_serve("Dh1024 serve_batch",
+                        lambda: serve_batch(model, prompts, SERVE_GEN, SERVE_MAX_LEN), want)
+    toks = serve_batch(model, prompts, SERVE_GEN, SERVE_MAX_LEN)
+    steps = _serve_stream_vs_oracle(model, prompts, toks)
+    worst, ties = 0.0, 0
+    for got, want_l in steps:
+        worst = max(worst, row_rel(got, want_l))
+        top = want_l.topk(2, dim=-1).values
+        ties += int(((top[:, 0] - top[:, 1]) <= 2 * BF16_TOL * want_l.abs().amax(-1)).sum())
+    ok = worst < BF16_TOL and all(bool(torch.isfinite(g).all()) for g, _ in steps)
+    out["rates"]["serve_batch"], out["launches"]["serve_batch"] = rate, n_dec
+    out["errs"]["serve_batch"] = worst
+    log(f"  serve_batch: {len(steps)} steps teacher-forced on its stream, worst per-row logits "
+        f"vs the oracle's attention step {worst:.2e} (tol {BF16_TOL:g} of max|logit|), {ties} "
+        f"near ties (logged) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("Dh1024 serve_batch: the decode steps disagree with the oracle's attention")
+    del steps
+    torch.cuda.empty_cache()
+    out["model"] = model
+    return out
+
+
+def phase_paged_wide(smi: str, model) -> dict:
     """Paged serving above D512, on the two-warpgroup paged block: the
-    serving model at head dim 1024 (``WIDE``: dm1024 H8/4 Dh1024 vocab 32000
-    bf16, random weights from numpy seed 0, depth cut to L2 for run time)
+    serving model at head dim 1024 (``WIDE``, ``phase_wide_dense``'s model)
     on the serving workload (B4 prompts ``SERVE_LENS``, 128 generated,
     max_len 1152). For each of ``WIDE_POOLS`` (pages of 256 bf16 and int8
     rows, of 24 bf16 rows): ``serve_batch_paged`` once to warm up, then
@@ -1765,14 +1924,12 @@ def phase_paged_wide(smi: str) -> dict:
     pools, INT8_TOL over int8); and the paged wrapper's device ms a step
     (walk and merge, one layer, CUDA events with the host's enqueue taken
     out) at the last step's pools."""
-    from ffpa_attn_tpu_torch.models import ModelConfig, params_from_jax, random_params
     from ffpa_attn_tpu_torch.models import serve_batch_paged
     from ffpa_attn_tpu_torch.ops import paged
     from ffpa_attn_tpu_torch.ops.config import paged_plan
     from ffpa_attn_tpu_torch.utils.profiling import bound_ms, paged_decode_counts, queued_ms
 
-    cfg = ModelConfig(**WIDE)
-    model = params_from_jax(random_params(cfg, seed=0), cfg)
+    cfg = model.cfg
     prompts, _ = serve_prompts()
     log(f"Dh1024 paged serving: model L{cfg.n_layers} (depth cut from L4 for run time) "
         f"dm{cfg.d_model} H{cfg.n_heads}/{cfg.n_kv_heads} Dh{cfg.head_dim} vocab "
@@ -1834,8 +1991,6 @@ def phase_paged_wide(smi: str) -> dict:
         out["step_ms"][label], out["launches"][label] = step_ms, counts["paged_decode"]
         del steps, pools
         torch.cuda.empty_cache()
-    del model
-    torch.cuda.empty_cache()
     return out
 
 
@@ -3586,37 +3741,53 @@ def fwd_cluster_times() -> dict:
             "d1024_library_ms": lms[0], "d1024_max_abs_err": mae}
 
 
-def decode_kernel_row_extras(d: int) -> dict:
-    """Decode's route at the generate step and its kernels' registers and
-    spill bytes, for the ``kernels`` line; fails unless the launcher's plan
-    equals its mirror (``ops/config.py`` ``decode_plan``) over the main
-    path's packings and both routes' edges, and the TMA kernel spills
-    nothing."""
+@functools.lru_cache(maxsize=None)
+def _decode_checks() -> dict:
+    """Fails unless decode's launcher plan equals its mirror
+    (``ops/config.py`` ``decode_plan``) over the main path's packings,
+    both instances' edges and the serving step's packing (group 2 of B4's
+    rows), and unless neither instance (one consumer warpgroup at D, Dv <=
+    512, two above) spills in either dtype. Returns {(consumers, dtype):
+    registers and spill bytes}; runs once."""
     from ffpa_attn_tpu_torch.ops import decode
     from ffpa_attn_tpu_torch.ops.config import decode_plan
 
-    shapes = [(d, d, rows) for rows in (1, 2, 8, 16, 32, 64)]
+    shapes = [(d, d, rows) for d in (512, 1024) for rows in (1, 2, 8, 16, 32, 64)]
     shapes += [(320, 512, 4), (512, 320, 4), (64, 64, 2), (640, 640, 2), (512, 640, 16),
-               (1024, 1024, 64), (768, 1024, 128)]
+               (768, 1024, 128), (1024, 320, 2), (576, 576, 33), (1024, 64, 2), (64, 1024, 2)]
     for hd, hdv, rows in shapes:
         got, want = decode.decode_kernel_plan(hd, hdv, rows), decode_plan(hd, hdv, rows)
         if got != want:
             fail(f"decode launcher's plan at D{hd}/Dv{hdv} R{rows} {got} differs from "
                  f"ops/config.py decode_plan {want}")
-    plan = decode.decode_kernel_plan(d, d, 2)
-    log(f"  decode plan at the generate step: {plan} (the launcher's, equal to ops/config.py "
-        f"decode_plan at {len(shapes)} shapes)")
+    log(f"  decode plans: the launcher's equal to ops/config.py decode_plan at {len(shapes)} "
+        f"shapes")
     attrs = {}
-    for route in ("tma", "cp_async"):
+    for consumers in (1, 2):
         for dt in (torch.bfloat16, torch.float16):
-            a = attrs[(route, dt)] = decode.decode_kernel_attrs(route, dt)
-            log(f"  decode {route} {str(dt)[6:]}: {a['registers']} registers a thread, "
-                f"{a['local_bytes']} local (spill) bytes")
-            if route == "tma" and a["local_bytes"] != 0:
-                fail(f"the TMA decode kernel ({dt}) spills {a['local_bytes']} bytes")
-    a = attrs[(plan.route, torch.bfloat16)]
-    return {"decode_route": plan.route, "registers": a["registers"],
-            "spill_bytes": a["local_bytes"]}
+            a = attrs[(consumers, dt)] = decode.decode_kernel_attrs(consumers, dt)
+            log(f"  decode ({consumers} consumer warpgroup{'s' if consumers > 1 else ''}) "
+                f"{str(dt)[6:]}: {a['registers']} registers a thread, {a['local_bytes']} local "
+                f"(spill) bytes")
+            if a["local_bytes"] != 0:
+                fail(f"the decode kernel ({consumers} consumer warpgroups, {dt}) spills "
+                     f"{a['local_bytes']} bytes")
+    return attrs
+
+
+def decode_kernel_row_extras(d: int) -> dict:
+    """Decode's tiling at head dim ``d`` at the generate step and its
+    instance's registers and spill bytes, for the ``kernels`` line, after
+    ``_decode_checks``."""
+    from ffpa_attn_tpu_torch.ops import decode
+
+    attrs = _decode_checks()
+    plan = decode.decode_kernel_plan(d, d, 2)
+    log(f"  decode plan at D{d}, the generate step: {plan}")
+    a = attrs[(plan.consumers, torch.bfloat16)]
+    return {"decode_route": plan.route, "consumers": plan.consumers, "stages": plan.stages,
+            "kernel": f"tma::decode_tma_kernel<T, {'true' if plan.consumers == 2 else 'false'}>",
+            "registers": a["registers"], "spill_bytes": a["local_bytes"]}
 
 
 def paged_kernel_row_extras(d: int) -> dict:
@@ -4727,14 +4898,106 @@ def varlen_cluster_times(wide: dict) -> tuple:
     return rows, events
 
 
-def phase_times(errs: dict, main_path: dict, training: dict, windowed: dict,
-                resident: dict, serving: dict, packed: dict, fp8_training: dict,
-                wide: dict) -> list:
+def decode_step_times(gen, d: int) -> dict:
+    """Decode at head dim ``d`` at the generate step (B1 H8/4 Nkv = max_len,
+    GQA group 2, the validity bias up to the prompt's last row), then at the
+    serving step (B4, max_len 1152, the shared-row bias with its gap, 64
+    tokens into generation). Four caches, one per layer, so K/V (34.6 MB,
+    37.7 MB a layer at D512) do not sit in L2. The wrapper's device time
+    (the walk and the merge), then each launch alone by kernel name; the
+    host's share of a call is its CUDA-event ms less its device ms. The
+    bound counts the cache rows the output depends on, those the bias
+    leaves live (the kernel also reads the masked tail of the generate step
+    and the serving step's gap), plus the bias read and lse written. At the
+    generate step also the call with the score residual, the plain version
+    and SDPA with the bias. Returns {"generate" / "serving": (kms, (walk,
+    merge), bound, bound_by), "scores", "plain", "library": (device ms,
+    CUDA-event ms)}."""
     import torch.nn.functional as F
 
-    from ffpa_attn_tpu_torch.ops import decode, flash_fwd
+    from ffpa_attn_tpu_torch.ops import decode
     from ffpa_attn_tpu_torch.ops.reference import DEFAULT_MASK_VALUE
     from ffpa_attn_tpu_torch.utils.profiling import bound_ms, paged_decode_counts
+
+    bf, hq, hkv = torch.bfloat16, SLICE["n_heads"], SLICE["n_kv_heads"]
+    scale = 1.0 / math.sqrt(d)
+    out = {}
+    for label, db, nkv in (("generate", 1, MAX_LEN), ("serving", SERVE_B, SERVE_MAX_LEN)):
+        caches = [(_randn((db, hkv, nkv, d), bf, gen), _randn((db, hkv, nkv, d), bf, gen))
+                  for _ in range(SLICE["n_layers"])]
+        qd = _randn((db, hq, 1, d), bf, gen)
+        if label == "generate":
+            cols = torch.arange(nkv, device="cuda")
+            bias = torch.where(cols <= PROMPT, 0.0, DEFAULT_MASK_VALUE).float()[None, None, None]
+        else:
+            bias = _serve_gap_bias(nkv, SERVE_LENS, 64)
+        it = iter(range(1 << 30))
+
+        def pick(caches=caches, it=it):
+            return caches[next(it) % len(caches)]
+
+        def run_kernel(qd=qd, bias=bias, pick=pick):
+            kc, vc = pick()
+            return decode._decode_forward(qd, kc, vc, bias, scale=scale, is_causal=False)
+
+        tag = f"decode D{d} ({label})"
+        live = (bias > DEFAULT_MASK_VALUE / 2).sum(dim=-1).flatten().tolist()
+        flop, nbytes = paged_decode_counts(live, hq=hq, hkv=hkv, d=d, dv=d)
+        bms, bby = bound_ms(flop, nbytes + 4 * bias.numel() + 4 * db * hq)
+        kms = _above_bound(tag, _timed(run_kernel, 100, warmup=8), bms,
+                           lambda run_kernel=run_kernel: _timed(run_kernel, 100, warmup=8))
+        parts = (_kernel_timed(run_kernel, ("decode_tma_kernel",), 100)[0],
+                 _kernel_timed(run_kernel, ("split_merge_kernel",), 100)[0])
+        if kms[0] < 0.95 * sum(parts):
+            # The total reads below its own launches (lost profiler events):
+            # time it again once, and fail if it stays below.
+            first, kms = kms, _timed(run_kernel, 100, warmup=8)
+            log(f"  {tag}: total {first[0]:.4f} ms below walk + merge {sum(parts):.4f} ms, timed "
+                f"again: {kms[0]:.4f} ms")
+            if kms[0] < 0.95 * sum(parts):
+                fail(f"{tag} reads below its own launches twice: {first[0]:.4f} and "
+                     f"{kms[0]:.4f} ms against {sum(parts):.4f} ms")
+        log(f"  decode D{d} at the {label} step (B{db} Nkv {nkv}): {kms[0]:.4f} ms [{kms[1]:.4f}] "
+            f"= walk {parts[0]:.4f} + merge {parts[1]:.4f} ms, bound {bms:.4f} ms ({bby}), host "
+            f"{kms[1] - kms[0]:.4f} ms a call (CUDA events less device)")
+        out[label] = (kms, parts, bms, bby)
+        if label == "serving":
+            break
+        bias_bf = bias.to(bf)
+
+        def run_kernel_scores(qd=qd, bias=bias, pick=pick):
+            kc, vc = pick()
+            return decode._decode_forward(qd, kc, vc, bias, scale=scale, is_causal=False,
+                                          return_scores=True)
+
+        def run_plain(qd=qd, bias=bias, pick=pick):
+            kc, vc = pick()
+            return decode._decode_plain(qd.reshape(db, hkv, hq // hkv, d), kc, vc, bias, nq=1,
+                                        scale=scale, is_causal=False, softcap=0.0,
+                                        window_left=-1, window_right=-1)
+
+        def run_library(qd=qd, bias_bf=bias_bf, pick=pick):
+            kc, vc = pick()
+            return F.scaled_dot_product_attention(qd, kc, vc, attn_mask=bias_bf,
+                                                  enable_gqa=True)
+
+        out["scores"] = _timed(run_kernel_scores, 100, warmup=8)
+        log(f"  decode D{d} at the generate step with the score residual: "
+            f"{out['scores'][0]:.4f} ms [{out['scores'][1]:.4f}]")
+        out["plain"] = _timed(run_plain, 40)
+        out["library"] = _timed(run_library, 100, warmup=8)
+        del caches
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_times(errs: dict, main_path: dict, training: dict, windowed: dict,
+                resident: dict, serving: dict, packed: dict, fp8_training: dict,
+                wide: dict, wide_dense: dict) -> list:
+    import torch.nn.functional as F
+
+    from ffpa_attn_tpu_torch.ops import flash_fwd
+    from ffpa_attn_tpu_torch.utils.profiling import bound_ms
 
     where_the_time_goes(main_path["model"], main_path["prompt"])
     launches = main_path["launches"]
@@ -4775,91 +5038,36 @@ def phase_times(errs: dict, main_path: dict, training: dict, windowed: dict,
     rows[-1].update(fwd_cluster_times())
     events = {"flash_fwd": (kms[1], pms[1], lms[1])}
 
-    # Decode at the generate step (Nkv = max_len, GQA group 2, validity
-    # bias), then at the serving step (B4, max_len 1152, the shared-row bias
-    # with its gap, 64 tokens into generation). Four caches, one per layer,
-    # so K/V (34.6 MB, 37.7 MB) do not sit in L2. The wrapper's device time
-    # (the walk and the merge), then each launch alone by kernel name; the
-    # host's share of a call is its CUDA-event ms less its device ms. The
-    # bound counts the cache rows the output depends on, those the bias
-    # leaves live (the kernel also reads the masked tail of the generate
-    # step and the serving step's gap), plus the bias read and lse written.
-    walk_names = ("decode_tma_kernel", "decode_kernel")
-    decode_ms = {}
-    for label, db, nkv in (("generate", b, MAX_LEN), ("serving", SERVE_B, SERVE_MAX_LEN)):
-        caches = [(_randn((db, hkv, nkv, d), bf, gen), _randn((db, hkv, nkv, d), bf, gen))
-                  for _ in range(SLICE["n_layers"])]
-        qd = _randn((db, hq, 1, d), bf, gen)
-        if label == "generate":
-            cols = torch.arange(nkv, device="cuda")
-            bias = torch.where(cols <= PROMPT, 0.0, DEFAULT_MASK_VALUE).float()[None, None, None]
-        else:
-            bias = _serve_gap_bias(nkv, SERVE_LENS, 64)
-        it = iter(range(1 << 30))
-
-        def pick(caches=caches, it=it):
-            return caches[next(it) % len(caches)]
-
-        def run_kernel(qd=qd, bias=bias, pick=pick):
-            kc, vc = pick()
-            return decode._decode_forward(qd, kc, vc, bias, scale=scale, is_causal=False)
-
-        live = (bias > DEFAULT_MASK_VALUE / 2).sum(dim=-1).flatten().tolist()
-        flop, nbytes = paged_decode_counts(live, hq=hq, hkv=hkv, d=d, dv=d)
-        bms, bby = bound_ms(flop, nbytes + 4 * bias.numel() + 4 * db * hq)
-        kms = _above_bound(f"decode ({label})", _timed(run_kernel, 100, warmup=8), bms,
-                           lambda run_kernel=run_kernel: _timed(run_kernel, 100, warmup=8))
-        parts = (_kernel_timed(run_kernel, walk_names, 100)[0],
-                 _kernel_timed(run_kernel, ("split_merge_kernel",), 100)[0])
-        if kms[0] < 0.95 * sum(parts):
-            # The total reads below its own launches (lost profiler events):
-            # time it again once, and fail if it stays below.
-            first, kms = kms, _timed(run_kernel, 100, warmup=8)
-            log(f"  decode ({label}): total {first[0]:.4f} ms below walk + merge "
-                f"{sum(parts):.4f} ms, timed again: {kms[0]:.4f} ms")
-            if kms[0] < 0.95 * sum(parts):
-                fail(f"decode ({label}) reads below its own launches twice: {first[0]:.4f} and "
-                     f"{kms[0]:.4f} ms against {sum(parts):.4f} ms")
-        log(f"  decode at the {label} step (B{db} Nkv {nkv}): {kms[0]:.4f} ms [{kms[1]:.4f}] = "
-            f"walk {parts[0]:.4f} + merge {parts[1]:.4f} ms, bound {bms:.4f} ms ({bby}), host "
-            f"{kms[1] - kms[0]:.4f} ms a call (CUDA events less device)")
-        decode_ms[label] = (kms, parts, bms, bby)
-        if label == "serving":
-            break
-        bias_bf = bias.to(bf)
-
-        def run_kernel_scores(qd=qd, bias=bias, pick=pick):
-            kc, vc = pick()
-            return decode._decode_forward(qd, kc, vc, bias, scale=scale, is_causal=False,
-                                          return_scores=True)
-
-        def run_plain(qd=qd, bias=bias, pick=pick):
-            kc, vc = pick()
-            return decode._decode_plain(qd.reshape(b, hkv, 2, d), kc, vc, bias, nq=1,
-                                        scale=scale, is_causal=False, softcap=0.0,
-                                        window_left=-1, window_right=-1)
-
-        def run_library(qd=qd, bias_bf=bias_bf, pick=pick):
-            kc, vc = pick()
-            return F.scaled_dot_product_attention(qd, kc, vc, attn_mask=bias_bf,
-                                                  enable_gqa=True)
-
-        sms = _timed(run_kernel_scores, 100, warmup=8)
-        log(f"  decode at the generate step with the score residual: {sms[0]:.4f} ms "
-            f"[{sms[1]:.4f}]")
-        pms = _timed(run_plain, 40)
-        lms = _timed(run_library, 100, warmup=8)
-    (kms, parts, bms, bby), serve = decode_ms["generate"], decode_ms["serving"]
+    dec = decode_step_times(gen, d)
+    (kms, parts, bms, bby), serve = dec["generate"], dec["serving"]
     rows.append(dict(
         name="decode", route="cuda", source="ffpa_attn_tpu_torch/csrc/decode.cu",
         replaces="ffpa_attn_tpu/ops/decode.py:52", launches=launches["decode"],
-        max_abs_err=errs["decode"], ms=kms[0], plain_ms=pms[0], bound_ms=bms,
-        bound_by=bby, library_ms=lms[0], walk_ms=parts[0], merge_ms=parts[1],
-        ms_with_scores=sms[0], serving_ms=serve[0][0], serving_walk_ms=serve[1][0],
+        max_abs_err=errs["decode"], ms=kms[0], plain_ms=dec["plain"][0], bound_ms=bms,
+        bound_by=bby, library_ms=dec["library"][0], walk_ms=parts[0], merge_ms=parts[1],
+        ms_with_scores=dec["scores"][0], serving_ms=serve[0][0], serving_walk_ms=serve[1][0],
         serving_merge_ms=serve[1][1], serving_bound_ms=serve[2],
     ))
     rows[-1].update(decode_kernel_row_extras(d))
-    events["decode"] = (kms[1], pms[1], lms[1])
+    events["decode"] = (kms[1], dec["plain"][1], dec["library"][1])
+    # Row 7 (D > 512): the two-warpgroup instance at the Dh1024 model's steps.
+    wd = WIDE["head_dim"]
+    dec = decode_step_times(gen, wd)
+    (kms, parts, bms, bby), serve = dec["generate"], dec["serving"]
+    rows.append(dict(
+        name="decode_wide", row="7 (D > 512)", route="cuda",
+        source="ffpa_attn_tpu_torch/csrc/decode.cu", replaces="ffpa_attn_tpu/ops/decode.py:52",
+        launches=wide_dense["launches"]["generate"],
+        serving_launches=wide_dense["launches"]["serve_batch"],
+        max_abs_err=errs["decode_wide"], ms=kms[0], plain_ms=dec["plain"][0], bound_ms=bms,
+        bound_by=bby, library_ms=dec["library"][0], walk_ms=parts[0], merge_ms=parts[1],
+        ms_with_scores=dec["scores"][0], serving_ms=serve[0][0], serving_walk_ms=serve[1][0],
+        serving_merge_ms=serve[1][1], serving_bound_ms=serve[2],
+        generate_tokens_per_s=wide_dense["rates"]["generate"],
+        serving_tokens_per_s=wide_dense["rates"]["serve_batch"],
+    ))
+    rows[-1].update(decode_kernel_row_extras(wd))
+    events["decode_wide"] = (kms[1], dec["plain"][1], dec["library"][1])
     torch.cuda.empty_cache()
     serve_rows, serve_events = serving_times(errs, serving, wide, main_path["model"])
     train_rows, train_events, fwd_train = training_times(training, windowed, resident,
@@ -4898,7 +5106,11 @@ def main() -> int:
     serving = phase_serving(main_path["model"])
     log(f"serving tokens/s on {smi}: " + " ".join(
         f"{k} {v:.1f}" for k, v in serving["rates"].items()))
-    wide = phase_paged_wide(smi)
+    wide_dense = phase_wide_dense(smi)
+    log(f"Dh1024 dense serving tokens/s on {smi}: " + " ".join(
+        f"{k} {v:.1f}" for k, v in wide_dense["rates"].items()))
+    wide = phase_paged_wide(smi, wide_dense.pop("model"))
+    torch.cuda.empty_cache()
     log(f"Dh1024 paged serving tokens/s on {smi}: " + " ".join(
         f"{k} {v:.1f}" for k, v in wide["rates"].items()) + "; paged decode device ms a step: "
         + " ".join(f"{k} {v:.4f}" for k, v in wide["step_ms"].items()))
@@ -4920,7 +5132,7 @@ def main() -> int:
     phase_checkpoint()
     packed = phase_packed_training()
     rows = phase_times(errs, main_path, training, windowed, resident, serving, packed,
-                       fp8_training, wide)
+                       fp8_training, wide, wide_dense)
     bench = phase_bench_cli(main_path["model"])
     for r in rows:  # launches per speculative call beside the main path's
         if r["name"] in ("flash_fwd", "decode"):

@@ -3,10 +3,9 @@ model.
 
 What limits a launch on an H100 is the shared memory one block asks for (at
 most 227 KB, 232,448 bytes) and, for the forward, the registers that hold
-its fp32 O tile. ``fwd_smem_bytes`` and ``decode_smem_bytes`` count exactly
-what the kernels' launchers ask for (the same formulas as in
-``csrc/flash_fwd.cu`` and ``csrc/decode.cu``), so a config picked here is
-never refused by the card.
+its fp32 O tile. The plans below (``fwd_plan``, ``decode_plan``, ...) count
+exactly what the kernels' launchers ask for (the same formulas as in
+``csrc/``), so a config picked here is never refused by the card.
 
 * Forward (``csrc/flash_fwd.cu``), one TMA + wgmma block on two routes by
   head dims alone (``fwd_plan`` mirrors the launcher's ``fwd::make_plan``):
@@ -26,12 +25,11 @@ never refused by the card.
   checked (``fwd_fits``: the retired mma.sync block's shared memory and
   register budget, kept so that the S residual's row padding stays
   what it was) and sets the S residual's row padding.
-* Decode (``csrc/decode.cu``), two routes by head dims alone
-  (``decode_plan`` mirrors the launcher's ``make_plan``): D and Dv <= 512
-  take the TMA block (16 packed rows, a ring of 8 KiB stages as deep as
-  leaves two blocks an SM); wider heads the cp.async block, whose fp32 O
-  tile of the PackGQA rows lives in shared memory while Q/K and V chunks
-  stream through two slots (row tiles 16 .. 128).
+* Decode (``csrc/decode.cu``), one TMA block for every shape
+  (``decode_plan`` mirrors the launcher's ``make_plan``): 16 packed rows, a
+  ring of 8 KiB stages; D and Dv <= 512 one consumer warpgroup in a block's
+  share of two an SM, wider heads (up to 1024) two that split Dv in one
+  block an SM.
 * Packed varlen forward (``csrc/varlen_fwd.cu``), two routes by head dims
   alone (``varlen_fwd_plan`` mirrors the launcher's ``tma::make_plan``):
   the dense wgmma forward block's tiling at every width (``fwd_plan``: 64
@@ -124,15 +122,13 @@ SMEM_LIMIT_BYTES = 232_448
 # The kernels' KV tile and head-dim chunk width (compile-time in the .cu).
 KV_TILE = 64
 D_CHUNK = 64
-# Stream slots of the cp.async rings (flash_fwd.cu / flash_bwd.cu NST,
-# decode.cu NSTAGES).
+# Stream slots of the cp.async rings (flash_fwd.cu / flash_bwd.cu NST).
 FWD_STREAM_STAGES = 4
-DECODE_STREAM_STAGES = 2
 # fp32 O-tile elements the forward's 512 threads hold in registers (64 each).
 FWD_ACC_ELEMS = 64 * 512
 # Row tiles the kernels are instantiated for.
 FWD_ROW_TILES = (64, 32)
-ROW_TILES = (128, 64, 32, 16)  # decode (wmma fragments are 16 rows)
+ROW_TILES = (128, 64, 32, 16)  # the row tiles a BlockConfig takes
 # Backward tiles of the mma.sync from-S kernel with dK in the kernel
 # (flash_bwd.cu): owned KV rows and streamed Q rows (the wgmma routes take
 # 64 and 64); DKDV_Q_TILE also pads the dense dS slab's rows and the varlen
@@ -207,13 +203,17 @@ _PAGED_TMA_Q_BOX_BYTES = 16 * 128
 _PAGED_TMA_STAGING_BYTES = 2 * 64 * 64 * 2
 _PAGED_TMA_XCH_BYTES = 2 * 4 * 16 * 4
 # Compile-time constants of the TMA decode block (decode.cu namespace tma:
-# ROWS, the dims it takes, STAGE_BYTES, MAX_STAGES, BLOCK_SMEM, Q_BOX_BYTES,
-# XCH_FLOATS * 4), not settings: decode_plan mirrors the launcher with them.
+# ROWS, MAX_D, STAGE_BYTES, MAX_STAGES, BLOCK_SMEM, SPLIT_BLOCK_SMEM,
+# Q_BOX_BYTES, XCH_FLOATS * 4; above 512 the block splits Dv over two
+# consumer warpgroups), not settings: decode_plan mirrors the launcher with
+# them.
 _DECODE_TMA_ROWS = 16
-_DECODE_TMA_MAX_D = 512
+_DECODE_TMA_MAX_D = 1024
+_DECODE_TMA_SPLIT_D = 512
 _DECODE_TMA_STAGE_BYTES = 64 * 128
 _DECODE_TMA_MAX_STAGES = 12
 _DECODE_TMA_BLOCK_SMEM = 115_712
+_DECODE_TMA_SPLIT_BLOCK_SMEM = 232_448
 _DECODE_TMA_Q_BOX_BYTES = 16 * 128
 _DECODE_TMA_XCH_BYTES = 2 * 4 * 16 * 4
 # Compile-time constants of the banded dQ / dK blocks (flash_bwd.cu
@@ -382,69 +382,48 @@ def fwd_plan(d: int, dv: int) -> FwdPlan:
                    tuple(o_blocks), tuple(zip(d_blocks, v_blocks)) if split else ())
 
 
-def decode_smem_bytes(cfg: BlockConfig, dv: int, itemsize: int = 2) -> int:
-    """Shared memory of one decode block: fp32 O tile [bq, Dv] + fp32 S
-    [bq, bkv] + P [bq, bkv] + DECODE_STREAM_STAGES slots, each a Q chunk and
-    a K chunk (or a V chunk) of 64 head-dim columns + per-row m, l, alpha.
-    Q and K are chunked over D, so D costs nothing here."""
-    bq, bkv = cfg.block_q, cfg.block_kv
-    o_tile = bq * (_round_up(dv, D_CHUNK) + _PAD_F) * 4
-    s_tile = bq * (bkv + _PAD_F) * 4
-    p_tile = bq * (bkv + _PAD_T) * itemsize
-    slots = DECODE_STREAM_STAGES * (bq + bkv) * (D_CHUNK + _PAD_T) * itemsize
-    return o_tile + s_tile + p_tile + slots + 3 * bq * 4
-
-
 @dataclass(frozen=True)
 class DecodePlan:
-    """The route and tiling of one decode launch, as ``csrc/decode.cu``
-    ``make_plan`` computes it (the library hands its own out through
+    """The tiling of one decode launch, as ``csrc/decode.cu`` ``make_plan``
+    computes it (the library hands its own out through
     ``decode.decode_kernel_plan``; the card test holds the two equal).
 
-    ``route`` is "tma" or "cp_async"; ``rows`` the packed rows of a block (a
+    ``route`` is "tma", the only one; ``rows`` the packed rows of a block (a
     taller packing takes ``cdiv(R, rows)`` row blocks), ``stages`` the
-    ring's depth and ``smem_bytes`` the dynamic shared memory a block asks
-    for.
+    ring's depth, ``smem_bytes`` the dynamic shared memory a block asks
+    for, ``consumers`` its consumer warpgroups (2 above D512: they split
+    Dv) and ``blocks_per_sm`` the blocks an SM holds at once.
     """
 
     route: str
     rows: int
     stages: int
     smem_bytes: int
+    consumers: int
+    blocks_per_sm: int
 
 
 @lru_cache(maxsize=None)
-def decode_plan(d: int, dv: int, rows: int, itemsize: int = 2) -> DecodePlan:
-    """The decode route at head dims (d, dv) (padded to 64-column chunks)
-    and ``rows`` packed rows (group * nq): D, Dv <= 512 take the TMA block,
-    with as many 8 KiB stages (at most 12) as fit beside Q's boxes, the P
-    box and the exchange in a block's share of two an SM; wider heads the
-    cp.async block at the smallest of ``ROW_TILES`` holding ``rows``,
-    halved while it does not fit shared memory."""
+def decode_plan(d: int, dv: int, rows: int) -> DecodePlan:
+    """The decode tiling at head dims (d, dv) (padded to 64-column chunks,
+    at most 1024) and ``rows`` packed rows (group * nq; the plan does not
+    depend on them): 16 packed rows; D and Dv <= 512 one consumer warpgroup
+    in a block's share of two an SM, wider heads two (each holding half of
+    Dv's boxes) in one block an SM; as many 8 KiB stages (at most 12) as
+    fit beside Q's boxes and, per warpgroup, the P box and the exchange."""
+    del rows
     d_pad, dv_pad = _round_up(d, D_CHUNK), _round_up(dv, D_CHUNK)
-    if max(d_pad, dv_pad) <= _DECODE_TMA_MAX_D:
-        fixed = (1024 + (d_pad // D_CHUNK + 1) * _DECODE_TMA_Q_BOX_BYTES
-                 + _DECODE_TMA_XCH_BYTES)
-        stage = _DECODE_TMA_STAGE_BYTES + 16
-        stages = min(_DECODE_TMA_MAX_STAGES, (_DECODE_TMA_BLOCK_SMEM - fixed) // stage)
-        return DecodePlan("tma", _DECODE_TMA_ROWS, stages, fixed + stages * stage)
-    cfg = decode_row_tile(dv_pad, rows, itemsize)
-    return DecodePlan("cp_async", cfg.block_q, DECODE_STREAM_STAGES,
-                      decode_smem_bytes(cfg, dv_pad, itemsize))
-
-
-def decode_row_tile(dv: int, rows: int, itemsize: int = 2) -> BlockConfig:
-    """The cp.async decode block's row tile: the smallest of ``ROW_TILES``
-    that holds all ``rows`` packed GQA rows (group * Nq), halved until the
-    block fits shared memory. A decode block computes every row of its tile
-    while K/V stream once, so covering the packed rows in one tile is what
-    keeps the K/V traffic at one pass per KV head."""
-    cfg = BlockConfig(block_q=128).clamp(rows, 0)
-    while decode_smem_bytes(cfg, dv, itemsize) > SMEM_LIMIT_BYTES:
-        if cfg.block_q == min(ROW_TILES):
-            raise ValueError(f"no decode row tile fits shared memory at Dv={dv}")
-        cfg = BlockConfig(block_q=cfg.block_q // 2)
-    return cfg
+    if min(d_pad, dv_pad) < D_CHUNK or max(d_pad, dv_pad) > _DECODE_TMA_MAX_D:
+        raise ValueError(f"decode takes head dims in 1..{_DECODE_TMA_MAX_D}, got D={d}, Dv={dv}")
+    split = max(d_pad, dv_pad) > _DECODE_TMA_SPLIT_D
+    wgs = 2 if split else 1
+    fixed = (1024 + (d_pad // D_CHUNK) * _DECODE_TMA_Q_BOX_BYTES
+             + wgs * (_DECODE_TMA_Q_BOX_BYTES + _DECODE_TMA_XCH_BYTES))
+    stage = _DECODE_TMA_STAGE_BYTES + 16
+    budget = _DECODE_TMA_SPLIT_BLOCK_SMEM if split else _DECODE_TMA_BLOCK_SMEM
+    stages = min(_DECODE_TMA_MAX_STAGES, (budget - fixed) // stage)
+    return DecodePlan("tma", _DECODE_TMA_ROWS, stages, fixed + stages * stage, wgs,
+                      1 if split else 2)
 
 
 def varlen_fwd_plan(d: int, dv: int) -> FwdPlan:
@@ -821,10 +800,8 @@ __all__ = [
     "fwd_fits",
     "FwdPlan",
     "fwd_plan",
-    "decode_smem_bytes",
     "DecodePlan",
     "decode_plan",
-    "decode_row_tile",
     "varlen_fwd_plan",
     "varlen_fits",
     "PagedPlan",

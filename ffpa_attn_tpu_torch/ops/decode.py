@@ -15,13 +15,13 @@ Bound on an H100: bytes. Every step reads the whole K and V cache once,
 Design against that bound: at B=1 the (B, Hkv) grid of the TPU kernel would
 fill 4 of 132 SMs, so the KV range is split across blocks (launch 1 writes
 fp32 partials with their LSE, launch 2 merges them by LSE); with a sliding
-window only the tiles of the band are read. Two routes for launch 1
-(``config.decode_plan``): at D, Dv <= 512 a TMA block (a producer thread
-keeps up to 11 boxes of 8 KiB in flight, one wgmma warpgroup does the math,
-up to two blocks an SM, one block for every SM where the band has the
-tiles: splits by ``_tma_splits``, cut by ``decode_split_ranges``); wider
-heads a cp.async block that streams K/V chunks one ahead of the math
-(splits by ``_num_splits``).
+window only the tiles of the band are read. Launch 1 is one TMA block at
+every D, Dv <= 1024 (``config.decode_plan``): a producer thread keeps up to
+12 boxes of 8 KiB in flight; at D, Dv <= 512 one wgmma warpgroup does the
+math, two blocks an SM; above, two warpgroups split Dv, one block an SM.
+Splits by ``_tma_splits`` (one block for every SM where the band has the
+tiles, every block of the launch resident at once), cut by
+``decode_split_ranges``.
 
 Under autograd the forward also writes the fp32 masked scores of the packed
 rows (``return_scores``; 135 KB at the serving step), and the backward is
@@ -69,18 +69,7 @@ def _decode_block_kv(d: int, dv: int, nkv: int, dtype, group: int = 1) -> int:
     return KV_TILE
 
 
-def _num_splits(blocks_per_split: int, kv_tiles: int, num_sms: int) -> int:
-    """KV splits of the cp.async routes (dense and paged decode) so that
-    about two blocks land on every SM, with at least one KV tile per
-    split."""
-    if kv_tiles <= 0:
-        return 1
-    want = cdiv(2 * num_sms, max(blocks_per_split, 1))
-    splits = max(1, min(kv_tiles, want))
-    return cdiv(kv_tiles, cdiv(kv_tiles, splits))  # no empty trailing split
-
-
-# The TMA route's split count. A second block on an SM walks no faster,
+# The split count. A second block on an SM walks no faster,
 # and every split adds a partial that the merge launch reads after the
 # others. On an H100 80GB HBM3 at 700 W (tools/torch_decode_probe.py,
 # device ms of walk + merge, two readings each): the generate step (B1
@@ -90,15 +79,19 @@ def _num_splits(blocks_per_split: int, kv_tiles: int, num_sms: int) -> int:
 # step (B4, 18 tiles) 0.0198 at its 9, 0.0244 at 18 and 0.0207-0.0208 at
 # 6; the tiny model's step (B1 H2/1 Nkv 136 D320, 3 tiles, one block a
 # split) 0.0085 at its 3, 0.0108 at 2 and 0.0133 at 1.
-def _tma_splits(blocks_per_split: int, kv_tiles: int, num_sms: int) -> int:
-    """KV splits of the TMA route: as many as give every SM one block, at
-    most one a tile; of those, the fewest that give the same longest run of
-    tiles. The launch has fewer than num_sms + blocks_per_split blocks, so
-    (blocks_per_split <= num_sms) at two an SM every block is resident at
-    once."""
+def _tma_splits(blocks_per_split: int, kv_tiles: int, num_sms: int, blocks_per_sm: int) -> int:
+    """KV splits of the launch: as many as give every SM one block, at most
+    one a tile; of those, the fewest that give the same longest run of
+    tiles. Every block of the launch is resident at once: where the plan
+    holds two blocks an SM (D, Dv <= 512) the count rounds up (fewer than
+    num_sms + blocks_per_split blocks, two an SM at most while
+    blocks_per_split <= num_sms), where it holds one (above 512) it rounds
+    down (num_sms blocks at most)."""
     if kv_tiles <= 0:
         return 1
-    cap = max(1, min(kv_tiles, cdiv(num_sms, max(blocks_per_split, 1))))
+    bps = max(blocks_per_split, 1)
+    per_sm = cdiv(num_sms, bps) if blocks_per_sm > 1 else num_sms // bps
+    cap = max(1, min(kv_tiles, per_sm))
     return cdiv(kv_tiles, cdiv(kv_tiles, cap))
 
 
@@ -189,22 +182,22 @@ def _check(err: int, what: str) -> None:
 
 
 def decode_kernel_plan(d: int, dv: int, rows: int) -> DecodePlan:
-    """The route and tiling the launcher takes at head dims (d, dv) (padded
-    to 64-column chunks) and ``rows`` packed rows, read from the library:
-    what ``config.decode_plan`` mirrors. Needs a card."""
+    """The tiling the launcher takes at head dims (d, dv) (padded to
+    64-column chunks) and ``rows`` packed rows, read from the library: what
+    ``config.decode_plan`` mirrors. Needs a card."""
     out = (ctypes.c_int * 8)()
     err = _decode_fn("ffpa_decode_plan")(cdiv(d, D_CHUNK) * D_CHUNK, cdiv(dv, D_CHUNK) * D_CHUNK,
                                          rows, out, len(out))
     _check(err, "decode plan")
-    return DecodePlan("tma" if out[0] == 1 else "cp_async", out[1], out[2], out[3])
+    return DecodePlan("tma" if out[0] == 1 else f"route {out[0]}", *out[1:6])
 
 
-def decode_kernel_attrs(route: str, dtype=torch.bfloat16) -> dict:
-    """Registers a thread and local (spill) bytes of the decode kernel of
-    ``route`` ("tma", or "cp_async" at 16 rows), from
+def decode_kernel_attrs(consumers: int, dtype=torch.bfloat16) -> dict:
+    """Registers a thread and local (spill) bytes of the decode kernel
+    with ``consumers`` warpgroups (1: D, Dv <= 512; 2: wider), from
     cudaFuncGetAttributes. Needs a card."""
     regs, local = ctypes.c_int(0), ctypes.c_int(0)
-    err = _decode_fn("ffpa_decode_attrs")(int(route == "tma"), int(dtype == torch.float16),
+    err = _decode_fn("ffpa_decode_attrs")(consumers, int(dtype == torch.float16),
                                           ctypes.byref(regs), ctypes.byref(local))
     _check(err, "decode kernel attributes")
     return {"registers": regs.value, "local_bytes": local.value}
@@ -213,19 +206,18 @@ def decode_kernel_attrs(route: str, dtype=torch.bfloat16) -> dict:
 def _decode_kernel(qp, k, v, bias, *, nq, scale, is_causal, softcap, window_left, window_right,
                    return_scores=False):
     """Launch the split-KV kernel and its merge on packed rows (same
-    contract as ``_decode_plain``), on the route ``config.decode_plan``
-    names."""
+    contract as ``_decode_plain``), tiled as ``config.decode_plan``
+    says."""
     check_kernel_inputs("_decode_forward", qp, k, v)
     b, hkv, rows, d = qp.shape
     nkv, dv = k.shape[2], v.shape[-1]
     d_pad, dv_pad = cdiv(d, D_CHUNK) * D_CHUNK, cdiv(dv, D_CHUNK) * D_CHUNK
-    plan = decode_plan(d_pad, dv_pad, rows, qp.element_size())
+    plan = decode_plan(d_pad, dv_pad, rows)
     row_blocks = cdiv(rows, plan.rows)
     kv_start, kv_end = _kv_band(nq, nkv, is_causal, window_left, window_right)
     kv_tiles = cdiv(kv_end - kv_start, KV_TILE) if kv_end > kv_start else 0
     num_sms = _sm_count(qp.device.index)
-    split_rule = _tma_splits if plan.route == "tma" else _num_splits
-    splits = split_rule(b * hkv * row_blocks, kv_tiles, num_sms)
+    splits = _tma_splits(b * hkv * row_blocks, kv_tiles, num_sms, plan.blocks_per_sm)
     kv_per_split = max(cdiv(kv_tiles, splits), 1) * KV_TILE
 
     q_ = _pad_last(qp, d_pad).contiguous()
@@ -249,8 +241,8 @@ def _decode_kernel(qp, k, v, bias, *, nq, scale, is_causal, softcap, window_left
     level = ENV.device_log_level()
     if level >= 2:
         logger.info(
-            "decode launch route=%s grid=(%d,%d,%d) block_rows=%d rows=%d stages=%d",
-            plan.route, splits, hkv * row_blocks, b, plan.rows, rows, plan.stages,
+            "decode launch consumers=%d grid=(%d,%d,%d) block_rows=%d rows=%d stages=%d",
+            plan.consumers, splits, hkv * row_blocks, b, plan.rows, rows, plan.stages,
         )
     if level >= 3:
         logger.info(

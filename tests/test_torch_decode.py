@@ -116,8 +116,9 @@ def test_key_broadcast_bias_follows_the_oracle():
 
 def test_split_kv_merge_identity():
     """The kernel's split-KV plan and LSE merge, in plain fp32: partials
-    over the splits ``_num_splits`` / ``_kv_band`` choose, merged by LSE,
-    equal one pass over the whole band."""
+    over the splits ``_tma_splits`` / ``decode_split_ranges`` / ``_kv_band``
+    choose (both instances' rules), merged by LSE, equal one pass over the
+    whole band."""
     case = dict(nq=1, group=2, window=(130, -1), is_causal=True)
     x = _inputs(case, seed=4)
     nq, g = case["nq"], case["group"]
@@ -128,23 +129,22 @@ def test_split_kv_merge_identity():
     start, end = tdec._kv_band(nq, NKV, True, 130, -1)
     assert start == 64 and end == NKV  # the band [69, 200) starts in tile 1
     tiles = -(-(end - start) // tdec.KV_TILE)
-    splits = tdec._num_splits(HKV, tiles, num_sms=132)
-    per = -(-tiles // splits) * tdec.KV_TILE
-    parts = []
-    for s in range(splits):
-        lo, hi = start + s * per, min(end, start + (s + 1) * per)
-        # A split sees only its own columns; the band mask is taken on the
-        # full row positions, so slice after masking via a bias.
-        bias = torch.full((NKV,), float("-inf"))
-        bias[lo:hi] = 0.0
-        parts.append(tdec._decode_plain(qp, k, v, bias, **kw))
     whole_o, whole_l = tdec._decode_plain(qp, k, v, None, **kw)
-    lses = torch.stack([p[1] for p in parts])
-    lse = torch.logsumexp(lses, dim=0)
-    o = sum(torch.exp(l - lse)[..., None] * p[0].float() for p, l in zip(parts, lses))
-    assert splits > 1
-    assert rel_err(lse, whole_l) < MERGE_TOL
-    assert rel_err(o, whole_o.float()) < BF16_TOL  # partials are rounded to the dtype
+    for blocks_per_sm in (2, 1):  # D, Dv <= 512 and above
+        splits = tdec._tma_splits(HKV, tiles, 132, blocks_per_sm)
+        parts = []
+        for lo, hi in tdec.decode_split_ranges(start, end, splits):
+            # A split sees only its own columns; the band mask is taken on
+            # the full row positions, so slice after masking via a bias.
+            bias = torch.full((NKV,), float("-inf"))
+            bias[lo:hi] = 0.0
+            parts.append(tdec._decode_plain(qp, k, v, bias, **kw))
+        lses = torch.stack([p[1] for p in parts])
+        lse = torch.logsumexp(lses, dim=0)
+        o = sum(torch.exp(l - lse)[..., None] * p[0].float() for p, l in zip(parts, lses))
+        assert splits > 1
+        assert rel_err(lse, whole_l) < MERGE_TOL
+        assert rel_err(o, whole_o.float()) < BF16_TOL  # partials are rounded to the dtype
 
 
 SCORES = sorted(n for n in CASES if "window" not in CASES[n])

@@ -3,17 +3,18 @@
 route's split rule (``ops/decode.py`` ``_tma_splits`` and
 ``decode_split_ranges``, the mirror of ``tma::range_of``).
 
-D and Dv up to 512 take the TMA block: 16 packed rows (a taller packing
-takes ``cdiv(R, 16)`` row blocks) and a ring of 8 KiB stages in the share of
-shared memory that leaves two blocks an SM. Wider heads take the cp.async
-block. On the CPU the split rule must cover the band [kv_start, kv_end)
+Every width takes the TMA block: 16 packed rows (a taller packing takes
+``cdiv(R, 16)`` row blocks) and a ring of 8 KiB stages. D and Dv up to 512
+take one consumer warpgroup in the share of shared memory that leaves two
+blocks an SM; wider heads (up to 1024) two warpgroups that split Dv, in one
+block an SM. On the CPU the split rule must cover the band [kv_start, kv_end)
 exactly once in whole 64-row tiles and near-equal runs, and the splits'
 partials, each computed as the kernel computes it (a split that saw only
 masked scores normalised by the band's width), merged by LSE as
 ``split_merge.cuh`` merges them, must equal the plain version over the
 whole band (fp32 algebra: 1e-5 on lse, 1e-5 relative to max|o|). On a card
-the mirror is held equal to the library's plan, the TMA kernel spills
-nothing, and the kernel is held against ``_decode_plain`` per row (bf16
+the mirror is held equal to the library's plan, neither instance spills,
+and the kernel is held against ``_decode_plain`` per row (bf16
 2e-2, fp16 1e-2, ``row_rel_err``), lse at 1e-4 of max|lse|, and its score
 residual at 1e-2 on the attended columns.
 """
@@ -28,14 +29,14 @@ from _torch_parity import (  # noqa: F401
     cuda, jax_modules, randn, rel_err, row_rel_err, to_jax, to_torch,
 )
 from ffpa_attn_tpu_torch.ops import decode as tdec
-from ffpa_attn_tpu_torch.ops.config import (
-    KV_TILE, SMEM_LIMIT_BYTES, BlockConfig, cdiv, decode_plan, decode_smem_bytes,
-)
+from ffpa_attn_tpu_torch.ops.config import KV_TILE, SMEM_LIMIT_BYTES, cdiv, decode_plan
 from ffpa_attn_tpu_torch.models.serving import shared_row_bias
 from ffpa_attn_tpu_torch.ops.reference import DEFAULT_MASK_VALUE
 
 SM_SMEM_BYTES = 233_472  # an H100 SM's shared memory; each block also reserves 1 KiB
 NUM_SMS = 132
+# Blocks an SM holds (the plan's blocks_per_sm): D, Dv <= 512 and above.
+NARROW, WIDE = decode_plan(512, 512, 2).blocks_per_sm, decode_plan(1024, 1024, 2).blocks_per_sm
 CARD_TOL = {"bfloat16": 2e-2, "float16": 1e-2}
 LSE_TOL = 1e-4
 MERGE_TOL = 1e-5
@@ -52,19 +53,33 @@ SHAPES = [(512, 512, r) for r in (1, 2, 4, 8, 16, 17, 32, 64)] + [
 @pytest.mark.parametrize("d,dv,rows", SHAPES)
 def test_decode_plan_routes_by_shape(d, dv, rows):
     plan = decode_plan(d, dv, rows)
-    assert plan.route == ("tma" if max(d, dv) <= 512 else "cp_async")
+    assert plan.route == "tma"
     assert plan.smem_bytes <= SMEM_LIMIT_BYTES
     assert plan.stages >= 2
-    if plan.route == "tma":
-        assert plan.rows == 16
-        assert cdiv(rows, plan.rows) == -(-rows // 16)  # row blocks of the launch
+    assert plan.rows == 16
+    assert cdiv(rows, plan.rows) == -(-rows // 16)  # row blocks of the launch
+    assert plan == decode_plan(d, dv, 1)  # the packed rows do not change the tiling
+    if max(d, dv) <= 512:
+        assert (plan.consumers, plan.blocks_per_sm) == (1, 2)
         assert 2 * (plan.smem_bytes + 1024) <= SM_SMEM_BYTES  # two blocks an SM
     else:
-        # The smallest row tile holding the packed rows, halved while it does
-        # not fit.
-        fit = min(t for t in (16, 32, 64, 128) if t >= min(rows, 128))
-        assert plan.rows == fit or (plan.rows < fit and decode_smem_bytes(
-            BlockConfig(block_q=2 * plan.rows), dv) > SMEM_LIMIT_BYTES)
+        assert (plan.consumers, plan.blocks_per_sm) == (2, 1)
+        assert plan.smem_bytes + 1024 <= SM_SMEM_BYTES  # one block an SM
+        assert plan.stages == 12  # the full ring beside Q's boxes at every wide shape
+
+
+def test_decode_plan_d1024_main_path():
+    """The Dh1024 model's decode step (D = Dv = 1024, group 2, Nq 1): two
+    consumer warpgroups, 12 stages beside Q's 16 boxes, the two P boxes and
+    the two exchanges, one block an SM, as the paged block at D1024."""
+    plan = decode_plan(1024, 1024, 2)
+    assert (plan.route, plan.rows, plan.stages, plan.smem_bytes, plan.consumers,
+            plan.blocks_per_sm) == ("tma", 16, 12, 137_408, 2, 1)
+    for nq in range(1, 9):
+        for group in (1, 2, 4, 8):
+            assert decode_plan(1024, 1024, nq * group) == plan
+    with pytest.raises(ValueError):
+        decode_plan(1088, 1024, 2)
 
 
 def test_decode_plan_d512_main_path():
@@ -89,19 +104,38 @@ def test_tma_splits_keep_every_block_resident():
     of one. A launch too small to fill the card (one KV head, 136 cache
     rows: 3 tiles) walks one tile a split. Every launch fits two blocks an
     SM, and one split fewer would walk a longer run."""
-    assert tdec._tma_splits(4, 66, NUM_SMS) == 33
-    assert tdec._tma_splits(16, 18, NUM_SMS) == 9
-    assert tdec._tma_splits(4, 64, NUM_SMS) == 32
-    assert tdec._tma_splits(1, 3, NUM_SMS) == 3
+    assert tdec._tma_splits(4, 66, NUM_SMS, NARROW) == 33
+    assert tdec._tma_splits(16, 18, NUM_SMS, NARROW) == 9
+    assert tdec._tma_splits(4, 64, NUM_SMS, NARROW) == 32
+    assert tdec._tma_splits(1, 3, NUM_SMS, NARROW) == 3
     for bps in (1, 2, 4, 8, 16, 32, 64, 300):
         for tiles in (0, 1, 3, 4, 18, 64, 66, 200):
-            s = tdec._tma_splits(bps, tiles, NUM_SMS)
+            s = tdec._tma_splits(bps, tiles, NUM_SMS, NARROW)
             assert s >= 1 and (tiles == 0 or s <= tiles)
             if bps <= NUM_SMS:
                 assert s * bps <= 2 * NUM_SMS
             # One block an SM where the band has the tiles; the fewest splits
             # with that longest run.
             cap = max(1, min(tiles, cdiv(NUM_SMS, bps)))
+            assert cdiv(max(tiles, 1), s) == cdiv(max(tiles, 1), cap)
+            assert s == 1 or cdiv(max(tiles, 1), s - 1) > cdiv(max(tiles, 1), s)
+
+
+def test_wide_splits_keep_one_block_an_sm():
+    """Above D512 the block holds an SM alone, so a launch has at most
+    blocks_per_sm x 132 blocks and every block is resident at once. The
+    Dh1024 serving step (B4 H8/4, max_len 1152: 18 tiles, 16 blocks a
+    split) takes 6 splits of three tiles, 96 blocks (the two-an-SM rule's 9
+    splits would make 144, 12 of them a second wave); the Dh1024 generate
+    step (B1, 66 tiles, 4 blocks a split) 33 splits, 132 blocks."""
+    assert tdec._tma_splits(16, 18, NUM_SMS, WIDE) == 6
+    assert tdec._tma_splits(4, 66, NUM_SMS, WIDE) == 33
+    for bps in (1, 2, 4, 8, 16, 32, 64, 132):
+        for tiles in (0, 1, 3, 4, 18, 64, 66, 200):
+            s = tdec._tma_splits(bps, tiles, NUM_SMS, WIDE)
+            assert s >= 1 and (tiles == 0 or s <= tiles)
+            assert s * bps <= WIDE * NUM_SMS
+            cap = max(1, min(tiles, NUM_SMS // bps))
             assert cdiv(max(tiles, 1), s) == cdiv(max(tiles, 1), cap)
             assert s == 1 or cdiv(max(tiles, 1), s - 1) > cdiv(max(tiles, 1), s)
 
@@ -122,7 +156,8 @@ def test_split_ranges_cover_the_band_once_in_whole_tiles(name):
     start, end = tdec._kv_band(nq, nkv, causal, wl, wr)
     assert start % KV_TILE == 0
     tiles = cdiv(end - start, KV_TILE)
-    for splits in sorted({1, 2, 3, 7, 16, tiles, tdec._tma_splits(4, tiles, NUM_SMS)}):
+    for splits in sorted({1, 2, 3, 7, 16, tiles, tdec._tma_splits(4, tiles, NUM_SMS, NARROW),
+                          tdec._tma_splits(4, tiles, NUM_SMS, WIDE)}):
         ranges = tdec.decode_split_ranges(start, end, splits)
         assert len(ranges) == splits
         covered = []
@@ -236,9 +271,10 @@ def test_decode_plan_matches_library_on_card(cuda, d, dv, rows):  # noqa: F811
     assert tdec.decode_kernel_plan(d, dv, rows) == decode_plan(d, dv, rows)
 
 
+@pytest.mark.parametrize("consumers", [1, 2])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-def test_tma_decode_kernel_spills_nothing_on_card(cuda, dtype):  # noqa: F811
-    assert tdec.decode_kernel_attrs("tma", dtype)["local_bytes"] == 0
+def test_tma_decode_kernel_spills_nothing_on_card(cuda, dtype, consumers):  # noqa: F811
+    assert tdec.decode_kernel_attrs(consumers, dtype)["local_bytes"] == 0
 
 
 def _serve_gap_bias(nkv, lens, t):
@@ -262,8 +298,21 @@ CARD_CASES = {
     "window_right_nq4": dict(nq=4, group=4, nkv=700, window=(90, 0)),
     "head_bias_nq2": dict(nq=2, nkv=300, head_bias=True),
     "masked_everywhere": dict(nkv=1000, valid=0),
-    "d640_cp_async": dict(d=640, dv=640, nkv=500, valid=400),
+    "d640_split": dict(d=640, dv=640, nkv=500, valid=400),
     "d640_masked_everywhere": dict(d=640, dv=640, nkv=500, valid=0),
+    # Two consumer warpgroups: the Dh1024 steps, D != Dv (the second
+    # warpgroup owns 2 of Dv320's 5 boxes, none of Dv64's), 33 packed rows
+    # (three row blocks), a split masked throughout, softcap, a window.
+    "d1024_main_path": dict(d=1024, dv=1024, nkv=4224, valid=4097),
+    "d1024_serve_b4_gap": dict(d=1024, dv=1024, b=4, nkv=1152, serve_lens=[589, 698, 763, 886],
+                               t=64),
+    "d1024_dv320": dict(d=1024, dv=320, nkv=900, valid=800),
+    "d1024_dv64": dict(d=1024, dv=64, nkv=700, valid=650),
+    "d320_dv1024": dict(d=320, dv=1024, nkv=700, valid=650),
+    "d576_rows33": dict(d=576, dv=576, nq=3, group=11, nkv=600, causal=True),
+    "d1024_valid1": dict(d=1024, dv=1024, nkv=1000, valid=1),
+    "d1024_softcap_window": dict(d=1024, dv=1024, nkv=1000, causal=True, window=(300, -1),
+                                 softcap=30.0),
 }
 
 
@@ -296,7 +345,7 @@ def test_decode_plan_cases_match_plain_on_card(cuda, name, dtype):  # noqa: F811
     x = _card_inputs(case, seed=3)
     d, dv = x["q"].shape[-1], x["v"].shape[-1]
     nq, group = case.get("nq", 1), case.get("group", 2)
-    assert decode_plan(d, dv, nq * group).route == ("tma" if max(d, dv) <= 512 else "cp_async")
+    assert decode_plan(d, dv, nq * group).consumers == (1 if max(d, dv) <= 512 else 2)
     kw = _card_kwargs(case, d)
     q, k, v = (to_torch(x[n], dtype, cuda) for n in ("q", "k", "v"))
     bias = to_torch(x["bias"], device=cuda)
@@ -310,7 +359,8 @@ def test_decode_plan_cases_match_plain_on_card(cuda, name, dtype):  # noqa: F811
     assert rel_err(lse.cpu(), plse) < LSE_TOL, name
 
 
-@pytest.mark.parametrize("name", ["main_path_nkv4224", "serve_b4_gap", "nkv200", "rows32"])
+@pytest.mark.parametrize("name", ["main_path_nkv4224", "serve_b4_gap", "nkv200", "rows32",
+                                  "d1024_main_path", "d576_rows33"])
 def test_decode_plan_scores_match_plain_on_card(cuda, name):  # noqa: F811
     """``return_scores``: the fp32 residual against the plain one on the
     attended columns (1e-2 relative), MASK_VALUE on the same columns, and

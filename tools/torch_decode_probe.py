@@ -31,9 +31,6 @@ held against ``_decode_plain`` per row (bf16 2e-2):
   ``__grid_constant__`` parameter;
 * ``attr_once``: the dynamic shared-memory attribute of the TMA kernel set
   at its first launch only, not at every call;
-* ``cp_async_route``: ``make_plan`` sending D, Dv <= 512 to the cp.async
-  kernel, under the same wrapper and entry point (its splits are the TMA
-  rule's): the launch cost of the older kernel;
 * ``stages4``, ``stages8``: the ring cut to 4 and 8 stages of 8 KiB;
 * ``splits_<n>``: the as-built library with the wrapper's split count
   replaced (generate: the rule's 33 splits walk two tiles a block, 66 one,
@@ -44,10 +41,8 @@ The library variants run at the generate and serving shapes. Then, at the
 generate shape, the host time is taken apart: the wrapper alone (its
 entry point replaced by one that returns at once), each library's entry
 point called directly with the arguments the wrapper passed it (ctypes and
-C only), and the wrapper's steps one by one, beside two steps it no longer
-takes: the per-call config of the wrapper before the TMA route (a dtype's
-item size from an empty tensor, then ``decode_row_tile``) and the card's
-properties query for its SM count (now cached).
+C only), and the wrapper's steps one by one, beside one it no longer takes:
+the card's properties query for its SM count (now cached).
 
 Prints the card's name and power limit, each library's ptxas registers and
 spill bytes, then one JSON line; exits 1 if a run misses the tolerance.
@@ -110,7 +105,7 @@ _ENCODE_CACHED = """  const uint64_t row_bytes = (uint64_t)cols * 2;
 _KERNEL_SIG = "decode_tma_kernel(const __grid_constant__ Maps maps, const Params p) {\n"
 _KERNEL_SIG_GLOBAL = ("decode_tma_kernel(const Maps* maps_g, const Params p) {\n"
                       "  const Maps& maps = *maps_g;\n")
-_LAUNCH = "  kern<<<grid, THREADS, smem, st>>>(maps, p);\n"
+_LAUNCH = "  kern<<<grid, threads(SPLIT), smem, st>>>(maps, p);\n"
 _LAUNCH_GLOBAL = """  constexpr int N = 16;
   static Maps* dev[N];
   static Maps seen[N];
@@ -127,7 +122,7 @@ _LAUNCH_GLOBAL = """  constexpr int N = 16;
     seen[i] = maps;
     dmaps = dev[i];
   }
-  kern<<<grid, THREADS, smem, st>>>(dmaps, p);
+  kern<<<grid, threads(SPLIT), smem, st>>>(dmaps, p);
 """
 _ATTR = ("  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, "
          "(int)smem);\n  if (e != cudaSuccess) return e;\n  const dim3 grid(")
@@ -138,7 +133,6 @@ _ATTR_ONCE = """  static size_t smem_set = 0;
     smem_set = smem;
   }
   const dim3 grid("""
-_ROUTE = "  if (D <= 512 && Dv <= 512) {\n    pl.route = TMA;\n"
 # library -> (text, replacement) pairs applied to csrc/decode.cu
 LIBS = {
     "as_built": [],
@@ -146,7 +140,6 @@ LIBS = {
                   (_ENCODE, _ENCODE_CACHED)],
     "maps_global": [(_KERNEL_SIG, _KERNEL_SIG_GLOBAL), (_LAUNCH, _LAUNCH_GLOBAL)],
     "attr_once": [(_ATTR, _ATTR_ONCE)],
-    "cp_async_route": [(_ROUTE, "  if (false) {\n    pl.route = TMA;\n")],
     "stages4": [(_STAGES, "constexpr int MAX_STAGES = 4;\n")],
     "stages8": [(_STAGES, "constexpr int MAX_STAGES = 8;\n")],
 }
@@ -310,7 +303,7 @@ def host_breakdown(libs, run) -> dict:
         out["wrapper_no_entry"] = round(host_us(run), 2)
     finally:
         decode._decode_fn = real
-    for name in ("as_built", "map_cache", "maps_global", "attr_once", "cp_async_route"):
+    for name in ("as_built", "map_cache", "maps_global", "attr_once"):
         fn = libs[name].ffpa_decode_fwd
         fn.argtypes, fn.restype = decode._ARGTYPES["ffpa_decode_fwd"], ctypes.c_int
         if fn(*args) != 0:
@@ -326,12 +319,10 @@ def host_breakdown(libs, run) -> dict:
             pass
 
     steps = {
-        "decode_plan": lambda: config.decode_plan(512, 512, 2, 2),
-        "pr13_plan": lambda: config.decode_row_tile(
-            512, 2, torch.empty((), dtype=torch.bfloat16).element_size()),
+        "decode_plan": lambda: config.decode_plan(512, 512, 2),
         "sm_count_cached": lambda: decode._sm_count(dev.index or 0),
         "sm_count_query": lambda: torch.cuda.get_device_properties(dev).multi_processor_count,
-        "split_rule": lambda: decode._tma_splits(4, 66, 132),
+        "split_rule": lambda: decode._tma_splits(4, 66, 132, 2),
         "kv_band": lambda: decode._kv_band(1, 4224, False, -1, -1),
         "check_inputs": lambda: flash_fwd.check_kernel_inputs("probe", q, kv, kv),
         "pad_contiguous": lambda: flash_fwd._pad_last(kv, 512).contiguous(),

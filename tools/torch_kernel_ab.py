@@ -24,11 +24,15 @@ lists, ``LegacyDsBits``: every run here stores a 16-bit slab):
   from sources before it the mma.sync kernel;
 * decode: B1 H8/4 Nkv 4224 D512 with the validity bias (the generate step),
   and decode_serving (``--kernels decode`` runs both): B4 H8/4 max_len 1152
-  with the serving step's shared-row bias and its gap; four caches in turn
-  so K/V are not L2-resident, each run held against ``_decode_plain`` per
-  row at the bf16 forward tolerance 2e-2. A base library without
-  ``ffpa_decode_plan`` (built from sources before the TMA route) is split
-  by its own rule (``_num_splits``);
+  with the serving step's shared-row bias and its gap; decode_d1024 and
+  decode_d1024_serving (``--kernels decode_d1024`` runs both) the same
+  steps at D1024, where the head library runs its two-warpgroup block and
+  a base built from sources before it the cp.async kernel; four caches in
+  turn so K/V are not L2-resident, each run held against ``_decode_plain``
+  per row at the bf16 forward tolerance 2e-2. A base library whose plan
+  names the cp.async route for a shape (route 0 in ``ffpa_decode_plan``'s
+  first field, or no ``ffpa_decode_plan`` at all: sources before the TMA
+  route) is split there by that route's own rule (``legacy_splits``);
 * dkdv (with the dS slab) and banded_dq: B1 H8/4 N8192 D512 causal bf16
   (the training step's dS-handoff backward); head and base take the same
   slab padding (the head wrapper's), and at D512 the head library runs
@@ -170,7 +174,8 @@ from ffpa_attn_tpu_torch.utils.profiling import (  # noqa: E402
 SOURCE = {"flash_fwd": "flash_fwd", "flash_fwd_scores": "flash_fwd",
           "flash_fwd_train": "flash_fwd", "flash_fwd_train_scores": "flash_fwd",
           "flash_fwd_d1024": "flash_fwd",
-          "decode": "decode", "decode_serving": "decode", "dkdv": "flash_bwd",
+          "decode": "decode", "decode_serving": "decode", "decode_d1024": "decode",
+          "decode_d1024_serving": "decode", "dkdv": "flash_bwd",
           "dkdv_d1024": "flash_bwd", "dkdv_d640": "flash_bwd",
           "banded_dq": "flash_bwd", "dq": "flash_bwd", "dq_d1024": "flash_bwd",
           "dq_d640": "flash_bwd", "dq_d1024_fp16": "flash_bwd", "from_s": "flash_bwd",
@@ -221,6 +226,31 @@ ENTRY = {"from_s": "ffpa_bwd_dkdv_from_s", "from_s_d1024": "ffpa_bwd_dkdv_from_s
          "varlen_dkdv_d640": "ffpa_varlen_bwd_dkdv", "varlen_dkdv_d1024_fp16": "ffpa_varlen_bwd_dkdv",
          "varlen_dq_d1024": "ffpa_varlen_bwd_dq", "varlen_dq_d640": "ffpa_varlen_bwd_dq",
          "varlen_dq_d1024_fp16": "ffpa_varlen_bwd_dq"}
+
+
+def legacy_splits(blocks_per_split: int, kv_tiles: int, num_sms: int, *_) -> int:
+    """The split count of the retired cp.async decode route (``ops/decode.py``
+    before the two-warpgroup block): about two blocks on every SM, at least
+    one KV tile a split, no empty trailing split."""
+    if kv_tiles <= 0:
+        return 1
+    want = cdiv(2 * num_sms, max(blocks_per_split, 1))
+    splits = max(1, min(kv_tiles, want))
+    return cdiv(kv_tiles, cdiv(kv_tiles, splits))
+
+
+def cp_async_decode(lib, d: int) -> bool:
+    """Whether decode library ``lib`` sends head dim ``d`` (D = Dv, the A/B's
+    two packed rows) to the cp.async route."""
+    if not hasattr(lib, "ffpa_decode_plan"):
+        return True
+    out = (ctypes.c_int * 8)()
+    fn = lib.ffpa_decode_plan
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+    fn.restype = ctypes.c_int
+    if fn(d, d, 2, out, len(out)) != 0:
+        raise RuntimeError(f"ffpa_decode_plan failed at D{d}")
+    return out[0] == 0
 
 
 def mma_sync_passes(d: int, dv: int) -> int:
@@ -686,7 +716,8 @@ GRAD_KERNEL_TOL = {"dkdv_d1024": 1e-2, "dkdv_d640": 1e-2, "dq_d1024_fp16": 1e-2,
 KERNEL_TOL = {"paged_decode": 2e-2, "paged_decode_int8": 2e-2, "paged_decode_page16": 2e-2,
               "paged_decode_page32_int8": 2e-2, "paged_decode_page24": 2e-2,
               "paged_decode_d1024": 2e-2, "decode": 2e-2,
-              "decode_serving": 2e-2, "varlen_fwd": 2e-2, "varlen_fwd_train": 2e-2,
+              "decode_serving": 2e-2, "decode_d1024": 2e-2, "decode_d1024_serving": 2e-2,
+              "varlen_fwd": 2e-2, "varlen_fwd_train": 2e-2,
               "varlen_fwd_d1024": 2e-2, "varlen_fwd_d640": 2e-2, "varlen_fwd_d1024_fp16": 1e-2}
 # The forward's outputs: O per row (bf16, tests/test_features.py:127), lse
 # relative to max|lse| (fp32 math on both sides), S per row on the band.
@@ -743,32 +774,37 @@ def make_runs(gen) -> tuple:
     n, max_len, nt = 4096, 4224, 8192
     q, k, v = randn(b, hq, n, d), randn(b, hkv, n, d), randn(b, hkv, n, d)
     wq, wk, wv = randn(b, hq, n, 1024), randn(b, hkv, n, 1024), randn(b, hkv, n, 1024)
-    qd = randn(b, hq, 1, d)
-    caches = [(randn(b, hkv, max_len, d), randn(b, hkv, max_len, d)) for _ in range(4)]
     cols = torch.arange(max_len, device="cuda")
     bias = torch.where(cols <= n, 0.0, DEFAULT_MASK_VALUE).float()[None, None, None]
     turn = [0]
     # The serving step: B4, max_len 1152, 64 tokens into generation; prompt
     # rows below lens[b], the gap, the generated rows from the longest prompt.
     slens, smax, st = [589, 698, 763, 886], 1152, 64
-    scaches = [(randn(4, hkv, smax, d), randn(4, hkv, smax, d)) for _ in range(4)]
     sbias = shared_row_bias(torch.tensor(slens, device="cuda"), st, max(slens), smax)
-    sqd = randn(4, hq, 1, d)
-    last_cache = {}
+    # (head dim, serving) -> (q, four caches); made at first use.
+    dec_inputs, last_cache = {}, {}
 
-    def run_decode(serving=False):
-        pool = scaches if serving else caches
-        kc, vc = last_cache[serving] = pool[turn[0] % len(pool)]
+    def dec_in(serving, hd):
+        if (hd, serving) not in dec_inputs:
+            db, nkv = (4, smax) if serving else (b, max_len)
+            dec_inputs[(hd, serving)] = (randn(db, hq, 1, hd), [
+                (randn(db, hkv, nkv, hd), randn(db, hkv, nkv, hd)) for _ in range(4)])
+        return dec_inputs[(hd, serving)]
+
+    def run_decode(serving=False, hd=d):
+        q_, pool = dec_in(serving, hd)
+        kc, vc = last_cache[(hd, serving)] = pool[turn[0] % len(pool)]
         turn[0] += 1
-        q_, b_ = (sqd, sbias) if serving else (qd, bias)
-        return decode._decode_forward(q_, kc, vc, b_, scale=scale, is_causal=False)
+        return decode._decode_forward(q_, kc, vc, sbias if serving else bias,
+                                      scale=hd ** -0.5, is_causal=False)
 
-    def decode_plain(serving=False):
-        kc, vc = last_cache[serving]
-        q_, b_ = (sqd, sbias) if serving else (qd, bias)
-        o, _ = decode._decode_plain(q_.reshape(q_.shape[0], hkv, hq // hkv, d), kc, vc, b_,
-                                    nq=1, scale=scale, is_causal=False, softcap=0.0,
-                                    window_left=-1, window_right=-1)
+    def decode_plain(serving=False, hd=d):
+        q_, _ = dec_in(serving, hd)
+        kc, vc = last_cache[(hd, serving)]
+        o, _ = decode._decode_plain(q_.reshape(q_.shape[0], hkv, hq // hkv, hd), kc, vc,
+                                    sbias if serving else bias, nq=1, scale=hd ** -0.5,
+                                    is_causal=False, softcap=0.0, window_left=-1,
+                                    window_right=-1)
         return o.reshape(q_.shape)
 
     # The backward's inputs: the plain forward's (o, lse), not a kernel's,
@@ -1044,6 +1080,8 @@ def make_runs(gen) -> tuple:
     runs.update({
         "decode": lambda: run_decode()[0],
         "decode_serving": lambda: run_decode(True)[0],
+        "decode_d1024": lambda: run_decode(hd=1024)[0],
+        "decode_d1024_serving": lambda: run_decode(True, hd=1024)[0],
         "dkdv": run_dkdv,
         "dkdv_d1024": lambda: run_dkdv_wide(1024),
         "dkdv_d640": lambda: run_dkdv_wide(640),
@@ -1111,6 +1149,8 @@ def make_runs(gen) -> tuple:
         "paged_decode_d1024": lambda: paged_plain("d1024"),
         "decode": decode_plain,
         "decode_serving": lambda: decode_plain(True),
+        "decode_d1024": lambda: decode_plain(hd=1024),
+        "decode_d1024_serving": lambda: decode_plain(True, hd=1024),
         "varlen_dkdv": lambda: varlen._varlen_dkdv_plain(bq, bk, bv, bdo, blse, bdelta, meta,
                                                          **bkw),
         "varlen_dq": lambda: varlen._varlen_dq_plain(bq, bk, bv, bdo, blse, bdelta, meta, **bkw),
@@ -1143,8 +1183,9 @@ def main() -> int:
     kernels = [k for k in args.kernels.split(",") if k]
     if "paged_decode" in kernels and "paged_decode_int8" not in kernels:
         kernels.append("paged_decode_int8")  # paged decode is timed over both pool types
-    if "decode" in kernels and "decode_serving" not in kernels:
-        kernels.append("decode_serving")  # decode is timed at both steps
+    for k in ("decode", "decode_d1024"):
+        if k in kernels and f"{k}_serving" not in kernels:
+            kernels.append(f"{k}_serving")  # decode is timed at both steps
     if "varlen_fwd" in kernels and "varlen_fwd_train" not in kernels:
         kernels.append("varlen_fwd_train")  # the varlen forward at both packings
 
@@ -1182,10 +1223,13 @@ def main() -> int:
 
     decode_splits = decode._tma_splits
 
-    def use(tag):
+    def use(tag, k):
         _build.load = lambda name: trees[tag][name]
-        legacy_decode = not hasattr(trees[tag].get("decode"), "ffpa_decode_plan")
-        decode._tma_splits = decode._num_splits if legacy_decode else decode_splits
+        lib = trees[tag].get("decode")
+        wide = k.startswith("decode_d1024")
+        legacy = lib is not None and k.startswith("decode") and cp_async_decode(
+            lib, 1024 if wide else 512)
+        decode._tma_splits = legacy_splits if legacy else decode_splits
 
     times = {tag: {k: [] for k in kernels} for tag in trees}
     events = {tag: {k: [] for k in kernels} for tag in trees}
@@ -1194,11 +1238,11 @@ def main() -> int:
     names = {tag: {} for tag in trees}  # the kernels of ONLY's filters each tree ran
     outs = {}
     for tag in ("base", "head", "head", "base"):
-        use(tag)
         for k in kernels:
             if SOURCE[k] not in trees[tag] or not hasattr(trees[tag][SOURCE[k]],
                                                           ENTRY.get(k, "ffpa_error_string")):
                 continue
+            use(tag, k)
             reps = 5 * args.reps if k.startswith(("decode", "paged_decode")) else args.reps
             events[tag][k].append(cuda_ms(runs[k], reps=reps))
             if k in enqueue[tag]:

@@ -1,6 +1,6 @@
 """The bound of each wide kernel route: the recompute dQ's and the varlen
-forward's, dK/dV's and dQ's clusters above D512, dense decode on cp.async
-above D512, and paged decode over pages of 24 rows and above D512 (its
+forward's, dK/dV's and dQ's clusters above D512, dense decode above D512
+(its two-warpgroup block), and paged decode over pages of 24 rows and above D512 (its
 two-warpgroup block).
 
 Run anywhere (it needs no card: the numbers are counted from the shapes):
@@ -50,7 +50,7 @@ def routes() -> list:
          "B1 H8/4 N8192 D1024 causal, recompute tier",
          "1 a recompute-tier backward",
          backward_counts("dq", b=1, nq=8192, nkv=8192, causal=True, **wide)),
-        ("7 (D > 512)", "decode_kernel (cp.async)",
+        ("7 (D > 512)", "tma::decode_tma_kernel<T, true> (two consumer warpgroups)",
          "B1 H8/4 Nkv 4224 D1024, one query row, 4097 rows live under the validity bias",
          "1 a decode step (walk and split merge)", decode_counts(4097, 4224, **wide)),
         ("8 (D > 512)", "tma::varlen_fwd_wgmma_kernel<T, true> (the cluster)",

@@ -12,9 +12,10 @@ through the wrapper that launches it (nothing here dispatches):
   bf16, on the forward kernel's (o, lse); library: ``torch.autograd.grad``
   through ``scaled_dot_product_attention`` (dQ, dK and dV; K/V heads
   expanded);
-* ``7 (D > 512)``: ``decode._decode_forward`` at B1 H8/4 Nkv 4224 D1024,
-  one query row under the generate step's validity bias (4097 live rows),
-  two caches in turn; library: SDPA with the bias, GQA;
+* ``7 (D > 512)``: ``decode._decode_forward`` at B1 H8/4 Nkv 4224 D1024
+  (the two-warpgroup block), one query row under the generate step's
+  validity bias (4097 live rows), two caches in turn; library: SDPA with
+  the bias, GQA;
 * ``8``, ``9`` and ``10 (D > 512)``: ``varlen._varlen_forward``, and
   ``varlen._varlen_dkdv_kernel`` / ``_varlen_dq_kernel`` on their tile
   schedules, over 8 documents packed into 8192 tokens, H8/4 D1024 causal
@@ -157,8 +158,7 @@ def decode_route(gen) -> dict:
         return F.scaled_dot_product_attention(q, kc, vc, attn_mask=bias_bf, enable_gqa=True)
 
     return dict(run=run, plain=plain, library=library, grad=False, reps=100, plain_reps=20,
-                names=("decode_kernel", "decode_tma_kernel", "split_merge_kernel"),
-                walk=("decode_kernel", "decode_tma_kernel"),
+                names=("decode_tma_kernel", "split_merge_kernel"), walk=("decode_tma_kernel",),
                 library_label="SDPA with the validity bias, GQA")
 
 
