@@ -121,7 +121,18 @@ It imports only ``ffpa_attn_tpu_torch``, torch and numpy, and runs, in order:
    port's launches and the SDPA backend torch took; the headline line
    (``cli._headline``, B1 H32 N8192 D512 bf16); the ``serve_paged_window``
    and ``speculative`` legs of ``--e2e``;
-8. the ``kernels`` line.
+8. autotune (``phase_autotune``): in a temporary tuned-config directory,
+   the search of one backward task (B1 H8/4 N4096 D512 causal bf16), one
+   packed task and two decode tasks (D512 and D1024 at Nkv 4224, the
+   rule's split count alone), every reading logged, the plan's between
+   the others'; tuned and untuned calls held to each other and to the
+   plain versions; the picks equal to the stored entries, and an entry of
+   other head dims not taken; every backward kernel at each ring cap
+   bit-equal to the plan's and timed; one ``python -m
+   ffpa_attn_tpu_torch.autotune --isolate-tasks`` task read back;
+   ``verify`` on one backward case; the lookup's host µs;
+9. the ``kernels`` line, the backward rows with their ms at each ring
+   cap.
 
 Every phase raises on failure; the script exits 0 only when all passed. The
 last three lines are the ``kernels`` JSON line, the nvidia-smi line and the
@@ -208,6 +219,21 @@ BENCH_H, BENCH_N, SERVE_WINDOW, WINDOW_PAGE = 8, 4096, 256, 128
 PLAN_PAIRS = [(x, x) for x in range(64, 1025, 64)] + [
     (128, 512), (512, 128), (320, 512), (448, 64), (512, 64), (512, 1024), (1024, 320),
     (64, 1024), (1024, 64), (400, 400), (100, 200), (320, 1024), (640, 1024)]
+
+
+def capped_plans_equal(name: str, read, mirror, stages: int, least: int) -> int:
+    """Fail unless the launcher's plan at one ring cap below the plan's
+    depth (``read(cap)``) equals its mirror's (``mirror(cap)``), where the
+    walk takes that cap (``least``, ``ops/config.py``); returns the pairs
+    held (0 or 1)."""
+    cap = stages - 1
+    if cap < least:
+        return 0
+    got, want = read(cap), mirror(cap)
+    if got != want or got.stages != cap:
+        fail(f"{name} plan at ring cap {cap}: the launcher's {got} differs from ops/config.py's "
+             f"{want}")
+    return 1
 
 
 @contextlib.contextmanager
@@ -3190,6 +3216,27 @@ def _kernel_timed(fn, names: tuple, reps: int, setup=None) -> tuple:
     return dev, ev
 
 
+def _hold_parts(tag: str, total: tuple, retime, time_parts) -> tuple:
+    """(total, parts) of a split-KV call: ``total`` its (device, CUDA-event)
+    ms and ``time_parts()`` its launches' device ms (walk, merge), each from
+    its own profiler window. A total below 0.95 of its launches' sum means
+    a window lost events or ran at another clock: the total is timed again
+    once (``retime``), and the run fails if it still reads below. The
+    launches are read a second time on every run and both sums logged; the
+    gate reads the first alone (``tools/torch_split_parts_probe.py``
+    repeats these readings on any tree)."""
+    parts, again = time_parts(), time_parts()
+    log(f"  {tag}: walk + merge read {sum(parts):.4f} ms (gated), again {sum(again):.4f} ms")
+    if total[0] < 0.95 * sum(parts):
+        first, total = total, retime()
+        log(f"  {tag}: total {first[0]:.4f} ms below walk + merge {sum(parts):.4f} ms, "
+            f"timed again: {total[0]:.4f} ms")
+        if total[0] < 0.95 * sum(parts):
+            fail(f"{tag} reads below its own launches twice: {first[0]:.4f} and "
+                 f"{total[0]:.4f} ms against {sum(parts):.4f} ms")
+    return total, parts
+
+
 def _above_bound(name: str, kms: tuple, bms: float, retime) -> tuple:
     """``kms`` (device ms from the profiler, CUDA-event ms) of ``name``. A
     device reading below the bound ``bms`` means the profiler lost events:
@@ -3837,15 +3884,20 @@ def dkdv_kernel_row_extras(d: int) -> dict:
     plan equals its mirror (``ops/config.py`` ``dkdv_plan``) at every pair
     of ``PLAN_PAIRS`` and neither route's kernel spills in either dtype."""
     from ffpa_attn_tpu_torch.ops import flash_bwd
-    from ffpa_attn_tpu_torch.ops.config import dkdv_plan
+    from ffpa_attn_tpu_torch.ops.config import DKDV_MIN_STAGES, dkdv_plan
 
+    capped = 0
     for hd, hdv in PLAN_PAIRS:
         if flash_bwd.dkdv_kernel_plan(hd, hdv) != dkdv_plan(hd, hdv):
             fail(f"dK/dV launcher's plan at D{hd}/Dv{hdv} {flash_bwd.dkdv_kernel_plan(hd, hdv)} "
                  f"differs from ops/config.py dkdv_plan {dkdv_plan(hd, hdv)}")
+        capped += capped_plans_equal(
+            f"dK/dV D{hd}/Dv{hdv}", lambda c: flash_bwd.dkdv_kernel_plan(hd, hdv, c),
+            lambda c: dkdv_plan(hd, hdv, ring_cap=c), dkdv_plan(hd, hdv).stages, DKDV_MIN_STAGES)
     log(f"  dkdv plan at D{d}: {flash_bwd.dkdv_kernel_plan(d, d)}; at D1024: "
         f"{flash_bwd.dkdv_kernel_plan(1024, 1024)} (the launcher's, equal to ops/config.py "
-        f"dkdv_plan at {len(PLAN_PAIRS)} head-dim pairs)")
+        f"dkdv_plan at {len(PLAN_PAIRS)} head-dim pairs, and at one ring cap below the plan's "
+        f"at {capped} of them)")
     attrs = {}
     for route in ("wgmma", "wgmma_cluster"):
         for dt in (torch.bfloat16, torch.float16):
@@ -3974,20 +4026,25 @@ def varlen_dkdv_kernel_row_extras(d: int) -> dict:
     spills in either dtype. ``fwd_kernel_row_extras`` fails on a C7515 /
     C7520 note in ``varlen_bwd.cu``."""
     from ffpa_attn_tpu_torch.ops import varlen
-    from ffpa_attn_tpu_torch.ops.config import dkdv_plan, varlen_dkdv_plan
+    from ffpa_attn_tpu_torch.ops.config import DKDV_MIN_STAGES, dkdv_plan, varlen_dkdv_plan
 
     pairs = [(x, x) for x in range(64, 1025, 64)] + [(512, 320), (320, 512), (512, 64),
                                                      (64, 512), (448, 64), (512, 1024),
                                                      (1024, 320), (400, 400), (64, 1024),
                                                      (1024, 64), (640, 1024), (576, 576)]
+    capped = 0
     for hd, hdv in pairs:
         got, want = varlen.varlen_dkdv_kernel_plan(hd, hdv), varlen_dkdv_plan(hd, hdv)
         if got != want or want != dkdv_plan(hd, hdv):
             fail(f"varlen dK/dV launcher's plan at D{hd}/Dv{hdv} {got} differs from "
                  f"ops/config.py varlen_dkdv_plan {want}")
+        capped += capped_plans_equal(
+            f"varlen dK/dV D{hd}/Dv{hdv}", lambda c: varlen.varlen_dkdv_kernel_plan(hd, hdv, c),
+            lambda c: varlen_dkdv_plan(hd, hdv, ring_cap=c), want.stages, DKDV_MIN_STAGES)
     log(f"  varlen_dkdv plan at D{d}: {varlen.varlen_dkdv_kernel_plan(d, d)}; at D1024: "
         f"{varlen.varlen_dkdv_kernel_plan(1024, 1024)} (the launcher's, equal to ops/config.py "
-        f"varlen_dkdv_plan at {len(pairs)} head-dim pairs)")
+        f"varlen_dkdv_plan at {len(pairs)} head-dim pairs, and at one ring cap below the plan's "
+        f"at {capped} of them)")
     attrs = {}
     for route in ("wgmma", "wgmma_cluster"):
         for dt in (torch.bfloat16, torch.float16):
@@ -4010,20 +4067,25 @@ def varlen_dq_kernel_row_extras(d: int) -> dict:
     which is ``dq_plan``) at D, Dv 64..1024 and D != Dv, rank blocks
     included, and neither route's kernel spills in either dtype."""
     from ffpa_attn_tpu_torch.ops import varlen
-    from ffpa_attn_tpu_torch.ops.config import dq_plan, varlen_dq_plan
+    from ffpa_attn_tpu_torch.ops.config import DQ_MIN_STAGES, dq_plan, varlen_dq_plan
 
     pairs = [(x, x) for x in range(64, 1025, 64)] + [(512, 320), (320, 512), (512, 64),
                                                      (64, 512), (448, 64), (512, 1024),
                                                      (1024, 320), (400, 400), (64, 1024),
                                                      (1024, 64), (640, 1024), (576, 576)]
+    capped = 0
     for hd, hdv in pairs:
         got, want = varlen.varlen_dq_kernel_plan(hd, hdv), varlen_dq_plan(hd, hdv)
         if got != want or want != dq_plan(hd, hdv):
             fail(f"varlen dQ launcher's plan at D{hd}/Dv{hdv} {got} differs from "
                  f"ops/config.py varlen_dq_plan {want}")
+        capped += capped_plans_equal(
+            f"varlen dQ D{hd}/Dv{hdv}", lambda c: varlen.varlen_dq_kernel_plan(hd, hdv, c),
+            lambda c: varlen_dq_plan(hd, hdv, ring_cap=c), want.stages, DQ_MIN_STAGES)
     log(f"  varlen_dq plan at D{d}: {varlen.varlen_dq_kernel_plan(d, d)}; at D1024: "
         f"{varlen.varlen_dq_kernel_plan(1024, 1024)} (the launcher's, equal to ops/config.py "
-        f"varlen_dq_plan at {len(pairs)} head-dim pairs)")
+        f"varlen_dq_plan at {len(pairs)} head-dim pairs, and at one ring cap below the plan's at "
+        f"{capped} of them)")
     attrs = {}
     for route in ("wgmma", "wgmma_cluster"):
         for dt in (torch.bfloat16, torch.float16):
@@ -4046,15 +4108,20 @@ def dq_kernel_row_extras(d: int) -> dict:
     every pair of ``PLAN_PAIRS`` and neither route's kernel spills in
     either dtype (with dropout or without)."""
     from ffpa_attn_tpu_torch.ops import flash_bwd
-    from ffpa_attn_tpu_torch.ops.config import dq_plan
+    from ffpa_attn_tpu_torch.ops.config import DQ_MIN_STAGES, dq_plan
 
+    capped = 0
     for hd, hdv in PLAN_PAIRS:
         if flash_bwd.dq_kernel_plan(hd, hdv) != dq_plan(hd, hdv):
             fail(f"dQ launcher's plan at D{hd}/Dv{hdv} {flash_bwd.dq_kernel_plan(hd, hdv)} "
                  f"differs from ops/config.py dq_plan {dq_plan(hd, hdv)}")
+        capped += capped_plans_equal(
+            f"dQ D{hd}/Dv{hdv}", lambda c: flash_bwd.dq_kernel_plan(hd, hdv, c),
+            lambda c: dq_plan(hd, hdv, ring_cap=c), dq_plan(hd, hdv).stages, DQ_MIN_STAGES)
     log(f"  dq plan at D{d}: {flash_bwd.dq_kernel_plan(d, d)}; at D1024: "
         f"{flash_bwd.dq_kernel_plan(1024, 1024)} (the launcher's, equal to ops/config.py "
-        f"dq_plan at {len(PLAN_PAIRS)} head-dim pairs)")
+        f"dq_plan at {len(PLAN_PAIRS)} head-dim pairs, and at one ring cap below the plan's at "
+        f"{capped} of them)")
     attrs = {}
     for route in ("wgmma", "wgmma_cluster"):
         for dt in (torch.bfloat16, torch.float16):
@@ -4077,20 +4144,27 @@ def from_s_kernel_row_extras(d: int, dk_in: bool) -> dict:
     of the kernel, and neither wgmma route (the block, the cluster)
     spills."""
     from ffpa_attn_tpu_torch.ops import flash_bwd
-    from ffpa_attn_tpu_torch.ops.config import from_s_plan
+    from ffpa_attn_tpu_torch.ops.config import from_s_min_stages, from_s_plan
 
     cases = [(dv, dk) for dv in range(64, 1025, 64) for dk in (False, True)]
+    capped = 0
     for dv, dk in cases:
         if flash_bwd.from_s_kernel_plan(dv, dk) != from_s_plan(dv, dk):
             fail(f"from-S launcher's plan at Dv{dv} dk_in={dk} "
                  f"{flash_bwd.from_s_kernel_plan(dv, dk)} differs from ops/config.py "
                  f"from_s_plan {from_s_plan(dv, dk)}")
+        if not dk:
+            capped += capped_plans_equal(
+                f"from-S Dv{dv}", lambda c: flash_bwd.from_s_kernel_plan(dv, False, c),
+                lambda c: from_s_plan(dv, False, ring_cap=c), from_s_plan(dv, False).stages,
+                from_s_min_stages(dv))
     attrs = {route: flash_bwd.from_s_kernel_attrs(route)
              for route in ("wgmma", "wgmma_cluster", "mma_sync")}
     log(f"  from-S plan at Dv{d}: dK out {flash_bwd.from_s_kernel_plan(d, False)}, dK in "
         f"{flash_bwd.from_s_kernel_plan(d, True)}; at Dv1024 dK out "
         f"{flash_bwd.from_s_kernel_plan(1024, False)} (the launcher's, equal to "
-        f"ops/config.py from_s_plan at {len(cases)} (Dv, dK in / out) pairs)")
+        f"ops/config.py from_s_plan at {len(cases)} (Dv, dK in / out) pairs, and at one ring "
+        f"cap below the plan's at {capped} dK-out ones)")
     for route, a in attrs.items():
         log(f"  from-S {route} dK {'in' if route == 'mma_sync' else 'out of'} the kernel: "
             f"{a['registers']} registers a thread at launch, {a['local_bytes']} local "
@@ -4555,17 +4629,10 @@ def _paged_step_times(gen, *, d: int, page: int, hq: int, hkv: int, label: str,
                                                  quantized=quantized))
         times = _above_bound(tag, _timed(run_paged, 100, warmup=8), bms,
                              lambda: _timed(run_paged, 100, warmup=8))
-        parts = (_kernel_timed(run_paged, ("paged_tma_kernel",), 100)[0],
-                 _kernel_timed(run_paged, ("split_merge_kernel",), 100)[0])
-        if times[0] < 0.95 * sum(parts):
-            # The total reads below its own launches (lost profiler events):
-            # time it again once, and fail if it stays below.
-            first, times = times, _timed(run_paged, 100, warmup=8)
-            log(f"  {tag}: total {first[0]:.4f} ms below walk + merge {sum(parts):.4f} ms, "
-                f"timed again: {times[0]:.4f} ms")
-            if times[0] < 0.95 * sum(parts):
-                fail(f"{tag} reads below its own launches twice: {first[0]:.4f} and "
-                     f"{times[0]:.4f} ms against {sum(parts):.4f} ms")
+        times, parts = _hold_parts(
+            tag, times, lambda: _timed(run_paged, 100, warmup=8),
+            lambda: (_kernel_timed(run_paged, ("paged_tma_kernel",), 100)[0],
+                     _kernel_timed(run_paged, ("split_merge_kernel",), 100)[0]))
         log(f"  {tag} at the serving step (D{d}, lens {step_lens}, page {page}): {times[0]:.4f} "
             f"ms [{times[1]:.4f}] = walk {parts[0]:.4f} + merge {parts[1]:.4f} ms, bound "
             f"{bms:.4f} ms ({bby})")
@@ -4946,17 +5013,11 @@ def decode_step_times(gen, d: int) -> dict:
         bms, bby = bound_ms(flop, nbytes + 4 * bias.numel() + 4 * db * hq)
         kms = _above_bound(tag, _timed(run_kernel, 100, warmup=8), bms,
                            lambda run_kernel=run_kernel: _timed(run_kernel, 100, warmup=8))
-        parts = (_kernel_timed(run_kernel, ("decode_tma_kernel",), 100)[0],
-                 _kernel_timed(run_kernel, ("split_merge_kernel",), 100)[0])
-        if kms[0] < 0.95 * sum(parts):
-            # The total reads below its own launches (lost profiler events):
-            # time it again once, and fail if it stays below.
-            first, kms = kms, _timed(run_kernel, 100, warmup=8)
-            log(f"  {tag}: total {first[0]:.4f} ms below walk + merge {sum(parts):.4f} ms, timed "
-                f"again: {kms[0]:.4f} ms")
-            if kms[0] < 0.95 * sum(parts):
-                fail(f"{tag} reads below its own launches twice: {first[0]:.4f} and "
-                     f"{kms[0]:.4f} ms against {sum(parts):.4f} ms")
+        kms, parts = _hold_parts(
+            tag, kms, lambda run_kernel=run_kernel: _timed(run_kernel, 100, warmup=8),
+            lambda run_kernel=run_kernel: (
+                _kernel_timed(run_kernel, ("decode_tma_kernel",), 100)[0],
+                _kernel_timed(run_kernel, ("split_merge_kernel",), 100)[0]))
         log(f"  decode D{d} at the {label} step (B{db} Nkv {nkv}): {kms[0]:.4f} ms [{kms[1]:.4f}] "
             f"= walk {parts[0]:.4f} + merge {parts[1]:.4f} ms, bound {bms:.4f} ms ({bby}), host "
             f"{kms[1] - kms[0]:.4f} ms a call (CUDA events less device)")
@@ -5089,6 +5150,370 @@ def phase_times(errs: dict, main_path: dict, training: dict, windowed: dict,
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Autotune: the tuned-config store, its lookup and the search
+# ---------------------------------------------------------------------------
+
+# The searched tasks: the backward at B1 H8/4 N4096 D512 causal bf16 (the
+# S-resident tier at that size), the packed forward + backward over 4
+# documents of 2048 tokens (H8/4 D512), and decode at the generate step
+# (B1 H8/4 Nkv 4224) at D512 and D1024.
+TUNE_BWD = dict(b=1, hq=8, hkv=4, n=4096, d=512)
+TUNE_VARLEN_T = 8192
+TUNE_DECODE = ((512, 4224), (1024, 4224))
+
+
+def _event_ms(run, reps: int = 10, before=lambda: None) -> float:
+    """CUDA-event ms per call of ``run`` alone (``before`` runs ahead of
+    each call, off the clock), the mean over ``reps`` after one warm-up."""
+    before()
+    run()
+    total = 0.0
+    for _ in range(reps):
+        before()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        run()
+        b.record()
+        b.synchronize()
+        total += a.elapsed_time(b)
+    return total / reps
+
+
+def ring_cap_times() -> dict:
+    """Each backward kernel that takes its ring depth at run time, at its
+    main-path shape, at every cap from the plan's depth down to the fewest
+    stages its walk holds: the outputs at every cap held bit-equal to the
+    plan's (the device code is the same; only the ring's depth and the
+    shared memory change), and each cap's CUDA-event ms. Returns
+    {kernel row: {"plan_stages", "min_stages", "ms": {cap: ms}}} (cap 0 is
+    the plan's depth)."""
+    from ffpa_attn_tpu_torch.ops import flash_bwd, flash_fwd, varlen
+    from ffpa_attn_tpu_torch.ops.config import (
+        DKDV_MIN_STAGES, DQ_MIN_STAGES, BlockConfig, dkdv_plan, dq_plan, from_s_min_stages,
+        from_s_plan, varlen_dkdv_plan, varlen_dq_plan,
+    )
+
+    bf = torch.bfloat16
+    n, d, hq, hkv = TRAIN_N, TRAIN["head_dim"], TRAIN["n_heads"], TRAIN["n_kv_heads"]
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    q = _randn((1, hq, n, d), bf, gen)
+    k, v = (_randn((1, hkv, n, d), bf, gen) for _ in range(2))
+    do = _randn((1, hq, n, d), bf, gen)
+    scale = d ** -0.5
+    out = {}
+
+    def sweep(name, run, stages, least, before=lambda: None):
+        before()
+        ref = [t.clone() for t in run(0)]
+        ms = {}
+        for cap in [0] + list(range(stages - 1, least - 1, -1)):
+            before()
+            got = run(cap)
+            for a, b in zip(got, ref):
+                if not torch.equal(a, b):
+                    fail(f"{name} at ring cap {cap}: outputs differ from the plan's depth "
+                         f"({stages} stages)")
+            ms[cap] = _event_ms(lambda: run(cap), before=before)
+        out[name] = dict(plan_stages=stages, min_stages=least, ms=ms)
+        log(f"  {name}: bit-equal at every ring cap; CUDA-event ms by cap (0 = the plan's "
+            f"{stages} stages): " + " ".join(f"{c}:{m:.4f}" for c, m in ms.items()))
+
+    kw = dict(scale=scale, is_causal=True, causal_offset=0, dropout_p=0.0, group=hq // hkv)
+    o, lse = flash_fwd.flash_attention_forward(q, k, v, None, scale=scale, is_causal=True)
+    delta = (do.float() * o.float()).sum(-1)
+    sweep("dkdv", lambda c: flash_bwd._dkdv_launch(
+        q, k, v, None, do, lse, delta, 0, BlockConfig(bwd_ring_cap=c),
+        grad_kv_storage_dtype=None, emit_ds=True, **kw), dkdv_plan(d, d).stages, DKDV_MIN_STAGES)
+    wo, wlse = flash_fwd.flash_attention_forward(q, k, v, None, scale=scale, is_causal=True,
+                                                 window=(WINDOW, -1))
+    wdelta = (do.float() * wo.float()).sum(-1)
+    sweep("dq", lambda c: flash_bwd._dq_launch(
+        q, k, v, None, do, wlse, wdelta, 0, BlockConfig(bwd_ring_cap=c),
+        grad_q_storage_dtype=None, window=(WINDOW, -1), **kw)[:1], dq_plan(d, d).stages,
+        DQ_MIN_STAGES)
+    so, slse, s0 = flash_fwd.flash_attention_forward(q, k, v, None, scale=scale, is_causal=True,
+                                                     return_scores=True)
+    sdelta = (do.float() * so.float()).sum(-1)
+    slab = s0.clone()
+    dk_out = BlockConfig(dkdv_dk_in_kernel=False)
+
+    def from_s(c):
+        _, dv_, ds_ = flash_bwd._dkdv_from_s_launch(
+            q, v, slab, do, slse, sdelta, 0, replace(dk_out, bwd_ring_cap=c),
+            grad_kv_storage_dtype=None, **kw)
+        return dv_, ds_
+
+    sweep("dkdv_from_s", from_s, from_s_plan(d, False).stages, from_s_min_stages(d),
+          before=lambda: slab.copy_(s0))
+    del s0, slab
+    x = packed_inputs(bf)
+    t = sum(PACK_LENS)
+    vkw = dict(scale=scale, causal=True, softcap=0.0, window=(-1, -1))
+    meta = varlen._call_metadata(x["cu"], x["cu"], t, t, "cuda")
+    vo, vlse = varlen._varlen_forward(x["q"], x["k"], x["v"], x["cu"], x["cu"], meta=meta, **vkw)
+    ops = varlen._BwdOperands(x["q"], x["k"], x["v"], x["do"], vlse,
+                              varlen._varlen_delta(x["do"], vo), None)
+    dkdv_sched, dq_sched = varlen._backward_schedules(
+        meta, t, varlen_dkdv_plan(d, d), varlen_dq_plan(d, d), True, (-1, -1),
+        varlen._call_walk(meta, t, True, (-1, -1)))
+    vcfg = BlockConfig(dkdv_col_passes=varlen_dkdv_plan(d, d).passes)
+    sweep("varlen_dkdv", lambda c: varlen._varlen_dkdv_kernel(
+        ops, meta, dkdv_sched, replace(vcfg, bwd_ring_cap=c), **vkw),
+        varlen_dkdv_plan(d, d).stages, DKDV_MIN_STAGES)
+    sweep("varlen_dq", lambda c: (varlen._varlen_dq_kernel(
+        ops, meta, dq_sched, replace(vcfg, bwd_ring_cap=c), **vkw),),
+        varlen_dq_plan(d, d).stages, DQ_MIN_STAGES)
+    return out
+
+
+def _lookup_us(fn, reps: int = 20000) -> float:
+    """µs a call of ``fn`` on the host (the least of 5 runs of ``reps``)."""
+    best = float("inf")
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / reps * 1e6)
+    return best
+
+
+def phase_autotune(smi: str) -> dict:
+    """``_autotune_in`` a temporary directory, removed after."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="ffpa_tuned_") as root:
+        return _autotune_in(smi, root)
+
+
+def _autotune_in(smi: str, root: str) -> dict:
+    """The tuned-config store on the card, with ``FFPA_TORCH_TUNED_CONFIG_DIR``
+    a new directory under ``root``:
+
+    1. searches one ``bwd`` task (``TUNE_BWD``), one ``varlen`` task and two
+       ``decode`` tasks (``TUNE_DECODE``: the rule's count alone) and writes
+       their winners, logging every reading (the plan's between the
+       others') and the plan's spread;
+    2. runs each direction's call tuned and untuned
+       (``FFPA_TORCH_SKIP_TUNED_CONFIG=1``): the backward and the packed
+       backward bit-equal to each other (a ring cap changes no arithmetic)
+       and to the fp32 oracle / the per-segment dense path at the gradient
+       tolerances, decode per row against its plain version;
+    3. checks that each pick equals the stored entry, that a stored entry at
+       the shallowest ring reaches the launch (its call bit-equal) and one of
+       other head dims does not, and times every backward kernel at each
+       ring cap (``ring_cap_times``: bit-equal to the plan's);
+    4. runs ``python -m ffpa_attn_tpu_torch.autotune --isolate-tasks`` on one
+       decode task and reads its entry back through the lookup;
+    5. runs ``verify`` on one backward case (its dQ gate must pass);
+    6. times the lookup on the host: an empty store, a memoised hit, a
+       query with no matching entry.
+
+    Any miss fails the run. Returns the times for the ``kernels`` line and
+    the log."""
+    from ffpa_attn_tpu_torch import ffpa_attn_func
+    from ffpa_attn_tpu_torch.autotune import search, store, verify
+    from ffpa_attn_tpu_torch.ops import decode
+    from ffpa_attn_tpu_torch.ops.config import from_s_min_stages
+    from ffpa_attn_tpu_torch.ops.dispatch import (
+        pick_backward_config, pick_varlen_backward_config,
+    )
+    from ffpa_attn_tpu_torch.ops.reference import (
+        expand_kv_heads, reduce_q_heads, reference_attention,
+    )
+
+    t_start = time.perf_counter()
+    bf = torch.bfloat16
+    kind = torch.cuda.get_device_name(0)
+    res: dict = {"device_kind": kind}
+    tmp, out_dir, empty = (os.path.join(root, n) for n in ("store", "cli", "empty"))
+    os.makedirs(empty)
+    with _env("FFPA_TORCH_TUNED_CONFIG_DIR", tmp):
+        store.clear_lookup_cache()
+        # 1. The searches.
+        cb = TUNE_BWD
+        gen = torch.Generator(device="cuda").manual_seed(290)
+        q = _randn((cb["b"], cb["hq"], cb["n"], cb["d"]), bf, gen)
+        k, v = (_randn((cb["b"], cb["hkv"], cb["n"], cb["d"]), bf, gen) for _ in range(2))
+        do = _randn(q.shape, bf, gen)
+        scale = cb["d"] ** -0.5
+        group = cb["hq"] // cb["hkv"]
+        found = search.autotune_backward(q, k, v, None, scale=scale, is_causal=True)
+        bwd_key = store.ConfigKey("bwd", "bfloat16", cb["d"], cb["d"], cb["n"], cb["n"], True,
+                                  False, False, True, group)
+        x = packed_inputs(bf)
+        t = sum(PACK_LENS)
+        cu4 = torch.tensor([0, t // 4, t // 2, 3 * t // 4, t], dtype=torch.int32, device="cuda")
+        vfound = search.autotune_varlen(x["q"], x["k"], x["v"], cu4, t // 4, scale=scale)
+        var_key = store.ConfigKey("varlen", "bfloat16", cb["d"], cb["d"], t, t, False, False,
+                                  False, False, 0)
+        dfound, dec_keys, dec_in = {}, {}, {}
+        for d_, nkv in TUNE_DECODE:
+            dq_ = _randn((1, 8, 1, d_), bf, gen)
+            dk_, dv_ = (_randn((1, 4, nkv, d_), bf, gen) for _ in range(2))
+            dec_in[d_] = (dq_, dk_, dv_)
+            dfound[d_] = search.autotune_decode(dq_, dk_, dv_, scale=d_ ** -0.5)
+            dec_keys[d_] = store.ConfigKey("decode", "bfloat16", d_, d_, 1, nkv, False, False,
+                                           False, True, 2)
+        entries = [store.make_entry(bwd_key, found.config, found.ms),
+                   store.make_entry(var_key, vfound.config, vfound.ms)]
+        entries += [store.make_entry(dec_keys[d_], dfound[d_].config, dfound[d_].ms)
+                    for d_, _ in TUNE_DECODE]
+        path = store.write_config_file(entries)
+        if path.name != f"{store.sanitize_device_kind(kind)}.json":
+            fail(f"the store wrote {path.name}, not the card's name {kind}")
+
+        def label(c):
+            return (f"cap {c.bwd_ring_cap}" if c.bwd_ring_cap else "plan") + (
+                "" if c.ds_store_bits == 16 else " e4m3")
+
+        founds = {"bwd": found, "varlen": vfound,
+                  **{f"decode_d{d_}": dfound[d_] for d_, _ in TUNE_DECODE}}
+        res["searched"] = {name: [[label(c), ms] for c, ms in f_.tried]
+                           for name, f_ in founds.items()}
+        res["winners"] = {name: label(f_.config) for name, f_ in founds.items()}
+        for name, f_ in founds.items():
+            log(f"  autotune search {name}: readings in order "
+                + " ".join(f"{label(c)}:{ms:.4f}" for c, ms in f_.tried)
+                + f"; plan median {f_.plan_ms:.4f} ms, spread {f_.plan_spread:.4f} ms; "
+                f"stored {label(f_.config)} at {f_.ms:.4f} ms")
+
+        # 2 and 3. Tuned and untuned calls, and the picks.
+        def bwd_call():
+            leaves = [x_.detach().requires_grad_() for x_ in (q, k, v)]
+            launch_counts(zero=True)
+            ffpa_attn_func(*leaves, is_causal=True, enable_gqa=True).backward(do)
+            torch.cuda.synchronize()
+            return [x_.grad for x_ in leaves], _launched()
+
+        tuned_g, tuned_l = bwd_call()
+        with _env("FFPA_TORCH_SKIP_TUNED_CONFIG", "1"):
+            plain_g, plain_l = bwd_call()
+        sl = [x_.float().requires_grad_() for x_ in (q, expand_kv_heads(k, cb["hq"]),
+                                                     expand_kv_heads(v, cb["hq"]))]
+        oracle = torch.autograd.grad(reference_attention(*sl, is_causal=True), sl, do.float())
+        oracle = [oracle[0]] + [reduce_q_heads(g, cb["hkv"]) for g in oracle[1:]]
+        errs = [rel(g, w) for g, w in zip(tuned_g, oracle)]
+        if not all(torch.equal(a, b) for a, b in zip(tuned_g, plain_g)) or tuned_l != plain_l:
+            fail(f"the tuned backward ({found.config}) is not bit-equal to the untuned one "
+                 f"(launches {tuned_l} / {plain_l})")
+        if max(errs) >= GRAD_TOL[bf]:
+            fail(f"the tuned backward's gradients are off the fp32 oracle: {errs}")
+        pick = pick_backward_config(d=cb["d"], dv=cb["d"], nq=cb["n"], nkv=cb["n"], dtype=bf,
+                                    causal=True, gqa=True, group=group)
+        if (pick.bwd_ring_cap, pick.ds_store_bits) != (found.config.bwd_ring_cap,
+                                                       found.config.ds_store_bits):
+            fail(f"pick_backward_config {pick} is not the stored {found.config}")
+        # A stored entry at the shallowest ring of the tier reaches the launch.
+        least = from_s_min_stages(cb["d"])
+        store.write_config_file([store.make_entry(bwd_key, replace(found.config,
+                                                                   bwd_ring_cap=least))],
+                                overwrite=True)
+        shallow_g, shallow_l = bwd_call()
+        if pick_backward_config(d=cb["d"], dv=cb["d"], nq=cb["n"], nkv=cb["n"], dtype=bf,
+                                causal=True, gqa=True, group=group).bwd_ring_cap != least:
+            fail("a stored ring cap did not reach pick_backward_config")
+        if pick_backward_config(d=640, dv=640, nq=cb["n"], nkv=cb["n"], dtype=bf, causal=True,
+                                gqa=True, group=group).bwd_ring_cap != 0:
+            fail("a ring cap stored at D512 reached a D640 backward")
+        if not all(torch.equal(a, b) for a, b in zip(shallow_g, plain_g)):
+            fail(f"the backward at a stored ring cap of {least} is not bit-equal to the plan's")
+        log(f"  autotune bwd B1 H8/4 N{cb['n']} D{cb['d']} causal: tuned and untuned calls "
+            f"bit-equal, launches {tuned_l}, gradients vs the fp32 oracle "
+            + " ".join(f"{e:.2e}" for e in errs) + f" (tol {GRAD_TOL[bf]:g}); a stored cap of "
+            f"{least} bit-equal too, not taken at D640; picks equal the stored entries")
+        store.write_config_file([store.make_entry(bwd_key, found.config, found.ms)],
+                                overwrite=True)
+
+        tuned_p = _packed_call(x)
+        with _env("FFPA_TORCH_SKIP_TUNED_CONFIG", "1"):
+            plain_p = _packed_call(x)
+        if not all(torch.equal(a, b) for a, b in zip(tuned_p["grads"], plain_p["grads"])):
+            fail(f"the tuned packed backward ({vfound.config}) is not bit-equal to the untuned")
+        dense = _dense_path_grads(x)
+        verrs = [grad_row_rel(g, w) for g, w in zip(tuned_p["grads"], dense)]
+        if max(verrs) >= GRAD_TOL[bf]:
+            fail(f"the tuned packed backward is off the per-segment dense path: {verrs}")
+        vpick = pick_varlen_backward_config(d=cb["d"], dv=cb["d"], dtype=bf, tq=t, tk=t)
+        if vpick.bwd_ring_cap != vfound.config.bwd_ring_cap:
+            fail(f"pick_varlen_backward_config {vpick} is not the stored {vfound.config}")
+        log(f"  autotune varlen T{t} D{cb['d']}: tuned and untuned packed calls bit-equal, "
+            "gradients vs the dense path per row " + " ".join(f"{e:.2e}" for e in verrs))
+
+        for d_, nkv in TUNE_DECODE:
+            dq_, dk_, dv_ = dec_in[d_]
+            kw = dict(scale=d_ ** -0.5, is_causal=False)
+            o_t, _ = decode._decode_forward(dq_, dk_, dv_, None, **kw)
+            with _env("FFPA_TORCH_SKIP_TUNED_CONFIG", "1"):
+                o_u, _ = decode._decode_forward(dq_, dk_, dv_, None, **kw)
+            po, _ = decode._decode_plain(dq_.reshape(1, 4, 2, d_), dk_, dv_, None, nq=1,
+                                         scale=kw["scale"], is_causal=False, softcap=0.0,
+                                         window_left=-1, window_right=-1)
+            po = po.reshape(o_t.shape)
+            derrs = (row_rel(o_t, po), row_rel(o_u, po))
+            if max(derrs) >= BF16_TOL:
+                fail(f"decode D{d_} tuned / untuned off its plain version: {derrs}")
+            log(f"  autotune decode D{d_} Nkv{nkv}: the rule's split count (no decode knob), "
+                f"with the store and with the kill-switch row_rel_err "
+                f"vs plain {derrs[0]:.2e} / {derrs[1]:.2e} (tol {BF16_TOL:g})")
+        res["ring_caps"] = ring_cap_times()
+
+        # 4. The CLI, one task in an isolated worker.
+        _, cli_s = _run([sys.executable, "-m", "ffpa_attn_tpu_torch.autotune", "--isolate-tasks",
+                         "--directions", "decode", "--headdims", "512", "--seqlens", "4224",
+                         "--output-dir", out_dir], "autotune CLI", 300)
+        cli_path = os.path.join(out_dir, f"{store.sanitize_device_kind(kind)}.json")
+        if not os.path.exists(cli_path):
+            fail(f"the autotune CLI wrote no {cli_path}")
+        with open(cli_path) as f:
+            cli_entries = json.load(f)["entries"]
+        with _env("FFPA_TORCH_TUNED_CONFIG_DIR", out_dir):
+            store.clear_lookup_cache()
+            got = store.lookup_tuned_config(direction="decode", d=512, nq=1, nkv=4224,
+                                            dtype="bfloat16", causal=False, has_bias=False,
+                                            dropout=False, gqa=False)
+        want = store._entry_config(cli_entries[0])
+        if len(cli_entries) != 1 or got != want:
+            fail(f"the CLI's entry {cli_entries} did not come back through the lookup ({got})")
+        res["cli_decode_tried"] = cli_entries[0].get("tried")
+        log(f"  autotune CLI --isolate-tasks (decode D512 Nkv4224, MHA H8, {cli_s:.1f} s): "
+            f"wrote {cli_path}, "
+            f"read back {want}; readings " + " ".join(f"{ms:.4f}"
+                                                      for _, ms in cli_entries[0]["tried"]))
+        store.clear_lookup_cache()
+
+        # 5. verify on one backward case.
+        vres = verify.verify_case(cb["d"], cb["n"], True, "bfloat16", direction="bwd")
+        res["verify"] = {k_: vres[k_] for k_ in ("stored_ms", "plan_ms", "fresh_ms", "agree",
+                                                  "numerics_rel")}
+        log(f"  autotune verify bwd D{cb['d']} N{cb['n']} causal (MHA H8): {res['verify']}")
+
+        # 6. The lookup's host cost.
+        query = dict(direction="bwd", d=cb["d"], nq=cb["n"], nkv=cb["n"], dtype="bfloat16",
+                     causal=True, has_bias=False, dropout=False, gqa=True, group=group)
+        store.clear_lookup_cache()
+        t0 = time.perf_counter()
+        store.lookup_tuned_config(**query)
+        first = (time.perf_counter() - t0) * 1e6
+        us = {"hit_first_call": first,
+              "hit": _lookup_us(lambda: store.lookup_tuned_config(**query)),
+              "no_entry": _lookup_us(lambda: store.lookup_tuned_config(
+                  **dict(query, direction="fwd")))}
+    with _env("FFPA_TORCH_TUNED_CONFIG_DIR", empty):
+        store.clear_lookup_cache()
+        us["empty_store"] = _lookup_us(lambda: store.lookup_tuned_config(**query))
+        us["pick_backward_empty_store"] = _lookup_us(lambda: pick_backward_config(
+            d=cb["d"], dv=cb["d"], nq=cb["n"], nkv=cb["n"], dtype=bf, causal=True, gqa=True,
+            group=group))
+    store.clear_lookup_cache()
+    res["lookup_us"] = us
+    log(f"  tuned lookup on the host, µs a call on {smi}: " + " ".join(
+        f"{k_} {v_:.3f}" for k_, v_ in us.items()))
+    res["seconds"] = time.perf_counter() - t_start
+    log(f"autotune phase: {res['seconds']:.1f} s")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
@@ -5134,6 +5559,10 @@ def main() -> int:
     rows = phase_times(errs, main_path, training, windowed, resident, serving, packed,
                        fp8_training, wide, wide_dense)
     bench = phase_bench_cli(main_path["model"])
+    tuned = phase_autotune(smi)
+    for r in rows:  # each ring cap's ms beside the plan's
+        if r["name"] in tuned["ring_caps"]:
+            r["ring_cap_ms"] = tuned["ring_caps"][r["name"]]["ms"]
     for r in rows:  # launches per speculative call beside the main path's
         if r["name"] in ("flash_fwd", "decode"):
             r["speculative_launches"] = {k: c.get(r["name"], 0)

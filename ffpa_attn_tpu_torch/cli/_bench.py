@@ -192,6 +192,24 @@ def time_bwd(prepare: Callable, *, device, warmup: int = 2, iters: int = 10) -> 
     return statistics.median(_window_ms(calls, device) / iters for _ in range(WINDOWS))
 
 
+def time_queued(fn: Callable, *, device, warmup: int = 2, iters: int = 10) -> float:
+    """Device ms per call of ``fn`` with the host's enqueue off the clock
+    (``utils.profiling.queued_ms`` over ``iters`` back-to-back calls): the
+    median over WINDOWS windows, after ``warmup`` calls. For host-bound
+    work (a decode step), where ``time_fwd`` would time the host. On the
+    CPU, ``time_fwd``."""
+    if device.type != "cuda":
+        return time_fwd(fn, device=device, warmup=warmup, iters=iters)
+    for _ in range(warmup):
+        fn()
+
+    def calls():
+        for _ in range(iters):
+            fn()
+
+    return statistics.median(profiling.queued_ms(calls) / iters for _ in range(WINDOWS))
+
+
 # The port's kernels as the profiler names them: every kernel of
 # ``csrc/*.cu`` lives in the file's top-level anonymous namespace (the TMA +
 # wgmma ones one namespace deeper), the split-KV merge in ``ffpa``. PyTorch's

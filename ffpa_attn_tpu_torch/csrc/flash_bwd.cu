@@ -83,6 +83,13 @@ namespace {
 
 using namespace ffpa;
 
+// Whether a ring cap is one the entry points take: 0 (the plan's depth) or
+// least..deepest, from the fewest stages the kernel's walk needs (a
+// shallower ring deadlocks) up to the plan's.
+inline bool ring_cap_ok(int ring_cap, int deepest, int least) {
+  return ring_cap == 0 || (ring_cap >= least && ring_cap <= deepest);
+}
+
 struct BwdParams {
   const void* q;
   const void* k;
@@ -907,12 +914,19 @@ constexpr size_t STAGE_SMEM = STAGE_BYTES + 2 * sizeof(uint64_t);
 // forward's double buffer) would leave room for 1 stage: one slot, and the
 // "free" barriers. ffpa_bwd_dkdv_plan hands the plan out; ops/config.py
 // dkdv_plan mirrors it and the card test holds the two equal.
+//
+// ring_cap > 0 caps the ring at that many stages (the autotune's knob; the
+// device code takes the depth as an argument, so only the shared memory a
+// block asks for changes). The walk needs MIN_STAGES: consumer 1 holds the
+// last stage of its dV run while it frees the (up to 2) stages of consumer
+// 0's dK run, which the producer then fills into the other slots.
+constexpr int MIN_STAGES = 3;
 struct Plan {
   int route, passes, stages;
   Part part[2];  // each rank's share (the lone block's is part[0])
   size_t smem;
 };
-inline Plan make_plan(int D, int Dv) {
+inline Plan make_plan(int D, int Dv, int ring_cap = 0) {
   const int nd = D / COLS, nv = Dv / COLS;
   const bool split = nd > MAX_BOXES || nv > MAX_BOXES;
   Plan pl;
@@ -924,6 +938,7 @@ inline Plan make_plan(int D, int Dv) {
                        (lay.nv + PASS_BOXES - 1) / PASS_BOXES);
   const size_t fixed = fixed_bytes(lay.nd, lay.nv, split);
   pl.stages = (int)std::min((size_t)MAX_STAGES, (SMEM_LIMIT - fixed) / STAGE_SMEM);
+  if (ring_cap > 0) pl.stages = std::min(pl.stages, ring_cap);
   pl.smem = fixed + pl.stages * STAGE_SMEM;
   return pl;
 }
@@ -1656,12 +1671,18 @@ constexpr size_t STAGE_SMEM = STAGE_BYTES + 2 * sizeof(uint64_t);
 // barriers. ffpa_bwd_dq_plan
 // hands the plan out; ops/config.py dq_plan mirrors it and the card test
 // holds the two equal.
+//
+// ring_cap > 0 caps the ring at that many stages (the autotune's knob). A
+// consumer with one dQ box fewer frees its last K stage unread but keeps
+// the stage of its last product into the next tile's S walk, so the walk
+// needs MIN_STAGES.
+constexpr int MIN_STAGES = 3;
 struct Plan {
   int route, stages;
   Part part[2];  // each rank's share (the lone block's is part[0])
   size_t smem;
 };
-inline Plan make_plan(int D, int Dv) {
+inline Plan make_plan(int D, int Dv, int ring_cap = 0) {
   const int nd = D / COLS, nv = Dv / COLS;
   const bool split = nd > MAX_BOXES || nv > MAX_BOXES;
   Plan pl;
@@ -1670,6 +1691,7 @@ inline Plan make_plan(int D, int Dv) {
   pl.part[1] = part_of(nd, nv, split, 1);
   const size_t fixed = fixed_bytes(pl.part[0].nd, pl.part[0].nv, split);
   pl.stages = (int)std::min((size_t)MAX_STAGES, (SMEM_LIMIT - fixed) / STAGE_SMEM);
+  if (ring_cap > 0) pl.stages = std::min(pl.stages, ring_cap);
   pl.smem = fixed + pl.stages * STAGE_SMEM;
   return pl;
 }
@@ -2365,12 +2387,18 @@ constexpr size_t STAGE_SMEM = STAGE_BYTES + 2 * sizeof(uint64_t);
 // the mma.sync dkdv_from_s_kernel. ffpa_bwd_from_s_plan hands it out;
 // ops/config.py from_s_plan mirrors it and the card test holds the two
 // equal.
+//
+// ring_cap > 0 caps the wgmma routes' ring at that many stages (the
+// autotune's knob; the mma.sync route takes none). A tile holds its S stage
+// and its ceil(nv / 2) dO stages at once (rank 0's share on the cluster,
+// the larger), so the walk needs min_stages of them.
 struct Plan {
   int route, kv_rows, q_rows, stages;
   Part part[2];  // each rank's share (the lone block's is part[0])
   size_t smem;
 };
-inline Plan make_plan(int Dv, bool dk_in) {
+inline int min_stages(const Plan& pl) { return 1 + (pl.part[0].nv + 1) / 2; }
+inline Plan make_plan(int Dv, bool dk_in, int ring_cap = 0) {
   Plan pl;
   const int nv = Dv / COLS;
   if (!dk_in && nv <= 2 * MAX_BOXES) {
@@ -2382,6 +2410,7 @@ inline Plan make_plan(int Dv, bool dk_in) {
     pl.part[1] = part_of(nv, split, 1);
     const size_t fixed = fixed_bytes(pl.part[0].nv, split);
     pl.stages = (int)std::min((size_t)MAX_STAGES, (SMEM_LIMIT - fixed) / STAGE_SMEM);
+    if (ring_cap > 0) pl.stages = std::min(pl.stages, ring_cap);
     pl.smem = fixed + pl.stages * STAGE_SMEM;
   } else {
     pl.route = MMA_SYNC;
@@ -2909,7 +2938,7 @@ extern "C" int ffpa_bwd_dkdv(const void* q, const void* k, const void* v, const 
                              int ds_ld, float scale, float softcap, int causal_offset,
                              int window_left, int window_right, float dropout_p,
                              float dropout_inv, unsigned seed, int row_offset, int col_offset,
-                             int ds_bits, void* stream) {
+                             int ds_bits, int ring_cap, void* stream) {
   BwdParams p = make_params(q, k, v, dout, lse, delta, bias, sb, sh, sr, sc, alibi, Hq, Hkv, nq,
                             nkv, D, Dv, scale, softcap, causal_offset, window_left, window_right,
                             dropout_p, dropout_inv, seed, row_offset, col_offset);
@@ -2925,8 +2954,10 @@ extern "C" int ffpa_bwd_dkdv(const void* q, const void* k, const void* v, const 
        (ds_ld < nkv || ds_ld % dkdv::ROWS != 0 || ds_rows % dkdv::QROWS != 0 ||
         ds_rows < (nq + dkdv::QROWS - 1) / dkdv::QROWS * dkdv::QROWS)))
     return (int)cudaErrorInvalidValue;
+  if (!ring_cap_ok(ring_cap, dkdv::make_plan(D, Dv).stages, dkdv::MIN_STAGES))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dkdv::Plan pl = dkdv::make_plan(D, Dv);
+  const dkdv::Plan pl = dkdv::make_plan(D, Dv, ring_cap);
   const bool fp8 = ds_bits == 8;
   return (int)(pl.route == dkdv::CLUSTER
                    ? dkdv::launch_typed<true>(is_fp16, fp8, p, pl, B, st)
@@ -2940,12 +2971,15 @@ extern "C" int ffpa_bwd_dkdv(const void* q, const void* k, const void* v, const 
 // split the head dims (1 or 2); then for each block of a KV tile, rank by
 // rank and pass by pass, the (first column, width) of dK and of dV it
 // owns; then for each rank of the cluster (none for one block) its (first
-// D column, D width, first Dv column, Dv width). cap is out's length.
-extern "C" int ffpa_bwd_dkdv_plan(int D, int Dv, int* out, int cap) {
+// D column, D width, first Dv column, Dv width). cap is out's length;
+// ring_cap the launch's (0: the plan's depth), as ffpa_bwd_dkdv takes it.
+extern "C" int ffpa_bwd_dkdv_plan(int D, int Dv, int* out, int cap, int ring_cap) {
   if (D <= 0 || Dv <= 0 || D % CH != 0 || Dv % CH != 0 || D > dkdv::MAX_HEAD_DIM ||
       Dv > dkdv::MAX_HEAD_DIM)
     return (int)cudaErrorInvalidValue;
-  const dkdv::Plan pl = dkdv::make_plan(D, Dv);
+  if (!ring_cap_ok(ring_cap, dkdv::make_plan(D, Dv).stages, dkdv::MIN_STAGES))
+    return (int)cudaErrorInvalidValue;
+  const dkdv::Plan pl = dkdv::make_plan(D, Dv, ring_cap);
   const int ranks = pl.route == dkdv::CLUSTER ? 2 : 1;
   if (cap < 7 + 4 * ranks * pl.passes + (ranks == 2 ? 8 : 0)) return (int)cudaErrorInvalidValue;
   int n = 0;
@@ -3015,7 +3049,7 @@ extern "C" int ffpa_bwd_dq(const void* q, const void* k, const void* v, const vo
                            int block_q, int B, int Hq, int Hkv, int nq, int nkv, int D, int Dv,
                            int ds_rows, int ds_ld, float scale, float softcap, int causal_offset,
                            int window_left, int window_right, float dropout_p, float dropout_inv,
-                           unsigned seed, void* stream) {
+                           unsigned seed, int ring_cap, void* stream) {
   (void)block_q;
   BwdParams p = make_params(q, k, v, dout, lse, delta, bias, sb, sh, sr, sc, alibi, Hq, Hkv, nq,
                             nkv, D, Dv, scale, softcap, causal_offset, window_left, window_right,
@@ -3030,8 +3064,10 @@ extern "C" int ffpa_bwd_dq(const void* q, const void* k, const void* v, const vo
       (dbias != nullptr && (ds_ld % dq::KV_ROWS != 0 || ds_ld < nkv || ds_rows % dq::ROWS != 0 ||
                             ds_rows < nq)))
     return (int)cudaErrorInvalidValue;
+  if (!ring_cap_ok(ring_cap, dq::make_plan(D, Dv).stages, dq::MIN_STAGES))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dq::Plan pl = dq::make_plan(D, Dv);
+  const dq::Plan pl = dq::make_plan(D, Dv, ring_cap);
   return (int)(pl.route == dq::CLUSTER ? dq::launch_typed<true>(is_fp16, p, pl, B, st)
                                        : dq::launch_typed<false>(is_fp16, p, pl, B, st));
 }
@@ -3043,12 +3079,14 @@ extern "C" int ffpa_bwd_dq(const void* q, const void* k, const void* v, const vo
 // column blocks (each rank's consumers' shares, rank by rank), then (first
 // column, width) of each; out[6 + 2n] the number of ranks of a cluster (0
 // for one block), then each rank's (first D column, D width, first Dv
-// column, Dv width). cap is out's length.
-extern "C" int ffpa_bwd_dq_plan(int D, int Dv, int* out, int cap) {
+// column, Dv width). cap is out's length; ring_cap the launch's (0: the
+// plan's depth), as ffpa_bwd_dq takes it.
+extern "C" int ffpa_bwd_dq_plan(int D, int Dv, int* out, int cap, int ring_cap) {
   if (D <= 0 || Dv <= 0 || D % CH != 0 || Dv % CH != 0 || D > dq::MAX_HEAD_DIM ||
-      Dv > dq::MAX_HEAD_DIM || cap < 23)
+      Dv > dq::MAX_HEAD_DIM || cap < 23 ||
+      !ring_cap_ok(ring_cap, dq::make_plan(D, Dv).stages, dq::MIN_STAGES))
     return (int)cudaErrorInvalidValue;
-  const dq::Plan pl = dq::make_plan(D, Dv);
+  const dq::Plan pl = dq::make_plan(D, Dv, ring_cap);
   const int ranks = pl.route == dq::CLUSTER ? 2 : 1;
   out[0] = pl.route;
   out[1] = dq::ROWS;
@@ -3101,6 +3139,14 @@ extern "C" int ffpa_bwd_dq_attrs(int route, int is_fp16, int* regs, int* local_b
   return 0;
 }
 
+// Whether the from-S launch at (Dv, dk_in) takes ring_cap: 0, or on the
+// wgmma routes from_s::min_stages..the plan's depth.
+inline bool from_s_cap_ok(int Dv, bool dk_in, int ring_cap) {
+  const from_s::Plan deepest = from_s::make_plan(Dv, dk_in);
+  if (deepest.route == from_s::MMA_SYNC) return ring_cap == 0;
+  return ring_cap_ok(ring_cap, deepest.stages, from_s::min_stages(deepest));
+}
+
 // S-resident dK/dV (bf16): the slab holds S on entry and dS on return. The
 // route is from_s::make_plan's, by Dv and dk_in_kernel alone: dK out of the
 // kernel takes the wgmma block at Dv <= 512 and its cluster of two up to
@@ -3114,7 +3160,8 @@ extern "C" int ffpa_bwd_dkdv_from_s(const void* q, const void* v, const void* do
                                     int Hq, int Hkv, int nq, int nkv, int D, int Dv,
                                     int ds_rows, int ds_ld, float scale, float softcap,
                                     int causal_offset, int window_right, float dropout_p,
-                                    float dropout_inv, unsigned seed, void* stream) {
+                                    float dropout_inv, unsigned seed, int ring_cap,
+                                    void* stream) {
   (void)kv_tile;
   BwdParams p = make_params(q, nullptr, v, dout, lse, delta, nullptr, 0, 0, 0, 0, nullptr, Hq,
                             Hkv, nq, nkv, D, Dv, scale, softcap, causal_offset, -1, window_right,
@@ -3129,7 +3176,8 @@ extern "C" int ffpa_bwd_dkdv_from_s(const void* q, const void* v, const void* do
   if (D % CH != 0 || Dv <= 0 || Dv % CH != 0 || Hkv <= 0 || Hq % Hkv != 0 || nq <= 0 ||
       ds_rows < nq || ds_ld < nkv || (dk_in && (D > 512 || Dv > 512)) || Dv > 1024)
     return (int)cudaErrorInvalidValue;
-  const from_s::Plan pl = from_s::make_plan(Dv, dk_in);
+  if (!from_s_cap_ok(Dv, dk_in, ring_cap)) return (int)cudaErrorInvalidValue;
+  const from_s::Plan pl = from_s::make_plan(Dv, dk_in, ring_cap);
   if (ds_ld % pl.kv_rows != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (pl.route != from_s::MMA_SYNC) return (int)from_s::launch(p, pl, B, st);
@@ -3145,10 +3193,12 @@ extern "C" int ffpa_bwd_dkdv_from_s(const void* q, const void* v, const void* do
 // rank, or the mma.sync block's whole Dv), then (first column, width) of
 // each; out[6 + 2n] the number of ranks of a cluster (0 for one block),
 // then (first column, width) of each rank's share of Dv; cap is out's
-// length.
-extern "C" int ffpa_bwd_from_s_plan(int Dv, int dk_in_kernel, int* out, int cap) {
-  if (Dv <= 0 || Dv % CH != 0 || cap < 19) return (int)cudaErrorInvalidValue;
-  const from_s::Plan pl = from_s::make_plan(Dv, dk_in_kernel != 0);
+// length; ring_cap the launch's (0: the plan's depth), as
+// ffpa_bwd_dkdv_from_s takes it.
+extern "C" int ffpa_bwd_from_s_plan(int Dv, int dk_in_kernel, int* out, int cap, int ring_cap) {
+  if (Dv <= 0 || Dv % CH != 0 || cap < 19 || !from_s_cap_ok(Dv, dk_in_kernel != 0, ring_cap))
+    return (int)cudaErrorInvalidValue;
+  const from_s::Plan pl = from_s::make_plan(Dv, dk_in_kernel != 0, ring_cap);
   out[0] = pl.route;
   out[1] = pl.kv_rows;
   out[2] = pl.q_rows;

@@ -55,6 +55,13 @@
 
 namespace {
 
+// Whether a ring cap is one the entry points take: 0 (the plan's depth) or
+// least..deepest, from the fewest stages the kernel's walk needs (a
+// shallower ring deadlocks) up to the plan's.
+inline bool ring_cap_ok(int ring_cap, int deepest, int least) {
+  return ring_cap == 0 || (ring_cap >= least && ring_cap <= deepest);
+}
+
 using namespace ffpa;
 
 struct VarlenBwdParams {
@@ -290,12 +297,18 @@ constexpr size_t STAGE_SMEM = STAGE_BYTES + 2 * sizeof(uint64_t);
 // ffpa_varlen_bwd_dkdv_plan hands the plan out; ops/config.py
 // varlen_dkdv_plan mirrors it (it is dkdv_plan) and the card test holds the
 // two equal.
+//
+// ring_cap > 0 caps the ring at that many stages (the autotune's knob; the
+// device code takes the depth as an argument). The walk needs MIN_STAGES,
+// as the dense dK/dV's: consumer 1 holds the last stage of its dV run while
+// it frees the (up to 2) stages of consumer 0's dK run.
+constexpr int MIN_STAGES = 3;
 struct Plan {
   int route, passes, stages;
   Part part[2];  // each rank's share (the lone block's is part[0])
   size_t smem;
 };
-inline Plan make_plan(int D, int Dv) {
+inline Plan make_plan(int D, int Dv, int ring_cap = 0) {
   const int nd = D / COLS, nv = Dv / COLS;
   const bool split = nd > MAX_BOXES || nv > MAX_BOXES;
   Plan pl;
@@ -307,6 +320,7 @@ inline Plan make_plan(int D, int Dv) {
                        (lay.nv + PASS_BOXES - 1) / PASS_BOXES);
   const size_t fixed = fixed_bytes(lay.nd, lay.nv, split);
   pl.stages = (int)std::min((size_t)MAX_STAGES, (SMEM_LIMIT - fixed) / STAGE_SMEM);
+  if (ring_cap > 0) pl.stages = std::min(pl.stages, ring_cap);
   pl.smem = fixed + pl.stages * STAGE_SMEM;
   return pl;
 }
@@ -961,7 +975,11 @@ struct DqPlan {
   Part part[2];  // each rank's share (the lone block's is part[0])
   size_t smem;
 };
-inline DqPlan make_dq_plan(int D, int Dv) {
+// ring_cap > 0 caps the dQ ring as make_plan's. As in the dense dQ, a
+// consumer with one dQ box fewer keeps the stage of its last product into
+// the next tile's S walk, so the walk needs DQ_MIN_STAGES.
+constexpr int DQ_MIN_STAGES = 3;
+inline DqPlan make_dq_plan(int D, int Dv, int ring_cap = 0) {
   const int nd = D / COLS, nv = Dv / COLS;
   const bool split = nd > MAX_BOXES || nv > MAX_BOXES;
   DqPlan pl;
@@ -970,6 +988,7 @@ inline DqPlan make_dq_plan(int D, int Dv) {
   pl.part[1] = part_of(nd, nv, split, 1);
   const size_t fixed = dq_fixed_bytes(pl.part[0].nd, pl.part[0].nv, split);
   pl.stages = (int)std::min((size_t)DQ_MAX_STAGES, (SMEM_LIMIT - fixed) / STAGE_SMEM);
+  if (ring_cap > 0) pl.stages = std::min(pl.stages, ring_cap);
   pl.smem = fixed + pl.stages * STAGE_SMEM;
   return pl;
 }
@@ -1437,7 +1456,7 @@ extern "C" int ffpa_varlen_bwd_dkdv(const void* q, const void* k, const void* v,
                                     const float* alibi, int is_fp16, int Hq, int Hkv, int tq,
                                     int tk, int num_kv_tiles, int D, int Dv, int col_passes,
                                     float scale, float softcap, int window_left,
-                                    int window_right, void* stream) {
+                                    int window_right, int ring_cap, void* stream) {
   VarlenBwdParams p = make_params(q, k, v, dout, q_rs, q_hs, k_rs, k_hs, v_rs, v_hs, do_rs,
                                   do_hs, lse, delta, q_seg, q_rank, k_seg, k_pos, imin, imax,
                                   alibi, Hq, Hkv, tq, tk, D, Dv, scale, softcap, window_left,
@@ -1449,7 +1468,9 @@ extern "C" int ffpa_varlen_bwd_dkdv(const void* q, const void* k, const void* v,
   if (D <= 0 || Dv <= 0 || D % CH != 0 || Dv % CH != 0 || D > tma::MAX_HEAD_DIM ||
       Dv > tma::MAX_HEAD_DIM || Hkv < 1 || Hq % Hkv != 0)
     return (int)cudaErrorInvalidValue;
-  const tma::Plan pl = tma::make_plan(D, Dv);
+  if (!ring_cap_ok(ring_cap, tma::make_plan(D, Dv).stages, tma::MIN_STAGES))
+    return (int)cudaErrorInvalidValue;
+  const tma::Plan pl = tma::make_plan(D, Dv, ring_cap);
   if (col_passes != pl.passes || order == nullptr || (long long)num_kv_tiles * tma::ROWS < tk)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1466,12 +1487,14 @@ extern "C" int ffpa_varlen_bwd_dkdv(const void* q, const void* k, const void* v,
 // each block of a KV tile, rank by rank and pass by pass, the (first column,
 // width) of dK and of dV it owns; then for each rank of the cluster (none
 // for one block) its (first D column, D width, first Dv column, Dv width).
-// cap is out's length.
-extern "C" int ffpa_varlen_bwd_dkdv_plan(int D, int Dv, int* out, int cap) {
+// cap is out's length; ring_cap the launch's (0: the plan's depth), as
+// ffpa_varlen_bwd_dkdv takes it.
+extern "C" int ffpa_varlen_bwd_dkdv_plan(int D, int Dv, int* out, int cap, int ring_cap) {
   if (D <= 0 || Dv <= 0 || D % CH != 0 || Dv % CH != 0 || D > tma::MAX_HEAD_DIM ||
-      Dv > tma::MAX_HEAD_DIM)
+      Dv > tma::MAX_HEAD_DIM ||
+      !ring_cap_ok(ring_cap, tma::make_plan(D, Dv).stages, tma::MIN_STAGES))
     return (int)cudaErrorInvalidValue;
-  const tma::Plan pl = tma::make_plan(D, Dv);
+  const tma::Plan pl = tma::make_plan(D, Dv, ring_cap);
   const int ranks = pl.route == tma::CLUSTER ? 2 : 1;
   if (cap < 7 + 4 * ranks * pl.passes + (ranks == 2 ? 8 : 0)) return (int)cudaErrorInvalidValue;
   int n = 0;
@@ -1537,7 +1560,7 @@ extern "C" int ffpa_varlen_bwd_dq(const void* q, const void* k, const void* v, c
                                   const int* order, const float* alibi, int is_fp16, int Hq,
                                   int Hkv, int tq, int tk, int num_q_tiles, int num_kv_tiles,
                                   int D, int Dv, float scale, float softcap, int window_left,
-                                  int window_right, void* stream) {
+                                  int window_right, int ring_cap, void* stream) {
   VarlenBwdParams p = make_params(q, k, v, dout, q_rs, q_hs, k_rs, k_hs, v_rs, v_hs, do_rs,
                                   do_hs, lse, delta, q_seg, q_rank, k_seg, k_pos, nullptr,
                                   nullptr, alibi, Hq, Hkv, tq, tk, D, Dv, scale, softcap,
@@ -1552,8 +1575,10 @@ extern "C" int ffpa_varlen_bwd_dq(const void* q, const void* k, const void* v, c
       ntile == nullptr || order == nullptr || (long long)num_q_tiles * tma::QROWS < tq ||
       (long long)num_kv_tiles * tma::ROWS < tk)
     return (int)cudaErrorInvalidValue;
+  if (!ring_cap_ok(ring_cap, tma::make_dq_plan(D, Dv).stages, tma::DQ_MIN_STAGES))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const tma::DqPlan pl = tma::make_dq_plan(D, Dv);
+  const tma::DqPlan pl = tma::make_dq_plan(D, Dv, ring_cap);
   return (int)(pl.route == tma::CLUSTER
                    ? tma::dq_launch_typed<true>(is_fp16, p, pl, num_q_tiles, st)
                    : tma::dq_launch_typed<false>(is_fp16, p, pl, num_q_tiles, st));
@@ -1567,12 +1592,14 @@ extern "C" int ffpa_varlen_bwd_dq(const void* q, const void* k, const void* v, c
 // consumers' shares, rank by rank), then (first column, width) of each;
 // out[6 + 2n] the number of ranks of a cluster (0 for one block), then each
 // rank's (first D column, D width, first Dv column, Dv width). cap is out's
-// length.
-extern "C" int ffpa_varlen_bwd_dq_plan(int D, int Dv, int* out, int cap) {
+// length; ring_cap the launch's (0: the plan's depth), as ffpa_varlen_bwd_dq
+// takes it.
+extern "C" int ffpa_varlen_bwd_dq_plan(int D, int Dv, int* out, int cap, int ring_cap) {
   if (D <= 0 || Dv <= 0 || D % CH != 0 || Dv % CH != 0 || D > tma::MAX_HEAD_DIM ||
-      Dv > tma::MAX_HEAD_DIM || cap < 23)
+      Dv > tma::MAX_HEAD_DIM || cap < 23 ||
+      !ring_cap_ok(ring_cap, tma::make_dq_plan(D, Dv).stages, tma::DQ_MIN_STAGES))
     return (int)cudaErrorInvalidValue;
-  const tma::DqPlan pl = tma::make_dq_plan(D, Dv);
+  const tma::DqPlan pl = tma::make_dq_plan(D, Dv, ring_cap);
   const int ranks = pl.route == tma::CLUSTER ? 2 : 1;
   out[0] = pl.route;
   out[1] = tma::QROWS;

@@ -98,6 +98,26 @@ class ENV:
         return _env_int("FFPA_TORCH_SCORES_AUTO_ASSUMED_LAYERS", 2)
 
     @staticmethod
+    def skip_persistent_tuned_config() -> bool:
+        """Kill-switch for the tuned-config store (``autotune/store.py``):
+        set, every lookup misses and the dispatch takes its defaults. The
+        counterpart of the JAX package's ``FFPA_TPU_SKIP_TUNED_CONFIG``."""
+        return _env_bool("FFPA_TORCH_SKIP_TUNED_CONFIG", False)
+
+    @staticmethod
+    def tuned_config_dir() -> str | None:
+        """A directory of tuned-config files read before the bundled one
+        and written by the autotune CLI when it is given no
+        ``--output-dir`` (``FFPA_TPU_TUNED_CONFIG_DIR``'s counterpart)."""
+        return os.environ.get("FFPA_TORCH_TUNED_CONFIG_DIR") or None
+
+    @staticmethod
+    def autotune_max_configs() -> int:
+        """Cap on the candidates the autotune times per task (0: all;
+        ``FFPA_TPU_AUTOTUNE_MAX_CONFIGS``'s counterpart)."""
+        return _env_int("FFPA_TORCH_AUTOTUNE_MAX_CONFIGS", 0)
+
+    @staticmethod
     def device_log_level() -> int:
         """Kernel trace level: 0 off | 1 host-only (logger.py) | 2 one log
         line per kernel launch (grid, tile, shared memory) | 3 the same,

@@ -59,10 +59,11 @@ def _log_once(logger: logging.Logger, level: int, msg: str, *args: Any) -> None:
 
 
 def init_logger(name: str) -> logging.Logger:
-    """Return a child logger with ``info_once``/``warning_once``."""
+    """Return a child logger with ``debug_once``/``info_once``/``warning_once``."""
     _root_logger()
     logger = logging.getLogger(f"{_ROOT_NAME}.{name}")
     logger.setLevel(_level_from_env())
+    logger.debug_once = lambda msg, *a, _l=logger: _log_once(_l, logging.DEBUG, msg, *a)  # type: ignore[attr-defined]
     logger.info_once = lambda msg, *a, _l=logger: _log_once(_l, logging.INFO, msg, *a)  # type: ignore[attr-defined]
     logger.warning_once = lambda msg, *a, _l=logger: _log_once(_l, logging.WARNING, msg, *a)  # type: ignore[attr-defined]
     return logger

@@ -4,12 +4,16 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface and loaded with ``ctypes``. The library
 goes under ``build/ffpa_attn_tpu_torch/`` next to the package (git-ignored)
 and is keyed by a hash of the sources and flags, so a fresh checkout builds
-it once and an edited source builds anew. Nothing here runs at import.
+it once and an edited source builds anew. Builds take a file lock in that
+directory, so processes that share it (the autotune's workers) do not
+compile one library twice. Nothing here runs at import.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -58,10 +62,27 @@ def _compile_cmd(name: str, out: Path) -> list:
             str(CSRC_DIR / f"{name}.cu")]
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """An exclusive flock on ``BUILD_DIR/.build.lock`` while a build runs."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd = os.open(BUILD_DIR / ".build.lock", os.O_CREAT | os.O_RDWR, 0o644)
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        yield
+    finally:
+        fcntl.flock(fd, fcntl.LOCK_UN)
+        os.close(fd)
+
+
 def build(names=SOURCES) -> dict:
     """Compile every missing library of ``names``, all nvcc processes at
     once. Returns {name: seconds spent compiling it (0.0 if cached)}."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with _build_lock():
+        return _build(names)
+
+
+def _build(names) -> dict:
     procs = {}
     times = {}
     for name in names:

@@ -236,6 +236,36 @@ def _round_up(x: int, m: int) -> int:
     return cdiv(x, m) * m
 
 
+# The fewest ring stages each backward walk needs (the C entry points
+# refuse a cap below it; a shallower ring would deadlock): dK/dV's
+# consumer 1 holds the last stage of its dV run while it frees the (up to
+# 2) stages of consumer 0's dK run; a dQ consumer with one box fewer keeps
+# the stage of its last product into the next tile's S walk; a from-S tile
+# holds its S stage and ceil(nv / 2) dO stages (``from_s_min_stages``).
+DKDV_MIN_STAGES = 3
+DQ_MIN_STAGES = 3
+
+
+def _capped(stages: int, ring_cap: int, least: int, what: str) -> int:
+    """The ring depth of a launch capped at ``ring_cap`` (0: the plan's
+    ``stages``); a cap below ``least`` raises, as the C entry points
+    refuse it."""
+    if ring_cap < 0 or 0 < ring_cap < least:
+        raise ValueError(f"{what}: ring_cap must be 0 or >= {least}, got {ring_cap}")
+    return min(stages, ring_cap) if ring_cap else stages
+
+
+def ring_depth(stages: int, ring_cap: int, least: int) -> int:
+    """The ring cap a launcher passes for a config's ``bwd_ring_cap`` on a
+    plan of ``stages`` whose walk needs ``least``: 0 (the plan's depth)
+    where the cap is 0 or at least the plan's, else the cap raised to
+    ``least``. One cap then serves both kernels of the dK/dV and dQ pair,
+    whose plans differ in depth."""
+    if ring_cap <= 0 or ring_cap >= stages:
+        return 0
+    return max(ring_cap, least)
+
+
 @dataclass(frozen=True)
 class BlockConfig:
     """Block shapes for the forward, decode and backward kernels.
@@ -263,7 +293,15 @@ class BlockConfig:
     of the S residual's slab (``flash_fwd.scores_padding``). The recompute
     dQ launcher picks its own 64-row tile at every head dim (``dq_plan``):
     ``block_q_dq`` sets nothing there, and the dbias slab's rows pad to 64.
-    So does the packed varlen dQ launcher (``varlen_dq_plan``)."""
+    So does the packed varlen dQ launcher (``varlen_dq_plan``).
+
+    ``bwd_ring_cap`` is the Hopper kernels' own run-time knob that the
+    tuned-config store (``autotune/``) can set: it caps the ring of every
+    backward kernel that takes its depth at run time (dense and varlen
+    dK/dV, recompute dQ and varlen dQ, the from-S pass's wgmma routes). A
+    launch takes ``min(plan's depth, cap)``, and never fewer stages than its
+    walk holds at once (``ring_depth``); 0, the default, is the plan's
+    depth."""
 
     block_q: int = 64
     block_kv: int = KV_TILE
@@ -271,6 +309,7 @@ class BlockConfig:
     dkdv_col_passes: int = 1
     dkdv_dk_in_kernel: bool = True
     ds_store_bits: int = 16
+    bwd_ring_cap: int = 0
 
     def __post_init__(self):
         if self.ds_store_bits not in (8, 16):
@@ -290,6 +329,8 @@ class BlockConfig:
             )
         if self.dkdv_col_passes < 1:
             raise ValueError(f"dkdv_col_passes must be >= 1, got {self.dkdv_col_passes}")
+        if self.bwd_ring_cap < 0:
+            raise ValueError(f"bwd_ring_cap must be >= 0, got {self.bwd_ring_cap}")
 
     def clamp(self, nq: int, nkv: int, tiles=ROW_TILES) -> "BlockConfig":
         """Shrink the row tile to the smallest of ``tiles`` that covers the
@@ -529,7 +570,17 @@ class FromSPlan:
     rank_blocks: tuple = ()
 
 
-def from_s_plan(dv: int, dk_in_kernel: bool, itemsize: int = 2) -> FromSPlan:
+def from_s_min_stages(dv: int) -> int:
+    """The fewest ring stages a wgmma from-S tile holds at once at value
+    head dim ``dv``: its S stage and ceil(nv / 2) dO stages of a block's
+    (rank 0's, the larger) Dv boxes."""
+    nv = cdiv(dv, D_CHUNK)
+    return 1 + cdiv(_even_blocks(nv, 2 if nv * D_CHUNK > _FROM_S_WG_MAX_DV else 1)[0][1]
+                    // D_CHUNK, 2)
+
+
+def from_s_plan(dv: int, dk_in_kernel: bool, itemsize: int = 2,
+                ring_cap: int = 0) -> FromSPlan:
     """The from-S route by Dv (padded to 64-column chunks) and
     ``dk_in_kernel`` alone. dK out of the kernel takes the wgmma block at
     Dv <= 512 and a cluster of two such blocks up to 1024, rank r holding
@@ -541,7 +592,9 @@ def from_s_plan(dv: int, dk_in_kernel: bool, itemsize: int = 2) -> FromSPlan:
     mma.sync block: 32 KV rows, resident V [32, Dv], the ring of 128-row
     slots (S tile, dO and Q chunks), P and dS [32, 128] and the Q tile's
     lse and delta (no K tile: S is read, not recomputed; D costs registers
-    only)."""
+    only). ``ring_cap`` caps the wgmma routes' ring (``_capped``, at least
+    ``from_s_min_stages``; the mma.sync route takes none) and
+    ``smem_bytes`` follows."""
     nv = cdiv(dv, D_CHUNK)
     if not dk_in_kernel and nv * D_CHUNK <= FROM_S_MAX_DV:
         split = nv * D_CHUNK > _FROM_S_WG_MAX_DV
@@ -550,12 +603,15 @@ def from_s_plan(dv: int, dk_in_kernel: bool, itemsize: int = 2) -> FromSPlan:
         fixed = ((ranks[0][1] // D_CHUNK + 2) * box + 1024 + 8
                  + (_FROM_S_CLUSTER_PART_BYTES if split else 0))
         stage = 2 * box + 16
-        stages = min(_FROM_S_WG_MAX_STAGES, (SMEM_LIMIT_BYTES - fixed) // stage)
+        stages = _capped(min(_FROM_S_WG_MAX_STAGES, (SMEM_LIMIT_BYTES - fixed) // stage),
+                         ring_cap, from_s_min_stages(dv), "from_s_plan")
         dv_blocks = tuple((c0 + x0, w) for c0, width in ranks
                           for x0, w in _even_blocks(width // D_CHUNK, 2))
         return FromSPlan("wgmma_cluster" if split else "wgmma", _FROM_S_WG_ROWS,
                          _FROM_S_WG_Q_ROWS, stages, fixed + stages * stage, dv_blocks,
                          ranks if split else ())
+    if ring_cap:
+        raise ValueError("from_s_plan: the mma.sync route (dK in the kernel) takes no ring_cap")
     v_res = DKDV_KV_TILE * (nv * D_CHUNK + _PAD_T)
     ring = FWD_STREAM_STAGES * DKDV_Q_TILE * (D_CHUNK + _PAD_T)
     p_ds = 2 * DKDV_KV_TILE * (DKDV_Q_TILE + _PAD_T)
@@ -656,7 +712,7 @@ def _even_blocks(chunks: int, nb: int) -> tuple:
     return tuple(blocks)
 
 
-def dkdv_plan(d: int, dv: int, itemsize: int = 2) -> DkdvPlan:
+def dkdv_plan(d: int, dv: int, itemsize: int = 2, ring_cap: int = 0) -> DkdvPlan:
     """The dense dK/dV route by head dims alone (padded to 64-column
     chunks, at most 1024; 16-bit inputs). D and Dv <= 512 take one wgmma
     block; wider heads a cluster of two such blocks, rank r holding its
@@ -665,7 +721,9 @@ def dkdv_plan(d: int, dv: int, itemsize: int = 2) -> DkdvPlan:
     0's on the cluster, for both ranks), each of its dK and dV boxes split
     evenly over them, and as many ring stages (two 64 x 64 boxes each, at
     most 6) as fit beside K, V, the P / dS boxes and, on the cluster, the
-    partial exchange's slot (both ranks lay out rank 0's share)."""
+    partial exchange's slot (both ranks lay out rank 0's share).
+    ``ring_cap`` caps the ring (``_capped``, at least DKDV_MIN_STAGES) and
+    ``smem_bytes`` follows."""
     nd, nv = cdiv(d, D_CHUNK), cdiv(dv, D_CHUNK)
     if max(nd, nv) * D_CHUNK > DKDV_MAX_HEAD_DIM:
         raise ValueError(f"the dK/dV kernel takes D, Dv <= {DKDV_MAX_HEAD_DIM}, got D={d}, "
@@ -680,7 +738,8 @@ def dkdv_plan(d: int, dv: int, itemsize: int = 2) -> DkdvPlan:
     fixed = ((lay_nd + lay_nv + 2) * box + 1024 + 8
              + (_DKDV_CLUSTER_PART_BYTES if split else 0))
     stage = _DKDV_WG_STAGE_BOXES * box + 16
-    stages = min(_DKDV_WG_MAX_STAGES, (SMEM_LIMIT_BYTES - fixed) // stage)
+    stages = _capped(min(_DKDV_WG_MAX_STAGES, (SMEM_LIMIT_BYTES - fixed) // stage), ring_cap,
+                     DKDV_MIN_STAGES, "dkdv_plan")
 
     def pass_blocks(rank_blocks):
         return tuple((c0 + x0, w) for c0, width in rank_blocks
@@ -691,7 +750,7 @@ def dkdv_plan(d: int, dv: int, itemsize: int = 2) -> DkdvPlan:
                     pass_blocks(v_ranks), tuple(zip(d_ranks, v_ranks)) if split else ())
 
 
-def varlen_dkdv_plan(d: int, dv: int, itemsize: int = 2) -> DkdvPlan:
+def varlen_dkdv_plan(d: int, dv: int, itemsize: int = 2, ring_cap: int = 0) -> DkdvPlan:
     """The packed varlen dK/dV route by head dims alone (padded to
     64-column chunks, at most 1024), as ``csrc/varlen_bwd.cu``
     ``tma::make_plan`` computes it (the library hands its own out through
@@ -699,8 +758,8 @@ def varlen_dkdv_plan(d: int, dv: int, itemsize: int = 2) -> DkdvPlan:
     the dense ``dkdv_plan`` at every width, one wgmma block at D and Dv <=
     512 and the cluster of two up to 1024 (the block reads its segment
     metadata and schedule from device memory, so they cost no shared
-    memory)."""
-    return dkdv_plan(d, dv, itemsize)
+    memory), ``ring_cap`` as there."""
+    return dkdv_plan(d, dv, itemsize, ring_cap)
 
 
 @dataclass(frozen=True)
@@ -730,7 +789,7 @@ class DqPlan:
     rank_blocks: tuple = ()
 
 
-def dq_plan(d: int, dv: int, itemsize: int = 2) -> DqPlan:
+def dq_plan(d: int, dv: int, itemsize: int = 2, ring_cap: int = 0) -> DqPlan:
     """The recompute dQ route by head dims alone (padded to 64-column
     chunks, at most 1024; 16-bit inputs): D and Dv <= 512 take one wgmma
     block, wider heads a cluster of two such blocks, rank r holding its
@@ -739,7 +798,8 @@ def dq_plan(d: int, dv: int, itemsize: int = 2) -> DqPlan:
     nd D boxes of dQ and consumer 1 the rest, with as many ring stages (two
     64 x 64 boxes each, at most 8) as fit beside Q, dO, the dS box and, on
     the cluster, the partial exchange's slot (both ranks lay out rank 0's
-    share)."""
+    share). ``ring_cap`` caps the ring (``_capped``, at least
+    DQ_MIN_STAGES) and ``smem_bytes`` follows."""
     nd, nv = cdiv(d, D_CHUNK), cdiv(dv, D_CHUNK)
     if max(nd, nv) * D_CHUNK > DQ_MAX_HEAD_DIM:
         raise ValueError(f"the dQ kernel takes D, Dv <= {DQ_MAX_HEAD_DIM}, got D={d}, Dv={dv}")
@@ -750,14 +810,15 @@ def dq_plan(d: int, dv: int, itemsize: int = 2) -> DqPlan:
     box = _DQ_WG_ROWS * D_CHUNK * itemsize
     fixed = (lay_nd + lay_nv + 1) * box + 1024 + 8 + (_DQ_CLUSTER_XCH_BYTES if split else 0)
     stage = 2 * box + 16
-    stages = min(_DQ_WG_MAX_STAGES, (SMEM_LIMIT_BYTES - fixed) // stage)
+    stages = _capped(min(_DQ_WG_MAX_STAGES, (SMEM_LIMIT_BYTES - fixed) // stage), ring_cap,
+                     DQ_MIN_STAGES, "dq_plan")
     blocks = tuple((c0 + x0, w) for c0, width in d_ranks
                    for x0, w in _even_blocks(width // D_CHUNK, 2))
     return DqPlan("wgmma_cluster" if split else "wgmma", _DQ_WG_ROWS, _DQ_WG_KV_ROWS, stages,
                   fixed + stages * stage, blocks, tuple(zip(d_ranks, v_ranks)) if split else ())
 
 
-def varlen_dq_plan(d: int, dv: int, itemsize: int = 2) -> DqPlan:
+def varlen_dq_plan(d: int, dv: int, itemsize: int = 2, ring_cap: int = 0) -> DqPlan:
     """The packed varlen dQ route by head dims alone (padded to 64-column
     chunks, at most 1024), as ``csrc/varlen_bwd.cu`` ``tma::make_dq_plan``
     computes it (the library hands its own out through
@@ -765,8 +826,9 @@ def varlen_dq_plan(d: int, dv: int, itemsize: int = 2) -> DqPlan:
     the dense ``dq_plan`` at every width, one wgmma block at D and Dv <=
     512 and the cluster of two up to 1024, 64 Q rows whatever
     ``block_q_dq`` asks (the block reads its segment metadata and tile
-    lists from device memory, so they cost no shared memory)."""
-    return dq_plan(d, dv, itemsize)
+    lists from device memory, so they cost no shared memory), ``ring_cap``
+    as there."""
+    return dq_plan(d, dv, itemsize, ring_cap)
 
 
 def default_config(
@@ -823,6 +885,10 @@ __all__ = [
     "FromSPlan",
     "from_s_plan",
     "from_s_fits",
+    "from_s_min_stages",
+    "DKDV_MIN_STAGES",
+    "DQ_MIN_STAGES",
+    "ring_depth",
     "BandedPlan",
     "banded_plan",
 ]

@@ -64,7 +64,8 @@ def decode_attention_supported(q, k) -> bool:
 
 def _decode_block_kv(d: int, dv: int, nkv: int, dtype, group: int = 1) -> int:
     """KV rows per tile of the decode kernel (compiled in: ops/config.py
-    KV_TILE); there is no tuned store in the port yet."""
+    KV_TILE). The tuned-config store sets no decode knob: the split count
+    is ``_tma_splits``'s rule."""
     del d, dv, nkv, dtype, group
     return KV_TILE
 

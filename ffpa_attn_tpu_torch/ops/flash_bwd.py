@@ -83,7 +83,9 @@ from ..logger import init_logger
 from . import _build
 from .config import (
     D_CHUNK,
+    DKDV_MIN_STAGES,
     DKDV_Q_TILE,
+    DQ_MIN_STAGES,
     DKDV_SLAB_COLS,
     KV_TILE,
     BandedPlan,
@@ -94,6 +96,8 @@ from .config import (
     banded_plan,
     cdiv,
     dkdv_plan,
+    from_s_min_stages,
+    ring_depth,
     dq_plan,
     from_s_fits,
     from_s_plan,
@@ -272,25 +276,25 @@ _F = ctypes.c_float
 _ARGTYPES = {
     "ffpa_bwd_dkdv": (
         [_P] * 10 + [_LL] * 4 + [_P] + [_I] * 11 + [_F] * 2 + [_I] * 3 + [_F] * 2
-        + [ctypes.c_uint32] + [_I] * 3 + [_P]
+        + [ctypes.c_uint32] + [_I] * 4 + [_P]
     ),
     "ffpa_bwd_dq": (
         [_P] * 9 + [_LL] * 4 + [_P] + [_I] * 12 + [_F] * 2 + [_I] * 3 + [_F] * 2
-        + [ctypes.c_uint32] + [_P]
+        + [ctypes.c_uint32] + [_I] + [_P]
     ),
     "ffpa_bwd_banded_dq": [_P] * 3 + [_I] * 11 + [_F] + [_I] * 2 + [_P],
     "ffpa_bwd_dkdv_from_s": (
-        [_P] * 8 + [_I] * 12 + [_F] * 2 + [_I] * 2 + [_F] * 2 + [ctypes.c_uint32] + [_P]
+        [_P] * 8 + [_I] * 12 + [_F] * 2 + [_I] * 2 + [_F] * 2 + [ctypes.c_uint32] + [_I] + [_P]
     ),
     "ffpa_bwd_banded_dk": [_P] * 3 + [_I] * 10 + [_F] + [_I] + [_P],
     "ffpa_bwd_banded_attrs": [_I] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2,
     "ffpa_bwd_banded_plan": [_I, _I, ctypes.POINTER(ctypes.c_int), _I],
     "ffpa_bwd_dkdv_attrs": [_I] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2,
-    "ffpa_bwd_dkdv_plan": [_I, _I, ctypes.POINTER(ctypes.c_int), _I],
+    "ffpa_bwd_dkdv_plan": [_I, _I, ctypes.POINTER(ctypes.c_int), _I, _I],
     "ffpa_bwd_from_s_attrs": [_I] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2,
-    "ffpa_bwd_from_s_plan": [_I, _I, ctypes.POINTER(ctypes.c_int), _I],
+    "ffpa_bwd_from_s_plan": [_I, _I, ctypes.POINTER(ctypes.c_int), _I, _I],
     "ffpa_bwd_dq_attrs": [_I] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2,
-    "ffpa_bwd_dq_plan": [_I, _I, ctypes.POINTER(ctypes.c_int), _I],
+    "ffpa_bwd_dq_plan": [_I, _I, ctypes.POINTER(ctypes.c_int), _I, _I],
 }
 
 
@@ -372,7 +376,8 @@ def _dkdv_launch(
     one wgmma block for D, Dv <= 512, above that a cluster of two whose
     ranks split D and Dv and exchange partial S^T and dP^T; either picks
     its own column passes. The slab's padding (DKDV_Q_TILE rows,
-    DKDV_SLAB_COLS columns) suits both routes' 64 x 64 tiles."""
+    DKDV_SLAB_COLS columns) suits both routes' 64 x 64 tiles.
+    ``config.bwd_ring_cap`` caps the ring (``config.ring_depth``)."""
     b, hq, nq, d = q.shape
     _, hkv, nkv, _ = k.shape
     dv_dim = v.shape[-1]
@@ -407,6 +412,8 @@ def _dkdv_launch(
         plan = dkdv_plan(d_pad, dv_pad)
         logger.info("dkdv launch route=%s passes=%d kv_rows=%d D=%d Dv=%d emit_ds=%s ds=%s",
                     plan.route, plan.passes, plan.kv_rows, d_pad, dv_pad, emit_ds, ds_dtype)
+    cap = 0 if config is None else config.bwd_ring_cap
+    ring = ring_depth(dkdv_plan(d_pad, dv_pad).stages, cap, DKDV_MIN_STAGES) if cap else 0
     lib = _bwd_lib()
     with torch.cuda.device(q.device):
         err = lib.ffpa_bwd_dkdv(
@@ -416,7 +423,7 @@ def _dkdv_launch(
             nq_pad, nkv_pad, float(scale), float(softcap), int(causal_offset),
             window_left, 0 if is_causal else window_right,
             *dropout_args(dropout_p, seed), int(row_offset), int(col_offset),
-            8 if ds_fp8 else 16, torch.cuda.current_stream(q.device).cuda_stream,
+            8 if ds_fp8 else 16, ring, torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(lib, err, "dkdv kernel launch")
     if ds_fp8:
@@ -449,8 +456,9 @@ def _dq_launch(
     reduced to the bias's compact shape: the post-bias score gradient,
     without softcap's factor. The kernel's route (one wgmma block for D,
     Dv <= 512, a cluster of two up to 1024) and its 64-row tile are the
-    launcher's own, by head dims alone (``config.dq_plan``); ``config`` is
-    not read. The dbias slab pads to its rows (``dbias_slab_shape``)."""
+    launcher's own, by head dims alone (``config.dq_plan``); of ``config``
+    only ``bwd_ring_cap`` is read, the ring's cap (``config.ring_depth``).
+    The dbias slab pads to its rows (``dbias_slab_shape``)."""
     b, hq, nq, d = q.shape
     _, hkv, nkv, _ = k.shape
     dq_dtype = _grad_dtype(grad_q_storage_dtype, q.dtype)
@@ -476,6 +484,8 @@ def _dq_launch(
         if ENV.device_log_level() >= 2:
             logger.info("dq launch route=%s D=%d Dv=%d dbias=%s", dq_plan(d_pad, dv_pad).route,
                         d_pad, dv_pad, emit_dbias)
+        cap = 0 if config is None else config.bwd_ring_cap
+        ring = ring_depth(dq_plan(d_pad, dv_pad).stages, cap, DQ_MIN_STAGES) if cap else 0
         lib = _bwd_lib()
         with torch.cuda.device(q.device):
             err = lib.ffpa_bwd_dq(
@@ -485,7 +495,7 @@ def _dq_launch(
                 0 if dbias_full is None else dbias_full.shape[2],
                 0 if dbias_full is None else dbias_full.shape[3],
                 float(scale), float(softcap), int(causal_offset), window_left,
-                0 if is_causal else window_right, *dropout_args(dropout_p, seed),
+                0 if is_causal else window_right, *dropout_args(dropout_p, seed), ring,
                 torch.cuda.current_stream(q.device).cuda_stream,
             )
         _build.check(lib, err, "dq kernel launch")
@@ -522,14 +532,14 @@ def dkdv_kernel_attrs(route: str, dtype=torch.bfloat16, ds_bits: int = 16) -> di
     return {"registers": regs.value, "local_bytes": local.value}
 
 
-def dkdv_kernel_plan(d: int, dv: int) -> DkdvPlan:
+def dkdv_kernel_plan(d: int, dv: int, ring_cap: int = 0) -> DkdvPlan:
     """The route and tiling the dK/dV launcher takes at head dims (d, dv)
-    (padded to 64-column chunks), read from the library: what
-    ``config.dkdv_plan`` mirrors. Needs a card."""
+    (padded to 64-column chunks) and ``ring_cap``, read from the library:
+    what ``config.dkdv_plan`` mirrors. Needs a card."""
     lib = _bwd_lib()
     out = (ctypes.c_int * 64)()
     err = lib.ffpa_bwd_dkdv_plan(cdiv(d, D_CHUNK) * D_CHUNK, cdiv(dv, D_CHUNK) * D_CHUNK, out,
-                                 len(out))
+                                 len(out), int(ring_cap))
     _build.check(lib, err, "dkdv kernel plan")
     return dkdv_plan_from(out)
 
@@ -584,14 +594,14 @@ def dq_plan_from(out) -> DqPlan:
     return DqPlan(_DQ_ROUTES[out[0]], out[1], out[2], out[3], out[4], blocks, rank_blocks)
 
 
-def dq_kernel_plan(d: int, dv: int) -> DqPlan:
+def dq_kernel_plan(d: int, dv: int, ring_cap: int = 0) -> DqPlan:
     """The route and tiling the recompute dQ launcher takes at head dims
-    (d, dv) (padded to 64-column chunks), read from the library: what
-    ``config.dq_plan`` mirrors. Needs a card."""
+    (d, dv) (padded to 64-column chunks) and ``ring_cap``, read from the
+    library: what ``config.dq_plan`` mirrors. Needs a card."""
     lib = _bwd_lib()
     out = (ctypes.c_int * 32)()
     err = lib.ffpa_bwd_dq_plan(cdiv(d, D_CHUNK) * D_CHUNK, cdiv(dv, D_CHUNK) * D_CHUNK, out,
-                               len(out))
+                               len(out), int(ring_cap))
     _build.check(lib, err, "dq kernel plan")
     return dq_plan_from(out)
 
@@ -613,13 +623,14 @@ def from_s_kernel_attrs(route: str) -> dict:
     return {"registers": regs.value, "local_bytes": local.value}
 
 
-def from_s_kernel_plan(dv: int, dk_in_kernel: bool) -> FromSPlan:
+def from_s_kernel_plan(dv: int, dk_in_kernel: bool, ring_cap: int = 0) -> FromSPlan:
     """The route and tiling the from-S launcher takes at value head dim
-    ``dv`` (padded to 64-column chunks), read from the library: what
-    ``config.from_s_plan`` mirrors. Needs a card."""
+    ``dv`` (padded to 64-column chunks) and ``ring_cap``, read from the
+    library: what ``config.from_s_plan`` mirrors. Needs a card."""
     lib = _bwd_lib()
     out = (ctypes.c_int * 24)()
-    err = lib.ffpa_bwd_from_s_plan(cdiv(dv, D_CHUNK) * D_CHUNK, int(dk_in_kernel), out, len(out))
+    err = lib.ffpa_bwd_from_s_plan(cdiv(dv, D_CHUNK) * D_CHUNK, int(dk_in_kernel), out, len(out),
+                                   int(ring_cap))
     _build.check(lib, err, "from-S kernel plan")
     n = out[5]
     blocks = tuple((out[6 + 2 * i], out[7 + 2 * i]) for i in range(n))
@@ -731,7 +742,9 @@ def _dkdv_from_s_launch(
     included) overwrites it in place, zeros outside the band and on
     padding. Returns (dk, dv, ds_full): dk is None unless
     ``config.dkdv_dk_in_kernel``; ds_full is ``s_pad`` itself. K is not
-    read (S is not recomputed). ``seed`` is the dropout seed."""
+    read (S is not recomputed). ``seed`` is the dropout seed.
+    ``config.bwd_ring_cap`` caps the wgmma routes' ring
+    (``config.ring_depth``)."""
     b, hq, nq, d = q.shape
     hkv, nkv, dv_dim = v.shape[1], v.shape[2], v.shape[-1]
     nq_pad, nkv_pad = s_pad.shape[2], s_pad.shape[3]
@@ -761,6 +774,8 @@ def _dkdv_from_s_launch(
         logger.info("dkdv_from_s launch route=%s kv_tiles=%d hkv=%d b=%d stages=%d "
                     "dk_in_kernel=%s D=%d Dv=%d", plan.route, nkv_pad // plan.kv_rows, hkv, b,
                     plan.stages, dk_in, d_pad, dv_pad)
+    cap = config.bwd_ring_cap if plan.route != "mma_sync" else 0
+    ring = ring_depth(plan.stages, cap, from_s_min_stages(dv_pad)) if cap else 0
     lib = _bwd_lib()
     with torch.cuda.device(q.device):
         err = lib.ffpa_bwd_dkdv_from_s(
@@ -770,7 +785,7 @@ def _dkdv_from_s_launch(
             plan.kv_rows,  # the launcher plans its own; a library of older sources reads it
             out_f32,
             b, hq, hkv, nq, nkv, d_pad, dv_pad, nq_pad, nkv_pad, float(scale), float(softcap),
-            int(causal_offset), 0 if is_causal else -1, *dropout_args(dropout_p, seed),
+            int(causal_offset), 0 if is_causal else -1, *dropout_args(dropout_p, seed), ring,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(lib, err, "dkdv_from_s kernel launch")
@@ -939,11 +954,12 @@ def flash_attention_backward(
     dv_dim = v.shape[-1]
     group = hq // hkv
     if config is None:
-        from .dispatch import pick_backward_config
+        from .dispatch import head_layout, pick_backward_config
 
         config = pick_backward_config(
             d=d, dv=dv_dim, nq=nq, nkv=nkv, dtype=q.dtype, has_bias=bias is not None,
-            f16=torch.float16 in (q.dtype, do.dtype))
+            f16=torch.float16 in (q.dtype, do.dtype), causal=is_causal, dropout=dropout_p > 0.0,
+            **head_layout(hq, hkv))
     grad_bias = bias if bias_grad else None
 
     window_left = int(window[0])

@@ -66,8 +66,9 @@ from ..env import ENV
 from ..logger import init_logger
 from . import _build
 from .config import (
-    D_CHUNK, DKDV_Q_TILE, FWD_ROW_TILES, KV_TILE, BlockConfig, DkdvPlan, DqPlan, FwdPlan, cdiv,
-    varlen_dkdv_plan, varlen_dq_plan, varlen_fits, varlen_fwd_plan,
+    D_CHUNK, DKDV_MIN_STAGES, DKDV_Q_TILE, DQ_MIN_STAGES, FWD_ROW_TILES, KV_TILE, BlockConfig,
+    DkdvPlan, DqPlan, FwdPlan, cdiv, ring_depth, varlen_dkdv_plan, varlen_dq_plan, varlen_fits,
+    varlen_fwd_plan,
 )
 from .flash_bwd import dkdv_plan_from, dq_plan_from
 from .flash_fwd import _pad_last, check_kernel_inputs, fwd_plan_from
@@ -585,13 +586,13 @@ def _backward_schedules(meta, tq: int, dkdv_plan: DkdvPlan, dq_plan: DqPlan, cau
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _VARLEN_BWD_ARGTYPES = {
-    "ffpa_varlen_bwd_dkdv": [_P] * 4 + [_LL] * 8 + [_P] * 12 + [_I] * 9 + [_F] * 2 + [_I] * 2
+    "ffpa_varlen_bwd_dkdv": [_P] * 4 + [_LL] * 8 + [_P] * 12 + [_I] * 9 + [_F] * 2 + [_I] * 3
     + [_P],
-    "ffpa_varlen_bwd_dkdv_plan": [_I, _I, ctypes.POINTER(ctypes.c_int), _I],
+    "ffpa_varlen_bwd_dkdv_plan": [_I, _I, ctypes.POINTER(ctypes.c_int), _I, _I],
     "ffpa_varlen_bwd_dkdv_attrs": [_I] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2,
-    "ffpa_varlen_bwd_dq": [_P] * 4 + [_LL] * 8 + [_P] * 11 + [_I] * 9 + [_F] * 2 + [_I] * 2
+    "ffpa_varlen_bwd_dq": [_P] * 4 + [_LL] * 8 + [_P] * 11 + [_I] * 9 + [_F] * 2 + [_I] * 3
     + [_P],
-    "ffpa_varlen_bwd_dq_plan": [_I, _I, ctypes.POINTER(ctypes.c_int), _I],
+    "ffpa_varlen_bwd_dq_plan": [_I, _I, ctypes.POINTER(ctypes.c_int), _I, _I],
     "ffpa_varlen_bwd_dq_attrs": [_I] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2,
 }
 
@@ -612,14 +613,14 @@ def _varlen_bwd_lib() -> ctypes.CDLL:
     return lib
 
 
-def varlen_dkdv_kernel_plan(d: int, dv: int) -> DkdvPlan:
+def varlen_dkdv_kernel_plan(d: int, dv: int, ring_cap: int = 0) -> DkdvPlan:
     """The route and tiling the varlen dK/dV launcher takes at head dims
-    (d, dv) (padded to 64-column chunks), read from the library: what
-    ``config.varlen_dkdv_plan`` mirrors. Needs a card."""
+    (d, dv) (padded to 64-column chunks) and ``ring_cap``, read from the
+    library: what ``config.varlen_dkdv_plan`` mirrors. Needs a card."""
     lib = _varlen_bwd_lib()
     out = (ctypes.c_int * 64)()
     err = lib.ffpa_varlen_bwd_dkdv_plan(cdiv(d, D_CHUNK) * D_CHUNK, cdiv(dv, D_CHUNK) * D_CHUNK,
-                                        out, len(out))
+                                        out, len(out), int(ring_cap))
     _build.check(lib, err, "varlen dkdv kernel plan")
     return dkdv_plan_from(out)
 
@@ -637,14 +638,14 @@ def varlen_dkdv_kernel_attrs(route: str, dtype=torch.bfloat16) -> dict:
     return {"registers": regs.value, "local_bytes": local.value}
 
 
-def varlen_dq_kernel_plan(d: int, dv: int) -> DqPlan:
+def varlen_dq_kernel_plan(d: int, dv: int, ring_cap: int = 0) -> DqPlan:
     """The route and tiling the varlen dQ launcher takes at head dims (d,
-    dv) (padded to 64-column chunks), read from the library: what
-    ``config.varlen_dq_plan`` mirrors. Needs a card."""
+    dv) (padded to 64-column chunks) and ``ring_cap``, read from the
+    library: what ``config.varlen_dq_plan`` mirrors. Needs a card."""
     lib = _varlen_bwd_lib()
     out = (ctypes.c_int * 32)()
     err = lib.ffpa_varlen_bwd_dq_plan(cdiv(d, D_CHUNK) * D_CHUNK, cdiv(dv, D_CHUNK) * D_CHUNK,
-                                      out, len(out))
+                                      out, len(out), int(ring_cap))
     _build.check(lib, err, "varlen dq kernel plan")
     return dq_plan_from(out)
 
@@ -692,8 +693,9 @@ def _varlen_dkdv_kernel(ops: _BwdOperands, meta, schedule, config: BlockConfig, 
     in the input type (same contract as ``_varlen_dkdv_plain``). The
     route is the library's by head dims (``config.varlen_dkdv_plan``: one
     block, or the cluster of two above D512); ``schedule`` is
-    ``_backward_schedules``' dK/dV part at its 64 x 64 tiles and
-    ``config.dkdv_col_passes`` its passes."""
+    ``_backward_schedules``' dK/dV part at its 64 x 64 tiles,
+    ``config.dkdv_col_passes`` its passes and ``config.bwd_ring_cap`` the
+    ring's cap (``config.ring_depth``)."""
     tq, hq = ops.q.shape[0], ops.q.shape[1]
     tk, hkv = ops.k.shape[0], ops.k.shape[1]
     dk = torch.empty((tk, hkv, ops.d_pad), dtype=ops.q.dtype, device=ops.q.device)
@@ -701,6 +703,9 @@ def _varlen_dkdv_kernel(ops: _BwdOperands, meta, schedule, config: BlockConfig, 
     imin, imax, order = schedule
     q_seg, q_rank, k_seg, k_pos = meta
     passes = config.dkdv_col_passes
+    cap = config.bwd_ring_cap
+    ring = (ring_depth(varlen_dkdv_plan(ops.d_pad, ops.dv_pad).stages, cap, DKDV_MIN_STAGES)
+            if cap else 0)
     if ENV.device_log_level() >= 2:
         plan = varlen_dkdv_plan(ops.d_pad, ops.dv_pad, ops.q.element_size())
         logger.info("varlen_dkdv launch route=%s grid=(%d,%d) smem=%d D=%d Dv=%d Tq=%d Tk=%d",
@@ -715,24 +720,29 @@ def _varlen_dkdv_kernel(ops: _BwdOperands, meta, schedule, config: BlockConfig, 
             int(ops.q.dtype == torch.float16), hq, hkv, tq, tk, imin.shape[0], ops.d_pad,
             ops.dv_pad, passes, float(scale), float(softcap), int(window[0]),
             0 if causal else int(window[1]),  # causal is the band's right edge 0
-            torch.cuda.current_stream(ops.q.device).cuda_stream,
+            ring, torch.cuda.current_stream(ops.q.device).cuda_stream,
         )
     _build.check(lib, err, "varlen_dkdv kernel launch")
     _varlen_backward.dkdv_launches += 1
     return dk[..., :ops.d], dv[..., :ops.dv]
 
 
-def _varlen_dq_kernel(ops: _BwdOperands, meta, schedule, *, scale, causal, softcap, window):
+def _varlen_dq_kernel(ops: _BwdOperands, meta, schedule, config: Optional[BlockConfig] = None, *,
+                      scale, causal, softcap, window):
     """Launch the dQ kernel of ``csrc/varlen_bwd.cu``: dq packed in the
     input type (same contract as ``_varlen_dq_plain``). The route is the
     library's by head dims (``config.varlen_dq_plan``: one block, or the
     cluster of two above D512); ``schedule`` is ``_backward_schedules``'
-    dQ part: (tiles, count, order) at 64-row Q tiles."""
+    dQ part: (tiles, count, order) at 64-row Q tiles; ``config.bwd_ring_cap``
+    the ring's cap (``config.ring_depth``; None: the plan's depth)."""
     tq, hq = ops.q.shape[0], ops.q.shape[1]
     tk, hkv = ops.k.shape[0], ops.k.shape[1]
     dq = torch.empty((tq, hq, ops.d_pad), dtype=ops.q.dtype, device=ops.q.device)
     tiles, ntile, order = schedule
     q_seg, q_rank, k_seg, k_pos = meta
+    cap = 0 if config is None else config.bwd_ring_cap
+    ring = (ring_depth(varlen_dq_plan(ops.d_pad, ops.dv_pad).stages, cap, DQ_MIN_STAGES)
+            if cap else 0)
     if ENV.device_log_level() >= 2:
         plan = varlen_dq_plan(ops.d_pad, ops.dv_pad, ops.q.element_size())
         logger.info("varlen_dq launch route=%s grid=(%d,%d) smem=%d D=%d Dv=%d Tq=%d Tk=%d",
@@ -747,7 +757,7 @@ def _varlen_dq_kernel(ops: _BwdOperands, meta, schedule, *, scale, causal, softc
             int(ops.q.dtype == torch.float16), hq, hkv, tq, tk, tiles.shape[0],
             k_seg.shape[0] // KV_TILE, ops.d_pad, ops.dv_pad, float(scale), float(softcap),
             int(window[0]), 0 if causal else int(window[1]),  # causal is the band's right edge 0
-            torch.cuda.current_stream(ops.q.device).cuda_stream,
+            ring, torch.cuda.current_stream(ops.q.device).cuda_stream,
         )
     _build.check(lib, err, "varlen_dq kernel launch")
     _varlen_backward.dq_launches += 1
@@ -755,6 +765,7 @@ def _varlen_dq_kernel(ops: _BwdOperands, meta, schedule, *, scale, causal, softc
 
 
 def _varlen_backward(q, k, v, o, lse, do, meta, *, scale, causal, softcap: float = 0.0,
+                     config: Optional[BlockConfig] = None,
                      window: tuple = (-1, -1), alibi=None, walk=None):
     """Packed varlen backward: (dq [Tq, Hq, D], dk [Tk, Hkv, D], dv [Tk,
     Hkv, Dv]) in the inputs' dtypes, from the forward's o and lse
@@ -766,7 +777,9 @@ def _varlen_backward(q, k, v, o, lse, do, meta, *, scale, causal, softcap: float
     tile schedules on the device (``_backward_schedules``: no host sync,
     both from ``walk`` or one walk computed there) and launch
     the dK/dV kernel then the dQ kernel, counted in ``dkdv_launches`` and
-    ``dq_launches``, or raise for what they do not take."""
+    ``dq_launches``, or raise for what they do not take. ``config`` is the
+    pair's tiles and ring cap (None: ``pick_varlen_backward_config``, with
+    the tuned store's entry for the packed totals)."""
     from .dispatch import pick_varlen_backward_config
 
     window = (int(window[0]), -1 if causal else int(window[1]))
@@ -774,12 +787,14 @@ def _varlen_backward(q, k, v, o, lse, do, meta, *, scale, causal, softcap: float
     if q.device.type == "cpu":
         return _varlen_backward_plain(q, k, v, o, lse, do, meta, alibi=alibi, **kw)
     ops = _BwdOperands(q, k, v, do, lse, _varlen_delta(do, o), alibi)
-    config = pick_varlen_backward_config(d=ops.d_pad, dv=ops.dv_pad, dtype=q.dtype)
+    if config is None:
+        config = pick_varlen_backward_config(d=ops.d_pad, dv=ops.dv_pad, dtype=q.dtype,
+                                             tq=q.shape[0], tk=k.shape[0])
     dkdv_sched, dq_sched = _backward_schedules(
         meta, q.shape[0], varlen_dkdv_plan(ops.d_pad, ops.dv_pad, q.element_size()),
         varlen_dq_plan(ops.d_pad, ops.dv_pad, q.element_size()), causal, window, walk)
     dk, dv = _varlen_dkdv_kernel(ops, meta, dkdv_sched, config, **kw)
-    dq = _varlen_dq_kernel(ops, meta, dq_sched, **kw)
+    dq = _varlen_dq_kernel(ops, meta, dq_sched, config, **kw)
     return dq, dk, dv
 
 
@@ -840,8 +855,9 @@ class _VarlenCore(torch.autograd.Function):
 
 def _varlen_block_config(block_q, block_kv, d, dv, tq, dtype) -> Optional[BlockConfig]:
     """The kernel's tiles for explicit ``block_q`` / ``block_kv`` (None:
-    ``pick_varlen_config``). The port has no tuned store: the KV tile is the
-    compiled KV_TILE, the row tile one of FWD_ROW_TILES that fits."""
+    ``pick_varlen_config``). The KV tile is the compiled KV_TILE, the row
+    tile one of FWD_ROW_TILES that fits; the tuned store has no forward
+    knob to set here (the ring is fixed at compile time)."""
     if block_kv is not None and block_kv != KV_TILE:
         raise ValueError(f"varlen block_kv must be {KV_TILE} (the compiled KV tile), "
                          f"got {block_kv}")

@@ -13,7 +13,10 @@ Python wrappers (the two share the C interface; a base library whose
 banded entry points still read a row tile is given the one its own
 wrappers passed, ``LegacyBanded``; one built from sources before the e4m3
 dS slab has the dS width taken out of its dK/dV and banded dQ argument
-lists, ``LegacyDsBits``: every run here stores a 16-bit slab):
+lists, ``LegacyDsBits``: every run here stores a 16-bit slab; one built
+from sources before the backward rings' run-time cap has the cap taken out
+of its backward entry points' and their plans' argument lists,
+``LegacyRingCap``: every run here launches at the plan's depth):
 
 * flash_fwd: B1 H8/4 N4096 D512 causal bf16 (the serving prefill), and
   flash_fwd_scores the same with the S residual; flash_fwd_train and
@@ -228,6 +231,36 @@ ENTRY = {"from_s": "ffpa_bwd_dkdv_from_s", "from_s_d1024": "ffpa_bwd_dkdv_from_s
          "varlen_dq_d1024_fp16": "ffpa_varlen_bwd_dq"}
 
 
+# Whether the base tree's flash_bwd.cu / varlen_bwd.cu take a ring cap (set
+# by main from the sources; every adapter below serves only the base tree).
+BASE_RING = {"flash_bwd": True, "varlen_bwd": True}
+# entry point -> index of the ring cap in the package's argument list
+RING_AT = {"ffpa_bwd_dkdv": -2, "ffpa_bwd_dq": -2, "ffpa_bwd_dkdv_from_s": -2,
+           "ffpa_varlen_bwd_dkdv": -2, "ffpa_varlen_bwd_dq": -2, "ffpa_bwd_dkdv_plan": -1,
+           "ffpa_bwd_dq_plan": -1, "ffpa_bwd_from_s_plan": -1, "ffpa_varlen_bwd_dkdv_plan": -1,
+           "ffpa_varlen_bwd_dq_plan": -1}
+
+
+def pre_ring(table: dict, name: str) -> list:
+    """``table[name]`` without the ring cap: the argument list of sources
+    before it (every older tree the Legacy adapters below serve)."""
+    argtypes = list(table[name])
+    if name in RING_AT:
+        del argtypes[RING_AT[name] % len(argtypes)]
+    return argtypes
+
+
+def base_plan(lib, source: str, table: dict, name: str, *args) -> int:
+    """Call the plan entry point ``name`` of the base tree's library
+    ``lib`` (of ``source``), with a ring cap of 0 where its sources take
+    one."""
+    fn = getattr(lib, name)
+    ring = BASE_RING[source]
+    fn.argtypes = table[name] if ring else pre_ring(table, name)
+    fn.restype = ctypes.c_int
+    return fn(*args, *((0,) if ring else ()))
+
+
 def legacy_splits(blocks_per_split: int, kv_tiles: int, num_sms: int, *_) -> int:
     """The split count of the retired cp.async decode route (``ops/decode.py``
     before the two-warpgroup block): about two blocks on every SM, at least
@@ -284,6 +317,45 @@ def build_tree(src: Path, out: Path, wanted) -> dict:
     return libs
 
 
+class LegacyRingCap:
+    """A flash_bwd or varlen_bwd library built from sources before the
+    backward rings' run-time cap (the argument lists of the parent of the
+    autotune slice): its backward entry points and their plans take no
+    ring_cap, so the one the package's wrappers pass (0, the plan's depth,
+    in every run of this tool) is taken out of the argument list; any other
+    cap raises. Every other symbol is the wrapped library's own (or its
+    inner adapter's)."""
+
+    @staticmethod
+    def needed(src: Path, source: str) -> bool:
+        """Whether ``source``.cu in ``src`` predates the ring cap."""
+        return "int ring_cap" not in (src / f"{source}.cu").read_text()
+
+    def __init__(self, lib, table: dict):
+        self._lib, self._table = lib, table
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if name not in RING_AT:
+            return fn
+        argtypes = pre_ring(self._table, name)
+        if isinstance(fn, ctypes._CFuncPtr):
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        at = RING_AT[name] % len(self._table[name])
+
+        def call(*args):
+            args = list(args)
+            if args[at] != 0:
+                raise ValueError(f"{name}: a library without the ring cap launches at the "
+                                 f"plan's depth only")
+            del args[at]
+            return fn(*args)
+
+        call.argtypes = argtypes
+        return call
+
+
 class LegacyDsBits:
     """A flash_bwd library built from sources before the e4m3 dS slab: its
     dK/dV and banded dQ entry points, their plan and their attributes take
@@ -307,7 +379,7 @@ class LegacyDsBits:
         fn = getattr(self._lib, name)
         if name not in self.DS_BITS:
             return fn
-        argtypes = list(flash_bwd._ARGTYPES[name])
+        argtypes = pre_ring(flash_bwd._ARGTYPES, name)
         at = self.DS_BITS[name] % len(argtypes)
         del argtypes[at]
         fn.argtypes = argtypes
@@ -368,11 +440,9 @@ class LegacyDkdv:
         """Whether ``lib`` sends D1024 to the mma.sync route (route 0)."""
         if not hasattr(lib, "ffpa_bwd_dkdv_plan"):
             return True
-        fn = lib.ffpa_bwd_dkdv_plan
-        fn.argtypes = flash_bwd._ARGTYPES["ffpa_bwd_dkdv_plan"]
-        fn.restype = ctypes.c_int
         out = (ctypes.c_int * 64)()
-        return fn(1024, 1024, out, len(out)) == 0 and out[0] == 0
+        return (base_plan(lib, "flash_bwd", flash_bwd._ARGTYPES, "ffpa_bwd_dkdv_plan", 1024, 1024,
+                          out, len(out)) == 0 and out[0] == 0)
 
     def __init__(self, lib):
         self._lib = lib
@@ -381,7 +451,7 @@ class LegacyDkdv:
         fn = getattr(self._lib, name)
         if name != "ffpa_bwd_dkdv":
             return fn
-        argtypes = list(flash_bwd._ARGTYPES[name])
+        argtypes = pre_ring(flash_bwd._ARGTYPES, name)
         argtypes.insert(self.PASSES, ctypes.c_int)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -407,11 +477,9 @@ class LegacyDq:
     @staticmethod
     def _rows(lib, d: int, dv: int) -> tuple:
         """(route, Q rows) of ``lib``'s dQ plan at (d, dv)."""
-        fn = lib.ffpa_bwd_dq_plan
-        fn.argtypes = flash_bwd._ARGTYPES["ffpa_bwd_dq_plan"]
-        fn.restype = ctypes.c_int
         out = (ctypes.c_int * 32)()
-        if fn(d, dv, out, len(out)) != 0:
+        if base_plan(lib, "flash_bwd", flash_bwd._ARGTYPES, "ffpa_bwd_dq_plan", d, dv, out,
+                     len(out)) != 0:
             raise RuntimeError(f"the base library refuses a dQ plan at D{d}/Dv{dv}")
         return out[0], out[1]
 
@@ -427,7 +495,7 @@ class LegacyDq:
         fn = getattr(self._lib, name)
         if name != "ffpa_bwd_dq":
             return fn
-        fn.argtypes = flash_bwd._ARGTYPES[name]
+        fn.argtypes = pre_ring(flash_bwd._ARGTYPES, name)
         fn.restype = ctypes.c_int
 
         def call(*args):
@@ -495,7 +563,7 @@ class LegacyVarlenBwd:
         fn = getattr(self._lib, name)
         if name != "ffpa_varlen_bwd_dkdv":
             return fn
-        argtypes = list(varlen._VARLEN_BWD_ARGTYPES[name])
+        argtypes = pre_ring(varlen._VARLEN_BWD_ARGTYPES, name)
         del argtypes[self.ORDER]
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -528,11 +596,10 @@ class LegacyVarlenWideDkdv:
     @staticmethod
     def needed(lib) -> bool:
         """Whether ``lib`` sends D1024 to the mma.sync route (route 0)."""
-        fn = lib.ffpa_varlen_bwd_dkdv_plan
-        fn.argtypes = varlen._VARLEN_BWD_ARGTYPES["ffpa_varlen_bwd_dkdv_plan"]
-        fn.restype = ctypes.c_int
         out = (ctypes.c_int * 64)()
-        return fn(1024, 1024, out, len(out)) == 0 and out[0] == 0
+        return (base_plan(lib, "varlen_bwd", varlen._VARLEN_BWD_ARGTYPES,
+                          "ffpa_varlen_bwd_dkdv_plan", 1024, 1024, out, len(out)) == 0
+                and out[0] == 0)
 
     def __init__(self, lib):
         self._lib = lib
@@ -541,7 +608,7 @@ class LegacyVarlenWideDkdv:
         fn = getattr(self._lib, name)
         if name != "ffpa_varlen_bwd_dkdv":
             return fn
-        fn.argtypes = varlen._VARLEN_BWD_ARGTYPES[name]
+        fn.argtypes = pre_ring(varlen._VARLEN_BWD_ARGTYPES, name)
         fn.restype = ctypes.c_int
 
         def call(*args):
@@ -578,11 +645,9 @@ class LegacyVarlenWideDq:
     @staticmethod
     def rows(lib, d: int, dv: int) -> int:
         """The route (0 mma.sync) and row tile of ``lib``'s dQ plan."""
-        fn = lib.ffpa_varlen_bwd_dq_plan
-        fn.argtypes = varlen._VARLEN_BWD_ARGTYPES["ffpa_varlen_bwd_dq_plan"]
-        fn.restype = ctypes.c_int
         out = (ctypes.c_int * 64)()
-        if fn(d, dv, out, len(out)) != 0:
+        if base_plan(lib, "varlen_bwd", varlen._VARLEN_BWD_ARGTYPES, "ffpa_varlen_bwd_dq_plan",
+                     d, dv, out, len(out)) != 0:
             raise RuntimeError(f"the base library's dQ plan refuses D{d}/Dv{dv}")
         return out[0], out[1]
 
@@ -1194,6 +1259,10 @@ def main() -> int:
         "base": build_tree(Path(args.base).resolve(), REPO / "build" / "ab" / "base", wanted),
         "head": build_tree(_build.CSRC_DIR, REPO / "build" / "ab" / "head", wanted),
     }
+    base_src = Path(args.base).resolve()
+    for source in BASE_RING:
+        if (base_src / f"{source}.cu").exists():
+            BASE_RING[source] = not LegacyRingCap.needed(base_src, source)
     base_bwd = trees["base"].get("flash_bwd")
     if base_bwd is not None and LegacyDsBits.needed(Path(args.base).resolve()):
         trees["base"]["flash_bwd"] = base_bwd = LegacyDsBits(base_bwd)
@@ -1214,6 +1283,10 @@ def main() -> int:
         trees["base"]["varlen_bwd"] = base_varlen = LegacyVarlenWideDkdv(base_varlen)
     if base_varlen is not None and LegacyVarlenWideDq.needed(base_varlen):
         trees["base"]["varlen_bwd"] = LegacyVarlenWideDq(base_varlen)
+    for source, table in (("flash_bwd", flash_bwd._ARGTYPES),
+                          ("varlen_bwd", varlen._VARLEN_BWD_ARGTYPES)):
+        if source in trees["base"] and not BASE_RING[source]:
+            trees["base"][source] = LegacyRingCap(trees["base"][source], table)
     base_fwd = trees["base"].get("varlen_fwd")
     if base_fwd is not None and not hasattr(base_fwd, "ffpa_varlen_fwd_plan"):
         trees["base"]["varlen_fwd"] = LegacyVarlenFwd(base_fwd)
