@@ -131,8 +131,19 @@ It imports only ``ffpa_attn_tpu_torch``, torch and numpy, and runs, in order:
    bit-equal to the plan's and timed; one ``python -m
    ffpa_attn_tpu_torch.autotune --isolate-tasks`` task read back;
    ``verify`` on one backward case; the lookup's host µs;
-9. the ``kernels`` line, the backward rows with their ms at each ring
-   cap.
+9. parallel (``phase_parallel``, ``ffpa_attn_tpu_torch.parallel``, every
+   rank on this one card over gloo): the dK/dV kernel with fp32 dK / dV
+   storage (the ring's backward) against its plain version at a zigzag
+   chunk pair's shape; 2 ranks: the collectives on CUDA tensors (backend,
+   transport, the staged rotation's ms), then ring, Ulysses, head-parallel
+   attention and paged head-parallel decode at the serving step's shapes
+   against the one-rank call; the training model's step under a dp1 x tp2
+   x sp2 mesh (4 ranks, zigzag) and the windowed model's under sp2 (halo),
+   each rank's launches held to the schedule, the first step's gradients
+   and loss to the single-card step's; the dry run at world 4; the
+   ``scaling_projection`` leg;
+10. the ``kernels`` line, the backward rows with their ms at each ring
+   cap, and each row's launches in a rank of the parallel runs.
 
 Every phase raises on failure; the script exits 0 only when all passed. The
 last three lines are the ``kernels`` JSON line, the nvidia-smi line and the
@@ -475,12 +486,12 @@ def _decode_case(name, *, b=1, hkv=4, group=2, nq=1, nkv=MAX_LEN, d=512, dv=None
 
 def _bwd_case(name, *, b=1, hq=8, hkv=4, nq, nkv, d=512, dv=None, dtype=torch.bfloat16,
               causal=True, bias=None, softcap=0.0, window=(-1, -1), alibi=False, dropout=0.0,
-              grad_q=None, seed=0):
+              grad_q=None, grad_kv=None, seed=0):
     """The three backward kernels against their plain versions on the same
-    inputs: dkdv without and with the dS slab, dq (with dbias for a bias;
-    stored in ``grad_q``'s type, "f32" or the input type) and, under
-    causal, banded dQ from the kernel's slab. (o, lse) come from the
-    forward kernel."""
+    inputs: dkdv without and with the dS slab (dK and dV stored in
+    ``grad_kv``'s type, "f32" or the input type), dq (with dbias for a bias;
+    stored in ``grad_q``'s type) and, under causal, banded dQ from the
+    kernel's slab. (o, lse) come from the forward kernel."""
     from ffpa_attn_tpu_torch.ops import flash_bwd, flash_fwd
     from ffpa_attn_tpu_torch.ops.config import (
         DKDV_Q_TILE, DKDV_SLAB_COLS, cdiv, dkdv_plan, dq_plan,
@@ -513,8 +524,10 @@ def _bwd_case(name, *, b=1, hq=8, hkv=4, nq, nkv, d=512, dv=None, dtype=torch.bf
     errs = {}
     for emit in (False, True):
         kdk, kdv, kds = flash_bwd._dkdv_launch(q, k, v, bias_t, do, lse, delta, seed, cfg,
-                                               grad_kv_storage_dtype=None, emit_ds=emit,
+                                               grad_kv_storage_dtype=grad_kv, emit_ds=emit,
                                                **kern_kw)
+        if (kdk.dtype, kdv.dtype) != ((torch.float32,) * 2 if grad_kv == "f32" else (dtype,) * 2):
+            fail(f"{name}: dK / dV stored as {kdk.dtype} / {kdv.dtype}, asked {grad_kv}")
         torch.cuda.synchronize()
         pdk, pdv, pds = flash_bwd._dkdv_plain(
             q, k, v, bias_t, do, lse, delta, scale=scale, emit_ds=emit,
@@ -544,7 +557,7 @@ def _bwd_case(name, *, b=1, hq=8, hkv=4, nq, nkv, d=512, dv=None, dtype=torch.bf
     want_dt = torch.float32 if grad_q == "f32" else dtype
     ok = (all(e < tol for e in errs.values()) and bool(torch.isfinite(kdq).all())
           and kdq.dtype == want_dt)
-    log(f"  bwd {name:<22} dkdv route {dkdv_plan(d, dv).route}, dq route "
+    log(f"  bwd {name:<22} dkdv route {dkdv_plan(d, dv).route} ({kdk.dtype}), dq route "
         f"{dq_plan(d, dv).route} ({kdq.dtype}) "
         + " ".join(f"{n} {e:.2e}" for n, e in errs.items())
         + f" (tol {tol:g}, per row) {'ok' if ok else 'FAIL'}")
@@ -5514,6 +5527,372 @@ def _autotune_in(smi: str, root: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Sequence and tensor parallelism (``ffpa_attn_tpu_torch.parallel``)
+# ---------------------------------------------------------------------------
+
+# One world of 4 ranks, every rank on this one card (gloo: NCCL refuses two
+# ranks on one device), each planning its backward against a quarter of
+# the card's memory (FFPA_TORCH_HBM_BYTES). Op level: the serving step's
+# shapes (B4 H8/4 D512 at N1024; the serving bench's pools at page 256)
+# over the 4 ranks. The full-width step: the training model (TRAIN, N8192
+# B1) under dp1 x tp2 x sp2, each rank holding 4 of 8 Q heads, 2 of 4 KV
+# heads and 4096 tokens (two zigzag chunks of 2048); the windowed model
+# (L2, window 4096) under the same mesh, its sp2 through the halo.
+PAR_WORLD = 4
+PAR_AXES = {"dp": 1, "tp": 2, "sp": 2}
+PAR_STEPS = 2
+PAR_OP_N = 1024
+PAR_TOL = 5e-2  # the ring's tolerance (tests/_ring_check.py:31), per row here
+PAR_PAGED_TOL = 2e-2  # tests/test_parallel.py's paged head-parallel decode
+
+
+def _par_dump(out_dir: str, name: str, obj) -> None:
+    import pickle
+
+    with open(os.path.join(out_dir, name), "wb") as f:
+        pickle.dump(obj, f)
+
+
+def _par_load(out_dir: str, name: str):
+    import pickle
+
+    with open(os.path.join(out_dir, name), "rb") as f:
+        return pickle.load(f)
+
+
+def _par_models() -> dict:
+    from ffpa_attn_tpu_torch.models import ModelConfig
+
+    return {"zigzag": ModelConfig(**TRAIN),
+            "window": ModelConfig.mistral_like(sliding_window=WINDOW,
+                                               **dict(TRAIN, n_layers=WINDOW_LAYERS))}
+
+
+def _par_probe(group) -> dict:
+    """The collectives the port uses, on CUDA tensors over ``group``: each
+    held to its expected values; the staged rotation of one K block of the
+    full-width step ([1, 2, 4096, 512] bf16) timed (host clock, median of
+    5). A CUDA point-to-point send over gloo fails (the
+    ``parallel._collectives`` docstring), so that is not tried."""
+    import torch.distributed as dist
+
+    from ffpa_attn_tpu_torch.parallel._collectives import _a2a, _all_gather
+    from ffpa_attn_tpu_torch.parallel.ring import _rotate
+
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    ok = {}
+    for dt in (torch.bfloat16, torch.float32):
+        x = torch.full((4, 8), float(r + 1), dtype=dt, device="cuda")
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        ok[f"all_reduce {dt}"] = bool((y == n * (n + 1) / 2).all())
+        g = _all_gather(x, 0, group)
+        ok[f"all_gather {dt}"] = all(bool((g[4 * i:4 * i + 4] == i + 1).all()) for i in range(n))
+        a = _a2a(torch.arange(n * 4, dtype=dt, device="cuda").reshape(n * 4, 1) + 100 * r, 0, 0,
+                 group)
+        want = torch.cat([torch.arange(r * 4, r * 4 + 4, dtype=dt, device="cuda") + 100 * j
+                          for j in range(n)]).reshape(n * 4, 1)
+        ok[f"all_to_all_single {dt}"] = bool(torch.equal(a, want))
+        got = _rotate(x, group)
+        ok[f"staged rotation {dt}"] = bool((got == (r - 1) % n + 1).all())
+    blk = torch.ones((1, 2, TRAIN_N // 2, TRAIN["head_dim"]), dtype=torch.bfloat16, device="cuda")
+    times = []
+    for _ in range(6):
+        dist.barrier(group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _rotate(blk, group)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"ok": ok, "rotation_ms": sorted(times[1:])[2], "rotation_bytes": blk.numel() * 2}
+
+
+def _par_ops(world: int) -> dict:
+    """Ring (causal and not), Ulysses, head-parallel attention and paged
+    head-parallel decode at the serving step's shapes over ``world``
+    ranks, each held on every rank against the one-rank call on the same
+    inputs (computed in the rank, before the counts are set to 0 for the
+    sharded call)."""
+    from ffpa_attn_tpu_torch import ffpa_attn_func
+    from ffpa_attn_tpu_torch.ops.paged import (
+        PagedKVCache, fill_from_prefill, paged_decode_attention,
+    )
+    from ffpa_attn_tpu_torch.parallel import (
+        head_parallel_attention, make_mesh, paged_head_parallel_decode,
+        ring_attention_sharded, ulysses_attention_sharded,
+    )
+    from ffpa_attn_tpu_torch.utils.profiling import launch_counts as counts
+
+    sp = make_mesh((world,), ("sp",))
+    tp = make_mesh((world,), ("tp",))
+    gen = torch.Generator(device="cuda").manual_seed(70)
+    b, hq, hkv, n, d = SERVE_B, SLICE["n_heads"], SLICE["n_kv_heads"], PAR_OP_N, SLICE["head_dim"]
+    q, k, v, do = (_randn(s, torch.bfloat16, gen) for s in
+                   ((b, hq, n, d), (b, hkv, n, d), (b, hkv, n, d), (b, hq, n, d)))
+    out = {}
+
+    def fwd_bwd(fn, grads):
+        leaves = [t.detach().clone().requires_grad_(grads) for t in (q, k, v)]
+        o = fn(*leaves)
+        if grads:
+            o.backward(do)
+        return [o.detach()] + ([t.grad for t in leaves] if grads else [])
+
+    def hold(name, fn, ref_fn, grads=True):
+        want = fwd_bwd(ref_fn, grads)
+        torch.cuda.synchronize()
+        counts(zero=True)
+        got = fwd_bwd(fn, grads)
+        torch.cuda.synchronize()
+        errs = [row_rel(got[0], want[0])] + [grad_row_rel(g, w) for g, w in zip(got[1:], want[1:])]
+        out[name] = {"errs": errs, "launches": {key: c for key, c in counts().items() if c}}
+
+    gqa = dict(enable_gqa=True)
+    for causal in (False, True):
+        hold(f"ring causal={causal}",
+             lambda a, b_, c: ring_attention_sharded(a, b_, c, sp, causal=causal),
+             lambda a, b_, c: ffpa_attn_func(a, b_, c, is_causal=causal, **gqa))
+    hold("ulysses causal", lambda a, b_, c: ulysses_attention_sharded(a, b_, c, sp, causal=True,
+                                                                      **gqa),
+         lambda a, b_, c: ffpa_attn_func(a, b_, c, is_causal=True, **gqa))
+    hold("head_parallel causal",
+         lambda a, b_, c: head_parallel_attention(a, b_, c, tp, is_causal=True, **gqa),
+         lambda a, b_, c: ffpa_attn_func(a, b_, c, is_causal=True, **gqa), grads=False)
+    with torch.inference_mode():
+        lens = torch.tensor(SERVE_LENS, dtype=torch.int32, device="cuda")
+        cache = PagedKVCache.alloc(b, SERVE_MAX_LEN, hkv, d, page_size=SERVE_PAGE)
+        kd, vd = (_randn((b, hkv, max(SERVE_LENS), d), torch.bfloat16, gen) for _ in range(2))
+        cache = fill_from_prefill(cache, kd, vd, lens)
+        qd = _randn((b, hq, 1, d), torch.bfloat16, gen)
+        want = paged_decode_attention(qd, cache)
+        torch.cuda.synchronize()
+        counts(zero=True)
+        got = paged_head_parallel_decode(qd, cache, tp)
+        torch.cuda.synchronize()
+        out["paged_head_parallel"] = {"errs": [rel(got, want)],
+                                      "launches": {key: c for key, c in counts().items() if c}}
+    return out
+
+
+def _par_train(out_dir: str, name: str, cfg) -> dict:
+    """A sharded step of ``cfg`` over PAR_AXES: random weights from numpy
+    seed 0 through ``shard_params``, tokens from seed 1, PAR_STEPS steps,
+    each with the counts set to 0 just before it and read just after; the
+    first step's gradients gathered (``gather_params_to_jax``) and held on
+    rank 0 against the single-card step's (``ref_<name>.pkl``); then the
+    gradient all-reduce over dp x sp timed alone (host clock)."""
+    import torch.distributed as dist
+
+    from ffpa_attn_tpu_torch.models import (
+        adamw, gather_params_to_jax, make_train_step, params_from_jax, random_params,
+        shard_params,
+    )
+    from ffpa_attn_tpu_torch.models.transformer import _all_reduce_grads, _shards
+    from ffpa_attn_tpu_torch.parallel import make_mesh
+    from ffpa_attn_tpu_torch.utils.profiling import launch_counts as counts
+
+    mesh = make_mesh(tuple(PAR_AXES.values()), tuple(PAR_AXES))
+    model = shard_params(params_from_jax(random_params(cfg, seed=0), cfg), mesh, cfg)
+    tokens = torch.from_numpy(
+        np.random.default_rng(1).integers(0, cfg.vocab_size, (1, TRAIN_N + 1))).cuda()
+    opt = adamw(1e-4)
+    state = opt.init(list(model.parameters()))
+    step = make_train_step(cfg, opt, mesh=mesh, sp_axis="sp")
+    rows, held = [], None
+    for i in range(PAR_STEPS):
+        dist.barrier()
+        torch.cuda.synchronize()
+        counts(zero=True)
+        t0 = time.perf_counter()
+        state, loss = step(model, state, tokens)
+        loss = float(loss)  # synchronizes
+        rows.append({"ms": (time.perf_counter() - t0) * 1e3, "loss": loss,
+                     "launches": {key: c for key, c in counts().items() if c}})
+        if i == 0:
+            grads = gather_params_to_jax(model, mesh, grads=True)
+            if dist.get_rank() == 0:
+                ref = _par_load(out_dir, f"ref_{name}.pkl")
+                held = dict(_par_grad_errs(grads, ref["grads"]), loss=loss,
+                            ref_loss=ref["loss"])
+            del grads
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _all_reduce_grads(model, _shards(mesh, "sp", "tp", "dp"))  # the step's sum, timed alone
+    torch.cuda.synchronize()
+    reduce_ms = (time.perf_counter() - t0) * 1e3
+    del model, state
+    torch.cuda.empty_cache()
+    return {"rows": rows, "held": held, "grad_all_reduce_ms": reduce_ms}
+
+
+def _par_rank(out_dir: str) -> None:
+    """Rank body of the parallel run: the collectives probe, the op level,
+    then each model's sharded step; every rank writes what it got."""
+    import torch.distributed as dist
+
+    from ffpa_attn_tpu_torch.parallel._collectives import transport
+
+    world = dist.get_world_size()
+    out = {"transport": transport(dist.group.WORLD), "probe": _par_probe(dist.group.WORLD),
+           "hbm_bytes": os.environ["FFPA_TORCH_HBM_BYTES"], "ops": _par_ops(world)}
+    for name, cfg in _par_models().items():
+        out[name] = _par_train(out_dir, name, cfg)
+    _par_dump(out_dir, f"rank{dist.get_rank()}.pkl", out)
+
+
+def _par_grad_errs(got, want) -> dict:
+    """Per leaf, max|got - want| over max|want|: the worst leaf and its name."""
+    worst, name = 0.0, ""
+    pairs = [("embed", got["embed"], want["embed"]),
+             ("final_norm", got["final_norm"], want["final_norm"])]
+    for i, (gl, wl) in enumerate(zip(got["layers"], want["layers"])):
+        pairs += [(f"layers.{i}.{k}", gl[k], wl[k]) for k in wl]
+    for leaf, g, w in pairs:
+        e = float(np.abs(g - w).max() / max(float(np.abs(w).max()), 1e-12))
+        if not math.isfinite(e) or e > worst:
+            worst, name = e, leaf
+    return {"worst": worst, "worst_leaf": name, "leaves": len(pairs)}
+
+
+def _par_reference(cfg, out_dir: str, name: str) -> None:
+    """The single-card step's first gradients and loss (the same weights
+    and tokens as ``_par_train``), for the ranks to hold against."""
+    from ffpa_attn_tpu_torch.models import (
+        adamw, make_train_step, params_from_jax, params_to_jax, random_params,
+    )
+
+    model = params_from_jax(random_params(cfg, seed=0), cfg)
+    tokens = torch.from_numpy(
+        np.random.default_rng(1).integers(0, cfg.vocab_size, (1, TRAIN_N + 1))).cuda()
+    opt = adamw(1e-4)
+    _, loss = make_train_step(cfg, opt)(model, opt.init(list(model.parameters())), tokens)
+    _par_dump(out_dir, f"ref_{name}.pkl",
+              {"loss": float(loss), "grads": params_to_jax(model, grads=True)})
+    del model
+    torch.cuda.empty_cache()
+
+
+def _par_hold_step(label: str, cfg, res: list, want_fn, smi: str) -> dict:
+    """A sharded step's checks: every rank's launches at every step equal
+    to ``want_fn(rank)`` (and so across ranks), the first step's gradients
+    within GRAD_TOL of the single-card step's per leaf, its loss within
+    LOSS_TOL."""
+    held = res[0]["held"]
+    log(f"  {label}: model L{cfg.n_layers} dm{cfg.d_model} H{cfg.n_heads}/{cfg.n_kv_heads} "
+        f"Dh{cfg.head_dim} N{TRAIN_N} B1, mesh {PAR_AXES}:")
+    for r, rr in enumerate(res):
+        want = want_fn(r)
+        for i, row in enumerate(rr["rows"]):
+            if row["launches"] != want:
+                fail(f"{label}: rank {r} step {i} launched {row['launches']}, the schedule "
+                     f"says {want}")
+        log(f"    rank {r}: launches per step {rr['rows'][0]['launches']} (= schedule); step ms "
+            f"{[round(x['ms'], 1) for x in rr['rows']]}, of which the gradient all-reduce "
+            f"{rr['grad_all_reduce_ms']:.1f} ms alone ({len(res)} ranks time-slicing {smi} "
+            f"over gloo: not a scaling figure); losses {[round(x['loss'], 5) for x in rr['rows']]}")
+    loss_err = abs(held["loss"] - held["ref_loss"]) / abs(held["ref_loss"])
+    ok = held["worst"] < GRAD_TOL[torch.bfloat16] and loss_err < LOSS_TOL
+    log(f"    first step vs the single-card step: loss {held['loss']:.5f} vs "
+        f"{held['ref_loss']:.5f} (rel {loss_err:.2e}, tol {LOSS_TOL:g}); gradients "
+        f"({held['leaves']} leaves, gathered to rank 0) worst leaf {held['worst_leaf']} rel_err "
+        f"{held['worst']:.2e} of its max|g| (tol {GRAD_TOL[torch.bfloat16]:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{label}: the sharded step disagrees with the single-card step")
+    return {"ms": res[0]["rows"][-1]["ms"], "grad_err": held["worst"], "loss_err": loss_err}
+
+
+def phase_parallel(smi: str) -> dict:
+    """``ffpa_attn_tpu_torch.parallel`` on the card, every rank on it:
+
+    1. the dK/dV kernel with fp32 dK / dV storage (the ring's and zigzag's
+       backward) against its plain version, at a zigzag chunk pair's shape;
+    2. one world of PAR_WORLD ranks: the collectives probe (backend,
+       transport, the staged rotation's ms); the op level: ring, Ulysses,
+       head-parallel and paged head-parallel decode against the one-rank
+       call; the full-width sharded step (dp1 x tp2 x sp2, zigzag) and the
+       windowed model's (halo), each held to the single-card step;
+    3. the dry run at world 4 (``parallel.dryrun.main``) and the
+       ``scaling_projection`` leg.
+    """
+    import tempfile
+
+    from ffpa_attn_tpu_torch.parallel import dryrun
+    from ffpa_attn_tpu_torch.parallel.zigzag import zigzag_schedule
+
+    t_phase = time.perf_counter()
+    log(f"parallel (ffpa_attn_tpu_torch.parallel; {PAR_WORLD} ranks on this one card, gloo):")
+    c = TRAIN_N // (2 * PAR_AXES["sp"])  # a zigzag chunk
+    hq, hkv = TRAIN["n_heads"] // PAR_AXES["tp"], TRAIN["n_kv_heads"] // PAR_AXES["tp"]
+    for causal in (True, False):
+        _bwd_case(f"f32_dkdv_chunk_causal{int(causal)}", hq=hq, hkv=hkv, nq=c, nkv=c,
+                  causal=causal, grad_q="f32", grad_kv="f32", seed=60 + causal)
+    models = _par_models()
+    env = {"FFPA_TORCH_HBM_BYTES":
+           str(torch.cuda.get_device_properties(0).total_memory // PAR_WORLD)}
+    with tempfile.TemporaryDirectory(prefix="ffpa_par_") as d:
+        for name, cfg in models.items():
+            _par_reference(cfg, d, name)
+        t0 = time.perf_counter()
+        dryrun.spawn_ranks(_par_rank, PAR_WORLD, (d,), backend="gloo", env=env, timeout_s=400)
+        wall = time.perf_counter() - t0
+        res = [_par_load(d, f"rank{r}.pkl") for r in range(PAR_WORLD)]
+    probe = res[0]["probe"]
+    log(f"  {PAR_WORLD} ranks, {wall:.1f} s with the spawn; backend {res[0]['transport']}; "
+        f"FFPA_TORCH_HBM_BYTES {res[0]['hbm_bytes']} a rank; collectives on CUDA tensors over "
+        f"gloo: {probe['ok']}; staged rotation of a [1, 2, {TRAIN_N // 2}, {TRAIN['head_dim']}] "
+        f"bf16 block {probe['rotation_ms']:.3f} ms (host clock, {PAR_WORLD} ranks on {smi})")
+    if not all(all(r["probe"]["ok"].values()) for r in res):
+        fail("parallel: a collective gave wrong values on CUDA tensors over gloo")
+    for name in res[0]["ops"]:
+        tol = PAR_PAGED_TOL if name.startswith("paged") else PAR_TOL
+        errs = [max(r["ops"][name]["errs"]) for r in res]
+        launched = [r["ops"][name]["launches"] for r in res]
+        ok = max(errs) < tol and all(launched)
+        log(f"  {name}: B{SERVE_B} H8/4 D512 N{1 if name.startswith('paged') else PAR_OP_N} "
+            f"vs the one-rank call, worst per-row rel err (out and grads) {max(errs):.2e} "
+            f"(tol {tol:g}); launches per rank {launched} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"parallel {name}: disagrees with the one-rank call or launched nothing")
+
+    zcfg, wcfg = models["zigzag"], models["window"]
+
+    def zigzag_want(rank):
+        s = zigzag_schedule(PAR_AXES["sp"], rank % PAR_AXES["sp"])
+        return {"flash_fwd": zcfg.n_layers * (s["causal"] + s["full"]),
+                "dkdv": zcfg.n_layers * (s["causal"] + s["full"]),
+                "banded_dq": zcfg.n_layers * s["causal"]}
+
+    full = _par_hold_step("zigzag step", zcfg, [r["zigzag"] for r in res], zigzag_want, smi)
+    window = _par_hold_step("windowed step (halo)", wcfg, [r["window"] for r in res],
+                            lambda r: {"flash_fwd": wcfg.n_layers, "dkdv": wcfg.n_layers,
+                                       "dq": wcfg.n_layers}, smi)
+
+    with tempfile.TemporaryDirectory(prefix="ffpa_dryrun_") as d:
+        t0 = time.perf_counter()
+        rc = dryrun.main(["--world", "4", "--backend", "gloo", "--out", f"{d}/rows.json"])
+        with open(f"{d}/rows.json") as f:
+            rows = json.load(f)
+    if rc != 0 or len(rows) != 2 or not all(math.isfinite(r["loss"]) for r in rows):
+        fail(f"dryrun: rc {rc}, {rows}")
+    log(f"  dryrun --world 4 (gloo, {time.perf_counter() - t0:.1f} s): " + "; ".join(
+        f"mesh {r['mesh']} window {r['window']} loss {r['loss']:.4f}" for r in rows))
+
+    from ffpa_attn_tpu_torch.cli._e2e import bench_scaling_projection
+
+    proj = bench_scaling_projection()
+    log(f"  scaling_projection: {json.dumps(proj)}")
+    seconds = time.perf_counter() - t_phase
+    log(f"  parallel phase {seconds:.1f} s")
+    rank1 = {"zigzag_step": res[1]["zigzag"]["rows"][0]["launches"],
+             "window_step": res[1]["window"]["rows"][0]["launches"]}
+    rank1.update({k: v["launches"] for k, v in res[1]["ops"].items()})
+    return {"full": full, "window": window, "rank1_launches": rank1, "projection": proj,
+            "seconds": seconds}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
@@ -5563,6 +5942,11 @@ def main() -> int:
     for r in rows:  # each ring cap's ms beside the plan's
         if r["name"] in tuned["ring_caps"]:
             r["ring_cap_ms"] = tuned["ring_caps"][r["name"]]["ms"]
+    par = phase_parallel(smi)
+    for r in rows:  # launches rank 1 makes in a sharded step / op-level call
+        per_rank = {k: c.get(r["name"], 0) for k, c in par["rank1_launches"].items()}
+        if any(per_rank.values()):
+            r["parallel_launches_rank1"] = per_rank
     for r in rows:  # launches per speculative call beside the main path's
         if r["name"] in ("flash_fwd", "decode"):
             r["speculative_launches"] = {k: c.get(r["name"], 0)
@@ -5585,7 +5969,9 @@ def main() -> int:
         f"{bench['window_tok_s']:.1f} "
         + f"loss_rel_err {training['loss_err']:.2e} "
         f"grad_rel_err {training['grad_err']:.2e} s_resident_grad_rel_err "
-        f"{resident['grad_err']:.2e} total {time.perf_counter() - t_start:.1f} s on {smi}")
+        f"{resident['grad_err']:.2e} parallel_grad_rel_err {par['full']['grad_err']:.2e} "
+        f"parallel_window_grad_rel_err {par['window']['grad_err']:.2e} parallel_s "
+        f"{par['seconds']:.1f} total {time.perf_counter() - t_start:.1f} s on {smi}")
     # "ms" is the kernel's time; "kernel_ms" repeats it under its longer name.
     print(json.dumps({"kernels": [dict(r, kernel_ms=r["ms"]) for r in rows]}))
     print(smi)

@@ -14,6 +14,8 @@ prompts from numpy seeds:
   sliding-window model); tokens/s = B * gen / the second call's time.
 * ``speculative*``: ``speculative_generate`` with the target itself or its
   first layer as the draft.
+* ``scaling_projection``: the flagship forward's measured rate fed to the
+  two-host ring-scaling model (``parallel/analysis.py``).
 
 Each leg times its second call on the host clock after
 ``torch.cuda.synchronize()`` and reports the kernels that call launched.
@@ -312,9 +314,42 @@ def bench_speculative(
     }
 
 
+def bench_scaling_projection(*, device=None) -> dict:
+    """The two-host ring-scaling projection anchored to a rate measured on
+    this card now: the flagship forward case (B1 H32 N8192 D512 bf16) is
+    timed with ``run_case`` and its FLOP rate feeds the analytic model's
+    compute leg (``parallel/analysis.py``). The link bandwidths and the
+    step latency stay the labelled spec and model constants, printed under
+    names that say so: the result is a projection, not a measurement."""
+    from ..parallel.analysis import (
+        NETWORK_BW_BYTES, NVLINK_BW_BYTES, STEP_LATENCY_S, two_host_report,
+    )
+    from ._bench import make_case, run_case
+
+    row = run_case(make_case("self-attn", 1, 32, 8192, 512), torch.bfloat16, "fwd", iters=5,
+                   verify=False, device=device)
+    measured = row["ffpa_tflops"] * 1e12
+    return {
+        "metric": "ring_scaling_projection",
+        "measured_tflops": round(measured / 1e12, 1),
+        "measured_on": "B1 H32 N8192 D512 bf16 fwd",
+        "nvlink_gbytes_per_s_SPEC": NVLINK_BW_BYTES / 1e9,
+        "network_gbytes_per_s_SPEC": NETWORK_BW_BYTES / 1e9,
+        "step_latency_us_MODEL_CONSTANT": STEP_LATENCY_S * 1e6,
+        "projections": [
+            {
+                "chips": p.chips,
+                "step_ms": round(p.t_step_ms, 3),
+                "hop_ms": round(p.t_hop_ms, 3),
+                "efficiency_pct": round(p.efficiency * 100, 1),
+            }
+            for p in two_host_report(flops_rate=measured)
+        ],
+    }
+
+
 #: name -> bench callable (keyword ``device``). Ordered; ``main`` runs each
-#: in a process of its own. The JAX package's ``scaling_projection`` leg
-#: waits for the port's ``parallel/analysis.py``.
+#: in a process of its own.
 E2E_BENCHES = {
     "smoke": functools.partial(
         bench_decode, b=1, prompt_len=64, gen_len=8, d_model=64, n_layers=1,
@@ -328,6 +363,7 @@ E2E_BENCHES = {
     "serve_paged_window": bench_serve_paged_window,
     "speculative": bench_speculative,
     "speculative_draft": functools.partial(bench_speculative, draft_layers=1),
+    "scaling_projection": bench_scaling_projection,
 }
 
 

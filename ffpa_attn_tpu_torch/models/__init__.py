@@ -1,10 +1,17 @@
 """Model layer: the large-head-dim transformer LM, its serving paths
 (``generate``, continuous batching over a dense or paged cache, the serving
-engine, speculative decoding), its training step and train-state
-checkpoints."""
+engine, speculative decoding), its training step (single-card, or
+dp x tp x sp over a mesh) and train-state checkpoints."""
 
 from .checkpoint import latest_step, restore_train_state, save_train_state
-from .convert import params_from_jax, params_to_jax, random_params
+from .convert import (
+    gather_params_to_jax,
+    param_specs,
+    params_from_jax,
+    params_to_jax,
+    random_params,
+    shard_params,
+)
 from .engine import ServingEngine
 from .generate import decode_step, generate, init_kv_cache, prefill
 from .sampling import filter_logits, sample_logits
@@ -25,6 +32,9 @@ __all__ = [
     "params_from_jax",
     "params_to_jax",
     "random_params",
+    "param_specs",
+    "shard_params",
+    "gather_params_to_jax",
     "forward",
     "loss_fn",
     "adamw",

@@ -15,6 +15,10 @@ trained under. Each step is one file, ``ckpt_<step>.pt``, written with
   dtype must match, or it raises. It copies into the templates in place,
   on their device, so a resumed run continues the optimizer's trajectory
   bit for bit.
+* One file holds the whole model, so a model cut over tensor parallelism
+  (``shard_params``) is refused by both: every tp rank would write its
+  slice under the same name and read back another rank's, whose shapes
+  are the same.
 """
 
 from __future__ import annotations
@@ -46,10 +50,21 @@ def _opt_tensors(opt_state: dict) -> dict:
     return {f"{key}.{i}": t for key in ("mu", "nu") for i, t in enumerate(opt_state[key])}
 
 
+def _refuse_tp_shard(model: Transformer) -> None:
+    full = model.cfg.n_heads * model.cfg.head_dim
+    for i, layer in enumerate(model.layers):
+        if layer.wq.weight.shape[0] != full:
+            raise ValueError(f"layer {i}'s wq holds {layer.wq.weight.shape[0]} of the config's "
+                             f"{full} rows (a tensor-parallel shard): a checkpoint holds the "
+                             "whole model, so a shard_params model cannot be saved or restored")
+
+
 def save_train_state(directory: str, step: int, model: Transformer, opt_state: dict, *,
                      max_to_keep: int = 3) -> None:
     """Persist (model, opt_state) at ``step``; atomic, with the newest
-    ``max_to_keep`` steps kept."""
+    ``max_to_keep`` steps kept. Raises ValueError for a tensor-parallel
+    shard."""
+    _refuse_tp_shard(model)
     os.makedirs(directory, exist_ok=True)
     payload = {
         "step": int(step),
@@ -97,7 +112,9 @@ def restore_train_state(directory: str, model: Transformer, opt_state_template: 
     ``opt_state_template`` its ``optimizer.init(list(model.parameters()))``.
     The newest step unless ``step`` is given. Raises FileNotFoundError when
     there is nothing to restore and ValueError when the checkpoint's config,
-    names, shapes or dtypes differ from the templates'."""
+    names, shapes or dtypes differ from the templates', or ``model`` is a
+    tensor-parallel shard."""
+    _refuse_tp_shard(model)
     if step is None:
         step = latest_step(directory)
     path = None if step is None else _path(directory, step)

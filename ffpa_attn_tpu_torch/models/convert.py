@@ -14,12 +14,21 @@ JAX package's pytrees.
 
 ``random_params`` makes such a pytree from a numpy seed, with the shapes and
 scales of the JAX package's ``init_params``, for runs that need no JAX.
+
+Tensor parallelism: ``param_specs`` names, per leaf and in torch layout,
+the dims cut on the tp axis (the JAX ``param_specs`` with the projections'
+two dims swapped); ``shard_params`` keeps a rank's slices of a whole
+model, and ``gather_params_to_jax`` is ``params_to_jax`` of the whole model
+from its shards (every rank of the tp axis calls it).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
+from torch import nn
 
 from ..env import resolve_device
 from .transformer import ModelConfig, Transformer
@@ -56,26 +65,98 @@ def params_from_jax(params_np, cfg: ModelConfig, device=None) -> Transformer:
     return model
 
 
+def _pytree(model: Transformer, grads: bool, fetch):
+    """The JAX-layout pytree of ``model`` (or of its gradients), each
+    leaf's fp32 tensor passed through ``fetch(tensor, name)`` first."""
+
+    def leaf(p, name, transpose=False):
+        t = p.grad if grads else p
+        if t is None:
+            raise ValueError("a parameter has no gradient")
+        t = fetch(t.detach().float(), name).cpu()
+        return (t.T if transpose else t).contiguous().numpy()
+
+    out = {"embed": leaf(model.embed, "embed"),
+           "final_norm": leaf(model.final_norm, "final_norm"), "layers": []}
+    for layer in model.layers:
+        p = {name: leaf(getattr(layer, name).weight, name, True) for name in _TRANSPOSED}
+        p.update({name: leaf(getattr(layer, name), name) for name in _AS_IS})
+        if model.cfg.attn_sinks:
+            p["attn_sinks"] = leaf(layer.attn_sinks, "attn_sinks")
+        out["layers"].append(p)
+    return out
+
+
 def params_to_jax(model: Transformer, *, grads: bool = False):
     """The JAX-layout pytree (float32 numpy) of ``model``'s weights, or of
     their ``.grad`` with ``grads=True``; the seven projections are
     transposed back to [in, out]."""
+    return _pytree(model, grads, lambda t, name: t)
 
-    def leaf(p, transpose=False):
-        t = p.grad if grads else p
-        if t is None:
-            raise ValueError("a parameter has no gradient")
-        t = t.detach().float().cpu()
-        return (t.T if transpose else t).contiguous().numpy()
 
-    out = {"embed": leaf(model.embed), "final_norm": leaf(model.final_norm), "layers": []}
+def param_specs(cfg: ModelConfig, tp_axis: Optional[str] = "tp"):
+    """Per leaf of the JAX-layout pytree, the torch tensor's dims as a
+    tuple: the tp axis name on the dim it is cut along, None elsewhere;
+    () for a replicated leaf of one dim. ``nn.Linear`` keeps [out, in], so
+    ``wq``, ``wk``, ``wv``, ``w_up`` and ``w_gate`` (JAX ``P(None, t)``)
+    are cut on dim 0 and ``wo`` and ``w_down`` (``P(t, None)``) on dim 1."""
+    t = tp_axis
+    layer = {"attn_norm": (), "wq": (t, None), "wk": (t, None), "wv": (t, None),
+             "wo": (None, t), "mlp_norm": (), "w_up": (t, None), "w_gate": (t, None),
+             "w_down": (None, t)}
+    if cfg.attn_sinks:
+        layer["attn_sinks"] = ()
+    return {"embed": (), "final_norm": (), "layers": [dict(layer) for _ in range(cfg.n_layers)]}
+
+
+def _tp(mesh, tp_axis):
+    from ..parallel.mesh import axis_group, axis_rank, axis_size
+
+    return axis_group(mesh, tp_axis), axis_size(mesh, tp_axis), axis_rank(mesh, tp_axis)
+
+
+@torch.no_grad()
+def shard_params(model: Transformer, mesh, cfg: ModelConfig, tp_axis: str = "tp") -> Transformer:
+    """Keep only this rank's tp slices of ``model``'s projections (in
+    place; returns ``model``): Q heads ``[r*Hq/tp, (r+1)*Hq/tp)`` with their
+    GQA group of KV heads, the matching rows of ``wo``, and the rank's
+    block of the MLP's hidden units. Initialise the optimizer state after
+    this. Refuses Hq or Hkv not divisible by tp, as
+    ``parallel.head_parallel_attention`` does."""
+    _, tp, rank = _tp(mesh, tp_axis)
+    if cfg.n_heads % tp or cfg.n_kv_heads % tp:
+        raise ValueError(f"Hq={cfg.n_heads}/Hkv={cfg.n_kv_heads} not divisible by "
+                         f"{tp_axis}={tp}")
+    if tp == 1:
+        return model
+    specs = param_specs(cfg, tp_axis)["layers"][0]
     for layer in model.layers:
-        p = {name: leaf(getattr(layer, name).weight, True) for name in _TRANSPOSED}
-        p.update({name: leaf(getattr(layer, name)) for name in _AS_IS})
-        if model.cfg.attn_sinks:
-            p["attn_sinks"] = leaf(layer.attn_sinks)
-        out["layers"].append(p)
-    return out
+        for name in _TRANSPOSED:
+            lin = getattr(layer, name)
+            dim = specs[name].index(tp_axis)
+            size = lin.weight.shape[dim] // tp
+            lin.weight = nn.Parameter(lin.weight.narrow(dim, rank * size, size).clone())
+            lin.out_features, lin.in_features = lin.weight.shape
+    return model
+
+
+def gather_params_to_jax(model: Transformer, mesh, tp_axis: str = "tp", *,
+                         grads: bool = False):
+    """``params_to_jax`` of the whole model from a ``shard_params`` model:
+    the tp-cut leaves all-gathered over the tp axis (a collective: every
+    rank of the axis calls it; each gets the whole pytree)."""
+    from ..parallel._collectives import _all_gather
+
+    group, _, _ = _tp(mesh, tp_axis)
+    specs = param_specs(model.cfg, tp_axis)["layers"][0]
+
+    def fetch(t, name):
+        spec = specs.get(name, ())
+        if group is None or tp_axis not in spec:
+            return t
+        return _all_gather(t, spec.index(tp_axis), group)
+
+    return _pytree(model, grads, fetch)
 
 
 def random_params(cfg: ModelConfig, seed: int = 0):
@@ -113,4 +194,5 @@ def random_params(cfg: ModelConfig, seed: int = 0):
     return params
 
 
-__all__ = ["params_from_jax", "params_to_jax", "random_params"]
+__all__ = ["params_from_jax", "params_to_jax", "random_params", "param_specs", "shard_params",
+           "gather_params_to_jax"]

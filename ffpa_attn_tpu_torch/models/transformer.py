@@ -4,8 +4,30 @@ large-head-dim kernels.
 ``Transformer`` holds the weights as an ``nn.Module``; the serving path
 (``generate.py``) runs its layers. The training path is ``forward`` ->
 ``loss_fn`` -> ``make_train_step``, whose attention backward runs the
-backward kernels under ``torch.autograd``. The single-card branch only: the
-mesh / sequence- and tensor-parallel branches wait for ``parallel/``.
+backward kernels under ``torch.autograd``.
+
+With a mesh (``parallel.make_mesh``) the same step runs on every rank:
+
+* **dp** splits the batch;
+* **tp** is Megatron-style: ``shard_params`` keeps each rank's heads of
+  ``wq`` / ``wk`` / ``wv`` and its columns of ``w_up`` / ``w_gate`` (weight
+  dim 0) and the matching rows of ``wo`` / ``w_down`` (weight dim 1); the
+  column-parallel projections take an identity-forward, all-reduce-backward
+  op on their input and the row-parallel ones an all-reduce on their
+  output;
+* **sp** keeps the rank's tokens through the whole layer (norms, MLP and
+  logits are per token); only attention talks to the other ranks: the
+  zigzag ring where N % (2 sp) == 0 (the step lays the tokens, their
+  positions and targets out in zigzag order), the causal ring over
+  contiguous shards otherwise, and the halo exchange for a sliding-window
+  model.
+
+The loss is the global mean (each rank's summed negative log-likelihood
+all-reduced over dp x sp, over the global token count), every gradient is
+all-reduced over dp x sp (the per-head sinks' also over tp, from each tp
+rank's zero-padded part), and AdamW updates each rank's shard as the
+single-card step does. With no mesh, or every axis of size 1, the
+single-card code runs unchanged.
 """
 
 from __future__ import annotations
@@ -14,12 +36,15 @@ from dataclasses import dataclass
 from typing import Callable, Optional, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from ..env import resolve_device
 from ..functional import CudaBackend
 from ..interface import ffpa_attn_func
+from ..parallel._collectives import copy_to, reduce_from
+from ..parallel.mesh import axis_group, axis_rank, axis_size
 
 
 @dataclass(frozen=True)
@@ -155,9 +180,10 @@ def _feature_kwargs(cfg: ModelConfig, layer: Block, *, window: bool = True) -> d
 def _project_qkv(layer: Block, x, cfg: ModelConfig, positions):
     b, n, _ = x.shape
     dh = cfg.head_dim
-    q = layer.wq(x).reshape(b, n, cfg.n_heads, dh).transpose(1, 2)
-    k = layer.wk(x).reshape(b, n, cfg.n_kv_heads, dh).transpose(1, 2)
-    v = layer.wv(x).reshape(b, n, cfg.n_kv_heads, dh).transpose(1, 2)
+    # -1 heads: all of them, or a tp rank's (``shard_params``).
+    q = layer.wq(x).reshape(b, n, -1, dh).transpose(1, 2)
+    k = layer.wk(x).reshape(b, n, -1, dh).transpose(1, 2)
+    v = layer.wv(x).reshape(b, n, -1, dh).transpose(1, 2)
     return _rope(q, positions), _rope(k, positions), v
 
 
@@ -173,20 +199,153 @@ def _attention(layer: Block, x, cfg: ModelConfig):
     return layer.wo(o.transpose(1, 2).reshape(b, n, cfg.n_heads * cfg.head_dim))
 
 
-def forward(model: Transformer, tokens):
-    """LM forward: tokens [B, N] int -> logits [B, N, vocab]."""
+@dataclass(frozen=True)
+class _Shards:
+    """A mesh step's process groups (None for an axis of size 1) and this
+    rank's index along each axis."""
+
+    dp: object
+    tp: object
+    sp: object
+    dp_size: int
+    tp_size: int
+    sp_size: int
+    dp_rank: int
+    tp_rank: int
+    sp_rank: int
+
+
+def _shards(mesh, sp_axis, tp_axis, dp_axis) -> Optional[_Shards]:
+    """The step's groups, or None where the single-card code runs (no
+    mesh, or every axis of size 1)."""
+    names = (dp_axis, tp_axis, sp_axis)
+    sizes = [axis_size(mesh, a) for a in names]
+    if mesh is None or all(s == 1 for s in sizes):
+        return None
+    return _Shards(*(axis_group(mesh, a) for a in names), *sizes,
+                   *(axis_rank(mesh, a) for a in names))
+
+
+def _sp_layout(cfg: ModelConfig, n: int, sp: int) -> str:
+    """How sp shards a sequence of n tokens: "window" (halo exchange over
+    contiguous shards), "zigzag" (chunk pairs, n % (2 sp) == 0) or "ring"
+    (the causal ring over contiguous shards)."""
+    if cfg.sliding_window > 0:
+        return "window"
+    return "zigzag" if n % (2 * sp) == 0 else "ring"
+
+
+def _sharded_attention(layer: Block, x, cfg: ModelConfig, sh: _Shards, positions):
+    """One layer's attention on this rank's tokens [B, Nl, dm] and heads."""
+    from ..parallel.ring import ring_attention
+    from ..parallel.window import window_attention
+    from ..parallel.zigzag import zigzag_ring_attention
+
+    b, nl, _ = x.shape
+    dh, hq, hkv = cfg.head_dim, cfg.n_heads // sh.tp_size, cfg.n_kv_heads // sh.tp_size
+    if layer.wq.weight.shape[0] != hq * dh or layer.wk.weight.shape[0] != hkv * dh:
+        raise ValueError("the model's projections are not this mesh's tp shards: "
+                         "call shard_params(model, mesh, cfg) first")
+    q, k, v = _project_qkv(layer, copy_to(x, sh.tp), cfg, positions)
+    sinks = None
+    if cfg.attn_sinks:
+        sinks = layer.attn_sinks[sh.tp_rank * hq:(sh.tp_rank + 1) * hq]
+    if sh.sp_size > 1:
+        layout = _sp_layout(cfg, nl * sh.sp_size, sh.sp_size)
+        if layout == "window":
+            o = window_attention(q, k, v, group=sh.sp, window_left=cfg.sliding_window,
+                                 softcap=cfg.attn_softcap, sinks=sinks)
+        elif cfg.attn_softcap > 0.0 or cfg.attn_sinks:
+            raise NotImplementedError(
+                "attn_softcap/attn_sinks without a sliding window are not "
+                "wired through the sequence-parallel ring (its per-step "
+                "partial softmaxes cannot host them); set sliding_window "
+                "or run without sp"
+            )
+        elif layout == "zigzag":
+            o = zigzag_ring_attention(q, k, v, group=sh.sp)
+        else:
+            o = ring_attention(q, k, v, group=sh.sp, causal=True)
+    else:
+        extra = _feature_kwargs(cfg, layer)
+        if sinks is not None:
+            extra["sinks"] = sinks
+        o = ffpa_attn_func(
+            q, k, v, is_causal=True, enable_gqa=cfg.n_heads != cfg.n_kv_heads,
+            backward_backend=CudaBackend(save_scores=cfg.attn_save_scores), **extra,
+        )
+    return reduce_from(layer.wo(o.transpose(1, 2).reshape(b, nl, hq * dh)), sh.tp)
+
+
+def forward(model: Transformer, tokens, mesh=None, sp_axis: Optional[str] = None,
+            tp_axis: str = "tp", positions=None):
+    """LM forward: tokens [B, N] int -> logits [B, N, vocab].
+
+    Under a mesh with an axis above 1, ``tokens`` are this rank's
+    [B / dp, N / sp] in the step's layout (``_local_tokens``) and
+    ``positions`` their global positions; the logits are this rank's."""
+    sh = _shards(mesh, sp_axis, tp_axis, None)
+    if sh is None:
+        def attend(layer, h):
+            return _attention(layer, h, model.cfg)
+        mlp = _mlp
+    else:
+        if positions is None:
+            positions = torch.arange(tokens.shape[1], device=tokens.device)
+
+        def attend(layer, h):
+            return _sharded_attention(layer, h, model.cfg, sh, positions)
+
+        def mlp(layer, h):  # column-parallel up / gate, row-parallel down
+            return reduce_from(_mlp(layer, copy_to(h, sh.tp)), sh.tp)
     x = model.embed[tokens]
     for layer in model.layers:
-        x = x + _attention(layer, _rmsnorm(x, layer.attn_norm), model.cfg)
-        x = x + _mlp(layer, _rmsnorm(x, layer.mlp_norm))
+        x = x + attend(layer, _rmsnorm(x, layer.attn_norm))
+        x = x + mlp(layer, _rmsnorm(x, layer.mlp_norm))
     return _rmsnorm(x, model.final_norm) @ model.embed.T
 
 
-def loss_fn(model: Transformer, tokens):
-    """Mean next-token cross entropy of tokens [B, N + 1], in fp32."""
-    logits = forward(model, tokens[:, :-1])
+def _local_tokens(tokens, cfg: ModelConfig, sh: _Shards):
+    """This rank's (inputs, targets, positions) of the global tokens
+    [B, N + 1]: its B / dp rows, and its N / sp tokens of the sp layout (the
+    zigzag order where ``_sp_layout`` says so, contiguous otherwise)."""
+    from ..parallel.zigzag import zigzag_shuffle
+
+    b, n = tokens.shape[0], tokens.shape[1] - 1
+    if b % sh.dp_size or n % sh.sp_size:
+        raise ValueError(f"tokens [{b}, {n + 1}] do not split over dp={sh.dp_size}, "
+                         f"sp={sh.sp_size} (B % dp and N % sp must be 0)")
+    rows = tokens[sh.dp_rank * (b // sh.dp_size):(sh.dp_rank + 1) * (b // sh.dp_size)]
+    inputs, targets = rows[:, :-1], rows[:, 1:]
+    positions = torch.arange(n, device=tokens.device)
+    if sh.sp_size > 1:
+        if _sp_layout(cfg, n, sh.sp_size) == "zigzag":
+            inputs, targets, positions = (zigzag_shuffle(t, sh.sp_size, axis=t.dim() - 1)
+                                          for t in (inputs, targets, positions))
+        nl = n // sh.sp_size
+        cut = slice(sh.sp_rank * nl, (sh.sp_rank + 1) * nl)
+        inputs, targets, positions = inputs[:, cut], targets[:, cut], positions[cut]
+    return inputs, targets, positions
+
+
+def loss_fn(model: Transformer, tokens, mesh=None, sp_axis: Optional[str] = None,
+            dp_axis: Optional[str] = "dp"):
+    """Mean next-token cross entropy of tokens [B, N + 1], in fp32.
+
+    Under a mesh every rank passes the same global tokens and gets the
+    global mean; its gradient reaches only this rank's share (the step sums
+    the gradients over dp x sp)."""
+    sh = _shards(mesh, sp_axis, "tp", dp_axis)
+    if sh is None:
+        logits = forward(model, tokens[:, :-1])
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        return -logp.gather(-1, tokens[:, 1:, None])[..., 0].mean()
+    inputs, targets, positions = _local_tokens(tokens, model.cfg, sh)
+    logits = forward(model, inputs, mesh, sp_axis, positions=positions)
     logp = torch.log_softmax(logits.float(), dim=-1)
-    return -logp.gather(-1, tokens[:, 1:, None])[..., 0].mean()
+    nll = -logp.gather(-1, targets[..., None])[..., 0].sum()
+    count = tokens.shape[0] * (tokens.shape[1] - 1)
+    return reduce_from(reduce_from(nll, sh.dp), sh.sp) / count
 
 
 class _AdamW:
@@ -227,14 +386,35 @@ def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999, eps: float =
     return _AdamW(learning_rate, b1, b2, eps, weight_decay)
 
 
-def make_train_step(cfg: ModelConfig, optimizer: _AdamW, device=None) -> Callable:
+def _all_reduce_grads(model: Transformer, sh: _Shards) -> None:
+    """Sum every gradient over dp x sp (in fp32), the sinks' also over tp."""
+    sinks = {id(layer.attn_sinks) for layer in model.layers if layer.attn_sinks is not None}
+    for p in model.parameters():
+        groups = [sh.dp, sh.sp] + ([sh.tp] if id(p) in sinks else [])
+        groups = [g for g in groups if g is not None]
+        if groups:
+            g32 = p.grad.float()
+            for g in groups:
+                dist.all_reduce(g32, group=g)
+            p.grad = g32.to(p.grad.dtype)
+
+
+def make_train_step(cfg: ModelConfig, optimizer: _AdamW, device=None, mesh=None,
+                    sp_axis: Optional[str] = None, dp_axis: Optional[str] = "dp") -> Callable:
     """A train step on ``device`` (CUDA unless asked otherwise):
     ``step(model, opt_state, tokens) -> (opt_state, loss)``. The loss and
     gradients come from ``loss_fn`` under ``torch.autograd``; each
     parameter is updated in place as ``(p.float() + u).to(p.dtype)``, as
     the JAX step updates its bf16 params. ``opt_state`` is
-    ``optimizer.init(list(model.parameters()))``."""
+    ``optimizer.init(list(model.parameters()))``.
+
+    With ``mesh`` (axes ``dp_axis``, ``"tp"`` and ``sp_axis``; any may be
+    absent) every rank calls the step with the same global tokens and its
+    ``shard_params`` model (the optimizer state initialised after the
+    sharding); dp on the batch, tp inside the projections, sp inside
+    attention, the gradients summed as the module docstring says."""
     dev = resolve_device(device)
+    sh = _shards(mesh, sp_axis, "tp", dp_axis)
 
     def step(model: Transformer, opt_state: dict, tokens):
         if model.cfg != cfg:
@@ -245,8 +425,13 @@ def make_train_step(cfg: ModelConfig, optimizer: _AdamW, device=None) -> Callabl
         tokens = torch.as_tensor(tokens, device=params[0].device)
         for p in params:
             p.grad = None
-        loss = loss_fn(model, tokens)
-        loss.backward()
+        if sh is None:
+            loss = loss_fn(model, tokens)
+            loss.backward()
+        else:
+            loss = loss_fn(model, tokens, mesh, sp_axis, dp_axis)
+            loss.backward()
+            _all_reduce_grads(model, sh)
         updates, opt_state = optimizer.update([p.grad for p in params], opt_state, params)
         with torch.no_grad():
             for p, u in zip(params, updates):

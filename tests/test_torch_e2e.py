@@ -71,7 +71,7 @@ def test_unknown_leg_raises():
     with pytest.raises(SystemExit, match="unknown e2e bench"):
         _e2e.main(only="nope", device="cpu")
     with pytest.raises(SystemExit, match="unknown e2e bench"):
-        _e2e.main(only=["smoke", "scaling_projection"], device="cpu")
+        _e2e.main(only=["smoke", "scaling"], device="cpu")
 
 
 def test_inproc_runs_in_this_process(monkeypatch, capsys):
@@ -99,12 +99,12 @@ def _defaults(fn):
 @pytest.mark.parametrize("name", list(_e2e.E2E_BENCHES))
 def test_leg_defaults_match_jax(je2e, name):
     """Each leg's keyword defaults are the JAX leg's; the port's adds only
-    ``device`` (a leg taking ``**kw`` passes it on). The JAX package's
-    ``scaling_projection`` is not a leg of the port yet."""
+    ``device`` (a leg taking ``**kw`` passes it on). The two packages have
+    the same legs, ``scaling_projection`` included."""
     got, want = _defaults(_e2e.E2E_BENCHES[name]), _defaults(je2e.E2E_BENCHES[name])
     assert got.pop("device", None) is None
     assert got == want
-    assert set(je2e.E2E_BENCHES) - set(_e2e.E2E_BENCHES) == {"scaling_projection"}
+    assert set(je2e.E2E_BENCHES) == set(_e2e.E2E_BENCHES)
 
 
 @pytest.mark.parametrize("name", list(LEGS))
