@@ -140,8 +140,12 @@ It imports only ``ffpa_attn_tpu_torch``, torch and numpy, and runs, in order:
    against the one-rank call; the training model's step under a dp1 x tp2
    x sp2 mesh (4 ranks, zigzag) and the windowed model's under sp2 (halo),
    each rank's launches held to the schedule, the first step's gradients
-   and loss to the single-card step's; the dry run at world 4; the
-   ``scaling_projection`` leg;
+   and loss to the single-card step's; the zigzag model saved at step 1
+   over the mesh (one writer), restored into a fresh sharded model whose
+   step 2 equals the uninterrupted one bit for bit on every rank, step 2
+   saved with ``max_to_keep=1`` and restored here into one unsharded
+   model, held to rank 0's gathered state by per-leaf checksums; the dry
+   run at world 4; the ``scaling_projection`` leg;
 10. the ``kernels`` line, the backward rows with their ms at each ring
    cap, and each row's launches in a rank of the parallel runs.
 
@@ -5675,18 +5679,86 @@ def _par_ops(world: int) -> dict:
     return out
 
 
+def _par_digest(state: dict, opt_state: dict) -> dict:
+    """Per leaf of a whole torch-layout train state (``state_dict``,
+    ``mu``, ``nu``), the sha256 of its bytes, and the step count."""
+    import hashlib
+
+    def h(t):
+        return hashlib.sha256(t.detach().contiguous().view(torch.uint8).cpu().numpy()).hexdigest()
+
+    out = {name: h(t) for name, t in state.items()}
+    out.update({f"{key}.{i}": h(t) for key in ("mu", "nu") for i, t in enumerate(opt_state[key])})
+    out["count"] = int(opt_state["count"])
+    return out
+
+
+def _par_timed(fn) -> tuple:
+    """(fn(), ms): host clock from a world barrier to a synchronize."""
+    import torch.distributed as dist
+
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _par_resume(ckpt: str, cfg, mesh, step, opt, tokens, model, state, loss: float) -> dict:
+    """A model of other weights (torch seed 7), ``shard_params`` and a
+    fresh ``opt.init`` on this rank, restored from step 1 of ``ckpt`` and
+    taken through step 2 with the counts set to 0 just before it and read
+    just after; its loss and this rank's parameter and moment shards held
+    to the uninterrupted step 2 (``model``, ``state``, ``loss``) with
+    ``torch.equal``; then step 2 saved with ``max_to_keep=1`` and the
+    directory listed; rank 0's digest of the gathered state."""
+    import torch.distributed as dist
+
+    from ffpa_attn_tpu_torch.models import (
+        Transformer, gather_train_state, restore_train_state, save_train_state, shard_params,
+    )
+    from ffpa_attn_tpu_torch.utils.profiling import launch_counts as counts
+
+    torch.manual_seed(7)
+    fresh = shard_params(Transformer(cfg), mesh, cfg)
+    fstate = opt.init(list(fresh.parameters()))
+    (fresh, fstate, restored), restore_ms = _par_timed(
+        lambda: restore_train_state(ckpt, fresh, fstate, step=1, mesh=mesh))
+    dist.barrier()
+    torch.cuda.synchronize()
+    counts(zero=True)
+    fstate, floss = step(fresh, fstate, tokens)
+    floss = float(floss)
+    launches = {key: c for key, c in counts().items() if c}
+    same = ([torch.equal(a, b) for a, b in zip(model.parameters(), fresh.parameters())]
+            + [torch.equal(a, b) for key in ("mu", "nu") for a, b in zip(state[key], fstate[key])])
+    _, save_ms = _par_timed(lambda: save_train_state(ckpt, 2, fresh, fstate, max_to_keep=1,
+                                                     mesh=mesh))
+    listing = sorted(os.listdir(ckpt))
+    whole = gather_train_state(fresh, fstate, mesh)
+    digest = _par_digest(*whole) if dist.get_rank() == 0 else None
+    del whole, fresh, fstate
+    torch.cuda.empty_cache()
+    return {"restored_step": restored, "restore_ms": restore_ms, "save2_ms": save_ms,
+            "loss": floss, "loss_equal": floss == loss, "shards_equal": sum(same),
+            "shards": len(same), "launches": launches, "listing2": listing, "digest": digest}
+
+
 def _par_train(out_dir: str, name: str, cfg) -> dict:
     """A sharded step of ``cfg`` over PAR_AXES: random weights from numpy
     seed 0 through ``shard_params``, tokens from seed 1, PAR_STEPS steps,
     each with the counts set to 0 just before it and read just after; the
     first step's gradients gathered (``gather_params_to_jax``) and held on
     rank 0 against the single-card step's (``ref_<name>.pkl``); then the
-    gradient all-reduce over dp x sp timed alone (host clock)."""
+    gradient all-reduce over dp x sp timed alone (host clock). The zigzag
+    model is also saved over the mesh after step 1 (``ckpt_<name>/``,
+    timed) and resumed from it (``_par_resume``)."""
     import torch.distributed as dist
 
     from ffpa_attn_tpu_torch.models import (
         adamw, gather_params_to_jax, make_train_step, params_from_jax, random_params,
-        shard_params,
+        save_train_state, shard_params,
     )
     from ffpa_attn_tpu_torch.models.transformer import _all_reduce_grads, _shards
     from ffpa_attn_tpu_torch.parallel import make_mesh
@@ -5699,7 +5771,8 @@ def _par_train(out_dir: str, name: str, cfg) -> dict:
     opt = adamw(1e-4)
     state = opt.init(list(model.parameters()))
     step = make_train_step(cfg, opt, mesh=mesh, sp_axis="sp")
-    rows, held = [], None
+    ckpt = os.path.join(out_dir, f"ckpt_{name}") if name == "zigzag" else None
+    rows, held, saved = [], None, None
     for i in range(PAR_STEPS):
         dist.barrier()
         torch.cuda.synchronize()
@@ -5716,15 +5789,22 @@ def _par_train(out_dir: str, name: str, cfg) -> dict:
                 held = dict(_par_grad_errs(grads, ref["grads"]), loss=loss,
                             ref_loss=ref["loss"])
             del grads
+            if ckpt:
+                _, ms = _par_timed(lambda: save_train_state(ckpt, 1, model, state, mesh=mesh))
+                saved = {"save_ms": ms, "listing1": sorted(os.listdir(ckpt)),
+                         "bytes": os.path.getsize(os.path.join(ckpt, "ckpt_1.pt"))}
     dist.barrier()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     _all_reduce_grads(model, _shards(mesh, "sp", "tp", "dp"))  # the step's sum, timed alone
     torch.cuda.synchronize()
     reduce_ms = (time.perf_counter() - t0) * 1e3
+    if ckpt:
+        saved.update(_par_resume(ckpt, cfg, mesh, step, opt, tokens, model, state,
+                                 rows[-1]["loss"]))
     del model, state
     torch.cuda.empty_cache()
-    return {"rows": rows, "held": held, "grad_all_reduce_ms": reduce_ms}
+    return {"rows": rows, "held": held, "grad_all_reduce_ms": reduce_ms, "checkpoint": saved}
 
 
 def _par_rank(out_dir: str) -> None:
@@ -5804,6 +5884,67 @@ def _par_hold_step(label: str, cfg, res: list, want_fn, smi: str) -> dict:
     return {"ms": res[0]["rows"][-1]["ms"], "grad_err": held["worst"], "loss_err": loss_err}
 
 
+def _par_restore_unsharded(ckpt: str, cfg) -> dict:
+    """The newest step of ``ckpt`` restored in this process into one
+    unsharded model of ``cfg`` (torch seed 8) and its ``opt.init``, timed
+    (host clock), and the digest of what it holds."""
+    from ffpa_attn_tpu_torch.models import Transformer, adamw, restore_train_state
+
+    torch.manual_seed(8)
+    model = Transformer(cfg)
+    state = adamw(1e-4).init(list(model.parameters()))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, state, step = restore_train_state(ckpt, model, state)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    out = {"step": step, "ms": ms, "digest": _par_digest(model.state_dict(), state)}
+    del model, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _par_hold_checkpoint(res: list, restored: dict, want_fn, smi: str) -> dict:
+    """The zigzag model's checkpoint over the mesh: on every rank the save
+    of step 1 left one file and no temporary one, the model restored from
+    it launched ``want_fn(rank)`` in its step 2 and equals the
+    uninterrupted step 2 bit for bit (loss, every shard), and the save of
+    step 2 with ``max_to_keep=1`` left ``ckpt_2.pt`` alone; the unsharded
+    restore of that file in this process equals rank 0's gathered state
+    leaf by leaf (sha256)."""
+    for r, c in enumerate(res):
+        want = want_fn(r)
+        if c["listing1"] != ["ckpt_1.pt"] or c["listing2"] != ["ckpt_2.pt"]:
+            fail(f"checkpoint: rank {r} listed {c['listing1']} after the save of step 1 and "
+                 f"{c['listing2']} after step 2's (max_to_keep=1)")
+        if c["restored_step"] != 1 or c["launches"] != want:
+            fail(f"checkpoint: rank {r} restored step {c['restored_step']}, its step 2 launched "
+                 f"{c['launches']}, the schedule says {want}")
+        if not c["loss_equal"] or c["shards_equal"] != c["shards"]:
+            fail(f"checkpoint: rank {r}'s resumed step 2 differs from the uninterrupted one "
+                 f"(loss equal {c['loss_equal']}, {c['shards_equal']} of {c['shards']} shards "
+                 "equal)")
+    want, got = res[0]["digest"], restored["digest"]
+    same = sum(got.get(k) == v for k, v in want.items())
+    ok = restored["step"] == 2 and same == len(want) and len(got) == len(want)
+    c = res[0]
+    log(f"    checkpoint over the mesh (one writer, rank 0): step 1 saved in "
+        f"{[round(x['save_ms'], 1) for x in res]} ms by rank, {c['bytes']} bytes "
+        f"({c['bytes'] / 2**30:.3f} GiB), restored into a fresh sharded model in "
+        f"{[round(x['restore_ms'], 1) for x in res]} ms; the resumed step 2 launched "
+        f"{c['launches']} on rank 0 (= schedule on every rank), loss {c['loss']:.6f} bit-equal, "
+        f"{c['shards_equal']} of {c['shards']} shards bit-equal on every rank; step 2 saved "
+        f"(max_to_keep=1) in {[round(x['save2_ms'], 1) for x in res]} ms, leaving "
+        f"{c['listing2']}; restored into one unsharded model here in {restored['ms']:.1f} ms, "
+        f"{same} of {len(want)} leaves' sha256 equal to rank 0's gathered state "
+        f"{'ok' if ok else 'FAIL'} (host clock, {len(res)} ranks on {smi})")
+    if not ok:
+        fail(f"checkpoint: the unsharded restore of step {restored['step']} differs from rank "
+             f"0's gathered state in {len(want) - same} of {len(want)} leaves")
+    return {"save_ms": c["save_ms"], "save2_ms": c["save2_ms"], "restore_ms": c["restore_ms"],
+            "unsharded_restore_ms": restored["ms"], "bytes": c["bytes"]}
+
+
 def phase_parallel(smi: str) -> dict:
     """``ffpa_attn_tpu_torch.parallel`` on the card, every rank on it:
 
@@ -5813,7 +5954,9 @@ def phase_parallel(smi: str) -> dict:
        transport, the staged rotation's ms); the op level: ring, Ulysses,
        head-parallel and paged head-parallel decode against the one-rank
        call; the full-width sharded step (dp1 x tp2 x sp2, zigzag) and the
-       windowed model's (halo), each held to the single-card step;
+       windowed model's (halo), each held to the single-card step; the
+       zigzag model's checkpoint over the mesh (``_par_resume``), its step 2
+       restored here into one unsharded model (``_par_hold_checkpoint``);
     3. the dry run at world 4 (``parallel.dryrun.main``) and the
        ``scaling_projection`` leg.
     """
@@ -5839,6 +5982,7 @@ def phase_parallel(smi: str) -> dict:
         dryrun.spawn_ranks(_par_rank, PAR_WORLD, (d,), backend="gloo", env=env, timeout_s=400)
         wall = time.perf_counter() - t0
         res = [_par_load(d, f"rank{r}.pkl") for r in range(PAR_WORLD)]
+        restored = _par_restore_unsharded(os.path.join(d, "ckpt_zigzag"), models["zigzag"])
     probe = res[0]["probe"]
     log(f"  {PAR_WORLD} ranks, {wall:.1f} s with the spawn; backend {res[0]['transport']}; "
         f"FFPA_TORCH_HBM_BYTES {res[0]['hbm_bytes']} a rank; collectives on CUDA tensors over "
@@ -5866,6 +6010,8 @@ def phase_parallel(smi: str) -> dict:
                 "banded_dq": zcfg.n_layers * s["causal"]}
 
     full = _par_hold_step("zigzag step", zcfg, [r["zigzag"] for r in res], zigzag_want, smi)
+    full["checkpoint"] = _par_hold_checkpoint([r["zigzag"]["checkpoint"] for r in res], restored,
+                                              zigzag_want, smi)
     window = _par_hold_step("windowed step (halo)", wcfg, [r["window"] for r in res],
                             lambda r: {"flash_fwd": wcfg.n_layers, "dkdv": wcfg.n_layers,
                                        "dq": wcfg.n_layers}, smi)
@@ -5970,8 +6116,10 @@ def main() -> int:
         + f"loss_rel_err {training['loss_err']:.2e} "
         f"grad_rel_err {training['grad_err']:.2e} s_resident_grad_rel_err "
         f"{resident['grad_err']:.2e} parallel_grad_rel_err {par['full']['grad_err']:.2e} "
-        f"parallel_window_grad_rel_err {par['window']['grad_err']:.2e} parallel_s "
-        f"{par['seconds']:.1f} total {time.perf_counter() - t_start:.1f} s on {smi}")
+        f"parallel_window_grad_rel_err {par['window']['grad_err']:.2e} parallel_ckpt_save_ms "
+        f"{par['full']['checkpoint']['save_ms']:.1f} parallel_ckpt_restore_ms "
+        f"{par['full']['checkpoint']['restore_ms']:.1f} parallel_ckpt_bytes "
+        f"{par['full']['checkpoint']['bytes']} parallel_s {par['seconds']:.1f} total {time.perf_counter() - t_start:.1f} s on {smi}")
     # "ms" is the kernel's time; "kernel_ms" repeats it under its longer name.
     print(json.dumps({"kernels": [dict(r, kernel_ms=r["ms"]) for r in rows]}))
     print(smi)

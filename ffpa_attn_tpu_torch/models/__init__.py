@@ -6,11 +6,13 @@ dp x tp x sp over a mesh) and train-state checkpoints."""
 from .checkpoint import latest_step, restore_train_state, save_train_state
 from .convert import (
     gather_params_to_jax,
+    gather_train_state,
     param_specs,
     params_from_jax,
     params_to_jax,
     random_params,
     shard_params,
+    shard_train_state,
 )
 from .engine import ServingEngine
 from .generate import decode_step, generate, init_kv_cache, prefill
@@ -35,6 +37,8 @@ __all__ = [
     "param_specs",
     "shard_params",
     "gather_params_to_jax",
+    "gather_train_state",
+    "shard_train_state",
     "forward",
     "loss_fn",
     "adamw",

@@ -19,7 +19,10 @@ Tensor parallelism: ``param_specs`` names, per leaf and in torch layout,
 the dims cut on the tp axis (the JAX ``param_specs`` with the projections'
 two dims swapped); ``shard_params`` keeps a rank's slices of a whole
 model, and ``gather_params_to_jax`` is ``params_to_jax`` of the whole model
-from its shards (every rank of the tp axis calls it).
+from its shards (every rank of the tp axis calls it). For checkpoints, in
+torch layout and dtypes: ``gather_train_state`` gathers a sharded model's
+``state_dict`` and its AdamW moments whole, and ``shard_train_state`` cuts
+a whole state back to a rank's slices, as ``shard_params`` does.
 """
 
 from __future__ import annotations
@@ -115,6 +118,26 @@ def _tp(mesh, tp_axis):
     return axis_group(mesh, tp_axis), axis_size(mesh, tp_axis), axis_rank(mesh, tp_axis)
 
 
+def _cut_dim(cfg: ModelConfig):
+    """``name -> dim``: the dim along which the "tp" axis cuts the
+    ``state_dict`` entry ``name``, or None for a replicated one."""
+    layer = param_specs(cfg, "tp")["layers"][0]
+
+    def dim(name: str) -> Optional[int]:
+        parts = name.split(".")
+        spec = layer[parts[2]] if parts[0] == "layers" else ()
+        return spec.index("tp") if "tp" in spec else None
+
+    return dim
+
+
+def _narrow(t: torch.Tensor, dim: Optional[int], tp: int, rank: int) -> torch.Tensor:
+    if dim is None or tp == 1:
+        return t
+    size = t.shape[dim] // tp
+    return t.narrow(dim, rank * size, size).clone()
+
+
 @torch.no_grad()
 def shard_params(model: Transformer, mesh, cfg: ModelConfig, tp_axis: str = "tp") -> Transformer:
     """Keep only this rank's tp slices of ``model``'s projections (in
@@ -133,9 +156,7 @@ def shard_params(model: Transformer, mesh, cfg: ModelConfig, tp_axis: str = "tp"
     for layer in model.layers:
         for name in _TRANSPOSED:
             lin = getattr(layer, name)
-            dim = specs[name].index(tp_axis)
-            size = lin.weight.shape[dim] // tp
-            lin.weight = nn.Parameter(lin.weight.narrow(dim, rank * size, size).clone())
+            lin.weight = nn.Parameter(_narrow(lin.weight, specs[name].index(tp_axis), tp, rank))
             lin.out_features, lin.in_features = lin.weight.shape
     return model
 
@@ -157,6 +178,62 @@ def gather_params_to_jax(model: Transformer, mesh, tp_axis: str = "tp", *,
         return _all_gather(t, spec.index(tp_axis), group)
 
     return _pytree(model, grads, fetch)
+
+
+def _check_moments(model: Transformer, opt_state: dict) -> None:
+    n = len(list(model.parameters()))
+    if not n == len(opt_state["mu"]) == len(opt_state["nu"]):
+        raise ValueError(f"{n} parameters, {len(opt_state['mu'])} mu and "
+                         f"{len(opt_state['nu'])} nu in the optimizer state")
+
+
+def _whole_leaves(model: Transformer, opt_state: dict, mesh):
+    """Per parameter, in ``model.parameters()`` order: its ``state_dict``
+    name and the whole parameter, ``mu`` and ``nu``, each tp-cut one
+    all-gathered along its cut (a collective over the "tp" axis)."""
+    from ..parallel._collectives import _all_gather
+
+    group, _, _ = _tp(mesh, "tp")
+    dim = _cut_dim(model.cfg)
+    _check_moments(model, opt_state)
+    for (name, p), mu, nu in zip(model.named_parameters(), opt_state["mu"], opt_state["nu"]):
+        d = dim(name)
+        leaves = (p.detach(), mu, nu)
+        if group is not None and d is not None:
+            leaves = tuple(_all_gather(t, d, group) for t in leaves)
+        yield (name, *leaves)
+
+
+@torch.no_grad()
+def gather_train_state(model: Transformer, opt_state: dict, mesh):
+    """The whole train state of a ``shard_params`` model, in torch layout:
+    ``(state_dict, opt_state)``, the ``state_dict`` at the model's dtype and
+    ``opt_state``'s fp32 ``mu`` / ``nu`` in ``model.parameters()`` order,
+    each leaf cut on the mesh's "tp" axis, as ``make_train_step`` cuts it,
+    and its moments all-gathered along the leaf's cut (a collective: every
+    rank of the tp axis calls it; each gets the whole state). ``opt_state`` is the model's AdamW state. A leaf that is not
+    cut is returned as the model's or optimizer's own tensor, not a copy."""
+    state, mu, nu = {}, [], []
+    for name, p, m, v in _whole_leaves(model, opt_state, mesh):
+        state[name] = p
+        mu.append(m)
+        nu.append(v)
+    return state, dict(opt_state, mu=mu, nu=nu)
+
+
+@torch.no_grad()
+def shard_train_state(state_dict: dict, opt_state: dict, mesh, cfg: ModelConfig):
+    """The inverse of ``gather_train_state``: this rank's tp slices of a
+    whole ``state_dict`` and of ``opt_state``'s whole moments (which follow
+    the ``state_dict``'s order, that of ``model.parameters()``), narrowed
+    as ``shard_params`` narrows. No collective."""
+    _, tp, rank = _tp(mesh, "tp")
+    dim = _cut_dim(cfg)
+    dims = [dim(name) for name in state_dict]
+    state = {name: _narrow(t, d, tp, rank) for (name, t), d in zip(state_dict.items(), dims)}
+    moments = {key: [_narrow(t, d, tp, rank) for t, d in zip(opt_state[key], dims)]
+               for key in ("mu", "nu")}
+    return state, dict(opt_state, **moments)
 
 
 def random_params(cfg: ModelConfig, seed: int = 0):
@@ -195,4 +272,4 @@ def random_params(cfg: ModelConfig, seed: int = 0):
 
 
 __all__ = ["params_from_jax", "params_to_jax", "random_params", "param_specs", "shard_params",
-           "gather_params_to_jax"]
+           "gather_params_to_jax", "gather_train_state", "shard_train_state"]

@@ -140,21 +140,3 @@ def test_a_leftover_temp_file_is_ignored(tmp_path):
     for p, want in zip(model.parameters(), saved.parameters()):
         assert torch.equal(p, want)
 
-
-def test_a_tp_shard_is_refused(tmp_path, monkeypatch):
-    """One file holds the whole model: a ``shard_params`` model (here tp
-    rank 0 of 2, the process group stood in for) is refused by the save and
-    by the restore, and nothing is written."""
-    from ffpa_attn_tpu_torch.models import convert, shard_params
-
-    cfg = ModelConfig(**dict(SIZE, n_kv_heads=2))
-    d = _saved(tmp_path, cfg)
-    monkeypatch.setattr(convert, "_tp", lambda mesh, axis: (None, 2, 0))
-    model, opt, _ = _fresh(cfg)
-    shard_params(model, None, cfg)
-    state = opt.init(list(model.parameters()))
-    with pytest.raises(ValueError, match="tensor-parallel shard"):
-        save_train_state(d, 2, model, state)
-    with pytest.raises(ValueError, match="tensor-parallel shard"):
-        restore_train_state(d, model, state)
-    assert latest_step(d) == 1
