@@ -3711,12 +3711,33 @@ def fp8_ds_times(row, rows: list, fp8_training: dict, by_kernel: dict, lib: tupl
                         train_step_ms_16=fp8_training["step_ms_16"])
 
 
+def _hold_capped_plans(what: str, read, mirror, hd: int, hdv: int) -> None:
+    """Fail unless the library's plan at (hd, hdv) equals the mirror's at
+    every ring cap from FWD_MIN_STAGES to the plan's depth, and the library
+    refuses a cap below the least and one past the depth."""
+    from ffpa_attn_tpu_torch.ops.config import FWD_MIN_STAGES
+
+    depth = mirror(hd, hdv).stages
+    for cap in range(FWD_MIN_STAGES, depth + 1):
+        if read(hd, hdv, cap) != mirror(hd, hdv, ring_cap=cap):
+            fail(f"the {what} launcher's plan at D{hd}/Dv{hdv} ring cap {cap} "
+                 f"{read(hd, hdv, cap)} differs from its mirror {mirror(hd, hdv, ring_cap=cap)}")
+    for cap in (FWD_MIN_STAGES - 1, depth + 1):
+        try:
+            read(hd, hdv, cap)
+        except RuntimeError:
+            continue
+        fail(f"the {what} launcher took a ring cap of {cap} at D{hd}/Dv{hdv}")
+
+
 def fwd_kernel_row_extras(d: int) -> dict:
     """The forward's route at head dim ``d`` and both routes' kernels'
     registers and spill bytes, for the ``kernels`` line; fails unless the
     launcher's plan equals its mirror (``ops/config.py`` ``fwd_plan``) at
     every head-dim pair of ``tests/test_torch_fwd_plan.py`` (D, Dv 64..1024,
-    both routes), neither route's kernel spills, and ptxas kept the wgmma
+    both routes) and every ring cap (FWD_MIN_STAGES up to the plan's depth;
+    one below and one past it refused), neither route's kernel spills, and
+    ptxas kept the wgmma
     pipeline of every kernel of flash_fwd.cu, flash_bwd.cu, decode.cu,
     paged_decode.cu, varlen_fwd.cu and varlen_bwd.cu (no C7515 / C7520 note
     in any of their builds' logs)."""
@@ -3728,9 +3749,10 @@ def fwd_kernel_row_extras(d: int) -> dict:
         if flash_fwd.fwd_kernel_plan(hd, hdv) != fwd_plan(hd, hdv):
             fail(f"forward launcher's plan at D{hd}/Dv{hdv} {flash_fwd.fwd_kernel_plan(hd, hdv)} "
                  f"differs from ops/config.py fwd_plan {fwd_plan(hd, hdv)}")
+        _hold_capped_plans("forward", flash_fwd.fwd_kernel_plan, fwd_plan, hd, hdv)
     log(f"  flash_fwd plan at D{d}: {flash_fwd.fwd_kernel_plan(d, d)}; at D1024: "
         f"{flash_fwd.fwd_kernel_plan(1024, 1024)} (the launcher's, equal to ops/config.py "
-        f"fwd_plan at {len(pairs)} head-dim pairs)")
+        f"fwd_plan at {len(pairs)} head-dim pairs and every ring cap)")
     attrs = {}
     for route in ("wgmma", "wgmma_cluster"):
         for dt in (torch.bfloat16, torch.float16):
@@ -4001,8 +4023,8 @@ def varlen_fwd_kernel_row_extras(d: int) -> dict:
     """The varlen forward's route at head dim ``d`` and both routes'
     kernels' registers and spill bytes, for the ``kernels`` line; fails
     unless the launcher's plan equals its mirror (``ops/config.py``
-    ``varlen_fwd_plan``, the dense ``fwd_plan``) at D, Dv 64..1024 and D !=
-    Dv, and neither route spills in either dtype. The C7515 / C7520 notes of
+    ``varlen_fwd_plan``, the dense ``fwd_plan``) at D, Dv 64..1024, D != Dv
+    and every ring cap, and neither route spills in either dtype. The C7515 / C7520 notes of
     ``varlen_fwd.cu`` are checked with the build's."""
     from ffpa_attn_tpu_torch.ops import varlen
     from ffpa_attn_tpu_torch.ops.config import fwd_plan, varlen_fwd_plan
@@ -4016,9 +4038,11 @@ def varlen_fwd_kernel_row_extras(d: int) -> dict:
         if got != want or want != fwd_plan(hd, hdv):
             fail(f"varlen forward launcher's plan at D{hd}/Dv{hdv} {got} differs from "
                  f"ops/config.py varlen_fwd_plan {want}")
+        _hold_capped_plans("varlen forward", varlen.varlen_fwd_kernel_plan, varlen_fwd_plan, hd,
+                           hdv)
     log(f"  varlen_fwd plan at D{d}: {varlen.varlen_fwd_kernel_plan(d, d)}; at D1024: "
         f"{varlen.varlen_fwd_kernel_plan(1024, 1024)} (the launcher's, equal to ops/config.py "
-        f"varlen_fwd_plan at {len(pairs)} head-dim pairs)")
+        f"varlen_fwd_plan at {len(pairs)} head-dim pairs and every ring cap)")
     attrs = {}
     for route in ("wgmma", "wgmma_cluster"):
         for dt in (torch.bfloat16, torch.float16):
@@ -5198,17 +5222,20 @@ def _event_ms(run, reps: int = 10, before=lambda: None) -> float:
 
 
 def ring_cap_times() -> dict:
-    """Each backward kernel that takes its ring depth at run time, at its
-    main-path shape, at every cap from the plan's depth down to the fewest
-    stages its walk holds: the outputs at every cap held bit-equal to the
-    plan's (the device code is the same; only the ring's depth and the
-    shared memory change), and each cap's CUDA-event ms. Returns
-    {kernel row: {"plan_stages", "min_stages", "ms": {cap: ms}}} (cap 0 is
-    the plan's depth)."""
+    """Each kernel that takes its ring depth at run time (the forward, the
+    packed forward and the backward kernels), at its main-path shape, at
+    every cap from the plan's depth down to the fewest stages its walk
+    holds, and the two forwards' clusters at D1024: the outputs at every
+    cap held bit-equal to the plan's (the device code is the same; only
+    the ring's depth and the shared memory change), and each cap's
+    CUDA-event ms. Returns {kernel row (``flash_fwd_d1024``: the
+    ``flash_fwd`` row's cluster): {"plan_stages", "min_stages", "ms": {cap:
+    ms}}} (cap 0 is the plan's depth)."""
     from ffpa_attn_tpu_torch.ops import flash_bwd, flash_fwd, varlen
     from ffpa_attn_tpu_torch.ops.config import (
-        DKDV_MIN_STAGES, DQ_MIN_STAGES, BlockConfig, dkdv_plan, dq_plan, from_s_min_stages,
-        from_s_plan, varlen_dkdv_plan, varlen_dq_plan,
+        DKDV_MIN_STAGES, DQ_MIN_STAGES, FWD_MIN_STAGES, BlockConfig, default_config, dkdv_plan,
+        dq_plan, from_s_min_stages, from_s_plan, fwd_plan, varlen_dkdv_plan, varlen_dq_plan,
+        varlen_fwd_plan,
     )
 
     bf = torch.bfloat16
@@ -5236,6 +5263,9 @@ def ring_cap_times() -> dict:
         log(f"  {name}: bit-equal at every ring cap; CUDA-event ms by cap (0 = the plan's "
             f"{stages} stages): " + " ".join(f"{c}:{m:.4f}" for c, m in ms.items()))
 
+    sweep("flash_fwd", lambda c: flash_fwd.flash_attention_forward(
+        q, k, v, None, scale=scale, is_causal=True, config=BlockConfig(fwd_ring_cap=c)),
+        fwd_plan(d, d).stages, FWD_MIN_STAGES)
     kw = dict(scale=scale, is_causal=True, causal_offset=0, dropout_p=0.0, group=hq // hkv)
     o, lse = flash_fwd.flash_attention_forward(q, k, v, None, scale=scale, is_causal=True)
     delta = (do.float() * o.float()).sum(-1)
@@ -5268,12 +5298,15 @@ def ring_cap_times() -> dict:
     t = sum(PACK_LENS)
     vkw = dict(scale=scale, causal=True, softcap=0.0, window=(-1, -1))
     meta = varlen._call_metadata(x["cu"], x["cu"], t, t, "cuda")
+    walk = varlen._call_walk(meta, t, True, (-1, -1))
+    sweep("varlen_fwd", lambda c: varlen._varlen_forward(
+        x["q"], x["k"], x["v"], x["cu"], x["cu"], meta=meta, walk=walk,
+        config=BlockConfig(fwd_ring_cap=c), **vkw), varlen_fwd_plan(d, d).stages, FWD_MIN_STAGES)
     vo, vlse = varlen._varlen_forward(x["q"], x["k"], x["v"], x["cu"], x["cu"], meta=meta, **vkw)
     ops = varlen._BwdOperands(x["q"], x["k"], x["v"], x["do"], vlse,
                               varlen._varlen_delta(x["do"], vo), None)
     dkdv_sched, dq_sched = varlen._backward_schedules(
-        meta, t, varlen_dkdv_plan(d, d), varlen_dq_plan(d, d), True, (-1, -1),
-        varlen._call_walk(meta, t, True, (-1, -1)))
+        meta, t, varlen_dkdv_plan(d, d), varlen_dq_plan(d, d), True, (-1, -1), walk)
     vcfg = BlockConfig(dkdv_col_passes=varlen_dkdv_plan(d, d).passes)
     sweep("varlen_dkdv", lambda c: varlen._varlen_dkdv_kernel(
         ops, meta, dkdv_sched, replace(vcfg, bwd_ring_cap=c), **vkw),
@@ -5281,7 +5314,77 @@ def ring_cap_times() -> dict:
     sweep("varlen_dq", lambda c: (varlen._varlen_dq_kernel(
         ops, meta, dq_sched, replace(vcfg, bwd_ring_cap=c), **vkw),),
         varlen_dq_plan(d, d).stages, DQ_MIN_STAGES)
+    del q, k, v, do, x, ops
+    # Above D512 the forwards' clusters: the forward at fwd_cluster_times'
+    # shape (row "1 (D > 512)"), the packed forward at varlen_cluster_times'
+    # packing (row "8 (D > 512)").
+    wd = 1024
+    wq, wk, wv = (_randn((1, hq, n, wd), bf, gen) for _ in range(3))
+    wcfg = default_config(wd, wd, n, n, itemsize=2)
+    sweep("flash_fwd_d1024", lambda c: flash_fwd.flash_attention_forward(
+        wq, wk, wv, None, scale=wd ** -0.5, is_causal=True,
+        config=replace(wcfg, fwd_ring_cap=c)), fwd_plan(wd, wd).stages, FWD_MIN_STAGES)
+    del wq, wk, wv
+    wx = packed_inputs(bf, wd)
+    wmeta = varlen._call_metadata(wx["cu"], wx["cu"], t, t, "cuda")
+    wwalk = varlen._call_walk(wmeta, t, True, (-1, -1))
+    sweep("varlen_fwd_cluster", lambda c: varlen._varlen_forward(
+        wx["q"], wx["k"], wx["v"], wx["cu"], wx["cu"], meta=wmeta, walk=wwalk,
+        config=BlockConfig(fwd_ring_cap=c), **dict(vkw, scale=wd ** -0.5)),
+        varlen_fwd_plan(wd, wd).stages, FWD_MIN_STAGES)
     return out
+
+
+@contextlib.contextmanager
+def _launch_args(entry_points: dict):
+    """Inside the block, record the argument at index ``entry_points[name]``
+    of every launch of each named C entry point (the ring cap a forward
+    passes, the split count decode passes): yields {name: [value, ...]}.
+    Wraps ``_build.load``, through which every wrapper reaches its
+    library."""
+    from ffpa_attn_tpu_torch.ops import _build, decode, flash_fwd, varlen
+
+    flash_fwd._fwd_lib()  # the entry points' argument types, set on the libraries
+    varlen._varlen_lib()
+    decode._decode_fn("ffpa_decode_fwd")
+    seen = {name: [] for name in entry_points}
+    real = _build.load
+
+    class Recorder:
+        def __init__(self, lib):
+            self._lib = lib
+
+        def __getattr__(self, name):
+            fn = getattr(self._lib, name)
+            if name not in entry_points:
+                return fn
+
+            def call(*args):
+                seen[name].append(args[entry_points[name]])
+                return fn(*args)
+
+            call.argtypes = fn.argtypes
+            return call
+
+    _build.load = lambda name: Recorder(real(name))
+    try:
+        yield seen
+    finally:
+        _build.load = real
+
+
+def _host_call_us(fn, calls: int = 20, repeats: int = 20) -> float:
+    """Host µs a call of ``fn`` spends enqueueing: the least of ``repeats``
+    runs of ``calls`` calls, each run started on an idle card."""
+    best = float("inf")
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return best
 
 
 def _lookup_us(fn, reps: int = 20000) -> float:
@@ -5307,33 +5410,48 @@ def _autotune_in(smi: str, root: str) -> dict:
     """The tuned-config store on the card, with ``FFPA_TORCH_TUNED_CONFIG_DIR``
     a new directory under ``root``:
 
-    1. searches one ``bwd`` task (``TUNE_BWD``), one ``varlen`` task and two
-       ``decode`` tasks (``TUNE_DECODE``: the rule's count alone) and writes
-       their winners, logging every reading (the plan's between the
-       others') and the plan's spread;
+    1. searches one ``bwd`` task (``TUNE_BWD``), one ``fwd`` task (the
+       training shape: TRAIN_N, the training model's heads), one ``varlen``
+       task (the packed forward's ring caps, then the backward pair's) and
+       two ``decode`` tasks (``TUNE_DECODE``: the rule's split count and its
+       halvings) and writes their winners, logging every reading (the
+       plan's between the others') and the plan's spread;
     2. runs each direction's call tuned and untuned
-       (``FFPA_TORCH_SKIP_TUNED_CONFIG=1``): the backward and the packed
-       backward bit-equal to each other (a ring cap changes no arithmetic)
-       and to the fp32 oracle / the per-segment dense path at the gradient
-       tolerances, decode per row against its plain version;
-    3. checks that each pick equals the stored entry, that a stored entry at
-       the shallowest ring reaches the launch (its call bit-equal) and one of
-       other head dims does not, and times every backward kernel at each
-       ring cap (``ring_cap_times``: bit-equal to the plan's);
+       (``FFPA_TORCH_SKIP_TUNED_CONFIG=1``): the backward, the forward and
+       the packed call bit-equal to each other (a ring cap or a split count
+       changes no arithmetic of the forwards) and to the fp32 oracle / the
+       per-segment dense path at the gradient tolerances, decode per row
+       against its plain version;
+    3. checks that each pick equals the stored entry, that the stored ring
+       cap or split count is the one the launch passes to its library
+       (``_launch_args``), that a stored entry at the shallowest ring
+       reaches the launch (its call bit-equal) and one of other head dims
+       does not, that decode obeys a stored count below the rule's and
+       clamps one above it, and times every kernel that takes its ring at
+       run time at each cap (``ring_cap_times``: bit-equal to the plan's);
     4. runs ``python -m ffpa_attn_tpu_torch.autotune --isolate-tasks`` on one
        decode task and reads its entry back through the lookup;
-    5. runs ``verify`` on one backward case (its dQ gate must pass);
+    5. runs ``verify`` on one backward case (its dQ gate must pass), and
+       one ``ffpa_attn_func(..., backend=CudaBackend(autotune=True))`` call
+       (the search at the call) held to the fp32 oracle;
     6. times the lookup on the host: an empty store, a memoised hit, a
-       query with no matching entry.
+       query with no matching entry; decode's memoised split count; and the
+       serving step's decode call with the lookup and with it taken out
+       (the parent's path), in turns.
 
     Any miss fails the run. Returns the times for the ``kernels`` line and
     the log."""
-    from ffpa_attn_tpu_torch import ffpa_attn_func
+    from ffpa_attn_tpu_torch import CudaBackend, ffpa_attn_func
     from ffpa_attn_tpu_torch.autotune import search, store, verify
-    from ffpa_attn_tpu_torch.ops import decode
-    from ffpa_attn_tpu_torch.ops.config import from_s_min_stages
+    from ffpa_attn_tpu_torch.models.serving import shared_row_bias
+    from ffpa_attn_tpu_torch.ops import attention as attn_ops
+    from ffpa_attn_tpu_torch.ops import decode, dispatch, varlen
+    from ffpa_attn_tpu_torch.ops.config import (
+        FWD_MIN_STAGES, from_s_min_stages, fwd_plan, ring_depth, varlen_fwd_plan,
+    )
     from ffpa_attn_tpu_torch.ops.dispatch import (
-        pick_backward_config, pick_varlen_backward_config,
+        pick_backward_config, pick_decode_config, pick_forward_config, pick_varlen_backward_config,
+        pick_varlen_config,
     )
     from ffpa_attn_tpu_torch.ops.reference import (
         expand_kv_heads, reduce_q_heads, reference_attention,
@@ -5364,6 +5482,12 @@ def _autotune_in(smi: str, root: str) -> dict:
         vfound = search.autotune_varlen(x["q"], x["k"], x["v"], cu4, t // 4, scale=scale)
         var_key = store.ConfigKey("varlen", "bfloat16", cb["d"], cb["d"], t, t, False, False,
                                   False, False, 0)
+        fd, fhq, fhkv = TRAIN["head_dim"], TRAIN["n_heads"], TRAIN["n_kv_heads"]
+        fq = _randn((1, fhq, TRAIN_N, fd), bf, gen)
+        fk, fv = (_randn((1, fhkv, TRAIN_N, fd), bf, gen) for _ in range(2))
+        ffound = search.autotune_forward(fq, fk, fv, None, scale=fd ** -0.5, is_causal=True)
+        fwd_key = store.ConfigKey("fwd", "bfloat16", fd, fd, TRAIN_N, TRAIN_N, True, False, False,
+                                  True, fhq // fhkv)
         dfound, dec_keys, dec_in = {}, {}, {}
         for d_, nkv in TUNE_DECODE:
             dq_ = _randn((1, 8, 1, d_), bf, gen)
@@ -5373,7 +5497,8 @@ def _autotune_in(smi: str, root: str) -> dict:
             dec_keys[d_] = store.ConfigKey("decode", "bfloat16", d_, d_, 1, nkv, False, False,
                                            False, True, 2)
         entries = [store.make_entry(bwd_key, found.config, found.ms),
-                   store.make_entry(var_key, vfound.config, vfound.ms)]
+                   store.make_entry(var_key, vfound.config, vfound.ms),
+                   store.make_entry(fwd_key, ffound.config, ffound.ms)]
         entries += [store.make_entry(dec_keys[d_], dfound[d_].config, dfound[d_].ms)
                     for d_, _ in TUNE_DECODE]
         path = store.write_config_file(entries)
@@ -5381,10 +5506,13 @@ def _autotune_in(smi: str, root: str) -> dict:
             fail(f"the store wrote {path.name}, not the card's name {kind}")
 
         def label(c):
-            return (f"cap {c.bwd_ring_cap}" if c.bwd_ring_cap else "plan") + (
-                "" if c.ds_store_bits == 16 else " e4m3")
+            knobs = [f"fwd cap {c.fwd_ring_cap}"] * bool(c.fwd_ring_cap) + [
+                f"cap {c.bwd_ring_cap}"] * bool(c.bwd_ring_cap) + [
+                f"{c.decode_splits} splits"] * bool(c.decode_splits) + [
+                "e4m3"] * (c.ds_store_bits != 16)
+            return " ".join(knobs) or "plan"
 
-        founds = {"bwd": found, "varlen": vfound,
+        founds = {"bwd": found, "fwd": ffound, "varlen": vfound,
                   **{f"decode_d{d_}": dfound[d_] for d_, _ in TUNE_DECODE}}
         res["searched"] = {name: [[label(c), ms] for c, ms in f_.tried]
                            for name, f_ in founds.items()}
@@ -5442,9 +5570,56 @@ def _autotune_in(smi: str, root: str) -> dict:
         store.write_config_file([store.make_entry(bwd_key, found.config, found.ms)],
                                 overwrite=True)
 
-        tuned_p = _packed_call(x)
-        with _env("FFPA_TORCH_SKIP_TUNED_CONFIG", "1"):
-            plain_p = _packed_call(x)
+        # The forward: tuned and untuned calls, the ring cap each passes.
+        def fwd_call():
+            launch_counts(zero=True)
+            with torch.no_grad():
+                o_ = ffpa_attn_func(fq, fk, fv, is_causal=True, enable_gqa=True)
+            torch.cuda.synchronize()
+            return o_, _launched()
+
+        def fwd_ring(cfg):
+            return ring_depth(fwd_plan(fd, fd).stages, cfg.fwd_ring_cap, FWD_MIN_STAGES)
+
+        with _launch_args({"ffpa_flash_fwd": -2}) as rec:
+            tuned_f, tuned_fl = fwd_call()
+            with _env("FFPA_TORCH_SKIP_TUNED_CONFIG", "1"):
+                plain_f, plain_fl = fwd_call()
+        if not torch.equal(tuned_f, plain_f) or tuned_fl != plain_fl:
+            fail(f"the tuned forward ({ffound.config}) is not bit-equal to the untuned one "
+                 f"(launches {tuned_fl} / {plain_fl})")
+        if rec["ffpa_flash_fwd"] != [fwd_ring(ffound.config), 0]:
+            fail(f"the forward passed ring caps {rec['ffpa_flash_fwd']}, not the stored "
+                 f"{ffound.config.fwd_ring_cap} then 0")
+        fpick = pick_forward_config(d=fd, dv=fd, nq=TRAIN_N, nkv=TRAIN_N, dtype=bf, causal=True,
+                                    gqa=True, group=fhq // fhkv)
+        if fpick.fwd_ring_cap != ffound.config.fwd_ring_cap:
+            fail(f"pick_forward_config {fpick} is not the stored {ffound.config}")
+        store.write_config_file([store.make_entry(fwd_key, replace(
+            ffound.config, fwd_ring_cap=FWD_MIN_STAGES))], overwrite=True)
+        with _launch_args({"ffpa_flash_fwd": -2}) as rec:
+            shallow_f, _ = fwd_call()
+        if rec["ffpa_flash_fwd"] != [FWD_MIN_STAGES] or not torch.equal(shallow_f, plain_f):
+            fail(f"a stored forward cap of {FWD_MIN_STAGES} passed {rec['ffpa_flash_fwd']} or "
+                 "changed the output")
+        if pick_forward_config(d=640, dv=640, nq=TRAIN_N, nkv=TRAIN_N, dtype=bf, causal=True,
+                               gqa=True, group=fhq // fhkv).fwd_ring_cap != 0:
+            fail("a forward ring cap stored at D512 reached a D640 forward")
+        store.write_config_file([store.make_entry(fwd_key, ffound.config, ffound.ms)],
+                                overwrite=True)
+        log(f"  autotune fwd B1 H{fhq}/{fhkv} N{TRAIN_N} D{fd} causal: tuned and untuned calls "
+            f"bit-equal, launches {tuned_fl}, ring caps passed {fwd_ring(ffound.config)} / 0; a "
+            f"stored cap of {FWD_MIN_STAGES} passed and bit-equal too, not taken at D640")
+
+        with _launch_args({"ffpa_varlen_fwd": -2}) as rec:
+            tuned_p = _packed_call(x)
+            with _env("FFPA_TORCH_SKIP_TUNED_CONFIG", "1"):
+                plain_p = _packed_call(x)
+        vring = ring_depth(varlen_fwd_plan(cb["d"], cb["d"]).stages, vfound.config.fwd_ring_cap,
+                           FWD_MIN_STAGES)
+        if rec["ffpa_varlen_fwd"] != [vring, 0] or not torch.equal(tuned_p["o"], plain_p["o"]):
+            fail(f"the tuned packed forward passed ring caps {rec['ffpa_varlen_fwd']} (stored "
+                 f"{vfound.config.fwd_ring_cap}) or its output differs from the untuned one")
         if not all(torch.equal(a, b) for a, b in zip(tuned_p["grads"], plain_p["grads"])):
             fail(f"the tuned packed backward ({vfound.config}) is not bit-equal to the untuned")
         dense = _dense_path_grads(x)
@@ -5452,27 +5627,65 @@ def _autotune_in(smi: str, root: str) -> dict:
         if max(verrs) >= GRAD_TOL[bf]:
             fail(f"the tuned packed backward is off the per-segment dense path: {verrs}")
         vpick = pick_varlen_backward_config(d=cb["d"], dv=cb["d"], dtype=bf, tq=t, tk=t)
-        if vpick.bwd_ring_cap != vfound.config.bwd_ring_cap:
-            fail(f"pick_varlen_backward_config {vpick} is not the stored {vfound.config}")
-        log(f"  autotune varlen T{t} D{cb['d']}: tuned and untuned packed calls bit-equal, "
-            "gradients vs the dense path per row " + " ".join(f"{e:.2e}" for e in verrs))
+        vfpick = pick_varlen_config(d=cb["d"], dv=cb["d"], dtype=bf, tq=t, tk=t)
+        if (vpick.bwd_ring_cap, vfpick.fwd_ring_cap) != (vfound.config.bwd_ring_cap,
+                                                        vfound.config.fwd_ring_cap):
+            fail(f"the varlen picks {vpick} / {vfpick} are not the stored {vfound.config}")
+        store.write_config_file([store.make_entry(var_key, replace(
+            vfound.config, fwd_ring_cap=FWD_MIN_STAGES))], overwrite=True)
+        with _launch_args({"ffpa_varlen_fwd": -2}) as rec, torch.no_grad():
+            shallow_v = varlen._varlen_forward(x["q"], x["k"], x["v"], x["cu"], x["cu"],
+                                               scale=scale, causal=True)[0]
+        if rec["ffpa_varlen_fwd"] != [FWD_MIN_STAGES] or not torch.equal(shallow_v,
+                                                                         plain_p["o"]):
+            fail(f"a stored packed forward cap of {FWD_MIN_STAGES} passed "
+                 f"{rec['ffpa_varlen_fwd']} or changed the output")
+        if pick_varlen_config(d=1024, dv=1024, dtype=bf, tq=t, tk=t).fwd_ring_cap != 0:
+            fail("a packed forward cap stored at D512 reached a D1024 packed call")
+        store.write_config_file([store.make_entry(var_key, vfound.config, vfound.ms)],
+                                overwrite=True)
+        log(f"  autotune varlen T{t} D{cb['d']}: tuned and untuned packed calls bit-equal "
+            f"(forward ring caps passed {vring} / 0; a stored {FWD_MIN_STAGES} passed, bit-equal, "
+            "not taken at D1024), gradients vs the dense path per row "
+            + " ".join(f"{e:.2e}" for e in verrs))
 
         for d_, nkv in TUNE_DECODE:
             dq_, dk_, dv_ = dec_in[d_]
             kw = dict(scale=d_ ** -0.5, is_causal=False)
-            o_t, _ = decode._decode_forward(dq_, dk_, dv_, None, **kw)
-            with _env("FFPA_TORCH_SKIP_TUNED_CONFIG", "1"):
-                o_u, _ = decode._decode_forward(dq_, dk_, dv_, None, **kw)
+            rule = decode.rule_splits(dq_, dk_, dv_)
+            stored = dfound[d_].config.decode_splits
             po, _ = decode._decode_plain(dq_.reshape(1, 4, 2, d_), dk_, dv_, None, nq=1,
                                          scale=kw["scale"], is_causal=False, softcap=0.0,
                                          window_left=-1, window_right=-1)
+            with _launch_args({"ffpa_decode_fwd": -4}) as rec:
+                o_t, _ = decode._decode_forward(dq_, dk_, dv_, None, **kw)
+                with _env("FFPA_TORCH_SKIP_TUNED_CONFIG", "1"):
+                    store.clear_lookup_cache()  # decode reads its count once per query
+                    o_u, _ = decode._decode_forward(dq_, dk_, dv_, None, **kw)
+                store.clear_lookup_cache()
+                # A stored count below the rule's is obeyed, one above it clamped.
+                for count in (max(rule // 2, 1), 2 * rule):
+                    store.write_config_file([store.make_entry(dec_keys[d_], replace(
+                        dfound[d_].config, decode_splits=count))], overwrite=True)
+                    o_c, _ = decode._decode_forward(dq_, dk_, dv_, None, **kw)
+                    if row_rel(o_c, po.reshape(o_c.shape)) >= BF16_TOL:
+                        fail(f"decode D{d_} at a stored count of {count} off its plain version")
+            want = [min(stored, rule) if stored else rule, rule, max(rule // 2, 1), rule]
+            if rec["ffpa_decode_fwd"] != want:
+                fail(f"decode D{d_} launched {rec['ffpa_decode_fwd']} splits, not {want} (the "
+                     f"stored {stored}, the rule's {rule}, a stored half, a stored double)")
+            store.write_config_file([store.make_entry(dec_keys[d_], dfound[d_].config,
+                                                      dfound[d_].ms)], overwrite=True)
+            if pick_decode_config(d=d_, dv=d_, nkv=nkv, dtype=bf, gqa=True,
+                                  group=2).decode_splits != stored:
+                fail(f"pick_decode_config at D{d_} is not the stored {dfound[d_].config}")
             po = po.reshape(o_t.shape)
             derrs = (row_rel(o_t, po), row_rel(o_u, po))
             if max(derrs) >= BF16_TOL:
                 fail(f"decode D{d_} tuned / untuned off its plain version: {derrs}")
-            log(f"  autotune decode D{d_} Nkv{nkv}: the rule's split count (no decode knob), "
-                f"with the store and with the kill-switch row_rel_err "
-                f"vs plain {derrs[0]:.2e} / {derrs[1]:.2e} (tol {BF16_TOL:g})")
+            log(f"  autotune decode D{d_} Nkv{nkv}: splits launched {want} (stored, "
+                f"kill-switch, a stored half, a stored double clamped to the rule's {rule}); "
+                f"row_rel_err vs plain {derrs[0]:.2e} / {derrs[1]:.2e} (tol {BF16_TOL:g})")
         res["ring_caps"] = ring_cap_times()
 
         # 4. The CLI, one task in an isolated worker.
@@ -5499,11 +5712,35 @@ def _autotune_in(smi: str, root: str) -> dict:
                                                       for _, ms in cli_entries[0]["tried"]))
         store.clear_lookup_cache()
 
-        # 5. verify on one backward case.
+        # 5. verify on one backward case; the search at the call.
         vres = verify.verify_case(cb["d"], cb["n"], True, "bfloat16", direction="bwd")
         res["verify"] = {k_: vres[k_] for k_ in ("stored_ms", "plan_ms", "fresh_ms", "agree",
                                                   "numerics_rel")}
         log(f"  autotune verify bwd D{cb['d']} N{cb['n']} causal (MHA H8): {res['verify']}")
+        attn_ops._AUTOTUNE_CACHE.clear()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            ao = ffpa_attn_func(q, k, v, is_causal=True, enable_gqa=True,
+                                backend=CudaBackend(autotune=True))
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        with torch.no_grad():
+            ao2 = ffpa_attn_func(q, k, v, is_causal=True, enable_gqa=True,
+                                 backend=CudaBackend(autotune=True))
+        aref = reference_attention(q.float(), expand_kv_heads(k, cb["hq"]).float(),
+                                   expand_kv_heads(v, cb["hq"]).float(), is_causal=True)
+        aerr = row_rel(ao, aref)
+        akeys = list(attn_ops._AUTOTUNE_CACHE)
+        if aerr >= BF16_TOL or len(akeys) != 1 or not torch.equal(ao, ao2):
+            fail(f"CudaBackend(autotune=True): row_rel_err {aerr:.2e} vs the fp32 oracle, "
+                 f"searches {akeys}, second call equal {torch.equal(ao, ao2)}")
+        res["autotune_call"] = dict(config=label(attn_ops._AUTOTUNE_CACHE[akeys[0]]),
+                                    first_call_s=call_s, row_rel_err=aerr)
+        log(f"  ffpa_attn_func(backend=CudaBackend(autotune=True)) B1 H8/4 N{cb['n']} "
+            f"D{cb['d']} causal: searched once ({call_s:.2f} s, winner "
+            f"{res['autotune_call']['config']}), the second call from the cache and equal; "
+            f"row_rel_err vs the fp32 oracle {aerr:.2e} (tol {BF16_TOL:g})")
+        del aref
 
         # 6. The lookup's host cost.
         query = dict(direction="bwd", d=cb["d"], nq=cb["n"], nkv=cb["n"], dtype="bfloat16",
@@ -5516,16 +5753,47 @@ def _autotune_in(smi: str, root: str) -> dict:
               "hit": _lookup_us(lambda: store.lookup_tuned_config(**query)),
               "no_entry": _lookup_us(lambda: store.lookup_tuned_config(
                   **dict(query, direction="fwd")))}
+        # Decode's split count: memoised, read at every decode launch.
+        dkw = dict(d=512, dv=512, nkv=TUNE_DECODE[0][1], dtype=bf, group=2)
+        t0 = time.perf_counter()
+        dispatch.stored_decode_splits(**dkw)
+        us["decode_splits_first_call"] = (time.perf_counter() - t0) * 1e6
+        us["decode_splits_memo_hit"] = _lookup_us(lambda: dispatch.stored_decode_splits(**dkw))
+        # The serving step's decode call (B4 H8/4 max_len 1152 D512, the
+        # shared-row bias), its host enqueue with the lookup and with it
+        # taken out (the parent's path: the rule's count, no lookup), in turns.
+        sg = torch.Generator(device="cuda").manual_seed(321)
+        sq = _randn((4, 8, 1, 512), bf, sg)
+        sk, sv = (_randn((4, 4, SERVE_MAX_LEN, 512), bf, sg) for _ in range(2))
+        sbias = shared_row_bias(torch.tensor(SERVE_LENS, device="cuda"), 64, max(SERVE_LENS),
+                                SERVE_MAX_LEN)
+
+        def serve_call():
+            decode._decode_forward(sq, sk, sv, sbias, scale=512 ** -0.5, is_causal=False)
+
+        looked_up = decode.stored_decode_splits
+        turns = {"lookup": [], "no_lookup": []}
+        for tag in ("no_lookup", "lookup", "lookup", "no_lookup", "no_lookup", "lookup"):
+            decode.stored_decode_splits = (looked_up if tag == "lookup"
+                                           else lambda **_: 0)
+            try:
+                turns[tag].append(_host_call_us(serve_call))
+            finally:
+                decode.stored_decode_splits = looked_up
+        us["serving_decode_call_host_us_lookup"] = turns["lookup"]
+        us["serving_decode_call_host_us_no_lookup"] = turns["no_lookup"]
     with _env("FFPA_TORCH_TUNED_CONFIG_DIR", empty):
         store.clear_lookup_cache()
         us["empty_store"] = _lookup_us(lambda: store.lookup_tuned_config(**query))
         us["pick_backward_empty_store"] = _lookup_us(lambda: pick_backward_config(
             d=cb["d"], dv=cb["d"], nq=cb["n"], nkv=cb["n"], dtype=bf, causal=True, gqa=True,
             group=group))
+        us["decode_splits_empty_store"] = _lookup_us(
+            lambda: dispatch.stored_decode_splits(**dkw))
     store.clear_lookup_cache()
     res["lookup_us"] = us
     log(f"  tuned lookup on the host, µs a call on {smi}: " + " ".join(
-        f"{k_} {v_:.3f}" for k_, v_ in us.items()))
+        f"{k_} {v_}" if isinstance(v_, list) else f"{k_} {v_:.3f}" for k_, v_ in us.items()))
     res["seconds"] = time.perf_counter() - t_start
     log(f"autotune phase: {res['seconds']:.1f} s")
     return res
@@ -6088,6 +6356,8 @@ def main() -> int:
     for r in rows:  # each ring cap's ms beside the plan's
         if r["name"] in tuned["ring_caps"]:
             r["ring_cap_ms"] = tuned["ring_caps"][r["name"]]["ms"]
+        if r["name"] + "_d1024" in tuned["ring_caps"]:
+            r["d1024_ring_cap_ms"] = tuned["ring_caps"][r["name"] + "_d1024"]["ms"]
     par = phase_parallel(smi)
     for r in rows:  # launches rank 1 makes in a sharded step / op-level call
         per_rank = {k: c.get(r["name"], 0) for k, c in par["rank1_launches"].items()}

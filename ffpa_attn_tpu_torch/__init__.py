@@ -6,7 +6,7 @@ kernels hand-written in CUDA C++ for ``sm_90a`` (``csrc/``, built with nvcc at
 first use). CPU tensors run each kernel's plain PyTorch version.
 """
 
-from .functional import Backend, CudaBackend, FFPAAttnMeta, SDPABackend
+from .functional import Backend, CudaBackend, FFPAAttnMeta, PallasBackend, SDPABackend
 from .interface import (
     ffpa_attn_func,
     ffpa_attn_varlen_func,
@@ -31,6 +31,7 @@ __all__ = [
     "Backend",
     "SDPABackend",
     "CudaBackend",
+    "PallasBackend",
     "FFPAAttnMeta",
     "PageAllocator",
     "PagedKVCache",

@@ -7,12 +7,11 @@ config, merge-write the device's tuned-config file.
         [--isolate-tasks] [--num-workers N] [--output-dir DIR] [--device cpu]
 
 The counterpart of the JAX package's ``autotune/cli.py``, with its task
-grid and flags. What a task searches is ``search.py``'s: the backward
-rings' cap and the e4m3 dS storage (``bwd``), the packed backward pair's
-ring cap (``varlen``), and for ``fwd`` and ``decode`` the plan alone (the
-forward's ring is fixed at compile time, ``csrc/flash_fwd.cu``
-``stages_of``, and decode's split count is its rule's; the entry records
-the plan's time as ``verify``'s baseline). A candidate replaces the plan
+grid and flags. What a task searches is ``search.py``'s: the forward's
+ring cap (``fwd``), the backward rings' cap and the e4m3 dS storage
+(``bwd``), the packed forward's and backward pair's ring caps one at a
+time (``varlen``) and the launch's split count, the rule's and its
+halvings (``decode``). A candidate replaces the plan
 only where it beats it by more than the plan's own spread
 (``search.search``); otherwise the entry holds the plan. Entries land in
 ``--output-dir``, else ``FFPA_TORCH_TUNED_CONFIG_DIR``, else the bundled
@@ -197,9 +196,9 @@ def main(argv=None) -> int:
                         "which both modes search (max doubles the isolated task budget)")
     parser.add_argument("--directions", nargs="*", default=["fwd", "bwd"],
                         choices=["fwd", "bwd", "decode", "varlen"],
-                        help="fwd and decode time the plan alone: the forward's ring is fixed "
-                        "at compile time (csrc/flash_fwd.cu stages_of) and decode's split count "
-                        "is its rule's, so their entries are verify's baseline")
+                        help="fwd: the forward's ring cap; bwd: the backward rings' cap and "
+                        "e4m3 dS; varlen: the packed forward's and backward's caps; decode: the "
+                        "split count (the rule's and its halvings)")
     parser.add_argument("--dtypes", nargs="*", default=["bfloat16"],
                         choices=["bfloat16", "float16"])
     parser.add_argument("--headdims", type=int, nargs="*", default=list(DEFAULT_HEADDIMS))

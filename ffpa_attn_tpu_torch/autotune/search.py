@@ -17,13 +17,18 @@ the fewest stages its walk holds at once):
   fewest stages the walk needs (3 for the pair, 1 + ceil(nv / 2) for
   from-S), and the dS handoff's e4m3 storage where
   ``dispatch.fp8_ds_allowed``;
-* ``varlen``: the packed backward pair's ring cap, timing the packed
+* ``fwd``: the forward's ring cap (``BlockConfig.fwd_ring_cap``,
+  ``fwd_candidates``), from the plan's depth down to the fewest stages its
+  walk holds (3, ``FWD_MIN_STAGES``);
+* ``varlen``: the packed forward's and the packed backward pair's ring
+  caps, one knob at a time (``varlen_candidates``), timing the packed
   forward plus backward;
-* ``fwd`` and ``decode``: the plan alone, recorded as ``verify``'s
-  baseline. The forward's ring is fixed at compile time
-  (``csrc/flash_fwd.cu`` ``stages_of``), and decode's split count is its
-  rule's (``ops/decode.py`` ``_tma_splits``; a decode step is host-bound,
-  so it is timed with the host's enqueue off the clock, ``time_queued``).
+* ``decode``: the launch's split count (``BlockConfig.decode_splits``):
+  ``ops/decode.py`` ``_tma_splits``'s rule, then its halvings down to 1
+  (``decode_candidates``; a larger count than the rule's would leave
+  blocks waiting for an SM, and the launch clamps it). A decode step is
+  host-bound, so it is timed with the host's enqueue off the clock
+  (``time_queued``).
 
 A candidate displaces the plan only where it wins by more than noise
 (``search``): each is timed between two readings of the plan, and it must
@@ -53,15 +58,19 @@ from ..logger import init_logger
 from ..ops.config import (
     D_CHUNK,
     DKDV_MIN_STAGES,
+    FWD_MIN_STAGES,
     BlockConfig,
     cdiv,
+    default_config,
     dkdv_plan,
     dq_plan,
     from_s_fits,
     from_s_min_stages,
     from_s_plan,
+    fwd_plan,
     varlen_dkdv_plan,
     varlen_dq_plan,
+    varlen_fwd_plan,
 )
 
 logger = init_logger(__name__)
@@ -106,6 +115,33 @@ def _pad(x: int) -> int:
     return cdiv(x, D_CHUNK) * D_CHUNK
 
 
+def fwd_candidates(d: int, dv: int, nq: int, nkv: int, dtype: torch.dtype,
+                   has_bias: bool) -> list:
+    """Forward candidates, the counterpart of the JAX package's
+    ``fwd_candidates``: the Hopper kernel takes 64 x 64 tiles of its own,
+    so the space is its ring's cap on the default config
+    (``pick_forward_config`` with no store), the plan first, then each cap
+    from the plan's depth down to FWD_MIN_STAGES. A bias costs the kernel
+    no shared memory, so ``has_bias`` changes nothing here."""
+    del has_bias
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    base = default_config(d, dv, nq, nkv, itemsize=itemsize)
+    caps = ring_caps(fwd_plan(_pad(d), _pad(dv)).stages, FWD_MIN_STAGES)
+    return _order_and_cap(replace(base, fwd_ring_cap=c) for c in caps)
+
+
+def decode_candidates(rule: int) -> list:
+    """Decode candidates: the rule's split count (``decode_splits`` 0, the
+    plan), then its halvings down to 1. None is larger than the rule's: a
+    launch clamps such a count (``decode.decode_splits``)."""
+    counts = []
+    s = rule // 2
+    while s >= 1:
+        counts.append(s)
+        s //= 2
+    return _order_and_cap([BlockConfig()] + [BlockConfig(decode_splits=s) for s in counts])
+
+
 def _bwd_base(d: int, dv: int, nkv: int, itemsize: int) -> BlockConfig:
     """The backward config the dispatch picks with no store and no e4m3
     (``dispatch.pick_backward_config``'s default)."""
@@ -145,8 +181,13 @@ def bwd_candidates(d: int, dv: int, nq: int, nkv: int, dtype: torch.dtype, has_b
 
 
 def varlen_candidates(d: int, dv: int, dtype: torch.dtype) -> list:
-    """Ring caps of the packed backward pair (``pick_varlen_backward_config``
-    with ``bwd_ring_cap`` set)."""
+    """Ring caps of a packed call, one knob at a time on
+    ``pick_varlen_backward_config``'s default: the plan, then the packed
+    forward's caps (``fwd_ring_cap``, down to FWD_MIN_STAGES) at the
+    backward's plan depth, then the backward pair's (``bwd_ring_cap``) at
+    the forward's. One entry serves both lookups (``pick_varlen_config``
+    reads its forward cap, ``pick_varlen_backward_config`` its backward
+    cap), and the space grows as their sum, not their product."""
     from ..ops.dispatch import pick_varlen_backward_config
 
     itemsize = torch.empty((), dtype=dtype).element_size()
@@ -154,8 +195,10 @@ def varlen_candidates(d: int, dv: int, dtype: torch.dtype) -> list:
     base = pick_varlen_backward_config(d=d_pad, dv=dv_pad, dtype=dtype)
     deepest = max(varlen_dkdv_plan(d_pad, dv_pad, itemsize).stages,
                   varlen_dq_plan(d_pad, dv_pad, itemsize).stages)
-    caps = ring_caps(deepest, DKDV_MIN_STAGES)
-    return _order_and_cap(replace(base, bwd_ring_cap=c) for c in caps)
+    fwd_caps = ring_caps(varlen_fwd_plan(d_pad, dv_pad).stages, FWD_MIN_STAGES)
+    bwd_caps = ring_caps(deepest, DKDV_MIN_STAGES)[1:]
+    return _order_and_cap([replace(base, fwd_ring_cap=c) for c in fwd_caps]
+                          + [replace(base, bwd_ring_cap=c) for c in bwd_caps])
 
 
 class _Timeout(Exception):
@@ -233,15 +276,12 @@ def _timers():
 
 
 def autotune_forward(q, k, v, bias, *, scale, is_causal, dropout_p=0.0, mode="fast") -> Found:
-    """The forward's plan alone, timed: its ring is fixed at compile time
-    (``csrc/flash_fwd.cu`` ``stages_of``), so the entry records the plan's
-    time as ``verify``'s baseline."""
+    """Time the forward at each of ``fwd_candidates`` (its ring caps)."""
     del mode
-    from ..ops.config import default_config
     from ..ops.flash_fwd import flash_attention_forward
 
     d, dv, nq, nkv = q.shape[-1], v.shape[-1], q.shape[2], k.shape[2]
-    cands = _order_and_cap([default_config(d, dv, nq, nkv, itemsize=q.element_size())])
+    cands = fwd_candidates(d, dv, nq, nkv, q.dtype, bias is not None)
 
     def time_config(cfg):
         return _timers().time_fwd(
@@ -294,25 +334,27 @@ def autotune_backward(q, k, v, bias, *, scale, is_causal, dropout_p=0.0, mode="f
 
 
 def autotune_decode(q, k, v, *, scale, mode="fast") -> Found:
-    """The decode kernel at its rule's split count alone, timed with the
-    host's enqueue off the clock: the entry records the plan's time as
-    ``verify``'s baseline."""
+    """Time the decode launch at each of ``decode_candidates`` (the rule's
+    split count of this call and its halvings) with the host's enqueue off
+    the clock."""
     del mode
-    from ..ops.decode import _decode_forward
+    from ..ops.decode import _decode_forward, rule_splits
 
     d, nkv = q.shape[-1], k.shape[2]
 
     def time_config(cfg):
         return _timers().time_queued(
-            lambda: _decode_forward(q, k, v, None, scale=scale, is_causal=False),
+            lambda: _decode_forward(q, k, v, None, scale=scale, is_causal=False, config=cfg),
             device=q.device)
 
-    return search(time_config, [BlockConfig()], label=f"decode d={d} nkv={nkv}")
+    return search(time_config, decode_candidates(rule_splits(q, k, v)),
+                  label=f"decode d={d} nkv={nkv}")
 
 
 def autotune_varlen(q3, k3, v3, cu, max_seqlen, *, scale, causal=True, mode="fast") -> Found:
     """Time the packed forward plus backward (metadata and tile schedule
-    included, as a call computes them) at each of ``varlen_candidates``."""
+    included, as a call computes them) at each of ``varlen_candidates``,
+    each candidate's config handed to both."""
     del max_seqlen, mode
     from ..ops.varlen import _call_metadata, _call_walk, _varlen_backward, _varlen_forward
 
@@ -324,8 +366,8 @@ def autotune_varlen(q3, k3, v3, cu, max_seqlen, *, scale, causal=True, mode="fas
     def step(cfg):
         meta = _call_metadata(cu, cu, t, k3.shape[0], q3.device)
         walk = _call_walk(meta, t, causal, window)
-        o, lse = _varlen_forward(q3, k3, v3, cu, cu, scale=scale, causal=causal, meta=meta,
-                                 walk=walk)
+        o, lse = _varlen_forward(q3, k3, v3, cu, cu, scale=scale, causal=causal, config=cfg,
+                                 meta=meta, walk=walk)
         return _varlen_backward(q3, k3, v3, o, lse, do, meta, scale=scale, causal=causal,
                                 config=cfg, walk=walk)
 
@@ -335,6 +377,7 @@ def autotune_varlen(q3, k3, v3, cu, max_seqlen, *, scale, causal=True, mode="fas
     return search(time_config, cands, label=f"varlen t={t}")
 
 
-__all__ = ["Found", "MIN_GAIN", "search", "ring_caps", "bwd_candidates", "varlen_candidates",
+__all__ = ["Found", "MIN_GAIN", "search", "ring_caps", "fwd_candidates", "bwd_candidates",
+           "varlen_candidates", "decode_candidates",
            "backward_uses_scores", "autotune_forward", "autotune_backward", "autotune_decode",
            "autotune_varlen"]

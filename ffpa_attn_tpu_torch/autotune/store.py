@@ -20,7 +20,9 @@ What differs:
   a process that has not initialised CUDA looks up "cpu";
 * the payload records ``torch_version``;
 * the entries hold the port's ``BlockConfig`` fields (``_CONFIG_FIELDS``),
-  among them the Hopper backward rings' knob ``bwd_ring_cap``;
+  among them the Hopper kernels' run-time knobs ``fwd_ring_cap``,
+  ``bwd_ring_cap`` and ``decode_splits`` (an entry written before a field
+  existed reads it as its default, 0);
 * a dispatch site can ask for an entry at its own head dims alone
   (``same_head_dims``): a ring cap belongs to one plan;
 * the bundled directory (``configs/``) ships no corpus;
@@ -101,6 +103,11 @@ def _dirs_key() -> tuple[str, ...]:
     return (override, str(_BUNDLED_DIR)) if override else (str(_BUNDLED_DIR),)
 
 
+def config_dirs() -> list[Path]:
+    """The directories the lookup reads, in order (``_dirs_key``)."""
+    return [Path(d) for d in _dirs_key()]
+
+
 def _config_path(dir_: Path, device_kind: str) -> Path:
     return dir_ / f"{sanitize_device_kind(device_kind)}.json"
 
@@ -140,11 +147,24 @@ def _load_entries_cached(device_kind: str, dirs_key: tuple[str, ...]) -> tuple[d
     return tuple(entries)
 
 
+# Bumped by clear_lookup_cache (a write calls it too): a memo keyed by it
+# forgets with the store's own caches.
+_generation = 0
+
+
 def clear_lookup_cache() -> None:
     """Forget the loaded files and every memoised lookup."""
+    global _generation
+    _generation += 1
     _any_store_file.cache_clear()
     _load_entries_cached.cache_clear()
     _lookup_cached.cache_clear()
+
+
+def lookup_generation() -> int:
+    """How often the lookup's caches were cleared: a caller that memoises
+    lookups (``dispatch.stored_decode_splits``) keys by it."""
+    return _generation
 
 
 def _entries_for_device(device_kind: Optional[str] = None) -> tuple[dict, ...]:
@@ -336,6 +356,7 @@ def write_config_file(
     return path
 
 
-__all__ = ["ConfigKey", "SCHEMA_VERSION", "build_payload", "clear_lookup_cache",
-           "current_device_kind", "lookup_tuned_config", "make_entry", "merge_entries",
+__all__ = ["ConfigKey", "SCHEMA_VERSION", "build_payload", "clear_lookup_cache", "config_dirs",
+           "current_device_kind", "lookup_generation", "lookup_tuned_config", "make_entry",
+           "merge_entries",
            "sanitize_device_kind", "select_entry", "write_config_file"]

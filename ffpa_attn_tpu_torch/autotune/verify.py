@@ -1,9 +1,9 @@
 """Verify tool: the stored config the lookup picks against a fresh search.
 
 The counterpart of the JAX package's ``autotune/verify.py``. For each case
-it times the config the store holds (``stored``: for ``bwd`` the one the
-dispatch picks, for ``fwd``, whose calls read no entry, the entry itself),
-the config with no store (``plan``: the kill-switch set) and the winner of
+it times the config the dispatch picks from the store (``stored``: the
+forward's ring cap, or the backward's rings and dS storage), the config
+with no store (``plan``: the kill-switch set) and the winner of
 a fresh search (``fresh``), and reports whether the stored entry agrees with
 the fresh winner and whether it beats the plan. A backward case also holds
 the stored config's dQ, taken through ``ffpa_attn_func`` (whose dispatch
@@ -73,7 +73,6 @@ def verify_case(d: int, n: int, causal: bool, dtype_name: str, mode: str = "fast
     from ..cli import _bench
     from ..env import resolve_device
     from ..ops.dispatch import pick_backward_config, pick_forward_config
-    from .store import lookup_tuned_config
     from ..ops.flash_bwd import flash_attention_backward
     from ..ops.flash_fwd import flash_attention_forward
     from .search import autotune_backward, autotune_forward, backward_uses_scores
@@ -87,10 +86,9 @@ def verify_case(d: int, n: int, causal: bool, dtype_name: str, mode: str = "fast
     common = dict(d=d, dv=d, nq=n, nkv=n, dtype=dtype, causal=causal)
     numerics_rel = None
     if direction == "fwd":
-        plan = pick_forward_config(d=d, dv=d, nq=n, nkv=n, dtype=dtype)
-        stored = lookup_tuned_config(direction="fwd", d=d, nq=n, nkv=n, dtype=dtype_name,
-                                     causal=causal, has_bias=False, dropout=False, gqa=False,
-                                     same_head_dims=True) or plan
+        stored = pick_forward_config(**common)
+        with untuned():
+            plan = pick_forward_config(**common)
         found = autotune_forward(q, k, v, None, scale=scale, is_causal=causal, mode=mode)
 
         def run_with(cfg):

@@ -171,23 +171,51 @@ constexpr int PART_BUF_BYTES = PART_SLOTS * 2 * PART_BYTES;
 constexpr int SMEM_LIMIT = 232448;
 constexpr int WGMMA = 1, CLUSTER = 2;          // routes
 
-// Ring depth: a D512 tile's K and V alone; the deepest ring that fits
-// beside a rank's 8 Q boxes and the exchange in a cluster.
+// Ring depth of the plan: a D512 tile's K and V alone; the deepest ring
+// that fits beside a rank's 8 Q boxes and the exchange in a cluster. The
+// kernel takes its depth at run time (a launch may cap it, the autotune's
+// knob: only the shared memory a block asks for changes), never below
+// MIN_STAGES, the stages the consumers' walk holds at once: done_with frees
+// the stage before only after it issued the products of the next, so a
+// consumer waits on stage it while stage it - 1 may still be read; and
+// where a block's Dv boxes are odd (D320, a D640 rank) consumer 1's V run
+// is one box shorter, so it carries the stage of its last product, two
+// before the next tile's first K stage, into that tile's S walk. A
+// two-stage ring would put that K stage in the slot consumer 1 still
+// holds.
 __host__ __device__ constexpr int stages_of(bool split) { return split ? 7 : 8; }
+constexpr int MIN_STAGES = 3;
 
-// Shared memory of a block laid out for nd Q boxes: Q, the P box, the 1024
-// B alignment, the ring, the exchange (split), then the stages' two
-// barriers each, Q's barrier, the row exchange and the exchange's barriers
-// (split).
-constexpr size_t smem_bytes(int nd, bool split) {
-  return (size_t)(nd + 1) * BOX_BYTES + 1024 + sizeof(uint64_t) + XCH_BYTES +
-         (split ? (size_t)PART_BUF_BYTES + PART_SLOTS * 2 * sizeof(uint64_t) : 0) +
-         (size_t)stages_of(split) * (STAGE_BYTES + 2 * sizeof(uint64_t));
+// The head of a block's dynamic shared memory, ahead of the 1024 B
+// alignment: the full / empty barriers of the plan's deepest ring, Q's
+// barrier, the partial exchange's barriers (split) and the row exchange.
+// Sized for the plan's depth whatever a launch's cap, so every barrier sits
+// at a constant offset from the array and no consumer register holds its
+// address (with the barriers behind a ring of run-time depth the forward
+// ran 3 % slower).
+__host__ __device__ constexpr int head_bytes(bool split) {
+  return (2 * stages_of(split) + 1 + (split ? PART_SLOTS * 2 : 0)) * (int)sizeof(uint64_t) +
+         XCH_BYTES;
 }
-static_assert(smem_bytes(MAX_BOXES, false) <= SMEM_LIMIT, "D512's block fits the card");
-static_assert(smem_bytes(MAX_BOXES, true) <= SMEM_LIMIT &&
-                  smem_bytes(MAX_BOXES, true) + STAGE_BYTES + 2 * sizeof(uint64_t) > SMEM_LIMIT,
+
+// Shared memory of a block laid out for nd Q boxes and a ring of stages:
+// the head, the 1024 B alignment, Q, the P box, the exchange (split) and
+// the ring.
+constexpr size_t smem_bytes(int nd, bool split, int stages) {
+  return (size_t)head_bytes(split) + 1024 + (size_t)(nd + 1) * BOX_BYTES +
+         (split ? (size_t)PART_BUF_BYTES : 0) + (size_t)stages * STAGE_BYTES;
+}
+static_assert(smem_bytes(MAX_BOXES, false, stages_of(false)) <= SMEM_LIMIT,
+              "D512's block fits the card");
+static_assert(smem_bytes(MAX_BOXES, true, stages_of(true)) <= SMEM_LIMIT &&
+                  smem_bytes(MAX_BOXES, true, stages_of(true) + 1) > SMEM_LIMIT,
               "a D1024 rank fits the card with the deepest ring that does");
+
+// Whether a ring cap is one the entry points take: 0 (the plan's depth) or
+// MIN_STAGES..the plan's depth.
+inline bool ring_cap_ok(int ring_cap, bool split) {
+  return ring_cap == 0 || (ring_cap >= MIN_STAGES && ring_cap <= stages_of(split));
+}
 
 // A block's share of the head dims: its first D box and D boxes, its first
 // Dv box and Dv boxes, and consumer 0's Dv boxes (the first ceil(nv / 2);
@@ -209,22 +237,24 @@ __host__ __device__ inline Part part_of(int nd, int nv, bool split, int rank) {
 // The route and tiling of a launch at head dims (D, Dv), multiples of 64
 // up to 1024: D, Dv <= 512 take one block per 64 Q rows, wider heads the
 // cluster. ffpa_flash_fwd_plan hands it out; ops/config.py fwd_plan
-// mirrors it and the card test holds the two equal.
+// mirrors it and the card test holds the two equal. ring_cap > 0 caps the
+// ring at that many stages (ring_cap_ok: at least MIN_STAGES).
 struct Plan {
   int route, rows, stages;
   Part part[2];  // each rank's share (the lone block's is part[0])
   size_t smem;
 };
-inline Plan make_plan(int D, int Dv) {
+inline Plan make_plan(int D, int Dv, int ring_cap = 0) {
   const int nd = D / COLS, nv = Dv / COLS;
   const bool split = nd > MAX_BOXES || nv > MAX_BOXES;
   Plan pl;
   pl.route = split ? CLUSTER : WGMMA;
   pl.rows = ROWS;
   pl.stages = stages_of(split);
+  if (ring_cap > 0 && ring_cap < pl.stages) pl.stages = ring_cap;
   pl.part[0] = part_of(nd, nv, split, 0);
   pl.part[1] = part_of(nd, nv, split, 1);
-  pl.smem = smem_bytes(pl.part[0].nd, split);
+  pl.smem = smem_bytes(pl.part[0].nd, split, pl.stages);
   return pl;
 }
 
@@ -237,11 +267,14 @@ struct Maps {
   CUtensorMap v_map;  // (Dv, nkv, B * Hkv); box 64 x 64
 };
 
-// Shared memory of a block, from a 1024 B boundary: the Q boxes, the P box,
-// the ring's stages, the partial-score exchange (split), the stages' full /
-// empty barriers, Q's barrier, the row exchange and the partial exchange's
-// barriers (split). Both ranks of a cluster lay it out alike (for rank 0's
-// Q boxes), so an offset here is the same offset in the partner.
+// Shared memory of a block: the head (head_bytes: the barriers and the row
+// exchange), then from a 1024 B boundary the Q boxes, the P box, the
+// partial-score exchange (split) and the ring's stages. Both ranks of a
+// cluster lay it out alike (for rank 0's Q boxes), so an offset here is the
+// same offset in the partner. The boundary is found by adding an offset to
+// the shared array itself, so every pointer into it stays a 32-bit shared
+// one: the consumers have no registers for 64-bit generic ones (through
+// uintptr_t the row exchange's address spilled).
 struct Smem {
   unsigned char* q;
   unsigned char* p;
@@ -254,18 +287,20 @@ struct Smem {
   uint64_t* part_full;  // [PART_SLOTS][2]: the partner's partial for consumer c has landed
 };
 template <bool SPLIT>
-__device__ __forceinline__ Smem carve(unsigned char* base, int nd) {
-  constexpr int STAGES = stages_of(SPLIT);
+__device__ __forceinline__ Smem carve(unsigned char* smem_raw, int nd) {
+  constexpr int HEAD = head_bytes(SPLIT);
   Smem sm;
+  sm.full = reinterpret_cast<uint64_t*>(smem_raw);
+  sm.empty = sm.full + stages_of(SPLIT);
+  sm.q_full = sm.empty + stages_of(SPLIT);
+  sm.part_full = sm.q_full + 1;
+  sm.xch = reinterpret_cast<float*>(sm.part_full + (SPLIT ? PART_SLOTS * 2 : 0));
+  unsigned char* base =
+      smem_raw + HEAD + ((1024u - ((cvta_smem(smem_raw) + HEAD) & 1023u)) & 1023u);
   sm.q = base;
   sm.p = base + nd * BOX_BYTES;
-  sm.ring = sm.p + BOX_BYTES;
-  sm.part = sm.ring + STAGES * STAGE_BYTES;
-  sm.full = reinterpret_cast<uint64_t*>(sm.part + (SPLIT ? PART_BUF_BYTES : 0));
-  sm.empty = sm.full + STAGES;
-  sm.q_full = sm.empty + STAGES;
-  sm.xch = reinterpret_cast<float*>(sm.q_full + 1);
-  sm.part_full = reinterpret_cast<uint64_t*>(sm.xch + 2 * ROWS);
+  sm.part = sm.p + BOX_BYTES;
+  sm.ring = sm.part + (SPLIT ? PART_BUF_BYTES : 0);
   return sm;
 }
 
@@ -296,10 +331,8 @@ __device__ __forceinline__ Block block_of(const FwdParams& p) {
 // stages (two boxes each, an odd last box alone) and its V stages (box j of
 // consumer 0's half beside box j of consumer 1's, alone where that half is
 // shorter).
-template <bool SPLIT>
 __device__ __forceinline__ void produce(const Maps& maps, const FwdParams& p, const Smem& sm,
-                                        const Block& k, const Part& pt) {
-  constexpr int STAGES = stages_of(SPLIT);
+                                        const Block& k, const Part& pt, int stages) {
   prefetch_map(&maps.q_map);
   prefetch_map(&maps.k_map);
   prefetch_map(&maps.v_map);
@@ -307,29 +340,34 @@ __device__ __forceinline__ void produce(const Maps& maps, const FwdParams& p, co
   mbar_arrive_expect_tx(sm.q_full, pt.nd * BOX_BYTES);
   for (int j = 0; j < pt.nd; ++j)
     tma_load_3d(sm.q + j * BOX_BYTES, &maps.q_map, sm.q_full, (pt.d0 + j) * COLS, k.row0, bq);
-  int it = 0;
-  // Stage it % STAGES, free again, expecting nb boxes.
+  // pos: the stage to fill next; once the ring has wrapped (reuse) a stage
+  // is free again only when both consumers released its previous round.
+  RingPos pos;
+  bool reuse = false;
   auto claim = [&](int nb) -> unsigned char* {
-    const int st = it % STAGES;
-    if (it >= STAGES) mbar_wait(&sm.empty[st], ((it / STAGES) - 1) & 1);
-    mbar_arrive_expect_tx(&sm.full[st], nb * BOX_BYTES);
-    return sm.ring + st * STAGE_BYTES;
+    if (reuse) mbar_wait(&sm.empty[pos.st], pos.ph ^ 1u);
+    mbar_arrive_expect_tx(&sm.full[pos.st], nb * BOX_BYTES);
+    return sm.ring + pos.st * STAGE_BYTES;
+  };
+  auto advance = [&]() {
+    pos.next(stages);
+    reuse = reuse || pos.st == 0;
   };
   for (int t = 0; t < k.ntiles; ++t) {
     const int kv0 = k.kv_lo + t * KV_TILE;
-    for (int c = 0; c < pt.nd; c += STAGE_BOXES, ++it) {
+    for (int c = 0; c < pt.nd; c += STAGE_BOXES, advance()) {
       const int nb = min(STAGE_BOXES, pt.nd - c);
       unsigned char* dst = claim(nb);
       for (int g = 0; g < nb; ++g)
-        tma_load_3d(dst + g * BOX_BYTES, &maps.k_map, &sm.full[it % STAGES],
+        tma_load_3d(dst + g * BOX_BYTES, &maps.k_map, &sm.full[pos.st],
                     (pt.d0 + c + g) * COLS, kv0, bkv);
     }
-    for (int j = 0; j < pt.nv0; ++j, ++it) {
+    for (int j = 0; j < pt.nv0; ++j, advance()) {
       const bool both = pt.nv0 + j < pt.nv;
       unsigned char* dst = claim(both ? 2 : 1);
-      tma_load_3d(dst, &maps.v_map, &sm.full[it % STAGES], (pt.v0 + j) * COLS, kv0, bkv);
+      tma_load_3d(dst, &maps.v_map, &sm.full[pos.st], (pt.v0 + j) * COLS, kv0, bkv);
       if (both)
-        tma_load_3d(dst + BOX_BYTES, &maps.v_map, &sm.full[it % STAGES],
+        tma_load_3d(dst + BOX_BYTES, &maps.v_map, &sm.full[pos.st],
                     (pt.v0 + pt.nv0 + j) * COLS, kv0, bkv);
     }
   }
@@ -342,8 +380,7 @@ __device__ __forceinline__ void produce(const Maps& maps, const FwdParams& p, co
 // block j, column 8 j + 2 t4 + e.
 template <typename T, int C, bool SPLIT>
 __device__ __forceinline__ void consume(const FwdParams& p, const Smem& sm, const Block& k,
-                                        const Part& pt, int rank) {
-  constexpr int STAGES = stages_of(SPLIT);
+                                        const Part& pt, int rank, int stages) {
   const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int nd = pt.nd, nv = pt.nv, nv0 = pt.nv0;
@@ -363,10 +400,12 @@ __device__ __forceinline__ void consume(const FwdParams& p, const Smem& sm, cons
   fence_operands(o);
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
-  // it: the stream's stage index; held: a stage whose products may still
-  // run. done_with frees the stage before once this one's products are
-  // issued and the older ones completed (one group stays in flight).
-  int it = 0, held = -1;
+  // pos: the stream's next stage and its round's parity; held: a stage
+  // whose products may still run. done_with frees the stage before once
+  // this one's products are issued and the older ones completed (one group
+  // stays in flight).
+  RingPos pos;
+  int held = -1;
   auto release = [&](int st, bool pred) { mbar_arrive_if(&sm.empty[st], pred && lane == 0); };
   auto done_with = [&](int st) {
     wgmma_commit();
@@ -379,7 +418,7 @@ __device__ __forceinline__ void consume(const FwdParams& p, const Smem& sm, cons
     release(held >= 0 ? held : 0, held >= 0);
     held = -1;
   };
-  auto wait_full = [&](int st) { mbar_wait(&sm.full[st], (it / STAGES) & 1); };
+  auto wait_full = [&]() { mbar_wait(&sm.full[pos.st], pos.ph); };
 
   mbar_wait(sm.q_full, 0);
   for (int t = 0; t < k.ntiles; ++t) {
@@ -388,22 +427,22 @@ __device__ __forceinline__ void consume(const FwdParams& p, const Smem& sm, cons
     // S for this consumer's 32 KV columns: rows 32 C.. of each K box.
     float s[16];
     int c = 0;
-    for (; c + 2 <= nd; c += 2, ++it) {
-      const int st = it % STAGES;
+    for (; c + 2 <= nd; c += 2, pos.next(stages)) {
+      const int st = pos.st;
       const unsigned char* kb = sm.ring + st * STAGE_BYTES + C * 4096;
-      wait_full(st);
+      wait_full();
       wgmma_fence();
       box_mma<T, 32, 0>(s, sm.q + c * BOX_BYTES, kb, c == 0);
       box_mma<T, 32, 0>(s, sm.q + (c + 1) * BOX_BYTES, kb + BOX_BYTES);
       done_with(st);
     }
     if (c < nd) {
-      const int st = it % STAGES;
-      wait_full(st);
+      const int st = pos.st;
+      wait_full();
       wgmma_fence();
       box_mma<T, 32, 0>(s, sm.q + c * BOX_BYTES, sm.ring + st * STAGE_BYTES + C * 4096, c == 0);
       done_with(st);
-      ++it;
+      pos.next(stages);
     }
     drain();  // also completes this consumer's P V products of the tile before
     fence_operands(s);
@@ -530,8 +569,8 @@ __device__ __forceinline__ void consume(const FwdParams& p, const Smem& sm, cons
 #pragma unroll
     for (int j = 0; j < O_BOXES; ++j) {
       if (j < nv0) {
-        const int st = it % STAGES;
-        wait_full(st);
+        const int st = pos.st;
+        wait_full();
         if (j < own) {
           wgmma_fence();
           box_mma<T, 64, 1>(*reinterpret_cast<float(*)[32]>(o + 32 * j), sm.p,
@@ -540,7 +579,7 @@ __device__ __forceinline__ void consume(const FwdParams& p, const Smem& sm, cons
         } else {
           release(st, true);
         }
-        ++it;
+        pos.next(stages);
       }
     }
   }
@@ -581,27 +620,17 @@ __device__ __forceinline__ void consume(const FwdParams& p, const Smem& sm, cons
 
 template <typename T, bool SPLIT>
 __global__ void __launch_bounds__(THREADS, 1) wgmma_fwd_kernel(const __grid_constant__ Maps maps,
-                                                               const FwdParams p) {
-  constexpr int STAGES = stages_of(SPLIT);
+                                                               const FwdParams p,
+                                                               const int stages) {
+  // Boxes on 1024 B boundaries: the 128 B swizzle's atom (carve).
   extern __shared__ unsigned char smem_raw[];
-  // Boxes on 1024 B boundaries: the 128 B swizzle's atom. On the cluster
-  // route the offset is added to the shared array itself, so every pointer
-  // into it stays a 32-bit shared one: its consumers have no registers for
-  // 64-bit generic ones (through uintptr_t the row exchange's address
-  // spilled).
-  unsigned char* base;
-  if constexpr (SPLIT)
-    base = smem_raw + ((1024 - (cvta_smem(smem_raw) & 1023)) & 1023);
-  else
-    base = reinterpret_cast<unsigned char*>(
-        (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   const int rank = SPLIT ? (int)cluster_rank() : 0;
   const int nd = p.D / COLS;
   const Part pt = part_of(nd, p.Dv / COLS, SPLIT, rank);
-  const Smem sm = carve<SPLIT>(base, SPLIT ? (nd + 1) / 2 : nd);  // both ranks alike
+  const Smem sm = carve<SPLIT>(smem_raw, SPLIT ? (nd + 1) / 2 : nd);  // both ranks alike
   const Block k = block_of<SPLIT>(p);
   if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < stages; ++s) {
       mbar_init(&sm.full[s], 1);
       mbar_init(&sm.empty[s], CONSUMER_WARPS);
     }
@@ -619,13 +648,13 @@ __global__ void __launch_bounds__(THREADS, 1) wgmma_fwd_kernel(const __grid_cons
 
   if (threadIdx.x < 128) {
     setmaxnreg_dec<24>();
-    if (threadIdx.x == 0) produce<SPLIT>(maps, p, sm, k, pt);
+    if (threadIdx.x == 0) produce(maps, p, sm, k, pt, stages);
   } else {
     setmaxnreg_inc<240>();
     if (threadIdx.x < 256)
-      consume<T, 0, SPLIT>(p, sm, k, pt, rank);
+      consume<T, 0, SPLIT>(p, sm, k, pt, rank, stages);
     else
-      consume<T, 1, SPLIT>(p, sm, k, pt, rank);
+      consume<T, 1, SPLIT>(p, sm, k, pt, rank, stages);
   }
   if constexpr (SPLIT) cluster_sync();  // the partner may still store into this block
 }
@@ -653,9 +682,9 @@ cudaError_t launch(const FwdParams& p, const Plan& pl, int B, cudaStream_t strea
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
   if (e != cudaSuccess) return e;
   if constexpr (SPLIT) {
-    return launch_cluster(kern, grid, THREADS, pl.smem, stream, 2, maps, p);
+    return launch_cluster(kern, grid, THREADS, pl.smem, stream, 2, maps, p, pl.stages);
   } else {
-    kern<<<grid, THREADS, pl.smem, stream>>>(maps, p);
+    kern<<<grid, THREADS, pl.smem, stream>>>(maps, p, pl.stages);
     return cudaGetLastError();
   }
 }
@@ -678,7 +707,7 @@ extern "C" int ffpa_flash_fwd(const void* q, const void* k, const void* v, void*
                               float softcap, int causal_offset, int window_left,
                               int window_right, float dropout_p, float dropout_inv,
                               unsigned seed, void* s_out, int s_rows, int s_ld,
-                              void* stream) {
+                              int ring_cap, void* stream) {
   FwdParams p = {};
   p.s_out = static_cast<__nv_bfloat16*>(s_out);
   p.s_rows = s_rows;
@@ -719,8 +748,10 @@ extern "C" int ffpa_flash_fwd(const void* q, const void* k, const void* v, void*
       (s_out != nullptr && (s_rows < ((nq + block_q - 1) / block_q) * block_q ||
                             s_ld < ((nkv + KV_TILE - 1) / KV_TILE) * KV_TILE)))
     return (int)cudaErrorInvalidValue;
+  if (!fwd::ring_cap_ok(ring_cap, fwd::make_plan(D, Dv).route == fwd::CLUSTER))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const fwd::Plan pl = fwd::make_plan(D, Dv);
+  const fwd::Plan pl = fwd::make_plan(D, Dv, ring_cap);
   return (int)(pl.route == fwd::CLUSTER ? fwd::launch_typed<true>(is_fp16, p, pl, B, st)
                                         : fwd::launch_typed<false>(is_fp16, p, pl, B, st));
 }
@@ -732,12 +763,14 @@ extern "C" int ffpa_flash_fwd(const void* q, const void* k, const void* v, void*
 // blocks (each consumer's, rank by rank), then (first column, width) of
 // each; then the number of ranks that split the head dims (0 for one
 // block) and for each its (first D column, D width, first Dv column, Dv
-// width). cap is out's length.
-extern "C" int ffpa_flash_fwd_plan(int D, int Dv, int* out, int cap) {
+// width). cap is out's length; ring_cap the launch's (0: the plan's depth),
+// as ffpa_flash_fwd takes it.
+extern "C" int ffpa_flash_fwd_plan(int D, int Dv, int* out, int cap, int ring_cap) {
   if (D <= 0 || Dv <= 0 || D % CH != 0 || Dv % CH != 0 || D > MAX_HEAD_DIM ||
-      Dv > MAX_HEAD_DIM || cap < 6 + 8 + 1 + 8)
+      Dv > MAX_HEAD_DIM || cap < 6 + 8 + 1 + 8 ||
+      !fwd::ring_cap_ok(ring_cap, fwd::make_plan(D, Dv).route == fwd::CLUSTER))
     return (int)cudaErrorInvalidValue;
-  const fwd::Plan pl = fwd::make_plan(D, Dv);
+  const fwd::Plan pl = fwd::make_plan(D, Dv, ring_cap);
   const int ranks = pl.route == fwd::CLUSTER ? 2 : 1;
   int n = 0;
   out[n++] = pl.route;

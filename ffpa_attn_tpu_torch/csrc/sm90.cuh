@@ -269,6 +269,21 @@ inline cudaError_t launch_cluster(void (*kernel)(Params...), dim3 grid, int thre
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
+// A position in an mbarrier stage ring whose depth is a run-time value: the
+// stage and the parity of the ring's round (how often it has wrapped, mod
+// 2), stepped one stage at a time without a branch, so a walk pays no
+// division by the depth at every stage.
+struct RingPos {
+  int st = 0;
+  uint32_t ph = 0;
+  __device__ __forceinline__ void next(int stages) {
+    const int n = st + 1;
+    const bool wrap = n == stages;
+    st = wrap ? 0 : n;
+    ph ^= wrap ? 1u : 0u;
+  }
+};
+
 // ---------------------------------------------------------------------------
 // Device: warpgroup registers and wgmma
 // ---------------------------------------------------------------------------

@@ -159,33 +159,46 @@ constexpr int PART_BUF_BYTES = PART_SLOTS * 2 * PART_BYTES;
 constexpr int SMEM_LIMIT = 232448;
 constexpr int WGMMA = 1, CLUSTER = 2;        // routes
 
-// Ring depth: a D512 tile's K and V alone; the deepest ring that fits
-// beside a rank's 8 Q boxes and the exchange in a cluster (flash_fwd.cu
-// fwd::stages_of).
+// Ring depth of the plan: a D512 tile's K and V alone; the deepest ring
+// that fits beside a rank's 8 Q boxes and the exchange in a cluster
+// (flash_fwd.cu fwd::stages_of). The kernel takes its depth at run time (a
+// launch may cap it, the autotune's knob), never below MIN_STAGES, the
+// stages the consumers' walk holds at once: a consumer waits on stage it
+// while stage it - 1 may still be read, and where a block's Dv boxes are
+// odd consumer 1 carries the stage of its last product, two before the
+// next tile's first K stage, into that tile's S walk (flash_fwd.cu
+// fwd::MIN_STAGES).
 __host__ __device__ constexpr int stages_of(bool split) { return split ? 7 : 8; }
+constexpr int MIN_STAGES = 3;
 
-// Shared memory of a block laid out for nd Q boxes: Q, the P box, the 1024
-// B alignment, the exchange (split), then the stages' two barriers each,
-// Q's barrier, the row exchange and the exchange's barriers (split): the
-// dense forward's formula (flash_fwd.cu fwd::smem_bytes), so the plans are
-// equal.
-constexpr size_t smem_bytes(int nd, bool split) {
-  return (size_t)(nd + 1) * BOX_BYTES + 1024 + sizeof(uint64_t) + XCH_BYTES +
-         (split ? (size_t)PART_BUF_BYTES + PART_SLOTS * 2 * sizeof(uint64_t) : 0) +
-         (size_t)stages_of(split) * (STAGE_BYTES + 2 * sizeof(uint64_t));
+// The head of a block's dynamic shared memory, ahead of the 1024 B
+// alignment: the full / empty barriers of the plan's deepest ring, Q's
+// barrier, the partial exchange's barriers (split) and the row exchange,
+// sized for the plan's depth whatever a launch's cap, so every barrier sits
+// at a constant offset from the array (flash_fwd.cu fwd::head_bytes).
+__host__ __device__ constexpr int head_bytes(bool split) {
+  return (2 * stages_of(split) + 1 + (split ? PART_SLOTS * 2 : 0)) * (int)sizeof(uint64_t) +
+         XCH_BYTES;
 }
-static_assert(smem_bytes(MAX_BOXES, false) <= SMEM_LIMIT, "D512's block fits the card");
-static_assert(smem_bytes(MAX_BOXES, true) <= SMEM_LIMIT, "a D1024 rank fits the card");
 
-// The split layout's head, before the alignment: the stages' full / empty
-// barriers, Q's barrier, the exchange's barriers and the row exchange. The
-// head plus the worst alignment (1023 B) fits the 1024 B, the barriers and
-// the row exchange that smem_bytes counts.
-constexpr int SPLIT_HEAD_BYTES =
-    (2 * stages_of(true) + 1 + PART_SLOTS * 2) * (int)sizeof(uint64_t) + XCH_BYTES;
-static_assert(SPLIT_HEAD_BYTES + 1023 <=
-                  1024 + XCH_BYTES + (2 * stages_of(true) + 1 + PART_SLOTS * 2) * 8,
-              "the split head and the alignment fit smem_bytes");
+// Shared memory of a block laid out for nd Q boxes and a ring of stages:
+// the head, the 1024 B alignment, the exchange (split), Q, the P box and
+// the ring: the dense forward's formula (flash_fwd.cu fwd::smem_bytes), so
+// the plans are equal.
+constexpr size_t smem_bytes(int nd, bool split, int stages) {
+  return (size_t)head_bytes(split) + 1024 + (size_t)(nd + 1) * BOX_BYTES +
+         (split ? (size_t)PART_BUF_BYTES : 0) + (size_t)stages * STAGE_BYTES;
+}
+static_assert(smem_bytes(MAX_BOXES, false, stages_of(false)) <= SMEM_LIMIT,
+              "D512's block fits the card");
+static_assert(smem_bytes(MAX_BOXES, true, stages_of(true)) <= SMEM_LIMIT,
+              "a D1024 rank fits the card");
+
+// Whether a ring cap is one the entry points take: 0 (the plan's depth) or
+// MIN_STAGES..the plan's depth.
+inline bool ring_cap_ok(int ring_cap, bool split) {
+  return ring_cap == 0 || (ring_cap >= MIN_STAGES && ring_cap <= stages_of(split));
+}
 
 // A block's share of the head dims: its first D box and D boxes, its first
 // Dv box and Dv boxes, and consumer 0's Dv boxes (the first ceil(nv / 2);
@@ -210,22 +223,24 @@ __host__ __device__ inline Part part_of(int nd, int nv, bool split, int rank) {
 // metadata and the tile lists are read from device memory and cost no
 // shared memory. ffpa_varlen_fwd_plan hands it out; ops/config.py
 // varlen_fwd_plan mirrors it (it is fwd_plan) and the card test holds the
-// two equal.
+// two equal. ring_cap > 0 caps the ring at that many stages (ring_cap_ok:
+// at least MIN_STAGES).
 struct Plan {
   int route, rows, stages;
   Part part[2];  // each rank's share (the lone block's is part[0])
   size_t smem;
 };
-inline Plan make_plan(int D, int Dv) {
+inline Plan make_plan(int D, int Dv, int ring_cap = 0) {
   const int nd = D / COLS, nv = Dv / COLS;
   const bool split = nd > MAX_BOXES || nv > MAX_BOXES;
   Plan pl;
   pl.route = split ? CLUSTER : WGMMA;
   pl.rows = ROWS;
   pl.stages = stages_of(split);
+  if (ring_cap > 0 && ring_cap < pl.stages) pl.stages = ring_cap;
   pl.part[0] = part_of(nd, nv, split, 0);
   pl.part[1] = part_of(nd, nv, split, 1);
-  pl.smem = smem_bytes(pl.part[0].nd, split);
+  pl.smem = smem_bytes(pl.part[0].nd, split, pl.stages);
   return pl;
 }
 
@@ -238,13 +253,11 @@ struct Maps {
   CUtensorMap v_map;  // (Dv, Tk, Hkv)
 };
 
-// Shared memory of a block. One block, from a 1024 B boundary: the Q boxes,
-// the P box, the ring's stages, their full / empty barriers, Q's barrier and
-// the row exchange. Split: the head (the barriers, the exchange's barriers
-// and the row exchange) at the start of the dynamic shared memory, then
-// from a 1024 B boundary the partial exchange, the Q boxes, the P box and
-// the ring. Both ranks of a cluster lay it out alike (for rank 0's Q boxes),
-// so an offset here is the same offset in the partner.
+// Shared memory of a block: the head (head_bytes: the barriers and the row
+// exchange) at the start of the dynamic shared memory, then from a 1024 B
+// boundary the partial exchange (split), the Q boxes, the P box and the
+// ring. Both ranks of a cluster lay it out alike (for rank 0's Q boxes), so
+// an offset here is the same offset in the partner.
 struct Smem {
   unsigned char* part;  // [PART_SLOTS][2][PART_BYTES]: partial S the partner stored here
   unsigned char* q;
@@ -258,36 +271,22 @@ struct Smem {
 };
 template <bool SPLIT>
 __device__ __forceinline__ Smem carve(unsigned char* smem_raw, int nd) {
-  constexpr int STAGES = stages_of(SPLIT);
+  constexpr int HEAD = head_bytes(SPLIT);
   Smem sm;
-  if constexpr (SPLIT) {
-    sm.full = reinterpret_cast<uint64_t*>(smem_raw);
-    sm.empty = sm.full + STAGES;
-    sm.q_full = sm.empty + STAGES;
-    sm.part_full = sm.q_full + 1;
-    sm.xch = reinterpret_cast<float*>(sm.part_full + PART_SLOTS * 2);
-    // Boxes on 1024 B boundaries: the 128 B swizzle's atom. The offset is
-    // added to smem_raw itself, so the compiler keeps every pointer below in
-    // the shared space (32-bit) rather than generic (64-bit, two registers).
-    unsigned char* base =
-        smem_raw + SPLIT_HEAD_BYTES +
-        ((1024u - ((cvta_smem(smem_raw) + SPLIT_HEAD_BYTES) & 1023u)) & 1023u);
-    sm.part = base;
-    sm.q = base + PART_BUF_BYTES;
-  } else {
-    unsigned char* base = smem_raw + ((1024u - (cvta_smem(smem_raw) & 1023u)) & 1023u);
-    sm.part = nullptr;
-    sm.q = base;
-  }
+  sm.full = reinterpret_cast<uint64_t*>(smem_raw);
+  sm.empty = sm.full + stages_of(SPLIT);
+  sm.q_full = sm.empty + stages_of(SPLIT);
+  sm.part_full = sm.q_full + 1;
+  sm.xch = reinterpret_cast<float*>(sm.part_full + (SPLIT ? PART_SLOTS * 2 : 0));
+  // Boxes on 1024 B boundaries: the 128 B swizzle's atom. The offset is
+  // added to smem_raw itself, so the compiler keeps every pointer below in
+  // the shared space (32-bit) rather than generic (64-bit, two registers).
+  unsigned char* base =
+      smem_raw + HEAD + ((1024u - ((cvta_smem(smem_raw) + HEAD) & 1023u)) & 1023u);
+  sm.part = base;
+  sm.q = base + (SPLIT ? PART_BUF_BYTES : 0);
   sm.p = sm.q + nd * BOX_BYTES;
   sm.ring = sm.p + BOX_BYTES;
-  if constexpr (!SPLIT) {
-    sm.full = reinterpret_cast<uint64_t*>(sm.ring + STAGES * STAGE_BYTES);
-    sm.empty = sm.full + STAGES;
-    sm.q_full = sm.empty + STAGES;
-    sm.xch = reinterpret_cast<float*>(sm.q_full + 1);
-    sm.part_full = nullptr;
-  }
   return sm;
 }
 
@@ -302,10 +301,8 @@ struct Block {
 // its K stages (two boxes each, an odd last box alone) and its V stages (box
 // j of consumer 0's half beside box j of consumer 1's, alone where that half
 // is shorter).
-template <bool SPLIT>
 __device__ __forceinline__ void produce(const Maps& maps, const VarlenParams& p, const Smem& sm,
-                                        const Block& k, const Part& pt) {
-  constexpr int STAGES = stages_of(SPLIT);
+                                        const Block& k, const Part& pt, int stages) {
   prefetch_map(&maps.q_map);
   prefetch_map(&maps.k_map);
   prefetch_map(&maps.v_map);
@@ -314,29 +311,34 @@ __device__ __forceinline__ void produce(const Maps& maps, const VarlenParams& p,
   for (int j = 0; j < pt.nd; ++j)
     tma_load_3d(sm.q + j * BOX_BYTES, &maps.q_map, sm.q_full, (pt.d0 + j) * COLS, k.row0,
                 k.head);
-  int it = 0;
-  // Stage it % STAGES, free again, expecting nb boxes.
+  // pos: the stage to fill next; once the ring has wrapped (reuse) a stage
+  // is free again only when both consumers released its previous round.
+  RingPos pos;
+  bool reuse = false;
   auto claim = [&](int nb) -> unsigned char* {
-    const int st = it % STAGES;
-    if (it >= STAGES) mbar_wait(&sm.empty[st], ((it / STAGES) - 1) & 1);
-    mbar_arrive_expect_tx(&sm.full[st], nb * BOX_BYTES);
-    return sm.ring + st * STAGE_BYTES;
+    if (reuse) mbar_wait(&sm.empty[pos.st], pos.ph ^ 1u);
+    mbar_arrive_expect_tx(&sm.full[pos.st], nb * BOX_BYTES);
+    return sm.ring + pos.st * STAGE_BYTES;
+  };
+  auto advance = [&]() {
+    pos.next(stages);
+    reuse = reuse || pos.st == 0;
   };
   for (int t = 0; t < k.n; ++t) {
     const int kv0 = __ldg(p.tiles + k.first + t) * KV_TILE;
-    for (int c = 0; c < pt.nd; c += STAGE_BOXES, ++it) {
+    for (int c = 0; c < pt.nd; c += STAGE_BOXES, advance()) {
       const int nb = min(STAGE_BOXES, pt.nd - c);
       unsigned char* dst = claim(nb);
       for (int g = 0; g < nb; ++g)
-        tma_load_3d(dst + g * BOX_BYTES, &maps.k_map, &sm.full[it % STAGES],
+        tma_load_3d(dst + g * BOX_BYTES, &maps.k_map, &sm.full[pos.st],
                     (pt.d0 + c + g) * COLS, kv0, kvh);
     }
-    for (int j = 0; j < pt.nv0; ++j, ++it) {
+    for (int j = 0; j < pt.nv0; ++j, advance()) {
       const bool both = pt.nv0 + j < pt.nv;
       unsigned char* dst = claim(both ? 2 : 1);
-      tma_load_3d(dst, &maps.v_map, &sm.full[it % STAGES], (pt.v0 + j) * COLS, kv0, kvh);
+      tma_load_3d(dst, &maps.v_map, &sm.full[pos.st], (pt.v0 + j) * COLS, kv0, kvh);
       if (both)
-        tma_load_3d(dst + BOX_BYTES, &maps.v_map, &sm.full[it % STAGES],
+        tma_load_3d(dst + BOX_BYTES, &maps.v_map, &sm.full[pos.st],
                     (pt.v0 + pt.nv0 + j) * COLS, kv0, kvh);
     }
   }
@@ -350,8 +352,7 @@ __device__ __forceinline__ void produce(const Maps& maps, const VarlenParams& p,
 // of the head dims, rank the block's rank (0 alone).
 template <typename T, int C, bool SPLIT>
 __device__ __forceinline__ void consume(const VarlenParams& p, const Smem& sm, const Block& k,
-                                        const Part& pt, int rank) {
-  constexpr int STAGES = stages_of(SPLIT);
+                                        const Part& pt, int rank, int stages) {
   const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   // The block's box counts (D, Dv, consumer 0's Dv) and its rank. One block
@@ -380,10 +381,12 @@ __device__ __forceinline__ void consume(const VarlenParams& p, const Smem& sm, c
   fence_operands(o);
   float m[2] = {MASK_VALUE, MASK_VALUE}, l[2] = {0.f, 0.f};
 
-  // it: the stream's stage index; held: a stage whose products may still
-  // run. done_with frees the stage before once this one's products are
-  // issued and the older ones completed (one group stays in flight).
-  int it = 0, held = -1;
+  // pos: the stream's next stage and its round's parity; held: a stage
+  // whose products may still run. done_with frees the stage before once
+  // this one's products are issued and the older ones completed (one group
+  // stays in flight).
+  RingPos pos;
+  int held = -1;
   auto release = [&](int st, bool pred) { mbar_arrive_if(&sm.empty[st], pred && lane == 0); };
   auto done_with = [&](int st) {
     wgmma_commit();
@@ -396,7 +399,7 @@ __device__ __forceinline__ void consume(const VarlenParams& p, const Smem& sm, c
     release(held >= 0 ? held : 0, held >= 0);
     held = -1;
   };
-  auto wait_full = [&](int st) { mbar_wait(&sm.full[st], (it / STAGES) & 1); };
+  auto wait_full = [&]() { mbar_wait(&sm.full[pos.st], pos.ph); };
 
   if (k.n > 0) mbar_wait(sm.q_full, 0);
   for (int t = 0; t < k.n; ++t) {
@@ -409,22 +412,22 @@ __device__ __forceinline__ void consume(const VarlenParams& p, const Smem& sm, c
     float s[16];
     const int nd = count(0);
     int c = 0;
-    for (; c + 2 <= nd; c += 2, ++it) {
-      const int st = it % STAGES;
+    for (; c + 2 <= nd; c += 2, pos.next(stages)) {
+      const int st = pos.st;
       const unsigned char* kb = sm.ring + st * STAGE_BYTES + C * 4096;
-      wait_full(st);
+      wait_full();
       wgmma_fence();
       box_mma<T, 32, 0>(s, sm.q + c * BOX_BYTES, kb, c == 0);
       box_mma<T, 32, 0>(s, sm.q + (c + 1) * BOX_BYTES, kb + BOX_BYTES);
       done_with(st);
     }
     if (c < nd) {
-      const int st = it % STAGES;
-      wait_full(st);
+      const int st = pos.st;
+      wait_full();
       wgmma_fence();
       box_mma<T, 32, 0>(s, sm.q + c * BOX_BYTES, sm.ring + st * STAGE_BYTES + C * 4096, c == 0);
       done_with(st);
-      ++it;
+      pos.next(stages);
     }
     drain();  // also completes this consumer's P V products of the tile before
     fence_operands(s);
@@ -559,8 +562,8 @@ __device__ __forceinline__ void consume(const VarlenParams& p, const Smem& sm, c
 #pragma unroll
     for (int j = 0; j < O_BOXES; ++j) {
       if (j < nv0) {
-        const int st = it % STAGES;
-        wait_full(st);
+        const int st = pos.st;
+        wait_full();
         if (j < own) {
           wgmma_fence();
           box_mma<T, 64, 1>(*reinterpret_cast<float(*)[32]>(o + 32 * j), sm.p,
@@ -569,7 +572,7 @@ __device__ __forceinline__ void consume(const VarlenParams& p, const Smem& sm, c
         } else {
           release(st, true);
         }
-        ++it;
+        pos.next(stages);
       }
     }
   }
@@ -613,8 +616,8 @@ __device__ __forceinline__ void consume(const VarlenParams& p, const Smem& sm, c
 
 template <typename T, bool SPLIT>
 __global__ void __launch_bounds__(THREADS, 1)
-    varlen_fwd_wgmma_kernel(const __grid_constant__ Maps maps, const VarlenParams p) {
-  constexpr int STAGES = stages_of(SPLIT);
+    varlen_fwd_wgmma_kernel(const __grid_constant__ Maps maps, const VarlenParams p,
+                            const int stages) {
   extern __shared__ unsigned char smem_raw[];
   const int rank = SPLIT ? (int)cluster_rank() : 0;
   const int nd = p.D / COLS;
@@ -627,7 +630,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const Block k = {SPLIT ? (int)(blockIdx.x >> 1) : (int)blockIdx.x, tile * ROWS,
                    tile * p.tiles_ld, p.ntile[tile]};
   if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < stages; ++s) {
       mbar_init(&sm.full[s], 1);
       mbar_init(&sm.empty[s], CONSUMER_WARPS);
     }
@@ -647,13 +650,13 @@ __global__ void __launch_bounds__(THREADS, 1)
   if (threadIdx.x < 128) {
     setmaxnreg_dec<24>();
     // A Q tile that needs no KV tile loads nothing (not even Q).
-    if (threadIdx.x == 0 && k.n > 0) produce<SPLIT>(maps, p, sm, k, pt);
+    if (threadIdx.x == 0 && k.n > 0) produce(maps, p, sm, k, pt, stages);
   } else {
     setmaxnreg_inc<240>();
     if (threadIdx.x < 256)
-      consume<T, 0, SPLIT>(p, sm, k, pt, rank);
+      consume<T, 0, SPLIT>(p, sm, k, pt, rank, stages);
     else
-      consume<T, 1, SPLIT>(p, sm, k, pt, rank);
+      consume<T, 1, SPLIT>(p, sm, k, pt, rank, stages);
   }
   if constexpr (SPLIT) cluster_sync();  // the partner may still store into this block
 }
@@ -682,9 +685,9 @@ cudaError_t launch(const VarlenParams& p, const Plan& pl, int num_q_tiles, cudaS
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
   if (e != cudaSuccess) return e;
   if constexpr (SPLIT) {
-    return launch_cluster(kern, grid, THREADS, pl.smem, stream, 2, maps, p);
+    return launch_cluster(kern, grid, THREADS, pl.smem, stream, 2, maps, p, pl.stages);
   } else {
-    kern<<<grid, THREADS, pl.smem, stream>>>(maps, p);
+    kern<<<grid, THREADS, pl.smem, stream>>>(maps, p, pl.stages);
     return cudaGetLastError();
   }
 }
@@ -715,7 +718,8 @@ extern "C" int ffpa_varlen_fwd(const void* q, const void* k, const void* v, long
                                const int* ntile, const int* order, const float* alibi,
                                int is_fp16, int block_q, int Hq, int Hkv, int tq, int tk,
                                int num_q_tiles, int num_kv_tiles, int D, int Dv, float scale,
-                               float softcap, int window_left, int window_right, void* stream) {
+                               float softcap, int window_left, int window_right, int ring_cap,
+                               void* stream) {
   (void)jmin;
   (void)jmax;
   (void)block_q;
@@ -756,8 +760,10 @@ extern "C" int ffpa_varlen_fwd(const void* q, const void* k, const void* v, long
       ntile == nullptr || order == nullptr || num_q_tiles < 1 ||
       (long long)num_q_tiles * tma::ROWS < tq || (long long)num_kv_tiles * KV_TILE < tk)
     return (int)cudaErrorInvalidValue;
+  if (!tma::ring_cap_ok(ring_cap, tma::make_plan(D, Dv).route == tma::CLUSTER))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const tma::Plan pl = tma::make_plan(D, Dv);
+  const tma::Plan pl = tma::make_plan(D, Dv, ring_cap);
   return (int)(pl.route == tma::CLUSTER
                    ? tma::launch_typed<true>(is_fp16, p, pl, num_q_tiles, st)
                    : tma::launch_typed<false>(is_fp16, p, pl, num_q_tiles, st));
@@ -770,12 +776,14 @@ extern "C" int ffpa_varlen_fwd(const void* q, const void* k, const void* v, long
 // bytes of a block; out[5] the number of O column blocks (each consumer's,
 // rank by rank), then (first column, width) of each; then the number of
 // ranks that split the head dims (0 for one block) and for each its (first
-// D column, D width, first Dv column, Dv width). cap is out's length.
-extern "C" int ffpa_varlen_fwd_plan(int D, int Dv, int* out, int cap) {
+// D column, D width, first Dv column, Dv width). cap is out's length;
+// ring_cap the launch's (0: the plan's depth), as ffpa_varlen_fwd takes it.
+extern "C" int ffpa_varlen_fwd_plan(int D, int Dv, int* out, int cap, int ring_cap) {
   if (D <= 0 || Dv <= 0 || D % CH != 0 || Dv % CH != 0 || D > tma::MAX_HEAD_DIM ||
-      Dv > tma::MAX_HEAD_DIM || cap < 6 + 8 + 1 + 8)
+      Dv > tma::MAX_HEAD_DIM || cap < 6 + 8 + 1 + 8 ||
+      !tma::ring_cap_ok(ring_cap, tma::make_plan(D, Dv).route == tma::CLUSTER))
     return (int)cudaErrorInvalidValue;
-  const tma::Plan pl = tma::make_plan(D, Dv);
+  const tma::Plan pl = tma::make_plan(D, Dv, ring_cap);
   const int ranks = pl.route == tma::CLUSTER ? 2 : 1;
   int n = 0;
   out[n++] = pl.route;

@@ -8,6 +8,7 @@ Only the readers this port uses are here, under the port's own
 from __future__ import annotations
 
 import os
+from dataclasses import dataclass
 from typing import Union
 
 import torch
@@ -30,6 +31,31 @@ def _env_int(name: str, default: int) -> int:
         return int(val)
     except ValueError:
         return default
+
+
+@dataclass(frozen=True)
+class EnvSnapshot:
+    """A frozen snapshot of the port's runtime flags (for logging and
+    debugging), the counterpart of the JAX package's ``EnvSnapshot``. Its
+    TPU-only fields have no counterpart here and are absent, not faked:
+    ``interpret`` (Pallas interpret mode; the port's CPU tensors take each
+    kernel's plain version instead) and ``vmem_limit_bytes`` (the TPU's
+    VMEM; the Hopper kernels plan their own shared memory). The port's own
+    flags follow the shared ones."""
+
+    allow_small_d: bool
+    skip_persistent_tuned_config: bool
+    tuned_config_dir: str | None
+    autotune_max_configs: int
+    min_seqlen_q: int
+    min_seqlen_kv: int
+    ds_handoff_limit_bytes: int
+    scores_residual_limit_bytes: int
+    allow_fp8_ds: bool
+    hbm_bytes: int
+    hbm_model_margin_bytes: int
+    scores_auto_assumed_layers: int
+    device_log_level: int
 
 
 class ENV:
@@ -100,8 +126,9 @@ class ENV:
     @staticmethod
     def skip_persistent_tuned_config() -> bool:
         """Kill-switch for the tuned-config store (``autotune/store.py``):
-        set, every lookup misses and the dispatch takes its defaults. The
-        counterpart of the JAX package's ``FFPA_TPU_SKIP_TUNED_CONFIG``."""
+        set, every lookup misses and the dispatch takes its defaults (decode's
+        memoised split count from the next ``store.clear_lookup_cache``).
+        The counterpart of the JAX package's ``FFPA_TPU_SKIP_TUNED_CONFIG``."""
         return _env_bool("FFPA_TORCH_SKIP_TUNED_CONFIG", False)
 
     @staticmethod
@@ -124,6 +151,11 @@ class ENV:
         plus the launch's split-KV layout for decode."""
         return _env_int("FFPA_TORCH_DEVICE_LOG_LEVEL", 0)
 
+    @staticmethod
+    def snapshot() -> EnvSnapshot:
+        return EnvSnapshot(**{name: getattr(ENV, name)()
+                              for name in EnvSnapshot.__dataclass_fields__})
+
 
 def resolve_device(device: Union[str, torch.device, None] = None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller asks for
@@ -138,4 +170,4 @@ def resolve_device(device: Union[str, torch.device, None] = None) -> torch.devic
     return dev
 
 
-__all__ = ["ENV", "resolve_device"]
+__all__ = ["ENV", "EnvSnapshot", "resolve_device"]

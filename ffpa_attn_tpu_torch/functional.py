@@ -1,9 +1,10 @@
 """Dispatch, validation and backend configuration of the PyTorch/CUDA port.
 
 * ``Backend`` dataclasses: ``SDPABackend`` (the fp32 reference composite)
-  and ``CudaBackend`` (the hand-written Hopper kernels). The other kernel
-  tier names the JAX package accepts ("pallas", "mosaic", "triton",
-  "cutedsl") alias to ``CudaBackend``.
+  and ``CudaBackend`` (the hand-written Hopper kernels), also under the
+  JAX package's name ``PallasBackend``. The other kernel tier names the
+  JAX package accepts ("pallas", "mosaic", "triton", "cutedsl") alias to
+  ``CudaBackend``.
 * ``FFPAAttnMeta``: kwarg parsing with unknown-key TypeError, the fallback
   predicate, input validation / normalization, and boolean -> additive mask
   normalization.
@@ -22,7 +23,9 @@ from .logger import init_logger
 
 logger = init_logger(__name__)
 
-# Largest head dim the kernel path is designed for.
+# Head dims the kernel path is designed for: above 256 (smaller ones take
+# the reference unless FFPA_TORCH_ALLOW_SMALL_D), up to 1024.
+MIN_LARGE_D = 257
 MAX_LARGE_D = 1024
 
 _SUPPORTED_DTYPES = (torch.float16, torch.bfloat16)
@@ -50,9 +53,21 @@ class SDPABackend(Backend):
 class CudaBackend(Backend):
     """The hand-written Hopper kernel tier.
 
+    ``autotune`` / ``autotune_mode``: a timed search at the call, the JAX
+    package's ``PallasBackend(autotune=True)``: the first call of each
+    variant (shapes, dtype, bias shape, causal, dropout, mode) searches the
+    forward's (and, under autograd, the backward's) run-time knobs
+    (``autotune/search.py``) and later calls reuse its winner
+    (``ops/attention.py`` ``_online_autotune``). Under CUDA-graph capture or
+    ``torch.compile`` nothing can be timed: the call warns once and takes
+    the tuned store's config or the default. The Hopper knobs have one
+    space, which "fast" and "max" both search; another mode raises.
     ``block_q`` / ``block_kv``: manual forward block-shape overrides (None =
-    the cost model's pick). ``block_q`` must be a row tile the forward
-    kernel is compiled for, ``block_kv`` its KV tile.
+    the cost model's pick; a manual block skips the search). ``block_q``
+    must be a row tile the forward kernel is compiled for, ``block_kv`` its
+    KV tile. ``block_kv_dkdv``: the JAX package's dK/dV KV tile override,
+    validated (the compiled KV tile) and kept for parity with its API: the
+    dK/dV launchers take their own 64-row KV tile.
     ``block_q_dq``: the JAX package's dQ row tile override, validated (one
     of the row tiles) and kept for parity with its API; the dense recompute
     dQ and the packed varlen dQ take their own 64-row tile at every head
@@ -73,8 +88,11 @@ class CudaBackend(Backend):
     """
 
     name: str = "cuda"
+    autotune: bool = False
+    autotune_mode: str = "fast"
     block_q: Optional[int] = None
     block_kv: Optional[int] = None
+    block_kv_dkdv: Optional[int] = None
     block_q_dq: Optional[int] = None
     grad_kv_storage_dtype: Optional[str] = None
     grad_q_storage_dtype: Optional[str] = None
@@ -84,10 +102,16 @@ class CudaBackend(Backend):
     def validate(self) -> None:
         from .ops.config import FWD_ROW_TILES, KV_TILE
 
+        if self.autotune_mode not in ("fast", "max"):
+            raise ValueError(
+                f"autotune_mode must be 'fast' or 'max', got {self.autotune_mode!r}"
+            )
         if self.block_q is not None and self.block_q not in FWD_ROW_TILES:
             raise ValueError(f"block_q must be one of {FWD_ROW_TILES}, got {self.block_q}")
-        if self.block_kv is not None and self.block_kv != KV_TILE:
-            raise ValueError(f"block_kv must be {KV_TILE}, got {self.block_kv}")
+        for attr in ("block_kv", "block_kv_dkdv"):
+            val = getattr(self, attr)
+            if val is not None and val != KV_TILE:
+                raise ValueError(f"{attr} must be {KV_TILE}, got {val}")
         if self.block_q_dq is not None and self.block_q_dq not in FWD_ROW_TILES:
             raise ValueError(
                 f"block_q_dq must be one of {FWD_ROW_TILES}, got {self.block_q_dq}"
@@ -99,6 +123,10 @@ class CudaBackend(Backend):
                     f"{attr} must be one of 'f16', 'bf16', 'f32', got {val!r}"
                 )
 
+
+# The JAX package's name of the kernel tier, so that its ``from ... import
+# PallasBackend`` finds the port's.
+PallasBackend = CudaBackend
 
 _BACKEND_ALIASES = {
     "sdpa": SDPABackend,
@@ -189,7 +217,7 @@ class FFPAAttnMeta:
         if query.ndim != 4 or key.ndim != 4:
             return False  # let normalize raise a precise error
         d = query.shape[-1]
-        if d <= 256 and not ENV.allow_small_d():
+        if d < MIN_LARGE_D and not ENV.allow_small_d():
             if self.backend_forced:
                 logger.warning_once(
                     "head_dim %d <= 256: falling back to the reference despite "
@@ -361,8 +389,10 @@ __all__ = [
     "Backend",
     "SDPABackend",
     "CudaBackend",
+    "PallasBackend",
     "AttentionMeta",
     "FFPAAttnMeta",
     "normalize_attn_mask",
+    "MIN_LARGE_D",
     "MAX_LARGE_D",
 ]

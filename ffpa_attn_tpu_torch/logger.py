@@ -58,6 +58,11 @@ def _log_once(logger: logging.Logger, level: int, msg: str, *args: Any) -> None:
     logger.log(level, msg, *args)
 
 
+def reset_once_cache() -> None:
+    """Test hook: clear the ``*_once`` dedup cache."""
+    _ONCE_SEEN.clear()
+
+
 def init_logger(name: str) -> logging.Logger:
     """Return a child logger with ``debug_once``/``info_once``/``warning_once``."""
     _root_logger()

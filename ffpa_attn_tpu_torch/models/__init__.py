@@ -24,6 +24,7 @@ from .transformer import (
     Transformer,
     adamw,
     forward,
+    init_params,
     loss_fn,
     make_train_step,
 )
@@ -31,6 +32,7 @@ from .transformer import (
 __all__ = [
     "ModelConfig",
     "Transformer",
+    "init_params",
     "params_from_jax",
     "params_to_jax",
     "random_params",

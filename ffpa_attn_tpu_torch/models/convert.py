@@ -41,6 +41,8 @@ _AS_IS = ("attn_norm", "mlp_norm")
 
 
 def _tensor(x, dtype, device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):  # init_params' leaves
+        return x.to(device=device, dtype=dtype)
     # numpy has no bfloat16: go through float32, which holds bf16 exactly.
     return torch.from_numpy(np.asarray(x, dtype=np.float32)).to(device=device, dtype=dtype)
 

@@ -134,6 +134,41 @@ class Transformer(nn.Module):
         self.layers = nn.ModuleList(Block(cfg, device=dev) for _ in range(cfg.n_layers))
 
 
+def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
+    """The JAX package's ``init_params``: a JAX-layout parameter pytree in
+    ``cfg.dtype`` (sinks fp32) on ``generator``'s device, normal weights
+    scaled by 1/sqrt(fan_in) (the embedding by 0.02), norms at one, sinks
+    at zero, drawn from ``generator`` (the values are not JAX's: the two
+    generators differ). ``params_from_jax`` loads it into a
+    ``Transformer``."""
+    dev, dt = generator.device, cfg.torch_dtype
+
+    def dense(shape, scale=None):
+        scale = scale if scale is not None else 1.0 / (shape[0] ** 0.5)
+        return (torch.randn(shape, generator=generator, device=dev) * scale).to(dt)
+
+    dm, dh = cfg.d_model, cfg.head_dim
+    hidden = cfg.mlp_ratio * dm
+    params = {"embed": dense((cfg.vocab_size, dm), scale=0.02),
+              "final_norm": torch.ones(dm, device=dev, dtype=dt), "layers": []}
+    for _ in range(cfg.n_layers):
+        layer = {
+            "attn_norm": torch.ones(dm, device=dev, dtype=dt),
+            "wq": dense((dm, cfg.n_heads * dh)),
+            "wk": dense((dm, cfg.n_kv_heads * dh)),
+            "wv": dense((dm, cfg.n_kv_heads * dh)),
+            "wo": dense((cfg.n_heads * dh, dm)),
+            "mlp_norm": torch.ones(dm, device=dev, dtype=dt),
+            "w_up": dense((dm, hidden)),
+            "w_gate": dense((dm, hidden)),
+            "w_down": dense((hidden, dm)),
+        }
+        if cfg.attn_sinks:
+            layer["attn_sinks"] = torch.zeros(cfg.n_heads, device=dev, dtype=torch.float32)
+        params["layers"].append(layer)
+    return params
+
+
 def _rmsnorm(x, w, eps=1e-6):
     var = x.float().square().mean(dim=-1, keepdim=True)
     return (x.float() * torch.rsqrt(var + eps)).to(x.dtype) * w
@@ -445,6 +480,7 @@ __all__ = [
     "ModelConfig",
     "Block",
     "Transformer",
+    "init_params",
     "forward",
     "loss_fn",
     "adamw",

@@ -13,7 +13,9 @@ of the JAX package:
 * ``SDPABackend``: autograd through the fp32 oracle ``reference_attention``.
 
 ``apply_attention`` routes decode shapes (Nq <= 8) to the split-KV decode
-kernel, MHA and GQA alike, and everything else to the core op.
+kernel, MHA and GQA alike, and everything else to the core op; with
+``CudaBackend(autotune=True)`` it first searches the kernels' run-time
+knobs for the call's variant (``_online_autotune``).
 
 fp16 runs natively on the card: no cast to bf16, no hi+lo split, and the
 gradients come back in the inputs' dtype.
@@ -31,6 +33,7 @@ from ..env import ENV
 from ..functional import AttentionMeta, CudaBackend, SDPABackend
 from ..logger import init_logger
 from .config import BlockConfig
+from .dispatch import head_layout
 from .flash_bwd import flash_attention_backward
 from .flash_fwd import flash_attention_forward, scores_padding
 from .reference import expand_kv_heads, reference_attention
@@ -128,7 +131,9 @@ def _resident_head_count(static: StaticArgs, q, k, v, bias) -> int:
     if limit <= 0:
         return 0
     b, _, nq, d = q.shape
-    nq_pad, nkv_pad = scores_padding(nq, k.shape[2], d, v.shape[-1], q.dtype, static.fwd_config)
+    nq_pad, nkv_pad = scores_padding(nq, k.shape[2], d, v.shape[-1], q.dtype, static.fwd_config,
+                                     causal=static.is_causal, has_bias=bias is not None,
+                                     dropout=static.dropout_p > 0.0, **head_layout(hq, k.shape[1]))
     per_head_bytes = b * nq_pad * nkv_pad * 2
     layers = max(1, ENV.scores_auto_assumed_layers())
     residents = 2 * (5 * q.numel() + 4 * k.numel())
@@ -288,6 +293,43 @@ def ffpa_attention_core(static: StaticArgs, q, k, v, bias, alibi, sinks, seed):
     return _FFPAAttentionCore.apply(static, q, k, v, bias, alibi, sinks, seed)
 
 
+_AUTOTUNE_CACHE: dict = {}
+
+
+def _online_autotune(direction, q, k, v, bias, meta, mode) -> Optional[BlockConfig]:
+    """Per-call timed search (the JAX package's ``_online_autotune``): runs
+    ``autotune_forward`` or ``autotune_backward`` on the call's tensors and
+    memoises the winner by the JAX package's variant key (direction,
+    shapes, dtype, bias shape, causal, dropout, mode). Under CUDA-graph
+    capture or ``torch.compile`` (the JAX package's jit tracing) nothing
+    can be timed: one warning, and None (the tuned store's config or the
+    default)."""
+    capturing = q.device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+    if capturing or torch.compiler.is_compiling():
+        logger.warning_once(
+            "autotune=True under CUDA-graph capture or torch.compile: cannot time "
+            "candidates; using persistent-store/heuristic config. Run the call once "
+            "eagerly (or `python -m ffpa_attn_tpu_torch.autotune`) to tune."
+        )
+        return None
+    key = (
+        direction, tuple(q.shape), tuple(k.shape), tuple(v.shape), str(q.dtype),
+        None if bias is None else tuple(bias.shape),
+        meta.is_causal, meta.dropout_p > 0.0, mode,
+    )
+    if key in _AUTOTUNE_CACHE:
+        return _AUTOTUNE_CACHE[key]
+    from ..autotune.search import autotune_backward, autotune_forward
+
+    tune = autotune_forward if direction == "fwd" else autotune_backward
+    with torch.no_grad():
+        cfg = tune(q.detach(), k.detach(), v.detach(), None if bias is None else bias.detach(),
+                   scale=meta.scale, is_causal=meta.is_causal, dropout_p=meta.dropout_p,
+                   mode=mode).config
+    _AUTOTUNE_CACHE[key] = cfg
+    return cfg
+
+
 def apply_attention(
     meta: AttentionMeta,
     q,
@@ -331,14 +373,15 @@ def apply_attention(
             )
 
     fwd_config = None
-    if isinstance(fwd_be, CudaBackend) and (
-        fwd_be.block_q is not None or fwd_be.block_kv is not None
-    ):
-        base = BlockConfig()
-        fwd_config = BlockConfig(
-            block_q=fwd_be.block_q or base.block_q,
-            block_kv=fwd_be.block_kv or base.block_kv,
-        )
+    if isinstance(fwd_be, CudaBackend):
+        if fwd_be.block_q is not None or fwd_be.block_kv is not None:
+            base = BlockConfig()
+            fwd_config = BlockConfig(
+                block_q=fwd_be.block_q or base.block_q,
+                block_kv=fwd_be.block_kv or base.block_kv,
+            )
+        elif fwd_be.autotune:
+            fwd_config = _online_autotune("fwd", q, k, v, bias, meta, fwd_be.autotune_mode)
     bwd_be = meta.backward_backend
     bwd = {}
     if isinstance(bwd_be, CudaBackend):
@@ -348,8 +391,15 @@ def apply_attention(
             ds_handoff=bwd_be.ds_handoff,
             save_scores=bwd_be.save_scores,
         )
-        if bwd_be.block_q_dq is not None:
-            bwd["bwd_config"] = BlockConfig(block_q_dq=bwd_be.block_q_dq)
+        if bwd_be.block_kv_dkdv is not None or bwd_be.block_q_dq is not None:
+            bwd["bwd_config"] = BlockConfig(block_q_dq=bwd_be.block_q_dq or BlockConfig.block_q_dq)
+        elif bwd_be.autotune and torch.is_grad_enabled() and any(
+                t.requires_grad for t in (q, k, v)):
+            # The port knows whether a backward can follow; the JAX package
+            # searches the backward at every call.
+            cfg = _online_autotune("bwd", q, k, v, bias, meta, bwd_be.autotune_mode)
+            if cfg is not None:
+                bwd["bwd_config"] = cfg
     static = StaticArgs(
         scale=meta.scale,
         is_causal=meta.is_causal,

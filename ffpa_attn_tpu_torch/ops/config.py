@@ -244,6 +244,12 @@ def _round_up(x: int, m: int) -> int:
 # holds its S stage and ceil(nv / 2) dO stages (``from_s_min_stages``).
 DKDV_MIN_STAGES = 3
 DQ_MIN_STAGES = 3
+# The forward's and the packed forward's walk (``csrc/flash_fwd.cu`` and
+# ``csrc/varlen_fwd.cu`` MIN_STAGES): a consumer waits on a stage while the
+# one before may still be read, and where a block's Dv boxes are odd
+# consumer 1 carries its last V stage, two before the next tile's first K
+# stage, into that tile's walk (a two-stage ring deadlocks at D320).
+FWD_MIN_STAGES = 3
 
 
 def _capped(stages: int, ring_cap: int, least: int, what: str) -> int:
@@ -301,7 +307,11 @@ class BlockConfig:
     dK/dV, recompute dQ and varlen dQ, the from-S pass's wgmma routes). A
     launch takes ``min(plan's depth, cap)``, and never fewer stages than its
     walk holds at once (``ring_depth``); 0, the default, is the plan's
-    depth."""
+    depth. ``fwd_ring_cap`` does the same for the forward's and the packed
+    forward's ring (``fwd_plan``, ``varlen_fwd_plan``). ``decode_splits``
+    is the decode launch's KV split count: 0, the default, is
+    ``decode._tma_splits``'s rule, and a larger count than the rule's is
+    clamped to it (every block of the launch stays resident at once)."""
 
     block_q: int = 64
     block_kv: int = KV_TILE
@@ -310,6 +320,8 @@ class BlockConfig:
     dkdv_dk_in_kernel: bool = True
     ds_store_bits: int = 16
     bwd_ring_cap: int = 0
+    fwd_ring_cap: int = 0
+    decode_splits: int = 0
 
     def __post_init__(self):
         if self.ds_store_bits not in (8, 16):
@@ -329,8 +341,9 @@ class BlockConfig:
             )
         if self.dkdv_col_passes < 1:
             raise ValueError(f"dkdv_col_passes must be >= 1, got {self.dkdv_col_passes}")
-        if self.bwd_ring_cap < 0:
-            raise ValueError(f"bwd_ring_cap must be >= 0, got {self.bwd_ring_cap}")
+        for knob in ("bwd_ring_cap", "fwd_ring_cap", "decode_splits"):
+            if getattr(self, knob) < 0:
+                raise ValueError(f"{knob} must be >= 0, got {getattr(self, knob)}")
 
     def clamp(self, nq: int, nkv: int, tiles=ROW_TILES) -> "BlockConfig":
         """Shrink the row tile to the smallest of ``tiles`` that covers the
@@ -393,7 +406,7 @@ class FwdPlan:
     rank_blocks: tuple = ()
 
 
-def fwd_plan(d: int, dv: int) -> FwdPlan:
+def fwd_plan(d: int, dv: int, ring_cap: int = 0) -> FwdPlan:
     """The forward route by head dims alone (padded to 64-column chunks, at
     most 1024; 16-bit inputs). D and Dv <= 512 take one wgmma block, with a
     ring of 8 stages (two 64 x 64 boxes each) beside Q, the P box and the
@@ -401,7 +414,10 @@ def fwd_plan(d: int, dv: int) -> FwdPlan:
     holding its half of D's boxes and of Dv's (``_even_blocks``: rank 0 the
     larger), with a ring of 7 stages beside rank 0's Q boxes and the
     partial-score exchange. In each block consumer 0 owns the first
-    ceil(nv / 2) of the block's nv Dv boxes and consumer 1 the rest."""
+    ceil(nv / 2) of the block's nv Dv boxes and consumer 1 the rest.
+    ``ring_cap`` caps the ring (``_capped``, at least FWD_MIN_STAGES) and
+    ``smem_bytes`` follows by the stages' boxes (their barriers stay laid
+    out for the plan's depth)."""
     nd, nv = cdiv(d, D_CHUNK), cdiv(dv, D_CHUNK)
     if max(nd, nv) * D_CHUNK > FWD_MAX_HEAD_DIM:
         raise ValueError(f"the forward kernel takes D, Dv <= {FWD_MAX_HEAD_DIM}, got D={d}, "
@@ -414,11 +430,13 @@ def fwd_plan(d: int, dv: int) -> FwdPlan:
         boxes = width // D_CHUNK
         nv0 = cdiv(boxes, 2)
         o_blocks += [(v0, nv0 * D_CHUNK), (v0 + nv0 * D_CHUNK, (boxes - nv0) * D_CHUNK)]
-    stages = _FWD_CLUSTER_STAGES if split else _FWD_WG_STAGES
+    deepest = _FWD_CLUSTER_STAGES if split else _FWD_WG_STAGES
+    stages = _capped(deepest, ring_cap, FWD_MIN_STAGES, "fwd_plan")
     box = _FWD_WG_ROWS * D_CHUNK * 2
+    # The barriers are laid out for the deepest ring whatever the cap.
     smem = ((d_blocks[0][1] // D_CHUNK + 1) * box + 1024 + 8 + _FWD_WG_XCH_BYTES
             + (_FWD_CLUSTER_PART_BYTES if split else 0)
-            + stages * (_FWD_WG_STAGE_BOXES * box + 16))
+            + stages * _FWD_WG_STAGE_BOXES * box + deepest * 16)
     return FwdPlan("wgmma_cluster" if split else "wgmma", _FWD_WG_ROWS, KV_TILE, stages, smem,
                    tuple(o_blocks), tuple(zip(d_blocks, v_blocks)) if split else ())
 
@@ -467,15 +485,15 @@ def decode_plan(d: int, dv: int, rows: int) -> DecodePlan:
                       1 if split else 2)
 
 
-def varlen_fwd_plan(d: int, dv: int) -> FwdPlan:
+def varlen_fwd_plan(d: int, dv: int, ring_cap: int = 0) -> FwdPlan:
     """The packed varlen forward's route by head dims alone (padded to
     64-column chunks, at most 1024), as ``csrc/varlen_fwd.cu``
     ``tma::make_plan`` computes it (the library hands its own out through
     ``varlen.varlen_fwd_kernel_plan``; the card test holds the two equal):
-    the dense ``fwd_plan`` at every width. Its block reads the segment
-    metadata and the tile lists from device memory, so they cost no shared
-    memory."""
-    return fwd_plan(d, dv)
+    the dense ``fwd_plan`` at every width, ``ring_cap`` as there. Its block
+    reads the segment metadata and the tile lists from device memory, so
+    they cost no shared memory."""
+    return fwd_plan(d, dv, ring_cap)
 
 
 def varlen_fits(cfg: BlockConfig, d: int, dv: int, itemsize: int = 2) -> bool:
@@ -888,6 +906,7 @@ __all__ = [
     "from_s_min_stages",
     "DKDV_MIN_STAGES",
     "DQ_MIN_STAGES",
+    "FWD_MIN_STAGES",
     "ring_depth",
     "BandedPlan",
     "banded_plan",

@@ -20,8 +20,9 @@ every D, Dv <= 1024 (``config.decode_plan``): a producer thread keeps up to
 12 boxes of 8 KiB in flight; at D, Dv <= 512 one wgmma warpgroup does the
 math, two blocks an SM; above, two warpgroups split Dv, one block an SM.
 Splits by ``_tma_splits`` (one block for every SM where the band has the
-tiles, every block of the launch resident at once), cut by
-``decode_split_ranges``.
+tiles, every block of the launch resident at once), or fewer where the
+tuned-config store holds a count (``BlockConfig.decode_splits``, a larger
+one clamped to the rule's), cut by ``decode_split_ranges``.
 
 Under autograd the forward also writes the fp32 masked scores of the packed
 rows (``return_scores``; 135 KB at the serving step), and the backward is
@@ -40,7 +41,8 @@ import torch
 from ..env import ENV
 from ..logger import init_logger
 from . import _build
-from .config import D_CHUNK, KV_TILE, DecodePlan, cdiv, decode_plan
+from .config import D_CHUNK, KV_TILE, BlockConfig, DecodePlan, cdiv, decode_plan
+from .dispatch import stored_decode_splits
 from .flash_fwd import _bias_strides, _pad_last, check_kernel_inputs
 from .reference import DEFAULT_MASK_VALUE
 from .rng import make_row_col_ids
@@ -64,8 +66,10 @@ def decode_attention_supported(q, k) -> bool:
 
 def _decode_block_kv(d: int, dv: int, nkv: int, dtype, group: int = 1) -> int:
     """KV rows per tile of the decode kernel (compiled in: ops/config.py
-    KV_TILE). The tuned-config store sets no decode knob: the split count
-    is ``_tma_splits``'s rule."""
+    KV_TILE). The JAX package tunes its decode tile here; the Hopper
+    kernel's tuned knob is its split count instead
+    (``dispatch.stored_decode_splits``, read where ``_decode_kernel`` cuts
+    the band)."""
     del d, dv, nkv, dtype, group
     return KV_TILE
 
@@ -204,11 +208,41 @@ def decode_kernel_attrs(consumers: int, dtype=torch.bfloat16) -> dict:
     return {"registers": regs.value, "local_bytes": local.value}
 
 
+def decode_splits(plan: DecodePlan, blocks_per_split: int, kv_tiles: int, num_sms: int,
+                  stored: int) -> int:
+    """The launch's KV splits: ``_tma_splits``'s rule, or ``stored`` (a
+    tuned ``BlockConfig.decode_splits``; 0 is none) where it is fewer: a
+    larger count would leave blocks of the launch waiting for an SM, so it
+    is clamped to the rule's."""
+    rule = _tma_splits(blocks_per_split, kv_tiles, num_sms, plan.blocks_per_sm)
+    return min(rule, stored) if stored > 0 else rule
+
+
+# An H100 SXM's SMs: the count ``rule_splits`` assumes for CPU tensors,
+# whose plain path cuts no splits (the search's candidate list on the CPU).
+_MODEL_SMS = 132
+
+
+def rule_splits(q, k, v, *, is_causal: bool = False, window: tuple = (-1, -1)) -> int:
+    """The rule's split count (``_tma_splits``) of a decode call on q [B,
+    Hq, Nq, D], k [B, Hkv, Nkv, D], v [..., Dv], on q's card (an H100 SXM's
+    132 SMs for CPU tensors)."""
+    b, hq, nq, d = q.shape
+    hkv, nkv = k.shape[1], k.shape[2]
+    rows = (hq // hkv) * nq
+    plan = decode_plan(cdiv(d, D_CHUNK) * D_CHUNK, cdiv(v.shape[-1], D_CHUNK) * D_CHUNK, rows)
+    kv_start, kv_end = _kv_band(nq, nkv, is_causal, int(window[0]), int(window[1]))
+    kv_tiles = cdiv(kv_end - kv_start, KV_TILE) if kv_end > kv_start else 0
+    sms = _sm_count(q.device.index) if q.device.type == "cuda" else _MODEL_SMS
+    return _tma_splits(b * hkv * cdiv(rows, plan.rows), kv_tiles, sms, plan.blocks_per_sm)
+
+
 def _decode_kernel(qp, k, v, bias, *, nq, scale, is_causal, softcap, window_left, window_right,
-                   return_scores=False):
+                   return_scores=False, config: Optional[BlockConfig] = None):
     """Launch the split-KV kernel and its merge on packed rows (same
     contract as ``_decode_plain``), tiled as ``config.decode_plan``
-    says."""
+    says. The split count is ``decode_splits``' with ``config``'s
+    ``decode_splits`` (None: the tuned store's, ``stored_decode_splits``)."""
     check_kernel_inputs("_decode_forward", qp, k, v)
     b, hkv, rows, d = qp.shape
     nkv, dv = k.shape[2], v.shape[-1]
@@ -217,8 +251,12 @@ def _decode_kernel(qp, k, v, bias, *, nq, scale, is_causal, softcap, window_left
     row_blocks = cdiv(rows, plan.rows)
     kv_start, kv_end = _kv_band(nq, nkv, is_causal, window_left, window_right)
     kv_tiles = cdiv(kv_end - kv_start, KV_TILE) if kv_end > kv_start else 0
-    num_sms = _sm_count(qp.device.index)
-    splits = _tma_splits(b * hkv * row_blocks, kv_tiles, num_sms, plan.blocks_per_sm)
+    if config is None:
+        stored = stored_decode_splits(d=d, dv=dv, nkv=nkv, dtype=qp.dtype, group=rows // nq)
+    else:
+        stored = config.decode_splits
+    splits = decode_splits(plan, b * hkv * row_blocks, kv_tiles, _sm_count(qp.device.index),
+                           stored)
     kv_per_split = max(cdiv(kv_tiles, splits), 1) * KV_TILE
 
     q_ = _pad_last(qp, d_pad).contiguous()
@@ -282,6 +320,7 @@ def _decode_forward(
     softcap: float = 0.0,
     window: tuple = (-1, -1),
     return_scores: bool = False,
+    config: Optional[BlockConfig] = None,
 ):
     """Decode attention for Nq <= 8: (o [B, Hq, Nq, Dv], lse [B, Hq, Nq]),
     and with ``return_scores`` the fp32 masked post-softcap / bias scores
@@ -290,7 +329,8 @@ def _decode_forward(
 
     Q rows and a head- or row-varying bias are packed per KV head
     (PackGQA); CPU tensors run the plain version, CUDA tensors the kernel.
-    ``block_kv`` must be the kernel's KV tile if given.
+    ``block_kv`` must be the kernel's KV tile if given. ``config`` sets the
+    launch's split count (``decode_splits``; None: the tuned store's).
     """
     b, hq, nq, d = q.shape
     _, hkv, nkv, _ = k.shape
@@ -311,8 +351,10 @@ def _decode_forward(
         nq=nq, scale=scale, is_causal=is_causal, softcap=float(softcap),
         window_left=int(window[0]), window_right=int(window[1]), return_scores=return_scores,
     )
-    run = _decode_plain if q.device.type == "cpu" else _decode_kernel
-    out = run(q_packed, k, v, bias, **kw)
+    if q.device.type == "cpu":
+        out = _decode_plain(q_packed, k, v, bias, **kw)
+    else:
+        out = _decode_kernel(q_packed, k, v, bias, config=config, **kw)
     o, lse = out[0].reshape(b, hq, nq, dv), out[1].reshape(b, hq, nq)
     return (o, lse, out[2]) if return_scores else (o, lse)
 

@@ -3,14 +3,23 @@ model, and the tuned-config store's entry (``autotune/store.py``) where a
 Hopper kernel has a run-time knob to set.
 
 The counterpart of the JAX package's ``ops/dispatch.py`` and of its varlen
-lookup (``_varlen_tuned_blocks``). The lookup sits at the two sites whose
-kernels take a knob: the backward and the packed varlen backward, whose
-rings a tuned ``BlockConfig.bwd_ring_cap`` caps (and the backward's dS
-storage width, ``ds_store_bits``). An entry applies only at its own head
-dims: a ring cap belongs to one plan. The forward's ring is fixed at
-compile time and decode's split count is its rule's, so their calls read
-no entry. With no store file every pick returns the default below, field
-for field.
+lookup (``_varlen_tuned_blocks``). The lookup sits at every site whose
+kernels take a knob, with the JAX package's queries:
+
+* ``pick_forward_config`` (direction 'fwd'): the forward's ring cap,
+  ``BlockConfig.fwd_ring_cap``;
+* ``pick_backward_config`` ('bwd'): the backward rings' cap,
+  ``bwd_ring_cap``, and the dS storage width, ``ds_store_bits``;
+* ``pick_varlen_config`` and ``pick_varlen_backward_config`` ('varlen',
+  keyed by the packed totals): one entry's ``fwd_ring_cap`` for the
+  packed forward and ``bwd_ring_cap`` for the packed backward pair;
+* ``pick_decode_config`` ('decode'): the decode launch's split count,
+  ``decode_splits``, memoised per query for the decode step
+  (``stored_decode_splits``).
+
+A pick takes an entry only at its own head dims: a ring cap or a split
+count belongs to one plan. With no store file every pick returns the
+default below, field for field.
 """
 
 from __future__ import annotations
@@ -18,9 +27,11 @@ from __future__ import annotations
 from dataclasses import replace
 from typing import Optional
 
+import functools
+
 import torch
 
-from ..autotune.store import lookup_tuned_config
+from ..autotune.store import lookup_generation, lookup_tuned_config
 from ..env import ENV
 from .config import (
     FWD_ROW_TILES,
@@ -50,22 +61,51 @@ def pick_forward_config(
     nq: int,
     nkv: int,
     dtype: torch.dtype,
+    causal: bool = False,
+    has_bias: bool = False,
+    dropout: bool = False,
+    gqa: bool = False,
+    group: int = 0,
+    f16: bool = False,
 ) -> BlockConfig:
-    """Heuristic forward config: the taller row tile where it fits."""
+    """Forward config: the taller row tile where it fits, and a tuned
+    entry's ring cap (direction 'fwd', queried float16 under ``f16`` or
+    fp16 inputs, with the call's flags and head layout, as the JAX
+    package's ``pick_forward_config``) at these head dims. The entry sets
+    only ``fwd_ring_cap``: the row tile, which pads the S residual's rows,
+    stays the default's."""
     itemsize = torch.empty((), dtype=dtype).element_size()
-    return default_config(d, dv, nq, nkv, itemsize=itemsize)
+    cfg = default_config(d, dv, nq, nkv, itemsize=itemsize)
+    tuned = lookup_tuned_config(direction="fwd", d=d, dv=dv, nq=nq, nkv=nkv,
+                                dtype="float16" if f16 else dtype_key(dtype), causal=causal,
+                                has_bias=has_bias, dropout=dropout, gqa=gqa, group=group,
+                                same_head_dims=True)
+    return cfg if tuned is None else replace(cfg, fwd_ring_cap=tuned.fwd_ring_cap)
 
 
-def pick_varlen_config(*, d: int, dv: int, tq: int, dtype: torch.dtype) -> BlockConfig:
+def _varlen_tuned(d: int, dv: int, tq: int, tk: int, dtype: torch.dtype) -> Optional[BlockConfig]:
+    """The tuned entry of a packed call (direction 'varlen', keyed by the
+    packed totals as the JAX package's ``_varlen_tuned_blocks``) at these
+    head dims, or None."""
+    return lookup_tuned_config(direction="varlen", d=d, dv=dv, nq=tq, nkv=tk,
+                               dtype=dtype_key(dtype), causal=False, has_bias=False,
+                               dropout=False, gqa=False, same_head_dims=True)
+
+
+def pick_varlen_config(*, d: int, dv: int, tq: int, dtype: torch.dtype,
+                       tk: Optional[int] = None) -> BlockConfig:
     """Packed varlen forward row tile: the taller of FWD_ROW_TILES that
     fits (D, Dv) on the route ``varlen_fwd_plan`` picks (``varlen_fits``),
     shrunk to 32 for a packing of at most 32 query rows. Both routes walk
-    64-row tiles whatever the row tile says."""
+    64-row tiles whatever the row tile says. Given the packed key total
+    ``tk``, the entry ``pick_varlen_backward_config`` reads sets the
+    forward's ring cap."""
     itemsize = torch.empty((), dtype=dtype).element_size()
     for bq in FWD_ROW_TILES:
         cfg = BlockConfig(block_q=bq).clamp(tq, 0, FWD_ROW_TILES)
         if varlen_fits(cfg, d, dv, itemsize):
-            return cfg
+            tuned = None if tk is None else _varlen_tuned(d, dv, tq, tk, dtype)
+            return cfg if tuned is None else replace(cfg, fwd_ring_cap=tuned.fwd_ring_cap)
     raise ValueError(f"no varlen row tile fits D={d}, Dv={dv}")
 
 
@@ -84,10 +124,40 @@ def pick_varlen_backward_config(*, d: int, dv: int, dtype: torch.dtype,
     cfg = BlockConfig(dkdv_col_passes=varlen_dkdv_plan(d, dv, itemsize).passes)
     if tq is None or tk is None:
         return cfg
-    tuned = lookup_tuned_config(direction="varlen", d=d, dv=dv, nq=tq, nkv=tk,
-                                dtype=dtype_key(dtype), causal=False, has_bias=False,
-                                dropout=False, gqa=False, same_head_dims=True)
+    tuned = _varlen_tuned(d, dv, tq, tk, dtype)
     return cfg if tuned is None else replace(cfg, bwd_ring_cap=tuned.bwd_ring_cap)
+
+
+def pick_decode_config(*, d: int, dv: int, nkv: int, dtype: torch.dtype, gqa: bool = False,
+                       group: int = 0) -> Optional[BlockConfig]:
+    """The decode kernel's tuned entry (direction 'decode', the JAX
+    package's ``pick_decode_config`` query: one query row, no flags) at
+    these head dims, or None where there is none (the launch then takes
+    ``decode._tma_splits``'s rule). Its knob is ``decode_splits``."""
+    return lookup_tuned_config(direction="decode", d=d, dv=dv, nq=1, nkv=nkv,
+                               dtype=dtype_key(dtype), causal=False, has_bias=False,
+                               dropout=False, gqa=gqa, group=group, same_head_dims=True)
+
+
+@functools.lru_cache(maxsize=1024)
+def _stored_decode_splits(d: int, dv: int, nkv: int, dtype: torch.dtype, group: int,
+                          generation: int) -> int:
+    del generation  # part of the memo's key only
+    cfg = pick_decode_config(d=d, dv=dv, nkv=nkv, dtype=dtype, gqa=group > 1,
+                             group=group if group > 1 else 0)
+    return 0 if cfg is None else cfg.decode_splits
+
+
+def stored_decode_splits(*, d: int, dv: int, nkv: int, dtype: torch.dtype, group: int) -> int:
+    """``pick_decode_config``'s ``decode_splits`` (0: none stored, the
+    rule's count), read once per query until the store's caches are cleared
+    (``store.clear_lookup_cache``, which every write calls). A decode step
+    reads it at every launch, so a hit reads no environment variable (each
+    read costs the host about a microsecond): the kill-switch
+    ``FFPA_TORCH_SKIP_TUNED_CONFIG`` and ``FFPA_TORCH_TUNED_CONFIG_DIR`` reach
+    the decode launch at the next clear (``chip_smoke.py``
+    ``phase_autotune`` times a hit against a lookup)."""
+    return _stored_decode_splits(d, dv, nkv, dtype, group, lookup_generation())
 
 
 # The from-S dK/dV pass keeps dK in the kernel up to this many keys and
@@ -148,5 +218,6 @@ def pick_backward_config(
 
 
 __all__ = ["pick_forward_config", "pick_varlen_config",
-           "pick_varlen_backward_config", "pick_backward_config", "fp8_ds_allowed",
+           "pick_varlen_backward_config", "pick_backward_config", "pick_decode_config",
+           "stored_decode_splits", "fp8_ds_allowed",
            "dtype_key", "head_layout", "FROM_S_DK_IN_MAX_NKV", "FP8_DS_MIN_PAIRS"]

@@ -51,6 +51,7 @@ from ..logger import init_logger
 from . import _build
 from .config import (
     D_CHUNK,
+    FWD_MIN_STAGES,
     FWD_ROW_TILES,
     KV_TILE,
     FWD_MAX_HEAD_DIM,
@@ -58,6 +59,8 @@ from .config import (
     FwdPlan,
     cdiv,
     fwd_fits,
+    fwd_plan,
+    ring_depth,
 )
 from .reference import DEFAULT_MASK_VALUE, expand_kv_heads, reference_attention
 
@@ -99,9 +102,10 @@ _ARGTYPES = {
         [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
         + [ctypes.c_int] * 9 + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
         + [ctypes.c_float] * 2 + [ctypes.c_uint32] + [ctypes.c_void_p]
-        + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     ),
-    "ffpa_flash_fwd_plan": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int],
+    "ffpa_flash_fwd_plan": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                            ctypes.c_int],
     "ffpa_flash_fwd_attrs": [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2,
 }
 # The library's route numbers (csrc/flash_fwd.cu fwd::WGMMA, fwd::CLUSTER).
@@ -121,14 +125,16 @@ def _fwd_lib() -> ctypes.CDLL:
     return lib
 
 
-def fwd_kernel_plan(d: int, dv: int) -> FwdPlan:
+def fwd_kernel_plan(d: int, dv: int, ring_cap: int = 0) -> FwdPlan:
     """The route and tiling the forward launcher takes at head dims (d, dv)
-    (padded to 64-column chunks), read from the library: what
-    ``config.fwd_plan`` mirrors. Needs a card."""
+    (padded to 64-column chunks) and ``ring_cap`` (0: the plan's depth; the
+    library refuses a cap below FWD_MIN_STAGES or past the plan's depth),
+    read from the library: what ``config.fwd_plan`` mirrors. Needs a
+    card."""
     lib = _fwd_lib()
     out = (ctypes.c_int * 32)()
     err = lib.ffpa_flash_fwd_plan(cdiv(d, D_CHUNK) * D_CHUNK, cdiv(dv, D_CHUNK) * D_CHUNK, out,
-                                  len(out))
+                                  len(out), ring_cap)
     _build.check(lib, err, "flash_fwd kernel plan")
     return fwd_plan_from(out)
 
@@ -208,13 +214,16 @@ def _fit_fwd_for_scores(config: BlockConfig, d: int, dv: int, dtype) -> BlockCon
 
 
 def scores_padding(nq: int, nkv: int, d: int, dv: int, dtype,
-                   config: Optional[BlockConfig] = None) -> tuple:
+                   config: Optional[BlockConfig] = None, **query) -> tuple:
     """(nq_pad, nkv_pad) of the S residual: the forward's row tile and its
-    64-column KV tile."""
+    64-column KV tile. Without ``config``, the forward's pick, queried
+    with ``query``'s fields (``pick_forward_config``: causal, has_bias,
+    dropout, gqa, group); a tuned entry sets only the ring's cap, so the
+    slab's rows are the default's."""
     if config is None:
         from .dispatch import pick_forward_config
 
-        config = pick_forward_config(d=d, dv=dv, nq=nq, nkv=nkv, dtype=dtype)
+        config = pick_forward_config(d=d, dv=dv, nq=nq, nkv=nkv, dtype=dtype, **query)
     config = _fit_fwd_for_scores(config.clamp(nq, nkv, FWD_ROW_TILES), d, dv, dtype)
     return cdiv(nq, config.block_q) * config.block_q, cdiv(nkv, KV_TILE) * KV_TILE
 
@@ -243,6 +252,9 @@ def flash_attention_forward(
       softcap / window / alibi_slopes: see ``reference_attention``.
       dropout_p / dropout_seed: hash dropout (``rng.py``), replayed by the
         backward kernels.
+      config: the block config, ``pick_forward_config``'s where None (the
+        tuned-config store's entry at these head dims); its
+        ``fwd_ring_cap`` caps the kernel's ring (``config.ring_depth``).
       return_scores: also return the S residual of the S-resident backward
         (``scores_plain`` says what it holds): bf16 [B, Hq, nq_pad,
         nkv_pad], padded to the forward's row tile and its 64-column KV
@@ -267,9 +279,11 @@ def flash_attention_forward(
     _, hkv, nkv, _ = k.shape
     dv = v.shape[-1]
     if config is None:
-        from .dispatch import pick_forward_config
+        from .dispatch import head_layout, pick_forward_config
 
-        config = pick_forward_config(d=d, dv=dv, nq=nq, nkv=nkv, dtype=q.dtype)
+        config = pick_forward_config(d=d, dv=dv, nq=nq, nkv=nkv, dtype=q.dtype, causal=is_causal,
+                                     has_bias=bias is not None, dropout=dropout_p > 0.0,
+                                     **head_layout(hq, hkv))
     config = config.clamp(nq, nkv, FWD_ROW_TILES)
     s_pad = None
     if return_scores:
@@ -315,8 +329,10 @@ def flash_attention_forward(
         ).expand(b, hq).contiguous()
         alibi_ptr = alibi_slopes.data_ptr()
 
+    cap = config.fwd_ring_cap
+    ring = ring_depth(fwd_plan(d_pad, dv_pad).stages, cap, FWD_MIN_STAGES) if cap else 0
     if ENV.device_log_level() >= 2:
-        plan = fwd_kernel_plan(d_pad, dv_pad)
+        plan = fwd_kernel_plan(d_pad, dv_pad, ring)
         logger.info(
             "flash_fwd launch route=%s grid=(%d,%d,%d) rows=%d smem=%d D=%d Dv=%d",
             plan.route, hq * max(1, len(plan.rank_blocks)), b, cdiv(nq, plan.q_rows),
@@ -334,7 +350,7 @@ def flash_attention_forward(
             *dropout_args(dropout_p, dropout_seed),
             None if s_pad is None else s_pad.data_ptr(),
             0 if s_pad is None else s_pad.shape[2], 0 if s_pad is None else s_pad.shape[3],
-            torch.cuda.current_stream(q.device).cuda_stream,
+            ring, torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(lib, err, "flash_fwd kernel launch")
     flash_attention_forward.launches += 1

@@ -66,7 +66,8 @@ from ..env import ENV
 from ..logger import init_logger
 from . import _build
 from .config import (
-    D_CHUNK, DKDV_MIN_STAGES, DKDV_Q_TILE, DQ_MIN_STAGES, FWD_ROW_TILES, KV_TILE, BlockConfig,
+    D_CHUNK, DKDV_MIN_STAGES, DKDV_Q_TILE, DQ_MIN_STAGES, FWD_MIN_STAGES, FWD_ROW_TILES, KV_TILE,
+    BlockConfig,
     DkdvPlan, DqPlan, FwdPlan, cdiv, ring_depth, varlen_dkdv_plan, varlen_dq_plan, varlen_fits,
     varlen_fwd_plan,
 )
@@ -306,9 +307,9 @@ def _varlen_forward_plain(q, k, v, meta, *, scale, causal, softcap=0.0,
 
 _VARLEN_ARGTYPES = {
     "ffpa_varlen_fwd": [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 6 + [ctypes.c_void_p] * 12
-    + [ctypes.c_int] * 10 + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+    + [ctypes.c_int] * 10 + [ctypes.c_float] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     "ffpa_varlen_fwd_plan": [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-                             ctypes.c_int],
+                             ctypes.c_int, ctypes.c_int],
     "ffpa_varlen_fwd_attrs": [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2,
 }
 
@@ -327,14 +328,15 @@ def _varlen_lib() -> ctypes.CDLL:
     return lib
 
 
-def varlen_fwd_kernel_plan(d: int, dv: int) -> FwdPlan:
+def varlen_fwd_kernel_plan(d: int, dv: int, ring_cap: int = 0) -> FwdPlan:
     """The route and tiling the varlen forward launcher takes at head dims
-    (d, dv) (padded to 64-column chunks), read from the library: what
-    ``config.varlen_fwd_plan`` mirrors. Needs a card."""
+    (d, dv) (padded to 64-column chunks) and ``ring_cap`` (0: the plan's
+    depth), read from the library: what ``config.varlen_fwd_plan`` mirrors.
+    Needs a card."""
     lib = _varlen_lib()
     out = (ctypes.c_int * 32)()
     err = lib.ffpa_varlen_fwd_plan(cdiv(d, D_CHUNK) * D_CHUNK, cdiv(dv, D_CHUNK) * D_CHUNK, out,
-                                   len(out))
+                                   len(out), ring_cap)
     _build.check(lib, err, "varlen forward kernel plan")
     return fwd_plan_from(out)
 
@@ -405,7 +407,8 @@ def _varlen_kernel(q, k, v, meta, schedule, config: BlockConfig, *, scale, causa
     ``_varlen_forward_plain``) on the route its plan names by head dims (one
     block, or the cluster of two above D512), with the call's metadata and
     ``schedule`` of ``_varlen_fwd_tiles``: the lists (tiles, count, order)
-    at 64-row Q tiles. ``config.block_q`` is passed on and not read."""
+    at 64-row Q tiles. ``config.block_q`` is passed on and not read;
+    ``config.fwd_ring_cap`` caps the ring (``config.ring_depth``)."""
     check_kernel_inputs("_varlen_forward", q, k, v)
     tq, hq, d = q.shape
     tk, hkv, _ = k.shape
@@ -420,8 +423,10 @@ def _varlen_kernel(q, k, v, meta, schedule, config: BlockConfig, *, scale, causa
         alibi = alibi.to(device=q.device, dtype=torch.float32).contiguous()
         alibi_ptr = alibi.data_ptr()
     q_seg, q_rank, k_seg, k_pos = meta
+    cap = config.fwd_ring_cap
+    ring = ring_depth(varlen_fwd_plan(d_pad, dv_pad).stages, cap, FWD_MIN_STAGES) if cap else 0
     if ENV.device_log_level() >= 2:
-        plan = varlen_fwd_plan(d_pad, dv_pad)
+        plan = varlen_fwd_plan(d_pad, dv_pad, ring)
         logger.info("varlen_fwd launch route=%s grid=(%d,%d) smem=%d D=%d Dv=%d Tq=%d Tk=%d",
                     plan.route, hq * (2 if plan.rank_blocks else 1), tiles.shape[0],
                     plan.smem_bytes, d_pad, dv_pad, tq, tk)
@@ -436,7 +441,7 @@ def _varlen_kernel(q, k, v, meta, schedule, config: BlockConfig, *, scale, causa
             tq, tk, tiles.shape[0], k_seg.shape[0] // KV_TILE, d_pad, dv_pad, float(scale),
             float(softcap),
             int(window[0]), 0 if causal else int(window[1]),  # causal is the band's right edge 0
-            torch.cuda.current_stream(q.device).cuda_stream,
+            ring, torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(lib, err, "varlen_fwd kernel launch")
     _varlen_forward.launches += 1
@@ -458,7 +463,7 @@ def _varlen_forward(q, k, v, cu_q, cu_k, *, scale, causal, config: Optional[Bloc
     tq, _, d = q.shape
     d_pad, dv_pad = cdiv(d, D_CHUNK) * D_CHUNK, cdiv(v.shape[-1], D_CHUNK) * D_CHUNK
     if config is None:
-        config = pick_varlen_config(d=d_pad, dv=dv_pad, tq=tq, dtype=q.dtype)
+        config = pick_varlen_config(d=d_pad, dv=dv_pad, tq=tq, tk=k.shape[0], dtype=q.dtype)
     if meta is None:
         meta = _call_metadata(cu_q, cu_k, tq, k.shape[0], q.device)
     window = (int(window[0]), -1 if causal else int(window[1]))
@@ -855,9 +860,9 @@ class _VarlenCore(torch.autograd.Function):
 
 def _varlen_block_config(block_q, block_kv, d, dv, tq, dtype) -> Optional[BlockConfig]:
     """The kernel's tiles for explicit ``block_q`` / ``block_kv`` (None:
-    ``pick_varlen_config``). The KV tile is the compiled KV_TILE, the row
-    tile one of FWD_ROW_TILES that fits; the tuned store has no forward
-    knob to set here (the ring is fixed at compile time)."""
+    ``pick_varlen_config``, which reads the tuned store's ring cap). The KV
+    tile is the compiled KV_TILE, the row tile one of FWD_ROW_TILES that
+    fits; an explicit row tile reads no tuned entry."""
     if block_kv is not None and block_kv != KV_TILE:
         raise ValueError(f"varlen block_kv must be {KV_TILE} (the compiled KV tile), "
                          f"got {block_kv}")

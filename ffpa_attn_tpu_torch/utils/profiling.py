@@ -10,6 +10,10 @@
   when the profiler recorded no device time in two windows running, rather
   than report another clock under the same name.
 * ``launch_counts``: every kernel wrapper's launch counter, by kernel.
+* ``trace(path)``: a ``torch.profiler`` window exported as a Chrome trace
+  (the JAX package's ``jax.profiler`` trace context);
+* ``kernel_cost_summary``: the JAX package's analytic roofline estimate
+  of one attention call, at the H100 SXM peaks below;
 * ``bound_ms``: the least time the card could take for given operations
   and bytes, at the published H100 SXM peaks; ``backward_counts``,
   ``varlen_counts``, ``varlen_backward_counts`` and ``paged_decode_counts``
@@ -20,9 +24,11 @@
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from collections import defaultdict
-from typing import Callable, Optional
+from typing import Callable, Iterator, Optional
 
 import torch
 
@@ -31,6 +37,48 @@ from ..cli._flops import attention_valid_pairs as band_pairs
 # Published NVIDIA H100 SXM peaks (dense): bf16/fp16 tensor cores, HBM3.
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BW = 3.35e12
+
+
+@contextlib.contextmanager
+def trace(path: str) -> Iterator[None]:
+    """Profile the block with ``torch.profiler`` (the host, and the card
+    where there is one) and write its Chrome trace (``chrome://tracing``,
+    Perfetto) to ``path``, making its directory."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    prof.export_chrome_trace(path)
+
+
+def kernel_cost_summary(b: int, hq: int, nq: int, nkv: int, d: int, dv: Optional[int] = None,
+                        *, causal: bool = False, direction: str = "fwd",
+                        itemsize: int = 2) -> dict:
+    """Roofline estimate of one attention call, the JAX package's: flop
+    (``cli/_flops.attention_flops``), device-memory bytes (q, k and v per
+    query head, an upper bound, and o; three times that for a backward)
+    and the compute- and memory-bound ms at the H100 SXM peaks
+    (``PEAK_BF16_FLOPS``, ``PEAK_HBM_BW``)."""
+    from ..cli._flops import attention_flops
+
+    dv = d if dv is None else dv
+    flops = attention_flops(b, hq, nq, nkv, d, dv, causal=causal, direction=direction)
+    io_bytes = (b * hq * nq * d + b * hq * nkv * (d + dv) + b * hq * nq * dv) * itemsize
+    if direction != "fwd":
+        io_bytes *= 3
+    t_compute, t_memory = flops / PEAK_BF16_FLOPS, io_bytes / PEAK_HBM_BW
+    return {
+        "flops": flops,
+        "hbm_bytes": io_bytes,
+        "compute_bound_ms": t_compute * 1e3,
+        "memory_bound_ms": t_memory * 1e3,
+        "speed_of_light_ms": max(t_compute, t_memory) * 1e3,
+        "bound": "compute" if t_compute >= t_memory else "memory",
+    }
 
 
 def bound_ms(flops: float, nbytes: float) -> tuple:
@@ -229,7 +277,8 @@ def device_ms(fn: Callable, reps: int = 10, warmup: int = 3) -> float:
 
 
 __all__ = [
-    "PEAK_BF16_FLOPS", "PEAK_HBM_BW", "bound_ms", "band_pairs", "backward_counts",
+    "PEAK_BF16_FLOPS", "PEAK_HBM_BW", "trace", "kernel_cost_summary", "bound_ms", "band_pairs",
+    "backward_counts",
     "varlen_counts", "varlen_backward_counts", "paged_decode_counts", "launch_counts", "cuda_ms",
     "queued_ms", "LostDeviceEvents", "device_window", "device_ms",
 ]

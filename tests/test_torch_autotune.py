@@ -12,9 +12,15 @@ bite. The search runs on the CPU's plain path with the timers stubbed: its
 candidate lists, an fp16 task keyed float16 with no e4m3 candidate, e4m3
 offered only under the flag's rule, a candidate displacing the plan only
 beyond the plan's own spread, and every pick with no store returning the
-config it returned before the store existed, field for field. Plans capped
-at a ring depth, and the dispatch reading a stored entry at its own head
-dims alone, too; the ring-capped plans are held equal to the library's on a
+config it returned before the store existed, field for field. The
+forward's, the packed calls' and decode's picks select the entry the JAX
+package's ``pick_forward_config``, ``_varlen_tuned_blocks`` and
+``pick_decode_config`` select over the twin stores (at the query's own head
+dims), the forward's and packed forward's ring caps and decode's split
+counts are searched one knob at a time, and a stored count reaches the
+launch's arguments (decode's clamped to the rule's). Plans capped at a
+ring depth, and the dispatch reading a stored entry at its own head dims
+alone, too; the ring-capped plans are held equal to the library's on a
 card.
 """
 
@@ -36,8 +42,11 @@ from ffpa_attn_tpu_torch.autotune import search as tsearch
 from ffpa_attn_tpu_torch.autotune import store as tstore
 from ffpa_attn_tpu_torch.ops import config as tcfg
 from ffpa_attn_tpu_torch.ops.config import BlockConfig
+from ffpa_attn_tpu_torch.ops import decode as tdec
+from ffpa_attn_tpu_torch.ops import dispatch as tdisp
 from ffpa_attn_tpu_torch.ops.dispatch import (
     pick_backward_config,
+    pick_decode_config,
     pick_forward_config,
     pick_varlen_backward_config,
     pick_varlen_config,
@@ -157,8 +166,9 @@ def _seeded_queries(keys, n: int = 200) -> list:
 @pytest.fixture(scope="module")
 def twin_stores(tmp_path_factory):
     """The seeded keys written once with each package's make_entry: the
-    JAX entry of key i holds block_q 128 (i + 1), the port's bwd_ring_cap
-    i + 1, so each lookup's answer names the key it picked."""
+    JAX entry of key i holds block_q 128 (i + 1), the port's bwd_ring_cap,
+    fwd_ring_cap and decode_splits i + 1, so each lookup's answer names the
+    key it picked."""
     from ffpa_attn_tpu.autotune import store as jstore
     from ffpa_attn_tpu.ops.config import BlockConfig as JBlockConfig
 
@@ -169,8 +179,8 @@ def twin_stores(tmp_path_factory):
     tdir.mkdir()
     jentries = [jstore.make_entry(jstore.ConfigKey(**k), JBlockConfig(block_q=128 * (i + 1)))
                 for i, k in enumerate(keys)]
-    tentries = [tstore.make_entry(tstore.ConfigKey(**k), BlockConfig(bwd_ring_cap=i + 1))
-                for i, k in enumerate(keys)]
+    tentries = [tstore.make_entry(tstore.ConfigKey(**k), BlockConfig(
+        bwd_ring_cap=i + 1, fwd_ring_cap=i + 1, decode_splits=i + 1)) for i, k in enumerate(keys)]
     jstore.write_config_file(jentries, device_kind=KIND, directory=str(jdir))
     tstore.write_config_file(tentries, device_kind=KIND, directory=str(tdir))
     return keys, jdir, tdir
@@ -210,6 +220,79 @@ def test_port_lookup_picks_the_jax_key(twin_stores, monkeypatch, part):
         assert got == want, q
         hits += got is not None
     assert hits >= 40  # the queries reach the store, not only its misses
+    jstore.clear_lookup_cache()
+    tstore.clear_lookup_cache()
+
+
+@pytest.mark.parametrize("direction", ["fwd", "decode", "varlen"])
+def test_port_picks_select_the_jax_entry(twin_stores, monkeypatch, direction):
+    """Every seeded query, asked as ``direction``: the port's dispatch pick
+    takes the knob of the entry the JAX package's pick takes
+    (``pick_forward_config``, ``pick_decode_config``, ``_varlen_tuned_blocks``)
+    where that entry is at the query's head dims, and the default where it
+    is at others (a cap or a split count belongs to one plan) or where the
+    JAX pick finds none."""
+    import jax.numpy as jnp
+
+    from ffpa_attn_tpu.autotune import store as jstore
+    from ffpa_attn_tpu.ops import dispatch as jdisp
+    from ffpa_attn_tpu.ops import varlen as jvarlen
+
+    keys, jdir, tdir = twin_stores
+    monkeypatch.setenv("FFPA_TPU_TUNED_CONFIG_DIR", str(jdir))
+    monkeypatch.setenv("FFPA_TORCH_TUNED_CONFIG_DIR", str(tdir))
+    monkeypatch.delenv("FFPA_TPU_SKIP_TUNED_CONFIG", raising=False)
+    monkeypatch.delenv("FFPA_TORCH_SKIP_TUNED_CONFIG", raising=False)
+    monkeypatch.setattr(jstore, "current_device_kind", lambda: KIND)
+    monkeypatch.setattr(tstore, "current_device_kind", lambda initialise=False: KIND)
+    jstore.clear_lookup_cache()
+    tstore.clear_lookup_cache()
+    own_dims = taken = 0
+    # The perturbed queries, then each key's own (its entry at its dims).
+    exact = [dict(direction=k["direction"], dtype=k["dtype"], d=k["headdim"], dv=k["headdim_v"],
+                  nq=k["seqlen_q"], nkv=k["seqlen_k"], causal=k["causal"],
+                  has_bias=k["has_bias"], dropout=k["dropout"], gqa=k["gqa"], group=k["group"])
+             for k in keys]
+    for q in _seeded_queries(keys) + exact:
+        jdt, tdt = getattr(jnp, q["dtype"]), getattr(torch, q["dtype"])
+        flags = dict(causal=q["causal"], has_bias=q["has_bias"], dropout=q["dropout"],
+                     gqa=q["gqa"], group=q["group"])
+        if direction == "fwd":
+            query = dict(q, direction="fwd")
+            jpick = jdisp.pick_forward_config(d=q["d"], dv=q["dv"], nq=q["nq"], nkv=q["nkv"],
+                                              dtype=jdt, **flags)
+            got = pick_forward_config(d=q["d"], dv=q["dv"], nq=q["nq"], nkv=q["nkv"], dtype=tdt,
+                                      **flags).fwd_ring_cap
+        elif direction == "decode":
+            query = dict(q, direction="decode", nq=1, causal=False, has_bias=False,
+                         dropout=False)
+            jpick = jdisp.pick_decode_config(d=q["d"], dv=q["dv"], nkv=q["nkv"], dtype=jdt,
+                                             gqa=q["gqa"], group=q["group"])
+            tpick = pick_decode_config(d=q["d"], dv=q["dv"], nkv=q["nkv"], dtype=tdt,
+                                       gqa=q["gqa"], group=q["group"])
+            got = 0 if tpick is None else tpick.decode_splits
+        else:
+            query = dict(q, direction="varlen", causal=False, has_bias=False, dropout=False,
+                         gqa=False, group=0)
+            jpick = jvarlen._varlen_tuned_blocks(q["d"], q["dv"], q["nq"], q["nkv"], jdt)
+            got = pick_varlen_config(d=q["d"], dv=q["dv"], tq=q["nq"], tk=q["nkv"],
+                                     dtype=tdt).fwd_ring_cap
+            assert pick_varlen_backward_config(d=q["d"], dv=q["dv"], tq=q["nq"], tk=q["nkv"],
+                                               dtype=tdt).bwd_ring_cap == got
+        entry = jstore.lookup_tuned_config(device_kind=KIND, **query)
+        if entry is None:
+            assert got == 0, q
+            continue
+        i = entry.block_q // 128 - 1
+        want_bq = jpick[0] if direction == "varlen" else jpick.block_q
+        assert want_bq == entry.block_q, q  # the JAX pick takes the entry
+        same = (keys[i]["headdim"], keys[i]["headdim_v"]) == (q["d"], q["dv"])
+        assert got == (i + 1 if same else 0), q
+        own_dims += same
+        taken += 1
+    # The store answers, at the query's own dims too (two of the seeded
+    # varlen keys carry the flags a packed call asks with).
+    assert taken >= 200 and own_dims >= (2 if direction == "varlen" else 80)
     jstore.clear_lookup_cache()
     tstore.clear_lookup_cache()
 
@@ -545,7 +628,12 @@ def test_candidates_capped_by_env(monkeypatch):
     monkeypatch.setenv("FFPA_TORCH_AUTOTUNE_MAX_CONFIGS", "2")
     assert [c.bwd_ring_cap for c in tsearch.bwd_candidates(
         512, 512, 4096, 4096, BF, False, from_scores=True)] == [0, 8]
-    assert [c.bwd_ring_cap for c in tsearch.varlen_candidates(512, 512, BF)] == [0, 4]
+    # The packed call's forward caps come first, then the backward's.
+    assert [(c.fwd_ring_cap, c.bwd_ring_cap)
+            for c in tsearch.varlen_candidates(512, 512, BF)] == [(0, 0), (7, 0)]
+    assert [c.fwd_ring_cap for c in tsearch.fwd_candidates(512, 512, 4096, 4096, BF,
+                                                            False)] == [0, 7]
+    assert [c.decode_splits for c in tsearch.decode_candidates(33)] == [0, 16]
 
 
 def test_search_skips_failures_and_overruns(monkeypatch):
@@ -612,10 +700,17 @@ def test_run_task_on_the_plain_path(stub_timers, direction):
         # D320 bf16 at 128 tokens keeps its S residual: the from-S ring.
         assert [c.bwd_ring_cap for c in tried[1::2]] == [9, 8, 7, 6, 5, 4]
     elif direction == "varlen":
-        # The pair's deepest plan at D320 is dQ's 8 stages.
-        assert [c.bwd_ring_cap for c in tried[1::2]] == [7, 6, 5, 4, 3]
+        # The forward's 8 stages down to 3, then the pair's (its deepest plan
+        # at D320 is dQ's 8 stages) down to 3, one knob at a time.
+        assert [(c.fwd_ring_cap, c.bwd_ring_cap) for c in tried[1::2]] == [
+            (7, 0), (6, 0), (5, 0), (4, 0), (3, 0),
+            (0, 7), (0, 6), (0, 5), (0, 4), (0, 3)]
+    elif direction == "fwd":
+        assert [c.fwd_ring_cap for c in tried[1::2]] == [7, 6, 5, 4, 3]
     else:
-        assert tried == [plan] and plan.bwd_ring_cap == 0
+        # Two KV tiles: the rule's 2 splits, then its halving.
+        assert [c.decode_splits for c in tried[1::2]] == [1] and plan.decode_splits == 0
+    assert plan == replace(plan, bwd_ring_cap=0, fwd_ring_cap=0, decode_splits=0)
     # The stubbed times drift by 0.01 ms a reading, inside the plan's spread:
     # the entry holds the plan at its median.
     plan_ms = sorted(ms for _, ms in entry["tried"][0::2])
@@ -685,8 +780,10 @@ def test_picks_read_the_stored_entries(store_dir, monkeypatch):
     monkeypatch.setattr(tstore, "current_device_kind", lambda initialise=False: KIND)
     tstore.write_config_file([
         tstore.make_entry(_key(causal=True, gqa=True, group=2), BlockConfig(bwd_ring_cap=4)),
-        tstore.make_entry(_key(direction="varlen"), BlockConfig(bwd_ring_cap=3)),
-        tstore.make_entry(_key(direction="fwd"), BlockConfig(block_q=32)),
+        tstore.make_entry(_key(direction="varlen"), BlockConfig(bwd_ring_cap=3, fwd_ring_cap=5)),
+        tstore.make_entry(_key(direction="fwd"), BlockConfig(block_q=32, fwd_ring_cap=3)),
+        tstore.make_entry(_key(direction="decode", seqlen_q=1, seqlen_k=4224, gqa=True, group=2),
+                          BlockConfig(decode_splits=16)),
     ], device_kind=KIND)
     got = pick_backward_config(d=512, dv=512, nq=8192, nkv=8192, dtype=BF, causal=True, gqa=True,
                                group=2)
@@ -701,11 +798,28 @@ def test_picks_read_the_stored_entries(store_dir, monkeypatch):
                                 gqa=True, group=2).bwd_ring_cap == 0
     assert pick_varlen_backward_config(d=1024, dv=1024, dtype=BF, tq=8192,
                                        tk=8192).bwd_ring_cap == 0
-    # The forward's calls read no entry: its ring is fixed at compile time.
-    assert pick_forward_config(d=512, dv=512, nq=8192, nkv=8192, dtype=BF).block_q == 64
+    # The forward takes the entry's ring cap and keeps its own row tile
+    # (which pads the S residual's rows); the packed forward the varlen
+    # entry's forward cap; decode the split count.
+    assert pick_forward_config(d=512, dv=512, nq=8192, nkv=8192, dtype=BF) == BlockConfig(
+        block_q=64, fwd_ring_cap=3)
+    assert pick_forward_config(d=640, dv=640, nq=8192, nkv=8192, dtype=BF).fwd_ring_cap == 0
+    assert pick_varlen_config(d=512, dv=512, dtype=BF, tq=8192, tk=8192) == BlockConfig(
+        block_q=64, fwd_ring_cap=5)
+    assert pick_varlen_config(d=512, dv=512, dtype=BF, tq=8192).fwd_ring_cap == 0
+    assert pick_decode_config(d=512, dv=512, nkv=4224, dtype=BF, gqa=True,
+                              group=2).decode_splits == 16
+    assert tdisp.stored_decode_splits(d=512, dv=512, nkv=4224, dtype=BF, group=2) == 16
+    assert pick_decode_config(d=1024, dv=1024, nkv=4224, dtype=BF, gqa=True, group=2) is None
     monkeypatch.setenv("FFPA_TORCH_SKIP_TUNED_CONFIG", "1")
     assert pick_varlen_backward_config(d=512, dv=512, dtype=BF, tq=8192,
                                        tk=8192).bwd_ring_cap == 0
+    assert pick_forward_config(d=512, dv=512, nq=8192, nkv=8192, dtype=BF).fwd_ring_cap == 0
+    # Decode's count is read once per query: the switch reaches it at the
+    # next clear of the store's caches.
+    assert tdisp.stored_decode_splits(d=512, dv=512, nkv=4224, dtype=BF, group=2) == 16
+    tstore.clear_lookup_cache()
+    assert tdisp.stored_decode_splits(d=512, dv=512, nkv=4224, dtype=BF, group=2) == 0
 
 
 # ---------------------------------------------------------------------------
@@ -713,14 +827,22 @@ def test_picks_read_the_stored_entries(store_dir, monkeypatch):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("plan,least", [
-    (tcfg.dkdv_plan, tcfg.DKDV_MIN_STAGES), (tcfg.dq_plan, tcfg.DQ_MIN_STAGES),
-    (tcfg.varlen_dkdv_plan, tcfg.DKDV_MIN_STAGES), (tcfg.varlen_dq_plan, tcfg.DQ_MIN_STAGES),
-], ids=["dkdv", "dq", "varlen_dkdv", "varlen_dq"])
+# A stage's shared memory: two 64 x 64 boxes and, in the backward kernels,
+# its two barriers (the forwards lay their barriers out for the plan's depth).
+_STAGE = 2 * 64 * 64 * 2
+
+
+@pytest.mark.parametrize("plan,least,stage", [
+    (tcfg.dkdv_plan, tcfg.DKDV_MIN_STAGES, _STAGE + 16),
+    (tcfg.dq_plan, tcfg.DQ_MIN_STAGES, _STAGE + 16),
+    (tcfg.varlen_dkdv_plan, tcfg.DKDV_MIN_STAGES, _STAGE + 16),
+    (tcfg.varlen_dq_plan, tcfg.DQ_MIN_STAGES, _STAGE + 16),
+    (tcfg.fwd_plan, tcfg.FWD_MIN_STAGES, _STAGE),
+    (tcfg.varlen_fwd_plan, tcfg.FWD_MIN_STAGES, _STAGE),
+], ids=["dkdv", "dq", "varlen_dkdv", "varlen_dq", "fwd", "varlen_fwd"])
 @pytest.mark.parametrize("d", [320, 512, 640, 1024])
-def test_ring_cap_trims_stages_and_shared_memory(plan, least, d):
+def test_ring_cap_trims_stages_and_shared_memory(plan, least, stage, d):
     full = plan(d, d)
-    stage = 2 * 64 * 64 * 2 + 16
     for cap in range(least, full.stages + 3):
         got = plan(d, d, ring_cap=cap)
         assert got.stages == min(full.stages, cap)
@@ -750,9 +872,130 @@ def test_ring_depth(stages, cap, least, want):
     assert tcfg.ring_depth(stages, cap, least) == want
 
 
-def test_block_config_refuses_negative_knobs():
+@pytest.mark.parametrize("d,dv,want", [(320, 320, [0, 7, 6, 5, 4, 3]),
+                                       (512, 512, [0, 7, 6, 5, 4, 3]),
+                                       (640, 640, [0, 6, 5, 4, 3]),
+                                       (1024, 320, [0, 6, 5, 4, 3])])
+def test_fwd_candidates_walk_the_ring_from_the_plan(d, dv, want):
+    """The forward's space: the plan's depth, then each cap down to the
+    walk's least; the row tile stays the default's."""
+    for bias in (False, True):
+        got = tsearch.fwd_candidates(d, dv, 4096, 4096, BF, bias)
+        assert [c.fwd_ring_cap for c in got] == want
+        assert {replace(c, fwd_ring_cap=0) for c in got} == {
+            tcfg.default_config(d, dv, 4096, 4096, itemsize=2)}
+
+
+@pytest.mark.parametrize("d", [320, 512, 1024])
+def test_varlen_candidates_vary_one_knob_at_a_time(d):
+    got = tsearch.varlen_candidates(d, d, BF)
+    fwd = [c.fwd_ring_cap for c in got if c.fwd_ring_cap]
+    bwd = [c.bwd_ring_cap for c in got if c.bwd_ring_cap]
+    assert got[0] == pick_varlen_backward_config(d=d, dv=d, dtype=BF)
+    assert all(not (c.fwd_ring_cap and c.bwd_ring_cap) for c in got)
+    assert fwd == list(range(tcfg.varlen_fwd_plan(d, d).stages - 1, tcfg.FWD_MIN_STAGES - 1, -1))
+    deepest = max(tcfg.varlen_dkdv_plan(d, d).stages, tcfg.varlen_dq_plan(d, d).stages)
+    assert bwd == list(range(deepest - 1, tcfg.DKDV_MIN_STAGES - 1, -1))
+    assert len(got) == 1 + len(fwd) + len(bwd)  # a sum, not a product
+    assert [c for c in got if c.fwd_ring_cap] == [replace(got[0], fwd_ring_cap=c) for c in fwd]
+
+
+@pytest.mark.parametrize("rule,want", [(1, [0]), (2, [0, 1]), (3, [0, 1]), (9, [0, 4, 2, 1]),
+                                       (33, [0, 16, 8, 4, 2, 1]), (132, [0, 66, 33, 16, 8, 4,
+                                                                         2, 1])])
+def test_decode_candidates_are_the_rule_and_its_halvings(rule, want):
+    assert [c.decode_splits for c in tsearch.decode_candidates(rule)] == want
+
+
+@pytest.mark.parametrize("b,hkv,nkv,d", [(1, 4, 4224, 512), (4, 4, 1152, 512),
+                                         (1, 4, 4224, 1024), (1, 1, 136, 320)])
+def test_autotune_decode_offers_the_rule_and_its_halvings_only(stub_timers, b, hkv, nkv, d):
+    q = torch.zeros(b, 2 * hkv, 1, d, dtype=BF)
+    k = torch.zeros(b, hkv, nkv, d, dtype=BF)
+    rule = tdec.rule_splits(q, k, k)
+    plan = tdec.decode_plan(d, d, 2)
+    assert rule == tdec._tma_splits(b * hkv, -(-nkv // 64), 132, plan.blocks_per_sm)
+    found = tsearch.autotune_decode(q, k, k, scale=d ** -0.5)
+    offered = [c.decode_splits for c, _ in found.tried]
+    assert offered[0::2] == [0] * len(offered[0::2])
+    assert offered[1::2] == [c.decode_splits for c in tsearch.decode_candidates(rule)][1:]
+
+
+def test_decode_splits_obey_a_stored_count_up_to_the_rule():
+    """A stored count below the rule's reaches the launch; above it, the
+    rule's (every block of the launch stays resident)."""
+    for d, bps, tiles in ((512, 4, 66), (1024, 4, 66), (512, 16, 18), (320, 2, 3)):
+        plan = tcfg.decode_plan(d, d, 2)
+        rule = tdec._tma_splits(bps, tiles, 132, plan.blocks_per_sm)
+        assert tdec.decode_splits(plan, bps, tiles, 132, 0) == rule
+        for stored in range(1, 3 * rule):
+            assert tdec.decode_splits(plan, bps, tiles, 132, stored) == min(stored, rule)
+
+
+def test_stored_caps_reach_the_launch_arguments(store_dir, monkeypatch):
+    """The cap a launcher passes (``config.ring_depth`` of the pick's
+    ``fwd_ring_cap`` on the plan) is the stored one, and 0 without a store;
+    the decode count is memoised (no environment read on a hit) and
+    forgotten with the store's caches."""
+    monkeypatch.setattr(tstore, "current_device_kind", lambda initialise=False: KIND)
+    tstore.write_config_file([
+        tstore.make_entry(_key(direction="fwd", causal=True), BlockConfig(fwd_ring_cap=3)),
+        tstore.make_entry(_key(direction="varlen"), BlockConfig(fwd_ring_cap=4, bwd_ring_cap=3)),
+        tstore.make_entry(_key(direction="decode", seqlen_q=1, seqlen_k=4224),
+                          BlockConfig(decode_splits=8)),
+    ], device_kind=KIND)
+
+    def ring(cfg, plan):
+        return tcfg.ring_depth(plan.stages, cfg.fwd_ring_cap, tcfg.FWD_MIN_STAGES)
+
+    fwd = pick_forward_config(d=512, dv=512, nq=8192, nkv=8192, dtype=BF, causal=True)
+    assert ring(fwd, tcfg.fwd_plan(512, 512)) == 3
+    assert tcfg.fwd_plan(512, 512, ring_cap=3).stages == 3
+    var = pick_varlen_config(d=512, dv=512, tq=8192, tk=8192, dtype=BF)
+    assert ring(var, tcfg.varlen_fwd_plan(512, 512)) == 4
+    before = tdisp._stored_decode_splits.cache_info()
+    for _ in range(3):
+        assert tdisp.stored_decode_splits(d=512, dv=512, nkv=4224, dtype=BF, group=1) == 8
+    after = tdisp._stored_decode_splits.cache_info()
+    assert (after.misses - before.misses, after.hits - before.hits) == (1, 2)
+    tstore.write_config_file([tstore.make_entry(_key(direction="decode", seqlen_q=1,
+                                                     seqlen_k=4224),
+                                                BlockConfig(decode_splits=4))],
+                             device_kind=KIND, overwrite=True)
+    assert tdisp.stored_decode_splits(d=512, dv=512, nkv=4224, dtype=BF, group=1) == 4
+    monkeypatch.setenv("FFPA_TORCH_SKIP_TUNED_CONFIG", "1")
+    assert tdisp.stored_decode_splits(d=512, dv=512, nkv=4224, dtype=BF, group=1) == 4
+    tstore.clear_lookup_cache()
+    assert tdisp.stored_decode_splits(d=512, dv=512, nkv=4224, dtype=BF, group=1) == 0
+    assert ring(pick_forward_config(d=512, dv=512, nq=8192, nkv=8192, dtype=BF, causal=True),
+                tcfg.fwd_plan(512, 512)) == 0
+
+
+def test_entries_without_the_new_knobs_read_unchanged(store_dir, monkeypatch):
+    """An entry written before the forward's cap and decode's count existed
+    reads them as 0: the picks are the defaults' but for the fields it
+    holds."""
+    monkeypatch.setattr(tstore, "current_device_kind", lambda initialise=False: KIND)
+    entries = [tstore.make_entry(_key(direction=dr), BlockConfig(bwd_ring_cap=4))
+               for dr in ("fwd", "varlen", "bwd")]
+    entries.append(tstore.make_entry(_key(direction="decode", seqlen_q=1), BlockConfig()))
+    for e in entries:
+        del e["config"]["fwd_ring_cap"], e["config"]["decode_splits"]
+    payload = tstore.build_payload(entries, KIND)
+    (store_dir / f"{tstore.sanitize_device_kind(KIND)}.json").write_text(json.dumps(payload))
+    tstore.clear_lookup_cache()
+    assert _lookup(direction="fwd") == BlockConfig(bwd_ring_cap=4)
+    assert pick_forward_config(d=512, dv=512, nq=8192, nkv=8192, dtype=BF) == BlockConfig()
+    assert pick_varlen_config(d=512, dv=512, tq=8192, tk=8192, dtype=BF) == BlockConfig()
+    assert pick_varlen_backward_config(d=512, dv=512, tq=8192, tk=8192,
+                                       dtype=BF).bwd_ring_cap == 4
+    assert pick_decode_config(d=512, dv=512, nkv=8192, dtype=BF) == BlockConfig()
+
+
+@pytest.mark.parametrize("knob", ["bwd_ring_cap", "fwd_ring_cap", "decode_splits"])
+def test_block_config_refuses_negative_knobs(knob):
     with pytest.raises(ValueError):
-        BlockConfig(bwd_ring_cap=-1)
+        BlockConfig(**{knob: -1})
 
 
 # ---------------------------------------------------------------------------
@@ -762,17 +1005,20 @@ def test_block_config_refuses_negative_knobs():
 
 @pytest.mark.parametrize("d,dv", [(320, 320), (512, 512), (640, 640), (512, 1024), (1024, 320)])
 def test_ring_capped_plans_match_library_on_card(cuda, d, dv):  # noqa: F811
-    from ffpa_attn_tpu_torch.ops import flash_bwd, varlen
+    from ffpa_attn_tpu_torch.ops import flash_bwd, flash_fwd, varlen
 
     for read, mirror, least in (
+            (flash_fwd.fwd_kernel_plan, tcfg.fwd_plan, tcfg.FWD_MIN_STAGES),
+            (varlen.varlen_fwd_kernel_plan, tcfg.varlen_fwd_plan, tcfg.FWD_MIN_STAGES),
             (flash_bwd.dkdv_kernel_plan, tcfg.dkdv_plan, tcfg.DKDV_MIN_STAGES),
             (flash_bwd.dq_kernel_plan, tcfg.dq_plan, tcfg.DQ_MIN_STAGES),
             (varlen.varlen_dkdv_kernel_plan, tcfg.varlen_dkdv_plan, tcfg.DKDV_MIN_STAGES),
             (varlen.varlen_dq_kernel_plan, tcfg.varlen_dq_plan, tcfg.DQ_MIN_STAGES)):
         for cap in range(least, mirror(d, dv).stages + 1):
             assert read(d, dv, cap) == mirror(d, dv, ring_cap=cap)
-        with pytest.raises(RuntimeError):
-            read(d, dv, least - 1)
+        for refused in (least - 1, mirror(d, dv).stages + 1):
+            with pytest.raises(RuntimeError):
+                read(d, dv, refused)
     for cap in range(tcfg.from_s_min_stages(dv), tcfg.from_s_plan(dv, False).stages + 1):
         assert flash_bwd.from_s_kernel_plan(dv, False, cap) == tcfg.from_s_plan(dv, False,
                                                                                  ring_cap=cap)

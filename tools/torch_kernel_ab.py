@@ -9,61 +9,43 @@ DIR holds another version of the kernel sources (``flash_fwd.cu``,
 ``ffpa_attn_tpu_torch/csrc`` of a parent checkout). Both versions are
 compiled with the package's nvcc flags and timed at the main-path shapes of
 ``chip_smoke.py`` in the order base, head, head, base, through the same
-Python wrappers (the two share the C interface; a base library whose
-banded entry points still read a row tile is given the one its own
-wrappers passed, ``LegacyBanded``; one built from sources before the e4m3
-dS slab has the dS width taken out of its dK/dV and banded dQ argument
-lists, ``LegacyDsBits``: every run here stores a 16-bit slab; one built
-from sources before the backward rings' run-time cap has the cap taken out
-of its backward entry points' and their plans' argument lists,
-``LegacyRingCap``: every run here launches at the plan's depth):
+Python wrappers (the two share the C interface, but for the argument
+lists of the parent of the forward's run-time ring cap: a base library
+built from sources before it has the cap taken out of its forward entry
+points' and their plans' argument lists, ``LegacyFwdRingCap``, and every
+run here launches at the plan's depth):
 
 * flash_fwd: B1 H8/4 N4096 D512 causal bf16 (the serving prefill), and
   flash_fwd_scores the same with the S residual; flash_fwd_train and
   flash_fwd_train_scores: N8192 (a training layer), without and with it.
-  At D512 the head library runs its wgmma route, a base built from older
-  sources the mma.sync kernel; flash_fwd_d1024: B1 H8/4 N4096 D1024 causal
-  bf16, where the head library runs the cluster of two blocks, a base built
-  from sources before it the mma.sync kernel;
+  flash_fwd_d1024: B1 H8/4 N4096 D1024 causal bf16, where both run the
+  cluster of two blocks;
 * decode: B1 H8/4 Nkv 4224 D512 with the validity bias (the generate step),
   and decode_serving (``--kernels decode`` runs both): B4 H8/4 max_len 1152
   with the serving step's shared-row bias and its gap; decode_d1024 and
   decode_d1024_serving (``--kernels decode_d1024`` runs both) the same
-  steps at D1024, where the head library runs its two-warpgroup block and
-  a base built from sources before it the cp.async kernel; four caches in
-  turn so K/V are not L2-resident, each run held against ``_decode_plain``
-  per row at the bf16 forward tolerance 2e-2. A base library whose plan
-  names the cp.async route for a shape (route 0 in ``ffpa_decode_plan``'s
-  first field, or no ``ffpa_decode_plan`` at all: sources before the TMA
-  route) is split there by that route's own rule (``legacy_splits``);
+  steps at D1024 (the two-warpgroup block); four caches in turn so K/V are
+  not L2-resident, each run held against ``_decode_plain`` per row at the
+  bf16 forward tolerance 2e-2;
 * dkdv (with the dS slab) and banded_dq: B1 H8/4 N8192 D512 causal bf16
   (the training step's dS-handoff backward); head and base take the same
-  slab padding (the head wrapper's), and at D512 the head library runs
-  its wgmma route, a base built from older sources the mma.sync kernel;
-  dkdv_d1024 and dkdv_d640: B1 H8/4 N4096 causal fp16 with the slab (the
-  handoff tier fp16 takes at the bench's D sweep), where the head library
-  runs the cluster of two blocks and a base built from sources before it
-  the mma.sync kernel, given the column passes its wrapper passed
-  (``LegacyDkdv``), each held against the plain version at the fp16
-  gradient tolerance 1e-2;
+  slab padding (the head wrapper's); dkdv_d1024 and dkdv_d640: B1 H8/4
+  N4096 causal fp16 with the slab (the handoff tier fp16 takes at the
+  bench's D sweep, on the cluster of two blocks), each held against the
+  plain version at the fp16 gradient tolerance 1e-2;
 * dq: the same shape with a 4096-token left window (the windowed model's
   recompute backward); dq_d1024 and dq_d640: B1 H8/4 N4096 causal bf16 (the
   recompute tier at the bench's D sweep's head dims), and dq_d1024_fp16
-  the first in fp16, on the plain forward's (o, lse), where the head
-  library runs the cluster of two blocks and a base built from sources
-  before it the mma.sync kernel, given the row tile its plan names
-  (``LegacyDq``), each held against the plain version (fp16 at the fp16
-  gradient tolerance 1e-2);
+  the first in fp16, on the plain forward's (o, lse), on the cluster of two
+  blocks, each held against the plain version (fp16 at the fp16 gradient
+  tolerance 1e-2);
 * from_s (the from-S dK/dV pass with dK out of the kernel, on a fresh copy
   of the S residual each call: it overwrites S with dS) and banded_dk: the
-  same shape as dkdv (the S-resident backward of the training step). At
-  D512 the head library runs its wgmma route, a base built from older
-  sources the mma.sync kernel; from_s_d1024 and from_s_d640: the same pass
-  at B1 H8/4 N4096 causal bf16 (the S-resident tier bf16 takes at the
-  bench's D sweep), where the head library runs the cluster of two blocks
-  and a base built from sources before it the mma.sync kernel, each held
-  against the plain version (dV and the slab) at the bf16 gradient
-  tolerance 5e-2;
+  same shape as dkdv (the S-resident backward of the training step);
+  from_s_d1024 and from_s_d640: the same pass at B1 H8/4 N4096 causal bf16
+  (the S-resident tier bf16 takes at the bench's D sweep, on the cluster of
+  two blocks), each held against the plain version (dV and the slab) at
+  the bf16 gradient tolerance 5e-2;
 * varlen_fwd: the serving packing of continuous batching (prompts of 589,
   698, 763 and 886 tokens, H8/4 D512 causal bf16), and varlen_fwd_train
   (``--kernels varlen_fwd`` runs both) the packed-training packing (8
@@ -71,18 +53,12 @@ of its backward entry points' and their plans' argument lists,
   alone (either route's, ``varlen.FWD_KERNELS``: the wrapper's metadata
   and schedule kernels are not counted), each held against
   ``_varlen_forward_plain`` per row at the bf16 forward tolerance 2e-2,
-  and the names of the kernels each tree ran (``kernel_names``). A base
-  library without ``ffpa_varlen_fwd_plan`` (built from sources before the
-  wgmma route) is called with its own argument list and its intervals at
-  64-row Q tiles (``LegacyVarlenFwd``);
+  and the names of the kernels each tree ran (``kernel_names``);
 * varlen_fwd_d1024, varlen_fwd_d640 and varlen_fwd_d1024_fp16: the varlen
   forward above D512 over 8 documents packed into 4096 tokens ([1024, 768,
   600, 512, 450, 350, 250, 142]), H8/4 causal, each held against
   ``_varlen_forward_plain`` per row (fp16 at its forward tolerance 1e-2).
-  The head library runs the cluster of two blocks on its 64 x 64 walk; a
-  base library whose plan sends D1024 to the mma.sync route is given its
-  plan's row tile and each Q tile's [jmin, jmax] at it
-  (``LegacyVarlenWideFwd``);
+  Both run the cluster of two blocks on the 64 x 64 walk;
 * paged_decode and paged_decode_int8 (``--kernels paged_decode`` runs
   both): the serving step over bf16 and over int8 pools (B4, lens 64 tokens
   into generation, page 256, D512), four layers' pools in turn, each held
@@ -90,36 +66,24 @@ of its backward entry points' and their plans' argument lists,
   2e-2; paged_decode_page16 and paged_decode_page32_int8 the same step
   over pages of 16 bf16 and 32 int8 rows (boxes of 16 and 32 rows);
   paged_decode_page24 over pages of 24 rows and paged_decode_d1024 at
-  D1024 (page 256), where a base built from sources before the one-route
-  block runs its cp.async kernel. A base library whose
-  entry point still takes a row tile and kv_per_split is given them
-  (``LegacyPagedArgs``);
+  D1024 (page 256);
 * varlen_dkdv and varlen_dq: the packed-training backward of
   ``chip_smoke.py`` (8 documents of 2048..284 tokens, 8192 in all, H8/4
   D512 causal bf16), each kernel alone on the plain forward's (o, lse) with
   its tile schedule computed beforehand (``varlen._backward_schedules`` on
   the forward's 64 x 64 walk); the kernel's device time alone (either
-  tree's kernel, ``VARLEN_DKDV_KERNELS`` / ``varlen.DQ_KERNELS``) and the
-  names of the kernels each tree ran. At D512 the head library runs the wgmma
-  routes; a base library without ``ffpa_varlen_bwd_dkdv_plan`` (built from
-  sources before the wgmma dK/dV route) is called with its own argument
-  list and its mma.sync route's 128 x 32 schedule and 512-column passes
-  (``LegacyVarlenBwd``);
+  tree's kernel, ``varlen.DKDV_KERNELS`` / ``varlen.DQ_KERNELS``) and the
+  names of the kernels each tree ran;
 * varlen_dkdv_d1024, varlen_dkdv_d640 and varlen_dkdv_d1024_fp16: the
   varlen dK/dV kernel alone above D512, over 8 documents packed into 4096
   tokens ([1024, 768, 600, 512, 450, 350, 250, 142]), H8/4 causal, on the
   plain forward's (o, lse), each held against ``_varlen_dkdv_plain`` (fp16
-  at the fp16 gradient tolerance 1e-2). The head library runs the cluster
-  of two blocks on its 64 x 64 schedule; a base library whose plan sends
-  D1024 to the mma.sync route is given that route's own 128 x 32 schedule
-  and 512-column passes (``LegacyVarlenWideDkdv``);
+  at the fp16 gradient tolerance 1e-2), on the cluster of two blocks and
+  its 64 x 64 schedule;
 * varlen_dq_d1024, varlen_dq_d640 and varlen_dq_d1024_fp16: the varlen dQ
   kernel alone on the same packing, inputs and schedules, each held
-  against ``_varlen_dq_plain`` (fp16 at 1e-2). The head library runs the
-  cluster of two blocks on its 64 x 64 walk; a base library whose plan
-  sends D1024 to the mma.sync route (and whose dQ entry point takes each Q
-  tile's [jmin, jmax] and a row tile, at every width) is given its plan's
-  row tile and that route's intervals at it (``LegacyVarlenWideDq``).
+  against ``_varlen_dq_plain`` (fp16 at 1e-2), on the cluster of two
+  blocks and its 64 x 64 walk.
 
 A kernel whose source the base tree lacks is timed on the head alone. Each
 time is the kernels' device time per call from torch.profiler (for from_s
@@ -162,9 +126,7 @@ from ffpa_attn_tpu_torch.models.serving import shared_row_bias  # noqa: E402
 from ffpa_attn_tpu_torch.ops import (  # noqa: E402
     _build, decode, flash_bwd, flash_fwd, paged, varlen,
 )
-from ffpa_attn_tpu_torch.ops.config import (  # noqa: E402
-    FWD_ACC_ELEMS, cdiv, varlen_dkdv_plan, varlen_dq_plan,
-)
+from ffpa_attn_tpu_torch.ops.config import varlen_dkdv_plan, varlen_dq_plan  # noqa: E402
 from ffpa_attn_tpu_torch.ops.dispatch import (  # noqa: E402
     pick_backward_config, pick_varlen_backward_config,
 )
@@ -194,103 +156,20 @@ SOURCE = {"flash_fwd": "flash_fwd", "flash_fwd_scores": "flash_fwd",
           "varlen_dkdv_d640": "varlen_bwd", "varlen_dkdv_d1024_fp16": "varlen_bwd",
           "varlen_dq_d1024": "varlen_bwd", "varlen_dq_d640": "varlen_bwd",
           "varlen_dq_d1024_fp16": "varlen_bwd"}
-# The varlen forward kernels of every tree: the wgmma kernel (one block or
-# the cluster) and the mma.sync kernel an older tree ran above D512.
-VARLEN_FWD_KERNELS = ("varlen_fwd_kernel<", "varlen_fwd_wgmma_kernel<")
-# The varlen dK/dV kernels of every tree: the wgmma kernel (one block or the
-# cluster) and the mma.sync kernel an older tree ran above D512.
-VARLEN_DKDV_KERNELS = ("varlen_dkdv_kernel<", "varlen_dkdv_wgmma_kernel<")
-# The varlen dQ kernels of every tree: the wgmma kernel (one block or the
-# cluster) and the mma.sync kernel an older tree ran above D512.
-VARLEN_DQ_KERNELS = ("varlen_dq_kernel<", "varlen_dq_wgmma_kernel<")
 # kernel -> the substrings of its CUDA kernels' names (either route), where a
 # run also launches other kernels that are not timed
 ONLY = {"from_s": flash_bwd.FROM_S_KERNELS, "from_s_d1024": flash_bwd.FROM_S_KERNELS,
-        "from_s_d640": flash_bwd.FROM_S_KERNELS, "varlen_fwd": VARLEN_FWD_KERNELS,
-        "varlen_fwd_train": VARLEN_FWD_KERNELS, "varlen_fwd_d1024": VARLEN_FWD_KERNELS,
-        "varlen_fwd_d640": VARLEN_FWD_KERNELS, "varlen_fwd_d1024_fp16": VARLEN_FWD_KERNELS,
-        "varlen_dkdv": VARLEN_DKDV_KERNELS,
-        "varlen_dq": VARLEN_DQ_KERNELS, "varlen_dkdv_d1024": VARLEN_DKDV_KERNELS,
-        "varlen_dkdv_d640": VARLEN_DKDV_KERNELS, "varlen_dkdv_d1024_fp16": VARLEN_DKDV_KERNELS,
-        "varlen_dq_d1024": VARLEN_DQ_KERNELS, "varlen_dq_d640": VARLEN_DQ_KERNELS,
-        "varlen_dq_d1024_fp16": VARLEN_DQ_KERNELS}
-# kernels whose C entry point an older tree may lack
-ENTRY = {"from_s": "ffpa_bwd_dkdv_from_s", "from_s_d1024": "ffpa_bwd_dkdv_from_s",
-         "from_s_d640": "ffpa_bwd_dkdv_from_s", "banded_dk": "ffpa_bwd_banded_dk",
-         "varlen_fwd": "ffpa_varlen_fwd", "varlen_fwd_train": "ffpa_varlen_fwd",
-         "varlen_fwd_d1024": "ffpa_varlen_fwd", "varlen_fwd_d640": "ffpa_varlen_fwd",
-         "varlen_fwd_d1024_fp16": "ffpa_varlen_fwd",
-         "paged_decode": "ffpa_paged_decode",
-         "paged_decode_int8": "ffpa_paged_decode", "paged_decode_page16": "ffpa_paged_decode",
-         "paged_decode_page32_int8": "ffpa_paged_decode",
-         "paged_decode_page24": "ffpa_paged_decode", "paged_decode_d1024": "ffpa_paged_decode",
-         "varlen_dkdv": "ffpa_varlen_bwd_dkdv",
-         "varlen_dq": "ffpa_varlen_bwd_dq", "varlen_dkdv_d1024": "ffpa_varlen_bwd_dkdv",
-         "varlen_dkdv_d640": "ffpa_varlen_bwd_dkdv", "varlen_dkdv_d1024_fp16": "ffpa_varlen_bwd_dkdv",
-         "varlen_dq_d1024": "ffpa_varlen_bwd_dq", "varlen_dq_d640": "ffpa_varlen_bwd_dq",
-         "varlen_dq_d1024_fp16": "ffpa_varlen_bwd_dq"}
-
-
-# Whether the base tree's flash_bwd.cu / varlen_bwd.cu take a ring cap (set
-# by main from the sources; every adapter below serves only the base tree).
-BASE_RING = {"flash_bwd": True, "varlen_bwd": True}
-# entry point -> index of the ring cap in the package's argument list
-RING_AT = {"ffpa_bwd_dkdv": -2, "ffpa_bwd_dq": -2, "ffpa_bwd_dkdv_from_s": -2,
-           "ffpa_varlen_bwd_dkdv": -2, "ffpa_varlen_bwd_dq": -2, "ffpa_bwd_dkdv_plan": -1,
-           "ffpa_bwd_dq_plan": -1, "ffpa_bwd_from_s_plan": -1, "ffpa_varlen_bwd_dkdv_plan": -1,
-           "ffpa_varlen_bwd_dq_plan": -1}
-
-
-def pre_ring(table: dict, name: str) -> list:
-    """``table[name]`` without the ring cap: the argument list of sources
-    before it (every older tree the Legacy adapters below serve)."""
-    argtypes = list(table[name])
-    if name in RING_AT:
-        del argtypes[RING_AT[name] % len(argtypes)]
-    return argtypes
-
-
-def base_plan(lib, source: str, table: dict, name: str, *args) -> int:
-    """Call the plan entry point ``name`` of the base tree's library
-    ``lib`` (of ``source``), with a ring cap of 0 where its sources take
-    one."""
-    fn = getattr(lib, name)
-    ring = BASE_RING[source]
-    fn.argtypes = table[name] if ring else pre_ring(table, name)
-    fn.restype = ctypes.c_int
-    return fn(*args, *((0,) if ring else ()))
-
-
-def legacy_splits(blocks_per_split: int, kv_tiles: int, num_sms: int, *_) -> int:
-    """The split count of the retired cp.async decode route (``ops/decode.py``
-    before the two-warpgroup block): about two blocks on every SM, at least
-    one KV tile a split, no empty trailing split."""
-    if kv_tiles <= 0:
-        return 1
-    want = cdiv(2 * num_sms, max(blocks_per_split, 1))
-    splits = max(1, min(kv_tiles, want))
-    return cdiv(kv_tiles, cdiv(kv_tiles, splits))
-
-
-def cp_async_decode(lib, d: int) -> bool:
-    """Whether decode library ``lib`` sends head dim ``d`` (D = Dv, the A/B's
-    two packed rows) to the cp.async route."""
-    if not hasattr(lib, "ffpa_decode_plan"):
-        return True
-    out = (ctypes.c_int * 8)()
-    fn = lib.ffpa_decode_plan
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
-    fn.restype = ctypes.c_int
-    if fn(d, d, 2, out, len(out)) != 0:
-        raise RuntimeError(f"ffpa_decode_plan failed at D{d}")
-    return out[0] == 0
-
-
-def mma_sync_passes(d: int, dv: int) -> int:
-    """The column passes an older tree's mma.sync dK/dV kernels took (dense
-    before the cluster, varlen above D512): at most 512 columns of dK and of
-    dV a pass."""
-    return max(cdiv(d, 512), cdiv(dv, 512))
+        "from_s_d640": flash_bwd.FROM_S_KERNELS,
+        **{k: varlen.FWD_KERNELS for k in ("varlen_fwd", "varlen_fwd_train", "varlen_fwd_d1024",
+                                           "varlen_fwd_d640", "varlen_fwd_d1024_fp16")},
+        **{k: varlen.DKDV_KERNELS for k in ("varlen_dkdv", "varlen_dkdv_d1024",
+                                            "varlen_dkdv_d640", "varlen_dkdv_d1024_fp16")},
+        **{k: varlen.DQ_KERNELS for k in ("varlen_dq", "varlen_dq_d1024", "varlen_dq_d640",
+                                          "varlen_dq_d1024_fp16")}}
+# entry point -> index of the forward's ring cap in the package's argument
+# list (what LegacyFwdRingCap takes out)
+FWD_RING_AT = {"ffpa_flash_fwd": -2, "ffpa_varlen_fwd": -2, "ffpa_flash_fwd_plan": -1,
+               "ffpa_varlen_fwd_plan": -1}
 
 
 def build_tree(src: Path, out: Path, wanted) -> dict:
@@ -317,18 +196,17 @@ def build_tree(src: Path, out: Path, wanted) -> dict:
     return libs
 
 
-class LegacyRingCap:
-    """A flash_bwd or varlen_bwd library built from sources before the
-    backward rings' run-time cap (the argument lists of the parent of the
-    autotune slice): its backward entry points and their plans take no
-    ring_cap, so the one the package's wrappers pass (0, the plan's depth,
-    in every run of this tool) is taken out of the argument list; any other
-    cap raises. Every other symbol is the wrapped library's own (or its
-    inner adapter's)."""
+class LegacyFwdRingCap:
+    """A flash_fwd or varlen_fwd library built from sources before the
+    forward's run-time ring cap (the argument lists of its parent): its
+    forward entry points and their plans take no ring_cap, so the one the
+    package's wrappers pass (0, the plan's depth, in every run of this tool)
+    is taken out of the argument list; any other cap raises. Every other
+    symbol is the wrapped library's own."""
 
     @staticmethod
     def needed(src: Path, source: str) -> bool:
-        """Whether ``source``.cu in ``src`` predates the ring cap."""
+        """Whether ``source``.cu in ``src`` predates the forward's ring cap."""
         return "int ring_cap" not in (src / f"{source}.cu").read_text()
 
     def __init__(self, lib, table: dict):
@@ -336,440 +214,23 @@ class LegacyRingCap:
 
     def __getattr__(self, name):
         fn = getattr(self._lib, name)
-        if name not in RING_AT:
+        if name not in FWD_RING_AT:
             return fn
-        argtypes = pre_ring(self._table, name)
+        at = FWD_RING_AT[name] % len(self._table[name])
+        argtypes = [t for i, t in enumerate(self._table[name]) if i != at]
         if isinstance(fn, ctypes._CFuncPtr):
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        at = RING_AT[name] % len(self._table[name])
 
         def call(*args):
             args = list(args)
             if args[at] != 0:
-                raise ValueError(f"{name}: a library without the ring cap launches at the "
-                                 f"plan's depth only")
+                raise ValueError(f"{name}: a library without the forward's ring cap launches "
+                                 f"at the plan's depth only")
             del args[at]
             return fn(*args)
 
         call.argtypes = argtypes
-        return call
-
-
-class LegacyDsBits:
-    """A flash_bwd library built from sources before the e4m3 dS slab: its
-    dK/dV and banded dQ entry points, their plan and their attributes take
-    no dS width, so the 16 the package's wrappers pass (every run of this
-    tool stores a 16-bit slab) is taken out of the argument list; any other
-    width raises. Every other symbol is the wrapped library's own."""
-
-    # entry point -> index of the dS width in the package's argument list
-    DS_BITS = {"ffpa_bwd_dkdv": -2, "ffpa_bwd_banded_dq": -2, "ffpa_bwd_banded_plan": 1,
-               "ffpa_bwd_banded_attrs": 2, "ffpa_bwd_dkdv_attrs": 2}
-
-    @staticmethod
-    def needed(src: Path) -> bool:
-        """Whether the sources in ``src`` predate the dS width."""
-        return "int ds_bits" not in (src / "flash_bwd.cu").read_text()
-
-    def __init__(self, lib):
-        self._lib = lib
-
-    def __getattr__(self, name):
-        fn = getattr(self._lib, name)
-        if name not in self.DS_BITS:
-            return fn
-        argtypes = pre_ring(flash_bwd._ARGTYPES, name)
-        at = self.DS_BITS[name] % len(argtypes)
-        del argtypes[at]
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-
-        def call(*args):
-            args = list(args)
-            if args[at] != 16:
-                raise ValueError(f"{name}: a library without the e4m3 slab takes 16-bit dS only")
-            del args[at]
-            return fn(*args)
-
-        call.argtypes = fn.argtypes
-        return call
-
-
-class LegacyBanded:
-    """A flash_bwd library built from sources whose banded entry points
-    still read their row-tile argument, which the package's wrappers pass
-    as 0 (the current launcher picks its own tiles): the tile those sources
-    took is put in, 64 where a 64 x D fp32 tile fits the registers and
-    divides the slab's rows (dQ) or columns (dK), else 32. Every other
-    symbol is the library's own."""
-
-    # entry point -> (index of the tile, of D, of the slab dimension it divides)
-    TILE_ARG = {"ffpa_bwd_banded_dq": (5, 11, 12), "ffpa_bwd_banded_dk": (4, 10, 12)}
-
-    def __init__(self, lib):
-        self._lib = lib
-
-    def __getattr__(self, name):
-        fn = getattr(self._lib, name)
-        if name not in self.TILE_ARG:
-            return fn
-        fn.argtypes = flash_bwd._ARGTYPES[name]
-        tile, d, dim = self.TILE_ARG[name]
-
-        def call(*args):
-            args = list(args)
-            args[tile] = 64 if 64 * args[d] <= FWD_ACC_ELEMS and args[dim] % 64 == 0 else 32
-            return fn(*args)
-
-        call.argtypes = fn.argtypes
-        return call
-
-
-class LegacyDkdv:
-    """A flash_bwd library built from sources before the dK/dV cluster
-    route: D or Dv above 512 take its mma.sync kernel, whose entry point
-    takes col_passes after Dv (the current one picks its own passes), so
-    the passes those sources' wrapper passed (``mma_sync_passes``) are put
-    in. Every other symbol is the wrapped library's own."""
-
-    PASSES, D, DV = 24, 22, 23  # ffpa_bwd_dkdv's col_passes, D and Dv
-
-    @staticmethod
-    def needed(lib) -> bool:
-        """Whether ``lib`` sends D1024 to the mma.sync route (route 0)."""
-        if not hasattr(lib, "ffpa_bwd_dkdv_plan"):
-            return True
-        out = (ctypes.c_int * 64)()
-        return (base_plan(lib, "flash_bwd", flash_bwd._ARGTYPES, "ffpa_bwd_dkdv_plan", 1024, 1024,
-                          out, len(out)) == 0 and out[0] == 0)
-
-    def __init__(self, lib):
-        self._lib = lib
-
-    def __getattr__(self, name):
-        fn = getattr(self._lib, name)
-        if name != "ffpa_bwd_dkdv":
-            return fn
-        argtypes = pre_ring(flash_bwd._ARGTYPES, name)
-        argtypes.insert(self.PASSES, ctypes.c_int)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-
-        def call(*args):
-            args = list(args)
-            args.insert(self.PASSES, mma_sync_passes(args[self.D], args[self.DV]))
-            return fn(*args)
-
-        call.argtypes = fn.argtypes
-        return call
-
-
-class LegacyDq:
-    """A flash_bwd library built from sources before the dQ cluster route:
-    D or Dv above 512 take its mma.sync kernel, which reads block_q (the
-    current entry point takes its own 64-row tile, and the wrapper passes
-    0), so the row tile that library's own plan names is put in. Every
-    other symbol is the wrapped library's own."""
-
-    BLOCK_Q, D, DV = 16, 22, 23  # ffpa_bwd_dq's block_q, D and Dv
-
-    @staticmethod
-    def _rows(lib, d: int, dv: int) -> tuple:
-        """(route, Q rows) of ``lib``'s dQ plan at (d, dv)."""
-        out = (ctypes.c_int * 32)()
-        if base_plan(lib, "flash_bwd", flash_bwd._ARGTYPES, "ffpa_bwd_dq_plan", d, dv, out,
-                     len(out)) != 0:
-            raise RuntimeError(f"the base library refuses a dQ plan at D{d}/Dv{dv}")
-        return out[0], out[1]
-
-    @staticmethod
-    def needed(lib) -> bool:
-        """Whether ``lib`` sends D1024 to the mma.sync route (route 0)."""
-        return LegacyDq._rows(lib, 1024, 1024)[0] == 0
-
-    def __init__(self, lib):
-        self._lib = lib
-
-    def __getattr__(self, name):
-        fn = getattr(self._lib, name)
-        if name != "ffpa_bwd_dq":
-            return fn
-        fn.argtypes = pre_ring(flash_bwd._ARGTYPES, name)
-        fn.restype = ctypes.c_int
-
-        def call(*args):
-            args = list(args)
-            args[self.BLOCK_Q] = self._rows(self._lib, args[self.D], args[self.DV])[1]
-            return fn(*args)
-
-        call.argtypes = fn.argtypes
-        return call
-
-
-class LegacyPagedArgs:
-    """A paged_decode library built from sources with the cp.async route
-    beside the TMA one: its entry point takes a row tile after
-    the int8 flag and the cp.async route's kv_per_split before the split
-    count, which the package's wrapper no longer passes. It is given 16
-    (the row tile those sources planned for R <= 16 on both routes) and the
-    capacity's 64-row tiles cut evenly over the wrapper's splits (its TMA
-    route reads neither; at the wrapper's splits its cp.async route walks
-    the same capacity). Its plan and attribute entry points are not
-    called."""
-
-    @staticmethod
-    def needed(src: Path) -> bool:
-        """Whether the sources in ``src`` still take kv_per_split."""
-        return "kv_per_split" in (src / "paged_decode.cu").read_text()
-
-    def __init__(self, lib):
-        self._lib = lib
-
-    def __getattr__(self, name):
-        fn = getattr(self._lib, name)
-        if name != "ffpa_paged_decode":
-            return fn
-        argtypes = list(paged._ARGTYPES[name])
-        argtypes.insert(13, ctypes.c_int)  # the row tile, after the int8 flag
-        argtypes.insert(26, ctypes.c_int)  # kv_per_split, before the split count
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-
-        def call(*args):
-            page, max_pages, splits = args[19], args[20], args[25]
-            kv_per_split = cdiv(cdiv(max_pages * page, 64), splits) * 64
-            return fn(*args[:13], 16, *args[13:25], kv_per_split, *args[25:])
-
-        call.argtypes = argtypes
-        return call
-
-
-class LegacyVarlenBwd:
-    """A varlen_bwd library built from sources before the wgmma dK/dV
-    route: its dK/dV entry point takes no order (the argument after imax),
-    reads the intervals at its own 128 x 32 tiles and splits the columns
-    into passes of 512. Those intervals (``SCHEDULE``, set by
-    ``make_runs``) and passes are put in; every other symbol is the
-    library's own."""
-
-    SCHEDULE = None  # (imin, imax) at 128 x 32
-    IMIN, IMAX, ORDER, TILES, D, DV, PASSES = 20, 21, 22, 29, 30, 31, 32
-
-    def __init__(self, lib):
-        self._lib = lib
-
-    def __getattr__(self, name):
-        fn = getattr(self._lib, name)
-        if name != "ffpa_varlen_bwd_dkdv":
-            return fn
-        argtypes = pre_ring(varlen._VARLEN_BWD_ARGTYPES, name)
-        del argtypes[self.ORDER]
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-
-        def call(*args):
-            args = list(args)
-            imin, imax = self.SCHEDULE
-            args[self.IMIN], args[self.IMAX] = imin.data_ptr(), imax.data_ptr()
-            args[self.TILES] = imin.shape[0]
-            args[self.PASSES] = mma_sync_passes(args[self.D], args[self.DV])
-            del args[self.ORDER]
-            return fn(*args)
-
-        call.argtypes = argtypes
-        return call
-
-
-class LegacyVarlenWideDkdv:
-    """A varlen_bwd library whose plan sends D or Dv above 512 to its
-    mma.sync dK/dV kernel (built from sources before the cluster route):
-    there its entry point reads each KV tile's interval at its own 128 x 32
-    tiles, ceil(Tk / 32) KV tiles and passes of 512 columns, and not the
-    order. Those intervals (``SCHEDULE``, set by ``make_runs`` for the wide
-    packing) and passes are put in at D or Dv above 512; every other call
-    and symbol is the library's own."""
-
-    SCHEDULE = None  # (imin, imax) at 128 x 32
-    IMIN, IMAX, TILES, D, DV, PASSES = 20, 21, 29, 30, 31, 32
-
-    @staticmethod
-    def needed(lib) -> bool:
-        """Whether ``lib`` sends D1024 to the mma.sync route (route 0)."""
-        out = (ctypes.c_int * 64)()
-        return (base_plan(lib, "varlen_bwd", varlen._VARLEN_BWD_ARGTYPES,
-                          "ffpa_varlen_bwd_dkdv_plan", 1024, 1024, out, len(out)) == 0
-                and out[0] == 0)
-
-    def __init__(self, lib):
-        self._lib = lib
-
-    def __getattr__(self, name):
-        fn = getattr(self._lib, name)
-        if name != "ffpa_varlen_bwd_dkdv":
-            return fn
-        fn.argtypes = pre_ring(varlen._VARLEN_BWD_ARGTYPES, name)
-        fn.restype = ctypes.c_int
-
-        def call(*args):
-            args = list(args)
-            if max(args[self.D], args[self.DV]) > 512:
-                imin, imax = self.SCHEDULE
-                args[self.IMIN], args[self.IMAX] = imin.data_ptr(), imax.data_ptr()
-                args[self.TILES] = imin.shape[0]
-                args[self.PASSES] = mma_sync_passes(args[self.D], args[self.DV])
-            return fn(*args)
-
-        call.argtypes = fn.argtypes
-        return call
-
-
-class LegacyVarlenWideDq:
-    """A varlen_bwd library whose plan sends D or Dv above 512 to its
-    mma.sync dQ kernel (built from sources before the dQ cluster route):
-    its dQ entry point takes each Q tile's [jmin, jmax] (the two arguments
-    before the tile list) and a row tile (the argument before Hq), and
-    above D512 walks every 64-row KV tile of each ``block_q``-row Q tile's
-    interval. There the row tile its plan names and those intervals
-    (``SCHEDULE[(tq, rows)]``, set by ``make_runs`` for the wide packing)
-    and their Q tile count are put in; at D, Dv <= 512 (its wgmma route)
-    the intervals are null and the row tile is not read. Every other symbol
-    is the library's own."""
-
-    SCHEDULE = {}  # (tq, rows) -> (jmin, jmax) at rows x 64
-    ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 8 + [ctypes.c_void_p] * 13
-                + [ctypes.c_int] * 10 + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
-                + [ctypes.c_void_p])
-    TILES, HQ, TQ, NQT, D, DV = 19, 24, 26, 28, 30, 31  # in the head's argument list
-
-    @staticmethod
-    def rows(lib, d: int, dv: int) -> int:
-        """The route (0 mma.sync) and row tile of ``lib``'s dQ plan."""
-        out = (ctypes.c_int * 64)()
-        if base_plan(lib, "varlen_bwd", varlen._VARLEN_BWD_ARGTYPES, "ffpa_varlen_bwd_dq_plan",
-                     d, dv, out, len(out)) != 0:
-            raise RuntimeError(f"the base library's dQ plan refuses D{d}/Dv{dv}")
-        return out[0], out[1]
-
-    @classmethod
-    def needed(cls, lib) -> bool:
-        """Whether ``lib`` sends D1024 to the mma.sync route (route 0)."""
-        return hasattr(lib, "ffpa_varlen_bwd_dq_plan") and cls.rows(lib, 1024, 1024)[0] == 0
-
-    def __init__(self, lib):
-        self._lib = lib
-
-    def __getattr__(self, name):
-        fn = getattr(self._lib, name)
-        if name != "ffpa_varlen_bwd_dq":
-            return fn
-        fn.argtypes = self.ARGTYPES
-        fn.restype = ctypes.c_int
-
-        def call(*args):
-            args = list(args)
-            jmin = jmax = None
-            route, rows = self.rows(self._lib, args[self.D], args[self.DV])
-            if route == 0:
-                jmin, jmax = self.SCHEDULE[(args[self.TQ], rows)]
-                args[self.NQT] = jmin.shape[0]
-            old = (args[:self.TILES] + [None if jmin is None else jmin.data_ptr(),
-                                        None if jmax is None else jmax.data_ptr()]
-                   + args[self.TILES:self.HQ] + [rows] + args[self.HQ:])
-            return fn(*old)
-
-        call.argtypes = self.ARGTYPES
-        return call
-
-
-class LegacyVarlenFwd:
-    """A varlen_fwd library built from sources before the wgmma route: its
-    entry point takes no needed-tile list, counts or order (the three
-    arguments after jmax) and no KV tile count (the argument after the Q
-    tile count), and walks each ``block_q``-row Q tile's [jmin, jmax]. The
-    intervals at 64-row Q tiles of the packing of ``tq`` rows
-    (``SCHEDULE[tq]``, set by ``make_runs``) and that row tile are put in;
-    every other symbol is the library's own."""
-
-    SCHEDULE = {}  # tq -> (jmin, jmax) at 64 x 64
-    JMIN, JMAX, TILES, NTILE, ORDER, BLOCK_Q, TQ, NQT, NKVT = 15, 16, 17, 18, 19, 22, 25, 27, 28
-
-    def __init__(self, lib):
-        self._lib = lib
-
-    def __getattr__(self, name):
-        fn = getattr(self._lib, name)
-        if name != "ffpa_varlen_fwd":
-            return fn
-        drop = (self.NKVT, self.ORDER, self.NTILE, self.TILES)  # descending
-        argtypes = list(varlen._VARLEN_ARGTYPES[name])
-        for i in drop:
-            del argtypes[i]
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-
-        def call(*args):
-            args = list(args)
-            jmin, jmax = self.SCHEDULE[args[self.TQ]]
-            args[self.JMIN], args[self.JMAX] = jmin.data_ptr(), jmax.data_ptr()
-            args[self.BLOCK_Q], args[self.NQT] = 64, jmin.shape[0]
-            for i in drop:
-                del args[i]
-            return fn(*args)
-
-        call.argtypes = argtypes
-        return call
-
-
-class LegacyVarlenWideFwd:
-    """A varlen_fwd library whose plan sends D or Dv above 512 to its
-    mma.sync kernel (built from sources before the forward's cluster
-    route): there its entry point walks every KV tile of each
-    ``block_q``-row Q tile's [jmin, jmax] (ceil(Tq / block_q) Q tiles). The
-    row tile its plan names, the intervals at it (``SCHEDULE[(tq, rows)]``,
-    set by ``make_runs`` for the wide packing) and their Q tile count are
-    put in; at D, Dv <= 512 (its wgmma route) the call is passed as it is.
-    Every other symbol is the library's own."""
-
-    SCHEDULE = {}  # (tq, rows) -> (jmin, jmax) at rows x 64
-    JMIN, JMAX, BLOCK_Q, TQ, NQT, D, DV = 15, 16, 22, 25, 27, 29, 30
-
-    @staticmethod
-    def plan(lib, d: int, dv: int) -> tuple:
-        """The route (0 mma.sync) and row tile of ``lib``'s forward plan."""
-        fn = lib.ffpa_varlen_fwd_plan
-        fn.argtypes = varlen._VARLEN_ARGTYPES["ffpa_varlen_fwd_plan"]
-        fn.restype = ctypes.c_int
-        out = (ctypes.c_int * 32)()
-        if fn(d, dv, out, len(out)) != 0:
-            raise RuntimeError(f"the base library's forward plan refuses D{d}/Dv{dv}")
-        return out[0], out[1]
-
-    @classmethod
-    def needed(cls, lib) -> bool:
-        """Whether ``lib`` sends D1024 to the mma.sync route (route 0)."""
-        return hasattr(lib, "ffpa_varlen_fwd_plan") and cls.plan(lib, 1024, 1024)[0] == 0
-
-    def __init__(self, lib):
-        self._lib = lib
-
-    def __getattr__(self, name):
-        fn = getattr(self._lib, name)
-        if name != "ffpa_varlen_fwd":
-            return fn
-        fn.argtypes = varlen._VARLEN_ARGTYPES[name]
-        fn.restype = ctypes.c_int
-
-        def call(*args):
-            args = list(args)
-            route, rows = self.plan(self._lib, args[self.D], args[self.DV])
-            if route == 0:
-                jmin, jmax = self.SCHEDULE[(args[self.TQ], rows)]
-                args[self.JMIN], args[self.JMAX] = jmin.data_ptr(), jmax.data_ptr()
-                args[self.BLOCK_Q], args[self.NQT] = rows, jmin.shape[0]
-            return fn(*args)
-
-        call.argtypes = fn.argtypes
         return call
 
 
@@ -1067,9 +528,6 @@ def make_runs(gen) -> tuple:
     ops = varlen._BwdOperands(bq, bk, bv, bdo, blse, bdelta, None)
     sched = varlen._backward_schedules(meta, bt, varlen_dkdv_plan(d, d), varlen_dq_plan(d, d),
                                        True, (-1, -1))
-    # The mma.sync dK/dV route's intervals at its 128 x 32 tiles.
-    LegacyVarlenBwd.SCHEDULE = varlen._dkdv_intervals(varlen._tile_needed(*meta, 128, 32,
-                                                                          True))[:2]
     bkw = dict(scale=scale, causal=True, softcap=0.0, window=(-1, -1))
     del bo
     # The varlen dK/dV above D512: 8 documents in 4096 tokens, H8/4 causal.
@@ -1105,18 +563,7 @@ def make_runs(gen) -> tuple:
             fwd_plain=(lambda a_=(wq_, wk_, wv_), s_=wkw["scale"]:
                        varlen._varlen_forward_plain(*a_, wmeta, scale=s_, causal=True)[0]))
         del wo
-    # The mma.sync routes' intervals above D512: dK/dV's at 128 x 32, dQ's
-    # at each row tile x 64.
-    LegacyVarlenWideDkdv.SCHEDULE = varlen._dkdv_intervals(varlen._tile_needed(
-        *wmeta, 128, 32, True))[:2]
-    for rows in (64, 32):
-        LegacyVarlenWideDq.SCHEDULE[(wt, rows)] = LegacyVarlenWideFwd.SCHEDULE[(wt, rows)] = (
-            varlen._interval_schedule(varlen._tile_needed(*varlen._q_tiles(wmeta, wt, rows), rows,
-                                                          64, True)))
     vmeta = varlen._call_metadata(cu, cu, tot, tot, "cuda")
-    for t_, m_ in ((tot, vmeta), (bt, meta)):  # a base library's intervals at 64 rows
-        needed = varlen._tile_needed(*varlen._q_tiles(m_, t_, 64), 64, 64, True)
-        LegacyVarlenFwd.SCHEDULE[t_] = varlen._interval_schedule(needed)
 
     def reset():
         turn[0] = 0
@@ -1260,49 +707,14 @@ def main() -> int:
         "head": build_tree(_build.CSRC_DIR, REPO / "build" / "ab" / "head", wanted),
     }
     base_src = Path(args.base).resolve()
-    for source in BASE_RING:
-        if (base_src / f"{source}.cu").exists():
-            BASE_RING[source] = not LegacyRingCap.needed(base_src, source)
-    base_bwd = trees["base"].get("flash_bwd")
-    if base_bwd is not None and LegacyDsBits.needed(Path(args.base).resolve()):
-        trees["base"]["flash_bwd"] = base_bwd = LegacyDsBits(base_bwd)
-    if base_bwd is not None and not hasattr(base_bwd, "ffpa_bwd_banded_plan"):
-        trees["base"]["flash_bwd"] = base_bwd = LegacyBanded(base_bwd)
-    if base_bwd is not None and LegacyDkdv.needed(base_bwd):
-        trees["base"]["flash_bwd"] = base_bwd = LegacyDkdv(base_bwd)
-    if base_bwd is not None and LegacyDq.needed(base_bwd):
-        trees["base"]["flash_bwd"] = LegacyDq(base_bwd)
-    base_paged = trees["base"].get("paged_decode")
-    if base_paged is not None and LegacyPagedArgs.needed(Path(args.base).resolve()):
-        trees["base"]["paged_decode"] = LegacyPagedArgs(base_paged)
-    base_varlen = trees["base"].get("varlen_bwd")
-    if base_varlen is not None and not hasattr(base_varlen, "ffpa_varlen_bwd_dkdv_plan"):
-        trees["base"]["varlen_bwd"] = base_varlen = LegacyVarlenBwd(base_varlen)
-    if (base_varlen is not None and hasattr(base_varlen, "ffpa_varlen_bwd_dkdv_plan")
-            and LegacyVarlenWideDkdv.needed(base_varlen)):
-        trees["base"]["varlen_bwd"] = base_varlen = LegacyVarlenWideDkdv(base_varlen)
-    if base_varlen is not None and LegacyVarlenWideDq.needed(base_varlen):
-        trees["base"]["varlen_bwd"] = LegacyVarlenWideDq(base_varlen)
-    for source, table in (("flash_bwd", flash_bwd._ARGTYPES),
-                          ("varlen_bwd", varlen._VARLEN_BWD_ARGTYPES)):
-        if source in trees["base"] and not BASE_RING[source]:
-            trees["base"][source] = LegacyRingCap(trees["base"][source], table)
-    base_fwd = trees["base"].get("varlen_fwd")
-    if base_fwd is not None and not hasattr(base_fwd, "ffpa_varlen_fwd_plan"):
-        trees["base"]["varlen_fwd"] = LegacyVarlenFwd(base_fwd)
-    elif base_fwd is not None and LegacyVarlenWideFwd.needed(base_fwd):
-        trees["base"]["varlen_fwd"] = LegacyVarlenWideFwd(base_fwd)
+    for source, table in (("flash_fwd", flash_fwd._ARGTYPES),
+                          ("varlen_fwd", varlen._VARLEN_ARGTYPES)):
+        if source in trees["base"] and LegacyFwdRingCap.needed(base_src, source):
+            trees["base"][source] = LegacyFwdRingCap(trees["base"][source], table)
     runs, reset, plains = make_runs(torch.Generator(device="cuda").manual_seed(0))
 
-    decode_splits = decode._tma_splits
-
-    def use(tag, k):
+    def use(tag):
         _build.load = lambda name: trees[tag][name]
-        lib = trees[tag].get("decode")
-        wide = k.startswith("decode_d1024")
-        legacy = lib is not None and k.startswith("decode") and cp_async_decode(
-            lib, 1024 if wide else 512)
-        decode._tma_splits = legacy_splits if legacy else decode_splits
 
     times = {tag: {k: [] for k in kernels} for tag in trees}
     events = {tag: {k: [] for k in kernels} for tag in trees}
@@ -1312,10 +724,9 @@ def main() -> int:
     outs = {}
     for tag in ("base", "head", "head", "base"):
         for k in kernels:
-            if SOURCE[k] not in trees[tag] or not hasattr(trees[tag][SOURCE[k]],
-                                                          ENTRY.get(k, "ffpa_error_string")):
+            if SOURCE[k] not in trees[tag]:
                 continue
-            use(tag, k)
+            use(tag)
             reps = 5 * args.reps if k.startswith(("decode", "paged_decode")) else args.reps
             events[tag][k].append(cuda_ms(runs[k], reps=reps))
             if k in enqueue[tag]:
